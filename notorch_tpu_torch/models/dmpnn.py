@@ -1,0 +1,126 @@
+"""The D-MPNN property predictor: embed -> message passing -> readout -> FFN.
+
+Port of ``notorch_tpu.models.dmpnn`` for regression on the bin-packed dense
+layout, the layout ``layout="auto"`` resolves to by default. The block is
+:class:`~notorch_tpu_torch.nn.chemprop_dense.FusedDenseChempropBlock` for
+``reduce`` sum and mean, as in the JAX package. Other layouts, task types
+and readouts raise ``NotImplementedError`` until their slice is ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
+from notorch_tpu_torch.model.model import Model, fill_pred_transform_keys
+from notorch_tpu_torch.nn.chemprop_dense import (
+    DenseGraphEmbedding,
+    FusedDenseChempropBlock,
+    PackedMean,
+)
+from notorch_tpu_torch.nn.mlp import MLP
+from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
+
+AGGREGATIONS = ("sum", "mean", "max", "gated", "sdp")
+REDUCES = ("sum", "mean", "max")
+
+
+def resolve_layout(
+    layout: str = "auto",
+    *,
+    dropout: float = 0.0,
+    dtype=None,
+    graph_axis: str | None = None,
+    remat: bool = False,
+    impl: str = "gather",
+    aggregation: str = "mean",
+    reduce: str = "sum",
+) -> str:
+    """The layout ``notorch_tpu.models.dmpnn.resolve_layout`` picks for the
+    same arguments: ``"dense_packed"`` when no edge dropout, f32 state, no
+    graph-axis partitioning, no remat and the default ``impl``; ``"dense"``
+    for dropout or a non-f32 dtype; ``"flat"`` for partitioning, remat or a
+    flat-specific ``impl``. Explicit layouts pass through unchanged."""
+    if aggregation not in AGGREGATIONS:
+        raise ValueError(f"unknown aggregation {aggregation!r}; options: {sorted(AGGREGATIONS)}")
+    if reduce not in REDUCES:
+        raise ValueError(f"unknown reduce {reduce!r}; options: {sorted(REDUCES)}")
+    if layout != "auto":
+        return layout
+    if graph_axis is not None or remat or impl != "gather":
+        return "flat"
+    if dtype is not None and str(dtype).removeprefix("torch.") != "float32":
+        return "dense"
+    if dropout and dropout > 0.0:
+        return "dense"
+    return "dense_packed"
+
+
+def build_dmpnn(
+    num_tasks: int = 1,
+    task: str = "regression",
+    hidden_dim: int = DEFAULT_HIDDEN_DIM,
+    depth: int = 3,
+    dropout: float = 0.0,
+    aggregation: str = "mean",
+    reduce: str = "sum",
+    ffn_layers: int = 1,
+    transforms: dict | None = None,
+    num_node_types: int | None = None,
+    num_edge_types: int | None = None,
+    dtype=None,
+    graph_axis: str | None = None,
+    remat: bool = False,
+    impl: str = "gather",
+    layout: str = "auto",
+    generator: torch.Generator | None = None,
+) -> Model:
+    """The canonical embed -> chemprop -> readout -> FFN predictor, with the
+    same four modules (``embed``, ``mp``, ``readout``, ``ffn``) and keys as
+    the JAX package's. Parameters are drawn from ``generator`` with flax's
+    initializer families; the model is built on the CPU (``Model.to``
+    moves it)."""
+    layout = resolve_layout(
+        layout, dropout=dropout, dtype=dtype, graph_axis=graph_axis,
+        remat=remat, impl=impl, aggregation=aggregation, reduce=reduce,
+    )
+    if layout != "dense_packed":
+        raise NotImplementedError(
+            f"layout {layout!r} is not ported yet; the port serves 'dense_packed' "
+            "(the 'dense' and 'flat' layouts come with later slices)"
+        )
+    if task != "regression":
+        raise NotImplementedError(f"task {task!r} is not ported yet; only regression is")
+    if aggregation != "mean":
+        raise NotImplementedError(f"aggregation {aggregation!r} is not ported yet; only mean is")
+    if reduce == "max":
+        raise NotImplementedError("reduce='max' (the plain dense block) is not ported yet")
+
+    modules = {
+        "embed": {
+            "module": DenseGraphEmbedding(
+                num_node_types if num_node_types is not None else DEFAULT_NUM_ATOM_TYPES,
+                num_edge_types if num_edge_types is not None else DEFAULT_NUM_BOND_TYPES,
+                hidden_dim=hidden_dim,
+            ),
+            "in_keys": ["inputs.G"],
+            "out_keys": ["G"],
+        },
+        "mp": {
+            "module": FusedDenseChempropBlock(hidden_dim=hidden_dim, depth=depth, reduce=reduce),
+            "in_keys": ["embed.G"],
+            "out_keys": ["G"],
+        },
+        "readout": {"module": PackedMean(), "in_keys": ["mp.G"], "out_keys": ["H"]},
+        "ffn": {
+            "module": MLP(
+                input_dim=hidden_dim, output_size=num_tasks, hidden_dim=hidden_dim,
+                num_layers=ffn_layers, dropout=dropout,
+            ),
+            "in_keys": ["readout.H"],
+            "out_keys": ["preds"],
+        },
+    }
+    model = Model(modules=modules, transforms=fill_pred_transform_keys(transforms, "ffn.preds"))
+    model.reset_parameters(generator)
+    return model

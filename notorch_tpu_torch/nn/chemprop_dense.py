@@ -1,0 +1,210 @@
+"""D-MPNN over the dense per-molecule and bin-packed layouts.
+
+Port of ``notorch_tpu.nn.chemprop_dense`` for the serving path: the graph
+embedding, the plain block (the oracle of the fused one), the block backed
+by the hand-written kernel (forward only), and the mean readouts.
+
+Both blocks keep the per-layer weights stacked, as the kernel consumes
+them: ``weight`` ``[depth, d, d]`` in the JAX ``[in, out]`` layout and
+``bias`` ``[depth, d]`` (see :func:`notorch_tpu_torch.model.convert.
+params_from_jax` for the mapping from the JAX ``layer_i/update`` tree).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
+from notorch_tpu_torch.data.dense import DenseBatchedGraph, rev_pair_swap
+from notorch_tpu_torch.kernels.dense_mpnn import fused_dense_mpnn_block
+from notorch_tpu_torch.nn.embed import EmbeddingBagSum
+from notorch_tpu_torch.nn.init import lecun_normal_
+
+_TRAINING_SLICE = "the training slice of the port"
+
+
+class _StackedLayers(nn.Module):
+    """``depth`` dense layers ``[d, d]`` with biases, stored stacked for the
+    kernel."""
+
+    def __init__(self, hidden_dim: int, depth: int):
+        super().__init__()
+        self.hidden_dim = hidden_dim
+        self.depth = depth
+        self.weight = nn.Parameter(torch.empty(depth, hidden_dim, hidden_dim))
+        self.bias = nn.Parameter(torch.empty(depth, hidden_dim))
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        for layer in range(self.depth):
+            lecun_normal_(self.weight[layer], self.hidden_dim, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+
+def _mean_scale(G: DenseBatchedGraph, like: torch.Tensor) -> torch.Tensor:
+    """``[B, V, 1]`` real in-degree of every node slot, floored at 1."""
+    B, V = G.node_mask.shape
+    counts = torch.zeros(B * V + 1, dtype=like.dtype, device=like.device)
+    ones = torch.ones(G.dst.numel(), dtype=like.dtype, device=like.device)
+    counts.index_add_(0, _scatter_ids(G), ones)
+    return counts[: B * V].reshape(B, V, 1).clamp_min(1.0)
+
+
+def _scatter_ids(G: DenseBatchedGraph) -> torch.Tensor:
+    """Flat node slot ``b * V + dst`` of every edge lane; padding lanes go to
+    the trash slot ``B * V``."""
+    B, V = G.node_mask.shape
+    ids = G.dst.long() + V * torch.arange(B, device=G.dst.device)[:, None]
+    return torch.where(G.edge_mask, ids, B * V).reshape(-1)
+
+
+class DenseChempropBlock(_StackedLayers):
+    """The D-MPNN block in plain tensor ops (one-hot ``bmm`` gathers and
+    scatters and the pair swap): the oracle of :class:`FusedDenseChempropBlock`.
+    ``reduce`` is ``"sum"`` or ``"mean"``; dropout and ``"max"`` come with the
+    training slice."""
+
+    def __init__(
+        self,
+        hidden_dim: int = DEFAULT_HIDDEN_DIM,
+        depth: int = 3,
+        residual: bool = True,
+        reduce: str = "sum",
+    ):
+        if reduce not in ("sum", "mean"):
+            raise NotImplementedError(
+                f"reduce={reduce!r} is not ported yet (max comes with {_TRAINING_SLICE})"
+            )
+        super().__init__(hidden_dim, depth)
+        self.residual = residual
+        self.reduce = reduce
+
+    def forward(self, G: DenseBatchedGraph) -> DenseBatchedGraph:
+        S = G.scatter_matrix(torch.float32)  # [B, V, E]
+        Gm = G.gather_matrix(torch.float32)  # [B, E, V]
+        if self.reduce == "mean":
+            S = S / S.sum(dim=-1, keepdim=True).clamp_min(1.0)
+        h = torch.bmm(Gm, G.node_feats) + G.edge_feats
+        for layer in range(self.depth):
+            m = torch.relu(h)
+            em = torch.bmm(Gm, torch.bmm(S, m)) - rev_pair_swap(m)
+            out = torch.matmul(em, self.weight[layer]) + self.bias[layer]
+            h = h + out if self.residual else out
+        return G.update(node_feats=torch.bmm(S, h), edge_feats=h)
+
+
+class FusedDenseChempropBlock(_StackedLayers):
+    """D-MPNN block backed by the hand-written kernel
+    (:func:`notorch_tpu_torch.kernels.dense_mpnn.fused_dense_mpnn_block`),
+    forward only.
+
+    The ``h0 = G @ node_feats + edge_feats`` gather and the final E->V
+    scatter stay plain tensor ops around the kernel, as they lie outside the
+    Pallas kernel in the JAX package. Padded-lane contract: the kernel folds
+    the reverse-message subtraction into its operator, so ``edge_feats`` on
+    PADDED edge lanes differ from :class:`DenseChempropBlock`'s; real lanes
+    and the masked scatter agree.
+
+    ``backward``, ``fuse_ends``, ``matmul_dtype`` and ``stash_dtype`` are the
+    JAX block's options; only their forward-only f32 defaults are ported.
+    """
+
+    def __init__(
+        self,
+        hidden_dim: int = DEFAULT_HIDDEN_DIM,
+        depth: int = 3,
+        residual: bool = True,
+        reduce: str = "sum",
+        backward: str = "stash",
+        matmul_dtype: str | None = None,
+        stash_dtype: str | None = None,
+        fuse_ends: bool = False,
+    ):
+        if reduce not in ("sum", "mean"):
+            raise NotImplementedError(
+                "the fused block implements reduce='sum' and 'mean' (both fold into "
+                "its linear edge operator); max is non-foldable"
+            )
+        if backward != "stash" or matmul_dtype is not None or stash_dtype is not None or fuse_ends:
+            raise NotImplementedError(
+                "backward, matmul_dtype, stash_dtype and fuse_ends other than their "
+                "defaults are not ported yet: this block runs the f32 forward only; "
+                f"the rest comes with {_TRAINING_SLICE}"
+            )
+        super().__init__(hidden_dim, depth)
+        self.residual = residual
+        self.reduce = reduce
+
+    def forward(self, G: DenseBatchedGraph) -> DenseBatchedGraph:
+        if torch.is_grad_enabled() and self.weight.requires_grad:
+            raise NotImplementedError(
+                f"the fused block has no backward yet ({_TRAINING_SLICE}); call it "
+                "under torch.inference_mode() or torch.no_grad()"
+            )
+        B, V, d = G.node_feats.shape
+        src = G.src.long()[..., None].expand(-1, -1, d)
+        h0 = torch.gather(G.node_feats, 1, src) + G.edge_feats
+        edge_hiddens = fused_dense_mpnn_block(
+            h0.contiguous(), G.src, G.dst, G.edge_mask, self.weight, self.bias,
+            depth=self.depth, n_nodes=V, residual=self.residual, reduce=self.reduce,
+        )
+        nodes = torch.zeros(B * V + 1, d, dtype=edge_hiddens.dtype, device=edge_hiddens.device)
+        nodes.index_add_(0, _scatter_ids(G), edge_hiddens.reshape(-1, d))
+        node_hiddens = nodes[: B * V].reshape(B, V, d)
+        if self.reduce == "mean":
+            node_hiddens = node_hiddens / _mean_scale(G, node_hiddens)
+        return G.update(node_feats=node_hiddens, edge_feats=edge_hiddens)
+
+
+class DenseGraphEmbedding(nn.Module):
+    """Type-index embedding of a dense batch's node and edge type ids."""
+
+    def __init__(self, num_node_types: int, num_edge_types: int, hidden_dim: int = DEFAULT_HIDDEN_DIM):
+        super().__init__()
+        self.node = EmbeddingBagSum(num_node_types, hidden_dim)
+        self.edge = EmbeddingBagSum(num_edge_types, hidden_dim)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        self.node.reset_parameters(generator)
+        self.edge.reset_parameters(generator)
+
+    def forward(self, G: DenseBatchedGraph) -> DenseBatchedGraph:
+        return G.update(node_feats=self.node(G.node_feats), edge_feats=self.edge(G.edge_feats))
+
+
+class DenseMean(nn.Module):
+    """Per-graph masked mean over the node axis: [B, V, d] -> [B, d]."""
+
+    def forward(self, G: DenseBatchedGraph) -> torch.Tensor:
+        mask = G.node_mask[..., None].to(G.node_feats.dtype)
+        total = (G.node_feats * mask).sum(dim=1)
+        return total / mask.sum(dim=1).clamp_min(1.0)
+
+
+class PackedMean(nn.Module):
+    """Per-MOLECULE mean over a bin-packed batch: [NB, V_b, d] -> [n_mols, d]
+    by ``index_add_`` over ``node_graph`` (padding slots land in the extra
+    trash row and are dropped). Falls back to :class:`DenseMean` when the
+    batch carries no packing metadata."""
+
+    def forward(self, G: DenseBatchedGraph) -> torch.Tensor:
+        if G.node_graph is None:
+            return DenseMean()(G)
+        if G.n_mols is None:
+            raise ValueError("packed readout needs a pack_graphs_dense batch")
+        if G.n_shards != 1:
+            raise ValueError(
+                f"this packed batch carries {G.n_shards} chunk-local shards "
+                "(pack_graphs_dense(n_shards>1)); its node_graph ids are only "
+                "meaningful per shard — pack with n_shards=1"
+            )
+        d = G.node_feats.shape[-1]
+        M = G.n_mols
+        ids = G.node_graph.reshape(-1).long()
+        flat = G.node_feats.reshape(-1, d)
+        total = torch.zeros(M + 1, d, dtype=flat.dtype, device=flat.device)
+        total.index_add_(0, ids, flat)
+        counts = torch.zeros(M + 1, dtype=flat.dtype, device=flat.device)
+        counts.index_add_(0, ids, G.node_mask.reshape(-1).to(flat.dtype))
+        return total[:-1] / counts[:-1, None].clamp_min(1.0)

@@ -1,0 +1,31 @@
+"""Initializers with flax's families, drawn from an explicit generator.
+
+The port's modules start from the same distributions as the JAX package's
+(``flax.linen`` defaults), not from the same numbers: a ``torch.Generator``
+and a JAX key give different draws from one seed.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# std of a unit normal truncated to [-2, 2]; flax divides by it so that the
+# truncated draw keeps the requested variance
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator | None = None):
+    """``flax.linen.initializers.lecun_normal``: truncated normal with
+    variance ``1 / fan_in``, cut at two standard deviations."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    return torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+@torch.no_grad()
+def embed_normal_(weight: torch.Tensor, generator: torch.Generator | None = None):
+    """``flax.linen.Embed``'s default: normal with variance ``1 / features``
+    for a ``[num_embeddings, features]`` table."""
+    return weight.normal_(0.0, math.sqrt(1.0 / weight.shape[-1]), generator=generator)

@@ -1,0 +1,54 @@
+"""Configurable MLP head: ``[Dense, act] * L`` then ``Dense``, with dropout
+ahead of every dense layer but the first, and an optional unflatten of the
+output (e.g. ``[t, 2]`` heads). Port of ``notorch_tpu.nn.mlp.MLP``; the
+layers are named ``dense_{i}`` as there."""
+
+from __future__ import annotations
+
+from collections.abc import Sequence
+from math import prod
+
+import torch
+from torch import nn
+
+from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
+from notorch_tpu_torch.nn.init import lecun_normal_
+
+
+class MLP(nn.Module):
+    def __init__(
+        self,
+        input_dim: int,
+        output_size: int | Sequence[int] = 1,
+        hidden_dim: int = DEFAULT_HIDDEN_DIM,
+        num_layers: int = 1,
+        dropout: float = 0.0,
+    ):
+        super().__init__()
+        if isinstance(output_size, int):
+            output_dim, self.unflatten = output_size, None
+        else:
+            output_dim, self.unflatten = prod(output_size), tuple(output_size)
+        dims = [input_dim] + [hidden_dim] * num_layers + [output_dim]
+        for i in range(len(dims) - 1):
+            # torch.empty: values come from reset_parameters, never the global RNG
+            layer = nn.Linear(dims[i], dims[i + 1], device="meta").to_empty(device="cpu")
+            self.add_module(f"dense_{i}", layer)
+        self.n_layers = len(dims) - 1
+        self.dropout = nn.Dropout(dropout)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        for i in range(self.n_layers):
+            layer = getattr(self, f"dense_{i}")
+            lecun_normal_(layer.weight, layer.in_features, generator)
+            nn.init.zeros_(layer.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for i in range(self.n_layers):
+            if i > 0:
+                h = self.dropout(torch.relu(h))
+            h = getattr(self, f"dense_{i}")(h)
+        if self.unflatten is not None:
+            h = h.reshape(h.shape[:-1] + self.unflatten)
+        return h
