@@ -23,7 +23,6 @@ import torch
 
 from notorch_tpu_torch.cli.train import build_dataset, build_model
 from notorch_tpu_torch.data.batching import DataLoader
-from notorch_tpu_torch.models.dmpnn import resolve_layout
 from notorch_tpu_torch.tasks import transforms as task_transforms
 from notorch_tpu_torch.training.checkpoint import Checkpointer
 from notorch_tpu_torch.training.loop import predict
@@ -59,20 +58,9 @@ def run_predict(
         }
         for name, t in meta["transforms"].items()
     }
-    model_cfg = dict(meta["model"])
-    if model_cfg.get("kind", "dmpnn") == "dmpnn" and "modules" not in model_cfg:
-        # metas from current trainers store the resolved layout; this covers
-        # hand-written metas that still say "auto"
-        model_cfg["layout"] = resolve_layout(
-            model_cfg.get("layout", "auto"),
-            dropout=model_cfg.get("dropout", 0.0),
-            dtype=model_cfg.get("dtype"),
-            graph_axis=model_cfg.get("graph_axis"),
-            remat=model_cfg.get("remat", False),
-            impl=model_cfg.get("impl", "gather"),
-            aggregation=model_cfg.get("aggregation", "mean"),
-        )
-    model = build_model(model_cfg, transforms)
+    # build_dmpnn resolves layout "auto" and refuses every layout but
+    # dense_packed, so the loader below needs no layout of its own
+    model = build_model(meta["model"], transforms)
     model.network.load_state_dict(Checkpointer(checkpoint_dir).restore(step=step))
     model.to(device)
 
@@ -81,7 +69,7 @@ def run_predict(
     if smiles_col:
         data_cfg["smiles_col"] = smiles_col
     ds = build_dataset(data_cfg)  # no targets: inference CSVs need only molecules
-    loader = DataLoader(ds, batch_size=batch_size, layout=str(model_cfg.get("layout")))
+    loader = DataLoader(ds, batch_size=batch_size)
 
     preds = predict(model, loader, keys=[pred_key])
     flat = preds[pred_key][: len(ds)].reshape(len(ds), -1)

@@ -38,14 +38,16 @@ def round_up_ladder(value: int, ladder: list[int]) -> int:
     return value  # beyond the ladder: exact
 
 
-class DataLoader:
-    """Iterate bin-packed batch dicts over a :class:`MolecularDataset`.
+# edge lanes per bin: raised up the edge ladder to the batch's largest molecule
+BIN_EDGES = 128
 
-    ``bin_edges`` is the target edge capacity per bin (raised up the ladder
-    to the batch's largest molecule); ``bin_nodes`` pins the bin's node
-    capacity instead of the ``E_b // 2 + 8`` default; ``shards > 1`` packs
-    each contiguous ``batch_size / shards`` chunk into its own equal run of
-    bins with chunk-local readout ids.
+
+class DataLoader:
+    """Iterate bin-packed batch dicts over a :class:`MolecularDataset`, with
+    the bin caps of the JAX loader's defaults: ``E_b`` is ``BIN_EDGES``
+    raised up the ladder to the batch's largest molecule, ``V_b`` is
+    ``E_b // 2 + 8`` (or the largest molecule plus its padding sink) rounded
+    up to a multiple of 8, and the bin count is rounded up its own ladder.
     """
 
     def __init__(
@@ -53,11 +55,7 @@ class DataLoader:
         dataset: MolecularDataset,
         batch_size: int = 64,
         sampler=None,
-        cache: bool = True,
         layout: str = "dense_packed",
-        bin_edges: int = 128,
-        bin_nodes: int | None = None,
-        shards: int = 1,
     ):
         if layout != "dense_packed":
             raise NotImplementedError(
@@ -65,27 +63,18 @@ class DataLoader:
                 "per-molecule dense layouts come with the flat-layout slice); "
                 "build_dmpnn(layout='auto') resolves to 'dense_packed'"
             )
-        if batch_size % shards != 0:
-            raise ValueError(f"batch_size {batch_size} not divisible by shards {shards}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler if sampler is not None else SequentialSampler(len(dataset))
         self.layout = layout
-        self.bin_edges = bin_edges
-        self.bin_nodes = bin_nodes
-        self.shards = shards
         self.bin_ladder = bucket_ladder(8, 1 << 12)
         self.edge_ladder = bucket_ladder(32, 1 << 17)
-        self._cache: dict[int, dict] | None = {} if cache else None
+        self._cache: dict[int, dict] = {}
 
     def _fetch(self, idx: int) -> dict:
-        if self._cache is not None:
-            hit = self._cache.get(idx)
-            if hit is not None:
-                return hit
-        sample = self.dataset[idx]
-        if self._cache is not None:
-            self._cache[idx] = sample
+        sample = self._cache.get(idx)
+        if sample is None:
+            sample = self._cache[idx] = self.dataset[idx]
         return sample
 
     def __len__(self) -> int:
@@ -109,21 +98,10 @@ class DataLoader:
             max_v = max(g.num_nodes for g in graphs) + 1
             max_e = max(max(g.num_edges for g in graphs), 2)
             max_e += max_e % 2
-            e_b = max(self.bin_edges, round_up_ladder(max_e, self.edge_ladder))
-            v_b = -(-max(max_v, self.bin_nodes if self.bin_nodes is not None else e_b // 2 + 8) // 8) * 8
-            m_local = self.batch_size // self.shards
-            n_local = max(
-                (
-                    len(plan_bins(graphs[s * m_local : (s + 1) * m_local], v_b, e_b))
-                    for s in range(self.shards)
-                ),
-                default=1,
-            )
-            caps = (
-                v_b, e_b,
-                round_up_ladder(n_local, self.bin_ladder) * self.shards,
-                self.shards,
-            )
+            e_b = max(BIN_EDGES, round_up_ladder(max_e, self.edge_ladder))
+            v_b = -(-max(max_v, e_b // 2 + 8) // 8) * 8
+            n_bins = len(plan_bins(graphs, v_b, e_b))
+            caps = (v_b, e_b, round_up_ladder(n_bins, self.bin_ladder))
         return self.dataset.collate(
             samples, indices, graph_caps=caps, batch_cap=self.batch_size, layout=self.layout
         )

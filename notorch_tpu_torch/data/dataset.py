@@ -119,8 +119,8 @@ class MolecularDataset:
         """Build the batch dict with ``inputs.*`` / ``targets.*`` keys.
 
         ``layout="dense_packed"``: bin-packed dense blocks, ``graph_caps`` =
-        ``(nodes_per_bin, edges_per_bin, bin_cap[, n_shards])`` (exact caps
-        from the batch when None). Graph arrays and targets stay numpy.
+        ``(nodes_per_bin, edges_per_bin, bin_cap)`` (exact caps from the
+        batch when None). Graph arrays and targets stay numpy.
         """
         if layout != "dense_packed":
             raise NotImplementedError(
@@ -137,18 +137,15 @@ class MolecularDataset:
                     f"transform output {mgr.out_key!r} is not a Graph; only graph "
                     "featurization is ported"
                 )
-            n_shards = 1
             if graph_caps is not None:
-                v_b, e_b, bin_cap, *rest = graph_caps
-                n_shards = rest[0] if rest else 1
+                v_b, e_b, bin_cap = graph_caps
             else:
                 e_b = max(max((g.num_edges for g in values), default=2), 2)
                 e_b += e_b % 2
                 v_b = max(g.num_nodes for g in values) + 1
                 bin_cap = None
             batch[f"{INPUT_KEY_PREFIX}.{mgr.out_key}"] = pack_graphs_dense(
-                values, v_b, e_b, mol_cap=b_cap, bin_cap=bin_cap,
-                n_shards=n_shards, np_out=True,
+                values, v_b, e_b, mol_cap=b_cap, bin_cap=bin_cap, np_out=True
             )
 
         for name, arr in self._target_arrays.items():

@@ -84,7 +84,7 @@ class DenseBatchedGraph:
     def update(self, **kwargs) -> "DenseBatchedGraph":
         return dataclasses.replace(self, **kwargs)
 
-    def to(self, device, non_blocking: bool = False) -> "DenseBatchedGraph":
+    def to(self, device) -> "DenseBatchedGraph":
         """Move every array field to ``device`` (numpy fields become tensors)."""
 
         def move(x):
@@ -92,7 +92,7 @@ class DenseBatchedGraph:
                 return None
             if isinstance(x, np.ndarray):
                 x = torch.from_numpy(x)
-            return x.to(device, non_blocking=non_blocking)
+            return x.to(device)
 
         return self.update(**{k: move(getattr(self, k)) for k in self._ARRAYS})
 

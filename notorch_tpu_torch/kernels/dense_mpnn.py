@@ -25,7 +25,8 @@ CUDA-core f32 rate (67 TFLOP/s on an H100 SXM). The ``W`` products need
 * d`` per layer; the bytes (read ``h0``, ``W``, ``b`` and the index arrays
 once, write the output once) take about a tenth as long, so it is bound by
 operations. The design launches one kernel per layer on a (bin, 64-column)
-grid: ``relu(h) @ W`` by k-tiled shared-memory FMA, then ``A @ mW`` as a
+grid: ``relu(h) @ W`` by k-tiled shared-memory FMA, with the next tile's
+loads in flight during the current tile's FMAs, then ``A @ mW`` as a
 row-sparse sum over bit rows of ``A`` built in shared memory, so ``A`` costs
 operations only where it is nonzero and is never stored. ``fit_tile`` and
 ``mols_per_tile`` (the TPU's VMEM tiling policy) are dropped: a block always
@@ -137,6 +138,11 @@ def _launch_kernel(h0, src, dst, edge_mask, weights, biases, depth, residual, me
             f"the CUDA kernel takes bins of at most {lib.dense_mpnn_max_edges()} edge "
             f"lanes and a width that is a multiple of {lib.dense_mpnn_cols()}; got "
             f"E={E}, d={d}"
+        )
+    if h0.data_ptr() % 16 or weights.data_ptr() % 16:
+        raise ValueError(
+            "the CUDA kernel reads edge_hiddens and weights in 16-byte vectors; "
+            "their storage must start 16-byte aligned (pass a fresh tensor, not an offset view)"
         )
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream

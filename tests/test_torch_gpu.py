@@ -42,3 +42,19 @@ def test_cuda_kernel_matches_plain_version(E, reduce, residual):
     assert fused_dense_mpnn_block.launches == before + depth
     ref = dense_mpnn_block_reference(*args, depth=depth, residual=residual, reduce=reduce)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_rejects_misaligned_state():
+    """The kernel reads h in 16-byte vectors: a view that starts 4 bytes into
+    its storage is refused before launch, not read wrongly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    d, E = 64, 128
+    G = pack_graphs_dense([PIPE(s) for s in SMIS[:8]], E // 2 + 8, E, np_out=True)
+    B = G.src.shape[0]
+    h0 = torch.zeros(B * E * d + 1, device="cuda")[1:].view(B, E, d)
+    args = [h0] + [torch.from_numpy(x).cuda() for x in (G.src, G.dst, G.edge_mask)]
+    args += [torch.zeros(1, d, d, device="cuda"), torch.zeros(1, d, device="cuda")]
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_dense_mpnn_block(*args, depth=1, n_nodes=E // 2 + 8)

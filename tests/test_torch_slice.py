@@ -27,7 +27,7 @@ from notorch_tpu.transforms import MolToGraph as JaxMolToGraph
 from notorch_tpu.transforms import Pipeline as JaxPipeline
 from notorch_tpu.transforms import SmiToMol as JaxSmiToMol
 from notorch_tpu_torch.cli.predict import run_predict
-from notorch_tpu_torch.cli.train import build_dataset, save_predict_meta
+from notorch_tpu_torch.cli.train import build_dataset, build_model, load_config, save_predict_meta
 from notorch_tpu_torch.data.batching import DataLoader
 from notorch_tpu_torch.model.convert import params_from_jax, params_to_jax
 from notorch_tpu_torch.models.dmpnn import build_dmpnn
@@ -156,6 +156,17 @@ def test_task_transform_records_match_jax():
         task_transforms.deserialize(mve)
     with pytest.raises(NotImplementedError):
         task_transforms.build("classification", values)
+
+
+def test_config_builds_the_served_model():
+    """configs/dmpnn_regression.yaml read by the port gives the model the
+    chip smoke run serves: hidden 256, depth 3, one FFN layer."""
+    cfg = load_config(os.path.join(ROOT, "configs", "dmpnn_regression.yaml"))
+    model = build_model(cfg["model"], None, generator=torch.Generator().manual_seed(0))
+    sd = model.network.state_dict()
+    assert sd["mp.weight"].shape == (3, 256, 256)
+    assert sd["ffn.dense_0.weight"].shape == (256, 256) and sd["ffn.dense_1.weight"].shape == (1, 256)
+    assert type(model.network["readout"]).__name__ == "PackedMean"
 
 
 def test_unported_model_options_raise():
