@@ -3,15 +3,23 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of ``notorch_tpu_torch`` from the sources in this
-checkout, holds each against its plain PyTorch version on the card, serves
-the D-MPNN regression model of ``configs/dmpnn_regression.yaml`` (hidden
-256, depth 3, mean readout, 1 FFN layer; random weights from a seed) on the
-first 512 molecules of ``tests/data/lipo.csv`` through ``run_predict``,
-checks that the request went through the kernel and matches the plain CPU
-path, and times the kernel. Each phase prints one JSON line; the line
-before the last is the card's name and power limit as ``nvidia-smi`` gives
-them, and the last line is ``{"ok": true, "device": {...}}``. Any failure
-exits non-zero without that line; so does a machine with no CUDA device.
+checkout and drives the port's paths with the D-MPNN regression model of
+``configs/dmpnn_regression.yaml`` (hidden 256, depth 3, mean readout, 1 FFN
+layer, Adam with the Noam schedule, batch 64; random weights from a seed):
+
+- serve: ``run_predict`` of the first 512 molecules of ``tests/data/lipo.csv``
+  from a checkpoint of the seeded model, against the plain CPU path;
+- train: ``run(cfg)`` on the first 1,024 molecules for 2 epochs, against
+  the same run on the CPU, and ``run_predict`` of the checkpoint it wrote;
+- train epoch: a warm epoch timed and profiled, then an epoch with the
+  recompute backward against the stash backward's.
+
+Every kernel is held against its plain PyTorch version on the card at the
+shapes these paths give it, each path's launch counts are read, and the
+kernels are timed. Each phase prints one JSON line; then come a ``kernels``
+line, the card's name and power limit as ``nvidia-smi`` gives them, and last
+``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
+line; so does a machine with no CUDA device.
 """
 
 from __future__ import annotations
@@ -28,31 +36,54 @@ import numpy as np
 import torch
 
 from notorch_tpu_torch.cli.predict import run_predict
-from notorch_tpu_torch.cli.train import build_dataset, save_predict_meta
+from notorch_tpu_torch.cli.train import build_dataset, prepare, run, save_predict_meta
 from notorch_tpu_torch.data.batching import DataLoader
 from notorch_tpu_torch.data.dense import pack_graphs_dense
 from notorch_tpu_torch.kernels import build
 from notorch_tpu_torch.kernels.dense_mpnn import (
+    dense_mpnn_block_bwd_reference,
     dense_mpnn_block_reference,
+    dense_mpnn_block_stash_reference,
     edge_adjacency,
     fused_dense_mpnn_block,
+    fused_dense_mpnn_block_bwd,
+    fused_dense_mpnn_block_bwd_stash,
+    fused_dense_mpnn_block_stash,
 )
 from notorch_tpu_torch.models.dmpnn import build_dmpnn
 from notorch_tpu_torch.training.checkpoint import Checkpointer
+from notorch_tpu_torch.training.loop import fit
 
 ROOT = Path(__file__).resolve().parent
 N_MOLS, BATCH, SEED = 512, 64, 0
-# the model of configs/dmpnn_regression.yaml (read without a YAML parser,
-# which the card's machine may lack)
-MODEL_CFG = {"kind": "dmpnn", "hidden_dim": 256, "depth": 3, "aggregation": "mean",
-             "ffn_layers": 1, "layout": "dense_packed"}
+TRAIN_MOLS, TRAIN_EPOCHS = 1024, 2
+# the config of configs/dmpnn_regression.yaml (written out here: the card's
+# machine may lack a YAML parser)
+MODEL_CFG = {"kind": "dmpnn", "hidden_dim": 256, "depth": 3, "aggregation": "mean", "ffn_layers": 1}
+OPTIMIZER_CFG = {"name": "adam", "schedule": {"noam": {
+    "warmup_steps": 100, "cooldown_steps": 1500, "init_lr": 1e-4, "max_lr": 1e-3, "final_lr": 1e-4}}}
 # kernel vs plain and card vs CPU: both sides exact f32 (no TF32), summed in
 # another order (FMA over k, sparse rows vs dense bmm) through depth 3
 RTOL = ATOL = 1e-4
+# gradients: atol is ATOL times the tensor's largest magnitude, because g_W
+# and g_b sum B * E products each, so an element's rounding follows the size
+# of the terms it sums, not its own size, which cancellation can make small
+# the card's training run vs the CPU's, per-epoch means: Adam moves each
+# weight by about the rate whatever its gradient's size, so a gradient that
+# is round-off on both sides can move a weight by up to the rate the other
+# way; over the run's steps that stays far below this, and a fault does not
+TRAIN_RTOL = 1e-3
 # H100 SXM peaks at its 700 W limit (NVIDIA data sheet): CUDA-core f32 rate
 # and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+TPU_KERNELS = "notorch_tpu/kernels/dense_mpnn.py"
+KERNELS = {  # wrapper -> (source, the TPU kernel's entry it replaces)
+    fused_dense_mpnn_block: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:749"),
+    fused_dense_mpnn_block_stash: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:436"),
+    fused_dense_mpnn_block_bwd_stash: ("notorch_tpu_torch/csrc/dense_mpnn_bwd.cu", f"{TPU_KERNELS}:494"),
+    fused_dense_mpnn_block_bwd: ("notorch_tpu_torch/csrc/dense_mpnn_bwd.cu", f"{TPU_KERNELS}:687"),
+}
 
 
 def emit(**record) -> None:
@@ -64,6 +95,15 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -72,10 +112,10 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def lipo_csv(directory: Path) -> Path:
-    path = directory / f"lipo_head{N_MOLS}.csv"
+def lipo_csv(directory: Path, n: int) -> Path:
+    path = directory / f"lipo_head{n}.csv"
     with open(ROOT / "tests" / "data" / "lipo.csv", newline="") as f:
-        rows = list(csv.reader(f))[: N_MOLS + 1]
+        rows = list(csv.reader(f))[: n + 1]
     with open(path, "w", newline="") as f:
         csv.writer(f).writerows(rows)
     return path
@@ -90,6 +130,14 @@ def kernel_inputs(G, d: int, depth: int, seed: int) -> list[torch.Tensor]:
     b = (0.1 * rng.standard_normal((depth, d))).astype(np.float32)
     return [torch.from_numpy(np.ascontiguousarray(x)).cuda()
             for x in (h0, G.src, G.dst, G.edge_mask, W, b)]
+
+
+def cotangent(G, d: int, seed: int) -> torch.Tensor:
+    """A seeded cotangent that is zero on padded lanes, as the block's
+    masked scatter gives the backward."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal(G.src.shape + (d,)) * G.edge_mask[..., None]
+    return torch.from_numpy(g.astype(np.float32)).cuda()
 
 
 def compare(args, depth: int, residual: bool, reduce: str, n_nodes: int) -> dict:
@@ -109,6 +157,50 @@ def compare(args, depth: int, residual: bool, reduce: str, n_nodes: int) -> dict
     return rec
 
 
+def held(what: str, got: torch.Tensor, ref: torch.Tensor, grad: bool) -> float:
+    """Fail unless ``got`` is finite and within tolerance of ``ref`` on
+    every element; returns the largest absolute error."""
+    err = (got - ref).abs()
+    scale = float(ref.abs().max())
+    atol = ATOL * scale if grad else ATOL
+    if not (torch.isfinite(got).all() and (err <= atol + RTOL * ref.abs()).all()):
+        fail(f"{what} disagrees with its plain version: max abs err {float(err.max())}, "
+             f"largest |ref| {scale}, atol {atol}")
+    return float(err.max())
+
+
+def compare_training(args, g, depth: int, residual: bool, reduce: str, n_nodes: int) -> dict:
+    """Rows 2-4 against their plain versions on every lane: the stash
+    forward's output and stash, and g_h0, g_W, g_b of both backwards; the
+    stash backward twice, bit for bit."""
+    h0, src, dst, mask, W, b = args
+    kw = dict(depth=depth, n_nodes=n_nodes, residual=residual, reduce=reduce)
+    ref_kw = dict(depth=depth, residual=residual, reduce=reduce)
+    out, hs = fused_dense_mpnn_block_stash(*args, **kw)
+    first = fused_dense_mpnn_block_bwd_stash(h0, hs, src, dst, mask, W, g, **kw)
+    second = fused_dense_mpnn_block_bwd_stash(h0, hs, src, dst, mask, W, g, **kw)
+    recompute = fused_dense_mpnn_block_bwd(h0, src, dst, mask, W, b, g, **kw)
+    ref_out, ref_hs = dense_mpnn_block_stash_reference(*args, **ref_kw)
+    ref = dense_mpnn_block_bwd_reference(h0, ref_hs, src, dst, mask, W, g, **ref_kw)
+    torch.cuda.synchronize()
+    case = f"E={h0.shape[1]} depth={depth} {reduce} residual={residual}"
+    errs = {"stash_fwd": held(f"stash forward out ({case})", out, ref_out, False)}
+    if depth > 1:
+        errs["stash_fwd"] = max(errs["stash_fwd"], held(f"stash ({case})", hs, ref_hs, False))
+    elif hs is not None:
+        fail("the stash forward returned a stash at depth 1")
+    names = ("g_h0", "g_W", "g_b")
+    for key, grads in (("bwd_stash", first), ("bwd_recompute", recompute)):
+        errs[key] = max(held(f"{key} {n} ({case})", x, r, True) for n, x, r in zip(names, grads, ref))
+    rel = max(float((x - r).abs().max() / r.abs().max()) for grads in (first, recompute)
+              for x, r in zip(grads, ref))
+    repeatable = all(torch.equal(x, y) for x, y in zip(first, second))
+    if not repeatable:
+        fail(f"two calls of the stash backward on the same inputs differ ({case})")
+    return {"shape": list(h0.shape), "depth": depth, "reduce": reduce, "residual": residual,
+            "max_abs_err": errs, "max_grad_err_over_max_abs_ref": rel, "bitwise_repeatable": True}
+
+
 def _elapsed_ms(run, iters: int) -> float:
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -124,9 +216,9 @@ def time_ms(fn, reps: int = 20, iters: int = 10, warmup: int = 3) -> dict:
     CUDA events. ``device``: ``reps`` calls captured in one CUDA graph and
     replayed ``iters`` times, so the host's launch cost stays out of the
     reading. ``eager``: ``reps * iters`` calls launched one by one from
-    Python, as the serving path launches them. The inputs stay in the L2
-    cache between calls, as they do on the serving path, where the gather
-    before the block has just written ``h0``."""
+    Python, as the serving and training paths launch them. The inputs stay
+    in the L2 cache between calls, as they do on those paths, where the
+    ops before the call have just written them."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the default stream, as graph capture asks
@@ -146,43 +238,217 @@ def time_ms(fn, reps: int = 20, iters: int = 10, warmup: int = 3) -> dict:
     return {"device": device, "eager": eager}
 
 
-def block_bound(args, depth: int, reduce: str) -> tuple[float, str, dict]:
-    """Least time for the block on these inputs: the larger of its operations
-    over the f32 peak and its bytes (inputs read once, output written once)
-    over the memory rate. Operations count the W products and the nonzeros
-    of this data's A, not E x E."""
-    h0, src, dst, mask, W, b = args
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops: int, n_bytes: int) -> tuple[float, str]:
+    """Least time for ``ops`` f32 operations moving ``n_bytes``: the larger
+    of operations over the f32 peak and bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def layer_ops(args, reduce: str) -> tuple[int, int, int]:
+    """Operations of one forward layer and of one layer of the reverse sweep
+    on these inputs: the W-sized products, and ``A`` (or ``Aᵀ``) counted at
+    the nonzeros of this data's operator, not E x E. Also returns nnz(A)."""
+    h0, src, dst, mask = args[:4]
     B, E, d = h0.shape
     nnz = int((edge_adjacency(src, dst, mask, mean=reduce == "mean") != 0).sum())
-    ops = depth * (2 * B * E * d * d + 2 * nnz * d)
-    nbytes = sum(t.numel() * t.element_size() for t in args) + h0.numel() * h0.element_size()
-    t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_ops, t_bytes) * 1e3, by, {"operations": ops, "bytes": nbytes, "nnz_A": nnz}
+    return 2 * B * E * d * d + 2 * nnz * d, 4 * B * E * d * d + 2 * nnz * d, nnz
 
 
-def profile_request(ckpt: Path, csv_path: Path) -> dict:
-    """Device time of one warm request by kernel name (torch.profiler), and
-    the share of the request's wall time the card was busy."""
+def profile_busy(run) -> dict:
+    """Run ``run()`` under torch.profiler: wall time on the host's clock,
+    device time by kernel name, and the share of the wall time the card was
+    busy. User annotations (such as ``Optimizer.step#Adam.step``) are left
+    out: their device span covers kernels that are counted already."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_predict(ckpt, csv_path, batch_size=BATCH)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted(
         ((e.key, e.self_device_time_total / 1e3, e.count)
-         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+         for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
         key=lambda k: -k[1],
     )
     busy_ms = sum(ms for _, ms, _ in kernels)
+    by_kernel = {}
+    for fragment in ("dense_mpnn_layer", "adjoint_kernel", "weight_grad_partial",
+                     "reduce_chunks", "input_grad_kernel"):
+        by_kernel[fragment] = sum(ms for k, ms, _ in kernels if fragment in k)
     return {
-        "request_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
-        "block_kernel_ms": sum(ms for k, ms, _ in kernels if "dense_mpnn_layer" in k),
-        "top": [{"name": k[:80], "ms": ms, "count": n} for k, ms, n in kernels[:6]],
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
+        "block_kernels_ms": by_kernel,
+        "top": [{"name": k[:80], "ms": ms, "count": n} for k, ms, n in kernels[:8]],
     }
+
+
+def train_config(csv_path: Path, checkpoint_dir: Path | None) -> dict:
+    """configs/dmpnn_regression.yaml as a dict, on ``csv_path`` for
+    ``TRAIN_EPOCHS`` epochs."""
+    trainer = {"epochs": TRAIN_EPOCHS, "batch_size": BATCH, "seed": SEED}
+    if checkpoint_dir is not None:
+        trainer["checkpoint_dir"] = str(checkpoint_dir)
+    return {
+        "data": {"csv": str(csv_path), "smiles_col": "smiles",
+                 "targets": {"y": {"columns": ["lipo"], "task": "regression"}},
+                 "split": {"fractions": [0.8, 0.1, 0.1], "seed": 0}},
+        "model": dict(MODEL_CFG),
+        "optimizer": OPTIMIZER_CFG,
+        "trainer": trainer,
+    }
+
+
+def rel_diff(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def serve_phase(tmp: Path, ds, csv_path: Path, n_batches: int) -> int:
+    """A port checkpoint of the seeded model, served by run_predict on the
+    card and on the CPU. Returns the block kernel's launches."""
+    depth = MODEL_CFG["depth"]
+    transforms = ds.build_task_transform_configs()
+    model = build_dmpnn(transforms=transforms, generator=torch.Generator().manual_seed(SEED),
+                        layout="dense_packed", **{k: v for k, v in MODEL_CFG.items() if k != "kind"})
+    ckpt = tmp / "ckpt"
+    Checkpointer(ckpt).save(model.network.state_dict(), step=0)
+    save_predict_meta(ckpt, {"model": {**MODEL_CFG, "layout": "dense_packed"},
+                             "data": {"smiles_col": "smiles"}}, transforms, ds, "ffn.preds")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    gpu = run_predict(ckpt, csv_path, batch_size=BATCH)["lipo"]
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    counts = launches()
+    if counts["fused_dense_mpnn_block"] != depth * n_batches or sum(counts.values()) != depth * n_batches:
+        fail(f"serving launched {counts}; the request needs the block kernel {depth} x {n_batches} times")
+    t0 = time.perf_counter()
+    run_predict(ckpt, csv_path, batch_size=BATCH)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    profiled = profile_busy(lambda: run_predict(ckpt, csv_path, batch_size=BATCH))
+    cpu = run_predict(ckpt, csv_path, batch_size=BATCH, device="cpu")["lipo"]
+    err = np.abs(gpu - cpu)
+    ok = gpu.shape == (N_MOLS,) and np.isfinite(gpu).all() and bool((err <= ATOL + RTOL * np.abs(cpu)).all())
+    emit(phase="serve", molecules=N_MOLS, batches=n_batches, kernel_launches=counts,
+         request_s_cold=cold_s, request_s_warm=warm_s, profile=profiled,
+         max_abs_err_vs_cpu=float(err.max()), pred_mean=float(gpu.mean()),
+         pred_std=float(gpu.std()), ok=bool(ok))
+    if not ok:
+        fail("card predictions disagree with the CPU plain path or are not finite")
+    return counts["fused_dense_mpnn_block"]
+
+
+def train_phase(tmp: Path) -> dict[str, int]:
+    """run(cfg) on the card and on the CPU, compared epoch by epoch; the
+    card's checkpoint served on the card. Returns the kernels' launches of
+    the card's run."""
+    depth = MODEL_CFG["depth"]
+    csv_path = lipo_csv(tmp, TRAIN_MOLS)
+    card_ckpt, cpu_ckpt = tmp / "train_card", tmp / "train_cpu"
+
+    reset_launches()
+    t0 = time.perf_counter()
+    card = run(train_config(csv_path, card_ckpt))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launches()
+    steps = Checkpointer(card_ckpt).latest_step()
+    if not steps:
+        fail(f"the card's run wrote no checkpoint in {card_ckpt}")
+    expect = {"fused_dense_mpnn_block_stash": depth * steps, "fused_dense_mpnn_block_bwd_stash": steps,
+              "fused_dense_mpnn_block_bwd": 0}
+    if any(counts[k] != v for k, v in expect.items()) or counts["fused_dense_mpnn_block"] == 0:
+        fail(f"training {steps} steps launched {counts}; expected {expect} and the forward "
+             "kernel for evaluation")
+
+    t0 = time.perf_counter()
+    cpu = run(train_config(csv_path, cpu_ckpt), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diffs = {}
+    for epoch, (a, b) in enumerate(zip(card["history"], cpu["history"])):
+        for key in ("train/loss", "val/rmse", "val/mae"):
+            diffs[f"epoch{epoch}/{key}"] = rel_diff(a[key], b[key])
+    for key in ("val/rmse", "val/mae"):
+        diffs[f"test/{key}"] = rel_diff(card["test"][key], cpu["test"][key])
+    if len(card["history"]) != TRAIN_EPOCHS or len(cpu["history"]) != TRAIN_EPOCHS:
+        fail(f"expected {TRAIN_EPOCHS} epochs, got {len(card['history'])} and {len(cpu['history'])}")
+    worst = max(diffs.values())
+    if not worst <= TRAIN_RTOL:
+        fail(f"the card's training run and the CPU's differ by {worst} relative: {diffs}")
+
+    served = run_predict(card_ckpt, csv_path, batch_size=BATCH)["lipo"]
+    served_cpu = run_predict(card_ckpt, csv_path, batch_size=BATCH, device="cpu")["lipo"]
+    torch.cuda.synchronize()
+    serve_err = np.abs(served - served_cpu)
+    serve_ok = (served.shape == (TRAIN_MOLS,) and bool(np.isfinite(served).all())
+                and bool((serve_err <= ATOL + RTOL * np.abs(served_cpu)).all()))
+    steps_per_epoch = steps // TRAIN_EPOCHS
+    emit(phase="train", molecules=TRAIN_MOLS, epochs=TRAIN_EPOCHS, steps=steps,
+         kernel_launches=counts, run_s_card=card_s, run_s_cpu=cpu_s,
+         warm_epoch_ms_per_step=card["history"][-1]["time"] * 1e3 / steps_per_epoch,
+         history_card=card["history"], history_cpu=cpu["history"],
+         test_card=card["test"], test_cpu=cpu["test"], rel_diff_vs_cpu=diffs,
+         rel_tol=TRAIN_RTOL, served_molecules=len(served),
+         served_max_abs_err_card_vs_cpu=float(serve_err.max()), served_ok=serve_ok)
+    if not serve_ok:
+        fail("the trained checkpoint's predictions are not finite or differ between card and CPU")
+    return counts
+
+
+def train_epoch_phase(tmp: Path) -> dict[str, int]:
+    """A warm training epoch (stash backward) timed on the host's clock and
+    profiled, then an epoch from the same initial weights with the
+    recompute backward, against the stash epoch. Returns the recompute
+    epoch's launches."""
+    depth = MODEL_CFG["depth"]
+    cfg = train_config(lipo_csv(tmp, TRAIN_MOLS), None)
+    stash, recompute = prepare(cfg), prepare(cfg)
+    recompute["model"].network["mp"].backward = "recompute"
+    loader = stash["train_loader"]
+    steps = len(loader)
+
+    first = fit(stash["model"], loader, epochs=1)  # also fills the loader's featurization cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit(stash["model"], loader, epochs=1)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3 / steps
+    profiled = profile_busy(lambda: fit(stash["model"], loader, epochs=1))
+
+    reset_launches()
+    other = fit(recompute["model"], recompute["train_loader"], epochs=1)
+    torch.cuda.synchronize()
+    counts = launches()
+    expect = {"fused_dense_mpnn_block": depth * steps, "fused_dense_mpnn_block_stash": 0,
+              "fused_dense_mpnn_block_bwd_stash": 0, "fused_dense_mpnn_block_bwd": steps}
+    if counts != expect:
+        fail(f"an epoch with the recompute backward launched {counts}; expected {expect}")
+    loss_diff = rel_diff(other.history[0]["train/loss"], first.history[0]["train/loss"])
+    emit(phase="train_epoch", steps=steps, warm_ms_per_step=warm_ms,
+         profiled_ms_per_step=profiled["wall_ms"] / steps, profile=profiled,
+         recompute_kernel_launches=counts, recompute_vs_stash_train_loss_rel_diff=loss_diff,
+         rel_tol=TRAIN_RTOL)
+    if not loss_diff <= TRAIN_RTOL:
+        fail(f"the recompute backward's epoch differs from the stash backward's by {loss_diff}")
+    return counts
+
+
+def kernel_record(fn, path_launches: int, max_abs_err: float, kernel_t: dict, plain_t: dict,
+                  bound_ms: float, bound_by: str) -> dict:
+    source, replaces = KERNELS[fn]
+    return {"name": fn.__name__, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": path_launches, "max_abs_err": max_abs_err, "ms": kernel_t["device"],
+            "plain_ms": plain_t["device"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def main() -> None:
@@ -202,79 +468,91 @@ def main() -> None:
     depth, d = MODEL_CFG["depth"], MODEL_CFG["hidden_dim"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
-        csv_path = lipo_csv(tmp)
+        csv_path = lipo_csv(tmp, N_MOLS)
         ds = build_dataset({"csv": str(csv_path), "targets": {"y": {"columns": ["lipo"]}}})
-        t0 = time.perf_counter()
         batches = list(DataLoader(ds, batch_size=BATCH))
-        featurize_s = time.perf_counter() - t0
-        serve_G = batches[0]["inputs.G"]  # the serving shape: 32 bins of 128 edge lanes
+        main_G = batches[0]["inputs.G"]  # the serving and training shape: 32 bins of 128 edge lanes
         # wide bins: the loader's 256-lane bins, filled with the largest molecules
         wide = sorted((ds[i]["G"] for i in range(len(ds))), key=lambda g: -g.num_edges)[:BATCH]
         wide_G = pack_graphs_dense(wide, 256 // 2 + 8, 256, np_out=True)
 
-        # kernel vs plain version at the shapes the main path gives it
-        serve_args = kernel_inputs(serve_G, d, depth, SEED)
-        cases = [compare(serve_args, depth, res, red, serve_G.nodes_per_graph)
-                 for red in ("sum", "mean") for res in (True, False)]
+        # the kernels against their plain versions at the shapes the paths give them
+        main_args = kernel_inputs(main_G, d, depth, SEED)
         wide_args = kernel_inputs(wide_G, d, depth, SEED + 1)
+        cases = [compare(main_args, depth, res, red, main_G.nodes_per_graph)
+                 for red in ("sum", "mean") for res in (True, False)]
         cases += [compare(wide_args, depth, True, red, wide_G.nodes_per_graph) for red in ("sum", "mean")]
         emit(phase="kernel_vs_plain", rtol=RTOL, atol=ATOL, cases=cases)
 
-        # serve: a port checkpoint of the seeded model, then run_predict on the card
-        transforms = ds.build_task_transform_configs()
-        model = build_dmpnn(transforms=transforms, generator=torch.Generator().manual_seed(SEED),
-                            **{k: v for k, v in MODEL_CFG.items() if k != "kind"})
-        ckpt = tmp / "ckpt"
-        Checkpointer(ckpt).save(model.network.state_dict(), step=0)
-        save_predict_meta(ckpt, {"model": MODEL_CFG, "data": {"smiles_col": "smiles"}},
-                          transforms, ds, "ffn.preds")
+        train_cases = []
+        for G, seed, residuals in ((main_G, SEED, (True, False)), (wide_G, SEED + 1, (True,))):
+            for depth_ in (depth, 1):
+                args = kernel_inputs(G, d, depth_, seed)
+                g = cotangent(G, d, seed + 10)
+                train_cases += [compare_training(args, g, depth_, res, red, G.nodes_per_graph)
+                                for red in ("sum", "mean") for res in residuals]
+        emit(phase="train_kernels_vs_plain", rtol=RTOL, atol=ATOL,
+             grad_atol="ATOL x the largest |value| of each gradient", cases=train_cases)
 
-        fused_dense_mpnn_block.launches = 0
-        t0 = time.perf_counter()
-        gpu = run_predict(ckpt, csv_path, batch_size=BATCH)["lipo"]
-        torch.cuda.synchronize()
-        cold_s = time.perf_counter() - t0
-        launches = fused_dense_mpnn_block.launches
-        if launches != depth * len(batches):
-            fail(f"the kernel ran {launches} times; the request needs {depth} x {len(batches)}")
-        t0 = time.perf_counter()
-        run_predict(ckpt, csv_path, batch_size=BATCH)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        profiled = profile_request(ckpt, csv_path)
-        cpu = run_predict(ckpt, csv_path, batch_size=BATCH, device="cpu")["lipo"]
-        err = np.abs(gpu - cpu)
-        ok = gpu.shape == (N_MOLS,) and np.isfinite(gpu).all() and bool((err <= ATOL + RTOL * np.abs(cpu)).all())
-        emit(phase="serve", molecules=N_MOLS, batches=len(batches), kernel_launches=launches,
-             request_s_cold=cold_s, request_s_warm=warm_s, host_featurize_pack_s=featurize_s,
-             profile=profiled, max_abs_err_vs_cpu=float(err.max()),
-             pred_mean=float(gpu.mean()), pred_std=float(gpu.std()), ok=bool(ok))
-        if not ok:
-            fail("card predictions disagree with the CPU plain path or are not finite")
+        served = serve_phase(tmp, ds, csv_path, len(batches))
+        trained = train_phase(tmp)
+        recomputed = train_epoch_phase(tmp)
 
-    # time the kernel and its plain version at the serving shape
-    kw = dict(depth=depth, residual=True, reduce="sum")
-    kernel_t = time_ms(lambda: fused_dense_mpnn_block(*serve_args, n_nodes=serve_G.nodes_per_graph, **kw))
-    plain_t = time_ms(lambda: dense_mpnn_block_reference(*serve_args, **kw))
-    ms, plain_ms = kernel_t["device"], plain_t["device"]
-    bound_ms, bound_by, work = block_bound(serve_args, depth, "sum")
-    emit(phase="time", shape=list(serve_args[0].shape), depth=depth, reduce="sum", ms=ms,
-         plain_ms=plain_ms, eager_ms=kernel_t["eager"], plain_eager_ms=plain_t["eager"],
-         bound_ms=bound_ms, bound_by=bound_by, **work,
-         library_ms=None, library_note="no single PyTorch call computes the fused block")
-    emit(kernels=[{
-        "name": "fused_dense_mpnn_block",
-        "route": "cuda",
-        "source": "notorch_tpu_torch/csrc/dense_mpnn.cu",
-        "replaces": "notorch_tpu/kernels/dense_mpnn.py:749",
-        "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }])
+    # time each kernel and its plain version at the serving and training shape
+    h0, src, dst, mask, W, b = main_args
+    g = cotangent(main_G, d, SEED + 10)
+    kw = dict(depth=depth, n_nodes=main_G.nodes_per_graph, residual=True, reduce="sum")
+    ref_kw = dict(depth=depth, residual=True, reduce="sum")
+    out, hs = fused_dense_mpnn_block_stash(*main_args, **kw)
+    g_h0, g_W, g_b = fused_dense_mpnn_block_bwd_stash(h0, hs, src, dst, mask, W, g, **kw)
+    fwd_ops, bwd_ops, nnz = layer_ops(main_args, "sum")
+    runs = {
+        fused_dense_mpnn_block: (
+            lambda: fused_dense_mpnn_block(*main_args, **kw),
+            lambda: dense_mpnn_block_reference(*main_args, **ref_kw),
+            depth * fwd_ops, nbytes(*main_args, out)),
+        fused_dense_mpnn_block_stash: (
+            lambda: fused_dense_mpnn_block_stash(*main_args, **kw),
+            lambda: dense_mpnn_block_stash_reference(*main_args, **ref_kw),
+            depth * fwd_ops, nbytes(*main_args, out, hs)),
+        fused_dense_mpnn_block_bwd_stash: (
+            lambda: fused_dense_mpnn_block_bwd_stash(h0, hs, src, dst, mask, W, g, **kw),
+            lambda: dense_mpnn_block_bwd_reference(h0, hs, src, dst, mask, W, g, **ref_kw),
+            depth * bwd_ops, nbytes(h0, hs, src, dst, mask, W, g, g_h0, g_W, g_b)),
+        fused_dense_mpnn_block_bwd: (
+            lambda: fused_dense_mpnn_block_bwd(h0, src, dst, mask, W, b, g, **kw),
+            lambda: dense_mpnn_block_bwd_reference(
+                h0, dense_mpnn_block_stash_reference(*main_args, **ref_kw)[1], src, dst, mask, W, g,
+                **ref_kw),
+            (depth - 1) * fwd_ops + depth * bwd_ops, nbytes(*main_args, g, g_h0, g_W, g_b)),
+    }
+    path_launches = {
+        fused_dense_mpnn_block: served,
+        fused_dense_mpnn_block_stash: trained["fused_dense_mpnn_block_stash"],
+        fused_dense_mpnn_block_bwd_stash: trained["fused_dense_mpnn_block_bwd_stash"],
+        fused_dense_mpnn_block_bwd: recomputed["fused_dense_mpnn_block_bwd"],
+    }
+    errors = {
+        fused_dense_mpnn_block: max(c["max_abs_err"] for c in cases),
+        fused_dense_mpnn_block_stash: max(c["max_abs_err"]["stash_fwd"] for c in train_cases),
+        fused_dense_mpnn_block_bwd_stash: max(c["max_abs_err"]["bwd_stash"] for c in train_cases),
+        fused_dense_mpnn_block_bwd: max(c["max_abs_err"]["bwd_recompute"] for c in train_cases),
+    }
+    records = []
+    for fn, (kernel, plain, ops, n_bytes) in runs.items():
+        kernel_t, plain_t = time_ms(kernel), time_ms(plain)
+        bound_ms, bound_by = bound(ops, n_bytes)
+        emit(phase="time", kernel=fn.__name__, shape=list(h0.shape), depth=depth, reduce="sum",
+             ms=kernel_t["device"], plain_ms=plain_t["device"], eager_ms=kernel_t["eager"],
+             plain_eager_ms=plain_t["eager"], bound_ms=bound_ms, bound_by=bound_by,
+             operations=ops, bytes=n_bytes, nnz_A=nnz, library_ms=None,
+             library_note="no single PyTorch call computes the fused block or its backward")
+        records.append(kernel_record(fn, path_launches[fn], errors[fn], kernel_t, plain_t,
+                                     bound_ms, bound_by))
+    missing = [r["name"] for r in records if r["launches"] <= 0]
+    if missing:
+        fail(f"kernels never launched on their path: {missing}")
+    emit(kernels=records)
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": kind, "count": count})
 

@@ -1,13 +1,25 @@
-"""Config, dataset and model builders shared by the port's entry points.
+"""``python -m notorch_tpu_torch train``: config-driven training.
 
-Port of the builders of ``notorch_tpu.cli.train``: the same YAML/JSON
-configs, the default SMILES pipeline and ``model.kind: dmpnn``. The training
-run itself (``run``, ``main``) comes with the training slice. Tables are
-read with the standard ``csv`` module.
+Port of ``notorch_tpu.cli.train`` for supervised ``model.kind: dmpnn``: the
+same YAML/JSON configs with dotted-key overrides, the default SMILES
+pipeline, a random ``data.split``, target transforms from training-split
+statistics, Adam/AdamW with a rate or the Noam schedule and ``clip_norm``,
+and the trainer's ``epochs``, ``batch_size``, ``seed``, ``checkpoint_dir``,
+``resume``, ``checkpoint_every``, ``max_to_keep``, ``best_by``/``best_mode``,
+``early_stopping`` and ``predictions_csv``. The checkpoint directory it
+writes is what ``python -m notorch_tpu_torch predict`` serves. Pretraining,
+``trainer.spmd``, scaffold splits and the ``${csv:...}`` resolvers raise
+``NotImplementedError``. Tables are read with the standard ``csv`` module;
+``yaml`` is imported only to read YAML.
+
+Usage::
+
+    python -m notorch_tpu_torch train CONFIG.yaml [a.b=value ...] [--cpu]
 """
 
 from __future__ import annotations
 
+import argparse
 import csv
 import json
 from pathlib import Path
@@ -15,7 +27,9 @@ from pathlib import Path
 import torch
 
 from notorch_tpu_torch.data.dataset import MolecularDataset, TargetSpec, TransformManager
+from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms import MolToGraph, Pipeline, SmiToMol
+from notorch_tpu_torch.utils import resolve_device
 
 
 def load_config(path: str | Path) -> dict:
@@ -25,6 +39,21 @@ def load_config(path: str | Path) -> dict:
 
         return yaml.safe_load(text)
     return json.loads(text)
+
+
+def apply_overrides(cfg: dict, overrides: list[str]) -> dict:
+    """``a.b.c=value`` dotted-path overrides (values parsed as YAML)."""
+    import yaml
+
+    for ov in overrides:
+        key, _, raw = ov.partition("=")
+        value = yaml.safe_load(raw)
+        node = cfg
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return cfg
 
 
 def read_table(path: str | Path) -> dict[str, list[str]]:
@@ -70,7 +99,26 @@ def _default_transforms(cfg: dict) -> dict:
     return {"graph": {"in_key": cfg.get("smiles_col", "smiles"), "out_key": "G"}}
 
 
-def build_model(cfg: dict, transforms: dict | None, generator: torch.Generator | None = None):
+def build_optimizer(cfg: dict | None) -> OptimizerSpec:
+    """The optimizer of an ``optimizer`` config: ``name`` adam or adamw,
+    ``lr`` or ``schedule: {noam: {...}}``, and ``clip_norm``."""
+    from notorch_tpu_torch.training.schedulers import noam_like_schedule
+
+    cfg = cfg or {"name": "adam", "lr": 1e-4}
+    lr = cfg.get("lr", 1e-4)
+    schedule = cfg.get("schedule")
+    if isinstance(schedule, dict):
+        if set(schedule) != {"noam"}:
+            raise NotImplementedError(
+                f"optimizer schedule {sorted(schedule)} is not ported yet; the port has noam"
+            )
+        lr = noam_like_schedule(**schedule["noam"])
+    clip = cfg.get("clip_norm")
+    return OptimizerSpec(cfg.get("name", "adam"), lr, float(clip) if clip else None)
+
+
+def build_model(cfg: dict, transforms: dict | None, generator: torch.Generator | None = None,
+                optimizer: OptimizerSpec | None = None):
     """The model of a ``model`` config (``kind: dmpnn``)."""
     if "modules" in cfg:
         raise NotImplementedError("declarative model.modules configs are not ported yet")
@@ -80,7 +128,7 @@ def build_model(cfg: dict, transforms: dict | None, generator: torch.Generator |
     from notorch_tpu_torch.models.dmpnn import build_dmpnn
 
     kwargs = {k: v for k, v in cfg.items() if k not in ("kind", "pred_key")}
-    return build_dmpnn(transforms=transforms, generator=generator, **kwargs)
+    return build_dmpnn(transforms=transforms, generator=generator, optimizer=optimizer, **kwargs)
 
 
 def save_predict_meta(checkpoint_dir, cfg: dict, transforms: dict, ds, pred_key: str) -> None:
@@ -108,3 +156,169 @@ def save_predict_meta(checkpoint_dir, cfg: dict, transforms: dict, ds, pred_key:
     path = Path(checkpoint_dir).absolute()
     path.mkdir(parents=True, exist_ok=True)
     (path / "predict_meta.json").write_text(json.dumps(meta, indent=1))
+
+
+def _refuse_unported(cfg: dict) -> None:
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}.{k}" if path else str(k))
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+        elif isinstance(node, str) and node.startswith("${"):
+            raise NotImplementedError(
+                f"{path}: the ${{csv:...}}/${{parquet:...}}/${{len:...}} resolvers are not ported yet"
+            )
+
+    walk(cfg, "")
+    model_cfg = cfg.get("model", {})
+    if model_cfg.get("kind") == "pretrain":
+        raise NotImplementedError("model.kind: pretrain (masked-atom pretraining) is not ported yet")
+    if cfg.get("trainer", {}).get("spmd"):
+        raise NotImplementedError("trainer.spmd (sharded training) is not ported yet")
+    split = cfg.get("data", {}).get("split") or {}
+    if split.get("kind", "random") != "random":
+        raise NotImplementedError(f"data.split.kind {split['kind']!r} is not ported yet; only random is")
+
+
+def prepare(cfg: dict, device: str | torch.device | None = None) -> dict:
+    """Everything a training run needs, built from ``cfg`` as the JAX
+    ``run`` builds it: the dataset and its split, the task transforms
+    from training-split statistics, the model initialised from
+    ``torch.Generator().manual_seed(trainer.seed)`` on ``device``, and the
+    train (shuffled by the seed), val and test loaders."""
+    from notorch_tpu_torch.data.batching import DataLoader, Subset, random_split
+    from notorch_tpu_torch.models.dmpnn import resolve_layout
+
+    _refuse_unported(cfg)
+    device = resolve_device(device)
+    trainer_cfg = cfg.get("trainer", {})
+    seed = trainer_cfg.get("seed", 0)
+
+    ds = build_dataset(cfg["data"])
+    split = cfg["data"].get("split")
+    train, val, test = ds, None, None
+    if split:
+        idxs = random_split(len(ds), tuple(split.get("fractions", (0.8, 0.1, 0.1))),
+                            seed=split.get("seed", 0))
+        train = Subset(ds, idxs[0])
+        val = Subset(ds, idxs[1]) if len(idxs) > 1 and len(idxs[1]) else None
+        test = Subset(ds, idxs[2]) if len(idxs) > 2 and len(idxs[2]) else None
+
+    transforms = train.build_task_transform_configs()
+    pred_key = cfg.get("model", {}).get("pred_key", "ffn.preds")
+    for t in transforms.values():
+        t["preds"]["key"] = pred_key
+
+    model_cfg = dict(cfg.get("model", {}))
+    # resolve layout="auto" here, so that the saved predict_meta and the
+    # built model agree on it
+    model_cfg["layout"] = resolve_layout(
+        model_cfg.get("layout", "auto"),
+        dropout=model_cfg.get("dropout", 0.0),
+        dtype=model_cfg.get("dtype"),
+        graph_axis=model_cfg.get("graph_axis"),
+        remat=model_cfg.get("remat", False),
+        impl=model_cfg.get("impl", "gather"),
+        aggregation=model_cfg.get("aggregation", "mean"),
+        reduce=model_cfg.get("reduce", "sum"),
+    )
+    cfg = {**cfg, "model": model_cfg}
+    model = build_model(model_cfg, transforms, generator=torch.Generator().manual_seed(seed),
+                        optimizer=build_optimizer(cfg.get("optimizer")))
+    model.to(device)
+
+    batch_size = trainer_cfg.get("batch_size", 64)
+    return {
+        "cfg": cfg, "ds": ds, "train": train, "val": val, "test": test,
+        "transforms": transforms, "pred_key": pred_key, "model": model,
+        "train_loader": DataLoader(train, batch_size=batch_size, shuffle=True, seed=seed),
+        "val_loader": DataLoader(val, batch_size=batch_size) if val is not None else None,
+        "test_loader": DataLoader(test, batch_size=batch_size) if test is not None else None,
+    }
+
+
+def run(cfg: dict, device: str | torch.device | None = None) -> dict:
+    """Config-driven training. ``device=None`` trains on the card and raises
+    where there is none; ``device="cpu"`` runs the plain CPU path. Returns
+    ``{"history", "stopped_early"}`` plus ``best_step``, ``test`` and
+    ``predictions_csv`` where they apply.
+
+    ``trainer.prefetch`` (the JAX loader's input pipeline overlap) does not
+    change the math and is not ported: the loop iterates the loader
+    directly. ``trainer.steps_per_dispatch > 1`` raises in ``fit``."""
+    from notorch_tpu_torch.training.checkpoint import Checkpointer
+    from notorch_tpu_torch.training.loop import evaluate, fit, predict
+
+    run_ = prepare(cfg, device)
+    cfg, model, pred_key = run_["cfg"], run_["model"], run_["pred_key"]
+    trainer_cfg = cfg.get("trainer", {})
+
+    checkpointer = None
+    if trainer_cfg.get("checkpoint_dir"):
+        checkpointer = Checkpointer(
+            trainer_cfg["checkpoint_dir"],
+            max_to_keep=trainer_cfg.get("max_to_keep", 3),
+            best_by=trainer_cfg.get("best_by"),
+            best_mode=trainer_cfg.get("best_mode", "min"),
+        )
+        save_predict_meta(trainer_cfg["checkpoint_dir"], cfg, run_["transforms"], run_["ds"], pred_key)
+
+    result = fit(
+        model,
+        run_["train_loader"],
+        run_["val_loader"],
+        epochs=trainer_cfg.get("epochs", 1),
+        log_fn=lambda r: print(json.dumps({k: _jsonable(v) for k, v in r.items()}), flush=True),
+        checkpointer=checkpointer,
+        resume=trainer_cfg.get("resume", False),
+        checkpoint_every=trainer_cfg.get("checkpoint_every", 0),
+        steps_per_dispatch=trainer_cfg.get("steps_per_dispatch", 1),
+        early_stopping=trainer_cfg.get("early_stopping"),
+    )
+    out = {"history": result.history, "stopped_early": result.stopped_early}
+    if checkpointer is not None and checkpointer.best_step() is not None:
+        # test and predict with the best epoch's weights, not the last
+        out["best_step"] = checkpointer.best_step()
+        model.network.load_state_dict(checkpointer.restore(out["best_step"]))
+    if run_["test_loader"] is not None:
+        out["test"] = evaluate(model, run_["test_loader"])
+        print(json.dumps({"test": {k: _jsonable(v) for k, v in out["test"].items()}}), flush=True)
+
+    pred_csv = trainer_cfg.get("predictions_csv")
+    if pred_csv:
+        from notorch_tpu_torch.data.batching import DataLoader
+
+        target = run_["test"] if run_["test"] is not None else run_["train"]
+        loader = DataLoader(target, batch_size=trainer_cfg.get("batch_size", 64))
+        flat = predict(model, loader, keys=[pred_key])[pred_key][: len(target)]
+        flat = flat.reshape(len(target), -1)
+        with open(pred_csv, "w") as f:
+            f.write(",".join(f"pred_{i}" for i in range(flat.shape[1])) + "\n")
+            for row in flat:
+                f.write(",".join(f"{v:.6g}" for v in row) + "\n")
+        out["predictions_csv"] = pred_csv
+    return out
+
+
+def _jsonable(v):
+    try:
+        return round(float(v), 6)
+    except (TypeError, ValueError):
+        return str(v)
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(prog="python -m notorch_tpu_torch train", description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("config", help="path to a YAML/JSON config")
+    parser.add_argument("overrides", nargs="*", help="dotted-key overrides: a.b=val")
+    parser.add_argument("--cpu", action="store_true", help="run the plain CPU path")
+    args = parser.parse_args(argv)
+    cfg = apply_overrides(load_config(args.config), args.overrides)
+    run(cfg, device="cpu" if args.cpu else None)
+
+
+if __name__ == "__main__":
+    main()

@@ -4,18 +4,24 @@ Port of ``notorch_tpu.data.batching``: featurizes on the host (with an
 in-memory cache — featurization is pure), groups samples into fixed-size
 batches (the last batch is padded and masked) and bin-packs each batch with
 ladder-rounded bin caps, exactly as the JAX loader does, so both packages
-see the same arrays. Batches are numpy; the caller moves them to a device.
-``PrefetchLoader`` is not ported yet.
+see the same arrays, in the same order when shuffled (``SeededSampler``).
+Batches are numpy; the caller moves them to a device. ``random_split`` and
+``Subset`` split a dataset as the JAX package does. ``PrefetchLoader`` and
+``sort_by_size`` are not ported yet.
 """
 
 from __future__ import annotations
 
 from typing import Iterator
 
+import numpy as np
+
+from notorch_tpu_torch.conf import TARGET_KEY_PREFIX
 from notorch_tpu_torch.data.dataset import MolecularDataset
 from notorch_tpu_torch.data.dense import plan_bins
 from notorch_tpu_torch.data.graph import Graph
-from notorch_tpu_torch.data.samplers import SequentialSampler
+from notorch_tpu_torch.data.samplers import SeededSampler, SequentialSampler
+from notorch_tpu_torch.tasks import transforms as task_transforms
 
 
 def bucket_ladder(quantum: int, max_value: int) -> list[int]:
@@ -48,6 +54,9 @@ class DataLoader:
     raised up the ladder to the batch's largest molecule, ``V_b`` is
     ``E_b // 2 + 8`` (or the largest molecule plus its padding sink) rounded
     up to a multiple of 8, and the bin count is rounded up its own ladder.
+    ``shuffle=True`` draws the order from a ``SeededSampler(len, seed)``;
+    after :meth:`set_epoch` each epoch's order is a pure function of
+    ``(seed, epoch)``, index for index the JAX loader's.
     """
 
     def __init__(
@@ -55,6 +64,9 @@ class DataLoader:
         dataset: MolecularDataset,
         batch_size: int = 64,
         sampler=None,
+        shuffle: bool = False,
+        seed: int = 0,
+        drop_last: bool = False,
         layout: str = "dense_packed",
     ):
         if layout != "dense_packed":
@@ -65,11 +77,24 @@ class DataLoader:
             )
         self.dataset = dataset
         self.batch_size = batch_size
-        self.sampler = sampler if sampler is not None else SequentialSampler(len(dataset))
+        if sampler is not None:
+            self.sampler = sampler
+        elif shuffle:
+            self.sampler = SeededSampler(len(dataset), seed)
+        else:
+            self.sampler = SequentialSampler(len(dataset))
+        self.drop_last = drop_last
         self.layout = layout
         self.bin_ladder = bucket_ladder(8, 1 << 12)
         self.edge_ladder = bucket_ladder(32, 1 << 17)
         self._cache: dict[int, dict] = {}
+
+    def set_epoch(self, epoch: int) -> None:
+        """Make this epoch's batch order a pure function of (seed, epoch),
+        where the sampler supports it; ``fit`` calls this each epoch so that
+        a resumed run can re-derive the interrupted epoch's order."""
+        if hasattr(self.sampler, "set_epoch"):
+            self.sampler.set_epoch(epoch)
 
     def _fetch(self, idx: int) -> dict:
         sample = self._cache.get(idx)
@@ -78,12 +103,15 @@ class DataLoader:
         return sample
 
     def __len__(self) -> int:
-        return -(-len(self.sampler) // self.batch_size)
+        n = len(self.sampler)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[dict]:
         indices = list(iter(self.sampler))
         for s in range(0, len(indices), self.batch_size):
             chunk = indices[s : s + self.batch_size]
+            if self.drop_last and len(chunk) < self.batch_size:
+                continue
             yield self._collate([self._fetch(i) for i in chunk], chunk)
 
     def _collate(self, samples: list[dict], indices: list[int]) -> dict:
@@ -105,3 +133,51 @@ class DataLoader:
         return self.dataset.collate(
             samples, indices, graph_caps=caps, batch_cap=self.batch_size, layout=self.layout
         )
+
+
+def random_split(n: int, fractions: tuple[float, ...], seed: int = 0) -> tuple[np.ndarray, ...]:
+    """Random index split, the JAX package's: one permutation from
+    ``default_rng(seed)``, cut at ``int(f * n)`` for each fraction but the
+    last, which takes the rest."""
+    perm = np.random.default_rng(seed).permutation(n)
+    sizes = [int(f * n) for f in fractions[:-1]]
+    sizes.append(n - sum(sizes))
+    out, at = [], 0
+    for size in sizes:
+        out.append(perm[at : at + size])
+        at += size
+    return tuple(out)
+
+
+class Subset:
+    """View of a dataset at fixed indices: inputs come from the parent's
+    featurization, targets (and their statistics) from the subset's rows."""
+
+    def __init__(self, dataset: MolecularDataset, indices):
+        self.dataset = dataset
+        self.indices = np.asarray(indices)
+        self.transforms = dataset.transforms
+        self.targets = dataset.targets
+        self._target_arrays = {name: arr[self.indices] for name, arr in dataset._target_arrays.items()}
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, idx: int) -> dict:
+        return self.dataset[int(self.indices[idx])]
+
+    def collate(self, samples, indices, graph_caps=None, batch_cap=None, layout="dense_packed"):
+        # indices here are positions within the subset
+        return self.dataset.collate(
+            samples, [int(self.indices[i]) for i in indices], graph_caps, batch_cap, layout
+        )
+
+    def build_task_transform_configs(self) -> dict:
+        out = {}
+        for name, spec in self.targets.items():
+            cfg = task_transforms.build(spec.task, self._target_arrays[name])
+            out[name] = {
+                "preds": {"module": cfg["preds"], "key": None},
+                "targets": {"module": cfg["targets"], "key": f"{TARGET_KEY_PREFIX}.{name}"},
+            }
+        return out

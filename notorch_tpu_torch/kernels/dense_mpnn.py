@@ -1,13 +1,31 @@
-"""The fused dense D-MPNN block: a hand-written Hopper kernel, its plain
-PyTorch version, and the wrapper that picks between them by device.
+"""The fused dense D-MPNN block: hand-written Hopper kernels for its
+forward and backward, their plain PyTorch versions, the wrappers that pick
+between them by device, and the ``autograd.Function`` that trains through
+them.
 
-Replaces the Pallas kernel ``notorch_tpu/kernels/dense_mpnn.py``:
-``fused_dense_mpnn_block`` / ``_block_kernel`` with its operator
-``_edge_adjacency``. The kernel is CUDA C++ for ``sm_90a`` in
-``notorch_tpu_torch/csrc/dense_mpnn.cu``, built by ``nvcc`` at first use and
-bound with ``ctypes`` (:mod:`notorch_tpu_torch.kernels.build`).
+Replaces the Pallas kernels of ``notorch_tpu/kernels/dense_mpnn.py``:
 
-What it computes, per bin ``b`` with ``rev(e) = e XOR 1``:
+================================  =========================================
+TPU entry (kernel)                here
+================================  =========================================
+``fused_dense_mpnn_block``        :func:`fused_dense_mpnn_block`, the layer
+(``_block_kernel``)               kernel of ``csrc/dense_mpnn.cu``
+``fused_dense_mpnn_block_stash``  :func:`fused_dense_mpnn_block_stash`, the
+(``_block_kernel_stash``)         same layer kernel writing into the stash
+``fused_dense_mpnn_block_bwd_``   :func:`fused_dense_mpnn_block_bwd_stash`,
+``stash`` (``_bwd_kernel_stash``) ``csrc/dense_mpnn_bwd.cu``
+``fused_dense_mpnn_block_bwd``    :func:`fused_dense_mpnn_block_bwd`: replay
+(``_bwd_kernel``)                 by the layer kernel, then the sweep of
+                                  ``csrc/dense_mpnn_bwd.cu``
+================================  =========================================
+
+The CUDA sources are built by ``nvcc`` for ``sm_90a`` at first use and
+bound with ``ctypes`` (:mod:`notorch_tpu_torch.kernels.build`). Tensors on
+the CPU take the plain versions; tensors on a CUDA device launch the
+kernels or raise — there is no fallback. Each wrapper counts its launches
+in ``<wrapper>.launches``.
+
+What the block computes, per bin ``b`` with ``rev(e) = e XOR 1``:
 
 - ``A[e,e'] = [src[e] == dst[e']] * emask[e'] * [e' != rev(e)]`` for
   ``reduce="sum"``; for ``reduce="mean"``, ``keep / max(indeg, 1) - [e' ==
@@ -16,21 +34,30 @@ What it computes, per bin ``b`` with ``rev(e) = e XOR 1``:
 
 The reverse-message subtraction is folded into ``A``, so on PADDED edge
 lanes the result differs from the unfolded form of
-:class:`~notorch_tpu_torch.nn.chemprop_dense.DenseChempropBlock`; kernel,
-plain version and the JAX kernel agree on every lane.
+:class:`~notorch_tpu_torch.nn.chemprop_dense.DenseChempropBlock`; kernels,
+plain versions and the JAX kernels agree on every lane. The backward is
+the exact VJP of the folded block for any cotangent; it is the gradient of
+the unfolded block too when the cotangent is zero on padded lanes, which
+the masked scatter after the block guarantees.
 
-What bounds it on the card: the work is exact f32, so the floor is the
-CUDA-core f32 rate (67 TFLOP/s on an H100 SXM). The ``W`` products need
-``depth * 2 * B * E * d**2`` operations and the sparse operator ``2 * nnz(A)
-* d`` per layer; the bytes (read ``h0``, ``W``, ``b`` and the index arrays
-once, write the output once) take about a tenth as long, so it is bound by
-operations. The design launches one kernel per layer on a (bin, 64-column)
-grid: ``relu(h) @ W`` by k-tiled shared-memory FMA, with the next tile's
-loads in flight during the current tile's FMAs, then ``A @ mW`` as a
-row-sparse sum over bit rows of ``A`` built in shared memory, so ``A`` costs
-operations only where it is nonzero and is never stored. ``fit_tile`` and
-``mols_per_tile`` (the TPU's VMEM tiling policy) are dropped: a block always
-holds one bin.
+What bounds the kernels on the card: the work is exact f32, so the floor
+is the CUDA-core f32 rate (67 TFLOP/s on an H100 SXM). Forward: ``depth *
+(2 * B * E * d**2 + 2 * nnz(A) * d)`` operations; backward: ``depth * (4 *
+B * E * d**2 + 2 * nnz(A) * d)``, plus the forward's for the replay of the
+recompute backward. Their bytes (each input read once, each output written
+once) take a fifth to a tenth as long, so all are bound by operations. The
+forward launches one kernel per layer on a (bin, 64-column) grid:
+``relu(h) @ W`` by k-tiled shared-memory FMA, then ``A @ mW`` as a
+row-sparse sum over bit rows of ``A`` built in shared memory, so ``A``
+costs operations only where it is nonzero and is never stored. Because
+each layer's output already goes to device memory, the stash forward is
+that same kernel writing layer ``l < depth - 1`` into ``hs[l]``: the stash
+costs no bytes beyond what the serving forward moves (the TPU kernel, which
+keeps the state in VMEM for the whole depth, pays ``depth - 1`` extra
+writes for it). The backward sweep is described in ``csrc/dense_mpnn_bwd.cu``;
+its weight and bias gradients are summed in a fixed order, so two calls on
+the same inputs give the same bits. ``fit_tile`` and ``mols_per_tile`` (the
+TPU's VMEM tiling policy) are dropped: a block always holds one bin.
 """
 
 from __future__ import annotations
@@ -43,6 +70,7 @@ import torch
 from notorch_tpu_torch.kernels import build
 
 REDUCES = ("sum", "mean")
+BACKWARDS = ("stash", "recompute")
 
 
 def edge_adjacency(
@@ -61,6 +89,41 @@ def edge_adjacency(
     return (keep & ~is_rev).to(torch.float32)
 
 
+def _exact_f32(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        # the comparison with the kernels is in exact f32: no TF32 anywhere
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def dense_mpnn_block_stash_reference(
+    edge_hiddens: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    edge_mask: torch.Tensor,
+    weights: torch.Tensor,
+    biases: torch.Tensor,
+    *,
+    depth: int,
+    residual: bool = True,
+    reduce: str = "sum",
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain PyTorch version of the stash forward: builds ``A`` densely and
+    runs the layers as ``matmul`` and ``bmm`` in full f32. Returns ``(out,
+    hs)``, ``hs = [h1, ..., h_{depth-1}]`` stacked (``None`` at depth 1)."""
+    _exact_f32(edge_hiddens)
+    A = edge_adjacency(src, dst, edge_mask, mean=reduce == "mean")
+    h = edge_hiddens
+    hs = []
+    for layer in range(depth):
+        if layer > 0:
+            hs.append(h)
+        mW = torch.matmul(torch.relu(h), weights[layer])
+        out = biases[layer] + torch.bmm(A, mW)
+        h = h + out if residual else out
+    return h, torch.stack(hs) if hs else None
+
+
 def dense_mpnn_block_reference(
     edge_hiddens: torch.Tensor,
     src: torch.Tensor,
@@ -73,22 +136,59 @@ def dense_mpnn_block_reference(
     residual: bool = True,
     reduce: str = "sum",
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: builds ``A`` densely and runs the
-    layers as ``matmul`` and ``bmm`` in full f32."""
-    if edge_hiddens.is_cuda:
-        # the comparison with the kernel is in exact f32: no TF32 anywhere
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    A = edge_adjacency(src, dst, edge_mask, mean=reduce == "mean")
-    h = edge_hiddens
-    for layer in range(depth):
-        mW = torch.matmul(torch.relu(h), weights[layer])
-        out = biases[layer] + torch.bmm(A, mW)
-        h = h + out if residual else out
-    return h
+    """Plain PyTorch version of the forward kernel (the stash forward's
+    output alone)."""
+    return dense_mpnn_block_stash_reference(
+        edge_hiddens, src, dst, edge_mask, weights, biases,
+        depth=depth, residual=residual, reduce=reduce,
+    )[0]
 
 
-def _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce) -> None:
+def dense_mpnn_block_bwd_reference(
+    h0: torch.Tensor,
+    hs: torch.Tensor | None,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    edge_mask: torch.Tensor,
+    weights: torch.Tensor,
+    cotangent: torch.Tensor,
+    *,
+    depth: int,
+    residual: bool = True,
+    reduce: str = "sum",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the reverse sweep: dense ``A``, ``bmm`` and
+    ``matmul`` in full f32. ``hs`` holds the layer inputs h1..h_{depth-1}.
+    Returns ``(g_h0, g_W, g_b)``."""
+    _exact_f32(h0)
+    A_t = edge_adjacency(src, dst, edge_mask, mean=reduce == "mean").transpose(1, 2)
+    d = h0.shape[-1]
+    g_W = torch.zeros_like(weights)
+    g_b = torch.zeros(depth, d, dtype=weights.dtype, device=weights.device)
+    g = cotangent
+    for layer in reversed(range(depth)):
+        h_in = h0 if layer == 0 else hs[layer - 1]
+        g_mW = torch.bmm(A_t, g)
+        g_W[layer] = torch.matmul(torch.relu(h_in).reshape(-1, d).T, g_mW.reshape(-1, d))
+        g_b[layer] = g.reshape(-1, d).sum(dim=0)
+        g_h = torch.matmul(g_mW, weights[layer].T) * (h_in > 0).to(g.dtype)
+        g = g_h + g if residual else g_h
+    return g, g_W, g_b
+
+
+def _check_tensors(expect: dict, device: torch.device) -> None:
+    for name, (t, dtype, shape) in expect.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, edge_hiddens on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes=1) -> None:
     if reduce not in REDUCES:
         raise ValueError(f"reduce must be one of {REDUCES}, got {reduce!r}")
     if edge_hiddens.dim() != 3:
@@ -98,23 +198,47 @@ def _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce) ->
         raise ValueError(f"edge lanes per bin must be even (reverse pairs), got {E}")
     if depth < 1:
         raise ValueError(f"depth must be >= 1, got {depth}")
+    if n_nodes < 1:
+        raise ValueError(f"n_nodes must be >= 1, got {n_nodes}")
     expect = {
         "edge_hiddens": (edge_hiddens, torch.float32, (B, E, d)),
         "src": (src, torch.int32, (B, E)),
         "dst": (dst, torch.int32, (B, E)),
         "edge_mask": (edge_mask, torch.bool, (B, E)),
         "weights": (weights, torch.float32, (depth, d, d)),
-        "biases": (biases, torch.float32, (depth, d)),
     }
-    for name, (t, dtype, shape) in expect.items():
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-        if t.device != edge_hiddens.device:
-            raise ValueError(f"{name} is on {t.device}, edge_hiddens on {edge_hiddens.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if biases is not None:
+        expect["biases"] = (biases, torch.float32, (depth, d))
+    _check_tensors(expect, edge_hiddens.device)
+
+
+def _check_bwd(h0, hs, cotangent, depth) -> None:
+    B, E, d = h0.shape
+    expect = {"cotangent": (cotangent, torch.float32, (B, E, d))}
+    if depth > 1:
+        if hs is None:
+            raise ValueError(f"hs (the stash h1..h_{{depth-1}}) is required at depth {depth}")
+        expect["hs"] = (hs, torch.float32, (depth - 1, B, E, d))
+    _check_tensors(expect, h0.device)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """CPU tensors take the plain version; CUDA tensors the kernel; any
+    other device is refused."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return True
+
+
+def _check_aligned(**tensors) -> None:
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(
+                f"the CUDA kernels read {name} in 16-byte vectors; its storage must "
+                "start 16-byte aligned (pass a fresh tensor, not an offset view)"
+            )
 
 
 @functools.cache
@@ -130,28 +254,39 @@ def _layer_fn():
     return lib, fn
 
 
-def _launch_kernel(h0, src, dst, edge_mask, weights, biases, depth, residual, mean):
+@functools.cache
+def _sweep_fn():
+    lib = build.load("dense_mpnn_bwd")
+    fn = lib.dense_mpnn_bwd_layer
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.dense_mpnn_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.dense_mpnn_bwd_error_string.restype = ctypes.c_char_p
+    for name in ("dense_mpnn_bwd_max_edges", "dense_mpnn_bwd_cols", "dense_mpnn_bwd_chunk_rows"):
+        getattr(lib, name).restype = ctypes.c_int
+    return lib, fn
+
+
+def _check_shape_for(max_edges: int, cols: int, E: int, d: int) -> None:
+    if E > max_edges or d % cols != 0:
+        raise ValueError(
+            f"the CUDA kernels take bins of at most {max_edges} edge lanes and a width "
+            f"that is a multiple of {cols}; got E={E}, d={d}"
+        )
+
+
+def _launch_layers(h0, src, dst, edge_mask, weights, biases, outs, residual, mean) -> int:
+    """Run the layer kernel for layers ``0..len(outs)-1``, layer ``l``
+    reading the previous output (``h0`` first) and writing ``outs[l]``.
+    Returns the number of launches."""
     B, E, d = h0.shape
     lib, fn = _layer_fn()
-    if E > lib.dense_mpnn_max_edges() or d % lib.dense_mpnn_cols() != 0:
-        raise ValueError(
-            f"the CUDA kernel takes bins of at most {lib.dense_mpnn_max_edges()} edge "
-            f"lanes and a width that is a multiple of {lib.dense_mpnn_cols()}; got "
-            f"E={E}, d={d}"
-        )
-    if h0.data_ptr() % 16 or weights.data_ptr() % 16:
-        raise ValueError(
-            "the CUDA kernel reads edge_hiddens and weights in 16-byte vectors; "
-            "their storage must start 16-byte aligned (pass a fresh tensor, not an offset view)"
-        )
+    _check_shape_for(lib.dense_mpnn_max_edges(), lib.dense_mpnn_cols(), E, d)
+    _check_aligned(edge_hiddens=h0, weights=weights, **{f"output {i}": o for i, o in enumerate(outs)})
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        out = torch.empty_like(h0)
-        # ping-pong so that the last layer writes ``out``
-        bufs = [out, torch.empty_like(h0) if depth > 1 else out]
         h_in = h0
-        for layer in range(depth):
-            h_out = bufs[(depth - 1 - layer) % 2]
+        for layer, h_out in enumerate(outs):
             err = fn(
                 h_in.data_ptr(), h_out.data_ptr(), src.data_ptr(), dst.data_ptr(),
                 edge_mask.data_ptr(), weights[layer].data_ptr(), biases[layer].data_ptr(),
@@ -161,9 +296,46 @@ def _launch_kernel(h0, src, dst, edge_mask, weights, biases, depth, residual, me
                 raise RuntimeError(
                     f"dense_mpnn_layer launch failed: {lib.dense_mpnn_error_string(err).decode()}"
                 )
-            fused_dense_mpnn_block.launches += 1
             h_in = h_out
-    return out
+    return len(outs)
+
+
+def _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual, mean):
+    """The reverse sweep of ``csrc/dense_mpnn_bwd.cu``, last layer first;
+    ``hs[l - 1]`` is the input of layer ``l > 0``."""
+    B, E, d = h0.shape
+    depth = weights.shape[0]
+    lib, fn = _sweep_fn()
+    _check_shape_for(lib.dense_mpnn_bwd_max_edges(), lib.dense_mpnn_bwd_cols(), E, d)
+    _check_aligned(edge_hiddens=h0, hs=hs, cotangent=cotangent, weights=weights)
+    chunks = -(-B * E // lib.dense_mpnn_bwd_chunk_rows())
+    with torch.cuda.device(h0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        g_mw = torch.empty_like(h0)
+        gw_part = torch.empty(chunks, d, d, dtype=torch.float32, device=h0.device)
+        gb_part = torch.empty(chunks, d, dtype=torch.float32, device=h0.device)
+        g_W = torch.empty_like(weights)
+        g_b = torch.empty(depth, d, dtype=torch.float32, device=h0.device)
+        g_h0 = torch.empty_like(h0)
+        # ping-pong so that layer 0 writes g_h0 and no layer writes its own input
+        bufs = [g_h0, torch.empty_like(h0) if depth > 1 else g_h0]
+        g = cotangent
+        for layer in reversed(range(depth)):
+            h_in = h0 if layer == 0 else hs[layer - 1]
+            g_in = bufs[layer % 2]
+            err = fn(
+                h_in.data_ptr(), g.data_ptr(), g_in.data_ptr(), g_mw.data_ptr(),
+                gw_part.data_ptr(), gb_part.data_ptr(), g_W[layer].data_ptr(),
+                g_b[layer].data_ptr(), src.data_ptr(), dst.data_ptr(), edge_mask.data_ptr(),
+                weights[layer].data_ptr(), B, E, d, int(residual), int(mean), stream,
+            )
+            if err != 0:
+                raise RuntimeError(
+                    f"dense_mpnn_bwd_layer launch failed: "
+                    f"{lib.dense_mpnn_bwd_error_string(err).decode()}"
+                )
+            g = g_in
+    return g_h0, g_W, g_b
 
 
 def fused_dense_mpnn_block(
@@ -182,24 +354,200 @@ def fused_dense_mpnn_block(
     """Run the whole D-MPNN block; returns the final edge hiddens [B, E, d].
 
     Tensors on the CPU take :func:`dense_mpnn_block_reference`; tensors on a
-    CUDA device launch the kernel, once per layer, or raise — there is no
-    fallback. ``fused_dense_mpnn_block.launches`` counts kernel launches.
-    ``n_nodes`` (node slots per bin) is kept for the JAX signature; the
-    operator needs only ``src``/``dst``.
+    CUDA device launch the kernel, once per layer, or raise.
+    ``fused_dense_mpnn_block.launches`` counts kernel launches (``depth`` a
+    call). ``n_nodes`` (node slots per bin) is kept for the JAX signature;
+    the operator needs only ``src``/``dst``.
     """
-    _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce)
-    if n_nodes < 1:
-        raise ValueError(f"n_nodes must be >= 1, got {n_nodes}")
-    if edge_hiddens.device.type == "cpu":
+    _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes)
+    if not _on_card(edge_hiddens):
         return dense_mpnn_block_reference(
             edge_hiddens, src, dst, edge_mask, weights, biases,
             depth=depth, residual=residual, reduce=reduce,
         )
-    if edge_hiddens.device.type != "cuda":
-        raise ValueError(f"no kernel for device {edge_hiddens.device}")
-    return _launch_kernel(
-        edge_hiddens, src, dst, edge_mask, weights, biases, depth, residual, reduce == "mean"
+    out = torch.empty_like(edge_hiddens)
+    # ping-pong so that the last layer writes ``out``
+    bufs = [out, torch.empty_like(edge_hiddens) if depth > 1 else out]
+    outs = [bufs[(depth - 1 - layer) % 2] for layer in range(depth)]
+    fused_dense_mpnn_block.launches += _launch_layers(
+        edge_hiddens, src, dst, edge_mask, weights, biases, outs, residual, reduce == "mean"
     )
+    return out
+
+
+def fused_dense_mpnn_block_stash(
+    edge_hiddens: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    edge_mask: torch.Tensor,
+    weights: torch.Tensor,
+    biases: torch.Tensor,
+    *,
+    depth: int,
+    n_nodes: int,
+    residual: bool = True,
+    reduce: str = "sum",
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The training forward: returns ``(out, hs)``, ``hs`` ``[depth-1, B, E,
+    d]`` f32 holding the hidden layer inputs h1..h_{depth-1} (``h0`` is the
+    caller's input and is never stashed; ``hs`` is ``None`` at depth 1,
+    where this is :func:`fused_dense_mpnn_block`, as in the JAX package).
+
+    On a CUDA device the layer kernel writes layer ``l < depth-1`` into
+    ``hs[l]`` and the last layer into ``out``;
+    ``fused_dense_mpnn_block_stash.launches`` counts its launches
+    (``depth`` a call). CPU tensors take
+    :func:`dense_mpnn_block_stash_reference`.
+    """
+    if depth == 1:
+        return fused_dense_mpnn_block(
+            edge_hiddens, src, dst, edge_mask, weights, biases,
+            depth=depth, n_nodes=n_nodes, residual=residual, reduce=reduce,
+        ), None
+    _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes)
+    if not _on_card(edge_hiddens):
+        return dense_mpnn_block_stash_reference(
+            edge_hiddens, src, dst, edge_mask, weights, biases,
+            depth=depth, residual=residual, reduce=reduce,
+        )
+    B, E, d = edge_hiddens.shape
+    out = torch.empty_like(edge_hiddens)
+    hs = torch.empty(depth - 1, B, E, d, dtype=torch.float32, device=edge_hiddens.device)
+    fused_dense_mpnn_block_stash.launches += _launch_layers(
+        edge_hiddens, src, dst, edge_mask, weights, biases, [*hs, out], residual,
+        reduce == "mean",
+    )
+    return out, hs
+
+
+def fused_dense_mpnn_block_bwd_stash(
+    h0: torch.Tensor,  # [B, E, d] the forward's input
+    hs: torch.Tensor | None,  # [depth-1, B, E, d] stashed layer inputs (None iff depth == 1)
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    edge_mask: torch.Tensor,
+    weights: torch.Tensor,
+    cotangent: torch.Tensor,  # [B, E, d], zero on padded lanes
+    *,
+    depth: int,
+    n_nodes: int,
+    residual: bool = True,
+    reduce: str = "sum",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The training backward: returns ``(g_h0, g_W, g_b)`` from the stash
+    of :func:`fused_dense_mpnn_block_stash`, with no recompute.
+
+    On a CUDA device one call runs the reverse sweep of
+    ``csrc/dense_mpnn_bwd.cu`` (four launches a layer) and adds one to
+    ``fused_dense_mpnn_block_bwd_stash.launches``. At depth 1 there is no
+    stash and this is :func:`fused_dense_mpnn_block_bwd` with zero biases
+    (its replay is empty), as in the JAX package. CPU tensors take
+    :func:`dense_mpnn_block_bwd_reference`.
+    """
+    if depth == 1:
+        return fused_dense_mpnn_block_bwd(
+            h0, src, dst, edge_mask, weights,
+            torch.zeros(1, h0.shape[-1], dtype=torch.float32, device=h0.device), cotangent,
+            depth=depth, n_nodes=n_nodes, residual=residual, reduce=reduce,
+        )
+    _check(h0, src, dst, edge_mask, weights, None, depth, reduce, n_nodes)
+    _check_bwd(h0, hs, cotangent, depth)
+    if not _on_card(h0):
+        return dense_mpnn_block_bwd_reference(
+            h0, hs, src, dst, edge_mask, weights, cotangent,
+            depth=depth, residual=residual, reduce=reduce,
+        )
+    grads = _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual, reduce == "mean")
+    fused_dense_mpnn_block_bwd_stash.launches += 1
+    return grads
+
+
+def fused_dense_mpnn_block_bwd(
+    edge_hiddens: torch.Tensor,  # [B, E, d] h0
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    edge_mask: torch.Tensor,
+    weights: torch.Tensor,  # [depth, d, d]
+    biases: torch.Tensor,  # [depth, d]: the replay needs them
+    cotangent: torch.Tensor,  # [B, E, d], zero on padded lanes
+    *,
+    depth: int,
+    n_nodes: int,
+    residual: bool = True,
+    reduce: str = "sum",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The recompute backward: returns ``(g_h0, g_W, g_b)`` from ``h0``
+    alone. On a CUDA device it replays layers ``0..depth-2`` with the layer
+    kernel into a scratch stash (biases included: the JAX kernel records
+    the fault that leaving them out caused), then runs the reverse sweep;
+    one call adds one to ``fused_dense_mpnn_block_bwd.launches``. CPU
+    tensors take the plain versions of both halves."""
+    _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes)
+    _check_bwd(edge_hiddens, None, cotangent, 1)
+    kw = dict(depth=depth, residual=residual, reduce=reduce)
+    if not _on_card(edge_hiddens):
+        _, hs = dense_mpnn_block_stash_reference(
+            edge_hiddens, src, dst, edge_mask, weights, biases, **kw
+        )
+        return dense_mpnn_block_bwd_reference(
+            edge_hiddens, hs, src, dst, edge_mask, weights, cotangent, **kw
+        )
+    B, E, d = edge_hiddens.shape
+    hs = None
+    if depth > 1:
+        hs = torch.empty(depth - 1, B, E, d, dtype=torch.float32, device=edge_hiddens.device)
+        _launch_layers(edge_hiddens, src, dst, edge_mask, weights, biases, list(hs), residual,
+                       reduce == "mean")
+    grads = _launch_sweep(edge_hiddens, hs, src, dst, edge_mask, weights, cotangent, residual,
+                          reduce == "mean")
+    fused_dense_mpnn_block_bwd.launches += 1
+    return grads
 
 
 fused_dense_mpnn_block.launches = 0
+fused_dense_mpnn_block_stash.launches = 0
+fused_dense_mpnn_block_bwd_stash.launches = 0
+fused_dense_mpnn_block_bwd.launches = 0
+
+
+class FusedDenseMpnnBlockFn(torch.autograd.Function):
+    """The fused block as an autograd node.
+
+    Forward: the stash forward (``backward="stash"``, depth > 1) or the
+    plain forward kernel (``"recompute"``, or depth 1). Backward: the stash
+    backward or the recompute backward. The index arrays get no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, edge_hiddens, src, dst, edge_mask, weights, biases,
+                depth: int, n_nodes: int, residual: bool, reduce: str, backward: str):
+        if backward not in BACKWARDS:
+            raise ValueError(f"backward must be one of {BACKWARDS}, got {backward!r}")
+        kw = dict(depth=depth, n_nodes=n_nodes, residual=residual, reduce=reduce)
+        args = (edge_hiddens, src, dst, edge_mask, weights, biases)
+        hs = None
+        if backward == "stash":
+            out, hs = fused_dense_mpnn_block_stash(*args, **kw)
+        else:
+            out = fused_dense_mpnn_block(*args, **kw)
+        ctx.kw = kw
+        ctx.backward = backward
+        ctx.save_for_backward(*args, *(() if hs is None else (hs,)))
+        return out
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        h0, src, dst, edge_mask, weights, biases, *stash = ctx.saved_tensors
+        g = cotangent.contiguous()
+        if g.data_ptr() % 16:
+            g = g.clone()
+        if ctx.backward == "stash":
+            hs = stash[0] if stash else None
+            g_h0, g_W, g_b = fused_dense_mpnn_block_bwd_stash(
+                h0, hs, src, dst, edge_mask, weights, g, **ctx.kw
+            )
+        else:
+            g_h0, g_W, g_b = fused_dense_mpnn_block_bwd(
+                h0, src, dst, edge_mask, weights, biases, g, **ctx.kw
+            )
+        return g_h0, None, None, None, g_W, g_b, None, None, None, None, None

@@ -3,8 +3,10 @@
 Port of ``notorch_tpu.models.dmpnn`` for regression on the bin-packed dense
 layout, the layout ``layout="auto"`` resolves to by default. The block is
 :class:`~notorch_tpu_torch.nn.chemprop_dense.FusedDenseChempropBlock` for
-``reduce`` sum and mean, as in the JAX package. Other layouts, task types
-and readouts raise ``NotImplementedError`` until their slice is ported.
+``reduce`` sum and mean, as in the JAX package; the loss is the masked MSE
+and the default metrics RMSE and MAE, on the same keys as there. Other
+layouts, task types and readouts raise ``NotImplementedError`` until their
+slice is ported.
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ from notorch_tpu_torch.nn.chemprop_dense import (
     PackedMean,
 )
 from notorch_tpu_torch.nn.mlp import MLP
+from notorch_tpu_torch.tasks import losses as L
+from notorch_tpu_torch.tasks import metrics as M
+from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
 
 AGGREGATIONS = ("sum", "mean", "max", "gated", "sdp")
@@ -65,6 +70,7 @@ def build_dmpnn(
     aggregation: str = "mean",
     reduce: str = "sum",
     ffn_layers: int = 1,
+    optimizer: OptimizerSpec | None = None,
     transforms: dict | None = None,
     num_node_types: int | None = None,
     num_edge_types: int | None = None,
@@ -77,9 +83,10 @@ def build_dmpnn(
 ) -> Model:
     """The canonical embed -> chemprop -> readout -> FFN predictor, with the
     same four modules (``embed``, ``mp``, ``readout``, ``ffn``) and keys as
-    the JAX package's. Parameters are drawn from ``generator`` with flax's
-    initializer families; the model is built on the CPU (``Model.to``
-    moves it)."""
+    the JAX package's, the loss ``mse`` and the metrics ``rmse`` and ``mae``
+    on ``targets.y`` and its mask. Parameters are drawn from ``generator``
+    with flax's initializer families; the model is built on the CPU
+    (``Model.to`` moves it). ``optimizer`` defaults to Adam at 1e-4."""
     layout = resolve_layout(
         layout, dropout=dropout, dtype=dtype, graph_axis=graph_axis,
         remat=remat, impl=impl, aggregation=aggregation, reduce=reduce,
@@ -121,6 +128,13 @@ def build_dmpnn(
             "out_keys": ["preds"],
         },
     }
-    model = Model(modules=modules, transforms=fill_pred_transform_keys(transforms, "ffn.preds"))
+    keys = {"preds": "ffn.preds", "targets": "targets.y", "mask": "targets.y_mask"}
+    model = Model(
+        modules=modules,
+        losses={"mse": {"fn": L.MSE(), "in_keys": keys, "weight": 1.0}},
+        metrics={"rmse": {"fn": M.RMSE(), "in_keys": keys}, "mae": {"fn": M.MAE(), "in_keys": keys}},
+        transforms=fill_pred_transform_keys(transforms, "ffn.preds"),
+        optimizer=optimizer,
+    )
     model.reset_parameters(generator)
     return model

@@ -1,8 +1,8 @@
 """D-MPNN over the dense per-molecule and bin-packed layouts.
 
-Port of ``notorch_tpu.nn.chemprop_dense`` for the serving path: the graph
-embedding, the plain block (the oracle of the fused one), the block backed
-by the hand-written kernel (forward only), and the mean readouts.
+Port of ``notorch_tpu.nn.chemprop_dense``: the graph embedding, the plain
+block (the oracle of the fused one), the block backed by the hand-written
+kernels (forward and backward), and the mean readouts.
 
 Both blocks keep the per-layer weights stacked, as the kernel consumes
 them: ``weight`` ``[depth, d, d]`` in the JAX ``[in, out]`` layout and
@@ -17,11 +17,12 @@ from torch import nn
 
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.data.dense import DenseBatchedGraph, rev_pair_swap
-from notorch_tpu_torch.kernels.dense_mpnn import fused_dense_mpnn_block
+from notorch_tpu_torch.kernels.dense_mpnn import FusedDenseMpnnBlockFn, fused_dense_mpnn_block
 from notorch_tpu_torch.nn.embed import EmbeddingBagSum
 from notorch_tpu_torch.nn.init import lecun_normal_
 
-_TRAINING_SLICE = "the training slice of the port"
+_NEXT_SLICE = "the next slice of the port, with the fused encoder (kernel rows 5-6)"
+_LATER_SLICE = "a later slice of the port (ROADMAP.md queue A)"
 
 
 class _StackedLayers(nn.Module):
@@ -62,8 +63,8 @@ def _scatter_ids(G: DenseBatchedGraph) -> torch.Tensor:
 class DenseChempropBlock(_StackedLayers):
     """The D-MPNN block in plain tensor ops (one-hot ``bmm`` gathers and
     scatters and the pair swap): the oracle of :class:`FusedDenseChempropBlock`.
-    ``reduce`` is ``"sum"`` or ``"mean"``; dropout and ``"max"`` come with the
-    training slice."""
+    ``reduce`` is ``"sum"`` or ``"mean"``; dropout and ``"max"`` come with
+    the per-molecule dense layout, in a later slice."""
 
     def __init__(
         self,
@@ -74,7 +75,7 @@ class DenseChempropBlock(_StackedLayers):
     ):
         if reduce not in ("sum", "mean"):
             raise NotImplementedError(
-                f"reduce={reduce!r} is not ported yet (max comes with {_TRAINING_SLICE})"
+                f"reduce={reduce!r} is not ported yet (max comes with {_LATER_SLICE})"
             )
         super().__init__(hidden_dim, depth)
         self.residual = residual
@@ -95,19 +96,29 @@ class DenseChempropBlock(_StackedLayers):
 
 
 class FusedDenseChempropBlock(_StackedLayers):
-    """D-MPNN block backed by the hand-written kernel
-    (:func:`notorch_tpu_torch.kernels.dense_mpnn.fused_dense_mpnn_block`),
-    forward only.
+    """D-MPNN block backed by the hand-written kernels
+    (:mod:`notorch_tpu_torch.kernels.dense_mpnn`), trainable.
 
     The ``h0 = G @ node_feats + edge_feats`` gather and the final E->V
-    scatter stay plain tensor ops around the kernel, as they lie outside the
-    Pallas kernel in the JAX package. Padded-lane contract: the kernel folds
-    the reverse-message subtraction into its operator, so ``edge_feats`` on
-    PADDED edge lanes differ from :class:`DenseChempropBlock`'s; real lanes
-    and the masked scatter agree.
+    scatter stay plain tensor ops around the kernels, as they lie outside
+    the Pallas kernels in the JAX package, so autograd carries gradients
+    through them to the embeddings. Under ``torch.no_grad()`` or
+    ``inference_mode()`` (or with no parameter or input that needs a
+    gradient) the block runs the forward kernel alone; otherwise it runs
+    :class:`~notorch_tpu_torch.kernels.dense_mpnn.FusedDenseMpnnBlockFn`:
 
-    ``backward``, ``fuse_ends``, ``matmul_dtype`` and ``stash_dtype`` are the
-    JAX block's options; only their forward-only f32 defaults are ported.
+    - ``backward="stash"`` (the default, as in the JAX block): the forward
+      stashes h1..h_{depth-1} and the backward reads them back;
+    - ``backward="recompute"``: the backward replays the forward from h0.
+
+    Padded-lane contract: the kernels fold the reverse-message subtraction
+    into their operator, so ``edge_feats`` on PADDED edge lanes differ from
+    :class:`DenseChempropBlock`'s; real lanes and the masked scatter agree,
+    and the scatter gives the backward a cotangent that is zero on padded
+    lanes, which makes its gradients those of the unfolded block.
+
+    ``matmul_dtype``, ``stash_dtype`` and ``fuse_ends`` are the JAX block's
+    options; only their f32 defaults are ported.
     """
 
     def __init__(
@@ -126,29 +137,44 @@ class FusedDenseChempropBlock(_StackedLayers):
                 "the fused block implements reduce='sum' and 'mean' (both fold into "
                 "its linear edge operator); max is non-foldable"
             )
-        if backward != "stash" or matmul_dtype is not None or stash_dtype is not None or fuse_ends:
+        if backward == "jnp":
             raise NotImplementedError(
-                "backward, matmul_dtype, stash_dtype and fuse_ends other than their "
-                "defaults are not ported yet: this block runs the f32 forward only; "
-                f"the rest comes with {_TRAINING_SLICE}"
+                "backward='jnp' (the JAX package's debug path) is not ported; the port's "
+                "plain versions in kernels.dense_mpnn play that part"
             )
+        if backward not in ("stash", "recompute"):
+            raise ValueError(f"backward must be 'stash' or 'recompute', got {backward!r}")
+        if matmul_dtype is not None:
+            raise NotImplementedError(
+                f"matmul_dtype={matmul_dtype!r}: the kernels run exact f32; lower-precision "
+                f"operands come with {_LATER_SLICE}"
+            )
+        if stash_dtype is not None:
+            raise NotImplementedError(
+                f"stash_dtype={stash_dtype!r}: the stash is f32; a bf16 stash needs a cast "
+                f"output of the layer kernel and comes with {_LATER_SLICE}"
+            )
+        if fuse_ends:
+            raise NotImplementedError(f"fuse_ends=True is not ported yet: it comes with {_NEXT_SLICE}")
         super().__init__(hidden_dim, depth)
         self.residual = residual
         self.reduce = reduce
+        self.backward = backward
 
     def forward(self, G: DenseBatchedGraph) -> DenseBatchedGraph:
-        if torch.is_grad_enabled() and self.weight.requires_grad:
-            raise NotImplementedError(
-                f"the fused block has no backward yet ({_TRAINING_SLICE}); call it "
-                "under torch.inference_mode() or torch.no_grad()"
-            )
         B, V, d = G.node_feats.shape
         src = G.src.long()[..., None].expand(-1, -1, d)
-        h0 = torch.gather(G.node_feats, 1, src) + G.edge_feats
-        edge_hiddens = fused_dense_mpnn_block(
-            h0.contiguous(), G.src, G.dst, G.edge_mask, self.weight, self.bias,
-            depth=self.depth, n_nodes=V, residual=self.residual, reduce=self.reduce,
-        )
+        h0 = (torch.gather(G.node_feats, 1, src) + G.edge_feats).contiguous()
+        args = (h0, G.src, G.dst, G.edge_mask, self.weight, self.bias)
+        needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (h0, self.weight, self.bias))
+        if needs_grad:
+            edge_hiddens = FusedDenseMpnnBlockFn.apply(
+                *args, self.depth, V, self.residual, self.reduce, self.backward
+            )
+        else:
+            edge_hiddens = fused_dense_mpnn_block(
+                *args, depth=self.depth, n_nodes=V, residual=self.residual, reduce=self.reduce
+            )
         nodes = torch.zeros(B * V + 1, d, dtype=edge_hiddens.dtype, device=edge_hiddens.device)
         nodes.index_add_(0, _scatter_ids(G), edge_hiddens.reshape(-1, d))
         node_hiddens = nodes[: B * V].reshape(B, V, d)

@@ -1,18 +1,34 @@
-"""Inference over a loader.
+"""The training loop: fit / evaluate / predict.
 
-Port of ``notorch_tpu.training.loop.predict``; ``fit`` and ``evaluate``
-come with the training slice.
+Port of ``notorch_tpu.training.loop``. ``fit`` runs the model's train step
+over the loader, with the JAX loop's epoch records, ``checkpoint_every``
+saves with the loop cursor, preemption-safe ``resume``, epoch-end saves
+and early stopping. ``evaluate`` takes count-weighted batch means exactly
+as the JAX version does, so ``val/rmse`` means the same number in both
+packages. Log values stay device scalars until an epoch ends.
+
+``steps_per_dispatch > 1`` (the JAX loop's ``lax.scan`` over stacked
+batches, a TPU dispatch-amortisation device) is not ported; nor are the
+host-side metrics of classification.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
 
 from notorch_tpu_torch.data.dense import DenseBatchedGraph
 from notorch_tpu_torch.model.model import Model
+
+
+@dataclass
+class FitResult:
+    history: list[dict] = field(default_factory=list)
+    stopped_early: bool = False
 
 
 def to_device(batch: Mapping[str, Any], device) -> dict:
@@ -27,6 +43,163 @@ def to_device(batch: Mapping[str, Any], device) -> dict:
             v = v.to(device)
         out[k] = v
     return out
+
+
+class _EarlyStopping:
+    """Stops when ``monitor`` has not improved by more than ``min_delta``
+    for ``patience`` epochs. Its state rides in the loop cursor, so a
+    resumed run stops where the uninterrupted one does (the JAX loop drops
+    it on resume)."""
+
+    def __init__(self, cfg: Mapping):
+        self.monitor = cfg["monitor"]
+        self.patience = int(cfg.get("patience", 5))
+        self.mode = cfg.get("mode", "min")
+        self.delta = float(cfg.get("min_delta", 0.0))
+        if self.mode not in ("min", "max"):
+            raise ValueError(f"early_stopping mode must be min|max, got {self.mode!r}")
+        self.best: float | None = None
+        self.wait = 0
+
+    def state(self) -> dict:
+        return {"best": self.best, "wait": self.wait}
+
+    def load(self, state: Mapping) -> None:
+        self.best, self.wait = state["best"], int(state["wait"])
+
+    def stop(self, record: Mapping) -> bool:
+        if self.monitor not in record:
+            raise KeyError(
+                f"early_stopping monitor {self.monitor!r} not in the epoch record; "
+                f"available: {sorted(record)} (a val/ metric requires val_loader)"
+            )
+        value = float(record[self.monitor])
+        improved = self.best is None or (
+            value < self.best - self.delta if self.mode == "min" else value > self.best + self.delta
+        )
+        if improved:
+            self.best, self.wait = value, 0
+        else:
+            self.wait += 1
+        return self.wait >= self.patience
+
+
+def fit(
+    model: Model,
+    train_loader,
+    val_loader=None,
+    epochs: int = 1,
+    log_fn: Callable[[dict], None] | None = None,
+    checkpointer=None,
+    resume: bool = False,
+    checkpoint_every: int = 0,
+    steps_per_dispatch: int = 1,
+    early_stopping: Mapping | None = None,
+) -> FitResult:
+    """Run the train step over ``train_loader`` for ``epochs`` epochs.
+
+    Each epoch calls ``train_loader.set_epoch(epoch)`` where it exists, so
+    that the epoch's order is a pure function of (seed, epoch).
+    ``checkpoint_every=K`` also saves every K batches with the loop cursor
+    (epoch, batches trained); ``resume=True`` restores the latest save
+    (parameters, optimizer, schedule, update count, cursor and
+    early-stopping state), re-derives the interrupted epoch's order and
+    skips the batches already trained, so a killed-and-resumed run ends
+    with the same parameters and optimizer state, bit for bit, as an
+    uninterrupted one on the same device. ``early_stopping={"monitor":
+    "val/rmse", "patience": 5, "mode": "min", "min_delta": 0.0}`` stops when
+    the monitored epoch value has not improved for ``patience`` epochs.
+    """
+    if steps_per_dispatch != 1:
+        raise NotImplementedError(
+            "steps_per_dispatch > 1 (the JAX loop's lax.scan over stacked batches) "
+            "is a TPU dispatch-amortisation device and is not ported"
+        )
+    device = model.device
+    history = []
+    stopper = _EarlyStopping(early_stopping) if early_stopping is not None else None
+    start_epoch = skip_batches = 0
+    if resume and checkpointer is not None and checkpointer.latest_step() is not None:
+        model.network.load_state_dict(checkpointer.restore())
+        train_state = checkpointer.restore_train()
+        if train_state is not None:
+            model.load_train_state_dict(train_state)
+        extra = checkpointer.restore_extra()
+        if extra:
+            start_epoch = int(extra.get("epoch", 0))
+            skip_batches = int(extra.get("batches_done", 0))
+            if stopper is not None and extra.get("early_stopping") is not None:
+                stopper.load(extra["early_stopping"])
+
+    def save(metrics=None, **cursor):
+        if stopper is not None:
+            cursor["early_stopping"] = stopper.state()
+        checkpointer.save(model.network.state_dict(), step=model.step,
+                          train_state=model.train_state_dict(), metrics=metrics, extra=cursor)
+
+    for epoch in range(start_epoch, epochs):
+        set_epoch = getattr(train_loader, "set_epoch", None)
+        if callable(set_epoch):
+            set_epoch(epoch)
+        t0 = time.perf_counter()
+        train_logs: dict[str, torch.Tensor] = {}
+        n_batches = since_save = 0
+        # batches of this epoch already trained by the preempted run: skipped
+        # below, but counted in the epoch cursor
+        done_offset = skip_batches if epoch == start_epoch else 0
+        to_skip = done_offset
+        for batch in train_loader:
+            if to_skip > 0:
+                to_skip -= 1
+                continue
+            logs = model.train_step(to_device(batch, device))
+            n_batches += 1
+            for k, v in logs.items():
+                train_logs[k] = train_logs.get(k, 0.0) + v
+            since_save += 1
+            if checkpointer is not None and checkpoint_every and since_save >= checkpoint_every:
+                save(epoch=epoch, batches_done=done_offset + n_batches)
+                since_save = 0
+        if to_skip > 0:
+            raise RuntimeError(
+                f"resume cursor ({done_offset} batches) exceeds this epoch's batch count "
+                f"by {to_skip}; resume with the same dataset and batch_size as the "
+                "interrupted run"
+            )
+        means = {k: float(v) / max(n_batches, 1) for k, v in train_logs.items()}
+        record = {"epoch": epoch, "time": time.perf_counter() - t0, **means}
+        if val_loader is not None:
+            record.update(evaluate(model, val_loader))
+        history.append(record)
+        if log_fn:
+            log_fn(record)
+        stop = stopper is not None and stopper.stop(record)
+        if checkpointer is not None:
+            save(metrics=record, epoch=epoch + 1, batches_done=0)
+        if stop:
+            return FitResult(history=history, stopped_early=True)
+    return FitResult(history=history)
+
+
+def evaluate(model: Model, loader) -> dict[str, float]:
+    """Count-weighted average of the eval step's losses and metrics over
+    batches: each batch's masked mean is weighted by its mask count, so a
+    ragged final batch does not skew the average. Sums stay on the device
+    until the end."""
+    device = model.device
+    sums: dict = {}
+    weights: dict = {}
+    n = 0
+    for batch in loader:
+        logs, _ = model.eval_step(to_device(batch, device))
+        n += 1
+        for k, v in logs.items():
+            if k.startswith("_count/"):
+                continue
+            w = logs.get(f"_count/{k}", 1.0)
+            sums[k] = sums.get(k, 0.0) + v * w
+            weights[k] = weights.get(k, 0.0) + w
+    return {k: float(v) / max(float(weights.get(k, n)), 1e-9) for k, v in sums.items()}
 
 
 def predict(model: Model, loader, keys: list[str] | None = None) -> dict[str, np.ndarray]:

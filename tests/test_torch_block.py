@@ -62,15 +62,32 @@ def test_fused_block_matches_plain_block_through_edge_mask(reduce, residual):
 
 
 def test_fused_block_refuses_unported_options_and_autograd():
-    with pytest.raises(NotImplementedError, match="training slice"):
+    """The options of later slices raise, each naming its slice; autograd
+    through the block runs the training kernels' plain versions on the CPU
+    and gives the plain block's gradients on every parameter."""
+    with pytest.raises(NotImplementedError, match="later slice"):
         FusedDenseChempropBlock(hidden_dim=D, matmul_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        FusedDenseChempropBlock(hidden_dim=D, backward="recompute")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        FusedDenseChempropBlock(hidden_dim=D, stash_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="rows 5-6"):
+        FusedDenseChempropBlock(hidden_dim=D, fuse_ends=True)
+    with pytest.raises(NotImplementedError, match="debug path"):
+        FusedDenseChempropBlock(hidden_dim=D, backward="jnp")
+    with pytest.raises(ValueError, match="backward"):
+        FusedDenseChempropBlock(hidden_dim=D, backward="replay")
     with pytest.raises(NotImplementedError):
         FusedDenseChempropBlock(hidden_dim=D, reduce="max")
-    block = FusedDenseChempropBlock(hidden_dim=D)
-    with pytest.raises(NotImplementedError, match="backward"):
-        block(_embedded())
+    G = _embedded()
+    plain = DenseChempropBlock(hidden_dim=D, depth=3)
+    plain.reset_parameters(torch.Generator().manual_seed(1))
+    cot = torch.randn(G.node_feats.shape, generator=torch.Generator().manual_seed(3))
+    (plain(G).node_feats * cot).sum().backward()
+    for backward in ("stash", "recompute"):
+        block = FusedDenseChempropBlock(hidden_dim=D, depth=3, backward=backward)
+        block.load_state_dict(plain.state_dict())
+        (block(G).node_feats * cot).sum().backward()
+        torch.testing.assert_close(block.weight.grad, plain.weight.grad, rtol=2e-3, atol=1e-5)
+        torch.testing.assert_close(block.bias.grad, plain.bias.grad, rtol=2e-3, atol=1e-5)
 
 
 def _jax_graph(G):

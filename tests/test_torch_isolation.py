@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from notorch_tpu_torch.cli import predict as predict_cli
+from notorch_tpu_torch.cli import train as train_cli
 from notorch_tpu_torch.utils import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,8 +36,10 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "notorch_tpu_torch.kernels.dense_mpnn" in report["modules"]
-    assert "notorch_tpu_torch.cli.predict" in report["modules"]
+    for name in ("kernels.dense_mpnn", "cli.predict", "cli.train", "tasks.losses", "tasks.metrics",
+                 "training.loop", "training.checkpoint", "training.optim", "training.schedulers",
+                 "__main__"):
+        assert f"notorch_tpu_torch.{name}" in report["modules"]
     assert report["banned"] == []
 
 
@@ -48,6 +51,10 @@ def test_entry_point_without_card_raises(monkeypatch, tmp_path):
         predict_cli.run_predict(tmp_path, tmp_path / "in.csv")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         predict_cli.main([str(tmp_path), str(tmp_path / "in.csv")])
+    cfg = {"data": {"csv": str(tmp_path / "in.csv")}, "trainer": {"checkpoint_dir": str(tmp_path / "c")}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.run(cfg)
+    assert not (tmp_path / "c").exists()  # refused before it built or wrote anything
     assert resolve_device("cpu") == torch.device("cpu")
 
 
