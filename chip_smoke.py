@@ -12,7 +12,15 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
 - train: ``run(cfg)`` on the first 1,024 molecules for 2 epochs, against
   the same run on the CPU, and ``run_predict`` of the checkpoint it wrote;
 - train epoch: a warm epoch timed and profiled, then an epoch with the
-  recompute backward against the stash backward's.
+  recompute backward against the stash backward's;
+- train declarative: ``run(cfg)`` of the same data, optimizer and trainer
+  with a declarative ``model.modules`` config on the per-molecule dense
+  layout, whose block is the whole fused encoder (``fuse_ends: true``), on
+  the card against the CPU;
+- serve declarative: ``run_predict`` of that run's checkpoint, 512
+  molecules, card against CPU;
+- dbuf: the double-buffered block forward, which no module calls, in a
+  phase of its own.
 
 Every kernel is held against its plain PyTorch version on the card at the
 shapes these paths give it, each path's launch counts are read, and the
@@ -41,18 +49,24 @@ from notorch_tpu_torch.data.batching import DataLoader
 from notorch_tpu_torch.data.dense import pack_graphs_dense
 from notorch_tpu_torch.kernels import build
 from notorch_tpu_torch.kernels.dense_mpnn import (
+    dense_encoder_bwd_reference,
+    dense_encoder_reference,
     dense_mpnn_block_bwd_reference,
     dense_mpnn_block_reference,
     dense_mpnn_block_stash_reference,
     edge_adjacency,
+    fused_dense_encoder_bwd,
+    fused_dense_encoder_fwd,
     fused_dense_mpnn_block,
     fused_dense_mpnn_block_bwd,
     fused_dense_mpnn_block_bwd_stash,
+    fused_dense_mpnn_block_dbuf,
     fused_dense_mpnn_block_stash,
 )
 from notorch_tpu_torch.models.dmpnn import build_dmpnn
 from notorch_tpu_torch.training.checkpoint import Checkpointer
 from notorch_tpu_torch.training.loop import fit
+from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
 
 ROOT = Path(__file__).resolve().parent
 N_MOLS, BATCH, SEED = 512, 64, 0
@@ -83,7 +97,37 @@ KERNELS = {  # wrapper -> (source, the TPU kernel's entry it replaces)
     fused_dense_mpnn_block_stash: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:436"),
     fused_dense_mpnn_block_bwd_stash: ("notorch_tpu_torch/csrc/dense_mpnn_bwd.cu", f"{TPU_KERNELS}:494"),
     fused_dense_mpnn_block_bwd: ("notorch_tpu_torch/csrc/dense_mpnn_bwd.cu", f"{TPU_KERNELS}:687"),
+    fused_dense_encoder_fwd: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:999"),
+    fused_dense_encoder_bwd: ("notorch_tpu_torch/csrc/dense_mpnn_bwd.cu", f"{TPU_KERNELS}:1058"),
+    fused_dense_mpnn_block_dbuf: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:1272"),
 }
+
+
+def declarative_model_cfg(d: int = 256, depth: int = 3) -> dict:
+    """The declarative twin of MODEL_CFG on the per-molecule dense layout:
+    embedding, the whole-encoder block (``fuse_ends: true``), the mean
+    readout and the MLP head, with the MSE loss and the RMSE/MAE metrics."""
+    keys = {"preds": "ffn.preds", "targets": "targets.y", "mask": "targets.y_mask"}
+    return {
+        "layout": "dense",
+        "pred_key": "ffn.preds",
+        "modules": {
+            "embed": {"class": "DenseGraphEmbedding",
+                      "args": {"num_node_types": DEFAULT_NUM_ATOM_TYPES,
+                               "num_edge_types": DEFAULT_NUM_BOND_TYPES, "hidden_dim": d},
+                      "in_keys": ["inputs.G"], "out_keys": ["G"]},
+            "mp": {"class": "FusedDenseChempropBlock",
+                   "args": {"hidden_dim": d, "depth": depth, "fuse_ends": True},
+                   "in_keys": ["embed.G"], "out_keys": ["G"]},
+            "readout": {"class": "DenseMean", "in_keys": ["mp.G"], "out_keys": ["H"]},
+            "ffn": {"class": "MLP",
+                    "args": {"input_dim": d, "output_size": 1, "hidden_dim": d, "num_layers": 1},
+                    "in_keys": ["readout.H"], "out_keys": ["preds"]},
+        },
+        "losses": {"mse": {"class": "MSE", "in_keys": dict(keys)}},
+        "metrics": {"rmse": {"class": "RMSE", "in_keys": dict(keys)},
+                    "mae": {"class": "MetricMAE", "in_keys": dict(keys)}},
+    }
 
 
 def emit(**record) -> None:
@@ -130,6 +174,18 @@ def kernel_inputs(G, d: int, depth: int, seed: int) -> list[torch.Tensor]:
     b = (0.1 * rng.standard_normal((depth, d))).astype(np.float32)
     return [torch.from_numpy(np.ascontiguousarray(x)).cuda()
             for x in (h0, G.src, G.dst, G.edge_mask, W, b)]
+
+
+def encoder_inputs(G, d: int, depth: int, seed: int) -> list[torch.Tensor]:
+    """Seeded node and edge features, W/b and cotangents of both outputs
+    (nonzero on every lane, padded ones included) on the index arrays of a
+    real per-molecule dense batch, on the card."""
+    rng = np.random.default_rng(seed)
+    (B, E), V = G.src.shape, G.node_mask.shape[1]
+    f32 = lambda *shape, scale=1.0: (scale * rng.standard_normal(shape)).astype(np.float32)
+    arrays = (f32(B, V, d), f32(B, E, d), G.src, G.dst, G.edge_mask,
+              f32(depth, d, d, scale=1 / np.sqrt(d)), f32(depth, d, scale=0.1), f32(B, V, d), f32(B, E, d))
+    return [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in arrays]
 
 
 def cotangent(G, d: int, seed: int) -> torch.Tensor:
@@ -201,6 +257,39 @@ def compare_training(args, g, depth: int, residual: bool, reduce: str, n_nodes: 
             "max_abs_err": errs, "max_grad_err_over_max_abs_ref": rel, "bitwise_repeatable": True}
 
 
+def compare_encoder(x, depth: int, residual: bool, reduce: str) -> dict:
+    """Rows 5-6 against their plain versions on every lane: node and edge
+    hiddens with and without the stash, the stash, and g_nf, g_ef, g_W, g_b
+    for cotangents that are nonzero on padded lanes; the backward twice,
+    bit for bit."""
+    nf, ef, src, dst, mask, W, b, gn, ge = x
+    kw = dict(depth=depth, residual=residual, reduce=reduce)
+    nh, eh, _ = fused_dense_encoder_fwd(nf, ef, src, dst, mask, W, b, **kw)
+    snh, seh, hs = fused_dense_encoder_fwd(nf, ef, src, dst, mask, W, b, stash=True, **kw)
+    first = fused_dense_encoder_bwd(nf, ef, hs, src, dst, mask, W, gn, ge, **kw)
+    second = fused_dense_encoder_bwd(nf, ef, hs, src, dst, mask, W, gn, ge, **kw)
+    ref_nh, ref_eh, ref_hs = dense_encoder_reference(nf, ef, src, dst, mask, W, b, stash=True, **kw)
+    ref = dense_encoder_bwd_reference(nf, ef, ref_hs, src, dst, mask, W, gn, ge, **kw)
+    torch.cuda.synchronize()
+    case = f"V={nf.shape[1]} E={ef.shape[1]} depth={depth} {reduce} residual={residual}"
+    fwd = [held(f"encoder {n} ({case})", got, r, False)
+           for n, got, r in (("nh", nh, ref_nh), ("eh", eh, ref_eh), ("stash nh", snh, ref_nh),
+                             ("stash eh", seh, ref_eh))]
+    if depth > 1:
+        fwd.append(held(f"encoder stash ({case})", hs, ref_hs, False))
+    elif hs is not None:
+        fail("the encoder forward returned a stash at depth 1")
+    names = ("g_nf", "g_ef", "g_W", "g_b")
+    bwd = [held(f"encoder backward {n} ({case})", got, r, True) for n, got, r in zip(names, first, ref)]
+    if not all(torch.equal(p, q) for p, q in zip(first, second)):
+        fail(f"two calls of the encoder backward on the same inputs differ ({case})")
+    rel = max(float((p - r).abs().max() / r.abs().max()) for p, r in zip(first, ref))
+    return {"shape": {"B": nf.shape[0], "V": nf.shape[1], "E": ef.shape[1], "d": ef.shape[2]},
+            "depth": depth, "reduce": reduce, "residual": residual,
+            "max_abs_err": {"fwd": max(fwd), "bwd": max(bwd)},
+            "max_grad_err_over_max_abs_ref": rel, "bitwise_repeatable": True}
+
+
 def _elapsed_ms(run, iters: int) -> float:
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -259,6 +348,20 @@ def layer_ops(args, reduce: str) -> tuple[int, int, int]:
     return 2 * B * E * d * d + 2 * nnz * d, 4 * B * E * d * d + 2 * nnz * d, nnz
 
 
+def encoder_ops(x) -> tuple[int, int, int]:
+    """Operations of the encoder forward and backward on these inputs: the
+    block's (``layer_ops``) at depth, plus the gather's adds (B * E * d)
+    and the masked scatter's (one add per real edge and column) forward;
+    backward, the scatter's VJP (one add per real edge and column), h0's
+    recompute and the gather's VJP (B * E * d each). Also returns nnz(A)."""
+    nf, ef, src, dst, mask, W = x[:6]
+    depth = W.shape[0]
+    B, E, d = ef.shape
+    fwd, bwd, nnz = layer_ops((ef, src, dst, mask), "sum")
+    n_real = int(mask.sum())
+    return depth * fwd + B * E * d + n_real * d, depth * bwd + n_real * d + 2 * B * E * d, nnz
+
+
 def profile_busy(run) -> dict:
     """Run ``run()`` under torch.profiler: wall time on the host's clock,
     device time by kernel name, and the share of the wall time the card was
@@ -280,8 +383,8 @@ def profile_busy(run) -> dict:
     )
     busy_ms = sum(ms for _, ms, _ in kernels)
     by_kernel = {}
-    for fragment in ("dense_mpnn_layer", "adjoint_kernel", "weight_grad_partial",
-                     "reduce_chunks", "input_grad_kernel"):
+    for fragment in ("dense_mpnn_plain_kernel", "dense_mpnn_ends_kernel", "adjoint_kernel",
+                     "weight_grad_partial", "reduce_chunks", "input_grad_kernel"):
         by_kernel[fragment] = sum(ms for k, ms, _ in kernels if fragment in k)
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
@@ -290,9 +393,9 @@ def profile_busy(run) -> dict:
     }
 
 
-def train_config(csv_path: Path, checkpoint_dir: Path | None) -> dict:
+def train_config(csv_path: Path, checkpoint_dir: Path | None, model: dict | None = None) -> dict:
     """configs/dmpnn_regression.yaml as a dict, on ``csv_path`` for
-    ``TRAIN_EPOCHS`` epochs."""
+    ``TRAIN_EPOCHS`` epochs; ``model`` replaces its model section."""
     trainer = {"epochs": TRAIN_EPOCHS, "batch_size": BATCH, "seed": SEED}
     if checkpoint_dir is not None:
         trainer["checkpoint_dir"] = str(checkpoint_dir)
@@ -300,7 +403,7 @@ def train_config(csv_path: Path, checkpoint_dir: Path | None) -> dict:
         "data": {"csv": str(csv_path), "smiles_col": "smiles",
                  "targets": {"y": {"columns": ["lipo"], "task": "regression"}},
                  "split": {"fractions": [0.8, 0.1, 0.1], "seed": 0}},
-        "model": dict(MODEL_CFG),
+        "model": dict(MODEL_CFG) if model is None else model,
         "optimizer": OPTIMIZER_CFG,
         "trainer": trainer,
     }
@@ -347,6 +450,23 @@ def serve_phase(tmp: Path, ds, csv_path: Path, n_batches: int) -> int:
     return counts["fused_dense_mpnn_block"]
 
 
+def compare_runs(card: dict, cpu: dict, what: str) -> dict[str, float]:
+    """Relative differences of the per-epoch loss and metrics and the test
+    metrics of two ``run`` results; fails beyond TRAIN_RTOL."""
+    if len(card["history"]) != TRAIN_EPOCHS or len(cpu["history"]) != TRAIN_EPOCHS:
+        fail(f"{what}: expected {TRAIN_EPOCHS} epochs, got {len(card['history'])} and {len(cpu['history'])}")
+    diffs = {}
+    for epoch, (a, b) in enumerate(zip(card["history"], cpu["history"])):
+        for key in ("train/loss", "val/rmse", "val/mae"):
+            diffs[f"epoch{epoch}/{key}"] = rel_diff(a[key], b[key])
+    for key in ("val/rmse", "val/mae"):
+        diffs[f"test/{key}"] = rel_diff(card["test"][key], cpu["test"][key])
+    worst = max(diffs.values())
+    if not worst <= TRAIN_RTOL:
+        fail(f"{what}: the card's training run and the CPU's differ by {worst} relative: {diffs}")
+    return diffs
+
+
 def train_phase(tmp: Path) -> dict[str, int]:
     """run(cfg) on the card and on the CPU, compared epoch by epoch; the
     card's checkpoint served on the card. Returns the kernels' launches of
@@ -364,8 +484,8 @@ def train_phase(tmp: Path) -> dict[str, int]:
     steps = Checkpointer(card_ckpt).latest_step()
     if not steps:
         fail(f"the card's run wrote no checkpoint in {card_ckpt}")
-    expect = {"fused_dense_mpnn_block_stash": depth * steps, "fused_dense_mpnn_block_bwd_stash": steps,
-              "fused_dense_mpnn_block_bwd": 0}
+    expect = {**{fn.__name__: 0 for fn in KERNELS if fn is not fused_dense_mpnn_block},
+              "fused_dense_mpnn_block_stash": depth * steps, "fused_dense_mpnn_block_bwd_stash": steps}
     if any(counts[k] != v for k, v in expect.items()) or counts["fused_dense_mpnn_block"] == 0:
         fail(f"training {steps} steps launched {counts}; expected {expect} and the forward "
              "kernel for evaluation")
@@ -373,17 +493,7 @@ def train_phase(tmp: Path) -> dict[str, int]:
     t0 = time.perf_counter()
     cpu = run(train_config(csv_path, cpu_ckpt), device="cpu")
     cpu_s = time.perf_counter() - t0
-    diffs = {}
-    for epoch, (a, b) in enumerate(zip(card["history"], cpu["history"])):
-        for key in ("train/loss", "val/rmse", "val/mae"):
-            diffs[f"epoch{epoch}/{key}"] = rel_diff(a[key], b[key])
-    for key in ("val/rmse", "val/mae"):
-        diffs[f"test/{key}"] = rel_diff(card["test"][key], cpu["test"][key])
-    if len(card["history"]) != TRAIN_EPOCHS or len(cpu["history"]) != TRAIN_EPOCHS:
-        fail(f"expected {TRAIN_EPOCHS} epochs, got {len(card['history'])} and {len(cpu['history'])}")
-    worst = max(diffs.values())
-    if not worst <= TRAIN_RTOL:
-        fail(f"the card's training run and the CPU's differ by {worst} relative: {diffs}")
+    diffs = compare_runs(card, cpu, "training run")
 
     served = run_predict(card_ckpt, csv_path, batch_size=BATCH)["lipo"]
     served_cpu = run_predict(card_ckpt, csv_path, batch_size=BATCH, device="cpu")["lipo"]
@@ -428,8 +538,8 @@ def train_epoch_phase(tmp: Path) -> dict[str, int]:
     other = fit(recompute["model"], recompute["train_loader"], epochs=1)
     torch.cuda.synchronize()
     counts = launches()
-    expect = {"fused_dense_mpnn_block": depth * steps, "fused_dense_mpnn_block_stash": 0,
-              "fused_dense_mpnn_block_bwd_stash": 0, "fused_dense_mpnn_block_bwd": steps}
+    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_mpnn_block": depth * steps,
+              "fused_dense_mpnn_block_bwd": steps}
     if counts != expect:
         fail(f"an epoch with the recompute backward launched {counts}; expected {expect}")
     loss_diff = rel_diff(other.history[0]["train/loss"], first.history[0]["train/loss"])
@@ -440,6 +550,107 @@ def train_epoch_phase(tmp: Path) -> dict[str, int]:
     if not loss_diff <= TRAIN_RTOL:
         fail(f"the recompute backward's epoch differs from the stash backward's by {loss_diff}")
     return counts
+
+
+def train_declarative_phase(tmp: Path) -> tuple[dict[str, int], Path]:
+    """run(cfg) of the declarative whole-encoder config on the card and on
+    the CPU, compared epoch by epoch. Returns the card run's launches and
+    its checkpoint directory."""
+    depth = MODEL_CFG["depth"]
+    csv_path = lipo_csv(tmp, TRAIN_MOLS)
+    card_ckpt = tmp / "declarative_card"
+    model = declarative_model_cfg(MODEL_CFG["hidden_dim"], depth)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    card = run(train_config(csv_path, card_ckpt, model))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launches()
+    steps = Checkpointer(card_ckpt).latest_step()
+    if not steps:
+        fail(f"the declarative run wrote no checkpoint in {card_ckpt}")
+    # the training forward stashes (depth launches a step); evaluation runs
+    # the forward alone (depth launches a batch); one backward call a step
+    eval_fwd = counts["fused_dense_encoder_fwd"] - depth * steps
+    others = {k: v for k, v in counts.items() if k not in ("fused_dense_encoder_fwd", "fused_dense_encoder_bwd")}
+    if (counts["fused_dense_encoder_bwd"] != steps or eval_fwd <= 0 or eval_fwd % depth
+            or any(others.values())):
+        fail(f"the declarative run of {steps} steps launched {counts}; expected the encoder's "
+             f"backward {steps} times, its forward {depth} times a step and a batch, and nothing else")
+
+    t0 = time.perf_counter()
+    cpu = run(train_config(csv_path, tmp / "declarative_cpu", model), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diffs = compare_runs(card, cpu, "declarative run")
+    emit(phase="train_declarative", molecules=TRAIN_MOLS, epochs=TRAIN_EPOCHS, steps=steps,
+         kernel_launches=counts, run_s_card=card_s, run_s_cpu=cpu_s,
+         warm_epoch_ms_per_step=card["history"][-1]["time"] * 1e3 / (steps // TRAIN_EPOCHS),
+         history_card=card["history"], history_cpu=cpu["history"], test_card=card["test"],
+         test_cpu=cpu["test"], rel_diff_vs_cpu=diffs, rel_tol=TRAIN_RTOL)
+    return counts, card_ckpt
+
+
+def serve_declarative_phase(tmp: Path, ckpt: Path, n_batches: int) -> dict[str, int]:
+    """run_predict of the declarative checkpoint on N_MOLS molecules, on the
+    card against the CPU; cold and warm request time and the busy share of
+    a warm request. Returns the request's launches."""
+    depth = MODEL_CFG["depth"]
+    csv_path = lipo_csv(tmp, N_MOLS)
+    reset_launches()
+    t0 = time.perf_counter()
+    gpu = run_predict(ckpt, csv_path, batch_size=BATCH)["lipo"]
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    counts = launches()
+    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_encoder_fwd": depth * n_batches}
+    if counts != expect:
+        fail(f"serving the declarative checkpoint launched {counts}; expected {expect}")
+    t0 = time.perf_counter()
+    run_predict(ckpt, csv_path, batch_size=BATCH)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    profiled = profile_busy(lambda: run_predict(ckpt, csv_path, batch_size=BATCH))
+    cpu = run_predict(ckpt, csv_path, batch_size=BATCH, device="cpu")["lipo"]
+    err = np.abs(gpu - cpu)
+    ok = gpu.shape == (N_MOLS,) and bool(np.isfinite(gpu).all()) and bool((err <= ATOL + RTOL * np.abs(cpu)).all())
+    emit(phase="serve_declarative", molecules=N_MOLS, batches=n_batches, kernel_launches=counts,
+         request_s_cold=cold_s, request_s_warm=warm_s, profile=profiled,
+         max_abs_err_vs_cpu=float(err.max()), pred_mean=float(gpu.mean()), pred_std=float(gpu.std()),
+         ok=ok)
+    if not ok:
+        fail("the declarative checkpoint's card predictions disagree with the CPU or are not finite")
+    return counts
+
+
+def dbuf_phase(inputs: list[tuple[list[torch.Tensor], int]]) -> tuple[int, float, list[dict]]:
+    """Row 7, which no module calls, run in a phase of its own on each
+    ``(args, n_nodes)`` for sum and mean, residual on and off; then held
+    against its plain version and row 1 (those launches do not count).
+    Returns its launches, its largest error and the cases."""
+    depth = MODEL_CFG["depth"]
+    reset_launches()
+    runs = []
+    for args, n_nodes in inputs:
+        for reduce in ("sum", "mean"):
+            for residual in (True, False):
+                kw = dict(depth=depth, n_nodes=n_nodes, residual=residual, reduce=reduce)
+                runs.append((args, kw, fused_dense_mpnn_block_dbuf(*args, mols_per_tile=8, **kw)))
+    torch.cuda.synchronize()
+    count = launches()["fused_dense_mpnn_block_dbuf"]
+    if count != depth * len(runs):
+        fail(f"the dbuf phase launched {launches()}; expected the dbuf kernel {depth} x {len(runs)} times")
+    cases = []
+    for args, kw, out in runs:
+        row1 = fused_dense_mpnn_block(*args, **kw)
+        ref = dense_mpnn_block_reference(*args, depth=depth, residual=kw["residual"], reduce=kw["reduce"])
+        torch.cuda.synchronize()
+        case = f"B={args[0].shape[0]} E={args[0].shape[1]} {kw['reduce']} residual={kw['residual']}"
+        err = held(f"dbuf ({case})", out, ref, False)
+        cases.append({"shape": list(args[0].shape), "reduce": kw["reduce"], "residual": kw["residual"],
+                      "max_abs_err": err, "max_abs_diff_vs_row_1": float((out - row1).abs().max()),
+                      "equal_bits_to_row_1": bool(torch.equal(out, row1))})
+    return count, max(c["max_abs_err"] for c in cases), cases
 
 
 def kernel_record(fn, path_launches: int, max_abs_err: float, kernel_t: dict, plain_t: dict,
@@ -494,9 +705,31 @@ def main() -> None:
         emit(phase="train_kernels_vs_plain", rtol=RTOL, atol=ATOL,
              grad_atol="ATOL x the largest |value| of each gradient", cases=train_cases)
 
+        # rows 5-6 at the per-molecule dense loader's first batch of these
+        # molecules and at its widest batch over all of lipo (sorted by size)
+        dense_batches = list(DataLoader(ds, batch_size=BATCH, layout="dense"))
+        dense_G = dense_batches[0]["inputs.G"]
+        lipo = build_dataset({"csv": str(ROOT / "tests" / "data" / "lipo.csv"),
+                              "targets": {"y": {"columns": ["lipo"]}}})
+        widest_G = max((b["inputs.G"] for b in DataLoader(lipo, batch_size=BATCH, layout="dense",
+                                                          sort_by_size=True)),
+                       key=lambda G: (G.src.shape[1], G.node_mask.shape[1]))
+        encoder_cases = [compare_encoder(encoder_inputs(G, d, depth_, seed), depth_, res, red)
+                         for G, seed in ((dense_G, SEED + 2), (widest_G, SEED + 3))
+                         for depth_ in (depth, 1) for red in ("sum", "mean") for res in (True, False)]
+        emit(phase="encoder_vs_plain", rtol=RTOL, atol=ATOL,
+             grad_atol="ATOL x the largest |value| of each gradient", cases=encoder_cases)
+
+        dense_args = kernel_inputs(dense_G, d, depth, SEED + 4)
+        dbuf_launches, dbuf_err, dbuf_cases = dbuf_phase(
+            [(main_args, main_G.nodes_per_graph), (dense_args, dense_G.nodes_per_graph)])
+        emit(phase="dbuf_vs_plain", rtol=RTOL, atol=ATOL, launches=dbuf_launches, cases=dbuf_cases)
+
         served = serve_phase(tmp, ds, csv_path, len(batches))
         trained = train_phase(tmp)
         recomputed = train_epoch_phase(tmp)
+        declarative, declarative_ckpt = train_declarative_phase(tmp)
+        serve_declarative_phase(tmp, declarative_ckpt, len(dense_batches))
 
     # time each kernel and its plain version at the serving and training shape
     h0, src, dst, mask, W, b = main_args
@@ -526,27 +759,56 @@ def main() -> None:
                 **ref_kw),
             (depth - 1) * fwd_ops + depth * bwd_ops, nbytes(*main_args, g, g_h0, g_W, g_b)),
     }
+    # rows 5-6 at the dense loader's first batch, with the stash, as the
+    # declarative run trains; row 7 at row 1's shape
+    enc = encoder_inputs(dense_G, d, depth, SEED + 2)
+    nf, ef, _, _, _, _, _, gn, ge = enc
+    enc_kw = dict(depth=depth, residual=True, reduce="sum")
+    nh, eh, enc_hs = fused_dense_encoder_fwd(*enc[:7], stash=True, **enc_kw)
+    enc_grads = fused_dense_encoder_bwd(nf, ef, enc_hs, *enc[2:6], gn, ge, **enc_kw)
+    enc_fwd_ops, enc_bwd_ops, enc_nnz = encoder_ops(enc)
+    runs[fused_dense_encoder_fwd] = (
+        lambda: fused_dense_encoder_fwd(*enc[:7], stash=True, **enc_kw),
+        lambda: dense_encoder_reference(*enc[:7], stash=True, **enc_kw),
+        enc_fwd_ops, nbytes(*enc[:7], nh, eh, enc_hs))
+    runs[fused_dense_encoder_bwd] = (
+        lambda: fused_dense_encoder_bwd(nf, ef, enc_hs, *enc[2:6], gn, ge, **enc_kw),
+        lambda: dense_encoder_bwd_reference(nf, ef, enc_hs, *enc[2:6], gn, ge, **enc_kw),
+        enc_bwd_ops, nbytes(nf, ef, enc_hs, *enc[2:6], gn, ge, *enc_grads))
+    runs[fused_dense_mpnn_block_dbuf] = (
+        lambda: fused_dense_mpnn_block_dbuf(*main_args, mols_per_tile=8, **kw),
+        lambda: dense_mpnn_block_reference(*main_args, **ref_kw),
+        depth * fwd_ops, nbytes(*main_args, out))
     path_launches = {
         fused_dense_mpnn_block: served,
         fused_dense_mpnn_block_stash: trained["fused_dense_mpnn_block_stash"],
         fused_dense_mpnn_block_bwd_stash: trained["fused_dense_mpnn_block_bwd_stash"],
         fused_dense_mpnn_block_bwd: recomputed["fused_dense_mpnn_block_bwd"],
+        fused_dense_encoder_fwd: declarative["fused_dense_encoder_fwd"],
+        fused_dense_encoder_bwd: declarative["fused_dense_encoder_bwd"],
+        fused_dense_mpnn_block_dbuf: dbuf_launches,
     }
     errors = {
         fused_dense_mpnn_block: max(c["max_abs_err"] for c in cases),
         fused_dense_mpnn_block_stash: max(c["max_abs_err"]["stash_fwd"] for c in train_cases),
         fused_dense_mpnn_block_bwd_stash: max(c["max_abs_err"]["bwd_stash"] for c in train_cases),
         fused_dense_mpnn_block_bwd: max(c["max_abs_err"]["bwd_recompute"] for c in train_cases),
+        fused_dense_encoder_fwd: max(c["max_abs_err"]["fwd"] for c in encoder_cases),
+        fused_dense_encoder_bwd: max(c["max_abs_err"]["bwd"] for c in encoder_cases),
+        fused_dense_mpnn_block_dbuf: dbuf_err,
     }
+    shapes = {fn: (list(h0.shape), nnz) for fn in runs}
+    shapes[fused_dense_encoder_fwd] = shapes[fused_dense_encoder_bwd] = (
+        {"B": ef.shape[0], "V": nf.shape[1], "E": ef.shape[1], "d": d}, enc_nnz)
     records = []
     for fn, (kernel, plain, ops, n_bytes) in runs.items():
         kernel_t, plain_t = time_ms(kernel), time_ms(plain)
         bound_ms, bound_by = bound(ops, n_bytes)
-        emit(phase="time", kernel=fn.__name__, shape=list(h0.shape), depth=depth, reduce="sum",
+        emit(phase="time", kernel=fn.__name__, shape=shapes[fn][0], depth=depth, reduce="sum",
              ms=kernel_t["device"], plain_ms=plain_t["device"], eager_ms=kernel_t["eager"],
              plain_eager_ms=plain_t["eager"], bound_ms=bound_ms, bound_by=bound_by,
-             operations=ops, bytes=n_bytes, nnz_A=nnz, library_ms=None,
-             library_note="no single PyTorch call computes the fused block or its backward")
+             operations=ops, bytes=n_bytes, nnz_A=shapes[fn][1], library_ms=None,
+             library_note="no single PyTorch call computes the fused block, the encoder or their backwards")
         records.append(kernel_record(fn, path_launches[fn], errors[fn], kernel_t, plain_t,
                                      bound_ms, bound_by))
     missing = [r["name"] for r in records if r["launches"] <= 0]

@@ -1,8 +1,9 @@
 """``python -m notorch_tpu_torch predict``: inference from a checkpoint.
 
 Rebuilds the model from the ``predict_meta.json`` beside the checkpoints
-(the same schema ``notorch_tpu.cli.train`` writes: model config, data
-config, task transforms baked from training-split statistics), restores a
+(the same schema ``notorch_tpu.cli.train`` writes: model config, a
+``kind: dmpnn`` or a declarative ``modules`` one, data config, task
+transforms baked from training-split statistics), restores a
 port checkpoint (:mod:`notorch_tpu_torch.training.checkpoint`), runs the
 model over a CSV of molecules on the card, and writes denormalized
 predictions aligned row for row with the input.
@@ -21,7 +22,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from notorch_tpu_torch.cli.train import build_dataset, build_model
+from notorch_tpu_torch.cli.train import build_dataset, build_model, data_layout, resolve_model_cfg
 from notorch_tpu_torch.data.batching import DataLoader
 from notorch_tpu_torch.tasks import transforms as task_transforms
 from notorch_tpu_torch.training.checkpoint import Checkpointer
@@ -58,9 +59,10 @@ def run_predict(
         }
         for name, t in meta["transforms"].items()
     }
-    # build_dmpnn resolves layout "auto" and refuses every layout but
-    # dense_packed, so the loader below needs no layout of its own
-    model = build_model(meta["model"], transforms)
+    # metas written by run() hold the resolved layout; a hand-written meta
+    # may still say "auto"
+    model_cfg = resolve_model_cfg(meta["model"])
+    model = build_model(model_cfg, transforms)
     model.network.load_state_dict(Checkpointer(checkpoint_dir).restore(step=step))
     model.to(device)
 
@@ -69,7 +71,7 @@ def run_predict(
     if smiles_col:
         data_cfg["smiles_col"] = smiles_col
     ds = build_dataset(data_cfg)  # no targets: inference CSVs need only molecules
-    loader = DataLoader(ds, batch_size=batch_size)
+    loader = DataLoader(ds, batch_size=batch_size, layout=data_layout(model_cfg))
 
     preds = predict(model, loader, keys=[pred_key])
     flat = preds[pred_key][: len(ds)].reshape(len(ds), -1)

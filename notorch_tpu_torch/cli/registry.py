@@ -1,0 +1,163 @@
+"""Name -> class registry for config-driven model composition.
+
+Port of ``notorch_tpu.cli.registry``: every module, loss, metric, transform
+and optimizer the port has is constructible by name from a YAML/JSON config
+(``{"class": name, "args": {...}}``, nested ``{"class": ...}`` args built
+first), under the JAX package's names. ``MetricMAE`` is the metric and
+``MAE`` the loss, as there. ``adam`` and ``adamw`` build the port's
+:class:`~notorch_tpu_torch.training.optim.OptimizerSpec`.
+
+Every other name the JAX registry knows raises ``NotImplementedError``
+naming the slice of the port it comes with (``ROADMAP.md`` queue A), not
+``KeyError``, so a config written for the JAX package says what is missing.
+
+A DOTTED name (``mypkg.blocks.MyBlock``) resolves by import behind the same
+gate as in the JAX package: instantiating an import path named by a config
+is code execution, so it is opt-in, by :func:`allow_imports` or by listing
+trusted top-level packages in the ``NOTORCH_TPU_TORCH_TRUSTED_MODULES``
+environment variable (comma-separated).
+"""
+
+from __future__ import annotations
+
+import functools
+import importlib
+import os
+from typing import Any, Callable
+
+REGISTRY: dict[str, Callable] = {}
+TRUSTED_MODULES_ENV = "NOTORCH_TPU_TORCH_TRUSTED_MODULES"
+
+_FLAT = "the flat-layout slice"
+_FAMILIES = "the slice of the other model families and task types"
+_ATTENTION = "the attention slice"
+_SPATIAL = "the spatial slice"
+_MOE = "the MoE and glue slice"
+# every other name of notorch_tpu.cli.registry, with the slice that ports it
+LATER: dict[str, str] = {
+    **dict.fromkeys(["ChempropBlock", "ChempropLayer", "GraphEmbedding", "Sum", "Mean", "Max",
+                     "Gated", "SDPAttention"], _FLAT),
+    **dict.fromkeys(["GvpGNNBlock", "GatedEquivariantBlock", "SchnetBlock", "Pointwise",
+                     "PointwiseEmbed", "RBFEmbedding", "MolToPointCloud", "SpatialSum",
+                     "SpatialMean", "SpatialMax", "SpatialGated"], _SPATIAL),
+    **dict.fromkeys(["GATv2Layer", "GraphSelfAttention", "GATBlock", "DenseGraphSelfAttention",
+                     "DenseGATBlock"], _ATTENTION),
+    **dict.fromkeys(["MixtureOfExperts", "MoEMLP", "DenseRouter", "SparseRouter", "Add", "Mul",
+                     "Cat", "Split", "MatMul", "Einsum", "Identity", "BatchNorm", "Residual"],
+                    _MOE),
+    **dict.fromkeys(["MolToFP", "RxnToGraph", "BoundedMSE", "BoundedMAE",
+                     "MeanVarianceEstimation", "MVE", "Evidential", "BinaryCrossEntropy", "BCE",
+                     "CrossEntropy", "XENT", "Dirichlet", "RankNContrastLoss",
+                     "SelfSupervisedLoss", "R2", "Accuracy", "AUROC", "AUPRC", "F1", "sgd"],
+                    _FAMILIES),
+}
+
+_ALLOW_IMPORTS = False
+
+
+def allow_imports(flag: bool = True) -> None:
+    """Globally permit dotted-path config resolution (see module docstring)."""
+    global _ALLOW_IMPORTS
+    _ALLOW_IMPORTS = bool(flag)
+
+
+def register(name: str, fn: Callable | None = None):
+    if fn is not None:
+        REGISTRY[name] = fn
+        return fn
+
+    def deco(f):
+        REGISTRY[name] = f
+        return f
+
+    return deco
+
+
+def _resolve_import(path: str) -> Callable:
+    top = path.split(".", 1)[0]
+    trusted = {r.strip() for r in os.environ.get(TRUSTED_MODULES_ENV, "").split(",") if r.strip()}
+    if not (_ALLOW_IMPORTS or top in trusted):
+        raise PermissionError(
+            f"config names the import path {path!r}, but arbitrary-class instantiation is "
+            "disabled (it executes code named by the config). Enable it with "
+            "notorch_tpu_torch.cli.registry.allow_imports(), or list trusted packages in "
+            f"{TRUSTED_MODULES_ENV} (e.g. {top!r})."
+        )
+    module_path, _, attr = path.rpartition(".")
+    obj = importlib.import_module(module_path)
+    try:
+        return getattr(obj, attr)
+    except AttributeError:
+        raise KeyError(f"module {module_path!r} has no attribute {attr!r}") from None
+
+
+def resolve(name: str) -> Callable:
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        pass
+    if name in LATER:
+        raise NotImplementedError(f"{name!r} is not ported yet: it comes with {LATER[name]}")
+    if "." in name:
+        return _resolve_import(name)
+    raise KeyError(f"unknown component {name!r}; known: {sorted(REGISTRY)}")
+
+
+def build(spec: dict | str) -> Any:
+    """Build a component from ``{"class": name, "args": {...}}`` (or a bare
+    name). Nested ``{"class": ...}`` dicts in args are built recursively."""
+    if isinstance(spec, str):
+        return resolve(spec)()
+    kwargs = {}
+    for k, v in (spec.get("args") or {}).items():
+        if isinstance(v, dict) and "class" in v:
+            v = build(v)
+        kwargs[k] = v
+    return resolve(spec["class"])(**kwargs)
+
+
+def _populate() -> None:
+    from notorch_tpu_torch.nn.chemprop_dense import (
+        DenseChempropBlock,
+        DenseGraphEmbedding,
+        DenseMax,
+        DenseMean,
+        DenseSum,
+        FusedDenseChempropBlock,
+    )
+    from notorch_tpu_torch.nn.mlp import MLP
+    from notorch_tpu_torch.tasks import losses, metrics
+    from notorch_tpu_torch.training.optim import OptimizerSpec
+    from notorch_tpu_torch.transforms import (
+        MolToGraph,
+        MultiTypeAtomTransform,
+        MultiTypeBondTransform,
+        Pipeline,
+        SmiToMol,
+    )
+
+    for cls in [
+        DenseChempropBlock,
+        DenseGraphEmbedding,
+        DenseSum,
+        DenseMean,
+        DenseMax,
+        FusedDenseChempropBlock,
+        MLP,
+        MolToGraph,
+        SmiToMol,
+        MultiTypeAtomTransform,
+        MultiTypeBondTransform,
+        Pipeline,
+    ]:
+        register(cls.__name__, cls)
+    register("MSE", losses.MSE)
+    register("MAE", losses.MAE)
+    register("RMSE", metrics.RMSE)
+    register("MetricMAE", metrics.MAE)
+    # called with the rate, as optax.adam(lr) is in the JAX package
+    register("adam", functools.partial(OptimizerSpec, "adam"))
+    register("adamw", functools.partial(OptimizerSpec, "adamw"))
+
+
+_populate()

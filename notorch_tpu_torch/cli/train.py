@@ -1,10 +1,14 @@
 """``python -m notorch_tpu_torch train``: config-driven training.
 
-Port of ``notorch_tpu.cli.train`` for supervised ``model.kind: dmpnn``: the
-same YAML/JSON configs with dotted-key overrides, the default SMILES
-pipeline, a random ``data.split``, target transforms from training-split
-statistics, Adam/AdamW with a rate or the Noam schedule and ``clip_norm``,
-and the trainer's ``epochs``, ``batch_size``, ``seed``, ``checkpoint_dir``,
+Port of ``notorch_tpu.cli.train`` for supervised ``model.kind: dmpnn`` and
+declarative ``model.modules`` configs (modules, losses and metrics built
+by name through :mod:`notorch_tpu_torch.cli.registry`): the same YAML/JSON
+configs with dotted-key overrides, the default SMILES pipeline, a random
+``data.split``, target transforms from training-split statistics, the data
+layout from ``model.layout`` (``dense_packed``, or the per-molecule
+``dense`` for ``dense*`` layouts, whose train loader sorts by size; the
+flat layout is refused), Adam/AdamW with a rate or the Noam schedule and
+``clip_norm``, and the trainer's ``epochs``, ``batch_size``, ``seed``, ``checkpoint_dir``,
 ``resume``, ``checkpoint_every``, ``max_to_keep``, ``best_by``/``best_mode``,
 ``early_stopping`` and ``predictions_csv``. The checkpoint directory it
 writes is what ``python -m notorch_tpu_torch predict`` serves. Pretraining,
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import dataclasses
 import json
 from pathlib import Path
 
@@ -100,8 +105,10 @@ def _default_transforms(cfg: dict) -> dict:
 
 
 def build_optimizer(cfg: dict | None) -> OptimizerSpec:
-    """The optimizer of an ``optimizer`` config: ``name`` adam or adamw,
-    ``lr`` or ``schedule: {noam: {...}}``, and ``clip_norm``."""
+    """The optimizer of an ``optimizer`` config: ``name`` (adam or adamw,
+    resolved through the registry), ``lr`` or ``schedule: {noam: {...}}``,
+    and ``clip_norm``."""
+    from notorch_tpu_torch.cli.registry import resolve
     from notorch_tpu_torch.training.schedulers import noam_like_schedule
 
     cfg = cfg or {"name": "adam", "lr": 1e-4}
@@ -113,15 +120,39 @@ def build_optimizer(cfg: dict | None) -> OptimizerSpec:
                 f"optimizer schedule {sorted(schedule)} is not ported yet; the port has noam"
             )
         lr = noam_like_schedule(**schedule["noam"])
+    spec = resolve(cfg.get("name", "adam"))(lr)
     clip = cfg.get("clip_norm")
-    return OptimizerSpec(cfg.get("name", "adam"), lr, float(clip) if clip else None)
+    return dataclasses.replace(spec, clip_norm=float(clip)) if clip else spec
 
 
 def build_model(cfg: dict, transforms: dict | None, generator: torch.Generator | None = None,
                 optimizer: OptimizerSpec | None = None):
-    """The model of a ``model`` config (``kind: dmpnn``)."""
+    """The model of a ``model`` config: ``kind: dmpnn``, or declarative
+    ``modules`` (with ``losses`` and ``metrics``) built by name through the
+    registry, as the JAX ``build_model`` builds them. Parameters are drawn
+    from ``generator``; the model is built on the CPU."""
     if "modules" in cfg:
-        raise NotImplementedError("declarative model.modules configs are not ported yet")
+        from notorch_tpu_torch.cli.registry import build
+        from notorch_tpu_torch.model.model import Model
+
+        model = Model(
+            modules={
+                name: {"module": build(m), "in_keys": m["in_keys"], "out_keys": m["out_keys"]}
+                for name, m in cfg["modules"].items()
+            },
+            losses={
+                name: {"fn": build(spec), "in_keys": spec["in_keys"], "weight": spec.get("weight", 1.0)}
+                for name, spec in cfg.get("losses", {}).items()
+            },
+            metrics={
+                name: {"fn": build(spec), "in_keys": spec["in_keys"]}
+                for name, spec in cfg.get("metrics", {}).items()
+            },
+            transforms=transforms,
+            optimizer=optimizer,
+        )
+        model.reset_parameters(generator)
+        return model
     kind = cfg.get("kind", "dmpnn")
     if kind != "dmpnn":
         raise NotImplementedError(f"model kind {kind!r} is not ported yet; only dmpnn is")
@@ -158,6 +189,44 @@ def save_predict_meta(checkpoint_dir, cfg: dict, transforms: dict, ds, pred_key:
     (path / "predict_meta.json").write_text(json.dumps(meta, indent=1))
 
 
+def resolve_model_cfg(model_cfg: dict) -> dict:
+    """``model_cfg`` with ``layout: auto`` of a ``kind: dmpnn`` config
+    resolved, as the JAX ``run`` resolves it, so that the data pipeline, the
+    saved ``predict_meta`` and the built model agree; declarative configs
+    pass through."""
+    from notorch_tpu_torch.models.dmpnn import resolve_layout
+
+    model_cfg = dict(model_cfg)
+    if "modules" not in model_cfg:
+        model_cfg["layout"] = resolve_layout(
+            model_cfg.get("layout", "auto"),
+            dropout=model_cfg.get("dropout", 0.0),
+            dtype=model_cfg.get("dtype"),
+            graph_axis=model_cfg.get("graph_axis"),
+            remat=model_cfg.get("remat", False),
+            impl=model_cfg.get("impl", "gather"),
+            aggregation=model_cfg.get("aggregation", "mean"),
+            reduce=model_cfg.get("reduce", "sum"),
+        )
+    return model_cfg
+
+
+def data_layout(model_cfg: dict) -> str:
+    """The loader layout of a (resolved) model config, as the JAX ``run``
+    picks it: ``dense_packed`` stays, any other ``dense*`` layout reads the
+    per-molecule ``dense`` collate, and ``flat`` (the default of a
+    declarative config) is not ported."""
+    layout = str(model_cfg.get("layout", "flat"))
+    if layout == "dense_packed":
+        return "dense_packed"
+    if layout.startswith("dense"):
+        return "dense"
+    raise NotImplementedError(
+        f"model.layout {layout!r}: the flat layout is not ported yet (it comes with the "
+        "flat-layout slice); declarative configs run on layout: dense or dense_packed"
+    )
+
+
 def _refuse_unported(cfg: dict) -> None:
     def walk(node, path):
         if isinstance(node, dict):
@@ -189,7 +258,6 @@ def prepare(cfg: dict, device: str | torch.device | None = None) -> dict:
     ``torch.Generator().manual_seed(trainer.seed)`` on ``device``, and the
     train (shuffled by the seed), val and test loaders."""
     from notorch_tpu_torch.data.batching import DataLoader, Subset, random_split
-    from notorch_tpu_torch.models.dmpnn import resolve_layout
 
     _refuse_unported(cfg)
     device = resolve_device(device)
@@ -211,31 +279,24 @@ def prepare(cfg: dict, device: str | torch.device | None = None) -> dict:
     for t in transforms.values():
         t["preds"]["key"] = pred_key
 
-    model_cfg = dict(cfg.get("model", {}))
-    # resolve layout="auto" here, so that the saved predict_meta and the
-    # built model agree on it
-    model_cfg["layout"] = resolve_layout(
-        model_cfg.get("layout", "auto"),
-        dropout=model_cfg.get("dropout", 0.0),
-        dtype=model_cfg.get("dtype"),
-        graph_axis=model_cfg.get("graph_axis"),
-        remat=model_cfg.get("remat", False),
-        impl=model_cfg.get("impl", "gather"),
-        aggregation=model_cfg.get("aggregation", "mean"),
-        reduce=model_cfg.get("reduce", "sum"),
-    )
+    model_cfg = resolve_model_cfg(cfg.get("model", {}))
+    layout = data_layout(model_cfg)
     cfg = {**cfg, "model": model_cfg}
     model = build_model(model_cfg, transforms, generator=torch.Generator().manual_seed(seed),
                         optimizer=build_optimizer(cfg.get("optimizer")))
     model.to(device)
 
     batch_size = trainer_cfg.get("batch_size", 64)
+
+    def loader(part, **kw):
+        return DataLoader(part, batch_size=batch_size, layout=layout, **kw) if part is not None else None
+
     return {
         "cfg": cfg, "ds": ds, "train": train, "val": val, "test": test,
-        "transforms": transforms, "pred_key": pred_key, "model": model,
-        "train_loader": DataLoader(train, batch_size=batch_size, shuffle=True, seed=seed),
-        "val_loader": DataLoader(val, batch_size=batch_size) if val is not None else None,
-        "test_loader": DataLoader(test, batch_size=batch_size) if test is not None else None,
+        "transforms": transforms, "pred_key": pred_key, "model": model, "layout": layout,
+        "train_loader": loader(train, shuffle=True, seed=seed, sort_by_size=layout == "dense"),
+        "val_loader": loader(val),
+        "test_loader": loader(test),
     }
 
 
@@ -291,7 +352,7 @@ def run(cfg: dict, device: str | torch.device | None = None) -> dict:
         from notorch_tpu_torch.data.batching import DataLoader
 
         target = run_["test"] if run_["test"] is not None else run_["train"]
-        loader = DataLoader(target, batch_size=trainer_cfg.get("batch_size", 64))
+        loader = DataLoader(target, batch_size=trainer_cfg.get("batch_size", 64), layout=run_["layout"])
         flat = predict(model, loader, keys=[pred_key])[pred_key][: len(target)]
         flat = flat.reshape(len(target), -1)
         with open(pred_csv, "w") as f:

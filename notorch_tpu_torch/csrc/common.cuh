@@ -1,0 +1,51 @@
+// Helpers shared by dense_mpnn.cu and dense_mpnn_bwd.cu: the bit-row width
+// of the edge operator, the per-device shared-memory opt-in, and the gather
+// of one 16-byte vector of the encoder's layer-0 input.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// 32-bit words of one bit row over E edge lanes.
+__host__ __device__ inline int adj_words(int E) { return (E + 31) / 32; }
+
+// Raise a kernel's dynamic shared-memory limit to `bytes`, once per device:
+// the limit is a per-device attribute, and `configured` (a static of the
+// caller, one per kernel) holds a bit per device.
+inline cudaError_t allow_smem(const void* kernel, int bytes, uint64_t& configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!(configured >> dev & 1u)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    configured |= uint64_t{1} << dev;
+  }
+  return cudaSuccess;
+}
+
+__device__ inline float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// 16-byte vector q, from column k0, of row r (= b * E + e) of a layer input
+// whose rows are d wide: h_in[r], or with kGather the encoder's
+// h0 = nf[b, src[r]] + ef[r] (h_in is then ef, nf is [B, V, d], and a src
+// outside [0, V) gathers zero, as a one-hot would).
+template <bool kGather>
+__device__ inline float4 input_vec(const float* __restrict__ h_in, const float* __restrict__ nf,
+                                   const int* __restrict__ src, size_t r, int b, int V, int d,
+                                   int k0, int q) {
+  float4 v = reinterpret_cast<const float4*>(h_in + r * d + k0)[q];
+  if constexpr (kGather) {
+    const int s = src[r];
+    if (s >= 0 && s < V)
+      v = add4(reinterpret_cast<const float4*>(nf + ((size_t)b * V + s) * d + k0)[q], v);
+  }
+  return v;
+}
+
+}  // namespace

@@ -1,12 +1,16 @@
 // The reverse sweep of one layer of the folded dense D-MPNN block, in CUDA
-// C++ for sm_90a.
+// C++ for sm_90a, with the ends of the whole-encoder backward folded into
+// the sweep's first and last layer.
 //
-// Replaces the Pallas kernels notorch_tpu/kernels/dense_mpnn.py:
-// fused_dense_mpnn_block_bwd_stash / _bwd_kernel_stash (the training
-// backward that reads the stashed layer inputs) and the reverse sweep of
-// fused_dense_mpnn_block_bwd / _bwd_kernel (the recompute backward, whose
-// replay of the forward runs the layer kernel of dense_mpnn.cu). The Python
-// wrapper (notorch_tpu_torch/kernels/dense_mpnn.py) calls
+// Replaces the Pallas kernels of notorch_tpu/kernels/dense_mpnn.py:
+//   - fused_dense_mpnn_block_bwd_stash / _bwd_kernel_stash (the training
+//     backward that reads the stashed layer inputs) and the reverse sweep of
+//     fused_dense_mpnn_block_bwd / _bwd_kernel (the recompute backward, whose
+//     replay of the forward runs the layer kernel of dense_mpnn.cu);
+//   - fused_dense_encoder_bwd / _encoder_bwd_kernel(_d1): the same sweep with
+//     the scatter's VJP in front of the last layer's launches and h0's
+//     recompute and the gather's VJP in layer 0's.
+// The Python wrapper (notorch_tpu_torch/kernels/dense_mpnn.py) calls
 // dense_mpnn_bwd_layer once per layer, last layer first.
 //
 // The forward layer is h_out = (h_in +) bias + A @ (relu(h_in) @ W), with A
@@ -24,11 +28,27 @@
 // padded lanes (the masked scatter drops them) is what makes it the
 // gradient of the unfolded block too, as in the TPU kernel.
 //
+// The encoder (h0 = nf[src] + ef; nh = masked scatter of the last output)
+// adds, per bin:
+//   prologue (the last layer's adjoint_kernel): the cotangent of the block's
+//     output is g = ge + S^T gn, g[e] = ge[e] + emask[e] * gn[dst[e]] (times
+//     1 / max(indeg(dst[e]), 1) for mean: the forward scatter's operator);
+//     the kernel stages it for A^T g and writes it for the layer's other two
+//     kernels;
+//   recompute (layer 0): the weight gradient's m and the ReLU mask read
+//     h0 = nf[src] + ef, recomputed where they load it, as the TPU kernel
+//     recomputes it rather than stash it;
+//   epilogue (layer 0's input_grad_kernel): g_ef = g_h0, and g_nf[v] =
+//     sum_e [src[e] == v] * g_h0[e] (unmasked), summed in ascending edge
+//     order from the block's own output slice, kept in shared memory.
+// A src or dst outside [0, V) touches no node, as a one-hot would.
+//
 // What bounds it: the work is exact f32, so the floor is the CUDA-core f32
 // rate (67 TFLOP/s on an H100 SXM at 700 W). A layer needs 4 * B * E * d^2
-// operations for the two W-sized products and 2 * nnz(A) * d for A^T g; the
-// bytes (h0, the stash, W, g read once; g_h0, g_W, g_b written once) take
-// about a fifth as long at the training shape. So it is bound by operations.
+// operations for the two W-sized products and 2 * nnz(A) * d for A^T g (the
+// encoder's ends add about 3 * B * E * d); the bytes (h0 or nf and ef, the
+// stash, W, the cotangents read once; the gradients written once) take about
+// a fifth as long at the training shape. So it is bound by operations.
 // The design:
 //   - A^T g on a (bin, 64-column) grid: the block stages its bin's g slice
 //     and builds bit rows of A^T in shared memory, then walks the set bits,
@@ -41,12 +61,15 @@
 //     order, and float atomics would make g_W differ from call to call. So
 //     each block sums one 256-row chunk into its own 64 x 64 partial, and
 //     a second kernel adds the chunks in a fixed order: two calls on the
-//     same inputs give the same bits. g_b takes the same route.
+//     same inputs give the same bits. g_b takes the same route. The only
+//     atomics are integer counts of in-degrees, whose result has no order.
 // It does not reach the floor: plain FMA from shared memory, four launches
 // a layer, g_mW round-trips device memory (it stays in the 50 MB L2 at the
 // training shape), and every column slice of a bin rebuilds the bit rows.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -54,27 +77,53 @@ constexpr int kCols = 64;         // output columns per block
 constexpr int kKTile = 32;        // k depth of one staged tile
 constexpr int kThreads = 256;
 constexpr int kMaxEdges = 256;    // edge lanes per bin this kernel takes
+constexpr int kMaxNodes = 256;    // node slots per bin the encoder's ends take
 constexpr int kChunkRows = 256;   // rows of the B * E sum per weight-gradient partial
 constexpr int kWStride = kCols + 4;  // padded row of the transposed W tile
 
-__host__ __device__ inline int adj_words(int E) { return (E + 31) / 32; }
+// The pointers and sizes of one layer's launches. The kernels take the
+// pointers they use as __restrict__ parameters: no two of them alias, so the
+// compiler may load the read-only ones through the non-coherent path.
+struct BwdArgs {
+  const float* h_in;     // [B, E, d] the layer's input; ef when recomputing h0
+  const float* g;        // [B, E, d] cotangent of the layer's output
+  float* g_in;           // [B, E, d] cotangent of its input
+  float* g_mw;           // scratch [B, E, d]
+  float* gw_part;        // scratch [chunks, d, d]
+  float* gb_part;        // scratch [chunks, d]
+  float* gw;             // [d, d]
+  float* gb;             // [d]
+  const int* src;        // [B, E]
+  const int* dst;        // [B, E]
+  const uint8_t* emask;  // [B, E]
+  const float* W;        // [d, d], [in, out]
+  // the encoder's ends
+  const float* nf;       // [B, V, d] node features (recompute)
+  const float* ge;       // [B, E, d] cotangent of the edge hiddens (prologue)
+  const float* gn;       // [B, V, d] cotangent of the node hiddens (prologue)
+  float* g_nf;           // [B, V, d] (epilogue)
+  int E, V, d, residual, mean;
+};
 
-// ---- g_mW = A^T g -----------------------------------------------------------
+// ---- g_mW = A^T g (with the prologue: g = ge + S^T gn first) ---------------
 
-__host__ inline size_t adjoint_smem_bytes(int E) {
+__host__ inline size_t adjoint_smem_bytes(int E, int V, bool prologue) {
   return sizeof(float) * ((size_t)E * kCols + E)        // g slice, 1 / max(indeg, 1)
          + sizeof(uint32_t) * (size_t)E * adj_words(E)  // bit rows of A^T
-         + sizeof(int) * 3 * (size_t)E;                 // src, dst, emask
+         + sizeof(int) * 3 * (size_t)E                  // src, dst, emask
+         + (prologue ? sizeof(int) * (size_t)V : 0);    // node in-degrees
 }
 
 // Grid (bin, 64-column slice of d). Row e' of A^T has bit e set where
 // A[e, e'] has a keep entry: emask[e'] && src[e] == dst[e'] (and, for sum,
 // e != rev(e')). Mean scales each term by 1 / max(indeg(e), 1) and
 // subtracts g[rev(e')], the rev diagonal of A, on every row.
+template <bool kPrologue>
 __global__ void __launch_bounds__(kThreads)
-adjoint_kernel(const float* __restrict__ g, float* __restrict__ g_mw,
-               const int* __restrict__ src, const int* __restrict__ dst,
-               const uint8_t* __restrict__ emask, int E, int d, int mean) {
+adjoint_kernel(const float* __restrict__ g, const float* __restrict__ ge,
+               const float* __restrict__ gn, float* __restrict__ g_full,
+               float* __restrict__ g_mw, const int* __restrict__ src, const int* __restrict__ dst,
+               const uint8_t* __restrict__ emask, int E, int V, int d, int mean) {
   extern __shared__ float4 smem4[];
   const int words = adj_words(E);
   float* gs = reinterpret_cast<float*>(smem4);                // [E][kCols]
@@ -83,22 +132,51 @@ adjoint_kernel(const float* __restrict__ g, float* __restrict__ g_mw,
   int* src_s = reinterpret_cast<int*>(adj + (size_t)E * words);
   int* dst_s = src_s + E;
   int* ok_s = dst_s + E;
+  int* cnt = ok_s + E;                                        // [V] (prologue)
 
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * kCols;
   const int tid = threadIdx.x;
   const size_t bin_off = (size_t)b * E;
 
-  constexpr int kVecs = kCols / 4;
-  for (int i = tid; i < E * kVecs; i += kThreads) {
-    const int e = i / kVecs, q = i % kVecs;
-    reinterpret_cast<float4*>(gs + (size_t)e * kCols)[q] =
-        reinterpret_cast<const float4*>(g + (bin_off + e) * d + c0)[q];
-  }
   for (int e = tid; e < E; e += kThreads) {
     src_s[e] = src[bin_off + e];
     dst_s[e] = dst[bin_off + e];
     ok_s[e] = emask[bin_off + e] != 0;
+  }
+  constexpr int kVecs = kCols / 4;
+  if constexpr (kPrologue) {
+    if (mean) {
+      for (int v = tid; v < V; v += kThreads) cnt[v] = 0;
+      __syncthreads();
+      for (int e = tid; e < E; e += kThreads) {
+        const int v = dst_s[e];
+        if (ok_s[e] && v >= 0 && v < V) atomicAdd(&cnt[v], 1);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < E * kVecs; i += kThreads) {
+      const int e = i / kVecs, q = i % kVecs;
+      const size_t off = (bin_off + e) * d + c0;
+      float4 v = reinterpret_cast<const float4*>(ge + off)[q];
+      const int node = dst_s[e];
+      if (ok_s[e] && node >= 0 && node < V) {
+        float4 n = reinterpret_cast<const float4*>(gn + ((size_t)b * V + node) * d + c0)[q];
+        if (mean) {
+          const float sc = 1.f / fmaxf((float)cnt[node], 1.f);
+          n = make_float4(n.x * sc, n.y * sc, n.z * sc, n.w * sc);
+        }
+        v = add4(v, n);
+      }
+      reinterpret_cast<float4*>(gs + (size_t)e * kCols)[q] = v;
+      reinterpret_cast<float4*>(g_full + off)[q] = v;
+    }
+  } else {
+    for (int i = tid; i < E * kVecs; i += kThreads) {
+      const int e = i / kVecs, q = i % kVecs;
+      reinterpret_cast<float4*>(gs + (size_t)e * kCols)[q] =
+          reinterpret_cast<const float4*>(g + (bin_off + e) * d + c0)[q];
+    }
   }
   __syncthreads();
 
@@ -145,9 +223,15 @@ adjoint_kernel(const float* __restrict__ g, float* __restrict__ g_mw,
 
 // ---- g_in = [h_in > 0] * (g_mW @ W^T) (+ g) ---------------------------------
 
-__host__ inline size_t input_grad_smem_bytes(int E) {
-  return sizeof(float) * ((size_t)kKTile * kWStride      // W^T tile (first: 16-byte aligned)
-                          + (size_t)E * (kKTile + 1));   // g_mW tile, padded rows
+__host__ inline size_t input_grad_smem_bytes(int E, int V, bool epilogue) {
+  size_t floats = (size_t)kKTile * kWStride          // W^T tile (first: 16-byte aligned)
+                  + (size_t)E * (kKTile + 1);        // g_mW tile, padded rows
+  size_t words = 0;
+  if (epilogue) {
+    floats += (size_t)E * kCols;                     // the output slice (after the W^T tile)
+    words += (size_t)E + (size_t)V * adj_words(E);   // src; node bit rows
+  }
+  return sizeof(float) * floats + sizeof(uint32_t) * words;
 }
 
 // One thread's share of a k-tile in registers: R / 2 vectors of g_mW (a
@@ -199,15 +283,22 @@ __device__ inline void store_tile(const TileRegs<R>& t, float* as, float* ws, in
 }
 
 // Grid (bin, 64-column slice of d); thread (tx, ty) owns columns
-// 4tx..4tx+3 of rows ty + 16r.
-template <int R>
+// 4tx..4tx+3 of rows ty + 16r. kEnc: layer 0 of the encoder (h0 recomputed
+// for the ReLU mask, then the gather's VJP into g_nf).
+template <int R, bool kEnc>
 __global__ void __launch_bounds__(kThreads)
 input_grad_kernel(const float* __restrict__ g_mw, const float* __restrict__ W,
-                  const float* __restrict__ h_in, const float* __restrict__ g,
-                  float* __restrict__ g_in, int E, int d, int residual) {
+                  const float* __restrict__ h_in, const float* __restrict__ nf,
+                  const int* __restrict__ src, const float* __restrict__ g,
+                  float* __restrict__ g_in, float* __restrict__ g_nf, int E, int V, int d,
+                  int residual) {
   extern __shared__ float4 smem4[];
+  const int words = adj_words(E);
   float* ws = reinterpret_cast<float*>(smem4);   // [kKTile][kWStride]
-  float* as = ws + kKTile * kWStride;            // [E][kKTile + 1]
+  float* outs = ws + kKTile * kWStride;          // [E][kCols] (kEnc)
+  float* as = outs + (kEnc ? (size_t)E * kCols : 0);  // [E][kKTile + 1]
+  int* src_s = reinterpret_cast<int*>(as + (size_t)E * (kKTile + 1));  // [E] (kEnc)
+  uint32_t* node_bits = reinterpret_cast<uint32_t*>(src_s + E);        // [V][words] (kEnc)
 
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * kCols;
@@ -217,6 +308,22 @@ input_grad_kernel(const float* __restrict__ g_mw, const float* __restrict__ W,
 
   TileRegs<R> tile;
   load_tile<R>(tile, gb, W, E, d, c0, 0, tid);
+
+  if constexpr (kEnc) {
+    // bit e of node row v: src[e] == v (unmasked, as the gather reads)
+    for (int e = tid; e < E; e += kThreads) src_s[e] = src[bin_off + e];
+    __syncthreads();
+    for (int i = tid; i < V * words; i += kThreads) {
+      const int v = i / words;
+      const int base = (i % words) * 32;
+      uint32_t bits = 0u;
+      for (int t = 0; t < 32; ++t) {
+        const int e = base + t;
+        if (e < E && src_s[e] == v) bits |= 1u << t;
+      }
+      node_bits[i] = bits;
+    }
+  }
 
   const int tx = tid % 16;
   const int ty = tid / 16;
@@ -237,11 +344,11 @@ input_grad_kernel(const float* __restrict__ g_mw, const float* __restrict__ W,
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const int e = ty + 16 * r;
-        const float a = e < E ? as[e * (kKTile + 1) + k] : 0.f;
-        acc[r][0] = fmaf(a, bv.x, acc[r][0]);
-        acc[r][1] = fmaf(a, bv.y, acc[r][1]);
-        acc[r][2] = fmaf(a, bv.z, acc[r][2]);
-        acc[r][3] = fmaf(a, bv.w, acc[r][3]);
+        const float av = e < E ? as[e * (kKTile + 1) + k] : 0.f;
+        acc[r][0] = fmaf(av, bv.x, acc[r][0]);
+        acc[r][1] = fmaf(av, bv.y, acc[r][1]);
+        acc[r][2] = fmaf(av, bv.z, acc[r][2]);
+        acc[r][3] = fmaf(av, bv.w, acc[r][3]);
       }
     }
   }
@@ -251,17 +358,31 @@ input_grad_kernel(const float* __restrict__ g_mw, const float* __restrict__ W,
     const int e = ty + 16 * r;
     if (e >= E) continue;
     const size_t off = (bin_off + e) * d + c0 + 4 * tx;
-    const float4 h = *reinterpret_cast<const float4*>(h_in + off);
+    const float4 h = input_vec<kEnc>(h_in, nf, src, bin_off + e, b, V, d, c0, tx);
     float4 o = make_float4(acc[r][0] * (h.x > 0.f ? 1.f : 0.f), acc[r][1] * (h.y > 0.f ? 1.f : 0.f),
                            acc[r][2] * (h.z > 0.f ? 1.f : 0.f), acc[r][3] * (h.w > 0.f ? 1.f : 0.f));
-    if (residual) {
-      const float4 gv = *reinterpret_cast<const float4*>(g + off);
-      o.x += gv.x;
-      o.y += gv.y;
-      o.z += gv.z;
-      o.w += gv.w;
-    }
+    if (residual) o = add4(o, *reinterpret_cast<const float4*>(g + off));
     *reinterpret_cast<float4*>(g_in + off) = o;
+    if constexpr (kEnc) reinterpret_cast<float4*>(outs + (size_t)e * kCols)[tx] = o;
+  }
+
+  if constexpr (kEnc) {
+    // g_nf[b, v, c] = sum over node v's set bits of g_h0[e, c], ascending e
+    __syncthreads();
+    const int c = tid % kCols;
+    for (int v = tid / kCols; v < V; v += kThreads / kCols) {
+      const uint32_t* row = node_bits + (size_t)v * words;
+      float s = 0.f;
+      for (int w = 0; w < words; ++w) {
+        uint32_t bits = row[w];
+        while (bits) {
+          const int e = w * 32 + __ffs(bits) - 1;
+          bits &= bits - 1u;
+          s += outs[e * kCols + c];
+        }
+      }
+      g_nf[((size_t)b * V + v) * d + c0 + c] = s;
+    }
   }
 }
 
@@ -270,11 +391,13 @@ input_grad_kernel(const float* __restrict__ g_mw, const float* __restrict__ W,
 // Grid (chunk of kChunkRows rows, 64-row tile of g_W, 64-column tile of
 // g_W). Thread (tx, ty) owns g_W rows 4ty..4ty+3 and columns 4tx..4tx+3 of
 // the block's tile. The blocks of the first row tile also sum g over the
-// chunk for g_b.
+// chunk for g_b. kGather: the layer input is h0, recomputed from nf and ef.
+template <bool kGather>
 __global__ void __launch_bounds__(kThreads)
-weight_grad_partial_kernel(const float* __restrict__ h_in, const float* __restrict__ g_mw,
+weight_grad_partial_kernel(const float* __restrict__ h_in, const float* __restrict__ nf,
+                           const int* __restrict__ src, const float* __restrict__ g_mw,
                            const float* __restrict__ g, float* __restrict__ gw_part,
-                           float* __restrict__ gb_part, int rows, int d) {
+                           float* __restrict__ gb_part, int rows, int E, int V, int d) {
   __shared__ float4 ms4[kKTile * kCols / 4];   // relu(h_in) rows x g_W rows
   __shared__ float4 gs4[kKTile * kCols / 4];   // g_mW rows x g_W columns
   __shared__ float red[kThreads / kCols][kCols];
@@ -292,9 +415,9 @@ weight_grad_partial_kernel(const float* __restrict__ h_in, const float* __restri
 
   float acc[4][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
 
   // two 16-byte vectors of each operand per thread per 32-row tile
   float4 mv[2], gv[2];
@@ -303,7 +426,7 @@ weight_grad_partial_kernel(const float* __restrict__ h_in, const float* __restri
     for (int i = 0; i < 2; ++i) {
       const int idx = tid + kThreads * i, r = r0 + (idx >> 4), q = idx & 15;
       const bool in = r < r_end;
-      mv[i] = in ? reinterpret_cast<const float4*>(h_in + (size_t)r * d + i0)[q]
+      mv[i] = in ? input_vec<kGather>(h_in, nf, src, r, r / E, V, d, i0, q)
                  : make_float4(0.f, 0.f, 0.f, 0.f);
       gv[i] = in ? reinterpret_cast<const float4*>(g_mw + (size_t)r * d + j0)[q]
                  : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -327,18 +450,18 @@ weight_grad_partial_kernel(const float* __restrict__ h_in, const float* __restri
       const float4 q = reinterpret_cast<const float4*>(gs + k * kCols)[tx];
       const float mr[4] = {m.x, m.y, m.z, m.w};
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        acc[a][0] = fmaf(mr[a], q.x, acc[a][0]);
-        acc[a][1] = fmaf(mr[a], q.y, acc[a][1]);
-        acc[a][2] = fmaf(mr[a], q.z, acc[a][2]);
-        acc[a][3] = fmaf(mr[a], q.w, acc[a][3]);
+      for (int i = 0; i < 4; ++i) {
+        acc[i][0] = fmaf(mr[i], q.x, acc[i][0]);
+        acc[i][1] = fmaf(mr[i], q.y, acc[i][1]);
+        acc[i][2] = fmaf(mr[i], q.z, acc[i][2]);
+        acc[i][3] = fmaf(mr[i], q.w, acc[i][3]);
       }
     }
   }
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const size_t off = ((size_t)chunk * d + i0 + 4 * ty + a) * d + j0 + 4 * tx;
-    *reinterpret_cast<float4*>(gw_part + off) = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+  for (int i = 0; i < 4; ++i) {
+    const size_t off = ((size_t)chunk * d + i0 + 4 * ty + i) * d + j0 + 4 * tx;
+    *reinterpret_cast<float4*>(gw_part + off) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   }
 
   if (blockIdx.y == 0) {
@@ -375,23 +498,29 @@ reduce_chunks_kernel(const float* __restrict__ gw_part, const float* __restrict_
   }
 }
 
-// Shared-memory limits are per-device attributes: raise each kernel's once
-// on each device, to what its largest bin needs.
-cudaError_t configure(int dev) {
-  static uint64_t configured = 0;  // bit per device
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (configured >> dev & 1u) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(adjoint_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)adjoint_smem_bytes(kMaxEdges));
+template <bool kPrologue>
+cudaError_t launch_adjoint(const BwdArgs& a, int B, const float* g, float* g_full,
+                           cudaStream_t s) {
+  static uint64_t configured = 0;
+  cudaError_t err = allow_smem((const void*)adjoint_kernel<kPrologue>,
+                               (int)adjoint_smem_bytes(kMaxEdges, kMaxNodes, kPrologue), configured);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(input_grad_kernel<8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)input_grad_smem_bytes(128));
+  adjoint_kernel<kPrologue><<<dim3(B, a.d / kCols), kThreads,
+                              adjoint_smem_bytes(a.E, a.V, kPrologue), s>>>(
+      g, a.ge, a.gn, g_full, a.g_mw, a.src, a.dst, a.emask, a.E, a.V, a.d, a.mean);
+  return cudaGetLastError();
+}
+
+template <int R, bool kEnc>
+cudaError_t launch_input_grad(const BwdArgs& a, int B, const float* g, cudaStream_t s) {
+  static uint64_t configured = 0;
+  cudaError_t err = allow_smem((const void*)input_grad_kernel<R, kEnc>,
+                               (int)input_grad_smem_bytes(16 * R, kMaxNodes, kEnc), configured);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(input_grad_kernel<16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)input_grad_smem_bytes(kMaxEdges));
-  if (err != cudaSuccess) return err;
-  configured |= uint64_t{1} << dev;
-  return cudaSuccess;
+  input_grad_kernel<R, kEnc><<<dim3(B, a.d / kCols), kThreads,
+                               input_grad_smem_bytes(a.E, a.V, kEnc), s>>>(
+      a.g_mw, a.W, a.h_in, a.nf, a.src, g, a.g_in, a.g_nf, a.E, a.V, a.d, a.residual);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -399,6 +528,8 @@ cudaError_t configure(int dev) {
 extern "C" {
 
 int dense_mpnn_bwd_max_edges() { return kMaxEdges; }
+
+int dense_mpnn_bwd_max_nodes() { return kMaxNodes; }
 
 int dense_mpnn_bwd_cols() { return kCols; }
 
@@ -409,36 +540,49 @@ int dense_mpnn_bwd_chunk_rows() { return kChunkRows; }
 // W[d,d] ([in, out], row-major). Outputs: g_in[B,E,d] (cotangent of h_in),
 // gw[d,d] and gb[d] (this layer's weight and bias gradients, overwritten).
 // Scratch: g_mw[B,E,d], gw_part[chunks,d,d], gb_part[chunks,d] with chunks
-// = ceil(B * E / dense_mpnn_bwd_chunk_rows()). All pointers are device
-// pointers of contiguous arrays; h_in, g, g_in, g_mw, W, gw and gw_part
-// start 16-byte aligned, and g_in differs from g. The stream is a
-// cudaStream_t. Returns the cudaError_t of the launches (0 on success).
+// = ceil(B * E / dense_mpnn_bwd_chunk_rows()).
+// The encoder's ends: with prologue != 0 (its last layer) g is not read:
+// the layer's cotangent is ge[B,E,d] + S^T gn (gn[B,V,d]), written to
+// g_full[B,E,d]; with gather != 0 (its layer 0) h_in is ef[B,E,d], the
+// layer's input is nf[src] + ef (nf[B,V,d]), and the gather's VJP is
+// written to g_nf[B,V,d]. All pointers are device pointers of contiguous
+// arrays; every float array but gb and gb_part starts 16-byte aligned, and
+// g_in differs from g. The stream is a cudaStream_t. Returns the cudaError_t
+// of the launches (0 on success).
 int dense_mpnn_bwd_layer(const float* h_in, const float* g, float* g_in, float* g_mw,
                          float* gw_part, float* gb_part, float* gw, float* gb, const int* src,
-                         const int* dst, const uint8_t* emask, const float* W, int B, int E,
-                         int d, int residual, int mean, void* stream) {
+                         const int* dst, const uint8_t* emask, const float* W, const float* nf,
+                         const float* ge, const float* gn, float* g_full, float* g_nf, int B,
+                         int V, int E, int d, int residual, int mean, int prologue, int gather,
+                         void* stream) {
   if (B <= 0 || E <= 0 || E % 2 != 0 || E > kMaxEdges || d <= 0 || d % kCols != 0)
     return (int)cudaErrorInvalidValue;
+  if ((prologue || gather) && (V <= 0 || V > kMaxNodes)) return (int)cudaErrorInvalidValue;
+  if ((prologue && (!ge || !gn || !g_full)) || (gather && (!nf || !g_nf)))
+    return (int)cudaErrorInvalidValue;
+  if (prologue) g = g_full;
   if (((uintptr_t)h_in | (uintptr_t)g | (uintptr_t)g_in | (uintptr_t)g_mw | (uintptr_t)W |
-       (uintptr_t)gw | (uintptr_t)gw_part) % 16 != 0)
+       (uintptr_t)gw | (uintptr_t)gw_part | (uintptr_t)nf | (uintptr_t)ge | (uintptr_t)gn |
+       (uintptr_t)g_nf) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   if (g_in == g) return (int)cudaErrorInvalidValue;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = configure(dev);
-  if (err != cudaSuccess) return (int)err;
+  const BwdArgs a{h_in, g, g_in, g_mw, gw_part, gb_part, gw, gb, src, dst, emask, W,
+                  nf, ge, gn, g_nf, E, V, d, residual, mean};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  const dim3 bins(B, d / kCols);
-  adjoint_kernel<<<bins, kThreads, adjoint_smem_bytes(E), s>>>(g, g_mw, src, dst, emask, E, d, mean);
-  err = cudaGetLastError();
+  cudaError_t err = prologue ? launch_adjoint<true>(a, B, nullptr, g_full, s)
+                             : launch_adjoint<false>(a, B, g, nullptr, s);
   if (err != cudaSuccess) return (int)err;
 
   const int rows = B * E;
   const int chunks = (rows + kChunkRows - 1) / kChunkRows;
-  weight_grad_partial_kernel<<<dim3(chunks, d / kCols, d / kCols), kThreads, 0, s>>>(
-      h_in, g_mw, g, gw_part, gb_part, rows, d);
+  const dim3 wgrid(chunks, d / kCols, d / kCols);
+  if (gather)
+    weight_grad_partial_kernel<true><<<wgrid, kThreads, 0, s>>>(h_in, nf, src, g_mw, g, gw_part,
+                                                                 gb_part, rows, E, V, d);
+  else
+    weight_grad_partial_kernel<false><<<wgrid, kThreads, 0, s>>>(h_in, nf, src, g_mw, g, gw_part,
+                                                                  gb_part, rows, E, V, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -449,10 +593,10 @@ int dense_mpnn_bwd_layer(const float* h_in, const float* g, float* g_in, float* 
   if (err != cudaSuccess) return (int)err;
 
   if (E <= 128)
-    input_grad_kernel<8><<<bins, kThreads, input_grad_smem_bytes(E), s>>>(g_mw, W, h_in, g, g_in, E, d, residual);
+    err = gather ? launch_input_grad<8, true>(a, B, g, s) : launch_input_grad<8, false>(a, B, g, s);
   else
-    input_grad_kernel<16><<<bins, kThreads, input_grad_smem_bytes(E), s>>>(g_mw, W, h_in, g, g_in, E, d, residual);
-  return (int)cudaGetLastError();
+    err = gather ? launch_input_grad<16, true>(a, B, g, s) : launch_input_grad<16, false>(a, B, g, s);
+  return (int)err;
 }
 
 const char* dense_mpnn_bwd_error_string(int err) {

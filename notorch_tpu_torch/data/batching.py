@@ -1,13 +1,15 @@
-"""Static-shape batch loader over the bin-packed dense layout.
+"""Static-shape batch loader over the dense layouts.
 
 Port of ``notorch_tpu.data.batching``: featurizes on the host (with an
 in-memory cache — featurization is pure), groups samples into fixed-size
-batches (the last batch is padded and masked) and bin-packs each batch with
-ladder-rounded bin caps, exactly as the JAX loader does, so both packages
-see the same arrays, in the same order when shuffled (``SeededSampler``).
-Batches are numpy; the caller moves them to a device. ``random_split`` and
-``Subset`` split a dataset as the JAX package does. ``PrefetchLoader`` and
-``sort_by_size`` are not ported yet.
+batches (the last batch is padded and masked) and collates each batch into
+the bin-packed dense layout (``dense_packed``, ladder-rounded bin caps) or
+the per-molecule dense layout (``dense``, node and edge counts rounded up
+per-molecule ladders), exactly as the JAX loader does, so both packages
+see the same arrays, in the same order when shuffled (``SeededSampler``)
+and when sorted by size. Batches are numpy; the caller moves them to a
+device. ``random_split`` and ``Subset`` split a dataset as the JAX package
+does. ``PrefetchLoader`` and the flat layout are not ported yet.
 """
 
 from __future__ import annotations
@@ -48,15 +50,28 @@ def round_up_ladder(value: int, ladder: list[int]) -> int:
 BIN_EDGES = 128
 
 
+LAYOUTS = ("dense", "dense_packed")
+
+
 class DataLoader:
-    """Iterate bin-packed batch dicts over a :class:`MolecularDataset`, with
-    the bin caps of the JAX loader's defaults: ``E_b`` is ``BIN_EDGES``
-    raised up the ladder to the batch's largest molecule, ``V_b`` is
-    ``E_b // 2 + 8`` (or the largest molecule plus its padding sink) rounded
-    up to a multiple of 8, and the bin count is rounded up its own ladder.
+    """Iterate batch dicts over a :class:`MolecularDataset`.
+
+    ``layout="dense_packed"`` bin-packs each batch with the bin caps of the
+    JAX loader's defaults: ``E_b`` is ``BIN_EDGES`` raised up the ladder to
+    the batch's largest molecule, ``V_b`` is ``E_b // 2 + 8`` (or the
+    largest molecule plus its padding sink) rounded up to a multiple of 8,
+    and the bin count is rounded up its own ladder. ``layout="dense"`` pads
+    each molecule into its own block: the batch's largest node count plus
+    the padding sink rounded up ``bucket_ladder(16, 1 << 16)``, its largest
+    edge count rounded up ``bucket_ladder(32, 1 << 17)``.
+
     ``shuffle=True`` draws the order from a ``SeededSampler(len, seed)``;
     after :meth:`set_epoch` each epoch's order is a pure function of
-    ``(seed, epoch)``, index for index the JAX loader's.
+    ``(seed, epoch)``, index for index the JAX loader's. ``sort_by_size``
+    sorts the sampler's order stably by edge count, cuts it into batches
+    and shuffles the batches with ``np.random.default_rng(seed)`` (drawn on
+    from one epoch to the next, or ``default_rng((seed, epoch))`` after
+    :meth:`set_epoch`), so each batch holds molecules of like size.
     """
 
     def __init__(
@@ -68,12 +83,12 @@ class DataLoader:
         seed: int = 0,
         drop_last: bool = False,
         layout: str = "dense_packed",
+        sort_by_size: bool = False,
     ):
-        if layout != "dense_packed":
+        if layout not in LAYOUTS:
             raise NotImplementedError(
-                f"DataLoader layout {layout!r} is not ported yet (the flat and "
-                "per-molecule dense layouts come with the flat-layout slice); "
-                "build_dmpnn(layout='auto') resolves to 'dense_packed'"
+                f"DataLoader layout {layout!r} is not ported yet: the port has {list(LAYOUTS)} "
+                "(the flat layout comes with the flat-layout slice)"
             )
         self.dataset = dataset
         self.batch_size = batch_size
@@ -86,15 +101,21 @@ class DataLoader:
         self.drop_last = drop_last
         self.layout = layout
         self.bin_ladder = bucket_ladder(8, 1 << 12)
+        self.node_ladder = bucket_ladder(16, 1 << 16)  # per-molecule (dense) node slots
         self.edge_ladder = bucket_ladder(32, 1 << 17)
+        self.sort_by_size = sort_by_size
+        self.seed = seed
+        self._rg = np.random.default_rng(seed)
         self._cache: dict[int, dict] = {}
 
     def set_epoch(self, epoch: int) -> None:
         """Make this epoch's batch order a pure function of (seed, epoch),
         where the sampler supports it; ``fit`` calls this each epoch so that
-        a resumed run can re-derive the interrupted epoch's order."""
+        a resumed run can re-derive the interrupted epoch's order. It keys the
+        ``sort_by_size`` batch shuffle too."""
         if hasattr(self.sampler, "set_epoch"):
             self.sampler.set_epoch(epoch)
+        self._rg = np.random.default_rng((self.seed, int(epoch)))
 
     def _fetch(self, idx: int) -> dict:
         sample = self._cache.get(idx)
@@ -106,10 +127,21 @@ class DataLoader:
         n = len(self.sampler)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    def _graph_size(self, idx: int) -> int:
+        sample = self._fetch(idx)
+        for mgr in self.dataset.transforms.values():
+            if isinstance(sample[mgr.out_key], Graph):
+                return sample[mgr.out_key].num_edges
+        return 0
+
     def __iter__(self) -> Iterator[dict]:
         indices = list(iter(self.sampler))
-        for s in range(0, len(indices), self.batch_size):
-            chunk = indices[s : s + self.batch_size]
+        if self.sort_by_size:
+            indices.sort(key=self._graph_size)
+        chunks = [indices[s : s + self.batch_size] for s in range(0, len(indices), self.batch_size)]
+        if self.sort_by_size:
+            self._rg.shuffle(chunks)
+        for chunk in chunks:
             if self.drop_last and len(chunk) < self.batch_size:
                 continue
             yield self._collate([self._fetch(i) for i in chunk], chunk)
@@ -122,7 +154,13 @@ class DataLoader:
             if isinstance(s[mgr.out_key], Graph)
         ]
         caps = None
-        if graphs:
+        if graphs and self.layout == "dense":
+            max_e = max(max(g.num_edges for g in graphs), 2)
+            caps = (
+                round_up_ladder(max(g.num_nodes for g in graphs) + 1, self.node_ladder),
+                round_up_ladder(max_e + max_e % 2, self.edge_ladder),
+            )
+        elif graphs:
             max_v = max(g.num_nodes for g in graphs) + 1
             max_e = max(max(g.num_edges for g in graphs), 2)
             max_e += max_e % 2

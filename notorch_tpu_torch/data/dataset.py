@@ -14,7 +14,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 
 from notorch_tpu_torch.conf import INPUT_KEY_PREFIX, TARGET_KEY_PREFIX
-from notorch_tpu_torch.data.dense import pack_graphs_dense
+from notorch_tpu_torch.data.dense import pack_graphs_dense, pad_graphs_dense
 from notorch_tpu_torch.data.graph import Graph
 from notorch_tpu_torch.tasks import transforms as task_transforms
 
@@ -119,13 +119,15 @@ class MolecularDataset:
         """Build the batch dict with ``inputs.*`` / ``targets.*`` keys.
 
         ``layout="dense_packed"``: bin-packed dense blocks, ``graph_caps`` =
-        ``(nodes_per_bin, edges_per_bin, bin_cap)`` (exact caps from the
-        batch when None). Graph arrays and targets stay numpy.
+        ``(nodes_per_bin, edges_per_bin, bin_cap)``. ``layout="dense"``:
+        one block per molecule, ``graph_caps`` = ``(nodes_per_graph,
+        edges_per_graph)``, ``batch_cap`` blocks. Exact caps from the batch
+        when None. Graph arrays and targets stay numpy.
         """
-        if layout != "dense_packed":
+        if layout not in ("dense", "dense_packed"):
             raise NotImplementedError(
-                f"layout {layout!r} is not ported yet: the flat and per-molecule "
-                "dense layouts come with the flat-layout slice; use 'dense_packed'"
+                f"layout {layout!r} is not ported yet: the flat layout comes with the "
+                "flat-layout slice; use 'dense' or 'dense_packed'"
             )
         batch: dict[str, Any] = {}
         b_cap = batch_cap if batch_cap is not None else len(samples)
@@ -138,15 +140,20 @@ class MolecularDataset:
                     "featurization is ported"
                 )
             if graph_caps is not None:
-                v_b, e_b, bin_cap = graph_caps
+                v_b, e_b, *bin_cap = graph_caps
             else:
                 e_b = max(max((g.num_edges for g in values), default=2), 2)
                 e_b += e_b % 2
                 v_b = max(g.num_nodes for g in values) + 1
-                bin_cap = None
-            batch[f"{INPUT_KEY_PREFIX}.{mgr.out_key}"] = pack_graphs_dense(
-                values, v_b, e_b, mol_cap=b_cap, bin_cap=bin_cap, np_out=True
-            )
+                bin_cap = []
+            if layout == "dense":
+                collated = pad_graphs_dense(values, v_b, e_b, graph_cap=b_cap, np_out=True)
+            else:
+                collated = pack_graphs_dense(
+                    values, v_b, e_b, mol_cap=b_cap, bin_cap=bin_cap[0] if bin_cap else None,
+                    np_out=True,
+                )
+            batch[f"{INPUT_KEY_PREFIX}.{mgr.out_key}"] = collated
 
         for name, arr in self._target_arrays.items():
             rows = arr[np.asarray(indices)]

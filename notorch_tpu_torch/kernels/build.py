@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, ``build/notorch_tpu_torch/
 lib<name>-<hash>.so`` beside the package, and loaded with ``ctypes``. The
-hash covers the source and the flags, so an edited source builds anew and a
-stale library is never loaded. Nothing here includes PyTorch's headers,
+hash covers the source, the headers beside it (``csrc/*.cuh``) and the
+flags, so an edited source or header builds anew and a stale library is
+never loaded. Nothing here includes PyTorch's headers,
 which keeps a build to seconds.
 
 Builds happen at first use, never at import: the CPU tests import every
@@ -48,8 +49,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    inputs = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(
+        b"".join(p.read_bytes() for p in inputs) + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -1,7 +1,7 @@
-"""The fused dense D-MPNN block: hand-written Hopper kernels for its
-forward and backward, their plain PyTorch versions, the wrappers that pick
-between them by device, and the ``autograd.Function`` that trains through
-them.
+"""The fused dense D-MPNN block and the whole fused encoder: hand-written
+Hopper kernels for their forwards and backwards, their plain PyTorch
+versions, the wrappers that pick between them by device, and the
+``autograd.Function``s that train through them.
 
 Replaces the Pallas kernels of ``notorch_tpu/kernels/dense_mpnn.py``:
 
@@ -17,7 +17,24 @@ TPU entry (kernel)                here
 ``fused_dense_mpnn_block_bwd``    :func:`fused_dense_mpnn_block_bwd`: replay
 (``_bwd_kernel``)                 by the layer kernel, then the sweep of
                                   ``csrc/dense_mpnn_bwd.cu``
+``fused_dense_encoder_fwd``       :func:`fused_dense_encoder_fwd`: the layer
+(``_encoder_kernel(_stash)``)     kernel with the gather folded into its
+                                  first launch and the scatter into its last
+``fused_dense_encoder_bwd``       :func:`fused_dense_encoder_bwd`: the sweep
+(``_encoder_bwd_kernel(_d1)``)    of ``csrc/dense_mpnn_bwd.cu`` with the
+                                  scatter's VJP in its first launches and
+                                  ``h0``'s recompute and the gather's VJP in
+                                  its last
+``fused_dense_mpnn_block_dbuf``   :func:`fused_dense_mpnn_block_dbuf`, the
+(``_dbuf_kernel``)                double-buffered layer kernel of
+                                  ``csrc/dense_mpnn.cu`` (cp.async tiles)
 ================================  =========================================
+
+The encoder is ``h0 = node_feats[src] + edge_feats`` (unmasked; a ``src``
+outside ``[0, V)`` gathers zero, as the JAX one-hot does), the block, then
+``node_hiddens[v] = sum_e [dst e == v] * edge_mask e * h[e]`` (divided by
+the real in-degree floored at 1 for ``mean``); ``h0`` is never stored, and
+the backward recomputes it as the TPU kernel does.
 
 The CUDA sources are built by ``nvcc`` for ``sm_90a`` at first use and
 bound with ``ctypes`` (:mod:`notorch_tpu_torch.kernels.build`). Tensors on
@@ -57,7 +74,10 @@ keeps the state in VMEM for the whole depth, pays ``depth - 1`` extra
 writes for it). The backward sweep is described in ``csrc/dense_mpnn_bwd.cu``;
 its weight and bias gradients are summed in a fixed order, so two calls on
 the same inputs give the same bits. ``fit_tile`` and ``mols_per_tile`` (the
-TPU's VMEM tiling policy) are dropped: a block always holds one bin.
+TPU's VMEM tiling policy) are dropped: a block always holds one bin (the
+double-buffered forward keeps ``mols_per_tile`` for its argument check).
+The encoder's kernels take bins of at most 256 edge lanes and 256 node
+slots; the wrappers raise on larger ones.
 """
 
 from __future__ import annotations
@@ -176,6 +196,89 @@ def dense_mpnn_block_bwd_reference(
     return g, g_W, g_b
 
 
+def gather_nodes(node_values: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``node_values[b, index[b, e]]`` for every edge lane, ``[B, E, d]``; an
+    index outside ``[0, V)`` gathers zero, as a one-hot product does."""
+    V, d = node_values.shape[1:]
+    valid = (index >= 0) & (index < V)
+    idx = torch.where(valid, index, 0).long()[..., None].expand(-1, -1, d)
+    return torch.where(valid[..., None], torch.gather(node_values, 1, idx), 0.0)
+
+
+def _one_hot(index: torch.Tensor, n_nodes: int, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``[B, V, E]`` f32 with 1 where ``index[b, e] == v`` (and ``mask``)."""
+    hot = index[:, None, :] == torch.arange(n_nodes, device=index.device)[None, :, None]
+    if mask is not None:
+        hot = hot & mask[:, None, :]
+    return hot.to(torch.float32)
+
+
+def dense_encoder_reference(
+    node_feats: torch.Tensor,
+    edge_feats: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    edge_mask: torch.Tensor,
+    weights: torch.Tensor,
+    biases: torch.Tensor,
+    *,
+    depth: int,
+    residual: bool = True,
+    reduce: str = "sum",
+    stash: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """Plain PyTorch version of the encoder forward: the gather, the plain
+    block, and the masked scatter as a one-hot ``bmm`` (divided by the
+    in-degree floored at 1 for mean). Returns ``(node_hiddens,
+    edge_hiddens, hs)``, ``hs`` as :func:`dense_mpnn_block_stash_reference`
+    gives it when ``stash`` (else ``None``)."""
+    _exact_f32(edge_feats)
+    h0 = gather_nodes(node_feats, src) + edge_feats
+    eh, hs = dense_mpnn_block_stash_reference(
+        h0, src, dst, edge_mask, weights, biases, depth=depth, residual=residual, reduce=reduce
+    )
+    S = _one_hot(dst, node_feats.shape[1], edge_mask)
+    nh = torch.bmm(S, eh)
+    if reduce == "mean":
+        nh = nh / S.sum(dim=2, keepdim=True).clamp_min(1.0)
+    return nh, eh, hs if stash else None
+
+
+def dense_encoder_bwd_reference(
+    node_feats: torch.Tensor,
+    edge_feats: torch.Tensor,
+    hs: torch.Tensor | None,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    edge_mask: torch.Tensor,
+    weights: torch.Tensor,
+    g_node: torch.Tensor,
+    g_edge: torch.Tensor,
+    *,
+    depth: int,
+    residual: bool = True,
+    reduce: str = "sum",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the encoder backward: the scatter's VJP
+    ``g = g_edge + Sᵀ g_node`` (with the forward's ``1 / indeg`` for mean),
+    ``h0`` recomputed, the plain reverse sweep, and the gather's VJP
+    ``g_nf = Gᵀ g_h0`` (unmasked). Returns ``(g_nf, g_ef, g_W, g_b)``."""
+    _exact_f32(edge_feats)
+    V = node_feats.shape[1]
+    h0 = gather_nodes(node_feats, src) + edge_feats
+    valid = edge_mask & (dst >= 0) & (dst < V)
+    g_scatter = torch.where(valid[..., None], gather_nodes(g_node, dst), 0.0)
+    if reduce == "mean":
+        inv = 1.0 / _one_hot(dst, V, edge_mask).sum(dim=2).clamp_min(1.0)  # [B, V]
+        g_scatter = g_scatter * gather_nodes(inv[..., None], dst)
+    g = g_edge + g_scatter
+    g_h0, g_W, g_b = dense_mpnn_block_bwd_reference(
+        h0, hs, src, dst, edge_mask, weights, g, depth=depth, residual=residual, reduce=reduce
+    )
+    g_nf = torch.bmm(_one_hot(src, V), g_h0)
+    return g_nf, g_h0, g_W, g_b
+
+
 def _check_tensors(expect: dict, device: torch.device) -> None:
     for name, (t, dtype, shape) in expect.items():
         if t.dtype != dtype:
@@ -241,73 +344,109 @@ def _check_aligned(**tensors) -> None:
             )
 
 
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
 @functools.cache
-def _layer_fn():
+def _layer_fns():
+    """The forward library: its layer entry, its double-buffered entry."""
     lib = build.load("dense_mpnn")
-    fn = lib.dense_mpnn_layer
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    layer, dbuf = lib.dense_mpnn_layer, lib.dense_mpnn_dbuf_layer
+    layer.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    dbuf.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    layer.restype = dbuf.restype = ctypes.c_int
     lib.dense_mpnn_error_string.argtypes = [ctypes.c_int]
     lib.dense_mpnn_error_string.restype = ctypes.c_char_p
-    lib.dense_mpnn_max_edges.restype = ctypes.c_int
-    lib.dense_mpnn_cols.restype = ctypes.c_int
-    return lib, fn
+    for name in ("dense_mpnn_max_edges", "dense_mpnn_max_nodes", "dense_mpnn_cols"):
+        getattr(lib, name).restype = ctypes.c_int
+    return lib, layer, dbuf
 
 
 @functools.cache
 def _sweep_fn():
     lib = build.load("dense_mpnn_bwd")
     fn = lib.dense_mpnn_bwd_layer
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.dense_mpnn_bwd_error_string.argtypes = [ctypes.c_int]
     lib.dense_mpnn_bwd_error_string.restype = ctypes.c_char_p
-    for name in ("dense_mpnn_bwd_max_edges", "dense_mpnn_bwd_cols", "dense_mpnn_bwd_chunk_rows"):
+    for name in ("dense_mpnn_bwd_max_edges", "dense_mpnn_bwd_max_nodes", "dense_mpnn_bwd_cols",
+                 "dense_mpnn_bwd_chunk_rows"):
         getattr(lib, name).restype = ctypes.c_int
     return lib, fn
 
 
-def _check_shape_for(max_edges: int, cols: int, E: int, d: int) -> None:
-    if E > max_edges or d % cols != 0:
+def _check_shape_for(max_edges: int, max_nodes: int, cols: int, E: int, V: int, d: int) -> None:
+    if E > max_edges or V > max_nodes or d % cols != 0:
         raise ValueError(
-            f"the CUDA kernels take bins of at most {max_edges} edge lanes and a width "
-            f"that is a multiple of {cols}; got E={E}, d={d}"
+            f"the CUDA kernels take bins of at most {max_edges} edge lanes (and, for the "
+            f"encoder's ends, {max_nodes} node slots) and a width that is a multiple of "
+            f"{cols}; got E={E}, V={V}, d={d}"
         )
 
 
-def _launch_layers(h0, src, dst, edge_mask, weights, biases, outs, residual, mean) -> int:
+def _launch_layers(h0, src, dst, edge_mask, weights, biases, outs, residual, mean, *,
+                   node_feats=None, node_out=None, dbuf=False) -> int:
     """Run the layer kernel for layers ``0..len(outs)-1``, layer ``l``
     reading the previous output (``h0`` first) and writing ``outs[l]``.
-    Returns the number of launches."""
+    With ``node_feats`` layer 0 gathers its input ``node_feats[src] + h0``
+    (``h0`` is then the edge features); with ``node_out`` the last layer also
+    writes the masked scatter of its output there. ``dbuf`` runs the
+    double-buffered layer. Returns the number of launches."""
     B, E, d = h0.shape
-    lib, fn = _layer_fn()
-    _check_shape_for(lib.dense_mpnn_max_edges(), lib.dense_mpnn_cols(), E, d)
-    _check_aligned(edge_hiddens=h0, weights=weights, **{f"output {i}": o for i, o in enumerate(outs)})
+    ends = node_feats if node_feats is not None else node_out
+    V = 1 if ends is None else ends.shape[1]
+    lib, layer_fn, dbuf_fn = _layer_fns()
+    _check_shape_for(lib.dense_mpnn_max_edges(), lib.dense_mpnn_max_nodes(), lib.dense_mpnn_cols(),
+                     E, V, d)
+    _check_aligned(edge_hiddens=h0, weights=weights, node_feats=node_feats,
+                   **{f"output {i}": o for i, o in enumerate(outs)})
+    last = len(outs) - 1
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
         h_in = h0
         for layer, h_out in enumerate(outs):
-            err = fn(
-                h_in.data_ptr(), h_out.data_ptr(), src.data_ptr(), dst.data_ptr(),
-                edge_mask.data_ptr(), weights[layer].data_ptr(), biases[layer].data_ptr(),
-                B, E, d, int(residual), int(mean), stream,
-            )
+            idx = (src.data_ptr(), dst.data_ptr(), edge_mask.data_ptr(),
+                   weights[layer].data_ptr(), biases[layer].data_ptr())
+            if dbuf:
+                err = dbuf_fn(h_in.data_ptr(), h_out.data_ptr(), *idx, B, E, d, int(residual),
+                              int(mean), stream)
+            else:
+                gather = layer == 0 and node_feats is not None
+                scatter = layer == last and node_out is not None
+                err = layer_fn(
+                    h_in.data_ptr(), h_out.data_ptr(), _ptr(node_feats), _ptr(node_out), *idx,
+                    B, V, E, d, int(residual), int(mean), int(gather), int(scatter), stream,
+                )
             if err != 0:
                 raise RuntimeError(
-                    f"dense_mpnn_layer launch failed: {lib.dense_mpnn_error_string(err).decode()}"
+                    f"dense_mpnn layer launch failed: {lib.dense_mpnn_error_string(err).decode()}"
                 )
             h_in = h_out
     return len(outs)
 
 
-def _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual, mean):
+def _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual, mean, *,
+                  node_feats=None, g_node=None):
     """The reverse sweep of ``csrc/dense_mpnn_bwd.cu``, last layer first;
-    ``hs[l - 1]`` is the input of layer ``l > 0``."""
+    ``hs[l - 1]`` is the input of layer ``l > 0``. Returns ``(g_h0, g_W,
+    g_b, g_nf)``.
+
+    The encoder's backward passes ``node_feats`` and ``g_node``: ``h0`` is
+    then the edge features, layer 0's input is ``node_feats[src] + h0``
+    (recomputed where it is read, and its gather's VJP is ``g_nf``), and the
+    last layer's cotangent is ``cotangent`` (the edge hiddens') plus the
+    scatter's VJP of ``g_node``. Otherwise ``g_nf`` is ``None``."""
     B, E, d = h0.shape
     depth = weights.shape[0]
+    encoder = node_feats is not None
+    V = node_feats.shape[1] if encoder else 1
     lib, fn = _sweep_fn()
-    _check_shape_for(lib.dense_mpnn_bwd_max_edges(), lib.dense_mpnn_bwd_cols(), E, d)
-    _check_aligned(edge_hiddens=h0, hs=hs, cotangent=cotangent, weights=weights)
+    _check_shape_for(lib.dense_mpnn_bwd_max_edges(), lib.dense_mpnn_bwd_max_nodes(),
+                     lib.dense_mpnn_bwd_cols(), E, V, d)
+    _check_aligned(edge_hiddens=h0, hs=hs, cotangent=cotangent, weights=weights,
+                   node_feats=node_feats, g_node=g_node)
     chunks = -(-B * E // lib.dense_mpnn_bwd_chunk_rows())
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -317,17 +456,25 @@ def _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual, mea
         g_W = torch.empty_like(weights)
         g_b = torch.empty(depth, d, dtype=torch.float32, device=h0.device)
         g_h0 = torch.empty_like(h0)
+        g_nf = torch.empty_like(node_feats) if encoder else None
+        # the prologue writes the last layer's full cotangent here
+        g_full = torch.empty_like(h0) if encoder else None
         # ping-pong so that layer 0 writes g_h0 and no layer writes its own input
         bufs = [g_h0, torch.empty_like(h0) if depth > 1 else g_h0]
-        g = cotangent
+        g = g_full if encoder else cotangent
         for layer in reversed(range(depth)):
             h_in = h0 if layer == 0 else hs[layer - 1]
             g_in = bufs[layer % 2]
+            prologue = encoder and layer == depth - 1
+            gather = encoder and layer == 0
             err = fn(
                 h_in.data_ptr(), g.data_ptr(), g_in.data_ptr(), g_mw.data_ptr(),
                 gw_part.data_ptr(), gb_part.data_ptr(), g_W[layer].data_ptr(),
                 g_b[layer].data_ptr(), src.data_ptr(), dst.data_ptr(), edge_mask.data_ptr(),
-                weights[layer].data_ptr(), B, E, d, int(residual), int(mean), stream,
+                weights[layer].data_ptr(), _ptr(node_feats),
+                _ptr(cotangent) if prologue else None, _ptr(g_node) if prologue else None,
+                _ptr(g_full), _ptr(g_nf), B, V, E, d, int(residual), int(mean),
+                int(prologue), int(gather), stream,
             )
             if err != 0:
                 raise RuntimeError(
@@ -335,7 +482,7 @@ def _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual, mea
                     f"{lib.dense_mpnn_bwd_error_string(err).decode()}"
                 )
             g = g_in
-    return g_h0, g_W, g_b
+    return g_h0, g_W, g_b, g_nf
 
 
 def fused_dense_mpnn_block(
@@ -457,7 +604,8 @@ def fused_dense_mpnn_block_bwd_stash(
             h0, hs, src, dst, edge_mask, weights, cotangent,
             depth=depth, residual=residual, reduce=reduce,
         )
-    grads = _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual, reduce == "mean")
+    grads = _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual,
+                          reduce == "mean")[:3]
     fused_dense_mpnn_block_bwd_stash.launches += 1
     return grads
 
@@ -499,15 +647,176 @@ def fused_dense_mpnn_block_bwd(
         _launch_layers(edge_hiddens, src, dst, edge_mask, weights, biases, list(hs), residual,
                        reduce == "mean")
     grads = _launch_sweep(edge_hiddens, hs, src, dst, edge_mask, weights, cotangent, residual,
-                          reduce == "mean")
+                          reduce == "mean")[:3]
     fused_dense_mpnn_block_bwd.launches += 1
     return grads
+
+
+def _check_nodes(node_feats: torch.Tensor, edge_feats: torch.Tensor, name: str = "node_feats") -> None:
+    if node_feats.dim() != 3:
+        raise ValueError(f"{name} must be [B, V, d], got {tuple(node_feats.shape)}")
+    B, V, d = node_feats.shape
+    if V < 1:
+        raise ValueError(f"{name} needs at least one node slot per bin")
+    _check_tensors({name: (node_feats, torch.float32, (edge_feats.shape[0], V, edge_feats.shape[2]))},
+                   edge_feats.device)
+
+
+def fused_dense_encoder_fwd(
+    node_feats: torch.Tensor,  # [B, V, d] f32
+    edge_feats: torch.Tensor,  # [B, E, d] f32
+    src: torch.Tensor,  # [B, E] int32
+    dst: torch.Tensor,  # [B, E] int32
+    edge_mask: torch.Tensor,  # [B, E] bool
+    weights: torch.Tensor,  # [depth, d, d] f32, [in, out]
+    biases: torch.Tensor,  # [depth, d] f32
+    *,
+    depth: int,
+    residual: bool = True,
+    reduce: str = "sum",
+    stash: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """The whole encoder, gather + block + masked scatter: returns
+    ``(node_hiddens [B, V, d], edge_hiddens [B, E, d], hs)``, ``hs`` the
+    ``[depth-1, B, E, d]`` stash of the layer inputs h1..h_{depth-1} when
+    ``stash`` and ``depth > 1`` (else ``None``), as in the JAX package.
+
+    On a CUDA device the layer kernel runs once per layer, the first launch
+    gathering ``node_feats[src] + edge_feats`` as it loads its input and the
+    last writing the scatter (one launch does both at depth 1);
+    ``fused_dense_encoder_fwd.launches`` counts them (``depth`` a call). CPU
+    tensors take :func:`dense_encoder_reference`.
+    """
+    _check(edge_feats, src, dst, edge_mask, weights, biases, depth, reduce)
+    _check_nodes(node_feats, edge_feats)
+    if not _on_card(edge_feats):
+        return dense_encoder_reference(
+            node_feats, edge_feats, src, dst, edge_mask, weights, biases,
+            depth=depth, residual=residual, reduce=reduce, stash=stash,
+        )
+    B, E, d = edge_feats.shape
+    node_hiddens = torch.empty_like(node_feats)
+    edge_hiddens = torch.empty_like(edge_feats)
+    hs = None
+    if stash and depth > 1:
+        hs = torch.empty(depth - 1, B, E, d, dtype=torch.float32, device=edge_feats.device)
+        outs = [*hs, edge_hiddens]
+    else:  # ping-pong so that the last layer writes edge_hiddens
+        bufs = [edge_hiddens, torch.empty_like(edge_feats) if depth > 1 else edge_hiddens]
+        outs = [bufs[(depth - 1 - layer) % 2] for layer in range(depth)]
+    fused_dense_encoder_fwd.launches += _launch_layers(
+        edge_feats, src, dst, edge_mask, weights, biases, outs, residual, reduce == "mean",
+        node_feats=node_feats, node_out=node_hiddens,
+    )
+    return node_hiddens, edge_hiddens, hs
+
+
+def fused_dense_encoder_bwd(
+    node_feats: torch.Tensor,  # [B, V, d]
+    edge_feats: torch.Tensor,  # [B, E, d]
+    hs: torch.Tensor | None,  # [depth-1, B, E, d] (None iff depth == 1)
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    edge_mask: torch.Tensor,
+    weights: torch.Tensor,
+    g_node: torch.Tensor,  # [B, V, d] cotangent of node_hiddens
+    g_edge: torch.Tensor,  # [B, E, d] cotangent of edge_hiddens, any value on any lane
+    *,
+    depth: int,
+    residual: bool = True,
+    reduce: str = "sum",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The encoder's backward from the stash of
+    :func:`fused_dense_encoder_fwd` (``h0`` recomputed): returns ``(g_nf,
+    g_ef, g_W, g_b)``, exact for any cotangent.
+
+    On a CUDA device one call runs the reverse sweep of
+    ``csrc/dense_mpnn_bwd.cu`` with the scatter's VJP folded into the last
+    layer's launches and the gather's into layer 0's, and adds one to
+    ``fused_dense_encoder_bwd.launches``. CPU tensors take
+    :func:`dense_encoder_bwd_reference`.
+    """
+    _check(edge_feats, src, dst, edge_mask, weights, None, depth, reduce)
+    _check_nodes(node_feats, edge_feats)
+    _check_nodes(g_node, edge_feats, "g_node")
+    _check_bwd(edge_feats, hs, g_edge, depth)
+    if not _on_card(edge_feats):
+        return dense_encoder_bwd_reference(
+            node_feats, edge_feats, hs, src, dst, edge_mask, weights, g_node, g_edge,
+            depth=depth, residual=residual, reduce=reduce,
+        )
+    g_ef, g_W, g_b, g_nf = _launch_sweep(
+        edge_feats, hs, src, dst, edge_mask, weights, g_edge, residual, reduce == "mean",
+        node_feats=node_feats, g_node=g_node,
+    )
+    fused_dense_encoder_bwd.launches += 1
+    return g_nf, g_ef, g_W, g_b
+
+
+def fused_dense_mpnn_block_dbuf(
+    edge_hiddens: torch.Tensor,
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    edge_mask: torch.Tensor,
+    weights: torch.Tensor,
+    biases: torch.Tensor,
+    *,
+    depth: int,
+    n_nodes: int,
+    residual: bool = True,
+    mols_per_tile: int = 8,
+    reduce: str = "sum",
+) -> torch.Tensor:
+    """:func:`fused_dense_mpnn_block`'s function with the double-buffered
+    layer kernel: each block's k-tiles of ``h`` and ``W`` go to shared
+    memory by ``cp.async`` in two stages, the next tile's copies in flight
+    during this tile's FMAs. Its FMAs run in row 1's order, so it gives row
+    1's bits.
+
+    The JAX function's contract is kept: the batch must split into an even
+    count of ``mols_per_tile``-bin tiles, ``mols_per_tile`` a multiple of 8,
+    else ``ValueError``; on the card a block holds one bin whatever the
+    tile. No module calls it, as in the JAX package.
+    ``fused_dense_mpnn_block_dbuf.launches`` counts its launches (``depth``
+    a call); CPU tensors take :func:`dense_mpnn_block_reference`.
+    """
+    B = edge_hiddens.shape[0]
+    tile = min(mols_per_tile, B)
+    if tile % 8 != 0 or B % (2 * tile) != 0:
+        raise ValueError(
+            f"dbuf kernel needs an even count of multiple-of-8 tiles (B={B}, tile={tile}); "
+            "use fused_dense_mpnn_block"
+        )
+    _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes)
+    if not _on_card(edge_hiddens):
+        return dense_mpnn_block_reference(
+            edge_hiddens, src, dst, edge_mask, weights, biases,
+            depth=depth, residual=residual, reduce=reduce,
+        )
+    out = torch.empty_like(edge_hiddens)
+    bufs = [out, torch.empty_like(edge_hiddens) if depth > 1 else out]
+    outs = [bufs[(depth - 1 - layer) % 2] for layer in range(depth)]
+    fused_dense_mpnn_block_dbuf.launches += _launch_layers(
+        edge_hiddens, src, dst, edge_mask, weights, biases, outs, residual, reduce == "mean",
+        dbuf=True,
+    )
+    return out
 
 
 fused_dense_mpnn_block.launches = 0
 fused_dense_mpnn_block_stash.launches = 0
 fused_dense_mpnn_block_bwd_stash.launches = 0
 fused_dense_mpnn_block_bwd.launches = 0
+fused_dense_encoder_fwd.launches = 0
+fused_dense_encoder_bwd.launches = 0
+fused_dense_mpnn_block_dbuf.launches = 0
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, and copied where its storage does not start 16-byte
+    aligned (the kernels read in 16-byte vectors)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 class FusedDenseMpnnBlockFn(torch.autograd.Function):
@@ -538,9 +847,7 @@ class FusedDenseMpnnBlockFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, cotangent):
         h0, src, dst, edge_mask, weights, biases, *stash = ctx.saved_tensors
-        g = cotangent.contiguous()
-        if g.data_ptr() % 16:
-            g = g.clone()
+        g = _aligned(cotangent)
         if ctx.backward == "stash":
             hs = stash[0] if stash else None
             g_h0, g_W, g_b = fused_dense_mpnn_block_bwd_stash(
@@ -551,3 +858,33 @@ class FusedDenseMpnnBlockFn(torch.autograd.Function):
                 h0, src, dst, edge_mask, weights, biases, g, **ctx.kw
             )
         return g_h0, None, None, None, g_W, g_b, None, None, None, None, None
+
+
+class FusedDenseEncoderFn(torch.autograd.Function):
+    """The whole encoder as an autograd node, ``(node_feats, edge_feats) ->
+    (node_hiddens, edge_hiddens)``, as ``fused_dense_encoder``'s custom VJP
+    in the JAX package: the forward is :func:`fused_dense_encoder_fwd` with
+    the stash, the backward :func:`fused_dense_encoder_bwd` (``h0``
+    recomputed, not stashed). An output that takes no gradient gives a zero
+    cotangent; the index arrays get no gradient."""
+
+    @staticmethod
+    def forward(ctx, node_feats, edge_feats, src, dst, edge_mask, weights, biases,
+                depth: int, residual: bool, reduce: str):
+        kw = dict(depth=depth, residual=residual, reduce=reduce)
+        node_hiddens, edge_hiddens, hs = fused_dense_encoder_fwd(
+            node_feats, edge_feats, src, dst, edge_mask, weights, biases, stash=True, **kw
+        )
+        ctx.kw = kw
+        ctx.save_for_backward(node_feats, edge_feats, src, dst, edge_mask, weights,
+                              *(() if hs is None else (hs,)))
+        return node_hiddens, edge_hiddens
+
+    @staticmethod
+    def backward(ctx, g_node, g_edge):
+        node_feats, edge_feats, src, dst, edge_mask, weights, *stash = ctx.saved_tensors
+        g_nf, g_ef, g_W, g_b = fused_dense_encoder_bwd(
+            node_feats, edge_feats, stash[0] if stash else None, src, dst, edge_mask, weights,
+            _aligned(g_node), _aligned(g_edge), **ctx.kw,
+        )
+        return g_nf, g_ef, None, None, None, g_W, g_b, None, None, None

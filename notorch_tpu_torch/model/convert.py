@@ -1,10 +1,30 @@
 """Carry weights between the JAX package and the port.
 
-The port keeps its own checkpoint format; these functions map a D-MPNN
-parameter tree of ``notorch_tpu.models.dmpnn.build_dmpnn`` (nested dicts of
-numpy arrays, as ``jax.device_get(state.params)`` returns) to the
-``state_dict`` of :func:`notorch_tpu_torch.models.dmpnn.build_dmpnn` and
-back. No JAX is needed: the tree is plain numpy.
+The port keeps its own checkpoint format; these functions map the parameter
+tree of a JAX ``Model`` (nested dicts of numpy arrays, as
+``jax.device_get(state.params)`` returns: one ``modules__<name>`` group per
+module that has parameters) to the ``state_dict`` of the port's
+:class:`~notorch_tpu_torch.model.composed.ComposedNetwork` with the same
+module names, and back. Each group is mapped by its kind, which its own keys
+tell apart. No JAX is needed: the tree is plain numpy.
+
+==================================================  ===================================
+JAX (``/``-joined path below ``modules__<name>``)    port key below ``<name>.``
+==================================================  ===================================
+embedding (:class:`DenseGraphEmbedding`):
+``node/embedding/embedding [n_atom_types, d]``       ``node.embedding.weight`` (same)
+``edge/embedding/embedding [n_bond_types, d]``       ``edge.embedding.weight`` (same)
+stacked layers (the dense blocks):
+``layer_i/update/kernel [d, d]``                     ``weight[i]`` ``[depth, d, d]``,
+                                                     stacked, kept ``[in, out]``
+``layer_i/update/bias [d]``                          ``bias[i]`` ``[depth, d]``
+dense layers (:class:`MLP`):
+``dense_i/kernel [in, out]``                         ``dense_i.weight [out, in]``
+                                                     (transposed for ``nn.Linear``)
+``dense_i/bias [out]``                               ``dense_i.bias``
+==================================================  ===================================
+
+Readouts have no parameters, and so no group.
 """
 
 from __future__ import annotations
@@ -14,6 +34,7 @@ import re
 import numpy as np
 import torch
 
+_GROUP = "modules__"
 _LAYER = re.compile(r"(layer|dense)_(\d+)$")
 
 
@@ -25,43 +46,42 @@ def _indexed(tree: dict, prefix: str) -> list:
     return [tree[f"{prefix}_{i}"] for i in idx]
 
 
+def _kind_of_keys(keys, name: str) -> str:
+    keys = set(keys)
+    if keys & {"node", "edge", "node.embedding.weight", "edge.embedding.weight"}:
+        return "embedding"
+    if keys & {"layer_0", "weight"}:
+        return "stacked"
+    if keys & {"dense_0", "dense_0.weight"}:
+        return "dense"
+    raise ValueError(f"module {name!r}: cannot tell the parameter layout of keys {sorted(keys)}")
+
+
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """JAX D-MPNN params -> the port's ``state_dict``.
-
-    ============================================  ===============================
-    JAX (``/``-joined path, shape)                 port key (shape)
-    ============================================  ===============================
-    ``modules__embed/node/embedding/embedding``    ``embed.node.embedding.weight``
-    ``[n_atom_types, d]``                          (same)
-    ``modules__embed/edge/embedding/embedding``    ``embed.edge.embedding.weight``
-    ``modules__mp/layer_i/update/kernel [d, d]``   ``mp.weight[i]`` ``[depth, d, d]``,
-                                                   stacked, kept ``[in, out]``
-    ``modules__mp/layer_i/update/bias [d]``        ``mp.bias[i]`` ``[depth, d]``
-    ``modules__ffn/dense_i/kernel [in, out]``      ``ffn.dense_i.weight [out, in]``
-                                                   (transposed for ``nn.Linear``)
-    ``modules__ffn/dense_i/bias [out]``            ``ffn.dense_i.bias``
-    ============================================  ===============================
-
-    The readout has no parameters.
-    """
-    unknown = set(tree) - {"modules__embed", "modules__mp", "modules__ffn"}
-    if unknown:
-        raise ValueError(f"unexpected parameter groups {sorted(unknown)}")
+    """JAX ``Model`` params -> the port's ``state_dict`` (see the module
+    docstring for the mapping)."""
+    bad = sorted(k for k in tree if not k.startswith(_GROUP))
+    if bad:
+        raise ValueError(f"unexpected parameter groups {bad}: expected {_GROUP}<name>")
+    groups = {k[len(_GROUP):]: v for k, v in tree.items()}
 
     def t(x) -> torch.Tensor:
         return torch.from_numpy(np.array(x, dtype=np.float32))
 
-    embed, mp, ffn = tree["modules__embed"], tree["modules__mp"], tree["modules__ffn"]
-    sd = {
-        f"embed.{part}.embedding.weight": t(embed[part]["embedding"]["embedding"])
-        for part in ("node", "edge")
-    }
-    layers = _indexed(mp, "layer")
-    sd["mp.weight"] = torch.stack([t(layer["update"]["kernel"]) for layer in layers])
-    sd["mp.bias"] = torch.stack([t(layer["update"]["bias"]) for layer in layers])
-    for i, dense in enumerate(_indexed(ffn, "dense")):
-        sd[f"ffn.dense_{i}.weight"] = t(dense["kernel"]).T.contiguous()
-        sd[f"ffn.dense_{i}.bias"] = t(dense["bias"])
+    sd = {}
+    for name, group in groups.items():
+        kind = _kind_of_keys(group, name)
+        if kind == "embedding":
+            for part in ("node", "edge"):
+                sd[f"{name}.{part}.embedding.weight"] = t(group[part]["embedding"]["embedding"])
+        elif kind == "stacked":
+            layers = _indexed(group, "layer")
+            sd[f"{name}.weight"] = torch.stack([t(layer["update"]["kernel"]) for layer in layers])
+            sd[f"{name}.bias"] = torch.stack([t(layer["update"]["bias"]) for layer in layers])
+        else:
+            for i, dense in enumerate(_indexed(group, "dense")):
+                sd[f"{name}.dense_{i}.weight"] = t(dense["kernel"]).T.contiguous()
+                sd[f"{name}.dense_{i}.bias"] = t(dense["bias"])
     return sd
 
 
@@ -72,18 +92,29 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
     def a(x: torch.Tensor) -> np.ndarray:
         return x.detach().cpu().numpy()
 
-    embed = {
-        part: {"embedding": {"embedding": a(state_dict[f"embed.{part}.embedding.weight"])}}
-        for part in ("node", "edge")
-    }
-    W, b = state_dict["mp.weight"], state_dict["mp.bias"]
-    mp = {f"layer_{i}": {"update": {"kernel": a(W[i]), "bias": a(b[i])}} for i in range(len(W))}
-    n_dense = sum(1 for k in state_dict if k.startswith("ffn.dense_") and k.endswith(".weight"))
-    ffn = {
-        f"dense_{i}": {
-            "kernel": a(state_dict[f"ffn.dense_{i}.weight"]).T.copy(),
-            "bias": a(state_dict[f"ffn.dense_{i}.bias"]),
-        }
-        for i in range(n_dense)
-    }
-    return {"modules__embed": embed, "modules__mp": mp, "modules__ffn": ffn}
+    names: dict[str, list[str]] = {}
+    for key in state_dict:
+        name, _, rest = key.partition(".")
+        names.setdefault(name, []).append(rest)
+    tree = {}
+    for name, keys in names.items():
+        kind = _kind_of_keys(keys, name)
+        if kind == "embedding":
+            group = {
+                part: {"embedding": {"embedding": a(state_dict[f"{name}.{part}.embedding.weight"])}}
+                for part in ("node", "edge")
+            }
+        elif kind == "stacked":
+            W, b = state_dict[f"{name}.weight"], state_dict[f"{name}.bias"]
+            group = {f"layer_{i}": {"update": {"kernel": a(W[i]), "bias": a(b[i])}} for i in range(len(W))}
+        else:
+            n_dense = sum(1 for k in keys if _LAYER.match(k.split(".")[0]) and k.endswith(".weight"))
+            group = {
+                f"dense_{i}": {
+                    "kernel": a(state_dict[f"{name}.dense_{i}.weight"]).T.copy(),
+                    "bias": a(state_dict[f"{name}.dense_{i}.bias"]),
+                }
+                for i in range(n_dense)
+            }
+        tree[f"{_GROUP}{name}"] = group
+    return tree

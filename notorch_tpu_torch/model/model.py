@@ -38,7 +38,8 @@ def fill_pred_transform_keys(transforms: Mapping | None, pred_key: str):
 
 
 class Model:
-    """``modules``: ``{name: {"module", "in_keys", "out_keys"}}``;
+    """``modules``: ``{name: {"module", "in_keys", "out_keys"}}``, any
+    names, run in the order of their key-space dependencies;
     ``transforms``: ``{name: {"preds": {"module", "key"}, "targets": ...}}``;
     ``losses``/``metrics``: ``{name: {"fn", "in_keys", "weight"}}``;
     ``optimizer``: an :class:`~notorch_tpu_torch.training.optim.
@@ -54,6 +55,7 @@ class Model:
         optimizer: OptimizerSpec | None = None,
     ):
         self.network: ComposedNetwork = make_network(modules)
+        self.declared = list(modules)  # names as the config declares them
         self.losses = dict(losses or {})
         self.metrics = dict(metrics or {})
         self.transforms = dict(transforms or {})
@@ -76,9 +78,10 @@ class Model:
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         """Draw every parameter from ``generator``, module by module in
-        execution order (flax's initializer families; see
+        declaration order (flax's initializer families; see
         :mod:`notorch_tpu_torch.nn.init`)."""
-        for module in self.network.values():
+        for name in self.declared:
+            module = self.network[name]
             if hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
 

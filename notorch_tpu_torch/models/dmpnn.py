@@ -1,7 +1,8 @@
 """The D-MPNN property predictor: embed -> message passing -> readout -> FFN.
 
 Port of ``notorch_tpu.models.dmpnn`` for regression on the bin-packed dense
-layout, the layout ``layout="auto"`` resolves to by default. The block is
+layout, the layout ``layout="auto"`` resolves to by default, and on the
+per-molecule ``dense_fused`` layout. The block is
 :class:`~notorch_tpu_torch.nn.chemprop_dense.FusedDenseChempropBlock` for
 ``reduce`` sum and mean, as in the JAX package; the loss is the masked MSE
 and the default metrics RMSE and MAE, on the same keys as there. Other
@@ -17,6 +18,9 @@ from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.model.model import Model, fill_pred_transform_keys
 from notorch_tpu_torch.nn.chemprop_dense import (
     DenseGraphEmbedding,
+    DenseMax,
+    DenseMean,
+    DenseSum,
     FusedDenseChempropBlock,
     PackedMean,
 )
@@ -27,6 +31,9 @@ from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
 
 AGGREGATIONS = ("sum", "mean", "max", "gated", "sdp")
+LAYOUTS = ("dense_packed", "dense_fused")
+# the per-molecule readouts the port has (gated and sdp come later)
+DENSE_READOUTS = {"sum": DenseSum, "mean": DenseMean, "max": DenseMax}
 REDUCES = ("sum", "mean", "max")
 
 
@@ -86,20 +93,39 @@ def build_dmpnn(
     the JAX package's, the loss ``mse`` and the metrics ``rmse`` and ``mae``
     on ``targets.y`` and its mask. Parameters are drawn from ``generator``
     with flax's initializer families; the model is built on the CPU
-    (``Model.to`` moves it). ``optimizer`` defaults to Adam at 1e-4."""
+    (``Model.to`` moves it). ``optimizer`` defaults to Adam at 1e-4.
+
+    ``layout="dense_fused"`` is the fused block (``fuse_ends`` off) with a
+    per-molecule readout, on the per-molecule ``dense`` collate, as in the
+    JAX package."""
     layout = resolve_layout(
         layout, dropout=dropout, dtype=dtype, graph_axis=graph_axis,
         remat=remat, impl=impl, aggregation=aggregation, reduce=reduce,
     )
-    if layout != "dense_packed":
+    if layout not in LAYOUTS:
         raise NotImplementedError(
-            f"layout {layout!r} is not ported yet; the port serves 'dense_packed' "
-            "(the 'dense' and 'flat' layouts come with later slices)"
+            f"layout {layout!r} is not ported yet; the port has {list(LAYOUTS)} "
+            "(the plain 'dense' block and the 'flat' layout come with later slices)"
         )
+    if layout == "dense_fused":
+        if dropout and dropout > 0.0:
+            raise ValueError(
+                "the fused block does not support edge dropout; use layout='dense' "
+                "(or layout='auto', which selects it)"
+            )
+        if reduce == "max":
+            raise ValueError(
+                "the fused block implements reduce='sum' and 'mean' (both fold into its "
+                "linear edge operator); use layout='dense'/'dense_packed' for max"
+            )
     if task != "regression":
         raise NotImplementedError(f"task {task!r} is not ported yet; only regression is")
-    if aggregation != "mean":
-        raise NotImplementedError(f"aggregation {aggregation!r} is not ported yet; only mean is")
+    readouts = DENSE_READOUTS if layout == "dense_fused" else {"mean": PackedMean}
+    if aggregation not in readouts:
+        raise NotImplementedError(
+            f"aggregation {aggregation!r} on layout {layout!r} is not ported yet; "
+            f"the port has {list(readouts)}"
+        )
     if reduce == "max":
         raise NotImplementedError("reduce='max' (the plain dense block) is not ported yet")
 
@@ -118,7 +144,7 @@ def build_dmpnn(
             "in_keys": ["embed.G"],
             "out_keys": ["G"],
         },
-        "readout": {"module": PackedMean(), "in_keys": ["mp.G"], "out_keys": ["H"]},
+        "readout": {"module": readouts[aggregation](), "in_keys": ["mp.G"], "out_keys": ["H"]},
         "ffn": {
             "module": MLP(
                 input_dim=hidden_dim, output_size=num_tasks, hidden_dim=hidden_dim,

@@ -2,7 +2,8 @@
 
 Port of ``notorch_tpu.nn.chemprop_dense``: the graph embedding, the plain
 block (the oracle of the fused one), the block backed by the hand-written
-kernels (forward and backward), and the mean readouts.
+kernels (forward and backward, block alone or the whole encoder), and the
+sum, mean and max readouts.
 
 Both blocks keep the per-layer weights stacked, as the kernel consumes
 them: ``weight`` ``[depth, d, d]`` in the JAX ``[in, out]`` layout and
@@ -17,11 +18,15 @@ from torch import nn
 
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.data.dense import DenseBatchedGraph, rev_pair_swap
-from notorch_tpu_torch.kernels.dense_mpnn import FusedDenseMpnnBlockFn, fused_dense_mpnn_block
+from notorch_tpu_torch.kernels.dense_mpnn import (
+    FusedDenseEncoderFn,
+    FusedDenseMpnnBlockFn,
+    fused_dense_encoder_fwd,
+    fused_dense_mpnn_block,
+)
 from notorch_tpu_torch.nn.embed import EmbeddingBagSum
 from notorch_tpu_torch.nn.init import lecun_normal_
 
-_NEXT_SLICE = "the next slice of the port, with the fused encoder (kernel rows 5-6)"
 _LATER_SLICE = "a later slice of the port (ROADMAP.md queue A)"
 
 
@@ -99,17 +104,25 @@ class FusedDenseChempropBlock(_StackedLayers):
     """D-MPNN block backed by the hand-written kernels
     (:mod:`notorch_tpu_torch.kernels.dense_mpnn`), trainable.
 
-    The ``h0 = G @ node_feats + edge_feats`` gather and the final E->V
-    scatter stay plain tensor ops around the kernels, as they lie outside
-    the Pallas kernels in the JAX package, so autograd carries gradients
-    through them to the embeddings. Under ``torch.no_grad()`` or
-    ``inference_mode()`` (or with no parameter or input that needs a
-    gradient) the block runs the forward kernel alone; otherwise it runs
+    With ``fuse_ends=False`` the ``h0 = G @ node_feats + edge_feats``
+    gather and the final E->V scatter stay plain tensor ops around the
+    kernels, as they lie outside the Pallas kernels in the JAX package, so
+    autograd carries gradients through them to the embeddings. Under
+    ``torch.no_grad()`` or ``inference_mode()`` (or with no parameter or
+    input that needs a gradient) the block runs the forward kernel alone;
+    otherwise it runs
     :class:`~notorch_tpu_torch.kernels.dense_mpnn.FusedDenseMpnnBlockFn`:
 
     - ``backward="stash"`` (the default, as in the JAX block): the forward
       stashes h1..h_{depth-1} and the backward reads them back;
     - ``backward="recompute"``: the backward replays the forward from h0.
+
+    With ``fuse_ends=True`` (the JAX package's whole-encoder kernel; only
+    with ``backward="stash"``) the gather and the scatter run inside the
+    kernels too: :func:`~notorch_tpu_torch.kernels.dense_mpnn.
+    fused_dense_encoder_fwd` without autograd, else
+    :class:`~notorch_tpu_torch.kernels.dense_mpnn.FusedDenseEncoderFn`,
+    whose backward gives the gradients of both feature inputs.
 
     Padded-lane contract: the kernels fold the reverse-message subtraction
     into their operator, so ``edge_feats`` on PADDED edge lanes differ from
@@ -117,8 +130,8 @@ class FusedDenseChempropBlock(_StackedLayers):
     and the scatter gives the backward a cotangent that is zero on padded
     lanes, which makes its gradients those of the unfolded block.
 
-    ``matmul_dtype``, ``stash_dtype`` and ``fuse_ends`` are the JAX block's
-    options; only their f32 defaults are ported.
+    ``matmul_dtype`` and ``stash_dtype`` are the JAX block's options; only
+    their f32 defaults are ported.
     """
 
     def __init__(
@@ -154,20 +167,27 @@ class FusedDenseChempropBlock(_StackedLayers):
                 f"stash_dtype={stash_dtype!r}: the stash is f32; a bf16 stash needs a cast "
                 f"output of the layer kernel and comes with {_LATER_SLICE}"
             )
-        if fuse_ends:
-            raise NotImplementedError(f"fuse_ends=True is not ported yet: it comes with {_NEXT_SLICE}")
+        if fuse_ends and backward != "stash":
+            raise ValueError("fuse_ends requires backward='stash'")
         super().__init__(hidden_dim, depth)
         self.residual = residual
         self.reduce = reduce
         self.backward = backward
+        self.fuse_ends = fuse_ends
+
+    def _needs_grad(self, *inputs: torch.Tensor) -> bool:
+        return torch.is_grad_enabled() and any(
+            t.requires_grad for t in (*inputs, self.weight, self.bias)
+        )
 
     def forward(self, G: DenseBatchedGraph) -> DenseBatchedGraph:
+        if self.fuse_ends:
+            return self._encoder(G)
         B, V, d = G.node_feats.shape
         src = G.src.long()[..., None].expand(-1, -1, d)
         h0 = (torch.gather(G.node_feats, 1, src) + G.edge_feats).contiguous()
         args = (h0, G.src, G.dst, G.edge_mask, self.weight, self.bias)
-        needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in (h0, self.weight, self.bias))
-        if needs_grad:
+        if self._needs_grad(h0):
             edge_hiddens = FusedDenseMpnnBlockFn.apply(
                 *args, self.depth, V, self.residual, self.reduce, self.backward
             )
@@ -180,6 +200,19 @@ class FusedDenseChempropBlock(_StackedLayers):
         node_hiddens = nodes[: B * V].reshape(B, V, d)
         if self.reduce == "mean":
             node_hiddens = node_hiddens / _mean_scale(G, node_hiddens)
+        return G.update(node_feats=node_hiddens, edge_feats=edge_hiddens)
+
+    def _encoder(self, G: DenseBatchedGraph) -> DenseBatchedGraph:
+        nf, ef = G.node_feats.contiguous(), G.edge_feats.contiguous()
+        args = (nf, ef, G.src, G.dst, G.edge_mask, self.weight, self.bias)
+        if self._needs_grad(nf, ef):
+            node_hiddens, edge_hiddens = FusedDenseEncoderFn.apply(
+                *args, self.depth, self.residual, self.reduce
+            )
+        else:
+            node_hiddens, edge_hiddens, _ = fused_dense_encoder_fwd(
+                *args, depth=self.depth, residual=self.residual, reduce=self.reduce
+            )
         return G.update(node_feats=node_hiddens, edge_feats=edge_hiddens)
 
 
@@ -199,6 +232,14 @@ class DenseGraphEmbedding(nn.Module):
         return G.update(node_feats=self.node(G.node_feats), edge_feats=self.edge(G.edge_feats))
 
 
+class DenseSum(nn.Module):
+    """Per-graph masked sum over the node axis: [B, V, d] -> [B, d]."""
+
+    def forward(self, G: DenseBatchedGraph) -> torch.Tensor:
+        mask = G.node_mask[..., None].to(G.node_feats.dtype)
+        return (G.node_feats * mask).sum(dim=1)
+
+
 class DenseMean(nn.Module):
     """Per-graph masked mean over the node axis: [B, V, d] -> [B, d]."""
 
@@ -206,6 +247,16 @@ class DenseMean(nn.Module):
         mask = G.node_mask[..., None].to(G.node_feats.dtype)
         total = (G.node_feats * mask).sum(dim=1)
         return total / mask.sum(dim=1).clamp_min(1.0)
+
+
+class DenseMax(nn.Module):
+    """Per-graph masked max over the node axis: [B, V, d] -> [B, d]; a graph
+    with no real node reads 0."""
+
+    def forward(self, G: DenseBatchedGraph) -> torch.Tensor:
+        neg = torch.where(G.node_mask[..., None], G.node_feats, float("-inf"))
+        out = neg.amax(dim=1)
+        return torch.where(torch.isfinite(out), out, 0.0)
 
 
 class PackedMean(nn.Module):

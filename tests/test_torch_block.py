@@ -69,8 +69,8 @@ def test_fused_block_refuses_unported_options_and_autograd():
         FusedDenseChempropBlock(hidden_dim=D, matmul_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="later slice"):
         FusedDenseChempropBlock(hidden_dim=D, stash_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="rows 5-6"):
-        FusedDenseChempropBlock(hidden_dim=D, fuse_ends=True)
+    with pytest.raises(ValueError, match="fuse_ends requires backward='stash'"):
+        FusedDenseChempropBlock(hidden_dim=D, fuse_ends=True, backward="recompute")
     with pytest.raises(NotImplementedError, match="debug path"):
         FusedDenseChempropBlock(hidden_dim=D, backward="jnp")
     with pytest.raises(ValueError, match="backward"):

@@ -122,3 +122,27 @@ def test_wrapper_rejects_unknown_reduce():
             t["h0"], t["src"], t["dst"], t["edge_mask"], t["W"], t["b"],
             depth=3, n_nodes=t["n_nodes"], reduce="max",
         )
+
+
+def test_library_hash_covers_sources_headers_and_flags(tmp_path, monkeypatch):
+    """A library's name changes with its source, with a header beside it
+    and with the flags, so a stale build is never loaded; other sources do
+    not change it. No nvcc is needed to name a library."""
+    from notorch_tpu_torch.kernels import build
+
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "b.cu").write_text("// other\n")
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    first = build.library_path("a")
+    assert first == build.library_path("a") and first.name.startswith("liba-")
+    (tmp_path / "b.cu").write_text("// other, edited\n")
+    assert build.library_path("a") == first
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    second = build.library_path("a")
+    assert second != first
+    (tmp_path / "a.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert build.library_path("a") not in (first, second)
+    monkeypatch.setattr(build, "NVCC_FLAGS", (*build.NVCC_FLAGS, "-lineinfo"))
+    assert build.library_path("a") not in (first, second)
+    assert build.sources() == ["a", "b"]
