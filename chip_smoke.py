@@ -20,7 +20,18 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
 - serve declarative: ``run_predict`` of that run's checkpoint, 512
   molecules, card against CPU;
 - dbuf: the double-buffered block forward, which no module calls, in a
-  phase of its own.
+  phase of its own;
+- flat kernels: the two CSR segment sums against their plain versions at
+  the first flat lipo batch and at a random case with empty and over-full
+  nodes, the packed sum twice, bit for bit; the row-pointer sum, which no
+  module calls, on the dst-sorted copy of each flat batch in a phase of its
+  own;
+- train flat: ``run(cfg)`` of the same config with ``model.impl: csr`` (the
+  flat layout, every E->V reduce through the packed kernel) on the card
+  against the CPU, and ``run_predict`` of its checkpoint, 512 molecules;
+- train/serve declarative flat: the model of
+  ``configs/declarative_example.yaml`` (hidden 128, the gather block, the
+  gated readout) for one epoch, card against CPU, and its checkpoint served.
 
 Every kernel is held against its plain PyTorch version on the card at the
 shapes these paths give it, each path's launch counts are read, and the
@@ -47,7 +58,14 @@ from notorch_tpu_torch.cli.predict import run_predict
 from notorch_tpu_torch.cli.train import build_dataset, prepare, run, save_predict_meta
 from notorch_tpu_torch.data.batching import DataLoader
 from notorch_tpu_torch.data.dense import pack_graphs_dense
+from notorch_tpu_torch.data.graph import csr_row_ptr, pack_edges_by_tile, sort_edges_by_dst
 from notorch_tpu_torch.kernels import build
+from notorch_tpu_torch.kernels.csr_segment import (
+    csr_segment_sum,
+    csr_segment_sum_packed,
+    csr_segment_sum_packed_reference,
+    csr_segment_sum_reference,
+)
 from notorch_tpu_torch.kernels.dense_mpnn import (
     dense_encoder_bwd_reference,
     dense_encoder_reference,
@@ -91,7 +109,13 @@ TRAIN_RTOL = 1e-3
 # and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the segment sums against their plain versions: one f32 add per term, in
+# another order on each side (the plain version's atomics on the card), so an
+# element's rounding follows the sum of its terms' magnitudes: atol is
+# SUM_ATOL times that sum (a sink or over-full node sums thousands of terms)
+SUM_ATOL = 1e-5
 TPU_KERNELS = "notorch_tpu/kernels/dense_mpnn.py"
+TPU_CSR = "notorch_tpu/kernels/csr_segment.py"
 KERNELS = {  # wrapper -> (source, the TPU kernel's entry it replaces)
     fused_dense_mpnn_block: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:749"),
     fused_dense_mpnn_block_stash: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:436"),
@@ -100,6 +124,8 @@ KERNELS = {  # wrapper -> (source, the TPU kernel's entry it replaces)
     fused_dense_encoder_fwd: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:999"),
     fused_dense_encoder_bwd: ("notorch_tpu_torch/csrc/dense_mpnn_bwd.cu", f"{TPU_KERNELS}:1058"),
     fused_dense_mpnn_block_dbuf: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:1272"),
+    csr_segment_sum: ("notorch_tpu_torch/csrc/csr_segment.cu", f"{TPU_CSR}:245"),
+    csr_segment_sum_packed: ("notorch_tpu_torch/csrc/csr_segment.cu", f"{TPU_CSR}:179"),
 }
 
 
@@ -127,6 +153,29 @@ def declarative_model_cfg(d: int = 256, depth: int = 3) -> dict:
         "losses": {"mse": {"class": "MSE", "in_keys": dict(keys)}},
         "metrics": {"rmse": {"class": "RMSE", "in_keys": dict(keys)},
                     "mae": {"class": "MetricMAE", "in_keys": dict(keys)}},
+    }
+
+
+def declarative_flat_model_cfg(d: int = 128) -> dict:
+    """The model section of configs/declarative_example.yaml (written out:
+    the card's machine may lack a YAML parser): GraphEmbedding ->
+    ChempropBlock (the default gather impl) -> Gated -> MLP on the flat
+    layout, the MSE loss and the RMSE metric."""
+    keys = {"preds": "ffn.preds", "targets": "targets.y", "mask": "targets.y_mask"}
+    return {
+        "pred_key": "ffn.preds",
+        "modules": {
+            "embed": {"class": "GraphEmbedding", "args": {"hidden_dim": d},
+                      "in_keys": ["inputs.G"], "out_keys": ["G"]},
+            "mp": {"class": "ChempropBlock", "args": {"hidden_dim": d, "depth": 3, "residual": True},
+                   "in_keys": ["embed.G"], "out_keys": ["G"]},
+            "readout": {"class": "Gated", "args": {"input_dim": d}, "in_keys": ["mp.G"], "out_keys": ["H"]},
+            "ffn": {"class": "MLP",
+                    "args": {"input_dim": d, "output_size": 1, "hidden_dim": d, "num_layers": 1},
+                    "in_keys": ["readout.H"], "out_keys": ["preds"]},
+        },
+        "losses": {"mse": {"class": "MSE", "in_keys": dict(keys), "weight": 1.0}},
+        "metrics": {"rmse": {"class": "RMSE", "in_keys": dict(keys)}},
     }
 
 
@@ -450,16 +499,16 @@ def serve_phase(tmp: Path, ds, csv_path: Path, n_batches: int) -> int:
     return counts["fused_dense_mpnn_block"]
 
 
-def compare_runs(card: dict, cpu: dict, what: str) -> dict[str, float]:
+def compare_runs(card: dict, cpu: dict, what: str, epochs: int = TRAIN_EPOCHS) -> dict[str, float]:
     """Relative differences of the per-epoch loss and metrics and the test
     metrics of two ``run`` results; fails beyond TRAIN_RTOL."""
-    if len(card["history"]) != TRAIN_EPOCHS or len(cpu["history"]) != TRAIN_EPOCHS:
-        fail(f"{what}: expected {TRAIN_EPOCHS} epochs, got {len(card['history'])} and {len(cpu['history'])}")
+    if len(card["history"]) != epochs or len(cpu["history"]) != epochs:
+        fail(f"{what}: expected {epochs} epochs, got {len(card['history'])} and {len(cpu['history'])}")
     diffs = {}
     for epoch, (a, b) in enumerate(zip(card["history"], cpu["history"])):
-        for key in ("train/loss", "val/rmse", "val/mae"):
+        for key in sorted(k for k in b if k.startswith(("train/", "val/"))):
             diffs[f"epoch{epoch}/{key}"] = rel_diff(a[key], b[key])
-    for key in ("val/rmse", "val/mae"):
+    for key in sorted(cpu["test"]):
         diffs[f"test/{key}"] = rel_diff(card["test"][key], cpu["test"][key])
     worst = max(diffs.values())
     if not worst <= TRAIN_RTOL:
@@ -653,13 +702,211 @@ def dbuf_phase(inputs: list[tuple[list[torch.Tensor], int]]) -> tuple[int, float
     return count, max(c["max_abs_err"] for c in cases), cases
 
 
+def held_sum(what: str, got: torch.Tensor, plain, data: torch.Tensor, *index) -> tuple[float, bool]:
+    """Fail unless a segment sum ``got`` is finite and within SUM_ATOL times
+    each element's sum of |terms| of ``plain(data, *index)`` on the card
+    (``plain`` run on |data| gives those sums). Returns the largest absolute
+    error and whether ``got`` has the bits of the plain version on the CPU,
+    which adds each row's terms in the kernel's order."""
+    ref, mass = plain(data, *index), plain(data.abs(), *index)
+    err = (got - ref).abs()
+    if not (torch.isfinite(got).all() and (err <= SUM_ATOL * mass).all()):
+        fail(f"{what} disagrees with its plain version: max abs err {float(err.max())}")
+    on_cpu = plain(data.cpu(), *(i.cpu() if isinstance(i, torch.Tensor) else i for i in index))
+    return float(err.max()), bool(torch.equal(got.cpu(), on_cpu))
+
+
+def flat_inputs(G, d: int, seed: int) -> dict[str, torch.Tensor]:
+    """Seeded messages on every edge lane of a packed flat batch, with its
+    packing and its dst-sorted copy (messages permuted along), on the card."""
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((G.num_edges, d)).astype(np.float32)
+    sorted_G, perm = sort_edges_by_dst(G)
+    arrays = {"data": data, "perm": G.csr_perm, "packed_dst": G.csr_dst, "dst": G.dst,
+              "edge_mask": G.edge_mask, "sorted_data": data[perm], "sorted_dst": sorted_G.dst,
+              "row_ptr": csr_row_ptr(sorted_G.dst, G.num_nodes)}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in arrays.items()}
+
+
+def random_flat_inputs(d: int, seed: int, V: int = 2048, E: int = 4096) -> dict[str, torch.Tensor]:
+    """Random ids over V nodes: a third of the nodes empty, node 5 with 600
+    in-edges (over-full for a 128-node tile's usual budget), in random
+    order for the packed sum and sorted for the row-pointer sum."""
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(np.arange(V)[np.arange(V) % 3 != 0], size=E - 600)
+    dst = rng.permutation(np.concatenate([ids, np.full(600, 5)])).astype(np.int32)
+    perm, packed_dst, _ = pack_edges_by_tile(dst, num_nodes=V)
+    data = rng.standard_normal((E, d)).astype(np.float32)
+    order = np.argsort(dst, kind="stable")
+    arrays = {"data": data, "perm": perm, "packed_dst": packed_dst, "dst": dst,
+              "edge_mask": np.ones(E, bool), "sorted_data": data[order], "sorted_dst": dst[order],
+              "row_ptr": csr_row_ptr(dst[order], V)}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda() for k, v in arrays.items()}
+
+
+def flat_kernels_phase(cases: dict[str, dict]) -> tuple[float, float, list[dict]]:
+    """Rows 8-9 against their plain versions on each case (launches made
+    here do not count for any path); row 9 twice, bit for bit. Returns the
+    largest errors of rows 8 and 9 and the cases."""
+    records = []
+    for name, x in cases.items():
+        V = x["row_ptr"].shape[0] - 1
+        packed = csr_segment_sum_packed(x["data"], x["perm"], x["packed_dst"], V)
+        again = csr_segment_sum_packed(x["data"], x["perm"], x["packed_dst"], V)
+        rowptr = csr_segment_sum(x["sorted_data"], x["sorted_dst"], x["row_ptr"], V)
+        torch.cuda.synchronize()
+        if not torch.equal(packed, again):
+            fail(f"two calls of the packed segment sum differ ({name})")
+        err9, bits9 = held_sum(f"csr_segment_sum_packed ({name})", packed, csr_segment_sum_packed_reference,
+                               x["data"], x["perm"], x["packed_dst"], V)
+        err8, bits8 = held_sum(f"csr_segment_sum ({name})", rowptr, csr_segment_sum_reference,
+                               x["sorted_data"], x["row_ptr"], V)
+        counts = torch.diff(x["row_ptr"])
+        records.append({"case": name, "V": V, "E": x["data"].shape[0], "d": x["data"].shape[1],
+                        "real_edges": int(x["edge_mask"].sum()), "empty_nodes": int((counts == 0).sum()),
+                        "max_in_degree": int(counts.max()), "budget": x["perm"].shape[0] // (V // 128),
+                        "max_abs_err": {"csr_segment_sum": err8, "csr_segment_sum_packed": err9},
+                        "equal_bits_to_cpu_plain": {"csr_segment_sum": bits8, "csr_segment_sum_packed": bits9},
+                        "packed_bitwise_repeatable": True})
+    return (max(r["max_abs_err"]["csr_segment_sum"] for r in records),
+            max(r["max_abs_err"]["csr_segment_sum_packed"] for r in records), records)
+
+
+def rowptr_phase(batches: list[dict], d: int) -> tuple[int, float]:
+    """Row 8, which no module calls, on the dst-sorted copy of each flat
+    batch (the E->V reduce as sort_edges_by_dst and csr_row_ptr feed it),
+    seeded messages; then held against its plain version (those calls do not
+    count). Returns its launches and largest error."""
+    inputs = [flat_inputs(b["inputs.G"], d, SEED + 20 + i) for i, b in enumerate(batches)]
+    reset_launches()
+    outs = [csr_segment_sum(x["sorted_data"], x["sorted_dst"], x["row_ptr"], x["row_ptr"].shape[0] - 1)
+            for x in inputs]
+    torch.cuda.synchronize()
+    count = launches()["csr_segment_sum"]
+    if count != len(batches) or sum(launches().values()) != count:
+        fail(f"the row-pointer phase launched {launches()}; expected csr_segment_sum {len(batches)} times")
+    err = max(held_sum("csr_segment_sum (flat batch)", out, csr_segment_sum_reference, x["sorted_data"],
+                       x["row_ptr"], x["row_ptr"].shape[0] - 1)[0] for out, x in zip(outs, inputs))
+    return count, err
+
+
+def train_flat_phase(tmp: Path) -> tuple[dict[str, int], Path]:
+    """run(cfg) with model.impl: csr (the flat layout) on the card and on the
+    CPU, compared epoch by epoch; every E->V reduce of the card's run goes
+    through row 9. Returns the card run's launches and checkpoint."""
+    depth = MODEL_CFG["depth"]
+    csv_path = lipo_csv(tmp, TRAIN_MOLS)
+    card_ckpt = tmp / "flat_card"
+    model = {**MODEL_CFG, "impl": "csr"}
+    reset_launches()
+    t0 = time.perf_counter()
+    card = run(train_config(csv_path, card_ckpt, model))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launches()
+    steps = Checkpointer(card_ckpt).latest_step()
+    if not steps:
+        fail(f"the flat run wrote no checkpoint in {card_ckpt}")
+    # (depth + 1) reduces a forward: each training step and each evaluated batch
+    packed = counts["csr_segment_sum_packed"]
+    others = {k: v for k, v in counts.items() if k != "csr_segment_sum_packed"}
+    if packed <= (depth + 1) * steps or packed % (depth + 1) or any(others.values()):
+        fail(f"the flat run of {steps} steps launched {counts}; expected the packed sum {depth + 1} "
+             "times a step and an evaluated batch, and nothing else")
+    t0 = time.perf_counter()
+    cpu = run(train_config(csv_path, tmp / "flat_cpu", model), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diffs = compare_runs(card, cpu, "flat run")
+    emit(phase="train_flat", molecules=TRAIN_MOLS, epochs=TRAIN_EPOCHS, steps=steps, kernel_launches=counts,
+         run_s_card=card_s, run_s_cpu=cpu_s,
+         warm_epoch_ms_per_step=card["history"][-1]["time"] * 1e3 / (steps // TRAIN_EPOCHS),
+         history_card=card["history"], history_cpu=cpu["history"], test_card=card["test"],
+         test_cpu=cpu["test"], rel_diff_vs_cpu=diffs, rel_tol=TRAIN_RTOL)
+    return counts, card_ckpt
+
+
+def serve_flat_phase(tmp: Path, ckpt: Path, phase: str, expect: dict[str, int]) -> dict[str, int]:
+    """run_predict of a flat checkpoint on N_MOLS molecules, on the card
+    against the CPU; cold and warm request time and the busy share of a warm
+    request. Fails unless the request launched exactly ``expect`` (every
+    other kernel 0). Returns the request's launches."""
+    csv_path = lipo_csv(tmp, N_MOLS)
+    reset_launches()
+    t0 = time.perf_counter()
+    gpu = run_predict(ckpt, csv_path, batch_size=BATCH)["lipo"]
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    counts = launches()
+    if counts != {**{fn.__name__: 0 for fn in KERNELS}, **expect}:
+        fail(f"{phase}: the request launched {counts}; expected {expect} and nothing else")
+    t0 = time.perf_counter()
+    run_predict(ckpt, csv_path, batch_size=BATCH)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    profiled = profile_busy(lambda: run_predict(ckpt, csv_path, batch_size=BATCH))
+    cpu = run_predict(ckpt, csv_path, batch_size=BATCH, device="cpu")["lipo"]
+    err = np.abs(gpu - cpu)
+    ok = gpu.shape == (N_MOLS,) and bool(np.isfinite(gpu).all()) and bool((err <= ATOL + RTOL * np.abs(cpu)).all())
+    emit(phase=phase, molecules=N_MOLS, kernel_launches=counts, request_s_cold=cold_s,
+         request_s_warm=warm_s, profile=profiled, max_abs_err_vs_cpu=float(err.max()),
+         pred_mean=float(gpu.mean()), pred_std=float(gpu.std()), ok=ok)
+    if not ok:
+        fail(f"{phase}: the card's predictions disagree with the CPU or are not finite")
+    return counts
+
+
+def train_declarative_flat_phase(tmp: Path) -> Path:
+    """One epoch of configs/declarative_example.yaml's model (flat, the
+    gather block, the gated readout; no kernel of the port on its path) on
+    the card and on the CPU, compared. Returns the card's checkpoint."""
+    csv_path = lipo_csv(tmp, TRAIN_MOLS)
+    card_ckpt = tmp / "declarative_flat_card"
+    model = declarative_flat_model_cfg()
+    cfg = train_config(csv_path, card_ckpt, model)
+    cfg["trainer"]["epochs"] = 1
+    reset_launches()
+    t0 = time.perf_counter()
+    card = run(cfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launches()
+    if any(counts.values()):
+        fail(f"the declarative flat run launched {counts}; its path has no kernel of the port")
+    cpu_cfg = train_config(csv_path, tmp / "declarative_flat_cpu", model)
+    cpu_cfg["trainer"]["epochs"] = 1
+    t0 = time.perf_counter()
+    cpu = run(cpu_cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diffs = compare_runs(card, cpu, "declarative flat run", epochs=1)
+    emit(phase="train_declarative_flat", molecules=TRAIN_MOLS, epochs=1,
+         steps=Checkpointer(card_ckpt).latest_step(), kernel_launches=counts, run_s_card=card_s,
+         run_s_cpu=cpu_s, history_card=card["history"], history_cpu=cpu["history"],
+         test_card=card["test"], test_cpu=cpu["test"], rel_diff_vs_cpu=diffs, rel_tol=TRAIN_RTOL)
+    return card_ckpt
+
+
+def library_index_add(x: dict):
+    """``torch.zeros(...).index_add_`` over the real edges (padding edges go
+    to a trash row through a prepared index): the same function as row 9."""
+    V, d = x["row_ptr"].shape[0] - 1, x["data"].shape[1]
+    index = torch.where(x["edge_mask"], x["dst"], V).long()
+    return lambda: torch.zeros(V + 1, d, device=index.device).index_add_(0, index, x["data"])[:V]
+
+
+def library_segment_reduce(x: dict):
+    """``torch.segment_reduce(..., offsets=row_ptr)``: the same function as
+    row 8."""
+    offsets = x["row_ptr"].long()
+    return lambda: torch.segment_reduce(x["sorted_data"], "sum", offsets=offsets, unsafe=True)
+
+
 def kernel_record(fn, path_launches: int, max_abs_err: float, kernel_t: dict, plain_t: dict,
-                  bound_ms: float, bound_by: str) -> dict:
+                  bound_ms: float, bound_by: str, library_t: dict | None = None) -> dict:
     source, replaces = KERNELS[fn]
     return {"name": fn.__name__, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_launches, "max_abs_err": max_abs_err, "ms": kernel_t["device"],
             "plain_ms": plain_t["device"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None if library_t is None else library_t["device"]}
 
 
 def main() -> None:
@@ -725,11 +972,26 @@ def main() -> None:
             [(main_args, main_G.nodes_per_graph), (dense_args, dense_G.nodes_per_graph)])
         emit(phase="dbuf_vs_plain", rtol=RTOL, atol=ATOL, launches=dbuf_launches, cases=dbuf_cases)
 
+        # rows 8-9 at the first flat lipo batch (V = 2048, E = 4096) and a random case
+        flat_batches = list(DataLoader(ds, batch_size=BATCH, layout="flat", csr_pack=True))
+        flat_G = flat_batches[0]["inputs.G"]
+        flat_x = flat_inputs(flat_G, d, SEED + 5)
+        rowptr_err, packed_err, flat_cases = flat_kernels_phase(
+            {"lipo_first_flat_batch": flat_x, "random_empty_and_overfull": random_flat_inputs(d, SEED + 6)})
+        emit(phase="flat_kernels_vs_plain", sum_atol=f"{SUM_ATOL} x each element's sum of |terms|",
+             cases=flat_cases)
+        rowptr_launches, rowptr_path_err = rowptr_phase(flat_batches, d)
+        emit(phase="rowptr", batches=len(flat_batches), launches=rowptr_launches, max_abs_err=rowptr_path_err)
+
         served = serve_phase(tmp, ds, csv_path, len(batches))
         trained = train_phase(tmp)
         recomputed = train_epoch_phase(tmp)
         declarative, declarative_ckpt = train_declarative_phase(tmp)
         serve_declarative_phase(tmp, declarative_ckpt, len(dense_batches))
+        flat_trained, flat_ckpt = train_flat_phase(tmp)
+        serve_flat_phase(tmp, flat_ckpt, "serve_flat",
+                         {"csr_segment_sum_packed": (depth + 1) * len(flat_batches)})
+        serve_flat_phase(tmp, train_declarative_flat_phase(tmp), "serve_declarative_flat", {})
 
     # time each kernel and its plain version at the serving and training shape
     h0, src, dst, mask, W, b = main_args
@@ -779,6 +1041,22 @@ def main() -> None:
         lambda: fused_dense_mpnn_block_dbuf(*main_args, mols_per_tile=8, **kw),
         lambda: dense_mpnn_block_reference(*main_args, **ref_kw),
         depth * fwd_ops, nbytes(*main_args, out))
+    # rows 8-9 at the first flat lipo batch: all 4,096 rows dst-sorted for
+    # row 8 (the padding edges' rows go to the sink), the real edges for row 9
+    x, V = flat_x, flat_G.num_nodes
+    n_real, E = int(x["edge_mask"].sum()), flat_G.num_edges
+    runs[csr_segment_sum_packed] = (
+        lambda: csr_segment_sum_packed(x["data"], x["perm"], x["packed_dst"], V),
+        lambda: csr_segment_sum_packed_reference(x["data"], x["perm"], x["packed_dst"], V),
+        n_real * d, n_real * d * 4 + nbytes(x["perm"], x["packed_dst"]) + V * d * 4)
+    runs[csr_segment_sum] = (
+        lambda: csr_segment_sum(x["sorted_data"], x["sorted_dst"], x["row_ptr"], V),
+        lambda: csr_segment_sum_reference(x["sorted_data"], x["row_ptr"], V),
+        E * d, nbytes(x["sorted_data"], x["row_ptr"]) + V * d * 4)
+    libraries = {
+        csr_segment_sum_packed: (library_index_add(x), "torch.zeros(V + 1, d).index_add_ over the real edges"),
+        csr_segment_sum: (library_segment_reduce(x), "torch.segment_reduce(sum, offsets=row_ptr)"),
+    }
     path_launches = {
         fused_dense_mpnn_block: served,
         fused_dense_mpnn_block_stash: trained["fused_dense_mpnn_block_stash"],
@@ -787,6 +1065,8 @@ def main() -> None:
         fused_dense_encoder_fwd: declarative["fused_dense_encoder_fwd"],
         fused_dense_encoder_bwd: declarative["fused_dense_encoder_bwd"],
         fused_dense_mpnn_block_dbuf: dbuf_launches,
+        csr_segment_sum: rowptr_launches,
+        csr_segment_sum_packed: flat_trained["csr_segment_sum_packed"],
     }
     errors = {
         fused_dense_mpnn_block: max(c["max_abs_err"] for c in cases),
@@ -796,21 +1076,34 @@ def main() -> None:
         fused_dense_encoder_fwd: max(c["max_abs_err"]["fwd"] for c in encoder_cases),
         fused_dense_encoder_bwd: max(c["max_abs_err"]["bwd"] for c in encoder_cases),
         fused_dense_mpnn_block_dbuf: dbuf_err,
+        csr_segment_sum: max(rowptr_err, rowptr_path_err),
+        csr_segment_sum_packed: packed_err,
     }
     shapes = {fn: (list(h0.shape), nnz) for fn in runs}
     shapes[fused_dense_encoder_fwd] = shapes[fused_dense_encoder_bwd] = (
         {"B": ef.shape[0], "V": nf.shape[1], "E": ef.shape[1], "d": d}, enc_nnz)
+    shapes[csr_segment_sum] = shapes[csr_segment_sum_packed] = (
+        {"V": V, "E": E, "d": d, "real_edges": n_real}, None)
     records = []
     for fn, (kernel, plain, ops, n_bytes) in runs.items():
         kernel_t, plain_t = time_ms(kernel), time_ms(plain)
+        library, library_note = libraries.get(
+            fn, (None, "no single PyTorch call computes the fused block, the encoder or their backwards"))
+        library_t = None if library is None else time_ms(library)
         bound_ms, bound_by = bound(ops, n_bytes)
-        emit(phase="time", kernel=fn.__name__, shape=shapes[fn][0], depth=depth, reduce="sum",
+        emit(phase="time", kernel=fn.__name__, shape=shapes[fn][0],
+             depth=None if fn in libraries else depth, reduce="sum",
              ms=kernel_t["device"], plain_ms=plain_t["device"], eager_ms=kernel_t["eager"],
              plain_eager_ms=plain_t["eager"], bound_ms=bound_ms, bound_by=bound_by,
-             operations=ops, bytes=n_bytes, nnz_A=shapes[fn][1], library_ms=None,
-             library_note="no single PyTorch call computes the fused block, the encoder or their backwards")
+             operations=ops, bytes=n_bytes, nnz_A=shapes[fn][1],
+             library_ms=None if library_t is None else library_t["device"], library_note=library_note)
         records.append(kernel_record(fn, path_launches[fn], errors[fn], kernel_t, plain_t,
-                                     bound_ms, bound_by))
+                                     bound_ms, bound_by, library_t))
+    # row 8 again with the padding sink's run cut (row pointers clipped at
+    # the last real edge): what the sink's 358-row run costs
+    cut = torch.clamp(x["row_ptr"], max=n_real)
+    emit(phase="time_rowptr_without_sink", shape=shapes[csr_segment_sum][0],
+         ms=time_ms(lambda: csr_segment_sum(x["sorted_data"], x["sorted_dst"], cut, V))["device"])
     missing = [r["name"] for r in records if r["launches"] <= 0]
     if missing:
         fail(f"kernels never launched on their path: {missing}")

@@ -22,7 +22,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from notorch_tpu_torch.cli.train import build_dataset, build_model, data_layout, resolve_model_cfg
+from notorch_tpu_torch.cli.train import build_dataset, build_model, csr_pack, data_layout, resolve_model_cfg
 from notorch_tpu_torch.data.batching import DataLoader
 from notorch_tpu_torch.tasks import transforms as task_transforms
 from notorch_tpu_torch.training.checkpoint import Checkpointer
@@ -71,7 +71,8 @@ def run_predict(
     if smiles_col:
         data_cfg["smiles_col"] = smiles_col
     ds = build_dataset(data_cfg)  # no targets: inference CSVs need only molecules
-    loader = DataLoader(ds, batch_size=batch_size, layout=data_layout(model_cfg))
+    # packed for impl: csr as in training, so that serving runs the CSR kernel
+    loader = DataLoader(ds, batch_size=batch_size, layout=data_layout(model_cfg), csr_pack=csr_pack(model_cfg))
 
     preds = predict(model, loader, keys=[pred_key])
     flat = preds[pred_key][: len(ds)].reshape(len(ds), -1)

@@ -28,15 +28,12 @@ from typing import Any, Callable
 REGISTRY: dict[str, Callable] = {}
 TRUSTED_MODULES_ENV = "NOTORCH_TPU_TORCH_TRUSTED_MODULES"
 
-_FLAT = "the flat-layout slice"
 _FAMILIES = "the slice of the other model families and task types"
 _ATTENTION = "the attention slice"
 _SPATIAL = "the spatial slice"
 _MOE = "the MoE and glue slice"
 # every other name of notorch_tpu.cli.registry, with the slice that ports it
 LATER: dict[str, str] = {
-    **dict.fromkeys(["ChempropBlock", "ChempropLayer", "GraphEmbedding", "Sum", "Mean", "Max",
-                     "Gated", "SDPAttention"], _FLAT),
     **dict.fromkeys(["GvpGNNBlock", "GatedEquivariantBlock", "SchnetBlock", "Pointwise",
                      "PointwiseEmbed", "RBFEmbedding", "MolToPointCloud", "SpatialSum",
                      "SpatialMean", "SpatialMax", "SpatialGated"], _SPATIAL),
@@ -117,6 +114,8 @@ def build(spec: dict | str) -> Any:
 
 
 def _populate() -> None:
+    from notorch_tpu_torch.nn.agg import Gated, Max, Mean, SDPAttention, Sum
+    from notorch_tpu_torch.nn.chemprop import ChempropBlock, ChempropLayer
     from notorch_tpu_torch.nn.chemprop_dense import (
         DenseChempropBlock,
         DenseGraphEmbedding,
@@ -125,6 +124,7 @@ def _populate() -> None:
         DenseSum,
         FusedDenseChempropBlock,
     )
+    from notorch_tpu_torch.nn.embed import GraphEmbedding
     from notorch_tpu_torch.nn.mlp import MLP
     from notorch_tpu_torch.tasks import losses, metrics
     from notorch_tpu_torch.training.optim import OptimizerSpec
@@ -137,6 +137,14 @@ def _populate() -> None:
     )
 
     for cls in [
+        ChempropBlock,
+        ChempropLayer,
+        GraphEmbedding,
+        Sum,
+        Mean,
+        Max,
+        Gated,
+        SDPAttention,
         DenseChempropBlock,
         DenseGraphEmbedding,
         DenseSum,

@@ -5,9 +5,11 @@ declarative ``model.modules`` configs (modules, losses and metrics built
 by name through :mod:`notorch_tpu_torch.cli.registry`): the same YAML/JSON
 configs with dotted-key overrides, the default SMILES pipeline, a random
 ``data.split``, target transforms from training-split statistics, the data
-layout from ``model.layout`` (``dense_packed``, or the per-molecule
-``dense`` for ``dense*`` layouts, whose train loader sorts by size; the
-flat layout is refused), Adam/AdamW with a rate or the Noam schedule and
+layout from ``model.layout`` (``dense_packed``; the per-molecule ``dense``
+for ``dense*`` layouts, whose train loader sorts by size; ``flat``
+otherwise, the default of a declarative config, with the tile-packed CSR
+metadata when the model reduces through ``impl: csr``), Adam/AdamW with a
+rate or the Noam schedule and
 ``clip_norm``, and the trainer's ``epochs``, ``batch_size``, ``seed``, ``checkpoint_dir``,
 ``resume``, ``checkpoint_every``, ``max_to_keep``, ``best_by``/``best_mode``,
 ``early_stopping`` and ``predictions_csv``. The checkpoint directory it
@@ -214,16 +216,29 @@ def resolve_model_cfg(model_cfg: dict) -> dict:
 def data_layout(model_cfg: dict) -> str:
     """The loader layout of a (resolved) model config, as the JAX ``run``
     picks it: ``dense_packed`` stays, any other ``dense*`` layout reads the
-    per-molecule ``dense`` collate, and ``flat`` (the default of a
-    declarative config) is not ported."""
+    per-molecule ``dense`` collate, and anything else (``flat``, the default
+    of a declarative config) the flat one."""
     layout = str(model_cfg.get("layout", "flat"))
     if layout == "dense_packed":
         return "dense_packed"
     if layout.startswith("dense"):
         return "dense"
-    raise NotImplementedError(
-        f"model.layout {layout!r}: the flat layout is not ported yet (it comes with the "
-        "flat-layout slice); declarative configs run on layout: dense or dense_packed"
+    return "flat"
+
+
+def csr_pack(model_cfg: dict) -> bool:
+    """Whether the loaders of a (resolved) model config carry the tile-packed
+    CSR metadata: on the flat layout, when the model reduces through
+    ``impl: csr`` (a ``kind: dmpnn`` config's ``model.impl``, or any
+    declarative ``ChempropBlock``/``ChempropLayer``). The JAX ``run`` packs
+    only for the first, and its ``run_predict`` never, so that serving there
+    skips the kernel; here every loader of such a model packs."""
+    if data_layout(model_cfg) != "flat":
+        return False
+    modules = (model_cfg.get("modules") or {}).values()
+    return model_cfg.get("impl") == "csr" or any(
+        m.get("class") in ("ChempropBlock", "ChempropLayer") and (m.get("args") or {}).get("impl") == "csr"
+        for m in modules
     )
 
 
@@ -289,7 +304,9 @@ def prepare(cfg: dict, device: str | torch.device | None = None) -> dict:
     batch_size = trainer_cfg.get("batch_size", 64)
 
     def loader(part, **kw):
-        return DataLoader(part, batch_size=batch_size, layout=layout, **kw) if part is not None else None
+        if part is None:
+            return None
+        return DataLoader(part, batch_size=batch_size, layout=layout, csr_pack=csr_pack(model_cfg), **kw)
 
     return {
         "cfg": cfg, "ds": ds, "train": train, "val": val, "test": test,
@@ -352,7 +369,8 @@ def run(cfg: dict, device: str | torch.device | None = None) -> dict:
         from notorch_tpu_torch.data.batching import DataLoader
 
         target = run_["test"] if run_["test"] is not None else run_["train"]
-        loader = DataLoader(target, batch_size=trainer_cfg.get("batch_size", 64), layout=run_["layout"])
+        loader = DataLoader(target, batch_size=trainer_cfg.get("batch_size", 64), layout=run_["layout"],
+                            csr_pack=csr_pack(cfg["model"]))
         flat = predict(model, loader, keys=[pred_key])[pred_key][: len(target)]
         flat = flat.reshape(len(target), -1)
         with open(pred_csv, "w") as f:

@@ -1,6 +1,7 @@
-// Helpers shared by dense_mpnn.cu and dense_mpnn_bwd.cu: the bit-row width
-// of the edge operator, the per-device shared-memory opt-in, and the gather
-// of one 16-byte vector of the encoder's layer-0 input.
+// Helpers shared by the CUDA sources: the bit-row width of the dense edge
+// operator, the per-device shared-memory opt-in, the add of two 16-byte
+// vectors, and the gather of one 16-byte vector of the encoder's layer-0
+// input.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,15 +1,17 @@
-"""Static-shape batch loader over the dense layouts.
+"""Static-shape batch loader over the flat and dense layouts.
 
 Port of ``notorch_tpu.data.batching``: featurizes on the host (with an
 in-memory cache — featurization is pure), groups samples into fixed-size
 batches (the last batch is padded and masked) and collates each batch into
-the bin-packed dense layout (``dense_packed``, ladder-rounded bin caps) or
-the per-molecule dense layout (``dense``, node and edge counts rounded up
+the flat padded layout (``flat``, batch totals rounded up geometric
+ladders, optionally with the tile-packed CSR metadata), the bin-packed
+dense layout (``dense_packed``, ladder-rounded bin caps) or the
+per-molecule dense layout (``dense``, node and edge counts rounded up
 per-molecule ladders), exactly as the JAX loader does, so both packages
 see the same arrays, in the same order when shuffled (``SeededSampler``)
 and when sorted by size. Batches are numpy; the caller moves them to a
 device. ``random_split`` and ``Subset`` split a dataset as the JAX package
-does. ``PrefetchLoader`` and the flat layout are not ported yet.
+does. ``PrefetchLoader`` is not ported.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import numpy as np
 from notorch_tpu_torch.conf import TARGET_KEY_PREFIX
 from notorch_tpu_torch.data.dataset import MolecularDataset
 from notorch_tpu_torch.data.dense import plan_bins
-from notorch_tpu_torch.data.graph import Graph
+from notorch_tpu_torch.data.graph import BatchedGraph, Graph, with_csr_packing
 from notorch_tpu_torch.data.samplers import SeededSampler, SequentialSampler
 from notorch_tpu_torch.tasks import transforms as task_transforms
 
@@ -50,11 +52,19 @@ def round_up_ladder(value: int, ladder: list[int]) -> int:
 BIN_EDGES = 128
 
 
-LAYOUTS = ("dense", "dense_packed")
+LAYOUTS = ("flat", "dense", "dense_packed")
 
 
 class DataLoader:
     """Iterate batch dicts over a :class:`MolecularDataset`.
+
+    ``layout="flat"`` pads each batch into one disjoint-union graph: the
+    batch's node total plus the padding sink rounded up
+    ``bucket_ladder(node_quantum, 1 << 22)``, its edge total rounded up
+    ``bucket_ladder(edge_quantum, 1 << 23)``; ``csr_pack`` attaches the
+    tile-packed CSR metadata (``with_csr_packing``) that ``impl="csr"``
+    reduces through. A node cap on the ladder's 192 rung is not a multiple
+    of 128 and raises there, as in the JAX package.
 
     ``layout="dense_packed"`` bin-packs each batch with the bin caps of the
     JAX loader's defaults: ``E_b`` is ``BIN_EDGES`` raised up the ladder to
@@ -84,11 +94,14 @@ class DataLoader:
         drop_last: bool = False,
         layout: str = "dense_packed",
         sort_by_size: bool = False,
+        node_quantum: int = 128,
+        edge_quantum: int = 256,
+        csr_pack: bool = False,
     ):
         if layout not in LAYOUTS:
-            raise NotImplementedError(
-                f"DataLoader layout {layout!r} is not ported yet: the port has {list(LAYOUTS)} "
-                "(the flat layout comes with the flat-layout slice)"
+            raise ValueError(
+                f"unknown DataLoader layout {layout!r}: expected one of {list(LAYOUTS)}; the "
+                "loader layout must match the model's resolved layout"
             )
         self.dataset = dataset
         self.batch_size = batch_size
@@ -100,9 +113,14 @@ class DataLoader:
             self.sampler = SequentialSampler(len(dataset))
         self.drop_last = drop_last
         self.layout = layout
+        self.csr_pack = csr_pack
         self.bin_ladder = bucket_ladder(8, 1 << 12)
-        self.node_ladder = bucket_ladder(16, 1 << 16)  # per-molecule (dense) node slots
-        self.edge_ladder = bucket_ladder(32, 1 << 17)
+        if layout == "flat":  # batch totals
+            self.node_ladder = bucket_ladder(node_quantum, 1 << 22)
+            self.edge_ladder = bucket_ladder(edge_quantum, 1 << 23)
+        else:  # per-molecule node and edge slots
+            self.node_ladder = bucket_ladder(16, 1 << 16)
+            self.edge_ladder = bucket_ladder(32, 1 << 17)
         self.sort_by_size = sort_by_size
         self.seed = seed
         self._rg = np.random.default_rng(seed)
@@ -154,7 +172,12 @@ class DataLoader:
             if isinstance(s[mgr.out_key], Graph)
         ]
         caps = None
-        if graphs and self.layout == "dense":
+        if graphs and self.layout == "flat":
+            caps = (
+                round_up_ladder(sum(g.num_nodes for g in graphs) + 1, self.node_ladder),
+                round_up_ladder(max(sum(g.num_edges for g in graphs), 1), self.edge_ladder),
+            )
+        elif graphs and self.layout == "dense":
             max_e = max(max(g.num_edges for g in graphs), 2)
             caps = (
                 round_up_ladder(max(g.num_nodes for g in graphs) + 1, self.node_ladder),
@@ -168,9 +191,12 @@ class DataLoader:
             v_b = -(-max(max_v, e_b // 2 + 8) // 8) * 8
             n_bins = len(plan_bins(graphs, v_b, e_b))
             caps = (v_b, e_b, round_up_ladder(n_bins, self.bin_ladder))
-        return self.dataset.collate(
+        batch = self.dataset.collate(
             samples, indices, graph_caps=caps, batch_cap=self.batch_size, layout=self.layout
         )
+        if self.csr_pack:
+            batch = {k: with_csr_packing(v) if isinstance(v, BatchedGraph) else v for k, v in batch.items()}
+        return batch
 
 
 def random_split(n: int, fractions: tuple[float, ...], seed: int = 0) -> tuple[np.ndarray, ...]:

@@ -1,9 +1,10 @@
 """Dataset: table rows -> featurized samples -> collated host batches.
 
 Port of ``notorch_tpu.data.dataset``: per-sample transform chains, target
-attachment, and a collate that produces ``inputs.*`` / ``targets.*`` keys.
-Only the bin-packed dense layout (``dense_packed``) is ported; batches stay
-numpy arrays on the host until the caller moves them to a device.
+attachment, and a collate that produces ``inputs.*`` / ``targets.*`` keys
+in the flat, per-molecule ``dense`` or bin-packed ``dense_packed`` layout;
+batches stay numpy arrays on the host until the caller moves them to a
+device.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import numpy as np
 
 from notorch_tpu_torch.conf import INPUT_KEY_PREFIX, TARGET_KEY_PREFIX
 from notorch_tpu_torch.data.dense import pack_graphs_dense, pad_graphs_dense
-from notorch_tpu_torch.data.graph import Graph
+from notorch_tpu_torch.data.graph import Graph, pad_graphs
 from notorch_tpu_torch.tasks import transforms as task_transforms
 
 
@@ -118,17 +119,16 @@ class MolecularDataset:
     ) -> dict:
         """Build the batch dict with ``inputs.*`` / ``targets.*`` keys.
 
+        ``layout="flat"``: one padded disjoint-union graph, ``graph_caps`` =
+        ``(node_cap, edge_cap)``, ``batch_cap`` graph slots.
         ``layout="dense_packed"``: bin-packed dense blocks, ``graph_caps`` =
         ``(nodes_per_bin, edges_per_bin, bin_cap)``. ``layout="dense"``:
         one block per molecule, ``graph_caps`` = ``(nodes_per_graph,
         edges_per_graph)``, ``batch_cap`` blocks. Exact caps from the batch
         when None. Graph arrays and targets stay numpy.
         """
-        if layout not in ("dense", "dense_packed"):
-            raise NotImplementedError(
-                f"layout {layout!r} is not ported yet: the flat layout comes with the "
-                "flat-layout slice; use 'dense' or 'dense_packed'"
-            )
+        if layout not in ("flat", "dense", "dense_packed"):
+            raise ValueError(f"unknown layout {layout!r}: expected 'flat', 'dense' or 'dense_packed'")
         batch: dict[str, Any] = {}
         b_cap = batch_cap if batch_cap is not None else len(samples)
 
@@ -139,20 +139,28 @@ class MolecularDataset:
                     f"transform output {mgr.out_key!r} is not a Graph; only graph "
                     "featurization is ported"
                 )
-            if graph_caps is not None:
-                v_b, e_b, *bin_cap = graph_caps
+            if layout == "flat":
+                if graph_caps is not None:
+                    v_cap, e_cap = graph_caps
+                else:
+                    v_cap = sum(g.num_nodes for g in values) + 1
+                    e_cap = max(sum(g.num_edges for g in values), 1)
+                collated = pad_graphs(values, v_cap, e_cap, graph_cap=b_cap, np_out=True)
             else:
-                e_b = max(max((g.num_edges for g in values), default=2), 2)
-                e_b += e_b % 2
-                v_b = max(g.num_nodes for g in values) + 1
-                bin_cap = []
-            if layout == "dense":
-                collated = pad_graphs_dense(values, v_b, e_b, graph_cap=b_cap, np_out=True)
-            else:
-                collated = pack_graphs_dense(
-                    values, v_b, e_b, mol_cap=b_cap, bin_cap=bin_cap[0] if bin_cap else None,
-                    np_out=True,
-                )
+                if graph_caps is not None:
+                    v_b, e_b, *bin_cap = graph_caps
+                else:
+                    e_b = max(max((g.num_edges for g in values), default=2), 2)
+                    e_b += e_b % 2
+                    v_b = max(g.num_nodes for g in values) + 1
+                    bin_cap = []
+                if layout == "dense":
+                    collated = pad_graphs_dense(values, v_b, e_b, graph_cap=b_cap, np_out=True)
+                else:
+                    collated = pack_graphs_dense(
+                        values, v_b, e_b, mol_cap=b_cap, bin_cap=bin_cap[0] if bin_cap else None,
+                        np_out=True,
+                    )
             batch[f"{INPUT_KEY_PREFIX}.{mgr.out_key}"] = collated
 
         for name, arr in self._target_arrays.items():

@@ -1,0 +1,295 @@
+"""CSR segment sums over the flat edge layout: hand-written Hopper kernels,
+their plain PyTorch versions, the wrappers that pick between them by
+device, and the ``autograd.Function`` of the packed sum.
+
+Replaces the Pallas kernels of ``notorch_tpu/kernels/csr_segment.py``:
+
+================================  =========================================
+TPU entry (kernel)                here
+================================  =========================================
+``csr_segment_sum_packed``        :func:`csr_segment_sum_packed`, the packed
+(``_packed_kernel``)              kernel of ``csrc/csr_segment.cu``
+``csr_segment_sum``               :func:`csr_segment_sum`, the row-pointer
+(``_kernel``)                     kernel of ``csrc/csr_segment.cu``
+================================  =========================================
+
+What they compute, ``data [E, d]`` f32 into ``[num_nodes, d]``:
+
+- packed: ``out[v] = sum of data[perm[s]]`` over the slots ``s`` of v's
+  ``tile_v``-node tile with ``packed_dst[s] == v``, ``perm``/``packed_dst``
+  from :func:`pack_edges_by_tile` (``-1`` in padding slots, which add
+  nothing). A slot whose ``packed_dst`` lies outside its own tile, or whose
+  ``perm`` is not an edge id, adds nothing either, as in the TPU kernel.
+- row pointers: ``out[v] = sum of data[e]`` for ``e`` in ``[row_ptr[v],
+  row_ptr[v+1])`` (``row_ptr`` nondecreasing, as :func:`~notorch_tpu_torch.
+  data.graph.csr_row_ptr` gives it for dst-sorted edges). The sum is exact:
+  the TPU kernel visits at most ``(tile_v * max_degree) // tile_e + 2``
+  edge chunks per node tile and leaves out any edge past them; this one
+  does not, so on such a tile the two differ. ``max_degree`` is kept for
+  the signature.
+
+Both kernels sum each output row in ascending slot (or edge) order with no
+atomics, so two calls give the same bits. The TPU kernels build a one-hot
+``[tile_v, tile_e]`` matrix per chunk and multiply it on the MXU; on the
+card a segment sum is a gather-add, bound by bytes. The design of each is
+described in ``csrc/csr_segment.cu``.
+
+The CUDA source is built by ``nvcc`` for ``sm_90a`` at first use and bound
+with ``ctypes`` (:mod:`notorch_tpu_torch.kernels.build`). Tensors on the
+CPU take the plain versions; tensors on a CUDA device launch the kernels or
+raise — there is no fallback. Each wrapper counts its launches in
+``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from notorch_tpu_torch.kernels import build
+from notorch_tpu_torch.kernels.checks import check_aligned, check_tensors, on_card
+
+
+def pack_edges_by_tile(
+    dst,  # [E] i32, values in [0, num_nodes) (need NOT be sorted)
+    num_nodes: int,
+    tile_v: int = 128,
+    budget: int | None = None,
+):
+    """Host-side packing: assign each edge a slot in its dst-tile's fixed
+    budget, in edge order. Returns ``(perm, packed_dst, budget)`` where
+    ``perm[slot] = edge index`` (or -1 for padding) and ``packed_dst[slot] =
+    dst`` (or -1).
+
+    ``budget`` (edge slots per node tile) defaults to the max per-tile edge
+    count rounded up to a multiple of 128. Raises if any tile overflows a
+    given budget.
+    """
+    dst = np.asarray(dst)
+    n_tiles = -(-num_nodes // tile_v)
+    tile_of_edge = dst // tile_v
+    counts = np.bincount(tile_of_edge, minlength=n_tiles)
+    needed = int(counts.max()) if len(counts) else 0
+    if budget is None:
+        budget = max(128, -(-needed // 128) * 128)
+    elif needed > budget:
+        raise ValueError(f"tile edge count {needed} exceeds budget {budget}")
+
+    order = np.argsort(tile_of_edge, kind="stable")
+    perm = np.full(n_tiles * budget, -1, dtype=np.int32)
+    packed_dst = np.full(n_tiles * budget, -1, dtype=np.int32)
+    offset_in_tile = np.zeros(len(dst), dtype=np.int64)
+    sorted_tiles = tile_of_edge[order]
+    starts = np.searchsorted(sorted_tiles, np.arange(n_tiles), side="left")
+    for t in range(n_tiles):
+        lo = starts[t]
+        hi = starts[t + 1] if t + 1 < n_tiles else len(dst)
+        offset_in_tile[order[lo:hi]] = np.arange(hi - lo)
+    slots = tile_of_edge.astype(np.int64) * budget + offset_in_tile
+    perm[slots] = np.arange(len(dst), dtype=np.int32)
+    packed_dst[slots] = dst
+    return perm, packed_dst, budget
+
+
+# -- plain versions ---------------------------------------------------------------
+
+
+def csr_segment_sum_packed_reference(
+    data: torch.Tensor, perm: torch.Tensor, packed_dst: torch.Tensor, num_nodes: int, tile_v: int = 128
+) -> torch.Tensor:
+    """Plain PyTorch version of the packed kernel: one ``index_add_`` over
+    all slots in slot order, the slots that add nothing (see the module
+    docstring) sent to a trash row. No boolean indexing, so a CUDA graph can
+    capture it."""
+    E = data.shape[0]
+    budget = perm.shape[0] // (num_nodes // tile_v)
+    slot = torch.arange(perm.shape[0], device=perm.device)
+    lo = torch.div(slot, budget, rounding_mode="floor") * tile_v
+    valid = (perm >= 0) & (perm < E) & (packed_dst >= lo) & (packed_dst < lo + tile_v)
+    rows = data[torch.where(valid, perm, 0).long()]
+    out = torch.zeros(num_nodes + 1, data.shape[1], dtype=data.dtype, device=data.device)
+    return out.index_add_(0, torch.where(valid, packed_dst, num_nodes).long(), rows)[:num_nodes]
+
+
+def csr_segment_sum_reference(data: torch.Tensor, row_ptr: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """Plain PyTorch version of the row-pointer kernel: every edge ``e`` in
+    ``[row_ptr[v], row_ptr[v+1])`` goes to ``v`` (``searchsorted``), then one
+    ``index_add_`` in edge order; edges outside ``[row_ptr[0],
+    row_ptr[num_nodes])`` go to a trash row."""
+    edge = torch.arange(data.shape[0], device=data.device)
+    node = torch.searchsorted(row_ptr.long(), edge, right=True) - 1
+    node = torch.where((node >= 0) & (node < num_nodes), node, num_nodes)
+    out = torch.zeros(num_nodes + 1, data.shape[1], dtype=data.dtype, device=data.device)
+    return out.index_add_(0, node, data)[:num_nodes]
+
+
+# -- the kernels ------------------------------------------------------------------
+
+
+def _check_data(data: torch.Tensor, num_nodes: int, tile_v: int) -> None:
+    if data.dim() != 2:
+        raise ValueError(f"data must be [E, d], got {tuple(data.shape)}")
+    if num_nodes <= 0 or tile_v <= 0 or num_nodes % tile_v != 0:
+        raise ValueError(f"num_nodes {num_nodes} must be a positive multiple of tile_v {tile_v}")
+    if not data.is_floating_point():
+        raise TypeError(f"data must be floating point, got {data.dtype}")
+
+
+def _check_for_kernel(data: torch.Tensor) -> None:
+    if data.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernels take float32 data, got {data.dtype}")
+    if not data.is_contiguous():
+        raise ValueError("data must be contiguous")
+    if data.shape[1] % 4:
+        raise ValueError(f"the CUDA kernels read rows in 16-byte vectors: d must be a multiple of 4, "
+                         f"got {data.shape[1]}")
+    check_aligned(data=data)
+
+
+@functools.cache
+def _lib():
+    lib = build.load("csr_segment")
+    lib.csr_segment_sum_packed_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.csr_segment_sum_rowptr_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.csr_segment_error_string.argtypes = [ctypes.c_int]
+    lib.csr_segment_error_string.restype = ctypes.c_char_p
+    lib.csr_segment_max_budget.argtypes = lib.csr_segment_max_tile.argtypes = []
+    for name in ("csr_segment_sum_packed_f32", "csr_segment_sum_rowptr_f32", "csr_segment_max_budget",
+                 "csr_segment_max_tile"):
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _raise_on(err: int, what: str, lib) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.csr_segment_error_string(err).decode()}")
+
+
+def _packed_forward(data, perm, packed_dst, num_nodes: int, tile_v: int) -> torch.Tensor:
+    if not on_card(data):
+        return csr_segment_sum_packed_reference(data, perm, packed_dst, num_nodes, tile_v)
+    lib = _lib()
+    _check_for_kernel(data)
+    budget = perm.shape[0] // (num_nodes // tile_v)
+    if tile_v > lib.csr_segment_max_tile() or budget > lib.csr_segment_max_budget():
+        raise ValueError(
+            f"the packed kernel takes tiles of at most {lib.csr_segment_max_tile()} nodes and "
+            f"{lib.csr_segment_max_budget()} slots; got tile_v={tile_v}, budget={budget}"
+        )
+    E, d = data.shape
+    out = torch.empty(num_nodes, d, dtype=data.dtype, device=data.device)
+    with torch.cuda.device(data.device):
+        err = lib.csr_segment_sum_packed_f32(
+            data.data_ptr(), perm.data_ptr(), packed_dst.data_ptr(), out.data_ptr(), E, d,
+            num_nodes, tile_v, budget, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, "csr_segment_sum_packed", lib)
+    csr_segment_sum_packed.launches += 1
+    return out
+
+
+class CsrSegmentSumPackedFn(torch.autograd.Function):
+    """The packed sum as an autograd node, as the JAX custom VJP: the
+    backward is one masked gather, ``d_data = where(edge_mask, g[dst], 0)``
+    (plain indexing: it is plain XLA there too, not a Pallas kernel). The
+    index arrays get no gradient."""
+
+    @staticmethod
+    def forward(ctx, data, perm, packed_dst, dst, edge_mask, num_nodes: int, tile_v: int):
+        ctx.save_for_backward(dst, edge_mask)
+        return _packed_forward(data, perm, packed_dst, num_nodes, tile_v)
+
+    @staticmethod
+    def backward(ctx, g):
+        dst, edge_mask = ctx.saved_tensors
+        d_data = torch.where(edge_mask[:, None], g[dst.long()], 0.0)
+        return d_data, None, None, None, None, None, None
+
+
+def csr_segment_sum_packed(
+    data: torch.Tensor,  # [E, d] messages (any order)
+    perm: torch.Tensor,  # [T*budget] i32 slot -> edge index (-1 padding)
+    packed_dst: torch.Tensor,  # [T*budget] i32 (-1 padding)
+    num_nodes: int,
+    dst: torch.Tensor | None = None,  # [E] i32 (for the backward's gather)
+    edge_mask: torch.Tensor | None = None,  # [E] bool (True = real edge)
+    tile_v: int = 128,
+    tile_e: int = 128,
+) -> torch.Tensor:
+    """Segment sum through the tile-packed layout, ``[num_nodes, d]``.
+    ``perm``/``packed_dst`` come from :func:`pack_edges_by_tile`; the budget
+    per tile (``len(perm) // (num_nodes // tile_v)``) must be a multiple of
+    ``tile_e``, as the TPU grid needs (the kernel here needs no chunking).
+
+    Differentiable in ``data`` through :class:`CsrSegmentSumPackedFn`: the
+    gradient of edge ``e`` is ``g[dst[e]]`` where ``edge_mask[e]``, else 0
+    (all edges real without a mask; without ``dst`` the gradient is zero,
+    as in the JAX package). CPU tensors take
+    :func:`csr_segment_sum_packed_reference`; on a CUDA device
+    ``csr_segment_sum_packed.launches`` counts the kernel's launches (one a
+    call)."""
+    _check_data(data, num_nodes, tile_v)
+    E = data.shape[0]
+    n_tiles = num_nodes // tile_v
+    n_slots = perm.shape[0]
+    if n_slots % n_tiles != 0:
+        raise ValueError(f"{n_slots} slots do not split into {n_tiles} tiles")
+    budget = n_slots // n_tiles
+    if tile_e <= 0 or budget % tile_e != 0:
+        raise ValueError(f"budget {budget} must be a multiple of tile_e {tile_e}")
+    if dst is None:
+        dst = torch.zeros(E, dtype=torch.int32, device=data.device)
+        edge_mask = torch.zeros(E, dtype=torch.bool, device=data.device)
+    elif edge_mask is None:
+        edge_mask = torch.ones(E, dtype=torch.bool, device=data.device)
+    check_tensors({"perm": (perm, torch.int32, (n_slots,)), "packed_dst": (packed_dst, torch.int32, (n_slots,)),
+                   "dst": (dst, torch.int32, (E,)), "edge_mask": (edge_mask, torch.bool, (E,))},
+                  data.device, anchor="data")
+    if torch.is_grad_enabled() and data.requires_grad:
+        return CsrSegmentSumPackedFn.apply(data, perm, packed_dst, dst, edge_mask, num_nodes, tile_v)
+    return _packed_forward(data, perm, packed_dst, num_nodes, tile_v)
+
+
+def csr_segment_sum(
+    data: torch.Tensor,  # [E, d] messages (dst-sorted)
+    dst: torch.Tensor,  # [E] i32 sorted
+    row_ptr: torch.Tensor,  # [V+1] i32
+    num_nodes: int,
+    tile_v: int = 128,
+    tile_e: int = 256,
+    max_degree: int = 8,
+) -> torch.Tensor:
+    """Segment sum of dst-sorted ``data`` into ``[num_nodes, d]`` over the
+    row pointers (``dst`` is checked for shape; the sum reads ``row_ptr``).
+    ``num_nodes`` must be a multiple of ``tile_v`` and ``E`` of ``tile_e``,
+    as the TPU grid needs. No gradient, as in the JAX package. CPU tensors
+    take :func:`csr_segment_sum_reference`; on a CUDA device
+    ``csr_segment_sum.launches`` counts the kernel's launches (one a call)."""
+    _check_data(data, num_nodes, tile_v)
+    E = data.shape[0]
+    if tile_e <= 0 or E % tile_e != 0:
+        raise ValueError(f"num edges {E} must be a multiple of tile_e {tile_e}")
+    check_tensors({"dst": (dst, torch.int32, (E,)), "row_ptr": (row_ptr, torch.int32, (num_nodes + 1,))},
+                  data.device, anchor="data")
+    if torch.is_grad_enabled() and data.requires_grad:
+        raise RuntimeError("csr_segment_sum has no gradient, as in the JAX package; "
+                           "use csr_segment_sum_packed to train")
+    if not on_card(data):
+        return csr_segment_sum_reference(data, row_ptr, num_nodes)
+    lib = _lib()
+    _check_for_kernel(data)
+    d = data.shape[1]
+    out = torch.empty(num_nodes, d, dtype=data.dtype, device=data.device)
+    with torch.cuda.device(data.device):
+        err = lib.csr_segment_sum_rowptr_f32(data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
+                                             E, d, num_nodes, torch.cuda.current_stream().cuda_stream)
+    _raise_on(err, "csr_segment_sum", lib)
+    csr_segment_sum.launches += 1
+    return out
+
+
+csr_segment_sum_packed.launches = 0
+csr_segment_sum.launches = 0

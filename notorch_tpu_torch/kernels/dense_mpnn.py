@@ -88,6 +88,7 @@ import functools
 import torch
 
 from notorch_tpu_torch.kernels import build
+from notorch_tpu_torch.kernels.checks import check_aligned, check_tensors, on_card
 
 REDUCES = ("sum", "mean")
 BACKWARDS = ("stash", "recompute")
@@ -279,18 +280,6 @@ def dense_encoder_bwd_reference(
     return g_nf, g_h0, g_W, g_b
 
 
-def _check_tensors(expect: dict, device: torch.device) -> None:
-    for name, (t, dtype, shape) in expect.items():
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, edge_hiddens on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes=1) -> None:
     if reduce not in REDUCES:
         raise ValueError(f"reduce must be one of {REDUCES}, got {reduce!r}")
@@ -312,7 +301,7 @@ def _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_
     }
     if biases is not None:
         expect["biases"] = (biases, torch.float32, (depth, d))
-    _check_tensors(expect, edge_hiddens.device)
+    check_tensors(expect, edge_hiddens.device)
 
 
 def _check_bwd(h0, hs, cotangent, depth) -> None:
@@ -322,26 +311,7 @@ def _check_bwd(h0, hs, cotangent, depth) -> None:
         if hs is None:
             raise ValueError(f"hs (the stash h1..h_{{depth-1}}) is required at depth {depth}")
         expect["hs"] = (hs, torch.float32, (depth - 1, B, E, d))
-    _check_tensors(expect, h0.device)
-
-
-def _on_card(t: torch.Tensor) -> bool:
-    """CPU tensors take the plain version; CUDA tensors the kernel; any
-    other device is refused."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"no kernel for device {t.device}")
-    return True
-
-
-def _check_aligned(**tensors) -> None:
-    for name, t in tensors.items():
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(
-                f"the CUDA kernels read {name} in 16-byte vectors; its storage must "
-                "start 16-byte aligned (pass a fresh tensor, not an offset view)"
-            )
+    check_tensors(expect, h0.device)
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -400,7 +370,7 @@ def _launch_layers(h0, src, dst, edge_mask, weights, biases, outs, residual, mea
     lib, layer_fn, dbuf_fn = _layer_fns()
     _check_shape_for(lib.dense_mpnn_max_edges(), lib.dense_mpnn_max_nodes(), lib.dense_mpnn_cols(),
                      E, V, d)
-    _check_aligned(edge_hiddens=h0, weights=weights, node_feats=node_feats,
+    check_aligned(edge_hiddens=h0, weights=weights, node_feats=node_feats,
                    **{f"output {i}": o for i, o in enumerate(outs)})
     last = len(outs) - 1
     with torch.cuda.device(h0.device):
@@ -445,7 +415,7 @@ def _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual, mea
     lib, fn = _sweep_fn()
     _check_shape_for(lib.dense_mpnn_bwd_max_edges(), lib.dense_mpnn_bwd_max_nodes(),
                      lib.dense_mpnn_bwd_cols(), E, V, d)
-    _check_aligned(edge_hiddens=h0, hs=hs, cotangent=cotangent, weights=weights,
+    check_aligned(edge_hiddens=h0, hs=hs, cotangent=cotangent, weights=weights,
                    node_feats=node_feats, g_node=g_node)
     chunks = -(-B * E // lib.dense_mpnn_bwd_chunk_rows())
     with torch.cuda.device(h0.device):
@@ -507,7 +477,7 @@ def fused_dense_mpnn_block(
     the operator needs only ``src``/``dst``.
     """
     _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes)
-    if not _on_card(edge_hiddens):
+    if not on_card(edge_hiddens):
         return dense_mpnn_block_reference(
             edge_hiddens, src, dst, edge_mask, weights, biases,
             depth=depth, residual=residual, reduce=reduce,
@@ -552,7 +522,7 @@ def fused_dense_mpnn_block_stash(
             depth=depth, n_nodes=n_nodes, residual=residual, reduce=reduce,
         ), None
     _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes)
-    if not _on_card(edge_hiddens):
+    if not on_card(edge_hiddens):
         return dense_mpnn_block_stash_reference(
             edge_hiddens, src, dst, edge_mask, weights, biases,
             depth=depth, residual=residual, reduce=reduce,
@@ -599,7 +569,7 @@ def fused_dense_mpnn_block_bwd_stash(
         )
     _check(h0, src, dst, edge_mask, weights, None, depth, reduce, n_nodes)
     _check_bwd(h0, hs, cotangent, depth)
-    if not _on_card(h0):
+    if not on_card(h0):
         return dense_mpnn_block_bwd_reference(
             h0, hs, src, dst, edge_mask, weights, cotangent,
             depth=depth, residual=residual, reduce=reduce,
@@ -633,7 +603,7 @@ def fused_dense_mpnn_block_bwd(
     _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes)
     _check_bwd(edge_hiddens, None, cotangent, 1)
     kw = dict(depth=depth, residual=residual, reduce=reduce)
-    if not _on_card(edge_hiddens):
+    if not on_card(edge_hiddens):
         _, hs = dense_mpnn_block_stash_reference(
             edge_hiddens, src, dst, edge_mask, weights, biases, **kw
         )
@@ -658,7 +628,7 @@ def _check_nodes(node_feats: torch.Tensor, edge_feats: torch.Tensor, name: str =
     B, V, d = node_feats.shape
     if V < 1:
         raise ValueError(f"{name} needs at least one node slot per bin")
-    _check_tensors({name: (node_feats, torch.float32, (edge_feats.shape[0], V, edge_feats.shape[2]))},
+    check_tensors({name: (node_feats, torch.float32, (edge_feats.shape[0], V, edge_feats.shape[2]))},
                    edge_feats.device)
 
 
@@ -689,7 +659,7 @@ def fused_dense_encoder_fwd(
     """
     _check(edge_feats, src, dst, edge_mask, weights, biases, depth, reduce)
     _check_nodes(node_feats, edge_feats)
-    if not _on_card(edge_feats):
+    if not on_card(edge_feats):
         return dense_encoder_reference(
             node_feats, edge_feats, src, dst, edge_mask, weights, biases,
             depth=depth, residual=residual, reduce=reduce, stash=stash,
@@ -740,7 +710,7 @@ def fused_dense_encoder_bwd(
     _check_nodes(node_feats, edge_feats)
     _check_nodes(g_node, edge_feats, "g_node")
     _check_bwd(edge_feats, hs, g_edge, depth)
-    if not _on_card(edge_feats):
+    if not on_card(edge_feats):
         return dense_encoder_bwd_reference(
             node_feats, edge_feats, hs, src, dst, edge_mask, weights, g_node, g_edge,
             depth=depth, residual=residual, reduce=reduce,
@@ -788,7 +758,7 @@ def fused_dense_mpnn_block_dbuf(
             "use fused_dense_mpnn_block"
         )
     _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes)
-    if not _on_card(edge_hiddens):
+    if not on_card(edge_hiddens):
         return dense_mpnn_block_reference(
             edge_hiddens, src, dst, edge_mask, weights, biases,
             depth=depth, residual=residual, reduce=reduce,

@@ -11,20 +11,31 @@ tell apart. No JAX is needed: the tree is plain numpy.
 ==================================================  ===================================
 JAX (``/``-joined path below ``modules__<name>``)    port key below ``<name>.``
 ==================================================  ===================================
-embedding (:class:`DenseGraphEmbedding`):
+embedding (``DenseGraphEmbedding``, ``GraphEmbedding``):
 ``node/embedding/embedding [n_atom_types, d]``       ``node.embedding.weight`` (same)
 ``edge/embedding/embedding [n_bond_types, d]``       ``edge.embedding.weight`` (same)
-stacked layers (the dense blocks):
+stacked layers (the dense blocks, ``ChempropBlock``):
 ``layer_i/update/kernel [d, d]``                     ``weight[i]`` ``[depth, d, d]``,
                                                      stacked, kept ``[in, out]``
 ``layer_i/update/bias [d]``                          ``bias[i]`` ``[depth, d]``
-dense layers (:class:`MLP`):
+``layer/update/kernel``, ``layer/update/bias``       ``weight [d, d]``, ``bias [d]``
+(``ChempropBlock(shared=True)``)
+(no ``bias`` leaf with ``bias=False``)               (no ``bias`` key)
+one layer (``ChempropLayer``):
+``update/kernel [d, d]``                             ``update.weight`` (transposed)
+``update/bias [d]``                                  ``update.bias``
+dense layers (``MLP``):
 ``dense_i/kernel [in, out]``                         ``dense_i.weight [out, in]``
                                                      (transposed for ``nn.Linear``)
 ``dense_i/bias [out]``                               ``dense_i.bias``
+gated readout (``Gated``):
+``a/kernel [d, 1]``, ``a/bias [1]``                  ``a.weight [1, d]`` (transposed),
+                                                     ``a.bias``
+attention readout (``SDPAttention``):
+``query [1, d]``                                     ``query`` (same)
 ==================================================  ===================================
 
-Readouts have no parameters, and so no group.
+The other readouts have no parameters, and so no group.
 """
 
 from __future__ import annotations
@@ -36,6 +47,15 @@ import torch
 
 _GROUP = "modules__"
 _LAYER = re.compile(r"(layer|dense)_(\d+)$")
+# (kind, the group's JAX keys that name it, its port keys that name it)
+_KINDS = (
+    ("embedding", {"node", "edge"}, {"node.embedding.weight", "edge.embedding.weight"}),
+    ("stacked", {"layer_0", "layer"}, {"weight"}),
+    ("update", {"update"}, {"update.weight"}),
+    ("dense", {"dense_0"}, {"dense_0.weight"}),
+    ("gated", {"a"}, {"a.weight"}),
+    ("query", {"query"}, {"query"}),
+)
 
 
 def _indexed(tree: dict, prefix: str) -> list:
@@ -48,13 +68,25 @@ def _indexed(tree: dict, prefix: str) -> list:
 
 def _kind_of_keys(keys, name: str) -> str:
     keys = set(keys)
-    if keys & {"node", "edge", "node.embedding.weight", "edge.embedding.weight"}:
-        return "embedding"
-    if keys & {"layer_0", "weight"}:
-        return "stacked"
-    if keys & {"dense_0", "dense_0.weight"}:
-        return "dense"
+    for kind, jax_keys, port_keys in _KINDS:
+        if keys & (jax_keys | port_keys):
+            return kind
     raise ValueError(f"module {name!r}: cannot tell the parameter layout of keys {sorted(keys)}")
+
+
+def _linear_from_jax(sd: dict, prefix: str, group: dict, t) -> None:
+    """A flax ``Dense`` group ``{kernel [in, out], bias?}`` as an
+    ``nn.Linear``'s ``weight [out, in]`` and ``bias``."""
+    sd[f"{prefix}.weight"] = t(group["kernel"]).T.contiguous()
+    if "bias" in group:
+        sd[f"{prefix}.bias"] = t(group["bias"])
+
+
+def _linear_to_jax(state_dict: dict, prefix: str, a) -> dict:
+    group = {"kernel": a(state_dict[f"{prefix}.weight"]).T.copy()}
+    if f"{prefix}.bias" in state_dict:
+        group["bias"] = a(state_dict[f"{prefix}.bias"])
+    return group
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
@@ -75,13 +107,20 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
             for part in ("node", "edge"):
                 sd[f"{name}.{part}.embedding.weight"] = t(group[part]["embedding"]["embedding"])
         elif kind == "stacked":
-            layers = _indexed(group, "layer")
-            sd[f"{name}.weight"] = torch.stack([t(layer["update"]["kernel"]) for layer in layers])
-            sd[f"{name}.bias"] = torch.stack([t(layer["update"]["bias"]) for layer in layers])
+            layers = [group["layer"]] if "layer" in group else _indexed(group, "layer")
+            stack = (lambda xs: xs[0]) if "layer" in group else torch.stack
+            sd[f"{name}.weight"] = stack([t(layer["update"]["kernel"]) for layer in layers])
+            if "bias" in layers[0]["update"]:
+                sd[f"{name}.bias"] = stack([t(layer["update"]["bias"]) for layer in layers])
+        elif kind == "update":
+            _linear_from_jax(sd, f"{name}.update", group["update"], t)
+        elif kind == "gated":
+            _linear_from_jax(sd, f"{name}.a", group["a"], t)
+        elif kind == "query":
+            sd[f"{name}.query"] = t(group["query"])
         else:
             for i, dense in enumerate(_indexed(group, "dense")):
-                sd[f"{name}.dense_{i}.weight"] = t(dense["kernel"]).T.contiguous()
-                sd[f"{name}.dense_{i}.bias"] = t(dense["bias"])
+                _linear_from_jax(sd, f"{name}.dense_{i}", dense, t)
     return sd
 
 
@@ -105,16 +144,24 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
                 for part in ("node", "edge")
             }
         elif kind == "stacked":
-            W, b = state_dict[f"{name}.weight"], state_dict[f"{name}.bias"]
-            group = {f"layer_{i}": {"update": {"kernel": a(W[i]), "bias": a(b[i])}} for i in range(len(W))}
+            W, b = state_dict[f"{name}.weight"], state_dict.get(f"{name}.bias")
+
+            def update(i):
+                out = {"kernel": a(W if i is None else W[i])}
+                if b is not None:
+                    out["bias"] = a(b if i is None else b[i])
+                return {"update": out}
+
+            # a shared block keeps one [d, d] layer
+            group = {"layer": update(None)} if W.dim() == 2 else {f"layer_{i}": update(i) for i in range(len(W))}
+        elif kind == "update":
+            group = {"update": _linear_to_jax(state_dict, f"{name}.update", a)}
+        elif kind == "gated":
+            group = {"a": _linear_to_jax(state_dict, f"{name}.a", a)}
+        elif kind == "query":
+            group = {"query": a(state_dict[f"{name}.query"])}
         else:
             n_dense = sum(1 for k in keys if _LAYER.match(k.split(".")[0]) and k.endswith(".weight"))
-            group = {
-                f"dense_{i}": {
-                    "kernel": a(state_dict[f"{name}.dense_{i}.weight"]).T.copy(),
-                    "bias": a(state_dict[f"{name}.dense_{i}.bias"]),
-                }
-                for i in range(n_dense)
-            }
+            group = {f"dense_{i}": _linear_to_jax(state_dict, f"{name}.dense_{i}", a) for i in range(n_dense)}
         tree[f"{_GROUP}{name}"] = group
     return tree

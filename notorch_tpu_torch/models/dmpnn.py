@@ -1,13 +1,22 @@
 """The D-MPNN property predictor: embed -> message passing -> readout -> FFN.
 
-Port of ``notorch_tpu.models.dmpnn`` for regression on the bin-packed dense
-layout, the layout ``layout="auto"`` resolves to by default, and on the
-per-molecule ``dense_fused`` layout. The block is
-:class:`~notorch_tpu_torch.nn.chemprop_dense.FusedDenseChempropBlock` for
-``reduce`` sum and mean, as in the JAX package; the loss is the masked MSE
-and the default metrics RMSE and MAE, on the same keys as there. Other
-layouts, task types and readouts raise ``NotImplementedError`` until their
-slice is ported.
+Port of ``notorch_tpu.models.dmpnn`` for regression on three layouts:
+
+- the bin-packed dense layout (``dense_packed``, what ``layout="auto"``
+  resolves to by default) and the per-molecule ``dense_fused`` layout, whose
+  block is :class:`~notorch_tpu_torch.nn.chemprop_dense.
+  FusedDenseChempropBlock` for ``reduce`` sum and mean, as in the JAX
+  package;
+- the flat layout (``flat``, what ``auto`` resolves to for remat or an
+  ``impl`` other than ``gather``): :class:`~notorch_tpu_torch.nn.embed.
+  GraphEmbedding`, :class:`~notorch_tpu_torch.nn.chemprop.ChempropBlock`
+  (sum, mean or max; ``impl`` gather, segment or csr) and every readout of
+  :mod:`notorch_tpu_torch.nn.agg`.
+
+The loss is the masked MSE and the default metrics RMSE and MAE, on the same
+keys as there. The plain ``dense`` layout, graph-axis partitioning, other
+task types and the dense layouts' other readouts raise
+``NotImplementedError`` until their slice is ported.
 """
 
 from __future__ import annotations
@@ -16,6 +25,8 @@ import torch
 
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.model.model import Model, fill_pred_transform_keys
+from notorch_tpu_torch.nn import agg
+from notorch_tpu_torch.nn.chemprop import PARALLEL_SLICE, ChempropBlock
 from notorch_tpu_torch.nn.chemprop_dense import (
     DenseGraphEmbedding,
     DenseMax,
@@ -24,6 +35,7 @@ from notorch_tpu_torch.nn.chemprop_dense import (
     FusedDenseChempropBlock,
     PackedMean,
 )
+from notorch_tpu_torch.nn.embed import GraphEmbedding
 from notorch_tpu_torch.nn.mlp import MLP
 from notorch_tpu_torch.tasks import losses as L
 from notorch_tpu_torch.tasks import metrics as M
@@ -31,9 +43,11 @@ from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
 
 AGGREGATIONS = ("sum", "mean", "max", "gated", "sdp")
-LAYOUTS = ("dense_packed", "dense_fused")
+LAYOUTS = ("dense_packed", "dense_fused", "flat")
 # the per-molecule readouts the port has (gated and sdp come later)
 DENSE_READOUTS = {"sum": DenseSum, "mean": DenseMean, "max": DenseMax}
+FLAT_READOUTS = {"sum": agg.Sum, "mean": agg.Mean, "max": agg.Max, "gated": agg.Gated,
+                 "sdp": agg.SDPAttention}
 REDUCES = ("sum", "mean", "max")
 
 
@@ -86,6 +100,7 @@ def build_dmpnn(
     remat: bool = False,
     impl: str = "gather",
     layout: str = "auto",
+    partition: str = "molecule",
     generator: torch.Generator | None = None,
 ) -> Model:
     """The canonical embed -> chemprop -> readout -> FFN predictor, with the
@@ -97,7 +112,16 @@ def build_dmpnn(
 
     ``layout="dense_fused"`` is the fused block (``fuse_ends`` off) with a
     per-molecule readout, on the per-molecule ``dense`` collate, as in the
-    JAX package."""
+    JAX package. ``layout="flat"`` is ``GraphEmbedding`` ->
+    ``ChempropBlock(impl, reduce, remat)`` -> the ``aggregation`` readout
+    -> ``MLP``, on the flat collate (with ``csr_pack`` for ``impl="csr"``).
+    ``graph_axis`` and a ``partition`` other than the default raise
+    ``NotImplementedError``."""
+    if graph_axis is not None or partition != "molecule":
+        raise NotImplementedError(
+            f"graph_axis={graph_axis!r}, partition={partition!r}: graph-partitioned SPMD "
+            f"comes with {PARALLEL_SLICE}"
+        )
     layout = resolve_layout(
         layout, dropout=dropout, dtype=dtype, graph_axis=graph_axis,
         remat=remat, impl=impl, aggregation=aggregation, reduce=reduce,
@@ -105,8 +129,10 @@ def build_dmpnn(
     if layout not in LAYOUTS:
         raise NotImplementedError(
             f"layout {layout!r} is not ported yet; the port has {list(LAYOUTS)} "
-            "(the plain 'dense' block and the 'flat' layout come with later slices)"
+            "(the plain 'dense' block comes with a later slice)"
         )
+    if dtype is not None and str(dtype).removeprefix("torch.") != "float32":
+        raise NotImplementedError(f"dtype={dtype!r}: the port's D-MPNN runs in float32")
     if layout == "dense_fused":
         if dropout and dropout > 0.0:
             raise ValueError(
@@ -120,31 +146,31 @@ def build_dmpnn(
             )
     if task != "regression":
         raise NotImplementedError(f"task {task!r} is not ported yet; only regression is")
-    readouts = DENSE_READOUTS if layout == "dense_fused" else {"mean": PackedMean}
-    if aggregation not in readouts:
-        raise NotImplementedError(
-            f"aggregation {aggregation!r} on layout {layout!r} is not ported yet; "
-            f"the port has {list(readouts)}"
-        )
-    if reduce == "max":
-        raise NotImplementedError("reduce='max' (the plain dense block) is not ported yet")
+    num_node_types = num_node_types if num_node_types is not None else DEFAULT_NUM_ATOM_TYPES
+    num_edge_types = num_edge_types if num_edge_types is not None else DEFAULT_NUM_BOND_TYPES
+    if layout == "flat":
+        embed = GraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim)
+        block = ChempropBlock(hidden_dim=hidden_dim, depth=depth, dropout=dropout, reduce=reduce,
+                              remat=remat, impl=impl)
+        width = {"gated": {"input_dim": hidden_dim}, "sdp": {"key_dim": hidden_dim}}
+        readout = FLAT_READOUTS[aggregation](**width.get(aggregation, {}))
+    else:
+        readouts = DENSE_READOUTS if layout == "dense_fused" else {"mean": PackedMean}
+        if aggregation not in readouts:
+            raise NotImplementedError(
+                f"aggregation {aggregation!r} on layout {layout!r} is not ported yet; "
+                f"the port has {list(readouts)}"
+            )
+        if reduce == "max":
+            raise NotImplementedError("reduce='max' (the plain dense block) is not ported yet")
+        embed = DenseGraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim)
+        block = FusedDenseChempropBlock(hidden_dim=hidden_dim, depth=depth, reduce=reduce)
+        readout = readouts[aggregation]()
 
     modules = {
-        "embed": {
-            "module": DenseGraphEmbedding(
-                num_node_types if num_node_types is not None else DEFAULT_NUM_ATOM_TYPES,
-                num_edge_types if num_edge_types is not None else DEFAULT_NUM_BOND_TYPES,
-                hidden_dim=hidden_dim,
-            ),
-            "in_keys": ["inputs.G"],
-            "out_keys": ["G"],
-        },
-        "mp": {
-            "module": FusedDenseChempropBlock(hidden_dim=hidden_dim, depth=depth, reduce=reduce),
-            "in_keys": ["embed.G"],
-            "out_keys": ["G"],
-        },
-        "readout": {"module": readouts[aggregation](), "in_keys": ["mp.G"], "out_keys": ["H"]},
+        "embed": {"module": embed, "in_keys": ["inputs.G"], "out_keys": ["G"]},
+        "mp": {"module": block, "in_keys": ["embed.G"], "out_keys": ["G"]},
+        "readout": {"module": readout, "in_keys": ["mp.G"], "out_keys": ["H"]},
         "ffn": {
             "module": MLP(
                 input_dim=hidden_dim, output_size=num_tasks, hidden_dim=hidden_dim,

@@ -3,6 +3,7 @@
 ``EmbeddingBagSum`` is ``nn.EmbeddingBag(mode="sum")`` over multi-family
 type indices: one ``nn.Embedding`` lookup summed over the family axis, as
 ``notorch_tpu.nn.embed.EmbeddingBagSum`` takes and sums.
+:class:`GraphEmbedding` embeds a flat batch's node and edge type ids.
 """
 
 from __future__ import annotations
@@ -10,7 +11,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
+from notorch_tpu_torch.data.graph import BatchedGraph
 from notorch_tpu_torch.nn.init import embed_normal_
+from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
 
 
 class EmbeddingBagSum(nn.Module):
@@ -26,3 +30,25 @@ class EmbeddingBagSum(nn.Module):
 
     def forward(self, type_ids: torch.Tensor) -> torch.Tensor:
         return self.embedding(type_ids.long()).sum(dim=-2)
+
+
+class GraphEmbedding(nn.Module):
+    """Embed a flat batch's node and edge type indices into float hiddens
+    (``node``/``edge`` tables, as the JAX ``GraphEmbedding``'s)."""
+
+    def __init__(
+        self,
+        num_node_types: int = DEFAULT_NUM_ATOM_TYPES,
+        num_edge_types: int = DEFAULT_NUM_BOND_TYPES,
+        hidden_dim: int = DEFAULT_HIDDEN_DIM,
+    ):
+        super().__init__()
+        self.node = EmbeddingBagSum(num_node_types, hidden_dim)
+        self.edge = EmbeddingBagSum(num_edge_types, hidden_dim)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        self.node.reset_parameters(generator)
+        self.edge.reset_parameters(generator)
+
+    def forward(self, G: BatchedGraph) -> BatchedGraph:
+        return G.update(node_feats=self.node(G.node_feats), edge_feats=self.edge(G.edge_feats))

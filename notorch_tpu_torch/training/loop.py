@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from notorch_tpu_torch.data.dense import DenseBatchedGraph
+from notorch_tpu_torch.data.graph import BatchedGraph
 from notorch_tpu_torch.model.model import Model
 
 
@@ -32,10 +33,10 @@ class FitResult:
 
 
 def to_device(batch: Mapping[str, Any], device) -> dict:
-    """A host batch (numpy arrays, tensors, dense graphs) on ``device``."""
+    """A host batch (numpy arrays, tensors, flat or dense graphs) on ``device``."""
     out = {}
     for k, v in batch.items():
-        if isinstance(v, DenseBatchedGraph):
+        if isinstance(v, (BatchedGraph, DenseBatchedGraph)):
             v = v.to(device)
         elif isinstance(v, np.ndarray):
             v = torch.from_numpy(v).to(device)

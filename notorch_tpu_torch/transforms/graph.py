@@ -14,7 +14,7 @@ from typing import ClassVar
 import numpy as np
 
 from notorch_tpu_torch.chem.mol import Molecule
-from notorch_tpu_torch.data.graph import Graph
+from notorch_tpu_torch.data.graph import BatchedGraph, Graph, pad_graphs
 from notorch_tpu_torch.transforms.atom import AtomTransform, MultiTypeAtomTransform
 from notorch_tpu_torch.transforms.bond import BondTransform, MultiTypeBondTransform
 
@@ -58,11 +58,13 @@ class MolToGraph:
         )
 
     @staticmethod
-    def collate(graphs: list[Graph], node_cap: int | None = None, edge_cap: int | None = None):
-        """Pad-collate into the flat layout, which this package does not have
-        yet: the dense layouts collate through
-        :meth:`notorch_tpu_torch.data.dataset.MolecularDataset.collate`."""
-        raise NotImplementedError(
-            "the flat padded layout (pad_graphs) is not ported yet; use "
-            "DataLoader(layout='dense_packed')"
+    def collate(graphs: list[Graph], node_cap: int | None = None, edge_cap: int | None = None) -> BatchedGraph:
+        """Pad-collate into the flat layout. Without caps, pads to the exact
+        batch totals (+1 node sink slot) — bucketing callers pass explicit caps."""
+        total_v = sum(g.num_nodes for g in graphs) + 1
+        total_e = max(sum(g.num_edges for g in graphs), 1)
+        return pad_graphs(
+            graphs,
+            node_cap=node_cap if node_cap is not None else total_v,
+            edge_cap=edge_cap if edge_cap is not None else total_e,
         )

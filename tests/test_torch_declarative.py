@@ -284,8 +284,13 @@ def test_run_writes_a_checkpoint_run_predict_serves(lipo_csv, tmp_path):
 
 
 def test_flat_declarative_layout_is_refused(lipo_csv):
-    cfg = {"data": {"csv": str(lipo_csv), "targets": {"y": {"columns": ["lipo"]}}},
-           "model": {k: v for k, v in slice_model_cfg().items() if k != "layout"}}
+    """The flat layout (a declarative config's default) is ported; what it
+    still refuses is named: here edge dropout in the flat block."""
+    model = {k: v for k, v in slice_model_cfg().items() if k != "layout"}
+    model["modules"] = {**model["modules"], "embed": {**model["modules"]["embed"], "class": "GraphEmbedding"},
+                        "mp": {"class": "ChempropBlock", "args": {"hidden_dim": D, "dropout": 0.1},
+                               "in_keys": ["embed.G"], "out_keys": ["G"]}}
+    cfg = {"data": {"csv": str(lipo_csv), "targets": {"y": {"columns": ["lipo"]}}}, "model": model}
     with pytest.raises(NotImplementedError, match="flat"):
         run(cfg, device="cpu")
 

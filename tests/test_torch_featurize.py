@@ -115,6 +115,8 @@ def test_rev_pair_swap():
 
 
 def test_loader_rejects_unported_layouts():
+    """Every layout of the JAX loader is ported (flat, dense, dense_packed);
+    any other name, such as the model-side "auto", is refused with the list."""
     ds = MolecularDataset(_lipo(4), {"graph": PIPE})
-    with pytest.raises(NotImplementedError, match="flat"):
-        DataLoader(ds, layout="flat")
+    with pytest.raises(ValueError, match="flat"):
+        DataLoader(ds, layout="auto")

@@ -1,5 +1,7 @@
-"""The CUDA kernels of the fused D-MPNN block, the fused encoder and the
-double-buffered forward against their plain versions, on the card. Skips
+"""The CUDA kernels of the fused D-MPNN block, the fused encoder, the
+double-buffered forward and the two CSR segment sums against their plain
+versions, on the card; the flat block through the packed sum, card against
+CPU. Skips
 where there is no CUDA device. This file imports no JAX, so that it also
 runs where JAX is not installed:
 
@@ -10,6 +12,12 @@ Tolerances: rtol=atol=1e-4 for the forward kernels, both sides exact f32
 and atol 1e-4 times the tensor's largest magnitude, because g_W and g_b sum
 B * E products each, so the rounding of an element follows the size of
 the terms it sums, not its own size, which cancellation can make small.
+The segment sums: bit for bit the plain version on the CPU, which adds
+each row's terms in the kernel's order; against the plain version on the
+card (atomic adds, in no fixed order) within 1e-5 times the sum of the
+absolute values of each element's terms, since the rounding of a sum taken
+in another order grows with its terms, not with the sum (a node of the
+padding sink or an over-full node sums thousands of terms).
 """
 
 import numpy as np
@@ -17,6 +25,14 @@ import pytest
 import torch
 
 from notorch_tpu_torch.data.dense import pack_graphs_dense, pad_graphs_dense
+from notorch_tpu_torch.data.graph import csr_row_ptr, pad_graphs, sort_edges_by_dst, with_csr_packing
+from notorch_tpu_torch.kernels.csr_segment import (
+    csr_segment_sum,
+    csr_segment_sum_packed,
+    csr_segment_sum_packed_reference,
+    csr_segment_sum_reference,
+    pack_edges_by_tile,
+)
 from notorch_tpu_torch.kernels.dense_mpnn import (
     dense_encoder_bwd_reference,
     dense_encoder_reference,
@@ -31,6 +47,7 @@ from notorch_tpu_torch.kernels.dense_mpnn import (
     fused_dense_mpnn_block_dbuf,
     fused_dense_mpnn_block_stash,
 )
+from notorch_tpu_torch.nn.chemprop import ChempropBlock
 from notorch_tpu_torch.transforms import MolToGraph, Pipeline, SmiToMol
 
 PIPE = Pipeline(SmiToMol(), MolToGraph())
@@ -232,3 +249,137 @@ def test_cuda_dbuf_matches_plain_version_and_row_1(E, reduce, residual):
     ref = dense_mpnn_block_reference(*args, depth=3, residual=residual, reduce=reduce)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
     assert torch.equal(out, row1), f"dbuf differs from row 1 by {float((out - row1).abs().max())}"
+
+
+def _hold_sum(out, plain, data, *index):
+    """``out`` (the kernel) against ``plain`` (a plain version, called on
+    ``data`` and ``index``): bitwise against its CPU run, and within 1e-5 of
+    the sum of |terms| against its run on the card."""
+    on_cpu = plain(data.cpu(), *(i.cpu() if isinstance(i, torch.Tensor) else i for i in index))
+    assert torch.equal(out.cpu(), on_cpu), f"differs from the CPU plain version by {(out.cpu() - on_cpu).abs().max()}"
+    mass = plain(data.abs(), *index)
+    assert ((out - plain(data, *index)).abs() <= 1e-5 * mass).all()
+
+
+def _packed_case(kind, d, seed=0):
+    """(data, perm, packed_dst, dst, edge_mask, V) on the card: a flat batch
+    of molecules (only real edges packed), or random ids over 256 nodes with
+    node 3 holding 12,500 edges, so that the budget (13,056 slots) takes
+    more than 48 KiB of shared memory."""
+    rng = np.random.default_rng(seed)
+    if kind == "molecules":
+        bg = with_csr_packing(pad_graphs([PIPE(s) for s in SMIS], 1024, 2048, np_out=True))
+        dst, mask, perm, pdst, V = bg.dst, bg.edge_mask, bg.csr_perm, bg.csr_dst, 1024
+    else:
+        V = 256
+        dst = np.concatenate([rng.integers(0, V, size=1000), np.full(12500, 3)]).astype(np.int32)
+        dst = dst[rng.permutation(len(dst))]
+        mask = np.ones(len(dst), bool)
+        perm, pdst, _ = pack_edges_by_tile(dst, num_nodes=V)
+    data = rng.standard_normal((len(dst), d)).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (data, perm, pdst, dst, mask)] + [V]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["molecules", "random"])
+@pytest.mark.parametrize("d", [256, 36])
+def test_cuda_csr_packed_matches_plain_version(kind, d):
+    """Row 9 against its plain version, one launch a call, and two calls
+    give the same bits (a fixed summation order, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    data, perm, pdst, _, _, V = _packed_case(kind, d)
+    before = csr_segment_sum_packed.launches
+    out = csr_segment_sum_packed(data, perm, pdst, V)
+    again = csr_segment_sum_packed(data, perm, pdst, V)
+    torch.cuda.synchronize()
+    assert csr_segment_sum_packed.launches == before + 2
+    _hold_sum(out, csr_segment_sum_packed_reference, data, perm, pdst, V)
+    assert torch.equal(out, again), "the packed sum is not repeatable"
+
+
+@pytest.mark.gpu
+def test_cuda_csr_packed_gradient():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    data, perm, pdst, dst, mask, V = _packed_case("molecules", 64)
+    x = data.clone().requires_grad_()
+    g = torch.randn(V, 64, device="cuda")
+    csr_segment_sum_packed(x, perm, pdst, V, dst=dst, edge_mask=mask).backward(g)
+    assert torch.equal(x.grad, torch.where(mask[:, None], g[dst.long()], 0.0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["molecules", "random"])
+@pytest.mark.parametrize("d", [256, 36])
+def test_cuda_csr_rowptr_matches_plain_version(kind, d):
+    """Row 8 on dst-sorted edges: a sorted flat batch (padding at the sink),
+    or random sorted ids with empty nodes and one node of 3,000 edges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    if kind == "molecules":
+        bg, _ = sort_edges_by_dst(pad_graphs([PIPE(s) for s in SMIS], 1024, 2048, np_out=True))
+        dst, V = bg.dst, 1024
+    else:
+        rng = np.random.default_rng(1)
+        V = 256
+        ids = rng.integers(0, V, size=1096)
+        dst = np.sort(np.concatenate([ids[(ids < 10) | (ids > 20)], np.full(3000, 3)])).astype(np.int32)
+        dst = np.concatenate([dst, np.full(4096 - len(dst), V - 1, np.int32)])
+    data = torch.from_numpy(np.random.default_rng(2).standard_normal((len(dst), d)).astype(np.float32)).cuda()
+    dst_t, row_ptr = torch.from_numpy(dst).cuda(), torch.from_numpy(csr_row_ptr(dst, V)).cuda()
+    before = csr_segment_sum.launches
+    out = csr_segment_sum(data, dst_t, row_ptr, V)
+    again = csr_segment_sum(data, dst_t, row_ptr, V)
+    torch.cuda.synchronize()
+    assert csr_segment_sum.launches == before + 2
+    _hold_sum(out, csr_segment_sum_reference, data, row_ptr, V)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+def test_cuda_csr_kernels_reject_what_they_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    data, perm, pdst, dst, _, V = _packed_case("molecules", 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        csr_segment_sum_packed(torch.zeros(data.numel() + 1, device="cuda")[1:].view_as(data), perm, pdst, V)
+    with pytest.raises(TypeError, match="float32"):
+        csr_segment_sum_packed(data.double(), perm, pdst, V)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        csr_segment_sum_packed(data[:, :30].contiguous(), perm, pdst, V)
+    big = torch.full((128 * 65536,), -1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="slots"):
+        csr_segment_sum_packed(data, big, big, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_cuda_flat_csr_block_matches_cpu(reduce):
+    """ChempropBlock(impl="csr") on the card against the same block on the
+    CPU: node and edge hiddens and every gradient; with sum, every layer's
+    reduce and the final one launch the packed kernel (forward only)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bg = with_csr_packing(pad_graphs([PIPE(s) for s in SMIS], 1024, 2048, np_out=True))
+    rng = np.random.default_rng(3)
+    nf, ef = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) for shape in ((1024, 64), (2048, 64)))
+    block = ChempropBlock(hidden_dim=64, depth=3, impl="csr", reduce=reduce)
+    block.reset_parameters(torch.Generator().manual_seed(0))
+    outs, grads = [], []
+    for device in ("cpu", "cuda"):
+        block.to(device).zero_grad()
+        x_n, x_e = nf.to(device, copy=True).requires_grad_(), ef.to(device, copy=True).requires_grad_()
+        before = csr_segment_sum_packed.launches
+        out = block(bg.to(device).update(node_feats=x_n, edge_feats=x_e))
+        (out.node_feats.square().sum() + out.edge_feats.sum()).backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert csr_segment_sum_packed.launches - before == (4 if reduce == "sum" else 0)
+        outs.append([out.node_feats.detach().cpu(), out.edge_feats.detach().cpu()])
+        # copies: moving the block moves its parameters' .grad with them
+        grads.append([g.to("cpu", copy=True) for g in (x_n.grad, x_e.grad, block.weight.grad, block.bias.grad)])
+    for a, r in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+    _close_grads(grads[1], grads[0])

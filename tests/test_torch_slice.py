@@ -172,8 +172,8 @@ def test_config_builds_the_served_model():
 def test_unported_model_options_raise():
     with pytest.raises(NotImplementedError, match="dense"):
         build_dmpnn(hidden_dim=8, dropout=0.1)
-    with pytest.raises(NotImplementedError, match="flat"):
-        build_dmpnn(hidden_dim=8, layout="flat")
+    with pytest.raises(NotImplementedError, match="flat"):  # edge dropout in the flat block
+        build_dmpnn(hidden_dim=8, layout="flat", dropout=0.1)
     with pytest.raises(NotImplementedError, match="regression"):
         build_dmpnn(hidden_dim=8, task="classification")
     with pytest.raises(ValueError, match="aggregation"):
