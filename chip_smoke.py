@@ -31,7 +31,23 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
   against the CPU, and ``run_predict`` of its checkpoint, 512 molecules;
 - train/serve declarative flat: the model of
   ``configs/declarative_example.yaml`` (hidden 128, the gather block, the
-  gated readout) for one epoch, card against CPU, and its checkpoint served.
+  gated readout) for one epoch, card against CPU, and its checkpoint served;
+- attention kernels: the four entries of the attention core (rows 10-13)
+  against their plain versions at the graph transformer's first packed
+  batch, the dense loader's first and widest batches and random bins of
+  V = 256, E = 512, edge bias on and off, each backward twice, bit for
+  bit; rows 10-11, which no module calls, over the graph transformer's
+  packed batches in a phase of their own;
+- train/serve declarative attention: a declarative graph transformer
+  (``DenseGATBlock`` with ``impl: fused, fwd_impl: pallas``, hidden 256,
+  depth 3, 4 heads) on the per-molecule dense layout, whose every forward
+  runs row 12 and every backward row 13, card against CPU, 2 epochs, then
+  its checkpoint served;
+- train/serve graph transformer and gat: ``configs/graph_transformer_
+  regression.yaml`` (2 epochs) and ``configs/gat_regression.yaml`` (1
+  epoch) as shipped, on their bins of 256 edge lanes and 128 node slots, no
+  kernel of the port on their paths (nor of the JAX package on its), card
+  against CPU, then served.
 
 Every kernel is held against its plain PyTorch version on the card at the
 shapes these paths give it, each path's launch counts are read, and the
@@ -66,6 +82,14 @@ from notorch_tpu_torch.kernels.csr_segment import (
     csr_segment_sum_packed_reference,
     csr_segment_sum_reference,
 )
+from notorch_tpu_torch.kernels.dense_attention import (
+    dense_attention_bwd_reference,
+    dense_attention_reference,
+    fused_dense_attention_bwd,
+    fused_dense_attention_bwd_v2,
+    fused_dense_attention_fwd,
+    fused_dense_attention_fwd_v2,
+)
 from notorch_tpu_torch.kernels.dense_mpnn import (
     dense_encoder_bwd_reference,
     dense_encoder_reference,
@@ -82,8 +106,9 @@ from notorch_tpu_torch.kernels.dense_mpnn import (
     fused_dense_mpnn_block_stash,
 )
 from notorch_tpu_torch.models.dmpnn import build_dmpnn
+from notorch_tpu_torch.models.gat import gat_loader_kwargs
 from notorch_tpu_torch.training.checkpoint import Checkpointer
-from notorch_tpu_torch.training.loop import fit
+from notorch_tpu_torch.training.loop import fit, to_device
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
 
 ROOT = Path(__file__).resolve().parent
@@ -105,6 +130,27 @@ RTOL = ATOL = 1e-4
 # is round-off on both sides can move a weight by up to the rate the other
 # way; over the run's steps that stays far below this, and a fault does not
 TRAIN_RTOL = 1e-3
+# the attention models' runs, card vs CPU: there Adam turns rounding noise
+# into rate-sized steps that differ between the two devices (the
+# pure-noise gradients of the biases of W_k, W_bias and GATv2's a, which
+# move no softmax, and the gradient elements of the blocks' ReLU
+# feed-forward that a pre-activation within rounding of zero flips on one
+# device), and the runs drift apart step by step whatever computes them:
+# over 26 steps the graph-transformer recipe, whose path holds no kernel of
+# the port, drifted up to 1.7e-2 and the declarative graph transformer up
+# to 1.5e-2 (H100, 700 W), while each step from the same weights agreed
+# within 2.3e-7 in loss. So every step is checked in lockstep, from the same
+# weights and optimizer state on both devices, and the whole runs only
+# against a gross fault
+ATTENTION_RUN_RTOL = 1e-1
+# lockstep: each step's loss, relative (measured up to 2.3e-7), and each
+# gradient at LOCKSTEP_GRAD_RTOL times its largest magnitude: one flipped
+# ReLU unit moves a gradient element by that node's whole term (measured up
+# to 1.5e-2 of a tensor's largest magnitude); a wrong or missing gradient
+# term moves it by its own size. The pure-noise biases are left out
+LOCKSTEP_RTOL = 1e-4
+LOCKSTEP_GRAD_RTOL = 1e-1
+ZERO_GRADIENTS = ("W_k.bias", "W_bias.bias", "a.bias")
 # H100 SXM peaks at its 700 W limit (NVIDIA data sheet): CUDA-core f32 rate
 # and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -116,6 +162,8 @@ PEAK_BYTES_PER_S = 3.35e12
 SUM_ATOL = 1e-5
 TPU_KERNELS = "notorch_tpu/kernels/dense_mpnn.py"
 TPU_CSR = "notorch_tpu/kernels/csr_segment.py"
+TPU_ATTN = "notorch_tpu/kernels/dense_attention.py"
+ATTN_SOURCE = "notorch_tpu_torch/csrc/dense_attention.cu"
 KERNELS = {  # wrapper -> (source, the TPU kernel's entry it replaces)
     fused_dense_mpnn_block: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:749"),
     fused_dense_mpnn_block_stash: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:436"),
@@ -126,7 +174,18 @@ KERNELS = {  # wrapper -> (source, the TPU kernel's entry it replaces)
     fused_dense_mpnn_block_dbuf: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:1272"),
     csr_segment_sum: ("notorch_tpu_torch/csrc/csr_segment.cu", f"{TPU_CSR}:245"),
     csr_segment_sum_packed: ("notorch_tpu_torch/csrc/csr_segment.cu", f"{TPU_CSR}:179"),
+    fused_dense_attention_fwd: (ATTN_SOURCE, f"{TPU_ATTN}:265"),
+    fused_dense_attention_bwd: (ATTN_SOURCE, f"{TPU_ATTN}:297"),
+    fused_dense_attention_fwd_v2: (ATTN_SOURCE, f"{TPU_ATTN}:539"),
+    fused_dense_attention_bwd_v2: (ATTN_SOURCE, f"{TPU_ATTN}:573"),
 }
+# the model sections of configs/graph_transformer_regression.yaml and
+# configs/gat_regression.yaml (their data, optimizer and trainer sections
+# are configs/dmpnn_regression.yaml's)
+GT_CFG = {"kind": "graph_transformer", "hidden_dim": 256, "depth": 3, "num_heads": 4, "aggregation": "mean",
+          "ffn_layers": 1}
+GAT_CFG = {"kind": "gat", "hidden_dim": 256, "depth": 3, "num_heads": 4, "attention": "gatv2",
+           "aggregation": "mean", "ffn_layers": 1}
 
 
 def declarative_model_cfg(d: int = 256, depth: int = 3) -> dict:
@@ -154,6 +213,19 @@ def declarative_model_cfg(d: int = 256, depth: int = 3) -> dict:
         "metrics": {"rmse": {"class": "RMSE", "in_keys": dict(keys)},
                     "mae": {"class": "MetricMAE", "in_keys": dict(keys)}},
     }
+
+
+def declarative_attention_model_cfg(d: int = 256, depth: int = 3, heads: int = 4) -> dict:
+    """The declarative graph transformer on the attention kernels' path:
+    declarative_model_cfg with the block DenseGATBlock(attention: sdp,
+    impl: fused, fwd_impl: pallas), so that each forward runs row 12 and
+    each backward row 13 in every layer."""
+    cfg = declarative_model_cfg(d, depth)
+    cfg["modules"]["mp"] = {"class": "DenseGATBlock",
+                            "args": {"attention": "sdp", "impl": "fused", "fwd_impl": "pallas",
+                                     "hidden_dim": d, "depth": depth, "num_heads": heads},
+                            "in_keys": ["embed.G"], "out_keys": ["G"]}
+    return cfg
 
 
 def declarative_flat_model_cfg(d: int = 128) -> dict:
@@ -433,7 +505,7 @@ def profile_busy(run) -> dict:
     busy_ms = sum(ms for _, ms, _ in kernels)
     by_kernel = {}
     for fragment in ("dense_mpnn_plain_kernel", "dense_mpnn_ends_kernel", "adjoint_kernel",
-                     "weight_grad_partial", "reduce_chunks", "input_grad_kernel"):
+                     "weight_grad_partial", "reduce_chunks", "input_grad_kernel", "attn_kernel"):
         by_kernel[fragment] = sum(ms for k, ms, _ in kernels if fragment in k)
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
@@ -499,9 +571,10 @@ def serve_phase(tmp: Path, ds, csv_path: Path, n_batches: int) -> int:
     return counts["fused_dense_mpnn_block"]
 
 
-def compare_runs(card: dict, cpu: dict, what: str, epochs: int = TRAIN_EPOCHS) -> dict[str, float]:
+def compare_runs(card: dict, cpu: dict, what: str, epochs: int = TRAIN_EPOCHS,
+                 rtol: float = TRAIN_RTOL) -> dict[str, float]:
     """Relative differences of the per-epoch loss and metrics and the test
-    metrics of two ``run`` results; fails beyond TRAIN_RTOL."""
+    metrics of two ``run`` results; fails beyond ``rtol``."""
     if len(card["history"]) != epochs or len(cpu["history"]) != epochs:
         fail(f"{what}: expected {epochs} epochs, got {len(card['history'])} and {len(cpu['history'])}")
     diffs = {}
@@ -511,7 +584,7 @@ def compare_runs(card: dict, cpu: dict, what: str, epochs: int = TRAIN_EPOCHS) -
     for key in sorted(cpu["test"]):
         diffs[f"test/{key}"] = rel_diff(card["test"][key], cpu["test"][key])
     worst = max(diffs.values())
-    if not worst <= TRAIN_RTOL:
+    if not worst <= rtol:
         fail(f"{what}: the card's training run and the CPU's differ by {worst} relative: {diffs}")
     return diffs
 
@@ -825,9 +898,9 @@ def train_flat_phase(tmp: Path) -> tuple[dict[str, int], Path]:
     return counts, card_ckpt
 
 
-def serve_flat_phase(tmp: Path, ckpt: Path, phase: str, expect: dict[str, int]) -> dict[str, int]:
-    """run_predict of a flat checkpoint on N_MOLS molecules, on the card
-    against the CPU; cold and warm request time and the busy share of a warm
+def serve_checkpoint_phase(tmp: Path, ckpt: Path, phase: str, expect: dict[str, int]) -> dict[str, int]:
+    """run_predict of a checkpoint on N_MOLS molecules, on the card against
+    the CPU; cold and warm request time and the busy share of a warm
     request. Fails unless the request launched exactly ``expect`` (every
     other kernel 0). Returns the request's launches."""
     csv_path = lipo_csv(tmp, N_MOLS)
@@ -883,6 +956,236 @@ def train_declarative_flat_phase(tmp: Path) -> Path:
          run_s_cpu=cpu_s, history_card=card["history"], history_cpu=cpu["history"],
          test_card=card["test"], test_cpu=cpu["test"], rel_diff_vs_cpu=diffs, rel_tol=TRAIN_RTOL)
     return card_ckpt
+
+
+def attention_inputs(src, dst, mask, V: int, d: int, heads: int, seed: int, edge_bias: bool = True) -> list:
+    """Seeded q, k, v, the edge bias (or None) and a cotangent over the
+    index arrays ``src``, ``dst``, ``mask`` [B, E] of bins of V node slots,
+    on the card: ``[q, k, v, eb, src, dst, edge_mask, g]``."""
+    rng = np.random.default_rng(seed)
+    B, E = src.shape
+    f32 = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    arrays = [f32(B, V, d), f32(B, V, d), f32(B, V, d), f32(B, heads, E) if edge_bias else None,
+              src, dst, mask, f32(B, V, d)]
+    return [None if x is None else torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in arrays]
+
+
+def batch_attention_inputs(G, d: int, heads: int, seed: int, edge_bias: bool = True) -> list:
+    """attention_inputs on a real dense batch (packed or per molecule)."""
+    return attention_inputs(G.src, G.dst, G.edge_mask, G.node_mask.shape[1], d, heads, seed, edge_bias)
+
+
+def random_attention_inputs(d: int, heads: int, seed: int, edge_bias: bool) -> list:
+    """Four random bins of V = 256 node slots and E = 512 edge lanes: edges
+    over the first 198 slots, so that slots 198-199 are bond-less molecules
+    and 200-255 padding; a fifth of the lanes masked; every seventh lane
+    repeats the pair before it (a pair with two edges)."""
+    rng = np.random.default_rng(seed)
+    src, dst = (rng.integers(0, 198, (4, 512)).astype(np.int32) for _ in range(2))
+    src[:, 1::7], dst[:, 1::7] = src[:, :-1:7], dst[:, :-1:7]
+    return attention_inputs(src, dst, rng.random((4, 512)) < 0.8, 256, d, heads, seed, edge_bias)
+
+
+def compare_attention(x: list, heads: int, case: str) -> dict:
+    """Rows 10-13 against their plain versions on every lane: forward at
+    RTOL/ATOL, every gradient at ATOL times its largest magnitude; each
+    backward twice, bit for bit."""
+    q, k, v, eb, src, dst, mask, g = x
+    args = (q, k, v, eb, src, dst, mask)
+    ref = dense_attention_reference(*args, heads)
+    ref_grads = dense_attention_bwd_reference(*args, g, heads)
+    errs = {}
+    for fwd, bwd in ((fused_dense_attention_fwd, fused_dense_attention_bwd),
+                     (fused_dense_attention_fwd_v2, fused_dense_attention_bwd_v2)):
+        out = fwd(*args, num_heads=heads)
+        first = bwd(*args, g, num_heads=heads)
+        second = bwd(*args, g, num_heads=heads)
+        torch.cuda.synchronize()
+        errs[fwd.__name__] = held(f"{fwd.__name__} ({case})", out, ref, False)
+        names = ("g_q", "g_k", "g_v", "g_eb")[: 4 if eb is not None else 3]
+        errs[bwd.__name__] = max(held(f"{bwd.__name__} {n} ({case})", a, r, True)
+                                 for n, a, r in zip(names, first, ref_grads))
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            fail(f"two calls of {bwd.__name__} on the same inputs differ ({case})")
+    B, V, d = q.shape
+    return {"case": case, "B": B, "V": V, "E": src.shape[1], "d": d, "heads": heads,
+            "edge_bias": eb is not None, "real_edges": int(mask.sum()), "live_pairs": live_pairs(x),
+            "max_abs_err": errs, "bitwise_repeatable": True}
+
+
+def live_pairs(x: list) -> int:
+    """The (bin, i, j) pairs with a real edge j -> i: the lanes of the
+    masked softmax that hold weight."""
+    q, _, _, _, src, dst, mask, _ = x
+    ids = torch.arange(q.shape[1], device=q.device)
+    S = ((dst.long()[:, None, :] == ids[None, :, None]) & mask[:, None, :]).float()
+    Gm = (src.long()[:, :, None] == ids[None, None, :]).float()
+    return int((torch.bmm(S, Gm) > 0).sum())
+
+
+def attention_v1_phase(batches: list[dict], d: int, heads: int) -> tuple[int, float, float]:
+    """Rows 10-11, which no module calls, on seeded q/k/v/eb and cotangents
+    over each batch of the graph transformer's packed loader, in a phase of
+    their own; then held against their plain versions (those calls launch
+    nothing). Returns the launches of each and their largest errors."""
+    inputs = [batch_attention_inputs(b["inputs.G"], d, heads, SEED + 40 + i) for i, b in enumerate(batches)]
+    reset_launches()
+    outs = [(fused_dense_attention_fwd(*x[:7], num_heads=heads),
+             fused_dense_attention_bwd(*x[:7], x[7], num_heads=heads)) for x in inputs]
+    torch.cuda.synchronize()
+    counts = launches()
+    n = len(batches)
+    if counts != {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_attention_fwd": n,
+                  "fused_dense_attention_bwd": n}:
+        fail(f"the v1 attention phase launched {counts}; expected rows 10 and 11 {n} times each")
+    fwd_err = bwd_err = 0.0
+    for x, (out, grads) in zip(inputs, outs):
+        fwd_err = max(fwd_err, held("fused_dense_attention_fwd (packed batch)", out,
+                                    dense_attention_reference(*x[:7], heads), False))
+        ref = dense_attention_bwd_reference(*x[:7], x[7], heads)
+        bwd_err = max(bwd_err, *(held("fused_dense_attention_bwd (packed batch)", a, r, True)
+                                 for a, r in zip(grads, ref)))
+    return n, fwd_err, bwd_err
+
+
+def train_run_phase(tmp: Path, phase: str, model: dict, epochs: int, check) -> tuple[dict[str, int], Path]:
+    """run(cfg) of ``model`` with the data, optimizer and trainer of
+    MODEL_CFG's config on the card and on the CPU, compared epoch by epoch
+    at ATTENTION_RUN_RTOL, then every step of that run in lockstep.
+    ``check(counts, steps)`` returns what is wrong with the card run's
+    launches, or None. Returns the launches and the card's checkpoint."""
+    csv_path = lipo_csv(tmp, TRAIN_MOLS)
+    card_ckpt = tmp / f"{phase}_card"
+    cfg = train_config(csv_path, card_ckpt, model)
+    cfg["trainer"]["epochs"] = epochs
+    reset_launches()
+    t0 = time.perf_counter()
+    card = run(cfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launches()
+    steps = Checkpointer(card_ckpt).latest_step()
+    if not steps:
+        fail(f"{phase}: the card's run wrote no checkpoint in {card_ckpt}")
+    wrong = check(counts, steps)
+    if wrong:
+        fail(f"{phase}: the card's run of {steps} steps launched {counts}; {wrong}")
+    cpu_cfg = train_config(csv_path, tmp / f"{phase}_cpu", model)
+    cpu_cfg["trainer"]["epochs"] = epochs
+    t0 = time.perf_counter()
+    cpu = run(cpu_cfg, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diffs = compare_runs(card, cpu, phase, epochs=epochs, rtol=ATTENTION_RUN_RTOL)
+    emit(phase=phase, molecules=TRAIN_MOLS, epochs=epochs, steps=steps, kernel_launches=counts,
+         run_s_card=card_s, run_s_cpu=cpu_s,
+         warm_epoch_ms_per_step=card["history"][-1]["time"] * 1e3 / (steps // epochs),
+         history_card=card["history"], history_cpu=cpu["history"], test_card=card["test"],
+         test_cpu=cpu["test"], rel_diff_vs_cpu=diffs, rel_tol=ATTENTION_RUN_RTOL,
+         lockstep=lockstep(train_config(csv_path, None, model), epochs, phase))
+    return counts, card_ckpt
+
+
+def lockstep(cfg: dict, epochs: int, what: str) -> dict:
+    """Every step of ``cfg``'s run taken on the card and on the CPU from the
+    card's weights and optimizer state (copied to the CPU before each step),
+    on the run's own batches in its order: fails unless each step's loss
+    agrees within LOCKSTEP_RTOL relative and each gradient, but those of
+    ZERO_GRADIENTS, within LOCKSTEP_GRAD_RTOL times its largest magnitude."""
+    card, cpu = prepare(cfg), prepare(cfg, "cpu")["model"]
+    model, loader = card["model"], card["train_loader"]
+    loss_diff, grad_diff, worst = 0.0, 0.0, None
+    steps = 0
+    for epoch in range(epochs):
+        loader.set_epoch(epoch)
+        for batch in loader:
+            cpu.network.load_state_dict(model.network.state_dict())
+            cpu.optimizer.load_state_dict(model.optimizer.state_dict())
+            ours = model.train_step(to_device(batch, model.device))
+            theirs = cpu.train_step(to_device(batch, "cpu"))
+            loss_diff = max(loss_diff, rel_diff(float(ours["train/loss"]), float(theirs["train/loss"])))
+            grads = {n: p.grad for n, p in cpu.network.named_parameters()}
+            for name, p in model.network.named_parameters():
+                if name.endswith(ZERO_GRADIENTS):
+                    continue
+                ref = grads[name]
+                err = float((p.grad.cpu() - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+                if err > grad_diff:
+                    grad_diff, worst = err, name
+            steps += 1
+    if not (loss_diff <= LOCKSTEP_RTOL and grad_diff <= LOCKSTEP_GRAD_RTOL):
+        fail(f"{what}: in lockstep the card's steps and the CPU's differ: loss {loss_diff} relative, "
+             f"gradients {grad_diff} of their largest magnitude ({worst})")
+    return {"steps": steps, "max_loss_rel_diff": loss_diff, "max_grad_err_over_max": grad_diff,
+            "worst_gradient": worst, "rtol": LOCKSTEP_RTOL, "grad_rtol_over_max": LOCKSTEP_GRAD_RTOL}
+
+
+def no_kernel(counts: dict[str, int], steps: int) -> str | None:
+    return None if not any(counts.values()) else "its path has no kernel of the port"
+
+
+def declarative_attention_launches(counts: dict[str, int], steps: int) -> str | None:
+    """Each training step: row 12 in every layer's forward and row 13 in
+    every layer's backward; each evaluated batch: row 12 in every layer."""
+    depth = MODEL_CFG["depth"]
+    fwd, bwd = counts["fused_dense_attention_fwd_v2"], counts["fused_dense_attention_bwd_v2"]
+    others = {k: v for k, v in counts.items() if k not in ("fused_dense_attention_fwd_v2",
+                                                             "fused_dense_attention_bwd_v2")}
+    if bwd != depth * steps or fwd <= depth * steps or fwd % depth or any(others.values()):
+        return (f"expected row 13 {depth} times a step, row 12 {depth} times a step and an evaluated "
+                "batch, and nothing else")
+    return None
+
+
+def sdpa_inputs(x: list, heads: int) -> tuple:
+    """q, k, v as [B, H, V, dh] and the additive mask plus bias [B, H, V, V]
+    (0 plus the summed edge bias on a live pair, -inf elsewhere) for
+    scaled_dot_product_attention, built beforehand."""
+    q, k, v, eb, src, dst, mask, _ = x
+    B, V, d = q.shape
+    ids = torch.arange(V, device=q.device)
+    S = ((dst.long()[:, None, :] == ids[None, :, None]) & mask[:, None, :]).float()
+    Gm = (src.long()[:, :, None] == ids[None, None, :]).float()
+    bias = torch.zeros(B, heads, V, V, device=q.device) if eb is None else (S[:, None] * eb[:, :, None, :]) @ Gm[:, None]
+    additive = torch.where((torch.bmm(S, Gm) > 0)[:, None], bias, float("-inf")).contiguous()
+    heads_of = lambda t: t.reshape(B, V, heads, d // heads).transpose(1, 2).contiguous()  # noqa: E731
+    return heads_of(q), heads_of(k), heads_of(v), additive
+
+
+def library_sdpa(x: list, heads: int, bwd: bool):
+    """torch.nn.functional.scaled_dot_product_attention with the additive
+    mask and bias built beforehand (a row with no live pair gives NaN there,
+    where the kernels give 0: a yardstick of time, not of values); for the
+    backward rows, its forward and autograd backward (q, k, v and the
+    additive mask's gradients), as the recompute backward also recomputes
+    the forward."""
+    import torch.nn.functional as F
+
+    q, k, v, additive = sdpa_inputs(x, heads)
+    if not bwd:
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=additive)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, additive)]
+    g = torch.randn_like(q)
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3])
+        return torch.autograd.grad(out, leaves, g)
+
+    return fwd_bwd
+
+
+def attention_work(x: list, heads: int, bwd: bool) -> tuple[int, int, int]:
+    """Operations and bytes of one call on these inputs: the products at
+    this data's live pairs (per pair and head, 4 dh forward: the score and
+    the combine; 10 dh backward: the recomputed score, g_alpha, g_q, g_k and
+    g_v), each input read once and each output written once. Also returns
+    the operations of the same products run densely over every V x V lane,
+    as the TPU kernels run them."""
+    q, k, v, eb, src, dst, mask, g = x
+    B, V, d = q.shape
+    per_pair = (10 if bwd else 4) * (d // heads)
+    ins = nbytes(q, k, v, src, dst, mask, *([eb] if eb is not None else []), *([g] if bwd else []))
+    outs = nbytes(q) * (3 if bwd else 1) + (nbytes(eb) if bwd and eb is not None else 0)
+    return live_pairs(x) * heads * per_pair, ins + outs, B * heads * V * V * per_pair
 
 
 def library_index_add(x: dict):
@@ -983,15 +1286,45 @@ def main() -> None:
         rowptr_launches, rowptr_path_err = rowptr_phase(flat_batches, d)
         emit(phase="rowptr", batches=len(flat_batches), launches=rowptr_launches, max_abs_err=rowptr_path_err)
 
+        # rows 10-13 at the graph transformer's first packed batch (16 bins of
+        # V = 128, E = 256), the dense loader's first and widest batches, and
+        # random wider bins, edge bias on and off
+        heads = GT_CFG["num_heads"]
+        gt_batches = list(DataLoader(ds, batch_size=BATCH, **gat_loader_kwargs("dense_packed")))
+        packed_attn_G = gt_batches[0]["inputs.G"]
+        attn_cases = [compare_attention(batch_attention_inputs(G, d, heads, SEED + 30 + i, on), heads,
+                                        f"{name}, edge bias {'on' if on else 'off'}")
+                      for i, (name, G) in enumerate((("packed_first_batch", packed_attn_G),
+                                                     ("dense_first_batch", dense_G),
+                                                     ("dense_widest_batch", widest_G)))
+                      for on in (True, False)]
+        attn_cases += [compare_attention(random_attention_inputs(d, heads, SEED + 35, on), heads,
+                                         f"random V=256 E=512, edge bias {'on' if on else 'off'}")
+                       for on in (True, False)]
+        emit(phase="attention_kernels_vs_plain", rtol=RTOL, atol=ATOL,
+             grad_atol="ATOL x the largest |value| of each gradient", cases=attn_cases)
+        v1_launches, v1_fwd_err, v1_bwd_err = attention_v1_phase(gt_batches, d, heads)
+        emit(phase="attention_v1", batches=len(gt_batches), launches={"fused_dense_attention_fwd": v1_launches,
+                                                                      "fused_dense_attention_bwd": v1_launches},
+             max_abs_err={"fused_dense_attention_fwd": v1_fwd_err, "fused_dense_attention_bwd": v1_bwd_err})
+
         served = serve_phase(tmp, ds, csv_path, len(batches))
         trained = train_phase(tmp)
         recomputed = train_epoch_phase(tmp)
         declarative, declarative_ckpt = train_declarative_phase(tmp)
         serve_declarative_phase(tmp, declarative_ckpt, len(dense_batches))
         flat_trained, flat_ckpt = train_flat_phase(tmp)
-        serve_flat_phase(tmp, flat_ckpt, "serve_flat",
+        serve_checkpoint_phase(tmp, flat_ckpt, "serve_flat",
                          {"csr_segment_sum_packed": (depth + 1) * len(flat_batches)})
-        serve_flat_phase(tmp, train_declarative_flat_phase(tmp), "serve_declarative_flat", {})
+        serve_checkpoint_phase(tmp, train_declarative_flat_phase(tmp), "serve_declarative_flat", {})
+        attention, attention_ckpt = train_run_phase(
+            tmp, "train_declarative_attention", declarative_attention_model_cfg(d, depth, heads), TRAIN_EPOCHS,
+            declarative_attention_launches)
+        serve_checkpoint_phase(tmp, attention_ckpt, "serve_declarative_attention",
+                               {"fused_dense_attention_fwd_v2": depth * len(dense_batches)})
+        serve_checkpoint_phase(tmp, train_run_phase(tmp, "train_graph_transformer", dict(GT_CFG), TRAIN_EPOCHS,
+                                                    no_kernel)[1], "serve_graph_transformer", {})
+        serve_checkpoint_phase(tmp, train_run_phase(tmp, "train_gat", dict(GAT_CFG), 1, no_kernel)[1], "serve_gat", {})
 
     # time each kernel and its plain version at the serving and training shape
     h0, src, dst, mask, W, b = main_args
@@ -1099,6 +1432,38 @@ def main() -> None:
              library_ms=None if library_t is None else library_t["device"], library_note=library_note)
         records.append(kernel_record(fn, path_launches[fn], errors[fn], kernel_t, plain_t,
                                      bound_ms, bound_by, library_t))
+    # rows 10-13 at both of their shapes; the kernels line takes rows 12-13
+    # at the dense first batch (the declarative path's) and rows 10-11 at
+    # the packed first batch (the graph transformer's bins)
+    attn_x = {"packed_first_batch": batch_attention_inputs(packed_attn_G, d, heads, SEED + 30),
+              "dense_first_batch": batch_attention_inputs(dense_G, d, heads, SEED + 32)}
+    attn_path = {fused_dense_attention_fwd: ("packed_first_batch", v1_launches, v1_fwd_err),
+                 fused_dense_attention_bwd: ("packed_first_batch", v1_launches, v1_bwd_err),
+                 fused_dense_attention_fwd_v2: ("dense_first_batch", attention["fused_dense_attention_fwd_v2"], 0.0),
+                 fused_dense_attention_bwd_v2: ("dense_first_batch", attention["fused_dense_attention_bwd_v2"], 0.0)}
+    for fn, (path_shape, path_count, phase_err) in attn_path.items():
+        bwd = fn in (fused_dense_attention_bwd, fused_dense_attention_bwd_v2)
+        path_err = max(phase_err, *(c["max_abs_err"][fn.__name__] for c in attn_cases))
+        for shape, ax in attn_x.items():
+            kernel = ((lambda fn=fn, ax=ax: fn(*ax[:7], ax[7], num_heads=heads)) if bwd
+                      else (lambda fn=fn, ax=ax: fn(*ax[:7], num_heads=heads)))
+            plain = ((lambda ax=ax: dense_attention_bwd_reference(*ax[:7], ax[7], heads)) if bwd
+                     else (lambda ax=ax: dense_attention_reference(*ax[:7], heads)))
+            kernel_t, plain_t = time_ms(kernel), time_ms(plain)
+            library_t = time_ms(library_sdpa(ax, heads, bwd))
+            ops, n_bytes, dense_ops = attention_work(ax, heads, bwd)
+            bound_ms, bound_by = bound(ops, n_bytes)
+            emit(phase="time", kernel=fn.__name__, shape={"case": shape, "B": ax[0].shape[0], "V": ax[0].shape[1],
+                                                          "E": ax[4].shape[1],
+                                                          "d": d, "heads": heads, "live_pairs": live_pairs(ax)},
+                 ms=kernel_t["device"], plain_ms=plain_t["device"], eager_ms=kernel_t["eager"],
+                 plain_eager_ms=plain_t["eager"], bound_ms=bound_ms, bound_by=bound_by, operations=ops,
+                 dense_operations=dense_ops, bytes=n_bytes, library_ms=library_t["device"],
+                 library_note=("scaled_dot_product_attention forward and autograd backward" if bwd else
+                               "scaled_dot_product_attention") + ", the additive mask and bias built beforehand")
+            if shape == path_shape:
+                records.append(kernel_record(fn, path_count, path_err, kernel_t, plain_t, bound_ms, bound_by,
+                                             library_t))
     # row 8 again with the padding sink's run cut (row pointers clipped at
     # the last real edge): what the sink's 358-row run costs
     cut = torch.clamp(x["row_ptr"], max=n_real)

@@ -2,8 +2,9 @@
 
 Rebuilds the model from the ``predict_meta.json`` beside the checkpoints
 (the same schema ``notorch_tpu.cli.train`` writes: model config, a
-``kind: dmpnn`` or a declarative ``modules`` one, data config, task
-transforms baked from training-split statistics), restores a
+``kind: dmpnn``, ``gat`` or ``graph_transformer`` or a declarative
+``modules`` one, data config, task transforms baked from training-split
+statistics), restores a
 port checkpoint (:mod:`notorch_tpu_torch.training.checkpoint`), runs the
 model over a CSV of molecules on the card, and writes denormalized
 predictions aligned row for row with the input.
@@ -22,12 +23,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from notorch_tpu_torch.cli.train import build_dataset, build_model, csr_pack, data_layout, resolve_model_cfg
+from notorch_tpu_torch.cli.train import build_dataset, build_model, loader_options, resolve_model_cfg
 from notorch_tpu_torch.data.batching import DataLoader
 from notorch_tpu_torch.tasks import transforms as task_transforms
 from notorch_tpu_torch.training.checkpoint import Checkpointer
 from notorch_tpu_torch.training.loop import predict
 from notorch_tpu_torch.utils import resolve_device
+
+SERVE_CSR_NODE_QUANTUM = 256
 
 
 def run_predict(
@@ -71,8 +74,15 @@ def run_predict(
     if smiles_col:
         data_cfg["smiles_col"] = smiles_col
     ds = build_dataset(data_cfg)  # no targets: inference CSVs need only molecules
-    # packed for impl: csr as in training, so that serving runs the CSR kernel
-    loader = DataLoader(ds, batch_size=batch_size, layout=data_layout(model_cfg), csr_pack=csr_pack(model_cfg))
+    options = loader_options(model_cfg)
+    if options["csr_pack"]:
+        # packed for impl: csr as in training, so that serving runs the CSR
+        # kernel; on a node ladder of multiples of 128 (256, 384, 512, ...),
+        # which CSR packing takes at every rung, where the training ladder's
+        # 192 rung would refuse a last batch of a few molecules. A node cap
+        # changes no real molecule's prediction.
+        options["node_quantum"] = SERVE_CSR_NODE_QUANTUM
+    loader = DataLoader(ds, batch_size=batch_size, **options)
 
     preds = predict(model, loader, keys=[pred_key])
     flat = preds[pred_key][: len(ds)].reshape(len(ds), -1)

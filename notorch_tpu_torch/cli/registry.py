@@ -29,7 +29,6 @@ REGISTRY: dict[str, Callable] = {}
 TRUSTED_MODULES_ENV = "NOTORCH_TPU_TORCH_TRUSTED_MODULES"
 
 _FAMILIES = "the slice of the other model families and task types"
-_ATTENTION = "the attention slice"
 _SPATIAL = "the spatial slice"
 _MOE = "the MoE and glue slice"
 # every other name of notorch_tpu.cli.registry, with the slice that ports it
@@ -37,8 +36,6 @@ LATER: dict[str, str] = {
     **dict.fromkeys(["GvpGNNBlock", "GatedEquivariantBlock", "SchnetBlock", "Pointwise",
                      "PointwiseEmbed", "RBFEmbedding", "MolToPointCloud", "SpatialSum",
                      "SpatialMean", "SpatialMax", "SpatialGated"], _SPATIAL),
-    **dict.fromkeys(["GATv2Layer", "GraphSelfAttention", "GATBlock", "DenseGraphSelfAttention",
-                     "DenseGATBlock"], _ATTENTION),
     **dict.fromkeys(["MixtureOfExperts", "MoEMLP", "DenseRouter", "SparseRouter", "Add", "Mul",
                      "Cat", "Split", "MatMul", "Einsum", "Identity", "BatchNorm", "Residual"],
                     _MOE),
@@ -115,6 +112,8 @@ def build(spec: dict | str) -> Any:
 
 def _populate() -> None:
     from notorch_tpu_torch.nn.agg import Gated, Max, Mean, SDPAttention, Sum
+    from notorch_tpu_torch.nn.attention import GATBlock, GATv2Layer, GraphSelfAttention
+    from notorch_tpu_torch.nn.attention_dense import DenseGATBlock, DenseGraphSelfAttention
     from notorch_tpu_torch.nn.chemprop import ChempropBlock, ChempropLayer
     from notorch_tpu_torch.nn.chemprop_dense import (
         DenseChempropBlock,
@@ -151,6 +150,11 @@ def _populate() -> None:
         DenseMean,
         DenseMax,
         FusedDenseChempropBlock,
+        GATv2Layer,
+        GraphSelfAttention,
+        GATBlock,
+        DenseGraphSelfAttention,
+        DenseGATBlock,
         MLP,
         MolToGraph,
         SmiToMol,

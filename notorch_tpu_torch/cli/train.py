@@ -1,22 +1,24 @@
 """``python -m notorch_tpu_torch train``: config-driven training.
 
-Port of ``notorch_tpu.cli.train`` for supervised ``model.kind: dmpnn`` and
-declarative ``model.modules`` configs (modules, losses and metrics built
-by name through :mod:`notorch_tpu_torch.cli.registry`): the same YAML/JSON
-configs with dotted-key overrides, the default SMILES pipeline, a random
+Port of ``notorch_tpu.cli.train`` for supervised ``model.kind: dmpnn``,
+``gat`` and ``graph_transformer`` configs and declarative ``model.modules``
+configs (modules, losses and metrics built by name through
+:mod:`notorch_tpu_torch.cli.registry`): the same YAML/JSON configs with
+dotted-key overrides, the default SMILES pipeline, a random
 ``data.split``, target transforms from training-split statistics, the data
-layout from ``model.layout`` (``dense_packed``; the per-molecule ``dense``
-for ``dense*`` layouts, whose train loader sorts by size; ``flat``
-otherwise, the default of a declarative config, with the tile-packed CSR
-metadata when the model reduces through ``impl: csr``), Adam/AdamW with a
-rate or the Noam schedule and
-``clip_norm``, and the trainer's ``epochs``, ``batch_size``, ``seed``, ``checkpoint_dir``,
-``resume``, ``checkpoint_every``, ``max_to_keep``, ``best_by``/``best_mode``,
+layout from ``model.layout`` (``dense_packed``, with the attention kinds'
+bins of 256 edge lanes and 128 node slots; the per-molecule ``dense`` for
+``dense*`` layouts, whose train loader sorts by size; ``flat`` otherwise,
+the default of a declarative config, with the tile-packed CSR metadata
+when the model reduces through ``impl: csr``), Adam/AdamW with a rate or
+the Noam schedule and ``clip_norm``, and the trainer's ``epochs``,
+``batch_size``, ``seed``, ``checkpoint_dir``, ``resume``,
+``checkpoint_every``, ``max_to_keep``, ``best_by``/``best_mode``,
 ``early_stopping`` and ``predictions_csv``. The checkpoint directory it
-writes is what ``python -m notorch_tpu_torch predict`` serves. Pretraining,
-``trainer.spmd``, scaffold splits and the ``${csv:...}`` resolvers raise
-``NotImplementedError``. Tables are read with the standard ``csv`` module;
-``yaml`` is imported only to read YAML.
+writes is what ``python -m notorch_tpu_torch predict`` serves. The other
+model kinds, pretraining, ``trainer.spmd``, scaffold splits and the
+``${csv:...}`` resolvers raise ``NotImplementedError``. Tables are read
+with the standard ``csv`` module; ``yaml`` is imported only to read YAML.
 
 Usage::
 
@@ -37,6 +39,11 @@ from notorch_tpu_torch.data.dataset import MolecularDataset, TargetSpec, Transfo
 from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms import MolToGraph, Pipeline, SmiToMol
 from notorch_tpu_torch.utils import resolve_device
+
+
+# the JAX package's other model kinds, with the slice of the port that brings each
+LATER_KINDS = {"multicomponent": "the slice of the other model families and task types",
+               "spatial": "the spatial slice"}
 
 
 def load_config(path: str | Path) -> dict:
@@ -129,7 +136,8 @@ def build_optimizer(cfg: dict | None) -> OptimizerSpec:
 
 def build_model(cfg: dict, transforms: dict | None, generator: torch.Generator | None = None,
                 optimizer: OptimizerSpec | None = None):
-    """The model of a ``model`` config: ``kind: dmpnn``, or declarative
+    """The model of a ``model`` config: ``kind: dmpnn``, ``gat`` or
+    ``graph_transformer`` (``build_gat`` with ``attention: sdp``), or declarative
     ``modules`` (with ``losses`` and ``metrics``) built by name through the
     registry, as the JAX ``build_model`` builds them. Parameters are drawn
     from ``generator``; the model is built on the CPU."""
@@ -156,12 +164,20 @@ def build_model(cfg: dict, transforms: dict | None, generator: torch.Generator |
         model.reset_parameters(generator)
         return model
     kind = cfg.get("kind", "dmpnn")
-    if kind != "dmpnn":
-        raise NotImplementedError(f"model kind {kind!r} is not ported yet; only dmpnn is")
-    from notorch_tpu_torch.models.dmpnn import build_dmpnn
-
     kwargs = {k: v for k, v in cfg.items() if k not in ("kind", "pred_key")}
-    return build_dmpnn(transforms=transforms, generator=generator, optimizer=optimizer, **kwargs)
+    if kind == "dmpnn":
+        from notorch_tpu_torch.models.dmpnn import build_dmpnn
+
+        return build_dmpnn(transforms=transforms, generator=generator, optimizer=optimizer, **kwargs)
+    if kind in ("gat", "graph_transformer"):
+        from notorch_tpu_torch.models.gat import build_gat
+
+        if kind == "graph_transformer":
+            kwargs.setdefault("attention", "sdp")
+        return build_gat(transforms=transforms, generator=generator, optimizer=optimizer, **kwargs)
+    if kind in LATER_KINDS:
+        raise NotImplementedError(f"model kind {kind!r} is not ported yet: it comes with {LATER_KINDS[kind]}")
+    raise ValueError(f"unknown model kind {kind!r}")
 
 
 def save_predict_meta(checkpoint_dir, cfg: dict, transforms: dict, ds, pred_key: str) -> None:
@@ -192,14 +208,22 @@ def save_predict_meta(checkpoint_dir, cfg: dict, transforms: dict, ds, pred_key:
 
 
 def resolve_model_cfg(model_cfg: dict) -> dict:
-    """``model_cfg`` with ``layout: auto`` of a ``kind: dmpnn`` config
-    resolved, as the JAX ``run`` resolves it, so that the data pipeline, the
-    saved ``predict_meta`` and the built model agree; declarative configs
-    pass through."""
+    """``model_cfg`` with ``layout: auto`` of a ``kind: dmpnn``, ``gat`` or
+    ``graph_transformer`` config resolved, as the JAX ``run`` and
+    ``run_predict`` resolve it, so that the data pipeline, the saved
+    ``predict_meta`` and the built model agree; declarative configs pass
+    through."""
     from notorch_tpu_torch.models.dmpnn import resolve_layout
+    from notorch_tpu_torch.models.gat import KINDS, resolve_gat_layout
 
     model_cfg = dict(model_cfg)
-    if "modules" not in model_cfg:
+    kind = model_cfg.get("kind", "dmpnn")
+    if "modules" in model_cfg:
+        return model_cfg
+    if kind in KINDS:
+        attention = model_cfg.get("attention", "sdp" if kind == "graph_transformer" else "gatv2")
+        model_cfg["layout"] = resolve_gat_layout(model_cfg.get("layout", "auto"), attention=attention)
+    elif kind == "dmpnn":
         model_cfg["layout"] = resolve_layout(
             model_cfg.get("layout", "auto"),
             dropout=model_cfg.get("dropout", 0.0),
@@ -240,6 +264,20 @@ def csr_pack(model_cfg: dict) -> bool:
         m.get("class") in ("ChempropBlock", "ChempropLayer") and (m.get("args") or {}).get("impl") == "csr"
         for m in modules
     )
+
+
+def loader_options(model_cfg: dict) -> dict:
+    """The DataLoader options of a (resolved) model config, for every loader
+    of a run: its ``layout``, ``csr_pack`` (see :func:`csr_pack`) and, for
+    the attention kinds, the bins of :func:`~notorch_tpu_torch.models.gat.
+    gat_loader_kwargs`."""
+    from notorch_tpu_torch.models.gat import KINDS, gat_loader_kwargs
+
+    layout = data_layout(model_cfg)
+    options = {"layout": layout, "csr_pack": csr_pack(model_cfg)}
+    if model_cfg.get("kind") in KINDS:
+        options.update(gat_loader_kwargs(layout))
+    return options
 
 
 def _refuse_unported(cfg: dict) -> None:
@@ -295,7 +333,8 @@ def prepare(cfg: dict, device: str | torch.device | None = None) -> dict:
         t["preds"]["key"] = pred_key
 
     model_cfg = resolve_model_cfg(cfg.get("model", {}))
-    layout = data_layout(model_cfg)
+    options = loader_options(model_cfg)
+    layout = options["layout"]
     cfg = {**cfg, "model": model_cfg}
     model = build_model(model_cfg, transforms, generator=torch.Generator().manual_seed(seed),
                         optimizer=build_optimizer(cfg.get("optimizer")))
@@ -306,7 +345,7 @@ def prepare(cfg: dict, device: str | torch.device | None = None) -> dict:
     def loader(part, **kw):
         if part is None:
             return None
-        return DataLoader(part, batch_size=batch_size, layout=layout, csr_pack=csr_pack(model_cfg), **kw)
+        return DataLoader(part, batch_size=batch_size, **options, **kw)
 
     return {
         "cfg": cfg, "ds": ds, "train": train, "val": val, "test": test,
@@ -369,8 +408,7 @@ def run(cfg: dict, device: str | torch.device | None = None) -> dict:
         from notorch_tpu_torch.data.batching import DataLoader
 
         target = run_["test"] if run_["test"] is not None else run_["train"]
-        loader = DataLoader(target, batch_size=trainer_cfg.get("batch_size", 64), layout=run_["layout"],
-                            csr_pack=csr_pack(cfg["model"]))
+        loader = DataLoader(target, batch_size=trainer_cfg.get("batch_size", 64), **loader_options(cfg["model"]))
         flat = predict(model, loader, keys=[pred_key])[pred_key][: len(target)]
         flat = flat.reshape(len(target), -1)
         with open(pred_csv, "w") as f:

@@ -48,10 +48,6 @@ def round_up_ladder(value: int, ladder: list[int]) -> int:
     return value  # beyond the ladder: exact
 
 
-# edge lanes per bin: raised up the edge ladder to the batch's largest molecule
-BIN_EDGES = 128
-
-
 LAYOUTS = ("flat", "dense", "dense_packed")
 
 
@@ -66,14 +62,16 @@ class DataLoader:
     reduces through. A node cap on the ladder's 192 rung is not a multiple
     of 128 and raises there, as in the JAX package.
 
-    ``layout="dense_packed"`` bin-packs each batch with the bin caps of the
-    JAX loader's defaults: ``E_b`` is ``BIN_EDGES`` raised up the ladder to
-    the batch's largest molecule, ``V_b`` is ``E_b // 2 + 8`` (or the
-    largest molecule plus its padding sink) rounded up to a multiple of 8,
-    and the bin count is rounded up its own ladder. ``layout="dense"`` pads
-    each molecule into its own block: the batch's largest node count plus
-    the padding sink rounded up ``bucket_ladder(16, 1 << 16)``, its largest
-    edge count rounded up ``bucket_ladder(32, 1 << 17)``.
+    ``layout="dense_packed"`` bin-packs each batch with the JAX loader's bin
+    caps: ``E_b`` is ``bin_edges`` raised up the edge ladder to the batch's
+    largest molecule, ``V_b`` is ``bin_nodes`` (default ``E_b // 2 + 8``) or
+    the largest molecule plus its padding sink, whichever is larger, rounded
+    up to a multiple of 8, and the bin count is rounded up its own ladder
+    (the attention models' loaders pin ``bin_edges=256, bin_nodes=128``).
+    ``layout="dense"`` pads each molecule into its own block: the batch's
+    largest node count plus the padding sink rounded up ``bucket_ladder(16,
+    1 << 16)``, its largest edge count rounded up ``bucket_ladder(32, 1 <<
+    17)``.
 
     ``shuffle=True`` draws the order from a ``SeededSampler(len, seed)``;
     after :meth:`set_epoch` each epoch's order is a pure function of
@@ -97,6 +95,8 @@ class DataLoader:
         node_quantum: int = 128,
         edge_quantum: int = 256,
         csr_pack: bool = False,
+        bin_edges: int = 128,
+        bin_nodes: int | None = None,
     ):
         if layout not in LAYOUTS:
             raise ValueError(
@@ -114,6 +114,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.layout = layout
         self.csr_pack = csr_pack
+        self.bin_edges, self.bin_nodes = bin_edges, bin_nodes
         self.bin_ladder = bucket_ladder(8, 1 << 12)
         if layout == "flat":  # batch totals
             self.node_ladder = bucket_ladder(node_quantum, 1 << 22)
@@ -187,8 +188,8 @@ class DataLoader:
             max_v = max(g.num_nodes for g in graphs) + 1
             max_e = max(max(g.num_edges for g in graphs), 2)
             max_e += max_e % 2
-            e_b = max(BIN_EDGES, round_up_ladder(max_e, self.edge_ladder))
-            v_b = -(-max(max_v, e_b // 2 + 8) // 8) * 8
+            e_b = max(self.bin_edges, round_up_ladder(max_e, self.edge_ladder))
+            v_b = -(-max(max_v, e_b // 2 + 8 if self.bin_nodes is None else self.bin_nodes) // 8) * 8
             n_bins = len(plan_bins(graphs, v_b, e_b))
             caps = (v_b, e_b, round_up_ladder(n_bins, self.bin_ladder))
         batch = self.dataset.collate(

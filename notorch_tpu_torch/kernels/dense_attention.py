@@ -1,0 +1,411 @@
+"""The dense graph-attention core: hand-written Hopper kernels for its
+forward and recompute backward, their plain PyTorch versions, the wrappers
+that pick between them by device, and the ``autograd.Function`` that trains
+through them.
+
+Replaces the Pallas kernels of ``notorch_tpu/kernels/dense_attention.py``:
+
+==================================  =======================================
+TPU entry (kernel)                  here
+==================================  =======================================
+``fused_dense_attention_fwd``       :func:`fused_dense_attention_fwd`, the
+(``_attn_kernel``)                  forward body of ``csrc/dense_attention.cu``
+                                    on a block per tile of bins, heads looped
+``fused_dense_attention_bwd``       :func:`fused_dense_attention_bwd`, the
+(``_attn_bwd_kernel``)              recompute backward body, same launch
+``fused_dense_attention_fwd_v2``    :func:`fused_dense_attention_fwd_v2`, the
+(``_attn_kernel_v2``)               forward body on a block per (bin, head)
+``fused_dense_attention_bwd_v2``    :func:`fused_dense_attention_bwd_v2`, the
+(``_attn_bwd_kernel_v2``)           backward body on a block per (bin, head)
+``fused_dense_attention``           :class:`FusedDenseAttentionFn` (and
+(the custom VJP)                    :func:`fused_dense_attention`)
+==================================  =======================================
+
+Layouts are the JAX package's: ``q, k, v`` and the output ``[B, V, d]``
+with ``d = num_heads * dh`` (head ``h`` in columns ``h*dh:(h+1)*dh``),
+``eb`` the per-edge score bias ``[B, H, E]`` or ``None``, int32 ``src``/
+``dst`` ``[B, E]``, ``edge_mask`` ``[B, E]`` bool (a float mask counts an
+edge where it is nonzero). Per bin and head, ``M[i, j]`` counts the real
+edges ``j -> i``; the scores ``q_i . k_j / sqrt(dh)`` plus the bias summed
+over those edges are softmaxed over the ``j`` with ``M[i, j] > 0`` (the sum
+floored at ``1e-12``), and the output is ``alpha @ v``. A row with no such
+``j`` (padding node slots, the padding sink, a bond-less molecule) is zero,
+in the output and in every gradient. The backward returns ``(g_q, g_k,
+g_v, g_eb)``, ``g_eb[b, h, e] = edge_mask[b, e] * g_s[b, h, dst e, src e]``
+with ``g_s`` the softmax's input gradient; without ``eb`` it is zeros, as
+the TPU kernel writes.
+
+The CUDA source is built by ``nvcc`` for ``sm_90a`` at first use and bound
+with ``ctypes`` (:mod:`notorch_tpu_torch.kernels.build`); its design and
+bound are described there. Tensors on the CPU take the plain versions;
+tensors on a CUDA device launch the kernels or raise — there is no
+fallback. Each wrapper counts its launches in ``<wrapper>.launches``. The
+kernels take float32, ``dh`` a multiple of 4 up to 512, and bins whose
+index build and two staged ``[V, dh]`` head slices fit a block's shared
+memory (``V = 256, E = 512`` at ``dh = 64`` does); the wrappers raise,
+naming the shape, on anything else. ``interpret`` is accepted for the JAX
+signature: on CPU tensors it changes nothing, on CUDA tensors ``True``
+raises (the port has no interpret mode). ``matmul_dtype`` other than
+``None`` raises ``NotImplementedError``: the kernels are exact f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from notorch_tpu_torch.kernels import build
+from notorch_tpu_torch.kernels.checks import check_aligned, check_tensors, on_card
+
+__all__ = [
+    "FusedDenseAttentionFn",
+    "attention_core",
+    "dense_attention_bwd_reference",
+    "dense_attention_reference",
+    "fit_attn_tile",
+    "fused_dense_attention",
+    "fused_dense_attention_bwd",
+    "fused_dense_attention_bwd_v2",
+    "fused_dense_attention_fwd",
+    "fused_dense_attention_fwd_v2",
+]
+
+
+def fit_attn_tile(tile: int, nodes_per_bin: int, edges_per_bin: int, batch: int) -> int:
+    """Shrink a requested bins-per-kernel-tile so per-tile VMEM stays inside
+    the envelope (the [V, V] per-head score tensors plus the [E, V] one-hot
+    operators are the big residents) and the batch divides evenly."""
+    # the TPU's budget heuristic, kept so that the v1 launch tiles the bins
+    # as the TPU grid does
+    while tile > 1 and tile * max(edges_per_bin, nodes_per_bin) > 4 * 256:
+        tile //= 2
+    while batch % tile != 0:
+        tile //= 2
+    return max(tile, 1)
+
+
+# -- plain versions ---------------------------------------------------------------
+
+
+def _live(edge_mask: torch.Tensor) -> torch.Tensor:
+    return edge_mask if edge_mask.dtype == torch.bool else edge_mask != 0
+
+
+def _one_hots(src, dst, edge_mask, V: int, dtype) -> tuple[torch.Tensor, torch.Tensor]:
+    """``S [B, V, E]`` (dst one-hot of the real edges) and ``Gm [B, E, V]``
+    (src one-hot)."""
+    ids = torch.arange(V, device=src.device)
+    S = (dst.long()[:, None, :] == ids[None, :, None]) & _live(edge_mask)[:, None, :]
+    Gm = src.long()[:, :, None] == ids[None, None, :]
+    return S.to(dtype), Gm.to(dtype)
+
+
+def _heads(x: torch.Tensor, H: int) -> torch.Tensor:
+    B, V, d = x.shape
+    return x.reshape(B, V, H, d // H).transpose(1, 2)  # [B, H, V, dh]
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    B, H, V, dh = x.shape
+    return x.transpose(1, 2).reshape(B, V, H * dh)
+
+
+def _scores(q, k, eb, S, Gm, H: int) -> torch.Tensor:
+    """``[B, H, V, V]``: ``q k^T / sqrt(dh)`` plus the edge bias scattered
+    through ``S eb Gm``."""
+    dh = q.shape[-1] // H
+    scores = _heads(q, H) @ _heads(k, H).transpose(-1, -2) / math.sqrt(dh)
+    if eb is not None:
+        scores = scores + (S[:, None] * eb[:, :, None, :]) @ Gm[:, None]
+    return scores
+
+
+def _alpha(q, k, eb, src, dst, edge_mask, H: int) -> torch.Tensor:
+    """The TPU kernels' masked softmax: masked lanes at ``-1e30``, ``exp``
+    zeroed there, the row sum floored at ``1e-12``."""
+    S, Gm = _one_hots(src, dst, edge_mask, q.shape[1], q.dtype)
+    mask = (S @ Gm > 0)[:, None]
+    neg = torch.where(mask, _scores(q, k, eb, S, Gm, H), -1e30)
+    ex = torch.where(mask, torch.exp(neg - neg.amax(-1, keepdim=True)), 0.0)
+    return ex / ex.sum(-1, keepdim=True).clamp_min(1e-12)
+
+
+def dense_attention_reference(q, k, v, eb, src, dst, edge_mask, num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernels (rows 10 and 12):
+    ``[B, V, d]``."""
+    return _merge(_alpha(q, k, eb, src, dst, edge_mask, num_heads) @ _heads(v, num_heads))
+
+
+def dense_attention_bwd_reference(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads: int):
+    """Plain PyTorch version of the recompute backward kernels (rows 11 and
+    13): ``(g_q, g_k, g_v, g_eb)``, ``g_eb`` zeros ``[B, H, E]`` without
+    ``eb``."""
+    H = num_heads
+    dh = q.shape[-1] // H
+    alpha = _alpha(q, k, eb, src, dst, edge_mask, H)
+    g = _heads(cotangent, H)
+    g_alpha = g @ _heads(v, H).transpose(-1, -2)
+    g_v = alpha.transpose(-1, -2) @ g
+    tmp = alpha * g_alpha
+    g_s = tmp - alpha * tmp.sum(-1, keepdim=True)
+    g_q = g_s @ _heads(k, H) / math.sqrt(dh)
+    g_k = g_s.transpose(-1, -2) @ _heads(q, H) / math.sqrt(dh)
+    B, E = src.shape
+    if eb is None:
+        g_eb = torch.zeros(B, H, E, dtype=q.dtype, device=q.device)
+    else:
+        # the bias VJP as the TPU kernel takes it: T = St g_s, then sum_j T * G
+        S, Gm = _one_hots(src, dst, edge_mask, q.shape[1], q.dtype)
+        g_eb = ((S.transpose(1, 2)[:, None] @ g_s) * Gm[:, None]).sum(-1)
+    return _merge(g_q), _merge(g_k), _merge(g_v), g_eb
+
+
+def attention_core(q, k, v, eb, src, dst, edge_mask, num_heads: int) -> torch.Tensor:
+    """The counterpart of the JAX package's ``_jnp_attention_core``, the
+    forward that ``fwd_impl="jnp"`` runs in plain tensor ops on any device
+    (masked lanes at ``-inf``, a row max that is not finite taken as 0)."""
+    S, Gm = _one_hots(src, dst, edge_mask, q.shape[1], q.dtype)
+    mask = (S @ Gm > 0)[:, None]
+    neg = torch.where(mask, _scores(q, k, eb, S, Gm, num_heads), float("-inf"))
+    mx = neg.amax(-1, keepdim=True)
+    ex = torch.where(mask, torch.exp(neg - torch.where(torch.isfinite(mx), mx, 0.0)), 0.0)
+    alpha = ex / ex.sum(-1, keepdim=True).clamp_min(1e-12)
+    return _merge(alpha @ _heads(v, num_heads))
+
+
+# -- the kernels ------------------------------------------------------------------
+
+
+def _check(q, k, v, eb, src, dst, edge_mask, num_heads: int, cotangent=None) -> tuple[int, int, int, int]:
+    if q.dim() != 3:
+        raise ValueError(f"q must be [B, V, d], got {tuple(q.shape)}")
+    B, V, d = q.shape
+    if B < 1 or V < 1:
+        raise ValueError(f"q must hold at least one bin and one node slot, got {tuple(q.shape)}")
+    if num_heads < 1 or d % num_heads != 0:
+        raise ValueError(f"hidden dim {d} not divisible by num_heads {num_heads}")
+    for name, x in (("k", k), ("v", v), ("cotangent", cotangent)):
+        if x is not None and tuple(x.shape) != (B, V, d):
+            raise ValueError(f"{name} must have q's shape {(B, V, d)}, got {tuple(x.shape)}")
+    if src.dim() != 2 or src.shape[0] != B:
+        raise ValueError(f"src must be [B, E] with B = {B}, got {tuple(src.shape)}")
+    E = src.shape[1]
+    for name, x in (("dst", dst), ("edge_mask", edge_mask)):
+        if tuple(x.shape) != (B, E):
+            raise ValueError(f"{name} must have shape {(B, E)}, got {tuple(x.shape)}")
+    if eb is not None and tuple(eb.shape) != (B, num_heads, E):
+        raise ValueError(f"eb must be [B, H, E] = {(B, num_heads, E)}, got {tuple(eb.shape)}")
+    return B, V, d, E
+
+
+def _no_matmul_dtype(matmul_dtype) -> None:
+    if matmul_dtype is not None:
+        raise NotImplementedError(
+            f"matmul_dtype={matmul_dtype!r}: the attention kernels run exact f32; lower-precision "
+            "operands come with a later PR of the port"
+        )
+
+
+@functools.cache
+def _lib():
+    lib = build.load("dense_attention")
+    tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.dense_attention_fwd_f32.argtypes = [ctypes.c_void_p] * 8 + tail
+    lib.dense_attention_bwd_f32.argtypes = [ctypes.c_void_p] * 12 + tail
+    lib.dense_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.dense_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.dense_attention_error_string.argtypes = [ctypes.c_int]
+    lib.dense_attention_error_string.restype = ctypes.c_char_p
+    lib.dense_attention_max_smem.argtypes = lib.dense_attention_max_dh.argtypes = []
+    for name in ("dense_attention_fwd_f32", "dense_attention_bwd_f32", "dense_attention_max_smem",
+                 "dense_attention_max_dh"):
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads: int, interpret: bool, cotangent=None):
+    """The checks of a launch and its operands: float32 contiguous 16-byte
+    aligned floats, int32 ids and a byte mask on q's device."""
+    if interpret:
+        raise ValueError(
+            "interpret=True asks for the Pallas interpreter; the port has no interpret mode: "
+            "CUDA tensors launch the kernels, CPU tensors take the plain versions"
+        )
+    lib = _lib()
+    B, V, d = q.shape
+    E, dh = src.shape[1], d // num_heads
+    if dh % 4 != 0 or dh > lib.dense_attention_max_dh():
+        raise ValueError(
+            f"the attention kernels read head rows in 16-byte vectors: dh must be a multiple of 4 "
+            f"up to {lib.dense_attention_max_dh()}, got dh={dh} (hidden {d}, {num_heads} heads)"
+        )
+    need, limit = lib.dense_attention_smem_bytes(V, E, dh), lib.dense_attention_max_smem()
+    if need > limit:
+        raise ValueError(
+            f"bins of V={V} node slots and E={E} edge lanes at dh={dh} need {need} bytes of shared "
+            f"memory per block; the attention kernels have {limit}"
+        )
+    floats = [x.contiguous() for x in (q, k, v, cotangent, eb) if x is not None]
+    if any(x.dtype != torch.float32 for x in floats):
+        raise TypeError(f"the attention kernels take float32, got {[str(x.dtype) for x in floats]}")
+    check_aligned(**{f"operand{i}": x for i, x in enumerate(floats)})
+    mask = _live(edge_mask).contiguous()
+    check_tensors({"src": (src, torch.int32, (B, E)), "dst": (dst, torch.int32, (B, E)),
+                   "edge_mask": (mask, torch.bool, (B, E))}, q.device, anchor="q")
+    if any(x.device != q.device for x in floats):
+        raise ValueError(f"every float operand must lie on q's device {q.device}")
+    return lib, floats, mask
+
+
+def _raise_on(err: int, what: str, lib) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.dense_attention_error_string(err).decode()}")
+
+
+def _forward(q, k, v, eb, src, dst, edge_mask, num_heads: int, tile: int, interpret: bool, what: str):
+    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, interpret)
+    q, k, v = floats[:3]
+    eb = floats[3] if eb is not None else None
+    B, V, d = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.dense_attention_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if eb is None else eb.data_ptr(),
+            src.data_ptr(), dst.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            B, V, src.shape[1], num_heads, d // num_heads, 1.0 / math.sqrt(d // num_heads), tile,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, what, lib)
+    return out
+
+
+def _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads: int, tile: int, interpret: bool,
+              what: str):
+    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, interpret, cotangent)
+    q, k, v, g = floats[:4]
+    eb = floats[4] if eb is not None else None
+    B, V, d = q.shape
+    E = src.shape[1]
+    g_q, g_k, g_v = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    g_eb = (torch.zeros if eb is None else torch.empty)(B, num_heads, E, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.dense_attention_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if eb is None else eb.data_ptr(),
+            src.data_ptr(), dst.data_ptr(), mask.data_ptr(), g.data_ptr(),
+            g_q.data_ptr(), g_k.data_ptr(), g_v.data_ptr(), g_eb.data_ptr(),
+            B, V, E, num_heads, d // num_heads, 1.0 / math.sqrt(d // num_heads), tile,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(err, what, lib)
+    return g_q, g_k, g_v, g_eb
+
+
+def fused_dense_attention_fwd(q, k, v, eb, src, dst, edge_mask, *, num_heads: int, bins_per_tile: int = 8,
+                              interpret: bool = False, matmul_dtype: str | None = None) -> torch.Tensor:
+    """Attention core forward, ``[B, V, d]`` (row 10): on the card a block
+    per tile of ``fit_attn_tile(bins_per_tile)`` bins, looping over the
+    heads. CPU tensors take :func:`dense_attention_reference`."""
+    _no_matmul_dtype(matmul_dtype)
+    B, V, d, E = _check(q, k, v, eb, src, dst, edge_mask, num_heads)
+    if not on_card(q):
+        return dense_attention_reference(q, k, v, eb, src, dst, edge_mask, num_heads)
+    tile = fit_attn_tile(min(bins_per_tile, B), V, E, B)
+    out = _forward(q, k, v, eb, src, dst, edge_mask, num_heads, tile, interpret, "fused_dense_attention_fwd")
+    fused_dense_attention_fwd.launches += 1
+    return out
+
+
+def fused_dense_attention_bwd(q, k, v, eb, src, dst, edge_mask, cotangent, *, num_heads: int,
+                              bins_per_tile: int = 8, interpret: bool = False,
+                              matmul_dtype: str | None = None):
+    """Recompute backward (row 11): ``(g_q, g_k, g_v, g_eb)``, launched as
+    the v1 forward. CPU tensors take :func:`dense_attention_bwd_reference`."""
+    _no_matmul_dtype(matmul_dtype)
+    B, V, d, E = _check(q, k, v, eb, src, dst, edge_mask, num_heads, cotangent)
+    if not on_card(q):
+        return dense_attention_bwd_reference(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads)
+    tile = fit_attn_tile(min(bins_per_tile, B), V, E, B)
+    grads = _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads, tile, interpret,
+                      "fused_dense_attention_bwd")
+    fused_dense_attention_bwd.launches += 1
+    return grads
+
+
+def fused_dense_attention_fwd_v2(q, k, v, eb, src, dst, edge_mask, *, num_heads: int, bins_per_tile: int = 8,
+                                 interpret: bool = False, matmul_dtype: str | None = None) -> torch.Tensor:
+    """Row 10's function with the head in the grid (row 12): on the card a
+    block per (bin, head); ``bins_per_tile`` is kept for the signature. CPU
+    tensors take :func:`dense_attention_reference`."""
+    _no_matmul_dtype(matmul_dtype)
+    _check(q, k, v, eb, src, dst, edge_mask, num_heads)
+    if not on_card(q):
+        return dense_attention_reference(q, k, v, eb, src, dst, edge_mask, num_heads)
+    out = _forward(q, k, v, eb, src, dst, edge_mask, num_heads, 0, interpret, "fused_dense_attention_fwd_v2")
+    fused_dense_attention_fwd_v2.launches += 1
+    return out
+
+
+def fused_dense_attention_bwd_v2(q, k, v, eb, src, dst, edge_mask, cotangent, *, num_heads: int,
+                                 bins_per_tile: int = 8, interpret: bool = False,
+                                 matmul_dtype: str | None = None):
+    """Row 11's function with the head in the grid (row 13), the backward of
+    every :class:`FusedDenseAttentionFn`. CPU tensors take
+    :func:`dense_attention_bwd_reference`."""
+    _no_matmul_dtype(matmul_dtype)
+    _check(q, k, v, eb, src, dst, edge_mask, num_heads, cotangent)
+    if not on_card(q):
+        return dense_attention_bwd_reference(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads)
+    grads = _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads, 0, interpret,
+                      "fused_dense_attention_bwd_v2")
+    fused_dense_attention_bwd_v2.launches += 1
+    return grads
+
+
+FWD_IMPLS = ("jnp", "pallas")
+
+
+class FusedDenseAttentionFn(torch.autograd.Function):
+    """The attention core as an autograd node, the counterpart of the JAX
+    custom VJP: the forward follows ``fwd_impl`` (``"jnp"``:
+    :func:`attention_core` in plain tensor ops, as the JAX package leaves it
+    to XLA; ``"pallas"``: :func:`fused_dense_attention_fwd_v2`), the
+    backward is always :func:`fused_dense_attention_bwd_v2`. ``src``,
+    ``dst`` and ``edge_mask`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, eb, src, dst, edge_mask, num_heads: int, bins_per_tile: int = 8,
+                interpret: bool = False, matmul_dtype: str | None = None, fwd_impl: str = "jnp"):
+        if fwd_impl not in FWD_IMPLS:
+            raise ValueError(f"fwd_impl must be one of {FWD_IMPLS}, got {fwd_impl!r}")
+        _no_matmul_dtype(matmul_dtype)
+        ctx.save_for_backward(q, k, v, eb, src, dst, edge_mask)
+        ctx.opts = dict(num_heads=num_heads, bins_per_tile=bins_per_tile, interpret=interpret)
+        if fwd_impl == "pallas":
+            return fused_dense_attention_fwd_v2(q, k, v, eb, src, dst, edge_mask, **ctx.opts)
+        _check(q, k, v, eb, src, dst, edge_mask, num_heads)
+        return attention_core(q, k, v, eb, src, dst, edge_mask, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, eb, src, dst, edge_mask = ctx.saved_tensors
+        g_q, g_k, g_v, g_eb = fused_dense_attention_bwd_v2(q, k, v, eb, src, dst, edge_mask, g.contiguous(),
+                                                           **ctx.opts)
+        return (g_q, g_k, g_v, g_eb if eb is not None else None) + (None,) * 8
+
+
+def fused_dense_attention(q, k, v, eb, src, dst, edge_mask, num_heads: int, bins_per_tile: int = 8,
+                          interpret: bool = False, matmul_dtype: str | None = None,
+                          fwd_impl: str = "jnp") -> torch.Tensor:
+    """Trainable attention core, with the JAX function's positional
+    signature: :class:`FusedDenseAttentionFn` applied."""
+    return FusedDenseAttentionFn.apply(q, k, v, eb, src, dst, edge_mask, num_heads, bins_per_tile,
+                                       interpret, matmul_dtype, fwd_impl)
+
+
+fused_dense_attention_fwd.launches = 0
+fused_dense_attention_bwd.launches = 0
+fused_dense_attention_fwd_v2.launches = 0
+fused_dense_attention_bwd_v2.launches = 0

@@ -21,17 +21,16 @@ stacked layers (the dense blocks, ``ChempropBlock``):
 ``layer/update/kernel``, ``layer/update/bias``       ``weight [d, d]``, ``bias [d]``
 (``ChempropBlock(shared=True)``)
 (no ``bias`` leaf with ``bias=False``)               (no ``bias`` key)
-one layer (``ChempropLayer``):
-``update/kernel [d, d]``                             ``update.weight`` (transposed)
-``update/bias [d]``                                  ``update.bias``
-dense layers (``MLP``):
-``dense_i/kernel [in, out]``                         ``dense_i.weight [out, in]``
-                                                     (transposed for ``nn.Linear``)
-``dense_i/bias [out]``                               ``dense_i.bias``
-gated readout (``Gated``):
-``a/kernel [d, 1]``, ``a/bias [1]``                  ``a.weight [1, d]`` (transposed),
-                                                     ``a.bias``
-attention readout (``SDPAttention``):
+dense layers (``MLP``, ``ChempropLayer``, the gated readouts, the
+attention layers and blocks), at any depth of nesting:
+``<path>/kernel [in, out]``                          ``<path>.weight [out, in]``
+                                                     (transposed for ``nn.Linear``;
+                                                     ``<path>`` ``/`` -> ``.``)
+``<path>/bias [out]``                                ``<path>.bias``
+e.g. ``dense_i``, ``update``, ``a`` (also GATv2's
+per-head ``DenseGeneral`` ``a``, kernel ``[dh, 1]``),
+``in_proj``, ``attn_i/W_q``, ``ffn_i_0``
+attention readouts (``SDPAttention``, ``DenseSDPAttention``, ``PackedSDPAttention``):
 ``query [1, d]``                                     ``query`` (same)
 ==================================================  ===================================
 
@@ -46,47 +45,45 @@ import numpy as np
 import torch
 
 _GROUP = "modules__"
-_LAYER = re.compile(r"(layer|dense)_(\d+)$")
-# (kind, the group's JAX keys that name it, its port keys that name it)
+_LAYER = re.compile(r"layer_(\d+)$")
+# (kind, the group's JAX keys that name it, its port keys that name it);
+# a group of none of these kinds is a tree of dense layers
 _KINDS = (
     ("embedding", {"node", "edge"}, {"node.embedding.weight", "edge.embedding.weight"}),
     ("stacked", {"layer_0", "layer"}, {"weight"}),
-    ("update", {"update"}, {"update.weight"}),
-    ("dense", {"dense_0"}, {"dense_0.weight"}),
-    ("gated", {"a"}, {"a.weight"}),
     ("query", {"query"}, {"query"}),
 )
 
 
-def _indexed(tree: dict, prefix: str) -> list:
-    """The ``<prefix>_0``, ``<prefix>_1``, ... entries of ``tree``, in order."""
-    idx = sorted(int(m.group(2)) for k in tree if (m := _LAYER.match(k)) and m.group(1) == prefix)
+def _stacked_layers(tree: dict) -> list:
+    """The ``layer_0``, ``layer_1``, ... entries of ``tree``, in order."""
+    idx = sorted(int(m.group(1)) for k in tree if (m := _LAYER.match(k)))
     if idx != list(range(len(idx))):
-        raise ValueError(f"{prefix}_i entries are not numbered 0..n-1: {sorted(tree)}")
-    return [tree[f"{prefix}_{i}"] for i in idx]
+        raise ValueError(f"layer_i entries are not numbered 0..n-1: {sorted(tree)}")
+    return [tree[f"layer_{i}"] for i in idx]
 
 
-def _kind_of_keys(keys, name: str) -> str:
+def _kind_of_keys(keys) -> str:
     keys = set(keys)
     for kind, jax_keys, port_keys in _KINDS:
         if keys & (jax_keys | port_keys):
             return kind
-    raise ValueError(f"module {name!r}: cannot tell the parameter layout of keys {sorted(keys)}")
+    return "dense"
 
 
-def _linear_from_jax(sd: dict, prefix: str, group: dict, t) -> None:
-    """A flax ``Dense`` group ``{kernel [in, out], bias?}`` as an
-    ``nn.Linear``'s ``weight [out, in]`` and ``bias``."""
-    sd[f"{prefix}.weight"] = t(group["kernel"]).T.contiguous()
-    if "bias" in group:
-        sd[f"{prefix}.bias"] = t(group["bias"])
-
-
-def _linear_to_jax(state_dict: dict, prefix: str, a) -> dict:
-    group = {"kernel": a(state_dict[f"{prefix}.weight"]).T.copy()}
-    if f"{prefix}.bias" in state_dict:
-        group["bias"] = a(state_dict[f"{prefix}.bias"])
-    return group
+def _dense_from_jax(sd: dict, prefix: str, tree: dict, t, name: str) -> None:
+    """Every flax ``Dense``/``DenseGeneral`` ``{kernel [in, out], bias?}``
+    below ``tree`` as an ``nn.Linear``'s ``weight [out, in]`` and ``bias``
+    at its dotted path."""
+    if not isinstance(tree, dict) or not tree:
+        raise ValueError(f"module {name!r}: cannot tell the parameter layout at {prefix!r}: {tree!r}")
+    if "kernel" in tree:
+        sd[f"{prefix}.weight"] = t(tree["kernel"]).T.contiguous()
+        if "bias" in tree:
+            sd[f"{prefix}.bias"] = t(tree["bias"])
+        return
+    for key, sub in tree.items():
+        _dense_from_jax(sd, f"{prefix}.{key}", sub, t, name)
 
 
 def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
@@ -102,25 +99,20 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 
     sd = {}
     for name, group in groups.items():
-        kind = _kind_of_keys(group, name)
+        kind = _kind_of_keys(group)
         if kind == "embedding":
             for part in ("node", "edge"):
                 sd[f"{name}.{part}.embedding.weight"] = t(group[part]["embedding"]["embedding"])
         elif kind == "stacked":
-            layers = [group["layer"]] if "layer" in group else _indexed(group, "layer")
+            layers = [group["layer"]] if "layer" in group else _stacked_layers(group)
             stack = (lambda xs: xs[0]) if "layer" in group else torch.stack
             sd[f"{name}.weight"] = stack([t(layer["update"]["kernel"]) for layer in layers])
             if "bias" in layers[0]["update"]:
                 sd[f"{name}.bias"] = stack([t(layer["update"]["bias"]) for layer in layers])
-        elif kind == "update":
-            _linear_from_jax(sd, f"{name}.update", group["update"], t)
-        elif kind == "gated":
-            _linear_from_jax(sd, f"{name}.a", group["a"], t)
         elif kind == "query":
             sd[f"{name}.query"] = t(group["query"])
         else:
-            for i, dense in enumerate(_indexed(group, "dense")):
-                _linear_from_jax(sd, f"{name}.dense_{i}", dense, t)
+            _dense_from_jax(sd, name, group, t, name)
     return sd
 
 
@@ -137,7 +129,7 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
         names.setdefault(name, []).append(rest)
     tree = {}
     for name, keys in names.items():
-        kind = _kind_of_keys(keys, name)
+        kind = _kind_of_keys(keys)
         if kind == "embedding":
             group = {
                 part: {"embedding": {"embedding": a(state_dict[f"{name}.{part}.embedding.weight"])}}
@@ -154,14 +146,16 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
 
             # a shared block keeps one [d, d] layer
             group = {"layer": update(None)} if W.dim() == 2 else {f"layer_{i}": update(i) for i in range(len(W))}
-        elif kind == "update":
-            group = {"update": _linear_to_jax(state_dict, f"{name}.update", a)}
-        elif kind == "gated":
-            group = {"a": _linear_to_jax(state_dict, f"{name}.a", a)}
         elif kind == "query":
             group = {"query": a(state_dict[f"{name}.query"])}
         else:
-            n_dense = sum(1 for k in keys if _LAYER.match(k.split(".")[0]) and k.endswith(".weight"))
-            group = {f"dense_{i}": _linear_to_jax(state_dict, f"{name}.dense_{i}", a) for i in range(n_dense)}
+            group = {}
+            for key in keys:
+                *path, leaf = key.split(".")
+                node = group
+                for part in path:
+                    node = node.setdefault(part, {})
+                value = a(state_dict[f"{name}.{key}"])
+                node["kernel" if leaf == "weight" else leaf] = value.T.copy() if leaf == "weight" else value
         tree[f"{_GROUP}{name}"] = group
     return tree

@@ -14,9 +14,9 @@ Port of ``notorch_tpu.models.dmpnn`` for regression on three layouts:
   :mod:`notorch_tpu_torch.nn.agg`.
 
 The loss is the masked MSE and the default metrics RMSE and MAE, on the same
-keys as there. The plain ``dense`` layout, graph-axis partitioning, other
-task types and the dense layouts' other readouts raise
-``NotImplementedError`` until their slice is ported.
+keys as there. Every layout takes the five readouts (sum, mean, max, gated,
+sdp). The plain ``dense`` layout, graph-axis partitioning and other task
+types raise ``NotImplementedError`` until their slice is ported.
 """
 
 from __future__ import annotations
@@ -28,12 +28,18 @@ from notorch_tpu_torch.model.model import Model, fill_pred_transform_keys
 from notorch_tpu_torch.nn import agg
 from notorch_tpu_torch.nn.chemprop import PARALLEL_SLICE, ChempropBlock
 from notorch_tpu_torch.nn.chemprop_dense import (
+    DenseGated,
     DenseGraphEmbedding,
     DenseMax,
     DenseMean,
+    DenseSDPAttention,
     DenseSum,
     FusedDenseChempropBlock,
+    PackedGated,
+    PackedMax,
     PackedMean,
+    PackedSDPAttention,
+    PackedSum,
 )
 from notorch_tpu_torch.nn.embed import GraphEmbedding
 from notorch_tpu_torch.nn.mlp import MLP
@@ -41,14 +47,23 @@ from notorch_tpu_torch.tasks import losses as L
 from notorch_tpu_torch.tasks import metrics as M
 from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
+from notorch_tpu_torch.utils import require_f32
 
 AGGREGATIONS = ("sum", "mean", "max", "gated", "sdp")
 LAYOUTS = ("dense_packed", "dense_fused", "flat")
-# the per-molecule readouts the port has (gated and sdp come later)
-DENSE_READOUTS = {"sum": DenseSum, "mean": DenseMean, "max": DenseMax}
+DENSE_READOUTS = {"sum": DenseSum, "mean": DenseMean, "max": DenseMax, "gated": DenseGated,
+                  "sdp": DenseSDPAttention}
+PACKED_READOUTS = {"sum": PackedSum, "mean": PackedMean, "max": PackedMax, "gated": PackedGated,
+                   "sdp": PackedSDPAttention}
 FLAT_READOUTS = {"sum": agg.Sum, "mean": agg.Mean, "max": agg.Max, "gated": agg.Gated,
                  "sdp": agg.SDPAttention}
 REDUCES = ("sum", "mean", "max")
+
+
+def readout(readouts: dict, aggregation: str, hidden_dim: int):
+    """The ``aggregation`` readout of ``readouts`` at width ``hidden_dim``."""
+    width = {"gated": {"input_dim": hidden_dim}, "sdp": {"key_dim": hidden_dim}}
+    return readouts[aggregation](**width.get(aggregation, {}))
 
 
 def resolve_layout(
@@ -131,8 +146,7 @@ def build_dmpnn(
             f"layout {layout!r} is not ported yet; the port has {list(LAYOUTS)} "
             "(the plain 'dense' block comes with a later slice)"
         )
-    if dtype is not None and str(dtype).removeprefix("torch.") != "float32":
-        raise NotImplementedError(f"dtype={dtype!r}: the port's D-MPNN runs in float32")
+    require_f32(dtype, "D-MPNN")
     if layout == "dense_fused":
         if dropout and dropout > 0.0:
             raise ValueError(
@@ -152,25 +166,18 @@ def build_dmpnn(
         embed = GraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim)
         block = ChempropBlock(hidden_dim=hidden_dim, depth=depth, dropout=dropout, reduce=reduce,
                               remat=remat, impl=impl)
-        width = {"gated": {"input_dim": hidden_dim}, "sdp": {"key_dim": hidden_dim}}
-        readout = FLAT_READOUTS[aggregation](**width.get(aggregation, {}))
+        head = readout(FLAT_READOUTS, aggregation, hidden_dim)
     else:
-        readouts = DENSE_READOUTS if layout == "dense_fused" else {"mean": PackedMean}
-        if aggregation not in readouts:
-            raise NotImplementedError(
-                f"aggregation {aggregation!r} on layout {layout!r} is not ported yet; "
-                f"the port has {list(readouts)}"
-            )
         if reduce == "max":
             raise NotImplementedError("reduce='max' (the plain dense block) is not ported yet")
         embed = DenseGraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim)
         block = FusedDenseChempropBlock(hidden_dim=hidden_dim, depth=depth, reduce=reduce)
-        readout = readouts[aggregation]()
+        head = readout(DENSE_READOUTS if layout == "dense_fused" else PACKED_READOUTS, aggregation, hidden_dim)
 
     modules = {
         "embed": {"module": embed, "in_keys": ["inputs.G"], "out_keys": ["G"]},
         "mp": {"module": block, "in_keys": ["embed.G"], "out_keys": ["G"]},
-        "readout": {"module": readout, "in_keys": ["mp.G"], "out_keys": ["H"]},
+        "readout": {"module": head, "in_keys": ["mp.G"], "out_keys": ["H"]},
         "ffn": {
             "module": MLP(
                 input_dim=hidden_dim, output_size=num_tasks, hidden_dim=hidden_dim,

@@ -19,7 +19,7 @@ from torch import nn
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.data.graph import BatchedGraph
 from notorch_tpu_torch.nn.chemprop import PARALLEL_SLICE
-from notorch_tpu_torch.nn.init import lecun_normal_
+from notorch_tpu_torch.nn.init import dense, lecun_normal_, reset_dense_
 from notorch_tpu_torch.nn.ops import segment_max, segment_softmax, segment_sum
 
 __all__ = ["Sum", "Mean", "Max", "Gated", "SDPAttention"]
@@ -77,12 +77,10 @@ class Gated(nn.Module):
     def __init__(self, input_dim: int = DEFAULT_HIDDEN_DIM, psum_axis: str | None = None):
         _no_psum(psum_axis)
         super().__init__()
-        # torch.empty: values come from reset_parameters, never the global RNG
-        self.a = nn.Linear(input_dim, 1, device="meta").to_empty(device="cpu")
+        self.a = dense(input_dim, 1)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        lecun_normal_(self.a.weight, self.a.in_features, generator)
-        nn.init.zeros_(self.a.bias)
+        reset_dense_(self.a, generator)
 
     def forward(self, G: BatchedGraph) -> torch.Tensor:
         scores = self.a(G.node_feats).squeeze(-1)
@@ -107,12 +105,17 @@ class SDPAttention(nn.Module):
         # flax's lecun_normal on a [1, d] parameter: fan_in = 1
         lecun_normal_(self.query, 1, generator)
 
+    def queries(self, Q: torch.Tensor | None, n: int, like: torch.Tensor) -> torch.Tensor:
+        """``Q``, or the learned query broadcast to ``n`` graphs."""
+        d = like.shape[-1]
+        if Q is not None:
+            return Q
+        if d != self.key_dim:
+            raise ValueError(f"the learned query is {self.key_dim} wide, the node hiddens {d}")
+        return self.query.expand(n, d).to(like.dtype)
+
     def forward(self, G: BatchedGraph, Q: torch.Tensor | None = None) -> torch.Tensor:
-        d = G.node_feats.shape[-1]
-        if Q is None:
-            if d != self.key_dim:
-                raise ValueError(f"the learned query is {self.key_dim} wide, the node hiddens {d}")
-            Q = self.query.expand(G.n_graphs, d).to(G.node_feats.dtype)
+        Q = self.queries(Q, G.n_graphs, G.node_feats)
         # the trash slot gets a zero query
         q_full = torch.cat([Q, torch.zeros_like(Q[:1])])
         scores = (q_full[G.node_graph.long()] * G.node_feats).sum(-1) / math.sqrt(float(self.key_dim))

@@ -3,7 +3,9 @@
 Port of ``notorch_tpu.nn.chemprop_dense``: the graph embedding, the plain
 block (the oracle of the fused one), the block backed by the hand-written
 kernels (forward and backward, block alone or the whole encoder), and the
-sum, mean and max readouts.
+readouts: sum, mean, max, gated and scaled-dot-product, per molecule on
+the ``dense`` layout (``Dense*``) and on bin-packed batches (``Packed*``,
+segment ops over ``node_graph``).
 
 Both blocks keep the per-layer weights stacked, as the kernel consumes
 them: ``weight`` ``[depth, d, d]`` in the JAX ``[in, out]`` layout and
@@ -12,6 +14,8 @@ params_from_jax` for the mapping from the JAX ``layer_i/update`` tree).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -25,7 +29,10 @@ from notorch_tpu_torch.kernels.dense_mpnn import (
     fused_dense_mpnn_block,
 )
 from notorch_tpu_torch.nn.embed import EmbeddingBagSum
+from notorch_tpu_torch.nn.agg import Gated, SDPAttention
 from notorch_tpu_torch.nn.init import lecun_normal_
+from notorch_tpu_torch.nn.ops import segment_max, segment_softmax, segment_sum
+from notorch_tpu_torch.utils import require_f32
 
 _LATER_SLICE = "a later slice of the port (ROADMAP.md queue A)"
 
@@ -259,29 +266,115 @@ class DenseMax(nn.Module):
         return torch.where(torch.isfinite(out), out, 0.0)
 
 
+def _masked_node_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Softmax over the node axis of ``[B, V]`` scores, padding slots left
+    out; a row of padding only gives zero weights."""
+    neg = torch.where(mask, scores, float("-inf"))
+    mx = neg.amax(dim=1, keepdim=True)
+    ex = torch.where(mask, torch.exp(neg - torch.where(torch.isfinite(mx), mx, 0.0)), 0.0)
+    return ex / ex.sum(dim=1, keepdim=True).clamp_min(1e-12)
+
+
+def _packed_segments(G: DenseBatchedGraph) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """``([NB * V_b, d] node hiddens, [NB * V_b] molecule ids, n_mols)`` of
+    a ``pack_graphs_dense`` batch; padding slots carry the id ``n_mols``."""
+    if G.n_mols is None:
+        raise ValueError("packed readout needs a pack_graphs_dense batch")
+    if G.n_shards != 1:
+        raise ValueError(
+            f"this packed batch carries {G.n_shards} chunk-local shards "
+            "(pack_graphs_dense(n_shards>1)); its node_graph ids are only "
+            "meaningful per shard — pack with n_shards=1"
+        )
+    d = G.node_feats.shape[-1]
+    return G.node_feats.reshape(-1, d), G.node_graph.reshape(-1).long(), G.n_mols
+
+
+class DenseGated(Gated):
+    """Learned softmax-attention pooling over the dense node axis:
+    ``[B, V, d] -> [B, d]``, with the score layer ``a`` of the flat
+    :class:`~notorch_tpu_torch.nn.agg.Gated`."""
+
+    def __init__(self, input_dim: int = DEFAULT_HIDDEN_DIM, dtype=None):
+        require_f32(dtype, "readouts")
+        super().__init__(input_dim)
+
+    def forward(self, G: DenseBatchedGraph) -> torch.Tensor:
+        alpha = _masked_node_softmax(self.a(G.node_feats).squeeze(-1), G.node_mask)
+        return (alpha[..., None] * G.node_feats).sum(dim=1)
+
+
+class DenseSDPAttention(SDPAttention):
+    """Scaled-dot-product pooling over the dense node axis against the
+    per-graph query ``Q [B, d]`` (the learned query of the flat
+    :class:`~notorch_tpu_torch.nn.agg.SDPAttention` when omitted)."""
+
+    def forward(self, G: DenseBatchedGraph, Q: torch.Tensor | None = None) -> torch.Tensor:
+        Q = self.queries(Q, G.n_graphs, G.node_feats)
+        scores = (Q[:, None, :] * G.node_feats).sum(-1) / math.sqrt(float(self.key_dim))
+        alpha = _masked_node_softmax(scores, G.node_mask)
+        return (alpha[..., None] * G.node_feats).sum(dim=1)
+
+
+class PackedSum(nn.Module):
+    """Per-MOLECULE sum over a bin-packed batch: ``[NB, V_b, d] -> [n_mols,
+    d]`` by one segment sum over ``node_graph`` (padding slots land in the
+    extra trash row, which is dropped). Falls back to :class:`DenseSum` on a
+    batch without packing metadata; so do the other packed readouts."""
+
+    def forward(self, G: DenseBatchedGraph) -> torch.Tensor:
+        if G.node_graph is None:
+            return DenseSum()(G)
+        flat, ids, M = _packed_segments(G)
+        return segment_sum(flat, ids, M + 1)[:-1]
+
+
 class PackedMean(nn.Module):
-    """Per-MOLECULE mean over a bin-packed batch: [NB, V_b, d] -> [n_mols, d]
-    by ``index_add_`` over ``node_graph`` (padding slots land in the extra
-    trash row and are dropped). Falls back to :class:`DenseMean` when the
-    batch carries no packing metadata."""
+    """Per-molecule mean over a bin-packed batch, the count of real node
+    slots floored at 1."""
 
     def forward(self, G: DenseBatchedGraph) -> torch.Tensor:
         if G.node_graph is None:
             return DenseMean()(G)
-        if G.n_mols is None:
-            raise ValueError("packed readout needs a pack_graphs_dense batch")
-        if G.n_shards != 1:
-            raise ValueError(
-                f"this packed batch carries {G.n_shards} chunk-local shards "
-                "(pack_graphs_dense(n_shards>1)); its node_graph ids are only "
-                "meaningful per shard — pack with n_shards=1"
-            )
-        d = G.node_feats.shape[-1]
-        M = G.n_mols
-        ids = G.node_graph.reshape(-1).long()
-        flat = G.node_feats.reshape(-1, d)
-        total = torch.zeros(M + 1, d, dtype=flat.dtype, device=flat.device)
-        total.index_add_(0, ids, flat)
-        counts = torch.zeros(M + 1, dtype=flat.dtype, device=flat.device)
-        counts.index_add_(0, ids, G.node_mask.reshape(-1).to(flat.dtype))
-        return total[:-1] / counts[:-1, None].clamp_min(1.0)
+        flat, ids, M = _packed_segments(G)
+        total = segment_sum(flat, ids, M + 1)[:-1]
+        counts = segment_sum(G.node_mask.reshape(-1).to(flat.dtype), ids, M + 1)[:-1]
+        return total / counts[:, None].clamp_min(1.0)
+
+
+class PackedMax(nn.Module):
+    """Per-molecule max over a bin-packed batch; a molecule with no node
+    reads 0."""
+
+    def forward(self, G: DenseBatchedGraph) -> torch.Tensor:
+        if G.node_graph is None:
+            return DenseMax()(G)
+        flat, ids, M = _packed_segments(G)
+        return segment_max(flat, ids, M + 1)[:-1]
+
+
+class PackedGated(DenseGated):
+    """Gated pooling over a bin-packed batch: a segment softmax of the
+    scores over ``node_graph``, real slots only."""
+
+    def forward(self, G: DenseBatchedGraph) -> torch.Tensor:
+        if G.node_graph is None:
+            return super().forward(G)
+        flat, ids, M = _packed_segments(G)
+        alpha = segment_softmax(self.a(flat).squeeze(-1), ids, M + 1, mask=G.node_mask.reshape(-1))
+        return segment_sum(alpha[:, None] * flat, ids, M + 1)[:-1]
+
+
+class PackedSDPAttention(DenseSDPAttention):
+    """Scaled-dot-product pooling over a bin-packed batch against the
+    per-molecule query ``Q [n_mols, d]`` (the learned query when omitted)."""
+
+    def forward(self, G: DenseBatchedGraph, Q: torch.Tensor | None = None) -> torch.Tensor:
+        if G.node_graph is None:
+            return super().forward(G, Q)
+        flat, ids, M = _packed_segments(G)
+        Q = self.queries(Q, M, flat)
+        q_full = torch.cat([Q, torch.zeros_like(Q[:1])])  # the trash row's query
+        scores = (q_full[ids] * flat).sum(-1) / math.sqrt(float(self.key_dim))
+        alpha = segment_softmax(scores, ids, M + 1, mask=G.node_mask.reshape(-1))
+        return segment_sum(alpha[:, None] * flat, ids, M + 1)[:-1]

@@ -24,6 +24,20 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator 
     return torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+def dense(in_features: int, out_features: int) -> torch.nn.Linear:
+    """An ``nn.Linear`` whose storage is left empty: its values come from
+    :func:`reset_dense_`, never from the global RNG."""
+    return torch.nn.Linear(in_features, out_features, device="meta").to_empty(device="cpu")
+
+
+@torch.no_grad()
+def reset_dense_(layer: torch.nn.Linear, generator: torch.Generator | None = None) -> None:
+    """``flax.linen.Dense``'s defaults: a lecun-normal kernel and a zero bias."""
+    lecun_normal_(layer.weight, layer.in_features, generator)
+    if layer.bias is not None:
+        layer.bias.zero_()
+
+
 @torch.no_grad()
 def embed_normal_(weight: torch.Tensor, generator: torch.Generator | None = None):
     """``flax.linen.Embed``'s default: normal with variance ``1 / features``

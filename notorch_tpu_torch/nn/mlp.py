@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
-from notorch_tpu_torch.nn.init import lecun_normal_
+from notorch_tpu_torch.nn.init import dense, reset_dense_
 
 
 class MLP(nn.Module):
@@ -31,17 +31,13 @@ class MLP(nn.Module):
             output_dim, self.unflatten = prod(output_size), tuple(output_size)
         dims = [input_dim] + [hidden_dim] * num_layers + [output_dim]
         for i in range(len(dims) - 1):
-            # torch.empty: values come from reset_parameters, never the global RNG
-            layer = nn.Linear(dims[i], dims[i + 1], device="meta").to_empty(device="cpu")
-            self.add_module(f"dense_{i}", layer)
+            self.add_module(f"dense_{i}", dense(dims[i], dims[i + 1]))
         self.n_layers = len(dims) - 1
         self.dropout = nn.Dropout(dropout)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         for i in range(self.n_layers):
-            layer = getattr(self, f"dense_{i}")
-            lecun_normal_(layer.weight, layer.in_features, generator)
-            nn.init.zeros_(layer.bias)
+            reset_dense_(getattr(self, f"dense_{i}"), generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x

@@ -16,3 +16,10 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "line) to run the plain CPU path"
         )
     return device
+
+
+def require_f32(dtype, what: str) -> None:
+    """Refuse a dtype other than float32 (``None`` is the default, float32):
+    the port runs ``what`` in float32 only."""
+    if dtype is not None and str(dtype).removeprefix("torch.") != "float32":
+        raise NotImplementedError(f"dtype={dtype!r}: the port's {what} runs in float32")

@@ -318,7 +318,7 @@ def test_dense_fused_refusals():
         build_dmpnn(hidden_dim=8, layout="dense_fused", dropout=0.1)
     with pytest.raises(ValueError, match="max"):
         build_dmpnn(hidden_dim=8, layout="dense_fused", reduce="max")
-    with pytest.raises(NotImplementedError, match="gated"):
-        build_dmpnn(hidden_dim=8, layout="dense_fused", aggregation="gated")
+    with pytest.raises(NotImplementedError, match="max"):
+        build_dmpnn(hidden_dim=8, layout="dense_packed", reduce="max")
     with pytest.raises(NotImplementedError, match="dense"):
         build_dmpnn(hidden_dim=8, layout="dense")

@@ -1,7 +1,8 @@
 """The CUDA kernels of the fused D-MPNN block, the fused encoder, the
-double-buffered forward and the two CSR segment sums against their plain
-versions, on the card; the flat block through the packed sum, card against
-CPU. Skips
+double-buffered forward, the two CSR segment sums and the attention core
+against their plain versions, on the card; the flat block through the
+packed sum and the dense attention block through the attention kernels,
+card against CPU. Skips
 where there is no CUDA device. This file imports no JAX, so that it also
 runs where JAX is not installed:
 
@@ -47,6 +48,16 @@ from notorch_tpu_torch.kernels.dense_mpnn import (
     fused_dense_mpnn_block_dbuf,
     fused_dense_mpnn_block_stash,
 )
+from notorch_tpu_torch.kernels.dense_attention import (
+    dense_attention_bwd_reference,
+    dense_attention_reference,
+    fused_dense_attention,
+    fused_dense_attention_bwd,
+    fused_dense_attention_bwd_v2,
+    fused_dense_attention_fwd,
+    fused_dense_attention_fwd_v2,
+)
+from notorch_tpu_torch.nn.attention_dense import DenseGATBlock
 from notorch_tpu_torch.nn.chemprop import ChempropBlock
 from notorch_tpu_torch.transforms import MolToGraph, Pipeline, SmiToMol
 
@@ -383,3 +394,141 @@ def test_cuda_flat_csr_block_matches_cpu(reduce):
     for a, r in zip(outs[1], outs[0]):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
     _close_grads(grads[1], grads[0])
+
+
+# -- the attention core (rows 10-13) ---------------------------------------------------------
+
+ATTENTION_ENTRIES = (fused_dense_attention_fwd, fused_dense_attention_bwd, fused_dense_attention_fwd_v2,
+                     fused_dense_attention_bwd_v2)
+
+
+def attention_case(kind, d, H, edge_bias, seed=0):
+    """(q, k, v, eb, src, dst, edge_mask, g) on the card. ``packed``: the
+    molecules (a bond-less "O" and "[Na+].[Cl-]" among them) in bins of 128
+    node slots and 256 edge lanes; ``dense``: one molecule a block; ``random``:
+    V = 256, E = 512, random edges over the first 200 node slots (the rest
+    are padding), a fifth of the lanes masked, duplicated pairs."""
+    rng = np.random.default_rng(seed)
+    graphs = [PIPE(s) for s in SMIS + ["[Na+].[Cl-]"]]
+    if kind == "packed":
+        G = pack_graphs_dense(graphs, 128, 256, np_out=True)
+        src, dst, mask = G.src, G.dst, G.edge_mask
+    elif kind == "dense":
+        G = pad_graphs_dense(graphs, 48, 128, np_out=True)
+        src, dst, mask = G.src, G.dst, G.edge_mask
+    else:
+        src = rng.integers(0, 200, (3, 512)).astype(np.int32)
+        dst = rng.integers(0, 200, (3, 512)).astype(np.int32)
+        src[:, 1::7], dst[:, 1::7] = src[:, :-1:7], dst[:, :-1:7]  # lane 7m + 1 repeats lane 7m
+        mask = rng.random((3, 512)) < 0.8
+    B, E = src.shape
+    V = {"packed": 128, "dense": 48, "random": 256}[kind]
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    arrays = [f(B, V, d), f(B, V, d), f(B, V, d), f(B, H, E) if edge_bias else None, src, dst, mask, f(B, V, d)]
+    return [None if x is None else torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in arrays]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["packed", "dense", "random"])
+@pytest.mark.parametrize("edge_bias", [True, False])
+@pytest.mark.parametrize("d, H", [(256, 4), (16, 2)])
+def test_cuda_attention_kernels_match_plain_versions(kind, edge_bias, d, H):
+    """All four entries against the plain versions on every lane (padding
+    rows, the sink and bond-less molecules give zeros); each backward twice,
+    bit for bit; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, eb, src, dst, mask, g = attention_case(kind, d, H, edge_bias)
+    ref = dense_attention_reference(q, k, v, eb, src, dst, mask, H)
+    ref_grads = dense_attention_bwd_reference(q, k, v, eb, src, dst, mask, g, H)
+    before = [fn.launches for fn in ATTENTION_ENTRIES]
+    for fwd, bwd in ((fused_dense_attention_fwd, fused_dense_attention_bwd),
+                     (fused_dense_attention_fwd_v2, fused_dense_attention_bwd_v2)):
+        out = fwd(q, k, v, eb, src, dst, mask, num_heads=H)
+        first = bwd(q, k, v, eb, src, dst, mask, g, num_heads=H)
+        second = bwd(q, k, v, eb, src, dst, mask, g, num_heads=H)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+        _close_grads(first[:3], ref_grads[:3])
+        if edge_bias:
+            _close_grads(first[3:], ref_grads[3:])
+        else:
+            assert not first[3].any()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert [fn.launches - n for fn, n in zip(ATTENTION_ENTRIES, before)] == [1, 2, 1, 2]
+    live = (dense_attention_reference(torch.ones_like(q), k, v, eb, src, dst, mask, H) != 0).any(-1)
+    assert not out[~live].any()  # rows with no live pair are zero
+
+
+@pytest.mark.gpu
+def test_cuda_attention_autograd_matches_cpu():
+    """FusedDenseAttentionFn with the kernel forward on the card against the
+    same function on the CPU: output and the gradients of q, k, v and eb."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    case = attention_case("packed", 64, 4, True, seed=1)
+    results = []
+    for device in ("cpu", "cuda"):
+        q, k, v, eb, src, dst, mask, g = (x.to(device) for x in case)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v, eb)]
+        out = fused_dense_attention(*leaves, src, dst, mask, 4, fwd_impl="pallas")
+        (out * g).sum().backward()
+        results.append([out.detach().cpu()] + [x.grad.cpu() for x in leaves])
+    torch.testing.assert_close(results[1][0], results[0][0], rtol=1e-4, atol=1e-4)
+    _close_grads(results[1][1:], results[0][1:])
+
+
+@pytest.mark.gpu
+def test_cuda_attention_refuses_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    q, k, v, eb, src, dst, mask, g = attention_case("packed", 24, 4, True)
+    with pytest.raises(ValueError, match="multiple of 4"):  # dh = 6
+        fused_dense_attention_fwd_v2(q, k, v, eb, src, dst, mask, num_heads=4)
+    q, k, v, eb, src, dst, mask, g = attention_case("packed", 64, 4, True)
+    with pytest.raises(ValueError, match="interpret"):
+        fused_dense_attention_bwd(q, k, v, eb, src, dst, mask, g, num_heads=4, interpret=True)
+    with pytest.raises(TypeError, match="float32"):
+        fused_dense_attention_fwd(q.double(), k.double(), v.double(), eb.double(), src, dst, mask, num_heads=4)
+    big = torch.zeros(1, 2048, 64, device="cuda")
+    ids = torch.zeros(1, 4096, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_dense_attention_fwd_v2(big, big, big, None, ids, ids, ids.bool(), num_heads=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fwd_impl", ["jnp", "pallas"])
+def test_cuda_dense_gat_block_matches_cpu(fwd_impl):
+    """DenseGATBlock(impl="fused") on the card against the same block on the
+    CPU: node hiddens and every gradient; each layer launches row 13 on the
+    backward, and row 12 on the forward with fwd_impl="pallas"."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    G = pack_graphs_dense([PIPE(s) for s in SMIS], 128, 256, np_out=True)
+    rng = np.random.default_rng(4)
+    B, E = G.src.shape
+    nf, ef = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) for shape in ((B, 128, 32), (B, E, 32)))
+    block = DenseGATBlock(hidden_dim=32, depth=2, num_heads=4, impl="fused", fwd_impl=fwd_impl)
+    block.reset_parameters(torch.Generator().manual_seed(0))
+    outs, grads = [], []
+    for device in ("cpu", "cuda"):
+        block.to(device).zero_grad()
+        before = fused_dense_attention_fwd_v2.launches, fused_dense_attention_bwd_v2.launches
+        out = block(G.to(device).update(node_feats=nf.to(device), edge_feats=ef.to(device)))
+        out.node_feats.square().sum().backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert (fused_dense_attention_fwd_v2.launches - before[0],
+                    fused_dense_attention_bwd_v2.launches - before[1]) == (2 if fwd_impl == "pallas" else 0, 2)
+        outs.append(out.node_feats.detach().cpu())
+        grads.append({name: p.grad.to("cpu", copy=True) for name, p in block.named_parameters()})
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-4)
+    # the biases of W_k and W_bias move no softmax (a shift along a row):
+    # their gradients are zero in exact arithmetic, rounding only, so they
+    # are held at the scale of the other gradients
+    scale = max(float(g.abs().max()) for g in grads[0].values())
+    for name, ref in grads[0].items():
+        atol = 1e-4 * (scale if name.endswith(("W_k.bias", "W_bias.bias")) else float(ref.abs().max()))
+        torch.testing.assert_close(grads[1][name], ref, rtol=1e-4, atol=atol, msg=name)

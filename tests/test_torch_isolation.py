@@ -36,8 +36,9 @@ def test_port_imports_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    for name in ("kernels.dense_mpnn", "kernels.csr_segment", "data.graph", "nn.ops", "nn.embed",
-                 "nn.chemprop", "nn.agg", "models.dmpnn", "model.convert", "transforms.graph",
+    for name in ("kernels.dense_mpnn", "kernels.csr_segment", "kernels.dense_attention", "data.graph", "nn.ops",
+                 "nn.embed", "nn.chemprop", "nn.agg", "nn.attention", "nn.attention_dense", "models.dmpnn",
+                 "models.gat", "model.convert", "transforms.graph",
                  "data.dataset", "data.batching", "cli.predict", "cli.registry", "cli.train", "tasks.losses", "tasks.metrics",
                  "training.loop", "training.checkpoint", "training.optim", "training.schedulers",
                  "__main__"):
