@@ -47,7 +47,22 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
   regression.yaml`` (2 epochs) and ``configs/gat_regression.yaml`` (1
   epoch) as shipped, on their bins of 256 edge lanes and 128 node slots, no
   kernel of the port on their paths (nor of the JAX package on its), card
-  against CPU, then served.
+  against CPU, then served;
+- GVP kernels: the fused GVP message convolution's forward and recompute
+  backward (rows 14-15) against their plain versions at the GVP model's
+  first training batch, clouds with empty neighbourhoods and padding rows,
+  and a node count that JAX's tile halving takes down to 8, the backward
+  twice, bit for bit;
+- train/serve declarative GVP: the GVP model of ``notorch_tpu.models.
+  spatial`` at full width (scalar 256, vector 32, depth 3, 16 neighbours)
+  as a declarative config whose ``GvpGNNBlock(impl: fused)`` runs row 14
+  in every layer's forward and row 15 in every backward, ``fit`` for 2
+  epochs on 512 synthetic clouds (8 steps an epoch, a validation batch),
+  card against CPU epoch by epoch and every step in lockstep, then
+  ``predict`` of the 512 clouds from its checkpoint;
+- train/serve GVP recipe: ``kind: spatial, backbone: gvp`` (its conv the
+  plain tensor ops, no kernel of the port), one epoch, card against CPU,
+  then served.
 
 Every kernel is held against its plain PyTorch version on the card at the
 shapes these paths give it, each path's launch counts are read, and the
@@ -71,10 +86,17 @@ import numpy as np
 import torch
 
 from notorch_tpu_torch.cli.predict import run_predict
-from notorch_tpu_torch.cli.train import build_dataset, prepare, run, save_predict_meta
+from notorch_tpu_torch.cli.train import build_dataset, build_model, prepare, run, save_predict_meta
 from notorch_tpu_torch.data.batching import DataLoader
 from notorch_tpu_torch.data.dense import pack_graphs_dense
 from notorch_tpu_torch.data.graph import csr_row_ptr, pack_edges_by_tile, sort_edges_by_dst
+from notorch_tpu_torch.data.point_cloud import (
+    PointCloud,
+    cloud_batches,
+    coordination_targets,
+    make_clouds,
+    pad_point_clouds,
+)
 from notorch_tpu_torch.kernels import build
 from notorch_tpu_torch.kernels.csr_segment import (
     csr_segment_sum,
@@ -105,10 +127,21 @@ from notorch_tpu_torch.kernels.dense_mpnn import (
     fused_dense_mpnn_block_dbuf,
     fused_dense_mpnn_block_stash,
 )
+from notorch_tpu_torch.kernels.gvp_conv import (
+    fused_gvp_conv_bwd,
+    fused_gvp_conv_fwd,
+    gvp_conv_bwd_reference,
+    gvp_conv_preactivations,
+    gvp_conv_reference,
+    weight_shapes,
+)
 from notorch_tpu_torch.models.dmpnn import build_dmpnn
 from notorch_tpu_torch.models.gat import gat_loader_kwargs
 from notorch_tpu_torch.training.checkpoint import Checkpointer
-from notorch_tpu_torch.training.loop import fit, to_device
+from notorch_tpu_torch.nn.rbf import RBFEmbedding
+from notorch_tpu_torch.nn.spatial.neighbors import radius_neighbors
+from notorch_tpu_torch.training.loop import fit, predict, to_device
+from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
 
 ROOT = Path(__file__).resolve().parent
@@ -164,6 +197,8 @@ TPU_KERNELS = "notorch_tpu/kernels/dense_mpnn.py"
 TPU_CSR = "notorch_tpu/kernels/csr_segment.py"
 TPU_ATTN = "notorch_tpu/kernels/dense_attention.py"
 ATTN_SOURCE = "notorch_tpu_torch/csrc/dense_attention.cu"
+TPU_GVP = "notorch_tpu/kernels/gvp_conv.py"
+GVP_SOURCE = "notorch_tpu_torch/csrc/gvp_conv.cu"
 KERNELS = {  # wrapper -> (source, the TPU kernel's entry it replaces)
     fused_dense_mpnn_block: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:749"),
     fused_dense_mpnn_block_stash: ("notorch_tpu_torch/csrc/dense_mpnn.cu", f"{TPU_KERNELS}:436"),
@@ -178,6 +213,8 @@ KERNELS = {  # wrapper -> (source, the TPU kernel's entry it replaces)
     fused_dense_attention_bwd: (ATTN_SOURCE, f"{TPU_ATTN}:297"),
     fused_dense_attention_fwd_v2: (ATTN_SOURCE, f"{TPU_ATTN}:539"),
     fused_dense_attention_bwd_v2: (ATTN_SOURCE, f"{TPU_ATTN}:573"),
+    fused_gvp_conv_fwd: (GVP_SOURCE, f"{TPU_GVP}:414"),
+    fused_gvp_conv_bwd: (GVP_SOURCE, f"{TPU_GVP}:445"),
 }
 # the model sections of configs/graph_transformer_regression.yaml and
 # configs/gat_regression.yaml (their data, optimizer and trainer sections
@@ -186,6 +223,39 @@ GT_CFG = {"kind": "graph_transformer", "hidden_dim": 256, "depth": 3, "num_heads
           "ffn_layers": 1}
 GAT_CFG = {"kind": "gat", "hidden_dim": 256, "depth": 3, "num_heads": 4, "attention": "gatv2",
            "aggregation": "mean", "ffn_layers": 1}
+# the GVP model of notorch_tpu.models.spatial at its defaults (scalar 256,
+# vector 256 // 8 = 32, depth 3, radius 5, 16 neighbours, 16 RBF bases, sum
+# readout, 1 FFN layer, Adam at 1e-3), its neighbour search banded at 24 (the
+# synthetic clouds have at most 25 atoms); the recipe runs the plain conv
+GVP_RECIPE = {"kind": "spatial", "backbone": "gvp", "hidden_dim": 256, "depth": 3, "radius": 5.0,
+              "max_neighbors": 16, "neighbor_window": 24, "aggregation": "sum", "ffn_layers": 1}
+GVP_LR, GVP_WINDOW = 1e-3, 24
+# synthetic clouds (make_clouds: 10-25 atoms, the JAX bench's draw) with the
+# coordination-number target, batches of 64 padded to a multiple of 64 nodes:
+# 8 training steps an epoch and one validation batch
+GVP_CLOUDS, GVP_VAL_CLOUDS, GVP_EPOCHS = 512, 64, 2
+# rows 14-15's gradients against their plain versions, and the GVP runs'
+# gradients card against CPU: a ReLU pre-activation within rounding of zero
+# takes one side in one computation and the other side in the other, and the
+# gradients then differ by that slot's whole term (at the first batch's
+# 17,235 live slots the worst gradient moved by 1.7e-3 in relative L2,
+# element by element by far more than ATOL: H100, 700 W).
+# So the kernels' gradients are held element by element on the same inputs
+# with the slots whose pre-activation in some layer lies within KINK_TOL of
+# that layer's largest |pre-activation| of zero masked out on both sides
+# (masking a slot changes no other slot's pre-activations), and on the
+# inputs as they are, and in the GVP runs' lockstep, by each tensor's
+# relative L2 distance at KINK_GRAD_L2
+KINK_TOL = 1e-5
+KINK_GRAD_L2 = 1e-2
+# the GVP runs, card against CPU, per-epoch losses: the run starts at a loss
+# near 600, and Adam, moving each weight by about the rate whatever its
+# gradient's size, grows rounding differences into differences of the run.
+# The same run in the port and in the JAX package, both on the CPU in exact
+# float32 from the same weights, drifts apart by up to 1.17e-1 (the long test
+# tests/test_torch_spatial.py::test_gvp_full_width_run_drifts_apart_in_both_
+# packages), so the whole runs are held at that, and every step in lockstep
+GVP_RUN_RTOL = 1.17e-1
 
 
 def declarative_model_cfg(d: int = 256, depth: int = 3) -> dict:
@@ -248,6 +318,28 @@ def declarative_flat_model_cfg(d: int = 128) -> dict:
         },
         "losses": {"mse": {"class": "MSE", "in_keys": dict(keys), "weight": 1.0}},
         "metrics": {"rmse": {"class": "RMSE", "in_keys": dict(keys)}},
+    }
+
+
+def declarative_gvp_model_cfg(d: int = 256, dv: int = 32, depth: int = 3) -> dict:
+    """The declarative GVP model on the kernel path (the YAML in README.md):
+    PointwiseEmbed -> GvpGNNBlock(impl: fused, neighbor_window: 24) ->
+    SpatialSum -> MLP, the MSE loss; every forward runs row 14 and every
+    backward row 15 in each layer."""
+    keys = {"preds": "ffn.preds", "targets": "targets.y", "mask": "targets.y_mask"}
+    return {
+        "modules": {
+            "embed": {"class": "PointwiseEmbed", "args": {"hidden_dim": d}, "in_keys": ["inputs.P"],
+                      "out_keys": ["P"]},
+            "backbone": {"class": "GvpGNNBlock",
+                         "args": {"scalar_dim": d, "vector_dim": dv, "depth": depth, "radius": 5.0,
+                                  "max_neighbors": 16, "neighbor_window": GVP_WINDOW, "impl": "fused"},
+                         "in_keys": ["embed.P"], "out_keys": ["P"]},
+            "readout": {"class": "SpatialSum", "in_keys": ["backbone.P"], "out_keys": ["H"]},
+            "ffn": {"class": "MLP", "args": {"input_dim": d, "output_size": 1, "hidden_dim": d, "num_layers": 1},
+                    "in_keys": ["readout.H"], "out_keys": ["preds"]},
+        },
+        "losses": {"loss": {"class": "MSE", "in_keys": keys}},
     }
 
 
@@ -1203,6 +1295,239 @@ def library_segment_reduce(x: dict):
     return lambda: torch.segment_reduce(x["sorted_data"], "sum", offsets=offsets, unsafe=True)
 
 
+def gvp_data() -> tuple[list[dict], list[dict]]:
+    """The GVP runs' data: GVP_CLOUDS training and GVP_VAL_CLOUDS validation
+    clouds from their seeds, in batches of 64 clouds."""
+    train, val = make_clouds(GVP_CLOUDS, seed=SEED), make_clouds(GVP_VAL_CLOUDS, seed=SEED + 1)
+    return (cloud_batches(train, coordination_targets(train), batch_size=BATCH),
+            cloud_batches(val, coordination_targets(val), batch_size=BATCH))
+
+
+def gvp_kernel_inputs(P, seed: int, d: int = 256, dv: int = 32, nb: int = 16, K: int = 16) -> dict:
+    """Rows 14-15's operands as GvpConv makes them from the batch ``P`` on
+    the card: the banded neighbour lists (radius 5, window 24), the RBF
+    features and unit vectors of the coordinates; seeded s, v, split weights
+    (scaled by 1/sqrt(fan in)) and cotangents."""
+    P = P.to("cuda")
+    nbrs, mask, dists = radius_neighbors(P.coords, P.batch_index, 5.0, K, window=GVP_WINDOW)
+    N = nbrs.shape[0]
+    rbf = RBFEmbedding(0.0, 5.0, nb)(dists).reshape(N * K, nb)
+    disp = P.coords[nbrs.long()] - P.coords[:, None, :]
+    unit = (disp / torch.sqrt((disp**2).sum(-1, keepdim=True) + 1e-8)).reshape(N * K, 3)
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).cuda()
+
+    weights = [f32(*shape, scale=1 / np.sqrt(shape[0]) if len(shape) == 2 else 0.1)
+               for shape in weight_shapes(d, dv, nb)]
+    args = [f32(N, d), f32(N, dv), f32(N, dv), f32(N, dv), nbrs, mask, rbf,
+            *(unit[:, i: i + 1].contiguous() for i in range(3)), weights]
+    return {"args": args, "cot": [f32(N, d), f32(N, dv), f32(N, dv), f32(N, dv)], "N": N,
+            "live_rows": int(mask.sum()), "padded_rows": N * K}
+
+
+def gvp_cases(train_batches: list[dict]) -> dict[str, dict]:
+    """The first training batch; clouds with isolated atoms (empty
+    neighbourhoods) and many padding rows; a node count that JAX's tile
+    halving takes down to 8."""
+    first = train_batches[0]["inputs.P"]
+    clouds = make_clouds(40, seed=SEED + 5)
+    for i in range(0, 40, 3):  # an atom 100 A from the rest of its cloud
+        coords = clouds[i].coords.copy()
+        coords[0] += 100.0
+        clouds[i] = PointCloud(clouds[i].node_types, coords)
+    sparse = pad_point_clouds(clouds, 1024, graph_cap=40)
+    odd = make_clouds(60, seed=SEED + 6)
+    atoms = sum(c.num_nodes for c in odd)
+    cap = 8 * (-(-atoms // 8) | 1)  # an odd multiple of 8
+    return {"first_training_batch": gvp_kernel_inputs(first, SEED + 50),
+            "empty_neighbourhoods_and_padding": gvp_kernel_inputs(sparse, SEED + 51),
+            "tile_falls_to_8": gvp_kernel_inputs(pad_point_clouds(odd, cap, graph_cap=60), SEED + 52)}
+
+
+def kink_free(args: list) -> tuple[list, int]:
+    """``args`` with the slots masked whose ReLU pre-activation in some layer
+    (the plain forward's, in float64) lies within KINK_TOL of that layer's
+    largest |pre-activation| of zero; also returns how many were masked."""
+    wide = [a.double() if a.is_floating_point() else a for a in args[:10]] + [[w.double() for w in args[10]]]
+    near = torch.zeros(args[5].numel(), dtype=torch.bool, device=args[5].device)
+    for mid in gvp_conv_preactivations(*wide, GVP_WINDOW):
+        near |= (mid.abs() < KINK_TOL * mid.abs().max()).any(1)
+    near = near.reshape(args[5].shape) & args[5]
+    return args[:5] + [(args[5] & ~near).contiguous()] + args[6:], int(near.sum())
+
+
+def compare_gvp(x: dict, case: str) -> dict:
+    """Rows 14-15 against their plain versions: the four outputs at
+    RTOL/ATOL; every cotangent (features, rbf, unit vectors, the 25 weights)
+    by relative L2 at KINK_GRAD_L2, and on the inputs with the slots near a
+    ReLU kink masked (kink_free) element by element at ATOL times its
+    largest magnitude; the backward twice, bit for bit."""
+    args, cot = x["args"], x["cot"]
+    out = fused_gvp_conv_fwd(*args, window=GVP_WINDOW)
+    first = fused_gvp_conv_bwd(*args, *cot, window=GVP_WINDOW)
+    second = fused_gvp_conv_bwd(*args, *cot, window=GVP_WINDOW)
+    ref = gvp_conv_reference(*args, GVP_WINDOW)
+    ref_grads = gvp_conv_bwd_reference(*args, *cot, GVP_WINDOW)
+    smooth, n_kink = kink_free(args)
+    smooth_grads = fused_gvp_conv_bwd(*smooth, *cot, window=GVP_WINDOW)
+    smooth_ref = gvp_conv_bwd_reference(*smooth, *cot, GVP_WINDOW)
+    torch.cuda.synchronize()
+    fwd = max(held(f"fused_gvp_conv_fwd output {i} ({case})", a, r, False) for i, (a, r) in enumerate(zip(out, ref)))
+    flat = lambda g: list(g[:8]) + list(g[8])  # noqa: E731
+    names = ["g_s", "g_vx", "g_vy", "g_vz", "g_rbf2d", "g_ux", "g_uy", "g_uz"] + [f"g_w{i}" for i in range(25)]
+    if not all(torch.equal(a, b) for a, b in zip(flat(first), flat(second))):
+        fail(f"two calls of fused_gvp_conv_bwd on the same inputs differ ({case})")
+    l2 = {n: float((a - r).norm() / r.norm().clamp_min(1e-30)) for n, a, r in zip(names, flat(first), flat(ref_grads))}
+    worst_l2 = max(l2, key=l2.get)
+    if not l2[worst_l2] <= KINK_GRAD_L2:
+        fail(f"fused_gvp_conv_bwd {worst_l2} ({case}) differs from its plain version by {l2[worst_l2]} in relative L2")
+    bwd = max(held(f"fused_gvp_conv_bwd {n} ({case}, kinks masked)", a, r, True)
+              for n, a, r in zip(names, flat(smooth_grads), flat(smooth_ref)))
+    N, K = args[4].shape
+    tile = 64
+    while N % tile:
+        tile //= 2
+    empty = int((args[5].sum(1) == 0).sum())
+    return {"case": case, "N": N, "K": K, "live_rows": x["live_rows"], "padded_rows": x["padded_rows"],
+            "empty_neighbourhoods": empty, "jax_tile": tile, "slots_near_a_kink": n_kink,
+            "max_abs_err": {"fused_gvp_conv_fwd": fwd, "fused_gvp_conv_bwd": bwd},
+            "bwd_max_rel_l2_unmasked": l2[worst_l2], "bwd_worst_unmasked": worst_l2, "bitwise_repeatable": True}
+
+
+def gvp_model(cfg: dict, device: str):
+    """The model of ``cfg`` with weights from SEED, Adam at GVP_LR, on ``device``."""
+    model = build_model(cfg, None, generator=torch.Generator().manual_seed(SEED),
+                        optimizer=OptimizerSpec("adam", GVP_LR))
+    return model.to(device)
+
+
+def gvp_lockstep(cfg: dict, batches: list[dict], epochs: int, what: str) -> dict:
+    """Every step of the run taken on the card and on the CPU from the card's
+    weights and optimizer state: fails unless each step's loss agrees within
+    LOCKSTEP_RTOL relative and each gradient within KINK_GRAD_L2 in
+    relative L2 distance."""
+    card, cpu = gvp_model(cfg, "cuda"), gvp_model(cfg, "cpu")
+    loss_diff, grad_diff, worst, steps = 0.0, 0.0, None, 0
+    for _ in range(epochs):
+        for batch in batches:
+            cpu.network.load_state_dict(card.network.state_dict())
+            cpu.optimizer.load_state_dict(card.optimizer.state_dict())
+            ours = card.train_step(to_device(batch, "cuda"))
+            theirs = cpu.train_step(to_device(batch, "cpu"))
+            loss_diff = max(loss_diff, rel_diff(float(ours["train/loss"]), float(theirs["train/loss"])))
+            grads = dict(cpu.network.named_parameters())
+            for name, p in card.network.named_parameters():
+                ref = grads[name].grad
+                if p.grad is None and ref is None:  # a path that reaches no output
+                    continue
+                err = float((p.grad.cpu() - ref).norm() / ref.norm().clamp_min(1e-30))
+                if err > grad_diff:
+                    grad_diff, worst = err, name
+            steps += 1
+    if not (loss_diff <= LOCKSTEP_RTOL and grad_diff <= KINK_GRAD_L2):
+        fail(f"{what}: in lockstep the card's steps and the CPU's differ: loss {loss_diff} relative, "
+             f"gradients {grad_diff} in relative L2 ({worst})")
+    return {"steps": steps, "max_loss_rel_diff": loss_diff, "max_grad_rel_l2": grad_diff, "worst_gradient": worst,
+            "rtol": LOCKSTEP_RTOL, "grad_rel_l2_tol": KINK_GRAD_L2}
+
+
+def train_gvp_phase(tmp: Path, phase: str, cfg: dict, train: list[dict], val: list[dict], epochs: int,
+                    expect_fwd_per_batch: int) -> tuple[dict[str, int], Path]:
+    """fit(cfg's model) for ``epochs`` on the card and on the CPU from the
+    same weights, compared epoch by epoch at GVP_RUN_RTOL, then every step in
+    lockstep. The card's run must launch row 15 ``expect_fwd_per_batch``
+    times a step and row 14 as many times a step and an evaluated batch, and
+    nothing else. Returns the launches and the card's checkpoint directory."""
+    ckpt = tmp / f"{phase}_card"
+    reset_launches()
+    card = gvp_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    card_run = fit(card, train, val, epochs=epochs, checkpointer=Checkpointer(ckpt))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launches()
+    steps, n = card.step, expect_fwd_per_batch
+    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_gvp_conv_fwd": n * (steps + epochs * len(val)),
+              "fused_gvp_conv_bwd": n * steps}
+    if counts != expect:
+        fail(f"{phase}: the card's run of {steps} steps launched {counts}; expected {expect}")
+    t0 = time.perf_counter()
+    cpu_run = fit(gvp_model(cfg, "cpu"), train, val, epochs=epochs)
+    cpu_s = time.perf_counter() - t0
+    diffs = {f"epoch{e}/{k}": rel_diff(a[k], b[k]) for e, (a, b) in enumerate(zip(card_run.history, cpu_run.history))
+             for k in ("train/loss", "val/loss")}
+    worst = max(diffs.values())
+    falls = epochs < 2 or card_run.history[-1]["train/loss"] < card_run.history[0]["train/loss"]
+    emit(phase=phase, clouds=len(train) * BATCH, epochs=epochs, steps=steps, kernel_launches=counts,
+         first_batch_nodes=train[0]["inputs.P"].num_nodes, run_s_card=card_s, run_s_cpu=cpu_s,
+         warm_epoch_ms_per_step=card_run.history[-1]["time"] * 1e3 / len(train),
+         history_card=card_run.history, history_cpu=cpu_run.history, rel_diff_vs_cpu=diffs, rel_tol=GVP_RUN_RTOL,
+         loss_falls=falls, lockstep=gvp_lockstep(cfg, train, epochs, phase))
+    if not worst <= GVP_RUN_RTOL:
+        fail(f"{phase}: the card's run and the CPU's differ by {worst} relative: {diffs}")
+    if not falls:
+        fail(f"{phase}: the training loss did not fall: {card_run.history}")
+    return counts, ckpt
+
+
+def serve_gvp_phase(ckpt: Path, cfg: dict, batches: list[dict], phase: str, expect: dict[str, int]) -> dict[str, int]:
+    """predict of ``batches`` from the checkpoint's weights on the card (cold
+    and warm, and the busy share of a warm request) against the CPU at
+    RTOL/ATOL; fails unless the request launched exactly ``expect``."""
+    weights = Checkpointer(ckpt).restore()
+    card, cpu = gvp_model(cfg, "cuda"), gvp_model(cfg, "cpu")
+    card.network.load_state_dict(weights)
+    cpu.network.load_state_dict(weights)
+    reset_launches()
+    t0 = time.perf_counter()
+    got = predict(card, batches, keys=["ffn.preds"])["ffn.preds"]
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    counts = launches()
+    if counts != {**{fn.__name__: 0 for fn in KERNELS}, **expect}:
+        fail(f"{phase}: the request launched {counts}; expected {expect} and nothing else")
+    t0 = time.perf_counter()
+    predict(card, batches, keys=["ffn.preds"])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    profiled = profile_busy(lambda: predict(card, batches, keys=["ffn.preds"]))
+    ref = predict(cpu, batches, keys=["ffn.preds"])["ffn.preds"]
+    err = np.abs(got - ref)
+    n = len(batches) * BATCH
+    ok = got.shape == (n, 1) and bool(np.isfinite(got).all()) and bool((err <= ATOL + RTOL * np.abs(ref)).all())
+    emit(phase=phase, clouds=n, kernel_launches=counts, request_s_cold=cold_s, request_s_warm=warm_s,
+         profile=profiled, max_abs_err_vs_cpu=float(err.max()), pred_mean=float(got.mean()),
+         pred_std=float(got.std()), ok=ok)
+    if not ok:
+        fail(f"{phase}: the card's predictions disagree with the CPU or are not finite")
+    return counts
+
+
+def gvp_work(x: dict, bwd: bool) -> tuple[int, int, int]:
+    """Operations and bytes of one call on these inputs, and the operations
+    counted at every padded row. The products the function needs: per node
+    s Wsi, s Wsj and v Whi, v Whj (each 3 components); per live (node,
+    neighbour) row nrm Wnrm, rbf Wrbf, the gate and v Wmu of layer 0 and
+    v Wh, s Ws, nrm Wnrm, the gate and v Wmu of layers 1 and 2; two
+    operations a multiply-add. The backward recomputes the forward and takes
+    two products per forward product (the input's and the weight's
+    cotangents): three times the forward. Each input read once, each output
+    written once."""
+    s, vx, _, _, nbrs, mask, rbf, ux, _, _, weights = x["args"]
+    (N, ds), dv, nb = s.shape, vx.shape[1], rbf.shape[1]
+    h0 = 2 * dv + 1
+    per_node = 2 * ds * ds + 6 * dv * h0
+    per_row = h0 * ds + nb * ds + ds * dv + 3 * h0 * dv + 2 * (6 * dv * dv + ds * ds + 2 * dv * ds)
+    scale = 3 if bwd else 1
+    ops = scale * 2 * (N * per_node + x["live_rows"] * per_row)
+    padded_ops = scale * 2 * (N * per_node + x["padded_rows"] * per_row)
+    ins = nbytes(*x["args"][:10], *weights) + (nbytes(*x["cot"]) if bwd else 0)
+    outs = (nbytes(*x["args"][:4], rbf, *x["args"][7:10], *weights) if bwd else nbytes(s, vx) + 2 * nbytes(vx))
+    return ops, ins + outs, padded_ops
+
+
 def kernel_record(fn, path_launches: int, max_abs_err: float, kernel_t: dict, plain_t: dict,
                   bound_ms: float, bound_by: str, library_t: dict | None = None) -> dict:
     source, replaces = KERNELS[fn]
@@ -1325,6 +1650,21 @@ def main() -> None:
         serve_checkpoint_phase(tmp, train_run_phase(tmp, "train_graph_transformer", dict(GT_CFG), TRAIN_EPOCHS,
                                                     no_kernel)[1], "serve_graph_transformer", {})
         serve_checkpoint_phase(tmp, train_run_phase(tmp, "train_gat", dict(GAT_CFG), 1, no_kernel)[1], "serve_gat", {})
+
+        # rows 14-15 against their plain versions, then the GVP model both ways
+        gvp_train, gvp_val = gvp_data()
+        gvp_x = gvp_cases(gvp_train)
+        gvp_records = [compare_gvp(x, name) for name, x in gvp_x.items()]
+        emit(phase="gvp_kernels_vs_plain", rtol=RTOL, atol=ATOL,
+             grad_atol="ATOL x the largest |value| of each gradient", cases=gvp_records)
+        gvp_cfg = declarative_gvp_model_cfg()
+        gvp_depth = gvp_cfg["modules"]["backbone"]["args"]["depth"]
+        gvp_trained, gvp_ckpt = train_gvp_phase(tmp, "train_declarative_gvp", gvp_cfg, gvp_train, gvp_val,
+                                                GVP_EPOCHS, gvp_depth)
+        gvp_served = serve_gvp_phase(gvp_ckpt, gvp_cfg, gvp_train, "serve_declarative_gvp",
+                                     {"fused_gvp_conv_fwd": gvp_depth * len(gvp_train)})
+        recipe_ckpt = train_gvp_phase(tmp, "train_gvp_recipe", dict(GVP_RECIPE), gvp_train, gvp_val, 1, 0)[1]
+        serve_gvp_phase(recipe_ckpt, dict(GVP_RECIPE), gvp_train, "serve_gvp_recipe", {})
 
     # time each kernel and its plain version at the serving and training shape
     h0, src, dst, mask, W, b = main_args
@@ -1464,6 +1804,31 @@ def main() -> None:
             if shape == path_shape:
                 records.append(kernel_record(fn, path_count, path_err, kernel_t, plain_t, bound_ms, bound_by,
                                              library_t))
+    # rows 14-15 at the GVP model's first training batch
+    gx = gvp_x["first_training_batch"]
+    for fn, bwd in ((fused_gvp_conv_fwd, False), (fused_gvp_conv_bwd, True)):
+        if bwd:
+            kernel = lambda: fused_gvp_conv_bwd(*gx["args"], *gx["cot"], window=GVP_WINDOW)  # noqa: E731
+            plain = lambda: gvp_conv_bwd_reference(*gx["args"], *gx["cot"], GVP_WINDOW)  # noqa: E731
+        else:
+            kernel = lambda: fused_gvp_conv_fwd(*gx["args"], window=GVP_WINDOW)  # noqa: E731
+            plain = lambda: gvp_conv_reference(*gx["args"], GVP_WINDOW)  # noqa: E731
+        kernel_t, plain_t = time_ms(kernel), time_ms(plain)
+        breakdown = profile_busy(lambda: [kernel() for _ in range(5)])["top"]  # noqa: B023
+        ops, n_bytes, padded_ops = gvp_work(gx, bwd)
+        bound_ms, bound_by = bound(ops, n_bytes)
+        emit(phase="time", kernel=fn.__name__,
+             shape={"N": gx["N"], "K": 16, "ds": 256, "dv": 32, "nb": 16, "live_rows": gx["live_rows"],
+                    "padded_rows": gx["padded_rows"]},
+             ms=kernel_t["device"], plain_ms=plain_t["device"], eager_ms=kernel_t["eager"],
+             plain_eager_ms=plain_t["eager"], bound_ms=bound_ms, bound_by=bound_by, operations=ops,
+             operations_at_padded_rows=padded_ops, bound_ms_at_padded_rows=bound(padded_ops, n_bytes)[0],
+             bytes=n_bytes, library_ms=None, library_note="none: no single PyTorch call",
+             launches={"train": gvp_trained[fn.__name__], "serve": gvp_served[fn.__name__]},
+             kernels_of_5_calls=breakdown)
+        records.append(kernel_record(fn, gvp_trained[fn.__name__],
+                                     max(c["max_abs_err"][fn.__name__] for c in gvp_records),
+                                     kernel_t, plain_t, bound_ms, bound_by))
     # row 8 again with the padding sink's run cut (row pointers clipped at
     # the last real edge): what the sink's 358-row run costs
     cut = torch.clamp(x["row_ptr"], max=n_real)

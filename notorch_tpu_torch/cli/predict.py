@@ -23,7 +23,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from notorch_tpu_torch.cli.train import build_dataset, build_model, loader_options, resolve_model_cfg
+from notorch_tpu_torch.cli.train import (
+    build_dataset,
+    build_model,
+    loader_options,
+    refuse_point_clouds,
+    resolve_model_cfg,
+)
 from notorch_tpu_torch.data.batching import DataLoader
 from notorch_tpu_torch.tasks import transforms as task_transforms
 from notorch_tpu_torch.training.checkpoint import Checkpointer
@@ -64,6 +70,7 @@ def run_predict(
     }
     # metas written by run() hold the resolved layout; a hand-written meta
     # may still say "auto"
+    refuse_point_clouds(meta["model"])
     model_cfg = resolve_model_cfg(meta["model"])
     model = build_model(model_cfg, transforms)
     model.network.load_state_dict(Checkpointer(checkpoint_dir).restore(step=step))

@@ -29,13 +29,11 @@ REGISTRY: dict[str, Callable] = {}
 TRUSTED_MODULES_ENV = "NOTORCH_TPU_TORCH_TRUSTED_MODULES"
 
 _FAMILIES = "the slice of the other model families and task types"
-_SPATIAL = "the spatial slice"
+_SPATIAL = "the rest of the spatial slice (SchNet, PaiNN, SDF point clouds)"
 _MOE = "the MoE and glue slice"
 # every other name of notorch_tpu.cli.registry, with the slice that ports it
 LATER: dict[str, str] = {
-    **dict.fromkeys(["GvpGNNBlock", "GatedEquivariantBlock", "SchnetBlock", "Pointwise",
-                     "PointwiseEmbed", "RBFEmbedding", "MolToPointCloud", "SpatialSum",
-                     "SpatialMean", "SpatialMax", "SpatialGated"], _SPATIAL),
+    **dict.fromkeys(["GatedEquivariantBlock", "SchnetBlock", "MolToPointCloud"], _SPATIAL),
     **dict.fromkeys(["MixtureOfExperts", "MoEMLP", "DenseRouter", "SparseRouter", "Add", "Mul",
                      "Cat", "Split", "MatMul", "Einsum", "Identity", "BatchNorm", "Residual"],
                     _MOE),
@@ -125,6 +123,10 @@ def _populate() -> None:
     )
     from notorch_tpu_torch.nn.embed import GraphEmbedding
     from notorch_tpu_torch.nn.mlp import MLP
+    from notorch_tpu_torch.nn.rbf import RBFEmbedding
+    from notorch_tpu_torch.nn.spatial import agg as spatial_agg
+    from notorch_tpu_torch.nn.spatial.gvp import GvpGNNBlock
+    from notorch_tpu_torch.nn.spatial.pointwise import Pointwise, PointwiseEmbed
     from notorch_tpu_torch.tasks import losses, metrics
     from notorch_tpu_torch.training.optim import OptimizerSpec
     from notorch_tpu_torch.transforms import (
@@ -156,6 +158,10 @@ def _populate() -> None:
         DenseGraphSelfAttention,
         DenseGATBlock,
         MLP,
+        GvpGNNBlock,
+        Pointwise,
+        PointwiseEmbed,
+        RBFEmbedding,
         MolToGraph,
         SmiToMol,
         MultiTypeAtomTransform,
@@ -163,6 +169,10 @@ def _populate() -> None:
         Pipeline,
     ]:
         register(cls.__name__, cls)
+    register("SpatialSum", spatial_agg.Sum)
+    register("SpatialMean", spatial_agg.Mean)
+    register("SpatialMax", spatial_agg.Max)
+    register("SpatialGated", spatial_agg.Gated)
     register("MSE", losses.MSE)
     register("MAE", losses.MAE)
     register("RMSE", metrics.RMSE)

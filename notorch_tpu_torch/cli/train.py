@@ -42,8 +42,7 @@ from notorch_tpu_torch.utils import resolve_device
 
 
 # the JAX package's other model kinds, with the slice of the port that brings each
-LATER_KINDS = {"multicomponent": "the slice of the other model families and task types",
-               "spatial": "the spatial slice"}
+LATER_KINDS = {"multicomponent": "the slice of the other model families and task types"}
 
 
 def load_config(path: str | Path) -> dict:
@@ -136,8 +135,9 @@ def build_optimizer(cfg: dict | None) -> OptimizerSpec:
 
 def build_model(cfg: dict, transforms: dict | None, generator: torch.Generator | None = None,
                 optimizer: OptimizerSpec | None = None):
-    """The model of a ``model`` config: ``kind: dmpnn``, ``gat`` or
-    ``graph_transformer`` (``build_gat`` with ``attention: sdp``), or declarative
+    """The model of a ``model`` config: ``kind: dmpnn``, ``gat``,
+    ``graph_transformer`` (``build_gat`` with ``attention: sdp``) or
+    ``spatial`` (``build_spatial_model``), or declarative
     ``modules`` (with ``losses`` and ``metrics``) built by name through the
     registry, as the JAX ``build_model`` builds them. Parameters are drawn
     from ``generator``; the model is built on the CPU."""
@@ -169,6 +169,10 @@ def build_model(cfg: dict, transforms: dict | None, generator: torch.Generator |
         from notorch_tpu_torch.models.dmpnn import build_dmpnn
 
         return build_dmpnn(transforms=transforms, generator=generator, optimizer=optimizer, **kwargs)
+    if kind == "spatial":
+        from notorch_tpu_torch.models.spatial import build_spatial_model
+
+        return build_spatial_model(transforms=transforms, generator=generator, optimizer=optimizer, **kwargs)
     if kind in ("gat", "graph_transformer"):
         from notorch_tpu_torch.models.gat import build_gat
 
@@ -280,6 +284,22 @@ def loader_options(model_cfg: dict) -> dict:
     return options
 
 
+def refuse_point_clouds(model_cfg: dict) -> None:
+    """Raise for a model that reads point clouds (``kind: spatial``, or a
+    declarative module reading ``inputs.P``): the CLI's data path makes
+    graphs from SMILES and yields no point clouds, in the JAX package too.
+    Such models train and serve through ``build_model``, ``fit`` and
+    ``predict`` on batches of ``pad_point_clouds``."""
+    in_keys = [m.get("in_keys") or [] for m in (model_cfg.get("modules") or {}).values()]
+    reads_clouds = any("inputs.P" in (keys.values() if isinstance(keys, dict) else keys) for keys in in_keys)
+    if model_cfg.get("kind") == "spatial" or reads_clouds:
+        raise ValueError(
+            "this model reads point clouds, but the train and predict CLIs make graphs from SMILES and yield "
+            "no point clouds (as in the JAX package): build it with build_model and train and serve it with "
+            "fit and predict on batches of notorch_tpu_torch.data.point_cloud.pad_point_clouds"
+        )
+
+
 def _refuse_unported(cfg: dict) -> None:
     def walk(node, path):
         if isinstance(node, dict):
@@ -295,6 +315,7 @@ def _refuse_unported(cfg: dict) -> None:
 
     walk(cfg, "")
     model_cfg = cfg.get("model", {})
+    refuse_point_clouds(model_cfg)
     if model_cfg.get("kind") == "pretrain":
         raise NotImplementedError("model.kind: pretrain (masked-atom pretraining) is not ported yet")
     if cfg.get("trainer", {}).get("spmd"):

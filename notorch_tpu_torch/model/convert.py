@@ -11,7 +11,7 @@ tell apart. No JAX is needed: the tree is plain numpy.
 ==================================================  ===================================
 JAX (``/``-joined path below ``modules__<name>``)    port key below ``<name>.``
 ==================================================  ===================================
-embedding (``DenseGraphEmbedding``, ``GraphEmbedding``):
+embedding (``DenseGraphEmbedding``, ``GraphEmbedding``; ``PointwiseEmbed`` has ``node`` alone):
 ``node/embedding/embedding [n_atom_types, d]``       ``node.embedding.weight`` (same)
 ``edge/embedding/embedding [n_bond_types, d]``       ``edge.embedding.weight`` (same)
 stacked layers (the dense blocks, ``ChempropBlock``):
@@ -22,11 +22,16 @@ stacked layers (the dense blocks, ``ChempropBlock``):
 (``ChempropBlock(shared=True)``)
 (no ``bias`` leaf with ``bias=False``)               (no ``bias`` key)
 dense layers (``MLP``, ``ChempropLayer``, the gated readouts, the
-attention layers and blocks), at any depth of nesting:
+attention layers and blocks, ``GvpGNNBlock``'s ``in_proj`` and
+``layer_i/{conv/message_j,update_j}/{W_h,W_mu,W_m,W_g}`` with the
+``conv/ln/scalar_ln`` and ``ln/scalar_ln`` LayerNorms), at any depth of nesting:
 ``<path>/kernel [in, out]``                          ``<path>.weight [out, in]``
                                                      (transposed for ``nn.Linear``;
                                                      ``<path>`` ``/`` -> ``.``)
 ``<path>/bias [out]``                                ``<path>.bias``
+``<path>/scale [d]`` (a flax ``LayerNorm``)          ``<path>.weight [d]`` (an
+                                                     ``nn.LayerNorm``; 1-D, so
+                                                     never transposed)
 e.g. ``dense_i``, ``update``, ``a`` (also GATv2's
 per-head ``DenseGeneral`` ``a``, kernel ``[dh, 1]``),
 ``in_proj``, ``attn_i/W_q``, ``ffn_i_0``
@@ -77,8 +82,8 @@ def _dense_from_jax(sd: dict, prefix: str, tree: dict, t, name: str) -> None:
     at its dotted path."""
     if not isinstance(tree, dict) or not tree:
         raise ValueError(f"module {name!r}: cannot tell the parameter layout at {prefix!r}: {tree!r}")
-    if "kernel" in tree:
-        sd[f"{prefix}.weight"] = t(tree["kernel"]).T.contiguous()
+    if "kernel" in tree or "scale" in tree:
+        sd[f"{prefix}.weight"] = t(tree["kernel"]).T.contiguous() if "kernel" in tree else t(tree["scale"])
         if "bias" in tree:
             sd[f"{prefix}.bias"] = t(tree["bias"])
         return
@@ -100,9 +105,12 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     sd = {}
     for name, group in groups.items():
         kind = _kind_of_keys(group)
+        if kind == "stacked" and "update" not in group.get("layer", group.get("layer_0", {})):
+            kind = "dense"  # numbered layers that are not one update each (GvpGNNBlock's)
         if kind == "embedding":
             for part in ("node", "edge"):
-                sd[f"{name}.{part}.embedding.weight"] = t(group[part]["embedding"]["embedding"])
+                if part in group:
+                    sd[f"{name}.{part}.embedding.weight"] = t(group[part]["embedding"]["embedding"])
         elif kind == "stacked":
             layers = [group["layer"]] if "layer" in group else _stacked_layers(group)
             stack = (lambda xs: xs[0]) if "layer" in group else torch.stack
@@ -133,7 +141,7 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
         if kind == "embedding":
             group = {
                 part: {"embedding": {"embedding": a(state_dict[f"{name}.{part}.embedding.weight"])}}
-                for part in ("node", "edge")
+                for part in ("node", "edge") if f"{part}.embedding.weight" in keys
             }
         elif kind == "stacked":
             W, b = state_dict[f"{name}.weight"], state_dict.get(f"{name}.bias")
@@ -156,6 +164,11 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
                 for part in path:
                     node = node.setdefault(part, {})
                 value = a(state_dict[f"{name}.{key}"])
-                node["kernel" if leaf == "weight" else leaf] = value.T.copy() if leaf == "weight" else value
+                if leaf == "weight" and value.ndim == 1:  # a LayerNorm's scale
+                    node["scale"] = value
+                elif leaf == "weight":
+                    node["kernel"] = value.T.copy()
+                else:
+                    node[leaf] = value
         tree[f"{_GROUP}{name}"] = group
     return tree

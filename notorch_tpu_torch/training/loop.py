@@ -23,6 +23,7 @@ import torch
 
 from notorch_tpu_torch.data.dense import DenseBatchedGraph
 from notorch_tpu_torch.data.graph import BatchedGraph
+from notorch_tpu_torch.data.point_cloud import BatchedPointCloud
 from notorch_tpu_torch.model.model import Model
 
 
@@ -33,10 +34,11 @@ class FitResult:
 
 
 def to_device(batch: Mapping[str, Any], device) -> dict:
-    """A host batch (numpy arrays, tensors, flat or dense graphs) on ``device``."""
+    """A host batch (numpy arrays, tensors, flat or dense graphs, point
+    clouds) on ``device``."""
     out = {}
     for k, v in batch.items():
-        if isinstance(v, (BatchedGraph, DenseBatchedGraph)):
+        if isinstance(v, (BatchedGraph, DenseBatchedGraph, BatchedPointCloud)):
             v = v.to(device)
         elif isinstance(v, np.ndarray):
             v = torch.from_numpy(v).to(device)

@@ -1,8 +1,8 @@
 """The CUDA kernels of the fused D-MPNN block, the fused encoder, the
 double-buffered forward, the two CSR segment sums and the attention core
 against their plain versions, on the card; the flat block through the
-packed sum and the dense attention block through the attention kernels,
-card against CPU. Skips
+packed sum, the dense attention block through the attention kernels and
+the GVP block through the GVP kernels, card against CPU. Skips
 where there is no CUDA device. This file imports no JAX, so that it also
 runs where JAX is not installed:
 
@@ -57,7 +57,18 @@ from notorch_tpu_torch.kernels.dense_attention import (
     fused_dense_attention_fwd,
     fused_dense_attention_fwd_v2,
 )
+from notorch_tpu_torch.data.point_cloud import make_clouds, pad_point_clouds
+from notorch_tpu_torch.kernels.gvp_conv import (
+    fused_gvp_conv_bwd,
+    fused_gvp_conv_fwd,
+    gvp_conv_bwd_reference,
+    gvp_conv_preactivations,
+    gvp_conv_reference,
+    weight_shapes,
+)
 from notorch_tpu_torch.nn.attention_dense import DenseGATBlock
+from notorch_tpu_torch.nn.spatial.gvp import GvpGNNBlock
+from notorch_tpu_torch.nn.spatial.neighbors import radius_neighbors
 from notorch_tpu_torch.nn.chemprop import ChempropBlock
 from notorch_tpu_torch.transforms import MolToGraph, Pipeline, SmiToMol
 
@@ -532,3 +543,107 @@ def test_cuda_dense_gat_block_matches_cpu(fwd_impl):
     for name, ref in grads[0].items():
         atol = 1e-4 * (scale if name.endswith(("W_k.bias", "W_bias.bias")) else float(ref.abs().max()))
         torch.testing.assert_close(grads[1][name], ref, rtol=1e-4, atol=atol, msg=name)
+
+
+def gvp_case(d, dv, seed=0, n_clouds=12, K=16, nb=16, window=24):
+    """The GVP kernels' operands on the card over real banded neighbour
+    lists of synthetic clouds: seeded features, RBF-like edge features, unit
+    vectors, split weights and cotangents."""
+    clouds = make_clouds(n_clouds, seed=seed)
+    cap = -(-sum(c.num_nodes for c in clouds) // 64) * 64
+    P = pad_point_clouds(clouds, cap).to("cuda")
+    nbrs, mask, dists = radius_neighbors(P.coords, P.batch_index, 5.0, K, window=window)
+    rng = np.random.default_rng(seed)
+    f = lambda *shape, scale=1.0: torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).cuda()  # noqa: E731
+    u = f(cap * K, 3)
+    u = u / u.norm(dim=1, keepdim=True)
+    ws = [f(*shape, scale=1 / np.sqrt(shape[0]) if len(shape) == 2 else 0.1) for shape in weight_shapes(d, dv, nb)]
+    args = [f(cap, d), f(cap, dv), f(cap, dv), f(cap, dv), nbrs, mask, torch.exp(-f(cap * K, nb) ** 2),
+            *(u[:, i: i + 1].contiguous() for i in range(3)), ws]
+    return args, [f(cap, d), f(cap, dv), f(cap, dv), f(cap, dv)]
+
+
+def gvp_kink_free(args, window=24, tol=1e-5):
+    """``args`` with the slots masked whose ReLU pre-activation lies within
+    ``tol`` of its layer's largest |pre-activation| of zero: there the
+    gradient jumps, and two computations that round differently may land on
+    either side (chip_smoke.py KINK_TOL)."""
+    wide = [a.double() if a.is_floating_point() else a for a in args[:10]] + [[w.double() for w in args[10]]]
+    near = torch.zeros(args[5].numel(), dtype=torch.bool, device=args[5].device)
+    for mid in gvp_conv_preactivations(*wide, window):
+        near |= (mid.abs() < tol * mid.abs().max()).any(1)
+    return args[:5] + [(args[5] & ~near.reshape(args[5].shape)).contiguous()] + args[6:]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d, dv", [(32, 8), (256, 32), (48, 6)])
+def test_cuda_gvp_kernels_match_plain_versions(d, dv):
+    """Rows 14-15 against their plain versions: the outputs; every cotangent
+    on the inputs with the slots near a ReLU kink masked; the backward twice,
+    bit for bit; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, cot = gvp_case(d, dv)
+    args = gvp_kink_free(args)
+    before = fused_gvp_conv_fwd.launches, fused_gvp_conv_bwd.launches
+    out = fused_gvp_conv_fwd(*args, window=24)
+    first = fused_gvp_conv_bwd(*args, *cot, window=24)
+    second = fused_gvp_conv_bwd(*args, *cot, window=24)
+    torch.cuda.synchronize()
+    assert (fused_gvp_conv_fwd.launches - before[0], fused_gvp_conv_bwd.launches - before[1]) == (1, 2)
+    for a, r in zip(out, gvp_conv_reference(*args, 24)):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
+    ref = gvp_conv_bwd_reference(*args, *cot, 24)
+    _close_grads(list(first[:8]) + list(first[8]), list(ref[:8]) + list(ref[8]))
+    flat = lambda g: list(g[:8]) + list(g[8])  # noqa: E731
+    assert all(torch.equal(a, b) for a, b in zip(flat(first), flat(second)))
+
+
+@pytest.mark.gpu
+def test_cuda_gvp_block_matches_cpu():
+    """GvpGNNBlock(impl="fused") on the card against the same block on the
+    CPU: node outputs, and every gradient within 1e-2 in relative L2 (a
+    ReLU pre-activation within rounding of zero moves a gradient by a whole
+    term: chip_smoke.py KINK_GRAD_L2); rows 14 and 15 once per layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    clouds = make_clouds(12, seed=3)
+    P = pad_point_clouds(clouds, 256)
+    feats = torch.from_numpy(np.random.default_rng(1).standard_normal((256, 32)).astype(np.float32))
+    block = GvpGNNBlock(scalar_dim=32, vector_dim=8, depth=2, neighbor_window=24, impl="fused")
+    block.reset_parameters(torch.Generator().manual_seed(0))
+    outs, grads = [], []
+    for device in ("cpu", "cuda"):
+        block.to(device).zero_grad()
+        before = fused_gvp_conv_fwd.launches, fused_gvp_conv_bwd.launches
+        out = block(P.to(device).update(node_feats=feats.to(device)))
+        torch.sin(out.node_feats).sum().backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert (fused_gvp_conv_fwd.launches - before[0], fused_gvp_conv_bwd.launches - before[1]) == (2, 2)
+        outs.append(out.node_feats.detach().cpu())
+        grads.append({n: p.grad.to("cpu", copy=True) for n, p in block.named_parameters() if p.grad is not None})
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-4)
+    assert sorted(grads[1]) == sorted(grads[0])
+    for name, ref in grads[0].items():
+        assert float((grads[1][name] - ref).norm() / ref.norm()) <= 1e-2, name
+
+
+@pytest.mark.gpu
+def test_cuda_gvp_refuses_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    args, cot = gvp_case(32, 8)
+    with pytest.raises(ValueError, match="interpret"):
+        fused_gvp_conv_fwd(*args, window=24, interpret=True)
+    with pytest.raises(TypeError, match="float32"):
+        fused_gvp_conv_fwd(args[0].double(), *args[1:], window=24)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_gvp_conv_bwd(*args, *cot, window=20)
+    N = args[0].shape[0]
+    wide_k = [torch.zeros(N, 2048, dtype=torch.int32, device="cuda"), torch.zeros(N, 2048, dtype=torch.bool, device="cuda"),
+              torch.zeros(N * 2048, 16, device="cuda")] + [torch.zeros(N * 2048, 1, device="cuda")] * 3
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_gvp_conv_fwd(*args[:4], *wide_k, args[10], window=24)

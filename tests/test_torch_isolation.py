@@ -38,7 +38,9 @@ def test_port_imports_no_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("kernels.dense_mpnn", "kernels.csr_segment", "kernels.dense_attention", "data.graph", "nn.ops",
                  "nn.embed", "nn.chemprop", "nn.agg", "nn.attention", "nn.attention_dense", "models.dmpnn",
-                 "models.gat", "model.convert", "transforms.graph",
+                 "models.gat", "model.convert", "transforms.graph", "kernels.gvp_conv", "data.point_cloud",
+                 "nn.rbf", "nn.spatial.neighbors", "nn.spatial.pointwise", "nn.spatial.agg", "nn.spatial.gvp",
+                 "models.spatial",
                  "data.dataset", "data.batching", "cli.predict", "cli.registry", "cli.train", "tasks.losses", "tasks.metrics",
                  "training.loop", "training.checkpoint", "training.optim", "training.schedulers",
                  "__main__"):
