@@ -597,7 +597,8 @@ def profile_busy(run) -> dict:
     busy_ms = sum(ms for _, ms, _ in kernels)
     by_kernel = {}
     for fragment in ("dense_mpnn_plain_kernel", "dense_mpnn_ends_kernel", "adjoint_kernel",
-                     "weight_grad_partial", "reduce_chunks", "input_grad_kernel", "attn_kernel"):
+                     "weight_grad_partial", "reduce_chunks", "input_grad_kernel", "attn_kernel",
+                     "attn_rows_kernel", "attn_cols_kernel"):
         by_kernel[fragment] = sum(ms for k, ms, _ in kernels if fragment in k)
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
@@ -1793,6 +1794,12 @@ def main() -> None:
             library_t = time_ms(library_sdpa(ax, heads, bwd))
             ops, n_bytes, dense_ops = attention_work(ax, heads, bwd)
             bound_ms, bound_by = bound(ops, n_bytes)
+            # rows 10-11 at their path's shape: each pass's device time over
+            # 20 calls (the profiler can drop the records of a run's last
+            # microseconds, which would hold all of 5 calls of a few us)
+            breakdown = (profile_busy(lambda kernel=kernel: [kernel() for _ in range(20)])["top"]
+                         if shape == path_shape and fn in (fused_dense_attention_fwd, fused_dense_attention_bwd)
+                         else None)
             emit(phase="time", kernel=fn.__name__, shape={"case": shape, "B": ax[0].shape[0], "V": ax[0].shape[1],
                                                           "E": ax[4].shape[1],
                                                           "d": d, "heads": heads, "live_pairs": live_pairs(ax)},
@@ -1800,7 +1807,8 @@ def main() -> None:
                  plain_eager_ms=plain_t["eager"], bound_ms=bound_ms, bound_by=bound_by, operations=ops,
                  dense_operations=dense_ops, bytes=n_bytes, library_ms=library_t["device"],
                  library_note=("scaled_dot_product_attention forward and autograd backward" if bwd else
-                               "scaled_dot_product_attention") + ", the additive mask and bias built beforehand")
+                               "scaled_dot_product_attention") + ", the additive mask and bias built beforehand",
+                 **({} if breakdown is None else {"kernels_of_20_calls": breakdown}))
             if shape == path_shape:
                 records.append(kernel_record(fn, path_count, path_err, kernel_t, plain_t, bound_ms, bound_by,
                                              library_t))

@@ -8,11 +8,15 @@ Replaces the Pallas kernels of ``notorch_tpu/kernels/dense_attention.py``:
 ==================================  =======================================
 TPU entry (kernel)                  here
 ==================================  =======================================
-``fused_dense_attention_fwd``       :func:`fused_dense_attention_fwd`, the
-(``_attn_kernel``)                  forward body of ``csrc/dense_attention.cu``
-                                    on a block per tile of bins, heads looped
-``fused_dense_attention_bwd``       :func:`fused_dense_attention_bwd`, the
-(``_attn_bwd_kernel``)              recompute backward body, same launch
+``fused_dense_attention_fwd``       :func:`fused_dense_attention_fwd`,
+(``_attn_kernel``)                  ``attn_rows_kernel`` of
+                                    ``csrc/dense_attention.cu``: a lane group
+                                    per (query row, head), every bin and head
+                                    in flight at once
+``fused_dense_attention_bwd``       :func:`fused_dense_attention_bwd`, a
+(``_attn_bwd_kernel``)              query pass (``attn_rows_kernel``) then a
+                                    key pass (``attn_cols_kernel``), a lane
+                                    group per (row, head)
 ``fused_dense_attention_fwd_v2``    :func:`fused_dense_attention_fwd_v2`, the
 (``_attn_kernel_v2``)               forward body on a block per (bin, head)
 ``fused_dense_attention_bwd_v2``    :func:`fused_dense_attention_bwd_v2`, the
@@ -40,10 +44,11 @@ with ``ctypes`` (:mod:`notorch_tpu_torch.kernels.build`); its design and
 bound are described there. Tensors on the CPU take the plain versions;
 tensors on a CUDA device launch the kernels or raise — there is no
 fallback. Each wrapper counts its launches in ``<wrapper>.launches``. The
-kernels take float32, ``dh`` a multiple of 4 up to 512, and bins whose
-index build and two staged ``[V, dh]`` head slices fit a block's shared
-memory (``V = 256, E = 512`` at ``dh = 64`` does); the wrappers raise,
-naming the shape, on anything else. ``interpret`` is accepted for the JAX
+kernels take float32, ``dh`` a multiple of 4 up to 512, and bins that fit
+a block's shared memory: for rows 12-13 the index build and two staged
+``[V, dh]`` head slices (``V = 256, E = 512`` at ``dh = 64`` fit), for rows
+10-11 the edge list of 24 bytes a lane (up to about 9,600 lanes); the
+wrappers raise, naming the shape, on anything else. ``interpret`` is accepted for the JAX
 signature: on CPU tensors it changes nothing, on CUDA tensors ``True``
 raises (the port has no interpret mode). ``matmul_dtype`` other than
 ``None`` raises ``NotImplementedError``: the kernels are exact f32.
@@ -78,8 +83,8 @@ def fit_attn_tile(tile: int, nodes_per_bin: int, edges_per_bin: int, batch: int)
     """Shrink a requested bins-per-kernel-tile so per-tile VMEM stays inside
     the envelope (the [V, V] per-head score tensors plus the [E, V] one-hot
     operators are the big residents) and the batch divides evenly."""
-    # the TPU's budget heuristic, kept so that the v1 launch tiles the bins
-    # as the TPU grid does
+    # the TPU's budget heuristic, kept for the JAX API: no launch of the
+    # port tiles bins
     while tile > 1 and tile * max(edges_per_bin, nodes_per_bin) > 4 * 256:
         tile //= 2
     while batch % tile != 0:
@@ -212,23 +217,30 @@ def _no_matmul_dtype(matmul_dtype) -> None:
 @functools.cache
 def _lib():
     lib = build.load("dense_attention")
-    tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     lib.dense_attention_fwd_f32.argtypes = [ctypes.c_void_p] * 8 + tail
+    lib.dense_attention_v1_fwd_f32.argtypes = [ctypes.c_void_p] * 8 + tail
     lib.dense_attention_bwd_f32.argtypes = [ctypes.c_void_p] * 12 + tail
+    lib.dense_attention_v1_bwd_f32.argtypes = [ctypes.c_void_p] * 13 + tail  # and the scratch
     lib.dense_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.dense_attention_smem_bytes.restype = ctypes.c_longlong
+    lib.dense_attention_v1_smem_bytes.argtypes = [ctypes.c_int]
+    lib.dense_attention_smem_bytes.restype = lib.dense_attention_v1_smem_bytes.restype = ctypes.c_longlong
     lib.dense_attention_error_string.argtypes = [ctypes.c_int]
     lib.dense_attention_error_string.restype = ctypes.c_char_p
     lib.dense_attention_max_smem.argtypes = lib.dense_attention_max_dh.argtypes = []
-    for name in ("dense_attention_fwd_f32", "dense_attention_bwd_f32", "dense_attention_max_smem",
-                 "dense_attention_max_dh"):
+    for name in ("dense_attention_fwd_f32", "dense_attention_bwd_f32", "dense_attention_v1_fwd_f32",
+                 "dense_attention_v1_bwd_f32", "dense_attention_max_smem", "dense_attention_max_dh"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads: int, interpret: bool, cotangent=None):
+def _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads: int, v1: bool, interpret: bool,
+                     cotangent=None):
     """The checks of a launch and its operands: float32 contiguous 16-byte
-    aligned floats, int32 ids and a byte mask on q's device."""
+    aligned floats, int32 ids and a byte mask on q's device. ``v1``: the
+    launch of rows 10-11, whose blocks hold a bin's edge list in shared
+    memory; else that of rows 12-13, whose blocks also stage two head
+    slices."""
     if interpret:
         raise ValueError(
             "interpret=True asks for the Pallas interpreter; the port has no interpret mode: "
@@ -242,12 +254,12 @@ def _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads: int, interpret
             f"the attention kernels read head rows in 16-byte vectors: dh must be a multiple of 4 "
             f"up to {lib.dense_attention_max_dh()}, got dh={dh} (hidden {d}, {num_heads} heads)"
         )
-    need, limit = lib.dense_attention_smem_bytes(V, E, dh), lib.dense_attention_max_smem()
+    limit = lib.dense_attention_max_smem()
+    need = lib.dense_attention_v1_smem_bytes(E) if v1 else lib.dense_attention_smem_bytes(V, E, dh)
     if need > limit:
-        raise ValueError(
-            f"bins of V={V} node slots and E={E} edge lanes at dh={dh} need {need} bytes of shared "
-            f"memory per block; the attention kernels have {limit}"
-        )
+        shape = f"E={E} edge lanes" if v1 else f"V={V} node slots and E={E} edge lanes at dh={dh}"
+        raise ValueError(f"bins of {shape} need {need} bytes of shared memory per block; the attention "
+                         f"kernels have {limit}")
     floats = [x.contiguous() for x in (q, k, v, cotangent, eb) if x is not None]
     if any(x.dtype != torch.float32 for x in floats):
         raise TypeError(f"the attention kernels take float32, got {[str(x.dtype) for x in floats]}")
@@ -265,55 +277,59 @@ def _raise_on(err: int, what: str, lib) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.dense_attention_error_string(err).decode()}")
 
 
-def _forward(q, k, v, eb, src, dst, edge_mask, num_heads: int, tile: int, interpret: bool, what: str):
-    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, interpret)
+def _forward(q, k, v, eb, src, dst, edge_mask, num_heads: int, v1: bool, interpret: bool, what: str):
+    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, v1, interpret)
     q, k, v = floats[:3]
     eb = floats[3] if eb is not None else None
     B, V, d = q.shape
     out = torch.empty_like(q)
+    launch = lib.dense_attention_v1_fwd_f32 if v1 else lib.dense_attention_fwd_f32
     with torch.cuda.device(q.device):
-        err = lib.dense_attention_fwd_f32(
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None if eb is None else eb.data_ptr(),
             src.data_ptr(), dst.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            B, V, src.shape[1], num_heads, d // num_heads, 1.0 / math.sqrt(d // num_heads), tile,
+            B, V, src.shape[1], num_heads, d // num_heads, 1.0 / math.sqrt(d // num_heads),
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, what, lib)
     return out
 
 
-def _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads: int, tile: int, interpret: bool,
+def _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads: int, v1: bool, interpret: bool,
               what: str):
-    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, interpret, cotangent)
+    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, v1, interpret,
+                                         cotangent)
     q, k, v, g = floats[:4]
     eb = floats[4] if eb is not None else None
     B, V, d = q.shape
     E = src.shape[1]
     g_q, g_k, g_v = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     g_eb = (torch.zeros if eb is None else torch.empty)(B, num_heads, E, dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.dense_attention_bwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None if eb is None else eb.data_ptr(),
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), None if eb is None else eb.data_ptr(),
             src.data_ptr(), dst.data_ptr(), mask.data_ptr(), g.data_ptr(),
-            g_q.data_ptr(), g_k.data_ptr(), g_v.data_ptr(), g_eb.data_ptr(),
-            B, V, E, num_heads, d // num_heads, 1.0 / math.sqrt(d // num_heads), tile,
-            torch.cuda.current_stream().cuda_stream,
-        )
+            g_q.data_ptr(), g_k.data_ptr(), g_v.data_ptr(), g_eb.data_ptr()]
+    if v1:  # each pair's score and g_alpha, each row's softmax: from the query pass to the key pass
+        scratch = torch.empty(B * num_heads * (2 * E + 3 * V), dtype=q.dtype, device=q.device)
+        ptrs.append(scratch.data_ptr())
+    launch = lib.dense_attention_v1_bwd_f32 if v1 else lib.dense_attention_bwd_f32
+    with torch.cuda.device(q.device):
+        err = launch(*ptrs, B, V, E, num_heads, d // num_heads, 1.0 / math.sqrt(d // num_heads),
+                     torch.cuda.current_stream().cuda_stream)
     _raise_on(err, what, lib)
     return g_q, g_k, g_v, g_eb
 
 
 def fused_dense_attention_fwd(q, k, v, eb, src, dst, edge_mask, *, num_heads: int, bins_per_tile: int = 8,
                               interpret: bool = False, matmul_dtype: str | None = None) -> torch.Tensor:
-    """Attention core forward, ``[B, V, d]`` (row 10): on the card a block
-    per tile of ``fit_attn_tile(bins_per_tile)`` bins, looping over the
-    heads. CPU tensors take :func:`dense_attention_reference`."""
+    """Attention core forward, ``[B, V, d]`` (row 10): on the card a lane
+    group per (query row, head), every bin and head at once;
+    ``bins_per_tile`` is kept for the signature. CPU tensors take
+    :func:`dense_attention_reference`."""
     _no_matmul_dtype(matmul_dtype)
-    B, V, d, E = _check(q, k, v, eb, src, dst, edge_mask, num_heads)
+    _check(q, k, v, eb, src, dst, edge_mask, num_heads)
     if not on_card(q):
         return dense_attention_reference(q, k, v, eb, src, dst, edge_mask, num_heads)
-    tile = fit_attn_tile(min(bins_per_tile, B), V, E, B)
-    out = _forward(q, k, v, eb, src, dst, edge_mask, num_heads, tile, interpret, "fused_dense_attention_fwd")
+    out = _forward(q, k, v, eb, src, dst, edge_mask, num_heads, True, interpret, "fused_dense_attention_fwd")
     fused_dense_attention_fwd.launches += 1
     return out
 
@@ -321,14 +337,16 @@ def fused_dense_attention_fwd(q, k, v, eb, src, dst, edge_mask, *, num_heads: in
 def fused_dense_attention_bwd(q, k, v, eb, src, dst, edge_mask, cotangent, *, num_heads: int,
                               bins_per_tile: int = 8, interpret: bool = False,
                               matmul_dtype: str | None = None):
-    """Recompute backward (row 11): ``(g_q, g_k, g_v, g_eb)``, launched as
-    the v1 forward. CPU tensors take :func:`dense_attention_bwd_reference`."""
+    """Recompute backward (row 11): ``(g_q, g_k, g_v, g_eb)``. On the card
+    two launches: a query pass, a lane group per (query row, head), then a
+    key pass, a lane group per (key row, head); ``bins_per_tile`` is kept
+    for the signature. CPU tensors take
+    :func:`dense_attention_bwd_reference`."""
     _no_matmul_dtype(matmul_dtype)
-    B, V, d, E = _check(q, k, v, eb, src, dst, edge_mask, num_heads, cotangent)
+    _check(q, k, v, eb, src, dst, edge_mask, num_heads, cotangent)
     if not on_card(q):
         return dense_attention_bwd_reference(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads)
-    tile = fit_attn_tile(min(bins_per_tile, B), V, E, B)
-    grads = _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads, tile, interpret,
+    grads = _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads, True, interpret,
                       "fused_dense_attention_bwd")
     fused_dense_attention_bwd.launches += 1
     return grads
@@ -343,7 +361,8 @@ def fused_dense_attention_fwd_v2(q, k, v, eb, src, dst, edge_mask, *, num_heads:
     _check(q, k, v, eb, src, dst, edge_mask, num_heads)
     if not on_card(q):
         return dense_attention_reference(q, k, v, eb, src, dst, edge_mask, num_heads)
-    out = _forward(q, k, v, eb, src, dst, edge_mask, num_heads, 0, interpret, "fused_dense_attention_fwd_v2")
+    out = _forward(q, k, v, eb, src, dst, edge_mask, num_heads, False, interpret,
+                   "fused_dense_attention_fwd_v2")
     fused_dense_attention_fwd_v2.launches += 1
     return out
 
@@ -358,7 +377,7 @@ def fused_dense_attention_bwd_v2(q, k, v, eb, src, dst, edge_mask, cotangent, *,
     _check(q, k, v, eb, src, dst, edge_mask, num_heads, cotangent)
     if not on_card(q):
         return dense_attention_bwd_reference(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads)
-    grads = _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads, 0, interpret,
+    grads = _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads, False, interpret,
                       "fused_dense_attention_bwd_v2")
     fused_dense_attention_bwd_v2.launches += 1
     return grads

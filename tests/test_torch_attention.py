@@ -47,6 +47,8 @@ from notorch_tpu_torch.nn import attention_dense as dense_attn
 from notorch_tpu_torch.nn import chemprop_dense as readouts
 from notorch_tpu_torch.transforms import MolToGraph, Pipeline, SmiToMol
 
+from .test_torch_gpu import hub_bins
+
 D, H = 16, 2
 TOL = dict(rtol=1e-5, atol=1e-5)
 PIPE, JAX_PIPE = Pipeline(SmiToMol(), MolToGraph()), JaxPipeline(JaxSmiToMol(), JaxMolToGraph())
@@ -92,11 +94,28 @@ def case(request):
             "Gf": G.to("cpu").update(node_feats=t(x["nf"]), edge_feats=t(x["ef"])), **x}
 
 
+@pytest.fixture(scope="module", params=["packed", "dense", "hub"])
+def core_case(request):
+    """The attention core's operands in numpy: the index arrays of
+    ``batches(layout)`` with the ``case`` fixture's q/k/v, edge bias and
+    cotangent (the same draws), or :func:`hub_bins` with its own."""
+    if request.param == "hub":
+        src, dst, edge_mask, V = hub_bins()
+    else:
+        G = batches(request.param)[0]
+        src, dst, edge_mask, V = G.src, G.dst, G.edge_mask, G.node_mask.shape[1]
+    rng = np.random.default_rng(0)
+    (B, E), f = src.shape, lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
+    return {"q": f(B, V, D), "k": f(B, V, D), "v": f(B, V, D), "eb": f(B, H, E), "g": f(B, V, D),
+            "src": src, "dst": dst, "edge_mask": edge_mask}
+
+
 def core_args(case, edge_bias, lib):
     conv = t if lib == "torch" else jnp.asarray
-    G = case["G"]
+    index = [case[n] for n in ("src", "dst", "edge_mask")] if "src" in case else [
+        case["G"].src, case["G"].dst, case["G"].edge_mask]
     return [conv(case["q"]), conv(case["k"]), conv(case["v"]), conv(case["eb"]) if edge_bias else None,
-            conv(G.src), conv(G.dst), conv(G.edge_mask)]
+            *(conv(x) for x in index)]
 
 
 def close_grad(got, ref, name="", scale=None):
@@ -109,11 +128,14 @@ def close_grad(got, ref, name="", scale=None):
 
 
 @pytest.mark.parametrize("edge_bias", [True, False])
-def test_plain_versions_match_the_four_jax_entries(case, edge_bias):
+def test_plain_versions_match_the_four_jax_entries(core_case, edge_bias):
     """dense_attention_reference against rows 10 and 12, the backward plain
     version against rows 11 and 13 (all four in interpret mode), and the
     port's four wrappers on CPU tensors; attention_core against the JAX jnp
-    core. A row with no live pair is zero in the output and g_q."""
+    core. A row with no live pair is zero in the output and g_q. The hub
+    bins hold a row of 40 live lanes, a pair of three edges, unmasked lanes
+    outside [0, V) and a bin with no live edge."""
+    case = core_case
     args, jargs = core_args(case, edge_bias, "torch"), core_args(case, edge_bias, "jax")
     g, jg = t(case["g"]), jnp.asarray(case["g"])
     kw = dict(num_heads=H, bins_per_tile=2, interpret=True)
@@ -136,10 +158,11 @@ def test_plain_versions_match_the_four_jax_entries(case, edge_bias):
                                np.asarray(jax_attn._jnp_attention_core(*jargs, H)), **TOL)
     if not edge_bias:
         assert not grads[3].any()
-    G = case["G"]
-    live = np.zeros(G.node_mask.shape, bool)
-    np.logical_or.at(live, (np.arange(len(G.dst))[:, None].repeat(G.dst.shape[1], 1)[G.edge_mask],
-                            G.dst[G.edge_mask]), True)
+    src, dst, edge_mask = (case[n] for n in ("src", "dst", "edge_mask"))
+    V = case["q"].shape[1]
+    real = edge_mask & (src >= 0) & (src < V) & (dst >= 0) & (dst < V)
+    live = np.zeros(case["q"].shape[:2], bool)
+    np.logical_or.at(live, (np.arange(len(dst))[:, None].repeat(dst.shape[1], 1)[real], dst[real]), True)
     assert (~live).any() and not out.numpy()[~live].any() and not grads[0].numpy()[~live].any()
 
 

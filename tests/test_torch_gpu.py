@@ -413,12 +413,41 @@ ATTENTION_ENTRIES = (fused_dense_attention_fwd, fused_dense_attention_bwd, fused
                      fused_dense_attention_bwd_v2)
 
 
+def hub_bins(seed=0):
+    """Two bins of V = 48 node slots and E = 128 edge lanes (numpy ``src``,
+    ``dst``, ``edge_mask`` and V), the lanes rows 10-11 must get right. Bin 0:
+    node 0 is a hub with 40 live in-lanes (more than a warp's 32) and 36 live
+    out-lanes; the pair 5 -> 7 has three edges; five lanes with the mask set
+    have a src or dst outside [0, V); eight lanes are masked; the rest are
+    random edges among nodes 1-43, so nodes 44-47 have none. Bin 1 has no
+    live edge: its masked lanes lie in range, its unmasked ones outside. The
+    lanes of bin 0 are shuffled, so a row's edges are spread over the bin."""
+    rng = np.random.default_rng(seed)
+    V, E = 48, 128
+    lanes = [(j, 0, True) for j in range(1, 41)] + [(0, j, True) for j in range(5, 41)]
+    lanes += [(5, 7, True)] * 3
+    lanes += [(V, 3, True), (-1, 3, True), (3, V, True), (4, -7, True), (V + 5, 60, True)]
+    lanes += [(int(a), int(b), False) for a, b in rng.integers(1, 44, (8, 2))]
+    while len(lanes) < E:
+        a, b = (int(x) for x in rng.integers(1, 44, 2))
+        if (a, b) != (5, 7):
+            lanes.append((a, b, True))
+    src, dst = np.zeros((2, E), np.int32), np.zeros((2, E), np.int32)
+    mask = np.zeros((2, E), bool)
+    for lane, (a, b, m) in zip(rng.permutation(E), lanes):
+        src[0, lane], dst[0, lane], mask[0, lane] = a, b, m
+    mask[1] = rng.random(E) < 0.5
+    src[1], dst[1] = rng.integers(0, V, E), np.where(mask[1], V + rng.integers(0, 5, E), rng.integers(0, V, E))
+    return src, dst, mask, V
+
+
 def attention_case(kind, d, H, edge_bias, seed=0):
     """(q, k, v, eb, src, dst, edge_mask, g) on the card. ``packed``: the
     molecules (a bond-less "O" and "[Na+].[Cl-]" among them) in bins of 128
     node slots and 256 edge lanes; ``dense``: one molecule a block; ``random``:
     V = 256, E = 512, random edges over the first 200 node slots (the rest
-    are padding), a fifth of the lanes masked, duplicated pairs."""
+    are padding), a fifth of the lanes masked, duplicated pairs; ``hub``:
+    :func:`hub_bins`."""
     rng = np.random.default_rng(seed)
     graphs = [PIPE(s) for s in SMIS + ["[Na+].[Cl-]"]]
     if kind == "packed":
@@ -427,32 +456,31 @@ def attention_case(kind, d, H, edge_bias, seed=0):
     elif kind == "dense":
         G = pad_graphs_dense(graphs, 48, 128, np_out=True)
         src, dst, mask = G.src, G.dst, G.edge_mask
+    elif kind == "hub":
+        src, dst, mask, _ = hub_bins()
     else:
         src = rng.integers(0, 200, (3, 512)).astype(np.int32)
         dst = rng.integers(0, 200, (3, 512)).astype(np.int32)
         src[:, 1::7], dst[:, 1::7] = src[:, :-1:7], dst[:, :-1:7]  # lane 7m + 1 repeats lane 7m
         mask = rng.random((3, 512)) < 0.8
     B, E = src.shape
-    V = {"packed": 128, "dense": 48, "random": 256}[kind]
+    V = {"packed": 128, "dense": 48, "random": 256, "hub": 48}[kind]
     f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
     arrays = [f(B, V, d), f(B, V, d), f(B, V, d), f(B, H, E) if edge_bias else None, src, dst, mask, f(B, V, d)]
     return [None if x is None else torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in arrays]
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["packed", "dense", "random"])
-@pytest.mark.parametrize("edge_bias", [True, False])
-@pytest.mark.parametrize("d, H", [(256, 4), (16, 2)])
-def test_cuda_attention_kernels_match_plain_versions(kind, edge_bias, d, H):
+def _hold_attention_entries(kind, d, H, edge_bias):
     """All four entries against the plain versions on every lane (padding
-    rows, the sink and bond-less molecules give zeros); each backward twice,
-    bit for bit; one launch a call."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    rows, the sink and bond-less molecules give zeros in the output and in
+    g_q, key rows with no live lane zeros in g_k and g_v); each backward
+    twice, bit for bit; one launch a call."""
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v, eb, src, dst, mask, g = attention_case(kind, d, H, edge_bias)
     ref = dense_attention_reference(q, k, v, eb, src, dst, mask, H)
     ref_grads = dense_attention_bwd_reference(q, k, v, eb, src, dst, mask, g, H)
+    live = (dense_attention_reference(torch.ones_like(q), k, v, eb, src, dst, mask, H) != 0).any(-1)
+    keyed = (ref_grads[2] != 0).any(-1)  # key rows with a live lane
     before = [fn.launches for fn in ATTENTION_ENTRIES]
     for fwd, bwd in ((fused_dense_attention_fwd, fused_dense_attention_bwd),
                      (fused_dense_attention_fwd_v2, fused_dense_attention_bwd_v2)):
@@ -467,9 +495,32 @@ def test_cuda_attention_kernels_match_plain_versions(kind, edge_bias, d, H):
         else:
             assert not first[3].any()
         assert all(torch.equal(a, b) for a, b in zip(first, second))
+        assert not out[~live].any() and not first[0][~live].any()  # rows with no live pair are zero
+        assert not first[1][~keyed].any() and not first[2][~keyed].any()
     assert [fn.launches - n for fn, n in zip(ATTENTION_ENTRIES, before)] == [1, 2, 1, 2]
-    live = (dense_attention_reference(torch.ones_like(q), k, v, eb, src, dst, mask, H) != 0).any(-1)
-    assert not out[~live].any()  # rows with no live pair are zero
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["packed", "dense", "random"])
+@pytest.mark.parametrize("edge_bias", [True, False])
+@pytest.mark.parametrize("d, H", [(256, 4), (16, 2)])
+def test_cuda_attention_kernels_match_plain_versions(kind, edge_bias, d, H):
+    """The four entries on molecules and random bins (:func:`_hold_attention_entries`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _hold_attention_entries(kind, d, H, edge_bias)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge_bias", [True, False])
+@pytest.mark.parametrize("d, H", [(256, 4), (16, 2), (512, 1), (256, 8)])
+def test_cuda_attention_kernels_match_plain_versions_on_hub_bins(edge_bias, d, H):
+    """The four entries on :func:`hub_bins`: a row and a key row of more
+    than a warp's lanes, a pair of three edges, out-of-range padding lanes
+    and a bin with no live edge (:func:`_hold_attention_entries`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _hold_attention_entries("hub", d, H, edge_bias)
 
 
 @pytest.mark.gpu
@@ -506,6 +557,9 @@ def test_cuda_attention_refuses_what_it_does_not_take():
     ids = torch.zeros(1, 4096, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="shared memory"):
         fused_dense_attention_fwd_v2(big, big, big, None, ids, ids, ids.bool(), num_heads=1)
+    small, lanes = torch.zeros(1, 8, 64, device="cuda"), torch.zeros(1, 10_000, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="E=10000 edge lanes need"):  # rows 10-11 hold a bin's edge list
+        fused_dense_attention_fwd(small, small, small, None, lanes, lanes, lanes.bool(), num_heads=1)
 
 
 @pytest.mark.gpu
