@@ -575,11 +575,12 @@ def encoder_ops(x) -> tuple[int, int, int]:
     return depth * fwd + B * E * d + n_real * d, depth * bwd + n_real * d + 2 * B * E * d, nnz
 
 
-def profile_busy(run) -> dict:
+def profile_busy(run, top: int = 8, width: int = 80) -> dict:
     """Run ``run()`` under torch.profiler: wall time on the host's clock,
-    device time by kernel name, and the share of the wall time the card was
-    busy. User annotations (such as ``Optimizer.step#Adam.step``) are left
-    out: their device span covers kernels that are counted already."""
+    device time by kernel name (the ``top`` longest, names cut to ``width``
+    characters), and the share of the wall time the card was busy. User
+    annotations (such as ``Optimizer.step#Adam.step``) are left out: their
+    device span covers kernels that are counted already."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -603,7 +604,7 @@ def profile_busy(run) -> dict:
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
         "block_kernels_ms": by_kernel,
-        "top": [{"name": k[:80], "ms": ms, "count": n} for k, ms, n in kernels[:8]],
+        "top": [{"name": k[:width], "ms": ms, "count": n} for k, ms, n in kernels[:top]],
     }
 
 
@@ -1822,7 +1823,11 @@ def main() -> None:
             kernel = lambda: fused_gvp_conv_fwd(*gx["args"], window=GVP_WINDOW)  # noqa: E731
             plain = lambda: gvp_conv_reference(*gx["args"], GVP_WINDOW)  # noqa: E731
         kernel_t, plain_t = time_ms(kernel), time_ms(plain)
-        breakdown = profile_busy(lambda: [kernel() for _ in range(5)])["top"]  # noqa: B023
+        breakdown = profile_busy(lambda: [kernel() for _ in range(5)], top=40, width=160)["top"]  # noqa: B023
+        # row 15 by stage, ms a call: the recompute and reverse sweep
+        # (sweep_), the gather's VJP (node_grad_), the weight gradients (wgrad_)
+        stages = {stage: sum(k["ms"] for k in breakdown if stage + "_" in k["name"]) / 5
+                  for stage in ("sweep", "node_grad", "wgrad")} if bwd else None
         ops, n_bytes, padded_ops = gvp_work(gx, bwd)
         bound_ms, bound_by = bound(ops, n_bytes)
         emit(phase="time", kernel=fn.__name__,
@@ -1833,7 +1838,7 @@ def main() -> None:
              operations_at_padded_rows=padded_ops, bound_ms_at_padded_rows=bound(padded_ops, n_bytes)[0],
              bytes=n_bytes, library_ms=None, library_note="none: no single PyTorch call",
              launches={"train": gvp_trained[fn.__name__], "serve": gvp_served[fn.__name__]},
-             kernels_of_5_calls=breakdown)
+             kernels_of_5_calls=breakdown, **({} if stages is None else {"stages_ms": stages}))
         records.append(kernel_record(fn, gvp_trained[fn.__name__],
                                      max(c["max_abs_err"][fn.__name__] for c in gvp_records),
                                      kernel_t, plain_t, bound_ms, bound_by))

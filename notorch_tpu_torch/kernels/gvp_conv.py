@@ -10,10 +10,12 @@ TPU entry (kernel)          here
 ==========================  ==================================================
 ``fused_gvp_conv_fwd``      :func:`fused_gvp_conv_fwd`: the prologue and the
 (``_fwd_kernel``)           forward kernel of ``csrc/gvp_conv.cu``
-``fused_gvp_conv_bwd``      :func:`fused_gvp_conv_bwd`: the prologue, the
-(``_bwd_kernel``)           recompute-and-sweep kernel, the source-row
-                            gradient kernel and the fixed-order weight
-                            gradient reduction of ``csrc/gvp_conv.cu``
+``fused_gvp_conv_bwd``      :func:`fused_gvp_conv_bwd`: the recompute and
+(``_bwd_kernel``)           reverse sweep layer by layer over all rows (the
+                            prologue, the ``sweep_`` kernels and tiled f32
+                            products), the gather's VJP (``node_grad_``) and
+                            the fixed-order weight gradients (``wgrad_``) of
+                            ``csrc/gvp_conv.cu``
 ``fused_gvp_conv``          :class:`FusedGvpConvFn` (and :func:`fused_gvp_conv`)
 (the custom VJP)
 ==========================  ==================================================

@@ -599,12 +599,14 @@ def test_cuda_dense_gat_block_matches_cpu(fwd_impl):
         torch.testing.assert_close(grads[1][name], ref, rtol=1e-4, atol=atol, msg=name)
 
 
-def gvp_case(d, dv, seed=0, n_clouds=12, K=16, nb=16, window=24):
+def gvp_case(d, dv, seed=0, n_clouds=12, K=16, nb=16, window=24, quantum=64):
     """The GVP kernels' operands on the card over real banded neighbour
     lists of synthetic clouds: seeded features, RBF-like edge features, unit
-    vectors, split weights and cotangents."""
+    vectors, split weights and cotangents. The node count is the clouds'
+    atoms rounded up to a multiple of ``quantum`` (an odd one below 64)."""
     clouds = make_clouds(n_clouds, seed=seed)
-    cap = -(-sum(c.num_nodes for c in clouds) // 64) * 64
+    blocks = -(-sum(c.num_nodes for c in clouds) // quantum)
+    cap = quantum * (blocks if quantum >= 64 else blocks | 1)
     P = pad_point_clouds(clouds, cap).to("cuda")
     nbrs, mask, dists = radius_neighbors(P.coords, P.batch_index, 5.0, K, window=window)
     rng = np.random.default_rng(seed)
@@ -630,16 +632,31 @@ def gvp_kink_free(args, window=24, tol=1e-5):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d, dv", [(32, 8), (256, 32), (48, 6)])
-def test_cuda_gvp_kernels_match_plain_versions(d, dv):
+@pytest.mark.parametrize("d, dv, K, quantum, dead", [
+    pytest.param(32, 8, 16, 64, 0, id="32-8"),
+    pytest.param(256, 32, 16, 64, 0, id="256-32"),
+    pytest.param(48, 6, 16, 64, 0, id="48-6"),
+    # the backward's 128-row tiles cut across nodes
+    pytest.param(256, 32, 8, 64, 0, id="K8"),
+    pytest.param(256, 32, 24, 64, 0, id="K24"),
+    # N K a multiple of neither a row tile nor a 1,024-row weight-gradient chunk
+    pytest.param(64, 8, 5, 8, 0, id="ragged-rows"),
+    # nodes whose every slot is masked
+    pytest.param(256, 32, 16, 64, 9, id="dead-nodes"),
+])
+def test_cuda_gvp_kernels_match_plain_versions(d, dv, K, quantum, dead):
     """Rows 14-15 against their plain versions: the outputs; every cotangent
     on the inputs with the slots near a ReLU kink masked; the backward twice,
     bit for bit; one launch a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    args, cot = gvp_case(d, dv)
+    args, cot = gvp_case(d, dv, K=K, quantum=quantum)
     args = gvp_kink_free(args)
+    if dead:
+        mask = args[5].clone()
+        mask[torch.linspace(0, mask.shape[0] - 1, dead).long()] = False
+        args[5] = mask
     before = fused_gvp_conv_fwd.launches, fused_gvp_conv_bwd.launches
     out = fused_gvp_conv_fwd(*args, window=24)
     first = fused_gvp_conv_bwd(*args, *cot, window=24)
