@@ -51,8 +51,8 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
 - GVP kernels: the fused GVP message convolution's forward and recompute
   backward (rows 14-15) against their plain versions at the GVP model's
   first training batch, clouds with empty neighbourhoods and padding rows,
-  and a node count that JAX's tile halving takes down to 8, the backward
-  twice, bit for bit;
+  and a node count that JAX's tile halving takes down to 8, each twice, bit
+  for bit;
 - train/serve declarative GVP: the GVP model of ``notorch_tpu.models.
   spatial`` at full width (scalar 256, vector 32, depth 3, 16 neighbours)
   as a declarative config whose ``GvpGNNBlock(impl: fused)`` runs row 14
@@ -97,7 +97,7 @@ from notorch_tpu_torch.data.point_cloud import (
     make_clouds,
     pad_point_clouds,
 )
-from notorch_tpu_torch.kernels import build
+from notorch_tpu_torch.kernels import build, gvp_conv
 from notorch_tpu_torch.kernels.csr_segment import (
     csr_segment_sum,
     csr_segment_sum_packed,
@@ -256,6 +256,12 @@ KINK_GRAD_L2 = 1e-2
 # tests/test_torch_spatial.py::test_gvp_full_width_run_drifts_apart_in_both_
 # packages), so the whole runs are held at that, and every step in lockstep
 GVP_RUN_RTOL = 1.17e-1
+# rows 14-15's stages in a profile: fragments of their kernels' names
+GVP_STAGES = {
+    fused_gvp_conv_fwd: ("fwd_weights_", "fwd_node_", "fwd_layer0_in_", "fwd_layer_gemm<0,", "fwd_layer_gemm<1,",
+                         "fwd_layer_gemm<2,", "fwd_mean_"),
+    fused_gvp_conv_bwd: ("sweep_", "node_grad_", "wgrad_"),
+}
 
 
 def declarative_model_cfg(d: int = 256, depth: int = 3) -> dict:
@@ -1365,9 +1371,10 @@ def compare_gvp(x: dict, case: str) -> dict:
     RTOL/ATOL; every cotangent (features, rbf, unit vectors, the 25 weights)
     by relative L2 at KINK_GRAD_L2, and on the inputs with the slots near a
     ReLU kink masked (kink_free) element by element at ATOL times its
-    largest magnitude; the backward twice, bit for bit."""
+    largest magnitude; each entry twice, bit for bit."""
     args, cot = x["args"], x["cot"]
     out = fused_gvp_conv_fwd(*args, window=GVP_WINDOW)
+    again = fused_gvp_conv_fwd(*args, window=GVP_WINDOW)
     first = fused_gvp_conv_bwd(*args, *cot, window=GVP_WINDOW)
     second = fused_gvp_conv_bwd(*args, *cot, window=GVP_WINDOW)
     ref = gvp_conv_reference(*args, GVP_WINDOW)
@@ -1377,6 +1384,8 @@ def compare_gvp(x: dict, case: str) -> dict:
     smooth_ref = gvp_conv_bwd_reference(*smooth, *cot, GVP_WINDOW)
     torch.cuda.synchronize()
     fwd = max(held(f"fused_gvp_conv_fwd output {i} ({case})", a, r, False) for i, (a, r) in enumerate(zip(out, ref)))
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        fail(f"two calls of fused_gvp_conv_fwd on the same inputs differ ({case})")
     flat = lambda g: list(g[:8]) + list(g[8])  # noqa: E731
     names = ["g_s", "g_vx", "g_vy", "g_vz", "g_rbf2d", "g_ux", "g_uy", "g_uz"] + [f"g_w{i}" for i in range(25)]
     if not all(torch.equal(a, b) for a, b in zip(flat(first), flat(second))):
@@ -1396,6 +1405,25 @@ def compare_gvp(x: dict, case: str) -> dict:
             "empty_neighbourhoods": empty, "jax_tile": tile, "slots_near_a_kink": n_kink,
             "max_abs_err": {"fused_gvp_conv_fwd": fwd, "fused_gvp_conv_bwd": bwd},
             "bwd_max_rel_l2_unmasked": l2[worst_l2], "bwd_worst_unmasked": worst_l2, "bitwise_repeatable": True}
+
+
+def time_gvp(fn, x: dict) -> tuple[dict, list[dict], dict[str, float], float]:
+    """Row 14 or 15 (``fn``) on ``x``: its time_ms, the kernels of 5 calls
+    in a profile, their device ms a call by stage (GVP_STAGES: row 14's
+    weights' copies, per-node products, layer 0's input, each layer's
+    products and the masked mean; row 15's recompute and reverse sweep,
+    gather's VJP and weight gradients), and its scratch in MiB."""
+    if fn is fused_gvp_conv_bwd:
+        kernel = lambda: fused_gvp_conv_bwd(*x["args"], *x["cot"], window=GVP_WINDOW)  # noqa: E731
+    else:
+        kernel = lambda: fused_gvp_conv_fwd(*x["args"], window=GVP_WINDOW)  # noqa: E731
+    t = time_ms(kernel)
+    breakdown = profile_busy(lambda: [kernel() for _ in range(5)], top=40, width=160)["top"]
+    stages = {stage.rstrip("_,"): sum(k["ms"] for k in breakdown if stage in k["name"]) / 5 for stage in GVP_STAGES[fn]}
+    (N, K), ds, dv, nb = x["args"][4].shape, x["args"][0].shape[1], x["args"][1].shape[1], x["args"][6].shape[1]
+    lib = gvp_conv._lib()
+    floats = (lib.gvp_conv_bwd_scratch_floats if fn is fused_gvp_conv_bwd else lib.gvp_conv_fwd_scratch_floats)
+    return t, breakdown, stages, floats(N, K, ds, dv, nb) * 4 / 2**20
 
 
 def gvp_model(cfg: dict, device: str):
@@ -1816,18 +1844,10 @@ def main() -> None:
     # rows 14-15 at the GVP model's first training batch
     gx = gvp_x["first_training_batch"]
     for fn, bwd in ((fused_gvp_conv_fwd, False), (fused_gvp_conv_bwd, True)):
-        if bwd:
-            kernel = lambda: fused_gvp_conv_bwd(*gx["args"], *gx["cot"], window=GVP_WINDOW)  # noqa: E731
-            plain = lambda: gvp_conv_bwd_reference(*gx["args"], *gx["cot"], GVP_WINDOW)  # noqa: E731
-        else:
-            kernel = lambda: fused_gvp_conv_fwd(*gx["args"], window=GVP_WINDOW)  # noqa: E731
-            plain = lambda: gvp_conv_reference(*gx["args"], GVP_WINDOW)  # noqa: E731
-        kernel_t, plain_t = time_ms(kernel), time_ms(plain)
-        breakdown = profile_busy(lambda: [kernel() for _ in range(5)], top=40, width=160)["top"]  # noqa: B023
-        # row 15 by stage, ms a call: the recompute and reverse sweep
-        # (sweep_), the gather's VJP (node_grad_), the weight gradients (wgrad_)
-        stages = {stage: sum(k["ms"] for k in breakdown if stage + "_" in k["name"]) / 5
-                  for stage in ("sweep", "node_grad", "wgrad")} if bwd else None
+        plain = ((lambda: gvp_conv_bwd_reference(*gx["args"], *gx["cot"], GVP_WINDOW)) if bwd
+                 else (lambda: gvp_conv_reference(*gx["args"], GVP_WINDOW)))
+        kernel_t, breakdown, stages, scratch_mb = time_gvp(fn, gx)
+        plain_t = time_ms(plain)
         ops, n_bytes, padded_ops = gvp_work(gx, bwd)
         bound_ms, bound_by = bound(ops, n_bytes)
         emit(phase="time", kernel=fn.__name__,
@@ -1838,7 +1858,7 @@ def main() -> None:
              operations_at_padded_rows=padded_ops, bound_ms_at_padded_rows=bound(padded_ops, n_bytes)[0],
              bytes=n_bytes, library_ms=None, library_note="none: no single PyTorch call",
              launches={"train": gvp_trained[fn.__name__], "serve": gvp_served[fn.__name__]},
-             kernels_of_5_calls=breakdown, **({} if stages is None else {"stages_ms": stages}))
+             kernels_of_5_calls=breakdown, stages_ms=stages, scratch_mb=scratch_mb)
         records.append(kernel_record(fn, gvp_trained[fn.__name__],
                                      max(c["max_abs_err"][fn.__name__] for c in gvp_records),
                                      kernel_t, plain_t, bound_ms, bound_by))

@@ -2,11 +2,13 @@
 // C++ for sm_90a.
 //
 // Replaces the Pallas kernels of notorch_tpu/kernels/gvp_conv.py:
-//   - _fwd_kernel / fused_gvp_conv_fwd: prologue_kernel, then fwd_kernel;
+//   - _fwd_kernel / fused_gvp_conv_fwd: the fwd_ kernels (the weights'
+//     copies, the per-node products, each layer's products, the masked
+//     mean);
 //   - _bwd_kernel / fused_gvp_conv_bwd: the recompute and reverse sweep
-//     (the sweep_ kernels and the sweep_gemm products), the gather's VJP (node_grad_scan_kernel and two
-//     node_grad_gemm products), then the weight gradients (wgrad_kernel,
-//     wgrad_reduce_kernel).
+//     (the sweep_ kernels and the sweep_gemm products), the gather's VJP
+//     (node_grad_scan_kernel and two node_grad_gemm products), then the
+//     weight gradients (wgrad_kernel, wgrad_reduce_kernel).
 //
 // What they compute. N nodes with K neighbour slots each; row r = n K + k is
 // slot k of node n, j = nbrs[n, k]. The gather reads x[j] on a live slot (mask
@@ -27,54 +29,59 @@
 //
 // Design. The TPU kernel gathers with a one-hot matmul over a tile of 64
 // nodes x K rows and runs every product of that tile in VMEM; here a tile of
-// 1,024 rows at ds = 256 would not fit a block's 227 KB. So:
+// 1,024 rows at ds = 256 would not fit a block's 227 KB, and blocks of a few
+// nodes' rows would fetch every weight again for every few rows. So both
+// entries run the forward layer by layer over all N K rows (forward_layers
+// below, the one routine for both):
 //   - s_i Wsi, s_j Wsj, v_i Whi and v_j Whj are products of a node's own row,
-//     so they are computed once per node (N rows, not N K: prologue_kernel in
-//     the forward, two products in the backward) and the layer-0
+//     so they are two products over the N nodes ([Wsi | Wsj] and [Whi |
+//     Whj] side by side), not over the N K rows, and layer 0's
 //     pre-activations gather them by index: the largest products of layer 0
 //     shrink K-fold.
-//   - fwd_kernel puts a block on G nodes (R = G K rows, at least 16): their
-//     rows' activations stay in shared memory through the three layers and
-//     the mean, and only the outputs are written. Each product is rowmm
-//     below: 4 x 4 outputs a thread (1 x 4 for narrow outputs), the k-sum in
-//     ascending order by fmaf, 16-byte loads, the weight read through the
-//     read-only cache; the three vector components of a product run as one
-//     product over 3 R rows.
-//   - The backward runs layer by layer over all N K rows: the forward again,
-//     then the reverse, each product one tiled GEMM (Tile below: a block of
-//     64 x 64 outputs for the 256-wide products, 8 x 4 a thread, k-slabs of
-//     both operands staged in shared memory in two stages) with the layer's
-//     elementwise work in its epilogue: layer 0's gather of the per-node
-//     products, the norms, the gates, the ReLU masks. Blocks of 16 rows
-//     would fetch every weight again for every 16 rows; a 64-row tile reads
-//     a weight slab once for 64 rows and keeps 32 multiply-adds a thread in
-//     flight per three shared-memory loads. (The tile shapes were chosen by
-//     timing variants side by side on the card.) The activations go through device memory (an [N K, 256] array
-//     is 20 MB at N K = 19,456, under the L2's 50 MB), laid out so each
-//     product reads one row-major operand: a layer's scalar input is kept
-//     with its norms and a column of ones beside it, and the weights are
-//     copied once a call into the matching stacks (sweep_weights_kernel), so
-//     a bias is one more row of the product, not a kernel of its own.
-//   - No float atomics. The sums over a node's own K rows (the cotangents of
-//     s_i and v_i) run in ascending k (sweep_node_sum_kernel). The gather's
-//     VJP into a source row m sums the rows that name m: node_grad_scan_kernel
-//     gives each m one warp, which lists those rows once, in ascending order
-//     (ballots, in lane order), then sums every column over the list, so each
-//     source has one owner and one order. Each weight gradient is X^T G
-//     summed over the rows, the gradients that share a cotangent merged into
-//     one product (a bias is X's column of ones): one tile of one product
-//     over one chunk of 1,024 rows a block (wgrad_kernel), the chunks added
-//     in ascending order (wgrad_reduce_kernel): two calls give the same bits.
-// Exact f32 on CUDA cores throughout, no TF32.
+//   - Each layer's products are tiled GEMMs (Tile below: a block of 64 x 64
+//     outputs for the 256-wide products, 8 x 4 a thread, 32 x 32 for the
+//     narrow and vector ones, k-slabs of both operands staged in shared
+//     memory in two stages; the three vector components of a product run as
+//     one), with the layer's elementwise work in their epilogues: layer 0's
+//     gather of the per-node products, the norms, the gates, the ReLU. A
+//     64-row tile reads a weight slab once for 64 rows and keeps 32
+//     multiply-adds a thread in flight per three shared-memory loads. (The
+//     tile shapes were chosen by timing variants side by side on the card.)
+//   - The activations go through device memory (an [N K, 256] array is 20 MB
+//     at N K = 19,456, under the L2's 50 MB), laid out so each product reads
+//     one row-major operand: a layer's scalar input is kept with its norms
+//     and a column of ones beside it, and the weights are copied once a call
+//     into the matching stacks (the weights kernels). The forward keeps two
+//     layers' activations, used in turn; the backward keeps every layer's for
+//     its reverse sweep.
+//   - The forward ends in the masked mean (fwd_mean_kernel): each node's K
+//     rows summed in ascending k.
+//   - The backward then runs the reverse sweep the same way, each product
+//     with its epilogue. No float atomics. The sums over a node's own K rows
+//     (the cotangents of s_i and v_i) run in ascending k
+//     (sweep_node_sum_kernel). The gather's VJP into a source row m sums the
+//     rows that name m: node_grad_scan_kernel gives each m one warp, which
+//     lists those rows once, in ascending order (ballots, in lane order),
+//     then sums every column over the list, so each source has one owner and
+//     one order. Each weight gradient is X^T G summed over the rows, the
+//     gradients that share a cotangent merged into one product (a bias is
+//     X's column of ones): one tile of one product over one chunk of 1,024
+//     rows a block (wgrad_kernel), the chunks added in ascending order
+//     (wgrad_reduce_kernel).
+// Each output's sum runs in a fixed order whatever the tile: two calls give
+// the same bits, and no result depends on a tile size. Exact f32 on CUDA
+// cores throughout, no TF32. The kernels' names carry their stage: fwd_ for
+// the forward's (fwd_layer_gemm<l> a layer's products), sweep_ for the
+// backward's recompute and reverse sweep, node_grad_ for the gather's VJP,
+// wgrad_ for the weight gradients.
 //
 // What bounds them on this card: the products, a few hundred thousand
 // multiply-adds a row against a few kilobytes of its inputs, so operations
 // over the f32 rate (67 TFLOP/s on an H100 SXM at 700 W). The design cuts the
-// operations (the per-node prologue) and keeps the rows' activations out of
-// device memory in the forward; the backward's activations cost
-// device-memory bytes that the TPU kernel did not move, traded for tiles
-// that reuse each weight slab over 128 rows, no float atomics and a
-// fixed-order weight-gradient reduction.
+// operations (the per-node products) and reuses each weight slab over a
+// tile's rows; the activations cost device-memory bytes that the TPU kernel
+// kept in VMEM, traded for those tiles, no float atomics and a fixed-order
+// weight-gradient reduction.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -85,8 +92,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRowsTarget = 16;   // message rows a block of fwd/sweep aims for
-constexpr int kNodeGroup = 8;     // nodes a block of the prologue
+// make_dims' limits
+constexpr int kNodeGroup = 8;
 constexpr int kMaxSmem = 232448;  // the 227 KB a block may use after the opt-in
 constexpr int kNW = 25;
 constexpr int kChunk = 1024;      // rows of one weight-gradient partial
@@ -100,17 +107,17 @@ __host__ __device__ constexpr int lw(int l, int i) { return 11 + 7 * (l - 1) + i
 struct Dims {
   int N, K, ds, dv, nb, W;
   int h0;  // layer 0's hidden vector width, 2 dv + 1
-  int G;   // nodes of a fwd/sweep block
-  int R;   // rows of a fwd/sweep block, G K
 };
 
 __host__ __device__ inline int hidden(const Dims& d, int l) { return l == 0 ? d.h0 : d.dv; }
 
 struct Weights { const float* w[kNW]; };
 
-// The backward's per-row arrays, by layer, R = N K rows: [R, width], or
+// The per-row arrays, by layer, R = N K rows: [R, width], or
 // [3, R, width] for vectors (component-major), each row at the stride the
-// helpers below give (a multiple of 4 where a 16-byte load wants one).
+// helpers below give (a multiple of 4 where a 16-byte load wants one). The
+// backward keeps every layer's (its stash); the forward's layers 0 and 2
+// share their arrays but x (fwd_layout), and it has no cotangents.
 struct Stash {
   float* x[3];     // layer l's scalar-path input with a column of ones, the
                    // left factor of its pre-activation's product: layer 0
@@ -135,7 +142,7 @@ struct Stash {
   float* whij;     // [dv, 2 h0] (row stride lab): [Whi | Whj]
 };
 
-// Row strides of the backward's arrays.
+// Row strides of the per-row arrays.
 __host__ __device__ inline int r4(int x) { return (x + 3) & ~3; }
 __host__ __device__ inline int xw(const Dims& d, int l) { return l == 0 ? d.h0 + d.nb + 1 : d.ds + d.dv + 1; }
 __host__ __device__ inline int lx(const Dims& d, int l) { return r4(xw(d, l)); }
@@ -145,10 +152,8 @@ __host__ __device__ inline int lab(const Dims& d) { return r4(2 * d.h0); }      
 // layer l's norms inside x[l]
 __host__ __device__ inline int nrm_col(const Dims& d, int l) { return l == 0 ? 0 : d.ds; }
 
-// Per-node products and gradients.
+// Per-node gradients.
 struct Nodes {
-  float *P, *Q;  // [N, ds]: s Wsi, s Wsj
-  float *A, *B;  // [3, N, h0]: v Whi, v Whj
   float* gPQ;    // [N, 2 ds]: gP | gQ, the sums of g_mid0 over a node's own rows | over the rows naming it
   float* gAB;    // [3, N, 2 h0] (row stride lab): gA | gB, the same for g_vh0
 };
@@ -175,290 +180,9 @@ struct Args {
   int layer;         // the layer of a backward launch
 };
 
-__device__ inline float lane4(const float4& v, int i) { return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w; }
-
-// Y = X W, W row-major [Kd, n], for the R rows of X (row stride ldx, in
-// shared memory), handed to epi(r, c, y) element by element. A thread takes
-// TR x 4 outputs at a time; each sum runs over k in ascending order by fmaf.
-// The threads of a warp read neighbouring columns of W's rows. Where every
-// row of X and W starts 16-byte aligned, both are read in 16-byte vectors;
-// the sums are the same either way. (The backward's products with W^T run
-// on transposed copies, so that they read W's rows the same way.)
-template <int TR, typename Epi>
-__device__ void rowmm_tiles(const float* X, int ldx, int R, int Kd, const float* __restrict__ W, int n, Epi epi) {
-  const int rg = (R + TR - 1) / TR, cg = (n + 3) >> 2;
-  const bool vec = ((reinterpret_cast<uintptr_t>(X) | reinterpret_cast<uintptr_t>(W)) & 15) == 0 &&
-                   (ldx & 3) == 0 && (Kd & 3) == 0 && (n & 3) == 0;
-  for (int item = threadIdx.x; item < rg * cg; item += blockDim.x) {
-    const int r0 = (item / cg) * TR, c0 = (item % cg) * 4;
-    const float* xr[TR];
-    int cc[4];
-#pragma unroll
-    for (int i = 0; i < TR; ++i) xr[i] = X + (size_t)(r0 + i < R ? r0 + i : r0) * ldx;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) cc[j] = c0 + j < n ? c0 + j : c0;
-    float acc[TR][4];
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    if (vec) {
-      for (int k = 0; k < Kd; k += 4) {
-        float4 xv[TR], wv[4];
-#pragma unroll
-        for (int i = 0; i < TR; ++i) xv[i] = *reinterpret_cast<const float4*>(xr[i] + k);
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wv[kk] = __ldg(reinterpret_cast<const float4*>(W + (size_t)(k + kk) * n + c0));
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int i = 0; i < TR; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(lane4(xv[i], kk), lane4(wv[kk], j), acc[i][j]);
-      }
-    } else {
-      for (int k = 0; k < Kd; ++k) {
-        float x[TR], w[4];
-#pragma unroll
-        for (int i = 0; i < TR; ++i) x[i] = xr[i][k];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) w[j] = __ldg(W + (size_t)k * n + cc[j]);
-#pragma unroll
-        for (int i = 0; i < TR; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], w[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < TR; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (r0 + i < R && c0 + j < n) epi(r0 + i, c0 + j, acc[i][j]);
-  }
-}
-
-// 4 x 4 tiles where they give every thread work, else 1 x 4 (a narrow
-// output: the gates and the vector products, dv columns).
-template <typename Epi>
-__device__ void rowmm(const float* X, int ldx, int R, int Kd, const float* __restrict__ W, int n, Epi epi) {
-  if (((R + 3) >> 2) * ((n + 3) >> 2) >= (int)blockDim.x)
-    rowmm_tiles<4>(X, ldx, R, Kd, W, n, epi);
-  else
-    rowmm_tiles<1>(X, ldx, R, Kd, W, n, epi);
-}
-
 __device__ inline float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
-// Shared memory of a fwd/sweep block (floats; J is ints).
-struct Smem {
-  float* MA;   // [R, ds] two scalar buffers, used in turn
-  float* MB;
-  float* VH;   // [3, R, H]
-  float* NRM;  // [R, H]
-  float* V;    // [3, R, dv]
-  float* GT;   // [R, dv]
-  float* RB;   // [R, nb]
-  float* UU;   // [3, R]
-  float* MK;   // [R] the mask as 0 / 1
-  int* J;      // [R] the gathered row, or -1 for zero
-};
-
-__host__ __device__ inline size_t block_floats(const Dims& d, int R) {
-  return (size_t)R * (2 * d.ds + 4 * d.h0 + 4 * d.dv + d.nb + 5);
-}
-
-__device__ inline Smem carve(float* base, const Dims& d) {
-  Smem s;
-  const int R = d.R;
-  float* p = base;
-  s.MA = p;  p += (size_t)R * d.ds;
-  s.MB = p;  p += (size_t)R * d.ds;
-  s.VH = p;  p += (size_t)3 * R * d.h0;
-  s.NRM = p; p += (size_t)R * d.h0;
-  s.V = p;   p += (size_t)3 * R * d.dv;
-  s.GT = p;  p += (size_t)R * d.dv;
-  s.RB = p;  p += (size_t)R * d.nb;
-  s.UU = p;  p += (size_t)3 * R;
-  s.MK = p;  p += R;
-  s.J = reinterpret_cast<int*>(p);
-  return s;
-}
-
-// The block's rows: J, MK, the RBF rows and the unit vectors; rows past the
-// last node read zero.
-__device__ void load_rows(const Args& a, const Smem& sm, int n0) {
-  const Dims& d = a.d;
-  const size_t NK = (size_t)d.N * d.K;
-  for (int r = threadIdx.x; r < d.R; r += blockDim.x) {
-    const int n = n0 + r / d.K;
-    const bool valid = n < d.N;
-    const size_t gr = (size_t)n * d.K + r % d.K;
-    const int j = valid ? a.nbrs[gr] : 0;
-    const bool on = valid && a.mask[gr] != 0;
-    sm.J[r] = on && j >= 0 && j < d.N && j - n <= d.W && n - j <= d.W ? j : -1;
-    sm.MK[r] = on ? 1.f : 0.f;
-    for (int c = 0; c < 3; ++c) sm.UU[c * d.R + r] = valid ? a.u[c * NK + gr] : 0.f;
-  }
-  for (int i = threadIdx.x; i < d.R * d.nb; i += blockDim.x) {
-    const int r = i / d.nb, n = n0 + r / d.K;
-    sm.RB[i] = n < d.N ? a.rbf[((size_t)n * d.K + r % d.K) * d.nb + i % d.nb] : 0.f;
-  }
-}
-
-// nrm = sqrt(x^2 + y^2 + z^2 + eps) of the layer's hidden vectors VH [3, R, H].
-__device__ void norms(const Args& a, const Smem& sm, int l) {
-  const int H = hidden(a.d, l), R = a.d.R;
-  for (int i = threadIdx.x; i < R * H; i += blockDim.x) {
-    const float x = sm.VH[i], y = sm.VH[R * H + i], z = sm.VH[2 * R * H + i];
-    sm.NRM[i] = sqrtf(x * x + y * y + z * z + kEps);
-  }
-}
-
-// The gate, the vector output and the relu of a layer whose pre-activation is
-// in M: GT = act(bg + M Wg), V = (VH Wmu) * GT, M = relu(M).
-__device__ void layer_tail(const Args& a, const Smem& sm, int l, float* M) {
-  const Dims& d = a.d;
-  const int H = hidden(d, l), R = d.R, ds = d.ds, dv = d.dv;
-  const float* Wg = a.w.w[l == 0 ? WG0 : lw(l, LWG)];
-  const float* bg = a.w.w[l == 0 ? BG0 : lw(l, LBG)];
-  const float* Wmu = a.w.w[l == 0 ? WMU0 : lw(l, LWMU)];
-  const bool act = l < 2;
-  rowmm(M, ds, R, ds, Wg, dv, [&](int r, int c, float y) {
-    const float g = y + bg[c];
-    sm.GT[r * dv + c] = act ? sigmoidf(g) : g;
-  });
-  __syncthreads();
-  // the three components as 3 R rows: VH is [3, R, H], V [3, R, dv]
-  rowmm(sm.VH, H, 3 * R, H, Wmu, dv, [&](int rr, int c, float y) {
-    const int r = rr % R;
-    sm.V[(size_t)rr * dv + c] = y * sm.GT[r * dv + c];
-  });
-  __syncthreads();
-  for (int i = threadIdx.x; i < R * ds; i += blockDim.x) M[i] = fmaxf(M[i], 0.f);
-  __syncthreads();
-}
-
-// The three message layers of the block's rows: on return MA holds s' and V
-// holds v' of the last layer.
-__device__ void forward_rows(const Args& a, const Smem& sm, int n0) {
-  const Dims& d = a.d;
-  const int R = d.R, ds = d.ds, dv = d.dv, h0 = d.h0;
-  const size_t N = d.N;
-  const float* whu = a.w.w[WHU];
-  const float* bm0 = a.w.w[BM0];
-  // layer 0: the gathered per-node products plus the unit vector's term
-  for (int i = threadIdx.x; i < R * h0; i += blockDim.x) {
-    const int r = i / h0, c = i % h0, n = n0 + r / d.K, j = sm.J[r];
-    for (int comp = 0; comp < 3; ++comp) {
-      float x = 0.f;
-      if (n < d.N) {
-        x = a.nodes.A[(comp * N + n) * h0 + c] + (j >= 0 ? a.nodes.B[(comp * N + j) * h0 + c] : 0.f);
-        x = x + sm.UU[comp * R + r] * whu[c];
-      }
-      sm.VH[(size_t)comp * R * h0 + i] = x;
-    }
-  }
-  __syncthreads();
-  norms(a, sm, 0);
-  __syncthreads();
-  rowmm(sm.NRM, h0, R, h0, a.w.w[WNRM0], ds, [&](int r, int c, float y) {
-    const int n = n0 + r / d.K, j = sm.J[r];
-    float m = 0.f;
-    if (n < d.N) m = y + bm0[c] + a.nodes.P[(size_t)n * ds + c] + (j >= 0 ? a.nodes.Q[(size_t)j * ds + c] : 0.f);
-    sm.MA[r * ds + c] = m;
-  });
-  __syncthreads();
-  rowmm(sm.RB, d.nb, R, d.nb, a.w.w[WRBF], ds, [&](int r, int c, float y) { sm.MA[r * ds + c] += y; });
-  __syncthreads();
-  layer_tail(a, sm, 0, sm.MA);
-
-  float* Sin = sm.MA;
-  float* Mout = sm.MB;
-  for (int l = 1; l <= 2; ++l) {
-    rowmm(sm.V, dv, 3 * R, dv, a.w.w[lw(l, LWH)], dv, [&](int rr, int c, float y) { sm.VH[(size_t)rr * dv + c] = y; });
-    __syncthreads();
-    norms(a, sm, l);
-    __syncthreads();
-    const float* bm = a.w.w[lw(l, LBM)];
-    rowmm(Sin, ds, R, ds, a.w.w[lw(l, LWS)], ds,
-        [&](int r, int c, float y) { Mout[r * ds + c] = y + bm[c]; });
-    __syncthreads();
-    rowmm(sm.NRM, dv, R, dv, a.w.w[lw(l, LWNRM)], ds,
-        [&](int r, int c, float y) { Mout[r * ds + c] += y; });
-    __syncthreads();
-    layer_tail(a, sm, l, Mout);
-    float* t = Sin;
-    Sin = Mout;
-    Mout = t;
-  }
-}
-
-__device__ inline float* dynamic_smem() {
-  extern __shared__ __align__(16) float smem[];
-  return smem;
-}
-
-// s Wsi, s Wsj and v Whi, v Whj of kNodeGroup nodes a block.
-__global__ void __launch_bounds__(kThreads) prologue_kernel(const Args a) {
-  const Dims& d = a.d;
-  const int ds = d.ds, dv = d.dv, h0 = d.h0, N = d.N;
-  const int n0 = blockIdx.x * kNodeGroup, rows = min(kNodeGroup, N - n0);
-  float* XS = dynamic_smem();
-  float* XV = XS + (size_t)kNodeGroup * ds;
-  for (int i = threadIdx.x; i < rows * ds; i += blockDim.x) XS[i] = a.s[(size_t)n0 * ds + i];
-  for (int i = threadIdx.x; i < 3 * rows * dv; i += blockDim.x) {
-    const int comp = i / (rows * dv), rest = i % (rows * dv);
-    XV[comp * kNodeGroup * dv + rest] = a.v[((size_t)comp * N + n0) * dv + rest];
-  }
-  __syncthreads();
-  rowmm(XS, ds, rows, ds, a.w.w[WSI], ds,
-      [&](int r, int c, float y) { a.nodes.P[(size_t)(n0 + r) * ds + c] = y; });
-  rowmm(XS, ds, rows, ds, a.w.w[WSJ], ds,
-      [&](int r, int c, float y) { a.nodes.Q[(size_t)(n0 + r) * ds + c] = y; });
-  for (int comp = 0; comp < 3; ++comp) {
-    const float* X = XV + comp * kNodeGroup * dv;
-    const size_t base = (size_t)comp * N + n0;
-    rowmm(X, dv, rows, dv, a.w.w[WHI], h0,
-        [&](int r, int c, float y) { a.nodes.A[(base + r) * h0 + c] = y; });
-    rowmm(X, dv, rows, dv, a.w.w[WHJ], h0,
-        [&](int r, int c, float y) { a.nodes.B[(base + r) * h0 + c] = y; });
-  }
-}
-
-// The forward: a block's G nodes, their rows through the three layers, then
-// the masked mean over each node's K slots.
-__global__ void __launch_bounds__(kThreads) fwd_kernel(const Args a) {
-  const Dims& d = a.d;
-  const Smem sm = carve(dynamic_smem(), d);
-  const int n0 = blockIdx.x * d.G, N = d.N, ds = d.ds, dv = d.dv, K = d.K;
-  load_rows(a, sm, n0);
-  __syncthreads();
-  forward_rows(a, sm, n0);
-  for (int i = threadIdx.x; i < d.G * ds; i += blockDim.x) {
-    const int g = i / ds, c = i % ds, n = n0 + g;
-    if (n >= N) continue;
-    float sum = 0.f, cnt = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const int r = g * K + k;
-      sum += sm.MA[r * ds + c] * sm.MK[r];
-      cnt += sm.MK[r];
-    }
-    a.out_s[(size_t)n * ds + c] = sum / fmaxf(cnt, 1.f);
-  }
-  for (int i = threadIdx.x; i < 3 * d.G * dv; i += blockDim.x) {
-    const int comp = i / (d.G * dv), g = (i / dv) % d.G, c = i % dv, n = n0 + g;
-    if (n >= N) continue;
-    float sum = 0.f, cnt = 0.f;
-    for (int k = 0; k < K; ++k) {
-      const int r = g * K + k;
-      sum += sm.V[(size_t)comp * d.R * dv + r * dv + c] * sm.MK[r];
-      cnt += sm.MK[r];
-    }
-    a.out_v[((size_t)comp * N + n) * dv + c] = sum / fmaxf(cnt, 1.f);
-  }
-}
-
-// ---- the backward's products: tiled f32 GEMMs ---------------------------------
+// ---- the products: tiled f32 GEMMs ---------------------------------------------
 
 // An operand as the products read it: element (c, o, i) at p[c cs + o ld + i]
 // for o < rows and i < cols, zero outside; o is the outer index (a row in
@@ -713,8 +437,10 @@ using TileGradWide = Tile<64, 64, 16, 8, 4, 1, false, false>;
 using TileGradNarrow = Tile<32, 32, 16, 4, 4, 1, false, false>;
 
 // One product C = A B on a grid of (M / BM, N / BN) tiles, epi taking each
-// output: sweep_gemm in the recompute and the reverse sweep, node_grad_gemm
-// for the cotangents of s and v.
+// output: fwd_node_gemm and fwd_layer_gemm<layer> in the forward, sweep_gemm
+// in the backward's recompute and reverse sweep, node_grad_gemm for the
+// cotangents of s and v. The kernels differ only in name, the stage a
+// profile reads.
 template <class T, class Epi>
 __device__ void gemm_block(const Mat& A, const Mat& B, int M, int N, int Kd, const Epi& epi) {
   __shared__ __align__(16) float S[T::kSmem];
@@ -723,6 +449,20 @@ __device__ void gemm_block(const Mat& A, const Mat& B, int M, int N, int Kd, con
   const int m0 = blockIdx.x * T::kBM, n0 = blockIdx.y * T::kBN;
   tile.run(A, B, m0, n0, 0, Kd, S, acc);
   T::finish(acc, m0, n0, M, N, epi);
+}
+
+template <class T, class Epi>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
+    fwd_node_gemm(const __grid_constant__ Mat A, const __grid_constant__ Mat B, const int M, const int N,
+                  const int Kd, const __grid_constant__ Epi epi) {
+  gemm_block<T>(A, B, M, N, Kd, epi);
+}
+
+template <int L, class T, class Epi>
+__global__ void __launch_bounds__(T::kThreads, T::kMinBlocks)
+    fwd_layer_gemm(const __grid_constant__ Mat A, const __grid_constant__ Mat B, const int M, const int N,
+                   const int Kd, const __grid_constant__ Epi epi) {
+  gemm_block<T>(A, B, M, N, Kd, epi);
 }
 
 template <class T, class Epi>
@@ -879,8 +619,7 @@ __global__ void __launch_bounds__(kThreads) node_grad_scan_kernel(const Args a) 
   } while (start < ncand);
 }
 
-// g_s = [gP | gQ] [Wsi; Wsj]^T and g_v = [gA | gB] [Whi; Whj]^T.
-// ---- the recompute and the reverse sweep, layer by layer over all rows -------
+// ---- the forward's elementwise kernels, and the reverse sweep's ----------------
 
 // The row r = n K + k gathers source j, or -1 (zero) on a masked slot or one
 // whose j lies outside the node range or the band.
@@ -890,7 +629,8 @@ __device__ inline int source_of(const int* nbrs, const unsigned char* mask, int 
 }
 
 // Copies of the weights side by side or one above another, as the products
-// read them (Stash.wx, wsij, whij): one launch for all.
+// read them (Stash.wx, wsij, whij): one launch for all (fwd_weights_kernel,
+// sweep_weights_kernel).
 struct Copy {
   const float* src;
   float* dst;
@@ -905,7 +645,7 @@ struct Copies {
   long long total;
 };
 
-__global__ void __launch_bounds__(kThreads) sweep_weights_kernel(const Copies C) {
+__device__ void copy_weights(const Copies& C) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= C.total) return;
   int i = 0;
@@ -916,10 +656,14 @@ __global__ void __launch_bounds__(kThreads) sweep_weights_kernel(const Copies C)
   c.dst[(long long)(c.r0 + r) * c.ld + c.c0 + col] = c.src[local];
 }
 
-// Layer 0's hidden vectors vh = A[n] + B[j] + u whu (Stash.ab), x0 = [their norms | rbf
-// | 1], the columns of ones of x1, x2 and mid, and the masked mean's divisor
-// of each row (Stash.den).
-__global__ void __launch_bounds__(kThreads) sweep_layer0_in_kernel(const Args a) {
+__global__ void __launch_bounds__(kThreads) fwd_weights_kernel(const Copies C) { copy_weights(C); }
+__global__ void __launch_bounds__(kThreads) sweep_weights_kernel(const Copies C) { copy_weights(C); }
+
+// Layer 0's hidden vectors vh = A[n] + B[j] + u whu (Stash.ab), x0 = [their
+// norms | rbf | 1], the columns of ones of x1, x2 and mid, and the masked
+// mean's divisor of each row (Stash.den): fwd_layer0_in_kernel,
+// sweep_layer0_in_kernel.
+__device__ void layer0_in(const Args& a) {
   const Dims& d = a.d;
   const int h0 = d.h0, nb = d.nb, ds = d.ds, K = d.K, N = d.N, R = N * K, w = max(h0, nb);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -949,6 +693,37 @@ __global__ void __launch_bounds__(kThreads) sweep_layer0_in_kernel(const Args a)
     for (int k = 0; k < K; ++k) cnt += a.mask[(size_t)n * K + k] != 0 ? 1.f : 0.f;
     a.st.den[r] = a.mask[r] != 0 ? fmaxf(cnt, 1.f) : 0.f;
   }
+}
+
+__global__ void __launch_bounds__(kThreads) fwd_layer0_in_kernel(const Args a) { layer0_in(a); }
+__global__ void __launch_bounds__(kThreads) sweep_layer0_in_kernel(const Args a) { layer0_in(a); }
+
+// The forward's outputs: the masked mean of the last layer's relu(mid) and
+// (v Wmu) gate over each node's K rows, summed in ascending k and divided by
+// max(sum of the node's mask, 1).
+__global__ void __launch_bounds__(kThreads) fwd_mean_kernel(const Args a) {
+  const Dims& d = a.d;
+  const int ds = d.ds, dv = d.dv, K = d.K, N = d.N;
+  const long long RD = (long long)N * K * dv, ns = (long long)N * ds;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= ns + 3LL * N * dv) return;
+  const bool scalar = i < ns;
+  const long long e = scalar ? i : i - ns;  // out_s [N, ds], out_v [3, N, dv]
+  const int width = scalar ? ds : dv;
+  const int comp = scalar ? 0 : (int)(e / ((long long)N * dv));
+  const int n = (int)(e / width % N), c = (int)(e % width);
+  const float* mid = a.st.mid[2];
+  const float* vmu = a.st.vmu[2] + comp * RD;
+  const float* gate = a.st.gate[2];
+  float sum = 0.f, cnt = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const size_t r = (size_t)n * K + k;
+    const float on = a.mask[r] != 0 ? 1.f : 0.f;
+    const float x = scalar ? fmaxf(mid[r * lm(d) + c], 0.f) : vmu[r * dv + c] * gate[r * dv + c];
+    sum += x * on;
+    cnt += on;
+  }
+  (scalar ? a.out_s : a.out_v)[e] = sum / fmaxf(cnt, 1.f);
 }
 
 // The masked mean's cotangents on each row, g / den on a live slot and 0 on
@@ -1012,6 +787,43 @@ __global__ void __launch_bounds__(kThreads) sweep_node_sum_kernel(const Args a) 
   }
 }
 
+// A thread's cnt (at most TN) consecutive elements of a row at p, by 16-byte
+// accesses where all TN lie inside at an aligned address; a load gives 0
+// past cnt.
+template <int TN>
+__device__ inline bool whole(const float* p, int cnt) {
+  return cnt == TN && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int TN>
+__device__ inline void get_row(const float* p, float (&x)[TN], int cnt) {
+  if (whole<TN>(p, cnt)) {
+#pragma unroll
+    for (int t = 0; t < TN; t += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + t);
+      x[t] = v.x;
+      x[t + 1] = v.y;
+      x[t + 2] = v.z;
+      x[t + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < TN; ++t) x[t] = t < cnt ? p[t] : 0.f;
+  }
+}
+
+template <int TN>
+__device__ inline void put_row(float* p, const float (&x)[TN], int cnt) {
+  if (whole<TN>(p, cnt)) {
+#pragma unroll
+    for (int t = 0; t < TN; t += 4) *reinterpret_cast<float4*>(p + t) = make_float4(x[t], x[t + 1], x[t + 2], x[t + 3]);
+  } else {
+#pragma unroll
+    for (int t = 0; t < TN; ++t)
+      if (t < cnt) p[t] = x[t];
+  }
+}
+
 // a layer's pre-activation mid: + the bias (layer 0 also + P[node] +
 // Q[source], from pq), and relu(mid) into the next layer's x
 struct MidEpi {
@@ -1022,24 +834,25 @@ struct MidEpi {
   int N, K, W, ds, ldm, ldx;
   template <int TN>
   __device__ void row(int m, int n, int cnt, const float (&y)[1][TN]) const {
-    float x[TN];
+    float x[TN], b[TN];
+    get_row(bias + n, b, cnt);
     if (pq) {
       const int j = source_of(nbrs, mask, N, K, W, m);
-      const size_t p = (size_t)(m / K) * 2 * ds + n, q = (size_t)(j >= 0 ? j : 0) * 2 * ds + ds + n;
+      float P[TN], Q[TN];
+      get_row(pq + (size_t)(m / K) * 2 * ds + n, P, cnt);
+      get_row(pq + (size_t)(j >= 0 ? j : 0) * 2 * ds + ds + n, Q, j >= 0 ? cnt : 0);
 #pragma unroll
-      for (int t = 0; t < TN; ++t)
-        if (t < cnt) x[t] = y[0][t] + bias[n + t] + pq[p + t] + (j >= 0 ? pq[q + t] : 0.f);
+      for (int t = 0; t < TN; ++t) x[t] = y[0][t] + b[t] + P[t] + Q[t];
     } else {
 #pragma unroll
-      for (int t = 0; t < TN; ++t)
-        if (t < cnt) x[t] = y[0][t] + bias[n + t];
+      for (int t = 0; t < TN; ++t) x[t] = y[0][t] + b[t];
     }
+    put_row(mid + (size_t)m * ldm + n, x, cnt);
+    if (xn) {
 #pragma unroll
-    for (int t = 0; t < TN; ++t)
-      if (t < cnt) {
-        mid[(size_t)m * ldm + n + t] = x[t];
-        if (xn) xn[(size_t)m * ldx + n + t] = fmaxf(x[t], 0.f);
-      }
+      for (int t = 0; t < TN; ++t) x[t] = fmaxf(x[t], 0.f);
+      put_row(xn + (size_t)m * ldx + n, x, cnt);
+    }
   }
 };
 
@@ -1050,16 +863,19 @@ struct BiasEpi {
   int ld, act;
   template <int TN>
   __device__ void row(int m, int n, int cnt, const float (&y)[1][TN]) const {
+    float g[TN];
+    get_row(bias + n, g, cnt);
 #pragma unroll
-    for (int t = 0; t < TN; ++t)
-      if (t < cnt) {
-        const float g = y[0][t] + bias[n + t];
-        out[(size_t)m * ld + n + t] = act ? sigmoidf(g) : g;
-      }
+    for (int t = 0; t < TN; ++t) {
+      g[t] = y[0][t] + g[t];
+      if (act) g[t] = sigmoidf(g[t]);
+    }
+    put_row(out + (size_t)m * ld + n, g, cnt);
   }
 };
 
-// v Wmu, and the layer's vector output (v Wmu) gate where a next layer takes it
+// v Wmu where vmu is set (the backward's stash, the forward's last layer),
+// and the layer's vector output (v Wmu) gate where a next layer takes it
 struct VmuEpi {
   float *vmu, *vout;
   const float* gate;
@@ -1069,16 +885,17 @@ struct VmuEpi {
   __device__ void row(int m, int n, int cnt, const float (&y)[3][TN]) const {
     const size_t o = (size_t)m * dv + n;
     float g[TN];
+    get_row(gate + o, g, vout ? cnt : 0);
 #pragma unroll
-    for (int t = 0; t < TN; ++t) g[t] = vout && t < cnt ? gate[o + t] : 0.f;
+    for (int c = 0; c < 3; ++c) {
+      if (vmu) put_row(vmu + c * cs + o, y[c], cnt);
+      if (vout) {
+        float x[TN];
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-#pragma unroll
-      for (int t = 0; t < TN; ++t)
-        if (t < cnt) {
-          vmu[c * cs + o + t] = y[c][t];
-          if (vout) vout[c * cs + o + t] = y[c][t] * g[t];
-        }
+        for (int t = 0; t < TN; ++t) x[t] = y[c][t] * g[t];
+        put_row(vout + c * cs + o, x, cnt);
+      }
+    }
   }
 };
 
@@ -1089,12 +906,12 @@ struct VhEpi {
   int ldh, ldn;
   template <int TN>
   __device__ void row(int m, int n, int cnt, const float (&y)[3][TN]) const {
+    float x[TN];
 #pragma unroll
-    for (int t = 0; t < TN; ++t)
-      if (t < cnt) {
-        for (int c = 0; c < 3; ++c) vh[c * cs + (size_t)m * ldh + n + t] = y[c][t];
-        nrm[(size_t)m * ldn + n + t] = sqrtf(y[0][t] * y[0][t] + y[1][t] * y[1][t] + y[2][t] * y[2][t] + kEps);
-      }
+    for (int c = 0; c < 3; ++c) put_row(vh + c * cs + (size_t)m * ldh + n, y[c], cnt);
+#pragma unroll
+    for (int t = 0; t < TN; ++t) x[t] = sqrtf(y[0][t] * y[0][t] + y[1][t] * y[1][t] + y[2][t] * y[2][t] + kEps);
+    put_row(nrm + (size_t)m * ldn + n, x, cnt);
   }
 };
 
@@ -1193,14 +1010,16 @@ void weight_shape(const Dims& d, int i, int& rows, int& cols) {
   cols = out;
 }
 
+// The shapes both entries take: those of an earlier forward whose blocks held
+// one node's K rows and their activations in shared memory, and whose
+// prologue held kNodeGroup nodes' features. Neither entry uses such a block
+// now; the limits stay, so the entries refuse what they refused.
 bool make_dims(int N, int K, int ds, int dv, int nb, int W, Dims& d) {
   if (N <= 0 || K <= 0 || ds <= 0 || dv <= 0 || nb <= 0 || W < 0) return false;
-  d = Dims{N, K, ds, dv, nb, W, 2 * dv + 1 > dv ? 2 * dv + 1 : dv, 1, K};
-  d.G = K < kRowsTarget ? kRowsTarget / K : 1;
-  while (d.G > 1 && block_floats(d, d.G * K) * sizeof(float) > (size_t)kMaxSmem) --d.G;
-  d.R = d.G * K;
-  return block_floats(d, d.R) * sizeof(float) <= (size_t)kMaxSmem &&
-         (size_t)kNodeGroup * (ds + 3 * dv) * sizeof(float) <= (size_t)kMaxSmem;
+  d = Dims{N, K, ds, dv, nb, W, 2 * dv + 1 > dv ? 2 * dv + 1 : dv};
+  const size_t rows = (size_t)K * (2 * ds + 4 * d.h0 + 4 * dv + nb + 5) * sizeof(float);
+  const size_t nodes = (size_t)kNodeGroup * (ds + 3 * dv) * sizeof(float);
+  return rows <= (size_t)kMaxSmem && nodes <= (size_t)kMaxSmem;
 }
 
 // Carves the scratch (or, with base null, counts it) in floats.
@@ -1249,6 +1068,26 @@ void add_copy(const Dims& d, Copies& C, int& ci, const float* src, int i, float*
   C.total += (long long)rows * cols;
 }
 
+// The weights as the products read them (Stash.wx, wsij, whij).
+void weight_copies(const Dims& d, const Weights& W, const Stash& st, Copies& C) {
+  const int ds = d.ds, dv = d.dv, h0 = d.h0, nb = d.nb;
+  const float* const* w = W.w;
+  C = Copies{};
+  int ci = 0;
+  add_copy(d, C, ci, w[WNRM0], WNRM0, st.wx[0], ds, 0, 0);
+  add_copy(d, C, ci, w[WRBF], WRBF, st.wx[0], ds, h0, 0);
+  add_copy(d, C, ci, w[BM0], BM0, st.wx[0], ds, h0 + nb, 0);
+  for (int l = 1; l <= 2; ++l) {
+    add_copy(d, C, ci, w[lw(l, LWS)], lw(l, LWS), st.wx[l], ds, 0, 0);
+    add_copy(d, C, ci, w[lw(l, LWNRM)], lw(l, LWNRM), st.wx[l], ds, ds, 0);
+    add_copy(d, C, ci, w[lw(l, LBM)], lw(l, LBM), st.wx[l], ds, ds + dv, 0);
+  }
+  add_copy(d, C, ci, w[WSI], WSI, st.wsij, 2 * ds, 0, 0);
+  add_copy(d, C, ci, w[WSJ], WSJ, st.wsij, 2 * ds, 0, ds);
+  add_copy(d, C, ci, w[WHI], WHI, st.whij, lab(d), 0, 0);
+  add_copy(d, C, ci, w[WHJ], WHJ, st.whij, lab(d), 0, h0);
+}
+
 // Lays out the backward's scratch at base (nodes, stash, partials), the
 // weights' copies and the weight-gradient jobs, and returns its size in
 // floats; with gw null the gradients' outputs are left unset.
@@ -1257,7 +1096,7 @@ size_t bwd_layout(const Dims& d, float* base, const float* s, const float* v, co
   Cursor cur{base};
   const size_t N = d.N, NK = N * d.K;
   const int ds = d.ds, dv = d.dv, h0 = d.h0, nb = d.nb, n = d.N, R = (int)NK;
-  a.nodes = Nodes{nullptr, nullptr, nullptr, nullptr, cur.take(2 * N * ds), cur.take(3 * N * lab(d))};
+  a.nodes = Nodes{cur.take(2 * N * ds), cur.take(3 * N * lab(d))};
   Stash& st = a.st;
   for (int l = 0; l < 3; ++l) {
     st.x[l] = cur.take(NK * lx(d, l));
@@ -1280,22 +1119,7 @@ size_t bwd_layout(const Dims& d, float* base, const float* s, const float* v, co
   st.ab = cur.take(3 * N * lab(d));
   st.wsij = cur.take((size_t)2 * ds * ds);
   st.whij = cur.take((size_t)dv * lab(d));
-  // the weights as the products read them
-  C = Copies{};
-  int ci = 0;
-  const float* const* w = a.w.w;
-  add_copy(d, C, ci, w[WNRM0], WNRM0, st.wx[0], ds, 0, 0);
-  add_copy(d, C, ci, w[WRBF], WRBF, st.wx[0], ds, h0, 0);
-  add_copy(d, C, ci, w[BM0], BM0, st.wx[0], ds, h0 + nb, 0);
-  for (int l = 1; l <= 2; ++l) {
-    add_copy(d, C, ci, w[lw(l, LWS)], lw(l, LWS), st.wx[l], ds, 0, 0);
-    add_copy(d, C, ci, w[lw(l, LWNRM)], lw(l, LWNRM), st.wx[l], ds, ds, 0);
-    add_copy(d, C, ci, w[lw(l, LBM)], lw(l, LBM), st.wx[l], ds, ds + dv, 0);
-  }
-  add_copy(d, C, ci, w[WSI], WSI, st.wsij, 2 * ds, 0, 0);
-  add_copy(d, C, ci, w[WSJ], WSJ, st.wsij, 2 * ds, 0, ds);
-  add_copy(d, C, ci, w[WHI], WHI, st.whij, lab(d), 0, 0);
-  add_copy(d, C, ci, w[WHJ], WHJ, st.whij, lab(d), 0, h0);
+  weight_copies(d, a.w, st, C);
   // the weight gradients, X^T G over the rows
   gr = Grads{};
   long long part = 0;
@@ -1349,42 +1173,129 @@ size_t bwd_layout(const Dims& d, float* base, const float* s, const float* v, co
   return cur.off;
 }
 
-size_t fwd_layout(const Dims& d, float* base, Args& a) {
+// Lays out the forward's scratch at base and the weights' copies, and
+// returns its size in floats: two sets of a layer's activations, layer l's
+// in set l % 2 (layer 2 overwrites layer 0's once layer 1 has read them;
+// layer 0's input x has its own array, as the ones of x[2] are written
+// before layer 0 runs; v Wmu only of the last layer, which the mean reads),
+// the weight stacks, the per-node products and the rows' divisors.
+size_t fwd_layout(const Dims& d, float* base, Args& a, Copies& C) {
   Cursor cur{base};
-  const size_t N = d.N;
-  a.nodes = Nodes{};
-  a.nodes.P = cur.take(N * d.ds);
-  a.nodes.Q = cur.take(N * d.ds);
-  a.nodes.A = cur.take(3 * N * d.h0);
-  a.nodes.B = cur.take(3 * N * d.h0);
+  const size_t N = d.N, NK = N * d.K;
+  const int ds = d.ds, dv = d.dv;
+  Stash& st = a.st;
+  st = Stash{};
+  for (int set = 0; set < 2; ++set) {
+    const int l = set == 0 ? 2 : 1;  // the layer whose x and vin the set holds
+    st.x[l] = cur.take(NK * lx(d, l));
+    float* vh = cur.take(3 * NK * lh(d, set == 0 ? 0 : 1));
+    float* mid = cur.take(NK * lm(d));
+    float* gate = cur.take(NK * dv);
+    st.vin[l] = cur.take(3 * NK * dv);
+    for (int m = set; m < 3; m += 2) {
+      st.vh[m] = vh;
+      st.mid[m] = mid;
+      st.gate[m] = gate;
+    }
+  }
+  st.vmu[2] = cur.take(3 * NK * dv);  // the mean reads the last layer's; the others are not kept
+  st.x[0] = cur.take(NK * lx(d, 0));
+  for (int l = 0; l < 3; ++l) st.wx[l] = cur.take((size_t)xw(d, l) * ds);
+  st.pq = cur.take(N * 2 * ds);
+  st.ab = cur.take(3 * N * lab(d));
+  st.wsij = cur.take((size_t)2 * ds * ds);
+  st.whij = cur.take((size_t)dv * lab(d));
+  st.den = cur.take(NK);
+  weight_copies(d, a.w, st, C);
   return cur.off;
 }
 
-// each kernel's shared-memory opt-in, a bit per device: fwd, prologue
-uint64_t g_configured[2];
+long long blocks(long long items) { return (items + kThreads - 1) / kThreads; }
 
 template <typename Arg>
-cudaError_t launch(void (*kernel)(const Arg), long long blocks, size_t smem, cudaStream_t stream, const Arg& arg,
-                   uint64_t* configured, int threads = kThreads) {
+cudaError_t launch(void (*kernel)(const Arg), long long blocks, cudaStream_t stream, const Arg& arg,
+                   int threads = kThreads) {
   if (blocks <= 0) return cudaSuccess;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = allow_smem((const void*)kernel, kMaxSmem, *configured);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<(unsigned)blocks, threads, smem, stream>>>(arg);
+  kernel<<<(unsigned)blocks, threads, 0, stream>>>(arg);
   return cudaGetLastError();
 }
 
-// C = A B, C [M, N], by sweep_gemm (sweep) or node_grad_gemm
-template <class T, class Epi>
-cudaError_t gemm(bool sweep, const Mat& A, const Mat& B, int M, int N, int Kd, const Epi& epi, cudaStream_t stream) {
+// The stage of a product, the name its kernel carries: a layer l of the
+// forward (fwd_layer_gemm<l>), or one of these.
+enum { kFwdNode = -1, kSweep = -2, kNodeGrad = -3 };
+
+// C = A B, C [M, N], by the kernel of stage kStage
+template <int kStage, class T, class Epi>
+cudaError_t gemm(const Mat& A, const Mat& B, int M, int N, int Kd, const Epi& epi, cudaStream_t stream) {
   if (M <= 0 || N <= 0) return cudaSuccess;
   const dim3 grid((M + T::kBM - 1) / T::kBM, (N + T::kBN - 1) / T::kBN);
-  if (sweep)
+  if constexpr (kStage == kFwdNode)
+    fwd_node_gemm<T, Epi><<<grid, T::kThreads, 0, stream>>>(A, B, M, N, Kd, epi);
+  else if constexpr (kStage == kSweep)
     sweep_gemm<T, Epi><<<grid, T::kThreads, 0, stream>>>(A, B, M, N, Kd, epi);
-  else
+  else if constexpr (kStage == kNodeGrad)
     node_grad_gemm<T, Epi><<<grid, T::kThreads, 0, stream>>>(A, B, M, N, Kd, epi);
+  else
+    fwd_layer_gemm<kStage, T, Epi><<<grid, T::kThreads, 0, stream>>>(A, B, M, N, Kd, epi);
   return cudaGetLastError();
+}
+
+// Layer L over all rows: vh = v Wh and its norms (layers 1, 2); mid = x
+// [Wnrm0; Wrbf] + bm0 + P + Q, or x [Ws; Wnrm] + bm (x without its ones),
+// and relu(mid) into the next layer's x; the gate; v Wmu, and (v Wmu) gate
+// into the next layer's v. kFwd: the forward's kernels, else the backward's.
+template <bool kFwd, int L>
+cudaError_t forward_layer(const Args& a, cudaStream_t st) {
+  constexpr int kStage = kFwd ? L : kSweep;
+  const Dims& d = a.d;
+  const Stash& S = a.st;
+  const float* const* w = a.w.w;
+  const int H = hidden(d, L), R = d.N * d.K, ds = d.ds, dv = d.dv;
+  const long long RD = (long long)R * dv;
+  cudaError_t err = cudaSuccess;
+  if constexpr (L > 0)
+    err = gemm<kStage, TileVec>(mat(S.vin[L], R, dv, dv, RD), mat(w[lw(L, LWH)], dv, dv, dv), R, dv, dv,
+                                VhEpi{S.vh[L], S.x[L] + nrm_col(d, L), RD, dv, lx(d, L)}, st);
+  const int kx = xw(d, L) - 1, ib = L == 0 ? BM0 : lw(L, LBM);
+  if (err == cudaSuccess)
+    err = gemm<kStage, TileWide>(mat(S.x[L], R, kx, lx(d, L)), mat(S.wx[L], kx, ds, ds), R, ds, kx,
+                                 MidEpi{S.mid[L], L < 2 ? S.x[L + 1] : nullptr, w[ib], L == 0 ? S.pq : nullptr,
+                                        a.nbrs, a.mask, d.N, d.K, d.W, ds, lm(d), L < 2 ? lx(d, L + 1) : 0}, st);
+  if (err == cudaSuccess)
+    err = gemm<kStage, TileNarrow>(mat(S.mid[L], R, ds, lm(d)), mat(w[L == 0 ? WG0 : lw(L, LWG)], ds, dv, dv), R,
+                                   dv, ds, BiasEpi{S.gate[L], w[L == 0 ? BG0 : lw(L, LBG)], dv, L < 2}, st);
+  if (err == cudaSuccess)
+    err = gemm<kStage, TileVec>(mat(S.vh[L], R, H, lh(d, L), (long long)R * lh(d, L)),
+                                mat(w[L == 0 ? WMU0 : lw(L, LWMU)], H, dv, dv), R, dv, H,
+                                VmuEpi{kFwd && L < 2 ? nullptr : S.vmu[L], L < 2 ? S.vin[L + 1] : nullptr, S.gate[L],
+                                       RD, dv}, st);
+  return err;
+}
+
+// The forward's layers over all N K rows, as both entries run them: the
+// weights' copies, the per-node products P | Q = s [Wsi | Wsj] and A | B =
+// v [Whi | Whj], layer 0's input, then the three layers. What a.st holds
+// decides what is kept: the backward's stash keeps every layer's arrays.
+template <bool kFwd>
+cudaError_t forward_layers(const Args& a, const Copies& C, cudaStream_t st) {
+  constexpr int kNode = kFwd ? kFwdNode : kSweep;
+  const Dims& d = a.d;
+  const Stash& S = a.st;
+  const int n = d.N, ds = d.ds, dv = d.dv, h0 = d.h0, R = d.N * d.K;
+  cudaError_t err = launch(kFwd ? fwd_weights_kernel : sweep_weights_kernel, blocks(C.total), st, C);
+  if (err == cudaSuccess)
+    err = gemm<kNode, TileNode>(mat(a.s, n, ds, ds), mat(S.wsij, ds, 2 * ds, 2 * ds), n, 2 * ds, ds,
+                                StoreRows{S.pq, 0, 2 * ds}, st);
+  if (err == cudaSuccess)
+    err = gemm<kNode, TileVec>(mat(a.v, n, dv, dv, (long long)n * dv), mat(S.whij, dv, 2 * h0, lab(d)), n, 2 * h0,
+                               dv, StoreRows{S.ab, (long long)n * lab(d), lab(d)}, st);
+  if (err == cudaSuccess)
+    err = launch(kFwd ? fwd_layer0_in_kernel : sweep_layer0_in_kernel, blocks((long long)R * (h0 > d.nb ? h0 : d.nb)),
+                 st, a);
+  if (err == cudaSuccess) err = forward_layer<kFwd, 0>(a, st);
+  if (err == cudaSuccess) err = forward_layer<kFwd, 1>(a, st);
+  if (err == cudaSuccess) err = forward_layer<kFwd, 2>(a, st);
+  return err;
 }
 
 Args base_args(const Dims& d, const float* s, const float* v, const int* nbrs, const unsigned char* mask,
@@ -1401,17 +1312,12 @@ Args base_args(const Dims& d, const float* s, const float* v, const int* nbrs, c
   return a;
 }
 
-size_t prologue_smem(const Dims& d) { return (size_t)kNodeGroup * (d.ds + 3 * d.dv) * sizeof(float); }
-size_t block_smem(const Dims& d) { return block_floats(d, d.R) * sizeof(float); }
-long long node_groups(const Dims& d) { return (d.N + kNodeGroup - 1) / kNodeGroup; }
-long long row_groups(const Dims& d) { return (d.N + d.G - 1) / d.G; }
-
 }  // namespace
 
 extern "C" {
 
-// 0 when the kernels take these shapes (a block's rows and the node groups fit
-// shared memory), else cudaErrorInvalidValue.
+// 0 when the kernels take these shapes (make_dims), else
+// cudaErrorInvalidValue.
 int gvp_conv_supported(int N, int K, int ds, int dv, int nb) {
   Dims d;
   return make_dims(N, K, ds, dv, nb, 0, d) ? 0 : (int)cudaErrorInvalidValue;
@@ -1422,7 +1328,8 @@ long long gvp_conv_fwd_scratch_floats(int N, int K, int ds, int dv, int nb) {
   Dims d;
   if (!make_dims(N, K, ds, dv, nb, 0, d)) return 0;
   Args a{};
-  return (long long)fwd_layout(d, nullptr, a);
+  Copies C;
+  return (long long)fwd_layout(d, nullptr, a, C);
 }
 
 long long gvp_conv_bwd_scratch_floats(int N, int K, int ds, int dv, int nb) {
@@ -1448,10 +1355,11 @@ int gvp_conv_fwd_f32(const float* s, const float* v, const int* nbrs, const unsi
   Args a = base_args(d, s, v, nbrs, mask, rbf, u, w);
   a.out_s = out_s;
   a.out_v = out_v;
-  fwd_layout(d, scratch, a);
+  Copies C;
+  fwd_layout(d, scratch, a, C);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch(prologue_kernel, node_groups(d), prologue_smem(d), st, a, &g_configured[1]);
-  if (err == cudaSuccess) err = launch(fwd_kernel, row_groups(d), block_smem(d), st, a, &g_configured[0]);
+  cudaError_t err = forward_layers<true>(a, C, st);
+  if (err == cudaSuccess) err = launch(fwd_mean_kernel, blocks((long long)N * ds + 3LL * N * dv), st, a);
   return (int)err;
 }
 
@@ -1480,79 +1388,50 @@ int gvp_conv_bwd_f32(const float* s, const float* v, const int* nbrs, const unsi
   const int n = N, h0 = d.h0, R = N * K;
   const long long RD = (long long)R * dv;
   const Stash& S = a.st;
-  const auto blocks = [](long long items) { return (items + kThreads - 1) / kThreads; };
-  cudaError_t err = launch(sweep_weights_kernel, blocks(C.total), 0, st, C, nullptr);
-  // the per-node products of layer 0: P | Q = s [Wsi | Wsj], A | B = v [Whi | Whj]
-  if (err == cudaSuccess)
-    err = gemm<TileNode>(true, mat(s, n, ds, ds), mat(S.wsij, ds, 2 * ds, 2 * ds), n, 2 * ds, ds,
-                         StoreRows{S.pq, 0, 2 * ds}, st);
-  if (err == cudaSuccess)
-    err = gemm<TileVec>(true, mat(v, n, dv, dv, (long long)n * dv), mat(S.whij, dv, 2 * h0, lab(d)), n, 2 * h0,
-                            dv, StoreRows{S.ab, (long long)n * lab(d), lab(d)}, st);
   // the forward again, layer by layer, keeping what the reverse and the weight gradients read
-  if (err == cudaSuccess)
-    err = launch(sweep_layer0_in_kernel, blocks((long long)R * (h0 > nb ? h0 : nb)), 0, st, a, nullptr);
-  for (int l = 0; l <= 2 && err == cudaSuccess; ++l) {
-    const int H = hidden(d, l);
-    if (l > 0)  // vh = v Wh and its norms
-      err = gemm<TileVec>(true, mat(S.vin[l], R, dv, dv, RD), mat(w[lw(l, LWH)], dv, dv, dv), R, dv, dv,
-                          VhEpi{S.vh[l], S.x[l] + nrm_col(d, l), RD, dv, lx(d, l)}, st);
-    // mid = x [Wnrm0; Wrbf] + bm0 + P + Q, or x [Ws; Wnrm] + bm: x without its ones
-    const int kx = xw(d, l) - 1, ib = l == 0 ? BM0 : lw(l, LBM);
-    if (err == cudaSuccess)
-      err = gemm<TileWide>(true, mat(S.x[l], R, kx, lx(d, l)), mat(S.wx[l], kx, ds, ds), R, ds, kx,
-                           MidEpi{S.mid[l], l < 2 ? S.x[l + 1] : nullptr, w[ib], l == 0 ? S.pq : nullptr, nbrs, mask,
-                                  N, K, W, ds, lm(d), l < 2 ? lx(d, l + 1) : 0}, st);
-    if (err == cudaSuccess)
-      err = gemm<TileNarrow>(true, mat(S.mid[l], R, ds, lm(d)), mat(w[l == 0 ? WG0 : lw(l, LWG)], ds, dv, dv), R, dv,
-                             ds, BiasEpi{S.gate[l], w[l == 0 ? BG0 : lw(l, LBG)], dv, l < 2}, st);
-    if (err == cudaSuccess)
-      err = gemm<TileVec>(true, mat(S.vh[l], R, H, lh(d, l), (long long)R * lh(d, l)),
-                          mat(w[l == 0 ? WMU0 : lw(l, LWMU)], H, dv, dv), R, dv, H,
-                          VmuEpi{S.vmu[l], l < 2 ? S.vin[l + 1] : nullptr, S.gate[l], RD, dv}, st);
-  }
+  cudaError_t err = forward_layers<false>(a, C, st);
   // the reverse sweep from the masked mean's cotangents
-  if (err == cudaSuccess) err = launch(sweep_mean_grad_kernel, blocks((long long)R * ds + 3 * RD), 0, st, a, nullptr);
+  if (err == cudaSuccess) err = launch(sweep_mean_grad_kernel, blocks((long long)R * ds + 3 * RD), st, a);
   for (int l = 2; l >= 0 && err == cudaSuccess; --l) {
     const int H = hidden(d, l), ldh = lh(d, l);
     a.layer = l;
-    err = launch(sweep_gate_grad_kernel, blocks(RD), 0, st, a, nullptr);
+    err = launch(sweep_gate_grad_kernel, blocks(RD), st, a);
     if (err == cudaSuccess)
-      err = gemm<TileWideT>(true, mat(S.gpre[l], R, dv, dv), mat(w[l == 0 ? WG0 : lw(l, LWG)], ds, dv, dv), R, ds, dv,
+      err = gemm<kSweep, TileWideT>(mat(S.gpre[l], R, dv, dv), mat(w[l == 0 ? WG0 : lw(l, LWG)], ds, dv, dv), R, ds, dv,
                             GmidEpi{S.gmid[l], S.mid[l], S.gs, ds, lm(d)}, st);
     // g_mid [Wnrm0 | Wrbf]^T: g_nrm0 and g_rbf; g_mid [Ws | Wnrm]^T: the next layer's gs and this one's g_nrm
     const int k1 = l == 0 ? h0 : ds, k2 = l == 0 ? nb : dv;
     if (err == cudaSuccess)
-      err = gemm<TileWideT>(true, mat(S.gmid[l], R, ds, ds), mat(S.wx[l], k1 + k2, ds, ds), R, k1 + k2, ds,
+      err = gemm<kSweep, TileWideT>(mat(S.gmid[l], R, ds, ds), mat(S.wx[l], k1 + k2, ds, ds), R, k1 + k2, ds,
                             l == 0 ? SplitEpi{S.gnrm, g_rbf, lh(d, 0), nb, h0} : SplitEpi{S.gs, S.gnrm, ds, dv, ds},
                             st);
     if (err == cudaSuccess)
-      err = gemm<TileVecT>(true, mat(S.gvmu[l], R, dv, dv, RD), mat(w[l == 0 ? WMU0 : lw(l, LWMU)], H, dv, dv), R, H,
+      err = gemm<kSweep, TileVecT>(mat(S.gvmu[l], R, dv, dv, RD), mat(w[l == 0 ? WMU0 : lw(l, LWMU)], H, dv, dv), R, H,
                            dv, GvhEpi{S.gvh[l], S.gnrm, S.vh[l], S.x[l] + nrm_col(d, l), (long long)R * ldh, ldh,
                                       lx(d, l)}, st);
     if (err == cudaSuccess && l > 0)
-      err = gemm<TileVecT>(true, mat(S.gvh[l], R, dv, dv, RD), mat(w[lw(l, LWH)], dv, dv, dv), R, dv, dv,
+      err = gemm<kSweep, TileVecT>(mat(S.gvh[l], R, dv, dv, RD), mat(w[lw(l, LWH)], dv, dv, dv), R, dv, dv,
                            StoreRows{S.gv, RD, dv}, st);
   }
   if (err == cudaSuccess)
-    err = launch(sweep_node_sum_kernel, blocks((long long)n * ds + 3LL * n * h0 + 3LL * R), 0, st, a, nullptr);
+    err = launch(sweep_node_sum_kernel, blocks((long long)n * ds + 3LL * n * h0 + 3LL * R), st, a);
   // the gather's VJP, then the cotangents of s and v
   if (err == cudaSuccess) {
     const int per_block = kWarps / kSplit;
-    err = launch(node_grad_scan_kernel, (n + per_block - 1) / per_block, 0, st, a, nullptr);
+    err = launch(node_grad_scan_kernel, (n + per_block - 1) / per_block, st, a);
   }
   if (err == cudaSuccess)
-    err = gemm<TileNodeT>(false, mat(a.nodes.gPQ, n, 2 * ds, 2 * ds), mat(S.wsij, ds, 2 * ds, 2 * ds), n, ds, 2 * ds,
+    err = gemm<kNodeGrad, TileNodeT>(mat(a.nodes.gPQ, n, 2 * ds, 2 * ds), mat(S.wsij, ds, 2 * ds, 2 * ds), n, ds, 2 * ds,
                           StoreRows{g_s, 0, ds}, st);
   if (err == cudaSuccess)
-    err = gemm<TileVecT>(false, mat(a.nodes.gAB, n, 2 * h0, lab(d), (long long)n * lab(d)),
+    err = gemm<kNodeGrad, TileVecT>(mat(a.nodes.gAB, n, 2 * h0, lab(d), (long long)n * lab(d)),
                              mat(S.whij, dv, 2 * h0, lab(d)), n, dv, 2 * h0, StoreRows{g_v, (long long)n * dv, dv}, st);
   // the weight gradients: chunk partials, then their fixed-order sums
   if (err == cudaSuccess)
-    err = launch(wgrad_kernel<TileGradWide>, gr.wide.tiles, 0, st, gr.wide, nullptr, TileGradWide::kThreads);
+    err = launch(wgrad_kernel<TileGradWide>, gr.wide.tiles, st, gr.wide, TileGradWide::kThreads);
   if (err == cudaSuccess)
-    err = launch(wgrad_kernel<TileGradNarrow>, gr.narrow.tiles, 0, st, gr.narrow, nullptr, TileGradNarrow::kThreads);
-  if (err == cudaSuccess) err = launch(wgrad_reduce_kernel, blocks(gr.outs.total), 0, st, gr.outs, nullptr);
+    err = launch(wgrad_kernel<TileGradNarrow>, gr.narrow.tiles, st, gr.narrow, TileGradNarrow::kThreads);
+  if (err == cudaSuccess) err = launch(wgrad_reduce_kernel, blocks(gr.outs.total), st, gr.outs);
   return (int)err;
 }
 

@@ -8,13 +8,13 @@ Replaces the Pallas kernels of ``notorch_tpu/kernels/gvp_conv.py``:
 ==========================  ==================================================
 TPU entry (kernel)          here
 ==========================  ==================================================
-``fused_gvp_conv_fwd``      :func:`fused_gvp_conv_fwd`: the prologue and the
-(``_fwd_kernel``)           forward kernel of ``csrc/gvp_conv.cu``
-``fused_gvp_conv_bwd``      :func:`fused_gvp_conv_bwd`: the recompute and
-(``_bwd_kernel``)           reverse sweep layer by layer over all rows (the
-                            prologue, the ``sweep_`` kernels and tiled f32
-                            products), the gather's VJP (``node_grad_``) and
-                            the fixed-order weight gradients (``wgrad_``) of
+``fused_gvp_conv_fwd``      :func:`fused_gvp_conv_fwd`: the layers over all
+(``_fwd_kernel``)           rows as tiled f32 products and the masked mean
+                            (the ``fwd_`` kernels of ``csrc/gvp_conv.cu``)
+``fused_gvp_conv_bwd``      :func:`fused_gvp_conv_bwd`: the same layers again
+(``_bwd_kernel``)           and the reverse sweep (the ``sweep_`` kernels),
+                            the gather's VJP (``node_grad_``) and the
+                            fixed-order weight gradients (``wgrad_``) of
                             ``csrc/gvp_conv.cu``
 ``fused_gvp_conv``          :class:`FusedGvpConvFn` (and :func:`fused_gvp_conv`)
 (the custom VJP)
@@ -156,7 +156,8 @@ def _layer(s_terms, vh, w, act_gate: bool):
 def _message_inputs(s, v, nbrs, mask, window: int):
     """``(s_i, s_j, v_i, v_j)`` as ``[N * K, .]`` rows; the gather reads
     zero where the slot is masked or its neighbour lies beyond ``window``
-    rows of the node."""
+    rows of the node. The gather is ``index_select``, whose backward sums in
+    a fixed order on the CPU (``x[idx]``'s adds by float atomics there)."""
     N, K = nbrs.shape
     rows = torch.arange(N, device=nbrs.device)[:, None]
     live = (mask != 0) & ((nbrs.long() - rows).abs() <= window)
@@ -166,7 +167,8 @@ def _message_inputs(s, v, nbrs, mask, window: int):
     def own(x):
         return x[:, None, :].expand(N, K, x.shape[-1]).reshape(N * K, x.shape[-1])
 
-    return own(s), s[idx] * keep, tuple(own(c) for c in v), tuple(c[idx] * keep for c in v)
+    return (own(s), s.index_select(0, idx) * keep, tuple(own(c) for c in v),
+            tuple(c.index_select(0, idx) * keep for c in v))
 
 
 def _stack(s, vx, vy, vz, nbrs, mask, rbf2d, ux, uy, uz, wlist, window: int):

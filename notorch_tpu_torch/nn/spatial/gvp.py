@@ -178,8 +178,11 @@ class DualRankAggregation(nn.Module):
 def nbr_take(x: torch.Tensor, nbrs: torch.Tensor) -> torch.Tensor:
     """The neighbour gather ``x[nbrs]`` (``[N, ...]`` x ``[N, K]`` ->
     ``[N, K, ...]``) of the JAX ``_nbr_take``; its backward is autograd's
-    scatter-add, the exact VJP that the JAX one-hot contraction computes."""
-    return x[nbrs.long()]
+    scatter-add, the exact VJP that the JAX one-hot contraction computes.
+    ``index_select``, not ``x[idx]``: on the CPU the latter's backward adds
+    by float atomics across threads, so its bits change from run to run;
+    ``index_select``'s adds each row's terms in ascending order."""
+    return x.index_select(0, nbrs.reshape(-1).long()).reshape(*nbrs.shape, *x.shape[1:])
 
 
 class GvpConv(nn.Module):

@@ -599,14 +599,15 @@ def test_cuda_dense_gat_block_matches_cpu(fwd_impl):
         torch.testing.assert_close(grads[1][name], ref, rtol=1e-4, atol=atol, msg=name)
 
 
-def gvp_case(d, dv, seed=0, n_clouds=12, K=16, nb=16, window=24, quantum=64):
+def gvp_case(d, dv, seed=0, n_clouds=12, K=16, nb=16, window=24, quantum=64, nodes=None):
     """The GVP kernels' operands on the card over real banded neighbour
     lists of synthetic clouds: seeded features, RBF-like edge features, unit
-    vectors, split weights and cotangents. The node count is the clouds'
-    atoms rounded up to a multiple of ``quantum`` (an odd one below 64)."""
+    vectors, split weights and cotangents. The node count is ``nodes``, or
+    the clouds' atoms rounded up to a multiple of ``quantum`` (an odd one
+    below 64)."""
     clouds = make_clouds(n_clouds, seed=seed)
     blocks = -(-sum(c.num_nodes for c in clouds) // quantum)
-    cap = quantum * (blocks if quantum >= 64 else blocks | 1)
+    cap = nodes or quantum * (blocks if quantum >= 64 else blocks | 1)
     P = pad_point_clouds(clouds, cap).to("cuda")
     nbrs, mask, dists = radius_neighbors(P.coords, P.batch_index, 5.0, K, window=window)
     rng = np.random.default_rng(seed)
@@ -632,26 +633,30 @@ def gvp_kink_free(args, window=24, tol=1e-5):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d, dv, K, quantum, dead", [
-    pytest.param(32, 8, 16, 64, 0, id="32-8"),
-    pytest.param(256, 32, 16, 64, 0, id="256-32"),
-    pytest.param(48, 6, 16, 64, 0, id="48-6"),
-    # the backward's 128-row tiles cut across nodes
-    pytest.param(256, 32, 8, 64, 0, id="K8"),
-    pytest.param(256, 32, 24, 64, 0, id="K24"),
+@pytest.mark.parametrize("d, dv, K, quantum, dead, clouds, nodes", [
+    pytest.param(32, 8, 16, 64, 0, 12, None, id="32-8"),
+    pytest.param(256, 32, 16, 64, 0, 12, None, id="256-32"),
+    pytest.param(48, 6, 16, 64, 0, 12, None, id="48-6"),
+    # other K: a 64-row tile holds 8 nodes (K 8) or cuts across nodes (K 24)
+    pytest.param(256, 32, 8, 64, 0, 12, None, id="K8"),
+    pytest.param(256, 32, 24, 64, 0, 12, None, id="K24"),
     # N K a multiple of neither a row tile nor a 1,024-row weight-gradient chunk
-    pytest.param(64, 8, 5, 8, 0, id="ragged-rows"),
+    pytest.param(64, 8, 5, 8, 0, 12, None, id="ragged-rows"),
     # nodes whose every slot is masked
-    pytest.param(256, 32, 16, 64, 9, id="dead-nodes"),
+    pytest.param(256, 32, 16, 64, 9, 12, None, id="dead-nodes"),
+    # a serving-sized batch: 65,536 rows, the forward's activations (about
+    # 0.5 GB) far past the 50 MB L2
+    pytest.param(256, 32, 16, 64, 0, 210, 4096, id="serving-4096"),
 ])
-def test_cuda_gvp_kernels_match_plain_versions(d, dv, K, quantum, dead):
+def test_cuda_gvp_kernels_match_plain_versions(d, dv, K, quantum, dead, clouds, nodes):
     """Rows 14-15 against their plain versions: the outputs; every cotangent
-    on the inputs with the slots near a ReLU kink masked; the backward twice,
+    on the inputs with the slots near a ReLU kink masked; each entry twice,
     bit for bit; one launch a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    args, cot = gvp_case(d, dv, K=K, quantum=quantum)
+    args, cot = gvp_case(d, dv, n_clouds=clouds, K=K, quantum=quantum, nodes=nodes)
+    assert nodes is None or args[0].shape[0] == nodes
     args = gvp_kink_free(args)
     if dead:
         mask = args[5].clone()
@@ -659,10 +664,12 @@ def test_cuda_gvp_kernels_match_plain_versions(d, dv, K, quantum, dead):
         args[5] = mask
     before = fused_gvp_conv_fwd.launches, fused_gvp_conv_bwd.launches
     out = fused_gvp_conv_fwd(*args, window=24)
+    again = fused_gvp_conv_fwd(*args, window=24)
     first = fused_gvp_conv_bwd(*args, *cot, window=24)
     second = fused_gvp_conv_bwd(*args, *cot, window=24)
     torch.cuda.synchronize()
-    assert (fused_gvp_conv_fwd.launches - before[0], fused_gvp_conv_bwd.launches - before[1]) == (1, 2)
+    assert (fused_gvp_conv_fwd.launches - before[0], fused_gvp_conv_bwd.launches - before[1]) == (2, 2)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
     for a, r in zip(out, gvp_conv_reference(*args, 24)):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4)
     ref = gvp_conv_bwd_reference(*args, *cot, 24)
