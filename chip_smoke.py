@@ -256,6 +256,12 @@ KINK_GRAD_L2 = 1e-2
 # tests/test_torch_spatial.py::test_gvp_full_width_run_drifts_apart_in_both_
 # packages), so the whole runs are held at that, and every step in lockstep
 GVP_RUN_RTOL = 1.17e-1
+# the reverse sweep's stages in a profile (rows 3, 4 and 6): fragments of
+# its kernels' names (csrc/dense_mpnn_bwd.cu: the copies of W^T and the
+# operator's bit rows, the adjoint A^T g, the products g_mW W^T and
+# relu(h)^T g_mW with their fixed-order chunk sums, the encoder's gather
+# VJP), and row 4's forward replay, the layer kernel of csrc/dense_mpnn.cu
+SWEEP_STAGES = ("bwd_prep_", "bwd_adjoint_", "bwd_gemm_", "bwd_node_grad_", "dense_mpnn_plain_kernel")
 # rows 14-15's stages in a profile: fragments of their kernels' names
 GVP_STAGES = {
     fused_gvp_conv_fwd: ("fwd_weights_", "fwd_node_", "fwd_layer0_in_", "fwd_layer_gemm<0,", "fwd_layer_gemm<1,",
@@ -603,8 +609,7 @@ def profile_busy(run, top: int = 8, width: int = 80) -> dict:
     )
     busy_ms = sum(ms for _, ms, _ in kernels)
     by_kernel = {}
-    for fragment in ("dense_mpnn_plain_kernel", "dense_mpnn_ends_kernel", "adjoint_kernel",
-                     "weight_grad_partial", "reduce_chunks", "input_grad_kernel", "attn_kernel",
+    for fragment in ("dense_mpnn_plain_kernel", "dense_mpnn_ends_kernel", *SWEEP_STAGES[:4], "attn_kernel",
                      "attn_rows_kernel", "attn_cols_kernel"):
         by_kernel[fragment] = sum(ms for k, ms, _ in kernels if fragment in k)
     return {
@@ -1418,12 +1423,43 @@ def time_gvp(fn, x: dict) -> tuple[dict, list[dict], dict[str, float], float]:
     else:
         kernel = lambda: fused_gvp_conv_fwd(*x["args"], window=GVP_WINDOW)  # noqa: E731
     t = time_ms(kernel)
-    breakdown = profile_busy(lambda: [kernel() for _ in range(5)], top=40, width=160)["top"]
+    breakdown = kernels_of_calls(kernel)
     stages = {stage.rstrip("_,"): sum(k["ms"] for k in breakdown if stage in k["name"]) / 5 for stage in GVP_STAGES[fn]}
     (N, K), ds, dv, nb = x["args"][4].shape, x["args"][0].shape[1], x["args"][1].shape[1], x["args"][6].shape[1]
     lib = gvp_conv._lib()
     floats = (lib.gvp_conv_bwd_scratch_floats if fn is fused_gvp_conv_bwd else lib.gvp_conv_fwd_scratch_floats)
     return t, breakdown, stages, floats(N, K, ds, dv, nb) * 4 / 2**20
+
+
+def kernels_of_calls(kernel, calls: int = 5, top: int = 40, width: int = 160) -> list[dict]:
+    """The ``top`` CUDA kernels (names cut to ``width`` characters) of
+    ``calls`` calls of ``kernel`` in a profile: device ms summed over the
+    calls, and launches. One call runs first in the profiler's warm-up
+    step, whose records are thrown away: late in this script's run, a
+    profile without it lost the kernels of its first call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for n in (1, calls):
+            for _ in range(n):
+                kernel()
+            torch.cuda.synchronize()
+            prof.step()
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and not e.is_user_annotation),
+                     key=lambda e: -e.self_device_time_total)
+    return [{"name": e.key[:width], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in kernels[:top]]
+
+
+def time_sweep(kernel) -> tuple[dict, list[dict], dict[str, float]]:
+    """Row 3, 4 or 6 (``kernel``, a call on fixed inputs): its time_ms, the
+    kernels of 5 calls in a profile, and their device ms a call by stage
+    (SWEEP_STAGES)."""
+    t = time_ms(kernel)
+    breakdown = kernels_of_calls(kernel)
+    stages = {stage.rstrip("_"): sum(k["ms"] for k in breakdown if stage in k["name"]) / 5 for stage in SWEEP_STAGES}
+    return t, breakdown, stages
 
 
 def gvp_model(cfg: dict, device: str):
@@ -1787,9 +1823,15 @@ def main() -> None:
         {"B": ef.shape[0], "V": nf.shape[1], "E": ef.shape[1], "d": d}, enc_nnz)
     shapes[csr_segment_sum] = shapes[csr_segment_sum_packed] = (
         {"V": V, "E": E, "d": d, "real_edges": n_real}, None)
+    # the forward rows count a launch a layer, the backward rows one a call
+    per_layer = (fused_dense_mpnn_block, fused_dense_mpnn_block_stash, fused_dense_encoder_fwd,
+                 fused_dense_mpnn_block_dbuf)
+    sweeps = (fused_dense_mpnn_block_bwd_stash, fused_dense_mpnn_block_bwd, fused_dense_encoder_bwd)
     records = []
     for fn, (kernel, plain, ops, n_bytes) in runs.items():
-        kernel_t, plain_t = time_ms(kernel), time_ms(plain)
+        # rows 3, 4 and 6 with their sweep's kernels by stage
+        kernel_t, breakdown, stages = time_sweep(kernel) if fn in sweeps else (time_ms(kernel), None, None)
+        plain_t = time_ms(plain)
         library, library_note = libraries.get(
             fn, (None, "no single PyTorch call computes the fused block, the encoder or their backwards"))
         library_t = None if library is None else time_ms(library)
@@ -1799,7 +1841,10 @@ def main() -> None:
              ms=kernel_t["device"], plain_ms=plain_t["device"], eager_ms=kernel_t["eager"],
              plain_eager_ms=plain_t["eager"], bound_ms=bound_ms, bound_by=bound_by,
              operations=ops, bytes=n_bytes, nnz_A=shapes[fn][1],
-             library_ms=None if library_t is None else library_t["device"], library_note=library_note)
+             library_ms=None if library_t is None else library_t["device"], library_note=library_note,
+             launches=path_launches[fn],
+             calls=path_launches[fn] // depth if fn in per_layer else path_launches[fn],
+             **({} if breakdown is None else {"kernels_of_5_calls": breakdown, "stages_ms": stages}))
         records.append(kernel_record(fn, path_launches[fn], errors[fn], kernel_t, plain_t,
                                      bound_ms, bound_by, library_t))
     # rows 10-13 at both of their shapes; the kernels line takes rows 12-13

@@ -1,6 +1,6 @@
-// The reverse sweep of one layer of the folded dense D-MPNN block, in CUDA
-// C++ for sm_90a, with the ends of the whole-encoder backward folded into
-// the sweep's first and last layer.
+// The reverse sweep of the folded dense D-MPNN block, in CUDA C++ for
+// sm_90a, with the ends of the whole-encoder backward folded into the
+// sweep's first and last layer.
 //
 // Replaces the Pallas kernels of notorch_tpu/kernels/dense_mpnn.py:
 //   - fused_dense_mpnn_block_bwd_stash / _bwd_kernel_stash (the training
@@ -8,10 +8,11 @@
 //     fused_dense_mpnn_block_bwd / _bwd_kernel (the recompute backward, whose
 //     replay of the forward runs the layer kernel of dense_mpnn.cu);
 //   - fused_dense_encoder_bwd / _encoder_bwd_kernel(_d1): the same sweep with
-//     the scatter's VJP in front of the last layer's launches and h0's
-//     recompute and the gather's VJP in layer 0's.
+//     the scatter's VJP in front of the last layer's products and h0's
+//     recompute and the gather's VJP after layer 0's.
 // The Python wrapper (notorch_tpu_torch/kernels/dense_mpnn.py) calls
-// dense_mpnn_bwd_layer once per layer, last layer first.
+// dense_mpnn_bwd_prep once a call, then dense_mpnn_bwd_layer once per layer,
+// last layer first.
 //
 // The forward layer is h_out = (h_in +) bias + A @ (relu(h_in) @ W), with A
 // the folded edge operator of dense_mpnn.cu (per bin, rev(e) = e ^ 1):
@@ -19,167 +20,129 @@
 //   mean: A[e,e'] = keep[e,e'] / max(indeg(e), 1) - [e' == rev(e)]
 //   keep[e,e'] = src[e] == dst[e'] && emask[e'],  indeg(e) = sum_e' keep[e,e']
 // Given g, the cotangent of h_out, and m = relu(h_in), one layer of the
-// sweep computes
-//   g_mW   = A^T g                          (adjoint_kernel)
-//   g_W    = m^T g_mW,  g_b = sum_rows g    (weight_grad_partial_kernel, then
-//                                            reduce_chunks_kernel)
-//   g_in   = [h_in > 0] * (g_mW @ W^T) (+ g when residual)   (input_grad_kernel)
-// over every bin and lane. A^T g is exact for any g; that g is zero on
-// padded lanes (the masked scatter drops them) is what makes it the
-// gradient of the unfolded block too, as in the TPU kernel.
+// sweep computes, over the R = B * E rows of every bin and lane,
+//   g_mW   = A^T g,  g_b = sum_rows g        (bwd_adjoint_kernel)
+//   g_in   = [h_in > 0] * (g_mW @ W^T) (+ g when residual)
+//   g_W    = m^T g_mW                        (both in bwd_gemm_kernel)
+// A^T g is exact for any g; that g is zero on padded lanes (the masked
+// scatter drops them) is what makes it the gradient of the unfolded block
+// too, as in the TPU kernel.
 //
 // The encoder (h0 = nf[src] + ef; nh = masked scatter of the last output)
 // adds, per bin:
-//   prologue (the last layer's adjoint_kernel): the cotangent of the block's
-//     output is g = ge + S^T gn, g[e] = ge[e] + emask[e] * gn[dst[e]] (times
+//   prologue (the last layer's adjoint): the cotangent of the block's output
+//     is g = ge + S^T gn, g[e] = ge[e] + emask[e] * gn[dst[e]] (times
 //     1 / max(indeg(dst[e]), 1) for mean: the forward scatter's operator);
-//     the kernel stages it for A^T g and writes it for the layer's other two
-//     kernels;
-//   recompute (layer 0): the weight gradient's m and the ReLU mask read
-//     h0 = nf[src] + ef, recomputed where they load it, as the TPU kernel
-//     recomputes it rather than stash it;
-//   epilogue (layer 0's input_grad_kernel): g_ef = g_h0, and g_nf[v] =
-//     sum_e [src[e] == v] * g_h0[e] (unmasked), summed in ascending edge
-//     order from the block's own output slice, kept in shared memory.
+//     the kernel stages it for A^T g and writes it for the layer's products;
+//   recompute (layer 0's adjoint): h0 = nf[src] + ef into scratch, which the
+//     layer's products read, as the TPU kernel recomputes h0 rather than
+//     stash it;
+//   epilogue (bwd_node_grad_kernel, after layer 0): g_ef = g_h0, and g_nf[v]
+//     = sum_e [src[e] == v] * g_h0[e] (unmasked), summed in ascending edge
+//     order.
 // A src or dst outside [0, V) touches no node, as a one-hot would.
 //
 // What bounds it: the work is exact f32, so the floor is the CUDA-core f32
-// rate (67 TFLOP/s on an H100 SXM at 700 W). A layer needs 4 * B * E * d^2
+// rate (67 TFLOP/s on an H100 SXM at 700 W). A layer needs 4 * R * d^2
 // operations for the two W-sized products and 2 * nnz(A) * d for A^T g (the
-// encoder's ends add about 3 * B * E * d); the bytes (h0 or nf and ef, the
-// stash, W, the cotangents read once; the gradients written once) take about
-// a fifth as long at the training shape. So it is bound by operations.
-// The design:
-//   - A^T g on a (bin, 64-column) grid: the block stages its bin's g slice
-//     and builds bit rows of A^T in shared memory, then walks the set bits,
-//     so the operator costs operations only where it is nonzero;
-//   - g_mW @ W^T by k-tiled shared-memory FMA, as the forward's product
-//     phase, with W's tile transposed on its way into shared memory and the
-//     next tile's loads in flight during the current tile's FMAs;
-//   - m^T g_mW is a sum over all B * E rows. On the TPU the grid runs in
-//     order and carries it in the output block; here blocks run in no
-//     order, and float atomics would make g_W differ from call to call. So
-//     each block sums one 256-row chunk into its own 64 x 64 partial, and
-//     a second kernel adds the chunks in a fixed order: two calls on the
-//     same inputs give the same bits. g_b takes the same route. The only
-//     atomics are integer counts of in-degrees, whose result has no order.
-// It does not reach the floor: plain FMA from shared memory, four launches
-// a layer, g_mW round-trips device memory (it stays in the 50 MB L2 at the
-// training shape), and every column slice of a bin rebuilds the bit rows.
+// encoder's ends add about 3 * R * d); the bytes (h0 or nf and ef, the stash,
+// W, the cotangents read once; the gradients written once) take about a
+// fifth as long at the training shape. So it is bound by operations, nearly
+// all of them in the two products. The design (kernel names carry the
+// stage, bwd_):
+//   - bwd_prep_kernel, once a call: the bit rows of A^T of every bin (and
+//     the mean's 1 / max(indeg, 1), the scatter's scales, the gather's node
+//     bit rows), which every layer and column slice reads, and a row-major
+//     copy of each layer's W^T, so that each product reads row-major
+//     operands only;
+//   - bwd_adjoint_kernel on a (bin, 64-column) grid of 1,024-thread blocks:
+//     the block stages its bin's g slice in shared memory and walks the set
+//     bits of A^T's rows, so the operator costs operations only where it is
+//     nonzero; it also sums g over the bin's rows for g_b's per-bin partial.
+//     A walk is a chain of dependent shared-memory loads, so a block has
+//     many threads, each with few rows (at 256 threads the adjoint and the
+//     gather's VJP took twice as long);
+//   - bwd_gemm_kernel, one grid of jobs: relu(h_in)^T g_mW split over fixed
+//     chunks of kChunkRows rows (M = N = d, K = R), then g_mW W^T over all R
+//     rows (M = R, N = K = d) with the ReLU mask and the residual in the
+//     epilogue. Each job is a 64 x 64 tile of 128 threads, 8 x 4 outputs a
+//     thread, k-slabs of 16 of both operands staged in shared memory in two
+//     stages (the pattern of gvp_conv.cu's products). A chunk of 256 rows
+//     makes every job as long as an input-gradient job (K = d at d = 256):
+//     chunks of 1,024 rows left the long jobs to finish alone, 0.36 ms for
+//     row 6 against 0.29 (H100, 700 W). Exact f32 FMA, no TF32.
+//   - The chunks of g_W are added in ascending chunk order, and g_b's bins in
+//     ascending bin order, by the last block to finish each 64 x 64 tile of
+//     g_W (an integer arrival count, zeroed by the layer's adjoint): the
+//     order of every sum is fixed, not the order of arrival, so two calls on
+//     the same inputs give the same bits. No float atomics: the only atomics
+//     are the integer arrival counts and in-degrees.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kCols = 64;         // output columns per block
-constexpr int kKTile = 32;        // k depth of one staged tile
-constexpr int kThreads = 256;
+constexpr int kCols = 64;         // output columns per adjoint block; the g_W tile
+constexpr int kThreads = 256;     // the prep blocks
+constexpr int kSliceThreads = 1024;  // the adjoint and node-gradient blocks
 constexpr int kMaxEdges = 256;    // edge lanes per bin this kernel takes
 constexpr int kMaxNodes = 256;    // node slots per bin the encoder's ends take
-constexpr int kChunkRows = 256;   // rows of the B * E sum per weight-gradient partial
-constexpr int kWStride = kCols + 4;  // padded row of the transposed W tile
+constexpr int kChunkRows = 256;   // rows of the R-row sum per weight-gradient partial
+constexpr int kTT = 32;           // the side of a transposed tile of W
+constexpr int kMaxWords = kMaxEdges / 32;  // of a bit row
 
-// The pointers and sizes of one layer's launches. The kernels take the
-// pointers they use as __restrict__ parameters: no two of them alias, so the
-// compiler may load the read-only ones through the non-coherent path.
-struct BwdArgs {
-  const float* h_in;     // [B, E, d] the layer's input; ef when recomputing h0
-  const float* g;        // [B, E, d] cotangent of the layer's output
-  float* g_in;           // [B, E, d] cotangent of its input
-  float* g_mw;           // scratch [B, E, d]
-  float* gw_part;        // scratch [chunks, d, d]
-  float* gb_part;        // scratch [chunks, d]
-  float* gw;             // [d, d]
-  float* gb;             // [d]
-  const int* src;        // [B, E]
-  const int* dst;        // [B, E]
-  const uint8_t* emask;  // [B, E]
-  const float* W;        // [d, d], [in, out]
-  // the encoder's ends
-  const float* nf;       // [B, V, d] node features (recompute)
-  const float* ge;       // [B, E, d] cotangent of the edge hiddens (prologue)
-  const float* gn;       // [B, V, d] cotangent of the node hiddens (prologue)
-  float* g_nf;           // [B, V, d] (epilogue)
-  int E, V, d, residual, mean;
-};
+// ---- once a call: A^T's bit rows, the scales, W^T --------------------------
 
-// ---- g_mW = A^T g (with the prologue: g = ge + S^T gn first) ---------------
-
-__host__ inline size_t adjoint_smem_bytes(int E, int V, bool prologue) {
-  return sizeof(float) * ((size_t)E * kCols + E)        // g slice, 1 / max(indeg, 1)
-         + sizeof(uint32_t) * (size_t)E * adj_words(E)  // bit rows of A^T
-         + sizeof(int) * 3 * (size_t)E                  // src, dst, emask
-         + (prologue ? sizeof(int) * (size_t)V : 0);    // node in-degrees
-}
-
-// Grid (bin, 64-column slice of d). Row e' of A^T has bit e set where
-// A[e, e'] has a keep entry: emask[e'] && src[e] == dst[e'] (and, for sum,
-// e != rev(e')). Mean scales each term by 1 / max(indeg(e), 1) and
-// subtracts g[rev(e')], the rev diagonal of A, on every row.
-template <bool kPrologue>
+// Blocks [0, B): bin b's bit rows of A^T (row e' has bit e set where A[e, e']
+// has a keep entry: emask[e'] && src[e] == dst[e'], and, for sum, e !=
+// rev(e')), into adj[b, e', words]; for mean inv[b, e] = 1 / max(indeg(e),
+// 1); for the encoder scat[b, e], the scale of the scatter's VJP on edge e
+// (0 for a masked edge or a dst outside [0, V)), and the gather's node bit
+// rows node_bits[b, v, words]. Blocks from B on: a kTT x kTT tile of one
+// layer's W into wt = W^T ([depth, out, in]).
 __global__ void __launch_bounds__(kThreads)
-adjoint_kernel(const float* __restrict__ g, const float* __restrict__ ge,
-               const float* __restrict__ gn, float* __restrict__ g_full,
-               float* __restrict__ g_mw, const int* __restrict__ src, const int* __restrict__ dst,
-               const uint8_t* __restrict__ emask, int E, int V, int d, int mean) {
-  extern __shared__ float4 smem4[];
-  const int words = adj_words(E);
-  float* gs = reinterpret_cast<float*>(smem4);                // [E][kCols]
-  float* inv = gs + (size_t)E * kCols;                        // [E]
-  uint32_t* adj = reinterpret_cast<uint32_t*>(inv + E);       // [E][words]
-  int* src_s = reinterpret_cast<int*>(adj + (size_t)E * words);
-  int* dst_s = src_s + E;
-  int* ok_s = dst_s + E;
-  int* cnt = ok_s + E;                                        // [V] (prologue)
-
-  const int b = blockIdx.x;
-  const int c0 = blockIdx.y * kCols;
+bwd_prep_kernel(const float* __restrict__ W, float* __restrict__ wt, const int* __restrict__ src,
+                const int* __restrict__ dst, const uint8_t* __restrict__ emask,
+                uint32_t* __restrict__ adj, float* __restrict__ inv, float* __restrict__ scat,
+                uint32_t* __restrict__ node_bits, int B, int E, int V, int d, int mean) {
+  __shared__ int src_s[kMaxEdges], dst_s[kMaxEdges], ok_s[kMaxEdges], cnt[kMaxNodes];
+  __shared__ float tile[kTT][kTT + 1];
   const int tid = threadIdx.x;
+  if ((int)blockIdx.x >= B) {
+    const int t = d / kTT;
+    const int j = blockIdx.x - B, l = j / (t * t), tr = j % (t * t) / t, tc = j % t;
+    const float* w = W + (size_t)l * d * d;
+    float* o = wt + (size_t)l * d * d;
+    const int x = tid % kTT;
+    for (int y = tid / kTT; y < kTT; y += kThreads / kTT)
+      tile[y][x] = w[(size_t)(tr * kTT + y) * d + tc * kTT + x];
+    __syncthreads();
+    for (int y = tid / kTT; y < kTT; y += kThreads / kTT)
+      o[(size_t)(tc * kTT + y) * d + tr * kTT + x] = tile[x][y];
+    return;
+  }
+  const int b = blockIdx.x;
   const size_t bin_off = (size_t)b * E;
-
+  const int words = adj_words(E);
   for (int e = tid; e < E; e += kThreads) {
     src_s[e] = src[bin_off + e];
     dst_s[e] = dst[bin_off + e];
     ok_s[e] = emask[bin_off + e] != 0;
   }
-  constexpr int kVecs = kCols / 4;
-  if constexpr (kPrologue) {
-    if (mean) {
-      for (int v = tid; v < V; v += kThreads) cnt[v] = 0;
-      __syncthreads();
-      for (int e = tid; e < E; e += kThreads) {
-        const int v = dst_s[e];
-        if (ok_s[e] && v >= 0 && v < V) atomicAdd(&cnt[v], 1);
-      }
+  if (scat && mean)
+    for (int v = tid; v < V; v += kThreads) cnt[v] = 0;
+  __syncthreads();
+  if (scat && mean) {
+    for (int e = tid; e < E; e += kThreads) {
+      const int v = dst_s[e];
+      if (ok_s[e] && v >= 0 && v < V) atomicAdd(&cnt[v], 1);
     }
     __syncthreads();
-    for (int i = tid; i < E * kVecs; i += kThreads) {
-      const int e = i / kVecs, q = i % kVecs;
-      const size_t off = (bin_off + e) * d + c0;
-      float4 v = reinterpret_cast<const float4*>(ge + off)[q];
-      const int node = dst_s[e];
-      if (ok_s[e] && node >= 0 && node < V) {
-        float4 n = reinterpret_cast<const float4*>(gn + ((size_t)b * V + node) * d + c0)[q];
-        if (mean) {
-          const float sc = 1.f / fmaxf((float)cnt[node], 1.f);
-          n = make_float4(n.x * sc, n.y * sc, n.z * sc, n.w * sc);
-        }
-        v = add4(v, n);
-      }
-      reinterpret_cast<float4*>(gs + (size_t)e * kCols)[q] = v;
-      reinterpret_cast<float4*>(g_full + off)[q] = v;
-    }
-  } else {
-    for (int i = tid; i < E * kVecs; i += kThreads) {
-      const int e = i / kVecs, q = i % kVecs;
-      reinterpret_cast<float4*>(gs + (size_t)e * kCols)[q] =
-          reinterpret_cast<const float4*>(g + (bin_off + e) * d + c0)[q];
-    }
   }
-  __syncthreads();
-
   for (int i = tid; i < E * words; i += kThreads) {
     const int e2 = i / words;
     const int base = (i % words) * 32;
@@ -192,127 +155,9 @@ adjoint_kernel(const float* __restrict__ g, const float* __restrict__ ge,
         if (e < E && src_s[e] == de2 && (mean || e != rev)) bits |= 1u << t;
       }
     }
-    adj[i] = bits;
+    adj[bin_off * words + i] = bits;
   }
-  if (mean) {
-    for (int e = tid; e < E; e += kThreads) {
-      const int se = src_s[e];
-      int deg = 0;
-      for (int e2 = 0; e2 < E; ++e2) deg += ok_s[e2] && dst_s[e2] == se;
-      inv[e] = 1.f / fmaxf((float)deg, 1.f);
-    }
-  }
-  __syncthreads();
-
-  const int c = tid % kCols;
-  for (int e2 = tid / kCols; e2 < E; e2 += kThreads / kCols) {
-    const uint32_t* row = adj + (size_t)e2 * words;
-    float s = 0.f;
-    for (int w = 0; w < words; ++w) {
-      uint32_t bits = row[w];
-      while (bits) {
-        const int e = w * 32 + __ffs(bits) - 1;
-        bits &= bits - 1u;
-        s += mean ? gs[e * kCols + c] * inv[e] : gs[e * kCols + c];
-      }
-    }
-    if (mean) s -= gs[(e2 ^ 1) * kCols + c];
-    g_mw[(bin_off + e2) * d + c0 + c] = s;
-  }
-}
-
-// ---- g_in = [h_in > 0] * (g_mW @ W^T) (+ g) ---------------------------------
-
-__host__ inline size_t input_grad_smem_bytes(int E, int V, bool epilogue) {
-  size_t floats = (size_t)kKTile * kWStride          // W^T tile (first: 16-byte aligned)
-                  + (size_t)E * (kKTile + 1);        // g_mW tile, padded rows
-  size_t words = 0;
-  if (epilogue) {
-    floats += (size_t)E * kCols;                     // the output slice (after the W^T tile)
-    words += (size_t)E + (size_t)V * adj_words(E);   // src; node bit rows
-  }
-  return sizeof(float) * floats + sizeof(uint32_t) * words;
-}
-
-// One thread's share of a k-tile in registers: R / 2 vectors of g_mW (a
-// block covers 16 * R rows of 8 vectors) and 2 of W (64 rows of 8 vectors).
-template <int R>
-struct TileRegs {
-  float4 a[R / 2];
-  float4 w[2];
-};
-
-template <int R>
-__device__ inline void load_tile(TileRegs<R>& t, const float* gb, const float* W, int E, int d,
-                                 int c0, int k0, int tid) {
-#pragma unroll
-  for (int i = 0; i < R / 2; ++i) {
-    const int idx = tid + kThreads * i, e = idx >> 3, q = idx & 7;
-    t.a[i] = e < E ? reinterpret_cast<const float4*>(gb + (size_t)e * d + k0)[q]
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = tid + kThreads * i, c = idx >> 3, q = idx & 7;
-    t.w[i] = reinterpret_cast<const float4*>(W + (size_t)(c0 + c) * d + k0)[q];
-  }
-}
-
-template <int R>
-__device__ inline void store_tile(const TileRegs<R>& t, float* as, float* ws, int E, int tid) {
-#pragma unroll
-  for (int i = 0; i < R / 2; ++i) {
-    const int idx = tid + kThreads * i, e = idx >> 3, q = idx & 7;
-    if (e < E) {
-      float* row = as + e * (kKTile + 1) + 4 * q;
-      row[0] = t.a[i].x;
-      row[1] = t.a[i].y;
-      row[2] = t.a[i].z;
-      row[3] = t.a[i].w;
-    }
-  }
-  // W[c0 + c][k0 + 4q .. 4q + 3] goes to ws[4q .. 4q + 3][c]: W^T's tile
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = tid + kThreads * i, c = idx >> 3, q = idx & 7;
-    ws[(4 * q + 0) * kWStride + c] = t.w[i].x;
-    ws[(4 * q + 1) * kWStride + c] = t.w[i].y;
-    ws[(4 * q + 2) * kWStride + c] = t.w[i].z;
-    ws[(4 * q + 3) * kWStride + c] = t.w[i].w;
-  }
-}
-
-// Grid (bin, 64-column slice of d); thread (tx, ty) owns columns
-// 4tx..4tx+3 of rows ty + 16r. kEnc: layer 0 of the encoder (h0 recomputed
-// for the ReLU mask, then the gather's VJP into g_nf).
-template <int R, bool kEnc>
-__global__ void __launch_bounds__(kThreads)
-input_grad_kernel(const float* __restrict__ g_mw, const float* __restrict__ W,
-                  const float* __restrict__ h_in, const float* __restrict__ nf,
-                  const int* __restrict__ src, const float* __restrict__ g,
-                  float* __restrict__ g_in, float* __restrict__ g_nf, int E, int V, int d,
-                  int residual) {
-  extern __shared__ float4 smem4[];
-  const int words = adj_words(E);
-  float* ws = reinterpret_cast<float*>(smem4);   // [kKTile][kWStride]
-  float* outs = ws + kKTile * kWStride;          // [E][kCols] (kEnc)
-  float* as = outs + (kEnc ? (size_t)E * kCols : 0);  // [E][kKTile + 1]
-  int* src_s = reinterpret_cast<int*>(as + (size_t)E * (kKTile + 1));  // [E] (kEnc)
-  uint32_t* node_bits = reinterpret_cast<uint32_t*>(src_s + E);        // [V][words] (kEnc)
-
-  const int b = blockIdx.x;
-  const int c0 = blockIdx.y * kCols;
-  const int tid = threadIdx.x;
-  const size_t bin_off = (size_t)b * E;
-  const float* gb = g_mw + bin_off * d;
-
-  TileRegs<R> tile;
-  load_tile<R>(tile, gb, W, E, d, c0, 0, tid);
-
-  if constexpr (kEnc) {
-    // bit e of node row v: src[e] == v (unmasked, as the gather reads)
-    for (int e = tid; e < E; e += kThreads) src_s[e] = src[bin_off + e];
-    __syncthreads();
+  if (node_bits) {  // bit e of node row v: src[e] == v (unmasked, as the gather reads)
     for (int i = tid; i < V * words; i += kThreads) {
       const int v = i / words;
       const int base = (i % words) * 32;
@@ -321,206 +166,441 @@ input_grad_kernel(const float* __restrict__ g_mw, const float* __restrict__ W,
         const int e = base + t;
         if (e < E && src_s[e] == v) bits |= 1u << t;
       }
-      node_bits[i] = bits;
+      node_bits[(size_t)b * V * words + i] = bits;
     }
   }
-
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  float acc[R][4];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += kKTile) {
-    __syncthreads();  // the previous tiles are consumed
-    store_tile<R>(tile, as, ws, E, tid);
-    __syncthreads();
-    if (k0 + kKTile < d) load_tile<R>(tile, gb, W, E, d, c0, k0 + kKTile, tid);
-#pragma unroll 4
-    for (int k = 0; k < kKTile; ++k) {
-      const float4 bv = reinterpret_cast<const float4*>(ws + k * kWStride)[tx];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int e = ty + 16 * r;
-        const float av = e < E ? as[e * (kKTile + 1) + k] : 0.f;
-        acc[r][0] = fmaf(av, bv.x, acc[r][0]);
-        acc[r][1] = fmaf(av, bv.y, acc[r][1]);
-        acc[r][2] = fmaf(av, bv.z, acc[r][2]);
-        acc[r][3] = fmaf(av, bv.w, acc[r][3]);
-      }
+  for (int e = tid; e < E; e += kThreads) {
+    if (mean) {
+      const int se = src_s[e];
+      int deg = 0;
+      for (int e2 = 0; e2 < E; ++e2) deg += ok_s[e2] && dst_s[e2] == se;
+      inv[bin_off + e] = 1.f / fmaxf((float)deg, 1.f);
     }
-  }
-
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int e = ty + 16 * r;
-    if (e >= E) continue;
-    const size_t off = (bin_off + e) * d + c0 + 4 * tx;
-    const float4 h = input_vec<kEnc>(h_in, nf, src, bin_off + e, b, V, d, c0, tx);
-    float4 o = make_float4(acc[r][0] * (h.x > 0.f ? 1.f : 0.f), acc[r][1] * (h.y > 0.f ? 1.f : 0.f),
-                           acc[r][2] * (h.z > 0.f ? 1.f : 0.f), acc[r][3] * (h.w > 0.f ? 1.f : 0.f));
-    if (residual) o = add4(o, *reinterpret_cast<const float4*>(g + off));
-    *reinterpret_cast<float4*>(g_in + off) = o;
-    if constexpr (kEnc) reinterpret_cast<float4*>(outs + (size_t)e * kCols)[tx] = o;
-  }
-
-  if constexpr (kEnc) {
-    // g_nf[b, v, c] = sum over node v's set bits of g_h0[e, c], ascending e
-    __syncthreads();
-    const int c = tid % kCols;
-    for (int v = tid / kCols; v < V; v += kThreads / kCols) {
-      const uint32_t* row = node_bits + (size_t)v * words;
-      float s = 0.f;
-      for (int w = 0; w < words; ++w) {
-        uint32_t bits = row[w];
-        while (bits) {
-          const int e = w * 32 + __ffs(bits) - 1;
-          bits &= bits - 1u;
-          s += outs[e * kCols + c];
-        }
-      }
-      g_nf[((size_t)b * V + v) * d + c0 + c] = s;
+    if (scat) {
+      const int v = dst_s[e];
+      const bool live = ok_s[e] && v >= 0 && v < V;
+      scat[bin_off + e] = !live ? 0.f : mean ? 1.f / fmaxf((float)cnt[v], 1.f) : 1.f;
     }
   }
 }
 
-// ---- g_W = relu(h_in)^T g_mW and g_b = sum g, in fixed-order chunks ----------
+// ---- per layer: g_mW = A^T g and g_b's per-bin partial ----------------------
 
-// Grid (chunk of kChunkRows rows, 64-row tile of g_W, 64-column tile of
-// g_W). Thread (tx, ty) owns g_W rows 4ty..4ty+3 and columns 4tx..4tx+3 of
-// the block's tile. The blocks of the first row tile also sum g over the
-// chunk for g_b. kGather: the layer input is h0, recomputed from nf and ef.
-template <bool kGather>
-__global__ void __launch_bounds__(kThreads)
-weight_grad_partial_kernel(const float* __restrict__ h_in, const float* __restrict__ nf,
-                           const int* __restrict__ src, const float* __restrict__ g_mw,
-                           const float* __restrict__ g, float* __restrict__ gw_part,
-                           float* __restrict__ gb_part, int rows, int E, int V, int d) {
-  __shared__ float4 ms4[kKTile * kCols / 4];   // relu(h_in) rows x g_W rows
-  __shared__ float4 gs4[kKTile * kCols / 4];   // g_mW rows x g_W columns
-  __shared__ float red[kThreads / kCols][kCols];
-  float* ms = reinterpret_cast<float*>(ms4);
-  float* gs = reinterpret_cast<float*>(gs4);
+__host__ inline size_t adjoint_smem_bytes(int E) {
+  return sizeof(float) * ((size_t)E * kCols + E)          // g slice, 1 / max(indeg, 1)
+         + sizeof(uint32_t) * (size_t)E * adj_words(E);   // bit rows of A^T
+}
 
-  const int chunk = blockIdx.x;
-  const int i0 = blockIdx.y * kCols;
-  const int j0 = blockIdx.z * kCols;
+constexpr int kVecs = kCols / 4;                           // 16-byte vectors of a slice row
+constexpr int kSliceVecs = kMaxEdges * kVecs / kSliceThreads;  // of a bin's slice, a thread at most
+
+// The 16-byte vectors (e, q) of a bin's slice (rows e < E, vectors q <
+// kVecs of 64 columns): store(e, q, load(e, q)) for each, every thread's
+// loads in flight before it stores the first.
+template <typename Load, typename Store>
+__device__ inline void copy_slice(int E, const Load& load, const Store& store) {
+  float4 v[kSliceVecs];
+#pragma unroll
+  for (int t = 0; t < kSliceVecs; ++t) {
+    const int i = threadIdx.x + t * kSliceThreads;
+    if (i < E * kVecs) v[t] = load(i / kVecs, i % kVecs);
+  }
+#pragma unroll
+  for (int t = 0; t < kSliceVecs; ++t) {
+    const int i = threadIdx.x + t * kSliceThreads;
+    if (i < E * kVecs) store(i / kVecs, i % kVecs, v[t]);
+  }
+}
+
+// ... into gs[E][kCols]
+template <typename Load>
+__device__ inline void stage_slice(float* gs, int E, const Load& load) {
+  copy_slice(E, load, [&](int e, int q, float4 v) { reinterpret_cast<float4*>(gs + (size_t)e * kCols)[q] = v; });
+}
+
+// The sum over the set bits e of a bit row of `words` words, in ascending e,
+// of term(e); the row's words are loaded together.
+template <typename Term>
+__device__ inline float walk_bits(const uint32_t* row, int words, const Term& term) {
+  uint32_t wb[kMaxWords];
+#pragma unroll
+  for (int w = 0; w < kMaxWords; ++w) wb[w] = w < words ? row[w] : 0u;
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kMaxWords; ++w) {
+    uint32_t bits = wb[w];
+    while (bits) {
+      const int e = w * 32 + __ffs(bits) - 1;
+      bits &= bits - 1u;
+      s += term(e);
+    }
+  }
+  return s;
+}
+
+// Grid (bin, 64-column slice of d), kSliceThreads a block. With kPrologue the layer's cotangent is
+// g = ge + scat * gn[dst], staged and written to g_full. Mean scales each
+// term by 1 / max(indeg(e), 1) and subtracts g[rev(e')], the rev diagonal
+// of A, on every row. gb_part[b, c] = sum over the bin's rows of g[., c].
+// With h0 non-null (layer 0 of the encoder) the block also writes its slice
+// of the layer's input, h0 = nf[src] + ef, recomputed for the products.
+// Block (0, 0) zeroes the layer's products' arrival counts.
+template <bool kPrologue>
+__global__ void __launch_bounds__(kSliceThreads)
+bwd_adjoint_kernel(const float* __restrict__ g, const float* __restrict__ ge,
+                   const float* __restrict__ gn, const float* __restrict__ scat,
+                   const int* __restrict__ dst, float* __restrict__ g_full,
+                   float* __restrict__ g_mw, float* __restrict__ gb_part,
+                   const uint32_t* __restrict__ adj_g, const float* __restrict__ inv_g,
+                   const float* __restrict__ ef, const float* __restrict__ nf,
+                   const int* __restrict__ src, float* __restrict__ h0, int* __restrict__ counts,
+                   int n_counts, int E, int V, int d, int mean) {
+  extern __shared__ float4 smem4[];
+  __shared__ float red[kSliceThreads / kCols][kCols];
+  const int words = adj_words(E);
+  float* gs = reinterpret_cast<float*>(smem4);                // [E][kCols]
+  float* inv = gs + (size_t)E * kCols;                        // [E]
+  uint32_t* adj = reinterpret_cast<uint32_t*>(inv + E);       // [E][words]
+
+  const int b = blockIdx.x;
+  const int c0 = blockIdx.y * kCols;
   const int tid = threadIdx.x;
-  const int r_begin = chunk * kChunkRows;
-  const int r_end = min(r_begin + kChunkRows, rows);
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const size_t bin_off = (size_t)b * E;
+  if (b == 0 && blockIdx.y == 0)
+    for (int i = tid; i < n_counts; i += kSliceThreads) counts[i] = 0;
 
-  float acc[4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+  for (int t = 0; t < kMaxEdges * kMaxWords / kSliceThreads; ++t) {
+    const int i = tid + t * kSliceThreads;
+    if (i < E * words) adj[i] = adj_g[bin_off * words + i];
+  }
+  if (mean)
+    for (int e = tid; e < E; e += kSliceThreads) inv[e] = inv_g[bin_off + e];
+  if constexpr (kPrologue) {
+    stage_slice(gs, E, [&](int e, int q) {
+      const size_t off = (bin_off + e) * d + c0;
+      float4 v = reinterpret_cast<const float4*>(ge + off)[q];
+      const float sc = scat[bin_off + e];
+      if (sc != 0.f) {
+        float4 n = reinterpret_cast<const float4*>(gn + ((size_t)b * V + dst[bin_off + e]) * d + c0)[q];
+        if (mean) n = make_float4(n.x * sc, n.y * sc, n.z * sc, n.w * sc);
+        v = add4(v, n);
+      }
+      return v;
+    });
+  } else {
+    stage_slice(gs, E, [&](int e, int q) {
+      return reinterpret_cast<const float4*>(g + (bin_off + e) * d + c0)[q];
+    });
+  }
+  if (h0)
+    copy_slice(
+        E, [&](int e, int q) { return input_vec<true>(ef, nf, src, bin_off + e, b, V, d, c0, q); },
+        [&](int e, int q, float4 v) { reinterpret_cast<float4*>(h0 + (bin_off + e) * d + c0)[q] = v; });
+  __syncthreads();
+  if constexpr (kPrologue) {
+    for (int i = tid; i < E * kVecs; i += kSliceThreads)
+      reinterpret_cast<float4*>(g_full + (bin_off + i / kVecs) * d + c0)[i % kVecs] =
+          reinterpret_cast<const float4*>(gs + (size_t)(i / kVecs) * kCols)[i % kVecs];
+  }
 
-  // two 16-byte vectors of each operand per thread per 32-row tile
-  float4 mv[2], gv[2];
-  auto load = [&](int r0) {
+  const int c = tid % kCols, phase = tid / kCols;
+  constexpr int kPhases = kSliceThreads / kCols;
+  float sum = 0.f;  // g_b: rows phase, phase + kPhases, ... then the phases in order
+  for (int e2 = phase; e2 < E; e2 += kPhases) {
+    float s = walk_bits(adj + (size_t)e2 * words, words,
+                        [&](int e) { return mean ? gs[e * kCols + c] * inv[e] : gs[e * kCols + c]; });
+    if (mean) s -= gs[(e2 ^ 1) * kCols + c];
+    g_mw[(bin_off + e2) * d + c0 + c] = s;
+    sum += gs[e2 * kCols + c];
+  }
+  red[phase][c] = sum;
+  __syncthreads();
+  if (tid < kCols) {
+    float t = red[0][tid];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + kThreads * i, r = r0 + (idx >> 4), q = idx & 15;
-      const bool in = r < r_end;
-      mv[i] = in ? input_vec<kGather>(h_in, nf, src, r, r / E, V, d, i0, q)
+    for (int p = 1; p < kPhases; ++p) t += red[p][tid];
+    gb_part[(size_t)b * d + c0 + tid] = t;
+  }
+}
+
+// ---- per layer: the two W-sized products ------------------------------------
+
+// A 64 x 64 tile of C = A B over k in [k0, k1): 128 threads, thread (ty, tx)
+// owns rows 8 ty .. 8 ty + 7 and columns 4 tx .. 4 tx + 3. Both operands'
+// k-slabs land k-major in shared memory ([kBK][kLd]); each thread loads its
+// share of the next slab into registers while the block computes on this
+// one, then stores it, one barrier a slab. Each output's sum runs over k in
+// ascending order by fmaf.
+constexpr int kBM = 64, kBN = 64, kBK = 16, kTM = 8, kTN = 4;
+constexpr int kGemmThreads = (kBM / kTM) * (kBN / kTN);
+constexpr int kLd = kBM + 4;
+constexpr int kSlab = kBK * kLd;  // floats of one operand's slab
+constexpr int kGroups = kBM * kBK / 4 / kGemmThreads;  // 16-byte groups a thread loads of each
+static_assert(kBM == kBN && kBN == kCols && kGroups == 2, "tile shape");
+
+// The operands of the two products; the A loaders fill As[k][m], the B
+// loader Bs[k][n], one 16-byte group g < kBM * kBK / 4 at a time.
+struct Operands {
+  const float* g_mw;  // [R, d]
+  const float* wt;    // [d, d] W^T, row-major: [out, in]
+  const float* h_in;  // [R, d] the layer input
+  int R, d;
+};
+
+// g_mW W^T: A = g_mW rows m0.. along k, stored transposed
+__device__ inline float4 load_a_rows(const Operands& o, int m0, int k0, int g) {
+  const int m = m0 + g / (kBK / 4), k = k0 + g % (kBK / 4) * 4;
+  return m < o.R ? *reinterpret_cast<const float4*>(o.g_mw + (size_t)m * o.d + k)
                  : make_float4(0.f, 0.f, 0.f, 0.f);
-      gv[i] = in ? reinterpret_cast<const float4*>(g_mw + (size_t)r * d + j0)[q]
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ inline void store_a_rows(float* As, int g, float4 x) {
+  float* s = As + g % (kBK / 4) * 4 * kLd + g / (kBK / 4);
+  s[0] = x.x;
+  s[kLd] = x.y;
+  s[2 * kLd] = x.z;
+  s[3 * kLd] = x.w;
+}
+// relu(h_in)^T g_mW: A = relu(layer input) rows k0.. (the sum's rows) along m
+__device__ inline float4 load_a_cols(const Operands& o, int m0, int k0, int k1, int g) {
+  const int r = k0 + g / (kBM / 4), m = m0 + g % (kBM / 4) * 4;
+  if (r >= k1) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 v = *reinterpret_cast<const float4*>(o.h_in + (size_t)r * o.d + m);
+  return make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
+}
+// B: rows k0.. of a row-major [rows, d] operand along n (W^T, or g_mW)
+__device__ inline float4 load_b(const float* p, int d, int n0, int k0, int k1, int g) {
+  const int k = k0 + g / (kBN / 4), n = n0 + g % (kBN / 4) * 4;
+  return k < k1 ? *reinterpret_cast<const float4*>(p + (size_t)k * d + n) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+__device__ inline void store_k_major(float* S, int g, float4 x) {
+  *reinterpret_cast<float4*>(S + g / (kBM / 4) * kLd + g % (kBM / 4) * 4) = x;
+}
+
+__device__ inline void tile_compute(const float* As, const float* Bs, float (&acc)[kTM][kTN]) {
+  const int ty = threadIdx.x / (kBN / kTN), tx = threadIdx.x % (kBN / kTN);
+#pragma unroll
+  for (int kk = 0; kk < kBK; ++kk) {
+    const float4 bv = *reinterpret_cast<const float4*>(Bs + kk * kLd + tx * kTN);
+    const float4 a0 = *reinterpret_cast<const float4*>(As + kk * kLd + ty * kTM);
+    const float4 a1 = *reinterpret_cast<const float4*>(As + kk * kLd + ty * kTM + 4);
+    const float a[kTM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[kTN] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// The k-loop of one tile, kInput: g_mW W^T (k over d), else relu(h)^T g_mW
+// (k over the rows [k0, k1)). S holds two stages of both slabs.
+template <bool kInput>
+__device__ inline void tile_run(const Operands& o, int m0, int n0, int k0, int k1, float* S,
+                                float (&acc)[kTM][kTN]) {
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  float4 ra[kGroups], rb[kGroups];
+  auto load = [&](int k) {
+#pragma unroll
+    for (int t = 0; t < kGroups; ++t) {
+      const int g = threadIdx.x + t * kGemmThreads;
+      if constexpr (kInput) {
+        ra[t] = load_a_rows(o, m0, k, g);
+        rb[t] = load_b(o.wt, o.d, n0, k, k1, g);
+      } else {
+        ra[t] = load_a_cols(o, m0, k, k1, g);
+        rb[t] = load_b(o.g_mw, o.d, n0, k, k1, g);
+      }
     }
   };
-  load(r_begin);
-  for (int r0 = r_begin; r0 < r_end; r0 += kKTile) {
-    __syncthreads();
+  auto store = [&](float* stage) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + kThreads * i;
-      ms4[idx] = make_float4(fmaxf(mv[i].x, 0.f), fmaxf(mv[i].y, 0.f), fmaxf(mv[i].z, 0.f),
-                             fmaxf(mv[i].w, 0.f));
-      gs4[idx] = gv[i];
+    for (int t = 0; t < kGroups; ++t) {
+      const int g = threadIdx.x + t * kGemmThreads;
+      if constexpr (kInput)
+        store_a_rows(stage, g, ra[t]);
+      else
+        store_k_major(stage, g, ra[t]);
+      store_k_major(stage + kSlab, g, rb[t]);
     }
+  };
+  load(k0);
+  store(S);
+  __syncthreads();
+  int s = 0;
+  for (int k = k0; k < k1; k += kBK) {
+    const bool more = k + kBK < k1;
+    if (more) load(k + kBK);
+    tile_compute(S + s * 2 * kSlab, S + s * 2 * kSlab + kSlab, acc);
+    if (more) store(S + (s ^ 1) * 2 * kSlab);
     __syncthreads();
-    if (r0 + kKTile < r_end) load(r0 + kKTile);
+    s ^= 1;
+  }
+}
+
+struct GemmArgs {
+  Operands o;
+  const float* g;        // [R, d] the layer's cotangent (residual)
+  float* g_in;           // [R, d]
+  float* gw_part;        // [chunks, d, d]
+  const float* gb_part;  // [B, d]
+  float* gw;             // [d, d]
+  float* gb;             // [d]
+  int* counts;           // [(d / kBN)^2] arrival counts, zero at launch
+  int B, chunks, w_jobs, residual;
+};
+
+// One grid of jobs: blocks [0, w_jobs) the weight gradient's (tile t =
+// job / chunks, chunk job % chunks), then the input gradient's 64 x 64
+// tiles, row tile by row tile. A weight-gradient block writes its chunk's
+// partial, and the last of a tile's chunks to arrive adds them in ascending
+// chunk order into g_W (and, for the first row of tiles, g_b's per-bin
+// partials in ascending bin order into g_b).
+__global__ void __launch_bounds__(kGemmThreads, 3) bwd_gemm_kernel(const __grid_constant__ GemmArgs a) {
+  __shared__ __align__(16) float S[4 * kSlab];
+  __shared__ int last;
+  const Operands& o = a.o;
+  const int d = o.d, tn = d / kBN;
+  const int ty = threadIdx.x / (kBN / kTN), tx = threadIdx.x % (kBN / kTN);
+  float acc[kTM][kTN];
+
+  if ((int)blockIdx.x >= a.w_jobs) {
+    const int job = blockIdx.x - a.w_jobs;
+    const int m0 = job / tn * kBM, n0 = job % tn * kBN;
+    tile_run<true>(o, m0, n0, 0, d, S, acc);
+    const int n = n0 + tx * kTN;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int r = m0 + ty * kTM + i;
+      if (r >= o.R) break;
+      const size_t off = (size_t)r * d + n;
+      const float4 h = *reinterpret_cast<const float4*>(o.h_in + off);
+      float4 v = make_float4(acc[i][0] * (h.x > 0.f ? 1.f : 0.f), acc[i][1] * (h.y > 0.f ? 1.f : 0.f),
+                             acc[i][2] * (h.z > 0.f ? 1.f : 0.f), acc[i][3] * (h.w > 0.f ? 1.f : 0.f));
+      if (a.residual) v = add4(v, *reinterpret_cast<const float4*>(a.g + off));
+      *reinterpret_cast<float4*>(a.g_in + off) = v;
+    }
+    return;
+  }
+
+  const int tile = blockIdx.x / a.chunks, chunk = blockIdx.x % a.chunks;
+  const int m0 = tile / tn * kBM, n0 = tile % tn * kBN;
+  const int r0 = chunk * kChunkRows, r1 = min(o.R, r0 + kChunkRows);
+  tile_run<false>(o, m0, n0, r0, r1, S, acc);
+  float* part = a.chunks == 1 ? a.gw : a.gw_part + (size_t)chunk * d * d;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+    *reinterpret_cast<float4*>(part + (size_t)(m0 + ty * kTM + i) * d + n0 + tx * kTN) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  // the partial is visible to every block before this one's arrival counts
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&a.counts[tile], 1) == a.chunks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (a.chunks > 1) {  // a chunk's loads of the thread's rows in flight together
+    const float* own = a.gw_part + (size_t)(m0 + ty * kTM) * d + n0 + tx * kTN;
+    float4 s[kTM];
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) s[i] = __ldcg(reinterpret_cast<const float4*>(own + (size_t)i * d));
+    for (int c = 1; c < a.chunks; ++c)
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+        s[i] = add4(s[i], __ldcg(reinterpret_cast<const float4*>(own + ((size_t)c * d + i) * d)));
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+      *reinterpret_cast<float4*>(a.gw + (size_t)(m0 + ty * kTM + i) * d + n0 + tx * kTN) = s[i];
+  }
+  if (m0 == 0 && threadIdx.x < kBN) {
+    const int j = n0 + threadIdx.x;
+    float s = 0.f;
 #pragma unroll 8
-    for (int k = 0; k < kKTile; ++k) {
-      const float4 m = reinterpret_cast<const float4*>(ms + k * kCols)[ty];
-      const float4 q = reinterpret_cast<const float4*>(gs + k * kCols)[tx];
-      const float mr[4] = {m.x, m.y, m.z, m.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(mr[i], q.x, acc[i][0]);
-        acc[i][1] = fmaf(mr[i], q.y, acc[i][1]);
-        acc[i][2] = fmaf(mr[i], q.z, acc[i][2]);
-        acc[i][3] = fmaf(mr[i], q.w, acc[i][3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const size_t off = ((size_t)chunk * d + i0 + 4 * ty + i) * d + j0 + 4 * tx;
-    *reinterpret_cast<float4*>(gw_part + off) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  }
-
-  if (blockIdx.y == 0) {
-    const int c = tid % kCols, phase = tid / kCols;
-    float s = 0.f;
-    for (int r = r_begin + phase; r < r_end; r += kThreads / kCols) s += g[(size_t)r * d + j0 + c];
-    red[phase][c] = s;
-    __syncthreads();
-    if (tid < kCols) {
-      float t = red[0][tid];
-#pragma unroll
-      for (int p = 1; p < kThreads / kCols; ++p) t += red[p][tid];
-      gb_part[(size_t)chunk * d + j0 + tid] = t;
-    }
+    for (int b = 0; b < a.B; ++b) s += a.gb_part[(size_t)b * d + j];
+    a.gb[j] = s;
   }
 }
 
-// out[i] = sum over chunks c = 0, 1, ... of part[c][i], in that order; the
-// first n_w entries are g_W's, the next n_b g_b's.
-__global__ void __launch_bounds__(kThreads)
-reduce_chunks_kernel(const float* __restrict__ gw_part, const float* __restrict__ gb_part,
-                     float* __restrict__ gw, float* __restrict__ gb, int n_w, int n_b,
-                     int chunks) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i < n_w) {
-    float s = 0.f;
-    for (int c = 0; c < chunks; ++c) s += gw_part[(size_t)c * n_w + i];
-    gw[i] = s;
-  } else if (i < n_w + n_b) {
-    const int j = i - n_w;
-    float s = 0.f;
-    for (int c = 0; c < chunks; ++c) s += gb_part[(size_t)c * n_b + j];
-    gb[j] = s;
-  }
+// ---- after layer 0 of the encoder: the gather's VJP -------------------------
+
+__host__ inline size_t node_grad_smem_bytes(int E, int V) {
+  return sizeof(float) * (size_t)E * kCols                   // the g_h0 slice
+         + sizeof(uint32_t) * (size_t)V * adj_words(E);      // node bit rows
 }
+
+// Grid (bin, 64-column slice): g_nf[b, v, c] = sum over node v's set bits
+// (src[e] == v, unmasked, as the gather reads) of g_h0[b, e, c], ascending e.
+__global__ void __launch_bounds__(kSliceThreads)
+bwd_node_grad_kernel(const float* __restrict__ g_h0, const uint32_t* __restrict__ node_bits_g,
+                     float* __restrict__ g_nf, int E, int V, int d) {
+  extern __shared__ float4 smem4[];
+  const int words = adj_words(E);
+  float* outs = reinterpret_cast<float*>(smem4);                                // [E][kCols]
+  uint32_t* node_bits = reinterpret_cast<uint32_t*>(outs + (size_t)E * kCols);  // [V][words]
+  const int b = blockIdx.x;
+  const int c0 = blockIdx.y * kCols;
+  const int tid = threadIdx.x;
+  const size_t bin_off = (size_t)b * E;
+#pragma unroll
+  for (int t = 0; t < kMaxNodes * kMaxWords / kSliceThreads; ++t) {
+    const int i = tid + t * kSliceThreads;
+    if (i < V * words) node_bits[i] = node_bits_g[(size_t)b * V * words + i];
+  }
+  stage_slice(outs, E, [&](int e, int q) {
+    return reinterpret_cast<const float4*>(g_h0 + (bin_off + e) * d + c0)[q];
+  });
+  __syncthreads();
+  const int c = tid % kCols;
+  for (int v = tid / kCols; v < V; v += kSliceThreads / kCols)
+    g_nf[((size_t)b * V + v) * d + c0 + c] =
+        walk_bits(node_bits + (size_t)v * words, words, [&](int e) { return outs[e * kCols + c]; });
+}
+
+// The layer's pointers, as dense_mpnn_bwd_layer takes them.
+struct LayerArgs {
+  const float *h_in, *g;
+  float *g_in, *g_mw, *gw_part, *gb_part;
+  int* counts;
+  float *gw, *gb;
+  const int *src, *dst;
+  const float* wt;
+  const uint32_t *adj, *node_bits;
+  const float *inv, *scat, *nf, *ge, *gn;
+  float *g_full, *h0, *g_nf;
+};
 
 template <bool kPrologue>
-cudaError_t launch_adjoint(const BwdArgs& a, int B, const float* g, float* g_full,
+cudaError_t launch_adjoint(const LayerArgs& p, bool gather, int B, int E, int V, int d, int mean,
                            cudaStream_t s) {
   static uint64_t configured = 0;
-  cudaError_t err = allow_smem((const void*)adjoint_kernel<kPrologue>,
-                               (int)adjoint_smem_bytes(kMaxEdges, kMaxNodes, kPrologue), configured);
+  cudaError_t err = allow_smem((const void*)bwd_adjoint_kernel<kPrologue>,
+                               (int)adjoint_smem_bytes(kMaxEdges), configured);
   if (err != cudaSuccess) return err;
-  adjoint_kernel<kPrologue><<<dim3(B, a.d / kCols), kThreads,
-                              adjoint_smem_bytes(a.E, a.V, kPrologue), s>>>(
-      g, a.ge, a.gn, g_full, a.g_mw, a.src, a.dst, a.emask, a.E, a.V, a.d, a.mean);
+  const int tn = d / kCols;
+  bwd_adjoint_kernel<kPrologue><<<dim3(B, tn), kSliceThreads, adjoint_smem_bytes(E), s>>>(
+      p.g, p.ge, p.gn, p.scat, p.dst, p.g_full, p.g_mw, p.gb_part, p.adj, p.inv, p.h_in, p.nf,
+      p.src, gather ? p.h0 : nullptr, p.counts, tn * tn, E, V, d, mean);
   return cudaGetLastError();
 }
 
-template <int R, bool kEnc>
-cudaError_t launch_input_grad(const BwdArgs& a, int B, const float* g, cudaStream_t s) {
+cudaError_t launch_node_grad(const float* g_h0, const uint32_t* node_bits, float* g_nf, int B, int E,
+                             int V, int d, cudaStream_t s) {
   static uint64_t configured = 0;
-  cudaError_t err = allow_smem((const void*)input_grad_kernel<R, kEnc>,
-                               (int)input_grad_smem_bytes(16 * R, kMaxNodes, kEnc), configured);
+  cudaError_t err = allow_smem((const void*)bwd_node_grad_kernel,
+                               (int)node_grad_smem_bytes(kMaxEdges, kMaxNodes), configured);
   if (err != cudaSuccess) return err;
-  input_grad_kernel<R, kEnc><<<dim3(B, a.d / kCols), kThreads,
-                               input_grad_smem_bytes(a.E, a.V, kEnc), s>>>(
-      a.g_mw, a.W, a.h_in, a.nf, a.src, g, a.g_in, a.g_nf, a.E, a.V, a.d, a.residual);
+  bwd_node_grad_kernel<<<dim3(B, d / kCols), kSliceThreads, node_grad_smem_bytes(E, V), s>>>(
+      g_h0, node_bits, g_nf, E, V, d);
   return cudaGetLastError();
+}
+
+bool misaligned(std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= (uintptr_t)p;
+  return bits % 16 != 0;
 }
 
 }  // namespace
@@ -535,68 +615,75 @@ int dense_mpnn_bwd_cols() { return kCols; }
 
 int dense_mpnn_bwd_chunk_rows() { return kChunkRows; }
 
+// Once a call, before the layers: adj[B, E, ceil(E / 32)] (uint32) the bit
+// rows of A^T, inv[B, E] (read for mean) and, with scat non-null (the
+// encoder), scat[B, E] the scale of the scatter's VJP and node_bits[B, V,
+// ceil(E / 32)] (uint32) the gather's node bit rows; wt[depth, d, d] the
+// transposes of W[depth, d, d]. src/dst[B, E] int32, emask[B, E] bytes.
+// Returns the cudaError_t of the launch (0 on success).
+int dense_mpnn_bwd_prep(const float* W, float* wt, const int* src, const int* dst,
+                        const uint8_t* emask, uint32_t* adj, float* inv, float* scat,
+                        uint32_t* node_bits, int B, int V, int E, int d, int depth, int mean,
+                        void* stream) {
+  if (B <= 0 || E <= 0 || E % 2 != 0 || E > kMaxEdges || d <= 0 || d % kCols != 0 || depth <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (scat && (V <= 0 || V > kMaxNodes || !node_bits)) return (int)cudaErrorInvalidValue;
+  const int t = d / kTT;
+  bwd_prep_kernel<<<B + depth * t * t, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      W, wt, src, dst, emask, adj, inv, scat, scat ? node_bits : nullptr, B, E, V, d, mean);
+  return (int)cudaGetLastError();
+}
+
 // One layer of the reverse sweep. Inputs: h_in[B,E,d] (the layer's input),
-// g[B,E,d] (cotangent of its output), src/dst[B,E] int32, emask[B,E] bytes,
-// W[d,d] ([in, out], row-major). Outputs: g_in[B,E,d] (cotangent of h_in),
-// gw[d,d] and gb[d] (this layer's weight and bias gradients, overwritten).
-// Scratch: g_mw[B,E,d], gw_part[chunks,d,d], gb_part[chunks,d] with chunks
-// = ceil(B * E / dense_mpnn_bwd_chunk_rows()).
+// g[B,E,d] (cotangent of its output), src/dst[B,E] int32, wt[d,d] (this
+// layer's W^T from dense_mpnn_bwd_prep) and the prep's adj, inv, scat,
+// node_bits. Outputs: g_in[B,E,d] (cotangent of h_in), gw[d,d] and gb[d]
+// (this layer's weight and bias gradients, overwritten). Scratch:
+// g_mw[B,E,d], gw_part[chunks,d,d] with chunks = ceil(B * E /
+// dense_mpnn_bwd_chunk_rows()), gb_part[B,d], counts[(d /
+// dense_mpnn_bwd_cols())^2] int32.
 // The encoder's ends: with prologue != 0 (its last layer) g is not read:
 // the layer's cotangent is ge[B,E,d] + S^T gn (gn[B,V,d]), written to
 // g_full[B,E,d]; with gather != 0 (its layer 0) h_in is ef[B,E,d], the
-// layer's input is nf[src] + ef (nf[B,V,d]), and the gather's VJP is
-// written to g_nf[B,V,d]. All pointers are device pointers of contiguous
-// arrays; every float array but gb and gb_part starts 16-byte aligned, and
-// g_in differs from g. The stream is a cudaStream_t. Returns the cudaError_t
-// of the launches (0 on success).
+// layer's input nf[src] + ef (nf[B,V,d]) is recomputed into h0[B,E,d]
+// (scratch), and the gather's VJP is written to g_nf[B,V,d]. All pointers
+// are device pointers of contiguous arrays; every float array but gb starts
+// 16-byte aligned, and g_in differs from g. The stream is a cudaStream_t.
+// Returns the cudaError_t of the launches (0 on success).
 int dense_mpnn_bwd_layer(const float* h_in, const float* g, float* g_in, float* g_mw,
-                         float* gw_part, float* gb_part, float* gw, float* gb, const int* src,
-                         const int* dst, const uint8_t* emask, const float* W, const float* nf,
-                         const float* ge, const float* gn, float* g_full, float* g_nf, int B,
-                         int V, int E, int d, int residual, int mean, int prologue, int gather,
-                         void* stream) {
+                         float* gw_part, float* gb_part, int* counts, float* gw, float* gb,
+                         const int* src, const int* dst, const float* wt, const uint32_t* adj,
+                         const uint32_t* node_bits, const float* inv, const float* scat,
+                         const float* nf, const float* ge, const float* gn, float* g_full,
+                         float* h0, float* g_nf, int B, int V, int E, int d, int residual,
+                         int mean, int prologue, int gather, void* stream) {
   if (B <= 0 || E <= 0 || E % 2 != 0 || E > kMaxEdges || d <= 0 || d % kCols != 0)
     return (int)cudaErrorInvalidValue;
   if ((prologue || gather) && (V <= 0 || V > kMaxNodes)) return (int)cudaErrorInvalidValue;
-  if ((prologue && (!ge || !gn || !g_full)) || (gather && (!nf || !g_nf)))
+  if ((prologue && (!ge || !gn || !g_full || !scat)) ||
+      (gather && (!nf || !g_nf || !h0 || !node_bits)))
     return (int)cudaErrorInvalidValue;
   if (prologue) g = g_full;
-  if (((uintptr_t)h_in | (uintptr_t)g | (uintptr_t)g_in | (uintptr_t)g_mw | (uintptr_t)W |
-       (uintptr_t)gw | (uintptr_t)gw_part | (uintptr_t)nf | (uintptr_t)ge | (uintptr_t)gn |
-       (uintptr_t)g_nf) % 16 != 0)
+  if (misaligned({h_in, g, g_in, g_mw, gw_part, gb_part, gw, wt, nf, ge, gn, g_nf, h0}))
     return (int)cudaErrorMisalignedAddress;
   if (g_in == g) return (int)cudaErrorInvalidValue;
-  const BwdArgs a{h_in, g, g_in, g_mw, gw_part, gb_part, gw, gb, src, dst, emask, W,
-                  nf, ge, gn, g_nf, E, V, d, residual, mean};
+  const LayerArgs p{h_in, g, g_in, g_mw, gw_part, gb_part, counts, gw, gb, src, dst, wt, adj,
+                    node_bits, inv, scat, nf, ge, gn, g_full, h0, g_nf};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  cudaError_t err = prologue ? launch_adjoint<true>(a, B, nullptr, g_full, s)
-                             : launch_adjoint<false>(a, B, g, nullptr, s);
+  cudaError_t err = prologue ? launch_adjoint<true>(p, gather, B, E, V, d, mean, s)
+                             : launch_adjoint<false>(p, gather, B, E, V, d, mean, s);
   if (err != cudaSuccess) return (int)err;
 
-  const int rows = B * E;
-  const int chunks = (rows + kChunkRows - 1) / kChunkRows;
-  const dim3 wgrid(chunks, d / kCols, d / kCols);
-  if (gather)
-    weight_grad_partial_kernel<true><<<wgrid, kThreads, 0, s>>>(h_in, nf, src, g_mw, g, gw_part,
-                                                                 gb_part, rows, E, V, d);
-  else
-    weight_grad_partial_kernel<false><<<wgrid, kThreads, 0, s>>>(h_in, nf, src, g_mw, g, gw_part,
-                                                                  gb_part, rows, E, V, d);
+  const int R = B * E;
+  const int tn = d / kBN;
+  const int chunks = (R + kChunkRows - 1) / kChunkRows;
+  const GemmArgs a{{g_mw, wt, gather ? h0 : h_in, R, d}, g, g_in, gw_part, gb_part, gw, gb,
+                   counts, B, chunks, tn * tn * chunks, residual};
+  bwd_gemm_kernel<<<a.w_jobs + (R + kBM - 1) / kBM * tn, kGemmThreads, 0, s>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int n = d * d + d;
-  reduce_chunks_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      gw_part, gb_part, gw, gb, d * d, d, chunks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  if (E <= 128)
-    err = gather ? launch_input_grad<8, true>(a, B, g, s) : launch_input_grad<8, false>(a, B, g, s);
-  else
-    err = gather ? launch_input_grad<16, true>(a, B, g, s) : launch_input_grad<16, false>(a, B, g, s);
-  return (int)err;
+  if (err != cudaSuccess || !gather) return (int)err;
+  return (int)launch_node_grad(g_in, node_bits, g_nf, B, E, V, d, s);
 }
 
 const char* dense_mpnn_bwd_error_string(int err) {

@@ -336,15 +336,16 @@ def _layer_fns():
 @functools.cache
 def _sweep_fn():
     lib = build.load("dense_mpnn_bwd")
-    fn = lib.dense_mpnn_bwd_layer
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    prep, fn = lib.dense_mpnn_bwd_prep, lib.dense_mpnn_bwd_layer
+    prep.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    prep.restype = fn.restype = ctypes.c_int
     lib.dense_mpnn_bwd_error_string.argtypes = [ctypes.c_int]
     lib.dense_mpnn_bwd_error_string.restype = ctypes.c_char_p
     for name in ("dense_mpnn_bwd_max_edges", "dense_mpnn_bwd_max_nodes", "dense_mpnn_bwd_cols",
                  "dense_mpnn_bwd_chunk_rows"):
         getattr(lib, name).restype = ctypes.c_int
-    return lib, fn
+    return lib, prep, fn
 
 
 def _check_shape_for(max_edges: int, max_nodes: int, cols: int, E: int, V: int, d: int) -> None:
@@ -399,58 +400,74 @@ def _launch_layers(h0, src, dst, edge_mask, weights, biases, outs, residual, mea
 
 def _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual, mean, *,
                   node_feats=None, g_node=None):
-    """The reverse sweep of ``csrc/dense_mpnn_bwd.cu``, last layer first;
-    ``hs[l - 1]`` is the input of layer ``l > 0``. Returns ``(g_h0, g_W,
-    g_b, g_nf)``.
+    """The reverse sweep of ``csrc/dense_mpnn_bwd.cu``: its prep (``A``'s
+    bit rows and ``W``'s transposes) once, then the layers, last layer
+    first; ``hs[l - 1]`` is the input of layer ``l > 0``. Returns ``(g_h0,
+    g_W, g_b, g_nf)``.
 
     The encoder's backward passes ``node_feats`` and ``g_node``: ``h0`` is
     then the edge features, layer 0's input is ``node_feats[src] + h0``
-    (recomputed where it is read, and its gather's VJP is ``g_nf``), and the
+    (recomputed into scratch by layer 0's launch, and its gather's VJP is
+    ``g_nf``), and the
     last layer's cotangent is ``cotangent`` (the edge hiddens') plus the
     scatter's VJP of ``g_node``. Otherwise ``g_nf`` is ``None``."""
     B, E, d = h0.shape
     depth = weights.shape[0]
     encoder = node_feats is not None
     V = node_feats.shape[1] if encoder else 1
-    lib, fn = _sweep_fn()
-    _check_shape_for(lib.dense_mpnn_bwd_max_edges(), lib.dense_mpnn_bwd_max_nodes(),
-                     lib.dense_mpnn_bwd_cols(), E, V, d)
+    lib, prep_fn, fn = _sweep_fn()
+    cols = lib.dense_mpnn_bwd_cols()
+    _check_shape_for(lib.dense_mpnn_bwd_max_edges(), lib.dense_mpnn_bwd_max_nodes(), cols, E, V, d)
     check_aligned(edge_hiddens=h0, hs=hs, cotangent=cotangent, weights=weights,
                    node_feats=node_feats, g_node=g_node)
     chunks = -(-B * E // lib.dense_mpnn_bwd_chunk_rows())
+
+    def check(err: int, what: str) -> None:
+        if err != 0:
+            raise RuntimeError(f"{what} launch failed: {lib.dense_mpnn_bwd_error_string(err).decode()}")
+
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
+        f32 = dict(dtype=torch.float32, device=h0.device)
+        w_t = torch.empty_like(weights)
+        words = -(-E // 32)
+        adj = torch.empty(B, E, words, dtype=torch.int32, device=h0.device)
+        inv = torch.empty(B, E, **f32)
+        # the encoder's ends: the scatter's scales, the gather's node bit
+        # rows, and layer 0's input nf[src] + ef, recomputed
+        scat = torch.empty(B, E, **f32) if encoder else None
+        node_bits = torch.empty(B, V, words, dtype=torch.int32, device=h0.device) if encoder else None
+        h0_full = torch.empty_like(h0) if encoder else None
         g_mw = torch.empty_like(h0)
-        gw_part = torch.empty(chunks, d, d, dtype=torch.float32, device=h0.device)
-        gb_part = torch.empty(chunks, d, dtype=torch.float32, device=h0.device)
+        gw_part = torch.empty(chunks, d, d, **f32)
+        gb_part = torch.empty(B, d, **f32)
+        counts = torch.empty((d // cols) ** 2, dtype=torch.int32, device=h0.device)
         g_W = torch.empty_like(weights)
-        g_b = torch.empty(depth, d, dtype=torch.float32, device=h0.device)
+        g_b = torch.empty(depth, d, **f32)
         g_h0 = torch.empty_like(h0)
         g_nf = torch.empty_like(node_feats) if encoder else None
         # the prologue writes the last layer's full cotangent here
         g_full = torch.empty_like(h0) if encoder else None
         # ping-pong so that layer 0 writes g_h0 and no layer writes its own input
         bufs = [g_h0, torch.empty_like(h0) if depth > 1 else g_h0]
+        check(prep_fn(weights.data_ptr(), w_t.data_ptr(), src.data_ptr(), dst.data_ptr(),
+                      edge_mask.data_ptr(), adj.data_ptr(), inv.data_ptr(), _ptr(scat), _ptr(node_bits),
+                      B, V, E, d, depth, int(mean), stream), "dense_mpnn_bwd_prep")
         g = g_full if encoder else cotangent
         for layer in reversed(range(depth)):
             h_in = h0 if layer == 0 else hs[layer - 1]
             g_in = bufs[layer % 2]
             prologue = encoder and layer == depth - 1
             gather = encoder and layer == 0
-            err = fn(
+            check(fn(
                 h_in.data_ptr(), g.data_ptr(), g_in.data_ptr(), g_mw.data_ptr(),
-                gw_part.data_ptr(), gb_part.data_ptr(), g_W[layer].data_ptr(),
-                g_b[layer].data_ptr(), src.data_ptr(), dst.data_ptr(), edge_mask.data_ptr(),
-                weights[layer].data_ptr(), _ptr(node_feats),
+                gw_part.data_ptr(), gb_part.data_ptr(), counts.data_ptr(), g_W[layer].data_ptr(),
+                g_b[layer].data_ptr(), src.data_ptr(), dst.data_ptr(), w_t[layer].data_ptr(),
+                adj.data_ptr(), _ptr(node_bits), inv.data_ptr(), _ptr(scat), _ptr(node_feats),
                 _ptr(cotangent) if prologue else None, _ptr(g_node) if prologue else None,
-                _ptr(g_full), _ptr(g_nf), B, V, E, d, int(residual), int(mean),
+                _ptr(g_full), _ptr(h0_full), _ptr(g_nf), B, V, E, d, int(residual), int(mean),
                 int(prologue), int(gather), stream,
-            )
-            if err != 0:
-                raise RuntimeError(
-                    f"dense_mpnn_bwd_layer launch failed: "
-                    f"{lib.dense_mpnn_bwd_error_string(err).decode()}"
-                )
+            ), "dense_mpnn_bwd_layer")
             g = g_in
     return g_h0, g_W, g_b, g_nf
 
@@ -555,7 +572,7 @@ def fused_dense_mpnn_block_bwd_stash(
     of :func:`fused_dense_mpnn_block_stash`, with no recompute.
 
     On a CUDA device one call runs the reverse sweep of
-    ``csrc/dense_mpnn_bwd.cu`` (four launches a layer) and adds one to
+    ``csrc/dense_mpnn_bwd.cu`` (a prep launch, then two a layer) and adds one to
     ``fused_dense_mpnn_block_bwd_stash.launches``. At depth 1 there is no
     stash and this is :func:`fused_dense_mpnn_block_bwd` with zero biases
     (its replay is empty), as in the JAX package. CPU tensors take
@@ -702,7 +719,8 @@ def fused_dense_encoder_bwd(
 
     On a CUDA device one call runs the reverse sweep of
     ``csrc/dense_mpnn_bwd.cu`` with the scatter's VJP folded into the last
-    layer's launches and the gather's into layer 0's, and adds one to
+    layer's launches, ``h0``'s recompute into layer 0's and the gather's VJP
+    in a launch after them, and adds one to
     ``fused_dense_encoder_bwd.launches``. CPU tensors take
     :func:`dense_encoder_bwd_reference`.
     """

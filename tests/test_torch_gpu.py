@@ -182,12 +182,13 @@ def test_cuda_backward_rejects_misaligned_cotangent():
         fused_dense_mpnn_block_bwd_stash(h0, hs, src, dst, mask, W, bad, depth=3, n_nodes=72)
 
 
-def _encoder_inputs(V, E, depth, seed=0, d=256):
+def _encoder_inputs(V, E, depth, seed=0, d=256, graphs=None):
     """Seeded inputs of the fused encoder on the card, on the per-molecule
-    dense layout: node and edge features, the index arrays, nonzero biases,
-    and cotangents of both outputs that are nonzero on every lane, padded
-    ones included (the backward must be exact for any cotangent)."""
-    G = pad_graphs_dense([PIPE(s) for s in SMIS], V, E, np_out=True)
+    dense layout (of ``graphs``, default SMIS's): node and edge features,
+    the index arrays, nonzero biases, and cotangents of both outputs that
+    are nonzero on every lane, padded ones included (the backward must be
+    exact for any cotangent)."""
+    G = pad_graphs_dense([PIPE(s) for s in SMIS] if graphs is None else graphs, V, E, np_out=True)
     B = G.src.shape[0]
     rng = np.random.default_rng(seed)
     nf = rng.standard_normal((B, V, d)).astype(np.float32)
@@ -244,6 +245,72 @@ def test_cuda_encoder_rejects_oversized_bins():
     big = torch.zeros(nf.shape[0], 512, 64, device="cuda")
     with pytest.raises(ValueError, match="at most"):
         fused_dense_encoder_fwd(big, ef, src, dst, mask, W, b, depth=1)
+
+
+# The reverse sweep's edge cases (rows 3, 4 and 6): its products run as
+# 64 x 64 tiles over all B * E rows and its weight gradient in chunks of
+# 1,024 rows, so widths of one tile (64) and of an odd count of tiles (320),
+# row counts that fill no tile, slab or chunk (3 bins of 120 lanes: 360 rows;
+# 96 molecules in bins of 120 lanes), the widest bins with mean, and the
+# encoder's widest node slots. Each: (d, block bins' E, block bins kept
+# (None: all), molecules, reduce, residual, encoder V, encoder E).
+SWEEP_CASES = {
+    "d64": (64, 128, None, 32, "sum", True, 32, 64),
+    "d320": (320, 128, None, 32, "mean", False, 32, 64),
+    "three_bins": (256, 120, 3, 32, "sum", True, 40, 60),
+    "ragged_chunks": (256, 120, None, 96, "sum", True, 40, 60),
+    "E256_mean": (256, 256, None, 32, "mean", True, 128, 256),
+    "V256": (256, 256, None, 32, "sum", True, 256, 256),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_cuda_sweep_edge_cases_match_plain_versions(case):
+    """Rows 3, 4 and 6 against their plain versions on every lane
+    (gradients atol 1e-4 x the tensor's largest magnitude, rtol 1e-4), and
+    rows 3 and 6 twice with equal bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    d, E, bins, mols, reduce, residual, enc_V, enc_E = SWEEP_CASES[case]
+    depth = 3
+    graphs = [PIPE(s) for s in (SMIS * 3)[:mols]]
+    G = pack_graphs_dense(graphs, E // 2 + 8, E, np_out=True)
+    keep = slice(None, bins)
+    rng = np.random.default_rng(7)
+    B = G.src[keep].shape[0]
+    h0 = rng.standard_normal((B, E, d)).astype(np.float32)
+    W = (rng.standard_normal((depth, d, d)) / np.sqrt(d)).astype(np.float32)
+    b = (0.1 * rng.standard_normal((depth, d))).astype(np.float32)
+    g = (rng.standard_normal((B, E, d)) * G.edge_mask[keep][..., None]).astype(np.float32)
+    h0, src, dst, mask, W, b, g = (torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                                   for x in (h0, G.src[keep], G.dst[keep], G.edge_mask[keep], W, b, g))
+    assert bins is None or (B == bins and B * E % 64 != 0)
+    kw = dict(depth=depth, n_nodes=E // 2 + 8, residual=residual, reduce=reduce)
+    ref_kw = dict(depth=depth, residual=residual, reduce=reduce)
+    _, hs = fused_dense_mpnn_block_stash(h0, src, dst, mask, W, b, **kw)
+    _, ref_hs = dense_mpnn_block_stash_reference(h0, src, dst, mask, W, b, **ref_kw)
+    ref = dense_mpnn_block_bwd_reference(h0, ref_hs, src, dst, mask, W, g, **ref_kw)
+    first = fused_dense_mpnn_block_bwd_stash(h0, hs, src, dst, mask, W, g, **kw)
+    second = fused_dense_mpnn_block_bwd_stash(h0, hs, src, dst, mask, W, g, **kw)
+    recompute = fused_dense_mpnn_block_bwd(h0, src, dst, mask, W, b, g, **kw)
+    torch.cuda.synchronize()
+    _close_grads(first, ref)
+    _close_grads(recompute, ref)
+    assert all(torch.equal(x, y) for x, y in zip(first, second)), "the stash backward is not repeatable"
+
+    enc_mols = bins if bins is not None else mols
+    nf, ef, esrc, edst, emask, eW, eb, gn, ge = _encoder_inputs(enc_V, enc_E, depth, seed=8, d=d,
+                                                                graphs=graphs[:enc_mols])
+    enc_kw = dict(depth=depth, residual=residual, reduce=reduce)
+    _, _, enc_hs = fused_dense_encoder_fwd(nf, ef, esrc, edst, emask, eW, eb, stash=True, **enc_kw)
+    _, _, ref_enc_hs = dense_encoder_reference(nf, ef, esrc, edst, emask, eW, eb, stash=True, **enc_kw)
+    enc_ref = dense_encoder_bwd_reference(nf, ef, ref_enc_hs, esrc, edst, emask, eW, gn, ge, **enc_kw)
+    enc_first = fused_dense_encoder_bwd(nf, ef, enc_hs, esrc, edst, emask, eW, gn, ge, **enc_kw)
+    enc_second = fused_dense_encoder_bwd(nf, ef, enc_hs, esrc, edst, emask, eW, gn, ge, **enc_kw)
+    torch.cuda.synchronize()
+    _close_grads(enc_first, enc_ref)
+    assert all(torch.equal(x, y) for x, y in zip(enc_first, enc_second)), "the encoder backward is not repeatable"
 
 
 @pytest.mark.gpu
