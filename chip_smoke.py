@@ -256,12 +256,16 @@ KINK_GRAD_L2 = 1e-2
 # tests/test_torch_spatial.py::test_gvp_full_width_run_drifts_apart_in_both_
 # packages), so the whole runs are held at that, and every step in lockstep
 GVP_RUN_RTOL = 1.17e-1
-# the reverse sweep's stages in a profile (rows 3, 4 and 6): fragments of
-# its kernels' names (csrc/dense_mpnn_bwd.cu: the copies of W^T and the
-# operator's bit rows, the adjoint A^T g, the products g_mW W^T and
-# relu(h)^T g_mW with their fixed-order chunk sums, the encoder's gather
-# VJP), and row 4's forward replay, the layer kernel of csrc/dense_mpnn.cu
-SWEEP_STAGES = ("bwd_prep_", "bwd_adjoint_", "bwd_gemm_", "bwd_node_grad_", "dense_mpnn_plain_kernel")
+# the forward's stages in a profile (rows 1, 2 and 5, and row 4's replay):
+# fragments of its kernels' names (csrc/dense_mpnn.cu: the operator's bit
+# rows and the encoder's gathered h0 once a call, then a layer's product
+# relu(h) @ W and its operator pass, with the encoder's scatter in the last)
+FWD_STAGES = ("mpnn_fwd_prep_", "mpnn_fwd_gemm_", "mpnn_fwd_apply_")
+# the reverse sweep's stages (rows 3, 4 and 6; csrc/dense_mpnn_bwd.cu: the
+# copies of W^T and the operator's bit rows, the adjoint A^T g, the products
+# g_mW W^T and relu(h)^T g_mW with their fixed-order chunk sums, the
+# encoder's gather VJP), and row 4's forward replay
+SWEEP_STAGES = ("bwd_prep_", "bwd_adjoint_", "bwd_gemm_", "bwd_node_grad_", *FWD_STAGES)
 # rows 14-15's stages in a profile: fragments of their kernels' names
 GVP_STAGES = {
     fused_gvp_conv_fwd: ("fwd_weights_", "fwd_node_", "fwd_layer0_in_", "fwd_layer_gemm<0,", "fwd_layer_gemm<1,",
@@ -609,8 +613,7 @@ def profile_busy(run, top: int = 8, width: int = 80) -> dict:
     )
     busy_ms = sum(ms for _, ms, _ in kernels)
     by_kernel = {}
-    for fragment in ("dense_mpnn_plain_kernel", "dense_mpnn_ends_kernel", *SWEEP_STAGES[:4], "attn_kernel",
-                     "attn_rows_kernel", "attn_cols_kernel"):
+    for fragment in (*SWEEP_STAGES, "attn_kernel", "attn_rows_kernel", "attn_cols_kernel"):
         by_kernel[fragment] = sum(ms for k, ms, _ in kernels if fragment in k)
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
@@ -1452,13 +1455,13 @@ def kernels_of_calls(kernel, calls: int = 5, top: int = 40, width: int = 160) ->
     return [{"name": e.key[:width], "ms": e.self_device_time_total / 1e3, "count": e.count} for e in kernels[:top]]
 
 
-def time_sweep(kernel) -> tuple[dict, list[dict], dict[str, float]]:
-    """Row 3, 4 or 6 (``kernel``, a call on fixed inputs): its time_ms, the
-    kernels of 5 calls in a profile, and their device ms a call by stage
-    (SWEEP_STAGES)."""
+def time_sweep(kernel, stage_names=SWEEP_STAGES) -> tuple[dict, list[dict], dict[str, float]]:
+    """Row 3, 4 or 6 (``kernel``, a call on fixed inputs; or row 1, 2 or 5
+    with FWD_STAGES): its time_ms, the kernels of 5 calls in a profile, and
+    their device ms a call by stage."""
     t = time_ms(kernel)
     breakdown = kernels_of_calls(kernel)
-    stages = {stage.rstrip("_"): sum(k["ms"] for k in breakdown if stage in k["name"]) / 5 for stage in SWEEP_STAGES}
+    stages = {stage.rstrip("_"): sum(k["ms"] for k in breakdown if stage in k["name"]) / 5 for stage in stage_names}
     return t, breakdown, stages
 
 
@@ -1823,14 +1826,17 @@ def main() -> None:
         {"B": ef.shape[0], "V": nf.shape[1], "E": ef.shape[1], "d": d}, enc_nnz)
     shapes[csr_segment_sum] = shapes[csr_segment_sum_packed] = (
         {"V": V, "E": E, "d": d, "real_edges": n_real}, None)
-    # the forward rows count a launch a layer, the backward rows one a call
-    per_layer = (fused_dense_mpnn_block, fused_dense_mpnn_block_stash, fused_dense_encoder_fwd,
-                 fused_dense_mpnn_block_dbuf)
+    # rows 1, 2 and 5 count the layers they run and row 7 its launches, one a
+    # layer; the backward rows count one a call
+    fwd_rows = (fused_dense_mpnn_block, fused_dense_mpnn_block_stash, fused_dense_encoder_fwd)
+    per_layer = (*fwd_rows, fused_dense_mpnn_block_dbuf)
     sweeps = (fused_dense_mpnn_block_bwd_stash, fused_dense_mpnn_block_bwd, fused_dense_encoder_bwd)
     records = []
     for fn, (kernel, plain, ops, n_bytes) in runs.items():
-        # rows 3, 4 and 6 with their sweep's kernels by stage
-        kernel_t, breakdown, stages = time_sweep(kernel) if fn in sweeps else (time_ms(kernel), None, None)
+        # rows 3, 4 and 6 with their sweep's kernels by stage, rows 1, 2 and 5 with the forward's
+        kernel_t, breakdown, stages = (time_sweep(kernel) if fn in sweeps else
+                                       time_sweep(kernel, FWD_STAGES) if fn in fwd_rows else
+                                       (time_ms(kernel), None, None))
         plain_t = time_ms(plain)
         library, library_note = libraries.get(
             fn, (None, "no single PyTorch call computes the fused block, the encoder or their backwards"))

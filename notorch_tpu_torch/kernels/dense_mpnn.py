@@ -8,18 +8,19 @@ Replaces the Pallas kernels of ``notorch_tpu/kernels/dense_mpnn.py``:
 ================================  =========================================
 TPU entry (kernel)                here
 ================================  =========================================
-``fused_dense_mpnn_block``        :func:`fused_dense_mpnn_block`, the layer
-(``_block_kernel``)               kernel of ``csrc/dense_mpnn.cu``
+``fused_dense_mpnn_block``        :func:`fused_dense_mpnn_block`, the
+(``_block_kernel``)               ``mpnn_fwd_`` kernels of
+                                  ``csrc/dense_mpnn.cu``
 ``fused_dense_mpnn_block_stash``  :func:`fused_dense_mpnn_block_stash`, the
-(``_block_kernel_stash``)         same layer kernel writing into the stash
+(``_block_kernel_stash``)         same forward writing into the stash
 ``fused_dense_mpnn_block_bwd_``   :func:`fused_dense_mpnn_block_bwd_stash`,
 ``stash`` (``_bwd_kernel_stash``) ``csrc/dense_mpnn_bwd.cu``
 ``fused_dense_mpnn_block_bwd``    :func:`fused_dense_mpnn_block_bwd`: replay
-(``_bwd_kernel``)                 by the layer kernel, then the sweep of
+(``_bwd_kernel``)                 by the forward, then the sweep of
                                   ``csrc/dense_mpnn_bwd.cu``
-``fused_dense_encoder_fwd``       :func:`fused_dense_encoder_fwd`: the layer
-(``_encoder_kernel(_stash)``)     kernel with the gather folded into its
-                                  first launch and the scatter into its last
+``fused_dense_encoder_fwd``       :func:`fused_dense_encoder_fwd`: the same
+(``_encoder_kernel(_stash)``)     forward with the gather in its prep and
+                                  the scatter in its last layer
 ``fused_dense_encoder_bwd``       :func:`fused_dense_encoder_bwd`: the sweep
 (``_encoder_bwd_kernel(_d1)``)    of ``csrc/dense_mpnn_bwd.cu`` with the
                                   scatter's VJP in its first launches and
@@ -33,14 +34,16 @@ TPU entry (kernel)                here
 The encoder is ``h0 = node_feats[src] + edge_feats`` (unmasked; a ``src``
 outside ``[0, V)`` gathers zero, as the JAX one-hot does), the block, then
 ``node_hiddens[v] = sum_e [dst e == v] * edge_mask e * h[e]`` (divided by
-the real in-degree floored at 1 for ``mean``); ``h0`` is never stored, and
-the backward recomputes it as the TPU kernel does.
+the real in-degree floored at 1 for ``mean``); ``h0`` is neither returned
+nor stashed (the forward writes it once into scratch), and the backward
+recomputes it as the TPU kernel does.
 
 The CUDA sources are built by ``nvcc`` for ``sm_90a`` at first use and
 bound with ``ctypes`` (:mod:`notorch_tpu_torch.kernels.build`). Tensors on
 the CPU take the plain versions; tensors on a CUDA device launch the
-kernels or raise — there is no fallback. Each wrapper counts its launches
-in ``<wrapper>.launches``.
+kernels or raise — there is no fallback. Each wrapper counts in
+``<wrapper>.launches``: the forwards the layers they run, the backwards
+their calls.
 
 What the block computes, per bin ``b`` with ``rev(e) = e XOR 1``:
 
@@ -62,20 +65,28 @@ is the CUDA-core f32 rate (67 TFLOP/s on an H100 SXM). Forward: ``depth *
 (2 * B * E * d**2 + 2 * nnz(A) * d)`` operations; backward: ``depth * (4 *
 B * E * d**2 + 2 * nnz(A) * d)``, plus the forward's for the replay of the
 recompute backward. Their bytes (each input read once, each output written
-once) take a fifth to a tenth as long, so all are bound by operations. The
-forward launches one kernel per layer on a (bin, 64-column) grid:
-``relu(h) @ W`` by k-tiled shared-memory FMA, then ``A @ mW`` as a
-row-sparse sum over bit rows of ``A`` built in shared memory, so ``A``
-costs operations only where it is nonzero and is never stored. Because
-each layer's output already goes to device memory, the stash forward is
-that same kernel writing layer ``l < depth - 1`` into ``hs[l]``: the stash
-costs no bytes beyond what the serving forward moves (the TPU kernel, which
-keeps the state in VMEM for the whole depth, pays ``depth - 1`` extra
-writes for it). The backward sweep is described in ``csrc/dense_mpnn_bwd.cu``;
-its weight and bias gradients are summed in a fixed order, so two calls on
-the same inputs give the same bits. ``fit_tile`` and ``mols_per_tile`` (the
-TPU's VMEM tiling policy) are dropped: a block always holds one bin (the
-double-buffered forward keeps ``mols_per_tile`` for its argument check).
+once) take a fifth to a tenth as long, so all are bound by operations,
+nearly all of them in the W-sized products. The forward is one C call a
+block call (``dense_mpnn_forward``): a prep kernel builds the bit rows of
+``A`` of every bin once (and, for the encoder, writes the gathered ``h0``
+and the scatter's node bit rows), then each layer runs ``relu(h) @ W`` as
+one tiled exact-f32 product over all ``B * E`` rows (64 x 64 tiles, so the
+card gets many more blocks than bins) and ``A @ mW`` as a row-sparse walk
+over the bit rows in 1,024-thread blocks, one per (bin, 64 columns), so
+``A`` costs operations only where it is nonzero and is never stored; the
+encoder's last layer writes the masked scatter from the same blocks. Every
+sum runs in a fixed order, the double-buffered layer kernel's too, so two
+calls give the same bits and that kernel gives row 1's
+(``csrc/dense_mpnn.cu`` says how). Because each layer's output already goes
+to device memory, the stash forward is that same forward writing layer ``l
+< depth - 1`` into ``hs[l]``: the stash costs no bytes beyond what the
+serving forward moves (the TPU kernel, which keeps the state in VMEM for the
+whole depth, pays ``depth - 1`` extra writes for it). The backward sweep is described in ``csrc/dense_mpnn_bwd.cu``; its
+weight and bias gradients are summed in a fixed order, so two calls on the
+same inputs give the same bits. ``fit_tile`` and ``mols_per_tile`` (the
+TPU's VMEM tiling policy) are dropped: a block of the operator pass always
+holds one bin (the double-buffered forward keeps ``mols_per_tile`` for its
+argument check).
 The encoder's kernels take bins of at most 256 edge lanes and 256 node
 slots; the wrappers raise on larger ones.
 """
@@ -320,17 +331,18 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 @functools.cache
 def _layer_fns():
-    """The forward library: its layer entry, its double-buffered entry."""
+    """The forward library: its whole-forward entry, its double-buffered
+    layer entry."""
     lib = build.load("dense_mpnn")
-    layer, dbuf = lib.dense_mpnn_layer, lib.dense_mpnn_dbuf_layer
-    layer.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fwd, dbuf = lib.dense_mpnn_forward, lib.dense_mpnn_dbuf_layer
+    fwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     dbuf.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    layer.restype = dbuf.restype = ctypes.c_int
+    fwd.restype = dbuf.restype = ctypes.c_int
     lib.dense_mpnn_error_string.argtypes = [ctypes.c_int]
     lib.dense_mpnn_error_string.restype = ctypes.c_char_p
     for name in ("dense_mpnn_max_edges", "dense_mpnn_max_nodes", "dense_mpnn_cols"):
         getattr(lib, name).restype = ctypes.c_int
-    return lib, layer, dbuf
+    return lib, fwd, dbuf
 
 
 @functools.cache
@@ -359,42 +371,51 @@ def _check_shape_for(max_edges: int, max_nodes: int, cols: int, E: int, V: int, 
 
 def _launch_layers(h0, src, dst, edge_mask, weights, biases, outs, residual, mean, *,
                    node_feats=None, node_out=None, dbuf=False) -> int:
-    """Run the layer kernel for layers ``0..len(outs)-1``, layer ``l``
-    reading the previous output (``h0`` first) and writing ``outs[l]``.
-    With ``node_feats`` layer 0 gathers its input ``node_feats[src] + h0``
-    (``h0`` is then the edge features); with ``node_out`` the last layer also
-    writes the masked scatter of its output there. ``dbuf`` runs the
-    double-buffered layer. Returns the number of launches."""
+    """Run layers ``0..len(outs)-1``, layer ``l`` reading the previous
+    output (``h0`` first) and writing ``outs[l]``: one call of
+    ``dense_mpnn_forward``, which launches the prep and every layer. With
+    ``node_feats`` layer 0's input is ``node_feats[src] + h0`` (``h0`` is
+    then the edge features); with ``node_out`` the last layer also writes
+    the masked scatter of its output there. ``dbuf`` runs the
+    double-buffered layer kernel instead, one call a layer. Returns the
+    number of layers run."""
     B, E, d = h0.shape
     ends = node_feats if node_feats is not None else node_out
     V = 1 if ends is None else ends.shape[1]
-    lib, layer_fn, dbuf_fn = _layer_fns()
+    lib, fwd_fn, dbuf_fn = _layer_fns()
     _check_shape_for(lib.dense_mpnn_max_edges(), lib.dense_mpnn_max_nodes(), lib.dense_mpnn_cols(),
                      E, V, d)
     check_aligned(edge_hiddens=h0, weights=weights, node_feats=node_feats,
                    **{f"output {i}": o for i, o in enumerate(outs)})
-    last = len(outs) - 1
+    idx = (src.data_ptr(), dst.data_ptr(), edge_mask.data_ptr())
+
+    def check(err: int) -> None:
+        if err != 0:
+            raise RuntimeError(f"dense_mpnn launch failed: {lib.dense_mpnn_error_string(err).decode()}")
+
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        h_in = h0
-        for layer, h_out in enumerate(outs):
-            idx = (src.data_ptr(), dst.data_ptr(), edge_mask.data_ptr(),
-                   weights[layer].data_ptr(), biases[layer].data_ptr())
-            if dbuf:
-                err = dbuf_fn(h_in.data_ptr(), h_out.data_ptr(), *idx, B, E, d, int(residual),
-                              int(mean), stream)
-            else:
-                gather = layer == 0 and node_feats is not None
-                scatter = layer == last and node_out is not None
-                err = layer_fn(
-                    h_in.data_ptr(), h_out.data_ptr(), _ptr(node_feats), _ptr(node_out), *idx,
-                    B, V, E, d, int(residual), int(mean), int(gather), int(scatter), stream,
-                )
-            if err != 0:
-                raise RuntimeError(
-                    f"dense_mpnn layer launch failed: {lib.dense_mpnn_error_string(err).decode()}"
-                )
-            h_in = h_out
+        if dbuf:
+            h_in = h0
+            for layer, h_out in enumerate(outs):
+                check(dbuf_fn(h_in.data_ptr(), h_out.data_ptr(), *idx, weights[layer].data_ptr(),
+                              biases[layer].data_ptr(), B, E, d, int(residual), int(mean), stream))
+                h_in = h_out
+            return len(outs)
+        # scratch: A's bit rows, the scatter's node bit rows, layer 0's
+        # gathered input, and each layer's product relu(h) @ W
+        words = -(-E // 32)
+        adj = torch.empty(B, E, words, dtype=torch.int32, device=h0.device)
+        node_bits = torch.empty(B, V, words, dtype=torch.int32, device=h0.device) if node_out is not None else None
+        h0_full = torch.empty_like(h0) if node_feats is not None else None
+        mw = torch.empty_like(h0)
+        out_ptrs = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
+        check(fwd_fn(
+            h0.data_ptr(), out_ptrs, _ptr(node_feats), _ptr(node_out), *idx, weights.data_ptr(),
+            biases.data_ptr(), adj.data_ptr(), _ptr(node_bits), _ptr(h0_full), mw.data_ptr(),
+            B, V, E, d, len(outs), int(residual), int(mean), int(node_feats is not None),
+            int(node_out is not None), stream,
+        ))
     return len(outs)
 
 
@@ -488,9 +509,9 @@ def fused_dense_mpnn_block(
     """Run the whole D-MPNN block; returns the final edge hiddens [B, E, d].
 
     Tensors on the CPU take :func:`dense_mpnn_block_reference`; tensors on a
-    CUDA device launch the kernel, once per layer, or raise.
-    ``fused_dense_mpnn_block.launches`` counts kernel launches (``depth`` a
-    call). ``n_nodes`` (node slots per bin) is kept for the JAX signature;
+    CUDA device launch the forward's kernels (a prep, then a product and an
+    operator pass a layer) or raise. ``fused_dense_mpnn_block.launches``
+    counts the layers run (``depth`` a call). ``n_nodes`` (node slots per bin) is kept for the JAX signature;
     the operator needs only ``src``/``dst``.
     """
     _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes)
@@ -527,9 +548,9 @@ def fused_dense_mpnn_block_stash(
     caller's input and is never stashed; ``hs`` is ``None`` at depth 1,
     where this is :func:`fused_dense_mpnn_block`, as in the JAX package).
 
-    On a CUDA device the layer kernel writes layer ``l < depth-1`` into
+    On a CUDA device the forward writes layer ``l < depth-1`` into
     ``hs[l]`` and the last layer into ``out``;
-    ``fused_dense_mpnn_block_stash.launches`` counts its launches
+    ``fused_dense_mpnn_block_stash.launches`` counts the layers run
     (``depth`` a call). CPU tensors take
     :func:`dense_mpnn_block_stash_reference`.
     """
@@ -612,8 +633,8 @@ def fused_dense_mpnn_block_bwd(
     reduce: str = "sum",
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The recompute backward: returns ``(g_h0, g_W, g_b)`` from ``h0``
-    alone. On a CUDA device it replays layers ``0..depth-2`` with the layer
-    kernel into a scratch stash (biases included: the JAX kernel records
+    alone. On a CUDA device it replays layers ``0..depth-2`` with the
+    forward's kernels into a scratch stash (biases included: the JAX kernel records
     the fault that leaving them out caused), then runs the reverse sweep;
     one call adds one to ``fused_dense_mpnn_block_bwd.launches``. CPU
     tensors take the plain versions of both halves."""
@@ -668,10 +689,10 @@ def fused_dense_encoder_fwd(
     ``[depth-1, B, E, d]`` stash of the layer inputs h1..h_{depth-1} when
     ``stash`` and ``depth > 1`` (else ``None``), as in the JAX package.
 
-    On a CUDA device the layer kernel runs once per layer, the first launch
-    gathering ``node_feats[src] + edge_feats`` as it loads its input and the
-    last writing the scatter (one launch does both at depth 1);
-    ``fused_dense_encoder_fwd.launches`` counts them (``depth`` a call). CPU
+    On a CUDA device the forward's prep also writes the gathered input
+    ``node_feats[src] + edge_feats`` and the last layer's operator pass
+    also writes the scatter; ``fused_dense_encoder_fwd.launches`` counts
+    the layers run (``depth`` a call). CPU
     tensors take :func:`dense_encoder_reference`.
     """
     _check(edge_feats, src, dst, edge_mask, weights, biases, depth, reduce)
@@ -765,8 +786,8 @@ def fused_dense_mpnn_block_dbuf(
     count of ``mols_per_tile``-bin tiles, ``mols_per_tile`` a multiple of 8,
     else ``ValueError``; on the card a block holds one bin whatever the
     tile. No module calls it, as in the JAX package.
-    ``fused_dense_mpnn_block_dbuf.launches`` counts its launches (``depth``
-    a call); CPU tensors take :func:`dense_mpnn_block_reference`.
+    ``fused_dense_mpnn_block_dbuf.launches`` counts its launches, one a
+    layer (``depth`` a call); CPU tensors take :func:`dense_mpnn_block_reference`.
     """
     B = edge_hiddens.shape[0]
     tile = min(mols_per_tile, B)

@@ -1,0 +1,169 @@
+"""Time TPU kernel rows 1, 2, 4 and 5 of a checkout on the card: the
+forward of the fused dense D-MPNN block (row 1), its stash forward (row 2)
+and the recompute backward, whose replay runs that forward (row 4), at the
+packed training batch (B = 32, E = 128, d = 256, depth 3, sum, residual),
+and the fused encoder's forward with the stash (row 5) at the per-molecule
+dense loader's first batch (B = 64, V = 48, E = 128), as ``chip_smoke.py``'s
+time phase does: device ms a call from a CUDA graph of 20 calls, and a
+``torch.profiler`` breakdown of 5 calls by kernel and by stage (the
+forward's prep, products and operator pass, or the single layer kernel of a
+tree from before them; row 4's sweep). Each row runs twice and says whether
+the two calls gave the same bits; rows 1 and 5 also run with mean. With
+``--bits FILE`` the outputs are compared with those saved in FILE, bit for
+bit: the first run that names FILE writes it, every later run prints
+whether its outputs have the same bits. With ``--e2e``, also a warm epoch of
+the declarative D-MPNN config (rows 5 and 6) under ``torch.profiler``: the
+card's busy milliseconds a step, and row 5's share of them.
+
+    python3 scripts/time_dense_mpnn_fwd.py [--root DIR] [--bits FILE] [--define NAME=VALUE ...] [--e2e]
+
+``--root`` is the checkout whose ``notorch_tpu_torch`` runs (default: this
+one); its ``csrc/*.cu`` are built there at first use. ``--define NAME=VALUE``
+times a variant of that checkout: its package is copied to a temporary
+directory with ``constexpr int NAME = ...`` set to VALUE in
+``csrc/dense_mpnn.cu`` (for example ``kGemmRows=32``, ``kApplyThreads=512``).
+The inputs and the timing are this checkout's, so two trees, for example a
+parent commit unpacked with ``git archive``, are timed the same way in one
+call on one card. Prints one JSON line a row, then the card's name and
+power limit.
+"""
+
+import argparse
+import hashlib
+import importlib.util
+import json
+import re
+import shutil
+import sys
+import tempfile
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+# the forward's kernels by name in a profile, by stage: this tree's, and the
+# layer kernel of the forward before its redesign for Hopper (one launch a
+# layer, its ends folded into the encoder's first and last); row 4's sweep
+STAGES = {
+    "prep": ("mpnn_fwd_prep_",),
+    "products": ("mpnn_fwd_gemm_",),
+    "operator": ("mpnn_fwd_apply_",),
+    "layer_kernel": ("dense_mpnn_plain_kernel", "dense_mpnn_ends_kernel"),
+    "sweep": ("bwd_prep_", "bwd_adjoint_", "bwd_gemm_", "bwd_node_grad_"),
+}
+FWD_KERNELS = (*STAGES["prep"], *STAGES["products"], *STAGES["operator"], *STAGES["layer_kernel"])
+
+
+def variant(root: Path, defines: list[str], into: Path) -> Path:
+    """A copy of ``root``'s package under ``into`` with each NAME=VALUE set
+    in ``csrc/dense_mpnn.cu``; returns the copy's root."""
+    shutil.copytree(root / "notorch_tpu_torch", into / "notorch_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    cu = into / "notorch_tpu_torch" / "csrc" / "dense_mpnn.cu"
+    text = cu.read_text()
+    for item in defines:
+        name, value = item.split("=", 1)
+        text, n = re.subn(rf"constexpr int {re.escape(name)} = [^,;]+", f"constexpr int {name} = {value}", text)
+        if n != 1:
+            raise SystemExit(f"--define {item}: csrc/dense_mpnn.cu has {n} definitions of {name}")
+    cu.write_text(text)
+    return into
+
+
+def digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", default=str(HERE), help="the checkout whose kernels run")
+    parser.add_argument("--bits", help="a file of outputs to compare with (written if missing)")
+    parser.add_argument("--define", action="append", default=[], help="NAME=VALUE in csrc/dense_mpnn.cu")
+    parser.add_argument("--e2e", action="store_true", help="also profile a warm declarative D-MPNN epoch")
+    args = parser.parse_args()
+    with tempfile.TemporaryDirectory(prefix="time_dense_mpnn_fwd_") as tmp:
+        root = Path(args.root).resolve()
+        if args.define:
+            root = variant(root, args.define, Path(tmp) / "variant")
+        run(args, root, Path(tmp))
+
+
+def run(args, root: Path, tmp: Path) -> None:
+    sys.path.insert(0, str(root))
+    spec = importlib.util.spec_from_file_location("chip_smoke", HERE / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    import torch
+
+    if not torch.cuda.is_available():
+        smoke.fail("no CUDA device is available; this script times kernels on a GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d, depth = smoke.MODEL_CFG["hidden_dim"], smoke.MODEL_CFG["depth"]
+    tag = {"root": args.root, **({"define": args.define} if args.define else {})}
+    csv_path = smoke.lipo_csv(tmp, smoke.N_MOLS)
+    ds = smoke.build_dataset({"csv": str(csv_path), "targets": {"y": {"columns": ["lipo"]}}})
+    packed_G = next(iter(smoke.DataLoader(ds, batch_size=smoke.BATCH)))["inputs.G"]
+    dense_G = next(iter(smoke.DataLoader(ds, batch_size=smoke.BATCH, layout="dense")))["inputs.G"]
+    x = smoke.kernel_inputs(packed_G, d, depth, smoke.SEED)
+    g = smoke.cotangent(packed_G, d, smoke.SEED + 10)
+    kw = dict(depth=depth, n_nodes=packed_G.nodes_per_graph, residual=True)
+    enc = smoke.encoder_inputs(dense_G, d, depth, smoke.SEED + 2)
+    enc_kw = dict(depth=depth, residual=True)
+    block_shape = {"B": x[0].shape[0], "E": x[0].shape[1], "d": d}
+    enc_shape = {"B": enc[1].shape[0], "V": enc[0].shape[1], "E": enc[1].shape[1], "d": d}
+    # (row, reduce, its call on these inputs, returning a tuple of outputs);
+    # the sum rows are timed, the mean rows checked only
+    rows = [
+        (1, "sum", lambda: (smoke.fused_dense_mpnn_block(*x, reduce="sum", **kw),)),
+        (2, "sum", lambda: smoke.fused_dense_mpnn_block_stash(*x, reduce="sum", **kw)),
+        (4, "sum", lambda: smoke.fused_dense_mpnn_block_bwd(*x, g, reduce="sum", **kw)),
+        (5, "sum", lambda: smoke.fused_dense_encoder_fwd(*enc[:7], stash=True, reduce="sum", **enc_kw)),
+        (1, "mean", lambda: (smoke.fused_dense_mpnn_block(*x, reduce="mean", **kw),)),
+        (5, "mean", lambda: smoke.fused_dense_encoder_fwd(*enc[:7], stash=True, reduce="mean", **enc_kw)),
+    ]
+    saved = None
+    bits_path = Path(args.bits) if args.bits else None
+    if bits_path is not None and bits_path.exists():
+        saved = torch.load(bits_path)
+    outputs = {}
+    for row, reduce, call in rows:
+        key = f"row{row}_{reduce}"
+        first, second = ([t for t in out if t is not None] for out in (call(), call()))
+        torch.cuda.synchronize()
+        outputs[key] = [t.cpu() for t in first]
+        record = {**tag, "row": row, "reduce": reduce, "shape": enc_shape if row == 5 else block_shape,
+                  "depth": depth, "sha256": digest(first),
+                  "repeatable": all(torch.equal(p, q) for p, q in zip(first, second))}
+        if saved is not None:
+            record["parent_bits"] = len(saved[key]) == len(first) and all(
+                torch.equal(p.cpu(), q) for p, q in zip(first, saved[key]))
+        if reduce == "sum":
+            t = smoke.time_ms(call)
+            breakdown = smoke.kernels_of_calls(call)
+            record.update(ms=t["device"], eager_ms=t["eager"], stages_ms={
+                stage: sum(k["ms"] for k in breakdown if any(f in k["name"] for f in frags)) / 5
+                for stage, frags in STAGES.items()}, kernels_of_5_calls=breakdown)
+        print(json.dumps(record), flush=True)
+    if bits_path is not None and saved is None:
+        bits_path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(outputs, bits_path)
+    if args.e2e:
+        cfg = smoke.train_config(smoke.lipo_csv(tmp, smoke.TRAIN_MOLS), None,
+                                 smoke.declarative_model_cfg(d, depth))
+        state = smoke.prepare(cfg)
+        loader = state["train_loader"]
+        smoke.fit(state["model"], loader, epochs=2)  # fills the featurization cache, warms up
+        epoch = smoke.profile_busy(lambda: smoke.fit(state["model"], loader, epochs=1), top=40, width=160)
+        steps = len(loader)
+        row5 = sum(k["ms"] for k in epoch["top"] if any(f in k["name"] for f in FWD_KERNELS))
+        print(json.dumps({**tag, "declarative_steps": steps,
+                          "profiled_step_device_ms": epoch["device_busy_ms"] / steps,
+                          "profiled_step_row5_ms": row5 / steps,
+                          "profiled_step_wall_ms": epoch["wall_ms"] / steps,
+                          "profiled_step_busy_share": epoch["device_busy_share"]}), flush=True)
+    print(smoke.nvidia_smi_line(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

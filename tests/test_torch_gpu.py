@@ -264,16 +264,12 @@ SWEEP_CASES = {
 }
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", list(SWEEP_CASES))
-def test_cuda_sweep_edge_cases_match_plain_versions(case):
-    """Rows 3, 4 and 6 against their plain versions on every lane
-    (gradients atol 1e-4 x the tensor's largest magnitude, rtol 1e-4), and
-    rows 3 and 6 twice with equal bits."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+def _edge_case(case, depth=3):
+    """An edge case of SWEEP_CASES on the card: the block's seeded inputs
+    (h0, src, dst, mask, W, b) with a cotangent that is zero on padded
+    lanes, its keyword arguments, and the encoder's inputs
+    (_encoder_inputs) on the same molecules."""
     d, E, bins, mols, reduce, residual, enc_V, enc_E = SWEEP_CASES[case]
-    depth = 3
     graphs = [PIPE(s) for s in (SMIS * 3)[:mols]]
     G = pack_graphs_dense(graphs, E // 2 + 8, E, np_out=True)
     keep = slice(None, bins)
@@ -283,11 +279,25 @@ def test_cuda_sweep_edge_cases_match_plain_versions(case):
     W = (rng.standard_normal((depth, d, d)) / np.sqrt(d)).astype(np.float32)
     b = (0.1 * rng.standard_normal((depth, d))).astype(np.float32)
     g = (rng.standard_normal((B, E, d)) * G.edge_mask[keep][..., None]).astype(np.float32)
-    h0, src, dst, mask, W, b, g = (torch.from_numpy(np.ascontiguousarray(x)).cuda()
-                                   for x in (h0, G.src[keep], G.dst[keep], G.edge_mask[keep], W, b, g))
+    block = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+             for x in (h0, G.src[keep], G.dst[keep], G.edge_mask[keep], W, b, g)]
     assert bins is None or (B == bins and B * E % 64 != 0)
     kw = dict(depth=depth, n_nodes=E // 2 + 8, residual=residual, reduce=reduce)
-    ref_kw = dict(depth=depth, residual=residual, reduce=reduce)
+    enc_mols = bins if bins is not None else mols
+    enc = _encoder_inputs(enc_V, enc_E, depth, seed=8, d=d, graphs=graphs[:enc_mols])
+    return block, kw, enc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_cuda_sweep_edge_cases_match_plain_versions(case):
+    """Rows 3, 4 and 6 against their plain versions on every lane
+    (gradients atol 1e-4 x the tensor's largest magnitude, rtol 1e-4), and
+    rows 3 and 6 twice with equal bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    (h0, src, dst, mask, W, b, g), kw, enc = _edge_case(case)
+    ref_kw = {k: kw[k] for k in ("depth", "residual", "reduce")}
     _, hs = fused_dense_mpnn_block_stash(h0, src, dst, mask, W, b, **kw)
     _, ref_hs = dense_mpnn_block_stash_reference(h0, src, dst, mask, W, b, **ref_kw)
     ref = dense_mpnn_block_bwd_reference(h0, ref_hs, src, dst, mask, W, g, **ref_kw)
@@ -299,10 +309,8 @@ def test_cuda_sweep_edge_cases_match_plain_versions(case):
     _close_grads(recompute, ref)
     assert all(torch.equal(x, y) for x, y in zip(first, second)), "the stash backward is not repeatable"
 
-    enc_mols = bins if bins is not None else mols
-    nf, ef, esrc, edst, emask, eW, eb, gn, ge = _encoder_inputs(enc_V, enc_E, depth, seed=8, d=d,
-                                                                graphs=graphs[:enc_mols])
-    enc_kw = dict(depth=depth, residual=residual, reduce=reduce)
+    nf, ef, esrc, edst, emask, eW, eb, gn, ge = enc
+    enc_kw = ref_kw
     _, _, enc_hs = fused_dense_encoder_fwd(nf, ef, esrc, edst, emask, eW, eb, stash=True, **enc_kw)
     _, _, ref_enc_hs = dense_encoder_reference(nf, ef, esrc, edst, emask, eW, eb, stash=True, **enc_kw)
     enc_ref = dense_encoder_bwd_reference(nf, ef, ref_enc_hs, esrc, edst, emask, eW, gn, ge, **enc_kw)
@@ -311,6 +319,36 @@ def test_cuda_sweep_edge_cases_match_plain_versions(case):
     torch.cuda.synchronize()
     _close_grads(enc_first, enc_ref)
     assert all(torch.equal(x, y) for x, y in zip(enc_first, enc_second)), "the encoder backward is not repeatable"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+def test_cuda_fwd_edge_cases_match_plain_versions(case):
+    """Rows 1, 2 and 5 at the same edge cases (the forward's products run
+    as the sweep's do, in 64 x 64 tiles over all B * E rows): each against
+    its plain version on every lane (rtol = atol = 1e-4), each twice with
+    equal bits, and each counter adding depth a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    (h0, src, dst, mask, W, b, _), kw, (nf, ef, esrc, edst, emask, eW, eb, _, _) = _edge_case(case)
+    ref_kw = {k: kw[k] for k in ("depth", "residual", "reduce")}
+    counters = (fused_dense_mpnn_block, fused_dense_mpnn_block_stash, fused_dense_encoder_fwd)
+    before = [fn.launches for fn in counters]
+    runs = [
+        (lambda: [fused_dense_mpnn_block(h0, src, dst, mask, W, b, **kw)],
+         [dense_mpnn_block_reference(h0, src, dst, mask, W, b, **ref_kw)]),
+        (lambda: list(fused_dense_mpnn_block_stash(h0, src, dst, mask, W, b, **kw)),
+         list(dense_mpnn_block_stash_reference(h0, src, dst, mask, W, b, **ref_kw))),
+        (lambda: list(fused_dense_encoder_fwd(nf, ef, esrc, edst, emask, eW, eb, stash=True, **ref_kw)),
+         list(dense_encoder_reference(nf, ef, esrc, edst, emask, eW, eb, stash=True, **ref_kw))),
+    ]
+    for row, (kernel, ref) in zip((1, 2, 5), runs):
+        first, second = kernel(), kernel()
+        torch.cuda.synchronize()
+        for got, want in zip(first, ref):
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4, msg=lambda m: f"row {row}: {m}")
+        assert all(torch.equal(x, y) for x, y in zip(first, second)), f"row {row} is not repeatable"
+    assert [fn.launches for fn in counters] == [n + 2 * kw["depth"] for n in before]
 
 
 @pytest.mark.gpu
