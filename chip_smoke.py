@@ -613,7 +613,7 @@ def profile_busy(run, top: int = 8, width: int = 80) -> dict:
     )
     busy_ms = sum(ms for _, ms, _ in kernels)
     by_kernel = {}
-    for fragment in (*SWEEP_STAGES, "attn_kernel", "attn_rows_kernel", "attn_cols_kernel"):
+    for fragment in (*SWEEP_STAGES, "attn_rows_kernel", "attn_cols_kernel", "attn_cluster_kernel"):
         by_kernel[fragment] = sum(ms for k, ms, _ in kernels if fragment in k)
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
@@ -1198,10 +1198,13 @@ def lockstep(cfg: dict, epochs: int, what: str) -> dict:
     card's weights and optimizer state (copied to the CPU before each step),
     on the run's own batches in its order: fails unless each step's loss
     agrees within LOCKSTEP_RTOL relative and each gradient, but those of
-    ZERO_GRADIENTS, within LOCKSTEP_GRAD_RTOL times its largest magnitude."""
+    ZERO_GRADIENTS, within LOCKSTEP_GRAD_RTOL times its largest magnitude.
+    Also gives each of those gradients' largest relative L2 distance over
+    the steps, card against CPU."""
     card, cpu = prepare(cfg), prepare(cfg, "cpu")["model"]
     model, loader = card["model"], card["train_loader"]
     loss_diff, grad_diff, worst = 0.0, 0.0, None
+    rel_l2: dict[str, float] = {}
     steps = 0
     for epoch in range(epochs):
         loader.set_epoch(epoch)
@@ -1215,16 +1218,19 @@ def lockstep(cfg: dict, epochs: int, what: str) -> dict:
             for name, p in model.network.named_parameters():
                 if name.endswith(ZERO_GRADIENTS):
                     continue
-                ref = grads[name]
-                err = float((p.grad.cpu() - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+                ref, got = grads[name], p.grad.cpu()
+                err = float((got - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
                 if err > grad_diff:
                     grad_diff, worst = err, name
+                l2 = float(torch.linalg.vector_norm(got - ref)) / max(float(torch.linalg.vector_norm(ref)), 1e-30)
+                rel_l2[name] = max(rel_l2.get(name, 0.0), l2)
             steps += 1
     if not (loss_diff <= LOCKSTEP_RTOL and grad_diff <= LOCKSTEP_GRAD_RTOL):
         fail(f"{what}: in lockstep the card's steps and the CPU's differ: loss {loss_diff} relative, "
              f"gradients {grad_diff} of their largest magnitude ({worst})")
     return {"steps": steps, "max_loss_rel_diff": loss_diff, "max_grad_err_over_max": grad_diff,
-            "worst_gradient": worst, "rtol": LOCKSTEP_RTOL, "grad_rtol_over_max": LOCKSTEP_GRAD_RTOL}
+            "worst_gradient": worst, "rtol": LOCKSTEP_RTOL, "grad_rtol_over_max": LOCKSTEP_GRAD_RTOL,
+            "max_grad_rel_l2": max(rel_l2.values(), default=0.0), "grad_rel_l2": rel_l2}
 
 
 def no_kernel(counts: dict[str, int], steps: int) -> str | None:
@@ -1874,12 +1880,11 @@ def main() -> None:
             library_t = time_ms(library_sdpa(ax, heads, bwd))
             ops, n_bytes, dense_ops = attention_work(ax, heads, bwd)
             bound_ms, bound_by = bound(ops, n_bytes)
-            # rows 10-11 at their path's shape: each pass's device time over
-            # 20 calls (the profiler can drop the records of a run's last
+            # at each row's path shape: each kernel's device time over 20
+            # calls (the profiler can drop the records of a run's last
             # microseconds, which would hold all of 5 calls of a few us)
             breakdown = (profile_busy(lambda kernel=kernel: [kernel() for _ in range(20)])["top"]
-                         if shape == path_shape and fn in (fused_dense_attention_fwd, fused_dense_attention_bwd)
-                         else None)
+                         if shape == path_shape else None)
             emit(phase="time", kernel=fn.__name__, shape={"case": shape, "B": ax[0].shape[0], "V": ax[0].shape[1],
                                                           "E": ax[4].shape[1],
                                                           "d": d, "heads": heads, "live_pairs": live_pairs(ax)},

@@ -1,5 +1,5 @@
 // Helpers shared by the CUDA sources: the bit-row width of the dense edge
-// operator, the per-device shared-memory opt-in, the add of two 16-byte
+// operator, per-device kernel attributes (the shared-memory opt-in), the add of two 16-byte
 // vectors, and the gather of one 16-byte vector of the encoder's layer-0
 // input.
 #pragma once
@@ -12,20 +12,26 @@ namespace {
 // 32-bit words of one bit row over E edge lanes.
 __host__ __device__ inline int adj_words(int E) { return (E + 31) / 32; }
 
-// Raise a kernel's dynamic shared-memory limit to `bytes`, once per device:
-// the limit is a per-device attribute, and `configured` (a static of the
-// caller, one per kernel) holds a bit per device.
-inline cudaError_t allow_smem(const void* kernel, int bytes, uint64_t& configured) {
+// Set a kernel attribute once per device: attributes are per device, and
+// `configured` (a static of the caller, one per kernel and attribute) holds a
+// bit per device.
+inline cudaError_t set_attribute_once(const void* kernel, cudaFuncAttribute attr, int value,
+                                      uint64_t& configured) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (!(configured >> dev & 1u)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    err = cudaFuncSetAttribute(kernel, attr, value);
     if (err != cudaSuccess) return err;
     configured |= uint64_t{1} << dev;
   }
   return cudaSuccess;
+}
+
+// Raise a kernel's dynamic shared-memory limit to `bytes`, once per device.
+inline cudaError_t allow_smem(const void* kernel, int bytes, uint64_t& configured) {
+  return set_attribute_once(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes, configured);
 }
 
 __device__ inline float4 add4(float4 a, float4 b) {

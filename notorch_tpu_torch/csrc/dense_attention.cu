@@ -2,12 +2,13 @@
 // for sm_90a.
 //
 // Replaces the Pallas kernels of notorch_tpu/kernels/dense_attention.py:
-//   - _attn_kernel / fused_dense_attention_fwd (v1, row 10): attn_rows_kernel<false>;
+//   - _attn_kernel / fused_dense_attention_fwd (v1, row 10) and _attn_kernel_v2 /
+//     fused_dense_attention_fwd_v2 (row 12), one function with one layout:
+//     attn_rows_kernel<false>;
 //   - _attn_bwd_kernel / fused_dense_attention_bwd (v1, row 11): the query pass
 //     attn_rows_kernel<true>, then the key pass attn_cols_kernel;
-//   - _attn_kernel_v2 / fused_dense_attention_fwd_v2 (row 12) and
-//     _attn_bwd_kernel_v2 / fused_dense_attention_bwd_v2 (row 13):
-//     attn_kernel<false> and attn_kernel<true>, a block per (bin, head).
+//   - _attn_bwd_kernel_v2 / fused_dense_attention_bwd_v2 (row 13): both passes
+//     in one launch on thread-block clusters, attn_cluster_kernel.
 // All read and write JAX's layouts: q, k, v, out, the cotangent g and g_q,
 // g_k, g_v [B, V, H * dh]; eb and g_eb [B, H, E]; src, dst [B, E] int32;
 // edge_mask [B, E] bytes (0 = padding).
@@ -30,67 +31,65 @@
 //   on a live edge and 0 on any other (the gather that the TPU kernel's
 //   T = St g_s; sum_j T * G reduces to).
 //
-// Design of rows 12-13. The TPU kernels build the one-hot operators G and St
-// and the [V, V] score tile in VMEM and run every product densely on the MXU.
-// Here the mask is what it is, a sparse set of pairs: a molecule's node has a
-// few bonded neighbours, so M has about as many nonzeros as the bin has real
-// edges (3,738 of the 16 x 128 x 128 lanes of the packed lipo batch).
-// Each block builds, in shared memory and from src, dst and edge_mask alone,
-// the bin's live edges grouped by dst (a CSR over query rows: counts by
-// shared-memory int atomics, which do not depend on order, a scan, then each
-// node's run sorted by edge id) and links the edges of a run that share a
-// src, so that each (i, j) pair is one softmax lane whose bias sums its edges
-// in ascending e. The backward also groups each pair by src (a CSR over key
-// rows, each run sorted by query row). Nothing of the mask or the bias is
-// read from device memory; nothing of size V x V exists anywhere.
-// The head's slices of k and v (forward and the backward's row pass), then of
-// q and the cotangent (the backward's column pass) are staged in shared
-// memory with 16-byte loads, all threads at once; a group of up to 32 lanes
-// (dh / 4 rounded up to a power of two) owns one query row, each lane one
-// 16-byte column vector per 128 columns, and reduces its dot products with
-// xor shuffles, which give every lane of the group the same bits. The
-// softmax takes two passes over the row's pairs (max, then sum and combine),
-// in the order of the run, as the plain version's dense row sums would add
-// the same nonzero terms. g_k and g_v sum over query rows: each is written
-// once, by the group that owns its key row, over its src-grouped pairs in
-// ascending query row, with no float atomics, so two calls give the same bits.
-//
-// Design of rows 10-11: every bin and head in flight at once. The TPU's v1
-// grid walks tiles of bins in order on one core, looping over the heads; on
-// the card blocks run side by side, so no block loops over bins or heads.
-// The (row, head) slots of a bin are numbered s = i * H + h, and the grid
-// puts a block of 128 threads on each (bin, run of 128 / gsz slots), a lane
-// group on each slot: gsz lanes of up to two 16-byte vectors of the head's
-// dh columns each (8 lanes at dh = 64), so that a row's scalar work (the walk
+// Design: every bin and head in flight at once. The TPU's grids walk tiles of
+// bins in order on one core (v1 looping over the heads, v2 a grid step per
+// head) and build the one-hot operators and the [V, V] score tile in VMEM for
+// the MXU; here the mask is what it is, a sparse set of pairs (a molecule's
+// node has a few bonded neighbours: 3,738 live of the 16 x 128 x 128 lanes of
+// the packed lipo batch), and blocks run side by side, so no block loops over
+// bins or heads and nothing of size V x V exists anywhere. The (row, head)
+// slots of a bin are numbered s = i * H + h; a lane group takes a slot: gsz
+// lanes of up to two (row 13: four) 16-byte vectors of the head's dh columns
+// each (8 lanes at dh = 64; row 13 4), so that a row's scalar work (the walk
 // of its pairs, the softmax) is repeated on few lanes. The heads of one row
 // sit in neighbouring groups: a neighbour's k or v row is read as one
-// contiguous line of H * dh floats. A block first gathers, from the bin's
-// src, dst and edge_mask lanes, the live edges whose dst (the query pass) or
-// src (the key pass) is one of its rows, in ascending edge id (a ballot per
-// warp, the warps' counts added in warp order, the next lanes' loads in
-// flight meanwhile), and links the edges of each (dst, src) pair from the
-// first, its leader: the index of its rows, built once for all their heads,
-// 24 bytes a lane of shared memory, and no [V, dh] staging. Each group then
-// gathers its pairs' head slices through L2, 16 bytes a lane, the reads of up
-// to 4 / (vectors a lane) pairs issued together.
-//   Forward (row 10): one pass over the row's pairs in ascending leader, an
-//   online softmax (the sum and the combine rescaled when the running max
-//   rises).
-//   Backward (row 11), the query pass: the same pass also sums, rescaled
-//   alike, exp * g_alpha, exp * g_alpha * k_j and exp * k_j, so that
+// contiguous line of H * dh floats. A block of 128 threads first gathers,
+// from the bin's src, dst and edge_mask lanes, the live edges whose dst (a
+// query pass's list) or src (a key pass's) is one of its rows, in ascending
+// edge id (a ballot per warp, the warps' counts added in warp order, the next
+// lanes' loads in flight meanwhile), then sorts each list by (its row, the
+// other end, edge id) in one step, each entry's place the count of the
+// entries before it: a row's pairs are then a contiguous run, found by binary
+// search, and a pair's edges follow its first, its leader. That is the index
+// of its rows, built once for all their heads, 24 bytes a lane of shared
+// memory a list, and no [V, dh] staging. Each group then gathers its pairs'
+// head slices through L2, 16 bytes a lane, the reads of up to 4 / (vectors a
+// lane) pairs issued together.
+//   Forward (rows 10 and 12): a block per (bin, run of 128 / gsz slots); one
+//   pass over the row's pairs in ascending src, an online softmax (the sum and
+//   the combine rescaled when the running max rises).
+//   The query pass of a backward: the same pass also sums, rescaled alike,
+//   exp * g_alpha, exp * g_alpha * k_j and exp * k_j, so that
 //   g_q_i = (sum exp g_alpha k_j - D_i sum exp k_j) / (sum exp) / sqrt(dh)
-//   with D_i = sum_j alpha g_alpha, and leaves in scratch each pair's score
-//   and g_alpha (at its leader edge, [B, H, E]) and each slot's max, sum and
-//   D_i ([B, H, V]). The first block of each bin zeroes g_eb on the bin's
-//   lanes that are not live.
-//   The key pass (a second launch, the card's answer to the TPU's sequential
-//   grid): a group per (key row, head) takes its pairs in ascending query row
-//   (the leaders sorted by (src, dst) in shared memory), forms
-//   alpha = exp(score - max) / sum and g_s = alpha g_alpha - alpha D_i from
-//   the scratch, sums alpha g_i into g_v_j and g_s q_i into g_k_j, and writes
-//   g_s on each of the pair's edges in g_eb.
+//   with D_i = sum_j alpha g_alpha, and keeps each pair's score and g_alpha
+//   (at its leader edge) and each slot's max, sum and D_i.
+//   The key pass: a group per (key row, head) takes its pairs in ascending
+//   query row, forms alpha = exp(score - max) / sum and
+//   g_s = alpha g_alpha - alpha D_i from those values, sums alpha g_i into
+//   g_v_j and g_s q_i into g_k_j, and writes g_s on each of the pair's edges
+//   in g_eb; the lanes that are not live are zeroed by one block of the bin.
+//   Row 11 runs the two passes as two launches of blocks per (bin, run of
+//   slots), the values between them in device scratch ([B, H, E] twice and
+//   [B, H, V] three times). Row 13 runs them in one launch on thread-block
+//   clusters, a cluster of C <= 16 blocks per bin: block r owns the query and
+//   key rows [r * R, (r + 1) * R), R = ceil(V / C), all their heads, in runs
+//   of 128 / gsz slots; it gathers its rows' edges by dst and by src in one
+//   pass over the bin's lanes and sorts both lists side by side, runs the
+//   query pass over its slots, keeping the values in its own shared memory
+//   ([H, E] twice, [R, H] three times), meets the other blocks at a cluster
+//   barrier, then runs the key pass, reading each pair's values from the block
+//   that owns its query row through distributed shared memory; a second
+//   cluster barrier keeps each block's shared memory until the others have
+//   read it. The values never leave the SMs and the key pass waits for no
+//   second launch.
+//   What holds these latency-bound blocks is how many the card holds at once:
+//   a launch that takes two waves takes twice as long. So row 13's groups are
+//   4 lanes of 4 vectors at dh = 64, capped at 128 registers (the dense lipo
+//   batch's 64 clusters of 6 blocks in one wave), and row 12, row 10's kernel,
+//   has an instantiation of its own capped at 80 registers (768 blocks in one
+//   wave); row 10 keeps its launch.
 //   Every output is written once, by one group, in a fixed order, with no
-//   float atomics: two calls give the same bits.
+//   float atomics: two calls give the same bits, and row 12 gives row 10's.
 // Exact f32 on CUDA cores throughout, no TF32.
 //
 // What bounds them on this card. Counted at this data's live pairs, the
@@ -100,29 +99,40 @@
 // once over 3.35 TB/s (2.5 us forward and 4.4 us backward at the packed lipo
 // batch of 16 bins, V = 128, E = 256, H = 4, dh = 64). Counted densely, as
 // the TPU's MXU runs them (4 V^2 dh a head forward), they would be bound by
-// operations. What the designs do about the bytes: rows 12-13 read each
-// element of q, k, v and g from device memory once per (bin, head) block, by
-// 16-byte loads that all threads issue together, and every further read hits
-// shared memory, after an index build and barriers that cost a few
-// microseconds a block. Rows 10-11 read each operand row from device memory
-// into L2 once (2 MB an operand at the packed batch, far under the 50 MB L2)
-// and gather from there only the rows a pair needs. What is left over the
-// bytes is latency, paid once per launch and not per head: the launch, the
-// block's gather (its loads and five barriers), and a row's batches of pair
-// reads in turn; the backward pays it twice, once per pass.
+// operations. Each operand row goes from device memory into L2 once (2 MB an
+// operand at the packed batch, far under the 50 MB L2) and only the rows a
+// pair needs are gathered from there. What is left over the bytes is latency,
+// paid once per launch and not per head: the launch, the block's gather (its
+// loads and barriers), and a row's batches of pair reads in turn; row 11 pays
+// the launch and the gather twice, row 13 once, and two cluster barriers.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxChunks = 4;           // 16-byte vectors of a head row per lane: dh <= 512
-constexpr int kMaxDh = 4 * 32 * kMaxChunks;
+constexpr int kMaxDh = 512;             // four 16-byte vectors on each lane of a warp
+constexpr int kMaxV = 46340;            // node slots a bin: a list's keys row * V + other fit an int
 constexpr int kMaxSmem = 232448;        // the 227 KB a block may use after the opt-in
+constexpr int kListThreads = 128;
+constexpr int kWarps = kListThreads / 32;
+// Blocks a bin's cluster holds at most (row 13): above the portable 8 with the
+// non-portable opt-in, where two blocks fit an SM's shared memory.
+constexpr int kMaxCluster = 16;
+// Blocks an SM must hold (the register cap: 65,536 / 128 / this): row 12's
+// forward below four vectors a lane (80 registers: the dense lipo batch's 768
+// blocks in one wave), row 13 at four (128 registers: its 64 clusters of 6
+// blocks in one wave, where 148 registers held 62 at once).
+constexpr int kV2FwdMinBlocks = 6;
+constexpr int kClusterMinBlocks4 = 4;
+// 1 builds the stage stamps (see stamp); the timing script's --stages build.
+constexpr int kStages = 0;
 
 struct Args {
   const float* q;
@@ -140,64 +150,41 @@ struct Args {
   float* geb;                    // backward with eb, else null
   int B, V, E, H, dh;
   float scale;                   // 1 / sqrt(dh)
+  int vecs;                      // 16-byte vectors a lane at most (see list_group_size)
 };
 
-// Shared memory of one bin (ints first, then floats; the two staged head
-// slices last, 16-byte aligned).
-struct Bin {
-  int* src;     // [E] src of every lane
-  int* dst;     // [E] dst of a live edge, -1 on any other lane
-  int* pos;     // [E] a live edge's position in the dst-grouped list, else -1
-  int* start;   // [V + 1] each query row's run in the dst-grouped list
-  int* fill;    // [V]
-  int* edge;    // [E] the dst-grouped list: edge ids, ascending within a run
-  int* nbr;     // [E] src of edge[p]
-  int* leader;  // [E] the first position of p's run with the same src
-  int* next;    // [E] the next position of p's run with the same src, or -1
-  int* tstart;  // [V + 1] backward: each key row's run of leaders
-  int* tfill;   // [V]
-  int* tlist;   // [E] backward: leaders grouped by src, ascending query row
-  float* ebh;   // [E] this head's edge bias (0 without one)
-  float* sc;    // [E] per leader: the score; after the backward's rows, g_s
-  float* alpha; // [E] backward, per leader
-  float* ga;    // [E] backward, per leader: g_alpha
-  float* buf0;  // [V, dh] k's head slice, then (backward) q's
-  float* buf1;  // [V, dh] v's head slice, then (backward) the cotangent's
-};
+// Stage stamps of a kStages build: thread 0 of block 0 writes %globaltimer
+// (ns) at each phase boundary of a kernel (stage_at[kernel][stage]), and
+// thread 0 of every block takes the earliest start and the latest end over
+// the launch (stage_span[kernel]).
+enum StageKernel { kFwdKernel, kRowsKernel, kColsKernel, kClusterKernel, kStageKernels };
+constexpr int kStageSlots = 10;
+__device__ unsigned long long stage_at[kStageKernels][kStageSlots];
+__device__ unsigned long long stage_span[kStageKernels][2];
 
-__host__ __device__ inline int words_before_bufs(int V, int E) {
-  const int words = 13 * E + 4 * V + 2;
-  return (words + 3) / 4 * 4;
+__device__ inline unsigned long long globaltimer_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
-__host__ __device__ inline size_t smem_bytes(int V, int E, int dh) {
-  return sizeof(float) * ((size_t)words_before_bufs(V, E) + 2 * (size_t)V * dh);
+__device__ inline void stamp(int kernel, int stage, bool start, bool end) {
+  if constexpr (kStages != 0) {
+    if (threadIdx.x != 0) return;
+    const unsigned long long t = globaltimer_ns();
+    if (blockIdx.x == 0) stage_at[kernel][stage] = t;
+    if (start) atomicMin(&stage_span[kernel][0], t);
+    if (end) atomicMax(&stage_span[kernel][1], t);
+  }
 }
 
-__device__ inline Bin carve(void* base, int V, int E, int dh) {
-  Bin s;
-  int* w = static_cast<int*>(base);
-  s.src = w;          w += E;
-  s.dst = w;          w += E;
-  s.pos = w;          w += E;
-  s.start = w;        w += V + 1;
-  s.fill = w;         w += V;
-  s.edge = w;         w += E;
-  s.nbr = w;          w += E;
-  s.leader = w;       w += E;
-  s.next = w;         w += E;
-  s.tstart = w;       w += V + 1;
-  s.tfill = w;        w += V;
-  s.tlist = w;        w += E;
-  float* f = reinterpret_cast<float*>(w);
-  s.ebh = f;          f += E;
-  s.sc = f;           f += E;
-  s.alpha = f;        f += E;
-  s.ga = f;
-  float* bufs = static_cast<float*>(base) + words_before_bufs(V, E);
-  s.buf0 = bufs;
-  s.buf1 = bufs + (size_t)V * dh;
-  return s;
+// kStages builds, row 13: the latest of the blocks of bin 0's cluster at
+// stage slot `slot` (their start, the end of each pass).
+__device__ inline void stamp_cluster0(int slot, int size) {
+  if constexpr (kStages != 0) {
+    if (threadIdx.x == 0 && (int)blockIdx.x < size)
+      atomicMax(&stage_at[kClusterKernel][slot], globaltimer_ns());
+  }
 }
 
 __device__ inline float4 zero4() { return make_float4(0.f, 0.f, 0.f, 0.f); }
@@ -215,133 +202,11 @@ __device__ inline float4 scale4(float s, float4 x) {
   return make_float4(s * x.x, s * x.y, s * x.z, s * x.w);
 }
 
-// Lanes a query row's group spans: dh / 4 rounded up to a power of two, at
-// most a warp.
-__device__ inline int group_size(int nq) {
-  int g = 1;
-  while (g < nq && g < 32) g <<= 1;
-  return g;
-}
-
 // Sum over a group by xor shuffles: every lane ends with the same bits, since
 // each step adds the same two values on both lanes of a pair.
 __device__ inline float group_sum(float x, unsigned mask, int gsz) {
   for (int off = gsz >> 1; off > 0; off >>= 1) x += __shfl_xor_sync(mask, x, off, gsz);
   return x;
-}
-
-// Inclusive scan of a[0, n) in place, by warp 0; the caller syncs after.
-__device__ void warp_scan(int* a, int n) {
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
-  const int per = (n + 31) / 32;
-  const int lo = min(lane * per, n), hi = min(lo + per, n);
-  int total = 0;
-  for (int i = lo; i < hi; ++i) total += a[i];
-  int incl = total;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl += y;
-  }
-  int run = incl - total;
-  for (int i = lo; i < hi; ++i) {
-    run += a[i];
-    a[i] = run;
-  }
-}
-
-// Insertion sort of a short run a[lo, hi) (a node's in- or out-degree).
-__device__ inline void sort_run(int* a, int lo, int hi) {
-  for (int p = lo + 1; p < hi; ++p) {
-    const int key = a[p];
-    int r = p - 1;
-    while (r >= lo && a[r] > key) {
-      a[r + 1] = a[r];
-      --r;
-    }
-    a[r + 1] = key;
-  }
-}
-
-// The bin's live edges grouped by dst, each src's edges linked, and (with
-// kBwd) the pairs grouped by src.
-template <bool kBwd>
-__device__ void build_bin(const Args& a, const Bin& s, int b) {
-  const int tid = threadIdx.x, nt = blockDim.x, V = a.V, E = a.E;
-  const size_t base = (size_t)b * E;
-  for (int i = tid; i <= V; i += nt) {
-    s.start[i] = 0;
-    s.tstart[i] = 0;
-  }
-  for (int e = tid; e < E; e += nt) {
-    const int j = a.src[base + e], i = a.dst[base + e];
-    const bool live = a.emask[base + e] != 0 && j >= 0 && j < V && i >= 0 && i < V;
-    s.src[e] = j;
-    s.dst[e] = live ? i : -1;
-    s.pos[e] = -1;
-  }
-  __syncthreads();
-  for (int e = tid; e < E; e += nt)
-    if (s.dst[e] >= 0) atomicAdd(&s.start[s.dst[e] + 1], 1);
-  __syncthreads();
-  warp_scan(s.start, V + 1);
-  __syncthreads();
-  for (int i = tid; i < V; i += nt) s.fill[i] = s.start[i];
-  __syncthreads();
-  for (int e = tid; e < E; e += nt)
-    if (s.dst[e] >= 0) s.edge[atomicAdd(&s.fill[s.dst[e]], 1)] = e;
-  __syncthreads();
-  // one thread a query row: its run in edge order, then each src's edges
-  // linked from the first (the pair's leader)
-  for (int i = tid; i < V; i += nt) {
-    const int lo = s.start[i], hi = s.start[i + 1];
-    sort_run(s.edge, lo, hi);
-    for (int p = lo; p < hi; ++p) {
-      const int e = s.edge[p], j = s.src[e];
-      s.nbr[p] = j;
-      s.pos[e] = p;
-      s.next[p] = -1;
-      s.leader[p] = p;
-      for (int r = lo; r < p; ++r) {
-        if (s.nbr[r] == j) {
-          s.leader[p] = r;
-          int t = r;
-          while (s.next[t] >= 0) t = s.next[t];
-          s.next[t] = p;
-          break;
-        }
-      }
-    }
-  }
-  __syncthreads();
-  if constexpr (kBwd) {
-    const int live = s.start[V];
-    for (int p = tid; p < live; p += nt)
-      if (s.leader[p] == p) atomicAdd(&s.tstart[s.nbr[p] + 1], 1);
-    __syncthreads();
-    warp_scan(s.tstart, V + 1);
-    __syncthreads();
-    for (int j = tid; j < V; j += nt) s.tfill[j] = s.tstart[j];
-    __syncthreads();
-    for (int p = tid; p < live; p += nt)
-      if (s.leader[p] == p) s.tlist[atomicAdd(&s.tfill[s.nbr[p]], 1)] = p;
-    __syncthreads();
-    // positions ascend with the query row, so a sorted run is in row order
-    for (int j = tid; j < V; j += nt) sort_run(s.tlist, s.tstart[j], s.tstart[j + 1]);
-    __syncthreads();
-  }
-}
-
-// Head h's [V, dh] slice of x [B, V, H * dh] into buf, 16 bytes a thread.
-__device__ void stage(const float* x, float* buf, const Args& a, int b, int h) {
-  const int nq = a.dh / 4;
-  float4* to = reinterpret_cast<float4*>(buf);
-  for (int idx = threadIdx.x; idx < a.V * nq; idx += blockDim.x) {
-    const int r = idx / nq, c = idx - r * nq;
-    const size_t row = ((size_t)b * a.V + r) * a.H * a.dh + (size_t)h * a.dh;
-    to[idx] = __ldg(reinterpret_cast<const float4*>(x + row) + c);
-  }
 }
 
 struct Group {
@@ -362,194 +227,6 @@ __device__ inline Group lane_group(int dh, int gsz) {
   return g;
 }
 
-__device__ inline Group row_group(int dh) { return lane_group(dh, group_size(dh / 4)); }
-
-// The query-row pass: scores, softmax and combine (forward), or g_alpha,
-// g_s and g_q (backward, with alpha and g_s left per leader in shared
-// memory). buf0 holds k's head slice, buf1 v's.
-template <bool kBwd>
-__device__ void rows(const Args& a, const Bin& s, int b, int h) {
-  const Group g = row_group(a.dh);
-  const float4* kb = reinterpret_cast<const float4*>(s.buf0);
-  const float4* vb = reinterpret_cast<const float4*>(s.buf1);
-  const bool bias = a.eb != nullptr;
-  for (int i = g.index; i < a.V; i += g.count) {
-    const size_t row = ((size_t)b * a.V + i) * a.H * a.dh + (size_t)h * a.dh;
-    float4 qi[kMaxChunks], gi[kMaxChunks];
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      const int col = g.lane + c * g.gsz;
-      qi[c] = col < g.nq ? __ldg(reinterpret_cast<const float4*>(a.q + row) + col) : zero4();
-      gi[c] = zero4();
-      if constexpr (kBwd)
-        if (col < g.nq) gi[c] = __ldg(reinterpret_cast<const float4*>(a.g + row) + col);
-    }
-    const int lo = s.start[i], hi = s.start[i + 1];
-    float m = -INFINITY;
-    for (int p = lo; p < hi; ++p) {
-      if (s.leader[p] != p) continue;
-      const int j = s.nbr[p];
-      float part = 0.f;
-#pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) {
-        const int col = g.lane + c * g.gsz;
-        if (col < g.nq) part += dot4(qi[c], kb[j * g.nq + col]);
-      }
-      float sc = group_sum(part, g.mask, g.gsz) * a.scale;
-      if (bias) {
-        float bsum = 0.f;
-        for (int t = p; t >= 0; t = s.next[t]) bsum += s.ebh[s.edge[t]];
-        sc += bsum;
-      }
-      if (g.lane == 0) s.sc[p] = sc;
-      m = fmaxf(m, sc);
-    }
-    __syncwarp(g.mask);
-    float den = 0.f;
-    for (int p = lo; p < hi; ++p)
-      if (s.leader[p] == p) den += expf(s.sc[p] - m);
-    den = fmaxf(den, 1e-12f);
-    float4 acc[kMaxChunks];
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) acc[c] = zero4();
-    if constexpr (!kBwd) {
-      for (int p = lo; p < hi; ++p) {
-        if (s.leader[p] != p) continue;
-        const float al = expf(s.sc[p] - m) / den;
-        const int j = s.nbr[p];
-#pragma unroll
-        for (int c = 0; c < kMaxChunks; ++c) {
-          const int col = g.lane + c * g.gsz;
-          if (col < g.nq) acc[c] = fma4(al, vb[j * g.nq + col], acc[c]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) {
-        const int col = g.lane + c * g.gsz;
-        if (col < g.nq) reinterpret_cast<float4*>(a.out + row)[col] = acc[c];
-      }
-    } else {
-      float tsum = 0.f;
-      for (int p = lo; p < hi; ++p) {
-        if (s.leader[p] != p) continue;
-        const float al = expf(s.sc[p] - m) / den;
-        const int j = s.nbr[p];
-        float part = 0.f;
-#pragma unroll
-        for (int c = 0; c < kMaxChunks; ++c) {
-          const int col = g.lane + c * g.gsz;
-          if (col < g.nq) part += dot4(gi[c], vb[j * g.nq + col]);
-        }
-        const float ga = group_sum(part, g.mask, g.gsz);
-        if (g.lane == 0) {
-          s.alpha[p] = al;
-          s.ga[p] = ga;
-        }
-        tsum += al * ga;
-      }
-      __syncwarp(g.mask);
-      for (int p = lo; p < hi; ++p) {
-        if (s.leader[p] != p) continue;
-        const float al = s.alpha[p];
-        const float gs = al * s.ga[p] - al * tsum;
-        if (g.lane == 0) s.sc[p] = gs;
-        const int j = s.nbr[p];
-#pragma unroll
-        for (int c = 0; c < kMaxChunks; ++c) {
-          const int col = g.lane + c * g.gsz;
-          if (col < g.nq) acc[c] = fma4(gs, kb[j * g.nq + col], acc[c]);
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) {
-        const int col = g.lane + c * g.gsz;
-        if (col < g.nq) reinterpret_cast<float4*>(a.gq + row)[col] = scale4(a.scale, acc[c]);
-      }
-    }
-  }
-}
-
-// The backward's key-row pass: g_v and g_k from the pairs grouped by src, in
-// ascending query row; then g_eb. buf0 holds q's head slice, buf1 the
-// cotangent's; alpha and g_s (in sc) are complete for every leader.
-__device__ void columns(const Args& a, const Bin& s, int b, int h) {
-  const Group g = row_group(a.dh);
-  const float4* qb = reinterpret_cast<const float4*>(s.buf0);
-  const float4* gb = reinterpret_cast<const float4*>(s.buf1);
-  for (int j = g.index; j < a.V; j += g.count) {
-    const size_t row = ((size_t)b * a.V + j) * a.H * a.dh + (size_t)h * a.dh;
-    float4 accv[kMaxChunks], acck[kMaxChunks];
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) accv[c] = acck[c] = zero4();
-    for (int t = s.tstart[j]; t < s.tstart[j + 1]; ++t) {
-      const int p = s.tlist[t], i = s.dst[s.edge[p]];
-      const float al = s.alpha[p], gs = s.sc[p];
-#pragma unroll
-      for (int c = 0; c < kMaxChunks; ++c) {
-        const int col = g.lane + c * g.gsz;
-        if (col < g.nq) {
-          accv[c] = fma4(al, gb[i * g.nq + col], accv[c]);
-          acck[c] = fma4(gs, qb[i * g.nq + col], acck[c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kMaxChunks; ++c) {
-      const int col = g.lane + c * g.gsz;
-      if (col < g.nq) {
-        reinterpret_cast<float4*>(a.gv + row)[col] = accv[c];
-        reinterpret_cast<float4*>(a.gk + row)[col] = scale4(a.scale, acck[c]);
-      }
-    }
-  }
-  if (a.geb != nullptr) {
-    float* geb = a.geb + ((size_t)b * a.H + h) * a.E;
-    for (int e = threadIdx.x; e < a.E; e += blockDim.x) {
-      const int p = s.pos[e];
-      geb[e] = p >= 0 ? s.sc[s.leader[p]] : 0.f;
-    }
-  }
-}
-
-template <bool kBwd>
-__device__ void head(const Args& a, const Bin& s, int b, int h) {
-  stage(a.k, s.buf0, a, b, h);
-  stage(a.v, s.buf1, a, b, h);
-  for (int e = threadIdx.x; e < a.E; e += blockDim.x)
-    s.ebh[e] = a.eb != nullptr ? a.eb[((size_t)b * a.H + h) * a.E + e] : 0.f;
-  __syncthreads();
-  rows<kBwd>(a, s, b, h);
-  __syncthreads();
-  if constexpr (kBwd) {
-    stage(a.q, s.buf0, a, b, h);
-    stage(a.g, s.buf1, a, b, h);
-    __syncthreads();
-    columns(a, s, b, h);
-    __syncthreads();
-  }
-}
-
-// Rows 12-13: block (b, h).
-template <bool kBwd>
-__global__ void __launch_bounds__(kThreads) attn_kernel(const Args a) {
-  extern __shared__ __align__(16) float smem[];
-  const Bin s = carve(smem, a.V, a.E, a.dh);
-  build_bin<kBwd>(a, s, blockIdx.x);
-  head<kBwd>(a, s, blockIdx.x, blockIdx.y);
-}
-
-template <bool kBwd>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.V, a.E, a.dh);
-  static uint64_t configured = 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = allow_smem((const void*)attn_kernel<kBwd>, kMaxSmem, configured);
-    if (err != cudaSuccess) return err;
-  }
-  attn_kernel<kBwd><<<dim3(a.B, a.H), kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 bool misaligned(const Args& a) {
   const uintptr_t vecs = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v | (uintptr_t)a.g |
                          (uintptr_t)a.out | (uintptr_t)a.gq | (uintptr_t)a.gk | (uintptr_t)a.gv;
@@ -560,92 +237,105 @@ bool bad_head(const Args& a) {
   return a.B < 0 || a.V <= 0 || a.E <= 0 || a.H <= 0 || a.dh <= 0 || a.dh % 4 != 0 || a.dh > kMaxDh;
 }
 
-bool bad_shape(const Args& a) {
-  return bad_head(a) || smem_bytes(a.V, a.E, a.dh) > (size_t)kMaxSmem || misaligned(a);
-}
-
-cudaError_t run(const Args& a, bool bwd, void* stream) {
-  if (bad_shape(a)) return cudaErrorInvalidValue;
-  if (a.B == 0) return cudaSuccess;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bwd ? launch<true>(a, st) : launch<false>(a, st);
-}
-
-// ---- rows 10-11: a lane group per (query or key row, head) -----------------
-
-constexpr int kListThreads = 128;
-constexpr int kWarps = kListThreads / 32;
 // Blocks an SM must hold at kC vectors a lane: a cap of 128 registers a
 // thread (255 at 4 vectors), which keeps the packed lipo batch's 512 blocks
 // of either pass in one wave on 132 SMs.
 template <int kC>
 constexpr int kMinBlocks = kC == 4 ? 2 : 4;
 
-// Shared memory of one block of rows 10-11: the bin's live edges whose dst
-// (query pass) or src (key pass) is one of the block's rows.
+// Shared memory of one list: the bin's live edges whose dst (a query pass's
+// list) or src (a key pass's) is one of the block's rows, keyed by that row
+// and the other end, key = row * V + other, and sorted by key and edge id:
+// a row's pairs are contiguous in ascending other end, and a pair's edges in
+// ascending edge id from the first, its leader.
 struct List {
-  int* e;     // [E] edge ids, ascending
-  int* dst;   // [E]
-  int* src;   // [E]
-  int* nxt;   // [E] the next entry of the same (dst, src) pair, or -1
-  int* lead;  // [E] 1 on a pair's first entry (its leader), else 0
-  int* ord;   // [E] key pass: the leaders sorted by (src, dst)
-  int* misc;  // [kWarps + 1] the warps' counts of a gather step, then the leaders
+  int* key;    // [E] ascending
+  int* other;  // [E] the other end: src in a query pass's list, dst in a key pass's
+  int* e;      // [E] edge ids
+  int* lead;   // [E] 1 on a pair's first entry, else 0
+  int* misc;   // [kWarps] the warps' counts of a gather step
+  int* gkey;   // [E] the keys in gather order (ascending edge id), until sorted
+  int* ge;     // [E] the edge ids in gather order, until sorted
 };
 
-__host__ __device__ inline size_t list_smem_bytes(int E) {
-  return sizeof(int) * (6 * (size_t)E + kWarps + 1);
-}
+// Words of a sorted list, and of its gather order (free once sorted).
+__host__ __device__ inline size_t list_words(int E) { return 4 * (size_t)E + kWarps; }
 
-__device__ inline List carve_list(int* w, int E) {
+__host__ __device__ inline size_t list_smem_bytes(int E) { return sizeof(int) * (list_words(E) + 2 * (size_t)E); }
+
+__device__ inline List carve_list(int* w, int E, int* gather) {
   List l;
-  l.e = w;     w += E;
-  l.dst = w;   w += E;
-  l.src = w;   w += E;
-  l.nxt = w;   w += E;
-  l.lead = w;  w += E;
-  l.ord = w;   w += E;
+  l.key = w;    w += E;
+  l.other = w;  w += E;
+  l.e = w;      w += E;
+  l.lead = w;   w += E;
   l.misc = w;
+  l.gkey = gather;
+  l.ge = gather + E;
   return l;
 }
 
-// Lanes a (row, head) slot of rows 10-11 spans: its dh / 4 16-byte vectors
-// at up to kVecs a lane, rounded up to a power of two, at most a warp (8
-// lanes at dh = 64). Fewer lanes a slot repeat a row's scalar work (the walk
-// of its pairs, the softmax) on fewer lanes.
+// Lanes a (row, head) slot spans: its dh / 4 16-byte vectors at up to `vecs`
+// a lane, rounded up to a power of two, at most a warp (8 lanes at dh = 64
+// and 2 vectors). Fewer lanes a slot repeat a row's scalar work (the walk of
+// its pairs, the softmax) on fewer lanes and hold fewer registers a slot.
+// The forwards and row 11 take kVecs; row 13 kV2BwdVecs (4 lanes at dh = 64:
+// 512 registers a slot where 8 lanes hold 992, so that a bin's slots fit).
 constexpr int kVecs = 2;
+constexpr int kV2BwdVecs = 4;
 
-__host__ __device__ inline int list_group_size(int dh) {
+__host__ __device__ inline int list_group_size(int dh, int vecs) {
   int g = 1;
-  while (g * kVecs < dh / 4 && g < 32) g <<= 1;
+  while (g * vecs < dh / 4 && g < 32) g <<= 1;
   return g;
 }
 
-__device__ inline Group list_group(int dh) { return lane_group(dh, list_group_size(dh)); }
+__device__ inline Group list_group(const Args& a) { return lane_group(a.dh, list_group_size(a.dh, a.vecs)); }
 
-// (row, head) slots a block of rows 10-11 takes, its blocks per bin, and
-// the 16-byte vectors of a head row each lane holds (1, 2 or 4 at most).
-__host__ __device__ inline int slots_per_block(int dh) { return kListThreads / list_group_size(dh); }
-
-__host__ __device__ inline int chunks_per_bin(int V, int H, int dh) {
-  const int per = slots_per_block(dh);
-  return (int)(((long long)V * H + per - 1) / per);
+// (row, head) slots a block takes at once, its blocks per bin (rows 10-12),
+// and the 16-byte vectors of a head row each lane holds (1, 2 or 4 at most).
+__host__ __device__ inline int slots_per_block(const Args& a) {
+  return kListThreads / list_group_size(a.dh, a.vecs);
 }
 
-__host__ __device__ inline int vectors_per_lane(int dh) {
-  const int gsz = list_group_size(dh), per = (dh / 4 + gsz - 1) / gsz;
+__host__ __device__ inline int chunks_per_bin(const Args& a) {
+  const int per = slots_per_block(a);
+  return (int)(((long long)a.V * a.H + per - 1) / per);
+}
+
+__host__ __device__ inline int vectors_per_lane(const Args& a) {
+  const int gsz = list_group_size(a.dh, a.vecs), per = (a.dh / 4 + gsz - 1) / gsz;
   return per == 1 ? 1 : per == 2 ? 2 : 4;
 }
 
-// The live edges of bin b whose dst (kByDst) or src lies in [lo, hi], in
-// ascending edge id, each pair's edges linked from its leader. With `dead`
-// (the bin's g_eb), zeroes it on every lane that is not live. Returns the
-// list's length; the leaders' count is left in misc[kWarps].
-template <bool kByDst>
-__device__ int gather_edges(const Args& a, const List& l, int b, int lo, int hi, float* dead) {
+// Entry p of a gathered list (n long) to its place in key order, ties in
+// gather order (ascending edge id): its rank is the count of entries with a
+// smaller key or the same key gathered before it.
+__device__ inline void sort_entry(const List& l, int n, int p, int V) {
+  const int k = l.gkey[p];
+  int less = 0, before = 0;
+#pragma unroll 4
+  for (int r = 0; r < n; ++r) {
+    const int kr = l.gkey[r];
+    less += kr < k;
+    before += kr == k && r < p;
+  }
+  const int at = less + before;
+  l.key[at] = k;
+  l.other[at] = k - k / V * V;
+  l.e[at] = l.ge[p];
+  l.lead[at] = before == 0;
+}
+
+// The live edges of bin b whose dst lies in [lo, hi] (into by_dst, with kDst)
+// and those whose src does (into by_src, with kSrc), each list sorted (see
+// List), the two sorts side by side. With `dead` (the bin's g_eb), zeroes it
+// on every lane that is not live. Returns the two lists' lengths.
+template <bool kDst, bool kSrc>
+__device__ int2 gather_lists(const Args& a, const List& by_dst, const List& by_src, int b, int lo, int hi,
+                             float* dead, int stage_kernel) {
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const size_t base = (size_t)b * a.E;
-  if (tid == 0) l.misc[kWarps] = 0;
   // each step's lanes are read while the step before is placed
   auto read = [&](int e, int& i, int& j, unsigned char& m) {
     if (e < a.E) {
@@ -657,7 +347,7 @@ __device__ int gather_edges(const Args& a, const List& l, int b, int lo, int hi,
   int i = -1, j = -1;
   unsigned char m = 0;
   read(tid, i, j, m);
-  int n = 0;
+  int nd = 0, ns = 0;
   for (int e0 = 0; e0 < a.E; e0 += kListThreads) {
     const int e = e0 + tid;
     int i2 = -1, j2 = -1;
@@ -666,42 +356,80 @@ __device__ int gather_edges(const Args& a, const List& l, int b, int lo, int hi,
     const bool live = e < a.E && m != 0 && j >= 0 && j < a.V && i >= 0 && i < a.V;
     if (dead != nullptr && e < a.E && !live)
       for (int h = 0; h < a.H; ++h) dead[(size_t)h * a.E + e] = 0.f;
-    const int key = kByDst ? i : j;
-    const bool hit = live && key >= lo && key <= hi;
-    const unsigned bits = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) l.misc[warp] = __popc(bits);
-    __syncthreads();
-    int at = n;
-    for (int w = 0; w < kWarps; ++w) {
-      if (w == warp) at = n;
-      n += l.misc[w];
+    const bool hit_d = kDst && live && i >= lo && i <= hi;
+    const bool hit_s = kSrc && live && j >= lo && j <= hi;
+    unsigned bits_d = 0, bits_s = 0;
+    if constexpr (kDst) {
+      bits_d = __ballot_sync(0xffffffffu, hit_d);
+      if (lane == 0) by_dst.misc[warp] = __popc(bits_d);
     }
-    if (hit) {
-      const int p = at + __popc(bits & ((1u << lane) - 1u));
-      l.e[p] = e;
-      l.dst[p] = i;
-      l.src[p] = j;
-      l.nxt[p] = -1;
+    if constexpr (kSrc) {
+      bits_s = __ballot_sync(0xffffffffu, hit_s);
+      if (lane == 0) by_src.misc[warp] = __popc(bits_s);
+    }
+    __syncthreads();
+    if (e0 == 0) stamp(stage_kernel, 1, false, false);
+    int at_d = nd, at_s = ns;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w == warp) {
+        at_d = nd;
+        at_s = ns;
+      }
+      if constexpr (kDst) nd += by_dst.misc[w];
+      if constexpr (kSrc) ns += by_src.misc[w];
+    }
+    const unsigned below = (1u << lane) - 1u;
+    if (hit_d) {
+      const int p = at_d + __popc(bits_d & below);
+      by_dst.gkey[p] = i * a.V + j;
+      by_dst.ge[p] = e;
+    }
+    if (hit_s) {
+      const int p = at_s + __popc(bits_s & below);
+      by_src.gkey[p] = j * a.V + i;
+      by_src.ge[p] = e;
     }
     __syncthreads();
     i = i2;
     j = j2;
     m = m2;
   }
-  for (int p = tid; p < n; p += kListThreads) {
-    int lead = 1;
-    for (int r = p - 1; r >= 0; --r) {
-      if (l.dst[r] == l.dst[p] && l.src[r] == l.src[p]) {
-        l.nxt[r] = p;
-        lead = 0;
-        break;
-      }
-    }
-    l.lead[p] = lead;
-    if (lead) atomicAdd(&l.misc[kWarps], 1);
+  const int total = (kDst ? nd : 0) + (kSrc ? ns : 0);
+  for (int p = tid; p < total; p += kListThreads) {
+    if (kDst && p < nd) sort_entry(by_dst, nd, p, a.V);
+    else sort_entry(by_src, ns, p - (kDst ? nd : 0), a.V);
   }
   __syncthreads();
-  return n;
+  return make_int2(nd, ns);
+}
+
+template <bool kByDst>
+__device__ inline int gather_edges(const Args& a, const List& l, int b, int lo, int hi, float* dead,
+                                   int stage_kernel) {
+  const int2 n = gather_lists<kByDst, !kByDst>(a, l, l, b, lo, hi, dead, stage_kernel);
+  return kByDst ? n.x : n.y;
+}
+
+// The first entry of l (n long) whose key is at least k.
+__device__ inline int lower_bound(const List& l, int n, int k) {
+  int lo = 0;
+  while (n > 0) {
+    const int half = n / 2;
+    if (l.key[lo + half] < k) {
+      lo += half + 1;
+      n -= half + 1;
+    } else {
+      n = half;
+    }
+  }
+  return lo;
+}
+
+// The next pair's leader after entry p of a row's run that ends at `end`.
+__device__ inline int next_leader(const List& l, int p, int end) {
+  while (++p < end && !l.lead[p]) {
+  }
+  return p;
 }
 
 // Offset of head h's slice of row r of bin b in a [B, V, H * dh] operand.
@@ -737,14 +465,6 @@ __device__ inline float group_dot(const float4 (&x)[kC], const float4 (&y)[kC], 
   return group_sum(part, g.mask, g.gsz);
 }
 
-// The first list position after p that is a pair's leader with the given
-// dst (n if none).
-__device__ inline int next_pair(const List& l, int n, int dst, int p) {
-  while (++p < n && !(l.dst[p] == dst && l.lead[p])) {
-  }
-  return min(p, n);
-}
-
 // Pairs whose reads a group issues together, 4 / kC: the latency of a
 // row's loads is paid once per batch, not once per pair.
 template <int kC>
@@ -761,76 +481,58 @@ struct Pair {
 template <int kC>
 __device__ inline void fetch_pair(Pair<kC>& x, const Args& a, const List& l, const float* ebh, int b,
                                   int h, int p, const Group& g) {
-  const size_t jrow = head_row(a, b, l.src[p], h);
+  const size_t jrow = head_row(a, b, l.other[p], h);
   load_slice(x.k, a.k + jrow, g);
   load_slice(x.v, a.v + jrow, g);
   x.eb = ebh != nullptr ? __ldg(ebh + l.e[p]) : 0.f;
 }
 
-// The pair's score: q_i . k_j / sqrt(dh) plus the bias of its edges, in
-// ascending edge id.
+// The score of the pair led by entry p (its run ending at `end`): q_i . k_j /
+// sqrt(dh) plus the bias of its edges, in ascending edge id.
 template <int kC>
 __device__ inline float pair_score(const Args& a, const List& l, const float* ebh, const float4 (&qi)[kC],
-                                   const Pair<kC>& x, int p, const Group& g) {
+                                   const Pair<kC>& x, int p, int end, const Group& g) {
   float bias = x.eb;
   if (ebh != nullptr)
-    for (int t = l.nxt[p]; t >= 0; t = l.nxt[t]) bias += __ldg(ebh + l.e[t]);
+    for (int t = p + 1; t < end && !l.lead[t]; ++t) bias += __ldg(ebh + l.e[t]);
   return group_dot(qi, x.k, g) * a.scale + bias;
 }
 
-// Row 11's scratch, written by its query pass for its key pass: each pair's
-// score and g_alpha at its leader edge ([B, H, E] each), and each query
-// slot's softmax max, sum and D_i = sum_j alpha g_alpha ([B, H, V] each).
-struct Scratch {
-  float *score, *galpha, *max, *sum, *dsum;
-};
-
-__device__ inline Scratch carve_scratch(float* w, const Args& a) {
-  const size_t lanes = (size_t)a.B * a.H * a.E, rows = (size_t)a.B * a.H * a.V;
-  return {w, w + lanes, w + 2 * lanes, w + 2 * lanes + rows, w + 2 * lanes + 2 * rows};
-}
-
-// Row 10 (forward: out) and row 11's query pass (g_q and the scratch), a
-// group per (query row, head).
+// The query pass of slot (i, h) over the pairs of a query pass's list l (n
+// long) in ascending src: an online softmax, its max m and sum den (floored)
+// and, rescaled when m rises, the combine (forward), or the sums of
+// exp * g_alpha, of exp * g_alpha * k_j and of exp * k_j (backward). Leaves
+// in acc the output (forward) or sum_j g_s k_j (backward), each times den;
+// with kBwd, D_i in dsum and each pair's score and g_alpha in score[e] and
+// galpha[e], e its leader edge.
 template <bool kBwd, int kC>
-__global__ void __launch_bounds__(kListThreads, kMinBlocks<kC>)
-    attn_rows_kernel(const Args a, float* scratch) {
+__device__ inline void query_walk(const Args& a, const List& l, int n, int b, int i, int h, const Group& g,
+                                  const float4 (&qi)[kC], const float4 (&gi)[kC], float* score,
+                                  float* galpha, float4 (&acc)[kC], float& m, float& den, float& dsum) {
   constexpr int kB = kBatch<kC>;
-  extern __shared__ int list_smem[];
-  const List l = carve_list(list_smem, a.E);
-  const Group g = list_group(a.dh);
-  const int slots = a.V * a.H, chunks = chunks_per_bin(a.V, a.H, a.dh);
-  const int b = blockIdx.x / chunks, first = blockIdx.x % chunks * g.count;
-  const int last = min(first + g.count, slots) - 1, slot = first + g.index;
-  const int i = min(slot, last) / a.H, h = min(slot, last) % a.H;
-  const size_t hb = ((size_t)b * a.H + h) * a.E, row = head_row(a, b, i, h);
-  float4 qi[kC], gi[kC], acc[kC], ksum[kC];
-  load_slice(qi, a.q + row, g);  // in flight during the gather
-  if constexpr (kBwd) load_slice(gi, a.g + row, g);
-  float* dead = kBwd && a.geb != nullptr && first == 0 ? a.geb + (size_t)b * a.H * a.E : nullptr;
-  const int n = gather_edges<true>(a, l, b, first / a.H, last / a.H, dead);
-  if (slot > last) return;
-  const float* ebh = a.eb != nullptr ? a.eb + hb : nullptr;
+  const float* ebh = a.eb != nullptr ? a.eb + ((size_t)b * a.H + h) * a.E : nullptr;
+  float4 ksum[kC];
 #pragma unroll
   for (int c = 0; c < kC; ++c) acc[c] = ksum[c] = zero4();
-  // the online softmax: max m, sum den and, rescaled when m rises, the
-  // combine (forward), or the sums of exp * g_alpha, of exp * g_alpha * k_j
-  // (in acc) and of exp * k_j (in ksum) (backward)
-  float m = -INFINITY, den = 0.f, tsum = 0.f;
-  Scratch sc_out{};
-  if constexpr (kBwd) sc_out = carve_scratch(scratch, a);
-  for (int p = -1; p < n;) {
+  m = -INFINITY;
+  den = 0.f;
+  float tsum = 0.f;
+  const int end = lower_bound(l, n, (i + 1) * a.V);
+  for (int p = lower_bound(l, n, i * a.V); p < end;) {
     int pos[kB];
     Pair<kC> x[kB];
 #pragma unroll
     for (int t = 0; t < kB; ++t) {
-      pos[t] = p = next_pair(l, n, i, p);
-      if (p < n) fetch_pair(x[t], a, l, ebh, b, h, p, g);
+      pos[t] = p;
+      if (p < end) {
+        fetch_pair(x[t], a, l, ebh, b, h, p, g);
+        p = next_leader(l, p, end);
+      }
     }
 #pragma unroll
     for (int t = 0; t < kB; ++t) {
-      if (pos[t] >= n) break;
-      const float sc = pair_score(a, l, ebh, qi, x[t], pos[t], g);
+      if (pos[t] >= end) break;
+      const float sc = pair_score(a, l, ebh, qi, x[t], pos[t], end, g);
       const float mx = fmaxf(m, sc), cor = expf(m - mx), w = expf(sc - mx);
       m = mx;
       den = fmaf(den, cor, w);
@@ -843,8 +545,8 @@ __global__ void __launch_bounds__(kListThreads, kMinBlocks<kC>)
           ksum[c] = fma4(w, x[t].k[c], scale4(cor, ksum[c]));
         }
         if (g.lane == 0) {
-          sc_out.score[hb + l.e[pos[t]]] = sc;
-          sc_out.galpha[hb + l.e[pos[t]]] = ga;
+          score[l.e[pos[t]]] = sc;
+          galpha[l.e[pos[t]]] = ga;
         }
       } else {
 #pragma unroll
@@ -853,71 +555,52 @@ __global__ void __launch_bounds__(kListThreads, kMinBlocks<kC>)
     }
   }
   den = fmaxf(den, 1e-12f);
-  if constexpr (!kBwd) {
-    store_slice(a.out + row, acc, 1.f / den, g);
-  } else {
+  if constexpr (kBwd) {
     // g_q = sum_j g_s k_j / sqrt(dh) with g_s = alpha g_alpha - alpha D_i:
     // (acc - D_i ksum) / den / sqrt(dh)
-    const float dsum = tsum / den;
+    dsum = tsum / den;
 #pragma unroll
     for (int c = 0; c < kC; ++c) acc[c] = fma4(-dsum, ksum[c], acc[c]);
-    store_slice(a.gq + row, acc, a.scale / den, g);
-    if (g.lane == 0) {
-      const size_t at = ((size_t)b * a.H + h) * a.V + i;
-      sc_out.max[at] = m;
-      sc_out.sum[at] = den;
-      sc_out.dsum[at] = dsum;
-    }
   }
 }
 
-// Row 11's key pass: g_v, g_k and g_eb, a group per (key row, head), over
-// the pairs of its key row in ascending query row. Each pair's alpha and g_s
-// come from its score and g_alpha and its query slot's softmax, all left by
-// the query pass.
-template <int kC>
-__global__ void __launch_bounds__(kListThreads, kMinBlocks<kC>)
-    attn_cols_kernel(const Args a, float* scratch) {
+// What the key pass reads of a pair: its score and g_alpha, and its query
+// slot's softmax max, sum and D_i.
+struct PairValues {
+  float score, galpha, max, sum, dsum;
+};
+
+// The key pass of slot (j, h) over the pairs of a key pass's list l (n long)
+// in ascending query row: `values(p)` gives the PairValues of the pair led by
+// entry p. Writes g_v_j, g_k_j and, with eb, g_s on each of the pairs' edges
+// in g_eb.
+template <int kC, class Values>
+__device__ inline void key_walk(const Args& a, const List& l, int n, int b, int j, int h, const Group& g,
+                                Values values) {
   constexpr int kB = kBatch<kC>;
-  extern __shared__ int list_smem[];
-  const List l = carve_list(list_smem, a.E);
-  const Group g = list_group(a.dh);
-  const int slots = a.V * a.H, chunks = chunks_per_bin(a.V, a.H, a.dh);
-  const int b = blockIdx.x / chunks, first = blockIdx.x % chunks * g.count;
-  const int last = min(first + g.count, slots) - 1, slot = first + g.index;
-  const int n = gather_edges<false>(a, l, b, first / a.H, last / a.H, nullptr);
-  for (int p = threadIdx.x; p < n; p += kListThreads) {
-    if (!l.lead[p]) continue;
-    int rank = 0;
-    for (int r = 0; r < n; ++r)
-      rank += l.lead[r] && (l.src[r] < l.src[p] || (l.src[r] == l.src[p] && l.dst[r] < l.dst[p]));
-    l.ord[rank] = p;
-  }
-  __syncthreads();
-  if (slot > last) return;
-  const int j = slot / a.H, h = slot % a.H, pairs = l.misc[kWarps];
-  const size_t hb = ((size_t)b * a.H + h) * a.E, hv = ((size_t)b * a.H + h) * a.V;
-  const Scratch in = carve_scratch(scratch, a);
-  int r = 0;
-  while (r < pairs && l.src[l.ord[r]] < j) ++r;
+  const size_t hb = ((size_t)b * a.H + h) * a.E;
+  const int end = lower_bound(l, n, (j + 1) * a.V);
   float4 accv[kC], acck[kC];
 #pragma unroll
   for (int c = 0; c < kC; ++c) accv[c] = acck[c] = zero4();
-  for (; r < pairs && l.src[l.ord[r]] == j; r += kB) {
+  for (int p = lower_bound(l, n, j * a.V); p < end;) {
+    int pos[kB];
     float sc[kB], ga[kB], mx[kB], den[kB], ds[kB];
     float4 gx[kB][kC], qx[kB][kC];
 #pragma unroll
     for (int t = 0; t < kB; ++t) {
-      const int p = l.ord[min(r + t, pairs - 1)];
-      if (r + t < pairs && l.src[p] == j) {
-        const size_t irow = head_row(a, b, l.dst[p], h), at = hv + l.dst[p];
-        sc[t] = in.score[hb + l.e[p]];
-        ga[t] = in.galpha[hb + l.e[p]];
-        mx[t] = in.max[at];
-        den[t] = in.sum[at];
-        ds[t] = in.dsum[at];
+      pos[t] = p;
+      if (p < end) {
+        const size_t irow = head_row(a, b, l.other[p], h);
+        const PairValues x = values(p);
+        sc[t] = x.score;
+        ga[t] = x.galpha;
+        mx[t] = x.max;
+        den[t] = x.sum;
+        ds[t] = x.dsum;
         load_slice(gx[t], a.g + irow, g);
         load_slice(qx[t], a.q + irow, g);
+        p = next_leader(l, p, end);
       } else {
         sc[t] = -INFINITY;
         ga[t] = ds[t] = mx[t] = 0.f;
@@ -935,13 +618,202 @@ __global__ void __launch_bounds__(kListThreads, kMinBlocks<kC>)
         accv[c] = fma4(al, gx[t][c], accv[c]);
         acck[c] = fma4(gs, qx[t][c], acck[c]);
       }
-      if (a.geb != nullptr && g.lane == 0 && r + t < pairs && l.src[l.ord[r + t]] == j)
-        for (int e = l.ord[r + t]; e >= 0; e = l.nxt[e]) a.geb[hb + l.e[e]] = gs;
+      if (a.geb != nullptr && g.lane == 0 && pos[t] < end)
+        for (int e = pos[t]; e < end && (e == pos[t] || !l.lead[e]); ++e) a.geb[hb + l.e[e]] = gs;
     }
   }
   const size_t row = head_row(a, b, j, h);
   store_slice(a.gv + row, accv, 1.f, g);
   store_slice(a.gk + row, acck, a.scale, g);
+}
+
+// Row 11's scratch, written by its query pass for its key pass: each pair's
+// score and g_alpha at its leader edge ([B, H, E] each), and each query
+// slot's softmax max, sum and D_i ([B, H, V] each).
+struct Scratch {
+  float *score, *galpha, *max, *sum, *dsum;
+};
+
+__device__ inline Scratch carve_scratch(float* w, const Args& a) {
+  const size_t lanes = (size_t)a.B * a.H * a.E, rows = (size_t)a.B * a.H * a.V;
+  return {w, w + lanes, w + 2 * lanes, w + 2 * lanes + rows, w + 2 * lanes + 2 * rows};
+}
+
+// Rows 10 and 12 (forward: out) and row 11's query pass (g_q and the
+// scratch), a group per (query row, head).
+template <bool kBwd, int kC, int kMin = kMinBlocks<kC>>
+__global__ void __launch_bounds__(kListThreads, kMin)
+    attn_rows_kernel(const Args a, float* scratch) {
+  constexpr int kStage = kBwd ? kRowsKernel : kFwdKernel;
+  stamp(kStage, 0, true, false);
+  extern __shared__ int list_smem[];
+  const List l = carve_list(list_smem, a.E, list_smem + list_words(a.E));
+  const Group g = list_group(a);
+  const int slots = a.V * a.H, chunks = chunks_per_bin(a);
+  const int b = blockIdx.x / chunks, first = blockIdx.x % chunks * g.count;
+  const int last = min(first + g.count, slots) - 1, slot = first + g.index;
+  const int i = min(slot, last) / a.H, h = min(slot, last) % a.H;
+  const size_t hb = ((size_t)b * a.H + h) * a.E, row = head_row(a, b, i, h);
+  float4 qi[kC], gi[kC], acc[kC];
+  load_slice(qi, a.q + row, g);  // in flight during the gather
+  if constexpr (kBwd) load_slice(gi, a.g + row, g);
+  float* dead = kBwd && a.geb != nullptr && first == 0 ? a.geb + (size_t)b * a.H * a.E : nullptr;
+  const int n = gather_edges<true>(a, l, b, first / a.H, last / a.H, dead, kStage);
+  stamp(kStage, 2, false, false);
+  if (slot > last) return;
+  Scratch sc{};
+  if constexpr (kBwd) sc = carve_scratch(scratch, a);
+  float m, den, dsum;
+  query_walk<kBwd, kC>(a, l, n, b, i, h, g, qi, gi, kBwd ? sc.score + hb : nullptr,
+                       kBwd ? sc.galpha + hb : nullptr, acc, m, den, dsum);
+  if constexpr (!kBwd) {
+    store_slice(a.out + row, acc, 1.f / den, g);
+  } else {
+    store_slice(a.gq + row, acc, a.scale / den, g);
+    if (g.lane == 0) {
+      const size_t at = ((size_t)b * a.H + h) * a.V + i;
+      sc.max[at] = m;
+      sc.sum[at] = den;
+      sc.dsum[at] = dsum;
+    }
+  }
+  stamp(kStage, 3, false, true);
+}
+
+// Row 11's key pass: g_v, g_k and g_eb, a group per (key row, head), from the
+// values its query pass left in scratch.
+template <int kC>
+__global__ void __launch_bounds__(kListThreads, kMinBlocks<kC>)
+    attn_cols_kernel(const Args a, float* scratch) {
+  stamp(kColsKernel, 0, true, false);
+  extern __shared__ int list_smem[];
+  const List l = carve_list(list_smem, a.E, list_smem + list_words(a.E));
+  const Group g = list_group(a);
+  const int slots = a.V * a.H, chunks = chunks_per_bin(a);
+  const int b = blockIdx.x / chunks, first = blockIdx.x % chunks * g.count;
+  const int last = min(first + g.count, slots) - 1, slot = first + g.index;
+  const int n = gather_edges<false>(a, l, b, first / a.H, last / a.H, nullptr, kColsKernel);
+  stamp(kColsKernel, 2, false, false);
+  if (slot > last) return;
+  const int j = slot / a.H, h = slot % a.H;
+  const size_t hb = ((size_t)b * a.H + h) * a.E, hv = ((size_t)b * a.H + h) * a.V;
+  const Scratch in = carve_scratch(scratch, a);
+  key_walk<kC>(a, l, n, b, j, h, g, [&](int p) {
+    const size_t at = hv + l.other[p];
+    return PairValues{in.score[hb + l.e[p]], in.galpha[hb + l.e[p]], in.max[at], in.sum[at], in.dsum[at]};
+  });
+  stamp(kColsKernel, 3, false, true);
+}
+
+// Row 13's shared memory a block: its rows' edges by dst and by src (two
+// lists), then each pair's score and g_alpha at its leader edge ([H, E]
+// each; the lists' gather orders before them), and each of its slots'
+// softmax max, sum and D_i ([rows, H] each).
+__host__ __device__ inline size_t cluster_values_words(int E, int H) {
+  return 2 * (size_t)H * E > 4 * (size_t)E ? 2 * (size_t)H * E : 4 * (size_t)E;
+}
+
+__host__ __device__ inline size_t cluster_smem_bytes(int E, int H, int rows) {
+  return sizeof(int) * (2 * list_words(E) + cluster_values_words(E, H) + 3 * (size_t)rows * H);
+}
+
+// Row 13's clusters: `size` blocks a bin, each owning `rows` query and key
+// rows. As many blocks as hold a bin's slots in one run each, up to
+// kMaxCluster, or the portable 8 where a block takes more than half an SM's
+// shared memory (a cluster's blocks must fit one GPC at once).
+struct ClusterShape {
+  int rows, size;
+  size_t smem;
+};
+
+ClusterShape cluster_shape(const Args& a) {
+  const long long want = ((long long)a.V * a.H + slots_per_block(a) - 1) / slots_per_block(a);
+  ClusterShape c{};
+  for (int cap = kMaxCluster;; cap = 8) {
+    const int size = (int)(want < cap ? want : cap);
+    c.rows = (a.V + size - 1) / size;
+    c.size = (a.V + c.rows - 1) / c.rows;
+    c.smem = cluster_smem_bytes(a.E, a.H, c.rows);
+    if (cap == 8 || 2 * c.smem <= (size_t)kMaxSmem) return c;
+  }
+}
+
+// Row 13: the recompute backward in one launch, a cluster per bin (see the
+// design above); block r of bin b's cluster owns rows [r * rows, ...).
+template <int kC>
+__global__ void __launch_bounds__(kListThreads, kC == 4 ? kClusterMinBlocks4 : kMinBlocks<kC>)
+    attn_cluster_kernel(const Args a, int rows) {
+  stamp(kClusterKernel, 0, true, false);
+  cg::cluster_group cluster = cg::this_cluster();
+  stamp_cluster0(7, (int)cluster.num_blocks());
+  extern __shared__ int list_smem[];
+  int* values = list_smem + 2 * list_words(a.E);
+  const List by_dst = carve_list(list_smem, a.E, values);
+  const List by_src = carve_list(list_smem + list_words(a.E), a.E, values + 2 * a.E);
+  float* score = reinterpret_cast<float*>(values);
+  float* galpha = score + (size_t)a.H * a.E;
+  float* smax = reinterpret_cast<float*>(values + cluster_values_words(a.E, a.H));
+  float* ssum = smax + (size_t)rows * a.H;
+  float* sdsum = ssum + (size_t)rows * a.H;
+  const Group g = list_group(a);
+  const int rank = (int)cluster.block_rank(), b = blockIdx.x / (int)cluster.num_blocks();
+  const int lo = rank * rows, hi = min(lo + rows, a.V) - 1;
+  const int first = lo * a.H, end = (hi + 1) * a.H;  // the block's slots
+  float4 qi[kC], gi[kC];
+  {  // the first run's rows in flight during the gather
+    const int s = min(first + g.index, end - 1);
+    const size_t row = head_row(a, b, s / a.H, s % a.H);
+    load_slice(qi, a.q + row, g);
+    load_slice(gi, a.g + row, g);
+  }
+  float* dead = a.geb != nullptr && rank == 0 ? a.geb + (size_t)b * a.H * a.E : nullptr;
+  const int2 n = gather_lists<true, true>(a, by_dst, by_src, b, lo, hi, dead, kClusterKernel);
+  stamp(kClusterKernel, 2, false, false);
+  // phase 1, the query pass: g_q, and the values the key passes read
+  for (int run = first; run < end; run += g.count) {
+    const int slot = run + g.index;
+    if (slot >= end) break;
+    const int i = slot / a.H, h = slot % a.H;
+    const size_t row = head_row(a, b, i, h);
+    if (run != first) {
+      load_slice(qi, a.q + row, g);
+      load_slice(gi, a.g + row, g);
+    }
+    float4 acc[kC];
+    float m, den, dsum;
+    query_walk<true, kC>(a, by_dst, n.x, b, i, h, g, qi, gi, score + (size_t)h * a.E,
+                         galpha + (size_t)h * a.E, acc, m, den, dsum);
+    store_slice(a.gq + row, acc, a.scale / den, g);
+    if (g.lane == 0) {
+      const int at = (i - lo) * a.H + h;
+      smax[at] = m;
+      ssum[at] = den;
+      sdsum[at] = dsum;
+    }
+  }
+  stamp(kClusterKernel, 3, false, false);
+  stamp_cluster0(8, (int)cluster.num_blocks());
+  cluster.sync();
+  stamp(kClusterKernel, 4, false, false);
+  // phase 2, the key pass: each pair's values from the block that owns its
+  // query row, through distributed shared memory
+  for (int run = first; run < end; run += g.count) {
+    const int slot = run + g.index;
+    if (slot >= end) break;
+    const int j = slot / a.H, h = slot % a.H;
+    key_walk<kC>(a, by_src, n.y, b, j, h, g, [&](int p) {
+      const int i = by_src.other[p], owner = i / rows;
+      const size_t e = (size_t)h * a.E + by_src.e[p];
+      const int at = (i - owner * rows) * a.H + h;
+      return PairValues{*cluster.map_shared_rank(score + e, owner), *cluster.map_shared_rank(galpha + e, owner),
+                        *cluster.map_shared_rank(smax + at, owner), *cluster.map_shared_rank(ssum + at, owner),
+                        *cluster.map_shared_rank(sdsum + at, owner)};
+    });
+  }
+  stamp(kClusterKernel, 5, false, false);
+  stamp_cluster0(9, (int)cluster.num_blocks());
+  cluster.sync();  // no block leaves while another may read its shared memory
+  stamp(kClusterKernel, 6, false, true);
 }
 
 using ListKernel = void (*)(const Args, float*);
@@ -953,33 +825,73 @@ cudaError_t launch_list(ListKernel kernel, uint64_t& configured, const Args& a, 
     const cudaError_t err = allow_smem((const void*)kernel, kMaxSmem, configured);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<a.B * chunks_per_bin(a.V, a.H, a.dh), kListThreads, smem, stream>>>(a, scratch);
+  kernel<<<a.B * chunks_per_bin(a), kListThreads, smem, stream>>>(a, scratch);
   return cudaGetLastError();
 }
 
 template <int kC>
-cudaError_t run_list_at(const Args& a, float* scratch, bool bwd, cudaStream_t st) {
-  static uint64_t fwd_configured = 0, rows_configured = 0, cols_configured = 0;
-  if (!bwd) return launch_list(attn_rows_kernel<false, kC>, fwd_configured, a, nullptr, st);
+cudaError_t launch_cluster(const Args& a, cudaStream_t stream) {
+  static uint64_t smem_configured = 0, wide_configured = 0;
+  const void* kernel = (const void*)attn_cluster_kernel<kC>;
+  const ClusterShape c = cluster_shape(a);
+  cudaError_t err = cudaSuccess;
+  if (c.smem > 48 * 1024) err = allow_smem(kernel, kMaxSmem, smem_configured);
+  if (err == cudaSuccess && c.size > 8)
+    err = set_attribute_once(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1, wide_configured);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(a.B * c.size);
+  config.blockDim = dim3(kListThreads);
+  config.dynamicSmemBytes = c.smem;
+  config.stream = stream;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = c.size;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, attn_cluster_kernel<kC>, a, c.rows);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Which launch: a forward (row 10's or row 12's instantiation), row 11's
+// two launches or row 13's clusters.
+enum class Launch { kFwdV1, kFwdV2, kTwoPass, kCluster };
+
+template <int kC>
+cudaError_t run_at(const Args& a, float* scratch, Launch launch, cudaStream_t st) {
+  static uint64_t fwd_configured = 0, fwd2_configured = 0, rows_configured = 0, cols_configured = 0;
+  constexpr int kFwd2Min = kC == 4 ? kMinBlocks<kC> : kV2FwdMinBlocks;
+  switch (launch) {
+    case Launch::kFwdV1: return launch_list(attn_rows_kernel<false, kC>, fwd_configured, a, nullptr, st);
+    case Launch::kFwdV2:
+      return launch_list(attn_rows_kernel<false, kC, kFwd2Min>, fwd2_configured, a, nullptr, st);
+    case Launch::kCluster: return launch_cluster<kC>(a, st);
+    default: break;
+  }
   const cudaError_t err = launch_list(attn_rows_kernel<true, kC>, rows_configured, a, scratch, st);
   if (err != cudaSuccess) return err;
   return launch_list(attn_cols_kernel<kC>, cols_configured, a, scratch, st);
 }
 
-bool bad_list_shape(const Args& a) {
-  return bad_head(a) || list_smem_bytes(a.E) > (size_t)kMaxSmem || misaligned(a) ||
-         (long long)a.V * a.H > INT32_MAX ||
-         (long long)a.B * chunks_per_bin(a.V, a.H, a.dh) > INT32_MAX;
+size_t smem_bytes(const Args& a, Launch launch) {
+  return launch == Launch::kCluster ? cluster_shape(a).smem : list_smem_bytes(a.E);
 }
 
-cudaError_t run_list(const Args& a, float* scratch, bool bwd, void* stream) {
-  if (bad_list_shape(a) || (bwd && scratch == nullptr)) return cudaErrorInvalidValue;
+bool bad_shape(const Args& a, Launch launch) {
+  return bad_head(a) || misaligned(a) || smem_bytes(a, launch) > (size_t)kMaxSmem || a.V > kMaxV ||
+         (long long)a.V * a.H > INT32_MAX || (long long)a.B * chunks_per_bin(a) > INT32_MAX;
+}
+
+cudaError_t run(const Args& a, float* scratch, Launch launch, void* stream) {
+  if (bad_shape(a, launch) || (launch == Launch::kTwoPass && scratch == nullptr)) return cudaErrorInvalidValue;
   if (a.B == 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (vectors_per_lane(a.dh)) {
-    case 1: return run_list_at<1>(a, scratch, bwd, st);
-    case 2: return run_list_at<2>(a, scratch, bwd, st);
-    default: return run_list_at<4>(a, scratch, bwd, st);
+  switch (vectors_per_lane(a)) {
+    case 1: return run_at<1>(a, scratch, launch, st);
+    case 2: return run_at<2>(a, scratch, launch, st);
+    default: return run_at<4>(a, scratch, launch, st);
   }
 }
 
@@ -987,52 +899,104 @@ cudaError_t run_list(const Args& a, float* scratch, bool bwd, void* stream) {
 
 extern "C" {
 
-// Shared-memory bytes a block of rows 12-13 needs at these shapes, a block
-// of rows 10-11 at E edge lanes, and the most a block may have; the wrappers
-// raise, naming the shape, above the latter.
-long long dense_attention_smem_bytes(int V, int E, int dh) { return (long long)smem_bytes(V, E, dh); }
+// Shared-memory bytes a block needs at these shapes: for the forwards (rows
+// 10 and 12) and row 11, its edge list at E lanes; for row 13, its two lists
+// and its rows' values; and the most a block may have. The wrappers raise,
+// naming the shape, above the latter.
+long long dense_attention_list_smem_bytes(int E) { return (long long)list_smem_bytes(E); }
 
-long long dense_attention_v1_smem_bytes(int E) { return (long long)list_smem_bytes(E); }
+long long dense_attention_cluster_smem_bytes(int V, int E, int H, int dh) {
+  Args a{};
+  a.V = V;
+  a.E = E;
+  a.H = H;
+  a.dh = dh;
+  a.vecs = kV2BwdVecs;
+  return (long long)cluster_shape(a).smem;
+}
+
+// Row 13's clusters at these shapes: blocks a cluster, and how many such
+// clusters the card holds at once (cudaOccupancyMaxActiveClusters), or a
+// negative cudaError_t.
+int dense_attention_cluster_blocks(int V, int E, int H, int dh) {
+  Args a{};
+  a.V = V;
+  a.E = E;
+  a.H = H;
+  a.dh = dh;
+  a.vecs = kV2BwdVecs;
+  return cluster_shape(a).size;
+}
+
+int dense_attention_active_clusters(int V, int E, int H, int dh) {
+  Args a{};
+  a.V = V;
+  a.E = E;
+  a.H = H;
+  a.dh = dh;
+  a.vecs = kV2BwdVecs;
+  const ClusterShape c = cluster_shape(a);
+  const void* kernel = vectors_per_lane(a) == 1   ? (const void*)attn_cluster_kernel<1>
+                       : vectors_per_lane(a) == 2 ? (const void*)attn_cluster_kernel<2>
+                                                  : (const void*)attn_cluster_kernel<4>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(c.size * 64);
+  config.blockDim = dim3(kListThreads);
+  config.dynamicSmemBytes = c.smem;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = c.size;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = 1;
+  config.attrs = cluster;
+  config.numAttrs = 1;
+  int n = 0;
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, kernel, &config);
+  return err == cudaSuccess ? n : -(int)err;
+}
 
 int dense_attention_max_smem() { return kMaxSmem; }
 
 int dense_attention_max_dh() { return kMaxDh; }
 
-// Rows 12 (forward) and 13 (recompute backward), a block per (bin, head).
-// The forward: q, k, v, out [B, V, H * dh] f32; eb [B, H, E] f32 or null;
-// src, dst [B, E] int32; emask [B, E] bytes. Device pointers of contiguous
-// arrays, the float ones 16-byte aligned; dh a multiple of 4. The stream is
-// a cudaStream_t. Returns the cudaError_t of the launch (0 on success).
+int dense_attention_max_v() { return kMaxV; }
+
+// Row 12's forward: q, k, v, out [B, V, H * dh] f32; eb [B, H, E] f32 or
+// null; src, dst [B, E] int32; emask [B, E] bytes. Device pointers of
+// contiguous arrays, the float ones 16-byte aligned; dh a multiple of 4. The
+// stream is a cudaStream_t. Returns the cudaError_t of the launch (0 on
+// success).
 int dense_attention_fwd_f32(const float* q, const float* k, const float* v, const float* eb,
                             const int* src, const int* dst, const unsigned char* emask, float* out,
                             int B, int V, int E, int H, int dh, float scale, void* stream) {
   const Args a{q, k, v, eb, src, dst, emask, nullptr, out, nullptr, nullptr, nullptr, nullptr,
-               B, V, E, H, dh, scale};
-  return (int)run(a, false, stream);
+               B, V, E, H, dh, scale, kVecs};
+  return (int)run(a, nullptr, Launch::kFwdV2, stream);
 }
 
-// The recompute backward: g (the cotangent of out) and g_q, g_k, g_v
-// [B, V, H * dh]; g_eb [B, H, E], written when eb is not null. The rest as
-// for the forward.
+// Row 13's recompute backward, one launch on clusters: g (the cotangent of
+// out) and g_q, g_k, g_v [B, V, H * dh]; g_eb [B, H, E], written when eb is
+// not null. The rest as for the forward.
 int dense_attention_bwd_f32(const float* q, const float* k, const float* v, const float* eb,
                             const int* src, const int* dst, const unsigned char* emask,
                             const float* g, float* gq, float* gk, float* gv, float* geb, int B,
                             int V, int E, int H, int dh, float scale, void* stream) {
   const Args a{q, k, v, eb, src, dst, emask, g, nullptr, gq, gk, gv, eb != nullptr ? geb : nullptr,
-               B, V, E, H, dh, scale};
-  return (int)run(a, true, stream);
+               B, V, E, H, dh, scale, kV2BwdVecs};
+  return (int)run(a, nullptr, Launch::kCluster, stream);
 }
 
-// Rows 10 and 11, a lane group per (row, head): the same arguments as rows
-// 12-13; the backward also takes scratch of 2 * B * H * E + 3 * B * H * V
-// floats, written by its query pass for its key pass (see Scratch). The
-// backward is two launches on the stream.
+// Rows 10 and 11, the same arguments as rows 12 and 13; the backward also
+// takes scratch of 2 * B * H * E + 3 * B * H * V floats, written by its query
+// pass for its key pass (see Scratch), and is two launches on the stream.
 int dense_attention_v1_fwd_f32(const float* q, const float* k, const float* v, const float* eb,
                                const int* src, const int* dst, const unsigned char* emask, float* out,
                                int B, int V, int E, int H, int dh, float scale, void* stream) {
   const Args a{q, k, v, eb, src, dst, emask, nullptr, out, nullptr, nullptr, nullptr, nullptr,
-               B, V, E, H, dh, scale};
-  return (int)run_list(a, nullptr, false, stream);
+               B, V, E, H, dh, scale, kVecs};
+  return (int)run(a, nullptr, Launch::kFwdV1, stream);
 }
 
 int dense_attention_v1_bwd_f32(const float* q, const float* k, const float* v, const float* eb,
@@ -1041,8 +1005,32 @@ int dense_attention_v1_bwd_f32(const float* q, const float* k, const float* v, c
                                float* scratch, int B, int V, int E, int H, int dh, float scale,
                                void* stream) {
   const Args a{q, k, v, eb, src, dst, emask, g, nullptr, gq, gk, gv, eb != nullptr ? geb : nullptr,
-               B, V, E, H, dh, scale};
-  return (int)run_list(a, scratch, true, stream);
+               B, V, E, H, dh, scale, kVecs};
+  return (int)run(a, scratch, Launch::kTwoPass, stream);
+}
+
+// The stage stamps of a build with kStages = 1 (see stamp): 1 if this build
+// stamps. `reset` clears them before a launch; `read` copies out
+// kStageKernels x kStageSlots stamps of block 0 (the forward, row 11's query
+// pass, its key pass, row 13), then each kernel's earliest block start and
+// latest block end, in ns of %globaltimer. Both return the cudaError_t.
+int dense_attention_stages_built() { return kStages; }
+
+int dense_attention_stages_reset() {
+  unsigned long long at[kStageKernels][kStageSlots] = {}, span[kStageKernels][2];
+  for (auto& s : span) {
+    s[0] = ~0ull;
+    s[1] = 0;
+  }
+  const cudaError_t err = cudaMemcpyToSymbol(stage_at, at, sizeof at);
+  return (int)(err != cudaSuccess ? err : cudaMemcpyToSymbol(stage_span, span, sizeof span));
+}
+
+int dense_attention_stages_read(unsigned long long* out) {
+  const cudaError_t err = cudaMemcpyFromSymbol(out, stage_at, sizeof stage_at);
+  return (int)(err != cudaSuccess ? err
+                                  : cudaMemcpyFromSymbol(out + kStageKernels * kStageSlots, stage_span,
+                                                         sizeof stage_span));
 }
 
 const char* dense_attention_error_string(int err) {

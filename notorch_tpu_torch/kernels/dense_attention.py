@@ -17,10 +17,15 @@ TPU entry (kernel)                  here
 (``_attn_bwd_kernel``)              query pass (``attn_rows_kernel``) then a
                                     key pass (``attn_cols_kernel``), a lane
                                     group per (row, head)
-``fused_dense_attention_fwd_v2``    :func:`fused_dense_attention_fwd_v2`, the
-(``_attn_kernel_v2``)               forward body on a block per (bin, head)
-``fused_dense_attention_bwd_v2``    :func:`fused_dense_attention_bwd_v2`, the
-(``_attn_bwd_kernel_v2``)           backward body on a block per (bin, head)
+``fused_dense_attention_fwd_v2``    :func:`fused_dense_attention_fwd_v2`,
+(``_attn_kernel_v2``)               row 10's kernel (one function, one
+                                    layout) in an instantiation of its own,
+                                    capped at fewer registers
+``fused_dense_attention_bwd_v2``    :func:`fused_dense_attention_bwd_v2`,
+(``_attn_bwd_kernel_v2``)           ``attn_cluster_kernel``: both passes in
+                                    one launch, a thread-block cluster per
+                                    bin, the values between them in the
+                                    blocks' shared memory
 ``fused_dense_attention``           :class:`FusedDenseAttentionFn` (and
 (the custom VJP)                    :func:`fused_dense_attention`)
 ==================================  =======================================
@@ -44,11 +49,12 @@ with ``ctypes`` (:mod:`notorch_tpu_torch.kernels.build`); its design and
 bound are described there. Tensors on the CPU take the plain versions;
 tensors on a CUDA device launch the kernels or raise — there is no
 fallback. Each wrapper counts its launches in ``<wrapper>.launches``. The
-kernels take float32, ``dh`` a multiple of 4 up to 512, and bins that fit
-a block's shared memory: for rows 12-13 the index build and two staged
-``[V, dh]`` head slices (``V = 256, E = 512`` at ``dh = 64`` fit), for rows
-10-11 the edge list of 24 bytes a lane (up to about 9,600 lanes); the
-wrappers raise, naming the shape, on anything else. ``interpret`` is accepted for the JAX
+kernels take float32, ``dh`` a multiple of 4 up to 512, up to 46,340 node
+slots a bin, and bins whose index fits a block's shared memory: the forwards and row 11 hold the edge
+list of a block's rows, 24 bytes a lane (up to about 9,600 lanes); row 13
+holds two such lists and each pair's values, 8 bytes a lane and head (E =
+4,096 lanes at one head fit, at four heads not); the wrappers raise, naming
+the shape, on anything else. ``interpret`` is accepted for the JAX
 signature: on CPU tensors it changes nothing, on CUDA tensors ``True``
 raises (the port has no interpret mode). ``matmul_dtype`` other than
 ``None`` raises ``NotImplementedError``: the kernels are exact f32.
@@ -222,25 +228,28 @@ def _lib():
     lib.dense_attention_v1_fwd_f32.argtypes = [ctypes.c_void_p] * 8 + tail
     lib.dense_attention_bwd_f32.argtypes = [ctypes.c_void_p] * 12 + tail
     lib.dense_attention_v1_bwd_f32.argtypes = [ctypes.c_void_p] * 13 + tail  # and the scratch
-    lib.dense_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.dense_attention_v1_smem_bytes.argtypes = [ctypes.c_int]
-    lib.dense_attention_smem_bytes.restype = lib.dense_attention_v1_smem_bytes.restype = ctypes.c_longlong
+    lib.dense_attention_list_smem_bytes.argtypes = [ctypes.c_int]
+    lib.dense_attention_cluster_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.dense_attention_list_smem_bytes.restype = ctypes.c_longlong
+    lib.dense_attention_cluster_smem_bytes.restype = ctypes.c_longlong
     lib.dense_attention_error_string.argtypes = [ctypes.c_int]
     lib.dense_attention_error_string.restype = ctypes.c_char_p
     lib.dense_attention_max_smem.argtypes = lib.dense_attention_max_dh.argtypes = []
+    lib.dense_attention_max_v.argtypes = []
     for name in ("dense_attention_fwd_f32", "dense_attention_bwd_f32", "dense_attention_v1_fwd_f32",
-                 "dense_attention_v1_bwd_f32", "dense_attention_max_smem", "dense_attention_max_dh"):
+                 "dense_attention_v1_bwd_f32", "dense_attention_max_smem", "dense_attention_max_dh",
+                 "dense_attention_max_v"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
-def _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads: int, v1: bool, interpret: bool,
+def _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads: int, cluster: bool, interpret: bool,
                      cotangent=None):
     """The checks of a launch and its operands: float32 contiguous 16-byte
-    aligned floats, int32 ids and a byte mask on q's device. ``v1``: the
-    launch of rows 10-11, whose blocks hold a bin's edge list in shared
-    memory; else that of rows 12-13, whose blocks also stage two head
-    slices."""
+    aligned floats, int32 ids and a byte mask on q's device. ``cluster``:
+    the launch of row 13, whose blocks hold two edge lists and each pair's
+    values for every head in shared memory; else one of the others, whose
+    blocks hold one edge list."""
     if interpret:
         raise ValueError(
             "interpret=True asks for the Pallas interpreter; the port has no interpret mode: "
@@ -254,10 +263,15 @@ def _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads: int, v1: bool,
             f"the attention kernels read head rows in 16-byte vectors: dh must be a multiple of 4 "
             f"up to {lib.dense_attention_max_dh()}, got dh={dh} (hidden {d}, {num_heads} heads)"
         )
+    if V > lib.dense_attention_max_v():
+        raise ValueError(f"the attention kernels key a bin's pairs by row * V + other in an int32: V must be "
+                         f"at most {lib.dense_attention_max_v()}, got V={V} node slots")
     limit = lib.dense_attention_max_smem()
-    need = lib.dense_attention_v1_smem_bytes(E) if v1 else lib.dense_attention_smem_bytes(V, E, dh)
+    need = (lib.dense_attention_cluster_smem_bytes(V, E, num_heads, dh) if cluster
+            else lib.dense_attention_list_smem_bytes(E))
     if need > limit:
-        shape = f"E={E} edge lanes" if v1 else f"V={V} node slots and E={E} edge lanes at dh={dh}"
+        shape = (f"E={E} edge lanes at H={num_heads} heads (V={V} node slots, dh={dh})" if cluster
+                 else f"E={E} edge lanes")
         raise ValueError(f"bins of {shape} need {need} bytes of shared memory per block; the attention "
                          f"kernels have {limit}")
     floats = [x.contiguous() for x in (q, k, v, cotangent, eb) if x is not None]
@@ -278,7 +292,8 @@ def _raise_on(err: int, what: str, lib) -> None:
 
 
 def _forward(q, k, v, eb, src, dst, edge_mask, num_heads: int, v1: bool, interpret: bool, what: str):
-    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, v1, interpret)
+    """Row 10's launch (``v1``) or row 12's."""
+    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, False, interpret)
     q, k, v = floats[:3]
     eb = floats[3] if eb is not None else None
     B, V, d = q.shape
@@ -297,7 +312,8 @@ def _forward(q, k, v, eb, src, dst, edge_mask, num_heads: int, v1: bool, interpr
 
 def _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads: int, v1: bool, interpret: bool,
               what: str):
-    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, v1, interpret,
+    """Row 11's two launches (``v1``) or row 13's one on clusters."""
+    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, not v1, interpret,
                                          cotangent)
     q, k, v, g = floats[:4]
     eb = floats[4] if eb is not None else None
@@ -354,9 +370,10 @@ def fused_dense_attention_bwd(q, k, v, eb, src, dst, edge_mask, cotangent, *, nu
 
 def fused_dense_attention_fwd_v2(q, k, v, eb, src, dst, edge_mask, *, num_heads: int, bins_per_tile: int = 8,
                                  interpret: bool = False, matmul_dtype: str | None = None) -> torch.Tensor:
-    """Row 10's function with the head in the grid (row 12): on the card a
-    block per (bin, head); ``bins_per_tile`` is kept for the signature. CPU
-    tensors take :func:`dense_attention_reference`."""
+    """Row 10's function with the head in the TPU's grid (row 12): on the
+    card row 10's kernel, a lane group per (query row, head), every bin and
+    head at once, with row 10's bits; ``bins_per_tile`` is kept for the
+    signature. CPU tensors take :func:`dense_attention_reference`."""
     _no_matmul_dtype(matmul_dtype)
     _check(q, k, v, eb, src, dst, edge_mask, num_heads)
     if not on_card(q):
@@ -370,8 +387,10 @@ def fused_dense_attention_fwd_v2(q, k, v, eb, src, dst, edge_mask, *, num_heads:
 def fused_dense_attention_bwd_v2(q, k, v, eb, src, dst, edge_mask, cotangent, *, num_heads: int,
                                  bins_per_tile: int = 8, interpret: bool = False,
                                  matmul_dtype: str | None = None):
-    """Row 11's function with the head in the grid (row 13), the backward of
-    every :class:`FusedDenseAttentionFn`. CPU tensors take
+    """Row 11's function with the head in the TPU's grid (row 13), the
+    backward of every :class:`FusedDenseAttentionFn`: on the card one launch,
+    a thread-block cluster per bin whose blocks meet at a cluster barrier
+    between the query pass and the key pass. CPU tensors take
     :func:`dense_attention_bwd_reference`."""
     _no_matmul_dtype(matmul_dtype)
     _check(q, k, v, eb, src, dst, edge_mask, num_heads, cotangent)

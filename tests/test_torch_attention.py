@@ -47,7 +47,7 @@ from notorch_tpu_torch.nn import attention_dense as dense_attn
 from notorch_tpu_torch.nn import chemprop_dense as readouts
 from notorch_tpu_torch.transforms import MolToGraph, Pipeline, SmiToMol
 
-from .test_torch_gpu import hub_bins
+from .test_torch_gpu import hub_bins, odd_bins
 
 D, H = 16, 2
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -94,13 +94,17 @@ def case(request):
             "Gf": G.to("cpu").update(node_feats=t(x["nf"]), edge_feats=t(x["ef"])), **x}
 
 
-@pytest.fixture(scope="module", params=["packed", "dense", "hub"])
+@pytest.fixture(scope="module", params=["packed", "dense", "hub", "odd"])
 def core_case(request):
     """The attention core's operands in numpy: the index arrays of
     ``batches(layout)`` with the ``case`` fixture's q/k/v, edge bias and
-    cotangent (the same draws), or :func:`hub_bins` with its own."""
+    cotangent (the same draws), or :func:`hub_bins` or :func:`odd_bins` at
+    V = 47 (an odd row count, a hub and a bin with no live edge) with their
+    own."""
     if request.param == "hub":
         src, dst, edge_mask, V = hub_bins()
+    elif request.param == "odd":
+        (src, dst, edge_mask), V = odd_bins(47), 47
     else:
         G = batches(request.param)[0]
         src, dst, edge_mask, V = G.src, G.dst, G.edge_mask, G.node_mask.shape[1]
@@ -134,7 +138,7 @@ def test_plain_versions_match_the_four_jax_entries(core_case, edge_bias):
     port's four wrappers on CPU tensors; attention_core against the JAX jnp
     core. A row with no live pair is zero in the output and g_q. The hub
     bins hold a row of 40 live lanes, a pair of three edges, unmasked lanes
-    outside [0, V) and a bin with no live edge."""
+    outside [0, V) and a bin with no live edge; the odd bins 47 node slots."""
     case = core_case
     args, jargs = core_args(case, edge_bias, "torch"), core_args(case, edge_bias, "jax")
     g, jg = t(case["g"]), jnp.asarray(case["g"])

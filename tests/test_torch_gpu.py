@@ -546,13 +546,30 @@ def hub_bins(seed=0):
     return src, dst, mask, V
 
 
+def odd_bins(V, seed=0):
+    """Three bins of V node slots and E = 96 edge lanes (numpy ``src``,
+    ``dst``, ``edge_mask``), for row counts that no run of (row, head) slots
+    divides. Bin 0: random edges among the first V - 2 nodes (the last two
+    have none), a fifth of the lanes masked, every seventh lane repeating the
+    pair before it. Bin 1: node V - 3 is a hub, the dst of 30 lanes and the
+    src of 30, the rest random. Bin 2 has no live edge."""
+    rng = np.random.default_rng(seed)
+    E = 96
+    src, dst = rng.integers(0, V - 2, (2, 3, E)).astype(np.int32)
+    src[0, 1::7], dst[0, 1::7] = src[0, :-1:7], dst[0, :-1:7]
+    dst[1, :30], src[1, 30:60] = V - 3, V - 3
+    mask = rng.random((3, E)) < 0.8
+    mask[1, :60], mask[2] = True, False
+    return src, dst, mask
+
+
 def attention_case(kind, d, H, edge_bias, seed=0):
     """(q, k, v, eb, src, dst, edge_mask, g) on the card. ``packed``: the
     molecules (a bond-less "O" and "[Na+].[Cl-]" among them) in bins of 128
     node slots and 256 edge lanes; ``dense``: one molecule a block; ``random``:
     V = 256, E = 512, random edges over the first 200 node slots (the rest
     are padding), a fifth of the lanes masked, duplicated pairs; ``hub``:
-    :func:`hub_bins`."""
+    :func:`hub_bins`; ``odd47``, ``odd49``: :func:`odd_bins` at V = 47, 49."""
     rng = np.random.default_rng(seed)
     graphs = [PIPE(s) for s in SMIS + ["[Na+].[Cl-]"]]
     if kind == "packed":
@@ -563,13 +580,15 @@ def attention_case(kind, d, H, edge_bias, seed=0):
         src, dst, mask = G.src, G.dst, G.edge_mask
     elif kind == "hub":
         src, dst, mask, _ = hub_bins()
+    elif kind.startswith("odd"):
+        src, dst, mask = odd_bins(int(kind[3:]))
     else:
         src = rng.integers(0, 200, (3, 512)).astype(np.int32)
         dst = rng.integers(0, 200, (3, 512)).astype(np.int32)
         src[:, 1::7], dst[:, 1::7] = src[:, :-1:7], dst[:, :-1:7]  # lane 7m + 1 repeats lane 7m
         mask = rng.random((3, 512)) < 0.8
     B, E = src.shape
-    V = {"packed": 128, "dense": 48, "random": 256, "hub": 48}[kind]
+    V = {"packed": 128, "dense": 48, "random": 256, "hub": 48, "odd47": 47, "odd49": 49}[kind]
     f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
     arrays = [f(B, V, d), f(B, V, d), f(B, V, d), f(B, H, E) if edge_bias else None, src, dst, mask, f(B, V, d)]
     return [None if x is None else torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in arrays]
@@ -629,6 +648,24 @@ def test_cuda_attention_kernels_match_plain_versions_on_hub_bins(edge_bias, d, H
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["odd47", "odd49"])
+@pytest.mark.parametrize("edge_bias", [True, False])
+@pytest.mark.parametrize("d, H", [(256, 4), (64, 1), (256, 8), (512, 1), (192, 3)])
+def test_cuda_attention_kernels_match_plain_versions_on_odd_bins(kind, edge_bias, d, H):
+    """The four entries on :func:`odd_bins` (:func:`_hold_attention_entries`):
+    row counts that leave a run of slots or a cluster's last block part full,
+    three heads whose rows straddle runs, a hub and a bin with no live edge,
+    one head at dh = 64 and 512, eight heads. Row 12 gives the bits of row
+    10, whose arithmetic it runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    _hold_attention_entries(kind, d, H, edge_bias)
+    q, k, v, eb, src, dst, mask, g = attention_case(kind, d, H, edge_bias)
+    assert torch.equal(fused_dense_attention_fwd_v2(q, k, v, eb, src, dst, mask, num_heads=H),
+                       fused_dense_attention_fwd(q, k, v, eb, src, dst, mask, num_heads=H))
+
+
+@pytest.mark.gpu
 def test_cuda_attention_autograd_matches_cpu():
     """FusedDenseAttentionFn with the kernel forward on the card against the
     same function on the CPU: output and the gradients of q, k, v and eb."""
@@ -658,13 +695,40 @@ def test_cuda_attention_refuses_what_it_does_not_take():
         fused_dense_attention_bwd(q, k, v, eb, src, dst, mask, g, num_heads=4, interpret=True)
     with pytest.raises(TypeError, match="float32"):
         fused_dense_attention_fwd(q.double(), k.double(), v.double(), eb.double(), src, dst, mask, num_heads=4)
-    big = torch.zeros(1, 2048, 64, device="cuda")
+    # rows 10-12 hold a block's edge list, row 13 two and each pair's values
+    # for every head: E = 4,096 lanes at one head fit row 13, at four not
+    wide = torch.zeros(1, 2048, 256, device="cuda")
     ids = torch.zeros(1, 4096, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_dense_attention_fwd_v2(big, big, big, None, ids, ids, ids.bool(), num_heads=1)
+    with pytest.raises(ValueError, match="E=4096 edge lanes at H=4 heads"):
+        fused_dense_attention_bwd_v2(wide, wide, wide, None, ids, ids, ids.bool(), wide, num_heads=4)
     small, lanes = torch.zeros(1, 8, 64, device="cuda"), torch.zeros(1, 10_000, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="E=10000 edge lanes need"):  # rows 10-11 hold a bin's edge list
-        fused_dense_attention_fwd(small, small, small, None, lanes, lanes, lanes.bool(), num_heads=1)
+    for fwd in (fused_dense_attention_fwd, fused_dense_attention_fwd_v2):
+        with pytest.raises(ValueError, match="E=10000 edge lanes need"):
+            fwd(small, small, small, None, lanes, lanes, lanes.bool(), num_heads=1)
+    tall, pair = torch.zeros(1, 46_341, 4, device="cuda"), torch.zeros(1, 2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="V=46341 node slots"):  # a list's keys row * V + other fit an int32
+        fused_dense_attention_bwd_v2(tall, tall, tall, None, pair, pair, pair.bool(), tall, num_heads=1)
+
+
+@pytest.mark.gpu
+def test_cuda_attention_runs_bins_of_4096_lanes():
+    """Rows 12-13 at V = 2048, E = 4096, one head of 64, a shape the block
+    per (bin, head) design refused (its two staged [V, dh] head slices): 2,048
+    random edges over 2,000 nodes, against the plain versions on every lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(5)
+    V, E, d = 2048, 4096, 64
+    src, dst = rng.integers(0, 2000, (2, 1, E)).astype(np.int32)
+    mask = np.arange(E)[None] < 2048
+    f = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()  # noqa: E731
+    q, k, v, eb, g = f(1, V, d), f(1, V, d), f(1, V, d), f(1, 1, E), f(1, V, d)
+    src, dst, mask = (torch.from_numpy(x).cuda() for x in (src, dst, mask))
+    out = fused_dense_attention_fwd_v2(q, k, v, eb, src, dst, mask, num_heads=1)
+    grads = fused_dense_attention_bwd_v2(q, k, v, eb, src, dst, mask, g, num_heads=1)
+    torch.testing.assert_close(out, dense_attention_reference(q, k, v, eb, src, dst, mask, 1), rtol=1e-4, atol=1e-4)
+    _close_grads(grads, dense_attention_bwd_reference(q, k, v, eb, src, dst, mask, g, 1))
 
 
 @pytest.mark.gpu
