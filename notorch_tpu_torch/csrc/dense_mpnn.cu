@@ -1,8 +1,8 @@
 // The forward of the folded dense D-MPNN block, in CUDA C++ for sm_90a: a
 // prep once a call, then per layer one tiled product over all B * E rows and
 // one pass of the edge operator, with the whole encoder's gather folded into
-// the prep and its masked scatter into the last layer's pass; and a layer
-// kernel of its own that double-buffers its tiles.
+// the prep and its masked scatter into the last layer's pass; and row 7's
+// whole call in one launch, a group of blocks a bin.
 //
 // Replaces the Pallas kernels of notorch_tpu/kernels/dense_mpnn.py:
 //   - fused_dense_mpnn_block / _block_kernel (with its operator
@@ -10,11 +10,11 @@
 //     _block_kernel_stash: dense_mpnn_forward;
 //   - fused_dense_encoder_fwd / _encoder_kernel(_stash): dense_mpnn_forward
 //     with the V->E gather and the masked E->V scatter;
-//   - fused_dense_mpnn_block_dbuf / _dbuf_kernel: dense_mpnn_dbuf_layer.
+//   - fused_dense_mpnn_block_dbuf / _dbuf_kernel: dense_mpnn_dbuf_forward.
 // The Python wrapper (notorch_tpu_torch/kernels/dense_mpnn.py) calls
 // dense_mpnn_forward once a block call: it launches the prep and every layer
 // from C++, layer l writing outs[l] (two buffers in turn, or the stash). It
-// calls dense_mpnn_dbuf_layer once a layer.
+// calls dense_mpnn_dbuf_forward once a call: one launch.
 //
 // Per bin b, with rev(e) = e ^ 1 (edges interleaved in reverse pairs):
 //   keep[e,e'] = src[e] == dst[e'] && emask[e']
@@ -71,16 +71,32 @@
 // which changes the numbers), and mW and each layer's output go through L2
 // between the launches.
 //
-// The double-buffered layer (dense_mpnn_dbuf_layer) runs on a (bin, 64-column
-// slice of d) grid of 256 threads a block. 1. The block builds A's bit rows
-// in shared memory (build_bits). 2. mW[:, slice] = relu(h_in[b]) @ W[:,
-// slice] by k-tiled shared-memory f32 FMA: the 32-deep tiles of h and W go
-// from device memory to shared memory by cp.async in a two-stage pipeline
-// (the next tile's copies in flight while the block computes on this one,
-// cp.async.wait_group between stages), and relu is applied in shared memory
-// once a tile has landed (a copy cannot transform what it moves). 3. Each
-// output row walks the set bits of its A row and sums the mW rows they name
-// (write_rows), the residual reads issued eight rows at a time.
+// Row 7 (dense_mpnn_dbuf_forward, dense_mpnn_dbuf_kernel) keeps the TPU
+// kernel's contract in Hopper's terms: the TPU kernel holds a tile of bins in
+// VMEM through all depth layers while DMA streams the next tile in and the
+// last one out. Here one launch runs the whole call, depth-fused: a group of
+// d / 64 blocks owns a bin, block r keeping columns [64 r, 64 r + 64) of the
+// bin's h and of each layer's mW in its shared memory through every layer
+// (the packed batch's 32 bins are 128 blocks, one an SM, one wave). The
+// product relu(h) @ W[:, slice] reads the whole of the layer's input through
+// L2 (layer 0's from h_in, later ones from what the group's blocks wrote) and
+// streams W's 16-deep k-slabs: half the block's threads compute on a slab
+// while the other half load the next one (all threads computing and loading
+// in turn took 0.080 ms against 0.069, PERF.md §6); the operator pass
+// needs only the block's own mW columns, writes h in place and its slice to
+// device memory for the others' next product; a barrier of the group's blocks separates one pass
+// from the next product. The launch is cooperative, so every block is
+// resident and the barrier (an arrival count in device memory and a
+// generation the last arrival advances) cannot wait on a block that never
+// runs; a batch of more bins than the card holds groups at once is taken by
+// each group in turn. The bit rows are built once a bin, layer 0's input is
+// read once and the last layer's output written once. Each computing thread
+// owns TM rows x 4 columns (TM = 8 at E <= 128, row 1's tile; 16 at E <= 256),
+// each output one fmaf chain over ascending k as in row 1's product, and the
+// walk is row 1's, so row 7 gives row 1's bits.
+// (A cluster a bin, the slices read through distributed shared memory, was
+// the first design: the card holds 30 clusters of 4 blocks at once, so the
+// packed batch's 32 bins ran in two waves, 0.153 ms, PERF.md §6.)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,132 +105,14 @@
 namespace {
 
 constexpr int kCols = 64;       // output columns per block
-constexpr int kKTile = 32;      // k depth of one staged tile
 constexpr int kThreads = 256;
 constexpr int kMaxEdges = 256;  // edge lanes per bin these kernels take
 constexpr int kMaxNodes = 256;  // node slots per bin the scatter takes
-constexpr int kResGroup = 8;    // residual reads in flight per thread in step 3
-constexpr int kRowStep = kThreads / kCols;  // rows a block pass covers in steps 3 and 4
-constexpr int kHStride = kKTile + 4;        // row of the dbuf h tile: 16-byte aligned
+constexpr int kResGroup = 8;    // residual reads in flight per thread in the operator pass
 constexpr int kMaxWords = kMaxEdges / 32;   // words of a bit row
 constexpr int kVecs = kCols / 4;            // 16-byte vectors of a 64-column slice row
 
-// The pointers and sizes of one layer launch. The kernels take the pointers
-// as __restrict__ parameters (no two of them alias, so the compiler may load
-// the read-only ones through the non-coherent path and move loads past the
-// stores) and bundle them into a LayerArgs for the device functions.
-struct LayerArgs {
-  const float* h_in;   // [B, E, d] the layer's input; ef when gathering
-  float* h_out;        // [B, E, d]
-  const float* nf;     // [B, V, d] node features (gather)
-  float* nh;           // [B, V, d] node hiddens (scatter)
-  const int* src;      // [B, E]
-  const int* dst;      // [B, E]
-  const uint8_t* emask;  // [B, E]
-  const float* W;      // [d, d], [in, out]
-  const float* bias;   // [d]
-  int E, V, d, residual, mean;
-};
-
-__host__ inline size_t dbuf_smem_bytes(int E) {
-  return sizeof(float) * (2 * (size_t)kKTile * kCols      // two W tiles (first)
-                          + (size_t)E * kCols             // mW slice
-                          + 2 * (size_t)E * kHStride)     // two h tiles
-         + sizeof(uint32_t) * ((size_t)E * adj_words(E) + 3 * (size_t)E);
-}
-
 __device__ inline float relu(float v) { return v < 0.f ? 0.f : v; }  // NaN passes, as in torch
-
-// Element col of row e of the layer input: input_vec's scalar form.
-template <bool kGather>
-__device__ inline float input_at(const LayerArgs& a, size_t bin_off, int b, int e, int col) {
-  float v = a.h_in[(bin_off + e) * a.d + col];
-  if constexpr (kGather) {
-    const int s = a.src[bin_off + e];
-    if (s >= 0 && s < a.V) v = a.nf[((size_t)b * a.V + s) * a.d + col] + v;
-  }
-  return v;
-}
-
-// Step 1: stage the bin's index arrays, then (after a barrier) build A's bit
-// rows (sum: keep without rev; mean: keep) and, for the scatter, the node bit
-// rows: bit e of row v set where dst[e] == v and emask[e].
-template <bool kScatter>
-__device__ inline void build_bits(const LayerArgs& a, size_t bin_off, uint32_t* adj,
-                                  uint32_t* node_bits, int* src_s, int* dst_s, int* ok_s,
-                                  int tid) {
-  const int E = a.E, words = adj_words(E);
-  for (int e = tid; e < E; e += kThreads) {
-    src_s[e] = a.src[bin_off + e];
-    dst_s[e] = a.dst[bin_off + e];
-    ok_s[e] = a.emask[bin_off + e] != 0;
-  }
-  __syncthreads();
-  for (int i = tid; i < E * words; i += kThreads) {
-    const int e = i / words;
-    const int base = (i % words) * 32;
-    const int se = src_s[e];
-    const int rev = e ^ 1;
-    uint32_t bits = 0u;
-    for (int t = 0; t < 32; ++t) {
-      const int e2 = base + t;
-      if (e2 < E && ok_s[e2] && dst_s[e2] == se && (a.mean || e2 != rev)) bits |= 1u << t;
-    }
-    adj[i] = bits;
-  }
-  if constexpr (kScatter) {
-    for (int i = tid; i < a.V * words; i += kThreads) {
-      const int v = i / words;
-      const int base = (i % words) * 32;
-      uint32_t bits = 0u;
-      for (int t = 0; t < 32; ++t) {
-        const int e2 = base + t;
-        if (e2 < E && ok_s[e2] && dst_s[e2] == v) bits |= 1u << t;
-      }
-      node_bits[i] = bits;
-    }
-  }
-}
-
-// Step 3: h_out[b, e, c] = (h_in +) bias + sum over the set bits of row e;
-// the scatter also keeps the output slice in `outs` ([E][kCols]).
-template <bool kGather, bool kScatter>
-__device__ inline void write_rows(const LayerArgs& a, size_t bin_off, int b, int c0,
-                                  const float* mw, const uint32_t* adj, float* outs, int tid) {
-  const int E = a.E, words = adj_words(E);
-  const int c = tid % kCols;
-  const float bc = a.bias[c0 + c];
-  for (int e0 = tid / kCols; e0 < E; e0 += kRowStep * kResGroup) {
-    float res[kResGroup];
-#pragma unroll
-    for (int u = 0; u < kResGroup; ++u) {
-      const int e = e0 + u * kRowStep;
-      res[u] = a.residual && e < E ? input_at<kGather>(a, bin_off, b, e, c0 + c) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < kResGroup; ++u) {
-      const int e = e0 + u * kRowStep;
-      if (e >= E) break;
-      const uint32_t* row = adj + (size_t)e * words;
-      float s = 0.f;
-      int deg = 0;
-      for (int w = 0; w < words; ++w) {
-        uint32_t bits = row[w];
-        deg += __popc(bits);
-        while (bits) {
-          const int t = __ffs(bits) - 1;
-          bits &= bits - 1u;
-          s += mw[(w * 32 + t) * kCols + c];
-        }
-      }
-      if (a.mean) s = s / fmaxf((float)deg, 1.f) - mw[(e ^ 1) * kCols + c];
-      const float o = bc + s;
-      const float h = a.residual ? res[u] + o : o;
-      a.h_out[(bin_off + e) * a.d + c0 + c] = h;
-      if constexpr (kScatter) outs[e * kCols + c] = h;
-    }
-  }
-}
 
 // ---- the forward: once a call, the prep --------------------------------------
 
@@ -308,15 +206,18 @@ constexpr int kGroupsB = kBK * kBN / 4 / kGemmThreads;
 static_assert(kTM * kTN * kGemmThreads == kGemmRows * kBN && kTM % 4 == 0 && kGroupsA >= 1 &&
                   kGroupsB >= 1, "tile shape");
 
-__device__ inline void gemm_compute(const float* As, const float* Bs, float (&acc)[kTM][kTN]) {
+// One k-slab of a thread's TM x kTN outputs: As is the slab of relu(h), k-major
+// with rows LdA apart, Bs W's, k-major with rows kLdB apart.
+template <int TM, int LdA>
+__device__ inline void gemm_compute(const float* As, const float* Bs, float (&acc)[TM][kTN]) {
   const int ty = threadIdx.x / (kBN / kTN), tx = threadIdx.x % (kBN / kTN);
 #pragma unroll
   for (int kk = 0; kk < kBK; ++kk) {
     const float4 bv = *reinterpret_cast<const float4*>(Bs + kk * kLdB + tx * kTN);
-    float a[kTM];
+    float a[TM];
 #pragma unroll
-    for (int i = 0; i < kTM; i += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(As + kk * kLdA + ty * kTM + i);
+    for (int i = 0; i < TM; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(As + kk * LdA + ty * TM + i);
       a[i] = v.x;
       a[i + 1] = v.y;
       a[i + 2] = v.z;
@@ -324,7 +225,7 @@ __device__ inline void gemm_compute(const float* As, const float* Bs, float (&ac
     }
     const float b[kTN] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
-    for (int i = 0; i < kTM; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
   }
@@ -387,7 +288,7 @@ mpnn_fwd_gemm_kernel(const float* __restrict__ h, const float* __restrict__ W,
     const bool more = k + kBK < d;
     if (more) load(k + kBK);
     float* stage = S + s * (kSlabA + kSlabB);
-    gemm_compute(stage, stage + kSlabA, acc);
+    gemm_compute<kTM, kLdA>(stage, stage + kSlabA, acc);
     if (more) store(S + (s ^ 1) * (kSlabA + kSlabB));
     __syncthreads();
     s ^= 1;
@@ -529,126 +430,279 @@ cudaError_t launch_apply(const float* mw, const float* h_in, float* h_out, float
   return cudaGetLastError();
 }
 
-// ---- the double-buffered layer ----------------------------------------------
+// ---- row 7: the whole block call in one launch ------------------------------
 
-__device__ inline void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+constexpr int kDbufThreads = 512;
+constexpr int kDbufMaxSlices = 16;  // d <= 1024
+constexpr int kDbufMinBlocks = 1;  // blocks an SM's registers must hold
+constexpr int kHLd = kCols + 4;    // row of a block's h slice
+constexpr int kDbufGroupsB = kBK * kBN / 4;  // 16-byte groups of a W slab (threads below load one)
+constexpr int kMaxGroups = 2048;   // bin groups a launch may hold (each has its barrier)
+// a bin group's barrier: arrivals (back to 0 after every barrier) and the
+// generation its last arrival advances; zero when the library loads
+__device__ unsigned dbuf_arrivals[kMaxGroups];
+__device__ unsigned dbuf_generation[kMaxGroups];
+
+// The product's threads: the first kDbufCompute of a block compute TM x 4
+// outputs each (16 column groups of 4, kDbufCompute / 16 row groups), the
+// others load the next slabs meanwhile. Rows a block's product covers:
+constexpr int kDbufCompute = 256;
+template <int TM>
+__host__ __device__ constexpr int dbuf_rows() {
+  return TM * (kDbufCompute / (kBN / kTN));
 }
 
-__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ inline void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Issue the copies of the k-tile at k0 into one stage: E rows of 8 vectors of
-// h and 32 rows of 16 vectors of W.
-__device__ inline void issue_tile(const LayerArgs& a, size_t bin_off, int c0, int k0, float* hs,
-                                  float* ws, int tid) {
-  const float* hb = a.h_in + bin_off * a.d + k0;
-  for (int idx = tid; idx < a.E * 8; idx += kThreads) {
-    const int e = idx >> 3, q = idx & 7;
-    cp_async16(hs + e * kHStride + 4 * q, hb + (size_t)e * a.d + 4 * q);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = tid + kThreads * i, k = idx >> 4, q = idx & 15;
-    cp_async16(ws + k * kCols + 4 * q, a.W + (size_t)(k0 + k) * a.d + c0 + 4 * q);
-  }
-  cp_async_commit();
-}
-
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-dense_mpnn_dbuf_kernel(const float* __restrict__ h_in, float* __restrict__ h_out,
-                       const int* __restrict__ src, const int* __restrict__ dst,
-                       const uint8_t* __restrict__ emask, const float* __restrict__ W,
-                       const float* __restrict__ bias, int E, int d, int residual, int mean) {
-  const LayerArgs a{h_in, h_out, nullptr, nullptr, src, dst, emask, W, bias, E, 1, d,
-                    residual, mean};
-  extern __shared__ float4 smem4[];
+// A block's shared memory: its h slice [E][kHLd] and mW slice [E][kCols],
+// two stages of the relu(h) k-slab ([kBK][dbuf_rows + 4]) and of W's
+// ([kBK][kLdB]), then A's bit rows [E][words] and the bin's src, dst and mask
+// over 32 words lanes each.
+template <int TM>
+__host__ __device__ inline size_t dbuf_smem_bytes(int E) {
   const int words = adj_words(E);
-  float* ws0 = reinterpret_cast<float*>(smem4);                      // [kKTile][kCols] x 2
-  float* mw = ws0 + 2 * kKTile * kCols;                              // [E][kCols]
-  float* hs0 = mw + (size_t)E * kCols;                               // [E][kHStride] x 2
-  uint32_t* adj = reinterpret_cast<uint32_t*>(hs0 + 2 * (size_t)E * kHStride);
-  int* src_s = reinterpret_cast<int*>(adj + (size_t)E * words);
-  int* dst_s = src_s + E;
-  int* ok_s = dst_s + E;
+  return sizeof(float) * ((size_t)E * kHLd + (size_t)E * kCols +
+                          2 * (size_t)kBK * (dbuf_rows<TM>() + 4) + 2 * (size_t)kBK * kLdB) +
+         sizeof(uint32_t) * ((size_t)E * words + 3 * 32 * (size_t)words);
+}
 
-  const int b = blockIdx.x;
-  const int c0 = blockIdx.y * kCols;
-  const int tid = threadIdx.x;
-  const size_t bin_off = (size_t)b * E;
-  const int n_tiles = d / kKTile;
+__device__ inline unsigned long long dbuf_clock_ns() {
+  unsigned long long t = 0;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 
-  issue_tile(a, bin_off, c0, 0, hs0, ws0, tid);  // stage 0 fills while step 1 runs
-  build_bits<false>(a, bin_off, adj, nullptr, src_s, dst_s, ok_s, tid);
-
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  float acc[R][4];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_tiles) {
-      const int nx = st ^ 1;
-      issue_tile(a, bin_off, c0, (t + 1) * kKTile, hs0 + nx * (size_t)E * kHStride,
-                 ws0 + nx * kKTile * kCols, tid);
-      cp_async_wait<1>();  // this tile's group has landed; the next one is in flight
+// The barrier of the C blocks of bin group g (all of them resident: the
+// launch is cooperative). Every block's writes before it are visible to
+// every block after it (the fences around thread 0's arrival). A wait of
+// over a second traps instead of hanging the card.
+__device__ inline void group_barrier(int g, int C) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = dbuf_generation + g;
+    const unsigned seen = *gen;
+    __threadfence();
+    if (atomicAdd(dbuf_arrivals + g, 1u) == (unsigned)C - 1) {
+      atomicExch(dbuf_arrivals + g, 0u);
+      __threadfence();
+      atomicAdd(dbuf_generation + g, 1u);
     } else {
-      cp_async_wait<0>();
+      const unsigned long long t0 = dbuf_clock_ns();
+      while (*gen == seen)
+        if (dbuf_clock_ns() - t0 > 1000000000ull) __trap();
     }
-    __syncthreads();  // every thread's copies of this tile (and step 1) are visible
-    float* hs = hs0 + st * (size_t)E * kHStride;
-    const float* ws = ws0 + st * kKTile * kCols;
-    for (int i = tid; i < E * kKTile; i += kThreads) {
-      float* v = hs + (i / kKTile) * kHStride + i % kKTile;
-      *v = relu(*v);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kKTile; ++k) {
-      const float4 bv = reinterpret_cast<const float4*>(ws + k * kCols)[tx];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int e = ty + 16 * r;
-        const float av = e < E ? hs[e * kHStride + k] : 0.f;
-        acc[r][0] = fmaf(av, bv.x, acc[r][0]);
-        acc[r][1] = fmaf(av, bv.y, acc[r][1]);
-        acc[r][2] = fmaf(av, bv.z, acc[r][2]);
-        acc[r][3] = fmaf(av, bv.w, acc[r][3]);
-      }
-    }
-    __syncthreads();  // this stage is consumed before the next iteration refills it
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int e = ty + 16 * r;
-    if (e < E)
-      reinterpret_cast<float4*>(mw + e * kCols)[tx] =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    __threadfence();
   }
   __syncthreads();
-
-  write_rows<false, false>(a, bin_off, b, c0, mw, adj, nullptr, tid);
 }
 
-template <int R>
-cudaError_t launch_dbuf(const LayerArgs& a, int B, cudaStream_t stream) {
-  static uint64_t configured = 0;
-  cudaError_t err = allow_smem((const void*)dense_mpnn_dbuf_kernel<R>,
-                               (int)dbuf_smem_bytes(16 * R), configured);
+// Grid G * C blocks, C = d / 64, all resident at once (a cooperative
+// launch): block j is slice r = j % C (columns [64 r, 64 r + 64)) of bin
+// group g = j / C, which takes bins g, g + G, ... in turn. For each bin the
+// block keeps its slice of h and of each layer's mW in shared memory and runs
+// every layer: mW[:, slice] = relu(h) @ W[:, slice] over the bin's E rows
+// (threads below kDbufCompute computing TM x 4 outputs each, one fmaf chain
+// over ascending k an output as in row 1's product, on a 16-deep k-slab of
+// relu(h) and of W, while the other threads load the next slab and store it
+// to the other stage), then the operator pass over its own columns by every
+// thread (h_out = (h +) bias + A @ mW, row 1's walk over the bit rows), which
+// writes h in place and, for the other slices' next product, to device
+// memory (out where layers - 1 - l is even, else scratch, so that the last
+// layer writes out); then the group's barrier. Layer 0 reads h_in, later
+// layers the other slices through L2 (ld.global.cg: written in this launch).
+template <int TM>
+__global__ void __launch_bounds__(kDbufThreads, kDbufMinBlocks)
+    dense_mpnn_dbuf_kernel(const float* __restrict__ h_in, float* out, float* scratch,
+                           const int* __restrict__ src, const int* __restrict__ dst,
+                           const uint8_t* __restrict__ emask, const float* __restrict__ W,
+                           const float* __restrict__ bias, int B, int E, int d, int layers,
+                           int residual, int mean) {
+  constexpr int kLdA = dbuf_rows<TM>() + 4;
+  constexpr int kSlabA = kBK * kLdA, kSlabB = kBK * kLdB;
+  constexpr int kLoaders = kDbufThreads - kDbufCompute;
+  constexpr int kGroupsA = kBK * dbuf_rows<TM>() / 4 / kLoaders;  // a loader's relu(h) groups
+  static_assert(kGroupsA * 4 * kLoaders == kBK * dbuf_rows<TM>() && kDbufGroupsB == kLoaders,
+                "slab shape");
+  extern __shared__ float4 smem4[];
+  const int words = adj_words(E);
+  float* hs = reinterpret_cast<float*>(smem4);        // [E][kHLd]
+  float* mw = hs + (size_t)E * kHLd;                  // [E][kCols]
+  float* S = mw + (size_t)E * kCols;                  // 2 x ([kBK][kLdA], [kBK][kLdB])
+  uint32_t* adj = reinterpret_cast<uint32_t*>(S + 2 * (kSlabA + kSlabB));  // [E][words]
+  int* src_s = reinterpret_cast<int*>(adj + (size_t)E * words);           // [32 words] x 3
+  int* dst_s = src_s + 32 * words;
+  int* ok_s = dst_s + 32 * words;
+
+  const int tid = threadIdx.x, C = d / kCols;
+  const int g = blockIdx.x / C, G = gridDim.x / C;
+  const int c0 = blockIdx.x % C * kCols;
+  const int ty = tid / (kBN / kTN), tx = tid % (kBN / kTN);
+
+  for (int b = g; b < B; b += G) {
+    const size_t bin_off = (size_t)b * E;
+    {  // layer 0's input slice and the bin's index arrays, every load in flight first
+      constexpr int kPer = kMaxEdges * kVecs / kDbufThreads;
+      float4 v[kPer];
+#pragma unroll
+      for (int t = 0; t < kPer; ++t) {
+        const int i = tid + t * kDbufThreads;
+        if (i < E * kVecs)
+          v[t] = reinterpret_cast<const float4*>(h_in + (bin_off + i / kVecs) * d + c0)[i % kVecs];
+      }
+      for (int e = tid; e < 32 * words; e += kDbufThreads) {
+        const bool in = e < E;
+        src_s[e] = in ? src[bin_off + e] : -1;
+        dst_s[e] = in ? dst[bin_off + e] : -1;
+        ok_s[e] = in && emask[bin_off + e] != 0;
+      }
+#pragma unroll
+      for (int t = 0; t < kPer; ++t) {
+        const int i = tid + t * kDbufThreads;
+        if (i < E * kVecs)
+          reinterpret_cast<float4*>(hs + (size_t)(i / kVecs) * kHLd)[i % kVecs] = v[t];
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < E * words; i += kDbufThreads) {
+      const int e = i / words;
+      adj[i] = match_word(dst_s, ok_s, E, i % words, src_s[e], mean ? -1 : e ^ 1);
+    }
+    // (the bit rows are read after the product's barriers)
+
+    for (int l = 0; l < layers; ++l) {
+      // the layer's input, all columns: what layer l - 1 wrote
+      const float* x = l == 0 ? h_in : (layers - l) % 2 == 0 ? out : scratch;
+      const float* Wl = W + (size_t)l * d * d;
+      float acc[TM][kTN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+      float4 ra[kGroupsA], rb;
+      const int li = tid - kDbufCompute;  // a loader's index
+      auto load = [&](int k0) {  // a loader's share of the slabs at k0, into registers
+#pragma unroll
+        for (int t = 0; t < kGroupsA; ++t) {  // relu(h) rows along k
+          const int q = li + t * kLoaders;
+          const int m = q / (kBK / 4), k = k0 + q % (kBK / 4) * 4;
+          ra[t] = m < E ? __ldcg(reinterpret_cast<const float4*>(x + (bin_off + m) * d + k))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+        // W rows k0.. along this block's columns
+        rb = *reinterpret_cast<const float4*>(Wl + (size_t)(k0 + li / (kBN / 4)) * d + c0 +
+                                              li % (kBN / 4) * 4);
+      };
+      auto store = [&](float* stage) {
+#pragma unroll
+        for (int t = 0; t < kGroupsA; ++t) {
+          const int q = li + t * kLoaders;
+          float* s = stage + q % (kBK / 4) * 4 * kLdA + q / (kBK / 4);
+          s[0] = relu(ra[t].x);
+          s[kLdA] = relu(ra[t].y);
+          s[2 * kLdA] = relu(ra[t].z);
+          s[3 * kLdA] = relu(ra[t].w);
+        }
+        float* bs = stage + kSlabA;
+        *reinterpret_cast<float4*>(bs + li / (kBN / 4) * kLdB + li % (kBN / 4) * 4) = rb;
+      };
+      const bool computes = tid < kDbufCompute;
+      if (!computes) {
+        load(0);
+        store(S);
+      }
+      __syncthreads();
+      int s = 0;
+      for (int k = 0; k < d; k += kBK) {
+        if (computes) {
+          const float* stage = S + s * (kSlabA + kSlabB);
+          gemm_compute<TM, kLdA>(stage, stage + kSlabA, acc);
+        } else if (k + kBK < d) {
+          load(k + kBK);
+          store(S + (s ^ 1) * (kSlabA + kSlabB));
+        }
+        __syncthreads();
+        s ^= 1;
+      }
+      if (computes)
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const int r = ty * TM + i;
+          if (r < E)
+            *reinterpret_cast<float4*>(mw + (size_t)r * kCols + tx * kTN) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        }
+      __syncthreads();  // this block's mW slice is in place
+
+      float* y = (layers - 1 - l) % 2 == 0 ? out : scratch;
+      const int c = tid % kCols;
+      const float bc = bias[(size_t)l * d + c0 + c];
+      for (int e = tid / kCols; e < E; e += kDbufThreads / kCols) {
+        int deg;
+        float sum = walk_row(adj + (size_t)e * words, words, deg,
+                             [&](int e2) { return mw[e2 * kCols + c]; });
+        if (mean) sum = sum / fmaxf((float)deg, 1.f) - mw[(e ^ 1) * kCols + c];
+        const float o = bc + sum;
+        const float hv = residual ? hs[e * kHLd + c] + o : o;
+        hs[e * kHLd + c] = hv;
+        y[(bin_off + e) * d + c0 + c] = hv;
+      }
+      if (l + 1 < layers) group_barrier(g, C);  // every slice of the new h is in place
+    }
+    __syncthreads();  // the pass is done with this bin's shared memory
+  }
+}
+
+template <int TM>
+cudaError_t dbuf_config(const void* kernel, int B, int E, int d, cudaLaunchConfig_t& config,
+                        cudaLaunchAttribute& coop) {
+  static uint64_t smem_configured = 0;
+  cudaError_t err = allow_smem(kernel, (int)dbuf_smem_bytes<TM>(kMaxEdges), smem_configured);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDbufThreads,
+                                                        dbuf_smem_bytes<TM>(E));
   if (err != cudaSuccess) return err;
-  dense_mpnn_dbuf_kernel<R><<<dim3(B, a.d / kCols), kThreads, dbuf_smem_bytes(a.E), stream>>>(
-      a.h_in, a.h_out, a.src, a.dst, a.emask, a.W, a.bias, a.E, a.d, a.residual, a.mean);
-  return cudaGetLastError();
+  const int C = d / kCols, resident = sms * per_sm / C;
+  int groups = B < resident ? B : resident;
+  if (groups > kMaxGroups) groups = kMaxGroups;
+  if (groups < 1) return cudaErrorCooperativeLaunchTooLarge;
+  config = {};
+  config.gridDim = dim3(groups * C);
+  config.blockDim = dim3(kDbufThreads);
+  config.dynamicSmemBytes = dbuf_smem_bytes<TM>(E);
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  config.attrs = &coop;
+  config.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// The bin groups row 7's launch runs at once at this shape (through
+// `groups`): min(B, the blocks the card holds at once / (d / 64)).
+template <int TM>
+cudaError_t dbuf_groups(int B, int E, int d, int* groups) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute coop;
+  const cudaError_t err =
+      dbuf_config<TM>((const void*)dense_mpnn_dbuf_kernel<TM>, B, E, d, config, coop);
+  *groups = err == cudaSuccess ? (int)config.gridDim.x / (d / kCols) : 0;
+  return err;
+}
+
+template <int TM>
+cudaError_t launch_dbuf(const float* h_in, float* out, float* scratch, const int* src,
+                        const int* dst, const uint8_t* emask, const float* W, const float* bias,
+                        int B, int E, int d, int layers, int residual, int mean,
+                        cudaStream_t stream) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute coop;
+  cudaError_t err =
+      dbuf_config<TM>((const void*)dense_mpnn_dbuf_kernel<TM>, B, E, d, config, coop);
+  if (err != cudaSuccess) return err;
+  config.stream = stream;
+  err = cudaLaunchKernelEx(&config, dense_mpnn_dbuf_kernel<TM>, h_in, out, scratch, src, dst,
+                           emask, W, bias, B, E, d, layers, residual, mean);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 bool bad_shape(int B, int E, int d) {
@@ -713,21 +767,42 @@ int dense_mpnn_forward(const float* h_in, float* const* outs, const float* nf, f
   return (int)err;
 }
 
-// One layer of the double-buffered forward: h_out[B,E,d] from h_in[B,E,d],
-// src/dst[B,E] int32, emask[B,E] bytes, W[d,d] ([in, out], row-major),
-// bias[d]; h_in, h_out and W start 16-byte aligned. The stream is a
-// cudaStream_t. Returns the cudaError_t of the launch (0 on success).
-int dense_mpnn_dbuf_layer(const float* h_in, float* h_out, const int* src, const int* dst,
-                          const uint8_t* emask, const float* W, const float* bias, int B, int E,
-                          int d, int residual, int mean, void* stream) {
-  if (bad_shape(B, E, d)) return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)h_in | (uintptr_t)h_out | (uintptr_t)W) % 16 != 0)
+// Row 7's whole forward in one launch: layers 0 .. layers - 1 from h_in[B,E,d]
+// into out[B,E,d], W[l] = W + l * d * d ([in, out], row-major), bias[l] =
+// bias + l * d; src/dst[B,E] int32, emask[B,E] bytes; scratch[B,E,d] holds
+// every other layer's output (layers >= 2; else unused). d / 64 <= 16; h_in,
+// out, scratch and W start 16-byte aligned. The stream is a cudaStream_t.
+// Calls on one device run one at a time (they share the bin groups'
+// barriers). Returns the cudaError_t of the launch (0 on success).
+int dense_mpnn_dbuf_forward(const float* h_in, float* out, float* scratch, const int* src,
+                            const int* dst, const uint8_t* emask, const float* W,
+                            const float* bias, int B, int E, int d, int layers, int residual,
+                            int mean, void* stream) {
+  if (bad_shape(B, E, d) || d / kCols > kDbufMaxSlices || E > dbuf_rows<16>() || layers <= 0 ||
+      (layers > 1 && !scratch))
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)h_in | (uintptr_t)out | (uintptr_t)scratch | (uintptr_t)W) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  const LayerArgs a{h_in, h_out, nullptr, nullptr, src, dst, emask, W, bias, E, 1, d,
-                    residual, mean};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (E <= 128) return (int)launch_dbuf<8>(a, B, s);
-  return (int)launch_dbuf<16>(a, B, s);
+  if (E <= dbuf_rows<8>())
+    return (int)launch_dbuf<8>(h_in, out, scratch, src, dst, emask, W, bias, B, E, d, layers,
+                               residual, mean, s);
+  return (int)launch_dbuf<16>(h_in, out, scratch, src, dst, emask, W, bias, B, E, d, layers,
+                              residual, mean, s);
+}
+
+// Row 7's widest width in 64-column slices (d <= 64 * this).
+int dense_mpnn_dbuf_max_slices() { return kDbufMaxSlices; }
+
+// Row 7's bin groups at once for B bins of E lanes at width d (each d / 64
+// blocks; fewer groups than bins means a group takes several bins in turn),
+// or -1 on an error. The timing script prints it.
+int dense_mpnn_dbuf_groups(int B, int E, int d) {
+  if (bad_shape(B, E, d) || d / kCols > kDbufMaxSlices) return -1;
+  int groups = 0;
+  const cudaError_t err = E <= dbuf_rows<8>() ? dbuf_groups<8>(B, E, d, &groups)
+                                              : dbuf_groups<16>(B, E, d, &groups);
+  return err == cudaSuccess ? groups : -1;
 }
 
 const char* dense_mpnn_error_string(int err) {

@@ -240,17 +240,22 @@ def csr_segment_sum_packed(
     budget = n_slots // n_tiles
     if tile_e <= 0 or budget % tile_e != 0:
         raise ValueError(f"budget {budget} must be a multiple of tile_e {tile_e}")
+    expect = {"perm": (perm, torch.int32, (n_slots,)), "packed_dst": (packed_dst, torch.int32, (n_slots,))}
+    if dst is not None:
+        expect["dst"] = (dst, torch.int32, (E,))
+    if edge_mask is not None:
+        expect["edge_mask"] = (edge_mask, torch.bool, (E,))
+    check_tensors(expect, data.device, anchor="data")
+    if not (torch.is_grad_enabled() and data.requires_grad):
+        return _packed_forward(data, perm, packed_dst, num_nodes, tile_v)
+    # the backward's gather: made only where a gradient is taken, so that a
+    # forward launches the kernel alone
     if dst is None:
         dst = torch.zeros(E, dtype=torch.int32, device=data.device)
         edge_mask = torch.zeros(E, dtype=torch.bool, device=data.device)
     elif edge_mask is None:
         edge_mask = torch.ones(E, dtype=torch.bool, device=data.device)
-    check_tensors({"perm": (perm, torch.int32, (n_slots,)), "packed_dst": (packed_dst, torch.int32, (n_slots,)),
-                   "dst": (dst, torch.int32, (E,)), "edge_mask": (edge_mask, torch.bool, (E,))},
-                  data.device, anchor="data")
-    if torch.is_grad_enabled() and data.requires_grad:
-        return CsrSegmentSumPackedFn.apply(data, perm, packed_dst, dst, edge_mask, num_nodes, tile_v)
-    return _packed_forward(data, perm, packed_dst, num_nodes, tile_v)
+    return CsrSegmentSumPackedFn.apply(data, perm, packed_dst, dst, edge_mask, num_nodes, tile_v)
 
 
 def csr_segment_sum(

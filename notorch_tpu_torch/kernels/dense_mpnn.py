@@ -27,8 +27,9 @@ TPU entry (kernel)                here
                                   ``h0``'s recompute and the gather's VJP in
                                   its last
 ``fused_dense_mpnn_block_dbuf``   :func:`fused_dense_mpnn_block_dbuf`, the
-(``_dbuf_kernel``)                double-buffered layer kernel of
-                                  ``csrc/dense_mpnn.cu`` (cp.async tiles)
+(``_dbuf_kernel``)                depth-fused kernel of
+                                  ``csrc/dense_mpnn.cu`` (one launch a
+                                  call, a group of blocks a bin)
 ================================  =========================================
 
 The encoder is ``h0 = node_feats[src] + edge_feats`` (unmasked; a ``src``
@@ -42,8 +43,8 @@ The CUDA sources are built by ``nvcc`` for ``sm_90a`` at first use and
 bound with ``ctypes`` (:mod:`notorch_tpu_torch.kernels.build`). Tensors on
 the CPU take the plain versions; tensors on a CUDA device launch the
 kernels or raise — there is no fallback. Each wrapper counts in
-``<wrapper>.launches``: the forwards the layers they run, the backwards
-their calls.
+``<wrapper>.launches``: rows 1, 2 and 5's forwards the layers they run, the
+depth-fused forward and the backwards their calls.
 
 What the block computes, per bin ``b`` with ``rev(e) = e XOR 1``:
 
@@ -74,18 +75,19 @@ one tiled exact-f32 product over all ``B * E`` rows (64 x 64 tiles, so the
 card gets many more blocks than bins) and ``A @ mW`` as a row-sparse walk
 over the bit rows in 1,024-thread blocks, one per (bin, 64 columns), so
 ``A`` costs operations only where it is nonzero and is never stored; the
-encoder's last layer writes the masked scatter from the same blocks. Every
-sum runs in a fixed order, the double-buffered layer kernel's too, so two
-calls give the same bits and that kernel gives row 1's
-(``csrc/dense_mpnn.cu`` says how). Because each layer's output already goes
-to device memory, the stash forward is that same forward writing layer ``l
+encoder's last layer writes the masked scatter from the same blocks. The
+depth-fused forward (row 7) runs a whole call in one launch, a group of
+blocks per bin keeping the bin's ``h`` in shared memory through every
+layer. Every sum runs in a fixed order, row 7's too, so two calls give the
+same bits and row 7 gives row 1's (``csrc/dense_mpnn.cu`` says how).
+Because each layer's output already goes to device memory, the stash forward is that same forward writing layer ``l
 < depth - 1`` into ``hs[l]``: the stash costs no bytes beyond what the
 serving forward moves (the TPU kernel, which keeps the state in VMEM for the
 whole depth, pays ``depth - 1`` extra writes for it). The backward sweep is described in ``csrc/dense_mpnn_bwd.cu``; its
 weight and bias gradients are summed in a fixed order, so two calls on the
 same inputs give the same bits. ``fit_tile`` and ``mols_per_tile`` (the
 TPU's VMEM tiling policy) are dropped: a block of the operator pass always
-holds one bin (the double-buffered forward keeps ``mols_per_tile`` for its
+holds one bin (the depth-fused forward keeps ``mols_per_tile`` for its
 argument check).
 The encoder's kernels take bins of at most 256 edge lanes and 256 node
 slots; the wrappers raise on larger ones.
@@ -331,16 +333,18 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 
 @functools.cache
 def _layer_fns():
-    """The forward library: its whole-forward entry, its double-buffered
-    layer entry."""
+    """The forward library: its whole-forward entry, row 7's depth-fused
+    entry."""
     lib = build.load("dense_mpnn")
-    fwd, dbuf = lib.dense_mpnn_forward, lib.dense_mpnn_dbuf_layer
+    fwd, dbuf = lib.dense_mpnn_forward, lib.dense_mpnn_dbuf_forward
     fwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    dbuf.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    dbuf.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fwd.restype = dbuf.restype = ctypes.c_int
+    lib.dense_mpnn_dbuf_groups.argtypes = [ctypes.c_int] * 3
     lib.dense_mpnn_error_string.argtypes = [ctypes.c_int]
     lib.dense_mpnn_error_string.restype = ctypes.c_char_p
-    for name in ("dense_mpnn_max_edges", "dense_mpnn_max_nodes", "dense_mpnn_cols"):
+    for name in ("dense_mpnn_max_edges", "dense_mpnn_max_nodes", "dense_mpnn_cols",
+                 "dense_mpnn_dbuf_max_slices", "dense_mpnn_dbuf_groups"):
         getattr(lib, name).restype = ctypes.c_int
     return lib, fwd, dbuf
 
@@ -370,19 +374,18 @@ def _check_shape_for(max_edges: int, max_nodes: int, cols: int, E: int, V: int, 
 
 
 def _launch_layers(h0, src, dst, edge_mask, weights, biases, outs, residual, mean, *,
-                   node_feats=None, node_out=None, dbuf=False) -> int:
+                   node_feats=None, node_out=None) -> int:
     """Run layers ``0..len(outs)-1``, layer ``l`` reading the previous
     output (``h0`` first) and writing ``outs[l]``: one call of
     ``dense_mpnn_forward``, which launches the prep and every layer. With
     ``node_feats`` layer 0's input is ``node_feats[src] + h0`` (``h0`` is
     then the edge features); with ``node_out`` the last layer also writes
-    the masked scatter of its output there. ``dbuf`` runs the
-    double-buffered layer kernel instead, one call a layer. Returns the
-    number of layers run."""
+    the masked scatter of its output there. Returns the number of layers
+    run."""
     B, E, d = h0.shape
     ends = node_feats if node_feats is not None else node_out
     V = 1 if ends is None else ends.shape[1]
-    lib, fwd_fn, dbuf_fn = _layer_fns()
+    lib, fwd_fn, _ = _layer_fns()
     _check_shape_for(lib.dense_mpnn_max_edges(), lib.dense_mpnn_max_nodes(), lib.dense_mpnn_cols(),
                      E, V, d)
     check_aligned(edge_hiddens=h0, weights=weights, node_feats=node_feats,
@@ -395,13 +398,6 @@ def _launch_layers(h0, src, dst, edge_mask, weights, biases, outs, residual, mea
 
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if dbuf:
-            h_in = h0
-            for layer, h_out in enumerate(outs):
-                check(dbuf_fn(h_in.data_ptr(), h_out.data_ptr(), *idx, weights[layer].data_ptr(),
-                              biases[layer].data_ptr(), B, E, d, int(residual), int(mean), stream))
-                h_in = h_out
-            return len(outs)
         # scratch: A's bit rows, the scatter's node bit rows, layer 0's
         # gathered input, and each layer's product relu(h) @ W
         words = -(-E // 32)
@@ -776,18 +772,21 @@ def fused_dense_mpnn_block_dbuf(
     mols_per_tile: int = 8,
     reduce: str = "sum",
 ) -> torch.Tensor:
-    """:func:`fused_dense_mpnn_block`'s function with the double-buffered
-    layer kernel: each block's k-tiles of ``h`` and ``W`` go to shared
-    memory by ``cp.async`` in two stages, the next tile's copies in flight
-    during this tile's FMAs. Its FMAs run in row 1's order, so it gives row
-    1's bits.
+    """:func:`fused_dense_mpnn_block`'s function in one launch, depth-fused:
+    a group of blocks per bin keeps the bin's ``h`` in shared memory through
+    every layer, each block a 64-column slice, and reads the other slices
+    through L2 for the products, the group's blocks meeting at a barrier
+    between layers (``csrc/dense_mpnn.cu``). Its FMAs run in row 1's order,
+    so it gives row 1's bits. Calls on one device must not run on two
+    streams at once: they share the groups' barriers.
 
     The JAX function's contract is kept: the batch must split into an even
     count of ``mols_per_tile``-bin tiles, ``mols_per_tile`` a multiple of 8,
-    else ``ValueError``; on the card a block holds one bin whatever the
-    tile. No module calls it, as in the JAX package.
+    else ``ValueError``; on the card a group of blocks holds one bin at a
+    time whatever the tile, and the width may be at most 1,024.
+    No module calls it, as in the JAX package.
     ``fused_dense_mpnn_block_dbuf.launches`` counts its launches, one a
-    layer (``depth`` a call); CPU tensors take :func:`dense_mpnn_block_reference`.
+    call; CPU tensors take :func:`dense_mpnn_block_reference`.
     """
     B = edge_hiddens.shape[0]
     tile = min(mols_per_tile, B)
@@ -802,14 +801,35 @@ def fused_dense_mpnn_block_dbuf(
             edge_hiddens, src, dst, edge_mask, weights, biases,
             depth=depth, residual=residual, reduce=reduce,
         )
+    _, E, d = edge_hiddens.shape
+    lib, _, dbuf_fn = _layer_fns()
+    cols, slices = lib.dense_mpnn_cols(), lib.dense_mpnn_dbuf_max_slices()
+    _check_shape_for(lib.dense_mpnn_max_edges(), lib.dense_mpnn_max_nodes(), cols, E, 1, d)
+    if d > slices * cols:
+        raise ValueError(f"the depth-fused kernel takes widths of at most {slices * cols} ({slices} blocks "
+                         f"of {cols} columns a bin); got d={d}")
+    check_aligned(edge_hiddens=edge_hiddens, weights=weights)
     out = torch.empty_like(edge_hiddens)
-    bufs = [out, torch.empty_like(edge_hiddens) if depth > 1 else out]
-    outs = [bufs[(depth - 1 - layer) % 2] for layer in range(depth)]
-    fused_dense_mpnn_block_dbuf.launches += _launch_layers(
-        edge_hiddens, src, dst, edge_mask, weights, biases, outs, residual, reduce == "mean",
-        dbuf=True,
-    )
+    scratch = torch.empty_like(edge_hiddens) if depth > 1 else None  # every other layer's output
+    with torch.cuda.device(edge_hiddens.device):
+        err = dbuf_fn(edge_hiddens.data_ptr(), out.data_ptr(), _ptr(scratch), src.data_ptr(),
+                      dst.data_ptr(), edge_mask.data_ptr(), weights.data_ptr(), biases.data_ptr(), B, E,
+                      d, depth, int(residual), int(reduce == "mean"),
+                      torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError("fused_dense_mpnn_block_dbuf launch failed: "
+                           f"{lib.dense_mpnn_error_string(err).decode()}")
+    fused_dense_mpnn_block_dbuf.launches += 1
     return out
+
+
+def dbuf_groups(B: int, E: int, d: int) -> dict[str, int]:
+    """Row 7's launch at this shape on the current card: ``blocks`` a bin
+    group (``d / 64``), the ``bins``, and ``groups``, how many the launch
+    runs at once (fewer than the bins: each group takes several bins in
+    turn). Builds the library if needed."""
+    lib, _, _ = _layer_fns()
+    return {"blocks": d // lib.dense_mpnn_cols(), "bins": B, "groups": lib.dense_mpnn_dbuf_groups(B, E, d)}
 
 
 fused_dense_mpnn_block.launches = 0

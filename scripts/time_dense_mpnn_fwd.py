@@ -1,14 +1,18 @@
-"""Time TPU kernel rows 1, 2, 4 and 5 of a checkout on the card: the
-forward of the fused dense D-MPNN block (row 1), its stash forward (row 2)
-and the recompute backward, whose replay runs that forward (row 4), at the
-packed training batch (B = 32, E = 128, d = 256, depth 3, sum, residual),
+"""Time TPU kernel rows 1, 2, 4, 5 and 7 of a checkout on the card: the
+forward of the fused dense D-MPNN block (row 1), its stash forward (row 2),
+the recompute backward, whose replay runs that forward (row 4), and the
+depth-fused forward of the same function (row 7), at the packed training
+batch (B = 32, E = 128, d = 256, depth 3, sum, residual),
 and the fused encoder's forward with the stash (row 5) at the per-molecule
 dense loader's first batch (B = 64, V = 48, E = 128), as ``chip_smoke.py``'s
 time phase does: device ms a call from a CUDA graph of 20 calls, and a
 ``torch.profiler`` breakdown of 5 calls by kernel and by stage (the
 forward's prep, products and operator pass, or the single layer kernel of a
-tree from before them; row 4's sweep). Each row runs twice and says whether
-the two calls gave the same bits; rows 1 and 5 also run with mean. With
+tree from before them; row 4's sweep; row 7's one kernel, or its layer
+kernel before its redesign). Each row runs twice and says whether the two
+calls gave the same bits; rows 1, 5 and 7 also run with mean, and row 7
+says whether it gave row 1's bits and, where the tree has them, how many of
+its bin groups the launch runs at once. With
 ``--bits FILE`` the outputs are compared with those saved in FILE, bit for
 bit: the first run that names FILE writes it, every later run prints
 whether its outputs have the same bits. With ``--e2e``, also a warm epoch of
@@ -48,6 +52,7 @@ STAGES = {
     "operator": ("mpnn_fwd_apply_",),
     "layer_kernel": ("dense_mpnn_plain_kernel", "dense_mpnn_ends_kernel"),
     "sweep": ("bwd_prep_", "bwd_adjoint_", "bwd_gemm_", "bwd_node_grad_"),
+    "dbuf": ("dense_mpnn_dbuf_kernel",),
 }
 FWD_KERNELS = (*STAGES["prep"], *STAGES["products"], *STAGES["operator"], *STAGES["layer_kernel"])
 
@@ -119,8 +124,10 @@ def run(args, root: Path, tmp: Path) -> None:
         (2, "sum", lambda: smoke.fused_dense_mpnn_block_stash(*x, reduce="sum", **kw)),
         (4, "sum", lambda: smoke.fused_dense_mpnn_block_bwd(*x, g, reduce="sum", **kw)),
         (5, "sum", lambda: smoke.fused_dense_encoder_fwd(*enc[:7], stash=True, reduce="sum", **enc_kw)),
+        (7, "sum", lambda: (smoke.fused_dense_mpnn_block_dbuf(*x, mols_per_tile=8, reduce="sum", **kw),)),
         (1, "mean", lambda: (smoke.fused_dense_mpnn_block(*x, reduce="mean", **kw),)),
         (5, "mean", lambda: smoke.fused_dense_encoder_fwd(*enc[:7], stash=True, reduce="mean", **enc_kw)),
+        (7, "mean", lambda: (smoke.fused_dense_mpnn_block_dbuf(*x, mols_per_tile=8, reduce="mean", **kw),)),
     ]
     saved = None
     bits_path = Path(args.bits) if args.bits else None
@@ -135,7 +142,13 @@ def run(args, root: Path, tmp: Path) -> None:
         record = {**tag, "row": row, "reduce": reduce, "shape": enc_shape if row == 5 else block_shape,
                   "depth": depth, "sha256": digest(first),
                   "repeatable": all(torch.equal(p, q) for p, q in zip(first, second))}
-        if saved is not None:
+        if row == 7:
+            record["row1_bits"] = torch.equal(first[0].cpu(), outputs[f"row1_{reduce}"][0])
+            from notorch_tpu_torch.kernels import dense_mpnn
+
+            if hasattr(dense_mpnn, "dbuf_groups"):  # trees from before row 7's redesign have none
+                record["launch"] = dense_mpnn.dbuf_groups(*block_shape.values())
+        if saved is not None and key in saved:
             record["parent_bits"] = len(saved[key]) == len(first) and all(
                 torch.equal(p.cpu(), q) for p, q in zip(first, saved[key]))
         if reduce == "sum":

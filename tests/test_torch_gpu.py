@@ -351,30 +351,61 @@ def test_cuda_fwd_edge_cases_match_plain_versions(case):
     assert [fn.launches for fn in counters] == [n + 2 * kw["depth"] for n in before]
 
 
+def _dbuf_case(E, bins, d=256, seed=0):
+    """Row 7's inputs on the card: one molecule a bin (``bins`` of SMIS),
+    seeded h0, W and b at width ``d``; and the block's n_nodes."""
+    G = pad_graphs_dense([PIPE(s) for s in SMIS[:bins]], E // 2 + 8, E, np_out=True)
+    rng = np.random.default_rng(seed)
+    h0 = rng.standard_normal((bins, E, d)).astype(np.float32)
+    W = (rng.standard_normal((3, d, d)) / np.sqrt(d)).astype(np.float32)
+    b = (0.1 * rng.standard_normal((3, d))).astype(np.float32)
+    return tuple(torch.from_numpy(x).cuda() for x in (h0, G.src, G.dst, G.edge_mask, W, b)), E // 2 + 8
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("E", [128, 256])
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
 @pytest.mark.parametrize("residual", [True, False])
-def test_cuda_dbuf_matches_plain_version_and_row_1(E, reduce, residual):
+@pytest.mark.parametrize("bins", [32, 16])
+def test_cuda_dbuf_matches_plain_version_and_row_1(E, reduce, residual, bins):
     """Row 7 against its plain version (rtol = atol = 1e-4) and against row
-    1's kernel, bit for bit: the same FMAs in the same order."""
+    1's kernel, bit for bit: the same FMAs in the same order. One launch a
+    call, at 32 bins (four tiles of 8) and at 16 (two tiles of 8: half the
+    groups)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    # one molecule per row: 32 rows, an even count of 8-row tiles
-    G = pad_graphs_dense([PIPE(s) for s in SMIS], E // 2 + 8, E, np_out=True)
-    rng = np.random.default_rng(0)
-    h0 = rng.standard_normal((len(SMIS), E, 256)).astype(np.float32)
-    W = (rng.standard_normal((3, 256, 256)) / 16).astype(np.float32)
-    b = (0.1 * rng.standard_normal((3, 256))).astype(np.float32)
-    args = tuple(torch.from_numpy(x).cuda() for x in (h0, G.src, G.dst, G.edge_mask, W, b))
-    kw = dict(depth=3, n_nodes=E // 2 + 8, residual=residual, reduce=reduce)
+    args, n_nodes = _dbuf_case(E, bins)
+    kw = dict(depth=3, n_nodes=n_nodes, residual=residual, reduce=reduce)
     before = fused_dense_mpnn_block_dbuf.launches
+    out = fused_dense_mpnn_block_dbuf(*args, mols_per_tile=8, **kw)
+    again = fused_dense_mpnn_block_dbuf(*args, mols_per_tile=8, **kw)
+    row1 = fused_dense_mpnn_block(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_dense_mpnn_block_dbuf.launches == before + 2
+    ref = dense_mpnn_block_reference(*args, depth=3, residual=residual, reduce=reduce)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, row1), f"dbuf differs from row 1 by {float((out - row1).abs().max())}"
+    assert torch.equal(out, again), "row 7 is not repeatable"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E", [128, 256])
+@pytest.mark.parametrize("d", [64, 128, 512, 1024])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_cuda_dbuf_group_sizes_match_row_1(E, d, reduce):
+    """Row 7 at group sizes of 1, 2, 8 and 16 blocks a bin (d / 64; at 16
+    the card holds fewer groups than the 16 bins at once, so a group takes
+    bins in turn) and both thread tiles (E <= 128 and E <= 256), bit for
+    bit row 1's and within 1e-4 of its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    args, n_nodes = _dbuf_case(E, 16, d, seed=1)
+    kw = dict(depth=3, n_nodes=n_nodes, residual=True, reduce=reduce)
     out = fused_dense_mpnn_block_dbuf(*args, mols_per_tile=8, **kw)
     row1 = fused_dense_mpnn_block(*args, **kw)
     torch.cuda.synchronize()
-    assert fused_dense_mpnn_block_dbuf.launches == before + 3
-    ref = dense_mpnn_block_reference(*args, depth=3, residual=residual, reduce=reduce)
-    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out, dense_mpnn_block_reference(*args, depth=3, residual=True, reduce=reduce),
+                               rtol=1e-4, atol=1e-4)
     assert torch.equal(out, row1), f"dbuf differs from row 1 by {float((out - row1).abs().max())}"
 
 
@@ -389,14 +420,29 @@ def _hold_sum(out, plain, data, *index):
 
 
 def _packed_case(kind, d, seed=0):
-    """(data, perm, packed_dst, dst, edge_mask, V) on the card: a flat batch
-    of molecules (only real edges packed), or random ids over 256 nodes with
-    node 3 holding 12,500 edges, so that the budget (13,056 slots) takes
-    more than 48 KiB of shared memory."""
+    """(data, perm, packed_dst, dst, edge_mask, V, tile_v) on the card: a
+    flat batch of molecules (only real edges packed); the same with slots
+    whose packed_dst names a node of another tile and slots of perm = -1
+    between real ones (``messy``); random ids over 288 nodes in tiles of 48
+    (``tile48``); or random ids over 256 nodes with node 3 holding 12,500
+    edges, so that the budget (13,056 slots) takes more than 48 KiB of
+    shared memory."""
     rng = np.random.default_rng(seed)
-    if kind == "molecules":
+    tile_v = 128
+    if kind in ("molecules", "messy"):
         bg = with_csr_packing(pad_graphs([PIPE(s) for s in SMIS], 1024, 2048, np_out=True))
-        dst, mask, perm, pdst, V = bg.dst, bg.edge_mask, bg.csr_perm, bg.csr_dst, 1024
+        dst, mask, perm, pdst, V = bg.dst, bg.edge_mask, bg.csr_perm.copy(), bg.csr_dst.copy(), 1024
+        if kind == "messy":
+            real = np.nonzero(perm >= 0)[0]
+            gone = rng.choice(real, size=len(real) // 8, replace=False)  # gaps between real slots
+            perm[gone] = -1
+            moved = rng.choice(np.setdiff1d(real, gone), size=len(real) // 8, replace=False)
+            pdst[moved] = (pdst[moved] + 128 * rng.integers(1, V // 128, size=len(moved))) % V  # another tile
+    elif kind == "tile48":
+        V, tile_v = 288, 48
+        dst = rng.integers(0, V, size=1500).astype(np.int32)
+        mask = np.ones(len(dst), bool)
+        perm, pdst, _ = pack_edges_by_tile(dst, num_nodes=V, tile_v=tile_v)
     else:
         V = 256
         dst = np.concatenate([rng.integers(0, V, size=1000), np.full(12500, 3)]).astype(np.int32)
@@ -404,24 +450,25 @@ def _packed_case(kind, d, seed=0):
         mask = np.ones(len(dst), bool)
         perm, pdst, _ = pack_edges_by_tile(dst, num_nodes=V)
     data = rng.standard_normal((len(dst), d)).astype(np.float32)
-    return [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (data, perm, pdst, dst, mask)] + [V]
+    return [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (data, perm, pdst, dst, mask)] + [V, tile_v]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["molecules", "random"])
+@pytest.mark.parametrize("kind", ["molecules", "random", "messy", "tile48"])
 @pytest.mark.parametrize("d", [256, 36])
 def test_cuda_csr_packed_matches_plain_version(kind, d):
-    """Row 9 against its plain version, one launch a call, and two calls
-    give the same bits (a fixed summation order, no atomics)."""
+    """Row 9 against its plain version, bit for bit its CPU run, one launch a
+    call, and two calls give the same bits (a fixed summation order, no
+    atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    data, perm, pdst, _, _, V = _packed_case(kind, d)
+    data, perm, pdst, _, _, V, tile_v = _packed_case(kind, d)
     before = csr_segment_sum_packed.launches
-    out = csr_segment_sum_packed(data, perm, pdst, V)
-    again = csr_segment_sum_packed(data, perm, pdst, V)
+    out = csr_segment_sum_packed(data, perm, pdst, V, tile_v=tile_v)
+    again = csr_segment_sum_packed(data, perm, pdst, V, tile_v=tile_v)
     torch.cuda.synchronize()
     assert csr_segment_sum_packed.launches == before + 2
-    _hold_sum(out, csr_segment_sum_packed_reference, data, perm, pdst, V)
+    _hold_sum(out, csr_segment_sum_packed_reference, data, perm, pdst, V, tile_v)
     assert torch.equal(out, again), "the packed sum is not repeatable"
 
 
@@ -429,7 +476,7 @@ def test_cuda_csr_packed_matches_plain_version(kind, d):
 def test_cuda_csr_packed_gradient():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    data, perm, pdst, dst, mask, V = _packed_case("molecules", 64)
+    data, perm, pdst, dst, mask, V, _ = _packed_case("molecules", 64)
     x = data.clone().requires_grad_()
     g = torch.randn(V, 64, device="cuda")
     csr_segment_sum_packed(x, perm, pdst, V, dst=dst, edge_mask=mask).backward(g)
@@ -468,7 +515,7 @@ def test_cuda_csr_rowptr_matches_plain_version(kind, d):
 def test_cuda_csr_kernels_reject_what_they_do_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    data, perm, pdst, dst, _, V = _packed_case("molecules", 64)
+    data, perm, pdst, dst, _, V, _ = _packed_case("molecules", 64)
     with pytest.raises(ValueError, match="16-byte"):
         csr_segment_sum_packed(torch.zeros(data.numel() + 1, device="cuda")[1:].view_as(data), perm, pdst, V)
     with pytest.raises(TypeError, match="float32"):

@@ -54,17 +54,17 @@ D, BATCH = 32, 16
 KEYS = {"preds": "ffn.preds", "targets": "targets.y", "mask": "targets.y_mask"}
 
 
-def declarative_gvp_cfg(d=D, dv=8, depth=2, impl="fused"):
+def declarative_gvp_cfg(d=D, dv=8, depth=2, impl="fused", readout="SpatialSum"):
     """The declarative GVP model on the kernel path (README.md), at scalar
     width ``d`` and vector width ``dv``: PointwiseEmbed ->
-    GvpGNNBlock(impl) -> SpatialSum -> MLP."""
+    GvpGNNBlock(impl) -> ``readout`` (SpatialSum) -> MLP."""
     return {"modules": {
         "embed": {"class": "PointwiseEmbed", "args": {"hidden_dim": d}, "in_keys": ["inputs.P"], "out_keys": ["P"]},
         "backbone": {"class": "GvpGNNBlock",
                      "args": {"scalar_dim": d, "vector_dim": dv, "depth": depth, "radius": 5.0,
                               "max_neighbors": 16, "neighbor_window": 24, "impl": impl},
                      "in_keys": ["embed.P"], "out_keys": ["P"]},
-        "readout": {"class": "SpatialSum", "in_keys": ["backbone.P"], "out_keys": ["H"]},
+        "readout": {"class": readout, "in_keys": ["backbone.P"], "out_keys": ["H"]},
         "ffn": {"class": "MLP", "args": {"input_dim": d, "output_size": 1, "hidden_dim": d, "num_layers": 1},
                 "in_keys": ["readout.H"], "out_keys": ["preds"]},
     }, "losses": {"loss": {"class": "MSE", "in_keys": dict(KEYS)}}}
@@ -301,22 +301,26 @@ def test_gvp_model_fits_and_serves_from_a_checkpoint(batches, tmp_path, kind):
                                predict(model, batches, keys=["ffn.preds"])["ffn.preds"], **TOL)
 
 
-# chip_smoke.py's GVP_RUN_RTOL: the drift this test measured (1.17e-1 on the
-# second epoch's validation loss)
-GVP_RUN_RTOL = 1.17e-1
+# chip_smoke.py's GVP run: Adam at GVP_LR, the SpatialMean readout. The same
+# run drifts port-CPU against JAX-CPU by 2.09e-5 at 8 threads and 2.12e-5 at
+# one (three fresh processes each, the per-epoch losses); with the sum
+# readout at 1e-3 it drifted 1.18e-1, at 1e-4 3.7e-3 and at 3e-5 1.7e-3, and
+# with the mean readout at 1e-3 4.5e-3 and at 1e-4 2.0e-4. GVP_RUN_RTOL is
+# over 3x the drift and under what a wrong weight makes: one weight tensor of
+# the port's side scaled by 1.03 (in_proj, the embedding, a message layer's
+# W_m) drifted by 1.7e-2, 1.2e-2 and 4.4e-3
+GVP_LR = 3e-5
+GVP_RUN_RTOL = 1e-3
 
 
-@pytest.mark.long
-def test_gvp_full_width_run_drifts_apart_in_both_packages():
+def gvp_run_drift(lr: float, readout: str, scaled: str | None = None) -> tuple[float, list, list]:
     """chip_smoke.py's declarative GVP run (scalar 256, vector 32, depth 3,
-    512 clouds, 2 epochs of 8 steps and a validation batch, Adam at 1e-3)
-    on the CPU in both packages from JAX's initial weights, the JAX conv
-    the jnp path: two exact float32 implementations that round differently.
-    The first step's loss agrees within 1e-4, yet the per-epoch losses drift
-    apart by up to GVP_RUN_RTOL: the loss starts near 600 and Adam moves
-    every weight by about the rate whatever its gradient's size, so rounding
-    differences grow into differences of the run. chip_smoke.py holds the
-    card's run against the CPU's at that drift and every step in lockstep."""
+    512 clouds, 2 epochs of 8 steps and a validation batch) with ``readout``
+    and Adam at ``lr``, on the CPU in both packages from JAX's initial
+    weights, the JAX conv the jnp path; ``scaled`` names a weight tensor of
+    the port's side to scale by 1.03 (a fault the gate must catch). Checks
+    that the first step's loss agrees within 1e-4 and returns the largest
+    relative difference of the per-epoch losses and both histories."""
     import optax
 
     from notorch_tpu.training.loop import fit as jax_fit
@@ -324,16 +328,60 @@ def test_gvp_full_width_run_drifts_apart_in_both_packages():
     train_clouds, val_clouds = make_clouds(512, seed=0), make_clouds(64, seed=1)
     train = cloud_batches(train_clouds, coordination_targets(train_clouds))
     val = cloud_batches(val_clouds, coordination_targets(val_clouds))
-    jmodel = jax_build_model(declarative_gvp_cfg(256, 32, 3, "jnp"), None, optax.adam(1e-3))
+    cfg = dict(d=256, dv=32, depth=3, readout=readout)
+    jmodel = jax_build_model(declarative_gvp_cfg(**cfg, impl="jnp"), None, optax.adam(lr))
     state = jmodel.init(jax.random.PRNGKey(0), jax_batch(train[0]))
-    model = build_model(declarative_gvp_cfg(256, 32, 3), None, optimizer=OptimizerSpec("adam", 1e-3))
-    model.network.load_state_dict(params_from_jax(jax.device_get(state.params)))
+    weights = params_from_jax(jax.device_get(state.params))
+    model = build_model(declarative_gvp_cfg(**cfg), None, optimizer=OptimizerSpec("adam", lr))
+    model.network.load_state_dict(weights)
     first = model.train_step(to_device(train[0], "cpu"))["train/loss"]
     _, jlogs = jmodel.train_step(jmodel.init(jax.random.PRNGKey(0), jax_batch(train[0])), jax_batch(train[0]))
     np.testing.assert_allclose(float(first), float(jlogs["train/loss"]), rtol=1e-4)
-    model = build_model(declarative_gvp_cfg(256, 32, 3), None, optimizer=OptimizerSpec("adam", 1e-3))
-    model.network.load_state_dict(params_from_jax(jax.device_get(state.params)))
+    if scaled is not None:
+        weights[scaled] = weights[scaled] * 1.03
+    model = build_model(declarative_gvp_cfg(**cfg), None, optimizer=OptimizerSpec("adam", lr))
+    model.network.load_state_dict(weights)
     ours = fit(model, train, val, epochs=2).history
     theirs = jax_fit(jmodel, state, [jax_batch(b) for b in train], [jax_batch(b) for b in val], epochs=2).history
     drift = max(abs(a[k] - float(b[k])) / abs(float(b[k])) for a, b in zip(ours, theirs) for k in ("train/loss", "val/loss"))
+    return drift, ours, theirs
+
+
+@pytest.mark.long
+def test_gvp_full_width_run_drifts_apart_in_both_packages():
+    """The GVP run of gvp_run_drift on chip_smoke.py's recipe (the
+    SpatialMean readout, Adam at GVP_LR): two exact float32 implementations
+    that round differently drift apart by no more than GVP_RUN_RTOL. At this
+    rate Adam's steps, about the rate whatever a gradient's size, keep the
+    rounding differences small (with the sum readout, a loss near 600 and
+    Adam at 1e-3 they grew into 1.2e-1, though each step agreed in lockstep:
+    tests/test_torch_gvp_drift.py). chip_smoke.py holds the card's run
+    against the CPU's at that limit and every step in lockstep."""
+    drift, ours, _ = gvp_run_drift(GVP_LR, "SpatialMean")
+    assert ours[-1]["train/loss"] < ours[0]["train/loss"], ours
     assert drift <= GVP_RUN_RTOL, drift
+
+
+if __name__ == "__main__":
+    # the drift of one recipe, as GVP_RUN_RTOL was chosen; from the repo root:
+    # python -m tests.test_torch_spatial LR READOUT [WEIGHT_TO_SCALE] [--threads N]
+    import argparse
+    import json
+    import time
+
+    parser = argparse.ArgumentParser(description="port-CPU against JAX-CPU drift of the full-width GVP run")
+    parser.add_argument("lr", type=float)
+    parser.add_argument("readout", help="SpatialSum or SpatialMean")
+    parser.add_argument("scaled", nargs="?", help="a weight tensor of the port's side to scale by 1.03")
+    parser.add_argument("--threads", type=int, help="torch's CPU threads (JAX's follow XLA_FLAGS)")
+    args = parser.parse_args()
+    jax.config.update("jax_platforms", "cpu")
+    if args.threads:
+        torch.set_num_threads(args.threads)
+    t0 = time.perf_counter()
+    drift, ours, theirs = gvp_run_drift(args.lr, args.readout, args.scaled)
+    print(json.dumps({"lr": args.lr, "readout": args.readout, "scaled": args.scaled,
+                      "threads": torch.get_num_threads(), "drift": drift,
+                      "port": [{k: float(h[k]) for k in ("train/loss", "val/loss")} for h in ours],
+                      "jax": [{k: float(h[k]) for k in ("train/loss", "val/loss")} for h in theirs],
+                      "seconds": time.perf_counter() - t0}))
