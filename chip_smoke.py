@@ -23,9 +23,12 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
   of blocks a bin), which no module calls, in a phase of its own;
 - flat kernels: the two CSR segment sums against their plain versions at
   the first flat lipo batch and at a random case with empty and over-full
-  nodes, the packed sum twice, bit for bit; the row-pointer sum, which no
-  module calls, on the dst-sorted copy of each flat batch in a phase of its
-  own;
+  nodes, each twice, bit for bit, with the bits of the CPU plain version;
+  the row-pointer sum (row 8) on the dst-sorted copy of each flat batch in a
+  phase of its own, as before the paths called it; then row 8 as every path
+  calls it through ``nn/ops.py`` ``segment_sum`` (the stable sort of the
+  ids, then the kernel) at the main path's node scatter and PackedMean's sum
+  and count, twice, with ``index_add``'s CPU bits;
 - train flat: ``run(cfg)`` of the same config with ``model.impl: csr`` (the
   flat layout, every E->V reduce through the packed kernel) on the card
   against the CPU, and ``run_predict`` of its checkpoint, 512 molecules;
@@ -61,8 +64,20 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
   card against CPU epoch by epoch and every step in lockstep, then
   ``predict`` of the 512 clouds from its checkpoint;
 - train/serve GVP recipe: ``kind: spatial, backbone: gvp`` (its conv the
-  plain tensor ops, no kernel of the port), one epoch, card against CPU,
-  then served.
+  plain tensor ops, no kernel of the port but row 8 in its glue), one epoch,
+  card against CPU, then served;
+- repeat: the six paths' models (the recipe, its declarative twin,
+  ``impl: csr``, the declarative graph transformer, the declarative GVP
+  model and the GVP recipe) each take 3 training steps twice from the same
+  weights, and every parameter and Adam state tensor must have the same
+  bits: every sum of the glue is fixed-order (``nn/ops.py`` ``segment_sum``
+  and ``take`` through row 8);
+- train attention calm: the calm attention recipe (hidden 32, Adam at
+  1e-4) whole-run, card against CPU at ATTENTION_CALM_RTOL.
+
+Row 8 runs on every path whose glue sums (ROW8_LAUNCHES: the readouts,
+the packed block's node scatter and the backward of every gather), and each
+path's launch counts expect it there.
 
 Every kernel is held against its plain PyTorch version on the card at the
 shapes these paths give it, each path's launch counts are read, and the
@@ -86,7 +101,14 @@ import numpy as np
 import torch
 
 from notorch_tpu_torch.cli.predict import run_predict
-from notorch_tpu_torch.cli.train import build_dataset, build_model, prepare, run, save_predict_meta
+from notorch_tpu_torch.cli.train import (
+    build_dataset,
+    build_model,
+    build_optimizer,
+    prepare,
+    run,
+    save_predict_meta,
+)
 from notorch_tpu_torch.data.batching import DataLoader
 from notorch_tpu_torch.data.dense import pack_graphs_dense
 from notorch_tpu_torch.data.graph import csr_row_ptr, pack_edges_by_tile, sort_edges_by_dst
@@ -176,6 +198,17 @@ TRAIN_RTOL = 1e-3
 # weights and optimizer state on both devices, and the whole runs only
 # against a gross fault
 ATTENTION_RUN_RTOL = 1e-1
+# the calm attention recipe: the declarative graph transformer at hidden 32,
+# depth 3, 4 heads, Adam at 1e-4, the first 256 lipo molecules in batches of
+# 32 (file order) for 4 epochs, the next 64 the validation set. Port-CPU
+# against JAX-CPU from the same weights its per-epoch losses drift 6.42e-6 at
+# 8 threads and 6.31e-6 at one (three fresh processes each, alike), at 3e-4
+# 9.4e-6 and at 1e-3 1.45e-5, while one weight tensor of the port's side
+# scaled by 1.03 drifts 3.3e-2 to 4.9e-2 (tests/test_torch_attention_run.py).
+# So its whole run is held at ATTENTION_CALM_RTOL, about 3x its drift, port
+# against JAX there and card against CPU here
+CALM_ATTENTION = {"d": 32, "train": 256, "val": 64, "batch": 32, "epochs": 4, "lr": 1e-4}
+ATTENTION_CALM_RTOL = 2e-5
 # lockstep: each step's loss, relative (measured up to 2.3e-7), and each
 # gradient at LOCKSTEP_GRAD_RTOL times its largest magnitude: one flipped
 # ReLU unit moves a gradient element by that node's whole term (measured up
@@ -259,6 +292,20 @@ KINK_GRAD_L2 = 1e-2
 # packages, which holds it at this limit), and a wrong weight by far more, so
 # the whole runs are held at GVP_RUN_RTOL, and every step in lockstep
 GVP_RUN_RTOL = 1e-3
+# row 8's launches on each path (nn/ops.py segment_sum and take on the card):
+# (a training step, an evaluated or served batch). The glue's segment sums
+# launch it in the forward (the readouts' sums and counts, the packed block's
+# node scatter, a segment softmax's denominator), the gathers that take a
+# gradient in the backward (their segment sum over the ids): the embedding
+# tables (node and edge; the point clouds' node), the packed block's h0, the
+# flat block's takes (node_feats[src] once, per layer m_v[src] and h[rev],
+# the gather impl's in-edges per reduce), a segment softmax's max and
+# denominator, the GVP neighbour gathers (the vectors of layer 0 are zeros:
+# no gradient). The declarative dense paths sum nothing else outside their
+# kernels
+ROW8_LAUNCHES = {"recipe": (6, 3), "declarative": (2, 0), "impl_csr": (11, 2), "declarative_attention": (2, 0),
+                 "flat": (17, 2), "graph_transformer": (4, 2), "gat": (4, 2), "declarative_gvp": (3, 2),
+                 "gvp_recipe": (8, 2)}
 # the forward's stages in a profile (rows 1, 2 and 5, and row 4's replay):
 # fragments of its kernels' names (csrc/dense_mpnn.cu: the operator's bit
 # rows and the encoder's gathered h0 once a call, then a layer's product
@@ -389,6 +436,13 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def glue_launches(path: str, steps: int, batches: int) -> int:
+    """Row 8's launches of ``steps`` training steps and ``batches`` evaluated
+    or served batches of ``path`` (ROW8_LAUNCHES)."""
+    per_step, per_batch = ROW8_LAUNCHES.get(path, (0, 0))
+    return per_step * steps + per_batch * batches
+
+
 def lipo_csv(directory: Path, n: int) -> Path:
     path = directory / f"lipo_head{n}.csv"
     with open(ROOT / "tests" / "data" / "lipo.csv", newline="") as f:
@@ -396,6 +450,34 @@ def lipo_csv(directory: Path, n: int) -> Path:
     with open(path, "w", newline="") as f:
         csv.writer(f).writerows(rows)
     return path
+
+
+def lipo_rows_csv(path: Path, lo: int, hi: int) -> Path:
+    """The lipo molecules ``[lo, hi)`` as a CSV at ``path``."""
+    with open(ROOT / "tests" / "data" / "lipo.csv", newline="") as f:
+        rows = list(csv.reader(f))
+    with open(path, "w", newline="") as f:
+        csv.writer(f).writerows([rows[0], *rows[1 + lo: 1 + hi]])
+    return path
+
+
+def calm_attention_csvs(directory: Path) -> tuple[Path, Path]:
+    """The calm attention run's training and validation molecules."""
+    n, m = CALM_ATTENTION["train"], CALM_ATTENTION["val"]
+    return (lipo_rows_csv(Path(directory) / "calm_train.csv", 0, n),
+            lipo_rows_csv(Path(directory) / "calm_val.csv", n, n + m))
+
+
+def calm_attention_model(transforms: dict, device: str, weights: dict | None = None):
+    """The calm attention run's model (declarative_attention_model_cfg at
+    CALM_ATTENTION's width, weights from SEED or ``weights``, Adam at its
+    rate) on ``device``."""
+    cfg = declarative_attention_model_cfg(CALM_ATTENTION["d"], MODEL_CFG["depth"], GT_CFG["num_heads"])
+    model = build_model(cfg, transforms, generator=torch.Generator().manual_seed(SEED),
+                        optimizer=OptimizerSpec("adam", CALM_ATTENTION["lr"]))
+    if weights is not None:
+        model.network.load_state_dict(weights)
+    return model.to(device)
 
 
 def kernel_inputs(G, d: int, depth: int, seed: int) -> list[torch.Tensor]:
@@ -664,8 +746,10 @@ def serve_phase(tmp: Path, ds, csv_path: Path, n_batches: int) -> int:
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     counts = launches()
-    if counts["fused_dense_mpnn_block"] != depth * n_batches or sum(counts.values()) != depth * n_batches:
-        fail(f"serving launched {counts}; the request needs the block kernel {depth} x {n_batches} times")
+    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_mpnn_block": depth * n_batches,
+              "csr_segment_sum": glue_launches("recipe", 0, n_batches)}
+    if counts != expect:
+        fail(f"serving launched {counts}; the request needs {expect}")
     t0 = time.perf_counter()
     run_predict(ckpt, csv_path, batch_size=BATCH)
     torch.cuda.synchronize()
@@ -718,11 +802,13 @@ def train_phase(tmp: Path) -> dict[str, int]:
     steps = Checkpointer(card_ckpt).latest_step()
     if not steps:
         fail(f"the card's run wrote no checkpoint in {card_ckpt}")
-    expect = {**{fn.__name__: 0 for fn in KERNELS if fn is not fused_dense_mpnn_block},
-              "fused_dense_mpnn_block_stash": depth * steps, "fused_dense_mpnn_block_bwd_stash": steps}
-    if any(counts[k] != v for k, v in expect.items()) or counts["fused_dense_mpnn_block"] == 0:
-        fail(f"training {steps} steps launched {counts}; expected {expect} and the forward "
-             "kernel for evaluation")
+    evaluated = counts["fused_dense_mpnn_block"] // depth
+    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_mpnn_block": depth * evaluated,
+              "fused_dense_mpnn_block_stash": depth * steps, "fused_dense_mpnn_block_bwd_stash": steps,
+              "csr_segment_sum": glue_launches("recipe", steps, evaluated)}
+    if counts != expect or evaluated == 0:
+        fail(f"training {steps} steps launched {counts}; expected {expect}, the forward kernel for "
+             "evaluation")
 
     t0 = time.perf_counter()
     cpu = run(train_config(csv_path, cpu_ckpt), device="cpu")
@@ -773,7 +859,7 @@ def train_epoch_phase(tmp: Path) -> dict[str, int]:
     torch.cuda.synchronize()
     counts = launches()
     expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_mpnn_block": depth * steps,
-              "fused_dense_mpnn_block_bwd": steps}
+              "fused_dense_mpnn_block_bwd": steps, "csr_segment_sum": glue_launches("recipe", steps, 0)}
     if counts != expect:
         fail(f"an epoch with the recompute backward launched {counts}; expected {expect}")
     loss_diff = rel_diff(other.history[0]["train/loss"], first.history[0]["train/loss"])
@@ -807,11 +893,13 @@ def train_declarative_phase(tmp: Path) -> tuple[dict[str, int], Path]:
     # the training forward stashes (depth launches a step); evaluation runs
     # the forward alone (depth launches a batch); one backward call a step
     eval_fwd = counts["fused_dense_encoder_fwd"] - depth * steps
-    others = {k: v for k, v in counts.items() if k not in ("fused_dense_encoder_fwd", "fused_dense_encoder_bwd")}
+    others = {k: v for k, v in counts.items()
+              if k not in ("fused_dense_encoder_fwd", "fused_dense_encoder_bwd", "csr_segment_sum")}
     if (counts["fused_dense_encoder_bwd"] != steps or eval_fwd <= 0 or eval_fwd % depth
-            or any(others.values())):
+            or counts["csr_segment_sum"] != glue_launches("declarative", steps, 0) or any(others.values())):
         fail(f"the declarative run of {steps} steps launched {counts}; expected the encoder's "
-             f"backward {steps} times, its forward {depth} times a step and a batch, and nothing else")
+             f"backward {steps} times, its forward {depth} times a step and a batch, row 8 "
+             f"{glue_launches('declarative', steps, 0)} times (the embeddings' backward), and nothing else")
 
     t0 = time.perf_counter()
     cpu = run(train_config(csv_path, tmp / "declarative_cpu", model), device="cpu")
@@ -935,32 +1023,81 @@ def random_flat_inputs(d: int, seed: int, V: int = 2048, E: int = 4096) -> dict[
 
 def flat_kernels_phase(cases: dict[str, dict]) -> tuple[float, float, list[dict]]:
     """Rows 8-9 against their plain versions on each case (launches made
-    here do not count for any path); row 9 twice, bit for bit. Returns the
-    largest errors of rows 8 and 9 and the cases."""
+    here do not count for any path), each twice, bit for bit, and with the
+    bits of its plain version on the CPU. Returns the largest errors of rows
+    8 and 9 and the cases."""
     records = []
     for name, x in cases.items():
         V = x["row_ptr"].shape[0] - 1
         packed = csr_segment_sum_packed(x["data"], x["perm"], x["packed_dst"], V)
         again = csr_segment_sum_packed(x["data"], x["perm"], x["packed_dst"], V)
         rowptr = csr_segment_sum(x["sorted_data"], x["sorted_dst"], x["row_ptr"], V)
+        rowptr_again = csr_segment_sum(x["sorted_data"], x["sorted_dst"], x["row_ptr"], V)
         torch.cuda.synchronize()
         if not torch.equal(packed, again):
             fail(f"two calls of the packed segment sum differ ({name})")
+        if not torch.equal(rowptr, rowptr_again):
+            fail(f"two calls of the row-pointer segment sum differ ({name})")
         err9, bits9 = held_sum(f"csr_segment_sum_packed ({name})", packed, csr_segment_sum_packed_reference,
                                x["data"], x["perm"], x["packed_dst"], V)
         if not bits9:
             fail(f"the packed segment sum does not give the CPU plain version's bits ({name})")
         err8, bits8 = held_sum(f"csr_segment_sum ({name})", rowptr, csr_segment_sum_reference,
                                x["sorted_data"], x["row_ptr"], V)
+        if not bits8:
+            fail(f"the row-pointer segment sum does not give the CPU plain version's bits ({name})")
         counts = torch.diff(x["row_ptr"])
         records.append({"case": name, "V": V, "E": x["data"].shape[0], "d": x["data"].shape[1],
                         "real_edges": int(x["edge_mask"].sum()), "empty_nodes": int((counts == 0).sum()),
                         "max_in_degree": int(counts.max()), "budget": x["perm"].shape[0] // (V // 128),
                         "max_abs_err": {"csr_segment_sum": err8, "csr_segment_sum_packed": err9},
                         "equal_bits_to_cpu_plain": {"csr_segment_sum": bits8, "csr_segment_sum_packed": bits9},
-                        "packed_bitwise_repeatable": True})
+                        "bitwise_repeatable": True})
     return (max(r["max_abs_err"]["csr_segment_sum"] for r in records),
             max(r["max_abs_err"]["csr_segment_sum_packed"] for r in records), records)
+
+
+def glue_inputs(G, d: int, seed: int) -> dict[str, tuple]:
+    """Row 8's calls on the main path at the packed training batch ``G``:
+    the block's node scatter (``[B * E, d]`` edge hiddens into the ``B * V``
+    node slots and a trash slot for the padding lanes) and PackedMean's sum
+    and count (``[B * V, d]`` node hiddens and ``[B * V]`` ones into the
+    molecules and a trash slot for the padding slots), seeded values, as
+    ``(data, int64 ids, num_segments)`` on the card."""
+    rng = np.random.default_rng(seed)
+    B, V = G.node_mask.shape
+    scatter = np.where(G.edge_mask, G.dst + V * np.arange(B)[:, None], B * V).reshape(-1)
+    readout = G.node_graph.reshape(-1)
+    arrays = {"node_scatter": (rng.standard_normal((scatter.size, d)), scatter, B * V + 1),
+              "packed_mean_sum": (rng.standard_normal((readout.size, d)), readout, G.n_mols + 1),
+              "packed_mean_count": (G.node_mask.reshape(-1), readout, G.n_mols + 1)}
+    return {k: (torch.from_numpy(np.ascontiguousarray(x, np.float32)).cuda(),
+                torch.from_numpy(ids.astype(np.int64)).cuda(), n) for k, (x, ids, n) in arrays.items()}
+
+
+def glue_sums_phase(cases: dict[str, tuple]) -> tuple[float, list[dict]]:
+    """nn/ops.py segment_sum (row 8 through the sort of its ids) on each
+    case twice, held against the plain version on the card (index_add_) at
+    SUM_ATOL times each element's sum of |terms|; fails unless both calls
+    give the bits of index_add on the CPU. Returns the largest error and the
+    cases, each with its longest run."""
+    from notorch_tpu_torch.nn.ops import segment_sum
+
+    records = []
+    for name, (data, ids, n) in cases.items():
+        got, again = segment_sum(data, ids, n), segment_sum(data, ids, n)
+        torch.cuda.synchronize()
+
+        def plain(x, i, n=n):
+            return torch.zeros((n,) + tuple(x.shape[1:]), device=x.device).index_add_(0, i, x)
+
+        err, bits = held_sum(f"segment_sum ({name})", got, plain, data, ids)
+        if not (bits and torch.equal(got, again)):
+            fail(f"segment_sum ({name}) does not give index_add's CPU bits on two calls")
+        records.append({"case": name, "rows": data.shape[0], "d": data.shape[1] if data.dim() > 1 else 1,
+                        "segments": n, "longest_run": int(torch.bincount(ids).max()), "max_abs_err": err,
+                        "equal_bits_to_cpu_plain": bits, "bitwise_repeatable": True})
+    return max(r["max_abs_err"] for r in records), records
 
 
 def rowptr_phase(batches: list[dict], d: int) -> tuple[int, float]:
@@ -1000,10 +1137,12 @@ def train_flat_phase(tmp: Path) -> tuple[dict[str, int], Path]:
         fail(f"the flat run wrote no checkpoint in {card_ckpt}")
     # (depth + 1) reduces a forward: each training step and each evaluated batch
     packed = counts["csr_segment_sum_packed"]
-    others = {k: v for k, v in counts.items() if k != "csr_segment_sum_packed"}
-    if packed <= (depth + 1) * steps or packed % (depth + 1) or any(others.values()):
+    evaluated = packed // (depth + 1) - steps
+    expect = {**{fn.__name__: 0 for fn in KERNELS}, "csr_segment_sum_packed": (depth + 1) * (steps + evaluated),
+              "csr_segment_sum": glue_launches("impl_csr", steps, evaluated)}
+    if counts != expect or evaluated <= 0:
         fail(f"the flat run of {steps} steps launched {counts}; expected the packed sum {depth + 1} "
-             "times a step and an evaluated batch, and nothing else")
+             f"times a step and an evaluated batch, and {expect}")
     t0 = time.perf_counter()
     cpu = run(train_config(csv_path, tmp / "flat_cpu", model), device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -1061,8 +1200,9 @@ def train_declarative_flat_phase(tmp: Path) -> Path:
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     counts = launches()
-    if any(counts.values()):
-        fail(f"the declarative flat run launched {counts}; its path has no kernel of the port")
+    wrong = glue_only("flat")(counts, Checkpointer(card_ckpt).latest_step())
+    if wrong:
+        fail(f"the declarative flat run launched {counts}; {wrong}")
     cpu_cfg = train_config(csv_path, tmp / "declarative_flat_cpu", model)
     cpu_cfg["trainer"]["epochs"] = 1
     t0 = time.perf_counter()
@@ -1203,6 +1343,42 @@ def train_run_phase(tmp: Path, phase: str, model: dict, epochs: int, check) -> t
     return counts, card_ckpt
 
 
+def attention_calm_run_phase(tmp: Path) -> None:
+    """The calm attention recipe's whole run (fit of calm_attention_model for
+    its epochs) on the card and on the CPU from the same weights, compared
+    epoch by epoch at ATTENTION_CALM_RTOL; the card's run launches rows 12
+    and 13 in every layer, row 8 in the embeddings' backward and nothing
+    else."""
+    depth, epochs = MODEL_CFG["depth"], CALM_ATTENTION["epochs"]
+    train_csv, val_csv = calm_attention_csvs(tmp)
+    train_ds, val_ds = (build_dataset({"csv": str(c), "targets": {"y": {"columns": ["lipo"]}}})
+                        for c in (train_csv, val_csv))
+    train, val = (list(DataLoader(x, batch_size=CALM_ATTENTION["batch"], layout="dense")) for x in (train_ds, val_ds))
+    transforms = train_ds.build_task_transform_configs()
+    reset_launches()
+    t0 = time.perf_counter()
+    card = fit(calm_attention_model(transforms, "cuda"), train, val, epochs=epochs).history
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launches()
+    steps = epochs * len(train)
+    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_attention_bwd_v2": depth * steps,
+              "fused_dense_attention_fwd_v2": depth * (steps + epochs * len(val)),
+              "csr_segment_sum": glue_launches("declarative_attention", steps, epochs * len(val))}
+    if counts != expect:
+        fail(f"the calm attention run launched {counts}; expected {expect}")
+    cpu = fit(calm_attention_model(transforms, "cpu"), train, val, epochs=epochs).history
+    diffs = {f"epoch{e}/{k}": rel_diff(a[k], b[k]) for e, (a, b) in enumerate(zip(card, cpu))
+             for k in ("train/loss", "val/loss")}
+    worst = max(diffs.values())
+    emit(phase="train_attention_calm", recipe=CALM_ATTENTION, steps=steps, kernel_launches=counts,
+         run_s_card=card_s, history_card=[{k: h[k] for k in ("train/loss", "val/loss")} for h in card],
+         history_cpu=[{k: h[k] for k in ("train/loss", "val/loss")} for h in cpu], rel_diff_vs_cpu=diffs,
+         max_rel_diff=worst, rel_tol=ATTENTION_CALM_RTOL)
+    if not worst <= ATTENTION_CALM_RTOL:
+        fail(f"the calm attention run: card and CPU differ by {worst} relative: {diffs}")
+
+
 def lockstep(cfg: dict, epochs: int, what: str) -> dict:
     """Every step of ``cfg``'s run taken on the card and on the CPU from the
     card's weights and optimizer state (copied to the CPU before each step),
@@ -1243,8 +1419,21 @@ def lockstep(cfg: dict, epochs: int, what: str) -> dict:
             "max_grad_rel_l2": max(rel_l2.values(), default=0.0), "grad_rel_l2": rel_l2}
 
 
-def no_kernel(counts: dict[str, int], steps: int) -> str | None:
-    return None if not any(counts.values()) else "its path has no kernel of the port"
+def glue_only(path: str):
+    """The launch check of a path whose only kernel is row 8 in its glue:
+    ROW8_LAUNCHES's count a step and a positive number of evaluated batches,
+    and no other kernel."""
+    per_step, per_batch = ROW8_LAUNCHES[path]
+
+    def check(counts: dict[str, int], steps: int) -> str | None:
+        evaluated = (counts["csr_segment_sum"] - per_step * steps) / per_batch
+        others = {k: v for k, v in counts.items() if k != "csr_segment_sum"}
+        if evaluated <= 0 or evaluated != int(evaluated) or any(others.values()):
+            return (f"expected row 8 {per_step} times a step and {per_batch} times an evaluated batch, and no "
+                    "other kernel")
+        return None
+
+    return check
 
 
 def declarative_attention_launches(counts: dict[str, int], steps: int) -> str | None:
@@ -1253,10 +1442,12 @@ def declarative_attention_launches(counts: dict[str, int], steps: int) -> str | 
     depth = MODEL_CFG["depth"]
     fwd, bwd = counts["fused_dense_attention_fwd_v2"], counts["fused_dense_attention_bwd_v2"]
     others = {k: v for k, v in counts.items() if k not in ("fused_dense_attention_fwd_v2",
-                                                             "fused_dense_attention_bwd_v2")}
-    if bwd != depth * steps or fwd <= depth * steps or fwd % depth or any(others.values()):
+                                                             "fused_dense_attention_bwd_v2", "csr_segment_sum")}
+    glue = glue_launches("declarative_attention", steps, 0)
+    if (bwd != depth * steps or fwd <= depth * steps or fwd % depth or counts["csr_segment_sum"] != glue
+            or any(others.values())):
         return (f"expected row 13 {depth} times a step, row 12 {depth} times a step and an evaluated "
-                "batch, and nothing else")
+                f"batch, row 8 {glue} times (the embeddings' backward), and nothing else")
     return None
 
 
@@ -1518,13 +1709,14 @@ def gvp_lockstep(cfg: dict, batches: list[dict], epochs: int, what: str) -> dict
             "rtol": LOCKSTEP_RTOL, "grad_rel_l2_tol": KINK_GRAD_L2}
 
 
-def train_gvp_phase(tmp: Path, phase: str, cfg: dict, train: list[dict], val: list[dict], epochs: int,
+def train_gvp_phase(tmp: Path, phase: str, path: str, cfg: dict, train: list[dict], val: list[dict], epochs: int,
                     expect_fwd_per_batch: int) -> tuple[dict[str, int], Path]:
     """fit(cfg's model) for ``epochs`` on the card and on the CPU from the
     same weights, compared epoch by epoch at GVP_RUN_RTOL, then every step in
     lockstep. The card's run must launch row 15 ``expect_fwd_per_batch``
-    times a step and row 14 as many times a step and an evaluated batch, and
-    nothing else. Returns the launches and the card's checkpoint directory."""
+    times a step and row 14 as many times a step and an evaluated batch, row 8
+    as ``path``'s glue does (ROW8_LAUNCHES), and nothing else. Returns the
+    launches and the card's checkpoint directory."""
     ckpt = tmp / f"{phase}_card"
     reset_launches()
     card = gvp_model(cfg, "cuda")
@@ -1535,7 +1727,7 @@ def train_gvp_phase(tmp: Path, phase: str, cfg: dict, train: list[dict], val: li
     counts = launches()
     steps, n = card.step, expect_fwd_per_batch
     expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_gvp_conv_fwd": n * (steps + epochs * len(val)),
-              "fused_gvp_conv_bwd": n * steps}
+              "fused_gvp_conv_bwd": n * steps, "csr_segment_sum": glue_launches(path, steps, epochs * len(val))}
     if counts != expect:
         fail(f"{phase}: the card's run of {steps} steps launched {counts}; expected {expect}")
     t0 = time.perf_counter()
@@ -1588,6 +1780,84 @@ def serve_gvp_phase(ckpt: Path, cfg: dict, batches: list[dict], phase: str, expe
     if not ok:
         fail(f"{phase}: the card's predictions disagree with the CPU or are not finite")
     return counts
+
+
+# the repeat check: each path's model built from SEED takes REPEAT_STEPS
+# train steps on its first training batches twice from the same weights, and
+# every parameter and every Adam state tensor must come out with the same bits
+REPEAT_STEPS, REPEAT_MOLS = 3, 256
+REPEAT_PATHS = ("recipe", "declarative", "impl_csr", "declarative_attention", "declarative_gvp", "gvp_recipe")
+
+
+def repeat_model_cfg(path: str, d: int) -> dict:
+    """The model section of a repeat path at hidden width ``d`` (the GVP
+    vectors ``d // 8`` wide, as the JAX package's defaults make them): the
+    REPEAT_PATHS, and the flat paths ``flat`` (configs/declarative_example.
+    yaml's model) and ``flat_gat`` (the GAT recipe on the flat layout)."""
+    depth, heads = MODEL_CFG["depth"], GT_CFG["num_heads"]
+    return {"recipe": {**MODEL_CFG, "hidden_dim": d},
+            "declarative": declarative_model_cfg(d, depth),
+            "impl_csr": {**MODEL_CFG, "hidden_dim": d, "impl": "csr"},
+            "declarative_attention": declarative_attention_model_cfg(d, depth, heads),
+            "declarative_gvp": declarative_gvp_model_cfg(d, d // 8),
+            "gvp_recipe": {**GVP_RECIPE, "hidden_dim": d},
+            "flat": declarative_flat_model_cfg(d),
+            "flat_gat": {**GAT_CFG, "hidden_dim": d, "layout": "flat"}}[path]
+
+
+def repeat_run(path: str, tmp: Path, device: str, d: int = 256, batch: int = BATCH,
+               steps: int = REPEAT_STEPS) -> dict:
+    """``steps`` train steps of ``path``'s model (weights from SEED; Adam
+    with the Noam schedule of OPTIMIZER_CFG, the GVP models Adam at GVP_LR)
+    on its first training batches of ``batch`` (lipo molecules in the order
+    the training loader shuffles them, or synthetic clouds), taken twice from
+    the same weights on ``device``. Returns the names of the parameters and
+    Adam state tensors whose bits differ between the two (none where the path
+    repeats bit for bit)."""
+    cfg = repeat_model_cfg(path, d)
+    if path in ("declarative_gvp", "gvp_recipe"):
+        clouds = make_clouds(steps * batch, seed=SEED)
+        batches = cloud_batches(clouds, coordination_targets(clouds), batch_size=batch)[:steps]
+        make, first = (lambda: gvp_model(cfg, device)), gvp_model(cfg, device)
+    else:
+        run_cfg = train_config(lipo_csv(tmp, REPEAT_MOLS), None, cfg)
+        run_cfg["trainer"]["batch_size"] = batch
+        built = prepare(run_cfg, device)
+        batches = [b for _, b in zip(range(steps), built["train_loader"])]
+        model_cfg, transforms = built["cfg"]["model"], built["transforms"]
+        first = built["model"]
+
+        def make():
+            return build_model(model_cfg, transforms, generator=torch.Generator().manual_seed(SEED),
+                               optimizer=build_optimizer(OPTIMIZER_CFG)).to(device)
+
+    weights = {k: v.clone() for k, v in first.network.state_dict().items()}
+    second = make()
+    second.network.load_state_dict(weights)
+    for model in (first, second):
+        for b in batches:
+            model.train_step(to_device(b, device))
+    names = [n for n, _ in first.network.named_parameters()]
+    differ = [n for (n, a), (_, b) in zip(first.network.named_parameters(), second.network.named_parameters())
+              if not torch.equal(a, b)]
+    states = first.optimizer.state_dict()["state"], second.optimizer.state_dict()["state"]
+    adam = 0
+    for i in sorted(states[0]):
+        for key, t in states[0][i].items():
+            adam += 1
+            if not torch.equal(torch.as_tensor(t), torch.as_tensor(states[1][i][key])):
+                differ.append(f"adam {key} of {names[i]}")
+    return {"path": path, "steps": len(batches), "parameters": len(names), "adam_tensors": adam, "differ": differ}
+
+
+def repeat_phase(tmp: Path) -> None:
+    """The repeat check of every path of REPEAT_PATHS at full width on the
+    card: fails unless each comes out bit for bit the same twice."""
+    records = [repeat_run(path, tmp, "cuda") for path in REPEAT_PATHS]
+    emit(phase="repeat", steps=REPEAT_STEPS, paths=records)
+    bad = {r["path"]: r["differ"] for r in records if r["differ"]}
+    if bad:
+        fail(f"runs that do not repeat bit for bit on the card: {bad}")
 
 
 def gvp_work(x: dict, bwd: bool) -> tuple[int, int, int]:
@@ -1695,6 +1965,10 @@ def main() -> None:
              cases=flat_cases)
         rowptr_launches, rowptr_path_err = rowptr_phase(flat_batches, d)
         emit(phase="rowptr", batches=len(flat_batches), launches=rowptr_launches, max_abs_err=rowptr_path_err)
+        # row 8 as the glue calls it on the main path (nn/ops.py segment_sum)
+        glue_x = glue_inputs(main_G, d, SEED + 7)
+        glue_err, glue_cases = glue_sums_phase(glue_x)
+        emit(phase="glue_sums_vs_plain", sum_atol=f"{SUM_ATOL} x each element's sum of |terms|", cases=glue_cases)
 
         # rows 10-13 at the graph transformer's first packed batch (16 bins of
         # V = 128, E = 256), the dense loader's first and widest batches, and
@@ -1725,16 +1999,20 @@ def main() -> None:
         serve_declarative_phase(tmp, declarative_ckpt, len(dense_batches))
         flat_trained, flat_ckpt = train_flat_phase(tmp)
         serve_checkpoint_phase(tmp, flat_ckpt, "serve_flat",
-                         {"csr_segment_sum_packed": (depth + 1) * len(flat_batches)})
-        serve_checkpoint_phase(tmp, train_declarative_flat_phase(tmp), "serve_declarative_flat", {})
+                               {"csr_segment_sum_packed": (depth + 1) * len(flat_batches),
+                                "csr_segment_sum": glue_launches("impl_csr", 0, len(flat_batches))})
+        serve_checkpoint_phase(tmp, train_declarative_flat_phase(tmp), "serve_declarative_flat",
+                               {"csr_segment_sum": glue_launches("flat", 0, len(flat_batches))})
         attention, attention_ckpt = train_run_phase(
             tmp, "train_declarative_attention", declarative_attention_model_cfg(d, depth, heads), TRAIN_EPOCHS,
             declarative_attention_launches)
         serve_checkpoint_phase(tmp, attention_ckpt, "serve_declarative_attention",
                                {"fused_dense_attention_fwd_v2": depth * len(dense_batches)})
         serve_checkpoint_phase(tmp, train_run_phase(tmp, "train_graph_transformer", dict(GT_CFG), TRAIN_EPOCHS,
-                                                    no_kernel)[1], "serve_graph_transformer", {})
-        serve_checkpoint_phase(tmp, train_run_phase(tmp, "train_gat", dict(GAT_CFG), 1, no_kernel)[1], "serve_gat", {})
+                                                    glue_only("graph_transformer"))[1], "serve_graph_transformer",
+                               {"csr_segment_sum": glue_launches("graph_transformer", 0, len(gt_batches))})
+        serve_checkpoint_phase(tmp, train_run_phase(tmp, "train_gat", dict(GAT_CFG), 1, glue_only("gat"))[1],
+                               "serve_gat", {"csr_segment_sum": glue_launches("gat", 0, len(gt_batches))})
 
         # rows 14-15 against their plain versions, then the GVP model both ways
         gvp_train, gvp_val = gvp_data()
@@ -1744,12 +2022,20 @@ def main() -> None:
              grad_atol="ATOL x the largest |value| of each gradient", cases=gvp_records)
         gvp_cfg = declarative_gvp_model_cfg()
         gvp_depth = gvp_cfg["modules"]["backbone"]["args"]["depth"]
-        gvp_trained, gvp_ckpt = train_gvp_phase(tmp, "train_declarative_gvp", gvp_cfg, gvp_train, gvp_val,
-                                                GVP_EPOCHS, gvp_depth)
+        gvp_trained, gvp_ckpt = train_gvp_phase(tmp, "train_declarative_gvp", "declarative_gvp", gvp_cfg, gvp_train,
+                                                gvp_val, GVP_EPOCHS, gvp_depth)
         gvp_served = serve_gvp_phase(gvp_ckpt, gvp_cfg, gvp_train, "serve_declarative_gvp",
-                                     {"fused_gvp_conv_fwd": gvp_depth * len(gvp_train)})
-        recipe_ckpt = train_gvp_phase(tmp, "train_gvp_recipe", dict(GVP_RECIPE), gvp_train, gvp_val, 1, 0)[1]
-        serve_gvp_phase(recipe_ckpt, dict(GVP_RECIPE), gvp_train, "serve_gvp_recipe", {})
+                                     {"fused_gvp_conv_fwd": gvp_depth * len(gvp_train),
+                                      "csr_segment_sum": glue_launches("declarative_gvp", 0, len(gvp_train))})
+        recipe_ckpt = train_gvp_phase(tmp, "train_gvp_recipe", "gvp_recipe", dict(GVP_RECIPE), gvp_train, gvp_val,
+                                      1, 0)[1]
+        serve_gvp_phase(recipe_ckpt, dict(GVP_RECIPE), gvp_train, "serve_gvp_recipe",
+                        {"csr_segment_sum": glue_launches("gvp_recipe", 0, len(gvp_train))})
+
+        # every path's run twice from the same weights, bit for bit; the calm
+        # attention recipe's whole run card against CPU
+        repeat_phase(tmp)
+        attention_calm_run_phase(tmp)
 
     # time each kernel and its plain version at the serving and training shape
     h0, src, dst, mask, W, b = main_args
@@ -1824,7 +2110,7 @@ def main() -> None:
         fused_dense_encoder_fwd: declarative["fused_dense_encoder_fwd"],
         fused_dense_encoder_bwd: declarative["fused_dense_encoder_bwd"],
         fused_dense_mpnn_block_dbuf: dbuf_launches,
-        csr_segment_sum: rowptr_launches,
+        csr_segment_sum: trained["csr_segment_sum"],
         csr_segment_sum_packed: flat_trained["csr_segment_sum_packed"],
     }
     errors = {
@@ -1835,14 +2121,14 @@ def main() -> None:
         fused_dense_encoder_fwd: max(c["max_abs_err"]["fwd"] for c in encoder_cases),
         fused_dense_encoder_bwd: max(c["max_abs_err"]["bwd"] for c in encoder_cases),
         fused_dense_mpnn_block_dbuf: dbuf_err,
-        csr_segment_sum: max(rowptr_err, rowptr_path_err),
+        csr_segment_sum: max(rowptr_err, rowptr_path_err, glue_err),
         csr_segment_sum_packed: packed_err,
     }
     shapes = {fn: (list(h0.shape), nnz) for fn in runs}
     shapes[fused_dense_encoder_fwd] = shapes[fused_dense_encoder_bwd] = (
         {"B": ef.shape[0], "V": nf.shape[1], "E": ef.shape[1], "d": d}, enc_nnz)
     shapes[csr_segment_sum] = shapes[csr_segment_sum_packed] = (
-        {"V": V, "E": E, "d": d, "real_edges": n_real}, None)
+        {"V": V, "E": E, "d": d, "real_edges": n_real, "longest_run": int(torch.diff(x["row_ptr"]).max())}, None)
     # rows 1, 2 and 5 count the layers they run; row 7 (one launch) and the
     # backward rows count one a call
     fwd_rows = (fused_dense_mpnn_block, fused_dense_mpnn_block_stash, fused_dense_encoder_fwd)
@@ -1933,6 +2219,25 @@ def main() -> None:
     cut = torch.clamp(x["row_ptr"], max=n_real)
     emit(phase="time_rowptr_without_sink", shape=shapes[csr_segment_sum][0],
          ms=time_ms(lambda: csr_segment_sum(x["sorted_data"], x["sorted_dst"], cut, V))["device"])
+    # row 8 at the shapes the main path gives it: the kernel alone over the
+    # sorted ids (a CUDA graph of 20 calls), and nn/ops.py segment_sum as the
+    # glue calls it, the sort of the ids included (launched one by one)
+    from notorch_tpu_torch.kernels.csr_segment import segment_sum_in_order, sorted_segments
+    from notorch_tpu_torch.nn.ops import segment_sum
+
+    for name, (data, ids, n) in glue_x.items():
+        order, row_ptr = sorted_segments(ids, n)
+        width = data.shape[1] if data.dim() > 1 else 1
+        kernel_t = time_ms(lambda: segment_sum_in_order(data, order, row_ptr, n))
+        plain_t = time_ms(lambda: torch.zeros((n,) + tuple(data.shape[1:]), device="cuda").index_add_(0, ids, data))
+        call_ms = _elapsed_ms(lambda: segment_sum(data, ids, n), 200)
+        bound_ms, bound_by = bound(data.shape[0] * width, nbytes(data, order, row_ptr) + n * width * 4)
+        emit(phase="time_row8_path", case=name, shape={"rows": data.shape[0], "d": width, "segments": n,
+                                                        "longest_run": int(torch.bincount(ids).max())},
+             ms=kernel_t["device"], eager_ms=kernel_t["eager"], segment_sum_eager_ms=call_ms,
+             plain_ms=plain_t["device"], library_ms=plain_t["device"],
+             library_note="torch.zeros(segments, d).index_add_ (the plain version)", bound_ms=bound_ms,
+             bound_by=bound_by)
     missing = [r["name"] for r in records if r["launches"] <= 0]
     if missing:
         fail(f"kernels never launched on their path: {missing}")

@@ -4,20 +4,24 @@
 //   - csr_segment_sum_packed / _packed_kernel: packed_kernel below;
 //   - csr_segment_sum / _kernel: rowptr_kernel below.
 // The Python wrappers (notorch_tpu_torch/kernels/csr_segment.py) launch each
-// once a call. Both reduce data[E, d] (f32, rows 16-byte aligned, d a
-// multiple of 4) into out[num_nodes, d] and write every output row, zeros
-// included.
+// once a call. Both reduce data[E, d] (f32) into out[num_nodes, d] and write
+// every output row, zeros included. The packed kernel reads rows in 16-byte
+// vectors (d a multiple of 4, data and out 16-byte aligned); the row-pointer
+// kernel takes any d >= 1 and any alignment, and reads its rows either in
+// edge order or through an order array (the stable sort of a segment sum's
+// ids: notorch_tpu_torch/nn/ops.py segment_sum and take route every sum of
+// the port's glue on the card through it).
 //
 // What they compute:
 //   packed:  out[v] = sum of data[perm[s]] over the slots s of v's tile_v-node
 //            tile (slots [tile * budget, (tile + 1) * budget)) with
 //            packed_dst[s] == v; a slot with perm outside [0, E) (the -1 of
 //            padding) or packed_dst outside its tile adds nothing.
-//   rowptr:  out[v] = sum of data[e] for e in [row_ptr[v], row_ptr[v+1]),
-//            clipped to [0, E). Every edge of the range is summed: the TPU
-//            kernel's grid stops after (tile_v * max_degree) / tile_e + 2
-//            chunks of a tile and drops the edges past them; this one does
-//            not.
+//   rowptr:  out[v] = sum of data[e] (data[order[e]] given an order) for e in
+//            [row_ptr[v], row_ptr[v+1]), clipped to [0, E), in ascending e.
+//            Every edge of the range is summed: the TPU kernel's grid stops
+//            after (tile_v * max_degree) / tile_e + 2 chunks of a tile and
+//            drops the edges past them; this one does not.
 // The TPU kernels turn each chunk of slots into a one-hot [tile_v, tile_e]
 // matrix and multiply it on the MXU. Here a segment sum is what it is on this
 // card: a gather and an add, f32 add per element read.
@@ -59,14 +63,40 @@
 //   index_add_ takes them) with no float atomics, so two calls give the same
 //   bits, and the CPU plain version's.
 //
-// rowptr_kernel. One warp per (node, 128-column chunk of d); each lane owns
-// one 16-byte vector and walks the node's edges in ascending order, four
-// loads written ahead of their adds. Edges are dst-sorted, so a node's rows
-// are contiguous and its warp reads them as 512-byte runs. The longest run
-// sets the time: in a flat batch it is the padding sink's, which holds every
-// padding edge (358 rows in the first lipo batch), one warp's serial walk.
+// rowptr_kernel. A block per (group of consecutive nodes, slice of kSlice
+// columns, w = min(kSlice, d - c0) wide); kRowThreads threads in teams of
+// lanes, each lane four columns (where rows are read in 16-byte pieces and
+// the block's span holds no long run) or one.
+//   1. The block reads its group's row pointers (one coalesced read) into
+//      shared memory. Rows are sorted by node, so the group's runs are one
+//      contiguous span of rows [row_ptr[v0], row_ptr[v1]).
+//   2. It stages the span's slice in shared memory in windows of
+//      kWindowFloats floats (kWindowFloats / w rows), every row of a window in
+//      flight at once (cp.async from every thread: 16-byte copies where d is
+//      a multiple of 4 and data 16-byte aligned, else 4-byte ones), kBuffers
+//      windows in flight, the next loading while the block adds the current.
+//      With an order array a row's index is read first (one more round trip).
+//   3. Each team adds its node's rows from shared memory in ascending edge
+//      order (the next kChain rows' reads in flight while a lane adds the
+//      last kChain), carrying the sum
+//      from window to window, and writes the node once; a team takes the
+//      group's nodes t, t + teams, ... in turn.
+//   The host sizes a group to about kGroupRows rows at this call's mean run
+//   length, so most groups take one window, and a long run (the padding
+//   sink, a hub) takes a group's few nodes: its d / kSlice column slices run
+//   on as many SMs, and its windows all load at once but for kBuffers.
+//   Dependent device-memory round trips: the row pointers, the rows (through
+//   the order: its index, then the row), then a window per kBuffers - 1 more.
+//   Every output element is one ascending add chain started from zero, as the
+//   CPU plain version's index_add_ takes it, with no atomics: two calls give
+//   the same bits, and the CPU plain version's. (The kernel before this design
+//   walked each node's rows with one warp, four loads in flight a lane; the
+//   first flat lipo batch's 358-row sink run then held the whole launch for
+//   some 90 dependent round trips: PERF.md §6 has both times.)
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -83,7 +113,14 @@ constexpr int kLaneVecs = 2;       // 16-byte vectors of a row a lane sums at on
 // budgets up to which perm is staged beside the keys (else a marked lane
 // reads its slot's perm from device memory)
 constexpr int kStagePermMax = 24576;
-constexpr int kRowThreads = 256;
+constexpr int kRowThreads = 256;  // threads of a row-pointer block
+constexpr int kSlice = 32;        // columns of a row-pointer block
+constexpr int kWindowFloats = 8192;  // floats of a staged window (32 KiB)
+constexpr int kBuffers = 2;       // windows in flight
+constexpr int kMaxGroup = 256;    // nodes of a row-pointer block, at most
+constexpr int kGroupRows = 128;   // rows a row-pointer block takes at the mean run length
+constexpr int kChain = 16;        // rows a lane reads from shared memory ahead of their adds
+constexpr int kLongSpan = 2 * kGroupRows;  // a block's span past which it holds a long run
 // 1 builds the stage stamps (see stamp); the timing script's --stages build.
 constexpr int kStages = 0;
 
@@ -98,6 +135,23 @@ __host__ __device__ inline size_t packed_smem_bytes(int budget, bool stage_perm)
 constexpr int kStageSlots = 4;
 __device__ unsigned long long stage_at[kStageSlots];
 __device__ unsigned long long stage_span[2];
+
+// The row-pointer kernel's stamps of a kStages build: thread 0 of each of the
+// first kStampBlocks blocks (x fastest) writes %globaltimer at its start, with
+// its row pointers in, with its first window in and at its end, then its
+// span's row count.
+constexpr int kStampBlocks = kStages != 0 ? 4096 : 1, kRowStamps = 5;
+__device__ unsigned long long rowptr_at[kStampBlocks][kRowStamps];
+
+__device__ inline void row_stamp(int slot, long long span = -1) {
+  if constexpr (kStages != 0) {
+    const unsigned b = blockIdx.y * gridDim.x + blockIdx.x;
+    if (threadIdx.x != 0 || b >= kStampBlocks) return;
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    rowptr_at[b][slot] = span >= 0 ? (unsigned long long)span : t;
+  }
+}
 
 __device__ inline void stamp(int stage, bool start, bool end) {
   if constexpr (kStages != 0) {
@@ -218,31 +272,172 @@ __global__ void __launch_bounds__(kPackedThreads)
   stamp(3, false, true);
 }
 
+// cp.async of 4 or 16 bytes from device memory into shared memory.
+template <int kBytes>
+__device__ inline void cp_async(float* to, const float* from) {
+  const unsigned at = (unsigned)__cvta_generic_to_shared(to);
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(at), "l"(from));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(at), "l"(from));
+}
+
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int kPending>
+__device__ inline void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending)); }
+
+__host__ __device__ inline size_t rowptr_smem_bytes(int group) {
+  return sizeof(float) * (size_t)kBuffers * kWindowFloats + sizeof(int) * ((size_t)group + 1);
+}
+
+// Window k of a block's span, rows [lo + k * rows, ...) clipped at hi, into
+// its buffer: each thread copies every kRowThreads-th 4 * kVec-float piece.
+template <int kVec>
+__device__ inline void load_window(float* buf, const float* __restrict__ data,
+                                   const long long* __restrict__ order, int r0, int nr, int w, int d,
+                                   int c0) {
+  const int pieces = w / kVec;
+  for (int i = threadIdx.x; i < nr * pieces; i += kRowThreads) {
+    const int r = i / pieces, c = (i - r * pieces) * kVec;
+    const long long e = order != nullptr ? order[r0 + r] : r0 + r;
+    cp_async<4 * kVec>(buf + r * w + c, data + (size_t)e * d + c0 + c);
+  }
+}
+
+template <int kFloats>
+using Lane = std::conditional_t<kFloats == 4, float4, float>;
+
+__device__ inline float add_lane(float a, float b) { return a + b; }
+__device__ inline float4 add_lane(float4 a, float4 b) { return add4(a, b); }
+
+// acc plus the rows at, at + stride, ... (count of them) of a window, in
+// order: the next kChain rows' reads in flight while the last kChain are
+// added. kStride is the row stride in floats, or 0 for w at run time.
+template <int kStride, typename V>
+__device__ inline V add_rows(V acc, const float* at, int count, int w) {
+  const int stride = kStride != 0 ? kStride : w;
+  int r = 0;
+  if (count >= kChain) {
+    V x[kChain], next[kChain];
+#pragma unroll
+    for (int u = 0; u < kChain; ++u) x[u] = *reinterpret_cast<const V*>(at + u * stride);
+    for (r = kChain, at += kChain * stride; r + kChain <= count; r += kChain, at += kChain * stride) {
+#pragma unroll
+      for (int u = 0; u < kChain; ++u) next[u] = *reinterpret_cast<const V*>(at + u * stride);
+#pragma unroll
+      for (int u = 0; u < kChain; ++u) acc = add_lane(acc, x[u]);
+#pragma unroll
+      for (int u = 0; u < kChain; ++u) x[u] = next[u];
+    }
+#pragma unroll
+    for (int u = 0; u < kChain; ++u) acc = add_lane(acc, x[u]);
+  }
+  for (; r < count; ++r, at += stride) acc = add_lane(acc, *reinterpret_cast<const V*>(at));
+  return acc;
+}
+
+// Steps 2-3 of rowptr_kernel for one block: the span [lo, hi) of its n nodes
+// (row pointers rp) staged in windows, each team's nodes summed as their rows
+// arrive. A team is w / kFloats lanes, each holding kFloats columns.
+template <int kVec, int kFloats>
+__device__ inline void sum_group(const float* __restrict__ data, const long long* __restrict__ order,
+                                 float* __restrict__ out, const int* rp, float* windows, int d, int n,
+                                 int v0, int c0, int w, int lo, int hi) {
+  const int rows = kWindowFloats / w;
+  const int count = (hi - lo + rows - 1) / rows;
+  auto load = [&](int k) {  // window k, or an empty group of copies past the last
+    if (k < count)
+      load_window<kVec>(windows + k % kBuffers * kWindowFloats, data, order, lo + k * rows,
+                        min(rows, hi - lo - k * rows), w, d, c0);
+    cp_async_commit();
+  };
+  using V = Lane<kFloats>;
+  const int team_lanes = w / kFloats, lane = threadIdx.x % 32, per_warp = 32 / team_lanes;
+  const int t = lane / team_lanes, col = (lane - t * team_lanes) * kFloats;
+  const bool active = t < per_warp;
+  const int teams = kRowThreads / 32 * per_warp;
+  int j = threadIdx.x / 32 * per_warp + t;  // the team's node in the group
+  V acc = {};
+  V* o = reinterpret_cast<V*>(out + (size_t)v0 * d + c0 + col);
+  const size_t stride = (size_t)d / kFloats;  // an output row, in lane values
+#pragma unroll
+  for (int k = 0; k < kBuffers - 1; ++k) load(k);
+  for (int k = 0; k < count; ++k) {
+    load(k + kBuffers - 1);
+    cp_async_wait<kBuffers - 1>();
+    __syncthreads();
+    if (k == 0) row_stamp(2);
+    const float* buf = windows + k % kBuffers * kWindowFloats + col;
+    const int r0 = lo + k * rows, r1 = min(r0 + rows, hi);
+    if (active) {
+      for (; j < n; j += teams) {
+        const int a = max(rp[j], r0), b = min(rp[j + 1], r1);
+        const float* at = buf + (a - r0) * w;
+        acc = w == kSlice ? add_rows<kSlice>(acc, at, b - a, w) : add_rows<0>(acc, at, b - a, w);
+        if (rp[j + 1] > r1) break;  // the run goes on in the next window
+        o[j * stride] = acc;
+        acc = V{};
+      }
+    }
+    __syncthreads();  // the buffer is read before a later window's copies refill it
+  }
+  cp_async_wait<0>();
+  if (active)  // nodes past the span (empty), or every node of an empty span
+    for (; j < n; j += teams) {
+      o[j * stride] = acc;
+      acc = V{};
+    }
+}
+
+template <int kVec>
 __global__ void __launch_bounds__(kRowThreads)
     rowptr_kernel(const float* __restrict__ data, const int* __restrict__ row_ptr,
-                  float* __restrict__ out, int E, int d, int num_nodes) {
-  const int nq = d / 4;
-  const int chunks = (nq + 31) / 32;
-  const long long warp = ((long long)blockIdx.x * kRowThreads + threadIdx.x) / 32;
-  if (warp >= (long long)num_nodes * chunks) return;
-  const int v = (int)(warp / chunks);
-  const int q = (int)(warp % chunks) * 32 + threadIdx.x % 32;
-  if (q >= nq) return;
-  const int lo = max(row_ptr[v], 0), hi = min(row_ptr[v + 1], E);
-  const float4* rows = reinterpret_cast<const float4*>(data);
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  int e = lo;
-  for (; e + 4 <= hi; e += 4) {
-    const float4 x0 = rows[(size_t)e * nq + q], x1 = rows[(size_t)(e + 1) * nq + q];
-    const float4 x2 = rows[(size_t)(e + 2) * nq + q], x3 = rows[(size_t)(e + 3) * nq + q];
-    acc = add4(add4(add4(add4(acc, x0), x1), x2), x3);
+                  const long long* __restrict__ order, float* __restrict__ out, int E, int d,
+                  int num_nodes, int group) {
+  row_stamp(0);
+  extern __shared__ float4 rowptr_smem[];
+  float* windows = reinterpret_cast<float*>(rowptr_smem);       // [kBuffers][kWindowFloats]
+  int* rp = reinterpret_cast<int*>(windows + kBuffers * kWindowFloats);  // [group + 1]
+  const int v0 = blockIdx.x * group, n = min(group, num_nodes - v0);
+  const int c0 = blockIdx.y * kSlice, w = min(kSlice, d - c0);
+
+  // 1. the group's row pointers, clipped to [0, E)
+  for (int i = threadIdx.x; i <= n; i += kRowThreads) rp[i] = min(max(row_ptr[v0 + i], 0), E);
+  __syncthreads();
+  const int lo = rp[0], hi = max(rp[n], lo);
+  row_stamp(1);
+  row_stamp(4, hi - lo);
+
+  // 2-3. a span of the group's usual size: teams of lanes that hold four
+  // columns each, so a warp takes four nodes at once; a span that holds a
+  // long run (the padding sink, a hub): lanes of one column each, whose
+  // chains through the run's rows took less time on the card
+  if constexpr (kVec == 4) {
+    if (hi - lo > kLongSpan)
+      sum_group<4, 1>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
+    else
+      sum_group<4, 4>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
+  } else {
+    sum_group<1, 1>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
   }
-  for (; e < hi; ++e) acc = add4(acc, rows[(size_t)e * nq + q]);
-  reinterpret_cast<float4*>(out)[(size_t)v * nq + q] = acc;
+  __syncthreads();
+  row_stamp(3);
 }
 
 bool bad_rows(const float* data, const float* out, int E, int d) {
   return E < 0 || d < 0 || d % 4 != 0 || ((uintptr_t)data | (uintptr_t)out) % 16 != 0;
+}
+
+// Nodes a row-pointer block sums: about kGroupRows rows (scaled up for narrow
+// slices, whose rows are shorter) at the mean run length (E / num_nodes), a
+// power of two in [1, kMaxGroup].
+int rowptr_group(int E, int d, int num_nodes) {
+  const long long rows = (long long)kGroupRows * kSlice / (d < kSlice ? d : kSlice);
+  const long long want = rows * num_nodes / (E > 0 ? E : 1);
+  int group = 1;
+  while (group < kMaxGroup && 2LL * group <= want) group *= 2;
+  return group;
 }
 
 }  // namespace
@@ -288,17 +483,31 @@ int csr_segment_sum_packed_f32(const float* data, const int* perm, const int* pa
   return (int)cudaGetLastError();
 }
 
-// The row-pointer sum: data[E,d], row_ptr[num_nodes + 1] int32 (nondecreasing),
-// out[num_nodes,d]; the pointers and the result as for the packed sum.
-int csr_segment_sum_rowptr_f32(const float* data, const int* row_ptr, float* out, int E, int d,
-                               int num_nodes, void* stream) {
-  if (bad_rows(data, out, E, d) || num_nodes < 0) return (int)cudaErrorInvalidValue;
-  const long long warps = (long long)num_nodes * ((d / 4 + 31) / 32);
-  if (warps == 0) return (int)cudaSuccess;
-  const long long blocks = (warps * 32 + kRowThreads - 1) / kRowThreads;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  rowptr_kernel<<<(unsigned)blocks, kRowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      data, row_ptr, out, E, d, num_nodes);
+// The row-pointer sum: data[rows, d] (any d >= 0), row_ptr[num_nodes + 1]
+// int32 (nondecreasing), out[num_nodes, d]; with order (int64, E entries, each
+// a row of data) the sum reads data[order[e]], without it data[e] (E rows).
+// Device pointers of contiguous arrays; the stream is a cudaStream_t. Returns
+// the cudaError_t of the launch (0 on success).
+int csr_segment_sum_rowptr_f32(const float* data, const int* row_ptr, const long long* order, float* out,
+                               int E, int d, int num_nodes, void* stream) {
+  if (E < 0 || d < 0 || num_nodes < 0) return (int)cudaErrorInvalidValue;
+  if (d == 0 || num_nodes == 0) return (int)cudaSuccess;
+  const int group = rowptr_group(E, d, num_nodes);
+  const long long groups = ((long long)num_nodes + group - 1) / group;
+  const long long slices = ((long long)d + kSlice - 1) / kSlice;
+  if (groups > 0x7fffffffLL || slices > 65535) return (int)cudaErrorInvalidValue;
+  const bool vec = d % 4 == 0 && ((uintptr_t)data | (uintptr_t)out) % 16 == 0;
+  const void* kernel = vec ? (const void*)rowptr_kernel<4> : (const void*)rowptr_kernel<1>;
+  const size_t smem = rowptr_smem_bytes(group);
+  static uint64_t configured[2] = {0, 0};
+  const cudaError_t err = allow_smem(kernel, (int)rowptr_smem_bytes(kMaxGroup), configured[vec]);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)groups, (unsigned)slices);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    rowptr_kernel<4><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group);
+  else
+    rowptr_kernel<1><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group);
   return (int)cudaGetLastError();
 }
 
@@ -313,6 +522,20 @@ int csr_segment_stages_reset() {
   const unsigned long long at[kStageSlots] = {}, span[2] = {~0ull, 0};
   const cudaError_t err = cudaMemcpyToSymbol(stage_at, at, sizeof at);
   return (int)(err != cudaSuccess ? err : cudaMemcpyToSymbol(stage_span, span, sizeof span));
+}
+
+// The row-pointer kernel's stamps (see row_stamp): `reset` zeroes them,
+// `read` copies kRowStamps values for each of the first `blocks` blocks
+// (at most kStampBlocks).
+int csr_segment_rowptr_stamps_reset() {
+  void* at = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&at, rowptr_at);
+  return (int)(err != cudaSuccess ? err : cudaMemset(at, 0, sizeof rowptr_at));
+}
+
+int csr_segment_rowptr_stamps_read(unsigned long long* out, int blocks) {
+  if (blocks < 0 || blocks > kStampBlocks) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(out, rowptr_at, sizeof(unsigned long long) * kRowStamps * blocks);
 }
 
 int csr_segment_stages_read(unsigned long long* out) {

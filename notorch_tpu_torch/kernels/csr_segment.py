@@ -29,7 +29,13 @@ What they compute, ``data [E, d]`` f32 into ``[num_nodes, d]``:
   the signature.
 
 Both kernels sum each output row in ascending slot (or edge) order with no
-atomics, so two calls give the same bits. The TPU kernels build a one-hot
+atomics, so two calls give the same bits, and the bits of their plain
+versions on the CPU. The row-pointer kernel also sums rows through an order
+(:func:`sorted_segments`, :func:`segment_sum_in_order`): every segment sum
+and every gather's backward of the port's glue on the card goes through it
+(:func:`notorch_tpu_torch.nn.ops.segment_sum` and
+:func:`~notorch_tpu_torch.nn.ops.take`), so that a run on the card repeats
+bit for bit. The TPU kernels build a one-hot
 ``[tile_v, tile_e]`` matrix per chunk and multiply it on the MXU; on the
 card a segment sum is a gather-add, bound by bytes. The design of each is
 described in ``csrc/csr_segment.cu``.
@@ -38,13 +44,15 @@ The CUDA source is built by ``nvcc`` for ``sm_90a`` at first use and bound
 with ``ctypes`` (:mod:`notorch_tpu_torch.kernels.build`). Tensors on the
 CPU take the plain versions; tensors on a CUDA device launch the kernels or
 raise — there is no fallback. Each wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches``; row 8's launches through
+:func:`segment_sum_in_order` count in ``csr_segment_sum.launches`` too.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -109,7 +117,7 @@ def csr_segment_sum_packed_reference(
     slot = torch.arange(perm.shape[0], device=perm.device)
     lo = torch.div(slot, budget, rounding_mode="floor") * tile_v
     valid = (perm >= 0) & (perm < E) & (packed_dst >= lo) & (packed_dst < lo + tile_v)
-    rows = data[torch.where(valid, perm, 0).long()]
+    rows = data.index_select(0, torch.where(valid, perm, 0).long())
     out = torch.zeros(num_nodes + 1, data.shape[1], dtype=data.dtype, device=data.device)
     return out.index_add_(0, torch.where(valid, packed_dst, num_nodes).long(), rows)[:num_nodes]
 
@@ -124,6 +132,30 @@ def csr_segment_sum_reference(data: torch.Tensor, row_ptr: torch.Tensor, num_nod
     node = torch.where((node >= 0) & (node < num_nodes), node, num_nodes)
     out = torch.zeros(num_nodes + 1, data.shape[1], dtype=data.dtype, device=data.device)
     return out.index_add_(0, node, data)[:num_nodes]
+
+
+def sorted_segments(segment_ids: torch.Tensor, num_segments: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(order, row_ptr)`` of 1-D ``segment_ids``: ``order`` (int64) the
+    stable sort of the ids, so that each segment's elements keep their
+    ascending index order, and ``row_ptr`` (int32, ``[num_segments + 1]``)
+    where each segment's run of ``order`` starts. Ids outside ``[0,
+    num_segments)`` fall outside every run."""
+    ids, order = torch.sort(segment_ids, stable=True)
+    return order, torch.searchsorted(ids, _bounds(num_segments, ids.dtype, ids.device), out_int32=True)
+
+
+@functools.lru_cache(maxsize=64)
+def _bounds(num_segments: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``arange(num_segments + 1)``, made once for each size."""
+    return torch.arange(num_segments + 1, dtype=dtype, device=device)
+
+
+def segment_sum_in_order_reference(data: torch.Tensor, order: torch.Tensor, row_ptr: torch.Tensor,
+                                   num_segments: int) -> torch.Tensor:
+    """Plain version of :func:`segment_sum_in_order`: the row-pointer sum's
+    plain version over ``data[order]``."""
+    rows = data.index_select(0, order).reshape(order.shape[0], math.prod(data.shape[1:]))
+    return csr_segment_sum_reference(rows, row_ptr, num_segments).reshape(num_segments, *data.shape[1:])
 
 
 # -- the kernels ------------------------------------------------------------------
@@ -153,7 +185,7 @@ def _check_for_kernel(data: torch.Tensor) -> None:
 def _lib():
     lib = build.load("csr_segment")
     lib.csr_segment_sum_packed_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.csr_segment_sum_rowptr_f32.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.csr_segment_sum_rowptr_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.csr_segment_error_string.argtypes = [ctypes.c_int]
     lib.csr_segment_error_string.restype = ctypes.c_char_p
     lib.csr_segment_max_budget.argtypes = lib.csr_segment_max_tile.argtypes = []
@@ -284,16 +316,59 @@ def csr_segment_sum(
                            "use csr_segment_sum_packed to train")
     if not on_card(data):
         return csr_segment_sum_reference(data, row_ptr, num_nodes)
-    lib = _lib()
-    _check_for_kernel(data)
+    return _rowptr_launch(data, row_ptr, None, num_nodes)
+
+
+def _rowptr_launch(data: torch.Tensor, row_ptr: torch.Tensor, order: torch.Tensor | None,
+                   num_nodes: int) -> torch.Tensor:
+    """Row 8's kernel on the card: ``[num_nodes, d]`` sums over the rows
+    ``data[order[e]]`` (``data[e]`` without an order) of ``data [rows, d]``,
+    any ``d``; counts a launch in ``csr_segment_sum.launches``."""
+    if data.dtype != torch.float32:
+        raise TypeError(f"the CUDA kernels take float32 data, got {data.dtype}")
+    if not data.is_contiguous():
+        raise ValueError("data must be contiguous")
+    E = data.shape[0] if order is None else order.shape[0]
     d = data.shape[1]
     out = torch.empty(num_nodes, d, dtype=data.dtype, device=data.device)
-    with torch.cuda.device(data.device):
-        err = lib.csr_segment_sum_rowptr_f32(data.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
-                                             E, d, num_nodes, torch.cuda.current_stream().cuda_stream)
+    if num_nodes == 0 or d == 0:
+        return out
+    lib = _lib()
+    args = (data.data_ptr(), row_ptr.data_ptr(), None if order is None else order.data_ptr(), out.data_ptr(),
+            E, d, num_nodes, torch.cuda.current_stream(data.device).cuda_stream)
+    if data.device.index == torch.cuda.current_device():  # the glue's every call: no device switch
+        err = lib.csr_segment_sum_rowptr_f32(*args)
+    else:
+        with torch.cuda.device(data.device):
+            err = lib.csr_segment_sum_rowptr_f32(*args)
     _raise_on(err, "csr_segment_sum", lib)
     csr_segment_sum.launches += 1
     return out
+
+
+def segment_sum_in_order(data: torch.Tensor, order: torch.Tensor, row_ptr: torch.Tensor,
+                         num_segments: int) -> torch.Tensor:
+    """``out[v] = sum of data[order[e]]`` for ``e`` in ``[row_ptr[v],
+    row_ptr[v+1])``, in ascending ``e``: ``[num_segments, *data.shape[1:]]``,
+    ``order``/``row_ptr`` from :func:`sorted_segments`. Given a stable sort,
+    each segment's terms are added in ascending index order from zero, as
+    ``index_add_`` adds them on the CPU, so the result has its bits. On a
+    CUDA device the row-pointer kernel (row 8) sums through the order, any
+    width, float32 only; CPU tensors take
+    :func:`segment_sum_in_order_reference`. No gradient."""
+    if not on_card(data):
+        return segment_sum_in_order_reference(data, order, row_ptr, num_segments)
+    check_tensors({"order": (order, torch.int64, (order.shape[0],)),
+                   "row_ptr": (row_ptr, torch.int32, (num_segments + 1,))}, data.device, anchor="data")
+    return sum_in_order(data, order, row_ptr, num_segments)
+
+
+def sum_in_order(data: torch.Tensor, order: torch.Tensor, row_ptr: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """:func:`segment_sum_in_order` on a CUDA device without its checks, for
+    callers whose ``order`` and ``row_ptr`` came from :func:`sorted_segments`
+    on the same device (``nn/ops.py``, on every sum of a step)."""
+    rows = data.reshape(data.shape[0], math.prod(data.shape[1:])).contiguous()
+    return _rowptr_launch(rows, row_ptr, order, num_segments).reshape(num_segments, *data.shape[1:])
 
 
 csr_segment_sum_packed.launches = 0

@@ -20,7 +20,7 @@ from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.data.graph import BatchedGraph
 from notorch_tpu_torch.nn.chemprop import PARALLEL_SLICE
 from notorch_tpu_torch.nn.init import dense, lecun_normal_, reset_dense_
-from notorch_tpu_torch.nn.ops import segment_max, segment_softmax, segment_sum
+from notorch_tpu_torch.nn.ops import segment_max, segment_softmax, segment_sum, take
 
 __all__ = ["Sum", "Mean", "Max", "Gated", "SDPAttention"]
 
@@ -118,6 +118,6 @@ class SDPAttention(nn.Module):
         Q = self.queries(Q, G.n_graphs, G.node_feats)
         # the trash slot gets a zero query
         q_full = torch.cat([Q, torch.zeros_like(Q[:1])])
-        scores = (q_full[G.node_graph.long()] * G.node_feats).sum(-1) / math.sqrt(float(self.key_dim))
+        scores = (take(q_full, G.node_graph) * G.node_feats).sum(-1) / math.sqrt(float(self.key_dim))
         alpha = segment_softmax(scores, G.node_graph, _num_segments(G), G.node_mask)
         return _weighted_sum(alpha, G)

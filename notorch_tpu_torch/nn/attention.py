@@ -22,7 +22,7 @@ from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.data.graph import BatchedGraph
 from notorch_tpu_torch.nn.attention_dense import ATTENTIONS, AttentionStack, LinearLayers, check_no_dropout
 from notorch_tpu_torch.nn.init import dense
-from notorch_tpu_torch.nn.ops import segment_softmax, segment_sum
+from notorch_tpu_torch.nn.ops import segment_softmax, segment_sum, take
 from notorch_tpu_torch.utils import require_f32
 
 
@@ -49,16 +49,16 @@ class GATv2Layer(LinearLayers):
 
     def forward(self, G: BatchedGraph) -> BatchedGraph:
         H = self.num_heads
-        src, dst = G.src.long(), G.dst.long()
         h_src, h_dst = self.W_src(G.node_feats), self.W_dst(G.node_feats)
         d = h_src.shape[-1]
-        z = h_src[src] + h_dst[dst]
+        h_src_e = take(h_src, G.src)
+        z = h_src_e + take(h_dst, G.dst)
         if self.use_edge_feats and G.edge_feats.dim() == 2:
             z = z + self.W_e(G.edge_feats)
         z = F.leaky_relu(z.reshape(-1, H, d // H), self.negative_slope)
         scores = self.a(z).squeeze(-1)  # [E, H]
         alpha = segment_softmax(scores, G.dst, G.num_nodes, mask=G.edge_mask)
-        out = segment_sum(alpha[..., None] * h_src[src].reshape(-1, H, d // H), G.dst, G.num_nodes)
+        out = segment_sum(alpha[..., None] * h_src_e.reshape(-1, H, d // H), G.dst, G.num_nodes)
         return G.update(node_feats=out.reshape(-1, d))
 
 
@@ -80,15 +80,14 @@ class GraphSelfAttention(LinearLayers):
 
     def forward(self, G: BatchedGraph) -> BatchedGraph:
         H = self.num_heads
-        src, dst = G.src.long(), G.dst.long()
         x = G.node_feats
         d = x.shape[-1]
         q, k, v = (layer(x).reshape(-1, H, d // H) for layer in (self.W_q, self.W_k, self.W_v))
-        scores = (q[dst] * k[src]).sum(-1) / math.sqrt(d // H)  # [E, H]
+        scores = (take(q, G.dst) * take(k, G.src)).sum(-1) / math.sqrt(d // H)  # [E, H]
         if G.edge_feats.dim() == 2:
             scores = scores + self.W_bias(G.edge_feats)
         alpha = segment_softmax(scores, G.dst, G.num_nodes, mask=G.edge_mask)
-        out = segment_sum(alpha[..., None] * v[src], G.dst, G.num_nodes)
+        out = segment_sum(alpha[..., None] * take(v, G.src), G.dst, G.num_nodes)
         return G.update(node_feats=self.W_o(out.reshape(-1, d)))
 
 

@@ -45,12 +45,12 @@ from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.data.graph import BatchedGraph
 from notorch_tpu_torch.kernels.csr_segment import csr_segment_sum_packed
 from notorch_tpu_torch.nn.init import lecun_normal_
-from notorch_tpu_torch.nn.ops import segment_reduce
+from notorch_tpu_torch.nn.ops import segment_reduce, take
 
 IMPLS = ("gather", "segment", "csr")
 REDUCES = ("sum", "mean", "max", "min")
-PARALLEL_SLICE = "the parallel slice of the port (ROADMAP.md queue A, item 14)"
-DROPOUT_SLICE = "the slice that ports edge dropout (ROADMAP.md queue A, item 4)"
+PARALLEL_SLICE = "the parallel slice of the port (ROADMAP.md queue A, item 7)"
+DROPOUT_SLICE = "the slice that ports edge dropout (ROADMAP.md queue A, item 5)"
 
 
 def _check_options(dropout: float, reduce: str, psum_axis: str | None, impl: str) -> None:
@@ -80,7 +80,7 @@ def node_reduce(messages: torch.Tensor, G: BatchedGraph, reduce: str, impl: str)
                                       dst=G.dst, edge_mask=G.edge_mask)
     if impl == "gather" and G.in_edges is not None and reduce in ("sum", "mean", "max"):
         ext = torch.cat([messages, messages.new_zeros(1, messages.shape[1])])
-        gathered = ext[G.in_edges.long()]  # [V, K, d]
+        gathered = take(ext, G.in_edges)  # [V, K, d]
         if reduce == "sum":
             return gathered.sum(dim=1)
         valid = (G.in_edges < messages.shape[0])[..., None]
@@ -97,7 +97,7 @@ def chemprop_layer(edge_hiddens, G: BatchedGraph, weight, bias, reduce: str, imp
     layout), ``bias`` ``[d]`` or ``None``."""
     messages = torch.relu(edge_hiddens)
     node_messages = node_reduce(messages, G, reduce, impl)
-    edge_messages = node_messages[G.src.long()] - messages[G.rev.long()]
+    edge_messages = take(node_messages, G.src) - take(messages, G.rev)
     out = edge_messages @ weight
     return out if bias is None else out + bias
 
@@ -169,7 +169,7 @@ class ChempropBlock(nn.Module):
         return self.weight[layer], None if self.bias is None else self.bias[layer]
 
     def forward(self, G: BatchedGraph) -> BatchedGraph:
-        edge_hiddens = G.node_feats[G.src.long()] + G.edge_feats
+        edge_hiddens = take(G.node_feats, G.src) + G.edge_feats
         for layer in range(self.depth):
             args = (edge_hiddens, G, *self._layer_params(layer), self.reduce, self.impl)
             if self.remat and torch.is_grad_enabled():

@@ -31,7 +31,7 @@ from notorch_tpu_torch.kernels.dense_mpnn import (
 from notorch_tpu_torch.nn.embed import EmbeddingBagSum
 from notorch_tpu_torch.nn.agg import Gated, SDPAttention
 from notorch_tpu_torch.nn.init import lecun_normal_
-from notorch_tpu_torch.nn.ops import segment_max, segment_softmax, segment_sum
+from notorch_tpu_torch.nn.ops import segment_max, segment_softmax, segment_sum, take
 from notorch_tpu_torch.utils import require_f32
 
 _LATER_SLICE = "a later slice of the port (ROADMAP.md queue A)"
@@ -58,9 +58,8 @@ class _StackedLayers(nn.Module):
 def _mean_scale(G: DenseBatchedGraph, like: torch.Tensor) -> torch.Tensor:
     """``[B, V, 1]`` real in-degree of every node slot, floored at 1."""
     B, V = G.node_mask.shape
-    counts = torch.zeros(B * V + 1, dtype=like.dtype, device=like.device)
     ones = torch.ones(G.dst.numel(), dtype=like.dtype, device=like.device)
-    counts.index_add_(0, _scatter_ids(G), ones)
+    counts = segment_sum(ones, _scatter_ids(G), B * V + 1)
     return counts[: B * V].reshape(B, V, 1).clamp_min(1.0)
 
 
@@ -191,8 +190,8 @@ class FusedDenseChempropBlock(_StackedLayers):
         if self.fuse_ends:
             return self._encoder(G)
         B, V, d = G.node_feats.shape
-        src = G.src.long()[..., None].expand(-1, -1, d)
-        h0 = (torch.gather(G.node_feats, 1, src) + G.edge_feats).contiguous()
+        slots = G.src.long() + V * torch.arange(B, device=G.src.device)[:, None]  # flat node slot b * V + src
+        h0 = (take(G.node_feats.reshape(B * V, d), slots) + G.edge_feats).contiguous()
         args = (h0, G.src, G.dst, G.edge_mask, self.weight, self.bias)
         if self._needs_grad(h0):
             edge_hiddens = FusedDenseMpnnBlockFn.apply(
@@ -202,8 +201,7 @@ class FusedDenseChempropBlock(_StackedLayers):
             edge_hiddens = fused_dense_mpnn_block(
                 *args, depth=self.depth, n_nodes=V, residual=self.residual, reduce=self.reduce
             )
-        nodes = torch.zeros(B * V + 1, d, dtype=edge_hiddens.dtype, device=edge_hiddens.device)
-        nodes.index_add_(0, _scatter_ids(G), edge_hiddens.reshape(-1, d))
+        nodes = segment_sum(edge_hiddens.reshape(-1, d), _scatter_ids(G), B * V + 1)
         node_hiddens = nodes[: B * V].reshape(B, V, d)
         if self.reduce == "mean":
             node_hiddens = node_hiddens / _mean_scale(G, node_hiddens)
@@ -375,6 +373,6 @@ class PackedSDPAttention(DenseSDPAttention):
         flat, ids, M = _packed_segments(G)
         Q = self.queries(Q, M, flat)
         q_full = torch.cat([Q, torch.zeros_like(Q[:1])])  # the trash row's query
-        scores = (q_full[ids] * flat).sum(-1) / math.sqrt(float(self.key_dim))
+        scores = (take(q_full, ids) * flat).sum(-1) / math.sqrt(float(self.key_dim))
         alpha = segment_softmax(scores, ids, M + 1, mask=G.node_mask.reshape(-1))
         return segment_sum(alpha[:, None] * flat, ids, M + 1)[:-1]

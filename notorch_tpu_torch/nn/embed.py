@@ -1,8 +1,8 @@
 """Graph type-index embedding.
 
 ``EmbeddingBagSum`` is ``nn.EmbeddingBag(mode="sum")`` over multi-family
-type indices: one ``nn.Embedding`` lookup summed over the family axis, as
-``notorch_tpu.nn.embed.EmbeddingBagSum`` takes and sums.
+type indices: one lookup of an ``nn.Embedding``'s table summed over the
+family axis, as ``notorch_tpu.nn.embed.EmbeddingBagSum`` takes and sums.
 :class:`GraphEmbedding` embeds a flat batch's node and edge type ids.
 """
 
@@ -14,6 +14,7 @@ from torch import nn
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.data.graph import BatchedGraph
 from notorch_tpu_torch.nn.init import embed_normal_
+from notorch_tpu_torch.nn.ops import take
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
 
 
@@ -29,7 +30,10 @@ class EmbeddingBagSum(nn.Module):
         embed_normal_(self.embedding.weight, generator)
 
     def forward(self, type_ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding(type_ids.long()).sum(dim=-2)
+        # the table's rows through take: nn.Embedding's backward on the card
+        # gave the table's gradient other bits on two calls at a lipo batch
+        # (scripts/repeat_probe.py)
+        return take(self.embedding.weight, type_ids).sum(dim=-2)
 
 
 class GraphEmbedding(nn.Module):

@@ -8,13 +8,29 @@ divides by the element count floored at 1. Segment ids must lie in
 ``[0, num_segments)``; padding elements carry the id one past the real
 range (see :mod:`notorch_tpu_torch.data.graph`), so callers ignore the
 trailing "trash" row and need no masks.
+
+Every sum of more than one term per output in the port's glue, and every
+gather that takes a gradient, goes through :func:`segment_sum` and
+:func:`take`, so that a run repeats bit for bit. On the CPU they are
+``index_add`` and ``index_select``, whose backwards add each output's terms
+in ascending index order (``x[idx]``'s backward adds by float atomics across
+threads there). On a CUDA device ``index_add_``, ``index_select``'s backward
+and ``torch.gather``'s add by float atomics in no fixed order, so both
+functions sum through the row-pointer kernel (TPU kernel row 8, :func:`~
+notorch_tpu_torch.kernels.csr_segment.segment_sum_in_order`) over the
+stable sort of the ids: each output element is one ascending chain of adds
+from zero, the CPU's order, so a sum on the card has the CPU's bits.
+``scatter_reduce`` with ``amax``/``amin`` is exact in any order and stays.
 """
 
 from __future__ import annotations
 
 import torch
 
+from notorch_tpu_torch.kernels.csr_segment import sorted_segments, sum_in_order
+
 __all__ = [
+    "take",
     "segment_sum",
     "segment_mean",
     "segment_max",
@@ -28,9 +44,86 @@ def _expand(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
 
 
+# the sorts of the last few ids summed over on the card, newest first:
+# (ids, its version, num_segments, order, row_ptr)
+_SORTS: list[tuple] = []
+_KEPT_SORTS = 4
+
+
+def _sorted(ids: torch.Tensor, key: torch.Tensor, num_segments: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``sorted_segments(ids, num_segments)``, taken once while the same
+    unchanged ``key`` (the caller's ids tensor) comes back: a step sums over
+    one index several times (a readout's sum and count; a segment softmax's
+    max, denominator and weighted sum; the flat block's ``src`` and ``rev``
+    in every layer)."""
+    if key.is_inference():  # such a tensor keeps no version to tell a change by
+        return sorted_segments(ids, num_segments)
+    for i, (k, version, n, order, row_ptr) in enumerate(_SORTS):
+        if k is key and version == key._version and n == num_segments:
+            _SORTS.insert(0, _SORTS.pop(i))
+            return order, row_ptr
+    order, row_ptr = sorted_segments(ids, num_segments)
+    _SORTS.insert(0, (key, key._version, num_segments, order, row_ptr))
+    del _SORTS[_KEPT_SORTS:]
+    return order, row_ptr
+
+
+class SegmentSumFn(torch.autograd.Function):
+    """The segment sum on the card: forward the row-pointer kernel over the
+    stable sort of the ids, backward the gather ``g[ids]`` (one term an
+    element, so exact in any order)."""
+
+    @staticmethod
+    def forward(ctx, data, ids, key, num_segments: int):
+        ctx.save_for_backward(ids)
+        return sum_in_order(data, *_sorted(ids, key, num_segments), num_segments)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return g.index_select(0, ids), None, None, None
+
+
+class TakeFn(torch.autograd.Function):
+    """The gather on the card: forward ``index_select``, backward the
+    row-pointer kernel's segment sum of the gradient over the ids, through
+    the sort order taken in the forward."""
+
+    @staticmethod
+    def forward(ctx, x, ids, key):
+        order, row_ptr = _sorted(ids, key, x.shape[0])
+        ctx.save_for_backward(order, row_ptr)
+        return x.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        order, row_ptr = ctx.saved_tensors
+        return sum_in_order(g, order, row_ptr, row_ptr.shape[0] - 1), None, None
+
+
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
-    return out.index_add(0, segment_ids.long(), data)
+    """``out[s] = sum of data[i]`` over ``segment_ids[i] == s``, in ascending
+    ``i``: ``index_add`` on the CPU, :class:`SegmentSumFn` (row 8, float32
+    only) on a CUDA device."""
+    ids = segment_ids.long()
+    if data.is_cuda:
+        if torch.is_grad_enabled() and data.requires_grad:
+            return SegmentSumFn.apply(data, ids, segment_ids, num_segments)
+        return sum_in_order(data, *_sorted(ids, segment_ids, num_segments), num_segments)
+    return data.new_zeros((num_segments,) + tuple(data.shape[1:])).index_add(0, ids, data)
+
+
+def take(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``x[ids]`` along the leading axis: ``[N, ...]`` x ``ids [...]`` ->
+    ``[*ids.shape, ...]``. ``index_select``; its backward sums each row's
+    terms in ascending order (on a CUDA device, where a gradient is taken,
+    through :class:`TakeFn`)."""
+    flat = ids.reshape(-1).long()
+    if x.is_cuda and torch.is_grad_enabled() and x.requires_grad:
+        out = TakeFn.apply(x, flat, ids)
+    else:
+        out = x.index_select(0, flat)
+    return out.reshape(*ids.shape, *x.shape[1:])
 
 
 def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -73,11 +166,11 @@ def segment_softmax(
         scores = torch.where(_expand(mask, scores), scores, float("-inf"))
     seg_max = _segment_extreme(scores, segment_ids, num_segments, "amax", float("-inf"))
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
-    exp = torch.exp(scores - seg_max[segment_ids.long()])
+    exp = torch.exp(scores - take(seg_max, segment_ids))
     if mask is not None:
         exp = torch.where(_expand(mask, exp), exp, 0.0)
     denom = segment_sum(exp, segment_ids, num_segments)
-    return exp / denom.clamp_min(1e-12)[segment_ids.long()]
+    return exp / take(denom.clamp_min(1e-12), segment_ids)
 
 
 _REDUCERS = {

@@ -17,7 +17,7 @@ from torch import nn
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.data.point_cloud import BatchedPointCloud
 from notorch_tpu_torch.nn.init import dense, reset_dense_
-from notorch_tpu_torch.nn.ops import segment_max, segment_mean, segment_softmax, segment_sum
+from notorch_tpu_torch.nn.ops import segment_max, segment_mean, segment_softmax, segment_sum, take
 
 __all__ = ["Sum", "Mean", "Max", "Gated", "SDPAttention"]
 
@@ -68,6 +68,6 @@ class SDPAttention(nn.Module):
 
     def forward(self, P: BatchedPointCloud, Q: torch.Tensor) -> torch.Tensor:
         q_full = torch.cat([Q, torch.zeros_like(Q[:1])])
-        scores = (q_full[P.batch_index.long()] * P.node_feats).sum(-1) / math.sqrt(float(self.key_dim))
+        scores = (take(q_full, P.batch_index) * P.node_feats).sum(-1) / math.sqrt(float(self.key_dim))
         alpha = segment_softmax(scores, P.batch_index, _n(P), mask=P.node_mask)
         return segment_sum(alpha[:, None] * P.node_feats, P.batch_index, _n(P))[: P.n_graphs]

@@ -34,7 +34,7 @@ from torch import nn
 from notorch_tpu_torch.data.point_cloud import BatchedPointCloud
 from notorch_tpu_torch.kernels.gvp_conv import fused_gvp_conv, split_gvp_weights
 from notorch_tpu_torch.nn.init import dense, reset_dense_
-from notorch_tpu_torch.nn.ops import segment_mean, segment_sum
+from notorch_tpu_torch.nn.ops import segment_mean, segment_sum, take
 from notorch_tpu_torch.nn.rbf import RBFEmbedding
 from notorch_tpu_torch.nn.spatial.neighbors import radius_neighbors
 from notorch_tpu_torch.utils import require_f32
@@ -177,12 +177,10 @@ class DualRankAggregation(nn.Module):
 
 def nbr_take(x: torch.Tensor, nbrs: torch.Tensor) -> torch.Tensor:
     """The neighbour gather ``x[nbrs]`` (``[N, ...]`` x ``[N, K]`` ->
-    ``[N, K, ...]``) of the JAX ``_nbr_take``; its backward is autograd's
-    scatter-add, the exact VJP that the JAX one-hot contraction computes.
-    ``index_select``, not ``x[idx]``: on the CPU the latter's backward adds
-    by float atomics across threads, so its bits change from run to run;
-    ``index_select``'s adds each row's terms in ascending order."""
-    return x.index_select(0, nbrs.reshape(-1).long()).reshape(*nbrs.shape, *x.shape[1:])
+    ``[N, K, ...]``) of the JAX ``_nbr_take``; its backward is the
+    scatter-add that the JAX one-hot contraction computes, each node's terms
+    added in ascending order (:func:`~notorch_tpu_torch.nn.ops.take`)."""
+    return take(x, nbrs)
 
 
 class GvpConv(nn.Module):

@@ -6,14 +6,22 @@ the first flat lipo batch (V = 2048, E = 4,096, d = 256), as
 20 calls, beside the plain version's, the library call's and the bound.
 Each row runs twice on that batch and on ``chip_smoke.py``'s random case
 (over-full and empty nodes) and says whether the two calls gave the same
-bits and whether they are the CPU plain version's bits. Row 9 is timed as
+bits and whether they are the CPU plain version's bits; row 8 also with the
+padding sink's run cut (``ms_without_sink``). Row 9 is timed as
 the flat block calls it (``dst`` and ``edge_mask`` given) and, as
 ``ms_without_dst_and_mask``, without them, as ``chip_smoke.py``'s time
 phase called it before this script (the wrappers of that time made a zero
-``dst`` and mask for the backward on every call). Then the time of a launch
+``dst`` and mask for the backward on every call). Then row 8 at the shapes
+the main path gives it (``chip_smoke.py`` ``glue_inputs``: the packed
+training batch's node scatter and PackedMean's sum and count, each with its
+longest run): the kernel on the rows in sorted order, in every tree whose
+row 8 takes the width (``ms``), and, in a tree that has them, the kernel
+reading the rows through the order (``through_order_ms``) and
+``nn/ops.py`` ``segment_sum`` as the glue calls it, the sort included
+(``segment_sum_eager_ms``, launched one by one). Last, the time of a launch
 that writes the output alone (``fill_ms``).
 
-    python3 scripts/time_csr_segment.py [--root DIR] [--define NAME=VALUE ...] [--stages]
+    python3 scripts/time_csr_segment.py [--root DIR] [--define NAME=VALUE ...] [--stages] [--e2e]
 
 ``--root`` is the checkout whose ``notorch_tpu_torch`` runs (default: this
 one); its ``csrc/*.cu`` are built there at first use. ``--define
@@ -23,7 +31,14 @@ temporary directory with ``constexpr int NAME = ...`` set to VALUE in
 builds such a copy with ``kStages = 1``, whose packed kernel stamps
 ``%globaltimer`` at its phase boundaries in block 0 (the index staged, the
 first warp's run formed, its rows summed), and prints them in µs from the
-block's start, with the span of all blocks. The inputs and the timing are
+block's start, with the span of all blocks; the row-pointer kernel of such a
+build stamps every block (row pointers in, first window in, end: the median
+and last block of each, and the block of the longest span), with and
+without the sink's run. ``--e2e`` adds warm training epochs of the recipe
+(configs/dmpnn_regression.yaml, whose glue sums through row 8) and of its
+``model.impl: csr`` twin: milliseconds a step on the host's clock, and
+under ``torch.profiler`` the card's busy milliseconds a step with row 8's
+and the sorts' shares. The inputs and the timing are
 this checkout's, so two trees, for example a parent commit unpacked with
 ``git archive``, are timed the same way in one call on one card. Prints
 one JSON line a row, then the card's name and power limit.
@@ -38,11 +53,13 @@ import re
 import shutil
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 SOURCE = "csr_segment.cu"
 # the packed kernel's stamps of a --stages build, in order (slot 0 is the start)
+WARM_EPOCHS = 5  # epochs of --e2e timed on the host's clock
 STAGES = ("staged", "indexed", "summed")
 
 
@@ -86,11 +103,118 @@ def stage_stamps(lib, call) -> dict:
             "all_blocks": (at[slots + 1] - at[slots]) / 1e3}
 
 
+def path_shape(smoke, csr_segment, name: str, data, ids, n: int) -> dict:
+    """Row 8 of the tree at one of the main path's shapes: ``data`` summed
+    over ``ids`` into ``n`` segments (``smoke``: this checkout's
+    chip_smoke module)."""
+    import torch
+
+    width = data.shape[1] if data.dim() > 1 else 1
+    sorted_ids, order = torch.sort(ids, stable=True)
+    row_ptr = torch.searchsorted(sorted_ids, torch.arange(n + 1, device=ids.device), out_int32=True)
+    rows = data.reshape(data.shape[0], width).index_select(0, order).contiguous()
+    plain = torch.zeros(n, width).index_add_(0, ids.cpu(), data.reshape(-1, width).cpu())
+    record = {"row": 8, "kernel": "csr_segment_sum", "case": name,
+              "shape": {"rows": data.shape[0], "d": width, "segments": n,
+                        "longest_run": int(torch.bincount(ids).max())},
+              "bound_ms": smoke.bound(data.shape[0] * width, smoke.nbytes(data, order, row_ptr) + n * width * 4)[0]}
+    if hasattr(csr_segment, "segment_sum_in_order"):  # any width, and through an order
+        from notorch_tpu_torch.nn.ops import segment_sum
+
+        def kernel():
+            return csr_segment._rowptr_launch(rows, row_ptr, None, n)
+
+        record["through_order_ms"] = smoke.time_ms(
+            lambda: csr_segment.segment_sum_in_order(data, order, row_ptr, n))["device"]
+        record["segment_sum_eager_ms"] = smoke._elapsed_ms(lambda: segment_sum(data, ids, n), 200)
+    elif width % 4 == 0:  # an older tree: the kernel's own entry, rows 16-byte vectors
+        lib = csr_segment._lib()
+
+        def kernel():
+            out = torch.empty(n, width, device=rows.device)
+            lib.csr_segment_sum_rowptr_f32(rows.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), rows.shape[0],
+                                           width, n, torch.cuda.current_stream().cuda_stream)
+            return out
+    else:
+        return {**record, "ms": None, "note": "this tree's row 8 takes d a multiple of 4 only"}
+    first, second = kernel(), kernel()
+    torch.cuda.synchronize()
+    record.update(ms=smoke.time_ms(kernel)["device"], repeatable=bool(torch.equal(first, second)),
+                  cpu_plain_bits=bool(torch.equal(first.cpu(), plain)))
+    return record
+
+
+def rowptr_stamps(lib, call, blocks: int) -> dict:
+    """One call of row 8 in a --stages build: every block's stamps in µs from
+    the earliest block start (the median and the last of each phase: row
+    pointers in, first window in, end), and those of the block with the
+    longest span."""
+    import torch
+
+    lib.csr_segment_rowptr_stamps_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    blocks = min(blocks, 4096)
+    out = (ctypes.c_ulonglong * (5 * blocks))()
+    torch.cuda.synchronize()
+    if lib.csr_segment_rowptr_stamps_reset() != 0:
+        raise SystemExit("csr_segment_rowptr_stamps_reset failed")
+    call()
+    torch.cuda.synchronize()
+    if lib.csr_segment_rowptr_stamps_read(out, blocks) != 0:
+        raise SystemExit("csr_segment_rowptr_stamps_read failed")
+    rows = [list(out[5 * b: 5 * b + 5]) for b in range(blocks)]
+    rows = [r for r in rows if r[0]]
+    t0 = min(r[0] for r in rows)
+    phases = {}
+    for i, name in ((1, "pointers"), (2, "first_window"), (3, "end")):
+        at = sorted((r[i] - t0) / 1e3 for r in rows if r[i])
+        phases[name] = {"median": at[len(at) // 2], "last": at[-1]} if at else None
+    longest = max(rows, key=lambda r: r[4])
+    return {"blocks": len(rows), "phases_us": phases, "last_start_us": (max(r[0] for r in rows) - t0) / 1e3,
+            "longest_span": {"rows": longest[4], **{name: (longest[i] - t0) / 1e3 if longest[i] else None
+                                                     for i, name in ((0, "start"), (1, "pointers"),
+                                                                     (2, "first_window"), (3, "end"))}}}
+
+
+def warm_epoch(smoke, tmp: Path, name: str, model: dict) -> dict:
+    """Warm training epochs of ``model`` on chip_smoke.py's 1,024 molecules:
+    milliseconds a step on the host's clock (WARM_EPOCHS epochs, each timed,
+    and their median), then one more epoch under torch.profiler: the card's
+    busy milliseconds a step, row 8's share (``rowptr_kernel``) and that of
+    the sorts and searches around it, and the busy share."""
+    import torch
+
+    cfg = smoke.train_config(smoke.lipo_csv(tmp, smoke.TRAIN_MOLS), None, model)
+    state = smoke.prepare(cfg)
+    loader = state["train_loader"]
+    smoke.fit(state["model"], loader, epochs=2)  # fills the featurization cache, warms up
+    torch.cuda.synchronize()
+    steps = len(loader)
+    walls = []
+    for _ in range(WARM_EPOCHS):
+        t0 = time.perf_counter()
+        smoke.fit(state["model"], loader, epochs=1)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / steps)
+    epoch = smoke.profile_busy(lambda: smoke.fit(state["model"], loader, epochs=1), top=60, width=160)
+
+    def share(*fragments):
+        return sum(k["ms"] for k in epoch["top"] if any(f in k["name"] for f in fragments)) / steps
+
+    return {"e2e": name, "steps": steps, "warm_ms_per_step": sorted(walls)[len(walls) // 2],
+            "warm_epochs_ms_per_step": walls,
+            "profiled_step_wall_ms": epoch["wall_ms"] / steps,
+            "profiled_step_device_ms": epoch["device_busy_ms"] / steps,
+            "profiled_step_row8_ms": share("rowptr_kernel"),
+            "profiled_step_sort_ms": share("sort", "Sort", "searchsorted", "radix"),
+            "profiled_step_busy_share": epoch["device_busy_share"]}
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=str(HERE), help="the checkout whose kernels run")
     parser.add_argument("--define", action="append", default=[], help=f"NAME=VALUE in csrc/{SOURCE}")
     parser.add_argument("--stages", action="store_true", help="stamp the packed kernel's phases (kStages = 1)")
+    parser.add_argument("--e2e", action="store_true", help="also time warm epochs of the recipe and impl: csr")
     args = parser.parse_args()
     with tempfile.TemporaryDirectory(prefix="time_csr_segment_") as tmp:
         root = Path(args.root).resolve()
@@ -166,9 +290,22 @@ def run(args, root: Path, tmp: Path) -> None:
         if row == 9:  # as chip_smoke.py's time phase once called it: no dst, no mask
             record["ms_without_dst_and_mask"] = smoke.time_ms(
                 lambda: csr_segment.csr_segment_sum_packed(x["data"], x["perm"], x["packed_dst"], V))["device"]
+        if row == 8:  # the padding sink's run cut (row pointers clipped at the last real edge)
+            cut = {**x, "row_ptr": torch.clamp(x["row_ptr"], max=n_real)}
+            record["longest_run"] = int(torch.diff(x["row_ptr"]).max())
+            record["ms_without_sink"] = smoke.time_ms(lambda: kernel(cut, V))["device"]
+            if args.stages and hasattr(lib, "csr_segment_rowptr_stamps_read"):
+                record["stages_us"] = {"with_sink": rowptr_stamps(lib, lambda: kernel(x, V), 4096),
+                                       "without_sink": rowptr_stamps(lib, lambda: kernel(cut, V), 4096)}
         if args.stages and row == 9:
             record["stages_us"] = stage_stamps(lib, lambda: kernel(x, V))
         print(json.dumps(record), flush=True)
+    main_G = next(iter(smoke.DataLoader(ds, batch_size=smoke.BATCH)))["inputs.G"]
+    for name, (data, ids, n) in smoke.glue_inputs(main_G, d, smoke.SEED + 7).items():
+        print(json.dumps({**tag, **path_shape(smoke, csr_segment, name, data, ids, n)}), flush=True)
+    if args.e2e:
+        for name, model in (("recipe", dict(smoke.MODEL_CFG)), ("impl_csr", {**smoke.MODEL_CFG, "impl": "csr"})):
+            print(json.dumps({**tag, **warm_epoch(smoke, tmp, name, model)}), flush=True)
     # a launch that only writes what rows 8-9 write, timed the same way: the
     # floor a kernel of this output pays in a graph of 20 calls
     print(json.dumps({**tag, "fill_ms": smoke.time_ms(lambda: torch.zeros(V, d, device="cuda"))["device"],

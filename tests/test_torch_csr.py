@@ -10,7 +10,10 @@ drops the edges past them; the port sums exactly, so the two agree on the
 tiles inside that bound and differ on a tile past it. The segment ops
 (``index_add``/``scatter_reduce``) against ``jax.ops.segment_*``, with max
 and min gradients on inputs without ties (the two frameworks split a tied
-gradient differently).
+gradient differently). ``ops.segment_sum`` and ``ops.take``, through which
+every sum and gather of the port's glue goes, against ``jax.ops.segment_sum``
+and ``jnp.take``, and the order the card sums them in against ``index_add``'s
+bits.
 """
 
 import jax
@@ -28,6 +31,8 @@ from notorch_tpu_torch.kernels.csr_segment import (
     csr_segment_sum_packed_reference,
     csr_segment_sum_reference,
     pack_edges_by_tile,
+    segment_sum_in_order,
+    sorted_segments,
 )
 from notorch_tpu_torch.nn import ops
 from notorch_tpu_torch.transforms import MolToGraph, Pipeline, SmiToMol
@@ -232,3 +237,58 @@ def test_segment_softmax_matches_jax(masked, rng):
     got.backward(t(g))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), **TOL)
     np.testing.assert_allclose(x.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), **TOL)
+
+
+# -- segment_sum and take: every sum and gather of the port's glue -------------------------
+
+
+def _glue_case(case, d, rng):
+    """``(data, ids, num_segments)``: 1-D data at d = 1, else ``[E, d]``;
+    int64 ids over 40 segments of which segment 7 is empty, none at all
+    (E = 0), or over 64 segments with 3,000 of 3,100 ids on segment 5 (a
+    hub), in random order."""
+    if case == "empty_segment":
+        V, ids = 40, rng.choice(np.setdiff1d(np.arange(40), [7]), size=300)
+    elif case == "no_rows":
+        V, ids = 16, np.zeros(0, np.int64)
+    else:
+        V, ids = 64, rng.permutation(np.concatenate([np.full(3000, 5), rng.integers(0, 64, size=100)]))
+    shape = (len(ids),) if d == 1 else (len(ids), d)
+    return rng.standard_normal(shape).astype(np.float32), ids.astype(np.int64), V
+
+
+GLUE_CASES = ["empty_segment", "no_rows", "hub"]
+GLUE_WIDTHS = [1, 2, 3, 4, 96, 256]
+
+
+@pytest.mark.parametrize("case", GLUE_CASES)
+@pytest.mark.parametrize("d", GLUE_WIDTHS)
+def test_segment_sum_and_take_match_jax_with_the_index_add_bits(case, d, rng):
+    """``ops.segment_sum`` and ``ops.take`` on the CPU against
+    ``jax.ops.segment_sum`` and ``jnp.take``, values and gradients (against
+    ``jax.vjp``); the order the card sums in (the stable sort of the ids,
+    row 8's plain version over it) gives ``index_add``'s bits, and the
+    gather's gradient ``index_select``'s."""
+    data, ids, V = _glue_case(case, d, rng)
+    g_sum = rng.standard_normal((V,) + data.shape[1:]).astype(np.float32)
+    x = t(data).requires_grad_()
+    got = ops.segment_sum(x, t(ids), V)
+    got.backward(t(g_sum))
+    out, vjp = jax.vjp(lambda a: jax.ops.segment_sum(a, jnp.asarray(ids), V), jnp.asarray(data))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), **TOL)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(vjp(jnp.asarray(g_sum))[0]), **TOL)
+    index_add = torch.zeros_like(got).index_add(0, t(ids), t(data))
+    in_order = segment_sum_in_order(t(data), *sorted_segments(t(ids), V), V)
+    assert torch.equal(got, index_add) and torch.equal(in_order, index_add)
+
+    table = t(rng.standard_normal((V,) + data.shape[1:]).astype(np.float32)).requires_grad_()
+    g_take = t(rng.standard_normal(data.shape).astype(np.float32))
+    taken = ops.take(table, t(ids))
+    taken.backward(g_take)
+    out, vjp = jax.vjp(lambda a: jnp.take(a, jnp.asarray(ids), axis=0), jnp.asarray(table.detach().numpy()))
+    np.testing.assert_allclose(taken.detach().numpy(), np.asarray(out), **TOL)
+    np.testing.assert_allclose(table.grad.numpy(), np.asarray(vjp(g_take.numpy())[0]), **TOL)
+    plain = table.detach().clone().requires_grad_()
+    plain.index_select(0, t(ids)).backward(g_take)
+    assert torch.equal(table.grad, plain.grad)
+    assert torch.equal(table.grad, segment_sum_in_order(g_take, *sorted_segments(t(ids), V), V))

@@ -485,10 +485,11 @@ def test_cuda_csr_packed_gradient():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["molecules", "random"])
-@pytest.mark.parametrize("d", [256, 36])
+@pytest.mark.parametrize("d", [256, 36, 3, 1])
 def test_cuda_csr_rowptr_matches_plain_version(kind, d):
     """Row 8 on dst-sorted edges: a sorted flat batch (padding at the sink),
-    or random sorted ids with empty nodes and one node of 3,000 edges."""
+    or random sorted ids with empty nodes and one node of 3,000 edges; any
+    width (4-byte copies where d is not a multiple of 4)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     if kind == "molecules":
@@ -509,6 +510,78 @@ def test_cuda_csr_rowptr_matches_plain_version(kind, d):
     assert csr_segment_sum.launches == before + 2
     _hold_sum(out, csr_segment_sum_reference, data, row_ptr, V)
     assert torch.equal(out, again)
+
+
+def _glue_case(case, d, seed=0):
+    """``(data, ids, num_segments)`` on the card, as tests/test_torch_csr.py's
+    glue cases: 1-D data at d = 1, int64 ids over 40 segments with segment 7
+    empty, none (E = 0), or a hub of 3,000 of 3,100 ids."""
+    rng = np.random.default_rng(seed)
+    if case == "empty_segment":
+        V, ids = 40, rng.choice(np.setdiff1d(np.arange(40), [7]), size=300)
+    elif case == "no_rows":
+        V, ids = 16, np.zeros(0, np.int64)
+    else:
+        V, ids = 64, rng.permutation(np.concatenate([np.full(3000, 5), rng.integers(0, 64, size=100)]))
+    shape = (len(ids),) if d == 1 else (len(ids), d)
+    data = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+    return data, torch.from_numpy(ids.astype(np.int64)).cuda(), V
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["empty_segment", "no_rows", "hub"])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 96, 256])
+def test_cuda_segment_sum_and_take_give_the_cpu_bits(case, d):
+    """``ops.segment_sum`` and ``ops.take``'s backward on the card: one
+    launch of row 8 each, the bits of the CPU (``index_add`` and
+    ``index_select``'s backward), the same bits twice; the gradients of the
+    sum a gather."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from notorch_tpu_torch.nn import ops
+
+    data, ids, V = _glue_case(case, d)
+    x = data.clone().requires_grad_()
+    before = csr_segment_sum.launches
+    out, again = ops.segment_sum(x, ids, V), ops.segment_sum(data, ids, V)
+    g = torch.randn_like(out)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert csr_segment_sum.launches == before + 2
+    assert torch.equal(out, again)
+    assert torch.equal(out.cpu(), torch.zeros_like(out.cpu()).index_add(0, ids.cpu(), data.cpu()))
+    assert torch.equal(x.grad, g.index_select(0, ids))
+
+    table = torch.randn((V,) + tuple(data.shape[1:]), device="cuda").requires_grad_()
+    twice = []
+    for _ in range(2):
+        table.grad = None
+        ops.take(table, ids).backward(data)
+        twice.append(table.grad)
+    torch.cuda.synchronize()
+    assert csr_segment_sum.launches == before + 4
+    assert torch.equal(twice[0], twice[1])
+    plain = table.detach().cpu().requires_grad_()
+    plain.index_select(0, ids.cpu()).backward(data.cpu())
+    assert torch.equal(twice[0].cpu(), plain.grad)
+
+
+@pytest.mark.gpu
+def test_cuda_rowptr_takes_any_width_and_alignment_and_refuses_other_dtypes():
+    """Row 8 on a view that starts 4 bytes into its storage (4-byte copies)
+    gives the CPU plain version's bits; f64 data raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from notorch_tpu_torch.nn import ops
+
+    data, ids, V = _glue_case("hub", 64)
+    shifted = torch.zeros(data.numel() + 1, device="cuda")[1:].view_as(data)
+    shifted.copy_(data)
+    assert shifted.data_ptr() % 16
+    got = ops.segment_sum(shifted, ids, V)
+    assert torch.equal(got.cpu(), torch.zeros_like(got.cpu()).index_add(0, ids.cpu(), data.cpu()))
+    with pytest.raises(TypeError, match="float32"):
+        ops.segment_sum(data.double(), ids, V)
 
 
 @pytest.mark.gpu
