@@ -51,6 +51,16 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
   epoch) as shipped, on their bins of 256 edge lanes and 128 node slots, no
   kernel of the port on their paths (nor of the JAX package on its), card
   against CPU, then served;
+- train/serve classification: ``configs/dmpnn_multitask_classification.
+  yaml`` as shipped (12 masked BCE tasks, the scaffold split, Adam at 1e-3,
+  the recipe's block: rows 2 and 3 on every step, row 1 on every evaluated
+  batch) on 1,024 lipo molecules with 12 structural labels, a fifth
+  missing, for 2 epochs, card against CPU epoch by epoch (losses, val AUROC
+  and AUPRC), a warm epoch timed and profiled, then its checkpoint served
+  (12 probabilities a molecule);
+- task heads: one train step of each other head (multiclass with 3
+  classes, mve, evidential, dirichlet) at full width on the first packed
+  lipo batch, card against CPU from the same weights;
 - GVP kernels: the fused GVP message convolution's forward and recompute
   backward (rows 14-15) against their plain versions at the GVP model's
   first training batch, clouds with empty neighbourhoods and padding rows,
@@ -66,12 +76,13 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
 - train/serve GVP recipe: ``kind: spatial, backbone: gvp`` (its conv the
   plain tensor ops, no kernel of the port but row 8 in its glue), one epoch,
   card against CPU, then served;
-- repeat: the six paths' models (the recipe, its declarative twin,
+- repeat: the seven paths' models (the recipe, its declarative twin,
   ``impl: csr``, the declarative graph transformer, the declarative GVP
-  model and the GVP recipe) each take 3 training steps twice from the same
-  weights, and every parameter and Adam state tensor must have the same
-  bits: every sum of the glue is fixed-order (``nn/ops.py`` ``segment_sum``
-  and ``take`` through row 8);
+  model, the GVP recipe and the classification model, whose masked BCE
+  runs over NaN-filled targets) each take 3 training steps twice from the
+  same weights, and every parameter and Adam state tensor must have the
+  same bits: every sum of the glue is fixed-order (``nn/ops.py``
+  ``segment_sum`` and ``take`` through row 8);
 - train attention calm: the calm attention recipe (hidden 32, Adam at
   1e-4) whole-run, card against CPU at ATTENTION_CALM_RTOL.
 
@@ -100,6 +111,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from notorch_tpu_torch.chem.smiles import parse_smiles
 from notorch_tpu_torch.cli.predict import run_predict
 from notorch_tpu_torch.cli.train import (
     build_dataset,
@@ -305,7 +317,7 @@ GVP_RUN_RTOL = 1e-3
 # kernels
 ROW8_LAUNCHES = {"recipe": (6, 3), "declarative": (2, 0), "impl_csr": (11, 2), "declarative_attention": (2, 0),
                  "flat": (17, 2), "graph_transformer": (4, 2), "gat": (4, 2), "declarative_gvp": (3, 2),
-                 "gvp_recipe": (8, 2)}
+                 "gvp_recipe": (8, 2), "classification": (6, 3)}
 # the forward's stages in a profile (rows 1, 2 and 5, and row 4's replay):
 # fragments of its kernels' names (csrc/dense_mpnn.cu: the operator's bit
 # rows and the encoder's gathered h0 once a call, then a layer's product
@@ -322,6 +334,21 @@ GVP_STAGES = {
                          "fwd_layer_gemm<2,", "fwd_mean_"),
     fused_gvp_conv_bwd: ("sweep_", "node_grad_", "wgrad_"),
 }
+# configs/dmpnn_multitask_classification.yaml written out (the Tox21 shape: 12
+# BCE tasks with missing labels, the scaffold split; tests/test_torch_task_
+# models.py holds these to the file), trained on TRAIN_MOLS lipo molecules
+# with the 12 labels of structural_labels, a fifth missing
+CLASSIFICATION_COLUMNS = ["NR-AR", "NR-AR-LBD", "NR-AhR", "NR-Aromatase", "NR-ER", "NR-ER-LBD", "NR-PPAR-gamma",
+                          "SR-ARE", "SR-ATAD5", "SR-HSE", "SR-MMP", "SR-p53"]
+CLASSIFICATION_MODEL_CFG = {"kind": "dmpnn", "task": "classification", "num_tasks": 12, "hidden_dim": 256,
+                            "depth": 3, "aggregation": "mean"}
+CLASSIFICATION_OPTIMIZER_CFG = {"name": "adam", "lr": 1.0e-3}
+CLASSIFICATION_SPLIT = {"kind": "scaffold", "fractions": [0.8, 0.1, 0.1], "seed": 0}
+# the other heads' lockstep step (task_heads): the task types, each with one
+# task on the lipo column (mve, evidential) or on its tertile (multiclass and
+# dirichlet, 3 classes)
+HEAD_TASKS = ("multiclass", "mve", "evidential", "dirichlet")
+HEAD_CLASSES = 3
 
 
 def declarative_model_cfg(d: int = 256, depth: int = 3) -> dict:
@@ -459,6 +486,59 @@ def lipo_rows_csv(path: Path, lo: int, hi: int) -> Path:
     with open(path, "w", newline="") as f:
         csv.writer(f).writerows([rows[0], *rows[1 + lo: 1 + hi]])
     return path
+
+
+def structural_labels(smiles: list[str], rng: np.random.Generator) -> np.ndarray:
+    """12 binary labels that the structure decides (so that a model can
+    learn them), a fifth of them missing (NaN, drawn from ``rng``): the
+    labels of tests/test_multitask_classification.py, on the port's own
+    SMILES parser."""
+    rows = []
+    for smi in smiles:
+        m = parse_smiles(smi)
+        n_atoms = m.GetNumAtoms()
+        syms = [a.GetSymbol() for a in m.atoms]
+        arom = sum(a.GetIsAromatic() for a in m.atoms)
+        rows.append([float(x) for x in (
+            "N" in syms, "O" in syms, "S" in syms, ("Cl" in syms) or ("Br" in syms) or ("F" in syms),
+            arom > 0, arom >= 6, n_atoms > 20, n_atoms > 30,
+            any(b.bond_type.name == "DOUBLE" for b in m.bonds), any(b.bond_type.name == "TRIPLE" for b in m.bonds),
+            sum(a.formal_charge != 0 for a in m.atoms) > 0, m.GetNumBonds() > n_atoms)])
+    labels = np.asarray(rows, dtype=np.float32)
+    labels[rng.random(labels.shape) < 0.2] = np.nan
+    return labels
+
+
+def classification_csv(directory: Path, n: int) -> Path:
+    """The first ``n`` lipo molecules with structural_labels (seeded by
+    SEED) under CLASSIFICATION_COLUMNS, a missing label an empty cell."""
+    path = directory / f"classification_head{n}.csv"
+    with open(ROOT / "tests" / "data" / "lipo.csv", newline="") as f:
+        smiles = [row["smiles"] for row in csv.DictReader(f)][:n]
+    labels = structural_labels(smiles, np.random.default_rng(SEED))
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["smiles", *CLASSIFICATION_COLUMNS])
+        for smi, row in zip(smiles, labels):
+            writer.writerow([smi, *("" if np.isnan(v) else int(v) for v in row)])
+    return path
+
+
+def classification_config(csv_path: Path, checkpoint_dir: Path | None, model: dict | None = None) -> dict:
+    """configs/dmpnn_multitask_classification.yaml as a dict on
+    ``csv_path`` for ``TRAIN_EPOCHS`` epochs; ``model`` replaces its model
+    section."""
+    trainer = {"epochs": TRAIN_EPOCHS, "batch_size": BATCH, "seed": SEED}
+    if checkpoint_dir is not None:
+        trainer["checkpoint_dir"] = str(checkpoint_dir)
+    return {
+        "data": {"csv": str(csv_path), "smiles_col": "smiles",
+                 "targets": {"y": {"columns": list(CLASSIFICATION_COLUMNS), "task": "classification"}},
+                 "split": dict(CLASSIFICATION_SPLIT)},
+        "model": dict(CLASSIFICATION_MODEL_CFG) if model is None else model,
+        "optimizer": dict(CLASSIFICATION_OPTIMIZER_CFG),
+        "trainer": trainer,
+    }
 
 
 def calm_attention_csvs(directory: Path) -> tuple[Path, Path]:
@@ -1155,15 +1235,23 @@ def train_flat_phase(tmp: Path) -> tuple[dict[str, int], Path]:
     return counts, card_ckpt
 
 
-def serve_checkpoint_phase(tmp: Path, ckpt: Path, phase: str, expect: dict[str, int]) -> dict[str, int]:
+def serve_checkpoint_phase(tmp: Path, ckpt: Path, phase: str, expect: dict[str, int],
+                           columns: tuple[str, ...] = ("lipo",), probabilities: bool = False) -> dict[str, int]:
     """run_predict of a checkpoint on N_MOLS molecules, on the card against
-    the CPU; cold and warm request time and the busy share of a warm
-    request. Fails unless the request launched exactly ``expect`` (every
-    other kernel 0). Returns the request's launches."""
+    the CPU: the prediction ``columns``, each within RTOL/ATOL of the CPU's
+    and finite (and in [0, 1] for ``probabilities``); cold and warm request
+    time and the busy share of a warm request. Fails unless the request
+    launched exactly ``expect`` (every other kernel 0). Returns the
+    request's launches."""
     csv_path = lipo_csv(tmp, N_MOLS)
+
+    def served(device=None) -> np.ndarray:
+        out = run_predict(ckpt, csv_path, batch_size=BATCH, device=device)
+        return np.stack([out[c] for c in columns], axis=1)
+
     reset_launches()
     t0 = time.perf_counter()
-    gpu = run_predict(ckpt, csv_path, batch_size=BATCH)["lipo"]
+    gpu = served()
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     counts = launches()
@@ -1174,15 +1262,123 @@ def serve_checkpoint_phase(tmp: Path, ckpt: Path, phase: str, expect: dict[str, 
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     profiled = profile_busy(lambda: run_predict(ckpt, csv_path, batch_size=BATCH))
-    cpu = run_predict(ckpt, csv_path, batch_size=BATCH, device="cpu")["lipo"]
+    cpu = served("cpu")
     err = np.abs(gpu - cpu)
-    ok = gpu.shape == (N_MOLS,) and bool(np.isfinite(gpu).all()) and bool((err <= ATOL + RTOL * np.abs(cpu)).all())
-    emit(phase=phase, molecules=N_MOLS, kernel_launches=counts, request_s_cold=cold_s,
+    ok = (gpu.shape == (N_MOLS, len(columns)) and bool(np.isfinite(gpu).all())
+          and bool((err <= ATOL + RTOL * np.abs(cpu)).all())
+          and (not probabilities or bool(((gpu >= 0) & (gpu <= 1)).all())))
+    emit(phase=phase, molecules=N_MOLS, columns=len(columns), kernel_launches=counts, request_s_cold=cold_s,
          request_s_warm=warm_s, profile=profiled, max_abs_err_vs_cpu=float(err.max()),
-         pred_mean=float(gpu.mean()), pred_std=float(gpu.std()), ok=ok)
+         pred_mean=float(gpu.mean()), pred_std=float(gpu.std()),
+         pred_range=[float(gpu.min()), float(gpu.max())], ok=ok)
     if not ok:
-        fail(f"{phase}: the card's predictions disagree with the CPU or are not finite")
+        fail(f"{phase}: the card's predictions disagree with the CPU, are not finite or leave their range")
     return counts
+
+
+def train_classification_phase(tmp: Path) -> tuple[dict[str, int], Path]:
+    """run(cfg) of the multitask classification config (12 masked BCE
+    tasks, the scaffold split, AUROC and AUPRC on the host) on the card and
+    on the CPU from the same initial weights, compared epoch by epoch at
+    TRAIN_RTOL (losses, val AUROC and AUPRC, and the test metrics); then a
+    warm epoch on the card on the host's clock and profiled. Fails unless
+    the run launched rows 2 and 3 on every step, row 1 on every evaluated
+    batch and row 8 in the recipe's glue, and nothing else. Returns the
+    launches and the card's checkpoint."""
+    depth = CLASSIFICATION_MODEL_CFG["depth"]
+    csv_path = classification_csv(tmp, TRAIN_MOLS)
+    card_ckpt = tmp / "classification_card"
+    reset_launches()
+    t0 = time.perf_counter()
+    card = run(classification_config(csv_path, card_ckpt))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launches()
+    steps = Checkpointer(card_ckpt).latest_step()
+    if not steps:
+        fail(f"train_classification: the card's run wrote no checkpoint in {card_ckpt}")
+    evaluated = counts["fused_dense_mpnn_block"] // depth
+    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_mpnn_block": depth * evaluated,
+              "fused_dense_mpnn_block_stash": depth * steps, "fused_dense_mpnn_block_bwd_stash": steps,
+              "csr_segment_sum": glue_launches("classification", steps, evaluated)}
+    if counts != expect or evaluated == 0:
+        fail(f"train_classification: {steps} steps launched {counts}; expected {expect}, the forward kernel "
+             "for evaluation")
+    t0 = time.perf_counter()
+    cpu = run(classification_config(csv_path, tmp / "classification_cpu"), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for key in ("val/y_auroc", "val/y_auprc"):
+        if not all(np.isfinite(h[key]) for h in card["history"]):
+            fail(f"train_classification: {key} is not finite: {card['history']}")
+    diffs = compare_runs(card, cpu, "the classification run")
+
+    warm = prepare(classification_config(csv_path, None))
+    loader, n_steps = warm["train_loader"], len(warm["train_loader"])
+    fit(warm["model"], loader, epochs=1)  # fills the featurization cache
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit(warm["model"], loader, epochs=1)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    profiled = profile_busy(lambda: fit(warm["model"], loader, epochs=1))
+    emit(phase="train_classification", molecules=TRAIN_MOLS, epochs=TRAIN_EPOCHS, steps=steps,
+         split={k: len(warm[k]) for k in ("train", "val", "test")}, kernel_launches=counts, run_s_card=card_s,
+         run_s_cpu=cpu_s, warm_ms_per_step=warm_ms, device_busy_ms_per_step=profiled["device_busy_ms"] / n_steps,
+         profiled_ms_per_step=profiled["wall_ms"] / n_steps, profile=profiled,
+         history_card=card["history"], history_cpu=cpu["history"], test_card=card["test"], test_cpu=cpu["test"],
+         rel_diff_vs_cpu=diffs, rel_tol=TRAIN_RTOL)
+    return counts, card_ckpt
+
+
+def task_heads_phase(tmp: Path) -> dict[str, int]:
+    """One train step of each head of HEAD_TASKS (the recipe at full width,
+    one task) on the first packed batch of N_MOLS lipo molecules, on the
+    card and on the CPU from the same weights: the loss within RTOL relative
+    and every gradient within ATOL times its largest magnitude plus RTOL
+    (``held``). Fails unless each step launched rows 2 and 3 and row 8's
+    glue and nothing else. Returns the launches of the four steps."""
+    depth = MODEL_CFG["depth"]
+    path = tmp / "task_heads.csv"
+    with open(ROOT / "tests" / "data" / "lipo.csv", newline="") as f:
+        rows = list(csv.DictReader(f))[:N_MOLS]
+    cuts = np.quantile([float(r["lipo"]) for r in rows], [1 / 3, 2 / 3])
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["smiles", "lipo", "lipo_class"])
+        for r in rows:
+            writer.writerow([r["smiles"], r["lipo"], int(np.searchsorted(cuts, float(r["lipo"])))])
+    records, total = [], {fn.__name__: 0 for fn in KERNELS}
+    for task in HEAD_TASKS:
+        column = "lipo_class" if task in ("multiclass", "dirichlet") else "lipo"
+        ds = build_dataset({"csv": str(path), "targets": {"y": {"columns": [column], "task": task}}})
+        batch = next(iter(DataLoader(ds, batch_size=BATCH)))
+        transforms = ds.build_task_transform_configs()
+        kw = {k: v for k, v in MODEL_CFG.items() if k != "kind"}
+        models = [build_dmpnn(task=task, num_classes=HEAD_CLASSES, transforms=transforms, layout="dense_packed",
+                              generator=torch.Generator().manual_seed(SEED), optimizer=OptimizerSpec("adam", 1e-3),
+                              **kw).to(device) for device in ("cuda", "cpu")]
+        reset_launches()
+        logs = [m.train_step(to_device(batch, m.device)) for m in models]
+        torch.cuda.synchronize()
+        counts = launches()
+        expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_mpnn_block_stash": depth,
+                  "fused_dense_mpnn_block_bwd_stash": 1, "csr_segment_sum": glue_launches("recipe", 1, 0)}
+        if counts != expect:
+            fail(f"task_heads {task}: the card's step launched {counts}; expected {expect}")
+        total = {k: total[k] + v for k, v in counts.items()}
+        card_loss, cpu_loss = (float(x["train/loss"]) for x in logs)
+        loss_diff = rel_diff(card_loss, cpu_loss)
+        if not (np.isfinite(card_loss) and loss_diff <= RTOL):
+            fail(f"task_heads {task}: the step's loss {card_loss} on the card, {cpu_loss} on the CPU")
+        cpu_grads = dict(models[1].network.named_parameters())
+        grad_err = max(held(f"task_heads {task} gradient {name}", p.grad.cpu(), cpu_grads[name].grad, True)
+                       for name, p in models[0].network.named_parameters())
+        records.append({"task": task, "head": list(models[0].network["ffn"].unflatten or ()),
+                        "loss_card": card_loss, "loss_cpu": cpu_loss, "loss_rel_diff": loss_diff,
+                        "max_grad_abs_err": grad_err, "kernel_launches": counts})
+    emit(phase="task_heads", rtol=RTOL, atol=ATOL, grad_atol="ATOL x the largest |value| of each gradient",
+         heads=records)
+    return total
 
 
 def train_declarative_flat_phase(tmp: Path) -> Path:
@@ -1786,14 +1982,16 @@ def serve_gvp_phase(ckpt: Path, cfg: dict, batches: list[dict], phase: str, expe
 # train steps on its first training batches twice from the same weights, and
 # every parameter and every Adam state tensor must come out with the same bits
 REPEAT_STEPS, REPEAT_MOLS = 3, 256
-REPEAT_PATHS = ("recipe", "declarative", "impl_csr", "declarative_attention", "declarative_gvp", "gvp_recipe")
+REPEAT_PATHS = ("recipe", "declarative", "impl_csr", "declarative_attention", "declarative_gvp", "gvp_recipe",
+                "classification")
 
 
 def repeat_model_cfg(path: str, d: int) -> dict:
     """The model section of a repeat path at hidden width ``d`` (the GVP
     vectors ``d // 8`` wide, as the JAX package's defaults make them): the
-    REPEAT_PATHS, and the flat paths ``flat`` (configs/declarative_example.
-    yaml's model) and ``flat_gat`` (the GAT recipe on the flat layout)."""
+    REPEAT_PATHS (``classification``: the multitask classification config's
+    model), and the flat paths ``flat`` (configs/declarative_example.yaml's
+    model) and ``flat_gat`` (the GAT recipe on the flat layout)."""
     depth, heads = MODEL_CFG["depth"], GT_CFG["num_heads"]
     return {"recipe": {**MODEL_CFG, "hidden_dim": d},
             "declarative": declarative_model_cfg(d, depth),
@@ -1801,6 +1999,7 @@ def repeat_model_cfg(path: str, d: int) -> dict:
             "declarative_attention": declarative_attention_model_cfg(d, depth, heads),
             "declarative_gvp": declarative_gvp_model_cfg(d, d // 8),
             "gvp_recipe": {**GVP_RECIPE, "hidden_dim": d},
+            "classification": {**CLASSIFICATION_MODEL_CFG, "hidden_dim": d},
             "flat": declarative_flat_model_cfg(d),
             "flat_gat": {**GAT_CFG, "hidden_dim": d, "layout": "flat"}}[path]
 
@@ -1808,9 +2007,11 @@ def repeat_model_cfg(path: str, d: int) -> dict:
 def repeat_run(path: str, tmp: Path, device: str, d: int = 256, batch: int = BATCH,
                steps: int = REPEAT_STEPS) -> dict:
     """``steps`` train steps of ``path``'s model (weights from SEED; Adam
-    with the Noam schedule of OPTIMIZER_CFG, the GVP models Adam at GVP_LR)
-    on its first training batches of ``batch`` (lipo molecules in the order
-    the training loader shuffles them, or synthetic clouds), taken twice from
+    with the Noam schedule of OPTIMIZER_CFG, the GVP models Adam at GVP_LR,
+    the classification model its config's Adam at 1e-3) on its first
+    training batches of ``batch`` (lipo molecules in the order the training
+    loader shuffles them, with the classification config's labels and
+    scaffold split for that path, or synthetic clouds), taken twice from
     the same weights on ``device``. Returns the names of the parameters and
     Adam state tensors whose bits differ between the two (none where the path
     repeats bit for bit)."""
@@ -1820,7 +2021,8 @@ def repeat_run(path: str, tmp: Path, device: str, d: int = 256, batch: int = BAT
         batches = cloud_batches(clouds, coordination_targets(clouds), batch_size=batch)[:steps]
         make, first = (lambda: gvp_model(cfg, device)), gvp_model(cfg, device)
     else:
-        run_cfg = train_config(lipo_csv(tmp, REPEAT_MOLS), None, cfg)
+        run_cfg = (classification_config(classification_csv(tmp, REPEAT_MOLS), None, cfg) if path == "classification"
+                   else train_config(lipo_csv(tmp, REPEAT_MOLS), None, cfg))
         run_cfg["trainer"]["batch_size"] = batch
         built = prepare(run_cfg, device)
         batches = [b for _, b in zip(range(steps), built["train_loader"])]
@@ -1829,7 +2031,7 @@ def repeat_run(path: str, tmp: Path, device: str, d: int = 256, batch: int = BAT
 
         def make():
             return build_model(model_cfg, transforms, generator=torch.Generator().manual_seed(SEED),
-                               optimizer=build_optimizer(OPTIMIZER_CFG)).to(device)
+                               optimizer=build_optimizer(run_cfg["optimizer"])).to(device)
 
     weights = {k: v.clone() for k, v in first.network.state_dict().items()}
     second = make()
@@ -2013,6 +2215,16 @@ def main() -> None:
                                {"csr_segment_sum": glue_launches("graph_transformer", 0, len(gt_batches))})
         serve_checkpoint_phase(tmp, train_run_phase(tmp, "train_gat", dict(GAT_CFG), 1, glue_only("gat"))[1],
                                "serve_gat", {"csr_segment_sum": glue_launches("gat", 0, len(gt_batches))})
+
+        # the multitask classification config (rows 1-3 and row 8's glue),
+        # its checkpoint served, and one step of each other head
+        classification_ckpt = train_classification_phase(tmp)[1]
+        serve_checkpoint_phase(
+            tmp, classification_ckpt, "serve_classification",
+            {"fused_dense_mpnn_block": depth * len(batches),
+             "csr_segment_sum": glue_launches("classification", 0, len(batches))},
+            columns=tuple(CLASSIFICATION_COLUMNS), probabilities=True)
+        task_heads_phase(tmp)
 
         # rows 14-15 against their plain versions, then the GVP model both ways
         gvp_train, gvp_val = gvp_data()

@@ -6,8 +6,12 @@ Rebuilds the model from the ``predict_meta.json`` beside the checkpoints
 ``modules`` one, data config, task transforms baked from training-split
 statistics), restores a
 port checkpoint (:mod:`notorch_tpu_torch.training.checkpoint`), runs the
-model over a CSV of molecules on the card, and writes denormalized
-predictions aligned row for row with the input.
+model over a CSV of molecules on the card, and writes its predictions
+aligned row for row with the input, through the task's transform: data
+units for regression, probabilities for classification, multiclass and
+dirichlet. A head of ``k`` outputs a task gives ``t * k`` columns, named
+``pred_<i>`` as in the JAX package; otherwise the columns are the training
+target names.
 
 Usage::
 

@@ -4,8 +4,8 @@ Port of ``notorch_tpu.cli.registry``: every module, loss, metric, transform
 and optimizer the port has is constructible by name from a YAML/JSON config
 (``{"class": name, "args": {...}}``, nested ``{"class": ...}`` args built
 first), under the JAX package's names. ``MetricMAE`` is the metric and
-``MAE`` the loss, as there. ``adam`` and ``adamw`` build the port's
-:class:`~notorch_tpu_torch.training.optim.OptimizerSpec`.
+``MAE`` the loss, as there. ``adam``, ``adamw`` and ``sgd`` build the
+port's :class:`~notorch_tpu_torch.training.optim.OptimizerSpec`.
 
 Every other name the JAX registry knows raises ``NotImplementedError``
 naming the slice of the port it comes with (``ROADMAP.md`` queue A), not
@@ -28,7 +28,8 @@ from typing import Any, Callable
 REGISTRY: dict[str, Callable] = {}
 TRUSTED_MODULES_ENV = "NOTORCH_TPU_TORCH_TRUSTED_MODULES"
 
-_FAMILIES = "the slice of the other model families and task types"
+_FINGERPRINT = "the fingerprint slice (chem/fingerprint.py, transforms/mol.py; ROADMAP.md queue A item 3)"
+_REACTION = "the reaction slice (transforms/reaction.py; ROADMAP.md queue A item 3)"
 _SPATIAL = "the rest of the spatial slice (SchNet, PaiNN, SDF point clouds)"
 _MOE = "the MoE and glue slice"
 # every other name of notorch_tpu.cli.registry, with the slice that ports it
@@ -37,11 +38,8 @@ LATER: dict[str, str] = {
     **dict.fromkeys(["MixtureOfExperts", "MoEMLP", "DenseRouter", "SparseRouter", "Add", "Mul",
                      "Cat", "Split", "MatMul", "Einsum", "Identity", "BatchNorm", "Residual"],
                     _MOE),
-    **dict.fromkeys(["MolToFP", "RxnToGraph", "BoundedMSE", "BoundedMAE",
-                     "MeanVarianceEstimation", "MVE", "Evidential", "BinaryCrossEntropy", "BCE",
-                     "CrossEntropy", "XENT", "Dirichlet", "RankNContrastLoss",
-                     "SelfSupervisedLoss", "R2", "Accuracy", "AUROC", "AUPRC", "F1", "sgd"],
-                    _FAMILIES),
+    "MolToFP": _FINGERPRINT,
+    "RxnToGraph": _REACTION,
 }
 
 _ALLOW_IMPORTS = False
@@ -173,13 +171,17 @@ def _populate() -> None:
     register("SpatialMean", spatial_agg.Mean)
     register("SpatialMax", spatial_agg.Max)
     register("SpatialGated", spatial_agg.Gated)
-    register("MSE", losses.MSE)
-    register("MAE", losses.MAE)
-    register("RMSE", metrics.RMSE)
+    for name in ["MSE", "MAE", "BoundedMSE", "BoundedMAE", "MeanVarianceEstimation", "MVE", "Evidential",
+                 "BinaryCrossEntropy", "BCE", "CrossEntropy", "XENT", "Dirichlet", "RankNContrastLoss",
+                 "SelfSupervisedLoss"]:
+        register(name, getattr(losses, name))
+    for name in ["RMSE", "R2", "Accuracy", "AUROC", "AUPRC", "F1"]:
+        register(name, getattr(metrics, name))
     register("MetricMAE", metrics.MAE)
     # called with the rate, as optax.adam(lr) is in the JAX package
     register("adam", functools.partial(OptimizerSpec, "adam"))
     register("adamw", functools.partial(OptimizerSpec, "adamw"))
+    register("sgd", functools.partial(OptimizerSpec, "sgd"))
 
 
 _populate()

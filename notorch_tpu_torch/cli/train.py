@@ -3,9 +3,11 @@
 Port of ``notorch_tpu.cli.train`` for supervised ``model.kind: dmpnn``,
 ``gat`` and ``graph_transformer`` configs and declarative ``model.modules``
 configs (modules, losses and metrics built by name through
-:mod:`notorch_tpu_torch.cli.registry`): the same YAML/JSON configs with
-dotted-key overrides, the default SMILES pipeline, a random
-``data.split``, target transforms from training-split statistics, the data
+:mod:`notorch_tpu_torch.cli.registry`), for every task type of
+``data.targets.*.task``: the same YAML/JSON configs with dotted-key
+overrides, the default SMILES pipeline, a random or scaffold
+``data.split``, target transforms from training-split statistics, AUROC
+and AUPRC on the host for every classification target, the data
 layout from ``model.layout`` (``dense_packed``, with the attention kinds'
 bins of 256 edge lanes and 128 node slots; the per-molecule ``dense`` for
 ``dense*`` layouts, whose train loader sorts by size; ``flat`` otherwise,
@@ -16,8 +18,8 @@ the Noam schedule and ``clip_norm``, and the trainer's ``epochs``,
 ``checkpoint_every``, ``max_to_keep``, ``best_by``/``best_mode``,
 ``early_stopping`` and ``predictions_csv``. The checkpoint directory it
 writes is what ``python -m notorch_tpu_torch predict`` serves. The other
-model kinds, pretraining, ``trainer.spmd``, scaffold splits and the
-``${csv:...}`` resolvers raise ``NotImplementedError``. Tables are read
+model kinds, pretraining, ``trainer.spmd``, configurable transforms and
+the ``${csv:...}`` resolvers raise ``NotImplementedError``. Tables are read
 with the standard ``csv`` module; ``yaml`` is imported only to read YAML.
 
 Usage::
@@ -42,7 +44,7 @@ from notorch_tpu_torch.utils import resolve_device
 
 
 # the JAX package's other model kinds, with the slice of the port that brings each
-LATER_KINDS = {"multicomponent": "the slice of the other model families and task types"}
+LATER_KINDS = {"multicomponent": "the multicomponent slice (models/multicomponent.py; ROADMAP.md queue A item 3)"}
 
 
 def load_config(path: str | Path) -> dict:
@@ -94,7 +96,8 @@ def build_dataset(cfg: dict) -> MolecularDataset:
         if "transform" in tcfg:
             raise NotImplementedError(
                 f"data.transforms.{name}.transform: configurable transforms are not "
-                "ported yet; the port featurizes with the default SMILES pipeline"
+                "ported yet; the port featurizes with the default SMILES pipeline. They come with "
+                "the fingerprint slice (ROADMAP.md queue A item 3)"
             )
         transforms[name] = TransformManager(
             Pipeline(SmiToMol(), MolToGraph()), in_key=tcfg.get("in_key"), out_key=tcfg.get("out_key")
@@ -125,7 +128,8 @@ def build_optimizer(cfg: dict | None) -> OptimizerSpec:
     if isinstance(schedule, dict):
         if set(schedule) != {"noam"}:
             raise NotImplementedError(
-                f"optimizer schedule {sorted(schedule)} is not ported yet; the port has noam"
+                f"optimizer schedule {sorted(schedule)} is not ported yet; the port has noam. The others "
+                "come with the utilities slice (ROADMAP.md queue A item 8)"
             )
         lr = noam_like_schedule(**schedule["noam"])
     spec = resolve(cfg.get("name", "adam"))(lr)
@@ -301,6 +305,8 @@ def refuse_point_clouds(model_cfg: dict) -> None:
 
 
 def _refuse_unported(cfg: dict) -> None:
+    from notorch_tpu_torch.nn.chemprop import PARALLEL_SLICE
+
     def walk(node, path):
         if isinstance(node, dict):
             for k, v in node.items():
@@ -310,25 +316,40 @@ def _refuse_unported(cfg: dict) -> None:
                 walk(v, f"{path}[{i}]")
         elif isinstance(node, str) and node.startswith("${"):
             raise NotImplementedError(
-                f"{path}: the ${{csv:...}}/${{parquet:...}}/${{len:...}} resolvers are not ported yet"
+                f"{path}: the ${{csv:...}}/${{parquet:...}}/${{len:...}} resolvers are not ported yet: "
+                "they come with the utilities slice (ROADMAP.md queue A item 8)"
             )
 
     walk(cfg, "")
     model_cfg = cfg.get("model", {})
     refuse_point_clouds(model_cfg)
     if model_cfg.get("kind") == "pretrain":
-        raise NotImplementedError("model.kind: pretrain (masked-atom pretraining) is not ported yet")
+        raise NotImplementedError("model.kind: pretrain (masked-atom pretraining) is not ported yet: it comes "
+                                  "with the pretraining slice (ROADMAP.md queue A item 3)")
     if cfg.get("trainer", {}).get("spmd"):
-        raise NotImplementedError("trainer.spmd (sharded training) is not ported yet")
-    split = cfg.get("data", {}).get("split") or {}
-    if split.get("kind", "random") != "random":
-        raise NotImplementedError(f"data.split.kind {split['kind']!r} is not ported yet; only random is")
+        raise NotImplementedError(f"trainer.spmd (sharded training) is not ported yet: it comes with {PARALLEL_SLICE}")
+
+
+def classification_host_metrics(ds, pred_key: str) -> dict | None:
+    """AUROC and AUPRC on the host (``<name>_auroc``, ``<name>_auprc``) for
+    every classification target group of ``ds``, as the JAX ``run`` adds
+    them; None when there is none."""
+    from notorch_tpu_torch.tasks.metrics import AUPRC, AUROC
+
+    host_metrics = {}
+    for name, spec in ds.targets.items():
+        if spec.task == "classification":
+            keys = {"preds": pred_key, "targets": f"targets.{name}", "mask": f"targets.{name}_mask"}
+            host_metrics[f"{name}_auroc"] = {"fn": AUROC(), "in_keys": keys}
+            host_metrics[f"{name}_auprc"] = {"fn": AUPRC(), "in_keys": keys}
+    return host_metrics or None
 
 
 def prepare(cfg: dict, device: str | torch.device | None = None) -> dict:
     """Everything a training run needs, built from ``cfg`` as the JAX
-    ``run`` builds it: the dataset and its split, the task transforms
-    from training-split statistics, the model initialised from
+    ``run`` builds it: the dataset and its split (random, or by scaffold),
+    the task transforms from training-split statistics, the host metrics
+    of the classification targets, the model initialised from
     ``torch.Generator().manual_seed(trainer.seed)`` on ``device``, and the
     train (shuffled by the seed), val and test loaders."""
     from notorch_tpu_torch.data.batching import DataLoader, Subset, random_split
@@ -342,8 +363,14 @@ def prepare(cfg: dict, device: str | torch.device | None = None) -> dict:
     split = cfg["data"].get("split")
     train, val, test = ds, None, None
     if split:
-        idxs = random_split(len(ds), tuple(split.get("fractions", (0.8, 0.1, 0.1))),
-                            seed=split.get("seed", 0))
+        fractions = tuple(split.get("fractions", (0.8, 0.1, 0.1)))
+        if split.get("kind") == "scaffold":
+            from notorch_tpu_torch.data.splits import scaffold_split
+
+            smiles_col = cfg["data"].get("smiles_col", "smiles")
+            idxs = scaffold_split([rec[smiles_col] for rec in ds.records], fractions, seed=split.get("seed", 0))
+        else:
+            idxs = random_split(len(ds), fractions, seed=split.get("seed", 0))
         train = Subset(ds, idxs[0])
         val = Subset(ds, idxs[1]) if len(idxs) > 1 and len(idxs[1]) else None
         test = Subset(ds, idxs[2]) if len(idxs) > 2 and len(idxs[2]) else None
@@ -371,6 +398,7 @@ def prepare(cfg: dict, device: str | torch.device | None = None) -> dict:
     return {
         "cfg": cfg, "ds": ds, "train": train, "val": val, "test": test,
         "transforms": transforms, "pred_key": pred_key, "model": model, "layout": layout,
+        "host_metrics": classification_host_metrics(ds, pred_key),
         "train_loader": loader(train, shuffle=True, seed=seed, sort_by_size=layout == "dense"),
         "val_loader": loader(val),
         "test_loader": loader(test),
@@ -409,6 +437,7 @@ def run(cfg: dict, device: str | torch.device | None = None) -> dict:
         run_["val_loader"],
         epochs=trainer_cfg.get("epochs", 1),
         log_fn=lambda r: print(json.dumps({k: _jsonable(v) for k, v in r.items()}), flush=True),
+        host_metrics=run_["host_metrics"],
         checkpointer=checkpointer,
         resume=trainer_cfg.get("resume", False),
         checkpoint_every=trainer_cfg.get("checkpoint_every", 0),
@@ -421,7 +450,7 @@ def run(cfg: dict, device: str | torch.device | None = None) -> dict:
         out["best_step"] = checkpointer.best_step()
         model.network.load_state_dict(checkpointer.restore(out["best_step"]))
     if run_["test_loader"] is not None:
-        out["test"] = evaluate(model, run_["test_loader"])
+        out["test"] = evaluate(model, run_["test_loader"], run_["host_metrics"])
         print(json.dumps({"test": {k: _jsonable(v) for k, v in out["test"].items()}}), flush=True)
 
     pred_csv = trainer_cfg.get("predictions_csv")

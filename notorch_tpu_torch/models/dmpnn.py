@@ -1,6 +1,7 @@
 """The D-MPNN property predictor: embed -> message passing -> readout -> FFN.
 
-Port of ``notorch_tpu.models.dmpnn`` for regression on three layouts:
+Port of ``notorch_tpu.models.dmpnn`` for every task type (regression,
+classification, multiclass, mve, evidential, dirichlet) on three layouts:
 
 - the bin-packed dense layout (``dense_packed``, what ``layout="auto"``
   resolves to by default) and the per-molecule ``dense_fused`` layout, whose
@@ -13,10 +14,14 @@ Port of ``notorch_tpu.models.dmpnn`` for regression on three layouts:
   (sum, mean or max; ``impl`` gather, segment or csr) and every readout of
   :mod:`notorch_tpu_torch.nn.agg`.
 
-The loss is the masked MSE and the default metrics RMSE and MAE, on the same
-keys as there. Every layout takes the five readouts (sum, mean, max, gated,
-sdp). The plain ``dense`` layout, graph-axis partitioning and other task
-types raise ``NotImplementedError`` until their slice is ported.
+The head is ``num_tasks`` wide, or ``(num_tasks, k)`` for the task types
+with ``k`` outputs a task (``_HEAD_WIDTH``; ``num_classes`` for multiclass
+and dirichlet); the loss is the task's (``_LOSSES``), named after the task
+(``mse`` for regression), and regression alone has the default metrics
+RMSE and MAE, on the same keys as there. Every layout takes the five
+readouts (sum, mean, max, gated, sdp) and keeps its kernels whatever the
+task. The plain ``dense`` layout and graph-axis partitioning raise
+``NotImplementedError`` until their slice is ported.
 """
 
 from __future__ import annotations
@@ -58,6 +63,39 @@ PACKED_READOUTS = {"sum": PackedSum, "mean": PackedMean, "max": PackedMax, "gate
 FLAT_READOUTS = {"sum": agg.Sum, "mean": agg.Mean, "max": agg.Max, "gated": agg.Gated,
                  "sdp": agg.SDPAttention}
 REDUCES = ("sum", "mean", "max")
+# outputs a task of each task type, where it is fixed (multiclass and
+# dirichlet take num_classes), and each task type's loss
+_HEAD_WIDTH = {"regression": 1, "classification": 1, "mve": 2, "evidential": 4}
+_LOSSES = {
+    "regression": L.MSE,
+    "classification": L.BinaryCrossEntropy,
+    "multiclass": L.CrossEntropy,
+    "mve": L.MeanVarianceEstimation,
+    "evidential": L.Evidential,
+    "dirichlet": L.Dirichlet,
+}
+
+
+def head_size(num_tasks: int, per_task: int) -> int | tuple[int, int]:
+    """The FFN's ``output_size``: ``num_tasks``, or ``(num_tasks,
+    per_task)`` for a head of several outputs a task."""
+    return num_tasks if per_task == 1 else (num_tasks, per_task)
+
+
+def task_losses(task: str, keys: dict) -> dict:
+    """The loss term of ``task`` on ``keys``, named after the task (``mse``
+    for regression), as the JAX recipes name it."""
+    if task not in _LOSSES:
+        raise ValueError(f"unknown task {task!r}; options: {list(_LOSSES)}")
+    return {task if task != "regression" else "mse": {"fn": _LOSSES[task](), "in_keys": keys, "weight": 1.0}}
+
+
+def regression_metrics(task: str, keys: dict) -> dict:
+    """The default metrics: ``rmse`` and ``mae`` for regression, none for
+    the other task types."""
+    if task != "regression":
+        return {}
+    return {"rmse": {"fn": M.RMSE(), "in_keys": keys}, "mae": {"fn": M.MAE(), "in_keys": keys}}
 
 
 def readout(readouts: dict, aggregation: str, hidden_dim: int):
@@ -100,6 +138,7 @@ def resolve_layout(
 def build_dmpnn(
     num_tasks: int = 1,
     task: str = "regression",
+    num_classes: int = 2,
     hidden_dim: int = DEFAULT_HIDDEN_DIM,
     depth: int = 3,
     dropout: float = 0.0,
@@ -120,8 +159,8 @@ def build_dmpnn(
 ) -> Model:
     """The canonical embed -> chemprop -> readout -> FFN predictor, with the
     same four modules (``embed``, ``mp``, ``readout``, ``ffn``) and keys as
-    the JAX package's, the loss ``mse`` and the metrics ``rmse`` and ``mae``
-    on ``targets.y`` and its mask. Parameters are drawn from ``generator``
+    the JAX package's, the task's loss on ``targets.y`` and its mask, and
+    for regression the metrics ``rmse`` and ``mae``. Parameters are drawn from ``generator``
     with flax's initializer families; the model is built on the CPU
     (``Model.to`` moves it). ``optimizer`` defaults to Adam at 1e-4.
 
@@ -144,7 +183,7 @@ def build_dmpnn(
     if layout not in LAYOUTS:
         raise NotImplementedError(
             f"layout {layout!r} is not ported yet; the port has {list(LAYOUTS)} "
-            "(the plain 'dense' block comes with a later slice)"
+            "(the plain 'dense' block comes with the plain dense slice, ROADMAP.md queue A item 5)"
         )
     require_f32(dtype, "D-MPNN")
     if layout == "dense_fused":
@@ -158,8 +197,6 @@ def build_dmpnn(
                 "the fused block implements reduce='sum' and 'mean' (both fold into its "
                 "linear edge operator); use layout='dense'/'dense_packed' for max"
             )
-    if task != "regression":
-        raise NotImplementedError(f"task {task!r} is not ported yet; only regression is")
     num_node_types = num_node_types if num_node_types is not None else DEFAULT_NUM_ATOM_TYPES
     num_edge_types = num_edge_types if num_edge_types is not None else DEFAULT_NUM_BOND_TYPES
     if layout == "flat":
@@ -169,19 +206,21 @@ def build_dmpnn(
         head = readout(FLAT_READOUTS, aggregation, hidden_dim)
     else:
         if reduce == "max":
-            raise NotImplementedError("reduce='max' (the plain dense block) is not ported yet")
+            raise NotImplementedError("reduce='max' (the plain dense block) is not ported yet: it comes with the "
+                                      "plain dense slice (ROADMAP.md queue A item 5)")
         embed = DenseGraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim)
         block = FusedDenseChempropBlock(hidden_dim=hidden_dim, depth=depth, reduce=reduce)
         head = readout(DENSE_READOUTS if layout == "dense_fused" else PACKED_READOUTS, aggregation, hidden_dim)
 
+    output_size = head_size(num_tasks, _HEAD_WIDTH.get(task, num_classes))
     modules = {
         "embed": {"module": embed, "in_keys": ["inputs.G"], "out_keys": ["G"]},
         "mp": {"module": block, "in_keys": ["embed.G"], "out_keys": ["G"]},
         "readout": {"module": head, "in_keys": ["mp.G"], "out_keys": ["H"]},
         "ffn": {
             "module": MLP(
-                input_dim=hidden_dim, output_size=num_tasks, hidden_dim=hidden_dim,
-                num_layers=ffn_layers, dropout=dropout,
+                input_dim=hidden_dim, output_size=output_size,
+                hidden_dim=hidden_dim, num_layers=ffn_layers, dropout=dropout,
             ),
             "in_keys": ["readout.H"],
             "out_keys": ["preds"],
@@ -190,8 +229,8 @@ def build_dmpnn(
     keys = {"preds": "ffn.preds", "targets": "targets.y", "mask": "targets.y_mask"}
     model = Model(
         modules=modules,
-        losses={"mse": {"fn": L.MSE(), "in_keys": keys, "weight": 1.0}},
-        metrics={"rmse": {"fn": M.RMSE(), "in_keys": keys}, "mae": {"fn": M.MAE(), "in_keys": keys}},
+        losses=task_losses(task, keys),
+        metrics=regression_metrics(task, keys),
         transforms=fill_pred_transform_keys(transforms, "ffn.preds"),
         optimizer=optimizer,
     )

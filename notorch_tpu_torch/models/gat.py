@@ -9,8 +9,9 @@ with the einsum core (``impl="jnp"``, as the JAX recipe builds it, so no
 kernel runs on this path in either package) and a ``Packed*`` readout; on
 the per-molecule ``dense`` layout a ``Dense*`` readout; on ``flat`` the
 flat :class:`~notorch_tpu_torch.nn.attention.GATBlock` and the readouts of
-:mod:`notorch_tpu_torch.nn.agg`. Regression only; dropout and dtypes other
-than float32 raise ``NotImplementedError``.
+:mod:`notorch_tpu_torch.nn.agg`. Every task type, with the D-MPNN recipe's
+head widths and losses; dropout and dtypes other than float32 raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,14 +20,21 @@ import torch
 
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.model.model import Model, fill_pred_transform_keys
-from notorch_tpu_torch.models.dmpnn import DENSE_READOUTS, FLAT_READOUTS, PACKED_READOUTS, readout
+from notorch_tpu_torch.models.dmpnn import (
+    _HEAD_WIDTH,
+    DENSE_READOUTS,
+    FLAT_READOUTS,
+    PACKED_READOUTS,
+    head_size,
+    readout,
+    regression_metrics,
+    task_losses,
+)
 from notorch_tpu_torch.nn.attention import GATBlock
 from notorch_tpu_torch.nn.attention_dense import DenseGATBlock, check_no_dropout
 from notorch_tpu_torch.nn.chemprop_dense import DenseGraphEmbedding
 from notorch_tpu_torch.nn.embed import GraphEmbedding
 from notorch_tpu_torch.nn.mlp import MLP
-from notorch_tpu_torch.tasks import losses as L
-from notorch_tpu_torch.tasks import metrics as M
 from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
 from notorch_tpu_torch.utils import require_f32
@@ -72,14 +80,13 @@ def build_gat(
     generator: torch.Generator | None = None,
 ) -> Model:
     """Embed -> attention block -> readout -> FFN, with the JAX recipe's
-    modules (``embed``, ``mp``, ``readout``, ``ffn``), the loss ``mse`` and
-    the metrics ``rmse`` and ``mae`` on ``target_key``. Parameters are drawn
+    modules (``embed``, ``mp``, ``readout``, ``ffn``), the task's loss
+    (``mse`` for regression) and, for regression, the metrics ``rmse`` and
+    ``mae`` on ``target_key``. Parameters are drawn
     from ``generator`` with flax's initializer families; the model is built
     on the CPU. ``optimizer`` defaults to Adam at ``learning_rate``."""
     require_f32(dtype, "attention models")
     check_no_dropout(dropout, "the attention models")
-    if task != "regression":
-        raise NotImplementedError(f"task {task!r} is not ported yet; only regression is")
     if aggregation not in FLAT_READOUTS:
         raise ValueError(f"unknown aggregation {aggregation!r}; options: {sorted(FLAT_READOUTS)}")
     layout = resolve_gat_layout(layout, attention=attention)
@@ -94,6 +101,7 @@ def build_gat(
         embed = GraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim)
         block = GATBlock(**block_kw)
         readouts = FLAT_READOUTS
+    output_size = head_size(num_tasks, _HEAD_WIDTH.get(task, num_classes))
     keys = {"preds": "ffn.preds", "targets": target_key, "mask": f"{target_key}_mask"}
     model = Model(
         modules={
@@ -102,15 +110,14 @@ def build_gat(
             "readout": {"module": readout(readouts, aggregation, hidden_dim), "in_keys": ["mp.G"],
                         "out_keys": ["H"]},
             "ffn": {
-                "module": MLP(input_dim=hidden_dim, output_size=num_tasks, hidden_dim=hidden_dim,
-                              num_layers=ffn_layers),
+                "module": MLP(input_dim=hidden_dim, output_size=output_size,
+                              hidden_dim=hidden_dim, num_layers=ffn_layers),
                 "in_keys": ["readout.H"],
                 "out_keys": ["preds"],
             },
         },
-        losses={"mse": {"fn": L.MSE(), "in_keys": keys, "weight": 1.0}},
-        metrics=metrics if metrics is not None else {"rmse": {"fn": M.RMSE(), "in_keys": keys},
-                                                     "mae": {"fn": M.MAE(), "in_keys": keys}},
+        losses=task_losses(task, keys),
+        metrics=metrics if metrics is not None else regression_metrics(task, keys),
         transforms=fill_pred_transform_keys(transforms, "ffn.preds"),
         optimizer=optimizer if optimizer is not None else OptimizerSpec("adam", learning_rate),
     )

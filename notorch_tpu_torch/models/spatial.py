@@ -2,8 +2,11 @@
 embedding -> GVP block -> spatial readout -> MLP head.
 
 Port of ``notorch_tpu.models.spatial`` for ``backbone="gvp"``: the JAX
-recipe's modules (``embed``, ``backbone``, ``readout``, ``ffn``), the loss
-``loss`` on ``target_key`` and Adam at ``learning_rate``. Its block is
+recipe's modules (``embed``, ``backbone``, ``readout``, ``ffn``), the
+task's loss named ``loss`` on ``target_key`` and Adam at
+``learning_rate``. The head is ``(num_tasks, k)`` wide for the task types
+of several outputs a task, with ``k`` 2 for multiclass and dirichlet (the
+JAX recipe has no ``num_classes``). Its block is
 built with the default ``impl`` (``"auto"``, the plain tensor ops), as the
 JAX recipe builds it, so no kernel runs on this path in either package; the
 kernels are reached by a ``GvpGNNBlock(impl: fused)`` in a declarative
@@ -16,11 +19,11 @@ import torch
 
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.model.model import Model, fill_pred_transform_keys
+from notorch_tpu_torch.models.dmpnn import _HEAD_WIDTH, _LOSSES, head_size
 from notorch_tpu_torch.nn.mlp import MLP
 from notorch_tpu_torch.nn.spatial import agg as spatial_agg
 from notorch_tpu_torch.nn.spatial.gvp import GvpGNNBlock
 from notorch_tpu_torch.nn.spatial.pointwise import PointwiseEmbed
-from notorch_tpu_torch.tasks import losses as L
 from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES
 
@@ -59,27 +62,28 @@ def build_spatial_model(
         raise NotImplementedError(f"backbone 'schnet' is not ported yet: it comes with {LATER_SPATIAL}")
     if backbone != "gvp":
         raise ValueError(f"unknown spatial backbone {backbone!r}")
-    if task != "regression":
-        raise NotImplementedError(f"task {task!r} is not ported yet; only regression is")
+    if task not in _LOSSES:
+        raise ValueError(f"unknown task {task!r}; options: {list(_LOSSES)}")
     if aggregation not in SPATIAL_AGGREGATIONS:
         raise ValueError(f"unknown aggregation {aggregation!r}; options: {sorted(SPATIAL_AGGREGATIONS)}")
     block = GvpGNNBlock(scalar_dim=hidden_dim, vector_dim=max(hidden_dim // 8, 4), depth=depth, radius=radius,
                         max_neighbors=max_neighbors, neighbor_window=neighbor_window)
     readout = SPATIAL_AGGREGATIONS[aggregation]
+    output_size = head_size(num_tasks, _HEAD_WIDTH.get(task, 2))
     modules = {
         "embed": {"module": PointwiseEmbed(num_types=num_node_types, hidden_dim=hidden_dim), "in_keys": ["inputs.P"],
                   "out_keys": ["P"]},
         "backbone": {"module": block, "in_keys": ["embed.P"], "out_keys": ["P"]},
         "readout": {"module": readout(hidden_dim) if aggregation == "gated" else readout(),
                     "in_keys": ["backbone.P"], "out_keys": ["H"]},
-        "ffn": {"module": MLP(input_dim=hidden_dim, output_size=num_tasks, hidden_dim=hidden_dim,
-                              num_layers=ffn_layers),
+        "ffn": {"module": MLP(input_dim=hidden_dim, output_size=output_size,
+                              hidden_dim=hidden_dim, num_layers=ffn_layers),
                 "in_keys": ["readout.H"], "out_keys": ["preds"]},
     }
     keys = {"preds": "ffn.preds", "targets": target_key, "mask": f"{target_key}_mask"}
     model = Model(
         modules=modules,
-        losses={"loss": {"fn": L.MSE(), "in_keys": keys}},
+        losses={"loss": {"fn": _LOSSES[task](), "in_keys": keys}},
         transforms=fill_pred_transform_keys(transforms, "ffn.preds"),
         optimizer=optimizer if optimizer is not None else OptimizerSpec("adam", learning_rate),
     )

@@ -1,10 +1,12 @@
 """Task-side output/target transforms on tensors.
 
-Port of ``notorch_tpu.tasks.transforms`` for regression: the affine
-Normalize/InverseNormalize pair computed from *training* target statistics,
-``build(task_type, values)``, and the JSON records of :func:`serialize` /
-:func:`deserialize`, which are the same as the JAX package's so that one
-``predict_meta.json`` reads the same in both.
+Port of ``notorch_tpu.tasks.transforms``: the affine Normalize/
+InverseNormalize pair computed from *training* target statistics, the
+MVE/Evidential denormalizers, Dirichlet alpha -> (probs, uncertainty), the
+Sigmoid and Softmax of the classification heads, ``build(task_type,
+values)``, and the JSON records of :func:`serialize` / :func:`deserialize`,
+which are the same as the JAX package's so that one ``predict_meta.json``
+reads the same in both.
 """
 
 from __future__ import annotations
@@ -15,12 +17,9 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 TASK_TYPES = ("regression", "classification", "multiclass", "mve", "evidential", "dirichlet")
-
-# transforms of the other task types, named so that their records are
-# recognised and refused with a clear message until their slice lands
-_NOT_PORTED = ("MVE", "Evidential", "Dirichlet", "Sigmoid", "Softmax")
 
 
 def _vec(values: tuple, like: torch.Tensor) -> torch.Tensor:
@@ -45,6 +44,54 @@ class InverseNormalize:
         return x * _vec(self.scale, x) + _vec(self.loc, x)
 
 
+@dataclass(frozen=True)
+class MVE:
+    """Denormalize (mean, var) heads: mean affine, var by scale^2."""
+
+    loc: tuple
+    scale: tuple
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        loc, scale = _vec(self.loc, x), _vec(self.scale, x)
+        return torch.stack([x[..., 0] * scale + loc, x[..., 1] * scale**2], dim=-1)
+
+
+@dataclass(frozen=True)
+class Evidential:
+    """Activate + denormalize (mean, var, alpha, beta) evidential heads."""
+
+    loc: tuple
+    scale: tuple
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        loc, scale = _vec(self.loc, x), _vec(self.scale, x)
+        mean, var, alpha, beta = x.unbind(-1)
+        return torch.stack([mean * scale + loc, F.softplus(var) * scale**2, F.softplus(alpha) + 1,
+                            F.softplus(beta)], dim=-1)
+
+
+@dataclass(frozen=True)
+class Dirichlet:
+    """alpha -> per-class probabilities plus the k/S uncertainty channel."""
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        alpha = F.softplus(x) + 1
+        S = alpha.sum(-1, keepdim=True)
+        return torch.cat([alpha / S, x.shape[-1] / S], dim=-1)
+
+
+@dataclass(frozen=True)
+class Sigmoid:
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(x)
+
+
+@dataclass(frozen=True)
+class Softmax:
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.softmax(x, dim=-1)
+
+
 def build(task_type: str | None, values: np.ndarray) -> dict[str, Callable | None]:
     """Compute per-target transforms from training-target statistics.
 
@@ -52,20 +99,25 @@ def build(task_type: str | None, values: np.ndarray) -> dict[str, Callable | Non
     statistics are computed with nan-aware reductions)."""
     if task_type is None:
         return {"preds": None, "targets": None}
-    if task_type == "regression":
+    if task_type in ("regression", "mve", "evidential"):
         values = np.asarray(values, dtype=np.float64)
         mean = tuple(np.nanmean(values, axis=0).astype(np.float32).tolist())
         std_arr = np.nanstd(values, axis=0, ddof=1)
         std = tuple(np.where(std_arr > 0, std_arr, 1.0).astype(np.float32).tolist())
-        return {"preds": InverseNormalize(mean, std), "targets": Normalize(mean, std)}
-    if task_type in TASK_TYPES:
-        raise NotImplementedError(
-            f"task type {task_type!r} is not ported yet; only regression is"
-        )
+        preds = {"regression": InverseNormalize, "mve": MVE, "evidential": Evidential}[task_type](mean, std)
+        return {"preds": preds, "targets": Normalize(mean, std)}
+    if task_type == "classification":
+        return {"preds": Sigmoid(), "targets": None}
+    if task_type == "multiclass":
+        return {"preds": Softmax(), "targets": None}
+    if task_type == "dirichlet":
+        return {"preds": Dirichlet(), "targets": None}
     raise ValueError(f"invalid task type {task_type!r}; expected one of {TASK_TYPES}")
 
 
-_TRANSFORM_CLASSES = {cls.__name__: cls for cls in (Normalize, InverseNormalize)}
+_TRANSFORM_CLASSES = {
+    cls.__name__: cls for cls in (Normalize, InverseNormalize, MVE, Evidential, Dirichlet, Sigmoid, Softmax)
+}
 
 
 def serialize(transform) -> dict | None:
@@ -87,8 +139,6 @@ def deserialize(rec: dict | None):
         return None
     rec = dict(rec)
     kind = rec.pop("kind")
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(f"task transform {kind!r} is not ported yet")
     if kind not in _TRANSFORM_CLASSES:
         raise ValueError(f"unknown task transform {kind!r}")
     return _TRANSFORM_CLASSES[kind](**{k: tuple(v) for k, v in rec.items()})

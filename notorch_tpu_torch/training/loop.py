@@ -7,9 +7,10 @@ and early stopping. ``evaluate`` takes count-weighted batch means exactly
 as the JAX version does, so ``val/rmse`` means the same number in both
 packages. Log values stay device scalars until an epoch ends.
 
+``host_metrics`` (AUROC, AUPRC, F1) are computed on the host over the
+whole evaluation pass and logged as ``val/<name>``, as there.
 ``steps_per_dispatch > 1`` (the JAX loop's ``lax.scan`` over stacked
-batches, a TPU dispatch-amortisation device) is not ported; nor are the
-host-side metrics of classification.
+batches, a TPU dispatch-amortisation device) is not ported.
 """
 
 from __future__ import annotations
@@ -93,6 +94,7 @@ def fit(
     val_loader=None,
     epochs: int = 1,
     log_fn: Callable[[dict], None] | None = None,
+    host_metrics: Mapping[str, Mapping] | None = None,
     checkpointer=None,
     resume: bool = False,
     checkpoint_every: int = 0,
@@ -101,6 +103,8 @@ def fit(
 ) -> FitResult:
     """Run the train step over ``train_loader`` for ``epochs`` epochs.
 
+    ``host_metrics``: ``{name: {"fn", "in_keys"}}``, computed on the host
+    over each epoch's evaluation pass (see :func:`evaluate`).
     Each epoch calls ``train_loader.set_epoch(epoch)`` where it exists, so
     that the epoch's order is a pure function of (seed, epoch).
     ``checkpoint_every=K`` also saves every K batches with the loop cursor
@@ -172,7 +176,7 @@ def fit(
         means = {k: float(v) / max(n_batches, 1) for k, v in train_logs.items()}
         record = {"epoch": epoch, "time": time.perf_counter() - t0, **means}
         if val_loader is not None:
-            record.update(evaluate(model, val_loader))
+            record.update(evaluate(model, val_loader, host_metrics))
         history.append(record)
         if log_fn:
             log_fn(record)
@@ -184,17 +188,25 @@ def fit(
     return FitResult(history=history)
 
 
-def evaluate(model: Model, loader) -> dict[str, float]:
+def evaluate(model: Model, loader, host_metrics: Mapping[str, Mapping] | None = None) -> dict[str, float]:
     """Count-weighted average of the eval step's losses and metrics over
     batches: each batch's masked mean is weighted by its mask count, so a
     ragged final batch does not skew the average. Sums stay on the device
-    until the end."""
+    until the end. ``host_metrics`` (``{name: {"fn", "in_keys"}}``) take the
+    eval outputs of their ``in_keys`` over the whole pass, concatenated on
+    the host as numpy (a proper AUROC, not a mean of per-batch ones), and
+    give ``val/<name>``."""
     device = model.device
     sums: dict = {}
     weights: dict = {}
     n = 0
+    accum: dict[str, list[torch.Tensor]] = {}
+    needed = set()
+    for cfg in (host_metrics or {}).values():
+        ks = cfg["in_keys"]
+        needed.update(ks.values() if isinstance(ks, Mapping) else ks)
     for batch in loader:
-        logs, _ = model.eval_step(to_device(batch, device))
+        logs, out = model.eval_step(to_device(batch, device))
         n += 1
         for k, v in logs.items():
             if k.startswith("_count/"):
@@ -202,7 +214,17 @@ def evaluate(model: Model, loader) -> dict[str, float]:
             w = logs.get(f"_count/{k}", 1.0)
             sums[k] = sums.get(k, 0.0) + v * w
             weights[k] = weights.get(k, 0.0) + w
-    return {k: float(v) / max(float(weights.get(k, n)), 1e-9) for k, v in sums.items()}
+        for key in needed:
+            accum.setdefault(key, []).append(out[key])
+    results = {k: float(v) / max(float(weights.get(k, n)), 1e-9) for k, v in sums.items()}
+    arrays = {k: np.concatenate([x.cpu().numpy() for x in v]) for k, v in accum.items()}
+    for name, cfg in (host_metrics or {}).items():
+        ks = cfg["in_keys"]
+        if isinstance(ks, Mapping):
+            results[f"val/{name}"] = float(cfg["fn"](**{kw: arrays[key] for kw, key in ks.items()}))
+        else:
+            results[f"val/{name}"] = float(cfg["fn"](*(arrays[key] for key in ks)))
+    return results
 
 
 def predict(model: Model, loader, keys: list[str] | None = None) -> dict[str, np.ndarray]:

@@ -6,6 +6,7 @@ build_optimizer``); the port matches its updates:
 
 - ``adam`` and ``adamw`` with optax's defaults (betas 0.9/0.999, eps 1e-8;
   adamw's decoupled weight decay 1e-4);
+- ``sgd`` as ``optax.sgd(lr)``: ``p - lr * g``, no momentum;
 - a schedule is a function of the update count; ``LambdaLR`` over a base
   rate of 1 makes the rate of every update the schedule's value, and the
   first update uses ``schedule(0)``, as optax evaluates its schedule at the
@@ -22,7 +23,7 @@ from typing import Callable, Iterable
 
 import torch
 
-NAMES = ("adam", "adamw")
+NAMES = ("adam", "adamw", "sgd")
 ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
 
 
@@ -34,9 +35,7 @@ class OptimizerSpec:
 
     def __post_init__(self):
         if self.name not in NAMES:
-            raise NotImplementedError(
-                f"optimizer {self.name!r} is not ported yet; the port has {list(NAMES)}"
-            )
+            raise ValueError(f"unknown optimizer {self.name!r}; options: {list(NAMES)}")
 
     def build(self, params: Iterable[torch.nn.Parameter]):
         """``(optimizer, scheduler)``; the scheduler is ``None`` for a
@@ -46,6 +45,8 @@ class OptimizerSpec:
         lr = 1.0 if schedule is not None else float(self.lr)
         if self.name == "adam":
             opt = torch.optim.Adam(params, lr=lr)
+        elif self.name == "sgd":
+            opt = torch.optim.SGD(params, lr=lr)
         else:
             opt = torch.optim.AdamW(params, lr=lr, weight_decay=ADAMW_WEIGHT_DECAY)
         sched = torch.optim.lr_scheduler.LambdaLR(opt, schedule) if schedule is not None else None

@@ -109,13 +109,20 @@ def test_registry_names_match_jax_and_refuse_later_slices():
         with pytest.raises(NotImplementedError, match="slice"):
             registry.resolve(name)
     for name in ("DenseGraphEmbedding", "DenseChempropBlock", "FusedDenseChempropBlock", "DenseSum",
-                 "DenseMean", "DenseMax", "MLP", "MSE", "MAE", "RMSE", "MetricMAE", "adam", "adamw"):
+                 "DenseMean", "DenseMax", "MLP", "MSE", "MAE", "RMSE", "MetricMAE", "adam", "adamw",
+                 "BinaryCrossEntropy", "CrossEntropy", "Dirichlet", "Evidential", "MVE", "AUROC", "AUPRC", "F1",
+                 "R2", "Accuracy", "sgd"):
         assert name in registry.REGISTRY, name
+    for name, slice_ in (("MolToFP", "fingerprint slice"), ("RxnToGraph", "reaction slice"),
+                         ("MoEMLP", "MoE and glue slice")):
+        with pytest.raises(NotImplementedError, match=slice_):
+            registry.resolve(name)
     # MetricMAE is the metric, MAE the loss, as in the JAX registry
     assert registry.resolve("MetricMAE").__module__.endswith("tasks.metrics")
     assert registry.resolve("MAE").__module__.endswith("tasks.losses")
     # the optimizers are the port's own, called with the rate as optax.adam is
     assert registry.resolve("adamw")(1e-3) == OptimizerSpec("adamw", 1e-3)
+    assert registry.resolve("sgd")(1e-2) == OptimizerSpec("sgd", 1e-2)
     with pytest.raises(KeyError, match="unknown component"):
         registry.resolve("NoSuchBlock")
 

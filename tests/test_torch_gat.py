@@ -210,8 +210,8 @@ def test_build_gat_refusals():
         gat.build_gat(hidden_dim=8, dropout=0.1)
     with pytest.raises(NotImplementedError, match="float32"):
         gat.build_gat(hidden_dim=8, dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="regression"):
-        gat.build_gat(hidden_dim=8, task="classification")
+    with pytest.raises(ValueError, match="unknown task"):
+        gat.build_gat(hidden_dim=8, task="ranking")
     with pytest.raises(ValueError, match="aggregation"):
         gat.build_gat(hidden_dim=8, aggregation="median")
     with pytest.raises(NotImplementedError, match="spatial slice"):

@@ -179,8 +179,16 @@ def test_the_neighbour_gathers_backward_gives_the_same_bits_twice(gather):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
-PROBE = """
+# the probes' thread count: small, so that two probes beside tier-1's busy
+# workers do not oversubscribe the cores (at the default count each probe
+# took up to ~200 s under such load, near the old 300 s limit, against ~7 s
+# alone), and above 1, so that a sum whose order follows the threads (the
+# float atomics of the old neighbour gathers) still shows as other bits
+PROBE_THREADS = 2
+PROBE_TIMEOUT_S = 300
+PROBE = f"""
 import hashlib, json, sys, torch
+torch.set_num_threads({PROBE_THREADS})
 from notorch_tpu_torch.cli.train import build_model
 from notorch_tpu_torch.data.point_cloud import cloud_batches, coordination_targets, make_clouds
 from notorch_tpu_torch.training.loop import to_device
@@ -200,12 +208,18 @@ print(json.dumps(digest.hexdigest()))
 
 def test_two_fresh_processes_train_to_the_same_bits():
     """Three train steps of the declarative GVP model (scalar 64, vector 16)
-    at the default thread count in two fresh processes: every loss and
-    gradient the same bits."""
-    env = {**os.environ, "PYTHONPATH": ROOT}
+    at PROBE_THREADS threads in two fresh processes: every loss and
+    gradient the same bits. A probe that outlasts PROBE_TIMEOUT_S fails as
+    a time-out, not as a difference of bits."""
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": str(PROBE_THREADS)}
     cfg = json.dumps(declarative_gvp_cfg(64, 16, 3))
-    runs = [subprocess.run([sys.executable, "-c", PROBE, cfg], env=env, cwd=ROOT, capture_output=True, text=True,
-                           timeout=300) for _ in range(2)]
+    runs = []
+    for i in range(2):
+        try:
+            runs.append(subprocess.run([sys.executable, "-c", PROBE, cfg], env=env, cwd=ROOT, capture_output=True,
+                                       text=True, timeout=PROBE_TIMEOUT_S))
+        except subprocess.TimeoutExpired:
+            pytest.fail(f"probe {i + 1} of 2 did not finish in {PROBE_TIMEOUT_S} s (a time-out, no bits compared)")
     for run in runs:
         assert run.returncode == 0, run.stderr[-2000:]
     first, second = (json.loads(run.stdout.strip().splitlines()[-1]) for run in runs)

@@ -152,10 +152,11 @@ def test_task_transform_records_match_jax():
             np.asarray(ref[side](x)), rtol=1e-6,
         )
     mve = jax_task_transforms.serialize(jax_task_transforms.MVE((0.0,), (1.0,)))
-    with pytest.raises(NotImplementedError, match="MVE"):
-        task_transforms.deserialize(mve)
-    with pytest.raises(NotImplementedError):
-        task_transforms.build("classification", values)
+    assert task_transforms.deserialize(mve) == task_transforms.MVE((0.0,), (1.0,))
+    with pytest.raises(ValueError, match="unknown task transform"):
+        task_transforms.deserialize({"kind": "Tanh"})
+    with pytest.raises(ValueError, match="invalid task type"):
+        task_transforms.build("ranking", values)
 
 
 def test_config_builds_the_served_model():
@@ -174,7 +175,7 @@ def test_unported_model_options_raise():
         build_dmpnn(hidden_dim=8, dropout=0.1)
     with pytest.raises(NotImplementedError, match="flat"):  # edge dropout in the flat block
         build_dmpnn(hidden_dim=8, layout="flat", dropout=0.1)
-    with pytest.raises(NotImplementedError, match="regression"):
-        build_dmpnn(hidden_dim=8, task="classification")
+    with pytest.raises(ValueError, match="unknown task"):
+        build_dmpnn(hidden_dim=8, task="ranking")
     with pytest.raises(ValueError, match="aggregation"):
         build_dmpnn(hidden_dim=8, aggregation="median")

@@ -185,8 +185,16 @@ def test_adam_and_adamw_updates_match_optax():
             w.grad = torch.from_numpy(g)
             opt.step()
         np.testing.assert_allclose(w.detach().numpy(), np.asarray(params), rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="sgd"):
-        build_optimizer({"name": "sgd", "lr": 0.1})
+    tx = optax.sgd(1e-2)
+    params, opt_state = jnp.asarray(p0), tx.init(jnp.asarray(p0))
+    w = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    opt, _ = build_optimizer({"name": "sgd", "lr": 1e-2}).build([w])
+    for g in gs:
+        updates, opt_state = tx.update(jnp.asarray(g), opt_state, params)
+        params = optax.apply_updates(params, updates)
+        w.grad = torch.from_numpy(g)
+        opt.step()
+    np.testing.assert_allclose(w.detach().numpy(), np.asarray(params), rtol=1e-5, atol=1e-6)
     with pytest.raises(NotImplementedError, match="cosine"):
         build_optimizer({"name": "adam", "schedule": {"cosine": {}}})
 
