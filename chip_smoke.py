@@ -61,6 +61,17 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
 - task heads: one train step of each other head (multiclass with 3
   classes, mve, evidential, dirichlet) at full width on the first packed
   lipo batch, card against CPU from the same weights;
+- train/serve multicomponent, reaction, MoE and pretrain: ``configs/
+  multicomponent.yaml`` (two flat encoders, hidden 256, depth 3, layer
+  norm; 1,024 lipo molecules each beside a solvent of ``tests/data/
+  multi.csv``), ``configs/reaction_regression.yaml`` (REAC_DIFF CGR graphs
+  of the 100 reactions of ``tests/data/rxns.csv`` with seeded targets,
+  ``dense_packed``: rows 1-3), ``configs/moe_regression.yaml`` (1,024 lipo
+  molecules, the sparse router) and ``configs/pcqm4m_pretrain.yaml``
+  (hidden 512, depth 5, batches of 1,024 over lipo's 4,200 SMILES) as
+  shipped, 2 epochs of ``run(cfg)`` each, card against CPU epoch by epoch,
+  a warm epoch timed and profiled, then each checkpoint but the
+  pretrainer's served, card against CPU; row 8 in all four;
 - GVP kernels: the fused GVP message convolution's forward and recompute
   backward (rows 14-15) against their plain versions at the GVP model's
   first training batch, clouds with empty neighbourhoods and padding rows,
@@ -76,10 +87,11 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
 - train/serve GVP recipe: ``kind: spatial, backbone: gvp`` (its conv the
   plain tensor ops, no kernel of the port but row 8 in its glue), one epoch,
   card against CPU, then served;
-- repeat: the seven paths' models (the recipe, its declarative twin,
+- repeat: the eight paths' models (the recipe, its declarative twin,
   ``impl: csr``, the declarative graph transformer, the declarative GVP
-  model, the GVP recipe and the classification model, whose masked BCE
-  runs over NaN-filled targets) each take 3 training steps twice from the
+  model, the GVP recipe, the classification model, whose masked BCE
+  runs over NaN-filled targets, and the multicomponent model) each take 3
+  training steps twice from the
   same weights, and every parameter and Adam state tensor must have the
   same bits: every sum of the glue is fixed-order (``nn/ops.py``
   ``segment_sum`` and ``take`` through row 8);
@@ -118,6 +130,7 @@ from notorch_tpu_torch.cli.train import (
     build_model,
     build_optimizer,
     prepare,
+    prepare_pretrain,
     run,
     save_predict_meta,
 )
@@ -314,10 +327,14 @@ GVP_RUN_RTOL = 1e-3
 # the gather impl's in-edges per reduce), a segment softmax's max and
 # denominator, the GVP neighbour gathers (the vectors of layer 0 are zeros:
 # no gradient). The declarative dense paths sum nothing else outside their
-# kernels
+# kernels. The multicomponent model runs two flat encoders (depth 3, the
+# gather block) and two Mean readouts, the MoE model one and one, the
+# pretrainer one at depth 5 and no readout (CPU rehearsal: nn/ops.py's card
+# branches forced, the row-pointer sum counted)
 ROW8_LAUNCHES = {"recipe": (6, 3), "declarative": (2, 0), "impl_csr": (11, 2), "declarative_attention": (2, 0),
                  "flat": (17, 2), "graph_transformer": (4, 2), "gat": (4, 2), "declarative_gvp": (3, 2),
-                 "gvp_recipe": (8, 2), "classification": (6, 3)}
+                 "gvp_recipe": (8, 2), "classification": (6, 3), "multicomponent": (30, 4), "reaction": (6, 3),
+                 "moe": (15, 2), "pretrain": (19, 0)}
 # the forward's stages in a profile (rows 1, 2 and 5, and row 4's replay):
 # fragments of its kernels' names (csrc/dense_mpnn.cu: the operator's bit
 # rows and the encoder's gathered h0 once a call, then a layer's product
@@ -349,6 +366,68 @@ CLASSIFICATION_SPLIT = {"kind": "scaffold", "fractions": [0.8, 0.1, 0.1], "seed"
 # dirichlet, 3 classes)
 HEAD_TASKS = ("multiclass", "mve", "evidential", "dirichlet")
 HEAD_CLASSES = 3
+# configs/multicomponent.yaml, configs/reaction_regression.yaml,
+# configs/moe_regression.yaml and configs/pcqm4m_pretrain.yaml written out
+# (tests/test_torch_multicomponent.py holds them to the files); slice_config
+# points them at this run's data and epochs
+_SPLIT = {"fractions": [0.8, 0.1, 0.1], "seed": 0}
+_MOE_WIDTH = 128
+SLICE_CONFIGS = {
+    "multicomponent": {
+        "data": {"csv": "tests/data/multi.csv",
+                 "transforms": {"g1": {"in_key": "smiles1", "out_key": "G1"}, "g2": {"in_key": "smiles2", "out_key": "G2"}},
+                 "targets": {"y": {"columns": ["y"], "task": "regression"}}},
+        "model": {"kind": "multicomponent", "component_keys": ["inputs.G1", "inputs.G2"], "hidden_dim": 256, "depth": 3,
+                  "pred_key": "ffn.preds"},
+        "optimizer": {"name": "adam", "lr": 1.0e-3},
+        "trainer": {"epochs": 20, "batch_size": 64, "seed": 0},
+    },
+    "reaction_regression": {
+        "data": {"csv": "/path/to/reactions.csv",
+                 "transforms": {"graph": {"transform": {"class": "RxnToGraph", "args": {"mode": "REAC_DIFF"}},
+                                          "in_key": "rxn", "out_key": "G"}},
+                 "targets": {"y": {"columns": ["target"], "task": "regression"}}, "split": dict(_SPLIT)},
+        "model": {"kind": "dmpnn", "hidden_dim": 256, "depth": 3, "aggregation": "mean", "num_node_types": 57,
+                  "num_edge_types": 27},
+        "optimizer": {"name": "adam", "lr": 1.0e-3},
+        "trainer": {"epochs": 40, "batch_size": 64, "seed": 0},
+    },
+    "moe_regression": {
+        "data": {"csv": "tests/data/lipo.csv", "smiles_col": "smiles",
+                 "targets": {"y": {"columns": ["lipo"], "task": "regression"}}, "split": dict(_SPLIT)},
+        "model": {
+            "pred_key": "ffn.preds",
+            "modules": {
+                "embed": {"class": "GraphEmbedding", "args": {"hidden_dim": _MOE_WIDTH}, "in_keys": ["inputs.G"],
+                          "out_keys": ["G"]},
+                "mp": {"class": "ChempropBlock", "args": {"hidden_dim": _MOE_WIDTH, "depth": 3, "residual": True},
+                       "in_keys": ["embed.G"], "out_keys": ["G"]},
+                "readout": {"class": "Mean", "in_keys": ["mp.G"], "out_keys": ["H"]},
+                "ffn": {"class": "MoEMLP", "args": {"input_dim": _MOE_WIDTH, "output_size": 1, "hidden_dim": _MOE_WIDTH,
+                                                   "num_experts": 4, "router_kind": "sparse", "k": 2},
+                        "in_keys": ["readout.H"], "out_keys": ["preds", "aux"]},
+            },
+            "losses": {
+                "mse": {"class": "MSE", "in_keys": {"preds": "ffn.preds", "targets": "targets.y", "mask": "targets.y_mask"},
+                        "weight": 1.0},
+                "aux": {"class": "SelfSupervisedLoss", "in_keys": {"inputs": "ffn.aux"}, "weight": 0.01},
+            },
+            "metrics": {"rmse": {"class": "RMSE", "in_keys": {"preds": "ffn.preds", "targets": "targets.y",
+                                                             "mask": "targets.y_mask"}}},
+        },
+        "optimizer": {"name": "adam", "lr": 1.0e-3},
+        "trainer": {"epochs": 5, "batch_size": 64, "seed": 0},
+    },
+    "pcqm4m_pretrain": {
+        "data": {"csv": "/path/to/pcqm4mv2.csv", "smiles_col": "smiles"},
+        "model": {"kind": "pretrain", "hidden_dim": 512, "depth": 5, "mask_rate": 0.15},
+        "optimizer": {"name": "adam", "schedule": {"noam": {
+            "warmup_steps": 10000, "cooldown_steps": 500000, "init_lr": 1.0e-4, "max_lr": 1.0e-3, "final_lr": 1.0e-4}}},
+        "trainer": {"epochs": 10, "batch_size": 1024, "seed": 0, "checkpoint_dir": "./checkpoints/pcqm4m"},
+    },
+}
+# the reactions of tests/data/rxns.csv, each with a target from SEED
+REACTIONS = ROOT / "tests" / "data" / "rxns.csv"
 
 
 def declarative_model_cfg(d: int = 256, depth: int = 3) -> dict:
@@ -539,6 +618,52 @@ def classification_config(csv_path: Path, checkpoint_dir: Path | None, model: di
         "optimizer": dict(CLASSIFICATION_OPTIMIZER_CFG),
         "trainer": trainer,
     }
+
+
+def slice_config(name: str, csv_path: Path, checkpoint_dir: Path | None, epochs: int = TRAIN_EPOCHS,
+                 model: dict | None = None) -> dict:
+    """``SLICE_CONFIGS[name]`` (configs/<name>.yaml) on ``csv_path`` for
+    ``epochs`` epochs, checkpointing to ``checkpoint_dir`` (none when
+    None); ``model`` replaces its model section."""
+    cfg = json.loads(json.dumps(SLICE_CONFIGS[name]))
+    cfg["data"]["csv"] = str(csv_path)
+    cfg["trainer"]["epochs"] = epochs
+    cfg["trainer"].pop("checkpoint_dir", None)
+    if checkpoint_dir is not None:
+        cfg["trainer"]["checkpoint_dir"] = str(checkpoint_dir)
+    if model is not None:
+        cfg["model"] = model
+    return cfg
+
+
+def multicomponent_csv(directory: Path, n: int) -> Path:
+    """``n`` rows of two components: ``smiles1`` and ``y`` the first ``n``
+    lipo molecules and their target, ``smiles2`` the solvents of
+    tests/data/multi.csv in turn."""
+    path = Path(directory) / f"multicomponent_{n}.csv"
+    with open(ROOT / "tests" / "data" / "lipo.csv", newline="") as f:
+        lipo = list(csv.DictReader(f))[:n]
+    with open(ROOT / "tests" / "data" / "multi.csv", newline="") as f:
+        solvents = [row["smiles2"] for row in csv.DictReader(f)]
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["smiles1", "smiles2", "y"])
+        writer.writerows([row["smiles"], solvents[i % len(solvents)], row["lipo"]] for i, row in enumerate(lipo))
+    return path
+
+
+def reaction_csv(directory: Path) -> Path:
+    """The reactions of REACTIONS with a standard normal ``target`` each,
+    drawn from SEED."""
+    path = Path(directory) / "reactions.csv"
+    with open(REACTIONS, newline="") as f:
+        rxns = [row["rxn"] for row in csv.DictReader(f)]
+    targets = np.random.default_rng(SEED).normal(size=len(rxns))
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["rxn", "target"])
+        writer.writerows([rxn, repr(float(y))] for rxn, y in zip(rxns, targets))
+    return path
 
 
 def calm_attention_csvs(directory: Path) -> tuple[Path, Path]:
@@ -857,7 +982,7 @@ def compare_runs(card: dict, cpu: dict, what: str, epochs: int = TRAIN_EPOCHS,
     for epoch, (a, b) in enumerate(zip(card["history"], cpu["history"])):
         for key in sorted(k for k in b if k.startswith(("train/", "val/"))):
             diffs[f"epoch{epoch}/{key}"] = rel_diff(a[key], b[key])
-    for key in sorted(cpu["test"]):
+    for key in sorted(cpu.get("test", {})):  # runs without a split have no test set
         diffs[f"test/{key}"] = rel_diff(card["test"][key], cpu["test"][key])
     worst = max(diffs.values())
     if not worst <= rtol:
@@ -869,7 +994,6 @@ def train_phase(tmp: Path) -> dict[str, int]:
     """run(cfg) on the card and on the CPU, compared epoch by epoch; the
     card's checkpoint served on the card. Returns the kernels' launches of
     the card's run."""
-    depth = MODEL_CFG["depth"]
     csv_path = lipo_csv(tmp, TRAIN_MOLS)
     card_ckpt, cpu_ckpt = tmp / "train_card", tmp / "train_cpu"
 
@@ -882,13 +1006,9 @@ def train_phase(tmp: Path) -> dict[str, int]:
     steps = Checkpointer(card_ckpt).latest_step()
     if not steps:
         fail(f"the card's run wrote no checkpoint in {card_ckpt}")
-    evaluated = counts["fused_dense_mpnn_block"] // depth
-    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_mpnn_block": depth * evaluated,
-              "fused_dense_mpnn_block_stash": depth * steps, "fused_dense_mpnn_block_bwd_stash": steps,
-              "csr_segment_sum": glue_launches("recipe", steps, evaluated)}
-    if counts != expect or evaluated == 0:
-        fail(f"training {steps} steps launched {counts}; expected {expect}, the forward kernel for "
-             "evaluation")
+    wrong = recipe_launches("recipe")(counts, steps)
+    if wrong:
+        fail(f"training {steps} steps launched {counts}; {wrong}")
 
     t0 = time.perf_counter()
     cpu = run(train_config(csv_path, cpu_ckpt), device="cpu")
@@ -1236,14 +1356,17 @@ def train_flat_phase(tmp: Path) -> tuple[dict[str, int], Path]:
 
 
 def serve_checkpoint_phase(tmp: Path, ckpt: Path, phase: str, expect: dict[str, int],
-                           columns: tuple[str, ...] = ("lipo",), probabilities: bool = False) -> dict[str, int]:
-    """run_predict of a checkpoint on N_MOLS molecules, on the card against
-    the CPU: the prediction ``columns``, each within RTOL/ATOL of the CPU's
-    and finite (and in [0, 1] for ``probabilities``); cold and warm request
-    time and the busy share of a warm request. Fails unless the request
-    launched exactly ``expect`` (every other kernel 0). Returns the
-    request's launches."""
-    csv_path = lipo_csv(tmp, N_MOLS)
+                           columns: tuple[str, ...] = ("lipo",), probabilities: bool = False,
+                           csv_path: Path | None = None) -> dict[str, int]:
+    """run_predict of a checkpoint on the rows of ``csv_path`` (by default
+    N_MOLS lipo molecules), on the card against the CPU: the prediction
+    ``columns``, each within RTOL/ATOL of the CPU's and finite (and in [0, 1]
+    for ``probabilities``); cold and warm request time and the busy share of
+    a warm request. Fails unless the request launched exactly ``expect``
+    (every other kernel 0). Returns the request's launches."""
+    csv_path = lipo_csv(tmp, N_MOLS) if csv_path is None else csv_path
+    with open(csv_path, newline="") as f:
+        n_rows = sum(1 for _ in csv.DictReader(f))
 
     def served(device=None) -> np.ndarray:
         out = run_predict(ckpt, csv_path, batch_size=BATCH, device=device)
@@ -1264,10 +1387,10 @@ def serve_checkpoint_phase(tmp: Path, ckpt: Path, phase: str, expect: dict[str, 
     profiled = profile_busy(lambda: run_predict(ckpt, csv_path, batch_size=BATCH))
     cpu = served("cpu")
     err = np.abs(gpu - cpu)
-    ok = (gpu.shape == (N_MOLS, len(columns)) and bool(np.isfinite(gpu).all())
+    ok = (gpu.shape == (n_rows, len(columns)) and bool(np.isfinite(gpu).all())
           and bool((err <= ATOL + RTOL * np.abs(cpu)).all())
           and (not probabilities or bool(((gpu >= 0) & (gpu <= 1)).all())))
-    emit(phase=phase, molecules=N_MOLS, columns=len(columns), kernel_launches=counts, request_s_cold=cold_s,
+    emit(phase=phase, molecules=n_rows, columns=len(columns), kernel_launches=counts, request_s_cold=cold_s,
          request_s_warm=warm_s, profile=profiled, max_abs_err_vs_cpu=float(err.max()),
          pred_mean=float(gpu.mean()), pred_std=float(gpu.std()),
          pred_range=[float(gpu.min()), float(gpu.max())], ok=ok)
@@ -1285,7 +1408,6 @@ def train_classification_phase(tmp: Path) -> tuple[dict[str, int], Path]:
     the run launched rows 2 and 3 on every step, row 1 on every evaluated
     batch and row 8 in the recipe's glue, and nothing else. Returns the
     launches and the card's checkpoint."""
-    depth = CLASSIFICATION_MODEL_CFG["depth"]
     csv_path = classification_csv(tmp, TRAIN_MOLS)
     card_ckpt = tmp / "classification_card"
     reset_launches()
@@ -1297,13 +1419,9 @@ def train_classification_phase(tmp: Path) -> tuple[dict[str, int], Path]:
     steps = Checkpointer(card_ckpt).latest_step()
     if not steps:
         fail(f"train_classification: the card's run wrote no checkpoint in {card_ckpt}")
-    evaluated = counts["fused_dense_mpnn_block"] // depth
-    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_mpnn_block": depth * evaluated,
-              "fused_dense_mpnn_block_stash": depth * steps, "fused_dense_mpnn_block_bwd_stash": steps,
-              "csr_segment_sum": glue_launches("classification", steps, evaluated)}
-    if counts != expect or evaluated == 0:
-        fail(f"train_classification: {steps} steps launched {counts}; expected {expect}, the forward kernel "
-             "for evaluation")
+    wrong = recipe_launches("classification")(counts, steps)
+    if wrong:
+        fail(f"train_classification: {steps} steps launched {counts}; {wrong}")
     t0 = time.perf_counter()
     cpu = run(classification_config(csv_path, tmp / "classification_cpu"), device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -1313,18 +1431,9 @@ def train_classification_phase(tmp: Path) -> tuple[dict[str, int], Path]:
     diffs = compare_runs(card, cpu, "the classification run")
 
     warm = prepare(classification_config(csv_path, None))
-    loader, n_steps = warm["train_loader"], len(warm["train_loader"])
-    fit(warm["model"], loader, epochs=1)  # fills the featurization cache
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fit(warm["model"], loader, epochs=1)
-    torch.cuda.synchronize()
-    warm_ms = (time.perf_counter() - t0) * 1e3 / n_steps
-    profiled = profile_busy(lambda: fit(warm["model"], loader, epochs=1))
     emit(phase="train_classification", molecules=TRAIN_MOLS, epochs=TRAIN_EPOCHS, steps=steps,
          split={k: len(warm[k]) for k in ("train", "val", "test")}, kernel_launches=counts, run_s_card=card_s,
-         run_s_cpu=cpu_s, warm_ms_per_step=warm_ms, device_busy_ms_per_step=profiled["device_busy_ms"] / n_steps,
-         profiled_ms_per_step=profiled["wall_ms"] / n_steps, profile=profiled,
+         run_s_cpu=cpu_s, **warm_epoch(warm["model"], warm["train_loader"]),
          history_card=card["history"], history_cpu=cpu["history"], test_card=card["test"], test_cpu=cpu["test"],
          rel_diff_vs_cpu=diffs, rel_tol=TRAIN_RTOL)
     return counts, card_ckpt
@@ -1379,6 +1488,97 @@ def task_heads_phase(tmp: Path) -> dict[str, int]:
     emit(phase="task_heads", rtol=RTOL, atol=ATOL, grad_atol="ATOL x the largest |value| of each gradient",
          heads=records)
     return total
+
+
+def warm_epoch(model, loader) -> dict:
+    """A warm training epoch of ``model`` over ``loader`` (an epoch first
+    fills the featurization cache): ms a step on the host's clock, and
+    device ms a step and the busy share from a profiled epoch."""
+    fit(model, loader, epochs=1)
+    torch.cuda.synchronize()
+    steps = len(loader)
+    t0 = time.perf_counter()
+    fit(model, loader, epochs=1)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3 / steps
+    profiled = profile_busy(lambda: fit(model, loader, epochs=1))
+    return {"warm_steps": steps, "warm_ms_per_step": warm_ms,
+            "device_busy_ms_per_step": profiled["device_busy_ms"] / steps,
+            "profiled_ms_per_step": profiled["wall_ms"] / steps, "profile": profiled}
+
+
+def slice_run_phase(tmp: Path, phase: str, name: str, path: str, csv_path: Path, check) -> tuple[dict[str, int], Path]:
+    """run(cfg) of configs/<name>.yaml as shipped (``SLICE_CONFIGS``) on
+    ``csv_path`` for TRAIN_EPOCHS epochs on the card and on the CPU from the
+    same seed, compared epoch by epoch at TRAIN_RTOL (losses, metrics and
+    the test metrics where the config splits); ``check(counts, steps)``
+    returns what is wrong with the card run's launches, or None; then a warm
+    epoch on the card on the host's clock and profiled. Returns the card
+    run's launches and checkpoint."""
+    card_ckpt = tmp / f"{phase}_card"
+    reset_launches()
+    t0 = time.perf_counter()
+    card = run(slice_config(name, csv_path, card_ckpt))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launches()
+    steps = Checkpointer(card_ckpt).latest_step()
+    if not steps:
+        fail(f"{phase}: the card's run wrote no checkpoint in {card_ckpt}")
+    wrong = check(counts, steps)
+    if wrong:
+        fail(f"{phase}: the card's run of {steps} steps launched {counts}; {wrong}")
+    t0 = time.perf_counter()
+    cpu = run(slice_config(name, csv_path, tmp / f"{phase}_cpu"), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diffs = compare_runs(card, cpu, phase)
+    cfg = slice_config(name, csv_path, None)
+    warm = prepare_pretrain(cfg) if cfg["model"].get("kind") == "pretrain" else prepare(cfg)
+    timing = warm_epoch(warm["model"], warm["train_loader"])
+    emit(phase=phase, config=f"configs/{name}.yaml", data=csv_path.name, epochs=TRAIN_EPOCHS, steps=steps,
+         kernel_launches=counts, row8_launches_per_step_and_batch=ROW8_LAUNCHES[path], run_s_card=card_s,
+         run_s_cpu=cpu_s, **timing, history_card=card["history"], history_cpu=cpu["history"],
+         test_card=card.get("test"), test_cpu=cpu.get("test"), rel_diff_vs_cpu=diffs, rel_tol=TRAIN_RTOL)
+    return counts, card_ckpt
+
+
+def slice_phases(tmp: Path) -> dict[str, dict[str, int]]:
+    """The multicomponent, reaction, MoE and pretraining configs as shipped,
+    each trained on the card against the CPU (slice_run_phase) and served
+    from its checkpoint (the pretrainer has no serving path): the
+    multicomponent model on TRAIN_MOLS lipo molecules each with a solvent of
+    tests/data/multi.csv (served: N_MOLS rows), the reaction recipe on the
+    100 reactions of REACTIONS (rows 1-3 and row 8; its bins reported), the
+    MoE model on TRAIN_MOLS lipo molecules, the pretrainer on all of lipo's
+    SMILES. Returns each run's launches."""
+    depth = MODEL_CFG["depth"]
+    runs = {}
+    runs["multicomponent"], ckpt = slice_run_phase(tmp, "train_multicomponent", "multicomponent", "multicomponent",
+                                                   multicomponent_csv(tmp, TRAIN_MOLS),
+                                                   glue_only("multicomponent", evaluates=False))
+    serve_checkpoint_phase(tmp, ckpt, "serve_multicomponent",
+                           {"csr_segment_sum": glue_launches("multicomponent", 0, N_MOLS // BATCH)}, columns=("y",),
+                           csv_path=multicomponent_csv(tmp, N_MOLS))
+
+    rxn_csv = reaction_csv(tmp)
+    rxn_batches = list(DataLoader(build_dataset(slice_config("reaction_regression", rxn_csv, None)["data"]),
+                                  batch_size=BATCH))
+    emit(phase="reaction_bins", batches=[{"bins": b["inputs.G"].src.shape[0], "edges_per_bin": b["inputs.G"].src.shape[1],
+                                          "nodes_per_bin": b["inputs.G"].nodes_per_graph} for b in rxn_batches])
+    runs["reaction"], ckpt = slice_run_phase(tmp, "train_reaction", "reaction_regression", "reaction", rxn_csv,
+                                             recipe_launches("reaction"))
+    serve_checkpoint_phase(tmp, ckpt, "serve_reaction",
+                           {"fused_dense_mpnn_block": depth * len(rxn_batches),
+                            "csr_segment_sum": glue_launches("reaction", 0, len(rxn_batches))},
+                           columns=("target",), csv_path=rxn_csv)
+
+    runs["moe"], ckpt = slice_run_phase(tmp, "train_moe", "moe_regression", "moe", lipo_csv(tmp, TRAIN_MOLS),
+                                        glue_only("moe"))
+    serve_checkpoint_phase(tmp, ckpt, "serve_moe", {"csr_segment_sum": glue_launches("moe", 0, N_MOLS // BATCH)})
+
+    runs["pretrain"] = slice_run_phase(tmp, "train_pretrain", "pcqm4m_pretrain", "pretrain",
+                                       ROOT / "tests" / "data" / "lipo.csv", glue_only("pretrain", evaluates=False))[0]
+    return runs
 
 
 def train_declarative_flat_phase(tmp: Path) -> Path:
@@ -1615,18 +1815,38 @@ def lockstep(cfg: dict, epochs: int, what: str) -> dict:
             "max_grad_rel_l2": max(rel_l2.values(), default=0.0), "grad_rel_l2": rel_l2}
 
 
-def glue_only(path: str):
+def glue_only(path: str, evaluates: bool = True):
     """The launch check of a path whose only kernel is row 8 in its glue:
-    ROW8_LAUNCHES's count a step and a positive number of evaluated batches,
-    and no other kernel."""
+    ROW8_LAUNCHES's count a step and a positive number of evaluated batches
+    (none for a run that ``evaluates`` nothing), and no other kernel."""
     per_step, per_batch = ROW8_LAUNCHES[path]
 
     def check(counts: dict[str, int], steps: int) -> str | None:
-        evaluated = (counts["csr_segment_sum"] - per_step * steps) / per_batch
+        evaluated = (counts["csr_segment_sum"] - per_step * steps) / per_batch if evaluates else 0
         others = {k: v for k, v in counts.items() if k != "csr_segment_sum"}
-        if evaluated <= 0 or evaluated != int(evaluated) or any(others.values()):
-            return (f"expected row 8 {per_step} times a step and {per_batch} times an evaluated batch, and no "
-                    "other kernel")
+        wrong_glue = (evaluated <= 0 or evaluated != int(evaluated) if evaluates
+                      else counts["csr_segment_sum"] != per_step * steps)
+        if wrong_glue or any(others.values()):
+            return (f"expected row 8 {per_step} times a step and {per_batch if evaluates else 0} times an "
+                    "evaluated batch, and no other kernel")
+        return None
+
+    return check
+
+
+def recipe_launches(path: str):
+    """The launch check of a run of the D-MPNN recipe (``dense_packed``):
+    rows 2 and 3 on every step, row 1 on every evaluated batch (at least
+    one), row 8 as ROW8_LAUNCHES says for ``path``, and nothing else."""
+    depth = MODEL_CFG["depth"]
+
+    def check(counts: dict[str, int], steps: int) -> str | None:
+        evaluated = counts["fused_dense_mpnn_block"] // depth
+        expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_mpnn_block": depth * evaluated,
+                  "fused_dense_mpnn_block_stash": depth * steps, "fused_dense_mpnn_block_bwd_stash": steps,
+                  "csr_segment_sum": glue_launches(path, steps, evaluated)}
+        if counts != expect or evaluated == 0:
+            return f"expected {expect}, the forward kernel for evaluation"
         return None
 
     return check
@@ -1983,14 +2203,15 @@ def serve_gvp_phase(ckpt: Path, cfg: dict, batches: list[dict], phase: str, expe
 # every parameter and every Adam state tensor must come out with the same bits
 REPEAT_STEPS, REPEAT_MOLS = 3, 256
 REPEAT_PATHS = ("recipe", "declarative", "impl_csr", "declarative_attention", "declarative_gvp", "gvp_recipe",
-                "classification")
+                "classification", "multicomponent")
 
 
 def repeat_model_cfg(path: str, d: int) -> dict:
     """The model section of a repeat path at hidden width ``d`` (the GVP
     vectors ``d // 8`` wide, as the JAX package's defaults make them): the
     REPEAT_PATHS (``classification``: the multitask classification config's
-    model), and the flat paths ``flat`` (configs/declarative_example.yaml's
+    model; ``multicomponent``: configs/multicomponent.yaml's), and the flat
+    paths ``flat`` (configs/declarative_example.yaml's
     model) and ``flat_gat`` (the GAT recipe on the flat layout)."""
     depth, heads = MODEL_CFG["depth"], GT_CFG["num_heads"]
     return {"recipe": {**MODEL_CFG, "hidden_dim": d},
@@ -2000,6 +2221,7 @@ def repeat_model_cfg(path: str, d: int) -> dict:
             "declarative_gvp": declarative_gvp_model_cfg(d, d // 8),
             "gvp_recipe": {**GVP_RECIPE, "hidden_dim": d},
             "classification": {**CLASSIFICATION_MODEL_CFG, "hidden_dim": d},
+            "multicomponent": {**SLICE_CONFIGS["multicomponent"]["model"], "hidden_dim": d},
             "flat": declarative_flat_model_cfg(d),
             "flat_gat": {**GAT_CFG, "hidden_dim": d, "layout": "flat"}}[path]
 
@@ -2008,10 +2230,11 @@ def repeat_run(path: str, tmp: Path, device: str, d: int = 256, batch: int = BAT
                steps: int = REPEAT_STEPS) -> dict:
     """``steps`` train steps of ``path``'s model (weights from SEED; Adam
     with the Noam schedule of OPTIMIZER_CFG, the GVP models Adam at GVP_LR,
-    the classification model its config's Adam at 1e-3) on its first
-    training batches of ``batch`` (lipo molecules in the order the training
-    loader shuffles them, with the classification config's labels and
-    scaffold split for that path, or synthetic clouds), taken twice from
+    the classification and multicomponent models their configs' Adam at
+    1e-3) on its first training batches of ``batch`` (lipo molecules in the
+    order the training loader shuffles them, with the classification
+    config's labels and scaffold split for that path, each with a solvent
+    for the multicomponent path, or synthetic clouds), taken twice from
     the same weights on ``device``. Returns the names of the parameters and
     Adam state tensors whose bits differ between the two (none where the path
     repeats bit for bit)."""
@@ -2021,8 +2244,12 @@ def repeat_run(path: str, tmp: Path, device: str, d: int = 256, batch: int = BAT
         batches = cloud_batches(clouds, coordination_targets(clouds), batch_size=batch)[:steps]
         make, first = (lambda: gvp_model(cfg, device)), gvp_model(cfg, device)
     else:
-        run_cfg = (classification_config(classification_csv(tmp, REPEAT_MOLS), None, cfg) if path == "classification"
-                   else train_config(lipo_csv(tmp, REPEAT_MOLS), None, cfg))
+        if path == "classification":
+            run_cfg = classification_config(classification_csv(tmp, REPEAT_MOLS), None, cfg)
+        elif path == "multicomponent":
+            run_cfg = slice_config(path, multicomponent_csv(tmp, REPEAT_MOLS), None, model=cfg)
+        else:
+            run_cfg = train_config(lipo_csv(tmp, REPEAT_MOLS), None, cfg)
         run_cfg["trainer"]["batch_size"] = batch
         built = prepare(run_cfg, device)
         batches = [b for _, b in zip(range(steps), built["train_loader"])]
@@ -2225,6 +2452,10 @@ def main() -> None:
              "csr_segment_sum": glue_launches("classification", 0, len(batches))},
             columns=tuple(CLASSIFICATION_COLUMNS), probabilities=True)
         task_heads_phase(tmp)
+
+        # the multicomponent, reaction (rows 1-3), MoE and pretraining
+        # configs as shipped, row 8 in all four
+        slice_phases(tmp)
 
         # rows 14-15 against their plain versions, then the GVP model both ways
         gvp_train, gvp_val = gvp_data()

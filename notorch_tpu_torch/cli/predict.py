@@ -2,8 +2,9 @@
 
 Rebuilds the model from the ``predict_meta.json`` beside the checkpoints
 (the same schema ``notorch_tpu.cli.train`` writes: model config, a
-``kind: dmpnn``, ``gat`` or ``graph_transformer`` or a declarative
-``modules`` one, data config, task transforms baked from training-split
+``kind: dmpnn``, ``multicomponent``, ``gat`` or ``graph_transformer`` or a
+declarative ``modules`` one, data config with its transforms, such as a
+reaction's ``RxnToGraph``, task transforms baked from training-split
 statistics), restores a
 port checkpoint (:mod:`notorch_tpu_torch.training.checkpoint`), runs the
 model over a CSV of molecules on the card, and writes its predictions

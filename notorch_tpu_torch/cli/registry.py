@@ -28,19 +28,9 @@ from typing import Any, Callable
 REGISTRY: dict[str, Callable] = {}
 TRUSTED_MODULES_ENV = "NOTORCH_TPU_TORCH_TRUSTED_MODULES"
 
-_FINGERPRINT = "the fingerprint slice (chem/fingerprint.py, transforms/mol.py; ROADMAP.md queue A item 3)"
-_REACTION = "the reaction slice (transforms/reaction.py; ROADMAP.md queue A item 3)"
-_SPATIAL = "the rest of the spatial slice (SchNet, PaiNN, SDF point clouds)"
-_MOE = "the MoE and glue slice"
+_SPATIAL = "the rest of the spatial slice (SchNet, PaiNN, SDF point clouds; ROADMAP.md queue A item 4)"
 # every other name of notorch_tpu.cli.registry, with the slice that ports it
-LATER: dict[str, str] = {
-    **dict.fromkeys(["GatedEquivariantBlock", "SchnetBlock", "MolToPointCloud"], _SPATIAL),
-    **dict.fromkeys(["MixtureOfExperts", "MoEMLP", "DenseRouter", "SparseRouter", "Add", "Mul",
-                     "Cat", "Split", "MatMul", "Einsum", "Identity", "BatchNorm", "Residual"],
-                    _MOE),
-    "MolToFP": _FINGERPRINT,
-    "RxnToGraph": _REACTION,
-}
+LATER: dict[str, str] = dict.fromkeys(["GatedEquivariantBlock", "SchnetBlock", "MolToPointCloud"], _SPATIAL)
 
 _ALLOW_IMPORTS = False
 
@@ -119,6 +109,7 @@ def _populate() -> None:
         DenseSum,
         FusedDenseChempropBlock,
     )
+    from notorch_tpu_torch.nn import glue, moe
     from notorch_tpu_torch.nn.embed import GraphEmbedding
     from notorch_tpu_torch.nn.mlp import MLP
     from notorch_tpu_torch.nn.rbf import RBFEmbedding
@@ -128,12 +119,14 @@ def _populate() -> None:
     from notorch_tpu_torch.tasks import losses, metrics
     from notorch_tpu_torch.training.optim import OptimizerSpec
     from notorch_tpu_torch.transforms import (
+        MolToFP,
         MolToGraph,
         MultiTypeAtomTransform,
         MultiTypeBondTransform,
         Pipeline,
         SmiToMol,
     )
+    from notorch_tpu_torch.transforms.reaction import RxnToGraph
 
     for cls in [
         ChempropBlock,
@@ -160,8 +153,23 @@ def _populate() -> None:
         Pointwise,
         PointwiseEmbed,
         RBFEmbedding,
+        moe.MixtureOfExperts,
+        moe.MoEMLP,
+        moe.DenseRouter,
+        moe.SparseRouter,
+        glue.Add,
+        glue.Mul,
+        glue.Cat,
+        glue.Split,
+        glue.MatMul,
+        glue.Einsum,
+        glue.Identity,
+        glue.BatchNorm,
+        glue.Residual,
         MolToGraph,
+        MolToFP,
         SmiToMol,
+        RxnToGraph,
         MultiTypeAtomTransform,
         MultiTypeBondTransform,
         Pipeline,

@@ -1,26 +1,28 @@
 """``python -m notorch_tpu_torch train``: config-driven training.
 
 Port of ``notorch_tpu.cli.train`` for supervised ``model.kind: dmpnn``,
-``gat`` and ``graph_transformer`` configs and declarative ``model.modules``
-configs (modules, losses and metrics built by name through
-:mod:`notorch_tpu_torch.cli.registry`), for every task type of
+``gat``, ``graph_transformer`` and ``multicomponent`` configs, declarative
+``model.modules`` configs (modules, losses and metrics built by name
+through :mod:`notorch_tpu_torch.cli.registry`) and masked-atom pretraining
+(``model.kind: pretrain``, :func:`run_pretrain`), for every task type of
 ``data.targets.*.task``: the same YAML/JSON configs with dotted-key
-overrides, the default SMILES pipeline, a random or scaffold
-``data.split``, target transforms from training-split statistics, AUROC
-and AUPRC on the host for every classification target, the data
-layout from ``model.layout`` (``dense_packed``, with the attention kinds'
-bins of 256 edge lanes and 128 node slots; the per-molecule ``dense`` for
-``dense*`` layouts, whose train loader sorts by size; ``flat`` otherwise,
-the default of a declarative config, with the tile-packed CSR metadata
-when the model reduces through ``impl: csr``), Adam/AdamW with a rate or
-the Noam schedule and ``clip_norm``, and the trainer's ``epochs``,
-``batch_size``, ``seed``, ``checkpoint_dir``, ``resume``,
-``checkpoint_every``, ``max_to_keep``, ``best_by``/``best_mode``,
-``early_stopping`` and ``predictions_csv``. The checkpoint directory it
-writes is what ``python -m notorch_tpu_torch predict`` serves. The other
-model kinds, pretraining, ``trainer.spmd``, configurable transforms and
-the ``${csv:...}`` resolvers raise ``NotImplementedError``. Tables are read
-with the standard ``csv`` module; ``yaml`` is imported only to read YAML.
+overrides, the default SMILES pipeline or a ``data.transforms.<name>.
+transform`` built through the registry (``RxnToGraph``, ``MolToFP``, ...),
+a random or scaffold ``data.split``, target transforms from training-split
+statistics, AUROC and AUPRC on the host for every classification target,
+the data layout from ``model.layout`` (``dense_packed``, with the attention
+kinds' bins of 256 edge lanes and 128 node slots; the per-molecule
+``dense`` for ``dense*`` layouts, whose train loader sorts by size;
+``flat`` otherwise, the default of a declarative or multicomponent config,
+with the tile-packed CSR metadata when the model reduces through ``impl:
+csr``), Adam/AdamW/SGD with a rate or the Noam schedule and ``clip_norm``,
+and the trainer's ``epochs``, ``batch_size``, ``seed``, ``checkpoint_dir``,
+``resume``, ``checkpoint_every``, ``max_to_keep``, ``best_by``/
+``best_mode``, ``early_stopping`` and ``predictions_csv``. The checkpoint
+directory it writes is what ``python -m notorch_tpu_torch predict`` serves.
+``trainer.spmd`` and the ``${csv:...}`` resolvers raise
+``NotImplementedError``. Tables are read with the standard ``csv`` module;
+``yaml`` is imported only to read YAML.
 
 Usage::
 
@@ -35,16 +37,13 @@ import dataclasses
 import json
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from notorch_tpu_torch.data.dataset import MolecularDataset, TargetSpec, TransformManager
 from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms import MolToGraph, Pipeline, SmiToMol
 from notorch_tpu_torch.utils import resolve_device
-
-
-# the JAX package's other model kinds, with the slice of the port that brings each
-LATER_KINDS = {"multicomponent": "the multicomponent slice (models/multicomponent.py; ROADMAP.md queue A item 3)"}
 
 
 def load_config(path: str | Path) -> dict:
@@ -85,23 +84,19 @@ def read_table(path: str | Path) -> dict[str, list[str]]:
 
 
 def build_dataset(cfg: dict) -> MolecularDataset:
-    """The dataset of a ``data`` config: a ``csv`` table, the default
-    SMILES -> Graph pipeline per ``transforms`` entry (or one on
-    ``smiles_col``), and the ``targets`` groups."""
+    """The dataset of a ``data`` config: a ``csv`` table, per ``transforms``
+    entry its ``transform`` built through the registry or else the default
+    SMILES -> Graph pipeline (one on ``smiles_col`` without entries), and
+    the ``targets`` groups."""
+    from notorch_tpu_torch.cli.registry import build
+
     if "csv" not in cfg:
         raise KeyError("data config needs a 'csv' entry (parquet is not ported)")
     table = read_table(cfg["csv"])
     transforms = {}
     for name, tcfg in (cfg.get("transforms") or _default_transforms(cfg)).items():
-        if "transform" in tcfg:
-            raise NotImplementedError(
-                f"data.transforms.{name}.transform: configurable transforms are not "
-                "ported yet; the port featurizes with the default SMILES pipeline. They come with "
-                "the fingerprint slice (ROADMAP.md queue A item 3)"
-            )
-        transforms[name] = TransformManager(
-            Pipeline(SmiToMol(), MolToGraph()), in_key=tcfg.get("in_key"), out_key=tcfg.get("out_key")
-        )
+        transform = build(tcfg["transform"]) if "transform" in tcfg else Pipeline(SmiToMol(), MolToGraph())
+        transforms[name] = TransformManager(transform, in_key=tcfg.get("in_key"), out_key=tcfg.get("out_key"))
     targets = {
         name: TargetSpec(
             columns=tc["columns"], task=tc.get("task", "regression"), weight=tc.get("weight", 1.0)
@@ -139,9 +134,10 @@ def build_optimizer(cfg: dict | None) -> OptimizerSpec:
 
 def build_model(cfg: dict, transforms: dict | None, generator: torch.Generator | None = None,
                 optimizer: OptimizerSpec | None = None):
-    """The model of a ``model`` config: ``kind: dmpnn``, ``gat``,
-    ``graph_transformer`` (``build_gat`` with ``attention: sdp``) or
-    ``spatial`` (``build_spatial_model``), or declarative
+    """The model of a ``model`` config: ``kind: dmpnn``, ``multicomponent``
+    (``build_multicomponent_dmpnn``), ``gat``, ``graph_transformer``
+    (``build_gat`` with ``attention: sdp``) or ``spatial``
+    (``build_spatial_model``), or declarative
     ``modules`` (with ``losses`` and ``metrics``) built by name through the
     registry, as the JAX ``build_model`` builds them. Parameters are drawn
     from ``generator``; the model is built on the CPU."""
@@ -173,6 +169,10 @@ def build_model(cfg: dict, transforms: dict | None, generator: torch.Generator |
         from notorch_tpu_torch.models.dmpnn import build_dmpnn
 
         return build_dmpnn(transforms=transforms, generator=generator, optimizer=optimizer, **kwargs)
+    if kind == "multicomponent":
+        from notorch_tpu_torch.models.multicomponent import build_multicomponent_dmpnn
+
+        return build_multicomponent_dmpnn(transforms=transforms, generator=generator, optimizer=optimizer, **kwargs)
     if kind == "spatial":
         from notorch_tpu_torch.models.spatial import build_spatial_model
 
@@ -183,8 +183,6 @@ def build_model(cfg: dict, transforms: dict | None, generator: torch.Generator |
         if kind == "graph_transformer":
             kwargs.setdefault("attention", "sdp")
         return build_gat(transforms=transforms, generator=generator, optimizer=optimizer, **kwargs)
-    if kind in LATER_KINDS:
-        raise NotImplementedError(f"model kind {kind!r} is not ported yet: it comes with {LATER_KINDS[kind]}")
     raise ValueError(f"unknown model kind {kind!r}")
 
 
@@ -323,9 +321,6 @@ def _refuse_unported(cfg: dict) -> None:
     walk(cfg, "")
     model_cfg = cfg.get("model", {})
     refuse_point_clouds(model_cfg)
-    if model_cfg.get("kind") == "pretrain":
-        raise NotImplementedError("model.kind: pretrain (masked-atom pretraining) is not ported yet: it comes "
-                                  "with the pretraining slice (ROADMAP.md queue A item 3)")
     if cfg.get("trainer", {}).get("spmd"):
         raise NotImplementedError(f"trainer.spmd (sharded training) is not ported yet: it comes with {PARALLEL_SLICE}")
 
@@ -405,11 +400,103 @@ def prepare(cfg: dict, device: str | torch.device | None = None) -> dict:
     }
 
 
+class _PretrainLoader:
+    """Masked-atom batches ``{"inputs.G", "inputs.node_labels"}`` of
+    ``graphs`` on the flat layout, at caps rounded up the ladders of the
+    JAX loader (nodes from 256, edges from 512). Each pass masks the
+    molecules anew (``MaskAtoms`` seeded ``seed + epoch``) and shuffles
+    them; after :meth:`set_epoch` both are a pure function of (seed,
+    epoch), so a resumed run re-derives any epoch's batches."""
+
+    def __init__(self, graphs, mask_rate: float, batch_size: int, seed: int = 0, shuffle: bool = True):
+        self.graphs, self.mask_rate, self.batch_size = graphs, mask_rate, batch_size
+        self.seed, self.shuffle = seed, shuffle
+        self._epoch = 0
+        self._rg = np.random.default_rng(seed)
+
+    def set_epoch(self, epoch: int) -> None:
+        self._epoch = int(epoch)
+        self._rg = np.random.default_rng((self.seed, int(epoch)))
+
+    def __len__(self) -> int:
+        return -(-len(self.graphs) // self.batch_size)
+
+    def __iter__(self):
+        from notorch_tpu_torch.data.batching import bucket_ladder, round_up_ladder
+        from notorch_tpu_torch.models.pretrain import MaskAtoms
+
+        node_ladder = bucket_ladder(256, 1 << 22)
+        edge_ladder = bucket_ladder(512, 1 << 22)
+        masker = MaskAtoms(mask_rate=self.mask_rate, seed=self.seed + self._epoch)
+        self._epoch += 1
+        order = np.arange(len(self.graphs))
+        if self.shuffle:
+            self._rg.shuffle(order)
+        for s in range(0, len(order), self.batch_size):
+            chunk = [masker(self.graphs[i]) for i in order[s : s + self.batch_size]]
+            node_cap = round_up_ladder(sum(g.num_nodes for g in chunk) + 1, node_ladder)
+            edge_cap = round_up_ladder(max(sum(g.num_edges for g in chunk), 2), edge_ladder)
+            bg, labels = MaskAtoms.collate(chunk, node_cap, edge_cap)
+            yield {"inputs.G": bg, "inputs.node_labels": labels}
+
+
+def prepare_pretrain(cfg: dict, device: str | torch.device | None = None) -> dict:
+    """What a pretraining run needs, built from ``cfg`` as the JAX
+    ``run_pretrain`` builds it: the ``data.smiles_col`` molecules of
+    ``data.csv`` (the first ``data.limit``), featurized once; the
+    masked-atom pretrainer (``hidden_dim``, ``depth``) from
+    ``torch.Generator().manual_seed(trainer.seed)`` on ``device``; and the
+    loader that masks them anew each epoch (``model.mask_rate``).
+    ``trainer.spmd`` raises ``NotImplementedError``."""
+    from notorch_tpu_torch.models.pretrain import build_masked_atom_pretrainer
+
+    _refuse_unported(cfg)
+    device = resolve_device(device)
+    data_cfg = cfg["data"]
+    model_cfg = {k: v for k, v in cfg.get("model", {}).items() if k not in ("kind", "mask_rate", "partition")}
+    trainer_cfg = cfg.get("trainer", {})
+    seed = trainer_cfg.get("seed", 0)
+    if "csv" not in data_cfg:
+        raise KeyError("data config needs a 'csv' entry (parquet is not ported)")
+    smiles = read_table(data_cfg["csv"])[data_cfg.get("smiles_col", "smiles")][: data_cfg.get("limit") or None]
+    pipe = Pipeline(SmiToMol(), MolToGraph())
+    model = build_masked_atom_pretrainer(optimizer=build_optimizer(cfg.get("optimizer")),
+                                         generator=torch.Generator().manual_seed(seed), **model_cfg)
+    loader = _PretrainLoader([pipe(s) for s in smiles], cfg.get("model", {}).get("mask_rate", 0.15),
+                             trainer_cfg.get("batch_size", 64), seed=seed)
+    return {"model": model.to(device), "train_loader": loader}
+
+
+def run_pretrain(cfg: dict, device: str | torch.device | None = None) -> dict:
+    """Masked-atom self-supervised pretraining (``model.kind: pretrain``):
+    :func:`prepare_pretrain`, then ``fit`` for ``trainer.epochs`` with
+    ``checkpoint_dir``/``max_to_keep``, ``resume`` and ``checkpoint_every``.
+    ``trainer.prefetch`` is ignored, as in :func:`run`. Returns
+    ``{"history", "stopped_early", "model"}``."""
+    from notorch_tpu_torch.training.checkpoint import Checkpointer
+    from notorch_tpu_torch.training.loop import fit
+
+    run_ = prepare_pretrain(cfg, device)
+    trainer_cfg = cfg.get("trainer", {})
+    checkpointer = None
+    if trainer_cfg.get("checkpoint_dir"):
+        checkpointer = Checkpointer(trainer_cfg["checkpoint_dir"], max_to_keep=trainer_cfg.get("max_to_keep", 3))
+    result = fit(
+        run_["model"], run_["train_loader"], epochs=trainer_cfg.get("epochs", 1),
+        log_fn=lambda r: print(json.dumps({k: _jsonable(v) for k, v in r.items()}), flush=True),
+        checkpointer=checkpointer, resume=trainer_cfg.get("resume", False),
+        checkpoint_every=trainer_cfg.get("checkpoint_every", 0),
+        steps_per_dispatch=trainer_cfg.get("steps_per_dispatch", 1),
+    )
+    return {"history": result.history, "stopped_early": result.stopped_early, "model": run_["model"]}
+
+
 def run(cfg: dict, device: str | torch.device | None = None) -> dict:
     """Config-driven training. ``device=None`` trains on the card and raises
     where there is none; ``device="cpu"`` runs the plain CPU path. Returns
     ``{"history", "stopped_early"}`` plus ``best_step``, ``test`` and
-    ``predictions_csv`` where they apply.
+    ``predictions_csv`` where they apply. ``model.kind: pretrain`` runs
+    :func:`run_pretrain`.
 
     ``trainer.prefetch`` (the JAX loader's input pipeline overlap) does not
     change the math and is not ported: the loop iterates the loader
@@ -417,6 +504,8 @@ def run(cfg: dict, device: str | torch.device | None = None) -> dict:
     from notorch_tpu_torch.training.checkpoint import Checkpointer
     from notorch_tpu_torch.training.loop import evaluate, fit, predict
 
+    if cfg.get("model", {}).get("kind") == "pretrain":
+        return run_pretrain(cfg, device)
     run_ = prepare(cfg, device)
     cfg, model, pred_key = run_["cfg"], run_["model"], run_["pred_key"]
     trainer_cfg = cfg.get("trainer", {})

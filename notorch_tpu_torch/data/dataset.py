@@ -37,6 +37,9 @@ class TransformManager:
         sample[self.out_key] = self.transform(sample[self.in_key])
         return sample
 
+    def collate(self, values: list, **kwargs):
+        return self.transform.collate(values, **kwargs)
+
 
 @dataclass
 class TargetSpec:
@@ -135,10 +138,13 @@ class MolecularDataset:
         for mgr in self.transforms.values():
             values = [s[mgr.out_key] for s in samples]
             if not (values and isinstance(values[0], Graph)):
-                raise NotImplementedError(
-                    f"transform output {mgr.out_key!r} is not a Graph; only graph "
-                    "featurization is ported"
-                )
+                # the transform's own collate (a fingerprint's [B, length]
+                # array, padded to the batch's slots; a list of molecules)
+                collated = mgr.collate(values)
+                if isinstance(collated, np.ndarray):
+                    collated = _pad_rows(collated, b_cap, fill=0.0)
+                batch[f"{INPUT_KEY_PREFIX}.{mgr.out_key}"] = collated
+                continue
             if layout == "flat":
                 if graph_caps is not None:
                     v_cap, e_cap = graph_caps

@@ -36,17 +36,22 @@ class ComposedNetwork(nn.ModuleDict):
     ``(name, in_keys, out_keys)`` per module, in execution order. ``in_keys``
     may be a sequence (positional) or a mapping (keyword). Module outputs
     (a single value or a tuple) are stored under ``<name>.<out_key>``.
+    ``aliases`` maps a wired name to the entry whose module it runs: one
+    module declared under several names (a shared encoder) is one entry,
+    under its first name, with one set of parameters, as flax binds it.
     """
 
-    def __init__(self, modules: Mapping[str, nn.Module], wiring: Sequence[tuple]):
+    def __init__(self, modules: Mapping[str, nn.Module], wiring: Sequence[tuple],
+                 aliases: Mapping[str, str] | None = None):
         super().__init__(modules)
         self.wiring = tuple(wiring)
+        self.aliases = dict(aliases or {})
 
     def forward(self, batch: Mapping[str, Any]) -> dict:
         batch = dict(batch)
         for name, in_keys, out_keys in self.wiring:
             args, kwargs = _gather(batch, in_keys)
-            out = self[name](*args, **kwargs)
+            out = self[self.aliases.get(name, name)](*args, **kwargs)
             if not isinstance(out, tuple):
                 out = (out,)
             if len(out) != len(out_keys):
@@ -91,10 +96,16 @@ def _toposort(modules: Mapping[str, Mapping[str, Any]]) -> list[str]:
 def make_network(modules: Mapping[str, Mapping[str, Any]]) -> ComposedNetwork:
     """Build a :class:`ComposedNetwork` from module configs
     ``{name: {"module": m, "in_keys": [...], "out_keys": [...]}}``, run in
-    the topological order of the key-space DAG."""
+    the topological order of the key-space DAG. A module object declared
+    under several names is held once, under the first of them in that
+    order."""
     order = _toposort(modules)
+    first: dict[int, str] = {}
+    for name in order:
+        first.setdefault(id(modules[name]["module"]), name)
+    owner = {name: first[id(modules[name]["module"])] for name in order}
     return ComposedNetwork(
-        {name: modules[name]["module"] for name in order},
+        {name: modules[name]["module"] for name in order if owner[name] == name},
         [
             (
                 name,
@@ -105,4 +116,5 @@ def make_network(modules: Mapping[str, Mapping[str, Any]]) -> ComposedNetwork:
             )
             for name in order
         ],
+        {name: o for name, o in owner.items() if o != name},
     )

@@ -35,11 +35,23 @@ attention layers and blocks, ``GvpGNNBlock``'s ``in_proj`` and
 e.g. ``dense_i``, ``update``, ``a`` (also GATv2's
 per-head ``DenseGeneral`` ``a``, kernel ``[dh, 1]``),
 ``in_proj``, ``attn_i/W_q``, ``ffn_i_0``
+stacked experts (``MixtureOfExperts``, ``nn.vmap``'s leading expert axis):
+``experts/<path>/kernel [n, in, out]``               ``experts.<path>.weight [n, out, in]``
+                                                     (the last two axes swapped)
+``experts/<path>/bias [n, out]``                     ``experts.<path>.bias`` (same)
+flax's auto-named inner modules, in any path:
+``BatchNorm_0``, ``LayerNorm_0``                     ``batch_norm``, ``layer_norm``
+``DenseRouter_0``, ``SparseRouter_0``                ``dense_router``, ``sparse_router``
 attention readouts (``SDPAttention``, ``DenseSDPAttention``, ``PackedSDPAttention``):
 ``query [1, d]``                                     ``query`` (same)
+running statistics (the ``batch_stats`` collection, ``BatchNorm``):
+``<path>/mean``, ``<path>/var``                      ``<path>.running_mean``,
+                                                     ``<path>.running_var`` (buffers)
 ==================================================  ===================================
 
-The other readouts have no parameters, and so no group.
+The other readouts have no parameters, and so no group. The running
+statistics go in with ``params_from_jax(params, batch_stats)`` and come out
+with :func:`batch_stats_to_jax`; :func:`params_to_jax` leaves them out.
 """
 
 from __future__ import annotations
@@ -51,6 +63,11 @@ import torch
 
 _GROUP = "modules__"
 _LAYER = re.compile(r"layer_(\d+)$")
+# flax's names of inner modules a JAX module creates unnamed -> the port's
+_FLAX_NAMES = {"BatchNorm_0": "batch_norm", "LayerNorm_0": "layer_norm", "DenseRouter_0": "dense_router",
+               "SparseRouter_0": "sparse_router"}
+_PORT_NAMES = {v: k for k, v in _FLAX_NAMES.items()}
+_STATS = {"mean": "running_mean", "var": "running_var"}
 # (kind, the group's JAX keys that name it, its port keys that name it);
 # a group of none of these kinds is a tree of dense layers
 _KINDS = (
@@ -79,22 +96,34 @@ def _kind_of_keys(keys) -> str:
 def _dense_from_jax(sd: dict, prefix: str, tree: dict, t, name: str) -> None:
     """Every flax ``Dense``/``DenseGeneral`` ``{kernel [in, out], bias?}``
     below ``tree`` as an ``nn.Linear``'s ``weight [out, in]`` and ``bias``
-    at its dotted path."""
+    at its dotted path (a stacked kernel ``[n, in, out]`` as ``[n, out,
+    in]``)."""
     if not isinstance(tree, dict) or not tree:
         raise ValueError(f"module {name!r}: cannot tell the parameter layout at {prefix!r}: {tree!r}")
     if "kernel" in tree or "scale" in tree:
-        sd[f"{prefix}.weight"] = t(tree["kernel"]).T.contiguous() if "kernel" in tree else t(tree["scale"])
+        sd[f"{prefix}.weight"] = (t(tree["kernel"]).transpose(-1, -2).contiguous() if "kernel" in tree
+                                  else t(tree["scale"]))
         if "bias" in tree:
             sd[f"{prefix}.bias"] = t(tree["bias"])
         return
     for key, sub in tree.items():
-        _dense_from_jax(sd, f"{prefix}.{key}", sub, t, name)
+        _dense_from_jax(sd, f"{prefix}.{_FLAX_NAMES.get(key, key)}", sub, t, name)
 
 
-def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
-    """JAX ``Model`` params -> the port's ``state_dict`` (see the module
-    docstring for the mapping)."""
-    bad = sorted(k for k in tree if not k.startswith(_GROUP))
+def _stats_from_jax(sd: dict, prefix: str, tree: dict, t) -> None:
+    """The ``batch_stats`` leaves below ``tree`` as ``running_*`` buffers."""
+    for key, sub in tree.items():
+        if key in _STATS:
+            sd[f"{prefix}.{_STATS[key]}"] = t(sub)
+        else:
+            _stats_from_jax(sd, f"{prefix}.{_FLAX_NAMES.get(key, key)}", sub, t)
+
+
+def params_from_jax(tree: dict, batch_stats: dict | None = None) -> dict[str, torch.Tensor]:
+    """JAX ``Model`` params (and the ``batch_stats`` collection of
+    ``state.extra_vars``, where the model has one) -> the port's
+    ``state_dict`` (see the module docstring for the mapping)."""
+    bad = sorted(k for k in {**tree, **(batch_stats or {})} if not k.startswith(_GROUP))
     if bad:
         raise ValueError(f"unexpected parameter groups {bad}: expected {_GROUP}<name>")
     groups = {k[len(_GROUP):]: v for k, v in tree.items()}
@@ -121,6 +150,8 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
             sd[f"{name}.query"] = t(group["query"])
         else:
             _dense_from_jax(sd, name, group, t, name)
+    for group, stats in (batch_stats or {}).items():
+        _stats_from_jax(sd, group[len(_GROUP):], stats, t)
     return sd
 
 
@@ -133,6 +164,8 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
 
     names: dict[str, list[str]] = {}
     for key in state_dict:
+        if key.endswith(tuple(_STATS.values())):
+            continue  # batch_stats_to_jax
         name, _, rest = key.partition(".")
         names.setdefault(name, []).append(rest)
     tree = {}
@@ -160,15 +193,32 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
             group = {}
             for key in keys:
                 *path, leaf = key.split(".")
-                node = group
-                for part in path:
-                    node = node.setdefault(part, {})
+                node = _node(group, path)
                 value = a(state_dict[f"{name}.{key}"])
                 if leaf == "weight" and value.ndim == 1:  # a LayerNorm's scale
                     node["scale"] = value
                 elif leaf == "weight":
-                    node["kernel"] = value.T.copy()
+                    node["kernel"] = value.swapaxes(-1, -2).copy()
                 else:
                     node[leaf] = value
         tree[f"{_GROUP}{name}"] = group
+    return tree
+
+
+def _node(tree: dict, path: list[str]) -> dict:
+    """The subtree of ``tree`` at the port's dotted ``path`` (flax names)."""
+    for part in path:
+        tree = tree.setdefault(_PORT_NAMES.get(part, part), {})
+    return tree
+
+
+def batch_stats_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
+    """The running statistics of the port's ``state_dict`` as the JAX
+    ``batch_stats`` collection (numpy leaves; empty when there are none)."""
+    tree: dict = {}
+    stats = {v: k for k, v in _STATS.items()}
+    for key, value in state_dict.items():
+        *path, leaf = key.split(".")
+        if leaf in stats:
+            _node(tree, [f"{_GROUP}{path[0]}", *path[1:]])[stats[leaf]] = value.detach().cpu().numpy()
     return tree

@@ -5,8 +5,11 @@ Port of ``notorch_tpu.model.model.Model``. What the JAX package keeps in a
 ``TrainState`` lives here in objects: the parameters in the network's
 modules (``Model.network``, an ``nn.Module``), the optimizer state in
 ``Model.optimizer``, the schedule's position in ``Model.scheduler`` and the
-update count in ``Model.step``. No RNG is kept: the ported layout has no
-dropout. Logging keys are the JAX package's: ``train/<name>``,
+update count in ``Model.step``. A module that draws noise in training (the
+sparse MoE router) keeps its own ``torch.Generator`` in ``generator``; the
+training state carries every such generator's state, as the JAX state
+carries its RNG. Running statistics (``BatchNorm``'s ``batch_stats``) are
+buffers of their modules, in the ``state_dict``. Logging keys are the JAX package's: ``train/<name>``,
 ``train/loss``, ``val/<name>``, ``val/loss`` and the ``_count/val/<name>``
 weights that :func:`~notorch_tpu_torch.training.loop.evaluate` averages by.
 """
@@ -81,17 +84,23 @@ class Model:
         declaration order (flax's initializer families; see
         :mod:`notorch_tpu_torch.nn.init`)."""
         for name in self.declared:
-            module = self.network[name]
+            module = self.network[name] if name in self.network else None  # None: an alias
             if hasattr(module, "reset_parameters"):
                 module.reset_parameters(generator)
 
     # -- training state -----------------------------------------------------
+    def generators(self) -> dict[str, torch.Generator]:
+        """The noise generators of the network's modules, by module path."""
+        return {name: m.generator for name, m in self.network.named_modules()
+                if isinstance(getattr(m, "generator", None), torch.Generator)}
+
     def train_state_dict(self) -> dict:
-        """Everything but the parameters that a resumed run needs."""
+        """Everything but the parameters and buffers that a resumed run needs."""
         return {
             "optimizer": self.optimizer.state_dict(),
             "scheduler": None if self.scheduler is None else self.scheduler.state_dict(),
             "step": self.step,
+            "generators": {name: g.get_state() for name, g in self.generators().items()},
         }
 
     def load_train_state_dict(self, state: Mapping) -> None:
@@ -99,6 +108,8 @@ class Model:
         if self.scheduler is not None:
             self.scheduler.load_state_dict(state["scheduler"])
         self.step = int(state["step"])
+        for name, g in self.generators().items():
+            g.set_state(state["generators"][name])
 
     # -- shared pieces ------------------------------------------------------
     def _apply_transforms(self, batch: dict, mode: str) -> dict:

@@ -24,10 +24,10 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator 
     return torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
-def dense(in_features: int, out_features: int) -> torch.nn.Linear:
+def dense(in_features: int, out_features: int, bias: bool = True) -> torch.nn.Linear:
     """An ``nn.Linear`` whose storage is left empty: its values come from
     :func:`reset_dense_`, never from the global RNG."""
-    return torch.nn.Linear(in_features, out_features, device="meta").to_empty(device="cpu")
+    return torch.nn.Linear(in_features, out_features, bias=bias, device="meta").to_empty(device="cpu")
 
 
 @torch.no_grad()

@@ -11,6 +11,7 @@ from notorch_tpu_torch.transforms.bond import (
 )
 from notorch_tpu_torch.transforms.chem import SmiToMol, add_hs
 from notorch_tpu_torch.transforms.graph import MolToGraph
+from notorch_tpu_torch.transforms.mol import MolToFP, morgan
 
 __all__ = [
     "AtomTransform",
@@ -18,6 +19,7 @@ __all__ = [
     "BondTypeOnlyTransform",
     "ElementOnlyAtomTransform",
     "GraphTransform",
+    "MolToFP",
     "MolToGraph",
     "MultiTypeAtomTransform",
     "MultiTypeBondTransform",
@@ -25,4 +27,5 @@ __all__ = [
     "SmiToMol",
     "Transform",
     "add_hs",
+    "morgan",
 ]

@@ -43,6 +43,8 @@ def test_port_imports_no_jax():
                  "models.spatial",
                  "data.dataset", "data.batching", "cli.predict", "cli.registry", "cli.train", "tasks.losses", "tasks.metrics",
                  "training.loop", "training.checkpoint", "training.optim", "training.schedulers",
+                 "nn.functional", "nn.glue", "nn.moe", "models.multicomponent", "models.pretrain",
+                 "chem.fingerprint", "transforms.mol", "transforms.reaction",
                  "__main__"):
         assert f"notorch_tpu_torch.{name}" in report["modules"]
     assert report["banned"] == []
