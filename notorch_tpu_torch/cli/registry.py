@@ -7,10 +7,6 @@ first), under the JAX package's names. ``MetricMAE`` is the metric and
 ``MAE`` the loss, as there. ``adam``, ``adamw`` and ``sgd`` build the
 port's :class:`~notorch_tpu_torch.training.optim.OptimizerSpec`.
 
-Every other name the JAX registry knows raises ``NotImplementedError``
-naming the slice of the port it comes with (``ROADMAP.md`` queue A), not
-``KeyError``, so a config written for the JAX package says what is missing.
-
 A DOTTED name (``mypkg.blocks.MyBlock``) resolves by import behind the same
 gate as in the JAX package: instantiating an import path named by a config
 is code execution, so it is opt-in, by :func:`allow_imports` or by listing
@@ -27,10 +23,6 @@ from typing import Any, Callable
 
 REGISTRY: dict[str, Callable] = {}
 TRUSTED_MODULES_ENV = "NOTORCH_TPU_TORCH_TRUSTED_MODULES"
-
-_SPATIAL = "the rest of the spatial slice (SchNet, PaiNN, SDF point clouds; ROADMAP.md queue A item 4)"
-# every other name of notorch_tpu.cli.registry, with the slice that ports it
-LATER: dict[str, str] = dict.fromkeys(["GatedEquivariantBlock", "SchnetBlock", "MolToPointCloud"], _SPATIAL)
 
 _ALLOW_IMPORTS = False
 
@@ -76,8 +68,6 @@ def resolve(name: str) -> Callable:
         return REGISTRY[name]
     except KeyError:
         pass
-    if name in LATER:
-        raise NotImplementedError(f"{name!r} is not ported yet: it comes with {LATER[name]}")
     if "." in name:
         return _resolve_import(name)
     raise KeyError(f"unknown component {name!r}; known: {sorted(REGISTRY)}")
@@ -115,7 +105,9 @@ def _populate() -> None:
     from notorch_tpu_torch.nn.rbf import RBFEmbedding
     from notorch_tpu_torch.nn.spatial import agg as spatial_agg
     from notorch_tpu_torch.nn.spatial.gvp import GvpGNNBlock
+    from notorch_tpu_torch.nn.spatial.painn import GatedEquivariantBlock
     from notorch_tpu_torch.nn.spatial.pointwise import Pointwise, PointwiseEmbed
+    from notorch_tpu_torch.nn.spatial.schnet import SchnetBlock
     from notorch_tpu_torch.tasks import losses, metrics
     from notorch_tpu_torch.training.optim import OptimizerSpec
     from notorch_tpu_torch.transforms import (
@@ -126,6 +118,7 @@ def _populate() -> None:
         Pipeline,
         SmiToMol,
     )
+    from notorch_tpu_torch.transforms.point_cloud import MolToPointCloud
     from notorch_tpu_torch.transforms.reaction import RxnToGraph
 
     for cls in [
@@ -150,6 +143,8 @@ def _populate() -> None:
         DenseGATBlock,
         MLP,
         GvpGNNBlock,
+        GatedEquivariantBlock,
+        SchnetBlock,
         Pointwise,
         PointwiseEmbed,
         RBFEmbedding,
@@ -170,6 +165,7 @@ def _populate() -> None:
         MolToFP,
         SmiToMol,
         RxnToGraph,
+        MolToPointCloud,
         MultiTypeAtomTransform,
         MultiTypeBondTransform,
         Pipeline,

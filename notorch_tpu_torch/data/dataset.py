@@ -1,10 +1,10 @@
 """Dataset: table rows -> featurized samples -> collated host batches.
 
-Port of ``notorch_tpu.data.dataset``: per-sample transform chains, target
-attachment, and a collate that produces ``inputs.*`` / ``targets.*`` keys
-in the flat, per-molecule ``dense`` or bin-packed ``dense_packed`` layout;
-batches stay numpy arrays on the host until the caller moves them to a
-device.
+Port of ``notorch_tpu.data.dataset``: per-sample database lookups
+(:class:`DatabaseManager`), then transform chains, target attachment, and
+a collate that produces ``inputs.*`` / ``targets.*`` keys in the flat,
+per-molecule ``dense`` or bin-packed ``dense_packed`` layout; batches stay
+numpy arrays on the host until the caller moves them to a device.
 """
 
 from __future__ import annotations
@@ -42,6 +42,22 @@ class TransformManager:
 
 
 @dataclass
+class DatabaseManager:
+    """Adapt a Database: fetch ``db[sample[in_key]]`` into ``out_key``."""
+
+    db: Any
+    in_key: str = "index"
+    out_key: str = "X"
+
+    def update(self, sample: dict) -> dict:
+        sample[self.out_key] = self.db[sample[self.in_key]]
+        return sample
+
+    def collate(self, values: list, **kwargs):
+        return self.db.collate(values)
+
+
+@dataclass
 class TargetSpec:
     """Columns + task type for one target group."""
 
@@ -60,14 +76,16 @@ class MolecularDataset:
     object with ``to_dict("records")`` (a DataFrame).
 
     ``transforms``: featurization chains (``TransformManager`` or bare
-    transforms), applied in order. ``targets``: named target groups read
-    from the table's columns.
+    transforms), applied in order. ``databases``: keyed feature stores
+    (``DatabaseManager``), looked up for each sample before its transforms
+    run. ``targets``: named target groups read from the table's columns.
     """
 
     def __init__(
         self,
         df,
         transforms: Mapping[str, Any],
+        databases: Mapping[str, DatabaseManager] | None = None,
         targets: Mapping[str, TargetSpec] | None = None,
     ):
         if hasattr(df, "to_dict"):
@@ -80,6 +98,7 @@ class MolecularDataset:
             name: t if isinstance(t, TransformManager) else TransformManager(t)
             for name, t in transforms.items()
         }
+        self.databases = dict(databases or {})
         self.targets = dict(targets or {})
         self._target_arrays = {
             name: self._extract_targets(spec) for name, spec in self.targets.items()
@@ -108,6 +127,8 @@ class MolecularDataset:
     def __getitem__(self, idx: int) -> dict:
         sample = dict(self.records[idx])
         sample["index"] = idx
+        for mgr in self.databases.values():
+            mgr.update(sample)
         for mgr in self.transforms.values():
             mgr.update(sample)
         return sample
@@ -135,11 +156,12 @@ class MolecularDataset:
         batch: dict[str, Any] = {}
         b_cap = batch_cap if batch_cap is not None else len(samples)
 
-        for mgr in self.transforms.values():
+        for mgr in {**self.databases, **self.transforms}.values():
             values = [s[mgr.out_key] for s in samples]
             if not (values and isinstance(values[0], Graph)):
-                # the transform's own collate (a fingerprint's [B, length]
-                # array, padded to the batch's slots; a list of molecules)
+                # the manager's own collate (a fingerprint's or a feature
+                # database's [B, width] array, padded to the batch's slots; a
+                # list of molecules; padded point clouds)
                 collated = mgr.collate(values)
                 if isinstance(collated, np.ndarray):
                     collated = _pad_rows(collated, b_cap, fill=0.0)

@@ -24,7 +24,11 @@ stacked layers (the dense blocks, ``ChempropBlock``):
 dense layers (``MLP``, ``ChempropLayer``, the gated readouts, the
 attention layers and blocks, ``GvpGNNBlock``'s ``in_proj`` and
 ``layer_i/{conv/message_j,update_j}/{W_h,W_mu,W_m,W_g}`` with the
-``conv/ln/scalar_ln`` and ``ln/scalar_ln`` LayerNorms), at any depth of nesting:
+``conv/ln/scalar_ln`` and ``ln/scalar_ln`` LayerNorms, ``SchnetBlock``'s
+``interaction_i/{in_proj,cfconv/filter_j,out_proj_j}``,
+``GatedEquivariantBlock``'s ``W_1``, ``W_2`` (no bias) and ``mlp_j``; a
+group named by ``layer_i`` entries is dense unless each holds one
+``update``), at any depth of nesting:
 ``<path>/kernel [in, out]``                          ``<path>.weight [out, in]``
                                                      (transposed for ``nn.Linear``;
                                                      ``<path>`` ``/`` -> ``.``)

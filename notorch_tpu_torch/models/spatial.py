@@ -1,16 +1,17 @@
-"""The spatial (3D) property predictor (``model.kind: spatial``): pointwise
-embedding -> GVP block -> spatial readout -> MLP head.
+"""The spatial (3D) property predictors (``model.kind: spatial``): pointwise
+embedding -> SchNet or GVP block -> spatial readout -> MLP head.
 
-Port of ``notorch_tpu.models.spatial`` for ``backbone="gvp"``: the JAX
-recipe's modules (``embed``, ``backbone``, ``readout``, ``ffn``), the
-task's loss named ``loss`` on ``target_key`` and Adam at
-``learning_rate``. The head is ``(num_tasks, k)`` wide for the task types
-of several outputs a task, with ``k`` 2 for multiclass and dirichlet (the
-JAX recipe has no ``num_classes``). Its block is
-built with the default ``impl`` (``"auto"``, the plain tensor ops), as the
-JAX recipe builds it, so no kernel runs on this path in either package; the
-kernels are reached by a ``GvpGNNBlock(impl: fused)`` in a declarative
-config. ``backbone="schnet"`` raises ``NotImplementedError``.
+Port of ``notorch_tpu.models.spatial``: the JAX recipe's modules
+(``embed``, ``backbone``, ``readout``, ``ffn``), the task's loss named
+``loss`` on ``target_key`` and Adam at ``learning_rate``. The head is
+``(num_tasks, k)`` wide for the task types of several outputs a task, with
+``k`` 2 for multiclass and dirichlet (the JAX recipe has no
+``num_classes``). ``backbone="schnet"`` (the default) builds a
+:class:`~notorch_tpu_torch.nn.spatial.schnet.SchnetBlock`, whose neighbour
+gathers take their gradient through row 8 on the card; ``"gvp"`` a
+``GvpGNNBlock`` with the default ``impl`` (``"auto"``, the plain tensor
+ops), as the JAX recipe builds it, so rows 14-15 are reached only by a
+``GvpGNNBlock(impl: fused)`` in a declarative config.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from notorch_tpu_torch.nn.mlp import MLP
 from notorch_tpu_torch.nn.spatial import agg as spatial_agg
 from notorch_tpu_torch.nn.spatial.gvp import GvpGNNBlock
 from notorch_tpu_torch.nn.spatial.pointwise import PointwiseEmbed
+from notorch_tpu_torch.nn.spatial.schnet import SchnetBlock
 from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES
 
@@ -33,8 +35,6 @@ SPATIAL_AGGREGATIONS = {
     "max": spatial_agg.Max,
     "gated": spatial_agg.Gated,
 }
-# the rest of the spatial slice, which no TPU kernel runs (ROADMAP.md queue A)
-LATER_SPATIAL = "the rest of the spatial slice (SchNet, PaiNN, SDF point clouds)"
 
 
 def build_spatial_model(
@@ -58,16 +58,18 @@ def build_spatial_model(
     """The JAX recipe's model, its parameters drawn from ``generator`` and
     built on the CPU. ``neighbor_window`` is the banded neighbour search,
     valid whenever every cloud has at most ``window + 1`` atoms."""
-    if backbone == "schnet":
-        raise NotImplementedError(f"backbone 'schnet' is not ported yet: it comes with {LATER_SPATIAL}")
-    if backbone != "gvp":
-        raise ValueError(f"unknown spatial backbone {backbone!r}")
     if task not in _LOSSES:
         raise ValueError(f"unknown task {task!r}; options: {list(_LOSSES)}")
     if aggregation not in SPATIAL_AGGREGATIONS:
         raise ValueError(f"unknown aggregation {aggregation!r}; options: {sorted(SPATIAL_AGGREGATIONS)}")
-    block = GvpGNNBlock(scalar_dim=hidden_dim, vector_dim=max(hidden_dim // 8, 4), depth=depth, radius=radius,
-                        max_neighbors=max_neighbors, neighbor_window=neighbor_window)
+    if backbone == "schnet":
+        block = SchnetBlock(hidden_dim=hidden_dim, depth=depth, radius=radius, max_neighbors=max_neighbors,
+                            neighbor_window=neighbor_window)
+    elif backbone == "gvp":
+        block = GvpGNNBlock(scalar_dim=hidden_dim, vector_dim=max(hidden_dim // 8, 4), depth=depth, radius=radius,
+                            max_neighbors=max_neighbors, neighbor_window=neighbor_window)
+    else:
+        raise ValueError(f"unknown spatial backbone {backbone!r}")
     readout = SPATIAL_AGGREGATIONS[aggregation]
     output_size = head_size(num_tasks, _HEAD_WIDTH.get(task, 2))
     modules = {

@@ -43,3 +43,16 @@ def embed_normal_(weight: torch.Tensor, generator: torch.Generator | None = None
     """``flax.linen.Embed``'s default: normal with variance ``1 / features``
     for a ``[num_embeddings, features]`` table."""
     return weight.normal_(0.0, math.sqrt(1.0 / weight.shape[-1]), generator=generator)
+
+
+@torch.no_grad()
+def reset_module_(module: torch.nn.Module, generator: torch.Generator | None = None) -> None:
+    """flax's defaults for every dense layer (lecun-normal kernel, zero
+    bias) and LayerNorm (unit scale, zero bias) below ``module``, in
+    declaration order."""
+    for m in module.modules():
+        if isinstance(m, torch.nn.Linear):
+            reset_dense_(m, generator)
+        elif isinstance(m, torch.nn.LayerNorm):
+            torch.nn.init.ones_(m.weight)
+            torch.nn.init.zeros_(m.bias)

@@ -33,7 +33,7 @@ from torch import nn
 
 from notorch_tpu_torch.data.point_cloud import BatchedPointCloud
 from notorch_tpu_torch.kernels.gvp_conv import fused_gvp_conv, split_gvp_weights
-from notorch_tpu_torch.nn.init import dense, reset_dense_
+from notorch_tpu_torch.nn.init import dense, reset_module_
 from notorch_tpu_torch.nn.ops import segment_mean, segment_sum, take
 from notorch_tpu_torch.nn.rbf import RBFEmbedding
 from notorch_tpu_torch.nn.spatial.neighbors import radius_neighbors
@@ -45,17 +45,6 @@ IMPLS = ("auto", "fused", "jnp")
 
 def _norm(v: torch.Tensor, axis: int = -2, keepdims: bool = False) -> torch.Tensor:
     return torch.sqrt((v**2).sum(dim=axis, keepdim=keepdims) + EPS)
-
-
-def _reset_all(module: nn.Module, generator: torch.Generator | None) -> None:
-    """flax's defaults for every dense layer (lecun-normal kernel, zero
-    bias) and LayerNorm (unit scale, zero bias) below ``module``."""
-    for m in module.modules():
-        if isinstance(m, nn.Linear):
-            reset_dense_(m, generator)
-        elif isinstance(m, nn.LayerNorm):
-            nn.init.ones_(m.weight)
-            nn.init.zeros_(m.bias)
 
 
 def _no_bias_dense(in_features: int, out_features: int) -> nn.Linear:
@@ -78,7 +67,7 @@ class GVP(nn.Module):
         self.vector_act = vector_act
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        _reset_all(self, generator)
+        reset_module_(self, generator)
 
     def forward(self, sv: tuple[torch.Tensor, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
         s, v = sv  # [*, ds], [*, 3, dv]
@@ -105,7 +94,7 @@ class GatedGVP(nn.Module):
         self.vector_act = vector_act
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        _reset_all(self, generator)
+        reset_module_(self, generator)
 
     def forward(self, sv: tuple[torch.Tensor, torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
         s, v = sv
@@ -135,7 +124,7 @@ class DualRankLayerNorm(nn.Module):
         self.scalar_ln = nn.LayerNorm(scalar_dim, eps=1e-6)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        _reset_all(self, generator)
+        reset_module_(self, generator)
 
     def forward(self, sv):
         s, v = sv
@@ -214,7 +203,7 @@ class GvpConv(nn.Module):
         self.ln = DualRankLayerNorm(ds)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        _reset_all(self, generator)
+        reset_module_(self, generator)
 
     def _use_fused(self, N: int) -> bool:
         if self.impl != "fused":
@@ -285,7 +274,7 @@ class GvpGNNLayer(nn.Module):
         self.ln = DualRankLayerNorm(scalar_dim)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        _reset_all(self, generator)
+        reset_module_(self, generator)
 
     def forward(self, sv, P: BatchedPointCloud, neighbors: tuple | None = None):
         s, v = self.conv(sv, P, neighbors=neighbors)
@@ -314,7 +303,7 @@ class GvpGNNBlock(nn.Module):
                                                       dtype=dtype, neighbor_window=neighbor_window, impl=impl))
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
-        _reset_all(self, generator)
+        reset_module_(self, generator)
 
     def forward(self, P: BatchedPointCloud) -> BatchedPointCloud:
         s = self.in_proj(P.node_feats)

@@ -36,6 +36,7 @@ from notorch_tpu_torch.cli.train import build_dataset
 from notorch_tpu_torch.data.batching import DataLoader
 from notorch_tpu_torch.model.convert import params_from_jax
 from notorch_tpu_torch.training.loop import fit, to_device
+from tests.test_torch_spatial import few_torch_threads  # noqa: F401 (autouse: the thread cap)
 
 RECIPE = chip_smoke.CALM_ATTENTION
 

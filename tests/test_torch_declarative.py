@@ -42,6 +42,7 @@ from notorch_tpu_torch.nn.chemprop_dense import DenseMean, FusedDenseChempropBlo
 from notorch_tpu_torch.training.loop import predict, to_device
 from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
+from tests.test_torch_spatial import spatial_names_build_and_equal_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, BATCH, D = 96, 16, 16
@@ -98,16 +99,12 @@ def datasets(lipo_csv):
 # -- the registry ---------------------------------------------------------------
 
 def test_registry_names_match_jax_and_refuse_later_slices():
-    """Every name of the JAX registry resolves in the port or raises
-    NotImplementedError naming the slice that brings it; the port registers
-    no name of its own."""
-    assert set(registry.REGISTRY) <= set(jax_registry.REGISTRY)
+    """Every name of the JAX registry resolves in the port (the spatial
+    names, the last refused, build and equal JAX's); the port registers no
+    name of its own."""
+    assert set(registry.REGISTRY) == set(jax_registry.REGISTRY)
     for name in jax_registry.REGISTRY:
-        if name in registry.REGISTRY:
-            assert callable(registry.resolve(name))
-            continue
-        with pytest.raises(NotImplementedError, match="slice"):
-            registry.resolve(name)
+        assert callable(registry.resolve(name))
     for name in ("DenseGraphEmbedding", "DenseChempropBlock", "FusedDenseChempropBlock", "DenseSum",
                  "DenseMean", "DenseMax", "MLP", "MSE", "MAE", "RMSE", "MetricMAE", "adam", "adamw",
                  "BinaryCrossEntropy", "CrossEntropy", "Dirichlet", "Evidential", "MVE", "AUROC", "AUPRC", "F1",
@@ -115,9 +112,7 @@ def test_registry_names_match_jax_and_refuse_later_slices():
         assert name in registry.REGISTRY, name
     for name in ("MolToFP", "RxnToGraph", "MoEMLP", "MixtureOfExperts", "SparseRouter", "BatchNorm", "Cat"):
         assert name in registry.REGISTRY, name
-    for name in ("SchnetBlock", "MolToPointCloud", "GatedEquivariantBlock"):
-        with pytest.raises(NotImplementedError, match="rest of the spatial slice"):
-            registry.resolve(name)
+    spatial_names_build_and_equal_jax()
     # MetricMAE is the metric, MAE the loss, as in the JAX registry
     assert registry.resolve("MetricMAE").__module__.endswith("tasks.metrics")
     assert registry.resolve("MAE").__module__.endswith("tasks.losses")

@@ -214,8 +214,10 @@ def test_build_gat_refusals():
         gat.build_gat(hidden_dim=8, task="ranking")
     with pytest.raises(ValueError, match="aggregation"):
         gat.build_gat(hidden_dim=8, aggregation="median")
-    with pytest.raises(NotImplementedError, match="spatial slice"):
-        build_model({"kind": "spatial"}, None)
+    # the spatial kind, once refused, builds the JAX recipe's default: SchNet,
+    # its tree under the JAX names (held equal to JAX's in test_torch_spatial.py)
+    spatial = params_to_jax(build_model({"kind": "spatial", "hidden_dim": 8}, None).network.state_dict())
+    assert sorted(spatial["modules__backbone"]) == ["interaction_0", "interaction_1", "interaction_2"]
     with pytest.raises(ValueError, match="unknown model kind"):
         build_model({"kind": "transformer"}, None)
 

@@ -47,7 +47,7 @@ from notorch_tpu_torch.nn.spatial.gvp import nbr_take
 from notorch_tpu_torch.nn.spatial.neighbors import radius_neighbors
 from notorch_tpu_torch.training.loop import fit, to_device
 from notorch_tpu_torch.training.optim import OptimizerSpec
-from tests.test_torch_spatial import declarative_gvp_cfg, jax_batch
+from tests.test_torch_spatial import declarative_gvp_cfg, few_torch_threads, jax_batch  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # chip_smoke.py's GVP lockstep: each step's loss (relative) and each

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from notorch_tpu.cli import registry as jax_registry
 from notorch_tpu.cli import train as jax_train_cli
 from notorch_tpu.model.model import Model as JaxModel
 from notorch_tpu.models.pretrain import MaskAtoms as JaxMaskAtoms
@@ -38,6 +39,7 @@ from notorch_tpu_torch.models.pretrain import MaskAtoms, MaskedNodeCrossEntropy,
 from notorch_tpu_torch.training.loop import to_device
 from notorch_tpu_torch.transforms import MolToGraph, Pipeline, SmiToMol
 from tests.test_torch_glue import close_grad
+from tests.test_torch_spatial import spatial_names_build_and_equal_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -164,8 +166,9 @@ def test_pretrain_run_gate_catches_a_scaled_weight(jax_pretrain_run, tmp_path, m
 
 def test_what_stays_unported_raises_naming_its_slice(tmp_path):
     """trainer.spmd (pretraining and supervised), the molecule-partitioned
-    loss and graph-axis pretraining name the parallel slice; SchNet, PaiNN
-    and SDF point clouds the rest of the spatial slice."""
+    loss and graph-axis pretraining name the parallel slice. The spatial
+    names, once refused, build and equal JAX's, and every name of the JAX
+    registry resolves."""
     cfg = pretrain_cfg(tmp_path / "spmd", spmd={"data": 4, "graph": 2})
     with pytest.raises(NotImplementedError, match="parallel slice"):
         run(cfg, device="cpu")
@@ -176,7 +179,6 @@ def test_what_stays_unported_raises_naming_its_slice(tmp_path):
         MaskedNodeCrossEntropy(psum_axis="graph")
     with pytest.raises(NotImplementedError, match="parallel slice"):
         build_masked_atom_pretrainer(hidden_dim=8, depth=1, graph_axis="graph")
-    for name in ("SchnetBlock", "MolToPointCloud", "GatedEquivariantBlock"):
-        with pytest.raises(NotImplementedError, match="rest of the spatial slice"):
-            registry.resolve(name)
-    assert sorted(registry.LATER) == ["GatedEquivariantBlock", "MolToPointCloud", "SchnetBlock"]
+    spatial_names_build_and_equal_jax()
+    assert not hasattr(registry, "LATER")
+    assert set(registry.REGISTRY) == set(jax_registry.REGISTRY)

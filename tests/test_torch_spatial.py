@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from notorch_tpu.cli import registry as jax_registry
 from notorch_tpu.cli.train import build_model as jax_build_model
 from notorch_tpu.data.point_cloud import PointCloud as JaxPointCloud
 from notorch_tpu.data.point_cloud import pad_point_clouds as jax_pad_point_clouds
@@ -52,6 +53,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-4, atol=1e-4)
 D, BATCH = 32, 16
 KEYS = {"preds": "ffn.preds", "targets": "targets.y", "mask": "targets.y_mask"}
+# the tier-1 command runs six pytest workers on eight cores: at torch's
+# default of a thread a core their threads outnumber the cores many times
+# over, and this file's full-width GVP run took ten times its time alone.
+# Its tests, and those of the other full-width drift files, which import
+# few_torch_threads, run at TEST_THREADS (the GVP and attention gates drift
+# alike at 1 and 8 threads)
+TEST_THREADS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def few_torch_threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(TEST_THREADS)
+    yield
+    torch.set_num_threads(threads)
 
 
 def declarative_gvp_cfg(d=D, dv=8, depth=2, impl="fused", readout="SpatialSum"):
@@ -200,23 +216,69 @@ def test_gvp_layers_and_layer_norm_equal_jax():
     np.testing.assert_allclose(mv[0].numpy(), sv[1].numpy()[real].mean(0), **TOL)
 
 
+def spatial_names_build_and_equal_jax() -> None:
+    """SchnetBlock, GatedEquivariantBlock and MolToPointCloud, each built by
+    name through both registries: the blocks' outputs on shared weights and
+    the transform's point cloud of an SDF mol block agree."""
+    clouds = make_clouds(3, seed=2)
+    P = pad_point_clouds(clouds, 128)
+    feats = np.random.default_rng(3).standard_normal((128, 16)).astype(np.float32)
+    jP = jax_pad_point_clouds([JaxPointCloud(c.node_types, c.coords) for c in clouds], 128)
+    jP = jP.replace(node_feats=jnp.asarray(feats))
+    sv = (np.random.default_rng(4).standard_normal((10, 6)).astype(np.float32),
+          np.random.default_rng(5).standard_normal((10, 3, 4)).astype(np.float32))
+    cases = (({"class": "SchnetBlock", "args": {"hidden_dim": 16, "depth": 1, "max_neighbors": 8}},
+              (jP,), (P.to("cpu").update(node_feats=torch.from_numpy(feats)),), lambda out: out.node_feats),
+             ({"class": "GatedEquivariantBlock", "args": {"scalar_dim": 6, "vector_dim": 4}},
+              ((jnp.asarray(sv[0]), jnp.asarray(sv[1])),), ((torch.from_numpy(sv[0]), torch.from_numpy(sv[1])),),
+              lambda out: torch.cat([out[0].flatten(), out[1].flatten()]) if isinstance(out[0], torch.Tensor)
+              else jnp.concatenate([out[0].ravel(), out[1].ravel()])))
+    for spec, jargs, args, value in cases:
+        jmod, mod = jax_registry.build(spec), registry.build(spec)
+        variables = jmod.init(jax.random.PRNGKey(0), *jargs)
+        mod.load_state_dict({k.split(".", 1)[1]: t for k, t in
+                             params_from_jax({"modules__m": jax.device_get(variables["params"])}).items()})
+        np.testing.assert_allclose(value(mod(*args)).detach().numpy(), np.asarray(value(jmod.apply(variables, *jargs))),
+                                   **TOL)
+    from notorch_tpu.data.databases import _parse_molblock as jax_parse_molblock
+    from notorch_tpu_torch.data.databases import _parse_molblock
+
+    from .test_databases import MOLBLOCK
+
+    block = MOLBLOCK.split("$$$$")[0]
+    ours, ref = registry.build("MolToPointCloud")(_parse_molblock(block)), jax_registry.build("MolToPointCloud")(
+        jax_parse_molblock(block))
+    np.testing.assert_array_equal(ours.node_types, ref.node_types)
+    np.testing.assert_array_equal(ours.coords, ref.coords)
+
+
 def test_registry_builds_the_spatial_names():
     for name in ("GvpGNNBlock", "PointwiseEmbed", "Pointwise", "RBFEmbedding", "SpatialSum", "SpatialMean",
-                 "SpatialMax", "SpatialGated"):
+                 "SpatialMax", "SpatialGated", "SchnetBlock", "GatedEquivariantBlock", "MolToPointCloud"):
         assert registry.resolve(name) is not None
-    for name in ("SchnetBlock", "GatedEquivariantBlock", "MolToPointCloud"):
-        with pytest.raises(NotImplementedError, match="rest of the spatial slice"):
-            registry.resolve(name)
+    spatial_names_build_and_equal_jax()
     block = registry.build({"class": "GvpGNNBlock", "args": {"scalar_dim": 16, "vector_dim": 4, "depth": 1,
                                                                "input_dim": 8}})
     assert block.in_proj.in_features == 8
 
 
 def test_spatial_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="rest of the spatial slice"):
-        build_spatial_model(backbone="schnet")
-    with pytest.raises(NotImplementedError, match="rest of the spatial slice"):
-        build_model({"kind": "spatial"}, None)  # the JAX default backbone is schnet
+    """The default backbone, schnet, builds in both packages with the same
+    parameter tree; the CLIs refuse every spatial model (no point clouds
+    from SMILES), as the JAX CLIs do."""
+    import optax
+
+    cfg = {"kind": "spatial", "hidden_dim": 16}
+    ours, ref = build_model(cfg, None), jax_build_model(cfg, None, optax.adam(1e-3))
+    assert type(ours.network["backbone"]).__name__ == "SchnetBlock"
+    clouds = make_clouds(4, seed=0)
+    batch = jax_batch(cloud_batches(clouds, coordination_targets(clouds), batch_size=4)[0])
+    params = jax.device_get(ref.init(jax.random.PRNGKey(0), batch).params)
+    assert sorted(params["modules__backbone"]) == ["interaction_0", "interaction_1", "interaction_2"]
+    ours.network.load_state_dict(params_from_jax(params))  # strict: the same tree
+    assert jax.tree.structure(params_to_jax(ours.network.state_dict())) == jax.tree.structure(params)
+    with pytest.raises(ValueError, match="no point clouds"):
+        run({"data": {"csv": "x.csv"}, "model": {"kind": "spatial"}}, device="cpu")
     with pytest.raises(ValueError, match="unknown spatial backbone"):
         build_spatial_model(backbone="painn")
     with pytest.raises(ValueError, match="aggregation"):
