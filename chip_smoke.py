@@ -97,15 +97,35 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
   back through ``SDFDatabase``, ``MolecularDataset(databases=...)`` with
   ``MolToPointCloud`` and the loader, one epoch of ``fit`` (in lockstep
   with the CPU) and a ``predict`` on the card against the CPU;
-- repeat: the nine paths' models (the recipe, its declarative twin,
+- train/serve dropout and max: ``configs/dmpnn_regression.yaml`` with
+  ``model.dropout: 0.1`` (auto -> the plain ``dense`` layout: the plain
+  block, edge dropout on each layer's update and in the FFN, no kernel but
+  row 8 in the embeddings' backward) and with ``model.reduce: max``
+  (``dense_packed`` -> the plain block over the packed bins), 2 epochs of
+  ``run(cfg)`` each on 1,024 molecules, card against CPU epoch by epoch at
+  TRAIN_RTOL (the dropout masks are the same on both devices), a warm
+  epoch timed and profiled (with the masks' share of it), then served, 512
+  molecules card against CPU;
+- dropout lockstep: LOCKSTEP_STEPS steps at dropout 0.1, card against CPU
+  from the same weights and dropout streams, of the declarative graph
+  transformer (rows 12-13 in every layer), ``configs/gat_regression.yaml``
+  and the declarative GVP model;
+- train/serve bf16 block: the declarative whole encoder with
+  ``matmul_dtype: bfloat16, stash_dtype: bfloat16`` (rows 5-6's bf16
+  instantiations) for 2 epochs, card against CPU at BF16_RUN_RTOL and every
+  step in lockstep, then served at the bf16 hold; then the block alone
+  (``fuse_ends: false``; rows 1-4's bf16 instantiations) for LOCKSTEP_STEPS
+  steps in lockstep with each backward and a served batch;
+- repeat: the eleven paths' models (the recipe, its declarative twin,
   ``impl: csr``, the declarative graph transformer, the declarative GVP
   model, the GVP recipe, the classification model, whose masked BCE
-  runs over NaN-filled targets, the multicomponent model and the SchNet
-  recipe) each take 3
+  runs over NaN-filled targets, the multicomponent model, the SchNet
+  recipe, the recipe at dropout 0.1 and the bf16 encoder) each take 3
   training steps twice from the
   same weights, and every parameter and Adam state tensor must have the
   same bits: every sum of the glue is fixed-order (``nn/ops.py``
-  ``segment_sum`` and ``take`` through row 8);
+  ``segment_sum`` and ``take`` through row 8), and the dropout masks come
+  from the models' own generators;
 - train attention calm: the calm attention recipe (hidden 32, Adam at
   1e-4) whole-run, card against CPU at ATTENTION_CALM_RTOL.
 
@@ -114,8 +134,9 @@ the packed block's node scatter and the backward of every gather), and each
 path's launch counts expect it there.
 
 Every kernel is held against its plain PyTorch version on the card at the
-shapes these paths give it, each path's launch counts are read, and the
-kernels are timed. Each phase prints one JSON line; then come a ``kernels``
+shapes these paths give it (rows 1-6's bf16 instantiations too, at the
+BF16 tolerances, each twice for the same bits), each path's launch counts
+are read, and the kernels are timed. Each phase prints one JSON line; then come a ``kernels``
 line, the card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
 line; so does a machine with no CUDA device.
@@ -173,6 +194,7 @@ from notorch_tpu_torch.kernels.dense_attention import (
     fused_dense_attention_fwd_v2,
 )
 from notorch_tpu_torch.kernels.dense_mpnn import (
+    BF16_WRAPPERS,
     dense_encoder_bwd_reference,
     dense_encoder_reference,
     dense_mpnn_block_bwd_reference,
@@ -248,6 +270,39 @@ ATTENTION_RUN_RTOL = 1e-1
 # against JAX there and card against CPU here
 CALM_ATTENTION = {"d": 32, "train": 256, "val": 64, "batch": 32, "epochs": 4, "lr": 1e-4}
 ATTENTION_CALM_RTOL = 2e-5
+# the bf16 encoder's run (train_bf16_block: bf16_block_model_cfg), card
+# against CPU, per-epoch losses and metrics. Port-CPU against JAX-CPU the
+# same run (TRAIN_MOLS molecules, TRAIN_EPOCHS epochs, from the same weights)
+# drifts 7.73e-4 (three fresh processes, alike): an f32 ulp of a sum flips a
+# bf16 rounding now and then, and Adam grows it; with one weight tensor of
+# the port's side scaled by 1.03 it drifts 3.8e-3 (ffn.dense_0.weight), 5.2e-3
+# (the node embedding) and 6.9e-3 (the block's weights) (python -m
+# tests.test_torch_bf16_run 256 1024 [WEIGHT]). So BF16_RUN_RTOL lies about 3x
+# over the drift and under every scaled weight, and every step is held in
+# lockstep
+BF16_RUN_RTOL = 2.5e-3
+# rows 1-6 with bf16 operands against their plain versions: both round the
+# same operands and sum in f32 in other orders, and an f32 ulp of a sum can
+# flip the next operand's bf16 rounding (2^-8 relative), so each tensor is
+# held elementwise at BF16_ELEMENT_TOL of its largest magnitude and in
+# relative L2 at BF16_L2_TOL (tests/test_torch_gpu.py: measured 1.25e-3 and
+# 1.8e-4 at most; the bf16 rows differ from the f32 rows by 4.5e-3 in L2)
+BF16_ELEMENT_TOL, BF16_L2_TOL = 1e-2, 1e-3
+# the dropout paths: configs/dmpnn_regression.yaml with model.dropout (auto
+# -> the plain dense layout) or model.reduce: max (dense_packed -> the plain
+# block over packed bins), and the rate of the lockstep phase's paths
+DROPOUT = 0.1
+# steps of each lockstep check that does not run a whole run (the dropout
+# lockstep phase, the bf16 block alone)
+LOCKSTEP_STEPS = 3
+# the bf16 block alone (fuse_ends off), lockstep loss: its input h0 =
+# nf[src] + ef differs between card and CPU by the embedding sums' rounding
+# (7e-8), which flips a few of layer 0's bf16 roundings, and the flips grow
+# through the layers to bf16's own scale: the first step's loss differed by
+# 2.0e-4 (node hiddens 7.2e-4 in relative L2; H100, 700 W). The whole
+# encoder rounds nf to bf16 before its gather, which absorbs those
+# differences: its steps agree within 5.6e-7, under LOCKSTEP_RTOL
+BF16_LOCKSTEP_RTOL = 1e-3
 # lockstep: each step's loss, relative (measured up to 2.3e-7), and each
 # gradient at LOCKSTEP_GRAD_RTOL times its largest magnitude: one flipped
 # ReLU unit moves a gradient element by that node's whole term (measured up
@@ -260,6 +315,9 @@ ZERO_GRADIENTS = ("W_k.bias", "W_bias.bias", "a.bias")
 # and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# and the tensor cores' dense bf16 rate: the least time of a product of bf16
+# operands with f32 sums, which the bf16 rows compute (on the CUDA cores)
+PEAK_BF16_FLOPS = 989e12
 # the segment sums against their plain versions: one f32 add per term, in
 # another order on each side (the plain version's atomics on the card), so an
 # element's rounding follows the sum of its terms' magnitudes: atol is
@@ -368,11 +426,14 @@ CLOUD_ELEMENTS = ("C", "N", "O", "F", "P", "S", "Cl", "Br", "I")
 # gather block) and two Mean readouts, the MoE model one and one, the
 # pretrainer one at depth 5 and no readout, the SchNet recipe its node table,
 # its sum readout and one neighbour gather a layer (CPU rehearsal: nn/ops.py's
-# card branches forced, the row-pointer sum counted)
+# card branches forced, the row-pointer sum counted). The dropout path (the
+# plain dense block, a DenseMean readout) sums only in the embeddings'
+# backward; the max path (the plain block over packed bins: one-hot products
+# and scatter_reduce's max) there and in PackedMean's sum and count
 ROW8_LAUNCHES = {"recipe": (6, 3), "declarative": (2, 0), "impl_csr": (11, 2), "declarative_attention": (2, 0),
                  "flat": (17, 2), "graph_transformer": (4, 2), "gat": (4, 2), "declarative_gvp": (3, 2),
                  "gvp_recipe": (8, 2), "classification": (6, 3), "multicomponent": (30, 4), "reaction": (6, 3),
-                 "moe": (15, 2), "pretrain": (19, 0), "schnet": (5, 1)}
+                 "moe": (15, 2), "pretrain": (19, 0), "schnet": (5, 1), "dropout": (2, 0), "max": (4, 2)}
 # the forward's stages in a profile (rows 1, 2 and 5, and row 4's replay):
 # fragments of its kernels' names (csrc/dense_mpnn.cu: the operator's bit
 # rows and the encoder's gathered h0 once a call, then a layer's product
@@ -495,6 +556,17 @@ def declarative_model_cfg(d: int = 256, depth: int = 3) -> dict:
     }
 
 
+def bf16_block_model_cfg(d: int = 256, depth: int = 3, fuse_ends: bool = True, backward: str = "stash") -> dict:
+    """declarative_model_cfg with the block's bf16 options (matmul_dtype and
+    stash_dtype bfloat16): with ``fuse_ends`` the whole encoder (rows 5-6),
+    else the block alone (rows 1-3, or 1 and 4 with ``backward:
+    recompute``)."""
+    cfg = declarative_model_cfg(d, depth)
+    cfg["modules"]["mp"]["args"].update(matmul_dtype="bfloat16", stash_dtype="bfloat16", fuse_ends=fuse_ends,
+                                        backward=backward)
+    return cfg
+
+
 def declarative_attention_model_cfg(d: int = 256, depth: int = 3, heads: int = 4) -> dict:
     """The declarative graph transformer on the attention kernels' path:
     declarative_model_cfg with the block DenseGATBlock(attention: sdp,
@@ -566,10 +638,19 @@ def fail(msg: str) -> None:
 def reset_launches() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    for fn in BF16_WRAPPERS:
+        fn.launches_bf16 = 0
 
 
 def launches() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    """Each kernel's launches by wrapper name; rows 1-6's bf16
+    instantiations under ``<name>_bf16``."""
+    return {**{fn.__name__: fn.launches for fn in KERNELS},
+            **{f"{fn.__name__}_bf16": fn.launches_bf16 for fn in BF16_WRAPPERS}}
+
+
+def zero_counts() -> dict[str, int]:
+    return {name: 0 for name in launches()}
 
 
 def nvidia_smi_line() -> str:
@@ -896,6 +977,12 @@ def bound(ops: int, n_bytes: int) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def bound_bf16(ops: int, n_bytes: int) -> tuple[float, str]:
+    """:func:`bound` with the operations at the tensor cores' bf16 rate."""
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS, n_bytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def layer_ops(args, reduce: str) -> tuple[int, int, int]:
     """Operations of one forward layer and of one layer of the reverse sweep
     on these inputs: the W-sized products, and ``A`` (or ``Aᵀ``) counted at
@@ -989,7 +1076,7 @@ def serve_phase(tmp: Path, ds, csv_path: Path, n_batches: int) -> int:
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     counts = launches()
-    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_mpnn_block": depth * n_batches,
+    expect = {**zero_counts(), "fused_dense_mpnn_block": depth * n_batches,
               "csr_segment_sum": glue_launches("recipe", 0, n_batches)}
     if counts != expect:
         fail(f"serving launched {counts}; the request needs {expect}")
@@ -1096,7 +1183,7 @@ def train_epoch_phase(tmp: Path) -> dict[str, int]:
     other = fit(recompute["model"], recompute["train_loader"], epochs=1)
     torch.cuda.synchronize()
     counts = launches()
-    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_mpnn_block": depth * steps,
+    expect = {**zero_counts(), "fused_dense_mpnn_block": depth * steps,
               "fused_dense_mpnn_block_bwd": steps, "csr_segment_sum": glue_launches("recipe", steps, 0)}
     if counts != expect:
         fail(f"an epoch with the recompute backward launched {counts}; expected {expect}")
@@ -1163,7 +1250,7 @@ def serve_declarative_phase(tmp: Path, ckpt: Path, n_batches: int) -> dict[str, 
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     counts = launches()
-    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_encoder_fwd": depth * n_batches}
+    expect = {**zero_counts(), "fused_dense_encoder_fwd": depth * n_batches}
     if counts != expect:
         fail(f"serving the declarative checkpoint launched {counts}; expected {expect}")
     t0 = time.perf_counter()
@@ -1376,7 +1463,7 @@ def train_flat_phase(tmp: Path) -> tuple[dict[str, int], Path]:
     # (depth + 1) reduces a forward: each training step and each evaluated batch
     packed = counts["csr_segment_sum_packed"]
     evaluated = packed // (depth + 1) - steps
-    expect = {**{fn.__name__: 0 for fn in KERNELS}, "csr_segment_sum_packed": (depth + 1) * (steps + evaluated),
+    expect = {**zero_counts(), "csr_segment_sum_packed": (depth + 1) * (steps + evaluated),
               "csr_segment_sum": glue_launches("impl_csr", steps, evaluated)}
     if counts != expect or evaluated <= 0:
         fail(f"the flat run of {steps} steps launched {counts}; expected the packed sum {depth + 1} "
@@ -1395,12 +1482,14 @@ def train_flat_phase(tmp: Path) -> tuple[dict[str, int], Path]:
 
 def serve_checkpoint_phase(tmp: Path, ckpt: Path, phase: str, expect: dict[str, int],
                            columns: tuple[str, ...] = ("lipo",), probabilities: bool = False,
-                           csv_path: Path | None = None) -> dict[str, int]:
+                           csv_path: Path | None = None, bf16: bool = False) -> dict[str, int]:
     """run_predict of a checkpoint on the rows of ``csv_path`` (by default
     N_MOLS lipo molecules), on the card against the CPU: the prediction
-    ``columns``, each within RTOL/ATOL of the CPU's and finite (and in [0, 1]
-    for ``probabilities``); cold and warm request time and the busy share of
-    a warm request. Fails unless the request launched exactly ``expect``
+    ``columns``, each within RTOL/ATOL of the CPU's (a model with bf16
+    operands, ``bf16``: at BF16_ELEMENT_TOL of the largest |prediction|, and
+    BF16_L2_TOL in relative L2) and finite (and in [0, 1] for
+    ``probabilities``); cold and warm request time and the busy share of a
+    warm request. Fails unless the request launched exactly ``expect``
     (every other kernel 0). Returns the request's launches."""
     csv_path = lipo_csv(tmp, N_MOLS) if csv_path is None else csv_path
     with open(csv_path, newline="") as f:
@@ -1416,7 +1505,7 @@ def serve_checkpoint_phase(tmp: Path, ckpt: Path, phase: str, expect: dict[str, 
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     counts = launches()
-    if counts != {**{fn.__name__: 0 for fn in KERNELS}, **expect}:
+    if counts != {**zero_counts(), **expect}:
         fail(f"{phase}: the request launched {counts}; expected {expect} and nothing else")
     t0 = time.perf_counter()
     run_predict(ckpt, csv_path, batch_size=BATCH)
@@ -1425,8 +1514,10 @@ def serve_checkpoint_phase(tmp: Path, ckpt: Path, phase: str, expect: dict[str, 
     profiled = profile_busy(lambda: run_predict(ckpt, csv_path, batch_size=BATCH))
     cpu = served("cpu")
     err = np.abs(gpu - cpu)
-    ok = (gpu.shape == (n_rows, len(columns)) and bool(np.isfinite(gpu).all())
-          and bool((err <= ATOL + RTOL * np.abs(cpu)).all())
+    close = (bool((err <= BF16_ELEMENT_TOL * np.abs(cpu).max()).all())
+             and float(np.linalg.norm(gpu - cpu) / np.linalg.norm(cpu)) <= BF16_L2_TOL if bf16
+             else bool((err <= ATOL + RTOL * np.abs(cpu)).all()))
+    ok = (gpu.shape == (n_rows, len(columns)) and bool(np.isfinite(gpu).all()) and close
           and (not probabilities or bool(((gpu >= 0) & (gpu <= 1)).all())))
     emit(phase=phase, molecules=n_rows, columns=len(columns), kernel_launches=counts, request_s_cold=cold_s,
          request_s_warm=warm_s, profile=profiled, max_abs_err_vs_cpu=float(err.max()),
@@ -1494,7 +1585,7 @@ def task_heads_phase(tmp: Path) -> dict[str, int]:
         writer.writerow(["smiles", "lipo", "lipo_class"])
         for r in rows:
             writer.writerow([r["smiles"], r["lipo"], int(np.searchsorted(cuts, float(r["lipo"])))])
-    records, total = [], {fn.__name__: 0 for fn in KERNELS}
+    records, total = [], zero_counts()
     for task in HEAD_TASKS:
         column = "lipo_class" if task in ("multiclass", "dirichlet") else "lipo"
         ds = build_dataset({"csv": str(path), "targets": {"y": {"columns": [column], "task": task}}})
@@ -1508,7 +1599,7 @@ def task_heads_phase(tmp: Path) -> dict[str, int]:
         logs = [m.train_step(to_device(batch, m.device)) for m in models]
         torch.cuda.synchronize()
         counts = launches()
-        expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_mpnn_block_stash": depth,
+        expect = {**zero_counts(), "fused_dense_mpnn_block_stash": depth,
                   "fused_dense_mpnn_block_bwd_stash": 1, "csr_segment_sum": glue_launches("recipe", 1, 0)}
         if counts != expect:
             fail(f"task_heads {task}: the card's step launched {counts}; expected {expect}")
@@ -1727,7 +1818,7 @@ def attention_v1_phase(batches: list[dict], d: int, heads: int) -> tuple[int, fl
     torch.cuda.synchronize()
     counts = launches()
     n = len(batches)
-    if counts != {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_attention_fwd": n,
+    if counts != {**zero_counts(), "fused_dense_attention_fwd": n,
                   "fused_dense_attention_bwd": n}:
         fail(f"the v1 attention phase launched {counts}; expected rows 10 and 11 {n} times each")
     fwd_err = bwd_err = 0.0
@@ -1796,7 +1887,7 @@ def attention_calm_run_phase(tmp: Path) -> None:
     card_s = time.perf_counter() - t0
     counts = launches()
     steps = epochs * len(train)
-    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_attention_bwd_v2": depth * steps,
+    expect = {**zero_counts(), "fused_dense_attention_bwd_v2": depth * steps,
               "fused_dense_attention_fwd_v2": depth * (steps + epochs * len(val)),
               "csr_segment_sum": glue_launches("declarative_attention", steps, epochs * len(val))}
     if counts != expect:
@@ -1813,10 +1904,11 @@ def attention_calm_run_phase(tmp: Path) -> None:
         fail(f"the calm attention run: card and CPU differ by {worst} relative: {diffs}")
 
 
-def lockstep(cfg: dict, epochs: int, what: str) -> dict:
-    """Every step of ``cfg``'s run taken on the card and on the CPU from the
-    card's weights and optimizer state (copied to the CPU before each step),
-    on the run's own batches in its order: fails unless each step's loss
+def lockstep(cfg: dict, epochs: int, what: str, max_steps: int | None = None, rtol: float = LOCKSTEP_RTOL) -> dict:
+    """Every step of ``cfg``'s run (its first ``max_steps``, where given)
+    taken on the card and on the CPU from the card's weights, optimizer state
+    and dropout streams (copied to the CPU before each step), on the run's
+    own batches in its order: fails unless each step's loss
     agrees within LOCKSTEP_RTOL relative and each gradient, but those of
     ZERO_GRADIENTS, within LOCKSTEP_GRAD_RTOL times its largest magnitude.
     Also gives each of those gradients' largest relative L2 distance over
@@ -1826,11 +1918,16 @@ def lockstep(cfg: dict, epochs: int, what: str) -> dict:
     loss_diff, grad_diff, worst = 0.0, 0.0, None
     rel_l2: dict[str, float] = {}
     steps = 0
+    cpu_generators = cpu.generators()
     for epoch in range(epochs):
         loader.set_epoch(epoch)
         for batch in loader:
+            if steps == max_steps:
+                break
             cpu.network.load_state_dict(model.network.state_dict())
             cpu.optimizer.load_state_dict(model.optimizer.state_dict())
+            for name, gen in model.generators().items():
+                cpu_generators[name].set_state(gen.get_state())
             ours = model.train_step(to_device(batch, model.device))
             theirs = cpu.train_step(to_device(batch, "cpu"))
             loss_diff = max(loss_diff, rel_diff(float(ours["train/loss"]), float(theirs["train/loss"])))
@@ -1845,11 +1942,11 @@ def lockstep(cfg: dict, epochs: int, what: str) -> dict:
                 l2 = float(torch.linalg.vector_norm(got - ref)) / max(float(torch.linalg.vector_norm(ref)), 1e-30)
                 rel_l2[name] = max(rel_l2.get(name, 0.0), l2)
             steps += 1
-    if not (loss_diff <= LOCKSTEP_RTOL and grad_diff <= LOCKSTEP_GRAD_RTOL):
+    if not (loss_diff <= rtol and grad_diff <= LOCKSTEP_GRAD_RTOL):
         fail(f"{what}: in lockstep the card's steps and the CPU's differ: loss {loss_diff} relative, "
              f"gradients {grad_diff} of their largest magnitude ({worst})")
     return {"steps": steps, "max_loss_rel_diff": loss_diff, "max_grad_err_over_max": grad_diff,
-            "worst_gradient": worst, "rtol": LOCKSTEP_RTOL, "grad_rtol_over_max": LOCKSTEP_GRAD_RTOL,
+            "worst_gradient": worst, "rtol": rtol, "grad_rtol_over_max": LOCKSTEP_GRAD_RTOL,
             "max_grad_rel_l2": max(rel_l2.values(), default=0.0), "grad_rel_l2": rel_l2}
 
 
@@ -1880,7 +1977,7 @@ def recipe_launches(path: str):
 
     def check(counts: dict[str, int], steps: int) -> str | None:
         evaluated = counts["fused_dense_mpnn_block"] // depth
-        expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_dense_mpnn_block": depth * evaluated,
+        expect = {**zero_counts(), "fused_dense_mpnn_block": depth * evaluated,
                   "fused_dense_mpnn_block_stash": depth * steps, "fused_dense_mpnn_block_bwd_stash": steps,
                   "csr_segment_sum": glue_launches(path, steps, evaluated)}
         if counts != expect or evaluated == 0:
@@ -2150,7 +2247,7 @@ def gvp_model(cfg: dict, device: str, lr: float = GVP_LR):
 
 
 def gvp_lockstep(cfg: dict, batches: list[dict], epochs: int, what: str, lr: float = GVP_LR,
-                 elementwise: bool = False) -> dict:
+                 elementwise: bool = False, max_steps: int | None = None) -> dict:
     """Every step of the run taken on the card and on the CPU from the card's
     weights and optimizer state: fails unless each step's loss agrees within
     LOCKSTEP_RTOL relative and each gradient within KINK_GRAD_L2 in
@@ -2158,10 +2255,13 @@ def gvp_lockstep(cfg: dict, batches: list[dict], epochs: int, what: str, lr: flo
     kinks) within LOCKSTEP_GRAD_RTOL times its largest magnitude."""
     card, cpu = gvp_model(cfg, "cuda", lr), gvp_model(cfg, "cpu", lr)
     loss_diff, l2_diff, max_diff, worst, steps = 0.0, 0.0, 0.0, None, 0
+    cpu_generators = cpu.generators()
     for _ in range(epochs):
-        for batch in batches:
+        for batch in batches[:max_steps]:
             cpu.network.load_state_dict(card.network.state_dict())
             cpu.optimizer.load_state_dict(card.optimizer.state_dict())
+            for name, gen in card.generators().items():
+                cpu_generators[name].set_state(gen.get_state())
             ours = card.train_step(to_device(batch, "cuda"))
             theirs = cpu.train_step(to_device(batch, "cpu"))
             loss_diff = max(loss_diff, rel_diff(float(ours["train/loss"]), float(theirs["train/loss"])))
@@ -2205,7 +2305,7 @@ def train_gvp_phase(tmp: Path, phase: str, path: str, cfg: dict, train: list[dic
     card_s = time.perf_counter() - t0
     counts = launches()
     steps, n = card.step, expect_fwd_per_batch
-    expect = {**{fn.__name__: 0 for fn in KERNELS}, "fused_gvp_conv_fwd": n * (steps + epochs * len(val)),
+    expect = {**zero_counts(), "fused_gvp_conv_fwd": n * (steps + epochs * len(val)),
               "fused_gvp_conv_bwd": n * steps, "csr_segment_sum": glue_launches(path, steps, epochs * len(val))}
     if counts != expect:
         fail(f"{phase}: the card's run of {steps} steps launched {counts}; expected {expect}")
@@ -2242,7 +2342,7 @@ def serve_gvp_phase(ckpt: Path, cfg: dict, batches: list[dict], phase: str, expe
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     counts = launches()
-    if counts != {**{fn.__name__: 0 for fn in KERNELS}, **expect}:
+    if counts != {**zero_counts(), **expect}:
         fail(f"{phase}: the request launched {counts}; expected {expect} and nothing else")
     t0 = time.perf_counter()
     predict(card, batches, keys=["ffn.preds"])
@@ -2289,7 +2389,7 @@ def sdf_schnet_phase(tmp: Path) -> dict[str, int]:
     got = predict(card, loader, keys=["ffn.preds"])["ffn.preds"]
     torch.cuda.synchronize()
     counts = launches()
-    expect = {**{fn.__name__: 0 for fn in KERNELS},
+    expect = {**zero_counts(),
               "csr_segment_sum": glue_launches("schnet", card.step, len(batches))}
     if counts != expect:
         fail(f"sdf_schnet: the card's epoch and request launched {counts}; expected {expect}")
@@ -2313,12 +2413,285 @@ def sdf_schnet_phase(tmp: Path) -> dict[str, int]:
     return counts
 
 
+def mask_share(model, loader, device_busy_ms_per_step: float) -> dict:
+    """The dropout masks of a warm epoch of ``model``: each ``Dropout.mask``
+    call's host time (one seed drawn on the host, the integer ops enqueued)
+    against the epoch's wall time, and the device time of the masks a step
+    (each shape the epoch drew, formed alone in a CUDA graph of 20 calls)
+    against ``device_busy_ms_per_step``."""
+    from notorch_tpu_torch.nn.dropout import Dropout, keep_mask
+
+    original, shapes, host = Dropout.mask, [], [0.0]
+
+    def timed(self, shape, device):
+        t0 = time.perf_counter()
+        out = original(self, shape, device)
+        host[0] += time.perf_counter() - t0
+        shapes.append((tuple(shape), 1.0 - self.rate))
+        return out
+
+    fit(model, loader, epochs=1)
+    Dropout.mask = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(model, loader, epochs=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        Dropout.mask = original
+    steps = len(loader)
+    device_ms = {key: time_ms(lambda key=key: keep_mask(SEED, key[0], key[1], "cuda"))["device"]
+                 for key in set(shapes)}
+    mask_device = sum(device_ms[key] for key in shapes) / steps
+    return {"masks_per_step": len(shapes) / steps, "mask_device_ms_per_step": mask_device,
+            "mask_device_share_of_busy": mask_device / device_busy_ms_per_step,
+            "mask_host_ms_per_step": host[0] * 1e3 / steps, "wall_ms_per_step": wall_ms / steps,
+            "mask_host_share_of_wall": host[0] * 1e3 / wall_ms}
+
+
+def config_run_phase(tmp: Path, phase: str, model: dict, check, rtol: float = TRAIN_RTOL,
+                     masks: bool = False) -> tuple[dict[str, int], Path]:
+    """run(cfg) of ``model`` with the data, optimizer and trainer of
+    MODEL_CFG's config (TRAIN_MOLS molecules, TRAIN_EPOCHS epochs) on the
+    card and on the CPU from the same seed, compared epoch by epoch at
+    ``rtol``; ``check(counts, steps)`` returns what is wrong with the card
+    run's launches, or None; then a warm epoch on the card on the host's
+    clock and profiled (with ``masks``, the dropout masks' share of it).
+    Returns the card run's launches and checkpoint."""
+    csv_path = lipo_csv(tmp, TRAIN_MOLS)
+    card_ckpt = tmp / f"{phase}_card"
+    reset_launches()
+    t0 = time.perf_counter()
+    card = run(train_config(csv_path, card_ckpt, model))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = launches()
+    steps = Checkpointer(card_ckpt).latest_step()
+    if not steps:
+        fail(f"{phase}: the card's run wrote no checkpoint in {card_ckpt}")
+    wrong = check(counts, steps)
+    if wrong:
+        fail(f"{phase}: the card's run of {steps} steps launched {counts}; {wrong}")
+    t0 = time.perf_counter()
+    cpu = run(train_config(csv_path, tmp / f"{phase}_cpu", model), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    diffs = compare_runs(card, cpu, phase, rtol=rtol)
+    warm = prepare(train_config(csv_path, None, model))
+    timing = warm_epoch(warm["model"], warm["train_loader"])
+    if masks:
+        timing["masks"] = mask_share(warm["model"], warm["train_loader"], timing["device_busy_ms_per_step"])
+    emit(phase=phase, model=model, molecules=TRAIN_MOLS, epochs=TRAIN_EPOCHS, steps=steps,
+         kernel_launches=counts, run_s_card=card_s, run_s_cpu=cpu_s, **timing,
+         history_card=card["history"], history_cpu=cpu["history"], test_card=card["test"],
+         test_cpu=cpu["test"], rel_diff_vs_cpu=diffs, rel_tol=rtol)
+    return counts, card_ckpt
+
+
+def dropout_paths(tmp: Path, n_batches: int) -> None:
+    """configs/dmpnn_regression.yaml with model.dropout (the plain dense
+    layout: no kernel of the port but row 8 in the embeddings' backward) and
+    with model.reduce: max (dense_packed, the plain block over the packed
+    bins: row 8 in the embeddings' backward and the packed readout), each
+    trained card against CPU and served, 512 molecules card against CPU;
+    the dropout run's masks are the same on both devices."""
+    ckpt = config_run_phase(tmp, "train_dropout", {**MODEL_CFG, "dropout": DROPOUT}, glue_only("dropout", False),
+                            masks=True)[1]
+    serve_checkpoint_phase(tmp, ckpt, "serve_dropout", {})
+    ckpt = config_run_phase(tmp, "train_max", {**MODEL_CFG, "reduce": "max"}, glue_only("max"))[1]
+    serve_checkpoint_phase(tmp, ckpt, "serve_max", {"csr_segment_sum": glue_launches("max", 0, n_batches)})
+
+
+def dropout_lockstep_phase(tmp: Path) -> None:
+    """LOCKSTEP_STEPS steps at dropout DROPOUT, each card against CPU from the
+    same weights, optimizer state and dropout streams: the declarative graph
+    transformer on rows 12-13 (DenseGATBlock(impl: fused, fwd_impl:
+    pallas)), configs/gat_regression.yaml, and the declarative GVP model
+    (the GVP recipe, kind: spatial, has no dropout option in either
+    package; the block's plain conv, as the fused one refuses dropout)."""
+    depth, d, heads = MODEL_CFG["depth"], MODEL_CFG["hidden_dim"], GT_CFG["num_heads"]
+    csv_path = lipo_csv(tmp, TRAIN_MOLS)
+    attention = declarative_attention_model_cfg(d, depth, heads)
+    attention["modules"]["mp"]["args"]["dropout"] = DROPOUT
+    attention["modules"]["ffn"]["args"]["dropout"] = DROPOUT
+    gvp = declarative_gvp_model_cfg()
+    gvp["modules"]["backbone"]["args"].update(dropout=DROPOUT, impl="jnp")
+    gvp["modules"]["ffn"]["args"]["dropout"] = DROPOUT
+    records = {}
+    for name, model in (("declarative_attention", attention), ("gat", {**GAT_CFG, "dropout": DROPOUT})):
+        reset_launches()
+        records[name] = lockstep(train_config(csv_path, None, model), 1, f"dropout lockstep {name}",
+                                 max_steps=LOCKSTEP_STEPS)
+        records[name]["kernel_launches"] = counts = launches()
+        steps = records[name]["steps"]
+        rows = (counts["fused_dense_attention_fwd_v2"], counts["fused_dense_attention_bwd_v2"])
+        if steps != LOCKSTEP_STEPS or (name == "declarative_attention" and rows != (depth * steps,) * 2):
+            fail(f"dropout lockstep {name}: {steps} steps launched {counts}; expected rows 12 and 13 "
+                 f"{depth} times a step on the declarative graph transformer")
+    gvp_train = gvp_data()[0]
+    records["declarative_gvp"] = gvp_lockstep(gvp, gvp_train, 1, "dropout lockstep declarative_gvp",
+                                              max_steps=LOCKSTEP_STEPS)
+    emit(phase="dropout_lockstep", dropout=DROPOUT, paths=records)
+
+
+def held_bf16(what: str, got: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Fail unless ``got`` is finite and within BF16_ELEMENT_TOL of ``ref``'s
+    largest magnitude elementwise and BF16_L2_TOL in relative L2."""
+    got, ref = got.float(), ref.float()
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    l2 = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref).clamp_min(1e-30))
+    if not (bool(torch.isfinite(got).all()) and err <= BF16_ELEMENT_TOL * scale and l2 <= BF16_L2_TOL):
+        fail(f"{what} (bf16) disagrees with its plain version: max abs err {err} of largest |ref| {scale}, "
+             f"relative L2 {l2}")
+    return {"max_abs_err": err, "max_abs_err_over_max_abs_ref": err / max(scale, 1e-30), "rel_l2": l2}
+
+
+def bf16_kernels_phase(main_args, g, n_nodes: int, enc) -> tuple[dict, dict]:
+    """Rows 1-6 with matmul_dtype="bfloat16" (rows 2, 3, 5 and 6 with an f32
+    and a bf16 stash) at PERF.md's shapes (rows 1-4 the main path's 32 bins
+    of 128 edge lanes, rows 5-6 the dense loader's first batch), each held
+    against its plain version (held_bf16; the backward rows fed the kernel's
+    own stash), called twice for the same bits, and timed as the f32 rows
+    are (a CUDA graph of 20 calls). The bound counts the products at the
+    tensor cores' bf16 rate and the stash's bytes in its dtype. Returns
+    each row's (max_abs_err, kernel time, plain time, bound_ms, bound_by)
+    with the bf16 stash where it has one, and the phase's own launches."""
+    depth = MODEL_CFG["depth"]
+    h0, src, dst, mask, W, b = main_args
+    nf, ef, _, _, _, _, _, gn, ge = enc
+    mm = dict(matmul_dtype="bfloat16")
+    kw = dict(depth=depth, n_nodes=n_nodes, residual=True, reduce="sum", **mm)
+    ref_kw = dict(depth=depth, residual=True, reduce="sum", **mm)
+    enc_kw = dict(depth=depth, residual=True, reduce="sum", **mm)
+    fwd_ops, bwd_ops, _ = layer_ops(main_args, "sum")
+    enc_fwd_ops, enc_bwd_ops, _ = encoder_ops(enc)
+    reset_launches()
+    rows, cases = {}, []
+    for stash in (None, "bfloat16"):
+        out, hs = fused_dense_mpnn_block_stash(*main_args, stash_dtype=stash, **kw)
+        grads = fused_dense_mpnn_block_bwd_stash(h0, hs, src, dst, mask, W, g, **kw)
+        nh, eh, enc_hs = fused_dense_encoder_fwd(*enc[:7], stash=True, stash_dtype=stash, **enc_kw)
+        enc_grads = fused_dense_encoder_bwd(nf, ef, enc_hs, *enc[2:6], gn, ge, **enc_kw)
+        calls = {
+            fused_dense_mpnn_block_stash: (
+                lambda stash=stash: fused_dense_mpnn_block_stash(*main_args, stash_dtype=stash, **kw),
+                lambda stash=stash: dense_mpnn_block_stash_reference(*main_args, stash_dtype=stash, **ref_kw),
+                depth * fwd_ops, nbytes(*main_args, out, hs)),
+            fused_dense_mpnn_block_bwd_stash: (
+                lambda hs=hs: fused_dense_mpnn_block_bwd_stash(h0, hs, src, dst, mask, W, g, **kw),
+                lambda hs=hs: dense_mpnn_block_bwd_reference(h0, hs, src, dst, mask, W, g, **ref_kw),
+                depth * bwd_ops, nbytes(h0, hs, src, dst, mask, W, g, *grads)),
+            fused_dense_encoder_fwd: (
+                lambda stash=stash: fused_dense_encoder_fwd(*enc[:7], stash=True, stash_dtype=stash, **enc_kw),
+                lambda stash=stash: dense_encoder_reference(*enc[:7], stash=True, stash_dtype=stash, **enc_kw),
+                enc_fwd_ops, nbytes(*enc[:7], nh, eh, enc_hs)),
+            fused_dense_encoder_bwd: (
+                lambda enc_hs=enc_hs: fused_dense_encoder_bwd(nf, ef, enc_hs, *enc[2:6], gn, ge, **enc_kw),
+                lambda enc_hs=enc_hs: dense_encoder_bwd_reference(nf, ef, enc_hs, *enc[2:6], gn, ge, **enc_kw),
+                enc_bwd_ops, nbytes(nf, ef, enc_hs, *enc[2:6], gn, ge, *enc_grads)),
+        }
+        if stash is None:
+            out1 = fused_dense_mpnn_block(*main_args, **kw)
+            calls[fused_dense_mpnn_block] = (
+                lambda: fused_dense_mpnn_block(*main_args, **kw),
+                lambda: dense_mpnn_block_reference(*main_args, **ref_kw),
+                depth * fwd_ops, nbytes(*main_args, out1))
+            calls[fused_dense_mpnn_block_bwd] = (
+                lambda: fused_dense_mpnn_block_bwd(h0, src, dst, mask, W, b, g, **kw),
+                lambda: dense_mpnn_block_bwd_reference(
+                    h0, dense_mpnn_block_stash_reference(*main_args, **ref_kw)[1], src, dst, mask, W, g, **ref_kw),
+                (depth - 1) * fwd_ops + depth * bwd_ops, nbytes(*main_args, g, *grads))
+        for fn, (kernel, plain, ops, n_bytes) in calls.items():
+            first, second, ref = kernel(), kernel(), plain()
+            first, second = [first] if torch.is_tensor(first) else first, [second] if torch.is_tensor(second) else second
+            ref = [ref] if torch.is_tensor(ref) else ref
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(first, second) if x is not None):
+                fail(f"{fn.__name__} (bf16, stash {stash}): two calls on the same inputs differ")
+            errs = [held_bf16(f"{fn.__name__} output {i} (stash {stash})", x, r)
+                    for i, (x, r) in enumerate(zip(first, ref)) if x is not None and r is not None]
+            kernel_t, plain_t = time_ms(kernel), time_ms(plain)
+            bound_ms, bound_by = bound_bf16(ops, n_bytes)
+            case = {"kernel": f"{fn.__name__}_bf16", "stash_dtype": stash, "ms": kernel_t["device"],
+                    "eager_ms": kernel_t["eager"], "plain_ms": plain_t["device"], "bound_ms": bound_ms,
+                    "bound_by": bound_by, "operations": ops, "bytes": n_bytes,
+                    "max_abs_err": max(e["max_abs_err"] for e in errs),
+                    "max_err_over_max_abs_ref": max(e["max_abs_err_over_max_abs_ref"] for e in errs),
+                    "max_rel_l2": max(e["rel_l2"] for e in errs), "bitwise_repeatable": True}
+            cases.append(case)
+            if fn in (fused_dense_mpnn_block, fused_dense_mpnn_block_bwd) or stash is not None:
+                rows[fn] = (case["max_abs_err"], kernel_t, plain_t, bound_ms, bound_by)
+    counts = launches()
+    emit(phase="bf16_kernels", shape={"rows_1_4": list(h0.shape), "rows_5_6": {"B": ef.shape[0], "V": nf.shape[1],
+                                                                                "E": ef.shape[1]}},
+         element_tol_over_max=BF16_ELEMENT_TOL, rel_l2_tol=BF16_L2_TOL, cases=cases,
+         launches={k: v for k, v in counts.items() if k.endswith("_bf16")})
+    return rows, counts
+
+
+def bf16_block_phase(tmp: Path, n_batches: int) -> dict[str, int]:
+    """The declarative whole-encoder config with matmul_dtype and stash_dtype
+    bfloat16 (rows 5-6's bf16 instantiations): run(cfg) for TRAIN_EPOCHS
+    epochs on the card and on the CPU, held at BF16_RUN_RTOL, every step in
+    lockstep, its checkpoint served (card against CPU at the bf16 hold); then
+    the block alone (fuse_ends false; rows 1-3's and row 4's bf16
+    instantiations) for LOCKSTEP_STEPS steps in lockstep with each backward
+    and one served batch. Returns the launches of the bf16 rows on these
+    paths."""
+    depth, d = MODEL_CFG["depth"], MODEL_CFG["hidden_dim"]
+    model = bf16_block_model_cfg(d, depth)
+
+    def check(counts: dict[str, int], steps: int) -> str | None:
+        eval_fwd = counts["fused_dense_encoder_fwd_bf16"] - depth * steps
+        others = {k: v for k, v in counts.items()
+                  if k not in ("fused_dense_encoder_fwd_bf16", "fused_dense_encoder_bwd_bf16", "csr_segment_sum")}
+        if (counts["fused_dense_encoder_bwd_bf16"] != steps or eval_fwd <= 0 or eval_fwd % depth
+                or counts["csr_segment_sum"] != glue_launches("declarative", steps, 0) or any(others.values())):
+            return (f"expected the encoder's bf16 backward {steps} times, its bf16 forward {depth} times a step "
+                    "and a batch, row 8 in the embeddings' backward, and nothing else")
+        return None
+
+    counts, ckpt = config_run_phase(tmp, "train_bf16_block", model, check, rtol=BF16_RUN_RTOL)
+    csv_path = lipo_csv(tmp, TRAIN_MOLS)
+    emit(phase="bf16_block_lockstep", lockstep=lockstep(train_config(csv_path, None, model), TRAIN_EPOCHS,
+                                                         "train_bf16_block"))
+    served = serve_checkpoint_phase(tmp, ckpt, "serve_bf16_block",
+                                    {"fused_dense_encoder_fwd_bf16": depth * n_batches}, bf16=True)
+    path = {"fused_dense_encoder_fwd_bf16": counts["fused_dense_encoder_fwd_bf16"],
+            "fused_dense_encoder_bwd_bf16": counts["fused_dense_encoder_bwd_bf16"]}
+    records = {}
+    for backward in ("stash", "recompute"):
+        block = bf16_block_model_cfg(d, depth, fuse_ends=False, backward=backward)
+        cfg = train_config(csv_path, None, block)
+        reset_launches()
+        records[backward] = lockstep(cfg, 1, f"bf16 block ({backward})", max_steps=LOCKSTEP_STEPS,
+                                     rtol=BF16_LOCKSTEP_RTOL)
+        built = prepare(cfg)
+        predict(built["model"], [next(iter(built["train_loader"]))], keys=["ffn.preds"])
+        records[backward]["kernel_launches"] = counts = launches()
+        for name, n in counts.items():
+            if name.endswith("_bf16") and name.startswith("fused_dense_mpnn"):
+                path[name] = path.get(name, 0) + n
+    want = {"stash": {"fused_dense_mpnn_block_stash_bf16": depth * LOCKSTEP_STEPS,
+                      "fused_dense_mpnn_block_bwd_stash_bf16": LOCKSTEP_STEPS},
+            "recompute": {"fused_dense_mpnn_block_bwd_bf16": LOCKSTEP_STEPS}}
+    for backward, expect in want.items():
+        got = records[backward]["kernel_launches"]
+        # the recompute forward and the served batch run row 1
+        row1 = depth * (LOCKSTEP_STEPS + 1) if backward == "recompute" else depth
+        if any(got[k] != v for k, v in expect.items()) or got["fused_dense_mpnn_block_bf16"] != row1:
+            fail(f"bf16 block ({backward}): launched {got}; expected {expect} and row 1 {row1} times")
+    emit(phase="bf16_block_rows_1_4", paths=records, served_launches=served)
+    return path
+
+
 # the repeat check: each path's model built from SEED takes REPEAT_STEPS
 # train steps on its first training batches twice from the same weights, and
 # every parameter and every Adam state tensor must come out with the same bits
 REPEAT_STEPS, REPEAT_MOLS = 3, 256
 REPEAT_PATHS = ("recipe", "declarative", "impl_csr", "declarative_attention", "declarative_gvp", "gvp_recipe",
-                "classification", "multicomponent", "schnet")
+                "classification", "multicomponent", "schnet", "dropout", "bf16_block")
 
 
 def repeat_model_cfg(path: str, d: int) -> dict:
@@ -2339,7 +2712,9 @@ def repeat_model_cfg(path: str, d: int) -> dict:
             "classification": {**CLASSIFICATION_MODEL_CFG, "hidden_dim": d},
             "multicomponent": {**SLICE_CONFIGS["multicomponent"]["model"], "hidden_dim": d},
             "flat": declarative_flat_model_cfg(d),
-            "flat_gat": {**GAT_CFG, "hidden_dim": d, "layout": "flat"}}[path]
+            "flat_gat": {**GAT_CFG, "hidden_dim": d, "layout": "flat"},
+            "dropout": {**MODEL_CFG, "hidden_dim": d, "dropout": DROPOUT},
+            "bf16_block": bf16_block_model_cfg(d, depth)}[path]
 
 
 def repeat_run(path: str, tmp: Path, device: str, d: int = 256, batch: int = BATCH,
@@ -2381,6 +2756,8 @@ def repeat_run(path: str, tmp: Path, device: str, d: int = 256, batch: int = BAT
     weights = {k: v.clone() for k, v in first.network.state_dict().items()}
     second = make()
     second.network.load_state_dict(weights)
+    for name, gen in second.generators().items():  # the dropout paths' masks
+        gen.set_state(first.generators()[name].get_state())
     for model in (first, second):
         for b in batches:
             model.train_step(to_device(b, device))
@@ -2431,9 +2808,9 @@ def gvp_work(x: dict, bwd: bool) -> tuple[int, int, int]:
 
 
 def kernel_record(fn, path_launches: int, max_abs_err: float, kernel_t: dict, plain_t: dict,
-                  bound_ms: float, bound_by: str, library_t: dict | None = None) -> dict:
+                  bound_ms: float, bound_by: str, library_t: dict | None = None, name: str | None = None) -> dict:
     source, replaces = KERNELS[fn]
-    return {"name": fn.__name__, "route": "cuda", "source": source, "replaces": replaces,
+    return {"name": name or fn.__name__, "route": "cuda", "source": source, "replaces": replaces,
             "launches": path_launches, "max_abs_err": max_abs_err, "ms": kernel_t["device"],
             "plain_ms": plain_t["device"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None if library_t is None else library_t["device"]}
@@ -2575,6 +2952,13 @@ def main() -> None:
         # configs as shipped, row 8 in all four
         slice_phases(tmp)
 
+        # edge dropout (the plain dense layout) and max (the plain block over
+        # packed bins) trained and served; dropout's other sites in lockstep;
+        # rows 1-6's bf16 instantiations on the bf16 encoder's and block's paths
+        dropout_paths(tmp, len(batches))
+        dropout_lockstep_phase(tmp)
+        bf16_path = bf16_block_phase(tmp, len(dense_batches))
+
         # rows 14-15 against their plain versions, then the GVP model both ways
         gvp_train, gvp_val = gvp_data()
         gvp_x = gvp_cases(gvp_train)
@@ -2646,6 +3030,7 @@ def main() -> None:
     nh, eh, enc_hs = fused_dense_encoder_fwd(*enc[:7], stash=True, **enc_kw)
     enc_grads = fused_dense_encoder_bwd(nf, ef, enc_hs, *enc[2:6], gn, ge, **enc_kw)
     enc_fwd_ops, enc_bwd_ops, enc_nnz = encoder_ops(enc)
+    bf16_rows, _ = bf16_kernels_phase(main_args, g, main_G.nodes_per_graph, enc)
     runs[fused_dense_encoder_fwd] = (
         lambda: fused_dense_encoder_fwd(*enc[:7], stash=True, **enc_kw),
         lambda: dense_encoder_reference(*enc[:7], stash=True, **enc_kw),
@@ -2728,6 +3113,11 @@ def main() -> None:
              **({} if breakdown is None else {"kernels_of_5_calls": breakdown, "stages_ms": stages}))
         records.append(kernel_record(fn, path_launches[fn], errors[fn], kernel_t, plain_t,
                                      bound_ms, bound_by, library_t))
+    # rows 1-6's bf16 instantiations (bf16_kernels_phase's times; their
+    # launches on the bf16 block's paths)
+    for fn, (err, kernel_t, plain_t, bound_ms, bound_by) in bf16_rows.items():
+        records.append(kernel_record(fn, bf16_path[f"{fn.__name__}_bf16"], err, kernel_t, plain_t, bound_ms,
+                                     bound_by, name=f"{fn.__name__}_bf16"))
     # rows 10-13 at both of their shapes; the kernels line takes rows 12-13
     # at the dense first batch (the declarative path's) and rows 10-11 at
     # the packed first batch (the graph transformer's bins)

@@ -71,6 +71,20 @@
 // which changes the numbers), and mW and each layer's output go through L2
 // between the launches.
 //
+// matmul_dtype="bfloat16" (the TPU kernels' mm_dtype) is the kBf16
+// instantiation of the prep, product and operator kernels: every operand the
+// TPU kernel casts with .astype(bfloat16) is rounded to bf16 (nearest, ties
+// to even) where it is staged, and the FMAs and sums stay f32 in the orders
+// above, so each product of two operands is exact and only the sums round:
+// relu(h) and W into the product; mW again into the operator; the mean's
+// coefficients as bf16(1 / indeg) and, on a kept rev lane, bf16(1 / indeg - 1)
+// (the TPU kernel rounds keep / indeg - rev as a whole); for the encoder nf
+// into the gather, and the last output and the mean's 1 / count into the
+// scatter. The layer state h stays f32. A bf16 stash (stash_dtype) is a
+// second output of the operator pass, h rounded as it is written. The
+// instantiations run at the f32 kernels' speed: they round operands and
+// keep the CUDA-core FMAs (bf16 tensor-core products are later work).
+//
 // Row 7 (dense_mpnn_dbuf_forward, dense_mpnn_dbuf_kernel) keeps the TPU
 // kernel's contract in Hopper's terms: the TPU kernel holds a tile of bins in
 // VMEM through all depth layers while DMA streams the next tile in and the
@@ -140,7 +154,8 @@ __device__ inline uint32_t match_word(const int* dst_s, const int* ok_s, int E, 
 // rows into node_bits[b, V, words] (bit e of row v: dst[e] == v and
 // emask[e]). With h0 non-null it also writes the 64-column slices p, p +
 // kPrepSplit, ... of bin b's layer-0 input h0 = nf[src] + ef (input_vec's
-// order of the add).
+// order of the add; with kBf16 nf rounded to bf16 first).
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 mpnn_fwd_prep_kernel(const float* __restrict__ ef, const float* __restrict__ nf,
                      float* __restrict__ h0, const int* __restrict__ src,
@@ -163,7 +178,7 @@ mpnn_fwd_prep_kernel(const float* __restrict__ ef, const float* __restrict__ nf,
         for (int t = 0; t < kGatherBatch; ++t) {
           const int i = i0 + t * kThreads;
           if (i < E * kVecs)
-            v[t] = input_vec<true>(ef, nf, src, bin_off + i / kVecs, b, V, d, c0, i % kVecs);
+            v[t] = input_vec<true, kBf16>(ef, nf, src, bin_off + i / kVecs, b, V, d, c0, i % kVecs);
         }
 #pragma unroll
         for (int t = 0; t < kGatherBatch; ++t) {
@@ -233,7 +248,10 @@ __device__ inline void gemm_compute(const float* As, const float* Bs, float (&ac
 
 // Grid: ceil(R / kGemmRows) * (d / 64) blocks, the column tiles of a row
 // tile next to each other. h is the layer's input [R, d], W [d, d] row-major
-// [in, out], mw [R, d].
+// [in, out], mw [R, d]. With kBf16 both operands are rounded to bf16 as they
+// are staged (relu(h) and W, the TPU kernel's .astype(mm) operands); the
+// products and their sums stay f32.
+template <bool kBf16>
 __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
 mpnn_fwd_gemm_kernel(const float* __restrict__ h, const float* __restrict__ W,
                      float* __restrict__ mw, int R, int d) {
@@ -268,16 +286,16 @@ mpnn_fwd_gemm_kernel(const float* __restrict__ h, const float* __restrict__ W,
     for (int t = 0; t < kGroupsA; ++t) {
       const int g = threadIdx.x + t * kGemmThreads;
       float* s = stage + g % (kBK / 4) * 4 * kLdA + g / (kBK / 4);
-      s[0] = relu(ra[t].x);
-      s[kLdA] = relu(ra[t].y);
-      s[2 * kLdA] = relu(ra[t].z);
-      s[3 * kLdA] = relu(ra[t].w);
+      s[0] = operand<kBf16>(relu(ra[t].x));
+      s[kLdA] = operand<kBf16>(relu(ra[t].y));
+      s[2 * kLdA] = operand<kBf16>(relu(ra[t].z));
+      s[3 * kLdA] = operand<kBf16>(relu(ra[t].w));
     }
     float* bs = stage + kSlabA;
 #pragma unroll
     for (int t = 0; t < kGroupsB; ++t) {
       const int g = threadIdx.x + t * kGemmThreads;
-      *reinterpret_cast<float4*>(bs + g / (kBN / 4) * kLdB + g % (kBN / 4) * 4) = rb[t];
+      *reinterpret_cast<float4*>(bs + g / (kBN / 4) * kLdB + g % (kBN / 4) * 4) = operand4<kBf16>(rb[t]);
     }
   };
   load(0);
@@ -336,17 +354,46 @@ __device__ inline float walk_row(const uint32_t* row, int words, int& deg, const
   return s;
 }
 
+// The count of set bits of a bit row of `words` words.
+__device__ inline int row_bits(const uint32_t* row, int words) {
+  int deg = 0;
+#pragma unroll
+  for (int w = 0; w < kMaxWords; ++w) deg += w < words ? __popc(row[w]) : 0;
+  return deg;
+}
+
+// Row e's sum of the mean operator with bf16 coefficients, the TPU kernel's
+// A.astype(bfloat16): bf16(1 / indeg) on every kept lane but rev(e), and on
+// rev(e) bf16(1 / indeg - 1) where it is kept, else -1 (A's rev diagonal).
+// x(e2) is the (already rounded) operand of lane e2; each product is exact
+// in f32 and the sum runs in ascending e2, then the unkept rev term.
+template <typename X>
+__device__ inline float mean_row_bf16(const uint32_t* row, int words, int e, const X& x) {
+  const float inv = 1.f / fmaxf((float)row_bits(row, words), 1.f);
+  const float c = operand<true>(inv), c_rev = operand<true>(inv - 1.f);
+  const int rev = e ^ 1;
+  int deg;
+  float s = walk_row(row, words, deg, [&](int e2) { return (e2 == rev ? c_rev : c) * x(e2); });
+  if (!(row[rev >> 5] >> (rev & 31) & 1u)) s -= x(rev);
+  return s;
+}
+
 // Grid (bin, 64-column slice of d), kApplyThreads a block. mw_g is the
 // layer's product [B * E, d], h_in its input (read for the residual), adj_g
 // and node_bits_g the prep's bit rows. With kScatter (the encoder's last
-// layer) the block also writes nh[b, :, slice].
-template <bool kScatter>
+// layer) the block also writes nh[b, :, slice]. With hs_out non-null the
+// block also writes h_out rounded to bf16 there (the bf16 stash; h_out, the
+// next layer's input, stays f32). With kBf16 the operator's operands are
+// rounded to bf16, as the TPU kernel rounds them: mW as it is staged, the
+// mean's coefficients (mean_row_bf16), and for the scatter the layer's
+// output and the mean's 1 / count.
+template <bool kScatter, bool kBf16>
 __global__ void __launch_bounds__(kApplyThreads, kApplyMinBlocks)
 mpnn_fwd_apply_kernel(const float* __restrict__ mw_g, const float* __restrict__ h_in,
-                      float* __restrict__ h_out, float* __restrict__ nh,
-                      const uint32_t* __restrict__ adj_g, const uint32_t* __restrict__ node_bits_g,
-                      const float* __restrict__ bias, int E, int V, int d, int residual,
-                      int mean) {
+                      float* __restrict__ h_out, __nv_bfloat16* __restrict__ hs_out,
+                      float* __restrict__ nh, const uint32_t* __restrict__ adj_g,
+                      const uint32_t* __restrict__ node_bits_g, const float* __restrict__ bias,
+                      int E, int V, int d, int residual, int mean) {
   extern __shared__ float4 smem4[];
   const int words = adj_words(E);
   float* mw = reinterpret_cast<float*>(smem4);                            // [E][kCols]
@@ -372,7 +419,7 @@ mpnn_fwd_apply_kernel(const float* __restrict__ mw_g, const float* __restrict__ 
     for (int t = 0; t < kPer; ++t) {
       const int i = tid + t * kApplyThreads;
       if (i < E * kVecs)
-        reinterpret_cast<float4*>(mw + (size_t)(i / kVecs) * kCols)[i % kVecs] = v[t];
+        reinterpret_cast<float4*>(mw + (size_t)(i / kVecs) * kCols)[i % kVecs] = operand4<kBf16>(v[t]);
     }
   }
   for (int i = tid; i < E * words; i += kApplyThreads) adj[i] = adj_g[bin_off * words + i];
@@ -394,39 +441,53 @@ mpnn_fwd_apply_kernel(const float* __restrict__ mw_g, const float* __restrict__ 
     for (int u = 0; u < kResGroup; ++u) {
       const int e = e0 + u * kPhases;
       if (e >= E) break;
-      int deg;
-      float s = walk_row(adj + (size_t)e * words, words, deg,
-                         [&](int e2) { return mw[e2 * kCols + c]; });
-      if (mean) s = s / fmaxf((float)deg, 1.f) - mw[(e ^ 1) * kCols + c];
+      const uint32_t* row = adj + (size_t)e * words;
+      const auto x = [&](int e2) { return mw[e2 * kCols + c]; };
+      float s;
+      if (kBf16 && mean) {
+        s = mean_row_bf16(row, words, e, x);
+      } else {
+        int deg;
+        s = walk_row(row, words, deg, x);
+        if (mean) s = s / fmaxf((float)deg, 1.f) - mw[(e ^ 1) * kCols + c];
+      }
       const float o = bc + s;
       const float hv = residual ? res[u] + o : o;
       h_out[(bin_off + e) * d + c0 + c] = hv;
-      if constexpr (kScatter) outs[e * kCols + c] = hv;
+      if (hs_out) hs_out[(bin_off + e) * d + c0 + c] = __float2bfloat16_rn(hv);
+      if constexpr (kScatter) outs[e * kCols + c] = operand<kBf16>(hv);
     }
   }
   if constexpr (kScatter) {
     __syncthreads();
     for (int v = tid / kCols; v < V; v += kPhases) {
+      const uint32_t* row = node_bits + (size_t)v * words;
       int deg;
-      float s = walk_row(node_bits + (size_t)v * words, words, deg,
-                         [&](int e) { return outs[e * kCols + c]; });
-      if (mean) s = s / fmaxf((float)deg, 1.f);
+      float s;
+      if (kBf16 && mean) {  // sum of bf16(1 / count) * bf16(h), each product exact
+        const float scale = operand<true>(1.f / fmaxf((float)row_bits(row, words), 1.f));
+        s = walk_row(row, words, deg, [&](int e) { return scale * outs[e * kCols + c]; });
+      } else {
+        s = walk_row(row, words, deg, [&](int e) { return outs[e * kCols + c]; });
+        if (mean) s = s / fmaxf((float)deg, 1.f);
+      }
       nh[((size_t)b * V + v) * d + c0 + c] = s;
     }
   }
 }
 
-template <bool kScatter>
-cudaError_t launch_apply(const float* mw, const float* h_in, float* h_out, float* nh,
-                         const uint32_t* adj, const uint32_t* node_bits, const float* bias, int B,
-                         int E, int V, int d, int residual, int mean, cudaStream_t s) {
+template <bool kScatter, bool kBf16>
+cudaError_t launch_apply(const float* mw, const float* h_in, float* h_out, __nv_bfloat16* hs_out,
+                         float* nh, const uint32_t* adj, const uint32_t* node_bits,
+                         const float* bias, int B, int E, int V, int d, int residual, int mean,
+                         cudaStream_t s) {
   static uint64_t configured = 0;
-  cudaError_t err = allow_smem((const void*)mpnn_fwd_apply_kernel<kScatter>,
+  cudaError_t err = allow_smem((const void*)mpnn_fwd_apply_kernel<kScatter, kBf16>,
                                (int)apply_smem_bytes(kMaxEdges, kMaxNodes, kScatter), configured);
   if (err != cudaSuccess) return err;
-  mpnn_fwd_apply_kernel<kScatter><<<dim3(B, d / kCols), kApplyThreads,
-                                    apply_smem_bytes(E, V, kScatter), s>>>(
-      mw, h_in, h_out, nh, adj, node_bits, bias, E, V, d, residual, mean);
+  mpnn_fwd_apply_kernel<kScatter, kBf16><<<dim3(B, d / kCols), kApplyThreads,
+                                           apply_smem_bytes(E, V, kScatter), s>>>(
+      mw, h_in, h_out, hs_out, nh, adj, node_bits, bias, E, V, d, residual, mean);
   return cudaGetLastError();
 }
 
@@ -709,6 +770,23 @@ bool bad_shape(int B, int E, int d) {
   return B <= 0 || E <= 0 || E % 2 != 0 || E > kMaxEdges || d <= 0 || d % kCols != 0;
 }
 
+// One layer's product and operator pass (the scatter too when `scatter`).
+template <bool kBf16>
+cudaError_t launch_layer(const float* x, const float* W, float* mw, float* h_out,
+                         __nv_bfloat16* hs_out, float* nh, const uint32_t* adj,
+                         const uint32_t* node_bits, const float* bias, int B, int E, int V, int d,
+                         int residual, int mean, bool scatter, cudaStream_t s) {
+  const int R = B * E;
+  mpnn_fwd_gemm_kernel<kBf16><<<(R + kGemmRows - 1) / kGemmRows * (d / kBN), kGemmThreads, 0, s>>>(
+      x, W, mw, R, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return scatter ? launch_apply<true, kBf16>(mw, x, h_out, hs_out, nh, adj, node_bits, bias, B, E, V,
+                                             d, residual, mean, s)
+                 : launch_apply<false, kBf16>(mw, x, h_out, hs_out, nullptr, adj, nullptr, bias, B,
+                                              E, V, d, residual, mean, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -723,6 +801,11 @@ int dense_mpnn_cols() { return kCols; }
 // reading the previous output (h_in first) and writing outs[l] (a host array
 // of `layers` device pointers, none of them a layer's own input), with
 // W[l] = W + l * d * d ([in, out], row-major) and bias[l] = bias + l * d.
+// With stash non-null (a host array of `layers` pointers, null or a bf16
+// [B,E,d] array each, 8-byte aligned) layer l also writes its output rounded
+// to bf16 into stash[l]. With bf16 != 0 every operand of the products, the
+// operator and the encoder's ends is rounded to bf16 where the TPU kernel
+// rounds it (matmul_dtype="bfloat16"); sums stay f32.
 // h_in, outs[l] [B,E,d]; src/dst[B,E] int32, emask[B,E] bytes. With gather
 // != 0, h_in is ef[B,E,d] and layer 0's input is nf[src] + ef, nf[B,V,d];
 // with scatter != 0 the last layer also writes nh[B,V,d] (see the top of the
@@ -731,11 +814,12 @@ int dense_mpnn_cols() { return kCols; }
 // outs are device pointers of contiguous arrays; h_in, every outs[l], W, nf,
 // h0 and mw start 16-byte aligned. The stream is a cudaStream_t. Returns the
 // cudaError_t of the launches (0 on success).
-int dense_mpnn_forward(const float* h_in, float* const* outs, const float* nf, float* nh,
-                       const int* src, const int* dst, const uint8_t* emask, const float* W,
-                       const float* bias, uint32_t* adj, uint32_t* node_bits, float* h0, float* mw,
-                       int B, int V, int E, int d, int layers, int residual, int mean, int gather,
-                       int scatter, void* stream) {
+int dense_mpnn_forward(const float* h_in, float* const* outs, __nv_bfloat16* const* stash,
+                       const float* nf, float* nh, const int* src, const int* dst,
+                       const uint8_t* emask, const float* W, const float* bias, uint32_t* adj,
+                       uint32_t* node_bits, float* h0, float* mw, int B, int V, int E, int d,
+                       int layers, int residual, int mean, int gather, int scatter, int bf16,
+                       void* stream) {
   if (bad_shape(B, E, d) || layers <= 0 || !outs) return (int)cudaErrorInvalidValue;
   if ((gather || scatter) && (V <= 0 || V > kMaxNodes || (gather && (!nf || !h0)) ||
                               (scatter && (!nh || !node_bits))))
@@ -743,25 +827,24 @@ int dense_mpnn_forward(const float* h_in, float* const* outs, const float* nf, f
   uintptr_t addr = (uintptr_t)h_in | (uintptr_t)W | (uintptr_t)nf | (uintptr_t)h0 | (uintptr_t)mw;
   for (int l = 0; l < layers; ++l) addr |= (uintptr_t)outs[l];
   if (addr % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  if (stash)
+    for (int l = 0; l < layers; ++l)
+      if ((uintptr_t)stash[l] % 8 != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  mpnn_fwd_prep_kernel<<<dim3(B, kPrepSplit), kThreads, 0, s>>>(
-      h_in, nf, gather ? h0 : nullptr, src, dst, emask, adj, scatter ? node_bits : nullptr, E, V,
-      d, mean);
+  auto prep = bf16 ? mpnn_fwd_prep_kernel<true> : mpnn_fwd_prep_kernel<false>;
+  prep<<<dim3(B, kPrepSplit), kThreads, 0, s>>>(h_in, nf, gather ? h0 : nullptr, src, dst, emask,
+                                                adj, scatter ? node_bits : nullptr, E, V, d, mean);
   cudaError_t err = cudaGetLastError();
-  const int R = B * E;
   const float* x = gather ? h0 : h_in;
   for (int l = 0; l < layers && err == cudaSuccess; ++l) {
-    mpnn_fwd_gemm_kernel<<<(R + kGemmRows - 1) / kGemmRows * (d / kBN), kGemmThreads, 0, s>>>(
-        x, W + (size_t)l * d * d, mw, R, d);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) break;
+    const bool last = scatter && l == layers - 1;
+    __nv_bfloat16* hs_out = stash ? stash[l] : nullptr;
     const float* b = bias + (size_t)l * d;
-    err = scatter && l == layers - 1
-              ? launch_apply<true>(mw, x, outs[l], nh, adj, node_bits, b, B, E, V, d, residual,
-                                   mean, s)
-              : launch_apply<false>(mw, x, outs[l], nullptr, adj, nullptr, b, B, E, V, d,
-                                    residual, mean, s);
+    err = bf16 ? launch_layer<true>(x, W + (size_t)l * d * d, mw, outs[l], hs_out, nh, adj,
+                                    node_bits, b, B, E, V, d, residual, mean, last, s)
+               : launch_layer<false>(x, W + (size_t)l * d * d, mw, outs[l], hs_out, nh, adj,
+                                     node_bits, b, B, E, V, d, residual, mean, last, s);
     x = outs[l];
   }
   return (int)err;

@@ -77,6 +77,16 @@
 //     order of every sum is fixed, not the order of arrival, so two calls on
 //     the same inputs give the same bits. No float atomics: the only atomics
 //     are the integer arrival counts and in-degrees.
+//
+// matmul_dtype="bfloat16" is the kBf16 instantiation of the adjoint, the
+// products and the gather's VJP: the operands the TPU kernel casts with
+// .astype(bfloat16) are rounded to bf16 where they are read or staged (g into
+// A^T g; A^T's mean coefficients; relu(h_in) and g_mW into g_W; g_mW and W
+// into g_in; gn and the mean's scatter scale in the prologue; nf in h0's
+// recompute; g_h0 into the gather's VJP), and the FMAs and sums stay f32 in
+// the orders above. stash_dtype="bfloat16" is the kHalfIn instantiation of
+// the products: the layer input is read from the bf16 stash, for the ReLU
+// mask and for g_W's operand alike.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -244,8 +254,13 @@ __device__ inline float walk_bits(const uint32_t* row, int words, const Term& te
 // of A, on every row. gb_part[b, c] = sum over the bin's rows of g[., c].
 // With h0 non-null (layer 0 of the encoder) the block also writes its slice
 // of the layer's input, h0 = nf[src] + ef, recomputed for the products.
-// Block (0, 0) zeroes the layer's products' arrival counts.
-template <bool kPrologue>
+// Block (0, 0) zeroes the layer's products' arrival counts. With kBf16 the
+// operands the TPU kernel rounds to bf16 are rounded where they are read: g
+// into A^T g (g itself, for g_b and the residual, stays f32), A^T's mean
+// coefficients (bf16(1 / indeg(e)), and bf16(1 / indeg(e) - 1) on a kept
+// rev lane, else -1), gn and the mean's scatter scale in the prologue, and nf
+// in h0's recompute.
+template <bool kPrologue, bool kBf16>
 __global__ void __launch_bounds__(kSliceThreads)
 bwd_adjoint_kernel(const float* __restrict__ g, const float* __restrict__ ge,
                    const float* __restrict__ gn, const float* __restrict__ scat,
@@ -280,9 +295,10 @@ bwd_adjoint_kernel(const float* __restrict__ g, const float* __restrict__ ge,
     stage_slice(gs, E, [&](int e, int q) {
       const size_t off = (bin_off + e) * d + c0;
       float4 v = reinterpret_cast<const float4*>(ge + off)[q];
-      const float sc = scat[bin_off + e];
+      const float sc = operand<kBf16>(scat[bin_off + e]);
       if (sc != 0.f) {
-        float4 n = reinterpret_cast<const float4*>(gn + ((size_t)b * V + dst[bin_off + e]) * d + c0)[q];
+        float4 n = operand4<kBf16>(
+            reinterpret_cast<const float4*>(gn + ((size_t)b * V + dst[bin_off + e]) * d + c0)[q]);
         if (mean) n = make_float4(n.x * sc, n.y * sc, n.z * sc, n.w * sc);
         v = add4(v, n);
       }
@@ -295,7 +311,7 @@ bwd_adjoint_kernel(const float* __restrict__ g, const float* __restrict__ ge,
   }
   if (h0)
     copy_slice(
-        E, [&](int e, int q) { return input_vec<true>(ef, nf, src, bin_off + e, b, V, d, c0, q); },
+        E, [&](int e, int q) { return input_vec<true, kBf16>(ef, nf, src, bin_off + e, b, V, d, c0, q); },
         [&](int e, int q, float4 v) { reinterpret_cast<float4*>(h0 + (bin_off + e) * d + c0)[q] = v; });
   __syncthreads();
   if constexpr (kPrologue) {
@@ -308,9 +324,19 @@ bwd_adjoint_kernel(const float* __restrict__ g, const float* __restrict__ ge,
   constexpr int kPhases = kSliceThreads / kCols;
   float sum = 0.f;  // g_b: rows phase, phase + kPhases, ... then the phases in order
   for (int e2 = phase; e2 < E; e2 += kPhases) {
-    float s = walk_bits(adj + (size_t)e2 * words, words,
-                        [&](int e) { return mean ? gs[e * kCols + c] * inv[e] : gs[e * kCols + c]; });
-    if (mean) s -= gs[(e2 ^ 1) * kCols + c];
+    const uint32_t* row = adj + (size_t)e2 * words;
+    const auto x = [&](int e) { return operand<kBf16>(gs[e * kCols + c]); };
+    float s;
+    if (kBf16 && mean) {
+      const int rev = e2 ^ 1;
+      s = walk_bits(row, words, [&](int e) {
+        return operand<true>(e == rev ? inv[e] - 1.f : inv[e]) * x(e);
+      });
+      if (!(row[rev >> 5] >> (rev & 31) & 1u)) s -= x(rev);
+    } else {
+      s = walk_bits(row, words, [&](int e) { return mean ? x(e) * inv[e] : x(e); });
+      if (mean) s -= x(e2 ^ 1);
+    }
     g_mw[(bin_off + e2) * d + c0 + c] = s;
     sum += gs[e2 * kCols + c];
   }
@@ -344,9 +370,16 @@ static_assert(kBM == kBN && kBN == kCols && kGroups == 2, "tile shape");
 struct Operands {
   const float* g_mw;  // [R, d]
   const float* wt;    // [d, d] W^T, row-major: [out, in]
-  const float* h_in;  // [R, d] the layer input
+  const void* h_in;   // [R, d] the layer input: float, or bf16 (a bf16 stash) with kHalfIn
   int R, d;
 };
+
+// 4 values of the layer input from element i (i % 4 == 0), as floats.
+template <bool kHalfIn>
+__device__ inline float4 load_input4(const void* h_in, size_t i) {
+  if constexpr (kHalfIn) return load_bf16x4(static_cast<const __nv_bfloat16*>(h_in), i);
+  return *reinterpret_cast<const float4*>(static_cast<const float*>(h_in) + i);
+}
 
 // g_mW W^T: A = g_mW rows m0.. along k, stored transposed
 __device__ inline float4 load_a_rows(const Operands& o, int m0, int k0, int g) {
@@ -362,10 +395,11 @@ __device__ inline void store_a_rows(float* As, int g, float4 x) {
   s[3 * kLd] = x.w;
 }
 // relu(h_in)^T g_mW: A = relu(layer input) rows k0.. (the sum's rows) along m
+template <bool kHalfIn>
 __device__ inline float4 load_a_cols(const Operands& o, int m0, int k0, int k1, int g) {
   const int r = k0 + g / (kBM / 4), m = m0 + g % (kBM / 4) * 4;
   if (r >= k1) return make_float4(0.f, 0.f, 0.f, 0.f);
-  const float4 v = *reinterpret_cast<const float4*>(o.h_in + (size_t)r * o.d + m);
+  const float4 v = load_input4<kHalfIn>(o.h_in, (size_t)r * o.d + m);
   return make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f), fmaxf(v.w, 0.f));
 }
 // B: rows k0.. of a row-major [rows, d] operand along n (W^T, or g_mW)
@@ -394,8 +428,9 @@ __device__ inline void tile_compute(const float* As, const float* Bs, float (&ac
 }
 
 // The k-loop of one tile, kInput: g_mW W^T (k over d), else relu(h)^T g_mW
-// (k over the rows [k0, k1)). S holds two stages of both slabs.
-template <bool kInput>
+// (k over the rows [k0, k1)). S holds two stages of both slabs. With kBf16
+// both operands are rounded to bf16 as they are staged.
+template <bool kInput, bool kBf16, bool kHalfIn>
 __device__ inline void tile_run(const Operands& o, int m0, int n0, int k0, int k1, float* S,
                                 float (&acc)[kTM][kTN]) {
 #pragma unroll
@@ -411,9 +446,11 @@ __device__ inline void tile_run(const Operands& o, int m0, int n0, int k0, int k
         ra[t] = load_a_rows(o, m0, k, g);
         rb[t] = load_b(o.wt, o.d, n0, k, k1, g);
       } else {
-        ra[t] = load_a_cols(o, m0, k, k1, g);
+        ra[t] = load_a_cols<kHalfIn>(o, m0, k, k1, g);
         rb[t] = load_b(o.g_mw, o.d, n0, k, k1, g);
       }
+      ra[t] = operand4<kBf16>(ra[t]);
+      rb[t] = operand4<kBf16>(rb[t]);
     }
   };
   auto store = [&](float* stage) {
@@ -458,7 +495,9 @@ struct GemmArgs {
 // tiles, row tile by row tile. A weight-gradient block writes its chunk's
 // partial, and the last of a tile's chunks to arrive adds them in ascending
 // chunk order into g_W (and, for the first row of tiles, g_b's per-bin
-// partials in ascending bin order into g_b).
+// partials in ascending bin order into g_b). kBf16: the operands rounded to
+// bf16 (tile_run); kHalfIn: the layer input is the bf16 stash.
+template <bool kBf16, bool kHalfIn>
 __global__ void __launch_bounds__(kGemmThreads, 3) bwd_gemm_kernel(const __grid_constant__ GemmArgs a) {
   __shared__ __align__(16) float S[4 * kSlab];
   __shared__ int last;
@@ -470,14 +509,14 @@ __global__ void __launch_bounds__(kGemmThreads, 3) bwd_gemm_kernel(const __grid_
   if ((int)blockIdx.x >= a.w_jobs) {
     const int job = blockIdx.x - a.w_jobs;
     const int m0 = job / tn * kBM, n0 = job % tn * kBN;
-    tile_run<true>(o, m0, n0, 0, d, S, acc);
+    tile_run<true, kBf16, kHalfIn>(o, m0, n0, 0, d, S, acc);
     const int n = n0 + tx * kTN;
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
       const int r = m0 + ty * kTM + i;
       if (r >= o.R) break;
       const size_t off = (size_t)r * d + n;
-      const float4 h = *reinterpret_cast<const float4*>(o.h_in + off);
+      const float4 h = load_input4<kHalfIn>(o.h_in, off);
       float4 v = make_float4(acc[i][0] * (h.x > 0.f ? 1.f : 0.f), acc[i][1] * (h.y > 0.f ? 1.f : 0.f),
                              acc[i][2] * (h.z > 0.f ? 1.f : 0.f), acc[i][3] * (h.w > 0.f ? 1.f : 0.f));
       if (a.residual) v = add4(v, *reinterpret_cast<const float4*>(a.g + off));
@@ -489,7 +528,7 @@ __global__ void __launch_bounds__(kGemmThreads, 3) bwd_gemm_kernel(const __grid_
   const int tile = blockIdx.x / a.chunks, chunk = blockIdx.x % a.chunks;
   const int m0 = tile / tn * kBM, n0 = tile % tn * kBN;
   const int r0 = chunk * kChunkRows, r1 = min(o.R, r0 + kChunkRows);
-  tile_run<false>(o, m0, n0, r0, r1, S, acc);
+  tile_run<false, kBf16, kHalfIn>(o, m0, n0, r0, r1, S, acc);
   float* part = a.chunks == 1 ? a.gw : a.gw_part + (size_t)chunk * d * d;
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
@@ -532,7 +571,9 @@ __host__ inline size_t node_grad_smem_bytes(int E, int V) {
 }
 
 // Grid (bin, 64-column slice): g_nf[b, v, c] = sum over node v's set bits
-// (src[e] == v, unmasked, as the gather reads) of g_h0[b, e, c], ascending e.
+// (src[e] == v, unmasked, as the gather reads) of g_h0[b, e, c], ascending e;
+// with kBf16 each g_h0 rounded to bf16 as it is staged.
+template <bool kBf16>
 __global__ void __launch_bounds__(kSliceThreads)
 bwd_node_grad_kernel(const float* __restrict__ g_h0, const uint32_t* __restrict__ node_bits_g,
                      float* __restrict__ g_nf, int E, int V, int d) {
@@ -550,7 +591,7 @@ bwd_node_grad_kernel(const float* __restrict__ g_h0, const uint32_t* __restrict_
     if (i < V * words) node_bits[i] = node_bits_g[(size_t)b * V * words + i];
   }
   stage_slice(outs, E, [&](int e, int q) {
-    return reinterpret_cast<const float4*>(g_h0 + (bin_off + e) * d + c0)[q];
+    return operand4<kBf16>(reinterpret_cast<const float4*>(g_h0 + (bin_off + e) * d + c0)[q]);
   });
   __syncthreads();
   const int c = tid % kCols;
@@ -561,7 +602,8 @@ bwd_node_grad_kernel(const float* __restrict__ g_h0, const uint32_t* __restrict_
 
 // The layer's pointers, as dense_mpnn_bwd_layer takes them.
 struct LayerArgs {
-  const float *h_in, *g;
+  const void* h_in;  // float, or bf16 (the stash)
+  const float* g;
   float *g_in, *g_mw, *gw_part, *gb_part;
   int* counts;
   float *gw, *gb;
@@ -572,29 +614,51 @@ struct LayerArgs {
   float *g_full, *h0, *g_nf;
 };
 
-template <bool kPrologue>
+template <bool kPrologue, bool kBf16>
 cudaError_t launch_adjoint(const LayerArgs& p, bool gather, int B, int E, int V, int d, int mean,
                            cudaStream_t s) {
   static uint64_t configured = 0;
-  cudaError_t err = allow_smem((const void*)bwd_adjoint_kernel<kPrologue>,
+  cudaError_t err = allow_smem((const void*)bwd_adjoint_kernel<kPrologue, kBf16>,
                                (int)adjoint_smem_bytes(kMaxEdges), configured);
   if (err != cudaSuccess) return err;
   const int tn = d / kCols;
-  bwd_adjoint_kernel<kPrologue><<<dim3(B, tn), kSliceThreads, adjoint_smem_bytes(E), s>>>(
-      p.g, p.ge, p.gn, p.scat, p.dst, p.g_full, p.g_mw, p.gb_part, p.adj, p.inv, p.h_in, p.nf,
-      p.src, gather ? p.h0 : nullptr, p.counts, tn * tn, E, V, d, mean);
+  // the encoder's layer 0 reads h_in as ef (f32: layer 0's input is never stashed)
+  bwd_adjoint_kernel<kPrologue, kBf16><<<dim3(B, tn), kSliceThreads, adjoint_smem_bytes(E), s>>>(
+      p.g, p.ge, p.gn, p.scat, p.dst, p.g_full, p.g_mw, p.gb_part, p.adj, p.inv,
+      static_cast<const float*>(p.h_in), p.nf, p.src, gather ? p.h0 : nullptr, p.counts, tn * tn, E, V,
+      d, mean);
   return cudaGetLastError();
 }
 
+template <bool kBf16>
 cudaError_t launch_node_grad(const float* g_h0, const uint32_t* node_bits, float* g_nf, int B, int E,
                              int V, int d, cudaStream_t s) {
   static uint64_t configured = 0;
-  cudaError_t err = allow_smem((const void*)bwd_node_grad_kernel,
+  cudaError_t err = allow_smem((const void*)bwd_node_grad_kernel<kBf16>,
                                (int)node_grad_smem_bytes(kMaxEdges, kMaxNodes), configured);
   if (err != cudaSuccess) return err;
-  bwd_node_grad_kernel<<<dim3(B, d / kCols), kSliceThreads, node_grad_smem_bytes(E, V), s>>>(
+  bwd_node_grad_kernel<kBf16><<<dim3(B, d / kCols), kSliceThreads, node_grad_smem_bytes(E, V), s>>>(
       g_h0, node_bits, g_nf, E, V, d);
   return cudaGetLastError();
+}
+
+// The layer's launches: the adjoint, the two products, and the gather's VJP
+// after the encoder's layer 0.
+template <bool kBf16, bool kHalfIn>
+cudaError_t launch_layer(const LayerArgs& p, bool prologue, bool gather, int B, int E, int V, int d,
+                         int residual, int mean, cudaStream_t s) {
+  cudaError_t err = prologue ? launch_adjoint<true, kBf16>(p, gather, B, E, V, d, mean, s)
+                             : launch_adjoint<false, kBf16>(p, gather, B, E, V, d, mean, s);
+  if (err != cudaSuccess) return err;
+  const int R = B * E;
+  const int tn = d / kBN;
+  const int chunks = (R + kChunkRows - 1) / kChunkRows;
+  const GemmArgs a{{p.g_mw, p.wt, gather ? p.h0 : p.h_in, R, d}, p.g, p.g_in, p.gw_part, p.gb_part,
+                   p.gw, p.gb, p.counts, B, chunks, tn * tn * chunks, residual};
+  bwd_gemm_kernel<kBf16, kHalfIn><<<a.w_jobs + (R + kBM - 1) / kBM * tn, kGemmThreads, 0, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !gather) return err;
+  return launch_node_grad<kBf16>(p.g_in, p.node_bits, p.g_nf, B, E, V, d, s);
 }
 
 bool misaligned(std::initializer_list<const void*> ptrs) {
@@ -648,42 +712,42 @@ int dense_mpnn_bwd_prep(const float* W, float* wt, const int* src, const int* ds
 // layer's input nf[src] + ef (nf[B,V,d]) is recomputed into h0[B,E,d]
 // (scratch), and the gather's VJP is written to g_nf[B,V,d]. All pointers
 // are device pointers of contiguous arrays; every float array but gb starts
-// 16-byte aligned, and g_in differs from g. The stream is a cudaStream_t.
+// 16-byte aligned, and g_in differs from g. With half_in != 0, h_in is the
+// bf16 stash ([B,E,d] bf16, 8-byte aligned; never with gather). With bf16 !=
+// 0 the operands are rounded to bf16 where the TPU kernel rounds them
+// (matmul_dtype="bfloat16"; see the kernels). The stream is a cudaStream_t.
 // Returns the cudaError_t of the launches (0 on success).
-int dense_mpnn_bwd_layer(const float* h_in, const float* g, float* g_in, float* g_mw,
+int dense_mpnn_bwd_layer(const void* h_in, const float* g, float* g_in, float* g_mw,
                          float* gw_part, float* gb_part, int* counts, float* gw, float* gb,
                          const int* src, const int* dst, const float* wt, const uint32_t* adj,
                          const uint32_t* node_bits, const float* inv, const float* scat,
                          const float* nf, const float* ge, const float* gn, float* g_full,
                          float* h0, float* g_nf, int B, int V, int E, int d, int residual,
-                         int mean, int prologue, int gather, void* stream) {
+                         int mean, int prologue, int gather, int bf16, int half_in, void* stream) {
   if (B <= 0 || E <= 0 || E % 2 != 0 || E > kMaxEdges || d <= 0 || d % kCols != 0)
     return (int)cudaErrorInvalidValue;
   if ((prologue || gather) && (V <= 0 || V > kMaxNodes)) return (int)cudaErrorInvalidValue;
   if ((prologue && (!ge || !gn || !g_full || !scat)) ||
       (gather && (!nf || !g_nf || !h0 || !node_bits)))
     return (int)cudaErrorInvalidValue;
+  if (half_in && gather) return (int)cudaErrorInvalidValue;
   if (prologue) g = g_full;
-  if (misaligned({h_in, g, g_in, g_mw, gw_part, gb_part, gw, wt, nf, ge, gn, g_nf, h0}))
+  if (misaligned({g, g_in, g_mw, gw_part, gb_part, gw, wt, nf, ge, gn, g_nf, h0}) ||
+      (uintptr_t)h_in % (half_in ? 8 : 16) != 0)
     return (int)cudaErrorMisalignedAddress;
   if (g_in == g) return (int)cudaErrorInvalidValue;
   const LayerArgs p{h_in, g, g_in, g_mw, gw_part, gb_part, counts, gw, gb, src, dst, wt, adj,
                     node_bits, inv, scat, nf, ge, gn, g_full, h0, g_nf};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-  cudaError_t err = prologue ? launch_adjoint<true>(p, gather, B, E, V, d, mean, s)
-                             : launch_adjoint<false>(p, gather, B, E, V, d, mean, s);
-  if (err != cudaSuccess) return (int)err;
-
-  const int R = B * E;
-  const int tn = d / kBN;
-  const int chunks = (R + kChunkRows - 1) / kChunkRows;
-  const GemmArgs a{{g_mw, wt, gather ? h0 : h_in, R, d}, g, g_in, gw_part, gb_part, gw, gb,
-                   counts, B, chunks, tn * tn * chunks, residual};
-  bwd_gemm_kernel<<<a.w_jobs + (R + kBM - 1) / kBM * tn, kGemmThreads, 0, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !gather) return (int)err;
-  return (int)launch_node_grad(g_in, node_bits, g_nf, B, E, V, d, s);
+  const bool pro = prologue != 0, gat = gather != 0;
+  cudaError_t err;
+  if (bf16)
+    err = half_in ? launch_layer<true, true>(p, pro, gat, B, E, V, d, residual, mean, s)
+                  : launch_layer<true, false>(p, pro, gat, B, E, V, d, residual, mean, s);
+  else
+    err = half_in ? launch_layer<false, true>(p, pro, gat, B, E, V, d, residual, mean, s)
+                  : launch_layer<false, false>(p, pro, gat, B, E, V, d, residual, mean, s);
+  return (int)err;
 }
 
 const char* dense_mpnn_bwd_error_string(int err) {

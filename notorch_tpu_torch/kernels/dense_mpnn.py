@@ -91,6 +91,24 @@ holds one bin (the depth-fused forward keeps ``mols_per_tile`` for its
 argument check).
 The encoder's kernels take bins of at most 256 edge lanes and 256 node
 slots; the wrappers raise on larger ones.
+
+``matmul_dtype="bfloat16"`` and ``stash_dtype="bfloat16"`` are the JAX
+kernels' options, on rows 1-6. With ``matmul_dtype`` every operand the JAX
+kernel casts with ``.astype(bfloat16)`` is rounded to bf16 at the same point
+and products and sums stay f32: ``relu(h)`` and ``W`` into the layer
+product, the product ``mW`` again into the operator, the operator's
+coefficients (exact for sum; ``bf16(1/indeg)`` and ``bf16(1/indeg - 1)``
+for mean), in the backward ``g`` into ``Aᵀg``, ``relu(h_in)`` and ``g_mW``
+into the weight gradient, ``g_mW`` and ``W`` into the input gradient, and in
+the encoder ``node_feats`` into the gather, ``h`` (and the mean's ``1 /
+count``) into the scatter, ``g_node`` into the scatter's VJP and ``g_h0``
+into the gather's. The layer state stays f32. With ``stash_dtype`` the stash
+is a bf16 tensor written rounded, and the backward reads it back as its
+layer inputs (ReLU mask and weight-gradient operand alike). On the card
+these are the ``bf16`` instantiations of the same kernels (``csrc/
+dense_mpnn.cu`` and ``csrc/dense_mpnn_bwd.cu``), counted apart in
+``<wrapper>.launches_bf16``; the plain versions round at the same points.
+``None`` (or ``"float32"``) is the exact f32 path, bit for bit as before.
 """
 
 from __future__ import annotations
@@ -105,6 +123,24 @@ from notorch_tpu_torch.kernels.checks import check_aligned, check_tensors, on_ca
 
 REDUCES = ("sum", "mean")
 BACKWARDS = ("stash", "recompute")
+OPERAND_DTYPES = (None, "float32", "bfloat16")
+
+
+def operand_dtype(dtype, what: str = "matmul_dtype") -> torch.dtype | None:
+    """``torch.bfloat16`` for ``"bfloat16"``, ``None`` (exact f32) for
+    ``None`` or float32; anything else raises."""
+    name = None if dtype is None else str(dtype).removeprefix("torch.")
+    if name in (None, "float32"):
+        return None
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"{what} must be one of {OPERAND_DTYPES}, got {dtype!r}")
+
+
+def _round(t: torch.Tensor, mm: torch.dtype | None) -> torch.Tensor:
+    """``t`` rounded to ``mm`` and back to f32 (a JAX ``.astype(mm)``
+    operand); ``t`` itself when ``mm`` is ``None``."""
+    return t if mm is None else t.to(mm).to(torch.float32)
 
 
 def edge_adjacency(
@@ -141,19 +177,25 @@ def dense_mpnn_block_stash_reference(
     depth: int,
     residual: bool = True,
     reduce: str = "sum",
+    matmul_dtype=None,
+    stash_dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain PyTorch version of the stash forward: builds ``A`` densely and
-    runs the layers as ``matmul`` and ``bmm`` in full f32. Returns ``(out,
-    hs)``, ``hs = [h1, ..., h_{depth-1}]`` stacked (``None`` at depth 1)."""
+    runs the layers as ``matmul`` and ``bmm`` in f32, the operands rounded
+    to ``matmul_dtype`` where the JAX kernel rounds them. Returns ``(out,
+    hs)``, ``hs = [h1, ..., h_{depth-1}]`` stacked in ``stash_dtype``
+    (``None`` at depth 1)."""
     _exact_f32(edge_hiddens)
-    A = edge_adjacency(src, dst, edge_mask, mean=reduce == "mean")
+    mm = operand_dtype(matmul_dtype)
+    sd = operand_dtype(stash_dtype, "stash_dtype")
+    A = _round(edge_adjacency(src, dst, edge_mask, mean=reduce == "mean"), mm)
     h = edge_hiddens
     hs = []
     for layer in range(depth):
         if layer > 0:
-            hs.append(h)
-        mW = torch.matmul(torch.relu(h), weights[layer])
-        out = biases[layer] + torch.bmm(A, mW)
+            hs.append(h if sd is None else h.to(sd))
+        mW = torch.matmul(_round(torch.relu(h), mm), _round(weights[layer], mm))
+        out = biases[layer] + torch.bmm(A, _round(mW, mm))
         h = h + out if residual else out
     return h, torch.stack(hs) if hs else None
 
@@ -169,12 +211,13 @@ def dense_mpnn_block_reference(
     depth: int,
     residual: bool = True,
     reduce: str = "sum",
+    matmul_dtype=None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel (the stash forward's
     output alone)."""
     return dense_mpnn_block_stash_reference(
         edge_hiddens, src, dst, edge_mask, weights, biases,
-        depth=depth, residual=residual, reduce=reduce,
+        depth=depth, residual=residual, reduce=reduce, matmul_dtype=matmul_dtype,
     )[0]
 
 
@@ -190,22 +233,27 @@ def dense_mpnn_block_bwd_reference(
     depth: int,
     residual: bool = True,
     reduce: str = "sum",
+    matmul_dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the reverse sweep: dense ``A``, ``bmm`` and
-    ``matmul`` in full f32. ``hs`` holds the layer inputs h1..h_{depth-1}.
-    Returns ``(g_h0, g_W, g_b)``."""
+    ``matmul`` in f32, the operands rounded to ``matmul_dtype`` where the
+    JAX kernel rounds them. ``hs`` holds the layer inputs h1..h_{depth-1}
+    (f32, or the bf16 stash, read back as f32). Returns ``(g_h0, g_W,
+    g_b)``."""
     _exact_f32(h0)
-    A_t = edge_adjacency(src, dst, edge_mask, mean=reduce == "mean").transpose(1, 2)
+    mm = operand_dtype(matmul_dtype)
+    A_t = _round(edge_adjacency(src, dst, edge_mask, mean=reduce == "mean"), mm).transpose(1, 2)
     d = h0.shape[-1]
     g_W = torch.zeros_like(weights)
     g_b = torch.zeros(depth, d, dtype=weights.dtype, device=weights.device)
     g = cotangent
     for layer in reversed(range(depth)):
-        h_in = h0 if layer == 0 else hs[layer - 1]
-        g_mW = torch.bmm(A_t, g)
-        g_W[layer] = torch.matmul(torch.relu(h_in).reshape(-1, d).T, g_mW.reshape(-1, d))
+        h_in = h0 if layer == 0 else hs[layer - 1].to(torch.float32)
+        g_mW = torch.bmm(A_t, _round(g, mm))
+        g_W[layer] = torch.matmul(_round(torch.relu(h_in), mm).reshape(-1, d).T,
+                                  _round(g_mW, mm).reshape(-1, d))
         g_b[layer] = g.reshape(-1, d).sum(dim=0)
-        g_h = torch.matmul(g_mW, weights[layer].T) * (h_in > 0).to(g.dtype)
+        g_h = torch.matmul(_round(g_mW, mm), _round(weights[layer], mm).T) * (h_in > 0).to(g.dtype)
         g = g_h + g if residual else g_h
     return g, g_W, g_b
 
@@ -240,21 +288,33 @@ def dense_encoder_reference(
     residual: bool = True,
     reduce: str = "sum",
     stash: bool = False,
+    matmul_dtype=None,
+    stash_dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """Plain PyTorch version of the encoder forward: the gather, the plain
     block, and the masked scatter as a one-hot ``bmm`` (divided by the
     in-degree floored at 1 for mean). Returns ``(node_hiddens,
     edge_hiddens, hs)``, ``hs`` as :func:`dense_mpnn_block_stash_reference`
-    gives it when ``stash`` (else ``None``)."""
+    gives it when ``stash`` (else ``None``). With ``matmul_dtype`` the
+    gather reads ``node_feats`` rounded, and the scatter is the JAX kernel's
+    product of the rounded operator (the mean's ``1 / count`` folded in)
+    and the rounded edge hiddens."""
     _exact_f32(edge_feats)
-    h0 = gather_nodes(node_feats, src) + edge_feats
+    mm = operand_dtype(matmul_dtype)
+    h0 = gather_nodes(_round(node_feats, mm), src) + edge_feats
     eh, hs = dense_mpnn_block_stash_reference(
-        h0, src, dst, edge_mask, weights, biases, depth=depth, residual=residual, reduce=reduce
+        h0, src, dst, edge_mask, weights, biases, depth=depth, residual=residual, reduce=reduce,
+        matmul_dtype=matmul_dtype, stash_dtype=stash_dtype,
     )
     S = _one_hot(dst, node_feats.shape[1], edge_mask)
-    nh = torch.bmm(S, eh)
-    if reduce == "mean":
-        nh = nh / S.sum(dim=2, keepdim=True).clamp_min(1.0)
+    if mm is None:
+        nh = torch.bmm(S, eh)
+        if reduce == "mean":
+            nh = nh / S.sum(dim=2, keepdim=True).clamp_min(1.0)
+    else:
+        if reduce == "mean":
+            S = S / S.sum(dim=2, keepdim=True).clamp_min(1.0)
+        nh = torch.bmm(_round(S, mm), _round(eh, mm))
     return nh, eh, hs if stash else None
 
 
@@ -272,24 +332,28 @@ def dense_encoder_bwd_reference(
     depth: int,
     residual: bool = True,
     reduce: str = "sum",
+    matmul_dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the encoder backward: the scatter's VJP
     ``g = g_edge + Sᵀ g_node`` (with the forward's ``1 / indeg`` for mean),
     ``h0`` recomputed, the plain reverse sweep, and the gather's VJP
-    ``g_nf = Gᵀ g_h0`` (unmasked). Returns ``(g_nf, g_ef, g_W, g_b)``."""
+    ``g_nf = Gᵀ g_h0`` (unmasked), the operands rounded to ``matmul_dtype``
+    where the JAX kernel rounds them. Returns ``(g_nf, g_ef, g_W, g_b)``."""
     _exact_f32(edge_feats)
+    mm = operand_dtype(matmul_dtype)
     V = node_feats.shape[1]
-    h0 = gather_nodes(node_feats, src) + edge_feats
+    h0 = gather_nodes(_round(node_feats, mm), src) + edge_feats
     valid = edge_mask & (dst >= 0) & (dst < V)
-    g_scatter = torch.where(valid[..., None], gather_nodes(g_node, dst), 0.0)
+    g_scatter = torch.where(valid[..., None], gather_nodes(_round(g_node, mm), dst), 0.0)
     if reduce == "mean":
         inv = 1.0 / _one_hot(dst, V, edge_mask).sum(dim=2).clamp_min(1.0)  # [B, V]
-        g_scatter = g_scatter * gather_nodes(inv[..., None], dst)
+        g_scatter = g_scatter * gather_nodes(_round(inv, mm)[..., None], dst)
     g = g_edge + g_scatter
     g_h0, g_W, g_b = dense_mpnn_block_bwd_reference(
-        h0, hs, src, dst, edge_mask, weights, g, depth=depth, residual=residual, reduce=reduce
+        h0, hs, src, dst, edge_mask, weights, g, depth=depth, residual=residual, reduce=reduce,
+        matmul_dtype=matmul_dtype,
     )
-    g_nf = torch.bmm(_one_hot(src, V), g_h0)
+    g_nf = torch.bmm(_one_hot(src, V), _round(g_h0, mm))
     return g_nf, g_h0, g_W, g_b
 
 
@@ -323,7 +387,9 @@ def _check_bwd(h0, hs, cotangent, depth) -> None:
     if depth > 1:
         if hs is None:
             raise ValueError(f"hs (the stash h1..h_{{depth-1}}) is required at depth {depth}")
-        expect["hs"] = (hs, torch.float32, (depth - 1, B, E, d))
+        # the stash is f32, or bf16 (stash_dtype="bfloat16")
+        stash = torch.bfloat16 if hs.dtype == torch.bfloat16 else torch.float32
+        expect["hs"] = (hs, stash, (depth - 1, B, E, d))
     check_tensors(expect, h0.device)
 
 
@@ -337,7 +403,7 @@ def _layer_fns():
     entry."""
     lib = build.load("dense_mpnn")
     fwd, dbuf = lib.dense_mpnn_forward, lib.dense_mpnn_dbuf_forward
-    fwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     dbuf.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fwd.restype = dbuf.restype = ctypes.c_int
     lib.dense_mpnn_dbuf_groups.argtypes = [ctypes.c_int] * 3
@@ -354,7 +420,7 @@ def _sweep_fn():
     lib = build.load("dense_mpnn_bwd")
     prep, fn = lib.dense_mpnn_bwd_prep, lib.dense_mpnn_bwd_layer
     prep.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     prep.restype = fn.restype = ctypes.c_int
     lib.dense_mpnn_bwd_error_string.argtypes = [ctypes.c_int]
     lib.dense_mpnn_bwd_error_string.restype = ctypes.c_char_p
@@ -374,14 +440,16 @@ def _check_shape_for(max_edges: int, max_nodes: int, cols: int, E: int, V: int, 
 
 
 def _launch_layers(h0, src, dst, edge_mask, weights, biases, outs, residual, mean, *,
-                   node_feats=None, node_out=None) -> int:
+                   node_feats=None, node_out=None, mm=None, stash=None) -> int:
     """Run layers ``0..len(outs)-1``, layer ``l`` reading the previous
     output (``h0`` first) and writing ``outs[l]``: one call of
     ``dense_mpnn_forward``, which launches the prep and every layer. With
     ``node_feats`` layer 0's input is ``node_feats[src] + h0`` (``h0`` is
     then the edge features); with ``node_out`` the last layer also writes
-    the masked scatter of its output there. Returns the number of layers
-    run."""
+    the masked scatter of its output there. ``mm`` (``torch.bfloat16``)
+    launches the bf16 instantiations; ``stash`` (a bf16 tensor or ``None``
+    for each layer) takes each layer's output rounded to bf16. Returns the
+    number of layers run."""
     B, E, d = h0.shape
     ends = node_feats if node_feats is not None else node_out
     V = 1 if ends is None else ends.shape[1]
@@ -406,17 +474,18 @@ def _launch_layers(h0, src, dst, edge_mask, weights, biases, outs, residual, mea
         h0_full = torch.empty_like(h0) if node_feats is not None else None
         mw = torch.empty_like(h0)
         out_ptrs = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
+        stash_ptrs = None if stash is None else (ctypes.c_void_p * len(outs))(*(_ptr(t) for t in stash))
         check(fwd_fn(
-            h0.data_ptr(), out_ptrs, _ptr(node_feats), _ptr(node_out), *idx, weights.data_ptr(),
-            biases.data_ptr(), adj.data_ptr(), _ptr(node_bits), _ptr(h0_full), mw.data_ptr(),
-            B, V, E, d, len(outs), int(residual), int(mean), int(node_feats is not None),
-            int(node_out is not None), stream,
+            h0.data_ptr(), out_ptrs, stash_ptrs, _ptr(node_feats), _ptr(node_out), *idx,
+            weights.data_ptr(), biases.data_ptr(), adj.data_ptr(), _ptr(node_bits), _ptr(h0_full),
+            mw.data_ptr(), B, V, E, d, len(outs), int(residual), int(mean),
+            int(node_feats is not None), int(node_out is not None), int(mm is not None), stream,
         ))
     return len(outs)
 
 
 def _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual, mean, *,
-                  node_feats=None, g_node=None):
+                  node_feats=None, g_node=None, mm=None):
     """The reverse sweep of ``csrc/dense_mpnn_bwd.cu``: its prep (``A``'s
     bit rows and ``W``'s transposes) once, then the layers, last layer
     first; ``hs[l - 1]`` is the input of layer ``l > 0``. Returns ``(g_h0,
@@ -427,7 +496,9 @@ def _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual, mea
     (recomputed into scratch by layer 0's launch, and its gather's VJP is
     ``g_nf``), and the
     last layer's cotangent is ``cotangent`` (the edge hiddens') plus the
-    scatter's VJP of ``g_node``. Otherwise ``g_nf`` is ``None``."""
+    scatter's VJP of ``g_node``. Otherwise ``g_nf`` is ``None``. ``mm``
+    (``torch.bfloat16``) launches the bf16 instantiations; a bf16 ``hs`` is
+    read as such (the stash instantiation of the products)."""
     B, E, d = h0.shape
     depth = weights.shape[0]
     encoder = node_feats is not None
@@ -437,6 +508,7 @@ def _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual, mea
     _check_shape_for(lib.dense_mpnn_bwd_max_edges(), lib.dense_mpnn_bwd_max_nodes(), cols, E, V, d)
     check_aligned(edge_hiddens=h0, hs=hs, cotangent=cotangent, weights=weights,
                    node_feats=node_feats, g_node=g_node)
+    half_in = hs is not None and hs.dtype == torch.bfloat16
     chunks = -(-B * E // lib.dense_mpnn_bwd_chunk_rows())
 
     def check(err: int, what: str) -> None:
@@ -483,10 +555,39 @@ def _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual, mea
                 adj.data_ptr(), _ptr(node_bits), inv.data_ptr(), _ptr(scat), _ptr(node_feats),
                 _ptr(cotangent) if prologue else None, _ptr(g_node) if prologue else None,
                 _ptr(g_full), _ptr(h0_full), _ptr(g_nf), B, V, E, d, int(residual), int(mean),
-                int(prologue), int(gather), stream,
+                int(prologue), int(gather), int(mm is not None), int(half_in and layer > 0), stream,
             ), "dense_mpnn_bwd_layer")
             g = g_in
     return g_h0, g_W, g_b, g_nf
+
+
+def _ping_pong(out: torch.Tensor, depth: int) -> list[torch.Tensor]:
+    """Each layer's output buffer, two in turn, so that the last layer
+    writes ``out`` and no layer writes its own input."""
+    bufs = [out, torch.empty_like(out) if depth > 1 else out]
+    return [bufs[(depth - 1 - layer) % 2] for layer in range(depth)]
+
+
+def _stash_buffers(like: torch.Tensor, depth: int, stash_dtype):
+    """``(out, hs, outs, stash)`` of a stash forward at ``depth > 1``: an f32
+    stash is the layers' own outputs (``outs = [*hs, out]``, ``stash``
+    ``None``); a bf16 one is a second output of each hidden layer, the
+    layers' f32 outputs going to two buffers in turn."""
+    B, E, d = like.shape
+    out = torch.empty_like(like)
+    hs = torch.empty(depth - 1, B, E, d, dtype=stash_dtype or torch.float32, device=like.device)
+    if stash_dtype is None:
+        return out, hs, [*hs, out], None
+    return out, hs, _ping_pong(out, depth), [*hs, None]
+
+
+def _count(wrapper, mm, n: int) -> None:
+    """Add ``n`` launches to ``wrapper``'s count of its f32 or bf16
+    instantiation."""
+    if mm is None:
+        wrapper.launches += n
+    else:
+        wrapper.launches_bf16 += n
 
 
 def fused_dense_mpnn_block(
@@ -501,28 +602,29 @@ def fused_dense_mpnn_block(
     n_nodes: int,
     residual: bool = True,
     reduce: str = "sum",
+    matmul_dtype=None,
 ) -> torch.Tensor:
     """Run the whole D-MPNN block; returns the final edge hiddens [B, E, d].
 
     Tensors on the CPU take :func:`dense_mpnn_block_reference`; tensors on a
     CUDA device launch the forward's kernels (a prep, then a product and an
     operator pass a layer) or raise. ``fused_dense_mpnn_block.launches``
-    counts the layers run (``depth`` a call). ``n_nodes`` (node slots per bin) is kept for the JAX signature;
-    the operator needs only ``src``/``dst``.
+    counts the layers run (``depth`` a call), ``launches_bf16`` those of the
+    ``matmul_dtype="bfloat16"`` instantiation. ``n_nodes`` (node slots per
+    bin) is kept for the JAX signature; the operator needs only
+    ``src``/``dst``.
     """
     _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes)
+    mm = operand_dtype(matmul_dtype)
     if not on_card(edge_hiddens):
         return dense_mpnn_block_reference(
             edge_hiddens, src, dst, edge_mask, weights, biases,
-            depth=depth, residual=residual, reduce=reduce,
+            depth=depth, residual=residual, reduce=reduce, matmul_dtype=mm,
         )
     out = torch.empty_like(edge_hiddens)
-    # ping-pong so that the last layer writes ``out``
-    bufs = [out, torch.empty_like(edge_hiddens) if depth > 1 else out]
-    outs = [bufs[(depth - 1 - layer) % 2] for layer in range(depth)]
-    fused_dense_mpnn_block.launches += _launch_layers(
-        edge_hiddens, src, dst, edge_mask, weights, biases, outs, residual, reduce == "mean"
-    )
+    n = _launch_layers(edge_hiddens, src, dst, edge_mask, weights, biases, _ping_pong(out, depth),
+                       residual, reduce == "mean", mm=mm)
+    _count(fused_dense_mpnn_block, mm, n)
     return out
 
 
@@ -538,36 +640,38 @@ def fused_dense_mpnn_block_stash(
     n_nodes: int,
     residual: bool = True,
     reduce: str = "sum",
+    matmul_dtype=None,
+    stash_dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The training forward: returns ``(out, hs)``, ``hs`` ``[depth-1, B, E,
-    d]`` f32 holding the hidden layer inputs h1..h_{depth-1} (``h0`` is the
-    caller's input and is never stashed; ``hs`` is ``None`` at depth 1,
-    where this is :func:`fused_dense_mpnn_block`, as in the JAX package).
+    d]`` (f32, or bf16 with ``stash_dtype="bfloat16"``) holding the hidden
+    layer inputs h1..h_{depth-1} (``h0`` is the caller's input and is never
+    stashed; ``hs`` is ``None`` at depth 1, where this is
+    :func:`fused_dense_mpnn_block`, as in the JAX package).
 
     On a CUDA device the forward writes layer ``l < depth-1`` into
-    ``hs[l]`` and the last layer into ``out``;
-    ``fused_dense_mpnn_block_stash.launches`` counts the layers run
-    (``depth`` a call). CPU tensors take
-    :func:`dense_mpnn_block_stash_reference`.
+    ``hs[l]`` (an f32 stash doubles as the next layer's input; a bf16 one is
+    a second, rounded output) and the last layer into ``out``;
+    ``fused_dense_mpnn_block_stash.launches`` (``launches_bf16`` with
+    ``matmul_dtype="bfloat16"``) counts the layers run (``depth`` a call).
+    CPU tensors take :func:`dense_mpnn_block_stash_reference`.
     """
     if depth == 1:
         return fused_dense_mpnn_block(
             edge_hiddens, src, dst, edge_mask, weights, biases,
-            depth=depth, n_nodes=n_nodes, residual=residual, reduce=reduce,
+            depth=depth, n_nodes=n_nodes, residual=residual, reduce=reduce, matmul_dtype=matmul_dtype,
         ), None
     _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes)
+    mm, sd = operand_dtype(matmul_dtype), operand_dtype(stash_dtype, "stash_dtype")
     if not on_card(edge_hiddens):
         return dense_mpnn_block_stash_reference(
             edge_hiddens, src, dst, edge_mask, weights, biases,
-            depth=depth, residual=residual, reduce=reduce,
+            depth=depth, residual=residual, reduce=reduce, matmul_dtype=mm, stash_dtype=sd,
         )
-    B, E, d = edge_hiddens.shape
-    out = torch.empty_like(edge_hiddens)
-    hs = torch.empty(depth - 1, B, E, d, dtype=torch.float32, device=edge_hiddens.device)
-    fused_dense_mpnn_block_stash.launches += _launch_layers(
-        edge_hiddens, src, dst, edge_mask, weights, biases, [*hs, out], residual,
-        reduce == "mean",
-    )
+    out, hs, outs, stash = _stash_buffers(edge_hiddens, depth, sd)
+    n = _launch_layers(edge_hiddens, src, dst, edge_mask, weights, biases, outs, residual,
+                       reduce == "mean", mm=mm, stash=stash)
+    _count(fused_dense_mpnn_block_stash, mm, n)
     return out, hs
 
 
@@ -584,33 +688,37 @@ def fused_dense_mpnn_block_bwd_stash(
     n_nodes: int,
     residual: bool = True,
     reduce: str = "sum",
+    matmul_dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The training backward: returns ``(g_h0, g_W, g_b)`` from the stash
-    of :func:`fused_dense_mpnn_block_stash`, with no recompute.
+    of :func:`fused_dense_mpnn_block_stash` (f32 or bf16), with no
+    recompute.
 
     On a CUDA device one call runs the reverse sweep of
     ``csrc/dense_mpnn_bwd.cu`` (a prep launch, then two a layer) and adds one to
-    ``fused_dense_mpnn_block_bwd_stash.launches``. At depth 1 there is no
-    stash and this is :func:`fused_dense_mpnn_block_bwd` with zero biases
-    (its replay is empty), as in the JAX package. CPU tensors take
+    ``fused_dense_mpnn_block_bwd_stash.launches`` (``launches_bf16`` with
+    ``matmul_dtype="bfloat16"``). At depth 1 there is no stash and this is
+    :func:`fused_dense_mpnn_block_bwd` with zero biases (its replay is
+    empty), as in the JAX package. CPU tensors take
     :func:`dense_mpnn_block_bwd_reference`.
     """
     if depth == 1:
         return fused_dense_mpnn_block_bwd(
             h0, src, dst, edge_mask, weights,
             torch.zeros(1, h0.shape[-1], dtype=torch.float32, device=h0.device), cotangent,
-            depth=depth, n_nodes=n_nodes, residual=residual, reduce=reduce,
+            depth=depth, n_nodes=n_nodes, residual=residual, reduce=reduce, matmul_dtype=matmul_dtype,
         )
     _check(h0, src, dst, edge_mask, weights, None, depth, reduce, n_nodes)
     _check_bwd(h0, hs, cotangent, depth)
+    mm = operand_dtype(matmul_dtype)
     if not on_card(h0):
         return dense_mpnn_block_bwd_reference(
             h0, hs, src, dst, edge_mask, weights, cotangent,
-            depth=depth, residual=residual, reduce=reduce,
+            depth=depth, residual=residual, reduce=reduce, matmul_dtype=mm,
         )
     grads = _launch_sweep(h0, hs, src, dst, edge_mask, weights, cotangent, residual,
-                          reduce == "mean")[:3]
-    fused_dense_mpnn_block_bwd_stash.launches += 1
+                          reduce == "mean", mm=mm)[:3]
+    _count(fused_dense_mpnn_block_bwd_stash, mm, 1)
     return grads
 
 
@@ -627,16 +735,20 @@ def fused_dense_mpnn_block_bwd(
     n_nodes: int,
     residual: bool = True,
     reduce: str = "sum",
+    matmul_dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The recompute backward: returns ``(g_h0, g_W, g_b)`` from ``h0``
     alone. On a CUDA device it replays layers ``0..depth-2`` with the
     forward's kernels into a scratch stash (biases included: the JAX kernel records
     the fault that leaving them out caused), then runs the reverse sweep;
-    one call adds one to ``fused_dense_mpnn_block_bwd.launches``. CPU
-    tensors take the plain versions of both halves."""
+    one call adds one to ``fused_dense_mpnn_block_bwd.launches``
+    (``launches_bf16`` with ``matmul_dtype="bfloat16"``, whose replay keeps
+    f32 layer inputs as the JAX kernel's does). CPU tensors take the plain
+    versions of both halves."""
     _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes)
     _check_bwd(edge_hiddens, None, cotangent, 1)
-    kw = dict(depth=depth, residual=residual, reduce=reduce)
+    mm = operand_dtype(matmul_dtype)
+    kw = dict(depth=depth, residual=residual, reduce=reduce, matmul_dtype=mm)
     if not on_card(edge_hiddens):
         _, hs = dense_mpnn_block_stash_reference(
             edge_hiddens, src, dst, edge_mask, weights, biases, **kw
@@ -649,10 +761,10 @@ def fused_dense_mpnn_block_bwd(
     if depth > 1:
         hs = torch.empty(depth - 1, B, E, d, dtype=torch.float32, device=edge_hiddens.device)
         _launch_layers(edge_hiddens, src, dst, edge_mask, weights, biases, list(hs), residual,
-                       reduce == "mean")
+                       reduce == "mean", mm=mm)
     grads = _launch_sweep(edge_hiddens, hs, src, dst, edge_mask, weights, cotangent, residual,
-                          reduce == "mean")[:3]
-    fused_dense_mpnn_block_bwd.launches += 1
+                          reduce == "mean", mm=mm)[:3]
+    _count(fused_dense_mpnn_block_bwd, mm, 1)
     return grads
 
 
@@ -679,6 +791,8 @@ def fused_dense_encoder_fwd(
     residual: bool = True,
     reduce: str = "sum",
     stash: bool = False,
+    matmul_dtype=None,
+    stash_dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """The whole encoder, gather + block + masked scatter: returns
     ``(node_hiddens [B, V, d], edge_hiddens [B, E, d], hs)``, ``hs`` the
@@ -687,31 +801,29 @@ def fused_dense_encoder_fwd(
 
     On a CUDA device the forward's prep also writes the gathered input
     ``node_feats[src] + edge_feats`` and the last layer's operator pass
-    also writes the scatter; ``fused_dense_encoder_fwd.launches`` counts
-    the layers run (``depth`` a call). CPU
-    tensors take :func:`dense_encoder_reference`.
+    also writes the scatter; ``fused_dense_encoder_fwd.launches``
+    (``launches_bf16`` with ``matmul_dtype="bfloat16"``) counts the layers
+    run (``depth`` a call). The stash is f32, or bf16 with
+    ``stash_dtype="bfloat16"``. CPU tensors take
+    :func:`dense_encoder_reference`.
     """
     _check(edge_feats, src, dst, edge_mask, weights, biases, depth, reduce)
     _check_nodes(node_feats, edge_feats)
+    mm, sd = operand_dtype(matmul_dtype), operand_dtype(stash_dtype, "stash_dtype")
     if not on_card(edge_feats):
         return dense_encoder_reference(
             node_feats, edge_feats, src, dst, edge_mask, weights, biases,
-            depth=depth, residual=residual, reduce=reduce, stash=stash,
+            depth=depth, residual=residual, reduce=reduce, stash=stash, matmul_dtype=mm, stash_dtype=sd,
         )
-    B, E, d = edge_feats.shape
     node_hiddens = torch.empty_like(node_feats)
-    edge_hiddens = torch.empty_like(edge_feats)
-    hs = None
     if stash and depth > 1:
-        hs = torch.empty(depth - 1, B, E, d, dtype=torch.float32, device=edge_feats.device)
-        outs = [*hs, edge_hiddens]
-    else:  # ping-pong so that the last layer writes edge_hiddens
-        bufs = [edge_hiddens, torch.empty_like(edge_feats) if depth > 1 else edge_hiddens]
-        outs = [bufs[(depth - 1 - layer) % 2] for layer in range(depth)]
-    fused_dense_encoder_fwd.launches += _launch_layers(
-        edge_feats, src, dst, edge_mask, weights, biases, outs, residual, reduce == "mean",
-        node_feats=node_feats, node_out=node_hiddens,
-    )
+        edge_hiddens, hs, outs, stash_out = _stash_buffers(edge_feats, depth, sd)
+    else:
+        edge_hiddens, hs, stash_out = torch.empty_like(edge_feats), None, None
+        outs = _ping_pong(edge_hiddens, depth)
+    n = _launch_layers(edge_feats, src, dst, edge_mask, weights, biases, outs, residual, reduce == "mean",
+                       node_feats=node_feats, node_out=node_hiddens, mm=mm, stash=stash_out)
+    _count(fused_dense_encoder_fwd, mm, n)
     return node_hiddens, edge_hiddens, hs
 
 
@@ -729,6 +841,7 @@ def fused_dense_encoder_bwd(
     depth: int,
     residual: bool = True,
     reduce: str = "sum",
+    matmul_dtype=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The encoder's backward from the stash of
     :func:`fused_dense_encoder_fwd` (``h0`` recomputed): returns ``(g_nf,
@@ -738,23 +851,25 @@ def fused_dense_encoder_bwd(
     ``csrc/dense_mpnn_bwd.cu`` with the scatter's VJP folded into the last
     layer's launches, ``h0``'s recompute into layer 0's and the gather's VJP
     in a launch after them, and adds one to
-    ``fused_dense_encoder_bwd.launches``. CPU tensors take
-    :func:`dense_encoder_bwd_reference`.
+    ``fused_dense_encoder_bwd.launches`` (``launches_bf16`` with
+    ``matmul_dtype="bfloat16"``). The stash is f32 or bf16. CPU tensors
+    take :func:`dense_encoder_bwd_reference`.
     """
     _check(edge_feats, src, dst, edge_mask, weights, None, depth, reduce)
     _check_nodes(node_feats, edge_feats)
     _check_nodes(g_node, edge_feats, "g_node")
     _check_bwd(edge_feats, hs, g_edge, depth)
+    mm = operand_dtype(matmul_dtype)
     if not on_card(edge_feats):
         return dense_encoder_bwd_reference(
             node_feats, edge_feats, hs, src, dst, edge_mask, weights, g_node, g_edge,
-            depth=depth, residual=residual, reduce=reduce,
+            depth=depth, residual=residual, reduce=reduce, matmul_dtype=mm,
         )
     g_ef, g_W, g_b, g_nf = _launch_sweep(
         edge_feats, hs, src, dst, edge_mask, weights, g_edge, residual, reduce == "mean",
-        node_feats=node_feats, g_node=g_node,
+        node_feats=node_feats, g_node=g_node, mm=mm,
     )
-    fused_dense_encoder_bwd.launches += 1
+    _count(fused_dense_encoder_bwd, mm, 1)
     return g_nf, g_ef, g_W, g_b
 
 
@@ -832,13 +947,12 @@ def dbuf_groups(B: int, E: int, d: int) -> dict[str, int]:
     return {"blocks": d // lib.dense_mpnn_cols(), "bins": B, "groups": lib.dense_mpnn_dbuf_groups(B, E, d)}
 
 
-fused_dense_mpnn_block.launches = 0
-fused_dense_mpnn_block_stash.launches = 0
-fused_dense_mpnn_block_bwd_stash.launches = 0
-fused_dense_mpnn_block_bwd.launches = 0
-fused_dense_encoder_fwd.launches = 0
-fused_dense_encoder_bwd.launches = 0
-fused_dense_mpnn_block_dbuf.launches = 0
+BF16_WRAPPERS = (fused_dense_mpnn_block, fused_dense_mpnn_block_stash, fused_dense_mpnn_block_bwd_stash,
+                 fused_dense_mpnn_block_bwd, fused_dense_encoder_fwd, fused_dense_encoder_bwd)
+for _wrapper in (*BF16_WRAPPERS, fused_dense_mpnn_block_dbuf):
+    _wrapper.launches = 0
+for _wrapper in BF16_WRAPPERS:
+    _wrapper.launches_bf16 = 0
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -853,19 +967,21 @@ class FusedDenseMpnnBlockFn(torch.autograd.Function):
 
     Forward: the stash forward (``backward="stash"``, depth > 1) or the
     plain forward kernel (``"recompute"``, or depth 1). Backward: the stash
-    backward or the recompute backward. The index arrays get no gradient.
+    backward or the recompute backward. ``matmul_dtype`` goes to both,
+    ``stash_dtype`` to the stash forward. The index arrays get no gradient.
     """
 
     @staticmethod
     def forward(ctx, edge_hiddens, src, dst, edge_mask, weights, biases,
-                depth: int, n_nodes: int, residual: bool, reduce: str, backward: str):
+                depth: int, n_nodes: int, residual: bool, reduce: str, backward: str,
+                matmul_dtype=None, stash_dtype=None):
         if backward not in BACKWARDS:
             raise ValueError(f"backward must be one of {BACKWARDS}, got {backward!r}")
-        kw = dict(depth=depth, n_nodes=n_nodes, residual=residual, reduce=reduce)
+        kw = dict(depth=depth, n_nodes=n_nodes, residual=residual, reduce=reduce, matmul_dtype=matmul_dtype)
         args = (edge_hiddens, src, dst, edge_mask, weights, biases)
         hs = None
         if backward == "stash":
-            out, hs = fused_dense_mpnn_block_stash(*args, **kw)
+            out, hs = fused_dense_mpnn_block_stash(*args, **kw, stash_dtype=stash_dtype)
         else:
             out = fused_dense_mpnn_block(*args, **kw)
         ctx.kw = kw
@@ -886,7 +1002,7 @@ class FusedDenseMpnnBlockFn(torch.autograd.Function):
             g_h0, g_W, g_b = fused_dense_mpnn_block_bwd(
                 h0, src, dst, edge_mask, weights, biases, g, **ctx.kw
             )
-        return g_h0, None, None, None, g_W, g_b, None, None, None, None, None
+        return g_h0, None, None, None, g_W, g_b, None, None, None, None, None, None, None
 
 
 class FusedDenseEncoderFn(torch.autograd.Function):
@@ -894,15 +1010,17 @@ class FusedDenseEncoderFn(torch.autograd.Function):
     (node_hiddens, edge_hiddens)``, as ``fused_dense_encoder``'s custom VJP
     in the JAX package: the forward is :func:`fused_dense_encoder_fwd` with
     the stash, the backward :func:`fused_dense_encoder_bwd` (``h0``
-    recomputed, not stashed). An output that takes no gradient gives a zero
+    recomputed, not stashed), with ``matmul_dtype`` and (for the stash)
+    ``stash_dtype``. An output that takes no gradient gives a zero
     cotangent; the index arrays get no gradient."""
 
     @staticmethod
     def forward(ctx, node_feats, edge_feats, src, dst, edge_mask, weights, biases,
-                depth: int, residual: bool, reduce: str):
-        kw = dict(depth=depth, residual=residual, reduce=reduce)
+                depth: int, residual: bool, reduce: str, matmul_dtype=None, stash_dtype=None):
+        kw = dict(depth=depth, residual=residual, reduce=reduce, matmul_dtype=matmul_dtype)
         node_hiddens, edge_hiddens, hs = fused_dense_encoder_fwd(
-            node_feats, edge_feats, src, dst, edge_mask, weights, biases, stash=True, **kw
+            node_feats, edge_feats, src, dst, edge_mask, weights, biases, stash=True,
+            stash_dtype=stash_dtype, **kw
         )
         ctx.kw = kw
         ctx.save_for_backward(node_feats, edge_feats, src, dst, edge_mask, weights,
@@ -916,4 +1034,4 @@ class FusedDenseEncoderFn(torch.autograd.Function):
             node_feats, edge_feats, stash[0] if stash else None, src, dst, edge_mask, weights,
             _aligned(g_node), _aligned(g_edge), **ctx.kw,
         )
-        return g_nf, g_ef, None, None, None, g_W, g_b, None, None, None
+        return g_nf, g_ef, None, None, None, g_W, g_b, None, None, None, None, None

@@ -1,13 +1,18 @@
 """The D-MPNN property predictor: embed -> message passing -> readout -> FFN.
 
 Port of ``notorch_tpu.models.dmpnn`` for every task type (regression,
-classification, multiclass, mve, evidential, dirichlet) on three layouts:
+classification, multiclass, mve, evidential, dirichlet) on four layouts:
 
 - the bin-packed dense layout (``dense_packed``, what ``layout="auto"``
   resolves to by default) and the per-molecule ``dense_fused`` layout, whose
   block is :class:`~notorch_tpu_torch.nn.chemprop_dense.
   FusedDenseChempropBlock` for ``reduce`` sum and mean, as in the JAX
-  package;
+  package; on ``dense_packed``, edge dropout or ``reduce="max"`` take the
+  plain :class:`~notorch_tpu_torch.nn.chemprop_dense.DenseChempropBlock`
+  over the same packed bins, as there;
+- the plain per-molecule ``dense`` layout (what ``auto`` resolves to for
+  edge dropout): ``DenseChempropBlock`` and the ``Dense*`` readouts on the
+  per-molecule ``dense`` collate;
 - the flat layout (``flat``, what ``auto`` resolves to for remat or an
   ``impl`` other than ``gather``): :class:`~notorch_tpu_torch.nn.embed.
   GraphEmbedding`, :class:`~notorch_tpu_torch.nn.chemprop.ChempropBlock`
@@ -20,8 +25,8 @@ and dirichlet); the loss is the task's (``_LOSSES``), named after the task
 (``mse`` for regression), and regression alone has the default metrics
 RMSE and MAE, on the same keys as there. Every layout takes the five
 readouts (sum, mean, max, gated, sdp) and keeps its kernels whatever the
-task. The plain ``dense`` layout and graph-axis partitioning raise
-``NotImplementedError`` until their slice is ported.
+task. Graph-axis partitioning raises ``NotImplementedError`` until its
+slice is ported.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from notorch_tpu_torch.model.model import Model, fill_pred_transform_keys
 from notorch_tpu_torch.nn import agg
 from notorch_tpu_torch.nn.chemprop import PARALLEL_SLICE, ChempropBlock
 from notorch_tpu_torch.nn.chemprop_dense import (
+    DenseChempropBlock,
     DenseGated,
     DenseGraphEmbedding,
     DenseMax,
@@ -55,7 +61,7 @@ from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_N
 from notorch_tpu_torch.utils import require_f32
 
 AGGREGATIONS = ("sum", "mean", "max", "gated", "sdp")
-LAYOUTS = ("dense_packed", "dense_fused", "flat")
+LAYOUTS = ("dense_packed", "dense_fused", "dense", "flat")
 DENSE_READOUTS = {"sum": DenseSum, "mean": DenseMean, "max": DenseMax, "gated": DenseGated,
                   "sdp": DenseSDPAttention}
 PACKED_READOUTS = {"sum": PackedSum, "mean": PackedMean, "max": PackedMax, "gated": PackedGated,
@@ -166,7 +172,10 @@ def build_dmpnn(
 
     ``layout="dense_fused"`` is the fused block (``fuse_ends`` off) with a
     per-molecule readout, on the per-molecule ``dense`` collate, as in the
-    JAX package. ``layout="flat"`` is ``GraphEmbedding`` ->
+    JAX package; ``layout="dense"`` the plain ``DenseChempropBlock`` with a
+    per-molecule readout on the same collate; ``dense_packed`` the fused
+    block, or the plain one for edge dropout or ``reduce="max"``, with a
+    ``Packed*`` readout. ``layout="flat"`` is ``GraphEmbedding`` ->
     ``ChempropBlock(impl, reduce, remat)`` -> the ``aggregation`` readout
     -> ``MLP``, on the flat collate (with ``csr_pack`` for ``impl="csr"``).
     ``graph_axis`` and a ``partition`` other than the default raise
@@ -181,10 +190,7 @@ def build_dmpnn(
         remat=remat, impl=impl, aggregation=aggregation, reduce=reduce,
     )
     if layout not in LAYOUTS:
-        raise NotImplementedError(
-            f"layout {layout!r} is not ported yet; the port has {list(LAYOUTS)} "
-            "(the plain 'dense' block comes with the plain dense slice, ROADMAP.md queue A item 5)"
-        )
+        raise ValueError(f"unknown layout {layout!r}; options: {list(LAYOUTS)}")
     require_f32(dtype, "D-MPNN")
     if layout == "dense_fused":
         if dropout and dropout > 0.0:
@@ -205,12 +211,13 @@ def build_dmpnn(
                               remat=remat, impl=impl)
         head = readout(FLAT_READOUTS, aggregation, hidden_dim)
     else:
-        if reduce == "max":
-            raise NotImplementedError("reduce='max' (the plain dense block) is not ported yet: it comes with the "
-                                      "plain dense slice (ROADMAP.md queue A item 5)")
         embed = DenseGraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim)
-        block = FusedDenseChempropBlock(hidden_dim=hidden_dim, depth=depth, reduce=reduce)
-        head = readout(DENSE_READOUTS if layout == "dense_fused" else PACKED_READOUTS, aggregation, hidden_dim)
+        plain = layout == "dense" or (dropout and dropout > 0.0) or reduce == "max"
+        if plain:  # the fused kernels' operator is linear and has no dropout
+            block = DenseChempropBlock(hidden_dim=hidden_dim, depth=depth, dropout=dropout, reduce=reduce)
+        else:
+            block = FusedDenseChempropBlock(hidden_dim=hidden_dim, depth=depth, reduce=reduce)
+        head = readout(PACKED_READOUTS if layout == "dense_packed" else DENSE_READOUTS, aggregation, hidden_dim)
 
     output_size = head_size(num_tasks, _HEAD_WIDTH.get(task, num_classes))
     modules = {

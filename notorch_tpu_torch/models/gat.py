@@ -10,7 +10,8 @@ kernel runs on this path in either package) and a ``Packed*`` readout; on
 the per-molecule ``dense`` layout a ``Dense*`` readout; on ``flat`` the
 flat :class:`~notorch_tpu_torch.nn.attention.GATBlock` and the readouts of
 :mod:`notorch_tpu_torch.nn.agg`. Every task type, with the D-MPNN recipe's
-head widths and losses; dropout and dtypes other than float32 raise
+head widths and losses. ``dropout`` goes to the block (twice a layer) and
+the FFN, as in the JAX recipe; dtypes other than float32 raise
 ``NotImplementedError``.
 """
 
@@ -31,7 +32,7 @@ from notorch_tpu_torch.models.dmpnn import (
     task_losses,
 )
 from notorch_tpu_torch.nn.attention import GATBlock
-from notorch_tpu_torch.nn.attention_dense import DenseGATBlock, check_no_dropout
+from notorch_tpu_torch.nn.attention_dense import DenseGATBlock
 from notorch_tpu_torch.nn.chemprop_dense import DenseGraphEmbedding
 from notorch_tpu_torch.nn.embed import GraphEmbedding
 from notorch_tpu_torch.nn.mlp import MLP
@@ -86,13 +87,13 @@ def build_gat(
     from ``generator`` with flax's initializer families; the model is built
     on the CPU. ``optimizer`` defaults to Adam at ``learning_rate``."""
     require_f32(dtype, "attention models")
-    check_no_dropout(dropout, "the attention models")
     if aggregation not in FLAT_READOUTS:
         raise ValueError(f"unknown aggregation {aggregation!r}; options: {sorted(FLAT_READOUTS)}")
     layout = resolve_gat_layout(layout, attention=attention)
     num_node_types = num_node_types if num_node_types is not None else DEFAULT_NUM_ATOM_TYPES
     num_edge_types = num_edge_types if num_edge_types is not None else DEFAULT_NUM_BOND_TYPES
-    block_kw = dict(hidden_dim=hidden_dim, depth=depth, num_heads=num_heads, attention=attention)
+    block_kw = dict(hidden_dim=hidden_dim, depth=depth, num_heads=num_heads, attention=attention,
+                    dropout=dropout)
     if layout in ("dense", "dense_packed"):
         embed = DenseGraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim)
         block = DenseGATBlock(**block_kw)
@@ -111,7 +112,7 @@ def build_gat(
                         "out_keys": ["H"]},
             "ffn": {
                 "module": MLP(input_dim=hidden_dim, output_size=output_size,
-                              hidden_dim=hidden_dim, num_layers=ffn_layers),
+                              hidden_dim=hidden_dim, num_layers=ffn_layers, dropout=dropout),
                 "in_keys": ["readout.H"],
                 "out_keys": ["preds"],
             },

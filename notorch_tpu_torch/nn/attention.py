@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.data.graph import BatchedGraph
-from notorch_tpu_torch.nn.attention_dense import ATTENTIONS, AttentionStack, LinearLayers, check_no_dropout
+from notorch_tpu_torch.nn.attention_dense import ATTENTIONS, AttentionStack, LinearLayers
 from notorch_tpu_torch.nn.init import dense
 from notorch_tpu_torch.nn.ops import segment_softmax, segment_sum, take
 from notorch_tpu_torch.utils import require_f32
@@ -111,10 +111,9 @@ class GATBlock(AttentionStack):
         input_dim: int | None = None,
     ):
         require_f32(dtype, "attention")
-        check_no_dropout(dropout, "the attention blocks")
         if attention not in ATTENTIONS:
             raise ValueError(f"unknown attention {attention!r}")
         width = input_dim or hidden_dim
         layer = GATv2Layer if attention == "gatv2" else GraphSelfAttention
         super().__init__(hidden_dim, depth, ffn_mult, residual, width,
-                         lambda i: layer(hidden_dim=hidden_dim, num_heads=num_heads, edge_dim=width))
+                         lambda i: layer(hidden_dim=hidden_dim, num_heads=num_heads, edge_dim=width), dropout)

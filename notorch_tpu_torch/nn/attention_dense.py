@@ -20,9 +20,12 @@ from the JAX tree. flax infers a layer's input width at its first call;
 here it is given: ``hidden_dim`` for the layers' inputs, ``edge_dim``
 (default ``hidden_dim``) for the edge features, and the blocks'
 ``input_dim`` (default ``hidden_dim``) for ``in_proj``, which is also the
-width of the edge features they pass on. ``dropout > 0`` and a dtype other
-than float32 raise ``NotImplementedError``; ``interpret`` is accepted for
-the JAX signature (see :mod:`notorch_tpu_torch.kernels.dense_attention`).
+width of the edge features they pass on. The blocks' ``dropout`` is one
+:class:`~notorch_tpu_torch.nn.dropout.Dropout` applied twice a layer, to
+the attention output and to the feed-forward output, as in the JAX blocks. A
+dtype other than float32 raises ``NotImplementedError``; ``interpret`` is
+accepted for the JAX signature (see
+:mod:`notorch_tpu_torch.kernels.dense_attention`).
 """
 
 from __future__ import annotations
@@ -36,17 +39,13 @@ from torch import nn
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.data.dense import DenseBatchedGraph
 from notorch_tpu_torch.kernels.dense_attention import FWD_IMPLS, fused_dense_attention
+from notorch_tpu_torch.nn.dropout import Dropout
 from notorch_tpu_torch.nn.init import dense, reset_dense_
 from notorch_tpu_torch.utils import require_f32
 
 ATTENTIONS = ("sdp", "gatv2")
 IMPLS = ("jnp", "fused", "auto")
 BIAS_IMPLS = ("auto", "two_step", "factored_vjp", "einsum3")
-
-
-def check_no_dropout(dropout: float, what: str) -> None:
-    if dropout and dropout > 0.0:
-        raise NotImplementedError(f"dropout={dropout}: dropout in {what} is not ported yet")
 
 
 class EdgeBiasScatterFn(torch.autograd.Function):
@@ -225,11 +224,12 @@ class DenseGATv2Layer(LinearLayers):
 class AttentionStack(nn.Module):
     """``in_proj`` (``input_dim -> hidden_dim``), then ``depth`` times: the
     layer ``make_layer(i)`` + residual and a ReLU feed-forward of width
-    ``ffn_mult * hidden_dim`` + residual. The body of the dense and the flat
-    GAT blocks, whose parameters it names as the JAX blocks do."""
+    ``ffn_mult * hidden_dim`` + residual, ``dropout`` on the layer's output
+    and on the feed-forward's. The body of the dense and the flat GAT blocks,
+    whose parameters it names as the JAX blocks do."""
 
     def __init__(self, hidden_dim: int, depth: int, ffn_mult: int, residual: bool, input_dim: int,
-                 make_layer):
+                 make_layer, dropout: float = 0.0):
         super().__init__()
         d = hidden_dim
         self.depth, self.residual = depth, residual
@@ -238,6 +238,7 @@ class AttentionStack(nn.Module):
             self.add_module(f"attn_{i}", make_layer(i))
             self.add_module(f"ffn_{i}_0", dense(d, ffn_mult * d))
             self.add_module(f"ffn_{i}_1", dense(ffn_mult * d, d))
+        self.dropout = Dropout(dropout)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         reset_dense_(self.in_proj, generator)
@@ -245,13 +246,14 @@ class AttentionStack(nn.Module):
             getattr(self, f"attn_{i}").reset_parameters(generator)
             reset_dense_(getattr(self, f"ffn_{i}_0"), generator)
             reset_dense_(getattr(self, f"ffn_{i}_1"), generator)
+        self.dropout.reset_parameters(generator)
 
     def forward(self, G):
         h = self.in_proj(G.node_feats)
         for i in range(self.depth):
-            out = getattr(self, f"attn_{i}")(G.update(node_feats=h)).node_feats
+            out = self.dropout(getattr(self, f"attn_{i}")(G.update(node_feats=h)).node_feats)
             h = h + out if self.residual else out
-            ff = getattr(self, f"ffn_{i}_1")(torch.relu(getattr(self, f"ffn_{i}_0")(h)))
+            ff = self.dropout(getattr(self, f"ffn_{i}_1")(torch.relu(getattr(self, f"ffn_{i}_0")(h))))
             h = h + ff if self.residual else ff
         return G.update(node_feats=h)
 
@@ -283,7 +285,6 @@ class DenseGATBlock(AttentionStack):
         input_dim: int | None = None,
     ):
         require_f32(dtype, "attention")
-        check_no_dropout(dropout, "the attention blocks")
         if attention not in ATTENTIONS:
             raise ValueError(f"unknown attention {attention!r}")
         width = input_dim or hidden_dim
@@ -297,4 +298,4 @@ class DenseGATBlock(AttentionStack):
                 edge_dim=width,
             )
 
-        super().__init__(hidden_dim, depth, ffn_mult, residual, width, make_layer)
+        super().__init__(hidden_dim, depth, ffn_mult, residual, width, make_layer, dropout)

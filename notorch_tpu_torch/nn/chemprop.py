@@ -31,8 +31,12 @@ the impls agree on real nodes and edges, not on padded lanes.
 The block keeps its per-layer weights stacked, as the dense blocks do:
 ``weight`` ``[depth, d, d]`` in the JAX ``[in, out]`` layout and ``bias``
 ``[depth, d]`` (``[d, d]`` and ``[d]`` when ``shared``; no ``bias`` with
-``bias=False``). Edge dropout and edge-partitioned message passing
-(``psum_axis``) raise ``NotImplementedError``.
+``bias=False``). Edge dropout acts on each layer's update, before the
+residual add, as in the JAX layer; one
+:class:`~notorch_tpu_torch.nn.dropout.Dropout` of the block draws every
+layer's mask (outside the recomputed layer under ``remat``, so the backward
+sees the forward's masks). Edge-partitioned message passing
+(``psum_axis``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,22 +48,20 @@ from torch.utils.checkpoint import checkpoint
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.data.graph import BatchedGraph
 from notorch_tpu_torch.kernels.csr_segment import csr_segment_sum_packed
+from notorch_tpu_torch.nn.dropout import Dropout
 from notorch_tpu_torch.nn.init import lecun_normal_
 from notorch_tpu_torch.nn.ops import segment_reduce, take
 
 IMPLS = ("gather", "segment", "csr")
 REDUCES = ("sum", "mean", "max", "min")
 PARALLEL_SLICE = "the parallel slice of the port (ROADMAP.md queue A, item 7)"
-DROPOUT_SLICE = "the slice that ports edge dropout (ROADMAP.md queue A, item 5)"
 
 
-def _check_options(dropout: float, reduce: str, psum_axis: str | None, impl: str) -> None:
+def _check_options(reduce: str, psum_axis: str | None, impl: str) -> None:
     if psum_axis is not None:
         raise NotImplementedError(
             f"psum_axis={psum_axis!r} (edge-partitioned message passing) comes with {PARALLEL_SLICE}"
         )
-    if dropout and dropout > 0.0:
-        raise NotImplementedError(f"dropout={dropout} in the flat block comes with {DROPOUT_SLICE}")
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; options: {list(IMPLS)}")
     if reduce not in REDUCES:
@@ -104,7 +106,8 @@ def chemprop_layer(edge_hiddens, G: BatchedGraph, weight, bias, reduce: str, imp
 
 class ChempropLayer(nn.Module):
     """One D-MPNN layer as a module: ``(edge_hiddens, G) -> update``, its
-    dense layer an ``nn.Linear`` named ``update`` as in the JAX layer."""
+    dense layer an ``nn.Linear`` named ``update`` as in the JAX layer, and
+    ``dropout`` on the update."""
 
     def __init__(
         self,
@@ -115,19 +118,22 @@ class ChempropLayer(nn.Module):
         psum_axis: str | None = None,
         impl: str = "gather",
     ):
-        _check_options(dropout, reduce, psum_axis, impl)
+        _check_options(reduce, psum_axis, impl)
         super().__init__()
         # torch.empty: values come from reset_parameters, never the global RNG
         self.update = nn.Linear(hidden_dim, hidden_dim, bias=bias, device="meta").to_empty(device="cpu")
+        self.dropout = Dropout(dropout)
         self.reduce, self.impl = reduce, impl
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         lecun_normal_(self.update.weight, self.update.in_features, generator)
         if self.update.bias is not None:
             nn.init.zeros_(self.update.bias)
+        self.dropout.reset_parameters(generator)
 
     def forward(self, edge_hiddens: torch.Tensor, G: BatchedGraph) -> torch.Tensor:
-        return chemprop_layer(edge_hiddens, G, self.update.weight.T, self.update.bias, self.reduce, self.impl)
+        return self.dropout(chemprop_layer(edge_hiddens, G, self.update.weight.T, self.update.bias,
+                                           self.reduce, self.impl))
 
 
 class ChempropBlock(nn.Module):
@@ -149,19 +155,21 @@ class ChempropBlock(nn.Module):
         impl: str = "gather",
         remat: bool = False,
     ):
-        _check_options(dropout, reduce, psum_axis, impl)
+        _check_options(reduce, psum_axis, impl)
         super().__init__()
         self.hidden_dim, self.depth = hidden_dim, depth
         self.residual, self.shared, self.reduce, self.impl, self.remat = residual, shared, reduce, impl, remat
         stack = () if shared else (depth,)
         self.weight = nn.Parameter(torch.empty(*stack, hidden_dim, hidden_dim))
         self.bias = nn.Parameter(torch.empty(*stack, hidden_dim)) if bias else None
+        self.dropout = Dropout(dropout)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         for w in [self.weight] if self.shared else self.weight:
             lecun_normal_(w, self.hidden_dim, generator)
         if self.bias is not None:
             nn.init.zeros_(self.bias)
+        self.dropout.reset_parameters(generator)
 
     def _layer_params(self, layer: int):
         if self.shared:
@@ -176,6 +184,7 @@ class ChempropBlock(nn.Module):
                 out = checkpoint(chemprop_layer, *args, use_reentrant=False)
             else:
                 out = chemprop_layer(*args)
+            out = self.dropout(out)
             edge_hiddens = edge_hiddens + out if self.residual else out
         node_hiddens = node_reduce(edge_hiddens, G, self.reduce, self.impl)
         return G.update(node_feats=node_hiddens, edge_feats=edge_hiddens)

@@ -9,8 +9,9 @@ segment ops over ``node_graph``).
 
 Both blocks keep the per-layer weights stacked, as the kernel consumes
 them: ``weight`` ``[depth, d, d]`` in the JAX ``[in, out]`` layout and
-``bias`` ``[depth, d]`` (see :func:`notorch_tpu_torch.model.convert.
-params_from_jax` for the mapping from the JAX ``layer_i/update`` tree).
+``bias`` ``[depth, d]`` (one ``[d, d]`` and ``[d]`` for the plain block's
+``shared``; see :func:`notorch_tpu_torch.model.convert.params_from_jax` for
+the mapping from the JAX ``layer_i/update`` tree).
 """
 
 from __future__ import annotations
@@ -27,14 +28,14 @@ from notorch_tpu_torch.kernels.dense_mpnn import (
     FusedDenseMpnnBlockFn,
     fused_dense_encoder_fwd,
     fused_dense_mpnn_block,
+    operand_dtype,
 )
+from notorch_tpu_torch.nn.dropout import Dropout
 from notorch_tpu_torch.nn.embed import EmbeddingBagSum
 from notorch_tpu_torch.nn.agg import Gated, SDPAttention
 from notorch_tpu_torch.nn.init import lecun_normal_
 from notorch_tpu_torch.nn.ops import segment_max, segment_softmax, segment_sum, take
 from notorch_tpu_torch.utils import require_f32
-
-_LATER_SLICE = "a later slice of the port (ROADMAP.md queue A)"
 
 
 class _StackedLayers(nn.Module):
@@ -71,11 +72,22 @@ def _scatter_ids(G: DenseBatchedGraph) -> torch.Tensor:
     return torch.where(G.edge_mask, ids, B * V).reshape(-1)
 
 
-class DenseChempropBlock(_StackedLayers):
+class DenseChempropBlock(nn.Module):
     """The D-MPNN block in plain tensor ops (one-hot ``bmm`` gathers and
-    scatters and the pair swap): the oracle of :class:`FusedDenseChempropBlock`.
-    ``reduce`` is ``"sum"`` or ``"mean"``; dropout and ``"max"`` come with
-    the per-molecule dense layout, in a later slice."""
+    scatters and the pair swap): the JAX package's jnp ``DenseChempropBlock``,
+    which the ``dense`` layout trains and ``dense_packed`` takes for edge
+    dropout or ``reduce="max"``, and the oracle of
+    :class:`FusedDenseChempropBlock`.
+
+    ``reduce``: ``"sum"`` and ``"mean"`` (the real in-degree, floored at 1)
+    as one-hot products, ``"max"`` as one
+    :func:`~notorch_tpu_torch.nn.ops.segment_max` over the flattened batch
+    (padding lanes to a sink segment, empty segments 0). ``dropout`` acts on
+    each layer's update before the residual add. Parameters: ``weight``
+    ``[depth, d, d]`` (``[in, out]``) and ``bias`` ``[depth, d]``, or one
+    ``[d, d]`` and ``[d]`` reused ``depth`` times when ``shared``; no
+    ``bias`` with ``bias=False`` (the JAX ``layer_i/update`` or
+    ``layer/update`` tree, :mod:`notorch_tpu_torch.model.convert`)."""
 
     def __init__(
         self,
@@ -83,27 +95,54 @@ class DenseChempropBlock(_StackedLayers):
         depth: int = 3,
         residual: bool = True,
         reduce: str = "sum",
+        dropout: float = 0.0,
+        bias: bool = True,
+        shared: bool = False,
+        dtype=None,
     ):
-        if reduce not in ("sum", "mean"):
-            raise NotImplementedError(
-                f"reduce={reduce!r} is not ported yet (max comes with {_LATER_SLICE})"
-            )
-        super().__init__(hidden_dim, depth)
-        self.residual = residual
-        self.reduce = reduce
+        require_f32(dtype, "dense D-MPNN block")
+        if reduce not in ("sum", "mean", "max"):
+            raise NotImplementedError(f"unknown reduce {reduce!r}")
+        super().__init__()
+        self.hidden_dim, self.depth = hidden_dim, depth
+        self.residual, self.reduce, self.shared = residual, reduce, shared
+        stack = () if shared else (depth,)
+        self.weight = nn.Parameter(torch.empty(*stack, hidden_dim, hidden_dim))
+        self.bias = nn.Parameter(torch.empty(*stack, hidden_dim)) if bias else None
+        self.dropout = Dropout(dropout)
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        for w in [self.weight] if self.shared else self.weight:
+            lecun_normal_(w, self.hidden_dim, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+        self.dropout.reset_parameters(generator)
+
+    def _node_reduce(self, G: DenseBatchedGraph, S: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+        """E -> V: ``[B, E, d]`` messages into ``[B, V, d]`` node slots."""
+        if self.reduce == "max":
+            B, V = G.node_mask.shape
+            out = segment_max(m.reshape(-1, m.shape[-1]), _scatter_ids(G), B * V + 1)
+            return out[: B * V].reshape(B, V, -1)
+        out = torch.bmm(S, m)
+        if self.reduce == "mean":
+            out = out / S.sum(dim=-1, keepdim=True).clamp_min(1.0)
+        return out
 
     def forward(self, G: DenseBatchedGraph) -> DenseBatchedGraph:
         S = G.scatter_matrix(torch.float32)  # [B, V, E]
         Gm = G.gather_matrix(torch.float32)  # [B, E, V]
-        if self.reduce == "mean":
-            S = S / S.sum(dim=-1, keepdim=True).clamp_min(1.0)
         h = torch.bmm(Gm, G.node_feats) + G.edge_feats
         for layer in range(self.depth):
+            W = self.weight if self.shared else self.weight[layer]
+            b = self.bias if self.shared or self.bias is None else self.bias[layer]
             m = torch.relu(h)
-            em = torch.bmm(Gm, torch.bmm(S, m)) - rev_pair_swap(m)
-            out = torch.matmul(em, self.weight[layer]) + self.bias[layer]
+            em = torch.bmm(Gm, self._node_reduce(G, S, m)) - rev_pair_swap(m)
+            out = torch.matmul(em, W)
+            out = self.dropout(out if b is None else out + b)
             h = h + out if self.residual else out
-        return G.update(node_feats=torch.bmm(S, h), edge_feats=h)
+        return G.update(node_feats=self._node_reduce(G, S, h), edge_feats=h)
 
 
 class FusedDenseChempropBlock(_StackedLayers):
@@ -136,8 +175,12 @@ class FusedDenseChempropBlock(_StackedLayers):
     and the scatter gives the backward a cotangent that is zero on padded
     lanes, which makes its gradients those of the unfolded block.
 
-    ``matmul_dtype`` and ``stash_dtype`` are the JAX block's options; only
-    their f32 defaults are ported.
+    ``matmul_dtype="bfloat16"`` rounds the kernels' operands to bf16 where
+    the JAX kernels round them (products and sums stay f32, and so does the
+    state); ``stash_dtype="bfloat16"`` keeps the stash in bf16 (halving its
+    bytes; the backward reads the rounded values). Both go to every kernel
+    the block runs (:mod:`notorch_tpu_torch.kernels.dense_mpnn`); ``None``
+    is the exact f32 path.
     """
 
     def __init__(
@@ -163,16 +206,8 @@ class FusedDenseChempropBlock(_StackedLayers):
             )
         if backward not in ("stash", "recompute"):
             raise ValueError(f"backward must be 'stash' or 'recompute', got {backward!r}")
-        if matmul_dtype is not None:
-            raise NotImplementedError(
-                f"matmul_dtype={matmul_dtype!r}: the kernels run exact f32; lower-precision "
-                f"operands come with {_LATER_SLICE}"
-            )
-        if stash_dtype is not None:
-            raise NotImplementedError(
-                f"stash_dtype={stash_dtype!r}: the stash is f32; a bf16 stash needs a cast "
-                f"output of the layer kernel and comes with {_LATER_SLICE}"
-            )
+        operand_dtype(matmul_dtype)
+        operand_dtype(stash_dtype, "stash_dtype")
         if fuse_ends and backward != "stash":
             raise ValueError("fuse_ends requires backward='stash'")
         super().__init__(hidden_dim, depth)
@@ -180,6 +215,7 @@ class FusedDenseChempropBlock(_StackedLayers):
         self.reduce = reduce
         self.backward = backward
         self.fuse_ends = fuse_ends
+        self.matmul_dtype, self.stash_dtype = matmul_dtype, stash_dtype
 
     def _needs_grad(self, *inputs: torch.Tensor) -> bool:
         return torch.is_grad_enabled() and any(
@@ -195,11 +231,13 @@ class FusedDenseChempropBlock(_StackedLayers):
         args = (h0, G.src, G.dst, G.edge_mask, self.weight, self.bias)
         if self._needs_grad(h0):
             edge_hiddens = FusedDenseMpnnBlockFn.apply(
-                *args, self.depth, V, self.residual, self.reduce, self.backward
+                *args, self.depth, V, self.residual, self.reduce, self.backward, self.matmul_dtype,
+                self.stash_dtype,
             )
         else:
             edge_hiddens = fused_dense_mpnn_block(
-                *args, depth=self.depth, n_nodes=V, residual=self.residual, reduce=self.reduce
+                *args, depth=self.depth, n_nodes=V, residual=self.residual, reduce=self.reduce,
+                matmul_dtype=self.matmul_dtype,
             )
         nodes = segment_sum(edge_hiddens.reshape(-1, d), _scatter_ids(G), B * V + 1)
         node_hiddens = nodes[: B * V].reshape(B, V, d)
@@ -212,11 +250,12 @@ class FusedDenseChempropBlock(_StackedLayers):
         args = (nf, ef, G.src, G.dst, G.edge_mask, self.weight, self.bias)
         if self._needs_grad(nf, ef):
             node_hiddens, edge_hiddens = FusedDenseEncoderFn.apply(
-                *args, self.depth, self.residual, self.reduce
+                *args, self.depth, self.residual, self.reduce, self.matmul_dtype, self.stash_dtype
             )
         else:
             node_hiddens, edge_hiddens, _ = fused_dense_encoder_fwd(
-                *args, depth=self.depth, residual=self.residual, reduce=self.reduce
+                *args, depth=self.depth, residual=self.residual, reduce=self.reduce,
+                matmul_dtype=self.matmul_dtype,
             )
         return G.update(node_feats=node_hiddens, edge_feats=edge_hiddens)
 

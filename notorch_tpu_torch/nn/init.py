@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from notorch_tpu_torch.nn.dropout import Dropout
+
 # std of a unit normal truncated to [-2, 2]; flax divides by it so that the
 # truncated draw keeps the requested variance
 _TRUNC_STD = 0.87962566103423978
@@ -48,11 +50,14 @@ def embed_normal_(weight: torch.Tensor, generator: torch.Generator | None = None
 @torch.no_grad()
 def reset_module_(module: torch.nn.Module, generator: torch.Generator | None = None) -> None:
     """flax's defaults for every dense layer (lecun-normal kernel, zero
-    bias) and LayerNorm (unit scale, zero bias) below ``module``, in
-    declaration order."""
+    bias) and LayerNorm (unit scale, zero bias) below ``module``, and the
+    mask stream of every :class:`~notorch_tpu_torch.nn.dropout.Dropout`
+    (none at rate 0), in declaration order."""
     for m in module.modules():
         if isinstance(m, torch.nn.Linear):
             reset_dense_(m, generator)
         elif isinstance(m, torch.nn.LayerNorm):
             torch.nn.init.ones_(m.weight)
             torch.nn.init.zeros_(m.bias)
+        elif isinstance(m, Dropout):
+            m.reset_parameters(generator)

@@ -1,7 +1,9 @@
 """Configurable MLP head: ``[Dense, act] * L`` then ``Dense``, with dropout
 ahead of every dense layer but the first, and an optional unflatten of the
 output (e.g. ``[t, 2]`` heads). Port of ``notorch_tpu.nn.mlp.MLP``; the
-layers are named ``dense_{i}`` as there."""
+layers are named ``dense_{i}`` as there, and the dropout is the port's
+:class:`~notorch_tpu_torch.nn.dropout.Dropout` (flax's semantics, masks from
+the module's own generator)."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 from torch import nn
 
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
+from notorch_tpu_torch.nn.dropout import Dropout
 from notorch_tpu_torch.nn.init import dense, reset_dense_
 
 
@@ -33,11 +36,12 @@ class MLP(nn.Module):
         for i in range(len(dims) - 1):
             self.add_module(f"dense_{i}", dense(dims[i], dims[i + 1]))
         self.n_layers = len(dims) - 1
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         for i in range(self.n_layers):
             reset_dense_(getattr(self, f"dense_{i}"), generator)
+        self.dropout.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x

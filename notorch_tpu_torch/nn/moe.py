@@ -17,7 +17,10 @@ Port of ``notorch_tpu.nn.moe``:
   expert axis, as ``nn.vmap`` stacks them (``experts.<path> [n, ...]``,
   each expert's own layout below it), run as one batched call of the
   expert through ``torch.func.vmap`` over ``functional_call``: one batched
-  product a layer.
+  product a layer. An expert with dropout runs expert by expert in
+  training, so that each draws its own masks (a batched call would give
+  every expert one mask), and its dropouts sit in the module tree
+  (``expert_dropouts``), so that the training state carries their streams.
 
 The routers' widths are given (``input_dim``), where flax infers them.
 """
@@ -31,6 +34,7 @@ import torch
 from torch import nn
 from torch.func import functional_call, vmap
 
+from notorch_tpu_torch.nn.dropout import Dropout
 from notorch_tpu_torch.nn.init import dense, reset_dense_
 
 __all__ = ["cv_squared", "kth_excluding", "keep_top_k", "DenseRouter", "SparseRouter", "router",
@@ -137,6 +141,8 @@ class MixtureOfExperts(nn.Module):
         # the expert whose forward every expert runs with its own parameters;
         # kept out of the module tree, so it holds no parameters of the model
         self._expert = [expert_fn()]
+        self.expert_dropouts = nn.ModuleList(
+            m for m in self._expert[0].modules() if isinstance(m, Dropout) and m.generator is not None)
         self.experts = nn.Module()
         for name, p in self._expert[0].named_parameters():
             *path, leaf = name.split(".")
@@ -165,7 +171,11 @@ class MixtureOfExperts(nn.Module):
         weights, aux = self.router(x)
         expert = self._expert[0].train(self.training)
         params = dict(self.experts.named_parameters())
-        outs = vmap(lambda p: functional_call(expert, p, (x,)), randomness="different")(params)  # [n, N, d]
+        if self.training and len(self.expert_dropouts):
+            outs = torch.stack([functional_call(expert, {k: v[i] for k, v in params.items()}, (x,))
+                                for i in range(self.num_experts)])
+        else:
+            outs = vmap(lambda p: functional_call(expert, p, (x,)))(params)  # [n, N, d]
         return torch.einsum("ne,end->nd", weights, outs), aux
 
 

@@ -5,7 +5,7 @@ Port of ``notorch_tpu.nn.spatial.gvp``. Dual-rank features are a
 
 - :class:`GVP`, :class:`GatedGVP`: rotation-equivariant (scalar, vector)
   transforms;
-- :class:`DualRankLayerNorm`, :class:`DualRankDropout` (rate 0 only),
+- :class:`DualRankLayerNorm`, :class:`DualRankDropout`,
   :class:`DualRankAggregation`;
 - :class:`GvpConv`: static-K radius neighbourhoods -> RBF and unit-vector
   edge features -> three GatedGVP message layers -> masked neighbourhood
@@ -33,6 +33,7 @@ from torch import nn
 
 from notorch_tpu_torch.data.point_cloud import BatchedPointCloud
 from notorch_tpu_torch.kernels.gvp_conv import fused_gvp_conv, split_gvp_weights
+from notorch_tpu_torch.nn.dropout import Dropout
 from notorch_tpu_torch.nn.init import dense, reset_module_
 from notorch_tpu_torch.nn.ops import segment_mean, segment_sum, take
 from notorch_tpu_torch.nn.rbf import RBFEmbedding
@@ -134,19 +135,25 @@ class DualRankLayerNorm(nn.Module):
 
 
 class DualRankDropout(nn.Module):
-    """Rotation-safe dropout at rate 0 (the identity)."""
+    """Rotation-safe dropout: scalars element-wise, vectors channel-wise (a
+    dropped vector channel zeroes all 3 components: one mask ``[..., 1,
+    channels]`` over ``[..., 3, channels]``). One
+    :class:`~notorch_tpu_torch.nn.dropout.Dropout` draws both masks, the
+    scalars' first, as the JAX module draws them."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
-        if rate > 0.0:
-            raise NotImplementedError(
-                f"dropout rate {rate}: dual-rank dropout above 0 comes with the non-default numerics "
-                "slice of the port (ROADMAP.md queue A item 5)"
-            )
         self.rate = rate
+        self.drop = Dropout(rate)
 
     def forward(self, sv):
-        return sv
+        s, v = sv
+        s = self.drop(s)
+        if self.drop.active():
+            v = self.drop.apply_mask(v, self.drop.mask(v.shape[:-2] + (1, v.shape[-1]), v.device))
+        elif self.training and self.rate == 1.0:
+            v = torch.zeros_like(v)
+        return s, v
 
 
 class DualRankAggregation(nn.Module):

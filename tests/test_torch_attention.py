@@ -373,8 +373,7 @@ def test_attention_params_round_trip(case, flat_batch, spec):
 
 
 def test_module_refusals():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        dense_attn.DenseGATBlock(hidden_dim=D, dropout=0.1)
+    assert dense_attn.DenseGATBlock(hidden_dim=D, dropout=0.1).dropout.rate == 0.1  # dropout is ported
     with pytest.raises(NotImplementedError, match="float32"):
         flat.GATBlock(hidden_dim=D, dtype="bfloat16")
     with pytest.raises(ValueError, match="attention"):

@@ -62,13 +62,16 @@ def test_fused_block_matches_plain_block_through_edge_mask(reduce, residual):
 
 
 def test_fused_block_refuses_unported_options_and_autograd():
-    """The options of later slices raise, each naming its slice; autograd
+    """Unknown options raise (bf16 operands and stash, refused until the
+    plain dense slice, now build, and another dtype raises); autograd
     through the block runs the training kernels' plain versions on the CPU
     and gives the plain block's gradients on every parameter."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        FusedDenseChempropBlock(hidden_dim=D, matmul_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        FusedDenseChempropBlock(hidden_dim=D, stash_dtype="bfloat16")
+    block = FusedDenseChempropBlock(hidden_dim=D, matmul_dtype="bfloat16", stash_dtype="bfloat16")
+    assert (block.matmul_dtype, block.stash_dtype) == ("bfloat16", "bfloat16")
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        FusedDenseChempropBlock(hidden_dim=D, matmul_dtype="float16")
+    with pytest.raises(ValueError, match="stash_dtype"):
+        FusedDenseChempropBlock(hidden_dim=D, stash_dtype="float16")
     with pytest.raises(ValueError, match="fuse_ends requires backward='stash'"):
         FusedDenseChempropBlock(hidden_dim=D, fuse_ends=True, backward="recompute")
     with pytest.raises(NotImplementedError, match="debug path"):

@@ -34,7 +34,7 @@ from notorch_tpu.transforms import Pipeline as JaxPipeline
 from notorch_tpu.transforms import SmiToMol as JaxSmiToMol
 from notorch_tpu_torch.cli import registry
 from notorch_tpu_torch.cli.predict import run_predict
-from notorch_tpu_torch.cli.train import build_dataset, build_model, build_optimizer, run
+from notorch_tpu_torch.cli.train import build_dataset, build_model, build_optimizer, prepare, run
 from notorch_tpu_torch.data.batching import DataLoader, bucket_ladder
 from notorch_tpu_torch.model.convert import params_from_jax, params_to_jax
 from notorch_tpu_torch.models.dmpnn import build_dmpnn
@@ -287,15 +287,21 @@ def test_run_writes_a_checkpoint_run_predict_serves(lipo_csv, tmp_path):
 
 
 def test_flat_declarative_layout_is_refused(lipo_csv):
-    """The flat layout (a declarative config's default) is ported; what it
-    still refuses is named: here edge dropout in the flat block."""
+    """The flat layout (a declarative config's default) with edge dropout in
+    the flat block, which the port refused until the plain dense slice, now
+    trains: the block's dropout is in the run's model and the losses are
+    finite."""
     model = {k: v for k, v in slice_model_cfg().items() if k != "layout"}
     model["modules"] = {**model["modules"], "embed": {**model["modules"]["embed"], "class": "GraphEmbedding"},
                         "mp": {"class": "ChempropBlock", "args": {"hidden_dim": D, "dropout": 0.1},
-                               "in_keys": ["embed.G"], "out_keys": ["G"]}}
-    cfg = {"data": {"csv": str(lipo_csv), "targets": {"y": {"columns": ["lipo"]}}}, "model": model}
-    with pytest.raises(NotImplementedError, match="flat"):
-        run(cfg, device="cpu")
+                               "in_keys": ["embed.G"], "out_keys": ["G"]},
+                        "readout": {"class": "Mean", "in_keys": ["mp.G"], "out_keys": ["H"]}}
+    cfg = {"data": {"csv": str(lipo_csv), "targets": {"y": {"columns": ["lipo"]}},
+                    "split": {"fractions": [0.8, 0.1, 0.1], "seed": 0}},
+           "model": model, "optimizer": OPT_CFG, "trainer": {"epochs": 1, "batch_size": BATCH, "seed": 0}}
+    assert prepare(cfg, "cpu")["model"].network["mp"].dropout.rate == 0.1
+    out = run(cfg, device="cpu")
+    assert len(out["history"]) == 1 and np.isfinite(out["test"]["val/rmse"])
 
 
 # -- build_dmpnn(layout="dense_fused") ----------------------------------------------
@@ -321,7 +327,9 @@ def test_dense_fused_refusals():
         build_dmpnn(hidden_dim=8, layout="dense_fused", dropout=0.1)
     with pytest.raises(ValueError, match="max"):
         build_dmpnn(hidden_dim=8, layout="dense_fused", reduce="max")
-    with pytest.raises(NotImplementedError, match="max"):
-        build_dmpnn(hidden_dim=8, layout="dense_packed", reduce="max")
-    with pytest.raises(NotImplementedError, match="dense"):
-        build_dmpnn(hidden_dim=8, layout="dense")
+    # max and the plain dense layout, refused until the plain dense slice,
+    # now build the plain block (over packed bins, or per molecule)
+    model = build_dmpnn(hidden_dim=8, layout="dense_packed", reduce="max")
+    assert [type(model.network[k]).__name__ for k in ("mp", "readout")] == ["DenseChempropBlock", "PackedMean"]
+    model = build_dmpnn(hidden_dim=8, layout="dense")
+    assert [type(model.network[k]).__name__ for k in ("mp", "readout")] == ["DenseChempropBlock", "DenseMean"]

@@ -174,8 +174,7 @@ def test_csr_block_refuses_a_batch_without_packing(pair):
 
 
 def test_block_refusals():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        ChempropBlock(hidden_dim=D, dropout=0.1)
+    assert ChempropBlock(hidden_dim=D, dropout=0.1).dropout.rate == 0.1  # edge dropout is ported
     with pytest.raises(NotImplementedError, match="parallel slice"):
         ChempropBlock(hidden_dim=D, psum_axis="graph")
     with pytest.raises(NotImplementedError, match="parallel slice"):

@@ -206,8 +206,8 @@ def test_declarative_attention_config_matches_jax(datasets):
 def test_build_gat_refusals():
     with pytest.raises(TypeError, match="impl"):
         gat.build_gat(hidden_dim=8, impl="csr")  # no such argument, as in the JAX package
-    with pytest.raises(NotImplementedError, match="dropout"):
-        gat.build_gat(hidden_dim=8, dropout=0.1)
+    model = gat.build_gat(hidden_dim=8, dropout=0.1)  # dropout is ported: the block's and the FFN's
+    assert model.network["mp"].dropout.rate == 0.1 and model.network["ffn"].dropout.rate == 0.1
     with pytest.raises(NotImplementedError, match="float32"):
         gat.build_gat(hidden_dim=8, dtype="bfloat16")
     with pytest.raises(ValueError, match="unknown task"):

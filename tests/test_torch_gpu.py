@@ -237,6 +237,117 @@ def test_cuda_encoder_kernels_match_plain_versions(VE, reduce, residual, depth):
     assert fused_dense_encoder_bwd.launches == bwd0 + 2
 
 
+# matmul_dtype="bfloat16" (rows 1-6): kernel and plain version round the same
+# operands to bf16 and sum in f32 in other orders, so an f32 ulp of a sum
+# can flip the bf16 rounding of the next layer's operand (2^-8 relative) and
+# the flip carries on: elementwise against the tensor's largest magnitude,
+# and in relative L2 over the tensor, which such flips barely move. Measured
+# over these cases on an H100 (700 W): at most 1.25e-3 elementwise and
+# 1.8e-4 in L2 (rows 1-2; the backward rows 7.8e-4 and 9.6e-5), while the
+# bf16 rows differ from the f32 rows by 4.5e-3 in L2, so the L2 limit also
+# tells a bf16 kernel from an f32 one.
+BF16_ELEMENT_TOL = 1e-2
+BF16_L2_TOL = 1e-3
+
+
+def _hold_bf16(got, ref, what):
+    got, ref = got.float(), ref.float()
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max()) / max(scale, 1e-30)
+    l2 = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref).clamp_min(1e-30))
+    assert err <= BF16_ELEMENT_TOL and l2 <= BF16_L2_TOL, f"{what}: max {err:.2e}, L2 {l2:.2e}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E", [128, 256])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("depth", [1, 3])
+@pytest.mark.parametrize("stash_dtype", [None, "bfloat16"])
+def test_cuda_bf16_block_kernels_match_plain_versions(E, reduce, residual, depth, stash_dtype):
+    """Rows 1-4 with bf16 operands (and a bf16 stash) against their plain
+    versions at BF16_*_TOL, the backward fed the kernel's own stash; each
+    twice with equal bits, each counted as a bf16 launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    h0, src, dst, mask, W, b, g = _train_inputs(E, depth)
+    idx = (src, dst, mask)
+    mm = dict(matmul_dtype="bfloat16")
+    kw = dict(depth=depth, n_nodes=E // 2 + 8, residual=residual, reduce=reduce, **mm)
+    ref_kw = dict(depth=depth, residual=residual, reduce=reduce, **mm)
+    rows = (fused_dense_mpnn_block, fused_dense_mpnn_block_stash, fused_dense_mpnn_block_bwd_stash,
+            fused_dense_mpnn_block_bwd)
+    counts = [(fn.launches, fn.launches_bf16) for fn in rows]
+
+    out = fused_dense_mpnn_block(h0, *idx, W, b, **kw)
+    assert torch.equal(out, fused_dense_mpnn_block(h0, *idx, W, b, **kw))
+    _hold_bf16(out, dense_mpnn_block_reference(h0, *idx, W, b, **ref_kw), "row 1")
+    out, hs = fused_dense_mpnn_block_stash(h0, *idx, W, b, stash_dtype=stash_dtype, **kw)
+    again = fused_dense_mpnn_block_stash(h0, *idx, W, b, stash_dtype=stash_dtype, **kw)
+    ref_out, ref_hs = dense_mpnn_block_stash_reference(h0, *idx, W, b, stash_dtype=stash_dtype, **ref_kw)
+    _hold_bf16(out, ref_out, "row 2")
+    if depth > 1:
+        assert hs.dtype == (torch.bfloat16 if stash_dtype else torch.float32)
+        assert torch.equal(out, again[0]) and torch.equal(hs, again[1])
+        _hold_bf16(hs, ref_hs, "row 2's stash")
+    ref = dense_mpnn_block_bwd_reference(h0, hs, *idx, W, g, **ref_kw)
+    first = fused_dense_mpnn_block_bwd_stash(h0, hs, *idx, W, g, **kw)
+    second = fused_dense_mpnn_block_bwd_stash(h0, hs, *idx, W, g, **kw)
+    for name, a, r in zip(("g_h0", "g_W", "g_b"), first, ref):
+        _hold_bf16(a, r, f"row 3 {name}")
+    assert all(torch.equal(x, y) for x, y in zip(first, second)), "row 3 bf16 is not repeatable"
+    _, ref_hs32 = dense_mpnn_block_stash_reference(h0, *idx, W, b, **ref_kw)
+    ref4 = dense_mpnn_block_bwd_reference(h0, ref_hs32, *idx, W, g, **ref_kw)
+    got4 = fused_dense_mpnn_block_bwd(h0, *idx, W, b, g, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got4, fused_dense_mpnn_block_bwd(h0, *idx, W, b, g, **kw)))
+    for name, a, r in zip(("g_h0", "g_W", "g_b"), got4, ref4):
+        _hold_bf16(a, r, f"row 4 {name}")
+    torch.cuda.synchronize()
+    stash_fwd, stash_bwd, recompute = (2 * depth, 2, 2) if depth > 1 else (0, 0, 4)
+    # at depth 1 the stash forward is row 1 and the stash backward row 4
+    expect = [2 * depth + (2 if depth == 1 else 0), stash_fwd, stash_bwd, recompute]
+    assert [(fn.launches, fn.launches_bf16) for fn in rows] == [
+        (f32, bf + n) for (f32, bf), n in zip(counts, expect)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("VE", [(32, 64), (128, 256)])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("depth", [1, 3])
+@pytest.mark.parametrize("stash_dtype", [None, "bfloat16"])
+def test_cuda_bf16_encoder_kernels_match_plain_versions(VE, reduce, residual, depth, stash_dtype):
+    """Rows 5 and 6 with bf16 operands (and a bf16 stash) against their
+    plain versions at BF16_*_TOL, the backward fed the kernel's stash; each
+    twice with equal bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    V, E = VE
+    nf, ef, src, dst, mask, W, b, gn, ge = _encoder_inputs(V, E, depth)
+    idx = (src, dst, mask)
+    kw = dict(depth=depth, residual=residual, reduce=reduce, matmul_dtype="bfloat16")
+    fwd0, bwd0 = fused_dense_encoder_fwd.launches_bf16, fused_dense_encoder_bwd.launches_bf16
+    nh, eh, hs = fused_dense_encoder_fwd(nf, ef, *idx, W, b, stash=True, stash_dtype=stash_dtype, **kw)
+    again = fused_dense_encoder_fwd(nf, ef, *idx, W, b, stash=True, stash_dtype=stash_dtype, **kw)
+    ref_nh, ref_eh, ref_hs = dense_encoder_reference(nf, ef, *idx, W, b, stash=True, stash_dtype=stash_dtype,
+                                                     **kw)
+    _hold_bf16(nh, ref_nh, "row 5 node_hiddens")
+    _hold_bf16(eh, ref_eh, "row 5 edge_hiddens")
+    assert torch.equal(nh, again[0]) and torch.equal(eh, again[1])
+    if depth > 1:
+        assert hs.dtype == (torch.bfloat16 if stash_dtype else torch.float32) and torch.equal(hs, again[2])
+        _hold_bf16(hs, ref_hs, "row 5 stash")
+    ref = dense_encoder_bwd_reference(nf, ef, hs, *idx, W, gn, ge, **kw)
+    first = fused_dense_encoder_bwd(nf, ef, hs, *idx, W, gn, ge, **kw)
+    second = fused_dense_encoder_bwd(nf, ef, hs, *idx, W, gn, ge, **kw)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("g_nf", "g_ef", "g_W", "g_b"), first, ref):
+        _hold_bf16(a, r, f"row 6 {name}")
+    assert all(torch.equal(x, y) for x, y in zip(first, second)), "row 6 bf16 is not repeatable"
+    assert fused_dense_encoder_fwd.launches_bf16 == fwd0 + 2 * depth
+    assert fused_dense_encoder_bwd.launches_bf16 == bwd0 + 2
+
+
 @pytest.mark.gpu
 def test_cuda_encoder_rejects_oversized_bins():
     if not torch.cuda.is_available():

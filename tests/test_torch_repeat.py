@@ -22,7 +22,7 @@ import chip_smoke
 # the declarative GVP model's rows 14-15 run their plain versions here, a
 # minute for three steps: their bits twice are tests/test_torch_gvp_drift.py's
 CPU_PATHS = ("flat", "impl_csr", "flat_gat", "gvp_recipe", "recipe", "declarative", "declarative_attention",
-             "classification", "multicomponent", "schnet")
+             "classification", "multicomponent", "schnet", "dropout", "bf16_block")
 
 
 @pytest.mark.parametrize("path", CPU_PATHS)

@@ -171,10 +171,15 @@ def test_config_builds_the_served_model():
 
 
 def test_unported_model_options_raise():
-    with pytest.raises(NotImplementedError, match="dense"):
-        build_dmpnn(hidden_dim=8, dropout=0.1)
-    with pytest.raises(NotImplementedError, match="flat"):  # edge dropout in the flat block
-        build_dmpnn(hidden_dim=8, layout="flat", dropout=0.1)
+    """Edge dropout, refused until the plain dense slice, now builds: auto
+    resolves to the plain ``dense`` layout, and the flat block takes it as
+    well; unknown options still raise."""
+    model = build_dmpnn(hidden_dim=8, dropout=0.1)
+    assert type(model.network["mp"]).__name__ == "DenseChempropBlock"
+    assert type(model.network["readout"]).__name__ == "DenseMean"
+    assert model.network["mp"].dropout.rate == 0.1 and model.network["ffn"].dropout.rate == 0.1
+    model = build_dmpnn(hidden_dim=8, layout="flat", dropout=0.1)  # edge dropout in the flat block
+    assert type(model.network["mp"]).__name__ == "ChempropBlock" and model.network["mp"].dropout.rate == 0.1
     with pytest.raises(ValueError, match="unknown task"):
         build_dmpnn(hidden_dim=8, task="ranking")
     with pytest.raises(ValueError, match="aggregation"):
