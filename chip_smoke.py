@@ -116,11 +116,25 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
   step in lockstep, then served at the bf16 hold; then the block alone
   (``fuse_ends: false``; rows 1-4's bf16 instantiations) for LOCKSTEP_STEPS
   steps in lockstep with each backward and a served batch;
-- repeat: the eleven paths' models (the recipe, its declarative twin,
+- bf16 kernels: the depth-fused forward's bf16 mode (row 7b) in a phase of
+  its own against its plain version and row 1b's bits; row 8b (the glue's
+  ordered bf16 sum) against the CPU's bits; the attention core's
+  ``matmul_dtype="bfloat16"`` mode (rows 10b-13b on f32 inputs, which no
+  module passes) over the packed and dense batches in a phase of its own,
+  then all four entries in both bf16 modes against their plain versions;
+- train/serve bf16 models: ``dtype: bfloat16`` on the declarative graph
+  transformer (rows 12b-13b with bf16 inputs in every layer), on
+  ``configs/dmpnn_regression.yaml`` (the plain dense layout) and on
+  ``configs/gat_regression.yaml`` (GATv2 on packed bins; row 8b in their
+  glue), 2 epochs each card against CPU (the attention runs every step in
+  lockstep), a warm epoch timed and profiled, then served card against CPU
+  at the bf16 hold;
+- repeat: the twelve paths' models (the recipe, its declarative twin,
   ``impl: csr``, the declarative graph transformer, the declarative GVP
   model, the GVP recipe, the classification model, whose masked BCE
   runs over NaN-filled targets, the multicomponent model, the SchNet
-  recipe, the recipe at dropout 0.1 and the bf16 encoder) each take 3
+  recipe, the recipe at dropout 0.1, the bf16 encoder and the bf16 graph
+  transformer) each take 3
   training steps twice from the
   same weights, and every parameter and Adam state tensor must have the
   same bits: every sum of the glue is fixed-order (``nn/ops.py``
@@ -134,8 +148,8 @@ the packed block's node scatter and the backward of every gather), and each
 path's launch counts expect it there.
 
 Every kernel is held against its plain PyTorch version on the card at the
-shapes these paths give it (rows 1-6's bf16 instantiations too, at the
-BF16 tolerances, each twice for the same bits), each path's launch counts
+shapes these paths give it (rows 1b-7b and 10b-13b too, at the BF16
+tolerances, and row 8b bit for bit, each twice for the same bits), each path's launch counts
 are read, and the kernels are timed. Each phase prints one JSON line; then come a ``kernels``
 line, the card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
@@ -184,6 +198,7 @@ from notorch_tpu_torch.kernels.csr_segment import (
     csr_segment_sum_packed,
     csr_segment_sum_packed_reference,
     csr_segment_sum_reference,
+    segment_sum_in_order_reference,
 )
 from notorch_tpu_torch.kernels.dense_attention import (
     dense_attention_bwd_reference,
@@ -310,6 +325,23 @@ BF16_LOCKSTEP_RTOL = 1e-3
 # term moves it by its own size. The pure-noise biases are left out
 LOCKSTEP_RTOL = 1e-4
 LOCKSTEP_GRAD_RTOL = 1e-1
+# model-wide dtype: bfloat16: every dense layer of the card (cuBLAS) and of
+# the CPU sums its products in other orders, so a rounding to bf16 flips
+# now and then and grows through the layers. Measured (H100 80GB HBM3,
+# 700 W): the bf16 graph transformer's 26 steps in lockstep differ in loss
+# by 2.85e-4 at most and in its gradients by 9.97e-2 in relative L2 (the
+# edge-bias weights: g_s = alpha g_alpha - alpha D is a difference rounded
+# to bf16), with a ReLU unit of the head switching sides (1.86e-1 of a
+# tensor's largest magnitude); the bf16 GAT recipe's 7.9e-4 and 1.34e-1.
+# That is bf16's own scale: on the CPU the same bf16 gradients differ from
+# the f32 model's by up to 3.2e-1 in relative L2. The steps are held at
+# about 3x those (BF16_MODEL_LOCKSTEP_RTOL, BF16_MODEL_GRAD_REL_L2); the
+# D-MPNN's whole run drifted 1.01e-3 card against CPU, held at
+# BF16_MODEL_RUN_RTOL; the attention runs whole at ATTENTION_RUN_RTOL (the
+# transformer's drifted 1.71e-2, the GAT's 2.99e-2)
+BF16_MODEL_LOCKSTEP_RTOL = 2.5e-3
+BF16_MODEL_GRAD_REL_L2 = 4e-1
+BF16_MODEL_RUN_RTOL = 3e-3
 ZERO_GRADIENTS = ("W_k.bias", "W_bias.bias", "a.bias")
 # H100 SXM peaks at its 700 W limit (NVIDIA data sheet): CUDA-core f32 rate
 # and HBM3 bandwidth
@@ -429,11 +461,16 @@ CLOUD_ELEMENTS = ("C", "N", "O", "F", "P", "S", "Cl", "Br", "I")
 # card branches forced, the row-pointer sum counted). The dropout path (the
 # plain dense block, a DenseMean readout) sums only in the embeddings'
 # backward; the max path (the plain block over packed bins: one-hot products
-# and scatter_reduce's max) there and in PackedMean's sum and count
+# and scatter_reduce's max) there and in PackedMean's sum and count. The bf16
+# paths' glue sums bf16 data, through row 8b (csr_segment_sum_bf16): the bf16
+# graph transformer and the bf16 D-MPNN (the plain dense block, DenseMean) in
+# their embeddings' backward, the bf16 GAT there and in PackedMean's sum and
+# count (CPU rehearsal: nn/ops.py's ordered sums of bf16 data counted)
 ROW8_LAUNCHES = {"recipe": (6, 3), "declarative": (2, 0), "impl_csr": (11, 2), "declarative_attention": (2, 0),
                  "flat": (17, 2), "graph_transformer": (4, 2), "gat": (4, 2), "declarative_gvp": (3, 2),
                  "gvp_recipe": (8, 2), "classification": (6, 3), "multicomponent": (30, 4), "reaction": (6, 3),
-                 "moe": (15, 2), "pretrain": (19, 0), "schnet": (5, 1), "dropout": (2, 0), "max": (4, 2)}
+                 "moe": (15, 2), "pretrain": (19, 0), "schnet": (5, 1), "dropout": (2, 0), "max": (4, 2),
+                 "bf16_transformer": (2, 0), "bf16_dmpnn": (2, 0), "bf16_gat": (4, 2)}
 # the forward's stages in a profile (rows 1, 2 and 5, and row 4's replay):
 # fragments of its kernels' names (csrc/dense_mpnn.cu: the operator's bit
 # rows and the encoder's gathered h0 once a call, then a layer's product
@@ -635,18 +672,30 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# the wrappers whose kernels run other modes, counted apart: ``_bf16`` the bf16
+# instantiations (rows 1b-6b, 7b, 8b, and 10b-13b on bf16 inputs), ``_mm`` the
+# attention core's matmul_dtype="bfloat16" on f32 inputs (rows 10b-13b)
+ATTENTION_WRAPPERS = (fused_dense_attention_fwd, fused_dense_attention_bwd, fused_dense_attention_fwd_v2,
+                      fused_dense_attention_bwd_v2)
+MODE_COUNTS = {"_bf16": ("launches_bf16", (*BF16_WRAPPERS, fused_dense_mpnn_block_dbuf, csr_segment_sum,
+                                           *ATTENTION_WRAPPERS)),
+               "_mm": ("launches_mm", ATTENTION_WRAPPERS)}
+
+
 def reset_launches() -> None:
     for fn in KERNELS:
         fn.launches = 0
-    for fn in BF16_WRAPPERS:
-        fn.launches_bf16 = 0
+    for attr, wrappers in MODE_COUNTS.values():
+        for fn in wrappers:
+            setattr(fn, attr, 0)
 
 
 def launches() -> dict[str, int]:
-    """Each kernel's launches by wrapper name; rows 1-6's bf16
-    instantiations under ``<name>_bf16``."""
+    """Each kernel's launches by wrapper name; its other modes' under
+    ``<name>_bf16`` and ``<name>_mm`` (MODE_COUNTS)."""
     return {**{fn.__name__: fn.launches for fn in KERNELS},
-            **{f"{fn.__name__}_bf16": fn.launches_bf16 for fn in BF16_WRAPPERS}}
+            **{f"{fn.__name__}{suffix}": getattr(fn, attr)
+               for suffix, (attr, wrappers) in MODE_COUNTS.items() for fn in wrappers}}
 
 
 def zero_counts() -> dict[str, int]:
@@ -1831,10 +1880,13 @@ def attention_v1_phase(batches: list[dict], d: int, heads: int) -> tuple[int, fl
     return n, fwd_err, bwd_err
 
 
-def train_run_phase(tmp: Path, phase: str, model: dict, epochs: int, check) -> tuple[dict[str, int], Path]:
+def train_run_phase(tmp: Path, phase: str, model: dict, epochs: int, check, lockstep_rtol: float = LOCKSTEP_RTOL,
+                    grad_rel_l2: float | None = None) -> tuple[dict[str, int], Path]:
     """run(cfg) of ``model`` with the data, optimizer and trainer of
     MODEL_CFG's config on the card and on the CPU, compared epoch by epoch
-    at ATTENTION_RUN_RTOL, then every step of that run in lockstep.
+    at ATTENTION_RUN_RTOL, then every step of that run in lockstep (each
+    step's loss at ``lockstep_rtol``, the gradients as ``lockstep`` holds
+    them with ``grad_rel_l2``).
     ``check(counts, steps)`` returns what is wrong with the card run's
     launches, or None. Returns the launches and the card's checkpoint."""
     csv_path = lipo_csv(tmp, TRAIN_MOLS)
@@ -1864,7 +1916,8 @@ def train_run_phase(tmp: Path, phase: str, model: dict, epochs: int, check) -> t
          warm_epoch_ms_per_step=card["history"][-1]["time"] * 1e3 / (steps // epochs),
          history_card=card["history"], history_cpu=cpu["history"], test_card=card["test"],
          test_cpu=cpu["test"], rel_diff_vs_cpu=diffs, rel_tol=ATTENTION_RUN_RTOL,
-         lockstep=lockstep(train_config(csv_path, None, model), epochs, phase))
+         lockstep=lockstep(train_config(csv_path, None, model), epochs, phase, rtol=lockstep_rtol,
+                           grad_rel_l2=grad_rel_l2))
     return counts, card_ckpt
 
 
@@ -1904,13 +1957,16 @@ def attention_calm_run_phase(tmp: Path) -> None:
         fail(f"the calm attention run: card and CPU differ by {worst} relative: {diffs}")
 
 
-def lockstep(cfg: dict, epochs: int, what: str, max_steps: int | None = None, rtol: float = LOCKSTEP_RTOL) -> dict:
+def lockstep(cfg: dict, epochs: int, what: str, max_steps: int | None = None, rtol: float = LOCKSTEP_RTOL,
+             grad_rel_l2: float | None = None) -> dict:
     """Every step of ``cfg``'s run (its first ``max_steps``, where given)
     taken on the card and on the CPU from the card's weights, optimizer state
     and dropout streams (copied to the CPU before each step), on the run's
     own batches in its order: fails unless each step's loss
-    agrees within LOCKSTEP_RTOL relative and each gradient, but those of
-    ZERO_GRADIENTS, within LOCKSTEP_GRAD_RTOL times its largest magnitude.
+    agrees within ``rtol`` relative and each gradient, but those of
+    ZERO_GRADIENTS, within LOCKSTEP_GRAD_RTOL times its largest magnitude
+    (with ``grad_rel_l2``, within that in relative L2 instead: a bf16
+    model's ReLU units near their kink switch between devices).
     Also gives each of those gradients' largest relative L2 distance over
     the steps, card against CPU."""
     card, cpu = prepare(cfg), prepare(cfg, "cpu")["model"]
@@ -1942,27 +1998,32 @@ def lockstep(cfg: dict, epochs: int, what: str, max_steps: int | None = None, rt
                 l2 = float(torch.linalg.vector_norm(got - ref)) / max(float(torch.linalg.vector_norm(ref)), 1e-30)
                 rel_l2[name] = max(rel_l2.get(name, 0.0), l2)
             steps += 1
-    if not (loss_diff <= rtol and grad_diff <= LOCKSTEP_GRAD_RTOL):
+    worst_l2 = max(rel_l2.values(), default=0.0)
+    grads_held = worst_l2 <= grad_rel_l2 if grad_rel_l2 is not None else grad_diff <= LOCKSTEP_GRAD_RTOL
+    if not (loss_diff <= rtol and grads_held):
         fail(f"{what}: in lockstep the card's steps and the CPU's differ: loss {loss_diff} relative, "
-             f"gradients {grad_diff} of their largest magnitude ({worst})")
+             f"gradients {grad_diff} of their largest magnitude ({worst}), {worst_l2} in relative L2")
     return {"steps": steps, "max_loss_rel_diff": loss_diff, "max_grad_err_over_max": grad_diff,
-            "worst_gradient": worst, "rtol": rtol, "grad_rtol_over_max": LOCKSTEP_GRAD_RTOL,
-            "max_grad_rel_l2": max(rel_l2.values(), default=0.0), "grad_rel_l2": rel_l2}
+            "worst_gradient": worst, "rtol": rtol,
+            **({"grad_rel_l2_tol": grad_rel_l2} if grad_rel_l2 is not None else
+               {"grad_rtol_over_max": LOCKSTEP_GRAD_RTOL}),
+            "max_grad_rel_l2": worst_l2, "grad_rel_l2": rel_l2}
 
 
-def glue_only(path: str, evaluates: bool = True):
+def glue_only(path: str, evaluates: bool = True, counter: str = "csr_segment_sum"):
     """The launch check of a path whose only kernel is row 8 in its glue:
     ROW8_LAUNCHES's count a step and a positive number of evaluated batches
-    (none for a run that ``evaluates`` nothing), and no other kernel."""
+    (none for a run that ``evaluates`` nothing), and no other kernel; on
+    ``counter`` (``csr_segment_sum_bf16``: row 8b, a bf16 path's glue)."""
     per_step, per_batch = ROW8_LAUNCHES[path]
 
     def check(counts: dict[str, int], steps: int) -> str | None:
-        evaluated = (counts["csr_segment_sum"] - per_step * steps) / per_batch if evaluates else 0
-        others = {k: v for k, v in counts.items() if k != "csr_segment_sum"}
+        evaluated = (counts[counter] - per_step * steps) / per_batch if evaluates else 0
+        others = {k: v for k, v in counts.items() if k != counter}
         wrong_glue = (evaluated <= 0 or evaluated != int(evaluated) if evaluates
-                      else counts["csr_segment_sum"] != per_step * steps)
+                      else counts[counter] != per_step * steps)
         if wrong_glue or any(others.values()):
-            return (f"expected row 8 {per_step} times a step and {per_batch if evaluates else 0} times an "
+            return (f"expected {counter} {per_step} times a step and {per_batch if evaluates else 0} times an "
                     "evaluated batch, and no other kernel")
         return None
 
@@ -2012,7 +2073,7 @@ def sdpa_inputs(x: list, heads: int) -> tuple:
     S = ((dst.long()[:, None, :] == ids[None, :, None]) & mask[:, None, :]).float()
     Gm = (src.long()[:, :, None] == ids[None, None, :]).float()
     bias = torch.zeros(B, heads, V, V, device=q.device) if eb is None else (S[:, None] * eb[:, :, None, :]) @ Gm[:, None]
-    additive = torch.where((torch.bmm(S, Gm) > 0)[:, None], bias, float("-inf")).contiguous()
+    additive = torch.where((torch.bmm(S, Gm) > 0)[:, None], bias, float("-inf")).to(q.dtype).contiguous()
     heads_of = lambda t: t.reshape(B, V, heads, d // heads).transpose(1, 2).contiguous()  # noqa: E731
     return heads_of(q), heads_of(k), heads_of(v), additive
 
@@ -2686,12 +2747,183 @@ def bf16_block_phase(tmp: Path, n_batches: int) -> dict[str, int]:
     return path
 
 
+# model-wide dtype: bfloat16 (the D-MPNN and attention families): the
+# declarative graph transformer on the attention kernels' path, at bf16
+# (rows 12b and 13b with bf16 inputs in every layer), and the D-MPNN and GAT
+# recipes with model.dtype: bfloat16 (no kernel but row 8b in their glue)
+BF16 = "bfloat16"
+
+
+def bf16_transformer_model_cfg(d: int = 256, depth: int = 3, heads: int = 4) -> dict:
+    """declarative_attention_model_cfg with ``dtype: bfloat16`` on the
+    embedding, the block and the head: each layer's q, k, v and edge bias
+    come out of its dense layers in bf16, so every forward runs row 12b and
+    every backward row 13b with bf16 inputs."""
+    cfg = declarative_attention_model_cfg(d, depth, heads)
+    for name in ("embed", "mp", "ffn"):
+        cfg["modules"][name]["args"]["dtype"] = BF16
+    return cfg
+
+
+def bf16_transformer_launches(counts: dict[str, int], steps: int) -> str | None:
+    """Each training step: row 12b in every layer's forward and row 13b in
+    every layer's backward (bf16 inputs); each evaluated batch: row 12b in
+    every layer; row 8b in the embeddings' backward; nothing else."""
+    depth = MODEL_CFG["depth"]
+    fwd, bwd = counts["fused_dense_attention_fwd_v2_bf16"], counts["fused_dense_attention_bwd_v2_bf16"]
+    glue = glue_launches("bf16_transformer", steps, 0)
+    others = {k: v for k, v in counts.items() if k not in (
+        "fused_dense_attention_fwd_v2_bf16", "fused_dense_attention_bwd_v2_bf16", "csr_segment_sum_bf16")}
+    if (bwd != depth * steps or fwd <= depth * steps or fwd % depth or counts["csr_segment_sum_bf16"] != glue
+            or any(others.values())):
+        return (f"expected row 13b {depth} times a step, row 12b {depth} times a step and an evaluated batch, "
+                f"row 8b {glue} times (the embeddings' backward), and nothing else")
+    return None
+
+
+def bf16_models_phase(tmp: Path, n_dense_batches: int, n_gt_batches: int) -> dict[str, dict[str, int]]:
+    """The bf16 graph transformer (rows 12b-13b in every layer) and the
+    D-MPNN and GAT recipes with model.dtype: bfloat16, each trained for
+    TRAIN_EPOCHS epochs on the card and on the CPU: the transformer's every
+    step in lockstep (BF16_MODEL_LOCKSTEP_RTOL, BF16_MODEL_GRAD_REL_L2) and
+    its whole run at ATTENTION_RUN_RTOL, as the f32 attention runs; the
+    D-MPNN's whole run at BF16_MODEL_RUN_RTOL, the GAT's at
+    ATTENTION_RUN_RTOL; a warm epoch of each timed and profiled; each
+    checkpoint served, card against CPU at the bf16 hold. Returns each run's
+    and request's launches."""
+    depth, d, heads = MODEL_CFG["depth"], MODEL_CFG["hidden_dim"], GT_CFG["num_heads"]
+    csv_path = lipo_csv(tmp, TRAIN_MOLS)
+    runs = {}
+    transformer = bf16_transformer_model_cfg(d, depth, heads)
+    runs["train_bf16_transformer"], ckpt = train_run_phase(
+        tmp, "train_bf16_transformer", transformer, TRAIN_EPOCHS, bf16_transformer_launches,
+        lockstep_rtol=BF16_MODEL_LOCKSTEP_RTOL, grad_rel_l2=BF16_MODEL_GRAD_REL_L2)
+    warm = prepare(train_config(csv_path, None, transformer))
+    emit(phase="bf16_transformer_warm_epoch", **warm_epoch(warm["model"], warm["train_loader"]))
+    runs["serve_bf16_transformer"] = serve_checkpoint_phase(
+        tmp, ckpt, "serve_bf16_transformer", {"fused_dense_attention_fwd_v2_bf16": depth * n_dense_batches},
+        bf16=True)
+    runs["train_bf16_dmpnn"], ckpt = config_run_phase(tmp, "train_bf16_dmpnn", {**MODEL_CFG, "dtype": BF16},
+                                                      glue_only("bf16_dmpnn", False, "csr_segment_sum_bf16"),
+                                                      rtol=BF16_MODEL_RUN_RTOL)
+    runs["serve_bf16_dmpnn"] = serve_checkpoint_phase(tmp, ckpt, "serve_bf16_dmpnn", {}, bf16=True)
+    runs["train_bf16_gat"], ckpt = config_run_phase(tmp, "train_bf16_gat", {**GAT_CFG, "dtype": BF16},
+                                                    glue_only("bf16_gat", counter="csr_segment_sum_bf16"),
+                                                    rtol=ATTENTION_RUN_RTOL)
+    runs["serve_bf16_gat"] = serve_checkpoint_phase(
+        tmp, ckpt, "serve_bf16_gat", {"csr_segment_sum_bf16": glue_launches("bf16_gat", 0, n_gt_batches)},
+        bf16=True)
+    return runs
+
+
+def bf16_attention_phase(packed: list[list], dense: list[list], heads: int) -> tuple[dict, list[dict]]:
+    """Rows 10b-13b. With ``matmul_dtype="bfloat16"`` on f32 inputs, which no
+    module passes in either package: rows 10b-11b over the graph
+    transformer's packed batches and rows 12b-13b over the dense loader's
+    batches (``packed``, ``dense``: attention_inputs of each), in a phase of
+    their own. Then every entry in both bf16 modes (bf16 inputs: a bf16
+    model's q, k, v and bias) against its plain version on every lane at the
+    first packed and dense batches (held_bf16), each call twice for the same
+    bits, rows with no live pair zero (those launches do not count).
+    Returns the phase's launches of each (entry, mode) and the cases."""
+    mm = {"matmul_dtype": BF16}
+    reset_launches()
+    for x in packed:
+        fused_dense_attention_fwd(*x[:7], num_heads=heads, **mm)
+        fused_dense_attention_bwd(*x[:7], x[7], num_heads=heads, **mm)
+    for x in dense:
+        fused_dense_attention_fwd_v2(*x[:7], num_heads=heads, **mm)
+        fused_dense_attention_bwd_v2(*x[:7], x[7], num_heads=heads, **mm)
+    torch.cuda.synchronize()
+    counts = launches()
+    expect = {**zero_counts(), "fused_dense_attention_fwd_mm": len(packed),
+              "fused_dense_attention_bwd_mm": len(packed), "fused_dense_attention_fwd_v2_mm": len(dense),
+              "fused_dense_attention_bwd_v2_mm": len(dense)}
+    if counts != expect:
+        fail(f"the bf16 attention phase launched {counts}; expected {expect}")
+    cases = []
+    for case, x in (("packed_first_batch", packed[0]), ("dense_first_batch", dense[0])):
+        for mode in ("bf16_inputs", "matmul_dtype"):
+            xs = [t.bfloat16() if mode == "bf16_inputs" and t is not None and t.is_floating_point() else t
+                  for t in x]
+            kw = {} if mode == "bf16_inputs" else mm
+            args = xs[:7]
+            ref = dense_attention_reference(*args, heads, **kw)
+            ref_grads = dense_attention_bwd_reference(*args, xs[7], heads, **kw)
+            live = (dense_attention_reference(torch.ones_like(xs[0]), *args[1:], heads) != 0).any(-1)
+            errs = {}
+            for fwd, bwd in ((fused_dense_attention_fwd, fused_dense_attention_bwd),
+                             (fused_dense_attention_fwd_v2, fused_dense_attention_bwd_v2)):
+                outs = [fwd(*args, num_heads=heads, **kw), fwd(*args, num_heads=heads, **kw)]
+                grads = [bwd(*args, xs[7], num_heads=heads, **kw), bwd(*args, xs[7], num_heads=heads, **kw)]
+                torch.cuda.synchronize()
+                if not (torch.equal(*outs) and all(torch.equal(a, b) for a, b in zip(*grads))):
+                    fail(f"{fwd.__name__}/{bwd.__name__} ({mode}, {case}): two calls on the same inputs differ")
+                if outs[0][~live].any() or grads[0][0][~live].any():
+                    fail(f"{fwd.__name__}/{bwd.__name__} ({mode}, {case}): a row with no live pair is not zero")
+                errs[fwd.__name__] = held_bf16(f"{fwd.__name__} ({mode}, {case})", outs[0], ref)
+                errs[bwd.__name__] = max((held_bf16(f"{bwd.__name__} {n} ({mode}, {case})", a, r)
+                                          for n, a, r in zip(("g_q", "g_k", "g_v", "g_eb"), grads[0], ref_grads)),
+                                         key=lambda e: e["max_abs_err_over_max_abs_ref"])
+            cases.append({"case": case, "mode": mode, "dtype": str(xs[0].dtype), "live_pairs": live_pairs(x),
+                          "held": errs, "bitwise_repeatable": True})
+    return {k: v for k, v in counts.items() if v}, cases
+
+
+def dbuf_bf16_phase(inputs: list[tuple[list[torch.Tensor], int]]) -> tuple[int, float, list[dict]]:
+    """Row 7b (matmul_dtype="bfloat16"), which no module calls, in a phase of
+    its own on each ``(args, n_nodes)`` for sum and mean; then held against
+    its plain version (held_bf16) and row 1b's bits (those launches do not
+    count). Returns its launches, its largest error and the cases."""
+    depth = MODEL_CFG["depth"]
+    reset_launches()
+    runs = []
+    for args, n_nodes in inputs:
+        for reduce in ("sum", "mean"):
+            kw = dict(depth=depth, n_nodes=n_nodes, residual=True, reduce=reduce, matmul_dtype=BF16)
+            runs.append((args, kw, fused_dense_mpnn_block_dbuf(*args, mols_per_tile=8, **kw)))
+    torch.cuda.synchronize()
+    count = launches()["fused_dense_mpnn_block_dbuf_bf16"]
+    if launches() != {**zero_counts(), "fused_dense_mpnn_block_dbuf_bf16": len(runs)}:
+        fail(f"the dbuf bf16 phase launched {launches()}; expected row 7b {len(runs)} times, once a call")
+    cases = []
+    for args, kw, out in runs:
+        row1b = fused_dense_mpnn_block(*args, **kw)
+        ref = dense_mpnn_block_reference(*args, depth=depth, residual=True, reduce=kw["reduce"], matmul_dtype=BF16)
+        torch.cuda.synchronize()
+        case = f"B={args[0].shape[0]} E={args[0].shape[1]} {kw['reduce']}"
+        err = held_bf16(f"dbuf bf16 ({case})", out, ref)
+        if not torch.equal(out, row1b):
+            fail(f"row 7b ({case}) differs from row 1b by {float((out - row1b).abs().max())}")
+        cases.append({"shape": list(args[0].shape), "reduce": kw["reduce"], **err, "equal_bits_to_row_1b": True})
+    return count, max(c["max_abs_err"] for c in cases), cases
+
+
+def bf16_glue_phase(glue_x: dict[str, tuple]) -> tuple[float, list[dict]]:
+    """Row 8b through ``nn/ops.py`` ``segment_sum`` on the glue cases of
+    glue_inputs cast to bf16: twice the same bits, and the CPU's ordered
+    bf16 chain's bits. Returns 0 (the largest difference) and the cases."""
+    from notorch_tpu_torch.nn.ops import segment_sum
+
+    cases = []
+    for name, (data, ids, n) in glue_x.items():
+        data = data.bfloat16()
+        first, second = segment_sum(data, ids, n), segment_sum(data, ids, n)
+        torch.cuda.synchronize()
+        cpu = segment_sum(data.cpu(), ids.cpu(), n)
+        if not (torch.equal(first, second) and torch.equal(first.cpu(), cpu)):
+            fail(f"row 8b ({name}): two calls differ or the CPU's ordered bf16 chain gives other bits")
+        cases.append({"case": name, "rows": data.shape[0], "segments": n, "cpu_bits": True,
+                      "bitwise_repeatable": True})
+    return 0.0, cases
+
+
 # the repeat check: each path's model built from SEED takes REPEAT_STEPS
 # train steps on its first training batches twice from the same weights, and
 # every parameter and every Adam state tensor must come out with the same bits
 REPEAT_STEPS, REPEAT_MOLS = 3, 256
 REPEAT_PATHS = ("recipe", "declarative", "impl_csr", "declarative_attention", "declarative_gvp", "gvp_recipe",
-                "classification", "multicomponent", "schnet", "dropout", "bf16_block")
+                "classification", "multicomponent", "schnet", "dropout", "bf16_block", "bf16_transformer")
 
 
 def repeat_model_cfg(path: str, d: int) -> dict:
@@ -2714,7 +2946,8 @@ def repeat_model_cfg(path: str, d: int) -> dict:
             "flat": declarative_flat_model_cfg(d),
             "flat_gat": {**GAT_CFG, "hidden_dim": d, "layout": "flat"},
             "dropout": {**MODEL_CFG, "hidden_dim": d, "dropout": DROPOUT},
-            "bf16_block": bf16_block_model_cfg(d, depth)}[path]
+            "bf16_block": bf16_block_model_cfg(d, depth),
+            "bf16_transformer": bf16_transformer_model_cfg(d, depth, heads)}[path]
 
 
 def repeat_run(path: str, tmp: Path, device: str, d: int = 256, batch: int = BATCH,
@@ -2807,6 +3040,88 @@ def gvp_work(x: dict, bwd: bool) -> tuple[int, int, int]:
     return ops, ins + outs, padded_ops
 
 
+def bf16_time_records(main_args, n_nodes: int, attn_x: dict[str, list], dense_G, heads: int,
+                      path: dict, errors: dict) -> list[dict]:
+    """Rows 7b, 8b and 10b-13b timed as their f32 rows are (a CUDA graph of
+    20 calls) beside their plain versions, bounded by bound_bf16 (the
+    products at the tensor cores' bf16 rate, the bytes in each tensor's
+    dtype): row 7b at row 7's shape; rows 10b-11b (matmul_dtype) at the
+    packed first batch, rows 12b-13b in both modes at the dense first batch
+    (``attn_x``); row 8b at the bf16 transformer's node-table backward on the
+    dense first batch (``dense_G``'s type ids into the table, the plain
+    version eager over 2 calls: its steps read the run lengths on the host,
+    a launch or more a step). ``path``:
+    each record's launches; ``errors``: its largest error against its plain
+    version. Returns the kernels-line records."""
+    depth, d = MODEL_CFG["depth"], MODEL_CFG["hidden_dim"]
+    records = []
+    kw = dict(depth=depth, n_nodes=n_nodes, residual=True, reduce="sum", matmul_dtype=BF16)
+    out = fused_dense_mpnn_block_dbuf(*main_args, mols_per_tile=8, **kw)
+    fwd_ops = layer_ops(main_args, "sum")[0]
+    kernel_t = time_ms(lambda: fused_dense_mpnn_block_dbuf(*main_args, mols_per_tile=8, **kw))
+    plain_t = time_ms(lambda: dense_mpnn_block_reference(*main_args, depth=depth, residual=True, reduce="sum",
+                                                         matmul_dtype=BF16))
+    bound_ms, bound_by = bound_bf16(depth * fwd_ops, nbytes(*main_args, out))
+    emit(phase="time", kernel="fused_dense_mpnn_block_dbuf_bf16", shape=list(main_args[0].shape),
+         ms=kernel_t["device"], plain_ms=plain_t["device"], eager_ms=kernel_t["eager"], bound_ms=bound_ms,
+         bound_by=bound_by, operations=depth * fwd_ops, bytes=nbytes(*main_args, out), library_ms=None,
+         library_note="none: no single PyTorch call", launches=path["fused_dense_mpnn_block_dbuf_bf16"])
+    records.append(kernel_record(fused_dense_mpnn_block_dbuf, path["fused_dense_mpnn_block_dbuf_bf16"],
+                                 errors["fused_dense_mpnn_block_dbuf_bf16"], kernel_t, plain_t, bound_ms, bound_by,
+                                 name="fused_dense_mpnn_block_dbuf_bf16"))
+    rows = [(fused_dense_attention_fwd, "_mm", "packed_first_batch"), (fused_dense_attention_bwd, "_mm",
+                                                                       "packed_first_batch")]
+    rows += [(fn, suffix, "dense_first_batch") for suffix in ("_bf16", "_mm")
+             for fn in (fused_dense_attention_fwd_v2, fused_dense_attention_bwd_v2)]
+    for fn, suffix, shape in rows:
+        bwd = fn in (fused_dense_attention_bwd, fused_dense_attention_bwd_v2)
+        x = attn_x[shape]
+        if suffix == "_bf16":
+            x = [t.bfloat16() if t is not None and t.is_floating_point() else t for t in x]
+        kw = {} if suffix == "_bf16" else {"matmul_dtype": BF16}
+        kernel = ((lambda fn=fn, x=x, kw=kw: fn(*x[:7], x[7], num_heads=heads, **kw)) if bwd
+                  else (lambda fn=fn, x=x, kw=kw: fn(*x[:7], num_heads=heads, **kw)))
+        plain = ((lambda x=x, kw=kw: dense_attention_bwd_reference(*x[:7], x[7], heads, **kw)) if bwd
+                 else (lambda x=x, kw=kw: dense_attention_reference(*x[:7], heads, **kw)))
+        kernel_t, plain_t = time_ms(kernel), time_ms(plain)
+        library_t = time_ms(library_sdpa(x, heads, bwd))
+        ops, n_bytes, dense_ops = attention_work(x, heads, bwd)
+        bound_ms, bound_by = bound_bf16(ops, n_bytes)
+        name = fn.__name__ + suffix
+        emit(phase="time", kernel=name, shape={"case": shape, "B": x[0].shape[0], "V": x[0].shape[1],
+                                              "E": x[4].shape[1], "d": d, "heads": heads, "dtype": str(x[0].dtype),
+                                              "live_pairs": live_pairs(x)},
+             ms=kernel_t["device"], plain_ms=plain_t["device"], eager_ms=kernel_t["eager"], bound_ms=bound_ms,
+             bound_by=bound_by, operations=ops, dense_operations=dense_ops, bytes=n_bytes,
+             library_ms=library_t["device"],
+             library_note=(("scaled_dot_product_attention forward and autograd backward" if bwd else
+                            "scaled_dot_product_attention") + f" on the {x[0].dtype} inputs, the additive mask and "
+                           "bias built beforehand"), launches=path[name])
+        records.append(kernel_record(fn, path[name], errors[name], kernel_t, plain_t, bound_ms, bound_by, library_t,
+                                     name=name))
+    from notorch_tpu_torch.kernels.csr_segment import segment_sum_in_order, sorted_segments
+
+    ids = torch.as_tensor(np.asarray(dense_G.node_feats)).reshape(-1).long().cuda()
+    n = DEFAULT_NUM_ATOM_TYPES
+    data = torch.from_numpy(np.random.default_rng(SEED + 60).standard_normal((ids.numel(), d))
+                            .astype(np.float32)).cuda().bfloat16()
+    order, row_ptr = sorted_segments(ids, n)
+    kernel_t = time_ms(lambda: segment_sum_in_order(data, order, row_ptr, n))
+    segment_sum_in_order_reference(data, order, row_ptr, n)
+    plain_ms = _elapsed_ms(lambda: segment_sum_in_order_reference(data, order, row_ptr, n), 2)
+    library_t = time_ms(lambda: torch.zeros(n, d, dtype=torch.bfloat16, device="cuda").index_add_(0, ids, data))
+    bound_ms, bound_by = bound_bf16(ids.numel() * d, nbytes(data, order, row_ptr) + n * d * 2)
+    emit(phase="time", kernel="csr_segment_sum_bf16", shape={"rows": ids.numel(), "d": d, "segments": n,
+                                                             "longest_run": int(torch.bincount(ids).max())},
+         ms=kernel_t["device"], eager_ms=kernel_t["eager"], plain_ms=plain_ms, plain_note="eager",
+         library_ms=library_t["device"], library_note="torch.zeros(segments, d, bf16).index_add_ (one rounding, "
+         "atomics in no fixed order)", bound_ms=bound_ms, bound_by=bound_by, launches=path["csr_segment_sum_bf16"])
+    records.append(kernel_record(csr_segment_sum, path["csr_segment_sum_bf16"], errors["csr_segment_sum_bf16"],
+                                 kernel_t, {"device": plain_ms}, bound_ms, bound_by, library_t,
+                                 name="csr_segment_sum_bf16"))
+    return records
+
+
 def kernel_record(fn, path_launches: int, max_abs_err: float, kernel_t: dict, plain_t: dict,
                   bound_ms: float, bound_by: str, library_t: dict | None = None, name: str | None = None) -> dict:
     source, replaces = KERNELS[fn]
@@ -2878,6 +3193,10 @@ def main() -> None:
         dbuf_launches, dbuf_err, dbuf_cases = dbuf_phase(
             [(main_args, main_G.nodes_per_graph), (dense_args, dense_G.nodes_per_graph)])
         emit(phase="dbuf_vs_plain", rtol=RTOL, atol=ATOL, launches=dbuf_launches, cases=dbuf_cases)
+        dbuf_bf16_launches, dbuf_bf16_err, dbuf_bf16_cases = dbuf_bf16_phase(
+            [(main_args, main_G.nodes_per_graph), (dense_args, dense_G.nodes_per_graph)])
+        emit(phase="dbuf_bf16_vs_plain", element_tol_over_max=BF16_ELEMENT_TOL, rel_l2_tol=BF16_L2_TOL,
+             launches=dbuf_bf16_launches, cases=dbuf_bf16_cases)
 
         # rows 8-9 at the first flat lipo batch (V = 2048, E = 4096) and a random case
         flat_batches = list(DataLoader(ds, batch_size=BATCH, layout="flat", csr_pack=True))
@@ -2893,6 +3212,8 @@ def main() -> None:
         glue_x = glue_inputs(main_G, d, SEED + 7)
         glue_err, glue_cases = glue_sums_phase(glue_x)
         emit(phase="glue_sums_vs_plain", sum_atol=f"{SUM_ATOL} x each element's sum of |terms|", cases=glue_cases)
+        glue_bf16_err, glue_bf16_cases = bf16_glue_phase(glue_x)
+        emit(phase="glue_sums_bf16_vs_cpu", cases=glue_bf16_cases)
 
         # rows 10-13 at the graph transformer's first packed batch (16 bins of
         # V = 128, E = 256), the dense loader's first and widest batches, and
@@ -2915,6 +3236,14 @@ def main() -> None:
         emit(phase="attention_v1", batches=len(gt_batches), launches={"fused_dense_attention_fwd": v1_launches,
                                                                       "fused_dense_attention_bwd": v1_launches},
              max_abs_err={"fused_dense_attention_fwd": v1_fwd_err, "fused_dense_attention_bwd": v1_bwd_err})
+        # rows 10b-13b: matmul_dtype="bfloat16" over the packed and the dense
+        # batches in a phase of their own, then both bf16 modes held
+        bf16_attn_launches, bf16_attn_cases = bf16_attention_phase(
+            [batch_attention_inputs(b["inputs.G"], d, heads, SEED + 40 + i) for i, b in enumerate(gt_batches)],
+            [batch_attention_inputs(b["inputs.G"], d, heads, SEED + 50 + i) for i, b in enumerate(dense_batches)],
+            heads)
+        emit(phase="bf16_attention_kernels", element_tol_over_max=BF16_ELEMENT_TOL, rel_l2_tol=BF16_L2_TOL,
+             launches=bf16_attn_launches, cases=bf16_attn_cases)
 
         served = serve_phase(tmp, ds, csv_path, len(batches))
         trained = train_phase(tmp)
@@ -2958,6 +3287,9 @@ def main() -> None:
         dropout_paths(tmp, len(batches))
         dropout_lockstep_phase(tmp)
         bf16_path = bf16_block_phase(tmp, len(dense_batches))
+        # model-wide bf16: the graph transformer on rows 12b-13b, the D-MPNN
+        # and GAT recipes
+        bf16_runs = bf16_models_phase(tmp, len(dense_batches), len(gt_batches))
 
         # rows 14-15 against their plain versions, then the GVP model both ways
         gvp_train, gvp_val = gvp_data()
@@ -3156,6 +3488,19 @@ def main() -> None:
             if shape == path_shape:
                 records.append(kernel_record(fn, path_count, path_err, kernel_t, plain_t, bound_ms, bound_by,
                                              library_t))
+    # rows 7b, 8b and 10b-13b
+    bf16_errors = {"fused_dense_mpnn_block_dbuf_bf16": dbuf_bf16_err, "csr_segment_sum_bf16": glue_bf16_err}
+    for case in bf16_attn_cases:
+        for name, err in case["held"].items():
+            key = name + ("_bf16" if case["mode"] == "bf16_inputs" else "_mm")
+            bf16_errors[key] = max(bf16_errors.get(key, 0.0), err["max_abs_err"])
+    transformer_run = bf16_runs["train_bf16_transformer"]
+    bf16_model_path = {"fused_dense_mpnn_block_dbuf_bf16": dbuf_bf16_launches, **bf16_attn_launches,
+                       **{k: transformer_run[k] for k in ("fused_dense_attention_fwd_v2_bf16",
+                                                          "fused_dense_attention_bwd_v2_bf16",
+                                                          "csr_segment_sum_bf16")}}
+    records += bf16_time_records(main_args, main_G.nodes_per_graph, attn_x, dense_G, heads, bf16_model_path,
+                                 bf16_errors)
     # rows 14-15 at the GVP model's first training batch
     gx = gvp_x["first_training_batch"]
     for fn, bwd in ((fused_gvp_conv_fwd, False), (fused_gvp_conv_bwd, True)):
@@ -3204,6 +3549,9 @@ def main() -> None:
     # row 8 on the SchNet path: each SchNet run's launches beside the recipe's
     row8 = next(r for r in records if r["name"] == "csr_segment_sum")
     row8["launches_schnet"] = {run: counts["csr_segment_sum"] for run, counts in schnet_runs.items()}
+    # row 8b on each bf16 path's runs and requests
+    row8b = next(r for r in records if r["name"] == "csr_segment_sum_bf16")
+    row8b["launches_bf16_paths"] = {run: counts["csr_segment_sum_bf16"] for run, counts in bf16_runs.items()}
     missing = [r["name"] for r in records if r["launches"] <= 0]
     missing += [f"csr_segment_sum on {run}" for run, n in row8["launches_schnet"].items() if n <= 0]
     if missing:

@@ -22,6 +22,12 @@
 //            Every edge of the range is summed: the TPU kernel's grid stops
 //            after (tile_v * max_degree) / tile_e + 2 chunks of a tile and
 //            drops the edges past them; this one does not.
+// Row 8b, the row-pointer kernel's bf16 mode (kChain): the same walk, with the
+// running sum rounded to bf16 (nearest, ties to even) after every add, as
+// XLA adds the rows of a bf16 scatter-add (jax.ops.segment_sum of bf16 data,
+// the VJP of a bf16 gather): the wrapper hands it the bf16 rows as f32
+// (exact) and casts the result back, which every value of the chain already
+// is.
 // The TPU kernels turn each chunk of slots into a one-hot [tile_v, tile_e]
 // matrix and multiply it on the MXU. Here a segment sum is what it is on this
 // card: a gather and an add, f32 add per element read.
@@ -308,13 +314,17 @@ __device__ inline void load_window(float* buf, const float* __restrict__ data,
 template <int kFloats>
 using Lane = std::conditional_t<kFloats == 4, float4, float>;
 
-__device__ inline float add_lane(float a, float b) { return a + b; }
-__device__ inline float4 add_lane(float4 a, float4 b) { return add4(a, b); }
+// a + b, rounded to bf16 with kRound (row 8b's chain).
+template <bool kRound>
+__device__ inline float add_lane(float a, float b) { return operand<kRound>(a + b); }
+template <bool kRound>
+__device__ inline float4 add_lane(float4 a, float4 b) { return operand4<kRound>(add4(a, b)); }
 
 // acc plus the rows at, at + stride, ... (count of them) of a window, in
 // order: the next kChain rows' reads in flight while the last kChain are
 // added. kStride is the row stride in floats, or 0 for w at run time.
-template <int kStride, typename V>
+// kRound rounds every add to bf16.
+template <int kStride, bool kRound, typename V>
 __device__ inline V add_rows(V acc, const float* at, int count, int w) {
   const int stride = kStride != 0 ? kStride : w;
   int r = 0;
@@ -326,21 +336,21 @@ __device__ inline V add_rows(V acc, const float* at, int count, int w) {
 #pragma unroll
       for (int u = 0; u < kChain; ++u) next[u] = *reinterpret_cast<const V*>(at + u * stride);
 #pragma unroll
-      for (int u = 0; u < kChain; ++u) acc = add_lane(acc, x[u]);
+      for (int u = 0; u < kChain; ++u) acc = add_lane<kRound>(acc, x[u]);
 #pragma unroll
       for (int u = 0; u < kChain; ++u) x[u] = next[u];
     }
 #pragma unroll
-    for (int u = 0; u < kChain; ++u) acc = add_lane(acc, x[u]);
+    for (int u = 0; u < kChain; ++u) acc = add_lane<kRound>(acc, x[u]);
   }
-  for (; r < count; ++r, at += stride) acc = add_lane(acc, *reinterpret_cast<const V*>(at));
+  for (; r < count; ++r, at += stride) acc = add_lane<kRound>(acc, *reinterpret_cast<const V*>(at));
   return acc;
 }
 
 // Steps 2-3 of rowptr_kernel for one block: the span [lo, hi) of its n nodes
 // (row pointers rp) staged in windows, each team's nodes summed as their rows
 // arrive. A team is w / kFloats lanes, each holding kFloats columns.
-template <int kVec, int kFloats>
+template <int kVec, int kFloats, bool kRound>
 __device__ inline void sum_group(const float* __restrict__ data, const long long* __restrict__ order,
                                  float* __restrict__ out, const int* rp, float* windows, int d, int n,
                                  int v0, int c0, int w, int lo, int hi) {
@@ -374,7 +384,7 @@ __device__ inline void sum_group(const float* __restrict__ data, const long long
       for (; j < n; j += teams) {
         const int a = max(rp[j], r0), b = min(rp[j + 1], r1);
         const float* at = buf + (a - r0) * w;
-        acc = w == kSlice ? add_rows<kSlice>(acc, at, b - a, w) : add_rows<0>(acc, at, b - a, w);
+        acc = w == kSlice ? add_rows<kSlice, kRound>(acc, at, b - a, w) : add_rows<0, kRound>(acc, at, b - a, w);
         if (rp[j + 1] > r1) break;  // the run goes on in the next window
         o[j * stride] = acc;
         acc = V{};
@@ -390,7 +400,7 @@ __device__ inline void sum_group(const float* __restrict__ data, const long long
     }
 }
 
-template <int kVec>
+template <int kVec, bool kRound>
 __global__ void __launch_bounds__(kRowThreads)
     rowptr_kernel(const float* __restrict__ data, const int* __restrict__ row_ptr,
                   const long long* __restrict__ order, float* __restrict__ out, int E, int d,
@@ -415,11 +425,11 @@ __global__ void __launch_bounds__(kRowThreads)
   // chains through the run's rows took less time on the card
   if constexpr (kVec == 4) {
     if (hi - lo > kLongSpan)
-      sum_group<4, 1>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
+      sum_group<4, 1, kRound>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
     else
-      sum_group<4, 4>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
+      sum_group<4, 4, kRound>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
   } else {
-    sum_group<1, 1>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
+    sum_group<1, 1, kRound>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
   }
   __syncthreads();
   row_stamp(3);
@@ -486,10 +496,12 @@ int csr_segment_sum_packed_f32(const float* data, const int* perm, const int* pa
 // The row-pointer sum: data[rows, d] (any d >= 0), row_ptr[num_nodes + 1]
 // int32 (nondecreasing), out[num_nodes, d]; with order (int64, E entries, each
 // a row of data) the sum reads data[order[e]], without it data[e] (E rows).
-// Device pointers of contiguous arrays; the stream is a cudaStream_t. Returns
-// the cudaError_t of the launch (0 on success).
+// bf16_chain nonzero rounds the running sum to bf16 after every add (row 8b;
+// data then holds bf16 values). Device pointers of contiguous arrays; the
+// stream is a cudaStream_t. Returns the cudaError_t of the launch (0 on
+// success).
 int csr_segment_sum_rowptr_f32(const float* data, const int* row_ptr, const long long* order, float* out,
-                               int E, int d, int num_nodes, void* stream) {
+                               int E, int d, int num_nodes, int bf16_chain, void* stream) {
   if (E < 0 || d < 0 || num_nodes < 0) return (int)cudaErrorInvalidValue;
   if (d == 0 || num_nodes == 0) return (int)cudaSuccess;
   const int group = rowptr_group(E, d, num_nodes);
@@ -497,17 +509,21 @@ int csr_segment_sum_rowptr_f32(const float* data, const int* row_ptr, const long
   const long long slices = ((long long)d + kSlice - 1) / kSlice;
   if (groups > 0x7fffffffLL || slices > 65535) return (int)cudaErrorInvalidValue;
   const bool vec = d % 4 == 0 && ((uintptr_t)data | (uintptr_t)out) % 16 == 0;
-  const void* kernel = vec ? (const void*)rowptr_kernel<4> : (const void*)rowptr_kernel<1>;
+  const int which = 2 * (bf16_chain != 0) + vec;
+  const void* kernels[4] = {(const void*)rowptr_kernel<1, false>, (const void*)rowptr_kernel<4, false>,
+                            (const void*)rowptr_kernel<1, true>, (const void*)rowptr_kernel<4, true>};
   const size_t smem = rowptr_smem_bytes(group);
-  static uint64_t configured[2] = {0, 0};
-  const cudaError_t err = allow_smem(kernel, (int)rowptr_smem_bytes(kMaxGroup), configured[vec]);
+  static uint64_t configured[4] = {0, 0, 0, 0};
+  const cudaError_t err = allow_smem(kernels[which], (int)rowptr_smem_bytes(kMaxGroup), configured[which]);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)groups, (unsigned)slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec)
-    rowptr_kernel<4><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group);
-  else
-    rowptr_kernel<1><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group);
+  switch (which) {
+    case 0: rowptr_kernel<1, false><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group); break;
+    case 1: rowptr_kernel<4, false><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group); break;
+    case 2: rowptr_kernel<1, true><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group); break;
+    default: rowptr_kernel<4, true><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -202,6 +202,74 @@ __device__ inline float4 scale4(float s, float4 x) {
   return make_float4(s * x.x, s * x.y, s * x.z, s * x.w);
 }
 
+// The numeric modes of every kernel (a template argument, kMode):
+//   kExact: f32 in and out, exact f32 (rows 10-13);
+//   kMm:    f32 in and out, each operand of a product rounded to bf16 where
+//           the TPU kernels' matmul_dtype="bfloat16" rounds it (rows 10b-13b
+//           on f32 inputs);
+//   kHalf:  bf16 in and out (__nv_bfloat16; the TPU kernels' dt = mm =
+//           bfloat16, a bf16 model's path): the operands as kMm, and alpha
+//           and g_s rounded to bf16 as dt too.
+// In both bf16 modes the softmax, every sum and every product stay f32, and
+// the passes round where the TPU kernel rounds, which the online softmax of
+// kExact cannot: alpha = exp(s - max) / sum is formed from the row's final
+// max and sum (a first pass over the row's pairs), rounded, and only then
+// multiplied (a second pass; the backward's query pass takes a third, for
+// D_i = sum_j alpha g_alpha before g_s).
+constexpr int kExact = 0, kMm = 1, kHalf = 2;
+
+// Element `at` (a multiple of 4) of an operand, 4 values, as floats.
+template <int kMode>
+__device__ inline float4 load4(const float* base, size_t at) {
+  if constexpr (kMode == kHalf) return load_bf16x4(reinterpret_cast<const __nv_bfloat16*>(base), at);
+  else return __ldg(reinterpret_cast<const float4*>(base + at));
+}
+
+template <int kMode>
+__device__ inline float load1(const float* base, size_t at) {
+  if constexpr (kMode == kHalf) return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(base)[at]);
+  else return __ldg(base + at);
+}
+
+template <int kMode>
+__device__ inline void store4(float* base, size_t at, float4 x) {
+  if constexpr (kMode == kHalf) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
+    uint2 raw;
+    raw.x = *reinterpret_cast<const unsigned*>(&lo);
+    raw.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(base) + at) = raw;
+  } else {
+    *reinterpret_cast<float4*>(base + at) = x;
+  }
+}
+
+template <int kMode>
+__device__ inline void store1(float* base, size_t at, float x) {
+  if constexpr (kMode == kHalf) reinterpret_cast<__nv_bfloat16*>(base)[at] = __float2bfloat16_rn(x);
+  else base[at] = x;
+}
+
+// Edge e's bias (element `at` of eb) as a product's operand.
+template <int kMode>
+__device__ inline float edge_bias(const Args& a, size_t at) {
+  return operand<kMode == kMm>(load1<kMode>(a.eb, at));
+}
+
+// The bf16 modes' alpha from a pair's score and its row's max and sum,
+// rounded to dt (bf16 in kHalf).
+template <int kMode>
+__device__ inline float mode_alpha(float sc, float m, float den) {
+  return operand<kMode == kHalf>(expf(sc - m) / den);
+}
+
+// The bf16 modes' g_s = alpha g_alpha - alpha D_i, each product and the
+// difference rounded as the TPU kernel forms them (no fused multiply-add),
+// then rounded to bf16 (dt, and the products' operand).
+__device__ inline float mode_gs(float af, float ga, float dsum) {
+  return operand<true>(__fsub_rn(__fmul_rn(af, ga), __fmul_rn(af, dsum)));
+}
+
 // Sum over a group by xor shuffles: every lane ends with the same bits, since
 // each step adds the same two values on both lanes of a pair.
 __device__ inline float group_sum(float x, unsigned mask, int gsz) {
@@ -329,11 +397,11 @@ __device__ inline void sort_entry(const List& l, int n, int p, int V) {
 
 // The live edges of bin b whose dst lies in [lo, hi] (into by_dst, with kDst)
 // and those whose src does (into by_src, with kSrc), each list sorted (see
-// List), the two sorts side by side. With `dead` (the bin's g_eb), zeroes it
+// List), the two sorts side by side. With `zero_dead`, zeroes the bin's g_eb
 // on every lane that is not live. Returns the two lists' lengths.
-template <bool kDst, bool kSrc>
+template <bool kDst, bool kSrc, int kMode>
 __device__ int2 gather_lists(const Args& a, const List& by_dst, const List& by_src, int b, int lo, int hi,
-                             float* dead, int stage_kernel) {
+                             bool zero_dead, int stage_kernel) {
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const size_t base = (size_t)b * a.E;
   // each step's lanes are read while the step before is placed
@@ -354,8 +422,8 @@ __device__ int2 gather_lists(const Args& a, const List& by_dst, const List& by_s
     unsigned char m2 = 0;
     read(e + kListThreads, i2, j2, m2);
     const bool live = e < a.E && m != 0 && j >= 0 && j < a.V && i >= 0 && i < a.V;
-    if (dead != nullptr && e < a.E && !live)
-      for (int h = 0; h < a.H; ++h) dead[(size_t)h * a.E + e] = 0.f;
+    if (zero_dead && e < a.E && !live)
+      for (int h = 0; h < a.H; ++h) store1<kMode>(a.geb, ((size_t)b * a.H + h) * a.E + e, 0.f);
     const bool hit_d = kDst && live && i >= lo && i <= hi;
     const bool hit_s = kSrc && live && j >= lo && j <= hi;
     unsigned bits_d = 0, bits_s = 0;
@@ -403,10 +471,10 @@ __device__ int2 gather_lists(const Args& a, const List& by_dst, const List& by_s
   return make_int2(nd, ns);
 }
 
-template <bool kByDst>
-__device__ inline int gather_edges(const Args& a, const List& l, int b, int lo, int hi, float* dead,
+template <bool kByDst, int kMode>
+__device__ inline int gather_edges(const Args& a, const List& l, int b, int lo, int hi, bool zero_dead,
                                    int stage_kernel) {
-  const int2 n = gather_lists<kByDst, !kByDst>(a, l, l, b, lo, hi, dead, stage_kernel);
+  const int2 n = gather_lists<kByDst, !kByDst, kMode>(a, l, l, b, lo, hi, zero_dead, stage_kernel);
   return kByDst ? n.x : n.y;
 }
 
@@ -437,22 +505,23 @@ __device__ inline size_t head_row(const Args& a, int b, int r, int h) {
   return ((size_t)b * a.V + r) * a.H * a.dh + (size_t)h * a.dh;
 }
 
-// A lane's kC vectors of a head slice (zero past the slice).
-template <int kC>
-__device__ inline void load_slice(float4 (&x)[kC], const float* row, const Group& g) {
+// A lane's kC vectors of the head slice at element `row` of an operand (zero
+// past the slice), rounded to bf16 in kMm as the products' operands are.
+template <int kC, int kMode>
+__device__ inline void load_slice(float4 (&x)[kC], const float* base, size_t row, const Group& g) {
 #pragma unroll
   for (int c = 0; c < kC; ++c) {
     const int col = g.lane + c * g.gsz;
-    x[c] = col < g.nq ? __ldg(reinterpret_cast<const float4*>(row) + col) : zero4();
+    x[c] = col < g.nq ? operand4<kMode == kMm>(load4<kMode>(base, row + 4 * (size_t)col)) : zero4();
   }
 }
 
-template <int kC>
-__device__ inline void store_slice(float* row, const float4 (&x)[kC], float s, const Group& g) {
+template <int kC, int kMode>
+__device__ inline void store_slice(float* base, size_t row, const float4 (&x)[kC], float s, const Group& g) {
 #pragma unroll
   for (int c = 0; c < kC; ++c) {
     const int col = g.lane + c * g.gsz;
-    if (col < g.nq) reinterpret_cast<float4*>(row)[col] = scale4(s, x[c]);
+    if (col < g.nq) store4<kMode>(base, row + 4 * (size_t)col, scale4(s, x[c]));
   }
 }
 
@@ -478,89 +547,132 @@ struct Pair {
   float eb;
 };
 
-template <int kC>
-__device__ inline void fetch_pair(Pair<kC>& x, const Args& a, const List& l, const float* ebh, int b,
-                                  int h, int p, const Group& g) {
+// (hb: the element of eb where bin b's head h starts.)
+template <int kC, int kMode>
+__device__ inline void fetch_pair(Pair<kC>& x, const Args& a, const List& l, size_t hb, int b, int h, int p,
+                                  const Group& g) {
   const size_t jrow = head_row(a, b, l.other[p], h);
-  load_slice(x.k, a.k + jrow, g);
-  load_slice(x.v, a.v + jrow, g);
-  x.eb = ebh != nullptr ? __ldg(ebh + l.e[p]) : 0.f;
+  load_slice<kC, kMode>(x.k, a.k, jrow, g);
+  load_slice<kC, kMode>(x.v, a.v, jrow, g);
+  x.eb = a.eb != nullptr ? edge_bias<kMode>(a, hb + l.e[p]) : 0.f;
 }
 
 // The score of the pair led by entry p (its run ending at `end`): q_i . k_j /
 // sqrt(dh) plus the bias of its edges, in ascending edge id.
-template <int kC>
-__device__ inline float pair_score(const Args& a, const List& l, const float* ebh, const float4 (&qi)[kC],
+template <int kC, int kMode>
+__device__ inline float pair_score(const Args& a, const List& l, size_t hb, const float4 (&qi)[kC],
                                    const Pair<kC>& x, int p, int end, const Group& g) {
   float bias = x.eb;
-  if (ebh != nullptr)
-    for (int t = p + 1; t < end && !l.lead[t]; ++t) bias += __ldg(ebh + l.e[t]);
+  if (a.eb != nullptr)
+    for (int t = p + 1; t < end && !l.lead[t]; ++t) bias += edge_bias<kMode>(a, hb + l.e[t]);
   return group_dot(qi, x.k, g) * a.scale + bias;
 }
 
 // The query pass of slot (i, h) over the pairs of a query pass's list l (n
-// long) in ascending src: an online softmax, its max m and sum den (floored)
-// and, rescaled when m rises, the combine (forward), or the sums of
-// exp * g_alpha, of exp * g_alpha * k_j and of exp * k_j (backward). Leaves
-// in acc the output (forward) or sum_j g_s k_j (backward), each times den;
-// with kBwd, D_i in dsum and each pair's score and g_alpha in score[e] and
-// galpha[e], e its leader edge.
-template <bool kBwd, int kC>
+// long) in ascending src. kExact: an online softmax, its max m and sum den
+// (floored) and, rescaled when m rises, the combine (forward), or the sums of
+// exp * g_alpha, of exp * g_alpha * k_j and of exp * k_j (backward); leaves
+// in acc the output (forward) or sum_j g_s k_j (backward), each times den.
+// The bf16 modes: a first pass for m and den, then the combine of the
+// rounded alpha (forward), or D_i and then sum_j g_s(bf16) k_j (backward),
+// into acc as it is (not times den). With kBwd, D_i in dsum and each pair's
+// score and g_alpha in score[e] and galpha[e], e its leader edge.
+template <bool kBwd, int kC, int kMode>
 __device__ inline void query_walk(const Args& a, const List& l, int n, int b, int i, int h, const Group& g,
                                   const float4 (&qi)[kC], const float4 (&gi)[kC], float* score,
                                   float* galpha, float4 (&acc)[kC], float& m, float& den, float& dsum) {
   constexpr int kB = kBatch<kC>;
-  const float* ebh = a.eb != nullptr ? a.eb + ((size_t)b * a.H + h) * a.E : nullptr;
+  const size_t hb = ((size_t)b * a.H + h) * a.E;
   float4 ksum[kC];
 #pragma unroll
   for (int c = 0; c < kC; ++c) acc[c] = ksum[c] = zero4();
   m = -INFINITY;
   den = 0.f;
   float tsum = 0.f;
-  const int end = lower_bound(l, n, (i + 1) * a.V);
-  for (int p = lower_bound(l, n, i * a.V); p < end;) {
-    int pos[kB];
-    Pair<kC> x[kB];
+  const int begin = lower_bound(l, n, i * a.V), end = lower_bound(l, n, (i + 1) * a.V);
+  // visit(x, p, score) for each pair of the row, p its leader entry; the
+  // reads of kB pairs issued together
+  auto walk = [&](auto&& visit) {
+    for (int p = begin; p < end;) {
+      int pos[kB];
+      Pair<kC> x[kB];
 #pragma unroll
-    for (int t = 0; t < kB; ++t) {
-      pos[t] = p;
-      if (p < end) {
-        fetch_pair(x[t], a, l, ebh, b, h, p, g);
-        p = next_leader(l, p, end);
+      for (int t = 0; t < kB; ++t) {
+        pos[t] = p;
+        if (p < end) {
+          fetch_pair<kC, kMode>(x[t], a, l, hb, b, h, p, g);
+          p = next_leader(l, p, end);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kB; ++t) {
+        if (pos[t] >= end) break;
+        visit(x[t], pos[t], pair_score<kC, kMode>(a, l, hb, qi, x[t], pos[t], end, g));
       }
     }
-#pragma unroll
-    for (int t = 0; t < kB; ++t) {
-      if (pos[t] >= end) break;
-      const float sc = pair_score(a, l, ebh, qi, x[t], pos[t], end, g);
+  };
+  if constexpr (kMode == kExact) {
+    walk([&](const Pair<kC>& x, int pos, float sc) {
       const float mx = fmaxf(m, sc), cor = expf(m - mx), w = expf(sc - mx);
       m = mx;
       den = fmaf(den, cor, w);
       if constexpr (kBwd) {
-        const float ga = group_dot(gi, x[t].v, g);
+        const float ga = group_dot(gi, x.v, g);
         tsum = fmaf(tsum, cor, w * ga);
 #pragma unroll
         for (int c = 0; c < kC; ++c) {
-          acc[c] = fma4(w * ga, x[t].k[c], scale4(cor, acc[c]));
-          ksum[c] = fma4(w, x[t].k[c], scale4(cor, ksum[c]));
+          acc[c] = fma4(w * ga, x.k[c], scale4(cor, acc[c]));
+          ksum[c] = fma4(w, x.k[c], scale4(cor, ksum[c]));
         }
         if (g.lane == 0) {
-          score[l.e[pos[t]]] = sc;
-          galpha[l.e[pos[t]]] = ga;
+          score[l.e[pos]] = sc;
+          galpha[l.e[pos]] = ga;
         }
       } else {
 #pragma unroll
-        for (int c = 0; c < kC; ++c) acc[c] = fma4(w, x[t].v[c], scale4(cor, acc[c]));
+        for (int c = 0; c < kC; ++c) acc[c] = fma4(w, x.v[c], scale4(cor, acc[c]));
       }
-    }
-  }
-  den = fmaxf(den, 1e-12f);
-  if constexpr (kBwd) {
-    // g_q = sum_j g_s k_j / sqrt(dh) with g_s = alpha g_alpha - alpha D_i:
-    // (acc - D_i ksum) / den / sqrt(dh)
-    dsum = tsum / den;
+    });
+    den = fmaxf(den, 1e-12f);
+    if constexpr (kBwd) {
+      // g_q = sum_j g_s k_j / sqrt(dh) with g_s = alpha g_alpha - alpha D_i:
+      // (acc - D_i ksum) / den / sqrt(dh)
+      dsum = tsum / den;
 #pragma unroll
-    for (int c = 0; c < kC; ++c) acc[c] = fma4(-dsum, ksum[c], acc[c]);
+      for (int c = 0; c < kC; ++c) acc[c] = fma4(-dsum, ksum[c], acc[c]);
+    }
+  } else {
+    walk([&](const Pair<kC>& x, int pos, float sc) {
+      const float mx = fmaxf(m, sc);
+      den = fmaf(den, expf(m - mx), expf(sc - mx));
+      m = mx;
+      if constexpr (kBwd) {
+        const float ga = group_dot(gi, x.v, g);
+        if (g.lane == 0) {
+          score[l.e[pos]] = sc;
+          galpha[l.e[pos]] = ga;
+        }
+      }
+    });
+    den = fmaxf(den, 1e-12f);
+    if constexpr (!kBwd) {
+      walk([&](const Pair<kC>& x, int, float sc) {
+        const float w = operand<true>(mode_alpha<kMode>(sc, m, den));
+#pragma unroll
+        for (int c = 0; c < kC; ++c) acc[c] = fma4(w, x.v[c], acc[c]);
+      });
+    } else {
+      float d = 0.f;
+      walk([&](const Pair<kC>& x, int, float sc) {
+        d = __fadd_rn(d, __fmul_rn(mode_alpha<kMode>(sc, m, den), group_dot(gi, x.v, g)));
+      });
+      dsum = d;
+      walk([&](const Pair<kC>& x, int, float sc) {
+        const float gs = mode_gs(mode_alpha<kMode>(sc, m, den), group_dot(gi, x.v, g), d);
+#pragma unroll
+        for (int c = 0; c < kC; ++c) acc[c] = fma4(gs, x.k[c], acc[c]);
+      });
+    }
   }
 }
 
@@ -573,8 +685,9 @@ struct PairValues {
 // The key pass of slot (j, h) over the pairs of a key pass's list l (n long)
 // in ascending query row: `values(p)` gives the PairValues of the pair led by
 // entry p. Writes g_v_j, g_k_j and, with eb, g_s on each of the pairs' edges
-// in g_eb.
-template <int kC, class Values>
+// in g_eb. In the bf16 modes alpha is rounded to dt, g_s to bf16, and both
+// into the products with g_i and q_i (rounded as loaded).
+template <int kC, int kMode, class Values>
 __device__ inline void key_walk(const Args& a, const List& l, int n, int b, int j, int h, const Group& g,
                                 Values values) {
   constexpr int kB = kBatch<kC>;
@@ -598,8 +711,8 @@ __device__ inline void key_walk(const Args& a, const List& l, int n, int b, int 
         mx[t] = x.max;
         den[t] = x.sum;
         ds[t] = x.dsum;
-        load_slice(gx[t], a.g + irow, g);
-        load_slice(qx[t], a.q + irow, g);
+        load_slice<kC, kMode>(gx[t], a.g, irow, g);
+        load_slice<kC, kMode>(qx[t], a.q, irow, g);
         p = next_leader(l, p, end);
       } else {
         sc[t] = -INFINITY;
@@ -611,20 +724,27 @@ __device__ inline void key_walk(const Args& a, const List& l, int n, int b, int 
     }
 #pragma unroll
     for (int t = 0; t < kB; ++t) {
-      const float al = expf(sc[t] - mx[t]) / den[t];
-      const float gs = al * ga[t] - al * ds[t];
+      float al, gs;
+      if constexpr (kMode == kExact) {
+        al = expf(sc[t] - mx[t]) / den[t];
+        gs = al * ga[t] - al * ds[t];
+      } else {
+        const float af = mode_alpha<kMode>(sc[t], mx[t], den[t]);
+        al = operand<true>(af);
+        gs = mode_gs(af, ga[t], ds[t]);
+      }
 #pragma unroll
       for (int c = 0; c < kC; ++c) {
         accv[c] = fma4(al, gx[t][c], accv[c]);
         acck[c] = fma4(gs, qx[t][c], acck[c]);
       }
       if (a.geb != nullptr && g.lane == 0 && pos[t] < end)
-        for (int e = pos[t]; e < end && (e == pos[t] || !l.lead[e]); ++e) a.geb[hb + l.e[e]] = gs;
+        for (int e = pos[t]; e < end && (e == pos[t] || !l.lead[e]); ++e) store1<kMode>(a.geb, hb + l.e[e], gs);
     }
   }
   const size_t row = head_row(a, b, j, h);
-  store_slice(a.gv + row, accv, 1.f, g);
-  store_slice(a.gk + row, acck, a.scale, g);
+  store_slice<kC, kMode>(a.gv, row, accv, 1.f, g);
+  store_slice<kC, kMode>(a.gk, row, acck, a.scale, g);
 }
 
 // Row 11's scratch, written by its query pass for its key pass: each pair's
@@ -641,7 +761,7 @@ __device__ inline Scratch carve_scratch(float* w, const Args& a) {
 
 // Rows 10 and 12 (forward: out) and row 11's query pass (g_q and the
 // scratch), a group per (query row, head).
-template <bool kBwd, int kC, int kMin = kMinBlocks<kC>>
+template <bool kBwd, int kC, int kMin, int kMode>
 __global__ void __launch_bounds__(kListThreads, kMin)
     attn_rows_kernel(const Args a, float* scratch) {
   constexpr int kStage = kBwd ? kRowsKernel : kFwdKernel;
@@ -655,21 +775,21 @@ __global__ void __launch_bounds__(kListThreads, kMin)
   const int i = min(slot, last) / a.H, h = min(slot, last) % a.H;
   const size_t hb = ((size_t)b * a.H + h) * a.E, row = head_row(a, b, i, h);
   float4 qi[kC], gi[kC], acc[kC];
-  load_slice(qi, a.q + row, g);  // in flight during the gather
-  if constexpr (kBwd) load_slice(gi, a.g + row, g);
-  float* dead = kBwd && a.geb != nullptr && first == 0 ? a.geb + (size_t)b * a.H * a.E : nullptr;
-  const int n = gather_edges<true>(a, l, b, first / a.H, last / a.H, dead, kStage);
+  load_slice<kC, kMode>(qi, a.q, row, g);  // in flight during the gather
+  if constexpr (kBwd) load_slice<kC, kMode>(gi, a.g, row, g);
+  const bool zero_dead = kBwd && a.geb != nullptr && first == 0;
+  const int n = gather_edges<true, kMode>(a, l, b, first / a.H, last / a.H, zero_dead, kStage);
   stamp(kStage, 2, false, false);
   if (slot > last) return;
   Scratch sc{};
   if constexpr (kBwd) sc = carve_scratch(scratch, a);
   float m, den, dsum;
-  query_walk<kBwd, kC>(a, l, n, b, i, h, g, qi, gi, kBwd ? sc.score + hb : nullptr,
-                       kBwd ? sc.galpha + hb : nullptr, acc, m, den, dsum);
-  if constexpr (!kBwd) {
-    store_slice(a.out + row, acc, 1.f / den, g);
+  query_walk<kBwd, kC, kMode>(a, l, n, b, i, h, g, qi, gi, kBwd ? sc.score + hb : nullptr,
+                              kBwd ? sc.galpha + hb : nullptr, acc, m, den, dsum);
+  if constexpr (!kBwd) {  // kExact's sums are times den
+    store_slice<kC, kMode>(a.out, row, acc, kMode == kExact ? 1.f / den : 1.f, g);
   } else {
-    store_slice(a.gq + row, acc, a.scale / den, g);
+    store_slice<kC, kMode>(a.gq, row, acc, kMode == kExact ? a.scale / den : a.scale, g);
     if (g.lane == 0) {
       const size_t at = ((size_t)b * a.H + h) * a.V + i;
       sc.max[at] = m;
@@ -682,7 +802,7 @@ __global__ void __launch_bounds__(kListThreads, kMin)
 
 // Row 11's key pass: g_v, g_k and g_eb, a group per (key row, head), from the
 // values its query pass left in scratch.
-template <int kC>
+template <int kC, int kMode>
 __global__ void __launch_bounds__(kListThreads, kMinBlocks<kC>)
     attn_cols_kernel(const Args a, float* scratch) {
   stamp(kColsKernel, 0, true, false);
@@ -692,13 +812,13 @@ __global__ void __launch_bounds__(kListThreads, kMinBlocks<kC>)
   const int slots = a.V * a.H, chunks = chunks_per_bin(a);
   const int b = blockIdx.x / chunks, first = blockIdx.x % chunks * g.count;
   const int last = min(first + g.count, slots) - 1, slot = first + g.index;
-  const int n = gather_edges<false>(a, l, b, first / a.H, last / a.H, nullptr, kColsKernel);
+  const int n = gather_edges<false, kMode>(a, l, b, first / a.H, last / a.H, false, kColsKernel);
   stamp(kColsKernel, 2, false, false);
   if (slot > last) return;
   const int j = slot / a.H, h = slot % a.H;
   const size_t hb = ((size_t)b * a.H + h) * a.E, hv = ((size_t)b * a.H + h) * a.V;
   const Scratch in = carve_scratch(scratch, a);
-  key_walk<kC>(a, l, n, b, j, h, g, [&](int p) {
+  key_walk<kC, kMode>(a, l, n, b, j, h, g, [&](int p) {
     const size_t at = hv + l.other[p];
     return PairValues{in.score[hb + l.e[p]], in.galpha[hb + l.e[p]], in.max[at], in.sum[at], in.dsum[at]};
   });
@@ -740,7 +860,7 @@ ClusterShape cluster_shape(const Args& a) {
 
 // Row 13: the recompute backward in one launch, a cluster per bin (see the
 // design above); block r of bin b's cluster owns rows [r * rows, ...).
-template <int kC>
+template <int kC, int kMode>
 __global__ void __launch_bounds__(kListThreads, kC == 4 ? kClusterMinBlocks4 : kMinBlocks<kC>)
     attn_cluster_kernel(const Args a, int rows) {
   stamp(kClusterKernel, 0, true, false);
@@ -763,11 +883,11 @@ __global__ void __launch_bounds__(kListThreads, kC == 4 ? kClusterMinBlocks4 : k
   {  // the first run's rows in flight during the gather
     const int s = min(first + g.index, end - 1);
     const size_t row = head_row(a, b, s / a.H, s % a.H);
-    load_slice(qi, a.q + row, g);
-    load_slice(gi, a.g + row, g);
+    load_slice<kC, kMode>(qi, a.q, row, g);
+    load_slice<kC, kMode>(gi, a.g, row, g);
   }
-  float* dead = a.geb != nullptr && rank == 0 ? a.geb + (size_t)b * a.H * a.E : nullptr;
-  const int2 n = gather_lists<true, true>(a, by_dst, by_src, b, lo, hi, dead, kClusterKernel);
+  const int2 n = gather_lists<true, true, kMode>(a, by_dst, by_src, b, lo, hi, a.geb != nullptr && rank == 0,
+                                                  kClusterKernel);
   stamp(kClusterKernel, 2, false, false);
   // phase 1, the query pass: g_q, and the values the key passes read
   for (int run = first; run < end; run += g.count) {
@@ -776,14 +896,14 @@ __global__ void __launch_bounds__(kListThreads, kC == 4 ? kClusterMinBlocks4 : k
     const int i = slot / a.H, h = slot % a.H;
     const size_t row = head_row(a, b, i, h);
     if (run != first) {
-      load_slice(qi, a.q + row, g);
-      load_slice(gi, a.g + row, g);
+      load_slice<kC, kMode>(qi, a.q, row, g);
+      load_slice<kC, kMode>(gi, a.g, row, g);
     }
     float4 acc[kC];
     float m, den, dsum;
-    query_walk<true, kC>(a, by_dst, n.x, b, i, h, g, qi, gi, score + (size_t)h * a.E,
-                         galpha + (size_t)h * a.E, acc, m, den, dsum);
-    store_slice(a.gq + row, acc, a.scale / den, g);
+    query_walk<true, kC, kMode>(a, by_dst, n.x, b, i, h, g, qi, gi, score + (size_t)h * a.E,
+                                galpha + (size_t)h * a.E, acc, m, den, dsum);
+    store_slice<kC, kMode>(a.gq, row, acc, kMode == kExact ? a.scale / den : a.scale, g);
     if (g.lane == 0) {
       const int at = (i - lo) * a.H + h;
       smax[at] = m;
@@ -801,7 +921,7 @@ __global__ void __launch_bounds__(kListThreads, kC == 4 ? kClusterMinBlocks4 : k
     const int slot = run + g.index;
     if (slot >= end) break;
     const int j = slot / a.H, h = slot % a.H;
-    key_walk<kC>(a, by_src, n.y, b, j, h, g, [&](int p) {
+    key_walk<kC, kMode>(a, by_src, n.y, b, j, h, g, [&](int p) {
       const int i = by_src.other[p], owner = i / rows;
       const size_t e = (size_t)h * a.E + by_src.e[p];
       const int at = (i - owner * rows) * a.H + h;
@@ -829,10 +949,10 @@ cudaError_t launch_list(ListKernel kernel, uint64_t& configured, const Args& a, 
   return cudaGetLastError();
 }
 
-template <int kC>
+template <int kC, int kMode>
 cudaError_t launch_cluster(const Args& a, cudaStream_t stream) {
   static uint64_t smem_configured = 0, wide_configured = 0;
-  const void* kernel = (const void*)attn_cluster_kernel<kC>;
+  const void* kernel = (const void*)attn_cluster_kernel<kC, kMode>;
   const ClusterShape c = cluster_shape(a);
   cudaError_t err = cudaSuccess;
   if (c.smem > 48 * 1024) err = allow_smem(kernel, kMaxSmem, smem_configured);
@@ -851,7 +971,7 @@ cudaError_t launch_cluster(const Args& a, cudaStream_t stream) {
   cluster[0].val.clusterDim.z = 1;
   config.attrs = cluster;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, attn_cluster_kernel<kC>, a, c.rows);
+  err = cudaLaunchKernelEx(&config, attn_cluster_kernel<kC, kMode>, a, c.rows);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -859,20 +979,22 @@ cudaError_t launch_cluster(const Args& a, cudaStream_t stream) {
 // two launches or row 13's clusters.
 enum class Launch { kFwdV1, kFwdV2, kTwoPass, kCluster };
 
-template <int kC>
+template <int kC, int kMode>
 cudaError_t run_at(const Args& a, float* scratch, Launch launch, cudaStream_t st) {
   static uint64_t fwd_configured = 0, fwd2_configured = 0, rows_configured = 0, cols_configured = 0;
   constexpr int kFwd2Min = kC == 4 ? kMinBlocks<kC> : kV2FwdMinBlocks;
   switch (launch) {
-    case Launch::kFwdV1: return launch_list(attn_rows_kernel<false, kC>, fwd_configured, a, nullptr, st);
+    case Launch::kFwdV1:
+      return launch_list(attn_rows_kernel<false, kC, kMinBlocks<kC>, kMode>, fwd_configured, a, nullptr, st);
     case Launch::kFwdV2:
-      return launch_list(attn_rows_kernel<false, kC, kFwd2Min>, fwd2_configured, a, nullptr, st);
-    case Launch::kCluster: return launch_cluster<kC>(a, st);
+      return launch_list(attn_rows_kernel<false, kC, kFwd2Min, kMode>, fwd2_configured, a, nullptr, st);
+    case Launch::kCluster: return launch_cluster<kC, kMode>(a, st);
     default: break;
   }
-  const cudaError_t err = launch_list(attn_rows_kernel<true, kC>, rows_configured, a, scratch, st);
+  const cudaError_t err =
+      launch_list(attn_rows_kernel<true, kC, kMinBlocks<kC>, kMode>, rows_configured, a, scratch, st);
   if (err != cudaSuccess) return err;
-  return launch_list(attn_cols_kernel<kC>, cols_configured, a, scratch, st);
+  return launch_list(attn_cols_kernel<kC, kMode>, cols_configured, a, scratch, st);
 }
 
 size_t smem_bytes(const Args& a, Launch launch) {
@@ -884,14 +1006,26 @@ bool bad_shape(const Args& a, Launch launch) {
          (long long)a.V * a.H > INT32_MAX || (long long)a.B * chunks_per_bin(a) > INT32_MAX;
 }
 
-cudaError_t run(const Args& a, float* scratch, Launch launch, void* stream) {
-  if (bad_shape(a, launch) || (launch == Launch::kTwoPass && scratch == nullptr)) return cudaErrorInvalidValue;
+template <int kMode>
+cudaError_t run_mode(const Args& a, float* scratch, Launch launch, cudaStream_t st) {
+  switch (vectors_per_lane(a)) {
+    case 1: return run_at<1, kMode>(a, scratch, launch, st);
+    case 2: return run_at<2, kMode>(a, scratch, launch, st);
+    default: return run_at<4, kMode>(a, scratch, launch, st);
+  }
+}
+
+// mode: kExact, kMm or kHalf (see above).
+cudaError_t run(const Args& a, float* scratch, Launch launch, int mode, void* stream) {
+  if (bad_shape(a, launch) || (launch == Launch::kTwoPass && scratch == nullptr) || mode < kExact ||
+      mode > kHalf)
+    return cudaErrorInvalidValue;
   if (a.B == 0) return cudaSuccess;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (vectors_per_lane(a)) {
-    case 1: return run_at<1>(a, scratch, launch, st);
-    case 2: return run_at<2>(a, scratch, launch, st);
-    default: return run_at<4>(a, scratch, launch, st);
+  switch (mode) {
+    case kExact: return run_mode<kExact>(a, scratch, launch, st);
+    case kMm: return run_mode<kMm>(a, scratch, launch, st);
+    default: return run_mode<kHalf>(a, scratch, launch, st);
   }
 }
 
@@ -936,9 +1070,9 @@ int dense_attention_active_clusters(int V, int E, int H, int dh) {
   a.dh = dh;
   a.vecs = kV2BwdVecs;
   const ClusterShape c = cluster_shape(a);
-  const void* kernel = vectors_per_lane(a) == 1   ? (const void*)attn_cluster_kernel<1>
-                       : vectors_per_lane(a) == 2 ? (const void*)attn_cluster_kernel<2>
-                                                  : (const void*)attn_cluster_kernel<4>;
+  const void* kernel = vectors_per_lane(a) == 1   ? (const void*)attn_cluster_kernel<1, kExact>
+                       : vectors_per_lane(a) == 2 ? (const void*)attn_cluster_kernel<2, kExact>
+                                                  : (const void*)attn_cluster_kernel<4, kExact>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   cudaLaunchConfig_t config = {};
@@ -963,17 +1097,19 @@ int dense_attention_max_dh() { return kMaxDh; }
 
 int dense_attention_max_v() { return kMaxV; }
 
-// Row 12's forward: q, k, v, out [B, V, H * dh] f32; eb [B, H, E] f32 or
-// null; src, dst [B, E] int32; emask [B, E] bytes. Device pointers of
-// contiguous arrays, the float ones 16-byte aligned; dh a multiple of 4. The
-// stream is a cudaStream_t. Returns the cudaError_t of the launch (0 on
-// success).
+// Row 12's forward: q, k, v, out [B, V, H * dh]; eb [B, H, E] or null; src,
+// dst [B, E] int32; emask [B, E] bytes. The float arrays are f32, or bf16
+// (__nv_bfloat16) with mode 2; mode 0 is exact f32, 1 f32 with bf16 operands
+// (matmul_dtype="bfloat16"), 2 bf16 in and out (see kExact, kMm, kHalf).
+// Device pointers of contiguous arrays, the float ones 16-byte aligned; dh a
+// multiple of 4. The stream is a cudaStream_t. Returns the cudaError_t of the
+// launch (0 on success).
 int dense_attention_fwd_f32(const float* q, const float* k, const float* v, const float* eb,
                             const int* src, const int* dst, const unsigned char* emask, float* out,
-                            int B, int V, int E, int H, int dh, float scale, void* stream) {
+                            int B, int V, int E, int H, int dh, float scale, int mode, void* stream) {
   const Args a{q, k, v, eb, src, dst, emask, nullptr, out, nullptr, nullptr, nullptr, nullptr,
                B, V, E, H, dh, scale, kVecs};
-  return (int)run(a, nullptr, Launch::kFwdV2, stream);
+  return (int)run(a, nullptr, Launch::kFwdV2, mode, stream);
 }
 
 // Row 13's recompute backward, one launch on clusters: g (the cotangent of
@@ -982,10 +1118,10 @@ int dense_attention_fwd_f32(const float* q, const float* k, const float* v, cons
 int dense_attention_bwd_f32(const float* q, const float* k, const float* v, const float* eb,
                             const int* src, const int* dst, const unsigned char* emask,
                             const float* g, float* gq, float* gk, float* gv, float* geb, int B,
-                            int V, int E, int H, int dh, float scale, void* stream) {
+                            int V, int E, int H, int dh, float scale, int mode, void* stream) {
   const Args a{q, k, v, eb, src, dst, emask, g, nullptr, gq, gk, gv, eb != nullptr ? geb : nullptr,
                B, V, E, H, dh, scale, kV2BwdVecs};
-  return (int)run(a, nullptr, Launch::kCluster, stream);
+  return (int)run(a, nullptr, Launch::kCluster, mode, stream);
 }
 
 // Rows 10 and 11, the same arguments as rows 12 and 13; the backward also
@@ -993,20 +1129,20 @@ int dense_attention_bwd_f32(const float* q, const float* k, const float* v, cons
 // pass for its key pass (see Scratch), and is two launches on the stream.
 int dense_attention_v1_fwd_f32(const float* q, const float* k, const float* v, const float* eb,
                                const int* src, const int* dst, const unsigned char* emask, float* out,
-                               int B, int V, int E, int H, int dh, float scale, void* stream) {
+                               int B, int V, int E, int H, int dh, float scale, int mode, void* stream) {
   const Args a{q, k, v, eb, src, dst, emask, nullptr, out, nullptr, nullptr, nullptr, nullptr,
                B, V, E, H, dh, scale, kVecs};
-  return (int)run(a, nullptr, Launch::kFwdV1, stream);
+  return (int)run(a, nullptr, Launch::kFwdV1, mode, stream);
 }
 
 int dense_attention_v1_bwd_f32(const float* q, const float* k, const float* v, const float* eb,
                                const int* src, const int* dst, const unsigned char* emask,
                                const float* g, float* gq, float* gk, float* gv, float* geb,
                                float* scratch, int B, int V, int E, int H, int dh, float scale,
-                               void* stream) {
+                               int mode, void* stream) {
   const Args a{q, k, v, eb, src, dst, emask, g, nullptr, gq, gk, gv, eb != nullptr ? geb : nullptr,
                B, V, E, H, dh, scale, kVecs};
-  return (int)run(a, scratch, Launch::kTwoPass, stream);
+  return (int)run(a, scratch, Launch::kTwoPass, mode, stream);
 }
 
 // The stage stamps of a build with kStages = 1 (see stamp): 1 if this build

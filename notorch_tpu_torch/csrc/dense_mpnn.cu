@@ -107,7 +107,11 @@
 // read once and the last layer's output written once. Each computing thread
 // owns TM rows x 4 columns (TM = 8 at E <= 128, row 1's tile; 16 at E <= 256),
 // each output one fmaf chain over ascending k as in row 1's product, and the
-// walk is row 1's, so row 7 gives row 1's bits.
+// walk is row 1's, so row 7 gives row 1's bits. Row 7b (matmul_dtype=
+// "bfloat16", the kBf16 instantiation) rounds where rows 1b and the TPU
+// kernel's _dbuf_compute round: relu(h) and W as they are staged, mW as it is
+// stored for the operator pass, and the mean's coefficients (mean_row_bf16);
+// h stays f32, so row 7b gives row 1b's bits.
 // (A cluster a bin, the slices read through distributed shared memory, was
 // the first design: the card holds 30 clusters of 4 blocks at once, so the
 // packed batch's 32 bins ran in two waves, 0.153 ms, PERF.md §6.)
@@ -569,7 +573,7 @@ __device__ inline void group_barrier(int g, int C) {
 // memory (out where layers - 1 - l is even, else scratch, so that the last
 // layer writes out); then the group's barrier. Layer 0 reads h_in, later
 // layers the other slices through L2 (ld.global.cg: written in this launch).
-template <int TM>
+template <int TM, bool kBf16>
 __global__ void __launch_bounds__(kDbufThreads, kDbufMinBlocks)
     dense_mpnn_dbuf_kernel(const float* __restrict__ h_in, float* out, float* scratch,
                            const int* __restrict__ src, const int* __restrict__ dst,
@@ -656,13 +660,13 @@ __global__ void __launch_bounds__(kDbufThreads, kDbufMinBlocks)
         for (int t = 0; t < kGroupsA; ++t) {
           const int q = li + t * kLoaders;
           float* s = stage + q % (kBK / 4) * 4 * kLdA + q / (kBK / 4);
-          s[0] = relu(ra[t].x);
-          s[kLdA] = relu(ra[t].y);
-          s[2 * kLdA] = relu(ra[t].z);
-          s[3 * kLdA] = relu(ra[t].w);
+          s[0] = operand<kBf16>(relu(ra[t].x));
+          s[kLdA] = operand<kBf16>(relu(ra[t].y));
+          s[2 * kLdA] = operand<kBf16>(relu(ra[t].z));
+          s[3 * kLdA] = operand<kBf16>(relu(ra[t].w));
         }
         float* bs = stage + kSlabA;
-        *reinterpret_cast<float4*>(bs + li / (kBN / 4) * kLdB + li % (kBN / 4) * 4) = rb;
+        *reinterpret_cast<float4*>(bs + li / (kBN / 4) * kLdB + li % (kBN / 4) * 4) = operand4<kBf16>(rb);
       };
       const bool computes = tid < kDbufCompute;
       if (!computes) {
@@ -688,7 +692,7 @@ __global__ void __launch_bounds__(kDbufThreads, kDbufMinBlocks)
           const int r = ty * TM + i;
           if (r < E)
             *reinterpret_cast<float4*>(mw + (size_t)r * kCols + tx * kTN) =
-                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+                operand4<kBf16>(make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
         }
       __syncthreads();  // this block's mW slice is in place
 
@@ -696,10 +700,16 @@ __global__ void __launch_bounds__(kDbufThreads, kDbufMinBlocks)
       const int c = tid % kCols;
       const float bc = bias[(size_t)l * d + c0 + c];
       for (int e = tid / kCols; e < E; e += kDbufThreads / kCols) {
-        int deg;
-        float sum = walk_row(adj + (size_t)e * words, words, deg,
-                             [&](int e2) { return mw[e2 * kCols + c]; });
-        if (mean) sum = sum / fmaxf((float)deg, 1.f) - mw[(e ^ 1) * kCols + c];
+        const uint32_t* row = adj + (size_t)e * words;
+        const auto x = [&](int e2) { return mw[e2 * kCols + c]; };
+        float sum;
+        if (kBf16 && mean) {
+          sum = mean_row_bf16(row, words, e, x);
+        } else {
+          int deg;
+          sum = walk_row(row, words, deg, x);
+          if (mean) sum = sum / fmaxf((float)deg, 1.f) - mw[(e ^ 1) * kCols + c];
+        }
         const float o = bc + sum;
         const float hv = residual ? hs[e * kHLd + c] + o : o;
         hs[e * kHLd + c] = hv;
@@ -711,7 +721,8 @@ __global__ void __launch_bounds__(kDbufThreads, kDbufMinBlocks)
   }
 }
 
-template <int TM>
+// (one instantiation, and so one opt-in record, per kernel)
+template <int TM, bool kBf16>
 cudaError_t dbuf_config(const void* kernel, int B, int E, int d, cudaLaunchConfig_t& config,
                         cudaLaunchAttribute& coop) {
   static uint64_t smem_configured = 0;
@@ -745,12 +756,12 @@ cudaError_t dbuf_groups(int B, int E, int d, int* groups) {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute coop;
   const cudaError_t err =
-      dbuf_config<TM>((const void*)dense_mpnn_dbuf_kernel<TM>, B, E, d, config, coop);
+      dbuf_config<TM, false>((const void*)dense_mpnn_dbuf_kernel<TM, false>, B, E, d, config, coop);
   *groups = err == cudaSuccess ? (int)config.gridDim.x / (d / kCols) : 0;
   return err;
 }
 
-template <int TM>
+template <int TM, bool kBf16>
 cudaError_t launch_dbuf(const float* h_in, float* out, float* scratch, const int* src,
                         const int* dst, const uint8_t* emask, const float* W, const float* bias,
                         int B, int E, int d, int layers, int residual, int mean,
@@ -758,10 +769,10 @@ cudaError_t launch_dbuf(const float* h_in, float* out, float* scratch, const int
   cudaLaunchConfig_t config;
   cudaLaunchAttribute coop;
   cudaError_t err =
-      dbuf_config<TM>((const void*)dense_mpnn_dbuf_kernel<TM>, B, E, d, config, coop);
+      dbuf_config<TM, kBf16>((const void*)dense_mpnn_dbuf_kernel<TM, kBf16>, B, E, d, config, coop);
   if (err != cudaSuccess) return err;
   config.stream = stream;
-  err = cudaLaunchKernelEx(&config, dense_mpnn_dbuf_kernel<TM>, h_in, out, scratch, src, dst,
+  err = cudaLaunchKernelEx(&config, dense_mpnn_dbuf_kernel<TM, kBf16>, h_in, out, scratch, src, dst,
                            emask, W, bias, B, E, d, layers, residual, mean);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
@@ -856,22 +867,21 @@ int dense_mpnn_forward(const float* h_in, float* const* outs, __nv_bfloat16* con
 // every other layer's output (layers >= 2; else unused). d / 64 <= 16; h_in,
 // out, scratch and W start 16-byte aligned. The stream is a cudaStream_t.
 // Calls on one device run one at a time (they share the bin groups'
-// barriers). Returns the cudaError_t of the launch (0 on success).
+// barriers). bf16 nonzero runs row 7b (matmul_dtype="bfloat16"). Returns
+// the cudaError_t of the launch (0 on success).
 int dense_mpnn_dbuf_forward(const float* h_in, float* out, float* scratch, const int* src,
                             const int* dst, const uint8_t* emask, const float* W,
                             const float* bias, int B, int E, int d, int layers, int residual,
-                            int mean, void* stream) {
+                            int mean, int bf16, void* stream) {
   if (bad_shape(B, E, d) || d / kCols > kDbufMaxSlices || E > dbuf_rows<16>() || layers <= 0 ||
       (layers > 1 && !scratch))
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)h_in | (uintptr_t)out | (uintptr_t)scratch | (uintptr_t)W) % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (E <= dbuf_rows<8>())
-    return (int)launch_dbuf<8>(h_in, out, scratch, src, dst, emask, W, bias, B, E, d, layers,
-                               residual, mean, s);
-  return (int)launch_dbuf<16>(h_in, out, scratch, src, dst, emask, W, bias, B, E, d, layers,
-                              residual, mean, s);
+  const auto launch = E <= dbuf_rows<8>() ? (bf16 ? launch_dbuf<8, true> : launch_dbuf<8, false>)
+                                           : (bf16 ? launch_dbuf<16, true> : launch_dbuf<16, false>);
+  return (int)launch(h_in, out, scratch, src, dst, emask, W, bias, B, E, d, layers, residual, mean, s);
 }
 
 // Row 7's widest width in 64-column slices (d <= 64 * this).

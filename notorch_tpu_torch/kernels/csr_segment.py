@@ -150,12 +150,42 @@ def _bounds(num_segments: int, dtype: torch.dtype, device: torch.device) -> torc
     return torch.arange(num_segments + 1, dtype=dtype, device=device)
 
 
+def bf16_chain_sum_reference(rows: torch.Tensor, row_ptr: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """Plain version of the row-pointer kernel's bf16 mode: ``[num_nodes,
+    d]`` bf16, each node the sum of its rows ``[row_ptr[v], row_ptr[v+1])``
+    of ``rows [E, d]`` (bf16) from zero in ascending order, the running sum
+    rounded to bf16 after every add, as XLA's scatter-add of bf16 data adds
+    (``jax.ops.segment_sum``, the gather's VJP). One vectorized step per
+    rank within a run: step ``r`` adds each node's ``r``-th row. Rows of
+    zeros are left out, since adding one changes no sum (a gradient's padding
+    rows, which would make the longest run, and so the number of steps,
+    several times longer); only the sign of a zero sum can differ."""
+    E, d = rows.shape
+    rp = row_ptr.long().clamp(0, E)
+    acc = torch.zeros(num_nodes, d, dtype=torch.bfloat16, device=rows.device)
+    pos = torch.arange(E, device=rows.device)
+    node = torch.searchsorted(rp, pos, right=True) - 1
+    live = (node >= 0) & (node < num_nodes) & rows.ne(0).any(dim=1)
+    pos, node = pos[live], node[live]
+    if pos.numel() == 0:
+        return acc
+    rank = torch.arange(pos.numel(), device=rows.device) - torch.searchsorted(node, node)
+    by_rank = torch.argsort(rank, stable=True)
+    sizes = torch.bincount(rank).tolist()
+    values = rows.to(torch.bfloat16).index_select(0, pos[by_rank])
+    for at, x in zip(node[by_rank].split(sizes), values.split(sizes)):
+        acc[at] = acc[at] + x  # a bf16 add: f32 sum of the two, rounded
+    return acc
+
+
 def segment_sum_in_order_reference(data: torch.Tensor, order: torch.Tensor, row_ptr: torch.Tensor,
                                    num_segments: int) -> torch.Tensor:
     """Plain version of :func:`segment_sum_in_order`: the row-pointer sum's
-    plain version over ``data[order]``."""
+    plain version over ``data[order]`` (:func:`bf16_chain_sum_reference` for
+    bf16 data)."""
     rows = data.index_select(0, order).reshape(order.shape[0], math.prod(data.shape[1:]))
-    return csr_segment_sum_reference(rows, row_ptr, num_segments).reshape(num_segments, *data.shape[1:])
+    plain = bf16_chain_sum_reference if data.dtype == torch.bfloat16 else csr_segment_sum_reference
+    return plain(rows, row_ptr, num_segments).reshape(num_segments, *data.shape[1:])
 
 
 # -- the kernels ------------------------------------------------------------------
@@ -185,7 +215,7 @@ def _check_for_kernel(data: torch.Tensor) -> None:
 def _lib():
     lib = build.load("csr_segment")
     lib.csr_segment_sum_packed_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.csr_segment_sum_rowptr_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.csr_segment_sum_rowptr_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.csr_segment_error_string.argtypes = [ctypes.c_int]
     lib.csr_segment_error_string.restype = ctypes.c_char_p
     lib.csr_segment_max_budget.argtypes = lib.csr_segment_max_tile.argtypes = []
@@ -323,25 +353,34 @@ def _rowptr_launch(data: torch.Tensor, row_ptr: torch.Tensor, order: torch.Tenso
                    num_nodes: int) -> torch.Tensor:
     """Row 8's kernel on the card: ``[num_nodes, d]`` sums over the rows
     ``data[order[e]]`` (``data[e]`` without an order) of ``data [rows, d]``,
-    any ``d``; counts a launch in ``csr_segment_sum.launches``."""
-    if data.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernels take float32 data, got {data.dtype}")
+    any ``d``; counts a launch in ``csr_segment_sum.launches``. bf16 data
+    takes the kernel's bf16 mode (row 8b): the rows read as f32 (exact), the
+    running sum rounded to bf16 after every add as XLA adds bf16 rows, the
+    result bf16; counted in ``csr_segment_sum.launches_bf16``."""
+    if data.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16 data, got {data.dtype}")
     if not data.is_contiguous():
         raise ValueError("data must be contiguous")
+    chain = data.dtype == torch.bfloat16
+    if chain:
+        data = data.float()
     E = data.shape[0] if order is None else order.shape[0]
     d = data.shape[1]
     out = torch.empty(num_nodes, d, dtype=data.dtype, device=data.device)
     if num_nodes == 0 or d == 0:
-        return out
+        return out.to(torch.bfloat16) if chain else out
     lib = _lib()
     args = (data.data_ptr(), row_ptr.data_ptr(), None if order is None else order.data_ptr(), out.data_ptr(),
-            E, d, num_nodes, torch.cuda.current_stream(data.device).cuda_stream)
+            E, d, num_nodes, int(chain), torch.cuda.current_stream(data.device).cuda_stream)
     if data.device.index == torch.cuda.current_device():  # the glue's every call: no device switch
         err = lib.csr_segment_sum_rowptr_f32(*args)
     else:
         with torch.cuda.device(data.device):
             err = lib.csr_segment_sum_rowptr_f32(*args)
     _raise_on(err, "csr_segment_sum", lib)
+    if chain:
+        csr_segment_sum.launches_bf16 += 1
+        return out.to(torch.bfloat16)
     csr_segment_sum.launches += 1
     return out
 
@@ -354,7 +393,7 @@ def segment_sum_in_order(data: torch.Tensor, order: torch.Tensor, row_ptr: torch
     each segment's terms are added in ascending index order from zero, as
     ``index_add_`` adds them on the CPU, so the result has its bits. On a
     CUDA device the row-pointer kernel (row 8) sums through the order, any
-    width, float32 only; CPU tensors take
+    width, float32 (or bfloat16, each add rounded: row 8b); CPU tensors take
     :func:`segment_sum_in_order_reference`. No gradient."""
     if not on_card(data):
         return segment_sum_in_order_reference(data, order, row_ptr, num_segments)
@@ -373,3 +412,4 @@ def sum_in_order(data: torch.Tensor, order: torch.Tensor, row_ptr: torch.Tensor,
 
 csr_segment_sum_packed.launches = 0
 csr_segment_sum.launches = 0
+csr_segment_sum.launches_bf16 = 0

@@ -44,20 +44,31 @@ g_v, g_eb)``, ``g_eb[b, h, e] = edge_mask[b, e] * g_s[b, h, dst e, src e]``
 with ``g_s`` the softmax's input gradient; without ``eb`` it is zeros, as
 the TPU kernel writes.
 
+Every entry also runs the JAX kernels' bf16 modes (rows 10b-13b): with
+bf16 inputs (``dt = mm = bfloat16``: a bf16 model's q, k, v and bias; the
+outputs bf16) or with ``matmul_dtype="bfloat16"`` on f32 inputs, q, k, v,
+the cotangent and each edge's bias are rounded to bf16 into the products,
+alpha is rounded to ``dt`` and then to bf16 for the value product, ``g_s``
+to bf16, and every sum and the softmax stay f32
+(:func:`dense_attention_bf16_reference` and
+:func:`dense_attention_bwd_bf16_reference` say exactly where); bf16
+tensors are read and written as bf16.
+
 The CUDA source is built by ``nvcc`` for ``sm_90a`` at first use and bound
 with ``ctypes`` (:mod:`notorch_tpu_torch.kernels.build`); its design and
 bound are described there. Tensors on the CPU take the plain versions;
 tensors on a CUDA device launch the kernels or raise — there is no
-fallback. Each wrapper counts its launches in ``<wrapper>.launches``. The
-kernels take float32, ``dh`` a multiple of 4 up to 512, up to 46,340 node
+fallback. Each wrapper counts its launches in ``<wrapper>.launches``
+(exact f32), ``launches_mm`` (``matmul_dtype="bfloat16"``) and
+``launches_bf16`` (bf16 inputs). The
+kernels take float32 or bfloat16, ``dh`` a multiple of 4 up to 512, up to 46,340 node
 slots a bin, and bins whose index fits a block's shared memory: the forwards and row 11 hold the edge
 list of a block's rows, 24 bytes a lane (up to about 9,600 lanes); row 13
 holds two such lists and each pair's values, 8 bytes a lane and head (E =
 4,096 lanes at one head fit, at four heads not); the wrappers raise, naming
 the shape, on anything else. ``interpret`` is accepted for the JAX
 signature: on CPU tensors it changes nothing, on CUDA tensors ``True``
-raises (the port has no interpret mode). ``matmul_dtype`` other than
-``None`` raises ``NotImplementedError``: the kernels are exact f32.
+raises (the port has no interpret mode).
 """
 
 from __future__ import annotations
@@ -74,6 +85,8 @@ from notorch_tpu_torch.kernels.checks import check_aligned, check_tensors, on_ca
 __all__ = [
     "FusedDenseAttentionFn",
     "attention_core",
+    "dense_attention_bf16_reference",
+    "dense_attention_bwd_bf16_reference",
     "dense_attention_bwd_reference",
     "dense_attention_reference",
     "fit_attn_tile",
@@ -83,6 +96,9 @@ __all__ = [
     "fused_dense_attention_fwd",
     "fused_dense_attention_fwd_v2",
 ]
+
+
+MATMUL_DTYPES = (None, "float32", "bfloat16")
 
 
 def fit_attn_tile(tile: int, nodes_per_bin: int, edges_per_bin: int, batch: int) -> int:
@@ -126,9 +142,11 @@ def _merge(x: torch.Tensor) -> torch.Tensor:
 
 def _scores(q, k, eb, S, Gm, H: int) -> torch.Tensor:
     """``[B, H, V, V]``: ``q k^T / sqrt(dh)`` plus the edge bias scattered
-    through ``S eb Gm``."""
+    through ``S eb Gm``, in q's dtype (the divisor too, as JAX's weakly
+    typed scalar)."""
     dh = q.shape[-1] // H
-    scores = _heads(q, H) @ _heads(k, H).transpose(-1, -2) / math.sqrt(dh)
+    root = torch.full((), math.sqrt(dh), dtype=q.dtype, device=q.device)
+    scores = _heads(q, H) @ _heads(k, H).transpose(-1, -2) / root
     if eb is not None:
         scores = scores + (S[:, None] * eb[:, :, None, :]) @ Gm[:, None]
     return scores
@@ -144,16 +162,85 @@ def _alpha(q, k, eb, src, dst, edge_mask, H: int) -> torch.Tensor:
     return ex / ex.sum(-1, keepdim=True).clamp_min(1e-12)
 
 
-def dense_attention_reference(q, k, v, eb, src, dst, edge_mask, num_heads: int) -> torch.Tensor:
+def _bf16(t: torch.Tensor | None) -> torch.Tensor | None:
+    """``t`` rounded to bf16 and held as f32: a TPU kernel's ``.astype(mm)``
+    operand."""
+    return None if t is None else t.to(torch.bfloat16).float()
+
+
+def _alpha_bf16(q, k, eb, src, dst, edge_mask, H: int) -> torch.Tensor:
+    """The bf16 kernels' softmax ([B, H, V, V], f32): ``_head_alpha`` of the
+    JAX kernels with ``mm = bfloat16``: q and k rounded into the scores'
+    product (f32 sums) times ``1 / sqrt(dh)``, each edge's bias rounded
+    before the duplicates are summed in f32, then the f32 masked softmax."""
+    dh = q.shape[-1] // H
+    S, Gm = _one_hots(src, dst, edge_mask, q.shape[1], torch.float32)
+    mask = (S @ Gm > 0)[:, None]
+    scores = _heads(_bf16(q), H) @ _heads(_bf16(k), H).transpose(-1, -2) * (1.0 / math.sqrt(dh))
+    if eb is not None:
+        scores = scores + (S[:, None] * _bf16(eb)[:, :, None, :]) @ Gm[:, None]
+    neg = torch.where(mask, scores, -1e30)
+    ex = torch.where(mask, torch.exp(neg - neg.amax(-1, keepdim=True)), 0.0)
+    return ex / ex.sum(-1, keepdim=True).clamp_min(1e-12)
+
+
+def dense_attention_bf16_reference(q, k, v, eb, src, dst, edge_mask, num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernels' bf16 modes (rows 10b
+    and 12b), ``[B, V, d]`` in q's dtype: ``alpha`` rounded to that dtype
+    (``dt``), then to bf16 with v for the value product (f32 sums), the
+    output rounded to ``dt``. With f32 inputs this is ``matmul_dtype=
+    "bfloat16"``; with bf16 ones ``dt = mm = bfloat16``."""
+    dt = q.dtype
+    alpha = _alpha_bf16(q, k, eb, src, dst, edge_mask, num_heads).to(dt)
+    return _merge(_bf16(alpha) @ _heads(_bf16(v), num_heads)).to(dt)
+
+
+def dense_attention_bwd_bf16_reference(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads: int):
+    """Plain PyTorch version of the backward kernels' bf16 modes (rows 11b
+    and 13b): ``(g_q, g_k, g_v, g_eb)`` in q's dtype (``dt``), rounded where
+    the JAX kernels round: ``g_alpha = g(bf16) . v(bf16)`` in f32, ``g_v =
+    alpha(bf16)^T g(bf16)``, ``g_s = alpha g_alpha - alpha D`` from the
+    ``dt``-rounded alpha and rounded to ``dt``, ``g_q`` and ``g_k`` the
+    products of ``g_s(bf16)`` with k and q (bf16) times ``1 / sqrt(dh)``,
+    and ``g_eb`` each live edge's ``g_s(bf16)[dst, src]``; every output
+    rounded to ``dt``."""
+    H, dt = num_heads, q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1] // H)
+    af = _alpha_bf16(q, k, eb, src, dst, edge_mask, H).to(dt).float()
+    g = _heads(_bf16(cotangent), H)
+    g_alpha = g @ _heads(_bf16(v), H).transpose(-1, -2)
+    g_v = _bf16(af).transpose(-1, -2) @ g
+    tmp = af * g_alpha
+    g_s = _bf16((tmp - af * tmp.sum(-1, keepdim=True)).to(dt))
+    g_q = g_s @ _heads(_bf16(k), H) * scale
+    g_k = g_s.transpose(-1, -2) @ _heads(_bf16(q), H) * scale
+    B, E = src.shape
+    if eb is None:
+        g_eb = torch.zeros(B, H, E, dtype=dt, device=q.device)
+    else:
+        S, Gm = _one_hots(src, dst, edge_mask, q.shape[1], torch.float32)
+        g_eb = ((S.transpose(1, 2)[:, None] @ g_s) * Gm[:, None]).sum(-1).to(dt)
+    return _merge(g_q).to(dt), _merge(g_k).to(dt), _merge(g_v).to(dt), g_eb
+
+
+def dense_attention_reference(q, k, v, eb, src, dst, edge_mask, num_heads: int,
+                              matmul_dtype=None) -> torch.Tensor:
     """Plain PyTorch version of the forward kernels (rows 10 and 12):
-    ``[B, V, d]``."""
+    ``[B, V, d]``; their bf16 modes (:func:`dense_attention_bf16_reference`)
+    for bf16 inputs or ``matmul_dtype="bfloat16"``."""
+    if _mode(q, matmul_dtype) != EXACT:
+        return dense_attention_bf16_reference(q, k, v, eb, src, dst, edge_mask, num_heads)
     return _merge(_alpha(q, k, eb, src, dst, edge_mask, num_heads) @ _heads(v, num_heads))
 
 
-def dense_attention_bwd_reference(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads: int):
+def dense_attention_bwd_reference(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads: int,
+                                  matmul_dtype=None):
     """Plain PyTorch version of the recompute backward kernels (rows 11 and
     13): ``(g_q, g_k, g_v, g_eb)``, ``g_eb`` zeros ``[B, H, E]`` without
-    ``eb``."""
+    ``eb``; their bf16 modes (:func:`dense_attention_bwd_bf16_reference`)
+    for bf16 inputs or ``matmul_dtype="bfloat16"``."""
+    if _mode(q, matmul_dtype) != EXACT:
+        return dense_attention_bwd_bf16_reference(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads)
     H = num_heads
     dh = q.shape[-1] // H
     alpha = _alpha(q, k, eb, src, dst, edge_mask, H)
@@ -177,7 +264,9 @@ def dense_attention_bwd_reference(q, k, v, eb, src, dst, edge_mask, cotangent, n
 def attention_core(q, k, v, eb, src, dst, edge_mask, num_heads: int) -> torch.Tensor:
     """The counterpart of the JAX package's ``_jnp_attention_core``, the
     forward that ``fwd_impl="jnp"`` runs in plain tensor ops on any device
-    (masked lanes at ``-inf``, a row max that is not finite taken as 0)."""
+    (masked lanes at ``-inf``, a row max that is not finite taken as 0), in
+    the inputs' dtype; ``matmul_dtype`` does not reach it, as in the JAX
+    package."""
     S, Gm = _one_hots(src, dst, edge_mask, q.shape[1], q.dtype)
     mask = (S @ Gm > 0)[:, None]
     neg = torch.where(mask, _scores(q, k, eb, S, Gm, num_heads), float("-inf"))
@@ -212,18 +301,19 @@ def _check(q, k, v, eb, src, dst, edge_mask, num_heads: int, cotangent=None) -> 
     return B, V, d, E
 
 
-def _no_matmul_dtype(matmul_dtype) -> None:
-    if matmul_dtype is not None:
-        raise NotImplementedError(
-            f"matmul_dtype={matmul_dtype!r}: the attention kernels run exact f32; lower-precision "
-            "operands come with a later PR of the port"
-        )
+def _matmul_bf16(matmul_dtype) -> bool:
+    """``matmul_dtype`` as the JAX kernels take it: ``None`` (the inputs'
+    dtype) or float32 gives False, bfloat16 True; anything else raises."""
+    name = None if matmul_dtype is None else str(matmul_dtype).removeprefix("torch.")
+    if name not in MATMUL_DTYPES:
+        raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}, got {matmul_dtype!r}")
+    return name == "bfloat16"
 
 
 @functools.cache
 def _lib():
     lib = build.load("dense_attention")
-    tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.dense_attention_fwd_f32.argtypes = [ctypes.c_void_p] * 8 + tail
     lib.dense_attention_v1_fwd_f32.argtypes = [ctypes.c_void_p] * 8 + tail
     lib.dense_attention_bwd_f32.argtypes = [ctypes.c_void_p] * 12 + tail
@@ -243,13 +333,31 @@ def _lib():
     return lib
 
 
+# the kernels' numeric modes (csrc/dense_attention.cu kExact, kMm, kHalf)
+EXACT, MATMUL_BF16, HALF = 0, 1, 2
+
+
+def _mode(q: torch.Tensor, matmul_dtype) -> int:
+    """The kernels' mode for these inputs: exact f32, f32 with bf16 operands
+    (``matmul_dtype="bfloat16"``), or bf16 in and out (bf16 inputs, whose
+    ``matmul_dtype`` must be ``None`` or bfloat16, the JAX kernels' ``mm =
+    dt``)."""
+    bf16_operands = _matmul_bf16(matmul_dtype)
+    if q.dtype == torch.bfloat16:
+        if matmul_dtype is not None and not bf16_operands:
+            raise NotImplementedError(f"bf16 inputs with matmul_dtype={matmul_dtype!r}: the kernels round bf16 "
+                                      "inputs' products in bf16 (matmul_dtype None or bfloat16)")
+        return HALF
+    return MATMUL_BF16 if bf16_operands else EXACT
+
+
 def _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads: int, cluster: bool, interpret: bool,
                      cotangent=None):
-    """The checks of a launch and its operands: float32 contiguous 16-byte
-    aligned floats, int32 ids and a byte mask on q's device. ``cluster``:
-    the launch of row 13, whose blocks hold two edge lists and each pair's
-    values for every head in shared memory; else one of the others, whose
-    blocks hold one edge list."""
+    """The checks of a launch and its operands: contiguous 16-byte aligned
+    floats, all float32 or all bfloat16, int32 ids and a byte mask on q's
+    device. ``cluster``: the launch of row 13, whose blocks hold two edge
+    lists and each pair's values for every head in shared memory; else one
+    of the others, whose blocks hold one edge list."""
     if interpret:
         raise ValueError(
             "interpret=True asks for the Pallas interpreter; the port has no interpret mode: "
@@ -275,8 +383,9 @@ def _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads: int, cluster: 
         raise ValueError(f"bins of {shape} need {need} bytes of shared memory per block; the attention "
                          f"kernels have {limit}")
     floats = [x.contiguous() for x in (q, k, v, cotangent, eb) if x is not None]
-    if any(x.dtype != torch.float32 for x in floats):
-        raise TypeError(f"the attention kernels take float32, got {[str(x.dtype) for x in floats]}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or any(x.dtype != q.dtype for x in floats):
+        raise TypeError(f"the attention kernels take float32 or bfloat16, all alike, got "
+                        f"{[str(x.dtype) for x in floats]}")
     check_aligned(**{f"operand{i}": x for i, x in enumerate(floats)})
     mask = _live(edge_mask).contiguous()
     check_tensors({"src": (src, torch.int32, (B, E)), "dst": (dst, torch.int32, (B, E)),
@@ -291,8 +400,9 @@ def _raise_on(err: int, what: str, lib) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.dense_attention_error_string(err).decode()}")
 
 
-def _forward(q, k, v, eb, src, dst, edge_mask, num_heads: int, v1: bool, interpret: bool, what: str):
-    """Row 10's launch (``v1``) or row 12's."""
+def _forward(q, k, v, eb, src, dst, edge_mask, num_heads: int, v1: bool, interpret: bool, what: str,
+             mode: int = EXACT):
+    """Row 10's launch (``v1``) or row 12's, in ``mode``."""
     lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, False, interpret)
     q, k, v = floats[:3]
     eb = floats[3] if eb is not None else None
@@ -303,7 +413,7 @@ def _forward(q, k, v, eb, src, dst, edge_mask, num_heads: int, v1: bool, interpr
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), None if eb is None else eb.data_ptr(),
             src.data_ptr(), dst.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            B, V, src.shape[1], num_heads, d // num_heads, 1.0 / math.sqrt(d // num_heads),
+            B, V, src.shape[1], num_heads, d // num_heads, 1.0 / math.sqrt(d // num_heads), mode,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(err, what, lib)
@@ -311,8 +421,9 @@ def _forward(q, k, v, eb, src, dst, edge_mask, num_heads: int, v1: bool, interpr
 
 
 def _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads: int, v1: bool, interpret: bool,
-              what: str):
-    """Row 11's two launches (``v1``) or row 13's one on clusters."""
+              what: str, mode: int = EXACT):
+    """Row 11's two launches (``v1``) or row 13's one on clusters, in
+    ``mode``."""
     lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, not v1, interpret,
                                          cotangent)
     q, k, v, g = floats[:4]
@@ -325,14 +436,22 @@ def _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads: int, v1: b
             src.data_ptr(), dst.data_ptr(), mask.data_ptr(), g.data_ptr(),
             g_q.data_ptr(), g_k.data_ptr(), g_v.data_ptr(), g_eb.data_ptr()]
     if v1:  # each pair's score and g_alpha, each row's softmax: from the query pass to the key pass
-        scratch = torch.empty(B * num_heads * (2 * E + 3 * V), dtype=q.dtype, device=q.device)
+        scratch = torch.empty(B * num_heads * (2 * E + 3 * V), dtype=torch.float32, device=q.device)
         ptrs.append(scratch.data_ptr())
     launch = lib.dense_attention_v1_bwd_f32 if v1 else lib.dense_attention_bwd_f32
     with torch.cuda.device(q.device):
-        err = launch(*ptrs, B, V, E, num_heads, d // num_heads, 1.0 / math.sqrt(d // num_heads),
+        err = launch(*ptrs, B, V, E, num_heads, d // num_heads, 1.0 / math.sqrt(d // num_heads), mode,
                      torch.cuda.current_stream().cuda_stream)
     _raise_on(err, what, lib)
     return g_q, g_k, g_v, g_eb
+
+
+def _count(wrapper, mode: int) -> None:
+    """One launch of ``wrapper`` in its count of ``mode``: ``launches``
+    (exact f32), ``launches_mm`` (``matmul_dtype="bfloat16"`` on f32
+    inputs) or ``launches_bf16`` (bf16 inputs)."""
+    name = {EXACT: "launches", MATMUL_BF16: "launches_mm", HALF: "launches_bf16"}[mode]
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 def fused_dense_attention_fwd(q, k, v, eb, src, dst, edge_mask, *, num_heads: int, bins_per_tile: int = 8,
@@ -341,12 +460,13 @@ def fused_dense_attention_fwd(q, k, v, eb, src, dst, edge_mask, *, num_heads: in
     group per (query row, head), every bin and head at once;
     ``bins_per_tile`` is kept for the signature. CPU tensors take
     :func:`dense_attention_reference`."""
-    _no_matmul_dtype(matmul_dtype)
+    mode = _mode(q, matmul_dtype)
     _check(q, k, v, eb, src, dst, edge_mask, num_heads)
     if not on_card(q):
-        return dense_attention_reference(q, k, v, eb, src, dst, edge_mask, num_heads)
-    out = _forward(q, k, v, eb, src, dst, edge_mask, num_heads, True, interpret, "fused_dense_attention_fwd")
-    fused_dense_attention_fwd.launches += 1
+        return dense_attention_reference(q, k, v, eb, src, dst, edge_mask, num_heads, matmul_dtype)
+    out = _forward(q, k, v, eb, src, dst, edge_mask, num_heads, True, interpret, "fused_dense_attention_fwd",
+                   mode)
+    _count(fused_dense_attention_fwd, mode)
     return out
 
 
@@ -358,13 +478,13 @@ def fused_dense_attention_bwd(q, k, v, eb, src, dst, edge_mask, cotangent, *, nu
     key pass, a lane group per (key row, head); ``bins_per_tile`` is kept
     for the signature. CPU tensors take
     :func:`dense_attention_bwd_reference`."""
-    _no_matmul_dtype(matmul_dtype)
+    mode = _mode(q, matmul_dtype)
     _check(q, k, v, eb, src, dst, edge_mask, num_heads, cotangent)
     if not on_card(q):
-        return dense_attention_bwd_reference(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads)
+        return dense_attention_bwd_reference(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads, matmul_dtype)
     grads = _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads, True, interpret,
-                      "fused_dense_attention_bwd")
-    fused_dense_attention_bwd.launches += 1
+                      "fused_dense_attention_bwd", mode)
+    _count(fused_dense_attention_bwd, mode)
     return grads
 
 
@@ -374,13 +494,13 @@ def fused_dense_attention_fwd_v2(q, k, v, eb, src, dst, edge_mask, *, num_heads:
     card row 10's kernel, a lane group per (query row, head), every bin and
     head at once, with row 10's bits; ``bins_per_tile`` is kept for the
     signature. CPU tensors take :func:`dense_attention_reference`."""
-    _no_matmul_dtype(matmul_dtype)
+    mode = _mode(q, matmul_dtype)
     _check(q, k, v, eb, src, dst, edge_mask, num_heads)
     if not on_card(q):
-        return dense_attention_reference(q, k, v, eb, src, dst, edge_mask, num_heads)
+        return dense_attention_reference(q, k, v, eb, src, dst, edge_mask, num_heads, matmul_dtype)
     out = _forward(q, k, v, eb, src, dst, edge_mask, num_heads, False, interpret,
-                   "fused_dense_attention_fwd_v2")
-    fused_dense_attention_fwd_v2.launches += 1
+                   "fused_dense_attention_fwd_v2", mode)
+    _count(fused_dense_attention_fwd_v2, mode)
     return out
 
 
@@ -392,13 +512,13 @@ def fused_dense_attention_bwd_v2(q, k, v, eb, src, dst, edge_mask, cotangent, *,
     a thread-block cluster per bin whose blocks meet at a cluster barrier
     between the query pass and the key pass. CPU tensors take
     :func:`dense_attention_bwd_reference`."""
-    _no_matmul_dtype(matmul_dtype)
+    mode = _mode(q, matmul_dtype)
     _check(q, k, v, eb, src, dst, edge_mask, num_heads, cotangent)
     if not on_card(q):
-        return dense_attention_bwd_reference(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads)
+        return dense_attention_bwd_reference(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads, matmul_dtype)
     grads = _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads, False, interpret,
-                      "fused_dense_attention_bwd_v2")
-    fused_dense_attention_bwd_v2.launches += 1
+                      "fused_dense_attention_bwd_v2", mode)
+    _count(fused_dense_attention_bwd_v2, mode)
     return grads
 
 
@@ -418,9 +538,10 @@ class FusedDenseAttentionFn(torch.autograd.Function):
                 interpret: bool = False, matmul_dtype: str | None = None, fwd_impl: str = "jnp"):
         if fwd_impl not in FWD_IMPLS:
             raise ValueError(f"fwd_impl must be one of {FWD_IMPLS}, got {fwd_impl!r}")
-        _no_matmul_dtype(matmul_dtype)
+        _mode(q, matmul_dtype)
         ctx.save_for_backward(q, k, v, eb, src, dst, edge_mask)
-        ctx.opts = dict(num_heads=num_heads, bins_per_tile=bins_per_tile, interpret=interpret)
+        ctx.opts = dict(num_heads=num_heads, bins_per_tile=bins_per_tile, interpret=interpret,
+                        matmul_dtype=matmul_dtype)
         if fwd_impl == "pallas":
             return fused_dense_attention_fwd_v2(q, k, v, eb, src, dst, edge_mask, **ctx.opts)
         _check(q, k, v, eb, src, dst, edge_mask, num_heads)
@@ -443,7 +564,6 @@ def fused_dense_attention(q, k, v, eb, src, dst, edge_mask, num_heads: int, bins
                                        interpret, matmul_dtype, fwd_impl)
 
 
-fused_dense_attention_fwd.launches = 0
-fused_dense_attention_bwd.launches = 0
-fused_dense_attention_fwd_v2.launches = 0
-fused_dense_attention_bwd_v2.launches = 0
+for _wrapper in (fused_dense_attention_fwd, fused_dense_attention_bwd, fused_dense_attention_fwd_v2,
+                 fused_dense_attention_bwd_v2):
+    _wrapper.launches = _wrapper.launches_mm = _wrapper.launches_bf16 = 0

@@ -404,7 +404,7 @@ def _layer_fns():
     lib = build.load("dense_mpnn")
     fwd, dbuf = lib.dense_mpnn_forward, lib.dense_mpnn_dbuf_forward
     fwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    dbuf.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    dbuf.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fwd.restype = dbuf.restype = ctypes.c_int
     lib.dense_mpnn_dbuf_groups.argtypes = [ctypes.c_int] * 3
     lib.dense_mpnn_error_string.argtypes = [ctypes.c_int]
@@ -886,6 +886,7 @@ def fused_dense_mpnn_block_dbuf(
     residual: bool = True,
     mols_per_tile: int = 8,
     reduce: str = "sum",
+    matmul_dtype=None,
 ) -> torch.Tensor:
     """:func:`fused_dense_mpnn_block`'s function in one launch, depth-fused:
     a group of blocks per bin keeps the bin's ``h`` in shared memory through
@@ -900,8 +901,11 @@ def fused_dense_mpnn_block_dbuf(
     else ``ValueError``; on the card a group of blocks holds one bin at a
     time whatever the tile, and the width may be at most 1,024.
     No module calls it, as in the JAX package.
+    ``matmul_dtype="bfloat16"`` rounds its operands where row 1b does (the
+    kernel's ``bf16`` instantiation, row 7b, with row 1b's bits).
     ``fused_dense_mpnn_block_dbuf.launches`` counts its launches, one a
-    call; CPU tensors take :func:`dense_mpnn_block_reference`.
+    call (``launches_bf16`` those of row 7b); CPU tensors take
+    :func:`dense_mpnn_block_reference`.
     """
     B = edge_hiddens.shape[0]
     tile = min(mols_per_tile, B)
@@ -911,10 +915,11 @@ def fused_dense_mpnn_block_dbuf(
             "use fused_dense_mpnn_block"
         )
     _check(edge_hiddens, src, dst, edge_mask, weights, biases, depth, reduce, n_nodes)
+    mm = operand_dtype(matmul_dtype)
     if not on_card(edge_hiddens):
         return dense_mpnn_block_reference(
             edge_hiddens, src, dst, edge_mask, weights, biases,
-            depth=depth, residual=residual, reduce=reduce,
+            depth=depth, residual=residual, reduce=reduce, matmul_dtype=mm,
         )
     _, E, d = edge_hiddens.shape
     lib, _, dbuf_fn = _layer_fns()
@@ -929,12 +934,12 @@ def fused_dense_mpnn_block_dbuf(
     with torch.cuda.device(edge_hiddens.device):
         err = dbuf_fn(edge_hiddens.data_ptr(), out.data_ptr(), _ptr(scratch), src.data_ptr(),
                       dst.data_ptr(), edge_mask.data_ptr(), weights.data_ptr(), biases.data_ptr(), B, E,
-                      d, depth, int(residual), int(reduce == "mean"),
+                      d, depth, int(residual), int(reduce == "mean"), int(mm is not None),
                       torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError("fused_dense_mpnn_block_dbuf launch failed: "
                            f"{lib.dense_mpnn_error_string(err).decode()}")
-    fused_dense_mpnn_block_dbuf.launches += 1
+    _count(fused_dense_mpnn_block_dbuf, mm, 1)
     return out
 
 
@@ -950,9 +955,7 @@ def dbuf_groups(B: int, E: int, d: int) -> dict[str, int]:
 BF16_WRAPPERS = (fused_dense_mpnn_block, fused_dense_mpnn_block_stash, fused_dense_mpnn_block_bwd_stash,
                  fused_dense_mpnn_block_bwd, fused_dense_encoder_fwd, fused_dense_encoder_bwd)
 for _wrapper in (*BF16_WRAPPERS, fused_dense_mpnn_block_dbuf):
-    _wrapper.launches = 0
-for _wrapper in BF16_WRAPPERS:
-    _wrapper.launches_bf16 = 0
+    _wrapper.launches = _wrapper.launches_bf16 = 0
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

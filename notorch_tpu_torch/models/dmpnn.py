@@ -36,7 +36,7 @@ import torch
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.model.model import Model, fill_pred_transform_keys
 from notorch_tpu_torch.nn import agg
-from notorch_tpu_torch.nn.chemprop import PARALLEL_SLICE, ChempropBlock
+from notorch_tpu_torch.nn.chemprop import BF16_KERNELS_ITEM, PARALLEL_SLICE, ChempropBlock
 from notorch_tpu_torch.nn.chemprop_dense import (
     DenseChempropBlock,
     DenseGated,
@@ -58,7 +58,7 @@ from notorch_tpu_torch.tasks import losses as L
 from notorch_tpu_torch.tasks import metrics as M
 from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
-from notorch_tpu_torch.utils import require_f32
+from notorch_tpu_torch.utils import compute_dtype, require_f32
 
 AGGREGATIONS = ("sum", "mean", "max", "gated", "sdp")
 LAYOUTS = ("dense_packed", "dense_fused", "dense", "flat")
@@ -104,9 +104,11 @@ def regression_metrics(task: str, keys: dict) -> dict:
     return {"rmse": {"fn": M.RMSE(), "in_keys": keys}, "mae": {"fn": M.MAE(), "in_keys": keys}}
 
 
-def readout(readouts: dict, aggregation: str, hidden_dim: int):
-    """The ``aggregation`` readout of ``readouts`` at width ``hidden_dim``."""
-    width = {"gated": {"input_dim": hidden_dim}, "sdp": {"key_dim": hidden_dim}}
+def readout(readouts: dict, aggregation: str, hidden_dim: int, dtype=None):
+    """The ``aggregation`` readout of ``readouts`` at width ``hidden_dim``
+    (the gated one's score layer computing in ``dtype``, as the JAX recipes
+    build it)."""
+    width = {"gated": {"input_dim": hidden_dim, "dtype": dtype}, "sdp": {"key_dim": hidden_dim}}
     return readouts[aggregation](**width.get(aggregation, {}))
 
 
@@ -179,7 +181,14 @@ def build_dmpnn(
     ``ChempropBlock(impl, reduce, remat)`` -> the ``aggregation`` readout
     -> ``MLP``, on the flat collate (with ``csr_pack`` for ``impl="csr"``).
     ``graph_axis`` and a ``partition`` other than the default raise
-    ``NotImplementedError``."""
+    ``NotImplementedError``.
+
+    ``dtype="bfloat16"`` computes the embeddings, the block, the readout
+    and the head in bf16 (f32 parameters), as the JAX modules do; ``auto``
+    then resolves to the plain ``dense`` layout. A bf16 model on a layout
+    whose block is the fused kernels (``dense_packed`` without dropout or
+    max, ``dense_fused``) or ``impl="csr"`` raises
+    ``NotImplementedError``: those kernels take f32 data."""
     if graph_axis is not None or partition != "molecule":
         raise NotImplementedError(
             f"graph_axis={graph_axis!r}, partition={partition!r}: graph-partitioned SPMD "
@@ -191,7 +200,7 @@ def build_dmpnn(
     )
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; options: {list(LAYOUTS)}")
-    require_f32(dtype, "D-MPNN")
+    dt = compute_dtype(dtype)
     if layout == "dense_fused":
         if dropout and dropout > 0.0:
             raise ValueError(
@@ -206,18 +215,21 @@ def build_dmpnn(
     num_node_types = num_node_types if num_node_types is not None else DEFAULT_NUM_ATOM_TYPES
     num_edge_types = num_edge_types if num_edge_types is not None else DEFAULT_NUM_BOND_TYPES
     if layout == "flat":
-        embed = GraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim)
+        embed = GraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim, dtype=dt)
         block = ChempropBlock(hidden_dim=hidden_dim, depth=depth, dropout=dropout, reduce=reduce,
-                              remat=remat, impl=impl)
-        head = readout(FLAT_READOUTS, aggregation, hidden_dim)
+                              remat=remat, impl=impl, dtype=dt)
+        head = readout(FLAT_READOUTS, aggregation, hidden_dim, dt)
     else:
-        embed = DenseGraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim)
+        embed = DenseGraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim, dtype=dt)
         plain = layout == "dense" or (dropout and dropout > 0.0) or reduce == "max"
         if plain:  # the fused kernels' operator is linear and has no dropout
-            block = DenseChempropBlock(hidden_dim=hidden_dim, depth=depth, dropout=dropout, reduce=reduce)
+            block = DenseChempropBlock(hidden_dim=hidden_dim, depth=depth, dropout=dropout, reduce=reduce,
+                                       dtype=dt)
         else:
+            require_f32(dtype, f"fused block (layout {layout!r})", BF16_KERNELS_ITEM)
             block = FusedDenseChempropBlock(hidden_dim=hidden_dim, depth=depth, reduce=reduce)
-        head = readout(PACKED_READOUTS if layout == "dense_packed" else DENSE_READOUTS, aggregation, hidden_dim)
+        head = readout(PACKED_READOUTS if layout == "dense_packed" else DENSE_READOUTS, aggregation, hidden_dim,
+                       dt)
 
     output_size = head_size(num_tasks, _HEAD_WIDTH.get(task, num_classes))
     modules = {
@@ -227,7 +239,7 @@ def build_dmpnn(
         "ffn": {
             "module": MLP(
                 input_dim=hidden_dim, output_size=output_size,
-                hidden_dim=hidden_dim, num_layers=ffn_layers, dropout=dropout,
+                hidden_dim=hidden_dim, num_layers=ffn_layers, dropout=dropout, dtype=dt,
             ),
             "in_keys": ["readout.H"],
             "out_keys": ["preds"],

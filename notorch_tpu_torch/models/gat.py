@@ -38,7 +38,7 @@ from notorch_tpu_torch.nn.embed import GraphEmbedding
 from notorch_tpu_torch.nn.mlp import MLP
 from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
-from notorch_tpu_torch.utils import require_f32
+from notorch_tpu_torch.utils import compute_dtype
 
 KINDS = ("gat", "graph_transformer")
 
@@ -85,21 +85,23 @@ def build_gat(
     (``mse`` for regression) and, for regression, the metrics ``rmse`` and
     ``mae`` on ``target_key``. Parameters are drawn
     from ``generator`` with flax's initializer families; the model is built
-    on the CPU. ``optimizer`` defaults to Adam at ``learning_rate``."""
-    require_f32(dtype, "attention models")
+    on the CPU. ``optimizer`` defaults to Adam at ``learning_rate``.
+    ``dtype="bfloat16"`` computes every module in bf16 (f32 parameters), as
+    the JAX recipe's modules do."""
+    dt = compute_dtype(dtype)
     if aggregation not in FLAT_READOUTS:
         raise ValueError(f"unknown aggregation {aggregation!r}; options: {sorted(FLAT_READOUTS)}")
     layout = resolve_gat_layout(layout, attention=attention)
     num_node_types = num_node_types if num_node_types is not None else DEFAULT_NUM_ATOM_TYPES
     num_edge_types = num_edge_types if num_edge_types is not None else DEFAULT_NUM_BOND_TYPES
     block_kw = dict(hidden_dim=hidden_dim, depth=depth, num_heads=num_heads, attention=attention,
-                    dropout=dropout)
+                    dropout=dropout, dtype=dt)
     if layout in ("dense", "dense_packed"):
-        embed = DenseGraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim)
+        embed = DenseGraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim, dtype=dt)
         block = DenseGATBlock(**block_kw)
         readouts = PACKED_READOUTS if layout == "dense_packed" else DENSE_READOUTS
     else:
-        embed = GraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim)
+        embed = GraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim, dtype=dt)
         block = GATBlock(**block_kw)
         readouts = FLAT_READOUTS
     output_size = head_size(num_tasks, _HEAD_WIDTH.get(task, num_classes))
@@ -108,11 +110,11 @@ def build_gat(
         modules={
             "embed": {"module": embed, "in_keys": ["inputs.G"], "out_keys": ["G"]},
             "mp": {"module": block, "in_keys": ["embed.G"], "out_keys": ["G"]},
-            "readout": {"module": readout(readouts, aggregation, hidden_dim), "in_keys": ["mp.G"],
+            "readout": {"module": readout(readouts, aggregation, hidden_dim, dt), "in_keys": ["mp.G"],
                         "out_keys": ["H"]},
             "ffn": {
                 "module": MLP(input_dim=hidden_dim, output_size=output_size,
-                              hidden_dim=hidden_dim, num_layers=ffn_layers, dropout=dropout),
+                              hidden_dim=hidden_dim, num_layers=ffn_layers, dropout=dropout, dtype=dt),
                 "in_keys": ["readout.H"],
                 "out_keys": ["preds"],
             },

@@ -20,7 +20,7 @@ from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.data.graph import BatchedGraph
 from notorch_tpu_torch.nn.chemprop import PARALLEL_SLICE
 from notorch_tpu_torch.nn.init import dense, lecun_normal_, reset_dense_
-from notorch_tpu_torch.nn.ops import segment_max, segment_softmax, segment_sum, take
+from notorch_tpu_torch.nn.ops import scalar, segment_max, segment_softmax, segment_sum, take
 
 __all__ = ["Sum", "Mean", "Max", "Gated", "SDPAttention"]
 
@@ -72,12 +72,13 @@ class Max(nn.Module):
 
 class Gated(nn.Module):
     """Learned softmax-attention pooling: ``alpha = softmax_graph(a(h))``
-    over each graph's real nodes, then ``sum alpha * h``."""
+    over each graph's real nodes, then ``sum alpha * h``; the score layer
+    ``a`` computes in ``dtype``."""
 
-    def __init__(self, input_dim: int = DEFAULT_HIDDEN_DIM, psum_axis: str | None = None):
+    def __init__(self, input_dim: int = DEFAULT_HIDDEN_DIM, psum_axis: str | None = None, dtype=None):
         _no_psum(psum_axis)
         super().__init__()
-        self.a = dense(input_dim, 1)
+        self.a = dense(input_dim, 1, dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         reset_dense_(self.a, generator)
@@ -118,6 +119,7 @@ class SDPAttention(nn.Module):
         Q = self.queries(Q, G.n_graphs, G.node_feats)
         # the trash slot gets a zero query
         q_full = torch.cat([Q, torch.zeros_like(Q[:1])])
-        scores = (take(q_full, G.node_graph) * G.node_feats).sum(-1) / math.sqrt(float(self.key_dim))
+        scores = (take(q_full, G.node_graph) * G.node_feats).sum(-1) / scalar(math.sqrt(float(self.key_dim)),
+                                                                                   G.node_feats)
         alpha = segment_softmax(scores, G.node_graph, _num_segments(G), G.node_mask)
         return _weighted_sum(alpha, G)

@@ -22,8 +22,12 @@ here it is given: ``hidden_dim`` for the layers' inputs, ``edge_dim``
 ``input_dim`` (default ``hidden_dim``) for ``in_proj``, which is also the
 width of the edge features they pass on. The blocks' ``dropout`` is one
 :class:`~notorch_tpu_torch.nn.dropout.Dropout` applied twice a layer, to
-the attention output and to the feed-forward output, as in the JAX blocks. A
-dtype other than float32 raises ``NotImplementedError``; ``interpret`` is
+the attention output and to the feed-forward output, as in the JAX blocks.
+``dtype`` (float32 or bfloat16) is every layer's compute dtype, as in the
+JAX modules: each dense layer is flax's ``Dense(dtype=...)``
+(:class:`~notorch_tpu_torch.nn.init.Dense`, f32 parameters), the one-hot
+operators, scores and softmax follow the data's dtype, and the fused core
+takes bf16 q, k, v and bias (TPU kernel rows 12b and 13b); ``interpret`` is
 accepted for the JAX signature (see
 :mod:`notorch_tpu_torch.kernels.dense_attention`).
 """
@@ -33,7 +37,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
@@ -41,7 +44,8 @@ from notorch_tpu_torch.data.dense import DenseBatchedGraph
 from notorch_tpu_torch.kernels.dense_attention import FWD_IMPLS, fused_dense_attention
 from notorch_tpu_torch.nn.dropout import Dropout
 from notorch_tpu_torch.nn.init import dense, reset_dense_
-from notorch_tpu_torch.utils import require_f32
+from notorch_tpu_torch.nn.ops import scalar
+from notorch_tpu_torch.utils import compute_dtype
 
 ATTENTIONS = ("sdp", "gatv2")
 IMPLS = ("jnp", "fused", "auto")
@@ -97,11 +101,18 @@ class LinearLayers(nn.Module):
             reset_dense_(layer, generator)
 
 
-def _node_mask(G: DenseBatchedGraph) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``S [B, V, E]``, ``Gm [B, E, V]`` and the node-node mask ``[B, 1, V, V]``."""
-    S = G.scatter_matrix(torch.float32)
-    Gm = G.gather_matrix(torch.float32)
+def _node_mask(G: DenseBatchedGraph, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``S [B, V, E]``, ``Gm [B, E, V]`` in ``dtype`` and the node-node mask
+    ``[B, 1, V, V]``."""
+    S = G.scatter_matrix(dtype)
+    Gm = G.gather_matrix(dtype)
     return S, Gm, (torch.bmm(S, Gm) > 0)[:, None]
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: ``where(x >= 0, x, slope * x)``, the slope in
+    ``x``'s dtype as JAX's weakly typed scalar is."""
+    return torch.where(x >= 0, x, scalar(negative_slope, x) * x)
 
 
 class DenseGraphSelfAttention(LinearLayers):
@@ -113,8 +124,9 @@ class DenseGraphSelfAttention(LinearLayers):
     kernel, its forward the kernel for ``fwd_impl="pallas"`` and the plain
     tensor ops for ``"jnp"``. ``impl="jnp"`` is the einsum path, with the
     edge bias scattered by ``bias_impl`` (``auto`` is ``factored_vjp``, as
-    in the JAX package); ``"auto"`` picks fused, the port running f32 only.
-    The q/k/v/o projections are ``nn.Linear`` either way."""
+    in the JAX package); ``"auto"`` picks fused at float32 and jnp below,
+    as the JAX module does. The q/k/v/o projections are dense layers in
+    ``dtype`` either way."""
 
     def __init__(
         self,
@@ -129,7 +141,6 @@ class DenseGraphSelfAttention(LinearLayers):
         dtype=None,
         edge_dim: int | None = None,
     ):
-        require_f32(dtype, "attention")
         if hidden_dim % num_heads != 0:
             raise ValueError(f"hidden_dim {hidden_dim} not divisible by num_heads {num_heads}")
         if impl not in IMPLS:
@@ -140,12 +151,14 @@ class DenseGraphSelfAttention(LinearLayers):
             raise ValueError(f"fwd_impl must be one of {FWD_IMPLS}, got {fwd_impl!r}")
         super().__init__()
         d = hidden_dim
+        self.dtype = compute_dtype(dtype)
         self.hidden_dim, self.num_heads, self.edge_bias = d, num_heads, edge_bias
-        self.bias_impl, self.impl, self.fwd_impl = bias_impl, impl, fwd_impl
+        self.bias_impl, self.fwd_impl = bias_impl, fwd_impl
+        self.impl = impl if impl != "auto" else "fused" if self.dtype == torch.float32 else "jnp"
         self.bins_per_tile, self.interpret = bins_per_tile, interpret
-        self.W_q, self.W_k, self.W_v, self.W_o = dense(d, d), dense(d, d), dense(d, d), dense(d, d)
+        self.W_q, self.W_k, self.W_v, self.W_o = (dense(d, d, dtype=dtype) for _ in range(4))
         if edge_bias:
-            self.W_bias = dense(edge_dim or d, num_heads)
+            self.W_bias = dense(edge_dim or d, num_heads, dtype=dtype)
 
     def forward(self, G: DenseBatchedGraph) -> DenseBatchedGraph:
         H = self.num_heads
@@ -153,15 +166,15 @@ class DenseGraphSelfAttention(LinearLayers):
         B, V, d = x.shape
         q, k, v = self.W_q(x), self.W_k(x), self.W_v(x)
         bias = self.edge_bias and G.edge_feats.dim() == 3
-        if self.impl != "jnp":  # fused, or auto on f32
+        if self.impl == "fused":
             eb = self.W_bias(G.edge_feats).transpose(1, 2).contiguous() if bias else None
             out = fused_dense_attention(q, k, v, eb, G.src, G.dst, G.edge_mask, H, self.bins_per_tile,
                                         self.interpret, None, self.fwd_impl)
             return G.update(node_feats=self.W_o(out))
         dh = d // H
-        S, Gm, mask = _node_mask(G)
+        S, Gm, mask = _node_mask(G, q.dtype)
         q, k, v = (t.reshape(B, V, H, dh) for t in (q, k, v))
-        scores = torch.einsum("bihd,bjhd->bhij", q, k) / math.sqrt(dh)
+        scores = torch.einsum("bihd,bjhd->bhij", q, k) / scalar(math.sqrt(dh), q)
         if bias:
             eb = self.W_bias(G.edge_feats)  # [B, E, H]
             if self.bias_impl == "two_step":
@@ -192,29 +205,28 @@ class DenseGATv2Layer(LinearLayers):
         dtype=None,
         edge_dim: int | None = None,
     ):
-        require_f32(dtype, "attention")
         if hidden_dim % num_heads != 0:
             raise ValueError(f"hidden_dim {hidden_dim} not divisible by num_heads {num_heads}")
         super().__init__()
         d = hidden_dim
         self.hidden_dim, self.num_heads = d, num_heads
         self.negative_slope, self.use_edge_feats = negative_slope, use_edge_feats
-        self.W_src, self.W_dst = dense(d, d), dense(d, d)
+        self.W_src, self.W_dst = dense(d, d, dtype=dtype), dense(d, d, dtype=dtype)
         if use_edge_feats:
-            self.W_e = dense(edge_dim or d, d)
-        self.a = dense(d // num_heads, 1)
+            self.W_e = dense(edge_dim or d, d, dtype=dtype)
+        self.a = dense(d // num_heads, 1, dtype=dtype)
 
     def forward(self, G: DenseBatchedGraph) -> DenseBatchedGraph:
         H = self.num_heads
         x = G.node_feats
         B, V, d = x.shape
         u, w = self.W_src(x), self.W_dst(x)
-        S, Gm, mask = _node_mask(G)
-        Dst = (G.dst.long()[:, :, None] == torch.arange(V, device=x.device)[None, None, :]).to(x.dtype)
+        S, Gm, mask = _node_mask(G, u.dtype)
+        Dst = (G.dst.long()[:, :, None] == torch.arange(V, device=x.device)[None, None, :]).to(u.dtype)
         z = torch.bmm(Gm, u) + torch.bmm(Dst, w)
         if self.use_edge_feats and G.edge_feats.dim() == 3:
             z = z + self.W_e(G.edge_feats)
-        z = F.leaky_relu(z.reshape(B, -1, H, d // H), self.negative_slope)
+        z = leaky_relu(z.reshape(B, -1, H, d // H), self.negative_slope)
         scores = EdgeBiasScatterFn.apply(S, self.a(z).squeeze(-1), Gm)  # [B, E, H] scattered
         alpha = MaskedSoftmaxFn.apply(scores, mask)
         out = torch.einsum("bhij,bjhd->bihd", alpha, u.reshape(B, V, H, d // H))
@@ -226,18 +238,19 @@ class AttentionStack(nn.Module):
     layer ``make_layer(i)`` + residual and a ReLU feed-forward of width
     ``ffn_mult * hidden_dim`` + residual, ``dropout`` on the layer's output
     and on the feed-forward's. The body of the dense and the flat GAT blocks,
-    whose parameters it names as the JAX blocks do."""
+    whose parameters it names as the JAX blocks do; its dense layers compute
+    in ``dtype``."""
 
     def __init__(self, hidden_dim: int, depth: int, ffn_mult: int, residual: bool, input_dim: int,
-                 make_layer, dropout: float = 0.0):
+                 make_layer, dropout: float = 0.0, dtype=None):
         super().__init__()
         d = hidden_dim
         self.depth, self.residual = depth, residual
-        self.in_proj = dense(input_dim, d)
+        self.in_proj = dense(input_dim, d, dtype=dtype)
         for i in range(depth):
             self.add_module(f"attn_{i}", make_layer(i))
-            self.add_module(f"ffn_{i}_0", dense(d, ffn_mult * d))
-            self.add_module(f"ffn_{i}_1", dense(ffn_mult * d, d))
+            self.add_module(f"ffn_{i}_0", dense(d, ffn_mult * d, dtype=dtype))
+            self.add_module(f"ffn_{i}_1", dense(ffn_mult * d, d, dtype=dtype))
         self.dropout = Dropout(dropout)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -284,18 +297,17 @@ class DenseGATBlock(AttentionStack):
         dtype=None,
         input_dim: int | None = None,
     ):
-        require_f32(dtype, "attention")
         if attention not in ATTENTIONS:
             raise ValueError(f"unknown attention {attention!r}")
         width = input_dim or hidden_dim
 
         def make_layer(i):
             if attention == "gatv2":
-                return DenseGATv2Layer(hidden_dim=hidden_dim, num_heads=num_heads, edge_dim=width)
+                return DenseGATv2Layer(hidden_dim=hidden_dim, num_heads=num_heads, dtype=dtype, edge_dim=width)
             return DenseGraphSelfAttention(
                 hidden_dim=hidden_dim, num_heads=num_heads, edge_bias=edge_bias, bias_impl=bias_impl,
                 impl=impl, bins_per_tile=bins_per_tile, interpret=interpret, fwd_impl=fwd_impl,
-                edge_dim=width,
+                dtype=dtype, edge_dim=width,
             )
 
-        super().__init__(hidden_dim, depth, ffn_mult, residual, width, make_layer, dropout)
+        super().__init__(hidden_dim, depth, ffn_mult, residual, width, make_layer, dropout, dtype)

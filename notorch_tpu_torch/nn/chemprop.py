@@ -51,13 +51,18 @@ from notorch_tpu_torch.kernels.csr_segment import csr_segment_sum_packed
 from notorch_tpu_torch.nn.dropout import Dropout
 from notorch_tpu_torch.nn.init import lecun_normal_
 from notorch_tpu_torch.nn.ops import segment_reduce, take
+from notorch_tpu_torch.utils import compute_dtype, require_f32
 
 IMPLS = ("gather", "segment", "csr")
 REDUCES = ("sum", "mean", "max", "min")
 PARALLEL_SLICE = "the parallel slice of the port (ROADMAP.md queue A, item 7)"
+# a bf16 model where a kernel of rows 1-6 or 9 would take bf16 data
+BF16_KERNELS_ITEM = "ROADMAP.md queue A item 5d (bf16 inputs on TPU kernel rows 1-6 and 9)"
 
 
-def _check_options(reduce: str, psum_axis: str | None, impl: str) -> None:
+def _check_options(reduce: str, psum_axis: str | None, impl: str, dtype=None) -> None:
+    if impl == "csr":
+        require_f32(dtype, "impl='csr' block (TPU kernel row 9)", BF16_KERNELS_ITEM)
     if psum_axis is not None:
         raise NotImplementedError(
             f"psum_axis={psum_axis!r} (edge-partitioned message passing) comes with {PARALLEL_SLICE}"
@@ -94,20 +99,22 @@ def node_reduce(messages: torch.Tensor, G: BatchedGraph, reduce: str, impl: str)
     return segment_reduce(messages, G.dst, G.num_nodes, reduce)
 
 
-def chemprop_layer(edge_hiddens, G: BatchedGraph, weight, bias, reduce: str, impl: str) -> torch.Tensor:
+def chemprop_layer(edge_hiddens, G: BatchedGraph, weight, bias, reduce: str, impl: str,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """One D-MPNN layer; ``weight`` ``[d_in, d]`` (the JAX ``[in, out]``
-    layout), ``bias`` ``[d]`` or ``None``."""
+    layout), ``bias`` ``[d]`` or ``None``; the update computes in ``dtype``
+    as flax's ``Dense`` (the product rounded, then the bias add)."""
     messages = torch.relu(edge_hiddens)
     node_messages = node_reduce(messages, G, reduce, impl)
     edge_messages = take(node_messages, G.src) - take(messages, G.rev)
-    out = edge_messages @ weight
-    return out if bias is None else out + bias
+    out = edge_messages.to(dtype) @ weight.to(dtype)
+    return out if bias is None else out + bias.to(dtype)
 
 
 class ChempropLayer(nn.Module):
     """One D-MPNN layer as a module: ``(edge_hiddens, G) -> update``, its
-    dense layer an ``nn.Linear`` named ``update`` as in the JAX layer, and
-    ``dropout`` on the update."""
+    dense layer an ``nn.Linear`` named ``update`` as in the JAX layer,
+    computing in ``dtype``, and ``dropout`` on the update."""
 
     def __init__(
         self,
@@ -117,9 +124,11 @@ class ChempropLayer(nn.Module):
         reduce: str = "sum",
         psum_axis: str | None = None,
         impl: str = "gather",
+        dtype=None,
     ):
-        _check_options(reduce, psum_axis, impl)
+        _check_options(reduce, psum_axis, impl, dtype)
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         # torch.empty: values come from reset_parameters, never the global RNG
         self.update = nn.Linear(hidden_dim, hidden_dim, bias=bias, device="meta").to_empty(device="cpu")
         self.dropout = Dropout(dropout)
@@ -133,14 +142,16 @@ class ChempropLayer(nn.Module):
 
     def forward(self, edge_hiddens: torch.Tensor, G: BatchedGraph) -> torch.Tensor:
         return self.dropout(chemprop_layer(edge_hiddens, G, self.update.weight.T, self.update.bias,
-                                           self.reduce, self.impl))
+                                           self.reduce, self.impl, self.dtype))
 
 
 class ChempropBlock(nn.Module):
     """The D-MPNN block over a flat batch: ``G -> G`` with node hiddens
     ``[V, d]`` and edge hiddens ``[E, d]``. ``remat`` recomputes each layer
     in the backward (``torch.utils.checkpoint``, non-reentrant) instead of
-    keeping its activations, as the JAX block's ``nn.remat``."""
+    keeping its activations, as the JAX block's ``nn.remat``. ``dtype`` is
+    each layer's compute dtype (float32 or, but for ``impl="csr"``,
+    bfloat16; f32 parameters)."""
 
     def __init__(
         self,
@@ -154,9 +165,11 @@ class ChempropBlock(nn.Module):
         psum_axis: str | None = None,
         impl: str = "gather",
         remat: bool = False,
+        dtype=None,
     ):
-        _check_options(reduce, psum_axis, impl)
+        _check_options(reduce, psum_axis, impl, dtype)
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         self.hidden_dim, self.depth = hidden_dim, depth
         self.residual, self.shared, self.reduce, self.impl, self.remat = residual, shared, reduce, impl, remat
         stack = () if shared else (depth,)
@@ -179,7 +192,7 @@ class ChempropBlock(nn.Module):
     def forward(self, G: BatchedGraph) -> BatchedGraph:
         edge_hiddens = take(G.node_feats, G.src) + G.edge_feats
         for layer in range(self.depth):
-            args = (edge_hiddens, G, *self._layer_params(layer), self.reduce, self.impl)
+            args = (edge_hiddens, G, *self._layer_params(layer), self.reduce, self.impl, self.dtype)
             if self.remat and torch.is_grad_enabled():
                 out = checkpoint(chemprop_layer, *args, use_reentrant=False)
             else:

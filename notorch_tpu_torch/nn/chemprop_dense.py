@@ -34,8 +34,8 @@ from notorch_tpu_torch.nn.dropout import Dropout
 from notorch_tpu_torch.nn.embed import EmbeddingBagSum
 from notorch_tpu_torch.nn.agg import Gated, SDPAttention
 from notorch_tpu_torch.nn.init import lecun_normal_
-from notorch_tpu_torch.nn.ops import segment_max, segment_softmax, segment_sum, take
-from notorch_tpu_torch.utils import require_f32
+from notorch_tpu_torch.nn.ops import scalar, segment_max, segment_softmax, segment_sum, take
+from notorch_tpu_torch.utils import compute_dtype
 
 
 class _StackedLayers(nn.Module):
@@ -87,7 +87,12 @@ class DenseChempropBlock(nn.Module):
     ``[depth, d, d]`` (``[in, out]``) and ``bias`` ``[depth, d]``, or one
     ``[d, d]`` and ``[d]`` reused ``depth`` times when ``shared``; no
     ``bias`` with ``bias=False`` (the JAX ``layer_i/update`` or
-    ``layer/update`` tree, :mod:`notorch_tpu_torch.model.convert`)."""
+    ``layer/update`` tree, :mod:`notorch_tpu_torch.model.convert`).
+
+    ``dtype=bfloat16`` runs the block in bf16 as the JAX block does: the
+    one-hot operators, the features and every product and sum in bf16 (each
+    ``bmm`` rounded once), each layer's update as flax's ``Dense``: the
+    product rounded, then the bias add; the parameters stay float32."""
 
     def __init__(
         self,
@@ -100,10 +105,10 @@ class DenseChempropBlock(nn.Module):
         shared: bool = False,
         dtype=None,
     ):
-        require_f32(dtype, "dense D-MPNN block")
         if reduce not in ("sum", "mean", "max"):
             raise NotImplementedError(f"unknown reduce {reduce!r}")
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         self.hidden_dim, self.depth = hidden_dim, depth
         self.residual, self.reduce, self.shared = residual, reduce, shared
         stack = () if shared else (depth,)
@@ -131,16 +136,17 @@ class DenseChempropBlock(nn.Module):
         return out
 
     def forward(self, G: DenseBatchedGraph) -> DenseBatchedGraph:
-        S = G.scatter_matrix(torch.float32)  # [B, V, E]
-        Gm = G.gather_matrix(torch.float32)  # [B, E, V]
-        h = torch.bmm(Gm, G.node_feats) + G.edge_feats
+        dt = self.dtype
+        S = G.scatter_matrix(dt)  # [B, V, E]
+        Gm = G.gather_matrix(dt)  # [B, E, V]
+        h = torch.bmm(Gm, G.node_feats.to(dt)) + G.edge_feats.to(dt)
         for layer in range(self.depth):
             W = self.weight if self.shared else self.weight[layer]
             b = self.bias if self.shared or self.bias is None else self.bias[layer]
             m = torch.relu(h)
             em = torch.bmm(Gm, self._node_reduce(G, S, m)) - rev_pair_swap(m)
-            out = torch.matmul(em, W)
-            out = self.dropout(out if b is None else out + b)
+            out = torch.matmul(em, W.to(dt))
+            out = self.dropout(out if b is None else out + b.to(dt))
             h = h + out if self.residual else out
         return G.update(node_feats=self._node_reduce(G, S, h), edge_feats=h)
 
@@ -261,12 +267,14 @@ class FusedDenseChempropBlock(_StackedLayers):
 
 
 class DenseGraphEmbedding(nn.Module):
-    """Type-index embedding of a dense batch's node and edge type ids."""
+    """Type-index embedding of a dense batch's node and edge type ids, in
+    ``dtype`` (f32 tables)."""
 
-    def __init__(self, num_node_types: int, num_edge_types: int, hidden_dim: int = DEFAULT_HIDDEN_DIM):
+    def __init__(self, num_node_types: int, num_edge_types: int, hidden_dim: int = DEFAULT_HIDDEN_DIM,
+                 dtype=None):
         super().__init__()
-        self.node = EmbeddingBagSum(num_node_types, hidden_dim)
-        self.edge = EmbeddingBagSum(num_edge_types, hidden_dim)
+        self.node = EmbeddingBagSum(num_node_types, hidden_dim, dtype)
+        self.edge = EmbeddingBagSum(num_edge_types, hidden_dim, dtype)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         self.node.reset_parameters(generator)
@@ -333,12 +341,11 @@ class DenseGated(Gated):
     :class:`~notorch_tpu_torch.nn.agg.Gated`."""
 
     def __init__(self, input_dim: int = DEFAULT_HIDDEN_DIM, dtype=None):
-        require_f32(dtype, "readouts")
-        super().__init__(input_dim)
+        super().__init__(input_dim, dtype=dtype)
 
     def forward(self, G: DenseBatchedGraph) -> torch.Tensor:
         alpha = _masked_node_softmax(self.a(G.node_feats).squeeze(-1), G.node_mask)
-        return (alpha[..., None] * G.node_feats).sum(dim=1)
+        return (alpha[..., None] * G.node_feats.to(alpha.dtype)).sum(dim=1)
 
 
 class DenseSDPAttention(SDPAttention):
@@ -348,7 +355,7 @@ class DenseSDPAttention(SDPAttention):
 
     def forward(self, G: DenseBatchedGraph, Q: torch.Tensor | None = None) -> torch.Tensor:
         Q = self.queries(Q, G.n_graphs, G.node_feats)
-        scores = (Q[:, None, :] * G.node_feats).sum(-1) / math.sqrt(float(self.key_dim))
+        scores = (Q[:, None, :] * G.node_feats).sum(-1) / scalar(math.sqrt(float(self.key_dim)), G.node_feats)
         alpha = _masked_node_softmax(scores, G.node_mask)
         return (alpha[..., None] * G.node_feats).sum(dim=1)
 
@@ -412,6 +419,6 @@ class PackedSDPAttention(DenseSDPAttention):
         flat, ids, M = _packed_segments(G)
         Q = self.queries(Q, M, flat)
         q_full = torch.cat([Q, torch.zeros_like(Q[:1])])  # the trash row's query
-        scores = (take(q_full, ids) * flat).sum(-1) / math.sqrt(float(self.key_dim))
+        scores = (take(q_full, ids) * flat).sum(-1) / scalar(math.sqrt(float(self.key_dim)), flat)
         alpha = segment_softmax(scores, ids, M + 1, mask=G.node_mask.reshape(-1))
         return segment_sum(alpha[:, None] * flat, ids, M + 1)[:-1]

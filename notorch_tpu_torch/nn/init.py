@@ -10,8 +10,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from notorch_tpu_torch.nn.dropout import Dropout
+from notorch_tpu_torch.utils import compute_dtype
 
 # std of a unit normal truncated to [-2, 2]; flax divides by it so that the
 # truncated draw keeps the requested variance
@@ -26,10 +28,29 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator 
     return torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
-def dense(in_features: int, out_features: int, bias: bool = True) -> torch.nn.Linear:
-    """An ``nn.Linear`` whose storage is left empty: its values come from
-    :func:`reset_dense_`, never from the global RNG."""
-    return torch.nn.Linear(in_features, out_features, bias=bias, device="meta").to_empty(device="cpu")
+class Dense(torch.nn.Linear):
+    """``nn.Linear`` computing in ``compute`` (float32 or bfloat16) as
+    flax's ``Dense(dtype=compute)`` does: the input, the kernel and the bias
+    cast to it, the product rounded to it and then the bias add; the
+    parameters stay float32 and get their gradients through the casts. At
+    float32 it is ``nn.Linear`` itself."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, compute=None, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.compute = compute_dtype(compute)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute == torch.float32 and x.dtype == torch.float32:
+            return super().forward(x)
+        dt = self.compute
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+def dense(in_features: int, out_features: int, bias: bool = True, dtype=None) -> Dense:
+    """A :class:`Dense` computing in ``dtype`` whose storage is left empty:
+    its values come from :func:`reset_dense_`, never from the global RNG."""
+    return Dense(in_features, out_features, bias=bias, compute=dtype, device="meta").to_empty(device="cpu")
 
 
 @torch.no_grad()

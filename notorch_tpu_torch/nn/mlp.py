@@ -3,7 +3,8 @@ ahead of every dense layer but the first, and an optional unflatten of the
 output (e.g. ``[t, 2]`` heads). Port of ``notorch_tpu.nn.mlp.MLP``; the
 layers are named ``dense_{i}`` as there, and the dropout is the port's
 :class:`~notorch_tpu_torch.nn.dropout.Dropout` (flax's semantics, masks from
-the module's own generator)."""
+the module's own generator). ``dtype`` is the layers' compute dtype (f32
+parameters), as the JAX ``MLP(dtype=...)``'s."""
 
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ class MLP(nn.Module):
         hidden_dim: int = DEFAULT_HIDDEN_DIM,
         num_layers: int = 1,
         dropout: float = 0.0,
+        dtype=None,
     ):
         super().__init__()
         if isinstance(output_size, int):
@@ -34,7 +36,7 @@ class MLP(nn.Module):
             output_dim, self.unflatten = prod(output_size), tuple(output_size)
         dims = [input_dim] + [hidden_dim] * num_layers + [output_dim]
         for i in range(len(dims) - 1):
-            self.add_module(f"dense_{i}", dense(dims[i], dims[i + 1]))
+            self.add_module(f"dense_{i}", dense(dims[i], dims[i + 1], dtype=dtype))
         self.n_layers = len(dims) - 1
         self.dropout = Dropout(dropout)
 

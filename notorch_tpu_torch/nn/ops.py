@@ -21,15 +21,25 @@ notorch_tpu_torch.kernels.csr_segment.segment_sum_in_order`) over the
 stable sort of the ids: each output element is one ascending chain of adds
 from zero, the CPU's order, so a sum on the card has the CPU's bits.
 ``scatter_reduce`` with ``amax``/``amin`` is exact in any order and stays.
+
+bf16 data (a model at ``dtype=bfloat16``) is summed as XLA sums it: from
+zero in ascending index order, the running sum rounded to bf16 after every
+add (``jax.ops.segment_sum`` of bf16 data, and the VJP of a bf16 gather, are
+such scatter-adds; on the CPU the JAX package's results are these bits). So
+both functions take the ordered route for bf16 on either device: row 8's
+bf16 mode on the card, its plain version
+(:func:`~notorch_tpu_torch.kernels.csr_segment.bf16_chain_sum_reference`)
+on the CPU, where ``index_add`` would round once.
 """
 
 from __future__ import annotations
 
 import torch
 
-from notorch_tpu_torch.kernels.csr_segment import sorted_segments, sum_in_order
+from notorch_tpu_torch.kernels.csr_segment import segment_sum_in_order_reference, sorted_segments, sum_in_order
 
 __all__ = [
+    "scalar",
     "take",
     "segment_sum",
     "segment_mean",
@@ -38,6 +48,14 @@ __all__ = [
     "segment_softmax",
     "segment_reduce",
 ]
+
+
+def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
+    """``value`` as a 0-dim tensor of ``like``'s dtype on its device: a
+    divisor that acts as JAX's weakly typed Python scalar does (rounded to
+    the data's dtype, bf16 included) and that the card divides by, where a
+    host scalar becomes a multiplication by its reciprocal."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def _expand(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -68,15 +86,27 @@ def _sorted(ids: torch.Tensor, key: torch.Tensor, num_segments: int) -> tuple[to
     return order, row_ptr
 
 
+def _ordered(data: torch.Tensor) -> bool:
+    """Whether sums of ``data`` take the ordered route (the card, or bf16)."""
+    return data.is_cuda or data.dtype == torch.bfloat16
+
+
+def _sum(data: torch.Tensor, order: torch.Tensor, row_ptr: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """The ordered sum: row 8 on the card, its plain version on the CPU."""
+    if data.is_cuda:
+        return sum_in_order(data, order, row_ptr, num_segments)
+    return segment_sum_in_order_reference(data, order, row_ptr, num_segments)
+
+
 class SegmentSumFn(torch.autograd.Function):
-    """The segment sum on the card: forward the row-pointer kernel over the
-    stable sort of the ids, backward the gather ``g[ids]`` (one term an
-    element, so exact in any order)."""
+    """The ordered segment sum: forward the row-pointer kernel (or its plain
+    version) over the stable sort of the ids, backward the gather ``g[ids]``
+    (one term an element, so exact in any order)."""
 
     @staticmethod
     def forward(ctx, data, ids, key, num_segments: int):
         ctx.save_for_backward(ids)
-        return sum_in_order(data, *_sorted(ids, key, num_segments), num_segments)
+        return _sum(data, *_sorted(ids, key, num_segments), num_segments)
 
     @staticmethod
     def backward(ctx, g):
@@ -85,9 +115,9 @@ class SegmentSumFn(torch.autograd.Function):
 
 
 class TakeFn(torch.autograd.Function):
-    """The gather on the card: forward ``index_select``, backward the
-    row-pointer kernel's segment sum of the gradient over the ids, through
-    the sort order taken in the forward."""
+    """The ordered gather: forward ``index_select``, backward the
+    row-pointer kernel's segment sum (or its plain version) of the gradient
+    over the ids, through the sort order taken in the forward."""
 
     @staticmethod
     def forward(ctx, x, ids, key):
@@ -98,28 +128,29 @@ class TakeFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         order, row_ptr = ctx.saved_tensors
-        return sum_in_order(g, order, row_ptr, row_ptr.shape[0] - 1), None, None
+        return _sum(g.contiguous(), order, row_ptr, row_ptr.shape[0] - 1), None, None
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """``out[s] = sum of data[i]`` over ``segment_ids[i] == s``, in ascending
-    ``i``: ``index_add`` on the CPU, :class:`SegmentSumFn` (row 8, float32
-    only) on a CUDA device."""
+    ``i``: ``index_add`` on the CPU, :class:`SegmentSumFn` (row 8) on a CUDA
+    device; bf16 data the ordered bf16 chain on either (see the module
+    docstring)."""
     ids = segment_ids.long()
-    if data.is_cuda:
+    if _ordered(data):
         if torch.is_grad_enabled() and data.requires_grad:
             return SegmentSumFn.apply(data, ids, segment_ids, num_segments)
-        return sum_in_order(data, *_sorted(ids, segment_ids, num_segments), num_segments)
+        return _sum(data, *_sorted(ids, segment_ids, num_segments), num_segments)
     return data.new_zeros((num_segments,) + tuple(data.shape[1:])).index_add(0, ids, data)
 
 
 def take(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``x[ids]`` along the leading axis: ``[N, ...]`` x ``ids [...]`` ->
     ``[*ids.shape, ...]``. ``index_select``; its backward sums each row's
-    terms in ascending order (on a CUDA device, where a gradient is taken,
-    through :class:`TakeFn`)."""
+    terms in ascending order (on a CUDA device or for bf16, where a
+    gradient is taken, through :class:`TakeFn`)."""
     flat = ids.reshape(-1).long()
-    if x.is_cuda and torch.is_grad_enabled() and x.requires_grad:
+    if _ordered(x) and torch.is_grad_enabled() and x.requires_grad:
         out = TakeFn.apply(x, flat, ids)
     else:
         out = x.index_select(0, flat)

@@ -38,7 +38,7 @@ from notorch_tpu_torch.nn.init import dense, reset_module_
 from notorch_tpu_torch.nn.ops import segment_mean, segment_sum, take
 from notorch_tpu_torch.nn.rbf import RBFEmbedding
 from notorch_tpu_torch.nn.spatial.neighbors import radius_neighbors
-from notorch_tpu_torch.utils import require_f32
+from notorch_tpu_torch.utils import SPATIAL_DTYPE_ITEM, require_f32
 
 EPS = 1e-8
 IMPLS = ("auto", "fused", "jnp")
@@ -193,7 +193,7 @@ class GvpConv(nn.Module):
                  num_bases: int = 16, num_message_gvps: int = 3, dropout: float = 0.0, dtype=None,
                  neighbor_window: int | None = None, impl: str = "auto"):
         super().__init__()
-        require_f32(dtype, "GVP stack")
+        require_f32(dtype, "GVP stack", SPATIAL_DTYPE_ITEM)
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.scalar_dim, self.vector_dim = scalar_dim, vector_dim

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from notorch_tpu_torch.nn.init import dense, reset_module_
-from notorch_tpu_torch.utils import require_f32
+from notorch_tpu_torch.utils import SPATIAL_DTYPE_ITEM, require_f32
 
 EPS = 1e-8
 
@@ -29,7 +29,7 @@ class GatedEquivariantBlock(nn.Module):
     def __init__(self, scalar_dim: int, vector_dim: int, act: Callable = F.silu, dtype=None,
                  in_scalar: int | None = None, in_vector: int | None = None):
         super().__init__()
-        require_f32(dtype, "gated equivariant block")
+        require_f32(dtype, "gated equivariant block", SPATIAL_DTYPE_ITEM)
         self.scalar_dim, self.vector_dim, self.act = scalar_dim, vector_dim, act
         in_v = in_vector or vector_dim
         self.W_1 = dense(in_v, vector_dim, bias=False)

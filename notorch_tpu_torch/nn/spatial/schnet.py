@@ -31,7 +31,7 @@ from notorch_tpu_torch.nn.init import dense, reset_module_
 from notorch_tpu_torch.nn.ops import take
 from notorch_tpu_torch.nn.rbf import RBFEmbedding
 from notorch_tpu_torch.nn.spatial.neighbors import radius_neighbors
-from notorch_tpu_torch.utils import require_f32
+from notorch_tpu_torch.utils import SPATIAL_DTYPE_ITEM, require_f32
 
 
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
@@ -52,7 +52,7 @@ class ContinuousFilterConvolution(nn.Module):
                  num_bases: int = 16, act: Callable = shifted_softplus, dtype=None,
                  neighbor_window: int | None = None):
         super().__init__()
-        require_f32(dtype, "SchNet stack")
+        require_f32(dtype, "SchNet stack", SPATIAL_DTYPE_ITEM)
         self.radius, self.max_neighbors, self.neighbor_window = radius, max_neighbors, neighbor_window
         self.act = act
         self.rbf = RBFEmbedding(0.0, radius, num_bases)

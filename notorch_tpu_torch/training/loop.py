@@ -217,7 +217,7 @@ def evaluate(model: Model, loader, host_metrics: Mapping[str, Mapping] | None = 
         for key in needed:
             accum.setdefault(key, []).append(out[key])
     results = {k: float(v) / max(float(weights.get(k, n)), 1e-9) for k, v in sums.items()}
-    arrays = {k: np.concatenate([x.cpu().numpy() for x in v]) for k, v in accum.items()}
+    arrays = {k: np.concatenate([host_array(x) for x in v]) for k, v in accum.items()}
     for name, cfg in (host_metrics or {}).items():
         ks = cfg["in_keys"]
         if isinstance(ks, Mapping):
@@ -225,6 +225,13 @@ def evaluate(model: Model, loader, host_metrics: Mapping[str, Mapping] | None = 
         else:
             results[f"val/{name}"] = float(cfg["fn"](*(arrays[key] for key in ks)))
     return results
+
+
+def host_array(x: torch.Tensor) -> np.ndarray:
+    """``x`` on the host as numpy; a bf16 tensor (a bf16 model's untransformed
+    outputs) as float32, which holds its values exactly."""
+    x = x.detach().cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
 def predict(model: Model, loader, keys: list[str] | None = None) -> dict[str, np.ndarray]:
@@ -240,4 +247,4 @@ def predict(model: Model, loader, keys: list[str] | None = None) -> dict[str, np
                 continue
             if isinstance(v, torch.Tensor):
                 accum.setdefault(k, []).append(v)
-    return {k: np.concatenate([x.cpu().numpy() for x in v]) for k, v in accum.items()}
+    return {k: np.concatenate([host_array(x) for x in v]) for k, v in accum.items()}

@@ -18,8 +18,29 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
     return device
 
 
-def require_f32(dtype, what: str) -> None:
-    """Refuse a dtype other than float32 (``None`` is the default, float32):
-    the port runs ``what`` in float32 only."""
-    if dtype is not None and str(dtype).removeprefix("torch.") != "float32":
-        raise NotImplementedError(f"dtype={dtype!r}: the port's {what} runs in float32")
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(dtype) -> torch.dtype:
+    """The dtype a module computes in, from its ``dtype`` argument as the
+    JAX modules take it (``None`` is float32; a name or a torch dtype):
+    float32 or bfloat16. The parameters stay float32 either way, as flax's
+    ``param_dtype``; anything else raises ``ValueError``."""
+    if dtype is None:
+        return torch.float32
+    name = str(dtype).removeprefix("torch.")
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"dtype must be one of {sorted(COMPUTE_DTYPES)}, got {dtype!r}")
+    return COMPUTE_DTYPES[name]
+
+
+# the ROADMAP item of a spatial stack below float32 (no kernel on that path)
+SPATIAL_DTYPE_ITEM = "ROADMAP.md queue A item 5c (the spatial stacks at dtype)"
+
+
+def require_f32(dtype, what: str, item: str) -> None:
+    """Refuse a dtype other than float32 (``None`` is the default, float32)
+    where the port runs ``what`` in float32 only; ``item`` names the
+    ROADMAP queue item that brings the rest."""
+    if compute_dtype(dtype) != torch.float32:
+        raise NotImplementedError(f"dtype={dtype!r}: the port's {what} runs in float32 until {item}")

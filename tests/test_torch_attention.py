@@ -194,8 +194,8 @@ def test_core_refusals(case):
     args = core_args(case, True, "torch")
     with pytest.raises(ValueError, match="fwd_impl"):
         attn.fused_dense_attention(*args, H, fwd_impl="xla")
-    with pytest.raises(NotImplementedError, match="matmul_dtype"):
-        attn.fused_dense_attention_fwd(*args, num_heads=H, matmul_dtype="bfloat16")
+    with pytest.raises(ValueError, match="matmul_dtype"):  # bfloat16 is ported (rows 10b-13b)
+        attn.fused_dense_attention_fwd(*args, num_heads=H, matmul_dtype="float16")
     with pytest.raises(ValueError, match="divisible"):
         attn.fused_dense_attention_fwd_v2(*args, num_heads=3)
     with pytest.raises(ValueError, match="eb"):
@@ -374,8 +374,8 @@ def test_attention_params_round_trip(case, flat_batch, spec):
 
 def test_module_refusals():
     assert dense_attn.DenseGATBlock(hidden_dim=D, dropout=0.1).dropout.rate == 0.1  # dropout is ported
-    with pytest.raises(NotImplementedError, match="float32"):
-        flat.GATBlock(hidden_dim=D, dtype="bfloat16")
+    with pytest.raises(ValueError, match="dtype"):  # bfloat16 is ported
+        flat.GATBlock(hidden_dim=D, dtype="float16")
     with pytest.raises(ValueError, match="attention"):
         dense_attn.DenseGATBlock(hidden_dim=D, attention="linear")
     with pytest.raises(ValueError, match="bias_impl"):

@@ -208,8 +208,8 @@ def test_build_gat_refusals():
         gat.build_gat(hidden_dim=8, impl="csr")  # no such argument, as in the JAX package
     model = gat.build_gat(hidden_dim=8, dropout=0.1)  # dropout is ported: the block's and the FFN's
     assert model.network["mp"].dropout.rate == 0.1 and model.network["ffn"].dropout.rate == 0.1
-    with pytest.raises(NotImplementedError, match="float32"):
-        gat.build_gat(hidden_dim=8, dtype="bfloat16")
+    with pytest.raises(ValueError, match="dtype"):  # bfloat16 is ported
+        gat.build_gat(hidden_dim=8, dtype="float16")
     with pytest.raises(ValueError, match="unknown task"):
         gat.build_gat(hidden_dim=8, task="ranking")
     with pytest.raises(ValueError, match="aggregation"):

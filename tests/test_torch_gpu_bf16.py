@@ -1,0 +1,212 @@
+"""The kernels' bf16 modes against their plain versions, on the card: the
+attention core's rows 10b-13b with bf16 inputs (a bf16 model's path) and
+with ``matmul_dtype="bfloat16"`` on f32 inputs, the depth-fused D-MPNN
+forward's row 7b, row 8b (the ordered bf16 segment sum of the glue), and the
+bf16 graph-transformer block card against CPU. Skips where there is no CUDA
+device; imports no JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu_bf16.py -q
+
+Tolerances: the kernels and their plain versions round the same operands at
+the same points and sum in f32 in other orders, so an f32 ulp of a sum can
+flip the next bf16 rounding (2^-8 relative): each tensor is held
+elementwise within BF16_ELEMENT_TOL of its largest magnitude and in
+relative L2 within BF16_L2_TOL, as rows 1b-6b are (``chip_smoke.py``). Row
+8b adds each segment's terms in the CPU plain version's order with the same
+roundings: bit for bit. Every kernel is called twice for the same bits.
+The bf16 graph-transformer block, card against CPU, adds the dense layers
+(cuBLAS against the CPU's bf16 products) and two layers for a flipped
+rounding to grow through: its output and gradients held at BLOCK_ELEMENT_TOL
+and BLOCK_L2_TOL (measured at hidden 64, depth 2, on an H100 80GB HBM3 at
+700 W: 4.9e-3 of a tensor's largest magnitude and 2.48e-3 in relative L2 at
+most), the biases whose gradient is zero in exact arithmetic (ZERO_GRADS: a
+shift along a softmax row moves nothing) at the scale of the largest
+gradient.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from notorch_tpu_torch.kernels.csr_segment import bf16_chain_sum_reference, csr_segment_sum
+from notorch_tpu_torch.kernels.dense_attention import (
+    dense_attention_bwd_reference,
+    dense_attention_reference,
+    fused_dense_attention_bwd,
+    fused_dense_attention_bwd_v2,
+    fused_dense_attention_fwd,
+    fused_dense_attention_fwd_v2,
+)
+from notorch_tpu_torch.kernels.dense_mpnn import (
+    dense_mpnn_block_reference,
+    fused_dense_mpnn_block,
+    fused_dense_mpnn_block_dbuf,
+)
+from notorch_tpu_torch.nn.attention_dense import DenseGATBlock
+
+from .test_torch_gpu import _dbuf_case, _glue_case, attention_case
+
+BF16_ELEMENT_TOL, BF16_L2_TOL = 1e-2, 1e-3
+BLOCK_ELEMENT_TOL, BLOCK_L2_TOL = 2e-2, 8e-3
+ZERO_GRADS = ("W_k.bias", "W_bias.bias")
+ENTRIES = ((fused_dense_attention_fwd, fused_dense_attention_bwd),
+           (fused_dense_attention_fwd_v2, fused_dense_attention_bwd_v2))
+
+
+def needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+
+def held(got: torch.Tensor, ref: torch.Tensor, what: str, element_tol: float = BF16_ELEMENT_TOL,
+         l2_tol: float = BF16_L2_TOL) -> None:
+    got, ref = got.float(), ref.float()
+    assert bool(torch.isfinite(got).all()), what
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    l2 = float(torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref).clamp_min(1e-30))
+    assert err <= element_tol * scale and l2 <= l2_tol, (what, err, scale, l2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["packed", "dense", "random", "hub", "odd47"])
+@pytest.mark.parametrize("edge_bias", [True, False])
+@pytest.mark.parametrize("mode", ["bf16_inputs", "matmul_dtype"])
+@pytest.mark.parametrize("d, H", [(256, 4), (16, 2)])
+def test_cuda_bf16_attention_kernels_match_plain_versions(kind, edge_bias, mode, d, H):
+    """Rows 10b-13b: the four entries in either bf16 mode against the plain
+    versions on every lane, outputs in the inputs' dtype; rows with no live
+    pair are zero in the output and in g_q, key rows with none in g_k and
+    g_v; each backward twice bit for bit; each launch counted in its mode's
+    count."""
+    needs_card()
+    case = attention_case(kind, d, H, edge_bias)
+    q, k, v, eb, src, dst, mask, g = case
+    if mode == "bf16_inputs":
+        q, k, v, eb, g = (None if x is None else x.bfloat16() for x in (q, k, v, eb, g))
+        kw, count = {}, "launches_bf16"
+    else:
+        kw, count = {"matmul_dtype": "bfloat16"}, "launches_mm"
+    ref = dense_attention_reference(q, k, v, eb, src, dst, mask, H, **kw)
+    ref_grads = dense_attention_bwd_reference(q, k, v, eb, src, dst, mask, g, H, **kw)
+    live = (ref != 0).any(-1) | (dense_attention_reference(torch.ones_like(q), k, v, eb, src, dst, mask, H) != 0).any(-1)
+    keyed = (dense_attention_bwd_reference(q.float(), k.float(), v.float(), None, src, dst, mask,
+                                           torch.ones_like(g).float(), H)[2] != 0).any(-1)
+    for fwd, bwd in ENTRIES:
+        before = (getattr(fwd, count), getattr(bwd, count))
+        out = fwd(q, k, v, eb, src, dst, mask, num_heads=H, **kw)
+        first = bwd(q, k, v, eb, src, dst, mask, g, num_heads=H, **kw)
+        second = bwd(q, k, v, eb, src, dst, mask, g, num_heads=H, **kw)
+        again = fwd(q, k, v, eb, src, dst, mask, num_heads=H, **kw)
+        torch.cuda.synchronize()
+        assert (getattr(fwd, count) - before[0], getattr(bwd, count) - before[1]) == (2, 2)
+        assert out.dtype == q.dtype and all(x.dtype == q.dtype for x in first)
+        held(out, ref, f"{fwd.__name__} output")
+        for name, x, r in zip(("g_q", "g_k", "g_v", "g_eb"), first, ref_grads):
+            if name != "g_eb" or edge_bias:
+                held(x, r, f"{bwd.__name__} {name}")
+        if not edge_bias:
+            assert not first[3].any()
+        assert torch.equal(out, again) and all(torch.equal(a, b) for a, b in zip(first, second))
+        assert not out[~live].any() and not first[0][~live].any()
+        assert not first[1][~keyed].any() and not first[2][~keyed].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E", [128, 256])
+@pytest.mark.parametrize("reduce", ["sum", "mean"])
+def test_cuda_dbuf_bf16_matches_plain_version_and_row_1b(E, reduce):
+    """Row 7b against its plain version and against row 1b's kernel, bit for
+    bit (the same roundings, the same FMAs in the same order); one launch a
+    call, counted in ``launches_bf16``; after row 7's f32 instantiation in
+    the same process (each instantiation opts in to its shared memory)."""
+    needs_card()
+    args, n_nodes = _dbuf_case(E, 32)
+    kw = dict(depth=3, n_nodes=n_nodes, residual=True, reduce=reduce, matmul_dtype="bfloat16")
+    fused_dense_mpnn_block_dbuf(*args, mols_per_tile=8, **{**kw, "matmul_dtype": None})
+    before = fused_dense_mpnn_block_dbuf.launches_bf16
+    out = fused_dense_mpnn_block_dbuf(*args, mols_per_tile=8, **kw)
+    again = fused_dense_mpnn_block_dbuf(*args, mols_per_tile=8, **kw)
+    row1b = fused_dense_mpnn_block(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_dense_mpnn_block_dbuf.launches_bf16 == before + 2
+    held(out, dense_mpnn_block_reference(*args, depth=3, residual=True, reduce=reduce, matmul_dtype="bfloat16"),
+         "row 7b")
+    assert torch.equal(out, row1b), f"row 7b differs from row 1b by {float((out - row1b).abs().max())}"
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["empty_segment", "no_rows", "hub"])
+@pytest.mark.parametrize("d", [1, 3, 4, 96, 256])
+def test_cuda_bf16_segment_sum_and_take_give_the_cpu_bits(case, d):
+    """Row 8b through ``ops.segment_sum`` and ``ops.take``'s backward on bf16
+    data: one launch each (``launches_bf16``), the bits of the CPU's ordered
+    bf16 chain, twice the same."""
+    needs_card()
+    from notorch_tpu_torch.nn import ops
+
+    data, ids, V = _glue_case(case, d)
+    data = data.bfloat16()
+    before = csr_segment_sum.launches_bf16
+    out, again = ops.segment_sum(data, ids, V), ops.segment_sum(data, ids, V)
+    torch.cuda.synchronize()
+    assert csr_segment_sum.launches_bf16 == before + 2 and out.dtype == torch.bfloat16
+    assert torch.equal(out, again)
+    assert torch.equal(out.cpu(), ops.segment_sum(data.cpu(), ids.cpu(), V))
+    table = torch.randn((V,) + tuple(data.shape[1:]), device="cuda").requires_grad_()
+    grads = []
+    for device in ("cuda", "cuda", "cpu"):
+        leaf = table.detach().to(device).requires_grad_()
+        ops.take(leaf.bfloat16(), ids.to(device)).backward(data.to(device))
+        grads.append(leaf.grad.cpu())
+    assert csr_segment_sum.launches_bf16 == before + 4
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[0], grads[2])
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_chain_sum_reference_is_the_kernel():
+    """Row 8b's plain version on the card's own rows: the kernel's bits."""
+    needs_card()
+    data, ids, V = _glue_case("hub", 64, seed=3)
+    order = torch.sort(ids, stable=True)[1]
+    rows = data.bfloat16().index_select(0, order)
+    row_ptr = torch.searchsorted(ids[order], torch.arange(V + 1, device="cuda"), out_int32=True)
+    from notorch_tpu_torch.kernels.csr_segment import segment_sum_in_order
+
+    got = segment_sum_in_order(data.bfloat16(), order, row_ptr, V)
+    assert torch.equal(got.cpu(), bf16_chain_sum_reference(rows.cpu(), row_ptr.cpu(), V))
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_graph_transformer_block_matches_cpu():
+    """DenseGATBlock(impl: fused, fwd_impl: pallas, dtype: bfloat16) on the
+    card (rows 12b-13b) against the same block on the CPU: output and every
+    parameter gradient at the block's hold."""
+    needs_card()
+    from notorch_tpu_torch.data.dense import pad_graphs_dense
+    from .test_torch_gpu import PIPE, SMIS
+
+    G = pad_graphs_dense([PIPE(s) for s in SMIS], 48, 128)
+    rng = np.random.default_rng(4)
+    B, V = G.node_mask.shape
+    nf = torch.from_numpy(rng.standard_normal((B, V, 64)).astype(np.float32))
+    ef = torch.from_numpy(rng.standard_normal((B, G.src.shape[1], 64)).astype(np.float32))
+    results = []
+    for device in ("cpu", "cuda"):
+        torch.manual_seed(0)
+        block = DenseGATBlock(hidden_dim=64, depth=2, num_heads=4, impl="fused", fwd_impl="pallas",
+                              dtype="bfloat16")
+        block.reset_parameters(torch.Generator().manual_seed(0))
+        block.to(device)
+        Gd = G.to(device).update(node_feats=nf.to(device).bfloat16(), edge_feats=ef.to(device).bfloat16())
+        out = block(Gd).node_feats
+        out.float().square().sum().backward()
+        results.append({"output": out.detach().cpu(), **{n: p.grad.cpu() for n, p in block.named_parameters()}})
+    scale = max(float(g.abs().max()) for n, g in results[0].items() if n != "output")
+    for name, ref in results[0].items():
+        got = results[1][name]
+        if name.endswith(ZERO_GRADS):
+            assert float((got - ref).abs().max()) <= BLOCK_ELEMENT_TOL * scale, name
+        else:
+            held(got, ref, f"the bf16 block's {name}", BLOCK_ELEMENT_TOL, BLOCK_L2_TOL)

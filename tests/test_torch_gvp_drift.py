@@ -183,8 +183,17 @@ def test_the_neighbour_gathers_backward_gives_the_same_bits_twice(gather):
 # workers do not oversubscribe the cores (at the default count each probe
 # took up to ~200 s under such load, near the old 300 s limit, against ~7 s
 # alone), and above 1, so that a sum whose order follows the threads (the
-# float atomics of the old neighbour gathers) still shows as other bits
+# float atomics of the old neighbour gathers) still shows as other bits.
+# The bits depend on the count: MKL's sgemm splits the weight gradients'
+# sums over the N * K neighbour rows between its threads (1, 2, 3 and 4
+# threads give four digests; the forward of the first step is the same).
+# MKL and OpenMP may run fewer threads than they are set to when their
+# dynamic modes are on (MKL_DYNAMIC is on by default), a choice of theirs
+# that no call of the port sees, so the probes turn both modes off and set
+# every thread count (PROBE_ENV)
 PROBE_THREADS = 2
+PROBE_ENV = {"OMP_NUM_THREADS": str(PROBE_THREADS), "MKL_NUM_THREADS": str(PROBE_THREADS), "MKL_DYNAMIC": "FALSE",
+             "OMP_DYNAMIC": "FALSE"}
 PROBE_TIMEOUT_S = 300
 PROBE = f"""
 import hashlib, json, sys, torch
@@ -211,7 +220,7 @@ def test_two_fresh_processes_train_to_the_same_bits():
     at PROBE_THREADS threads in two fresh processes: every loss and
     gradient the same bits. A probe that outlasts PROBE_TIMEOUT_S fails as
     a time-out, not as a difference of bits."""
-    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": str(PROBE_THREADS)}
+    env = {**os.environ, "PYTHONPATH": ROOT, **PROBE_ENV}
     cfg = json.dumps(declarative_gvp_cfg(64, 16, 3))
     runs = []
     for i in range(2):

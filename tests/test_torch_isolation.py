@@ -47,7 +47,8 @@ def test_port_imports_no_jax():
                  "nn.functional", "nn.glue", "nn.moe", "models.multicomponent", "models.pretrain",
                  "chem.fingerprint", "transforms.mol", "transforms.reaction",
                  "data.databases", "data.gvp", "exceptions", "transforms.point_cloud", "nn.spatial.schnet",
-                 "nn.spatial.painn", "nn.dropout", "__main__"):
+                 "nn.spatial.painn", "nn.dropout", "nn.init", "nn.mlp", "nn.chemprop_dense", "utils",
+                 "__main__"):
         assert f"notorch_tpu_torch.{name}" in report["modules"]
     assert report["banned"] == []
 
