@@ -129,12 +129,22 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
   glue), 2 epochs each card against CPU (the attention runs every step in
   lockstep), a warm epoch timed and profiled, then served card against CPU
   at the bf16 hold;
-- repeat: the twelve paths' models (the recipe, its declarative twin,
+- bf16 csr: row 9b (the packed sum on bf16 data, rounding each 128-slot
+  chunk's f32 partial and each add of the partials to bf16, as the TPU
+  kernel's grid does) against its plain version at the first flat lipo
+  batch and at cases whose runs straddle one and two chunk boundaries,
+  twice, bit for bit, with the CPU plain version's bits; then
+  ``configs/dmpnn_regression.yaml`` with ``model.impl: csr`` and
+  ``model.dtype: bfloat16`` (the flat block, every E->V sum through row 9b,
+  row 8b in its glue), 2 epochs card against CPU at BF16_MODEL_RUN_RTOL, a
+  warm epoch timed and profiled, and its checkpoint served, 512 molecules
+  card against CPU at the bf16 hold;
+- repeat: the thirteen paths' models (the recipe, its declarative twin,
   ``impl: csr``, the declarative graph transformer, the declarative GVP
   model, the GVP recipe, the classification model, whose masked BCE
   runs over NaN-filled targets, the multicomponent model, the SchNet
-  recipe, the recipe at dropout 0.1, the bf16 encoder and the bf16 graph
-  transformer) each take 3
+  recipe, the recipe at dropout 0.1, the bf16 encoder, the bf16 graph
+  transformer and the bf16 ``impl: csr`` model) each take 3
   training steps twice from the
   same weights, and every parameter and Adam state tensor must have the
   same bits: every sum of the glue is fixed-order (``nn/ops.py``
@@ -149,7 +159,7 @@ path's launch counts expect it there.
 
 Every kernel is held against its plain PyTorch version on the card at the
 shapes these paths give it (rows 1b-7b and 10b-13b too, at the BF16
-tolerances, and row 8b bit for bit, each twice for the same bits), each path's launch counts
+tolerances, and rows 8b and 9b bit for bit, each twice for the same bits), each path's launch counts
 are read, and the kernels are timed. Each phase prints one JSON line; then come a ``kernels``
 line, the card's name and power limit as ``nvidia-smi`` gives them, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
@@ -465,12 +475,15 @@ CLOUD_ELEMENTS = ("C", "N", "O", "F", "P", "S", "Cl", "Br", "I")
 # paths' glue sums bf16 data, through row 8b (csr_segment_sum_bf16): the bf16
 # graph transformer and the bf16 D-MPNN (the plain dense block, DenseMean) in
 # their embeddings' backward, the bf16 GAT there and in PackedMean's sum and
-# count (CPU rehearsal: nn/ops.py's ordered sums of bf16 data counted)
+# count (CPU rehearsal: nn/ops.py's ordered sums of bf16 data counted); the
+# bf16 impl: csr model all of its glue's sums, as the f32 impl: csr model
+# (CPU rehearsal: the ordered route forced for every dtype, its sums counted
+# by dtype: all bf16)
 ROW8_LAUNCHES = {"recipe": (6, 3), "declarative": (2, 0), "impl_csr": (11, 2), "declarative_attention": (2, 0),
                  "flat": (17, 2), "graph_transformer": (4, 2), "gat": (4, 2), "declarative_gvp": (3, 2),
                  "gvp_recipe": (8, 2), "classification": (6, 3), "multicomponent": (30, 4), "reaction": (6, 3),
                  "moe": (15, 2), "pretrain": (19, 0), "schnet": (5, 1), "dropout": (2, 0), "max": (4, 2),
-                 "bf16_transformer": (2, 0), "bf16_dmpnn": (2, 0), "bf16_gat": (4, 2)}
+                 "bf16_transformer": (2, 0), "bf16_dmpnn": (2, 0), "bf16_gat": (4, 2), "bf16_csr": (11, 2)}
 # the forward's stages in a profile (rows 1, 2 and 5, and row 4's replay):
 # fragments of its kernels' names (csrc/dense_mpnn.cu: the operator's bit
 # rows and the encoder's gathered h0 once a call, then a layer's product
@@ -673,12 +686,12 @@ def fail(msg: str) -> None:
 
 
 # the wrappers whose kernels run other modes, counted apart: ``_bf16`` the bf16
-# instantiations (rows 1b-6b, 7b, 8b, and 10b-13b on bf16 inputs), ``_mm`` the
+# instantiations (rows 1b-6b, 7b, 8b, 9b and 10b-13b on bf16 inputs), ``_mm`` the
 # attention core's matmul_dtype="bfloat16" on f32 inputs (rows 10b-13b)
 ATTENTION_WRAPPERS = (fused_dense_attention_fwd, fused_dense_attention_bwd, fused_dense_attention_fwd_v2,
                       fused_dense_attention_bwd_v2)
 MODE_COUNTS = {"_bf16": ("launches_bf16", (*BF16_WRAPPERS, fused_dense_mpnn_block_dbuf, csr_segment_sum,
-                                           *ATTENTION_WRAPPERS)),
+                                           csr_segment_sum_packed, *ATTENTION_WRAPPERS)),
                "_mm": ("launches_mm", ATTENTION_WRAPPERS)}
 
 
@@ -1385,7 +1398,38 @@ def random_flat_inputs(d: int, seed: int, V: int = 2048, E: int = 4096) -> dict[
     order for the packed sum and sorted for the row-pointer sum."""
     rng = np.random.default_rng(seed)
     ids = rng.choice(np.arange(V)[np.arange(V) % 3 != 0], size=E - 600)
-    dst = rng.permutation(np.concatenate([ids, np.full(600, 5)])).astype(np.int32)
+    return ids_flat_inputs(rng.permutation(np.concatenate([ids, np.full(600, 5)])), V, d, rng)
+
+
+# the cases of row 9b whose runs cross the packed layout's 128-slot chunks,
+# over CHUNK_NODES nodes (chunk_case_ids)
+CHUNK_CASES, CHUNK_NODES = ("straddle", "three_chunks"), 256
+
+
+def chunk_case_ids(case: str) -> np.ndarray:
+    """Edge ids over CHUNK_NODES nodes whose runs cross 128-slot chunks:
+    ``straddle``, in each 128-node tile 120 in-edges of other nodes, then 16
+    of one node and 16 of another, both runs crossing slot 128;
+    ``three_chunks``, node 5's 300 in-edges among 200 random ones, over three
+    chunks of a 512-slot budget."""
+    rng = np.random.default_rng(7)
+    if case == "straddle":
+        return np.concatenate([part for base in (0, 128) for part in (
+            base + 10 + rng.integers(0, 100, 120), np.full(16, base + 3), np.full(16, base + 120),
+            base + rng.integers(0, 128, 40))]).astype(np.int32)
+    return rng.permutation(np.concatenate([rng.integers(0, CHUNK_NODES, 200), np.full(300, 5)])).astype(np.int32)
+
+
+def chunk_flat_inputs(case: str, d: int, seed: int) -> dict[str, torch.Tensor]:
+    """ids_flat_inputs of chunk_case_ids(case)."""
+    return ids_flat_inputs(chunk_case_ids(case), CHUNK_NODES, d, np.random.default_rng(seed))
+
+
+def ids_flat_inputs(dst: np.ndarray, V: int, d: int, rng: np.random.Generator) -> dict[str, torch.Tensor]:
+    """Seeded messages for the edges of ``dst`` (every edge real), packed by
+    tile for the packed sum and sorted for the row-pointer sum, on the card."""
+    dst = dst.astype(np.int32)
+    E = len(dst)
     perm, packed_dst, _ = pack_edges_by_tile(dst, num_nodes=V)
     data = rng.standard_normal((E, d)).astype(np.float32)
     order = np.argsort(dst, kind="stable")
@@ -1429,6 +1473,43 @@ def flat_kernels_phase(cases: dict[str, dict]) -> tuple[float, float, list[dict]
                         "bitwise_repeatable": True})
     return (max(r["max_abs_err"]["csr_segment_sum"] for r in records),
             max(r["max_abs_err"]["csr_segment_sum_packed"] for r in records), records)
+
+
+def straddling_nodes(perm: torch.Tensor, packed_dst: torch.Tensor, V: int, tile_e: int = 128) -> int:
+    """Nodes whose packed slots lie in more than one tile_e-slot chunk of
+    their tile's budget: the nodes whose bf16 sum rounds more than once."""
+    perm, packed_dst = perm.cpu().numpy(), packed_dst.cpu().numpy()
+    budget = len(perm) // (V // 128)
+    slots = np.nonzero(perm >= 0)[0]
+    pairs = np.unique(np.stack([packed_dst[slots], slots % budget // tile_e]), axis=1)
+    return int((np.bincount(pairs[0], minlength=V) > 1).sum())
+
+
+def bf16_packed_phase(cases: dict[str, dict]) -> tuple[float, list[dict]]:
+    """Row 9b on each case's messages cast to bf16 (launches made here do
+    not count for any path), twice: both calls must give the bits of its
+    plain version on the card and on the CPU. Returns 0 (the largest
+    difference) and the cases."""
+    from notorch_tpu_torch.kernels.csr_segment import csr_segment_sum_packed_bf16_reference
+
+    records = []
+    for name, x in cases.items():
+        V = x["row_ptr"].shape[0] - 1
+        data = x["data"].bfloat16()
+        got = csr_segment_sum_packed(data, x["perm"], x["packed_dst"], V)
+        again = csr_segment_sum_packed(data, x["perm"], x["packed_dst"], V)
+        plain = csr_segment_sum_packed_bf16_reference(data, x["perm"], x["packed_dst"], V)
+        torch.cuda.synchronize()
+        cpu = csr_segment_sum_packed_bf16_reference(data.cpu(), x["perm"].cpu(), x["packed_dst"].cpu(), V)
+        if got.dtype != torch.bfloat16 or not (torch.equal(got, again) and torch.equal(got, plain)
+                                               and torch.equal(got.cpu(), cpu)):
+            fail(f"row 9b ({name}): two calls differ, or differ from its plain version on the card or the CPU "
+                 f"(max abs err {float((got.float() - plain.float()).abs().max())})")
+        records.append({"case": name, "V": V, "E": data.shape[0], "d": data.shape[1],
+                        "budget": x["perm"].shape[0] // (V // 128),
+                        "straddling_nodes": straddling_nodes(x["perm"], x["packed_dst"], V),
+                        "equal_bits_to_plain": True, "equal_bits_to_cpu_plain": True, "bitwise_repeatable": True})
+    return 0.0, records
 
 
 def glue_inputs(G, d: int, seed: int) -> dict[str, tuple]:
@@ -2120,7 +2201,8 @@ def library_index_add(x: dict):
     to a trash row through a prepared index): the same function as row 9."""
     V, d = x["row_ptr"].shape[0] - 1, x["data"].shape[1]
     index = torch.where(x["edge_mask"], x["dst"], V).long()
-    return lambda: torch.zeros(V + 1, d, device=index.device).index_add_(0, index, x["data"])[:V]
+    return lambda: torch.zeros(V + 1, d, dtype=x["data"].dtype, device=index.device).index_add_(
+        0, index, x["data"])[:V]
 
 
 def library_segment_reduce(x: dict):
@@ -2816,6 +2898,33 @@ def bf16_models_phase(tmp: Path, n_dense_batches: int, n_gt_batches: int) -> dic
     return runs
 
 
+def bf16_csr_phase(tmp: Path, n_batches: int) -> dict[str, dict[str, int]]:
+    """configs/dmpnn_regression.yaml with model.impl: csr and model.dtype:
+    bfloat16 trained for TRAIN_EPOCHS epochs on the card and on the CPU, the
+    whole run at BF16_MODEL_RUN_RTOL, a warm epoch timed and profiled; every
+    E->V sum of the card's block through row 9b (depth + 1 a step and an
+    evaluated batch), its glue's sums through row 8b. The checkpoint served,
+    N_MOLS molecules card against CPU at the bf16 hold (``n_batches``
+    requests' batches). Returns the run's and the request's launches."""
+    depth = MODEL_CFG["depth"]
+
+    def check(counts: dict[str, int], steps: int) -> str | None:
+        evaluated = counts["csr_segment_sum_packed_bf16"] // (depth + 1) - steps
+        expect = {**zero_counts(), "csr_segment_sum_packed_bf16": (depth + 1) * (steps + evaluated),
+                  "csr_segment_sum_bf16": glue_launches("bf16_csr", steps, evaluated)}
+        if counts != expect or evaluated <= 0:
+            return f"expected row 9b {depth + 1} times a step and an evaluated batch: {expect}"
+        return None
+
+    runs = {}
+    runs["train_bf16_csr"], ckpt = config_run_phase(tmp, "train_bf16_csr", {**MODEL_CFG, "impl": "csr", "dtype": BF16},
+                                                    check, rtol=BF16_MODEL_RUN_RTOL)
+    runs["serve_bf16_csr"] = serve_checkpoint_phase(
+        tmp, ckpt, "serve_bf16_csr", {"csr_segment_sum_packed_bf16": (depth + 1) * n_batches,
+                                      "csr_segment_sum_bf16": glue_launches("bf16_csr", 0, n_batches)}, bf16=True)
+    return runs
+
+
 def bf16_attention_phase(packed: list[list], dense: list[list], heads: int) -> tuple[dict, list[dict]]:
     """Rows 10b-13b. With ``matmul_dtype="bfloat16"`` on f32 inputs, which no
     module passes in either package: rows 10b-11b over the graph
@@ -2923,7 +3032,7 @@ def bf16_glue_phase(glue_x: dict[str, tuple]) -> tuple[float, list[dict]]:
 # every parameter and every Adam state tensor must come out with the same bits
 REPEAT_STEPS, REPEAT_MOLS = 3, 256
 REPEAT_PATHS = ("recipe", "declarative", "impl_csr", "declarative_attention", "declarative_gvp", "gvp_recipe",
-                "classification", "multicomponent", "schnet", "dropout", "bf16_block", "bf16_transformer")
+                "classification", "multicomponent", "schnet", "dropout", "bf16_block", "bf16_transformer", "bf16_csr")
 
 
 def repeat_model_cfg(path: str, d: int) -> dict:
@@ -2947,7 +3056,8 @@ def repeat_model_cfg(path: str, d: int) -> dict:
             "flat_gat": {**GAT_CFG, "hidden_dim": d, "layout": "flat"},
             "dropout": {**MODEL_CFG, "hidden_dim": d, "dropout": DROPOUT},
             "bf16_block": bf16_block_model_cfg(d, depth),
-            "bf16_transformer": bf16_transformer_model_cfg(d, depth, heads)}[path]
+            "bf16_transformer": bf16_transformer_model_cfg(d, depth, heads),
+            "bf16_csr": {**MODEL_CFG, "hidden_dim": d, "impl": "csr", "dtype": BF16}}[path]
 
 
 def repeat_run(path: str, tmp: Path, device: str, d: int = 256, batch: int = BATCH,
@@ -3206,6 +3316,11 @@ def main() -> None:
             {"lipo_first_flat_batch": flat_x, "random_empty_and_overfull": random_flat_inputs(d, SEED + 6)})
         emit(phase="flat_kernels_vs_plain", sum_atol=f"{SUM_ATOL} x each element's sum of |terms|",
              cases=flat_cases)
+        # row 9b at the first flat lipo batch and at runs across chunk boundaries
+        bf16_packed_err, bf16_packed_cases = bf16_packed_phase(
+            {"lipo_first_flat_batch": flat_x, **{case: chunk_flat_inputs(case, d, SEED + 8 + i)
+                                                 for i, case in enumerate(CHUNK_CASES)}})
+        emit(phase="bf16_packed_vs_plain", cases=bf16_packed_cases)
         rowptr_launches, rowptr_path_err = rowptr_phase(flat_batches, d)
         emit(phase="rowptr", batches=len(flat_batches), launches=rowptr_launches, max_abs_err=rowptr_path_err)
         # row 8 as the glue calls it on the main path (nn/ops.py segment_sum)
@@ -3290,6 +3405,8 @@ def main() -> None:
         # model-wide bf16: the graph transformer on rows 12b-13b, the D-MPNN
         # and GAT recipes
         bf16_runs = bf16_models_phase(tmp, len(dense_batches), len(gt_batches))
+        # the flat impl: csr D-MPNN at bf16: row 9b in every reduce
+        bf16_csr_runs = bf16_csr_phase(tmp, len(flat_batches))
 
         # rows 14-15 against their plain versions, then the GVP model both ways
         gvp_train, gvp_val = gvp_data()
@@ -3501,6 +3618,27 @@ def main() -> None:
                                                           "csr_segment_sum_bf16")}}
     records += bf16_time_records(main_args, main_G.nodes_per_graph, attn_x, dense_G, heads, bf16_model_path,
                                  bf16_errors)
+    # row 9b at row 9's shape (the first flat lipo batch's messages in bf16),
+    # in the same call as row 9's time above
+    from notorch_tpu_torch.kernels.csr_segment import csr_segment_sum_packed_bf16_reference
+
+    xb = {**x, "data": x["data"].bfloat16()}
+    kernel_t = time_ms(lambda: csr_segment_sum_packed(xb["data"], x["perm"], x["packed_dst"], V, dst=x["dst"],
+                                                      edge_mask=x["edge_mask"]))
+    plain_t = time_ms(lambda: csr_segment_sum_packed_bf16_reference(xb["data"], x["perm"], x["packed_dst"], V))
+    library_t = time_ms(library_index_add(xb))
+    n_bytes = n_real * d * 2 + nbytes(x["perm"], x["packed_dst"]) + V * d * 2
+    bound_ms, bound_by = bound_bf16(n_real * d, n_bytes)
+    row9b_launches = bf16_csr_runs["train_bf16_csr"]["csr_segment_sum_packed_bf16"]
+    emit(phase="time", kernel="csr_segment_sum_packed_bf16", shape=shapes[csr_segment_sum_packed][0],
+         ms=kernel_t["device"], plain_ms=plain_t["device"], eager_ms=kernel_t["eager"],
+         plain_eager_ms=plain_t["eager"], bound_ms=bound_ms, bound_by=bound_by, operations=n_real * d,
+         bytes=n_bytes, library_ms=library_t["device"],
+         library_note="torch.zeros(V + 1, d, bf16).index_add_ over the real edges (one rounding, atomics in no "
+         "fixed order)", launches=row9b_launches,
+         launches_serve=bf16_csr_runs["serve_bf16_csr"]["csr_segment_sum_packed_bf16"])
+    records.append(kernel_record(csr_segment_sum_packed, row9b_launches, bf16_packed_err, kernel_t, plain_t,
+                                 bound_ms, bound_by, library_t, name="csr_segment_sum_packed_bf16"))
     # rows 14-15 at the GVP model's first training batch
     gx = gvp_x["first_training_batch"]
     for fn, bwd in ((fused_gvp_conv_fwd, False), (fused_gvp_conv_bwd, True)):

@@ -28,6 +28,17 @@
 // the VJP of a bf16 gather): the wrapper hands it the bf16 rows as f32
 // (exact) and casts the result back, which every value of the chain already
 // is.
+// Row 9b, the packed kernel's bf16 mode (kBf16): bf16 rows read as
+// __nv_bfloat16 (8 bytes a lane: d a multiple of 4) and widened exactly,
+// summed in f32 in slot order within each tile_e-slot chunk of the tile's
+// budget; at each chunk's end the f32 partial is rounded to bf16
+// (__float2bfloat16_rn) and added to a bf16 total, the add rounded; bf16
+// written. That is where the TPU kernel rounds: its grid walks a tile's
+// budget chunk by chunk, forms each chunk's sums as an f32 one-hot product,
+// rounds them to the bf16 output's type and adds them to the bf16 output
+// tile. The cut falls at the slot index within the tile, as the grid's
+// chunks do, wherever the node's run begins; a node whose slots lie in one
+// chunk gets its f32 sum rounded once.
 // The TPU kernels turn each chunk of slots into a one-hot [tile_v, tile_e]
 // matrix and multiply it on the MXU. Here a segment sum is what it is on this
 // card: a gather and an add, f32 add per element read.
@@ -58,12 +69,17 @@
 //      out in ascending slot order. A key that names another tile's node
 //      never equals v, so such slots add nothing.
 //   3. The warp sums its node's rows: a lane owns kLaneVecs 16-byte vectors
-//      of the row (all d columns between the warp's lanes, so a node's run is
+//      (8-byte in bf16 mode) of the row (all d columns between the warp's lanes, so a node's run is
 //      formed once, not once a column slice; the blocks of a tile each stage
 //      its index, 3 KiB at the lipo batch, from L2), reads kRowBatch rows of
 //      the list at once and adds them in list order, and writes its vectors
 //      once. A list that fills
-//      up (a hub node) is summed and emptied as the scan goes on.
+//      up (a hub node) is summed and emptied as the scan goes on. In bf16
+//      mode the scan also lists each row's chunk (its slot / tile_e), and
+//      the sum folds its f32 partial into the bf16 total where the chunk
+//      changes and at the end: one scan and one pass over the rows, as in
+//      f32 (a pass per chunk, each its own scan and rows, took 1.55x row
+//      9's time on the card).
 //   Dependent device-memory round trips: the index, then the rows. The order
 //   of every sum is fixed (ascending slot, as the CPU plain version's
 //   index_add_ takes them) with no float atomics, so two calls give the same
@@ -130,8 +146,10 @@ constexpr int kLongSpan = 2 * kGroupRows;  // a block's span past which it holds
 // 1 builds the stage stamps (see stamp); the timing script's --stages build.
 constexpr int kStages = 0;
 
-__host__ __device__ inline size_t packed_smem_bytes(int budget, bool stage_perm) {
-  return sizeof(int) * ((stage_perm ? 2 : 1) * (size_t)budget + (size_t)kNodeWarps * kList);
+// The packed kernel's shared memory: the tile's keys (and edge ids), and a
+// list a warp (in bf16 mode a second one, each listed row's chunk).
+__host__ __device__ inline size_t packed_smem_bytes(int budget, bool stage_perm, bool bf16) {
+  return sizeof(int) * ((stage_perm ? 2 : 1) * (size_t)budget + (size_t)kNodeWarps * kList * (bf16 ? 2 : 1));
 }
 
 // Stage stamps of a kStages build: lane 0 of warp 0 of block 0 writes
@@ -170,10 +188,31 @@ __device__ inline void stamp(int stage, bool start, bool end) {
   }
 }
 
+// Four values of a row of data from value 4 q: a float4 of f32 data, or
+// four bf16 values (8 bytes) widened to f32, exactly (row 9b).
+template <bool kBf16>
+__device__ inline float4 load_vec(const void* __restrict__ data, size_t q) {
+  if constexpr (kBf16) return load_bf16x4(static_cast<const __nv_bfloat16*>(data), 4 * q);
+  return static_cast<const float4*>(data)[q];
+}
+
+// Row 9b's fold: the f32 partial rounded to bf16 and added to the bf16
+// total, the add rounded; the partial starts again from zero.
+__device__ inline void fold(float4 (&acc)[kLaneVecs], float4 (&total)[kLaneVecs]) {
+#pragma unroll
+  for (int j = 0; j < kLaneVecs; ++j) {
+    total[j] = operand4<true>(add4(total[j], operand4<true>(acc[j])));
+    acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
 // acc[j] += the rows list[0..n) of data, vector q0 + 32 j + lane of each, in
-// list order; kRowBatch rows' loads go out before their adds.
-__device__ inline void sum_rows(const float4* __restrict__ rows, const int* list, int n, int nq,
-                                int q0, int lane, float4 (&acc)[kLaneVecs]) {
+// list order; kRowBatch rows' loads go out before their adds. On bf16 rows
+// each row's chunk (chunk_of) decides where the sum rounds: a row of another
+// chunk than the partial's (cur) folds the partial into total first.
+template <bool kBf16>
+__device__ inline void sum_rows(const void* __restrict__ rows, const int* list, const int* chunk_of, int n, int nq,
+                                int q0, int lane, float4 (&acc)[kLaneVecs], float4 (&total)[kLaneVecs], int& cur) {
   for (int i0 = 0; i0 < n; i0 += kRowBatch) {
     float4 x[kRowBatch][kLaneVecs];
 #pragma unroll
@@ -182,27 +221,83 @@ __device__ inline void sum_rows(const float4* __restrict__ rows, const int* list
 #pragma unroll
       for (int j = 0; j < kLaneVecs; ++j) {
         const int q = q0 + j * 32 + lane;
-        x[i][j] = e >= 0 && q < nq ? rows[(size_t)e * nq + q] : make_float4(0.f, 0.f, 0.f, 0.f);
+        x[i][j] = e >= 0 && q < nq ? load_vec<kBf16>(rows, (size_t)e * nq + q) : make_float4(0.f, 0.f, 0.f, 0.f);
       }
     }
 #pragma unroll
     for (int i = 0; i < kRowBatch; ++i)
-      if (i0 + i < n)
+      if (i0 + i < n) {
+        if constexpr (kBf16) {
+          if (chunk_of[i0 + i] != cur) {
+            fold(acc, total);
+            cur = chunk_of[i0 + i];
+          }
+        }
 #pragma unroll
         for (int j = 0; j < kLaneVecs; ++j) acc[j] = add4(acc[j], x[i][j]);
+      }
   }
 }
 
-template <bool kStagePerm>
+// Steps 2-3 of packed_kernel: node v's slots of the tile in ascending order,
+// kScanWords words at once (their key loads, then their ballots), each
+// marked lane writing its edge id at its rank among the marks before it (in
+// bf16 mode also its slot's chunk, slot / chunk, into chunk_of); acc gains
+// their rows in that order (bf16: folded into total where the chunk changes,
+// and at the end). A list that fills up is summed and emptied as the scan
+// goes on.
+template <bool kStagePerm, bool kBf16>
+__device__ inline void sum_run(const void* __restrict__ data, const int* key, const int* perm_s,
+                               const int* __restrict__ perm, size_t s0, int v, int budget, int chunk, int* list,
+                               int* chunk_of, int nq, int q0, int lane, float4 (&acc)[kLaneVecs],
+                               float4 (&total)[kLaneVecs]) {
+  int n = 0, cur = -1;
+  const int words = (budget + 31) / 32;
+  for (int w0 = 0; w0 < words; w0 += kScanWords) {
+    bool hit[kScanWords];
+    unsigned bits[kScanWords];
+#pragma unroll
+    for (int u = 0; u < kScanWords; ++u) {
+      const int s = (w0 + u) * 32 + lane;
+      hit[u] = s < budget && key[s] == v;
+    }
+#pragma unroll
+    for (int u = 0; u < kScanWords; ++u) bits[u] = __ballot_sync(0xffffffffu, hit[u]);
+#pragma unroll
+    for (int u = 0; u < kScanWords; ++u) {
+      const int s = (w0 + u) * 32 + lane;
+      if (hit[u]) {
+        const int at = n + __popc(bits[u] & ((1u << lane) - 1u));
+        list[at] = kStagePerm ? perm_s[s] : perm[s0 + s];
+        if constexpr (kBf16) chunk_of[at] = s / chunk;
+      }
+      n += __popc(bits[u]);
+    }
+    if (n > kList - 32 * kScanWords) {  // room for one more scan's marks no longer certain
+      __syncwarp();
+      sum_rows<kBf16>(data, list, chunk_of, n, nq, q0, lane, acc, total, cur);
+      n = 0;
+      __syncwarp();
+    }
+  }
+  __syncwarp();
+  if (q0 == 0) stamp(2, false, false);
+  sum_rows<kBf16>(data, list, chunk_of, n, nq, q0, lane, acc, total, cur);
+  if constexpr (kBf16) fold(acc, total);
+  __syncwarp();  // the list is read before the next scan refills it
+}
+
+template <bool kStagePerm, bool kBf16>
 __global__ void __launch_bounds__(kPackedThreads)
-    packed_kernel(const float* __restrict__ data, const int* __restrict__ perm,
-                  const int* __restrict__ packed_dst, float* __restrict__ out, int E, int d,
-                  int tile_v, int budget, int groups) {
+    packed_kernel(const void* __restrict__ data, const int* __restrict__ perm,
+                  const int* __restrict__ packed_dst, void* __restrict__ out, int E, int d,
+                  int tile_v, int budget, int groups, int chunk) {
   stamp(0, true, false);
   extern __shared__ int smem[];
   int* key = smem;                                    // [budget]
   int* perm_s = key + budget;                         // [budget] (kStagePerm)
   int* lists = perm_s + (kStagePerm ? budget : 0);    // [kNodeWarps][kList]
+  int* chunks = lists + kNodeWarps * kList;           // [kNodeWarps][kList] (kBf16)
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int tile = blockIdx.x / groups;
   const int node = blockIdx.x % groups * kNodeWarps + warp;
@@ -230,50 +325,32 @@ __global__ void __launch_bounds__(kPackedThreads)
   stamp(1, false, false);
   if (node >= tile_v) return;
 
-  // 2-3. node v's run in ascending slot order, then its rows
+  // 2-3. node v's run in ascending slot order, then its rows; in bf16 mode
+  // each chunk's f32 partial rounded to bf16 and added to the bf16 total,
+  // the add rounded
   const int v = tile * tile_v + node;
   int* list = lists + warp * kList;
-  const int nq = d / 4, words = (budget + 31) / 32;
-  const float4* rows = reinterpret_cast<const float4*>(data);
-  float4* o = reinterpret_cast<float4*>(out) + (size_t)v * nq;
+  int* chunk_of = chunks + warp * kList;
+  const int nq = d / 4;
   for (int q0 = 0; q0 < nq; q0 += 32 * kLaneVecs) {
-    float4 acc[kLaneVecs];
+    float4 acc[kLaneVecs], total[kLaneVecs];
 #pragma unroll
-    for (int j = 0; j < kLaneVecs; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-    int n = 0;
-    for (int w0 = 0; w0 < words; w0 += kScanWords) {
-      // kScanWords words at once: their key loads, then their ballots
-      bool hit[kScanWords];
-      unsigned bits[kScanWords];
-#pragma unroll
-      for (int u = 0; u < kScanWords; ++u) {
-        const int s = (w0 + u) * 32 + lane;
-        hit[u] = s < budget && key[s] == v;
-      }
-#pragma unroll
-      for (int u = 0; u < kScanWords; ++u) bits[u] = __ballot_sync(0xffffffffu, hit[u]);
-#pragma unroll
-      for (int u = 0; u < kScanWords; ++u) {
-        const int s = (w0 + u) * 32 + lane;
-        if (hit[u]) list[n + __popc(bits[u] & ((1u << lane) - 1u))] = kStagePerm ? perm_s[s] : perm[s0 + s];
-        n += __popc(bits[u]);
-      }
-      if (n > kList - 32 * kScanWords) {  // room for one more scan's marks no longer certain
-        __syncwarp();
-        sum_rows(rows, list, n, nq, q0, lane, acc);
-        n = 0;
-        __syncwarp();
-      }
-    }
-    __syncwarp();
-    if (q0 == 0) stamp(2, false, false);
-    sum_rows(rows, list, n, nq, q0, lane, acc);
+    for (int j = 0; j < kLaneVecs; ++j) acc[j] = total[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    sum_run<kStagePerm, kBf16>(data, key, perm_s, perm, s0, v, budget, chunk, list, chunk_of, nq, q0, lane, acc,
+                               total);
 #pragma unroll
     for (int j = 0; j < kLaneVecs; ++j) {
       const int q = q0 + j * 32 + lane;
-      if (q < nq) o[q] = acc[j];
+      if (q >= nq) continue;
+      if constexpr (kBf16) {
+        const float4 t = total[j];
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(t.x, t.y), hi = __floats2bfloat162_rn(t.z, t.w);
+        reinterpret_cast<uint2*>(out)[(size_t)v * nq + q] =
+            make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+      } else {
+        reinterpret_cast<float4*>(out)[(size_t)v * nq + q] = acc[j];
+      }
     }
-    __syncwarp();  // the list is read before the next chunk's scan refills it
   }
   stamp(3, false, true);
 }
@@ -450,6 +527,39 @@ int rowptr_group(int E, int d, int num_nodes) {
   return group;
 }
 
+// Launch the packed kernel (f32, or bf16 with kBf16) once; `chunk` is the
+// slot count at which the bf16 mode rounds its partials (the budget for f32).
+// Each instantiation raises its own shared-memory limit.
+template <bool kBf16>
+int launch_packed(const void* data, const int* perm, const int* packed_dst, void* out, int E, int d,
+                  int num_nodes, int tile_v, int budget, int chunk, cudaStream_t s) {
+  if (tile_v <= 0 || tile_v > kMaxTile || num_nodes <= 0 || num_nodes % tile_v != 0 || budget < 0 ||
+      budget > kMaxBudget || chunk <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (d == 0) return (int)cudaSuccess;
+  const bool stage_perm = budget <= kStagePermMax;
+  const void* kernel = stage_perm ? (const void*)packed_kernel<true, kBf16>
+                                  : (const void*)packed_kernel<false, kBf16>;
+  const size_t smem = packed_smem_bytes(budget, stage_perm, kBf16);
+  static uint64_t configured[2] = {0, 0};
+  if (smem > 48 * 1024) {
+    const int most = (int)(stage_perm ? packed_smem_bytes(kStagePermMax, true, kBf16)
+                                      : packed_smem_bytes(kMaxBudget, false, kBf16));
+    const cudaError_t err = allow_smem(kernel, most, configured[stage_perm]);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int groups = (tile_v + kNodeWarps - 1) / kNodeWarps;
+  const long long blocks = (long long)(num_nodes / tile_v) * groups;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (stage_perm)
+    packed_kernel<true, kBf16><<<(unsigned)blocks, kPackedThreads, smem, s>>>(
+        data, perm, packed_dst, out, E, d, tile_v, budget, groups, chunk);
+  else
+    packed_kernel<false, kBf16><<<(unsigned)blocks, kPackedThreads, smem, s>>>(
+        data, perm, packed_dst, out, E, d, tile_v, budget, groups, chunk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -466,31 +576,22 @@ int csr_segment_max_tile() { return kMaxTile; }
 int csr_segment_sum_packed_f32(const float* data, const int* perm, const int* packed_dst,
                                float* out, int E, int d, int num_nodes, int tile_v, int budget,
                                void* stream) {
-  if (bad_rows(data, out, E, d) || tile_v <= 0 || tile_v > kMaxTile || num_nodes <= 0 ||
-      num_nodes % tile_v != 0 || budget < 0 || budget > kMaxBudget)
+  if (bad_rows(data, out, E, d)) return (int)cudaErrorInvalidValue;
+  return launch_packed<false>(data, perm, packed_dst, out, E, d, num_nodes, tile_v, budget, budget,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Row 9b, the packed sum on bf16 data: as csr_segment_sum_packed_f32, with
+// data and out bf16 (d a multiple of 4, both 8-byte aligned) and the budget
+// a multiple of tile_e, the chunk at which the TPU kernel's grid rounds.
+int csr_segment_sum_packed_bf16(const __nv_bfloat16* data, const int* perm, const int* packed_dst,
+                                __nv_bfloat16* out, int E, int d, int num_nodes, int tile_v, int budget,
+                                int tile_e, void* stream) {
+  if (E < 0 || d < 0 || d % 4 != 0 || ((uintptr_t)data | (uintptr_t)out) % 8 != 0 || tile_e <= 0 ||
+      budget % tile_e != 0)
     return (int)cudaErrorInvalidValue;
-  if (d == 0) return (int)cudaSuccess;
-  const bool stage_perm = budget <= kStagePermMax;
-  const void* kernel = stage_perm ? (const void*)packed_kernel<true> : (const void*)packed_kernel<false>;
-  const size_t smem = packed_smem_bytes(budget, stage_perm);
-  static uint64_t configured[2] = {0, 0};
-  if (smem > 48 * 1024) {
-    const int most = (int)(stage_perm ? packed_smem_bytes(kStagePermMax, true)
-                                      : packed_smem_bytes(kMaxBudget, false));
-    const cudaError_t err = allow_smem(kernel, most, configured[stage_perm]);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int groups = (tile_v + kNodeWarps - 1) / kNodeWarps;
-  const long long blocks = (long long)(num_nodes / tile_v) * groups;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stage_perm)
-    packed_kernel<true><<<(unsigned)blocks, kPackedThreads, smem, s>>>(
-        data, perm, packed_dst, out, E, d, tile_v, budget, groups);
-  else
-    packed_kernel<false><<<(unsigned)blocks, kPackedThreads, smem, s>>>(
-        data, perm, packed_dst, out, E, d, tile_v, budget, groups);
-  return (int)cudaGetLastError();
+  return launch_packed<true>(data, perm, packed_dst, out, E, d, num_nodes, tile_v, budget, tile_e,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // The row-pointer sum: data[rows, d] (any d >= 0), row_ptr[num_nodes + 1]

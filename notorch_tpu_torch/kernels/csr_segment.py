@@ -20,6 +20,11 @@ What they compute, ``data [E, d]`` f32 into ``[num_nodes, d]``:
   from :func:`pack_edges_by_tile` (``-1`` in padding slots, which add
   nothing). A slot whose ``packed_dst`` lies outside its own tile, or whose
   ``perm`` is not an edge id, adds nothing either, as in the TPU kernel.
+  On bf16 data (row 9b) the sum rounds where the TPU kernel's grid does:
+  each ``tile_e``-slot chunk of the tile's budget gives an f32 partial of
+  the node's rows (in slot order), rounded to bf16, and the partials are
+  added in chunk order from zero, each add rounded to bf16
+  (:func:`csr_segment_sum_packed_bf16_reference`); the result is bf16.
 - row pointers: ``out[v] = sum of data[e]`` for ``e`` in ``[row_ptr[v],
   row_ptr[v+1])`` (``row_ptr`` nondecreasing, as :func:`~notorch_tpu_torch.
   data.graph.csr_row_ptr` gives it for dst-sorted edges). The sum is exact:
@@ -44,8 +49,9 @@ The CUDA source is built by ``nvcc`` for ``sm_90a`` at first use and bound
 with ``ctypes`` (:mod:`notorch_tpu_torch.kernels.build`). Tensors on the
 CPU take the plain versions; tensors on a CUDA device launch the kernels or
 raise — there is no fallback. Each wrapper counts its launches in
-``<wrapper>.launches``; row 8's launches through
-:func:`segment_sum_in_order` count in ``csr_segment_sum.launches`` too.
+``<wrapper>.launches``, its bf16 mode's in ``<wrapper>.launches_bf16``
+(rows 8b and 9b); row 8's launches through :func:`segment_sum_in_order`
+count in ``csr_segment_sum.launches`` too.
 """
 
 from __future__ import annotations
@@ -120,6 +126,38 @@ def csr_segment_sum_packed_reference(
     rows = data.index_select(0, torch.where(valid, perm, 0).long())
     out = torch.zeros(num_nodes + 1, data.shape[1], dtype=data.dtype, device=data.device)
     return out.index_add_(0, torch.where(valid, packed_dst, num_nodes).long(), rows)[:num_nodes]
+
+
+def csr_segment_sum_packed_bf16_reference(
+    data: torch.Tensor, perm: torch.Tensor, packed_dst: torch.Tensor, num_nodes: int, tile_v: int = 128,
+    tile_e: int = 128,
+) -> torch.Tensor:
+    """Plain version of the packed kernel's bf16 mode (row 9b): ``[num_nodes,
+    d]`` bf16 from bf16 ``data``, rounded as the TPU kernel's grid rounds.
+    That kernel walks each node tile's budget in chunks of ``tile_e`` slots,
+    forms each chunk's sums as an f32 product (``preferred_element_type``),
+    rounds them to bf16 and adds them to its bf16 output tile. So a node's
+    sum is: for each chunk, the f32 sum of its slots' rows there (in slot
+    order: one ``index_add_`` keyed by (node, chunk)), rounded to bf16; then
+    those partials added in chunk order from zero, each add rounded to bf16.
+    A node whose slots lie in one chunk gets its f32 sum rounded once. The
+    slots that add nothing are those of :func:`csr_segment_sum_packed_reference`."""
+    E, d = data.shape
+    n_slots = perm.shape[0]
+    budget = n_slots // (num_nodes // tile_v)
+    chunks = budget // tile_e
+    slot = torch.arange(n_slots, device=perm.device)
+    lo = torch.div(slot, budget, rounding_mode="floor") * tile_v
+    valid = (perm >= 0) & (perm < E) & (packed_dst >= lo) & (packed_dst < lo + tile_v)
+    rows = data.index_select(0, torch.where(valid, perm, 0).long()).float()
+    chunk = torch.div(slot % budget, tile_e, rounding_mode="floor")
+    key = torch.where(valid, packed_dst.long() * chunks + chunk, num_nodes * chunks)
+    partials = torch.zeros(num_nodes * chunks + 1, d, dtype=torch.float32, device=data.device)
+    partials = partials.index_add_(0, key, rows)[:-1].reshape(num_nodes, chunks, d).to(torch.bfloat16)
+    out = torch.zeros(num_nodes, d, dtype=torch.bfloat16, device=data.device)
+    for c in range(chunks):
+        out = out + partials[:, c]  # a bf16 add: f32 sum of the two, rounded
+    return out
 
 
 def csr_segment_sum_reference(data: torch.Tensor, row_ptr: torch.Tensor, num_nodes: int) -> torch.Tensor:
@@ -201,12 +239,12 @@ def _check_data(data: torch.Tensor, num_nodes: int, tile_v: int) -> None:
 
 
 def _check_for_kernel(data: torch.Tensor) -> None:
-    if data.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernels take float32 data, got {data.dtype}")
+    if data.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA kernels take float32 or bfloat16 data, got {data.dtype}")
     if not data.is_contiguous():
         raise ValueError("data must be contiguous")
     if data.shape[1] % 4:
-        raise ValueError(f"the CUDA kernels read rows in 16-byte vectors: d must be a multiple of 4, "
+        raise ValueError(f"the CUDA kernels read rows in vectors of 4 values: d must be a multiple of 4, "
                          f"got {data.shape[1]}")
     check_aligned(data=data)
 
@@ -215,12 +253,13 @@ def _check_for_kernel(data: torch.Tensor) -> None:
 def _lib():
     lib = build.load("csr_segment")
     lib.csr_segment_sum_packed_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.csr_segment_sum_packed_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.csr_segment_sum_rowptr_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.csr_segment_error_string.argtypes = [ctypes.c_int]
     lib.csr_segment_error_string.restype = ctypes.c_char_p
     lib.csr_segment_max_budget.argtypes = lib.csr_segment_max_tile.argtypes = []
-    for name in ("csr_segment_sum_packed_f32", "csr_segment_sum_rowptr_f32", "csr_segment_max_budget",
-                 "csr_segment_max_tile"):
+    for name in ("csr_segment_sum_packed_f32", "csr_segment_sum_packed_bf16", "csr_segment_sum_rowptr_f32",
+                 "csr_segment_max_budget", "csr_segment_max_tile"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
@@ -230,8 +269,11 @@ def _raise_on(err: int, what: str, lib) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.csr_segment_error_string(err).decode()}")
 
 
-def _packed_forward(data, perm, packed_dst, num_nodes: int, tile_v: int) -> torch.Tensor:
+def _packed_forward(data, perm, packed_dst, num_nodes: int, tile_v: int, tile_e: int) -> torch.Tensor:
+    bf16 = data.dtype == torch.bfloat16
     if not on_card(data):
+        if bf16:
+            return csr_segment_sum_packed_bf16_reference(data, perm, packed_dst, num_nodes, tile_v, tile_e)
         return csr_segment_sum_packed_reference(data, perm, packed_dst, num_nodes, tile_v)
     lib = _lib()
     _check_for_kernel(data)
@@ -244,12 +286,18 @@ def _packed_forward(data, perm, packed_dst, num_nodes: int, tile_v: int) -> torc
     E, d = data.shape
     out = torch.empty(num_nodes, d, dtype=data.dtype, device=data.device)
     with torch.cuda.device(data.device):
-        err = lib.csr_segment_sum_packed_f32(
-            data.data_ptr(), perm.data_ptr(), packed_dst.data_ptr(), out.data_ptr(), E, d,
-            num_nodes, tile_v, budget, torch.cuda.current_stream().cuda_stream,
-        )
+        args = (data.data_ptr(), perm.data_ptr(), packed_dst.data_ptr(), out.data_ptr(), E, d, num_nodes, tile_v,
+                budget)
+        stream = torch.cuda.current_stream().cuda_stream
+        if bf16:
+            err = lib.csr_segment_sum_packed_bf16(*args, tile_e, stream)
+        else:
+            err = lib.csr_segment_sum_packed_f32(*args, stream)
     _raise_on(err, "csr_segment_sum_packed", lib)
-    csr_segment_sum_packed.launches += 1
+    if bf16:
+        csr_segment_sum_packed.launches_bf16 += 1
+    else:
+        csr_segment_sum_packed.launches += 1
     return out
 
 
@@ -260,15 +308,15 @@ class CsrSegmentSumPackedFn(torch.autograd.Function):
     index arrays get no gradient."""
 
     @staticmethod
-    def forward(ctx, data, perm, packed_dst, dst, edge_mask, num_nodes: int, tile_v: int):
+    def forward(ctx, data, perm, packed_dst, dst, edge_mask, num_nodes: int, tile_v: int, tile_e: int):
         ctx.save_for_backward(dst, edge_mask)
-        return _packed_forward(data, perm, packed_dst, num_nodes, tile_v)
+        return _packed_forward(data, perm, packed_dst, num_nodes, tile_v, tile_e)
 
     @staticmethod
     def backward(ctx, g):
         dst, edge_mask = ctx.saved_tensors
         d_data = torch.where(edge_mask[:, None], g[dst.long()], 0.0)
-        return d_data, None, None, None, None, None, None
+        return d_data, None, None, None, None, None, None, None
 
 
 def csr_segment_sum_packed(
@@ -284,15 +332,19 @@ def csr_segment_sum_packed(
     """Segment sum through the tile-packed layout, ``[num_nodes, d]``.
     ``perm``/``packed_dst`` come from :func:`pack_edges_by_tile`; the budget
     per tile (``len(perm) // (num_nodes // tile_v)``) must be a multiple of
-    ``tile_e``, as the TPU grid needs (the kernel here needs no chunking).
+    ``tile_e``, as the TPU grid needs. float32 data is summed whole in slot
+    order (``tile_e`` is then only checked); bfloat16 data (row 9b) rounds
+    each ``tile_e``-slot chunk's f32 partial and each add of the partials to
+    bf16, as the TPU grid does, and gives bf16.
 
     Differentiable in ``data`` through :class:`CsrSegmentSumPackedFn`: the
     gradient of edge ``e`` is ``g[dst[e]]`` where ``edge_mask[e]``, else 0
     (all edges real without a mask; without ``dst`` the gradient is zero,
     as in the JAX package). CPU tensors take
-    :func:`csr_segment_sum_packed_reference`; on a CUDA device
+    :func:`csr_segment_sum_packed_reference` (bf16:
+    :func:`csr_segment_sum_packed_bf16_reference`); on a CUDA device
     ``csr_segment_sum_packed.launches`` counts the kernel's launches (one a
-    call)."""
+    call), ``csr_segment_sum_packed.launches_bf16`` those of row 9b."""
     _check_data(data, num_nodes, tile_v)
     E = data.shape[0]
     n_tiles = num_nodes // tile_v
@@ -309,7 +361,7 @@ def csr_segment_sum_packed(
         expect["edge_mask"] = (edge_mask, torch.bool, (E,))
     check_tensors(expect, data.device, anchor="data")
     if not (torch.is_grad_enabled() and data.requires_grad):
-        return _packed_forward(data, perm, packed_dst, num_nodes, tile_v)
+        return _packed_forward(data, perm, packed_dst, num_nodes, tile_v, tile_e)
     # the backward's gather: made only where a gradient is taken, so that a
     # forward launches the kernel alone
     if dst is None:
@@ -317,7 +369,7 @@ def csr_segment_sum_packed(
         edge_mask = torch.zeros(E, dtype=torch.bool, device=data.device)
     elif edge_mask is None:
         edge_mask = torch.ones(E, dtype=torch.bool, device=data.device)
-    return CsrSegmentSumPackedFn.apply(data, perm, packed_dst, dst, edge_mask, num_nodes, tile_v)
+    return CsrSegmentSumPackedFn.apply(data, perm, packed_dst, dst, edge_mask, num_nodes, tile_v, tile_e)
 
 
 def csr_segment_sum(
@@ -411,5 +463,6 @@ def sum_in_order(data: torch.Tensor, order: torch.Tensor, row_ptr: torch.Tensor,
 
 
 csr_segment_sum_packed.launches = 0
+csr_segment_sum_packed.launches_bf16 = 0
 csr_segment_sum.launches = 0
 csr_segment_sum.launches_bf16 = 0

@@ -36,7 +36,7 @@ import torch
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.model.model import Model, fill_pred_transform_keys
 from notorch_tpu_torch.nn import agg
-from notorch_tpu_torch.nn.chemprop import BF16_KERNELS_ITEM, PARALLEL_SLICE, ChempropBlock
+from notorch_tpu_torch.nn.chemprop import PARALLEL_SLICE, ChempropBlock
 from notorch_tpu_torch.nn.chemprop_dense import (
     DenseChempropBlock,
     DenseGated,
@@ -51,6 +51,7 @@ from notorch_tpu_torch.nn.chemprop_dense import (
     PackedMean,
     PackedSDPAttention,
     PackedSum,
+    refuse_bf16_state,
 )
 from notorch_tpu_torch.nn.embed import GraphEmbedding
 from notorch_tpu_torch.nn.mlp import MLP
@@ -58,7 +59,7 @@ from notorch_tpu_torch.tasks import losses as L
 from notorch_tpu_torch.tasks import metrics as M
 from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
-from notorch_tpu_torch.utils import compute_dtype, require_f32
+from notorch_tpu_torch.utils import compute_dtype
 
 AGGREGATIONS = ("sum", "mean", "max", "gated", "sdp")
 LAYOUTS = ("dense_packed", "dense_fused", "dense", "flat")
@@ -185,10 +186,12 @@ def build_dmpnn(
 
     ``dtype="bfloat16"`` computes the embeddings, the block, the readout
     and the head in bf16 (f32 parameters), as the JAX modules do; ``auto``
-    then resolves to the plain ``dense`` layout. A bf16 model on a layout
-    whose block is the fused kernels (``dense_packed`` without dropout or
-    max, ``dense_fused``) or ``impl="csr"`` raises
-    ``NotImplementedError``: those kernels take f32 data."""
+    then resolves to the plain ``dense`` layout, and ``flat`` takes every
+    ``impl`` (``csr``: the packed sum's bf16 mode, TPU kernel row 9b). A
+    bf16 model on a layout whose block is the fused kernels
+    (``dense_packed`` without dropout or max, ``dense_fused``) raises
+    ``NotImplementedError``, as the JAX package cannot run one (see
+    :func:`~notorch_tpu_torch.nn.chemprop_dense.refuse_bf16_state`)."""
     if graph_axis is not None or partition != "molecule":
         raise NotImplementedError(
             f"graph_axis={graph_axis!r}, partition={partition!r}: graph-partitioned SPMD "
@@ -226,7 +229,8 @@ def build_dmpnn(
             block = DenseChempropBlock(hidden_dim=hidden_dim, depth=depth, dropout=dropout, reduce=reduce,
                                        dtype=dt)
         else:
-            require_f32(dtype, f"fused block (layout {layout!r})", BF16_KERNELS_ITEM)
+            if dt != torch.float32:
+                refuse_bf16_state(f"dtype={dtype!r} on layout {layout!r}")
             block = FusedDenseChempropBlock(hidden_dim=hidden_dim, depth=depth, reduce=reduce)
         head = readout(PACKED_READOUTS if layout == "dense_packed" else DENSE_READOUTS, aggregation, hidden_dim,
                        dt)

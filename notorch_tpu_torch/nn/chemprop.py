@@ -16,7 +16,8 @@ The E -> V reduction (:func:`node_reduce`) dispatches as the JAX
 
 - ``"csr"`` with ``reduce="sum"``: the tile-packed segment sum,
   :func:`~notorch_tpu_torch.kernels.csr_segment.csr_segment_sum_packed` (a
-  hand-written kernel on the card). The batch must carry the packing
+  hand-written kernel on the card; on bf16 messages its bf16 mode, which
+  rounds as the TPU kernel's grid does). The batch must carry the packing
   (``DataLoader(csr_pack=True)``); a batch without it raises, where the JAX
   package falls back to the segment ops and so never reaches its kernel
   when serving. Mean and max with ``impl="csr"`` take the segment ops;
@@ -51,18 +52,14 @@ from notorch_tpu_torch.kernels.csr_segment import csr_segment_sum_packed
 from notorch_tpu_torch.nn.dropout import Dropout
 from notorch_tpu_torch.nn.init import lecun_normal_
 from notorch_tpu_torch.nn.ops import segment_reduce, take
-from notorch_tpu_torch.utils import compute_dtype, require_f32
+from notorch_tpu_torch.utils import compute_dtype
 
 IMPLS = ("gather", "segment", "csr")
 REDUCES = ("sum", "mean", "max", "min")
 PARALLEL_SLICE = "the parallel slice of the port (ROADMAP.md queue A, item 7)"
-# a bf16 model where a kernel of rows 1-6 or 9 would take bf16 data
-BF16_KERNELS_ITEM = "ROADMAP.md queue A item 5d (bf16 inputs on TPU kernel rows 1-6 and 9)"
 
 
-def _check_options(reduce: str, psum_axis: str | None, impl: str, dtype=None) -> None:
-    if impl == "csr":
-        require_f32(dtype, "impl='csr' block (TPU kernel row 9)", BF16_KERNELS_ITEM)
+def _check_options(reduce: str, psum_axis: str | None, impl: str) -> None:
     if psum_axis is not None:
         raise NotImplementedError(
             f"psum_axis={psum_axis!r} (edge-partitioned message passing) comes with {PARALLEL_SLICE}"
@@ -126,7 +123,7 @@ class ChempropLayer(nn.Module):
         impl: str = "gather",
         dtype=None,
     ):
-        _check_options(reduce, psum_axis, impl, dtype)
+        _check_options(reduce, psum_axis, impl)
         super().__init__()
         self.dtype = compute_dtype(dtype)
         # torch.empty: values come from reset_parameters, never the global RNG
@@ -150,8 +147,8 @@ class ChempropBlock(nn.Module):
     ``[V, d]`` and edge hiddens ``[E, d]``. ``remat`` recomputes each layer
     in the backward (``torch.utils.checkpoint``, non-reentrant) instead of
     keeping its activations, as the JAX block's ``nn.remat``. ``dtype`` is
-    each layer's compute dtype (float32 or, but for ``impl="csr"``,
-    bfloat16; f32 parameters)."""
+    each layer's compute dtype (float32 or bfloat16, every impl; f32
+    parameters)."""
 
     def __init__(
         self,
@@ -167,7 +164,7 @@ class ChempropBlock(nn.Module):
         remat: bool = False,
         dtype=None,
     ):
-        _check_options(reduce, psum_axis, impl, dtype)
+        _check_options(reduce, psum_axis, impl)
         super().__init__()
         self.dtype = compute_dtype(dtype)
         self.hidden_dim, self.depth = hidden_dim, depth

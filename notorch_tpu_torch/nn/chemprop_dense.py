@@ -151,6 +151,20 @@ class DenseChempropBlock(nn.Module):
         return G.update(node_feats=self._node_reduce(G, S, h), edge_feats=h)
 
 
+def refuse_bf16_state(what: str) -> None:
+    """Raise ``NotImplementedError`` for a bf16 state in the fused D-MPNN
+    block (``what`` says where it came from), as the reference cannot run
+    one: in its fused kernels layer 0's f32 bias add promotes a bf16 state
+    to f32, and the kernel's bf16 output store refuses the f32 value
+    (``notorch_tpu/kernels/dense_mpnn.py:179-185``)."""
+    raise NotImplementedError(
+        f"{what}: the fused D-MPNN block takes a float32 state only, as in the JAX package, whose "
+        "fused kernels cannot store a bf16 state that their f32 bias promoted to f32 "
+        "(notorch_tpu/kernels/dense_mpnn.py:179-185); a bf16 D-MPNN runs on layout 'dense' (the plain "
+        "block) or 'flat'"
+    )
+
+
 class FusedDenseChempropBlock(_StackedLayers):
     """D-MPNN block backed by the hand-written kernels
     (:mod:`notorch_tpu_torch.kernels.dense_mpnn`), trainable.
@@ -229,6 +243,8 @@ class FusedDenseChempropBlock(_StackedLayers):
         )
 
     def forward(self, G: DenseBatchedGraph) -> DenseBatchedGraph:
+        if G.node_feats.dtype != torch.float32 or G.edge_feats.dtype != torch.float32:
+            refuse_bf16_state(f"{G.node_feats.dtype} node and {G.edge_feats.dtype} edge features")
         if self.fuse_ends:
             return self._encoder(G)
         B, V, d = G.node_feats.shape

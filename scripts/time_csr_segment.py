@@ -11,7 +11,10 @@ padding sink's run cut (``ms_without_sink``). Row 9 is timed as
 the flat block calls it (``dst`` and ``edge_mask`` given) and, as
 ``ms_without_dst_and_mask``, without them, as ``chip_smoke.py``'s time
 phase called it before this script (the wrappers of that time made a zero
-``dst`` and mask for the backward on every call). Then row 8 at the shapes
+``dst`` and mask for the backward on every call). In a tree that has it,
+row 9b (the packed sum on bf16 data) follows row 9 on the same cases cast
+to bf16 and on ``chip_smoke.py``'s cases whose runs straddle the 128-slot
+chunks, bounded at bf16's bytes. Then row 8 at the shapes
 the main path gives it (``chip_smoke.py`` ``glue_inputs``: the packed
 training batch's node scatter and PackedMean's sum and count, each with its
 longest run): the kernel on the rows in sorted order, in every tree whose
@@ -80,7 +83,9 @@ def variant(root: Path, defines: list[str], into: Path) -> Path:
 
 
 def digest(t) -> str:
-    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()[:16]
+    import torch
+
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
 
 
 def stage_stamps(lib, call) -> dict:
@@ -262,25 +267,38 @@ def run(args, root: Path, tmp: Path) -> None:
     def rowptr_plain(x, V):
         return csr_segment.csr_segment_sum_reference(x["sorted_data"], x["row_ptr"], V)
 
-    # (row, name, kernel, plain version, library call, operations, bytes) at the first flat batch
+    def packed_bf16_plain(x, V):
+        return csr_segment.csr_segment_sum_packed_bf16_reference(x["data"], x["perm"], x["packed_dst"], V)
+
+    # (row, name, kernel, plain version, library call, operations, bytes, bound,
+    # the timed inputs, the checked cases), the timed inputs the first flat batch's
     rows = [
         (9, "csr_segment_sum_packed", packed, packed_plain, smoke.library_index_add(x), n_real * d,
-         n_real * d * 4 + smoke.nbytes(x["perm"], x["packed_dst"]) + V * d * 4),
+         n_real * d * 4 + smoke.nbytes(x["perm"], x["packed_dst"]) + V * d * 4, smoke.bound, x, cases),
         (8, "csr_segment_sum", rowptr, rowptr_plain, smoke.library_segment_reduce(x), G.num_edges * d,
-         smoke.nbytes(x["sorted_data"], x["row_ptr"]) + V * d * 4),
+         smoke.nbytes(x["sorted_data"], x["row_ptr"]) + V * d * 4, smoke.bound, x, cases),
     ]
-    for row, name, kernel, plain, library, ops, n_bytes in rows:
+    if hasattr(csr_segment, "csr_segment_sum_packed_bf16_reference"):  # row 9b: the messages in bf16
+        cases_9b = {**cases, **{case: smoke.chunk_flat_inputs(case, d, smoke.SEED + 8 + i)
+                                for i, case in enumerate(smoke.CHUNK_CASES)}}
+        cases_9b = {case: {**cx, "data": cx["data"].bfloat16()} for case, cx in cases_9b.items()}
+        xb = cases_9b["lipo_first_flat_batch"]
+        rows.insert(1, ("9b", "csr_segment_sum_packed_bf16", packed, packed_bf16_plain,
+                        smoke.library_index_add(xb), n_real * d,
+                        n_real * d * 2 + smoke.nbytes(x["perm"], x["packed_dst"]) + V * d * 2, smoke.bound_bf16,
+                        xb, cases_9b))
+    for row, name, kernel, plain, library, ops, n_bytes, bound, x_row, row_cases in rows:
         checks = {}
-        for case, cx in cases.items():
+        for case, cx in row_cases.items():
             cV = cx["row_ptr"].shape[0] - 1
             first, second = kernel(cx, cV), kernel(cx, cV)
             torch.cuda.synchronize()
             cpu = plain({k: v.cpu() for k, v in cx.items()}, cV)
             checks[case] = {"sha256": digest(first), "repeatable": bool(torch.equal(first, second)),
                             "cpu_plain_bits": bool(torch.equal(first.cpu(), cpu))}
-        t, plain_t, library_t = (smoke.time_ms(lambda: kernel(x, V)), smoke.time_ms(lambda: plain(x, V)),
+        t, plain_t, library_t = (smoke.time_ms(lambda: kernel(x_row, V)), smoke.time_ms(lambda: plain(x_row, V)),
                                  smoke.time_ms(library))
-        bound_ms, bound_by = smoke.bound(ops, n_bytes)
+        bound_ms, bound_by = bound(ops, n_bytes)
         record = {**tag, "row": row, "kernel": name,
                   "shape": {"V": V, "E": G.num_edges, "d": d, "real_edges": n_real,
                             "budget": x["perm"].shape[0] // (V // 128)},

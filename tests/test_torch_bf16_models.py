@@ -3,7 +3,9 @@ port against the JAX package on the CPU, from the same carried weights
 (which are float32 at every dtype in both packages).
 
 - ``build_dmpnn(dtype="bfloat16")`` (``layout: auto`` resolves to the plain
-  ``dense`` layout in both; and on ``flat``, the gather block), the GAT recipe (``build_gat`` GATv2 on the
+  ``dense`` layout in both; and on ``flat``, the gather block and the
+  ``impl: csr`` block on packed batches, whose every E->V sum is TPU kernel
+  row 9b, the JAX side in interpret mode), the GAT recipe (``build_gat`` GATv2 on the
   auto ``dense_packed`` layout, and on ``flat``), the graph-transformer
   recipe (``build_gat`` sdp, the einsum core: ``impl: auto`` picks ``jnp``
   below f32), and the declarative graph transformer on the kernel path
@@ -75,11 +77,12 @@ def models(kind, ds, jds):
     """(JAX model, port model, loader kwargs) of a bf16 model kind, each
     with its package's task transforms."""
     transforms, port_transforms = jds.build_task_transform_configs(), ds.build_task_transform_configs()
-    if kind in ("dmpnn", "dmpnn_flat"):
+    if kind in ("dmpnn", "dmpnn_flat", "dmpnn_csr"):
         layout = "auto" if kind == "dmpnn" else "flat"
-        kw = dict(hidden_dim=D, depth=2, dtype=BF16, layout=layout)
+        csr = kind == "dmpnn_csr"
+        kw = dict(hidden_dim=D, depth=2, dtype=BF16, layout=layout, impl="csr" if csr else "gather")
         return (jax_build_dmpnn(transforms=transforms, **kw), build_dmpnn(transforms=port_transforms, **kw),
-                {"layout": "dense" if kind == "dmpnn" else "flat"})
+                {"layout": "dense" if kind == "dmpnn" else "flat", "csr_pack": csr})
     if kind == "declarative":
         cfg = declarative_bf16_cfg()
         return (jax_build_model(cfg, transforms, None), build_model(cfg, port_transforms), {"layout": "dense"})
@@ -125,7 +128,7 @@ def drift(kind, ds, jds, scale=None):
     return pred_drift, grad_drift, abs(float(logs["train/loss"]) - float(loss)) / abs(float(loss))
 
 
-KINDS = ["dmpnn", "dmpnn_flat", "gat", "gat_flat", "transformer", "declarative"]
+KINDS = ["dmpnn", "dmpnn_flat", "dmpnn_csr", "gat", "gat_flat", "transformer", "declarative"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -139,7 +142,7 @@ def test_bf16_model_matches_jax(datasets, kind):  # noqa: F811
         assert err <= (BIAS_GRAD_RTOL if name.endswith(SUMMED) else GRAD_RTOL), (name, err)
 
 
-@pytest.mark.parametrize("kind", ["declarative"])
+@pytest.mark.parametrize("kind", ["declarative", "dmpnn_csr"])
 def test_a_scaled_weight_fails_the_gate(datasets, kind):  # noqa: F811
     """The port's first weight matrix scaled by 1.03 moves the predictions
     past PRED_RTOL: the gate catches a fault of a few percent."""

@@ -374,8 +374,8 @@ def test_flat_model_refusals():
         build_dmpnn(hidden_dim=8, layout="flat", graph_axis="graph")
     with pytest.raises(NotImplementedError, match="parallel slice"):
         build_dmpnn(hidden_dim=8, layout="flat", partition="halo")
-    with pytest.raises(NotImplementedError, match="float32"):  # row 9 takes f32 data
-        build_dmpnn(hidden_dim=8, layout="flat", impl="csr", dtype="bfloat16")
+    block = build_dmpnn(hidden_dim=8, layout="flat", impl="csr", dtype="bfloat16").network["mp"]
+    assert isinstance(block, ChempropBlock) and block.impl == "csr" and block.dtype == torch.bfloat16  # row 9b
     assert isinstance(build_dmpnn(hidden_dim=8, remat=True).network["mp"], ChempropBlock)  # auto -> flat
 
 

@@ -1,9 +1,10 @@
 """The kernels' bf16 modes against their plain versions, on the card: the
 attention core's rows 10b-13b with bf16 inputs (a bf16 model's path) and
 with ``matmul_dtype="bfloat16"`` on f32 inputs, the depth-fused D-MPNN
-forward's row 7b, row 8b (the ordered bf16 segment sum of the glue), and the
-bf16 graph-transformer block card against CPU. Skips where there is no CUDA
-device; imports no JAX:
+forward's row 7b, row 8b (the ordered bf16 segment sum of the glue), row 9b
+(the packed segment sum on bf16 data) and its gradient, and the bf16
+graph-transformer and ``impl: csr`` D-MPNN blocks card against CPU. Skips
+where there is no CUDA device; imports no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu_bf16.py -q
 
@@ -13,7 +14,8 @@ flip the next bf16 rounding (2^-8 relative): each tensor is held
 elementwise within BF16_ELEMENT_TOL of its largest magnitude and in
 relative L2 within BF16_L2_TOL, as rows 1b-6b are (``chip_smoke.py``). Row
 8b adds each segment's terms in the CPU plain version's order with the same
-roundings: bit for bit. Every kernel is called twice for the same bits.
+roundings: bit for bit; so does row 9b (each chunk's terms in slot order in
+f32, the same roundings at the same chunk boundaries). Every kernel is called twice for the same bits.
 The bf16 graph-transformer block, card against CPU, adds the dense layers
 (cuBLAS against the CPU's bf16 products) and two layers for a flipped
 rounding to grow through: its output and gradients held at BLOCK_ELEMENT_TOL
@@ -28,7 +30,13 @@ import numpy as np
 import pytest
 import torch
 
-from notorch_tpu_torch.kernels.csr_segment import bf16_chain_sum_reference, csr_segment_sum
+import chip_smoke
+from notorch_tpu_torch.kernels.csr_segment import (
+    bf16_chain_sum_reference,
+    csr_segment_sum,
+    csr_segment_sum_packed,
+    csr_segment_sum_packed_bf16_reference,
+)
 from notorch_tpu_torch.kernels.dense_attention import (
     dense_attention_bwd_reference,
     dense_attention_reference,
@@ -44,7 +52,9 @@ from notorch_tpu_torch.kernels.dense_mpnn import (
 )
 from notorch_tpu_torch.nn.attention_dense import DenseGATBlock
 
-from .test_torch_gpu import _dbuf_case, _glue_case, attention_case
+from notorch_tpu_torch.nn.chemprop import ChempropBlock
+
+from .test_torch_gpu import _dbuf_case, _glue_case, _packed_case, attention_case
 
 BF16_ELEMENT_TOL, BF16_L2_TOL = 1e-2, 1e-3
 BLOCK_ELEMENT_TOL, BLOCK_L2_TOL = 2e-2, 8e-3
@@ -210,3 +220,86 @@ def test_cuda_bf16_graph_transformer_block_matches_cpu():
             assert float((got - ref).abs().max()) <= BLOCK_ELEMENT_TOL * scale, name
         else:
             held(got, ref, f"the bf16 block's {name}", BLOCK_ELEMENT_TOL, BLOCK_L2_TOL)
+
+
+def _chunk_case(kind, d, seed=0):
+    """``_packed_case``'s cases, or ``chip_smoke.py``'s whose runs cross
+    128-slot chunks (``chunk_case_ids``), in ``_packed_case``'s form."""
+    if kind not in chip_smoke.CHUNK_CASES:
+        return _packed_case(kind, d, seed)
+    x = chip_smoke.chunk_flat_inputs(kind, d, seed)
+    return [x[k] for k in ("data", "perm", "packed_dst", "dst", "edge_mask")] + [chip_smoke.CHUNK_NODES, 128]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["molecules", "random", "messy", "tile48", *chip_smoke.CHUNK_CASES])
+@pytest.mark.parametrize("d", [256, 36])
+@pytest.mark.parametrize("tile_e", [128, 32])
+def test_cuda_bf16_packed_sum_gives_the_plain_versions_bits(kind, d, tile_e):
+    """Row 9b: one launch a call (``launches_bf16``), bf16 out, the bits of
+    its plain version on the card and on the CPU, twice the same; ``tile_e``
+    moves the chunk boundaries, and with them the result."""
+    needs_card()
+    data, perm, pdst, _, _, V, tile_v = _chunk_case(kind, d)
+    data = data.bfloat16()
+    before = (csr_segment_sum_packed.launches, csr_segment_sum_packed.launches_bf16)
+    out = csr_segment_sum_packed(data, perm, pdst, V, tile_v=tile_v, tile_e=tile_e)
+    again = csr_segment_sum_packed(data, perm, pdst, V, tile_v=tile_v, tile_e=tile_e)
+    plain = csr_segment_sum_packed_bf16_reference(data, perm, pdst, V, tile_v, tile_e)
+    torch.cuda.synchronize()
+    assert (csr_segment_sum_packed.launches, csr_segment_sum_packed.launches_bf16) == (before[0], before[1] + 2)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    assert torch.equal(out, plain), f"off its plain version by {float((out.float() - plain.float()).abs().max())}"
+    cpu = csr_segment_sum_packed_bf16_reference(data.cpu(), perm.cpu(), pdst.cpu(), V, tile_v, tile_e)
+    assert torch.equal(out.cpu(), cpu)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_packed_sum_gradient_and_refusals():
+    """Row 9b's gradient is the masked gather of the bf16 cotangent; the
+    wrapper refuses a budget that tile_e does not divide and rows whose
+    width is not a multiple of 4."""
+    needs_card()
+    data, perm, pdst, dst, mask, V, _ = _packed_case("molecules", 64)
+    x = data.bfloat16().requires_grad_()
+    g = torch.randn(V, 64, device="cuda").bfloat16()
+    csr_segment_sum_packed(x, perm, pdst, V, dst=dst, edge_mask=mask).backward(g)
+    assert x.grad.dtype == torch.bfloat16 and torch.equal(x.grad, torch.where(mask[:, None], g[dst.long()], 0.0))
+    with pytest.raises(ValueError, match="multiple of tile_e"):
+        csr_segment_sum_packed(data.bfloat16(), perm, pdst, V, tile_e=96)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        csr_segment_sum_packed(data[:, :30].bfloat16().contiguous(), perm, pdst, V)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_csr_block_matches_cpu():
+    """ChempropBlock(impl="csr", dtype="bfloat16") on the card (row 9b in
+    every reduce: 4 launches a forward) against the same block on the CPU:
+    output and every gradient at the bf16 block's hold (the dense layers'
+    products are summed in other orders; the reduces give the same bits)."""
+    needs_card()
+    from notorch_tpu_torch.data.graph import pad_graphs, with_csr_packing
+    from .test_torch_gpu import PIPE, SMIS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bg = with_csr_packing(pad_graphs([PIPE(s) for s in SMIS], 1024, 2048, np_out=True))
+    rng = np.random.default_rng(3)
+    nf, ef = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) for shape in ((1024, 64), (2048, 64)))
+    results = []
+    for device in ("cpu", "cuda"):
+        block = ChempropBlock(hidden_dim=64, depth=3, impl="csr", dtype="bfloat16")
+        block.reset_parameters(torch.Generator().manual_seed(0))
+        block.to(device)
+        x_n = nf.to(device).bfloat16().requires_grad_()
+        x_e = ef.to(device).bfloat16().requires_grad_()
+        before = csr_segment_sum_packed.launches_bf16
+        out = block(bg.to(device).update(node_feats=x_n, edge_feats=x_e))
+        (out.node_feats.float().square().sum() + out.edge_feats.float().sum()).backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert csr_segment_sum_packed.launches_bf16 - before == 4
+        results.append({"node_feats": out.node_feats.detach().cpu(), "edge_feats": out.edge_feats.detach().cpu(),
+                        "g_node_feats": x_n.grad.cpu(), "g_edge_feats": x_e.grad.cpu(),
+                        **{n: p.grad.cpu() for n, p in block.named_parameters()}})
+    for name, ref in results[0].items():
+        held(results[1][name], ref, f"the bf16 csr block's {name}", BLOCK_ELEMENT_TOL, BLOCK_L2_TOL)

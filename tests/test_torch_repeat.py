@@ -4,7 +4,7 @@ same weights; every parameter and every Adam state tensor must come out with
 the same bits). On the CPU at 8 threads, at hidden width 32, over every
 path whose glue gathers or sums (``x[idx]``'s backward adds by float atomics
 across threads there; ``take``'s and ``index_add``'s add in a fixed order);
-on the card at full width over the twelve paths of ``chip_smoke.py``'s
+on the card at full width over the thirteen paths of ``chip_smoke.py``'s
 repeat phase, where ``index_add_``, ``index_select``'s backward and
 ``torch.gather``'s backward add by float atomics and the port's
 ``segment_sum`` and ``take`` sum through TPU kernel row 8 in a fixed order.
@@ -22,7 +22,7 @@ import chip_smoke
 # the declarative GVP model's rows 14-15 run their plain versions here, a
 # minute for three steps: their bits twice are tests/test_torch_gvp_drift.py's
 CPU_PATHS = ("flat", "impl_csr", "flat_gat", "gvp_recipe", "recipe", "declarative", "declarative_attention",
-             "classification", "multicomponent", "schnet", "dropout", "bf16_block", "bf16_transformer")
+             "classification", "multicomponent", "schnet", "dropout", "bf16_block", "bf16_transformer", "bf16_csr")
 
 
 @pytest.mark.parametrize("path", CPU_PATHS)
