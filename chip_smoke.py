@@ -118,7 +118,9 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
   steps in lockstep with each backward and a served batch;
 - bf16 kernels: the depth-fused forward's bf16 mode (row 7b) in a phase of
   its own against its plain version and row 1b's bits; row 8b (the glue's
-  ordered bf16 sum) against the CPU's bits; the attention core's
+  ordered bf16 sum) against the CPU's bits, on the glue's cases and on pairs
+  of every class of BF16_PAIR_CLASSES (subnormals, signed zeros,
+  infinities, ties, exponent gaps); the attention core's
   ``matmul_dtype="bfloat16"`` mode (rows 10b-13b on f32 inputs, which no
   module passes) over the packed and dense batches in a phase of its own,
   then all four entries in both bf16 modes against their plain versions;
@@ -3008,23 +3010,89 @@ def dbuf_bf16_phase(inputs: list[tuple[list[torch.Tensor], int]]) -> tuple[int, 
     return count, max(c["max_abs_err"] for c in cases), cases
 
 
+# classes of bf16 pairs (a, b) on which row 8b's one rounding of a + b is
+# held to the f32 add rounded to bf16 (bf16_pairs)
+BF16_PAIR_CLASSES = ("normal", "gap_14_20", "gap_100", "ties", "subnormal", "signed_zero", "inf")
+
+
+def _bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 values rounded to bf16 (nearest, ties to even), as uint16 bits."""
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).bfloat16().view(torch.int16).numpy().view(np.uint16)
+
+
+def bf16_pairs(kind: str, n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """``n`` pairs of bf16 values of one of BF16_PAIR_CLASSES, as uint16 bits
+    ``(a, b)``: normal values over six decades; b 14-20 binades below a (where
+    an f32 sum of the two stops being exact) or 100 below; exact ties (b an
+    odd multiple of half a's ulp); subnormals (and the smallest normals);
+    +0, -0 and exact cancellations; infinities (never +inf with -inf, whose
+    sum is NaN) and sums that overflow. Both signs throughout."""
+    rng = np.random.default_rng(seed)
+    sign = lambda: rng.choice([-1.0, 1.0], size=n)  # noqa: E731
+    if kind == "normal":
+        a = sign() * rng.standard_normal(n) * 10.0 ** rng.uniform(-3, 3, n)
+        b = sign() * rng.standard_normal(n) * 10.0 ** rng.uniform(-3, 3, n)
+    elif kind in ("gap_14_20", "gap_100"):
+        gap = rng.integers(14, 21, n) if kind == "gap_14_20" else np.full(n, 100)
+        a = sign() * rng.uniform(1, 2, n) * 2.0 ** rng.integers(-10, 10, n)
+        b = sign() * rng.uniform(1, 2, n) * np.abs(a) * 2.0 ** -gap.astype(np.float64)
+    elif kind == "ties":
+        e = rng.integers(-20, 20, n).astype(np.float64)
+        a = sign() * (128 + rng.integers(0, 128, n)) * 2.0 ** (e - 7)
+        b = sign() * (2 * rng.integers(0, 64, n) + 1) * 2.0 ** (e - 8)
+    elif kind == "subnormal":
+        sub = lambda: sign() * rng.integers(1, 128, n) * 2.0 ** -133  # noqa: E731
+        a = sub()
+        b = np.where(rng.random(n) < 0.5, sub(), sign() * rng.integers(128, 160, n) * 2.0 ** -133)
+    elif kind == "signed_zero":
+        x = sign() * rng.standard_normal(n)
+        zeros = sign() * 0.0
+        a = np.where(rng.random(n) < 0.5, zeros, x)
+        b = np.select([rng.random(n) < 1 / 3, rng.random(n) < 0.5], [sign() * 0.0, -a], x)
+    elif kind == "inf":
+        big = np.float32(3.3895314e38)  # the largest bf16
+        s = sign()
+        a = np.where(rng.random(n) < 0.5, s * np.inf, s * big * rng.uniform(0.5, 1, n))
+        b = np.where(rng.random(n) < 0.3, s * np.inf, np.where(rng.random(n) < 0.5, s * big * rng.uniform(0.5, 1, n),
+                                                               sign() * rng.standard_normal(n)))
+    else:
+        raise ValueError(f"unknown pair class {kind!r}")
+    return _bf16_bits(a), _bf16_bits(b)
+
+
+def bf16_pair_rows(a: np.ndarray, b: np.ndarray, d: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Pairs as a segment sum: ``(data [2 * m, d] bf16, int64 ids, m)`` with
+    segment i's rows a's and b's values i * d .. i * d + d - 1 (m = len(a) //
+    d): row 8b's chain from zero gives each a + b rounded once."""
+    m = len(a) // d
+    rows = np.stack([a[: m * d].reshape(m, d), b[: m * d].reshape(m, d)], axis=1).reshape(2 * m, d)
+    data = torch.from_numpy(rows.view(np.int16).copy()).view(torch.bfloat16)
+    return data, torch.arange(m).repeat_interleave(2), m
+
+
 def bf16_glue_phase(glue_x: dict[str, tuple]) -> tuple[float, list[dict]]:
     """Row 8b through ``nn/ops.py`` ``segment_sum`` on the glue cases of
-    glue_inputs cast to bf16: twice the same bits, and the CPU's ordered
-    bf16 chain's bits. Returns 0 (the largest difference) and the cases."""
+    glue_inputs cast to bf16, and on pairs of every class of BF16_PAIR_CLASSES
+    (each segment a pair, at d = 8 and d = 3): twice the same bits, and the
+    CPU's ordered bf16 chain's bits. Returns 0 (the largest difference) and
+    the cases."""
     from notorch_tpu_torch.nn.ops import segment_sum
 
-    cases = []
-    for name, (data, ids, n) in glue_x.items():
-        data = data.bfloat16()
+    cases = {name: (data.bfloat16(), ids, n) for name, (data, ids, n) in glue_x.items()}
+    for i, kind in enumerate(BF16_PAIR_CLASSES):
+        for d in (8, 3):
+            data, ids, n = bf16_pair_rows(*bf16_pairs(kind, 4096, SEED + 70 + i), d)
+            cases[f"pairs_{kind}_d{d}"] = (data.cuda(), ids.cuda(), n)
+    records = []
+    for name, (data, ids, n) in cases.items():
         first, second = segment_sum(data, ids, n), segment_sum(data, ids, n)
         torch.cuda.synchronize()
         cpu = segment_sum(data.cpu(), ids.cpu(), n)
         if not (torch.equal(first, second) and torch.equal(first.cpu(), cpu)):
             fail(f"row 8b ({name}): two calls differ or the CPU's ordered bf16 chain gives other bits")
-        cases.append({"case": name, "rows": data.shape[0], "segments": n, "cpu_bits": True,
-                      "bitwise_repeatable": True})
-    return 0.0, cases
+        records.append({"case": name, "rows": data.shape[0], "segments": n, "cpu_bits": True,
+                        "bitwise_repeatable": True})
+    return 0.0, records
 
 
 # the repeat check: each path's model built from SEED takes REPEAT_STEPS
@@ -3150,6 +3218,18 @@ def gvp_work(x: dict, bwd: bool) -> tuple[int, int, int]:
     return ops, ins + outs, padded_ops
 
 
+def table_gradient(G, d: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Row 8b's longest chain on the main path: the gradient of a bf16 atom
+    embedding table on the dense batch ``G`` (its [B, V, 7] type ids; on the
+    first lipo batch 21,504 ids into DEFAULT_NUM_ATOM_TYPES rows, the padding
+    id a run of 9,513), seeded bf16 cotangents of width d, as ``(data, int64
+    ids, num_segments)`` on the CPU."""
+    ids = torch.as_tensor(np.asarray(G.node_feats)).reshape(-1).long()
+    rng = np.random.default_rng(SEED + 60)
+    data = torch.from_numpy(rng.standard_normal((ids.numel(), d)).astype(np.float32)).bfloat16()
+    return data, ids, DEFAULT_NUM_ATOM_TYPES
+
+
 def bf16_time_records(main_args, n_nodes: int, attn_x: dict[str, list], dense_G, heads: int,
                       path: dict, errors: dict) -> list[dict]:
     """Rows 7b, 8b and 10b-13b timed as their f32 rows are (a CUDA graph of
@@ -3158,9 +3238,12 @@ def bf16_time_records(main_args, n_nodes: int, attn_x: dict[str, list], dense_G,
     dtype): row 7b at row 7's shape; rows 10b-11b (matmul_dtype) at the
     packed first batch, rows 12b-13b in both modes at the dense first batch
     (``attn_x``); row 8b at the bf16 transformer's node-table backward on the
-    dense first batch (``dense_G``'s type ids into the table, the plain
-    version eager over 2 calls: its steps read the run lengths on the host,
-    a launch or more a step). ``path``:
+    dense first batch (``table_gradient``: its run of 9,513 rows is the main
+    path's longest chain; the plain version's bits twice, then timed, the
+    plain version eager over 2 calls: its steps read the run lengths on the
+    host, a launch or more a step), its bound the larger of the bytes bound
+    and the chain floor (that run's adds times one add's latency on this
+    card, ``chain_add_latency``). ``path``:
     each record's launches; ``errors``: its largest error against its plain
     version. Returns the kernels-line records."""
     depth, d = MODEL_CFG["depth"], MODEL_CFG["hidden_dim"]
@@ -3209,23 +3292,35 @@ def bf16_time_records(main_args, n_nodes: int, attn_x: dict[str, list], dense_G,
                            "bias built beforehand"), launches=path[name])
         records.append(kernel_record(fn, path[name], errors[name], kernel_t, plain_t, bound_ms, bound_by, library_t,
                                      name=name))
-    from notorch_tpu_torch.kernels.csr_segment import segment_sum_in_order, sorted_segments
+    from notorch_tpu_torch.kernels.csr_segment import chain_add_latency, segment_sum_in_order, sorted_segments
 
-    ids = torch.as_tensor(np.asarray(dense_G.node_feats)).reshape(-1).long().cuda()
-    n = DEFAULT_NUM_ATOM_TYPES
-    data = torch.from_numpy(np.random.default_rng(SEED + 60).standard_normal((ids.numel(), d))
-                            .astype(np.float32)).cuda().bfloat16()
+    data, ids, n = table_gradient(dense_G, d)
+    data, ids = data.cuda(), ids.cuda()
     order, row_ptr = sorted_segments(ids, n)
+    got = segment_sum_in_order(data, order, row_ptr, n)
+    again = segment_sum_in_order(data, order, row_ptr, n)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, again) and torch.equal(got.cpu(), segment_sum_in_order_reference(
+            data.cpu(), order.cpu(), row_ptr.cpu(), n))):
+        fail("row 8b at the table gradient: two calls differ or the plain version gives other bits")
     kernel_t = time_ms(lambda: segment_sum_in_order(data, order, row_ptr, n))
     segment_sum_in_order_reference(data, order, row_ptr, n)
     plain_ms = _elapsed_ms(lambda: segment_sum_in_order_reference(data, order, row_ptr, n), 2)
     library_t = time_ms(lambda: torch.zeros(n, d, dtype=torch.bfloat16, device="cuda").index_add_(0, ids, data))
-    bound_ms, bound_by = bound_bf16(ids.numel() * d, nbytes(data, order, row_ptr) + n * d * 2)
+    bytes_ms, _ = bound_bf16(ids.numel() * d, nbytes(data, order, row_ptr) + n * d * 2)
+    longest = int(torch.bincount(ids).max())
+    latency = chain_add_latency()
+    chain_floor_ms = longest * latency["ns_per_add"] * 1e-6
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (chain_floor_ms, "operations"))
     emit(phase="time", kernel="csr_segment_sum_bf16", shape={"rows": ids.numel(), "d": d, "segments": n,
-                                                             "longest_run": int(torch.bincount(ids).max())},
+                                                             "longest_run": longest},
          ms=kernel_t["device"], eager_ms=kernel_t["eager"], plain_ms=plain_ms, plain_note="eager",
          library_ms=library_t["device"], library_note="torch.zeros(segments, d, bf16).index_add_ (one rounding, "
-         "atomics in no fixed order)", bound_ms=bound_ms, bound_by=bound_by, launches=path["csr_segment_sum_bf16"])
+         "atomics in no fixed order)", bytes_bound_ms=bytes_ms, chain_floor_ms=chain_floor_ms,
+         chain_add=latency, bound_ms=bound_ms, bound_by=bound_by,
+         bound_note="the larger of the bytes over 3.35 TB/s and the chain floor: the longest run's adds, each "
+         "waiting on the last, times one add's latency on this card (chain_add)",
+         cpu_plain_bits=True, bitwise_repeatable=True, launches=path["csr_segment_sum_bf16"])
     records.append(kernel_record(csr_segment_sum, path["csr_segment_sum_bf16"], errors["csr_segment_sum_bf16"],
                                  kernel_t, {"device": plain_ms}, bound_ms, bound_by, library_t,
                                  name="csr_segment_sum_bf16"))

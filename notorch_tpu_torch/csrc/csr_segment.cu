@@ -22,12 +22,11 @@
 //            Every edge of the range is summed: the TPU kernel's grid stops
 //            after (tile_v * max_degree) / tile_e + 2 chunks of a tile and
 //            drops the edges past them; this one does not.
-// Row 8b, the row-pointer kernel's bf16 mode (kChain): the same walk, with the
-// running sum rounded to bf16 (nearest, ties to even) after every add, as
-// XLA adds the rows of a bf16 scatter-add (jax.ops.segment_sum of bf16 data,
-// the VJP of a bf16 gather): the wrapper hands it the bf16 rows as f32
-// (exact) and casts the result back, which every value of the chain already
-// is.
+// Row 8b, the row-pointer sum on bf16 rows (rowptr_kernel_bf16): the same
+// walk, with the running sum rounded to bf16 (nearest, ties to even) after
+// every add, as XLA adds the rows of a bf16 scatter-add (jax.ops.segment_sum
+// of bf16 data, the VJP of a bf16 gather); bf16 read and bf16 written, one
+// launch a call. See rowptr_kernel_bf16 below.
 // Row 9b, the packed kernel's bf16 mode (kBf16): bf16 rows read as
 // __nv_bfloat16 (8 bytes a lane: d a multiple of 4) and widened exactly,
 // summed in f32 in slot order within each tile_e-slot chunk of the tile's
@@ -391,17 +390,13 @@ __device__ inline void load_window(float* buf, const float* __restrict__ data,
 template <int kFloats>
 using Lane = std::conditional_t<kFloats == 4, float4, float>;
 
-// a + b, rounded to bf16 with kRound (row 8b's chain).
-template <bool kRound>
-__device__ inline float add_lane(float a, float b) { return operand<kRound>(a + b); }
-template <bool kRound>
-__device__ inline float4 add_lane(float4 a, float4 b) { return operand4<kRound>(add4(a, b)); }
+__device__ inline float add_lane(float a, float b) { return a + b; }
+__device__ inline float4 add_lane(float4 a, float4 b) { return add4(a, b); }
 
 // acc plus the rows at, at + stride, ... (count of them) of a window, in
 // order: the next kChain rows' reads in flight while the last kChain are
 // added. kStride is the row stride in floats, or 0 for w at run time.
-// kRound rounds every add to bf16.
-template <int kStride, bool kRound, typename V>
+template <int kStride, typename V>
 __device__ inline V add_rows(V acc, const float* at, int count, int w) {
   const int stride = kStride != 0 ? kStride : w;
   int r = 0;
@@ -413,21 +408,21 @@ __device__ inline V add_rows(V acc, const float* at, int count, int w) {
 #pragma unroll
       for (int u = 0; u < kChain; ++u) next[u] = *reinterpret_cast<const V*>(at + u * stride);
 #pragma unroll
-      for (int u = 0; u < kChain; ++u) acc = add_lane<kRound>(acc, x[u]);
+      for (int u = 0; u < kChain; ++u) acc = add_lane(acc, x[u]);
 #pragma unroll
       for (int u = 0; u < kChain; ++u) x[u] = next[u];
     }
 #pragma unroll
-    for (int u = 0; u < kChain; ++u) acc = add_lane<kRound>(acc, x[u]);
+    for (int u = 0; u < kChain; ++u) acc = add_lane(acc, x[u]);
   }
-  for (; r < count; ++r, at += stride) acc = add_lane<kRound>(acc, *reinterpret_cast<const V*>(at));
+  for (; r < count; ++r, at += stride) acc = add_lane(acc, *reinterpret_cast<const V*>(at));
   return acc;
 }
 
 // Steps 2-3 of rowptr_kernel for one block: the span [lo, hi) of its n nodes
 // (row pointers rp) staged in windows, each team's nodes summed as their rows
 // arrive. A team is w / kFloats lanes, each holding kFloats columns.
-template <int kVec, int kFloats, bool kRound>
+template <int kVec, int kFloats>
 __device__ inline void sum_group(const float* __restrict__ data, const long long* __restrict__ order,
                                  float* __restrict__ out, const int* rp, float* windows, int d, int n,
                                  int v0, int c0, int w, int lo, int hi) {
@@ -461,7 +456,7 @@ __device__ inline void sum_group(const float* __restrict__ data, const long long
       for (; j < n; j += teams) {
         const int a = max(rp[j], r0), b = min(rp[j + 1], r1);
         const float* at = buf + (a - r0) * w;
-        acc = w == kSlice ? add_rows<kSlice, kRound>(acc, at, b - a, w) : add_rows<0, kRound>(acc, at, b - a, w);
+        acc = w == kSlice ? add_rows<kSlice>(acc, at, b - a, w) : add_rows<0>(acc, at, b - a, w);
         if (rp[j + 1] > r1) break;  // the run goes on in the next window
         o[j * stride] = acc;
         acc = V{};
@@ -477,7 +472,7 @@ __device__ inline void sum_group(const float* __restrict__ data, const long long
     }
 }
 
-template <int kVec, bool kRound>
+template <int kVec>
 __global__ void __launch_bounds__(kRowThreads)
     rowptr_kernel(const float* __restrict__ data, const int* __restrict__ row_ptr,
                   const long long* __restrict__ order, float* __restrict__ out, int E, int d,
@@ -502,14 +497,250 @@ __global__ void __launch_bounds__(kRowThreads)
   // chains through the run's rows took less time on the card
   if constexpr (kVec == 4) {
     if (hi - lo > kLongSpan)
-      sum_group<4, 1, kRound>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
+      sum_group<4, 1>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
     else
-      sum_group<4, 4, kRound>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
+      sum_group<4, 4>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
   } else {
-    sum_group<1, 1, kRound>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
+    sum_group<1, 1>(data, order, out, rp, windows, d, n, v0, c0, w, lo, hi);
   }
   __syncthreads();
   row_stamp(3);
+}
+
+// ---- row 8b: the ordered bf16 sum --------------------------------------------
+//
+// rowptr_kernel_bf16 computes what rowptr_kernel computes, on bf16 rows, with
+// the running sum rounded to bf16 after every add: out[v] (bf16) is the chain
+// 0 + x_1 + x_2 + ... over v's rows in ascending e, each add rounded to the
+// nearest bf16, ties to even. A tree of partial sums cannot give those bits,
+// so every output element is one chain of dependent adds, and a long run (the
+// padding ids of an embedding table's gradient: 9,513 of the dense first
+// lipo batch's 21,504 type ids) is one chain as long as the run. What bounds
+// it is that chain: the longest run times one add's latency (chip_smoke.py
+// measures that latency with csr_segment_chain_latency and reports it beside
+// the bytes bound), not the bytes.
+//
+// One step of the chain is one instruction. A lane carries a pair of columns
+// as a bf16x2 and adds a row's pair with add.rn.bf16x2: one rounding of the
+// exact sum of two bf16 values. That is the f32 add rounded
+// to bf16 which XLA (and the plain version) computes: where the exponents
+// differ by at most 15 the f32 sum is exact; where they differ more, the
+// smaller term lies far below half a bf16 ulp of the larger, and both round
+// to the larger. Subnormals are kept (add.bf16x2 has no flush-to-zero mode)
+// and +0 + -0 is +0. (tests/test_torch_bf16_chain.py pins the identity over
+// random, gapped, tied, subnormal, zero and infinite pairs on the CPU;
+// tests/test_torch_gpu_bf16.py holds the kernel to the plain version's bits
+// on the card for the same classes and 2^20 random bit patterns: on an H100
+// the packed add gave the f32 add's rounded bits in every case, so the f32
+// add with a packed cvt.rn.bf16x2.f32, three dependent instructions a step,
+// is not needed.) An odd width stages a zero in its last pair's high half,
+// which no store reads.
+//
+// A block per (group of consecutive nodes, slice of kSlice columns), as
+// rowptr_kernel, with its warps split in two roles, so that a long run never
+// waits on a barrier of the whole block:
+//   - kBfProducers producer warps fill a ring of kBfStages windows of the
+//     span's rows (at most kBfWindowRows rows a window, the slice's columns
+//     as bf16 pairs), window k by warp k % kBfProducers: a lane reads the
+//     order index of each of its rows once (coalesced, all in flight before
+//     the window's buffer is waited for), then copies the row's slice by
+//     cp.async (16-byte pieces where d is a multiple of 8 and data 16-byte
+//     aligned, else 4-byte pieces where d is even, else plain loads and
+//     stores) and arrives on the window's full mbarrier when its copies land
+//     (cp.async.mbarrier.arrive.noinc);
+//   - the other warps consume the windows in order as they arrive (each waits
+//     on the window's full mbarrier, then arrives on its empty one): teams of
+//     lanes, a lane a pair of columns, take the group's nodes in turn and add
+//     their rows, the next kChain rows read from shared memory ahead of their
+//     adds, carrying a run's sum from window to window; a node is written
+//     once, bf16.
+// A window's buffer is refilled only after every consumer lane has arrived on
+// its empty mbarrier. Dependent device-memory round trips: the row pointers,
+// then a window's indices and its rows, kBfStages windows in flight.
+constexpr int kBfThreads = 256;
+constexpr int kBfProducers = 2;                                  // producer warps
+constexpr int kBfConsumerThreads = kBfThreads - 32 * kBfProducers;
+constexpr int kBfStages = 4;                                     // windows in the ring
+constexpr int kBfWindowRows = 256;                               // rows of a window, at most
+constexpr int kBfLaneRows = kBfWindowRows / 32;                  // of a producer lane
+constexpr int kBfWindowWords = kBfWindowRows * kSlice / 2;       // 32-bit words of a window (16 KiB)
+
+__device__ inline unsigned smem_at(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+__device__ inline void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_at(bar)), "r"(count) : "memory");
+}
+
+__device__ inline void mbar_arrive(uint64_t* bar) {
+  unsigned long long state;
+  asm volatile("mbarrier.arrive.shared::cta.b64 %0, [%1];\n" : "=l"(state) : "r"(smem_at(bar)) : "memory");
+}
+
+// An arrive on bar when this thread's cp.async copies so far have landed.
+__device__ inline void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_at(bar)) : "memory");
+}
+
+// Wait until the phase of bar with this parity has completed.
+__device__ inline void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_at(bar)), "r"(parity)
+        : "memory");
+}
+
+// One step of the chain: a + b for two bf16 pairs, each half rounded to bf16.
+__device__ inline unsigned add_bf16x2(unsigned a, unsigned b) {
+  unsigned out;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(out) : "r"(a), "r"(b));
+  return out;
+}
+
+// acc plus the pairs at, at + stride, ... (count of them), in order: the next
+// kChain rows' reads in flight while the last kChain are added.
+__device__ inline unsigned add_pairs(unsigned acc, const unsigned* at, int count, int stride) {
+  int r = 0;
+  if (count >= kChain) {
+    unsigned x[kChain], next[kChain];
+#pragma unroll
+    for (int u = 0; u < kChain; ++u) x[u] = at[u * stride];
+    for (r = kChain, at += kChain * stride; r + kChain <= count; r += kChain, at += kChain * stride) {
+#pragma unroll
+      for (int u = 0; u < kChain; ++u) next[u] = at[u * stride];
+#pragma unroll
+      for (int u = 0; u < kChain; ++u) acc = add_bf16x2(acc, x[u]);
+#pragma unroll
+      for (int u = 0; u < kChain; ++u) x[u] = next[u];
+    }
+#pragma unroll
+    for (int u = 0; u < kChain; ++u) acc = add_bf16x2(acc, x[u]);
+  }
+  for (; r < count; ++r, at += stride) acc = add_bf16x2(acc, *at);
+  return acc;
+}
+
+// A row's slice of w bf16 values from src into a window row at dst (words
+// pairs): kVec 8 by 16-byte cp.async, 2 by 4-byte cp.async, 1 by plain loads
+// and stores (an odd w's last pair padded with a zero).
+template <int kVec>
+__device__ inline void copy_row(unsigned* dst, const __nv_bfloat16* __restrict__ src, int w) {
+  if constexpr (kVec == 1) {
+    uint16_t* to = reinterpret_cast<uint16_t*>(dst);
+    const uint16_t* from = reinterpret_cast<const uint16_t*>(src);
+    for (int c = 0; c < w; ++c) to[c] = from[c];
+    if (w % 2) to[w] = 0;
+  } else {
+    for (int c = 0; c < w; c += kVec)
+      cp_async<2 * kVec>(reinterpret_cast<float*>(dst + c / 2), reinterpret_cast<const float*>(src + c));
+  }
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(kBfThreads)
+    rowptr_kernel_bf16(const __nv_bfloat16* __restrict__ data, const int* __restrict__ row_ptr,
+                       const long long* __restrict__ order, __nv_bfloat16* __restrict__ out, int E, int d,
+                       int num_nodes, int group) {
+  extern __shared__ float4 rowptr_smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(rowptr_smem);           // [kBfStages]
+  uint64_t* empty = full + kBfStages;                                  // [kBfStages]
+  unsigned* windows = reinterpret_cast<unsigned*>(empty + kBfStages);  // [kBfStages][kBfWindowWords]
+  int* rp = reinterpret_cast<int*>(windows + kBfStages * kBfWindowWords);  // [group + 1]
+  const int v0 = blockIdx.x * group, n = min(group, num_nodes - v0);
+  const int c0 = blockIdx.y * kSlice, w = min(kSlice, d - c0);
+  const int words = (w + 1) / 2;  // bf16 pairs of a staged row
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  for (int i = threadIdx.x; i <= n; i += kBfThreads) rp[i] = min(max(row_ptr[v0 + i], 0), E);
+  if (threadIdx.x < kBfStages) {
+    mbar_init(full + threadIdx.x, 32);                   // the lanes of the window's producer warp
+    mbar_init(empty + threadIdx.x, kBfConsumerThreads);  // every consumer lane
+  }
+  __syncthreads();
+  const int lo = rp[0], hi = max(rp[n], lo);
+  const int count = (hi - lo + kBfWindowRows - 1) / kBfWindowRows;
+
+  if (warp < kBfProducers) {
+    for (int k = warp; k < count; k += kBfProducers) {
+      const int slot = k % kBfStages, r0 = lo + k * kBfWindowRows, nr = min(kBfWindowRows, hi - r0);
+      long long e[kBfLaneRows];
+#pragma unroll
+      for (int u = 0; u < kBfLaneRows; ++u) {
+        const int r = lane + 32 * u;
+        e[u] = r >= nr ? -1 : order != nullptr ? order[r0 + r] : (long long)(r0 + r);
+      }
+      if (k >= kBfStages) mbar_wait(empty + slot, (k / kBfStages + 1) & 1);
+      unsigned* buf = windows + slot * kBfWindowWords;
+#pragma unroll
+      for (int u = 0; u < kBfLaneRows; ++u)
+        if (e[u] >= 0) copy_row<kVec>(buf + (lane + 32 * u) * words, data + (size_t)e[u] * d + c0, w);
+      if constexpr (kVec == 1)
+        mbar_arrive(full + slot);
+      else
+        cp_async_arrive(full + slot);
+    }
+    if constexpr (kVec != 1) cp_async_wait<0>();
+    return;
+  }
+
+  // consumers: teams of `words` lanes, lane `col` of a team the pair of
+  // columns c0 + 2 col, c0 + 2 col + 1
+  const int per_warp = 32 / words, t = lane / words, col = lane - t * words;
+  const bool active = t < per_warp;
+  const int teams = kBfConsumerThreads / 32 * per_warp;
+  int j = (warp - kBfProducers) * per_warp + t;  // the team's node in the group
+  unsigned acc = 0u;
+  uint16_t* o = reinterpret_cast<uint16_t*>(out) + (size_t)v0 * d + c0 + 2 * col;
+  const bool high = 2 * col + 1 < w;
+  auto store = [&](int node) {
+    o[(size_t)node * d] = (uint16_t)(acc & 0xffffu);
+    if (high) o[(size_t)node * d + 1] = (uint16_t)(acc >> 16);
+    acc = 0u;
+  };
+  for (int k = 0; k < count; ++k) {
+    const int slot = k % kBfStages;
+    mbar_wait(full + slot, (k / kBfStages) & 1);
+    const unsigned* buf = windows + slot * kBfWindowWords + col;
+    const int r0 = lo + k * kBfWindowRows, r1 = min(r0 + kBfWindowRows, hi);
+    if (active) {
+      for (; j < n; j += teams) {
+        const int a = max(rp[j], r0), b = min(rp[j + 1], r1);
+        acc = add_pairs(acc, buf + (a - r0) * words, b - a, words);
+        if (rp[j + 1] > r1) break;  // the run goes on in the next window
+        store(j);
+      }
+    }
+    mbar_arrive(empty + slot);
+  }
+  if (active)  // nodes past the span (empty), or every node of an empty span
+    for (; j < n; j += teams) store(j);
+}
+
+__host__ __device__ inline size_t rowptr_bf16_smem_bytes(int group) {
+  return sizeof(uint64_t) * 2 * kBfStages + sizeof(unsigned) * (size_t)kBfStages * kBfWindowWords +
+         sizeof(int) * ((size_t)group + 1);
+}
+
+// The chain floor's probe: one thread adds x to a bf16 pair iters * 64 times,
+// each add depending on the last (the chain's own instruction, kept in order
+// by volatile asm), and writes the chain's SM cycles and %globaltimer
+// nanoseconds, then the sum.
+__global__ void chain_latency_kernel(unsigned long long* out, unsigned x, int iters) {
+  unsigned acc = x;
+  unsigned long long t0, t1;
+  const long long c0 = clock64();
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < 64; ++u) asm volatile("add.rn.bf16x2 %0, %0, %1;\n" : "+r"(acc) : "r"(x));
+  }
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
+  const long long c1 = clock64();
+  out[0] = (unsigned long long)(c1 - c0);
+  out[1] = t1 - t0;
+  out[2] = acc;
 }
 
 bool bad_rows(const float* data, const float* out, int E, int d) {
@@ -597,12 +828,10 @@ int csr_segment_sum_packed_bf16(const __nv_bfloat16* data, const int* perm, cons
 // The row-pointer sum: data[rows, d] (any d >= 0), row_ptr[num_nodes + 1]
 // int32 (nondecreasing), out[num_nodes, d]; with order (int64, E entries, each
 // a row of data) the sum reads data[order[e]], without it data[e] (E rows).
-// bf16_chain nonzero rounds the running sum to bf16 after every add (row 8b;
-// data then holds bf16 values). Device pointers of contiguous arrays; the
-// stream is a cudaStream_t. Returns the cudaError_t of the launch (0 on
-// success).
+// Device pointers of contiguous arrays; the stream is a cudaStream_t. Returns
+// the cudaError_t of the launch (0 on success).
 int csr_segment_sum_rowptr_f32(const float* data, const int* row_ptr, const long long* order, float* out,
-                               int E, int d, int num_nodes, int bf16_chain, void* stream) {
+                               int E, int d, int num_nodes, void* stream) {
   if (E < 0 || d < 0 || num_nodes < 0) return (int)cudaErrorInvalidValue;
   if (d == 0 || num_nodes == 0) return (int)cudaSuccess;
   const int group = rowptr_group(E, d, num_nodes);
@@ -610,21 +839,55 @@ int csr_segment_sum_rowptr_f32(const float* data, const int* row_ptr, const long
   const long long slices = ((long long)d + kSlice - 1) / kSlice;
   if (groups > 0x7fffffffLL || slices > 65535) return (int)cudaErrorInvalidValue;
   const bool vec = d % 4 == 0 && ((uintptr_t)data | (uintptr_t)out) % 16 == 0;
-  const int which = 2 * (bf16_chain != 0) + vec;
-  const void* kernels[4] = {(const void*)rowptr_kernel<1, false>, (const void*)rowptr_kernel<4, false>,
-                            (const void*)rowptr_kernel<1, true>, (const void*)rowptr_kernel<4, true>};
+  const void* kernels[2] = {(const void*)rowptr_kernel<1>, (const void*)rowptr_kernel<4>};
   const size_t smem = rowptr_smem_bytes(group);
-  static uint64_t configured[4] = {0, 0, 0, 0};
-  const cudaError_t err = allow_smem(kernels[which], (int)rowptr_smem_bytes(kMaxGroup), configured[which]);
+  static uint64_t configured[2] = {0, 0};
+  const cudaError_t err = allow_smem(kernels[vec], (int)rowptr_smem_bytes(kMaxGroup), configured[vec]);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)groups, (unsigned)slices);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    rowptr_kernel<4><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group);
+  else
+    rowptr_kernel<1><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group);
+  return (int)cudaGetLastError();
+}
+
+// Row 8b, the row-pointer sum on bf16 data: as csr_segment_sum_rowptr_f32,
+// with data and out bf16 (any d, any 2-byte alignment) and the running sum
+// rounded to bf16 after every add, in one launch.
+int csr_segment_sum_rowptr_bf16(const __nv_bfloat16* data, const int* row_ptr, const long long* order,
+                                __nv_bfloat16* out, int E, int d, int num_nodes, void* stream) {
+  if (E < 0 || d < 0 || num_nodes < 0) return (int)cudaErrorInvalidValue;
+  if (d == 0 || num_nodes == 0) return (int)cudaSuccess;
+  const int group = rowptr_group(E, d, num_nodes);
+  const long long groups = ((long long)num_nodes + group - 1) / group;
+  const long long slices = ((long long)d + kSlice - 1) / kSlice;
+  if (groups > 0x7fffffffLL || slices > 65535) return (int)cudaErrorInvalidValue;
+  const int which = d % 8 == 0 && (uintptr_t)data % 16 == 0 ? 2 : d % 2 == 0 && (uintptr_t)data % 4 == 0 ? 1 : 0;
+  const void* kernels[3] = {(const void*)rowptr_kernel_bf16<1>, (const void*)rowptr_kernel_bf16<2>,
+                            (const void*)rowptr_kernel_bf16<8>};
+  static uint64_t configured[3] = {0, 0, 0};
+  const cudaError_t err =
+      allow_smem(kernels[which], (int)rowptr_bf16_smem_bytes(kMaxGroup), configured[which]);
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = rowptr_bf16_smem_bytes(group);
+  const dim3 grid((unsigned)groups, (unsigned)slices);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (which) {
-    case 0: rowptr_kernel<1, false><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group); break;
-    case 1: rowptr_kernel<4, false><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group); break;
-    case 2: rowptr_kernel<1, true><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group); break;
-    default: rowptr_kernel<4, true><<<grid, kRowThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group);
+    case 0: rowptr_kernel_bf16<1><<<grid, kBfThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group); break;
+    case 1: rowptr_kernel_bf16<2><<<grid, kBfThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group); break;
+    default: rowptr_kernel_bf16<8><<<grid, kBfThreads, smem, s>>>(data, row_ptr, order, out, E, d, num_nodes, group);
   }
+  return (int)cudaGetLastError();
+}
+
+// The chain floor's probe (chain_latency_kernel): out[3] (device, uint64)
+// gets the SM cycles and nanoseconds of iters * 64 dependent adds of row 8b's
+// chain, then the sum. Returns the cudaError_t of the launch.
+int csr_segment_chain_latency(unsigned long long* out, int iters, void* stream) {
+  if (iters <= 0) return (int)cudaErrorInvalidValue;
+  chain_latency_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(out, 0x3f803f80u, iters);
   return (int)cudaGetLastError();
 }
 

@@ -78,20 +78,35 @@
 //     the same inputs give the same bits. No float atomics: the only atomics
 //     are the integer arrival counts and in-degrees.
 //
-// matmul_dtype="bfloat16" is the kBf16 instantiation of the adjoint, the
-// products and the gather's VJP: the operands the TPU kernel casts with
-// .astype(bfloat16) are rounded to bf16 where they are read or staged (g into
-// A^T g; A^T's mean coefficients; relu(h_in) and g_mW into g_W; g_mW and W
-// into g_in; gn and the mean's scatter scale in the prologue; nf in h0's
-// recompute; g_h0 into the gather's VJP), and the FMAs and sums stay f32 in
-// the orders above. stash_dtype="bfloat16" is the kHalfIn instantiation of
-// the products: the layer input is read from the bf16 stash, for the ReLU
-// mask and for g_W's operand alike.
+// matmul_dtype="bfloat16" is the kBf16 instantiation of the adjoint and the
+// gather's VJP, and bwd_gemm_mma_kernel for the products: the operands the
+// TPU kernel casts with .astype(bfloat16) are rounded to bf16 where they are
+// read or staged (g into A^T g; A^T's mean coefficients; relu(h_in) and g_mW
+// into g_W; g_mW and W into g_in; gn and the mean's scatter scale in the
+// prologue; nf in h0's recompute; g_h0 into the gather's VJP), and the sums
+// stay f32. The adjoint and the gather's VJP keep the orders above. The
+// products' operands are then bf16, so they multiply on the tensor cores
+// (bf16_mma.cuh: mma.sync m16n8k16, f32 accumulate), in the f32 kernel's
+// jobs, chunks and epilogues (64 x 64 tiles). At the tensor cores' bf16 rate
+// the products take a fraction of the time their operands take to arrive, so
+// the jobs are bound by their operands' bytes through L2 (their k-slabs of
+// 32 staged two at a time, f32 rounded to bf16 as staged, the stash copied
+// as it is). The epilogue's loads are all in flight before its stores; a
+// g_W chunk is kMmaChunkRows rows, and the last block of a g_W tile keeps
+// kSumAhead chunks' loads in flight: the chunk sum is the sweep's tail.
+// The sum of each output runs in the tensor cores' order, not by ascending k,
+// so it differs from the f32 FMA chain by f32 roundings; the chunks of g_W
+// are still added in ascending chunk order, and two calls give the same bits.
+// stash_dtype="bfloat16" is the kHalfIn instantiation of the products: the
+// layer input is read from the bf16 stash, for the ReLU mask and for g_W's
+// operand alike (with matmul_dtype, its k-slabs copied as they are by
+// cp.async and the ReLU taken on the fragments).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <initializer_list>
 
+#include "bf16_mma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -102,6 +117,12 @@ constexpr int kSliceThreads = 1024;  // the adjoint and node-gradient blocks
 constexpr int kMaxEdges = 256;    // edge lanes per bin this kernel takes
 constexpr int kMaxNodes = 256;    // node slots per bin the encoder's ends take
 constexpr int kChunkRows = 256;   // rows of the R-row sum per weight-gradient partial
+// the bf16 products' (bwd_gemm_mma_kernel): rows of a weight-gradient chunk (a
+// multiple of kChunkRows, so that the scratch sized by it suffices), and the
+// chunks whose loads a thread has in flight at once in the sum of the chunks
+constexpr int kMmaChunkRows = 512;
+constexpr int kSumAhead = 4;
+static_assert(kMmaChunkRows % kChunkRows == 0, "the scratch holds kChunkRows chunks");
 constexpr int kTT = 32;           // the side of a transposed tile of W
 constexpr int kMaxWords = kMaxEdges / 32;  // of a bit row
 
@@ -428,9 +449,8 @@ __device__ inline void tile_compute(const float* As, const float* Bs, float (&ac
 }
 
 // The k-loop of one tile, kInput: g_mW W^T (k over d), else relu(h)^T g_mW
-// (k over the rows [k0, k1)). S holds two stages of both slabs. With kBf16
-// both operands are rounded to bf16 as they are staged.
-template <bool kInput, bool kBf16, bool kHalfIn>
+// (k over the rows [k0, k1)). S holds two stages of both slabs.
+template <bool kInput, bool kHalfIn>
 __device__ inline void tile_run(const Operands& o, int m0, int n0, int k0, int k1, float* S,
                                 float (&acc)[kTM][kTN]) {
 #pragma unroll
@@ -449,8 +469,6 @@ __device__ inline void tile_run(const Operands& o, int m0, int n0, int k0, int k
         ra[t] = load_a_cols<kHalfIn>(o, m0, k, k1, g);
         rb[t] = load_b(o.g_mw, o.d, n0, k, k1, g);
       }
-      ra[t] = operand4<kBf16>(ra[t]);
-      rb[t] = operand4<kBf16>(rb[t]);
     }
   };
   auto store = [&](float* stage) {
@@ -490,50 +508,14 @@ struct GemmArgs {
   int B, chunks, w_jobs, residual;
 };
 
-// One grid of jobs: blocks [0, w_jobs) the weight gradient's (tile t =
-// job / chunks, chunk job % chunks), then the input gradient's 64 x 64
-// tiles, row tile by row tile. A weight-gradient block writes its chunk's
-// partial, and the last of a tile's chunks to arrive adds them in ascending
+// The end of a weight-gradient job, after its chunk's partial is written:
+// the last of the tile's chunks to arrive adds the partials in ascending
 // chunk order into g_W (and, for the first row of tiles, g_b's per-bin
-// partials in ascending bin order into g_b). kBf16: the operands rounded to
-// bf16 (tile_run); kHalfIn: the layer input is the bf16 stash.
-template <bool kBf16, bool kHalfIn>
-__global__ void __launch_bounds__(kGemmThreads, 3) bwd_gemm_kernel(const __grid_constant__ GemmArgs a) {
-  __shared__ __align__(16) float S[4 * kSlab];
-  __shared__ int last;
-  const Operands& o = a.o;
-  const int d = o.d, tn = d / kBN;
+// partials in ascending bin order into g_b). 128 threads; `last` is a
+// __shared__ int of the caller.
+__device__ inline void add_chunks(const GemmArgs& a, int tile, int m0, int n0, int& last) {
+  const int d = a.o.d;
   const int ty = threadIdx.x / (kBN / kTN), tx = threadIdx.x % (kBN / kTN);
-  float acc[kTM][kTN];
-
-  if ((int)blockIdx.x >= a.w_jobs) {
-    const int job = blockIdx.x - a.w_jobs;
-    const int m0 = job / tn * kBM, n0 = job % tn * kBN;
-    tile_run<true, kBf16, kHalfIn>(o, m0, n0, 0, d, S, acc);
-    const int n = n0 + tx * kTN;
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int r = m0 + ty * kTM + i;
-      if (r >= o.R) break;
-      const size_t off = (size_t)r * d + n;
-      const float4 h = load_input4<kHalfIn>(o.h_in, off);
-      float4 v = make_float4(acc[i][0] * (h.x > 0.f ? 1.f : 0.f), acc[i][1] * (h.y > 0.f ? 1.f : 0.f),
-                             acc[i][2] * (h.z > 0.f ? 1.f : 0.f), acc[i][3] * (h.w > 0.f ? 1.f : 0.f));
-      if (a.residual) v = add4(v, *reinterpret_cast<const float4*>(a.g + off));
-      *reinterpret_cast<float4*>(a.g_in + off) = v;
-    }
-    return;
-  }
-
-  const int tile = blockIdx.x / a.chunks, chunk = blockIdx.x % a.chunks;
-  const int m0 = tile / tn * kBM, n0 = tile % tn * kBN;
-  const int r0 = chunk * kChunkRows, r1 = min(o.R, r0 + kChunkRows);
-  tile_run<false, kBf16, kHalfIn>(o, m0, n0, r0, r1, S, acc);
-  float* part = a.chunks == 1 ? a.gw : a.gw_part + (size_t)chunk * d * d;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-    *reinterpret_cast<float4*>(part + (size_t)(m0 + ty * kTM + i) * d + n0 + tx * kTN) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   // the partial is visible to every block before this one's arrival counts
   __threadfence();
   __syncthreads();
@@ -561,6 +543,230 @@ __global__ void __launch_bounds__(kGemmThreads, 3) bwd_gemm_kernel(const __grid_
     for (int b = 0; b < a.B; ++b) s += a.gb_part[(size_t)b * d + j];
     a.gb[j] = s;
   }
+}
+
+// One grid of jobs: blocks [0, w_jobs) the weight gradient's (tile t =
+// job / chunks, chunk job % chunks), then the input gradient's 64 x 64
+// tiles, row tile by row tile. A weight-gradient block writes its chunk's
+// partial, then add_chunks. Exact f32 FMA; kHalfIn: the layer input is the
+// bf16 stash.
+template <bool kHalfIn>
+__global__ void __launch_bounds__(kGemmThreads, 3) bwd_gemm_kernel(const __grid_constant__ GemmArgs a) {
+  __shared__ __align__(16) float S[4 * kSlab];
+  __shared__ int last;
+  const Operands& o = a.o;
+  const int d = o.d, tn = d / kBN;
+  const int ty = threadIdx.x / (kBN / kTN), tx = threadIdx.x % (kBN / kTN);
+  float acc[kTM][kTN];
+
+  if ((int)blockIdx.x >= a.w_jobs) {
+    const int job = blockIdx.x - a.w_jobs;
+    const int m0 = job / tn * kBM, n0 = job % tn * kBN;
+    tile_run<true, kHalfIn>(o, m0, n0, 0, d, S, acc);
+    const int n = n0 + tx * kTN;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int r = m0 + ty * kTM + i;
+      if (r >= o.R) break;
+      const size_t off = (size_t)r * d + n;
+      const float4 h = load_input4<kHalfIn>(o.h_in, off);
+      float4 v = make_float4(acc[i][0] * (h.x > 0.f ? 1.f : 0.f), acc[i][1] * (h.y > 0.f ? 1.f : 0.f),
+                             acc[i][2] * (h.z > 0.f ? 1.f : 0.f), acc[i][3] * (h.w > 0.f ? 1.f : 0.f));
+      if (a.residual) v = add4(v, *reinterpret_cast<const float4*>(a.g + off));
+      *reinterpret_cast<float4*>(a.g_in + off) = v;
+    }
+    return;
+  }
+
+  const int tile = blockIdx.x / a.chunks, chunk = blockIdx.x % a.chunks;
+  const int m0 = tile / tn * kBM, n0 = tile % tn * kBN;
+  const int r0 = chunk * kChunkRows, r1 = min(o.R, r0 + kChunkRows);
+  tile_run<false, kHalfIn>(o, m0, n0, r0, r1, S, acc);
+  float* part = a.chunks == 1 ? a.gw : a.gw_part + (size_t)chunk * d * d;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+    *reinterpret_cast<float4*>(part + (size_t)(m0 + ty * kTM + i) * d + n0 + tx * kTN) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  add_chunks(a, tile, m0, n0, last);
+}
+
+// ---- the two products with matmul_dtype="bfloat16" (rows 3b, 4b, 6b) ------
+
+// The tile of the bf16 products: 64 x 64 of 4 warps (the f32 kernel's jobs),
+// k-slabs of 32; the operands (bf16_mma.cuh): g_mW's rows (A of g_mW W^T),
+// W^T's and g_mW's k-rows (B), relu(h_in)'s k-rows (A of g_W: f32, or the
+// bf16 stash).
+using MmaTile = mma::Shape<kBM, kBN, 2, 2, 32>;
+using GmwRows = mma::RowsF32<MmaTile>;
+using ColsB = mma::ColsF32<MmaTile, kBN, MmaTile::kLdB, false>;
+using ReluCols = mma::ColsF32<MmaTile, kBM, MmaTile::kLdA, true>;
+using StashCols = mma::ColsBf16<MmaTile>;
+
+// 1 builds the job stamps of the bf16 products (the timing script's --stages
+// build): thread 0 of each of the first kStampJobs blocks of a launch writes
+// %globaltimer at its start, with its products summed, with its output (or
+// chunk partial) written, and at its end (after the chunk sum in the last
+// block of a g_W tile).
+constexpr int kStages = 0;
+constexpr int kStampJobs = kStages != 0 ? 4096 : 1, kJobStamps = 4;
+__device__ unsigned long long job_at[kStampJobs][kJobStamps];
+
+__device__ inline void job_stamp(int slot) {
+  if constexpr (kStages != 0) {
+    if (threadIdx.x != 0 || blockIdx.x >= kStampJobs) return;
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    job_at[blockIdx.x][slot] = t;
+  }
+}
+
+// 2 values of the layer input from element i (i even), as floats.
+template <bool kHalfIn>
+__device__ inline float2 load_input2(const void* h_in, size_t i) {
+  if constexpr (kHalfIn)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(h_in) + i));
+  return *reinterpret_cast<const float2*>(static_cast<const float*>(h_in) + i);
+}
+
+// add_chunks for a tile of S: the last of the tile's chunks to arrive adds
+// the partials in ascending chunk order into g_W, each thread's float4s of
+// the tile in groups of 4, with kSumAhead chunks' loads in flight at once;
+// and, for the first row of tiles, g_b's per-bin partials in ascending bin
+// order into g_b.
+template <typename S>
+__device__ inline void sum_chunks(const GemmArgs& a, int tile, int m0, int n0, int& last) {
+  constexpr int kVecs = S::kM * S::kN / 4 / S::kThreads, kGroup = 4, kQ = S::kN / 4;
+  static_assert(kVecs % kGroup == 0, "whole groups");
+  const int d = a.o.d;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&a.counts[tile], 1) == a.chunks - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (a.chunks > 1) {
+    for (int g0 = 0; g0 < kVecs; g0 += kGroup) {
+      size_t at[kGroup];
+      float4 s[kGroup];
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) {
+        const int v = threadIdx.x + (g0 + u) * S::kThreads;
+        at[u] = (size_t)(m0 + v / kQ) * d + n0 + v % kQ * 4;
+        s[u] = __ldcg(reinterpret_cast<const float4*>(a.gw_part + at[u]));
+      }
+      for (int c0 = 1; c0 < a.chunks; c0 += kSumAhead) {
+        float4 x[kSumAhead][kGroup];
+#pragma unroll
+        for (int c = 0; c < kSumAhead; ++c)
+#pragma unroll
+          for (int u = 0; u < kGroup; ++u)
+            if (c0 + c < a.chunks)
+              x[c][u] = __ldcg(reinterpret_cast<const float4*>(a.gw_part + (size_t)(c0 + c) * d * d + at[u]));
+#pragma unroll
+        for (int c = 0; c < kSumAhead; ++c)
+#pragma unroll
+          for (int u = 0; u < kGroup; ++u)
+            if (c0 + c < a.chunks) s[u] = add4(s[u], x[c][u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kGroup; ++u) *reinterpret_cast<float4*>(a.gw + at[u]) = s[u];
+    }
+  }
+  if (m0 == 0)
+    for (int j = threadIdx.x; j < S::kN; j += S::kThreads) {
+      float s = 0.f;
+#pragma unroll 8
+      for (int b = 0; b < a.B; ++b) s += a.gb_part[(size_t)b * d + n0 + j];
+      a.gb[n0 + j] = s;
+    }
+}
+
+// bwd_gemm_kernel's jobs (on tiles of S), epilogues and chunk sums with both
+// products on the tensor cores (bf16_mma.cuh), their operands rounded to
+// bf16 as staged.
+template <typename S, bool kHalfIn>
+__global__ void __launch_bounds__(S::kThreads, 4) bwd_gemm_mma_kernel(const __grid_constant__ GemmArgs a) {
+  __shared__ __align__(16) __nv_bfloat16 smem[S::kSmemHalfs];
+  __shared__ int last;
+  const Operands& o = a.o;
+  const int d = o.d, tn = d / S::kN;
+  const int row0 = S::row0(), col0 = S::col0();
+  typename S::Tile acc;
+  job_stamp(0);
+
+  if ((int)blockIdx.x >= a.w_jobs) {
+    const int job = blockIdx.x - a.w_jobs;
+    const int m0 = job / tn * S::kM, n0 = job % tn * S::kN;
+    GmwRows la{o.g_mw, d, m0, o.R};
+    ColsB lb{o.wt, d, n0, d};
+    mma::tile_products<S>(0, d, smem, la, lb, acc);
+    job_stamp(1);
+    // an m16 tile's mask and residual values all in flight before its stores
+#pragma unroll
+    for (int i = 0; i < S::kMT; ++i) {
+      float2 x[2][S::kNT], g[2][S::kNT];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + row0 + i * 16 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < S::kNT; ++j) {
+          const size_t off = (size_t)r * d + n0 + col0 + j * 8;
+          x[h][j] = r < o.R ? load_input2<kHalfIn>(o.h_in, off) : make_float2(0.f, 0.f);
+          g[h][j] = r < o.R && a.residual ? *reinterpret_cast<const float2*>(a.g + off) : make_float2(0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + row0 + i * 16 + 8 * h;
+        if (r >= o.R) continue;
+#pragma unroll
+        for (int j = 0; j < S::kNT; ++j) {
+          float2 v = make_float2(acc[i][j][2 * h] * (x[h][j].x > 0.f ? 1.f : 0.f),
+                                 acc[i][j][2 * h + 1] * (x[h][j].y > 0.f ? 1.f : 0.f));
+          if (a.residual) v = make_float2(v.x + g[h][j].x, v.y + g[h][j].y);
+          *reinterpret_cast<float2*>(a.g_in + (size_t)r * d + n0 + col0 + j * 8) = v;
+        }
+      }
+    }
+    job_stamp(2);
+    job_stamp(3);
+    return;
+  }
+
+  const int tile = blockIdx.x / a.chunks, chunk = blockIdx.x % a.chunks;
+  const int m0 = tile / tn * S::kM, n0 = tile % tn * S::kN;
+  const int r0 = chunk * kMmaChunkRows, r1 = min(o.R, r0 + kMmaChunkRows);
+  ColsB lb{o.g_mw, d, n0, r1};
+  if constexpr (kHalfIn) {
+    StashCols la{static_cast<const __nv_bfloat16*>(o.h_in), d, m0, r1};
+    mma::tile_products<S>(r0, r1, smem, la, lb, acc);
+  } else {
+    ReluCols la{static_cast<const float*>(o.h_in), d, m0, r1};
+    mma::tile_products<S>(r0, r1, smem, la, lb, acc);
+  }
+  job_stamp(1);
+  float* part = a.chunks == 1 ? a.gw : a.gw_part + (size_t)chunk * d * d;
+#pragma unroll
+  for (int i = 0; i < S::kMT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < S::kNT; ++j)
+        *reinterpret_cast<float2*>(part + (size_t)(m0 + row0 + i * 16 + 8 * h) * d + n0 + col0 + j * 8) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+  job_stamp(2);
+  sum_chunks<S>(a, tile, m0, n0, last);
+  job_stamp(3);
+}
+
+// The layer's two products on tiles of S: weight-gradient jobs first, then
+// the input gradient's.
+template <typename S, bool kHalfIn>
+cudaError_t launch_mma(GemmArgs a, cudaStream_t s) {
+  const int tn = a.o.d / S::kN;
+  a.w_jobs = tn * tn * a.chunks;
+  bwd_gemm_mma_kernel<S, kHalfIn><<<a.w_jobs + (a.o.R + S::kM - 1) / S::kM * tn, S::kThreads, 0, s>>>(a);
+  return cudaGetLastError();
 }
 
 // ---- after layer 0 of the encoder: the gather's VJP -------------------------
@@ -652,11 +858,16 @@ cudaError_t launch_layer(const LayerArgs& p, bool prologue, bool gather, int B, 
   if (err != cudaSuccess) return err;
   const int R = B * E;
   const int tn = d / kBN;
-  const int chunks = (R + kChunkRows - 1) / kChunkRows;
+  const int chunk_rows = kBf16 ? kMmaChunkRows : kChunkRows;
+  const int chunks = (R + chunk_rows - 1) / chunk_rows;
   const GemmArgs a{{p.g_mw, p.wt, gather ? p.h0 : p.h_in, R, d}, p.g, p.g_in, p.gw_part, p.gb_part,
                    p.gw, p.gb, p.counts, B, chunks, tn * tn * chunks, residual};
-  bwd_gemm_kernel<kBf16, kHalfIn><<<a.w_jobs + (R + kBM - 1) / kBM * tn, kGemmThreads, 0, s>>>(a);
-  err = cudaGetLastError();
+  if constexpr (kBf16)
+    err = launch_mma<MmaTile, kHalfIn>(a, s);
+  else {
+    bwd_gemm_kernel<kHalfIn><<<a.w_jobs + (R + kBM - 1) / kBM * tn, kGemmThreads, 0, s>>>(a);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess || !gather) return err;
   return launch_node_grad<kBf16>(p.g_in, p.node_bits, p.g_nf, B, E, V, d, s);
 }
@@ -713,7 +924,8 @@ int dense_mpnn_bwd_prep(const float* W, float* wt, const int* src, const int* ds
 // (scratch), and the gather's VJP is written to g_nf[B,V,d]. All pointers
 // are device pointers of contiguous arrays; every float array but gb starts
 // 16-byte aligned, and g_in differs from g. With half_in != 0, h_in is the
-// bf16 stash ([B,E,d] bf16, 8-byte aligned; never with gather). With bf16 !=
+// bf16 stash ([B,E,d] bf16, 8-byte aligned, 16 with bf16; never with
+// gather). With bf16 !=
 // 0 the operands are rounded to bf16 where the TPU kernel rounds them
 // (matmul_dtype="bfloat16"; see the kernels). The stream is a cudaStream_t.
 // Returns the cudaError_t of the launches (0 on success).
@@ -733,7 +945,7 @@ int dense_mpnn_bwd_layer(const void* h_in, const float* g, float* g_in, float* g
   if (half_in && gather) return (int)cudaErrorInvalidValue;
   if (prologue) g = g_full;
   if (misaligned({g, g_in, g_mw, gw_part, gb_part, gw, wt, nf, ge, gn, g_nf, h0}) ||
-      (uintptr_t)h_in % (half_in ? 8 : 16) != 0)
+      (uintptr_t)h_in % (half_in && !bf16 ? 8 : 16) != 0)
     return (int)cudaErrorMisalignedAddress;
   if (g_in == g) return (int)cudaErrorInvalidValue;
   const LayerArgs p{h_in, g, g_in, g_mw, gw_part, gb_part, counts, gw, gb, src, dst, wt, adj,
@@ -748,6 +960,23 @@ int dense_mpnn_bwd_layer(const void* h_in, const float* g, float* g_in, float* g
     err = half_in ? launch_layer<false, true>(p, pro, gat, B, E, V, d, residual, mean, s)
                   : launch_layer<false, false>(p, pro, gat, B, E, V, d, residual, mean, s);
   return (int)err;
+}
+
+// The bf16 products' job stamps of a build with kStages = 1 (see job_stamp):
+// `built` is kStages; `reset` zeroes them; `read` copies kJobStamps values
+// (ns of %globaltimer) for each of the first `jobs` blocks of the last launch
+// (at most kStampJobs). Both return the cudaError_t.
+int dense_mpnn_bwd_stages_built() { return kStages; }
+
+int dense_mpnn_bwd_stamps_reset() {
+  void* at = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&at, job_at);
+  return (int)(err != cudaSuccess ? err : cudaMemset(at, 0, sizeof job_at));
+}
+
+int dense_mpnn_bwd_stamps_read(unsigned long long* out, int jobs) {
+  if (jobs < 0 || jobs > kStampJobs) return (int)cudaErrorInvalidValue;
+  return (int)cudaMemcpyFromSymbol(out, job_at, sizeof(unsigned long long) * kJobStamps * jobs);
 }
 
 const char* dense_mpnn_bwd_error_string(int err) {

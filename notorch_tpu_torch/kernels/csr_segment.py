@@ -254,12 +254,15 @@ def _lib():
     lib = build.load("csr_segment")
     lib.csr_segment_sum_packed_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.csr_segment_sum_packed_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.csr_segment_sum_rowptr_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.csr_segment_sum_rowptr_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.csr_segment_sum_rowptr_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.csr_segment_chain_latency.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.csr_segment_error_string.argtypes = [ctypes.c_int]
     lib.csr_segment_error_string.restype = ctypes.c_char_p
     lib.csr_segment_max_budget.argtypes = lib.csr_segment_max_tile.argtypes = []
     for name in ("csr_segment_sum_packed_f32", "csr_segment_sum_packed_bf16", "csr_segment_sum_rowptr_f32",
-                 "csr_segment_max_budget", "csr_segment_max_tile"):
+                 "csr_segment_sum_rowptr_bf16", "csr_segment_chain_latency", "csr_segment_max_budget",
+                 "csr_segment_max_tile"):
         getattr(lib, name).restype = ctypes.c_int
     return lib
 
@@ -406,35 +409,51 @@ def _rowptr_launch(data: torch.Tensor, row_ptr: torch.Tensor, order: torch.Tenso
     """Row 8's kernel on the card: ``[num_nodes, d]`` sums over the rows
     ``data[order[e]]`` (``data[e]`` without an order) of ``data [rows, d]``,
     any ``d``; counts a launch in ``csr_segment_sum.launches``. bf16 data
-    takes the kernel's bf16 mode (row 8b): the rows read as f32 (exact), the
-    running sum rounded to bf16 after every add as XLA adds bf16 rows, the
-    result bf16; counted in ``csr_segment_sum.launches_bf16``."""
+    takes the bf16 kernel (row 8b): bf16 read and written in one launch, the
+    running sum rounded to bf16 after every add as XLA adds bf16 rows;
+    counted in ``csr_segment_sum.launches_bf16``."""
     if data.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the CUDA kernels take float32 or bfloat16 data, got {data.dtype}")
     if not data.is_contiguous():
         raise ValueError("data must be contiguous")
-    chain = data.dtype == torch.bfloat16
-    if chain:
-        data = data.float()
+    bf16 = data.dtype == torch.bfloat16
     E = data.shape[0] if order is None else order.shape[0]
     d = data.shape[1]
     out = torch.empty(num_nodes, d, dtype=data.dtype, device=data.device)
     if num_nodes == 0 or d == 0:
-        return out.to(torch.bfloat16) if chain else out
+        return out
     lib = _lib()
+    entry = lib.csr_segment_sum_rowptr_bf16 if bf16 else lib.csr_segment_sum_rowptr_f32
     args = (data.data_ptr(), row_ptr.data_ptr(), None if order is None else order.data_ptr(), out.data_ptr(),
-            E, d, num_nodes, int(chain), torch.cuda.current_stream(data.device).cuda_stream)
+            E, d, num_nodes, torch.cuda.current_stream(data.device).cuda_stream)
     if data.device.index == torch.cuda.current_device():  # the glue's every call: no device switch
-        err = lib.csr_segment_sum_rowptr_f32(*args)
+        err = entry(*args)
     else:
         with torch.cuda.device(data.device):
-            err = lib.csr_segment_sum_rowptr_f32(*args)
+            err = entry(*args)
     _raise_on(err, "csr_segment_sum", lib)
-    if chain:
+    if bf16:
         csr_segment_sum.launches_bf16 += 1
-        return out.to(torch.bfloat16)
-    csr_segment_sum.launches += 1
+    else:
+        csr_segment_sum.launches += 1
     return out
+
+
+def chain_add_latency(device: torch.device | str = "cuda", adds: int = 1 << 17) -> dict:
+    """The latency of one step of row 8b's chain on the card: one thread
+    adds a bf16 pair ``adds`` times (rounded up to a multiple of 64), each
+    add depending on the last, timed in SM cycles (``clock64``) and in
+    nanoseconds (``%globaltimer``). Returns ``{"adds", "cycles_per_add",
+    "ns_per_add"}``. A run of ``n`` rows takes at least ``n`` such adds:
+    row 8b's chain floor."""
+    lib = _lib()
+    iters = -(-adds // 64)
+    out = torch.zeros(3, dtype=torch.int64, device=device)
+    with torch.cuda.device(out.device):
+        _raise_on(lib.csr_segment_chain_latency(out.data_ptr(), iters, torch.cuda.current_stream().cuda_stream),
+                  "csr_segment_chain_latency", lib)
+    cycles, ns, _ = out.tolist()
+    return {"adds": 64 * iters, "cycles_per_add": cycles / (64 * iters), "ns_per_add": ns / (64 * iters)}
 
 
 def segment_sum_in_order(data: torch.Tensor, order: torch.Tensor, row_ptr: torch.Tensor,

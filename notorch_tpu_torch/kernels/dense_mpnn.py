@@ -108,6 +108,11 @@ layer inputs (ReLU mask and weight-gradient operand alike). On the card
 these are the ``bf16`` instantiations of the same kernels (``csrc/
 dense_mpnn.cu`` and ``csrc/dense_mpnn_bwd.cu``), counted apart in
 ``<wrapper>.launches_bf16``; the plain versions round at the same points.
+The backward's two products (rows 3b, 4b and 6b) multiply those bf16
+operands on the tensor cores (``csrc/bf16_mma.cuh``: ``mma.sync``, f32
+accumulate), so their sums run in another order than the plain versions'
+and agree with them at the bf16 tolerances, not bit for bit; the forward
+(rows 1b, 2b, 5b, 7b) still adds its products by f32 FMA.
 ``None`` (or ``"float32"``) is the exact f32 path, bit for bit as before.
 """
 

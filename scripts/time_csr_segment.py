@@ -21,7 +21,17 @@ longest run): the kernel on the rows in sorted order, in every tree whose
 row 8 takes the width (``ms``), and, in a tree that has them, the kernel
 reading the rows through the order (``through_order_ms``) and
 ``nn/ops.py`` ``segment_sum`` as the glue calls it, the sort included
-(``segment_sum_eager_ms``, launched one by one). Last, the time of a launch
+(``segment_sum_eager_ms``, launched one by one). Then row 8b (the glue's
+ordered bf16 sums, ``segment_sum_in_order`` on bf16 rows) at the embedding
+table's gradient that ``chip_smoke.py`` times (the dense first lipo batch's
+21,504 type ids, a run of 9,513) and at one glue call of the bf16 ``impl:
+csr`` run (the backward of the flat block's ``take(node_messages, G.src)``
+on the first flat batch: 4,096 edge rows into 2,048 nodes): device ms, the
+kernels a call launches (``kernels_a_call``, by name, from a profile),
+bf16 ``index_add_``'s ms, the bytes bound and, in a tree that has the probe,
+the chain floor (the longest run times one add's latency,
+``chain_add_latency``), with the bits' ``sha256``, ``repeatable`` and
+``cpu_plain_bits``. Last, the time of a launch
 that writes the output alone (``fill_ms``).
 
     python3 scripts/time_csr_segment.py [--root DIR] [--define NAME=VALUE ...] [--stages] [--e2e]
@@ -59,6 +69,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
+
 HERE = Path(__file__).resolve().parents[1]
 SOURCE = "csr_segment.cu"
 # the packed kernel's stamps of a --stages build, in order (slot 0 is the start)
@@ -66,18 +78,18 @@ WARM_EPOCHS = 5  # epochs of --e2e timed on the host's clock
 STAGES = ("staged", "indexed", "summed")
 
 
-def variant(root: Path, defines: list[str], into: Path) -> Path:
+def variant(root: Path, defines: list[str], into: Path, source: str = SOURCE) -> Path:
     """A copy of ``root``'s package under ``into`` with each NAME=VALUE set
-    in ``csrc/csr_segment.cu``; returns the copy's root."""
+    in ``csrc/<source>``; returns the copy's root."""
     shutil.copytree(root / "notorch_tpu_torch", into / "notorch_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    cu = into / "notorch_tpu_torch" / "csrc" / SOURCE
+    cu = into / "notorch_tpu_torch" / "csrc" / source
     text = cu.read_text()
     for item in defines:
         name, value = item.split("=", 1)
         text, n = re.subn(rf"constexpr int {re.escape(name)} = [^,;]+", f"constexpr int {name} = {value}", text)
         if n != 1:
-            raise SystemExit(f"--define {item}: csrc/{SOURCE} has {n} definitions of {name}")
+            raise SystemExit(f"--define {item}: csrc/{source} has {n} definitions of {name}")
     cu.write_text(text)
     return into
 
@@ -147,6 +159,38 @@ def path_shape(smoke, csr_segment, name: str, data, ids, n: int) -> dict:
     record.update(ms=smoke.time_ms(kernel)["device"], repeatable=bool(torch.equal(first, second)),
                   cpu_plain_bits=bool(torch.equal(first.cpu(), plain)))
     return record
+
+
+def row8b_record(smoke, csr_segment, name: str, data, ids, n: int, chain: dict | None) -> dict:
+    """Row 8b of the tree on ``data`` (bf16, CPU) summed over ``ids`` into
+    ``n`` segments through their stable sort, as the glue calls it;
+    ``chain``: this card's chain step (``chain_add_latency``) or None."""
+    import torch
+
+    d = data.shape[1]
+    x, on_card = data.cuda(), ids.cuda()
+    order, row_ptr = csr_segment.sorted_segments(on_card, n)
+
+    def kernel():
+        return csr_segment.segment_sum_in_order(x, order, row_ptr, n)
+
+    first, second = kernel(), kernel()
+    torch.cuda.synchronize()
+    plain = csr_segment.segment_sum_in_order_reference(data, order.cpu(), row_ptr.cpu(), n)
+    t = smoke.time_ms(kernel)
+    library = smoke.time_ms(lambda: torch.zeros(n, d, dtype=torch.bfloat16, device="cuda").index_add_(0, on_card, x))
+    kernels = smoke.kernels_of_calls(kernel)
+    longest = int(torch.bincount(ids, minlength=n).max())
+    return {"row": "8b", "kernel": "csr_segment_sum_bf16", "case": name,
+            "shape": {"rows": ids.numel(), "d": d, "segments": n, "longest_run": longest},
+            "ms": t["device"], "eager_ms": t["eager"], "library_ms": library["device"],
+            "library_note": "torch.zeros(segments, d, bf16).index_add_: one rounding, atomics in no fixed order",
+            "bytes_bound_ms": smoke.bound_bf16(ids.numel() * d, smoke.nbytes(x, order, row_ptr) + n * d * 2)[0],
+            "chain_floor_ms": None if chain is None else longest * chain["ns_per_add"] * 1e-6,
+            "launches_a_call": sum(k["count"] for k in kernels) / 5,
+            "kernels_a_call": [{**k, "ms": k["ms"] / 5, "count": k["count"] / 5} for k in kernels],
+            "sha256": digest(first), "repeatable": bool(torch.equal(first, second)),
+            "cpu_plain_bits": bool(torch.equal(first.cpu(), plain))}
 
 
 def rowptr_stamps(lib, call, blocks: int) -> dict:
@@ -321,6 +365,18 @@ def run(args, root: Path, tmp: Path) -> None:
     main_G = next(iter(smoke.DataLoader(ds, batch_size=smoke.BATCH)))["inputs.G"]
     for name, (data, ids, n) in smoke.glue_inputs(main_G, d, smoke.SEED + 7).items():
         print(json.dumps({**tag, **path_shape(smoke, csr_segment, name, data, ids, n)}), flush=True)
+    if hasattr(csr_segment, "bf16_chain_sum_reference"):  # row 8b
+        chain = csr_segment.chain_add_latency() if hasattr(csr_segment, "chain_add_latency") else None
+        if chain is not None:
+            print(json.dumps({**tag, "chain_add": chain}), flush=True)
+        dense_G = next(iter(smoke.DataLoader(ds, batch_size=smoke.BATCH, layout="dense")))["inputs.G"]
+        rng = np.random.default_rng(smoke.SEED + 61)
+        flat_src = torch.as_tensor(np.asarray(G.src)).long()
+        cases_8b = {"table_gradient": smoke.table_gradient(dense_G, d),
+                    "csr_take_backward": (torch.from_numpy(rng.standard_normal((flat_src.numel(), d))
+                                                           .astype(np.float32)).bfloat16(), flat_src, V)}
+        for name, (data, ids, n) in cases_8b.items():
+            print(json.dumps({**tag, **row8b_record(smoke, csr_segment, name, data, ids, n, chain)}), flush=True)
     if args.e2e:
         for name, model in (("recipe", dict(smoke.MODEL_CFG)), ("impl_csr", {**smoke.MODEL_CFG, "impl": "csr"})):
             print(json.dumps({**tag, **warm_epoch(smoke, tmp, name, model)}), flush=True)

@@ -434,6 +434,46 @@ def test_cuda_sweep_edge_cases_match_plain_versions(case):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(SWEEP_CASES))
+@pytest.mark.parametrize("stash_dtype", [None, "bfloat16"])
+def test_cuda_bf16_sweep_edge_cases_match_plain_versions(case, stash_dtype):
+    """Rows 3b, 4b and 6b (matmul_dtype="bfloat16": both products on the
+    tensor cores) at the sweep's edge cases, with an f32 and a bf16 stash,
+    each against its plain version at BF16_*_TOL (defined below), fed the
+    kernel's own stash; rows 3b and 6b twice with equal bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    (h0, src, dst, mask, W, b, g), kw, enc = _edge_case(case)
+    mm = dict(matmul_dtype="bfloat16")
+    ref_kw = {**{k: kw[k] for k in ("depth", "residual", "reduce")}, **mm}
+    kw = {**kw, **mm}
+    _, hs = fused_dense_mpnn_block_stash(h0, src, dst, mask, W, b, stash_dtype=stash_dtype, **kw)
+    ref = dense_mpnn_block_bwd_reference(h0, hs, src, dst, mask, W, g, **ref_kw)
+    first = fused_dense_mpnn_block_bwd_stash(h0, hs, src, dst, mask, W, g, **kw)
+    second = fused_dense_mpnn_block_bwd_stash(h0, hs, src, dst, mask, W, g, **kw)
+    for name, got, want in zip(("g_h0", "g_W", "g_b"), first, ref):
+        _hold_bf16(got, want, f"row 3b {name} ({case})")
+    assert all(torch.equal(x, y) for x, y in zip(first, second)), "row 3b is not repeatable"
+    if stash_dtype is None:
+        _, ref_hs = dense_mpnn_block_stash_reference(h0, src, dst, mask, W, b, **ref_kw)
+        ref4 = dense_mpnn_block_bwd_reference(h0, ref_hs, src, dst, mask, W, g, **ref_kw)
+        for name, got, want in zip(("g_h0", "g_W", "g_b"), fused_dense_mpnn_block_bwd(h0, src, dst, mask, W, b, g,
+                                                                                       **kw), ref4):
+            _hold_bf16(got, want, f"row 4b {name} ({case})")
+
+    nf, ef, esrc, edst, emask, eW, eb, gn, ge = enc
+    _, _, enc_hs = fused_dense_encoder_fwd(nf, ef, esrc, edst, emask, eW, eb, stash=True, stash_dtype=stash_dtype,
+                                           **ref_kw)
+    enc_ref = dense_encoder_bwd_reference(nf, ef, enc_hs, esrc, edst, emask, eW, gn, ge, **ref_kw)
+    enc_first = fused_dense_encoder_bwd(nf, ef, enc_hs, esrc, edst, emask, eW, gn, ge, **ref_kw)
+    enc_second = fused_dense_encoder_bwd(nf, ef, enc_hs, esrc, edst, emask, eW, gn, ge, **ref_kw)
+    torch.cuda.synchronize()
+    for i, (got, want) in enumerate(zip(enc_first, enc_ref)):
+        _hold_bf16(got, want, f"row 6b output {i} ({case})")
+    assert all(torch.equal(x, y) for x, y in zip(enc_first, enc_second)), "row 6b is not repeatable"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
 def test_cuda_fwd_edge_cases_match_plain_versions(case):
     """Rows 1, 2 and 5 at the same edge cases (the forward's products run
     as the sweep's do, in 64 x 64 tiles over all B * E rows): each against

@@ -188,6 +188,102 @@ def test_cuda_bf16_chain_sum_reference_is_the_kernel():
     assert torch.equal(got.cpu(), bf16_chain_sum_reference(rows.cpu(), row_ptr.cpu(), V))
 
 
+def _chain_bits(data, ids, V):
+    """Row 8b on the card twice over the stable sort of ``ids`` (CPU
+    tensors), and its plain version on the CPU."""
+    from notorch_tpu_torch.kernels.csr_segment import segment_sum_in_order, sorted_segments
+
+    order, row_ptr = sorted_segments(ids, V)
+    x, o, rp = data.cuda(), order.cuda(), row_ptr.cuda()
+    first, second = segment_sum_in_order(x, o, rp, V), segment_sum_in_order(x, o, rp, V)
+    torch.cuda.synchronize()
+    rows = data.index_select(0, order).reshape(order.shape[0], -1)
+    return first.cpu(), second.cpu(), bf16_chain_sum_reference(rows, row_ptr, V).reshape(first.shape)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", chip_smoke.BF16_PAIR_CLASSES)
+@pytest.mark.parametrize("d", [8, 3])
+def test_cuda_bf16_chain_add_on_pair_classes(kind, d):
+    """Row 8b's step (one packed bf16 add) on each class of bf16 pairs
+    (subnormals, signed zeros, infinities, ties, exponent gaps): each segment
+    a pair, the plain version's bits (the f32 add rounded), twice the same."""
+    needs_card()
+    data, ids, V = chip_smoke.bf16_pair_rows(*chip_smoke.bf16_pairs(kind, 8192, seed=21), d)
+    first, second, plain = _chain_bits(data, ids, V)
+    assert torch.equal(first.view(torch.int16), plain.view(torch.int16)), kind
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_chain_add_on_random_bit_patterns():
+    """Row 8b's step on 2^20 pairs of random bf16 bit patterns (every finite
+    value, both infinities; no NaN, never +inf with -inf): the plain
+    version's bits."""
+    needs_card()
+    rng = np.random.default_rng(22)
+    a, b = (rng.integers(0, 1 << 16, size=1 << 20, dtype=np.uint32).astype(np.uint16) for _ in range(2))
+    finite = lambda x: (x & 0x7F80) != 0x7F80  # noqa: E731
+    inf = lambda x: (x & 0x7FFF) == 0x7F80  # noqa: E731
+    keep = (finite(a) | inf(a)) & (finite(b) | inf(b)) & ~(inf(a) & inf(b) & (a != b))
+    data, ids, V = chip_smoke.bf16_pair_rows(a[keep], b[keep], 8)
+    first, _, plain = _chain_bits(data, ids, V)
+    assert torch.equal(first.view(torch.int16), plain.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 3, 4, 96, 256, 258])
+def test_cuda_bf16_chain_widths_and_windows(d):
+    """Row 8b at every width class (1 column, odd, even, multiples of 8, a
+    ragged last slice) on a run of 3,000 rows, which crosses twelve windows
+    of the kernel's ring, beside short and empty segments: the plain
+    version's bits, twice the same."""
+    needs_card()
+    rng = np.random.default_rng(23)
+    V = 300
+    ids = rng.permutation(np.concatenate([np.full(3000, 17), rng.integers(0, V, size=1200)]))
+    ids = ids[ids != 99]  # segment 99 empty
+    data = torch.from_numpy(rng.standard_normal((ids.size, d)).astype(np.float32)).bfloat16()
+    first, second, plain = _chain_bits(data, torch.from_numpy(ids), V)
+    assert torch.equal(first.view(torch.int16), plain.view(torch.int16))
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_chain_table_gradient_and_one_launch():
+    """Row 8b at the embedding table's gradient that ``chip_smoke.py`` times
+    (the dense first lipo batch: 21,504 ids, a run of 9,513): the plain
+    version's bits, twice the same; and each call one kernel launch, no
+    conversion or copy kernel around it (``torch.profiler``)."""
+    needs_card()
+    import tempfile
+    from pathlib import Path
+
+    from notorch_tpu_torch.kernels.csr_segment import segment_sum_in_order, sorted_segments
+
+    with tempfile.TemporaryDirectory(prefix="bf16_chain_") as tmp:
+        ds = chip_smoke.build_dataset({"csv": str(chip_smoke.lipo_csv(Path(tmp), chip_smoke.BATCH)),
+                                       "targets": {"y": {"columns": ["lipo"]}}})
+        G = next(iter(chip_smoke.DataLoader(ds, batch_size=chip_smoke.BATCH, layout="dense")))["inputs.G"]
+    data, ids, V = chip_smoke.table_gradient(G, 256)
+    assert int(torch.bincount(ids).max()) == 9513
+    first, second, plain = _chain_bits(data, ids, V)
+    assert torch.equal(first.view(torch.int16), plain.view(torch.int16))
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+    order, row_ptr = (t.cuda() for t in sorted_segments(ids, V))
+    x = data.cuda()
+    segment_sum_in_order(x, order, row_ptr, V)
+    torch.cuda.synchronize()
+    before = csr_segment_sum.launches_bf16
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            segment_sum_in_order(x, order, row_ptr, V)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert csr_segment_sum.launches_bf16 == before + 3
+    assert len(names) == 3 and all("rowptr_kernel_bf16" in n for n in names), names
+
+
 @pytest.mark.gpu
 def test_cuda_bf16_graph_transformer_block_matches_cpu():
     """DenseGATBlock(impl: fused, fwd_impl: pallas, dtype: bfloat16) on the
