@@ -117,8 +117,9 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
   (``fuse_ends: false``; rows 1-4's bf16 instantiations) for LOCKSTEP_STEPS
   steps in lockstep with each backward and a served batch;
 - bf16 kernels: the depth-fused forward's bf16 mode (row 7b) in a phase of
-  its own against its plain version and row 1b's bits; row 8b (the glue's
-  ordered bf16 sum) against the CPU's bits, on the glue's cases and on pairs
+  its own against its plain version and row 1b (both at the bf16 holds: row
+  1b sums its products on the tensor cores, row 7b by f32 FMA); row 8b (the
+  glue's ordered bf16 sum) against the CPU's bits, on the glue's cases and on pairs
   of every class of BF16_PAIR_CLASSES (subnormals, signed zeros,
   infinities, ties, exponent gaps); the attention core's
   ``matmul_dtype="bfloat16"`` mode (rows 10b-13b on f32 inputs, which no
@@ -360,7 +361,7 @@ ZERO_GRADIENTS = ("W_k.bias", "W_bias.bias", "a.bias")
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # and the tensor cores' dense bf16 rate: the least time of a product of bf16
-# operands with f32 sums, which the bf16 rows compute (on the CUDA cores)
+# operands with f32 sums, which the bf16 rows compute
 PEAK_BF16_FLOPS = 989e12
 # the segment sums against their plain versions: one f32 add per term, in
 # another order on each side (the plain version's atomics on the card), so an
@@ -491,6 +492,9 @@ ROW8_LAUNCHES = {"recipe": (6, 3), "declarative": (2, 0), "impl_csr": (11, 2), "
 # rows and the encoder's gathered h0 once a call, then a layer's product
 # relu(h) @ W and its operator pass, with the encoder's scatter in the last)
 FWD_STAGES = ("mpnn_fwd_prep_", "mpnn_fwd_gemm_", "mpnn_fwd_apply_")
+# the bf16 forward's product (rows 1b, 2b, 4b's replay and 5b): the tensor
+# cores' kernel, by name in a profile
+BF16_FWD_PRODUCT = "mpnn_fwd_gemm_mma_kernel"
 # the reverse sweep's stages (rows 3, 4 and 6; csrc/dense_mpnn_bwd.cu: the
 # copies of W^T and the operator's bit rows, the adjoint A^T g, the products
 # g_mW W^T and relu(h)^T g_mW with their fixed-order chunk sums, the
@@ -2698,10 +2702,13 @@ def bf16_kernels_phase(main_args, g, n_nodes: int, enc) -> tuple[dict, dict]:
     of 128 edge lanes, rows 5-6 the dense loader's first batch), each held
     against its plain version (held_bf16; the backward rows fed the kernel's
     own stash), called twice for the same bits, and timed as the f32 rows
-    are (a CUDA graph of 20 calls). The bound counts the products at the
-    tensor cores' bf16 rate and the stash's bytes in its dtype. Returns
-    each row's (max_abs_err, kernel time, plain time, bound_ms, bound_by)
-    with the bf16 stash where it has one, and the phase's own launches."""
+    are (a CUDA graph of 20 calls), with their kernels' device ms a call by
+    stage (FWD_STAGES, SWEEP_STAGES); the forward rows' products must be the
+    tensor-core kernel (BF16_FWD_PRODUCT) and no other. The bound counts the
+    products at the tensor cores' bf16 rate and the stash's bytes in its
+    dtype. Returns each row's (max_abs_err, kernel time, plain time,
+    bound_ms, bound_by) with the bf16 stash where it has one, and the
+    phase's own launches."""
     depth = MODEL_CFG["depth"]
     h0, src, dst, mask, W, b = main_args
     nf, ef, _, _, _, _, _, gn, ge = enc
@@ -2712,7 +2719,7 @@ def bf16_kernels_phase(main_args, g, n_nodes: int, enc) -> tuple[dict, dict]:
     fwd_ops, bwd_ops, _ = layer_ops(main_args, "sum")
     enc_fwd_ops, enc_bwd_ops, _ = encoder_ops(enc)
     reset_launches()
-    rows, cases = {}, []
+    rows, cases, product_records = {}, [], 0
     for stash in (None, "bfloat16"):
         out, hs = fused_dense_mpnn_block_stash(*main_args, stash_dtype=stash, **kw)
         grads = fused_dense_mpnn_block_bwd_stash(h0, hs, src, dst, mask, W, g, **kw)
@@ -2756,10 +2763,18 @@ def bf16_kernels_phase(main_args, g, n_nodes: int, enc) -> tuple[dict, dict]:
                 fail(f"{fn.__name__} (bf16, stash {stash}): two calls on the same inputs differ")
             errs = [held_bf16(f"{fn.__name__} output {i} (stash {stash})", x, r)
                     for i, (x, r) in enumerate(zip(first, ref)) if x is not None and r is not None]
-            kernel_t, plain_t = time_ms(kernel), time_ms(plain)
+            forward = fn in (fused_dense_mpnn_block, fused_dense_mpnn_block_stash, fused_dense_encoder_fwd)
+            kernel_t, breakdown, stages = time_sweep(kernel, FWD_STAGES if forward else SWEEP_STAGES)
+            products = {k["name"] for k in breakdown if "mpnn_fwd_gemm_" in k["name"]}
+            if not all(BF16_FWD_PRODUCT in name for name in products):
+                fail(f"{fn.__name__} (bf16, stash {stash}): its products ran {sorted(products)}, not only "
+                     f"{BF16_FWD_PRODUCT}")
+            product_records += len(products)
+            plain_t = time_ms(plain)
             bound_ms, bound_by = bound_bf16(ops, n_bytes)
             case = {"kernel": f"{fn.__name__}_bf16", "stash_dtype": stash, "ms": kernel_t["device"],
-                    "eager_ms": kernel_t["eager"], "plain_ms": plain_t["device"], "bound_ms": bound_ms,
+                    "stages_ms": stages, "eager_ms": kernel_t["eager"], "plain_ms": plain_t["device"],
+                    "bound_ms": bound_ms,
                     "bound_by": bound_by, "operations": ops, "bytes": n_bytes,
                     "max_abs_err": max(e["max_abs_err"] for e in errs),
                     "max_err_over_max_abs_ref": max(e["max_abs_err_over_max_abs_ref"] for e in errs),
@@ -2767,6 +2782,8 @@ def bf16_kernels_phase(main_args, g, n_nodes: int, enc) -> tuple[dict, dict]:
             cases.append(case)
             if fn in (fused_dense_mpnn_block, fused_dense_mpnn_block_bwd) or stash is not None:
                 rows[fn] = (case["max_abs_err"], kernel_t, plain_t, bound_ms, bound_by)
+    if not product_records:  # (a late profile can lose some records, not all of a phase's)
+        fail(f"no profile of the bf16 forward rows shows {BF16_FWD_PRODUCT}")
     counts = launches()
     emit(phase="bf16_kernels", shape={"rows_1_4": list(h0.shape), "rows_5_6": {"B": ef.shape[0], "V": nf.shape[1],
                                                                                 "E": ef.shape[1]}},
@@ -2984,8 +3001,9 @@ def bf16_attention_phase(packed: list[list], dense: list[list], heads: int) -> t
 def dbuf_bf16_phase(inputs: list[tuple[list[torch.Tensor], int]]) -> tuple[int, float, list[dict]]:
     """Row 7b (matmul_dtype="bfloat16"), which no module calls, in a phase of
     its own on each ``(args, n_nodes)`` for sum and mean; then held against
-    its plain version (held_bf16) and row 1b's bits (those launches do not
-    count). Returns its launches, its largest error and the cases."""
+    its plain version and against row 1b (held_bf16 both: row 7b sums its
+    products by f32 FMA, row 1b in the tensor cores' order; those launches
+    do not count). Returns its launches, its largest error and the cases."""
     depth = MODEL_CFG["depth"]
     reset_launches()
     runs = []
@@ -3004,9 +3022,9 @@ def dbuf_bf16_phase(inputs: list[tuple[list[torch.Tensor], int]]) -> tuple[int, 
         torch.cuda.synchronize()
         case = f"B={args[0].shape[0]} E={args[0].shape[1]} {kw['reduce']}"
         err = held_bf16(f"dbuf bf16 ({case})", out, ref)
-        if not torch.equal(out, row1b):
-            fail(f"row 7b ({case}) differs from row 1b by {float((out - row1b).abs().max())}")
-        cases.append({"shape": list(args[0].shape), "reduce": kw["reduce"], **err, "equal_bits_to_row_1b": True})
+        row1b_err = held_bf16(f"dbuf bf16 against row 1b ({case})", out, row1b)
+        cases.append({"shape": list(args[0].shape), "reduce": kw["reduce"], **err,
+                      "against_row_1b": row1b_err})
     return count, max(c["max_abs_err"] for c in cases), cases
 
 
@@ -3280,13 +3298,16 @@ def bf16_time_records(main_args, n_nodes: int, attn_x: dict[str, list], dense_G,
         library_t = time_ms(library_sdpa(x, heads, bwd))
         ops, n_bytes, dense_ops = attention_work(x, heads, bwd)
         bound_ms, bound_by = bound_bf16(ops, n_bytes)
+        # each kernel's device time over 20 calls (row 11b's query and key
+        # passes, row 13b's one cluster kernel)
+        breakdown = profile_busy(lambda kernel=kernel: [kernel() for _ in range(20)])["top"]
         name = fn.__name__ + suffix
         emit(phase="time", kernel=name, shape={"case": shape, "B": x[0].shape[0], "V": x[0].shape[1],
                                               "E": x[4].shape[1], "d": d, "heads": heads, "dtype": str(x[0].dtype),
                                               "live_pairs": live_pairs(x)},
              ms=kernel_t["device"], plain_ms=plain_t["device"], eager_ms=kernel_t["eager"], bound_ms=bound_ms,
              bound_by=bound_by, operations=ops, dense_operations=dense_ops, bytes=n_bytes,
-             library_ms=library_t["device"],
+             library_ms=library_t["device"], kernels_of_20_calls=breakdown,
              library_note=(("scaled_dot_product_attention forward and autograd backward" if bwd else
                             "scaled_dot_product_attention") + f" on the {x[0].dtype} inputs, the additive mask and "
                            "bias built beforehand"), launches=path[name])

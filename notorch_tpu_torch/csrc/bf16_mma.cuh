@@ -1,7 +1,7 @@
 // A tile of C = A B on the tensor cores, with bf16 operands and f32 sums:
 // the products of the D-MPNN kernels with matmul_dtype="bfloat16"
-// (dense_mpnn_bwd.cu's two products of the reverse sweep; the forward's
-// relu(h) W takes the same routine with an m-major A).
+// (dense_mpnn_bwd.cu's two products of the reverse sweep, and
+// dense_mpnn.cu's forward product relu(h) W with an m-major A).
 //
 // Shape<kM, kN, kWarpsM, kWarpsN, kK>: a kM x kN tile of 32 * kWarpsM *
 // kWarpsN threads, each warp (kM / kWarpsM) x (kN / kWarpsN) outputs in m16 x
@@ -94,19 +94,25 @@ __device__ inline void store_bf16x4(__nv_bfloat16* to, float4 v) {
 }
 
 // An m-major f32 operand: the tile's rows r0 + m (m < S::kM; zero from
-// `rows` on) of a [rows, ld] source, its k-columns k..k + kK - 1.
-template <typename S>
+// `rows` on) of a [rows, ld] source, its k-columns k..k + kK - 1; with
+// kReluIn each value's max with 0 before it is rounded (x < 0 ? 0 : x, so a
+// NaN passes, as torch.relu passes it).
+template <typename S, bool kReluIn = false>
 struct RowsF32 {
   static constexpr bool kKMajor = false, kRelu = false;
   static constexpr int kVecs = S::kM * S::kK / 4 / S::kThreads;
+  static_assert(kVecs * 4 * S::kThreads == S::kM * S::kK, "a slab is whole 16-byte loads of every thread");
   const float* p;
   int ld, r0, rows;
   float4 x[kVecs];
+  __device__ static float relu(float v) { return v < 0.f ? 0.f : v; }
   __device__ void fetch(int k, __nv_bfloat16*) {
 #pragma unroll
     for (int t = 0; t < kVecs; ++t) {
       const int i = threadIdx.x + t * S::kThreads, m = r0 + i / (S::kK / 4), c = i % (S::kK / 4) * 4;
-      x[t] = m < rows ? *reinterpret_cast<const float4*>(p + (size_t)m * ld + k + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 v = m < rows ? *reinterpret_cast<const float4*>(p + (size_t)m * ld + k + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      if constexpr (kReluIn) v = make_float4(relu(v.x), relu(v.y), relu(v.z), relu(v.w));
+      x[t] = v;
     }
   }
   __device__ void store(__nv_bfloat16* slab) {
@@ -125,6 +131,7 @@ template <typename S, int kCols, int kLd, bool kReluIn>
 struct ColsF32 {
   static constexpr bool kKMajor = true, kRelu = false;
   static constexpr int kVecs = S::kK * kCols / 4 / S::kThreads;
+  static_assert(kVecs * 4 * S::kThreads == S::kK * kCols, "a slab is whole 16-byte loads of every thread");
   const float* p;
   int ld, c0, k1;
   float4 x[kVecs];

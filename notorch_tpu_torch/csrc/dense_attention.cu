@@ -214,8 +214,10 @@ __device__ inline float4 scale4(float s, float4 x) {
 // the passes round where the TPU kernel rounds, which the online softmax of
 // kExact cannot: alpha = exp(s - max) / sum is formed from the row's final
 // max and sum (a first pass over the row's pairs), rounded, and only then
-// multiplied (a second pass; the backward's query pass takes a third, for
-// D_i = sum_j alpha g_alpha before g_s).
+// multiplied (a second pass). The backward's query pass fetches each pair
+// once: its first pass keeps each pair's score and g_alpha (which the key
+// pass reads too), D_i = sum_j alpha g_alpha is summed from those alone, and
+// the g_q pass fetches only k_j.
 constexpr int kExact = 0, kMm = 1, kHalf = 2;
 
 // Element `at` (a multiple of 4) of an operand, 4 values, as floats.
@@ -576,7 +578,10 @@ __device__ inline float pair_score(const Args& a, const List& l, size_t hb, cons
 // The bf16 modes: a first pass for m and den, then the combine of the
 // rounded alpha (forward), or D_i and then sum_j g_s(bf16) k_j (backward),
 // into acc as it is (not times den). With kBwd, D_i in dsum and each pair's
-// score and g_alpha in score[e] and galpha[e], e its leader edge.
+// score and g_alpha in score[e] and galpha[e], e its leader edge; the bf16
+// backward's first pass stores them (lane 0 of the group), and D_i and g_q
+// read them back, summed in the same order from the same floats as a
+// recompute would give, so only g_q's pass fetches (k_j alone).
 template <bool kBwd, int kC, int kMode>
 __device__ inline void query_walk(const Args& a, const List& l, int n, int b, int i, int h, const Group& g,
                                   const float4 (&qi)[kC], const float4 (&gi)[kC], float* score,
@@ -662,16 +667,35 @@ __device__ inline void query_walk(const Args& a, const List& l, int n, int b, in
         for (int c = 0; c < kC; ++c) acc[c] = fma4(w, x.v[c], acc[c]);
       });
     } else {
+      __syncwarp(g.mask);  // lane 0's stores of score and galpha, before the group reads them
       float d = 0.f;
-      walk([&](const Pair<kC>& x, int, float sc) {
-        d = __fadd_rn(d, __fmul_rn(mode_alpha<kMode>(sc, m, den), group_dot(gi, x.v, g)));
-      });
+      for (int p = begin; p < end; p = next_leader(l, p, end)) {
+        const int e = l.e[p];
+        d = __fadd_rn(d, __fmul_rn(mode_alpha<kMode>(score[e], m, den), galpha[e]));
+      }
       dsum = d;
-      walk([&](const Pair<kC>& x, int, float sc) {
-        const float gs = mode_gs(mode_alpha<kMode>(sc, m, den), group_dot(gi, x.v, g), d);
+      // g_q: only k_j is fetched, kB pairs' reads together (2 kB spilled
+      // registers at four vectors a lane and was slower)
+      for (int p = begin; p < end;) {
+        int pos[kB];
+        float4 kj[kB][kC];
 #pragma unroll
-        for (int c = 0; c < kC; ++c) acc[c] = fma4(gs, x.k[c], acc[c]);
-      });
+        for (int t = 0; t < kB; ++t) {
+          pos[t] = p;
+          if (p < end) {
+            load_slice<kC, kMode>(kj[t], a.k, head_row(a, b, l.other[p], h), g);
+            p = next_leader(l, p, end);
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < kB; ++t) {
+          if (pos[t] >= end) break;
+          const int e = l.e[pos[t]];
+          const float gs = mode_gs(mode_alpha<kMode>(score[e], m, den), galpha[e], d);
+#pragma unroll
+          for (int c = 0; c < kC; ++c) acc[c] = fma4(gs, kj[t][c], acc[c]);
+        }
+      }
     }
   }
 }

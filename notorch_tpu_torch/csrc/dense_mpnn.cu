@@ -72,18 +72,27 @@
 // between the launches.
 //
 // matmul_dtype="bfloat16" (the TPU kernels' mm_dtype) is the kBf16
-// instantiation of the prep, product and operator kernels: every operand the
-// TPU kernel casts with .astype(bfloat16) is rounded to bf16 (nearest, ties
-// to even) where it is staged, and the FMAs and sums stay f32 in the orders
-// above, so each product of two operands is exact and only the sums round:
-// relu(h) and W into the product; mW again into the operator; the mean's
+// instantiation of the prep and operator kernels, and mpnn_fwd_gemm_mma_kernel
+// for the product: every operand the TPU kernel casts with .astype(bfloat16)
+// is rounded to bf16 (nearest, ties to even) where it is staged, and the sums
+// stay f32, so each product of two operands is exact and only the sums round:
+// relu(h) and W into the product, which multiplies them on the tensor cores
+// (bf16_mma.cuh: mma.sync m16n8k16, f32 accumulate; the TPU kernel's
+// relu(h).astype(mm) @ W.astype(mm) with preferred_element_type=f32) and
+// writes mW rounded to bf16, the operand the operator takes; the mean's
 // coefficients as bf16(1 / indeg) and, on a kept rev lane, bf16(1 / indeg - 1)
 // (the TPU kernel rounds keep / indeg - rev as a whole); for the encoder nf
 // into the gather, and the last output and the mean's 1 / count into the
-// scatter. The layer state h stays f32. A bf16 stash (stash_dtype) is a
-// second output of the operator pass, h rounded as it is written. The
-// instantiations run at the f32 kernels' speed: they round operands and
-// keep the CUDA-core FMAs (bf16 tensor-core products are later work).
+// scatter. The operator and the encoder's ends keep the orders above; the
+// product's sums run in the tensor cores' order, not by ascending k, so they
+// differ from an f32 FMA chain by f32 roundings (two calls give the same
+// bits). At the tensor cores' bf16 rate the product takes a fraction of the
+// time its operands take to arrive: it is bound by the bytes of relu(h) and
+// W through L2 (each kMmaRows x kMmaCols tile reads its rows of h and its
+// columns of W, f32, rounded as staged), and writes mW in bf16, half the f32
+// bytes, as the operator pass then reads it. The layer state h stays f32. A
+// bf16 stash (stash_dtype) is a second output of the operator pass, h
+// rounded as it is written.
 //
 // Row 7 (dense_mpnn_dbuf_forward, dense_mpnn_dbuf_kernel) keeps the TPU
 // kernel's contract in Hopper's terms: the TPU kernel holds a tile of bins in
@@ -111,13 +120,16 @@
 // "bfloat16", the kBf16 instantiation) rounds where rows 1b and the TPU
 // kernel's _dbuf_compute round: relu(h) and W as they are staged, mW as it is
 // stored for the operator pass, and the mean's coefficients (mean_row_bf16);
-// h stays f32, so row 7b gives row 1b's bits.
+// h stays f32. Its product is still one fmaf chain an output on the CUDA
+// cores, so it agrees with row 1b (whose product sums in the tensor cores'
+// order) at the bf16 tolerances, not bit for bit.
 // (A cluster a bin, the slices read through distributed shared memory, was
 // the first design: the card holds 30 clusters of 4 blocks at once, so the
 // packed batch's 32 bins ran in two waves, 0.153 ms, PERF.md §6.)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "common.cuh"
 
 namespace {
@@ -252,10 +264,8 @@ __device__ inline void gemm_compute(const float* As, const float* Bs, float (&ac
 
 // Grid: ceil(R / kGemmRows) * (d / 64) blocks, the column tiles of a row
 // tile next to each other. h is the layer's input [R, d], W [d, d] row-major
-// [in, out], mw [R, d]. With kBf16 both operands are rounded to bf16 as they
-// are staged (relu(h) and W, the TPU kernel's .astype(mm) operands); the
-// products and their sums stay f32.
-template <bool kBf16>
+// [in, out], mw [R, d]. Exact f32 (the bf16 product is
+// mpnn_fwd_gemm_mma_kernel below).
 __global__ void __launch_bounds__(kGemmThreads, kGemmMinBlocks)
 mpnn_fwd_gemm_kernel(const float* __restrict__ h, const float* __restrict__ W,
                      float* __restrict__ mw, int R, int d) {
@@ -290,16 +300,16 @@ mpnn_fwd_gemm_kernel(const float* __restrict__ h, const float* __restrict__ W,
     for (int t = 0; t < kGroupsA; ++t) {
       const int g = threadIdx.x + t * kGemmThreads;
       float* s = stage + g % (kBK / 4) * 4 * kLdA + g / (kBK / 4);
-      s[0] = operand<kBf16>(relu(ra[t].x));
-      s[kLdA] = operand<kBf16>(relu(ra[t].y));
-      s[2 * kLdA] = operand<kBf16>(relu(ra[t].z));
-      s[3 * kLdA] = operand<kBf16>(relu(ra[t].w));
+      s[0] = relu(ra[t].x);
+      s[kLdA] = relu(ra[t].y);
+      s[2 * kLdA] = relu(ra[t].z);
+      s[3 * kLdA] = relu(ra[t].w);
     }
     float* bs = stage + kSlabA;
 #pragma unroll
     for (int t = 0; t < kGroupsB; ++t) {
       const int g = threadIdx.x + t * kGemmThreads;
-      *reinterpret_cast<float4*>(bs + g / (kBN / 4) * kLdB + g % (kBN / 4) * 4) = operand4<kBf16>(rb[t]);
+      *reinterpret_cast<float4*>(bs + g / (kBN / 4) * kLdB + g % (kBN / 4) * 4) = rb[t];
     }
   };
   load(0);
@@ -322,6 +332,57 @@ mpnn_fwd_gemm_kernel(const float* __restrict__ h, const float* __restrict__ W,
     *reinterpret_cast<float4*>(mw + (size_t)r * d + n0 + tx * kTN) =
         make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
   }
+}
+
+// The bf16 product's tiles: kMmaRows x kMmaCols of kMmaWarpsM x kMmaWarpsN
+// warps where d is a multiple of kMmaCols, else kMmaRows x 64 (d is a
+// multiple of 64), k-slabs of 32; kMmaMinBlocks blocks an SM at least (the
+// register cap: at 3, 170 registers, the 64 x 128 tile spilled). Timed
+// against 128 x 128 of 8 warps, 64 x 256, 128 x 64, and W rounded to bf16
+// once a call and copied by cp.async, all at the same bits (PERF.md §6).
+constexpr int kMmaRows = 64;
+constexpr int kMmaCols = 128;
+constexpr int kMmaWarpsM = 2;
+constexpr int kMmaWarpsN = 2;
+constexpr int kMmaMinBlocks = 2;
+using MmaWide = mma::Shape<kMmaRows, kMmaCols, kMmaWarpsM, kMmaWarpsN, 32>;
+using MmaNarrow = mma::Shape<kMmaRows, kCols, kMmaWarpsM, kMmaWarpsN, 32>;
+
+// mW = relu(h) @ W on the tensor cores, rounded to bf16: the tile's rows of
+// h (f32, m-major, the ReLU taken and the values rounded to bf16 as staged)
+// and columns of W (f32, k-major, rounded as staged), f32 sums, each pair of
+// neighbouring outputs written as one bf16 pair. Grid: ceil(R / S::kM) *
+// (d / S::kN) blocks, the column tiles of a row tile next to each other (so
+// its rows of h are read from L2 while they are there).
+template <typename S>
+__global__ void __launch_bounds__(S::kThreads, kMmaMinBlocks)
+mpnn_fwd_gemm_mma_kernel(const float* __restrict__ h, const float* __restrict__ W,
+                         __nv_bfloat16* __restrict__ mw, int R, int d) {
+  __shared__ __align__(16) __nv_bfloat16 smem[S::kSmemHalfs];
+  const int tn = d / S::kN;
+  const int m0 = blockIdx.x / tn * S::kM, n0 = blockIdx.x % tn * S::kN;
+  mma::RowsF32<S, true> la{h, d, m0, R};
+  mma::ColsF32<S, S::kN, S::kLdB, false> lb{W, d, n0, d};
+  typename S::Tile acc;
+  mma::tile_products<S>(0, d, smem, la, lb, acc);
+  const int r0 = m0 + S::row0(), c0 = n0 + S::col0();
+#pragma unroll
+  for (int i = 0; i < S::kMT; ++i)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = r0 + i * 16 + 8 * hf;
+      if (r >= R) continue;
+#pragma unroll
+      for (int j = 0; j < S::kNT; ++j)
+        *reinterpret_cast<unsigned*>(mw + (size_t)r * d + c0 + j * 8) =
+            mma::pack_bf16x2(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
+    }
+}
+
+template <typename S>
+cudaError_t launch_gemm_mma(const float* h, const float* W, __nv_bfloat16* mw, int R, int d, cudaStream_t s) {
+  mpnn_fwd_gemm_mma_kernel<S><<<(R + S::kM - 1) / S::kM * (d / S::kN), S::kThreads, 0, s>>>(h, W, mw, R, d);
+  return cudaGetLastError();
 }
 
 // ---- per layer: h_out = (h_in +) bias + A @ mW, and the scatter ---------------
@@ -383,17 +444,18 @@ __device__ inline float mean_row_bf16(const uint32_t* row, int words, int e, con
 }
 
 // Grid (bin, 64-column slice of d), kApplyThreads a block. mw_g is the
-// layer's product [B * E, d], h_in its input (read for the residual), adj_g
+// layer's product [B * E, d] (f32; with kBf16 bf16, as the bf16 product
+// writes it), h_in its input (read for the residual), adj_g
 // and node_bits_g the prep's bit rows. With kScatter (the encoder's last
 // layer) the block also writes nh[b, :, slice]. With hs_out non-null the
 // block also writes h_out rounded to bf16 there (the bf16 stash; h_out, the
 // next layer's input, stays f32). With kBf16 the operator's operands are
-// rounded to bf16, as the TPU kernel rounds them: mW as it is staged, the
-// mean's coefficients (mean_row_bf16), and for the scatter the layer's
-// output and the mean's 1 / count.
+// rounded to bf16, as the TPU kernel rounds them: mW (rounded by the
+// product), the mean's coefficients (mean_row_bf16), and for the scatter
+// the layer's output and the mean's 1 / count.
 template <bool kScatter, bool kBf16>
 __global__ void __launch_bounds__(kApplyThreads, kApplyMinBlocks)
-mpnn_fwd_apply_kernel(const float* __restrict__ mw_g, const float* __restrict__ h_in,
+mpnn_fwd_apply_kernel(const void* __restrict__ mw_g, const float* __restrict__ h_in,
                       float* __restrict__ h_out, __nv_bfloat16* __restrict__ hs_out,
                       float* __restrict__ nh, const uint32_t* __restrict__ adj_g,
                       const uint32_t* __restrict__ node_bits_g, const float* __restrict__ bias,
@@ -416,14 +478,16 @@ mpnn_fwd_apply_kernel(const float* __restrict__ mw_g, const float* __restrict__ 
 #pragma unroll
     for (int t = 0; t < kPer; ++t) {
       const int i = tid + t * kApplyThreads;
-      if (i < E * kVecs)
-        v[t] = reinterpret_cast<const float4*>(mw_g + (bin_off + i / kVecs) * d + c0)[i % kVecs];
+      if (i < E * kVecs) {
+        const size_t at = (bin_off + i / kVecs) * d + c0 + i % kVecs * 4;
+        if constexpr (kBf16) v[t] = load_bf16x4(static_cast<const __nv_bfloat16*>(mw_g), at);
+        else v[t] = *reinterpret_cast<const float4*>(static_cast<const float*>(mw_g) + at);
+      }
     }
 #pragma unroll
     for (int t = 0; t < kPer; ++t) {
       const int i = tid + t * kApplyThreads;
-      if (i < E * kVecs)
-        reinterpret_cast<float4*>(mw + (size_t)(i / kVecs) * kCols)[i % kVecs] = operand4<kBf16>(v[t]);
+      if (i < E * kVecs) reinterpret_cast<float4*>(mw + (size_t)(i / kVecs) * kCols)[i % kVecs] = v[t];
     }
   }
   for (int i = tid; i < E * words; i += kApplyThreads) adj[i] = adj_g[bin_off * words + i];
@@ -481,7 +545,7 @@ mpnn_fwd_apply_kernel(const float* __restrict__ mw_g, const float* __restrict__ 
 }
 
 template <bool kScatter, bool kBf16>
-cudaError_t launch_apply(const float* mw, const float* h_in, float* h_out, __nv_bfloat16* hs_out,
+cudaError_t launch_apply(const void* mw, const float* h_in, float* h_out, __nv_bfloat16* hs_out,
                          float* nh, const uint32_t* adj, const uint32_t* node_bits,
                          const float* bias, int B, int E, int V, int d, int residual, int mean,
                          cudaStream_t s) {
@@ -781,16 +845,24 @@ bool bad_shape(int B, int E, int d) {
   return B <= 0 || E <= 0 || E % 2 != 0 || E > kMaxEdges || d <= 0 || d % kCols != 0;
 }
 
-// One layer's product and operator pass (the scatter too when `scatter`).
+// One layer's product and operator pass (the scatter too when `scatter`);
+// mw is f32, or bf16 with kBf16.
 template <bool kBf16>
-cudaError_t launch_layer(const float* x, const float* W, float* mw, float* h_out,
+cudaError_t launch_layer(const float* x, const float* W, void* mw, float* h_out,
                          __nv_bfloat16* hs_out, float* nh, const uint32_t* adj,
                          const uint32_t* node_bits, const float* bias, int B, int E, int V, int d,
                          int residual, int mean, bool scatter, cudaStream_t s) {
   const int R = B * E;
-  mpnn_fwd_gemm_kernel<kBf16><<<(R + kGemmRows - 1) / kGemmRows * (d / kBN), kGemmThreads, 0, s>>>(
-      x, W, mw, R, d);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if constexpr (kBf16) {
+    auto* mwb = static_cast<__nv_bfloat16*>(mw);
+    err = d % MmaWide::kN == 0 ? launch_gemm_mma<MmaWide>(x, W, mwb, R, d, s)
+                               : launch_gemm_mma<MmaNarrow>(x, W, mwb, R, d, s);
+  } else {
+    mpnn_fwd_gemm_kernel<<<(R + kGemmRows - 1) / kGemmRows * (d / kBN), kGemmThreads, 0, s>>>(
+        x, W, static_cast<float*>(mw), R, d);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess) return err;
   return scatter ? launch_apply<true, kBf16>(mw, x, h_out, hs_out, nh, adj, node_bits, bias, B, E, V,
                                              d, residual, mean, s)
@@ -816,19 +888,20 @@ int dense_mpnn_cols() { return kCols; }
 // [B,E,d] array each, 8-byte aligned) layer l also writes its output rounded
 // to bf16 into stash[l]. With bf16 != 0 every operand of the products, the
 // operator and the encoder's ends is rounded to bf16 where the TPU kernel
-// rounds it (matmul_dtype="bfloat16"); sums stay f32.
+// rounds it (matmul_dtype="bfloat16"; the products on the tensor cores);
+// sums stay f32.
 // h_in, outs[l] [B,E,d]; src/dst[B,E] int32, emask[B,E] bytes. With gather
 // != 0, h_in is ef[B,E,d] and layer 0's input is nf[src] + ef, nf[B,V,d];
 // with scatter != 0 the last layer also writes nh[B,V,d] (see the top of the
 // file). Scratch: adj[B,E,ceil(E/32)] and, with scatter, node_bits[B,V,
-// ceil(E/32)] (uint32); with gather, h0[B,E,d]; mw[B,E,d]. All pointers but
-// outs are device pointers of contiguous arrays; h_in, every outs[l], W, nf,
-// h0 and mw start 16-byte aligned. The stream is a cudaStream_t. Returns the
-// cudaError_t of the launches (0 on success).
+// ceil(E/32)] (uint32); with gather, h0[B,E,d]; mw[B,E,d] (f32, or bf16 with
+// bf16 != 0). All pointers but outs are device pointers of contiguous arrays;
+// h_in, every outs[l], W, nf, h0 and mw start 16-byte aligned. The stream is
+// a cudaStream_t. Returns the cudaError_t of the launches (0 on success).
 int dense_mpnn_forward(const float* h_in, float* const* outs, __nv_bfloat16* const* stash,
                        const float* nf, float* nh, const int* src, const int* dst,
                        const uint8_t* emask, const float* W, const float* bias, uint32_t* adj,
-                       uint32_t* node_bits, float* h0, float* mw, int B, int V, int E, int d,
+                       uint32_t* node_bits, float* h0, void* mw, int B, int V, int E, int d,
                        int layers, int residual, int mean, int gather, int scatter, int bf16,
                        void* stream) {
   if (bad_shape(B, E, d) || layers <= 0 || !outs) return (int)cudaErrorInvalidValue;

@@ -108,11 +108,13 @@ layer inputs (ReLU mask and weight-gradient operand alike). On the card
 these are the ``bf16`` instantiations of the same kernels (``csrc/
 dense_mpnn.cu`` and ``csrc/dense_mpnn_bwd.cu``), counted apart in
 ``<wrapper>.launches_bf16``; the plain versions round at the same points.
-The backward's two products (rows 3b, 4b and 6b) multiply those bf16
+The forward's product ``relu(h) @ W`` (rows 1b, 2b, 4b's replay and 5b)
+and the backward's two products (rows 3b, 4b and 6b) multiply those bf16
 operands on the tensor cores (``csrc/bf16_mma.cuh``: ``mma.sync``, f32
 accumulate), so their sums run in another order than the plain versions'
-and agree with them at the bf16 tolerances, not bit for bit; the forward
-(rows 1b, 2b, 5b, 7b) still adds its products by f32 FMA.
+and agree with them at the bf16 tolerances, not bit for bit; the
+depth-fused forward (row 7b) still adds its products by f32 FMA, so it
+agrees with row 1b at those tolerances too.
 ``None`` (or ``"float32"``) is the exact f32 path, bit for bit as before.
 """
 
@@ -472,12 +474,13 @@ def _launch_layers(h0, src, dst, edge_mask, weights, biases, outs, residual, mea
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
         # scratch: A's bit rows, the scatter's node bit rows, layer 0's
-        # gathered input, and each layer's product relu(h) @ W
+        # gathered input, and each layer's product relu(h) @ W (bf16 with
+        # mm: the operand the operator pass takes)
         words = -(-E // 32)
         adj = torch.empty(B, E, words, dtype=torch.int32, device=h0.device)
         node_bits = torch.empty(B, V, words, dtype=torch.int32, device=h0.device) if node_out is not None else None
         h0_full = torch.empty_like(h0) if node_feats is not None else None
-        mw = torch.empty_like(h0)
+        mw = torch.empty_like(h0, dtype=torch.float32 if mm is None else torch.bfloat16)
         out_ptrs = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
         stash_ptrs = None if stash is None else (ctypes.c_void_p * len(outs))(*(_ptr(t) for t in stash))
         check(fwd_fn(
@@ -907,7 +910,9 @@ def fused_dense_mpnn_block_dbuf(
     time whatever the tile, and the width may be at most 1,024.
     No module calls it, as in the JAX package.
     ``matmul_dtype="bfloat16"`` rounds its operands where row 1b does (the
-    kernel's ``bf16`` instantiation, row 7b, with row 1b's bits).
+    kernel's ``bf16`` instantiation, row 7b; its products are f32 FMA
+    chains, row 1b's run on the tensor cores, so the two agree at the bf16
+    tolerances).
     ``fused_dense_mpnn_block_dbuf.launches`` counts its launches, one a
     call (``launches_bf16`` those of row 7b); CPU tensors take
     :func:`dense_mpnn_block_reference`.

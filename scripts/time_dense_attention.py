@@ -6,9 +6,12 @@ declarative graph transformer's), 4 heads of 64, edge bias on, as
 ``chip_smoke.py``'s time phase does: device ms a call from a CUDA graph of
 20 calls, and a ``torch.profiler`` breakdown of 20 calls by kernel. Each
 row runs twice and says whether the two calls gave the same bits, with a
-digest of its outputs (rows that share a kernel share the digest).
+digest of its outputs (rows that share a kernel share the digest). ``--bf16``
+also runs rows 10b-13b the same way after the exact rows, in both bf16
+modes: on bf16 inputs (``mode`` "bf16_inputs", a bf16 model's path) and with
+``matmul_dtype="bfloat16"`` on the f32 inputs (``mode`` "mm").
 
-    python3 scripts/time_dense_attention.py [--root DIR] [--define NAME=VALUE ...] [--stages] [--e2e] [--lockstep]
+    python3 scripts/time_dense_attention.py [--root DIR] [--bf16] [--define NAME=VALUE ...] [--stages] [--e2e] [--lockstep]
 
 ``--root`` is the checkout whose ``notorch_tpu_torch`` runs (default: this
 one); its ``csrc/*.cu`` are built there at first use. ``--define
@@ -80,15 +83,19 @@ def kernel_name(name: str) -> str:
 
 
 def digest(tensors) -> str:
+    """A sha256 of the bits of a row's outputs, in order."""
+    import torch
+
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
     return h.hexdigest()[:16]
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=str(HERE), help="the checkout whose kernels run")
+    parser.add_argument("--bf16", action="store_true", help="also rows 10b-13b in both bf16 modes")
     parser.add_argument("--define", action="append", default=[], help=f"NAME=VALUE in {SOURCE}")
     parser.add_argument("--stages", action="store_true", help="stamp each kernel's phases (kStages = 1)")
     parser.add_argument("--e2e", action="store_true", help="also profile a warm declarative attention epoch")
@@ -171,17 +178,28 @@ def run(args, root: Path, tmp: Path) -> None:
         lib = dense_attention._lib()
         if lib.dense_attention_stages_built() != 1:
             raise SystemExit("--stages: the build does not stamp")
-    for shape, x in shapes.items():
+    # (the exact rows, then with --bf16 each row on bf16 inputs and with
+    # matmul_dtype, bounded as chip_smoke.py bounds the bf16 rows)
+    modes = [("exact", None, {}, smoke.bound)]
+    if args.bf16:
+        modes += [("bf16_inputs", torch.bfloat16, {}, smoke.bound_bf16),
+                  ("mm", None, {"matmul_dtype": "bfloat16"}, smoke.bound_bf16)]
+    cases = [(mode, shape, x if dtype is None else [t.to(dtype) if t is not None and t.is_floating_point() else t
+                                                    for t in x], kw, bound)
+             for mode, dtype, kw, bound in modes for shape, x in shapes.items()]
+    for mode, shape, x, kw, bound in cases:
         for row, (fn, bwd) in rows.items():
-            def call(fn=fn, bwd=bwd, x=x):
-                out = fn(*x[:7], x[7], num_heads=heads) if bwd else fn(*x[:7], num_heads=heads)
+            def call(fn=fn, bwd=bwd, x=x, kw=kw):
+                out = fn(*x[:7], x[7], num_heads=heads, **kw) if bwd else fn(*x[:7], num_heads=heads, **kw)
                 return out if bwd else (out,)
 
             first, second = call(), call()
             torch.cuda.synchronize()
             ops, n_bytes, _ = smoke.attention_work(x, heads, bwd)
-            bound_ms, bound_by = smoke.bound(ops, n_bytes)
-            record = {**tag, "row": row, "shape": shape, "sha256": digest(first),
+            bound_ms, bound_by = bound(ops, n_bytes)
+            label = row if mode == "exact" else f"{row}b"
+            record = {**tag, "row": label, **({} if mode == "exact" else {"mode": mode}), "shape": shape,
+                      "sha256": digest(first),
                       "repeatable": all(torch.equal(p, q) for p, q in zip(first, second)),
                       "bound_ms": bound_ms, "bound_by": bound_by}
             if row == 13:

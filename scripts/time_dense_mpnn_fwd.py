@@ -15,17 +15,24 @@ says whether it gave row 1's bits and, where the tree has them, how many of
 its bin groups the launch runs at once. With
 ``--bits FILE`` the outputs are compared with those saved in FILE, bit for
 bit: the first run that names FILE writes it, every later run prints
-whether its outputs have the same bits. With ``--e2e``, also a warm epoch of
-the declarative D-MPNN config (rows 5 and 6) under ``torch.profiler``: the
-card's busy milliseconds a step, and row 5's share of them.
+whether its outputs have the same bits. ``--bf16`` also runs rows 1b, 2b,
+4b, 5b and 7b the same way after the f32 rows (``matmul_dtype="bfloat16"``;
+rows 2b and 5b with the bf16 stash, as the bf16 encoder config runs them;
+row 4b replays in f32 layer inputs), row 7b with its largest difference from
+row 1b. Each line carries a ``sha256`` of the row's outputs. With ``--e2e``,
+also a warm epoch of the declarative D-MPNN config (rows 5 and 6) under
+``torch.profiler``: the card's busy milliseconds a step, and row 5's share
+of them.
 
-    python3 scripts/time_dense_mpnn_fwd.py [--root DIR] [--bits FILE] [--define NAME=VALUE ...] [--e2e]
+    python3 scripts/time_dense_mpnn_fwd.py [--root DIR] [--bits FILE] [--bf16] [--rows 1b,5b] [--define NAME=VALUE ...] [--e2e]
 
-``--root`` is the checkout whose ``notorch_tpu_torch`` runs (default: this
+``--rows`` runs only the rows it names (for example ``--rows 1b,5b`` with
+``--bf16``, to compare tile variants). ``--root`` is the checkout whose ``notorch_tpu_torch`` runs (default: this
 one); its ``csrc/*.cu`` are built there at first use. ``--define NAME=VALUE``
 times a variant of that checkout: its package is copied to a temporary
 directory with ``constexpr int NAME = ...`` set to VALUE in
-``csrc/dense_mpnn.cu`` (for example ``kGemmRows=32``, ``kApplyThreads=512``).
+``csrc/dense_mpnn.cu`` (for example ``kGemmRows=32``, ``kApplyThreads=512``,
+or the bf16 product's tile, ``kMmaCols=64``).
 The inputs and the timing are this checkout's, so two trees, for example a
 parent commit unpacked with ``git archive``, are timed the same way in one
 call on one card. Prints one JSON line a row, then the card's name and
@@ -74,9 +81,12 @@ def variant(root: Path, defines: list[str], into: Path) -> Path:
 
 
 def digest(tensors) -> str:
+    """A sha256 of the bits of a row's outputs, in order."""
+    import torch
+
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
     return h.hexdigest()[:16]
 
 
@@ -84,6 +94,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", default=str(HERE), help="the checkout whose kernels run")
     parser.add_argument("--bits", help="a file of outputs to compare with (written if missing)")
+    parser.add_argument("--bf16", action="store_true", help="also rows 1b, 2b, 4b, 5b and 7b (matmul_dtype bfloat16)")
+    parser.add_argument("--rows", help="only these rows, comma-separated (default: all)")
     parser.add_argument("--define", action="append", default=[], help="NAME=VALUE in csrc/dense_mpnn.cu")
     parser.add_argument("--e2e", action="store_true", help="also profile a warm declarative D-MPNN epoch")
     args = parser.parse_args()
@@ -129,6 +141,25 @@ def run(args, root: Path, tmp: Path) -> None:
         (5, "mean", lambda: smoke.fused_dense_encoder_fwd(*enc[:7], stash=True, reduce="mean", **enc_kw)),
         (7, "mean", lambda: (smoke.fused_dense_mpnn_block_dbuf(*x, mols_per_tile=8, reduce="mean", **kw),)),
     ]
+    if args.bf16:
+        mm, half = dict(matmul_dtype="bfloat16"), dict(matmul_dtype="bfloat16", stash_dtype="bfloat16")
+        rows += [
+            ("1b", "sum", lambda: (smoke.fused_dense_mpnn_block(*x, reduce="sum", **kw, **mm),)),
+            ("2b", "sum", lambda: smoke.fused_dense_mpnn_block_stash(*x, reduce="sum", **kw, **half)),
+            ("4b", "sum", lambda: smoke.fused_dense_mpnn_block_bwd(*x, g, reduce="sum", **kw, **mm)),
+            ("5b", "sum", lambda: smoke.fused_dense_encoder_fwd(*enc[:7], stash=True, reduce="sum", **enc_kw,
+                                                                **half)),
+            ("7b", "sum", lambda: (smoke.fused_dense_mpnn_block_dbuf(*x, mols_per_tile=8, reduce="sum", **kw,
+                                                                     **mm),)),
+            ("1b", "mean", lambda: (smoke.fused_dense_mpnn_block(*x, reduce="mean", **kw, **mm),)),
+            ("5b", "mean", lambda: smoke.fused_dense_encoder_fwd(*enc[:7], stash=True, reduce="mean", **enc_kw,
+                                                                 **half)),
+            ("7b", "mean", lambda: (smoke.fused_dense_mpnn_block_dbuf(*x, mols_per_tile=8, reduce="mean", **kw,
+                                                                      **mm),)),
+        ]
+    if args.rows:
+        keep = set(args.rows.split(","))
+        rows = [r for r in rows if str(r[0]) in keep]
     saved = None
     bits_path = Path(args.bits) if args.bits else None
     if bits_path is not None and bits_path.exists():
@@ -139,10 +170,14 @@ def run(args, root: Path, tmp: Path) -> None:
         first, second = ([t for t in out if t is not None] for out in (call(), call()))
         torch.cuda.synchronize()
         outputs[key] = [t.cpu() for t in first]
-        record = {**tag, "row": row, "reduce": reduce, "shape": enc_shape if row == 5 else block_shape,
+        record = {**tag, "row": row, "reduce": reduce, "shape": enc_shape if row in (5, "5b") else block_shape,
                   "depth": depth, "sha256": digest(first),
                   "repeatable": all(torch.equal(p, q) for p, q in zip(first, second))}
-        if row == 7:
+        if row == "7b" and f"row1b_{reduce}" in outputs:  # row 1b's products sum in the tensor cores' order
+            ref = outputs[f"row1b_{reduce}"][0]
+            record["row1b_bits"] = torch.equal(first[0].cpu(), ref)
+            record["row1b_max_abs_err_over_max"] = float((first[0].cpu() - ref).abs().max() / ref.abs().max())
+        if row == 7 and f"row1_{reduce}" in outputs:
             record["row1_bits"] = torch.equal(first[0].cpu(), outputs[f"row1_{reduce}"][0])
             from notorch_tpu_torch.kernels import dense_mpnn
 

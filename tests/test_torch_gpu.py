@@ -502,6 +502,42 @@ def test_cuda_fwd_edge_cases_match_plain_versions(case):
     assert [fn.launches for fn in counters] == [n + 2 * kw["depth"] for n in before]
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(SWEEP_CASES))
+@pytest.mark.parametrize("stash_dtype", [None, "bfloat16"])
+def test_cuda_bf16_fwd_edge_cases_match_plain_versions(case, stash_dtype):
+    """Rows 1b, 2b and 5b (matmul_dtype="bfloat16": the product relu(h) W
+    on the tensor cores, in 64 x 128 tiles where the width allows, else 64 x
+    64, over all B * E rows) at the forward's edge cases, with an f32 and a
+    bf16 stash: each against its plain version at BF16_*_TOL, each twice
+    with equal bits, each counter adding depth a call to its bf16 count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    (h0, src, dst, mask, W, b, _), kw, (nf, ef, esrc, edst, emask, eW, eb, _, _) = _edge_case(case)
+    mm = dict(matmul_dtype="bfloat16")
+    ref_kw = {**{k: kw[k] for k in ("depth", "residual", "reduce")}, **mm}
+    kw = {**kw, **mm}
+    half = dict(stash_dtype=stash_dtype)
+    counters = (fused_dense_mpnn_block, fused_dense_mpnn_block_stash, fused_dense_encoder_fwd)
+    before = [fn.launches_bf16 for fn in counters]
+    runs = [
+        (lambda: [fused_dense_mpnn_block(h0, src, dst, mask, W, b, **kw)],
+         [dense_mpnn_block_reference(h0, src, dst, mask, W, b, **ref_kw)]),
+        (lambda: list(fused_dense_mpnn_block_stash(h0, src, dst, mask, W, b, **kw, **half)),
+         list(dense_mpnn_block_stash_reference(h0, src, dst, mask, W, b, **ref_kw, **half))),
+        (lambda: list(fused_dense_encoder_fwd(nf, ef, esrc, edst, emask, eW, eb, stash=True, **ref_kw, **half)),
+         list(dense_encoder_reference(nf, ef, esrc, edst, emask, eW, eb, stash=True, **ref_kw, **half))),
+    ]
+    for row, (kernel, ref) in zip(("1b", "2b", "5b"), runs):
+        first, second = kernel(), kernel()
+        torch.cuda.synchronize()
+        for i, (got, want) in enumerate(zip(first, ref)):
+            assert got.dtype == want.dtype, f"row {row} output {i} ({case})"
+            _hold_bf16(got, want, f"row {row} output {i} ({case}, stash {stash_dtype})")
+        assert all(torch.equal(x, y) for x, y in zip(first, second)), f"row {row} is not repeatable"
+    assert [fn.launches_bf16 for fn in counters] == [n + 2 * kw["depth"] for n in before]
+
+
 def _dbuf_case(E, bins, d=256, seed=0):
     """Row 7's inputs on the card: one molecule a bin (``bins`` of SMIS),
     seeded h0, W and b at width ``d``; and the block's n_nodes."""

@@ -2,8 +2,10 @@
 attention core's rows 10b-13b with bf16 inputs (a bf16 model's path) and
 with ``matmul_dtype="bfloat16"`` on f32 inputs, the depth-fused D-MPNN
 forward's row 7b, row 8b (the ordered bf16 segment sum of the glue), row 9b
-(the packed segment sum on bf16 data) and its gradient, and the bf16
-graph-transformer and ``impl: csr`` D-MPNN blocks card against CPU. Skips
+(the packed segment sum on bf16 data) and its gradient, the bf16
+graph-transformer and ``impl: csr`` D-MPNN blocks card against CPU, and
+the kernel of the bf16 forward's products (rows 1b, 2b, 4b, 5b: the
+tensor cores') by profiler. Skips
 where there is no CUDA device; imports no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu_bf16.py -q
@@ -47,8 +49,11 @@ from notorch_tpu_torch.kernels.dense_attention import (
 )
 from notorch_tpu_torch.kernels.dense_mpnn import (
     dense_mpnn_block_reference,
+    fused_dense_encoder_fwd,
     fused_dense_mpnn_block,
+    fused_dense_mpnn_block_bwd,
     fused_dense_mpnn_block_dbuf,
+    fused_dense_mpnn_block_stash,
 )
 from notorch_tpu_torch.nn.attention_dense import DenseGATBlock
 
@@ -79,16 +84,19 @@ def held(got: torch.Tensor, ref: torch.Tensor, what: str, element_tol: float = B
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["packed", "dense", "random", "hub", "odd47"])
+@pytest.mark.parametrize("kind", ["packed", "dense", "random", "hub", "odd47", "odd49"])
 @pytest.mark.parametrize("edge_bias", [True, False])
 @pytest.mark.parametrize("mode", ["bf16_inputs", "matmul_dtype"])
-@pytest.mark.parametrize("d, H", [(256, 4), (16, 2)])
+@pytest.mark.parametrize("d, H", [(256, 4), (16, 2), (256, 8), (512, 1), (192, 3), (64, 1)])
 def test_cuda_bf16_attention_kernels_match_plain_versions(kind, edge_bias, mode, d, H):
     """Rows 10b-13b: the four entries in either bf16 mode against the plain
     versions on every lane, outputs in the inputs' dtype; rows with no live
     pair are zero in the output and in g_q, key rows with none in g_k and
     g_v; each backward twice bit for bit; each launch counted in its mode's
-    count."""
+    count. The kinds include hub rows (more pairs than a warp, a pair of
+    three edges), bins whose rows no run of slots divides and a bin with no
+    live lane; the widths heads of 1-4 vectors a lane (the backward's query
+    pass fetches each pair once, whatever a lane holds)."""
     needs_card()
     case = attention_case(kind, d, H, edge_bias)
     q, k, v, eb, src, dst, mask, g = case
@@ -126,10 +134,12 @@ def test_cuda_bf16_attention_kernels_match_plain_versions(kind, edge_bias, mode,
 @pytest.mark.parametrize("E", [128, 256])
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
 def test_cuda_dbuf_bf16_matches_plain_version_and_row_1b(E, reduce):
-    """Row 7b against its plain version and against row 1b's kernel, bit for
-    bit (the same roundings, the same FMAs in the same order); one launch a
-    call, counted in ``launches_bf16``; after row 7's f32 instantiation in
-    the same process (each instantiation opts in to its shared memory)."""
+    """Row 7b against its plain version and against row 1b's kernel, both
+    at the bf16 holds (the same roundings; row 7b sums each product as an
+    f32 FMA chain, row 1b on the tensor cores, so an f32 ulp of a sum can
+    flip a bf16 rounding); twice with equal bits; one launch a call,
+    counted in ``launches_bf16``; after row 7's f32 instantiation in the
+    same process (each instantiation opts in to its shared memory)."""
     needs_card()
     args, n_nodes = _dbuf_case(E, 32)
     kw = dict(depth=3, n_nodes=n_nodes, residual=True, reduce=reduce, matmul_dtype="bfloat16")
@@ -142,7 +152,7 @@ def test_cuda_dbuf_bf16_matches_plain_version_and_row_1b(E, reduce):
     assert fused_dense_mpnn_block_dbuf.launches_bf16 == before + 2
     held(out, dense_mpnn_block_reference(*args, depth=3, residual=True, reduce=reduce, matmul_dtype="bfloat16"),
          "row 7b")
-    assert torch.equal(out, row1b), f"row 7b differs from row 1b by {float((out - row1b).abs().max())}"
+    held(out, row1b, "row 7b against row 1b")
     assert torch.equal(out, again)
 
 
@@ -399,3 +409,44 @@ def test_cuda_bf16_csr_block_matches_cpu():
                         **{n: p.grad.cpu() for n, p in block.named_parameters()}})
     for name, ref in results[0].items():
         held(results[1][name], ref, f"the bf16 csr block's {name}", BLOCK_ELEMENT_TOL, BLOCK_L2_TOL)
+
+
+@pytest.mark.gpu
+def test_cuda_bf16_forward_products_run_on_the_tensor_cores():
+    """Rows 1b, 2b, 4b (its replay) and 5b launch the tensor-core product
+    ``mpnn_fwd_gemm_mma_kernel`` once a layer and no other product kernel,
+    and row 1 in f32 keeps the FMA product: one profile of a call of each
+    (3 + 3 + 2 + 3 launches of the one, 3 of the other), 120-lane bins (a
+    row count no tile divides) and the encoder at V = 128, E = 256. (Kept
+    last in the file and to one profiler session: after several sessions in
+    a process the profiler has dropped kernel records on this machine.)"""
+    needs_card()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from .test_torch_gpu import _encoder_inputs, _train_inputs
+
+    depth = 3
+    h0, src, dst, mask, W, b, g = _train_inputs(120, depth)
+    nf, ef, esrc, edst, emask, eW, eb, _, _ = _encoder_inputs(128, 256, depth)
+    kw = dict(depth=depth, n_nodes=68, residual=True, reduce="sum")
+    mm = dict(matmul_dtype="bfloat16")
+    calls = [
+        lambda: fused_dense_mpnn_block(h0, src, dst, mask, W, b, **kw, **mm),
+        lambda: fused_dense_mpnn_block_stash(h0, src, dst, mask, W, b, stash_dtype="bfloat16", **kw, **mm),
+        lambda: fused_dense_mpnn_block_bwd(h0, src, dst, mask, W, b, g, **kw, **mm),
+        lambda: fused_dense_encoder_fwd(nf, ef, esrc, edst, emask, eW, eb, stash=True, stash_dtype="bfloat16",
+                                        depth=depth, residual=True, reduce="sum", **mm),
+        lambda: fused_dense_mpnn_block(h0, src, dst, mask, W, b, **kw),
+    ]
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    products = {e.key: e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "mpnn_fwd_gemm_" in e.key}
+    on_tensor_cores = sum(n for k, n in products.items() if "mpnn_fwd_gemm_mma_kernel" in k)
+    assert (on_tensor_cores, sum(products.values())) == (3 + 3 + 2 + 3, 3 + 3 + 2 + 3 + 3), products
