@@ -52,13 +52,17 @@ __device__ inline float4 operand4(float4 v) {
   return make_float4(operand<kBf16>(v.x), operand<kBf16>(v.y), operand<kBf16>(v.z), operand<kBf16>(v.w));
 }
 
-// 4 values of a row of the bf16 stash, from element i (i % 4 == 0), as floats.
-__device__ inline float4 load_bf16x4(const __nv_bfloat16* p, size_t i) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p + i);
+// 4 bf16 values (8 bytes, the lower first) as floats, exactly.
+__device__ inline float4 widen_bf16x4(uint2 raw) {
   const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
   const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
   const float2 a = __bfloat1622float2(lo), c = __bfloat1622float2(hi);
   return make_float4(a.x, a.y, c.x, c.y);
+}
+
+// 4 values of a row of the bf16 stash, from element i (i % 4 == 0), as floats.
+__device__ inline float4 load_bf16x4(const __nv_bfloat16* p, size_t i) {
+  return widen_bf16x4(*reinterpret_cast<const uint2*>(p + i));
 }
 
 // 16-byte vector q, from column k0, of row r (= b * E + e) of a layer input

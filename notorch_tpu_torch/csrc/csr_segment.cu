@@ -27,13 +27,14 @@
 // every add, as XLA adds the rows of a bf16 scatter-add (jax.ops.segment_sum
 // of bf16 data, the VJP of a bf16 gather); bf16 read and bf16 written, one
 // launch a call. See rowptr_kernel_bf16 below.
-// Row 9b, the packed kernel's bf16 mode (kBf16): bf16 rows read as
-// __nv_bfloat16 (8 bytes a lane: d a multiple of 4) and widened exactly,
-// summed in f32 in slot order within each tile_e-slot chunk of the tile's
-// budget; at each chunk's end the f32 partial is rounded to bf16
-// (__float2bfloat16_rn) and added to a bf16 total, the add rounded; bf16
-// written. That is where the TPU kernel rounds: its grid walks a tile's
-// budget chunk by chunk, forms each chunk's sums as an f32 one-hot product,
+// Row 9b, the packed kernel's bf16 modes (kBf16x8, kBf16x4): bf16 rows read
+// in 16-byte vectors of 8 values where d is a multiple of 8 (a warp covers a
+// 256-wide row with one load a lane), else in 8-byte vectors of 4, and
+// widened exactly, summed in f32 in slot order within each tile_e-slot chunk
+// of the tile's budget; at each chunk's end the f32 partial is rounded to
+// bf16 (__float2bfloat16_rn) and added to a bf16 total, the add rounded; bf16
+// written in the same vectors. That is where the TPU kernel rounds: its grid
+// walks a tile's budget chunk by chunk, forms each chunk's sums as an f32 one-hot product,
 // rounds them to the bf16 output's type and adds them to the bf16 output
 // tile. The cut falls at the slot index within the tile, as the grid's
 // chunks do, wherever the node's run begins; a node whose slots lie in one
@@ -67,18 +68,23 @@
 //      warp's list at its rank among the marks before it, so the list comes
 //      out in ascending slot order. A key that names another tile's node
 //      never equals v, so such slots add nothing.
-//   3. The warp sums its node's rows: a lane owns kLaneVecs 16-byte vectors
-//      (8-byte in bf16 mode) of the row (all d columns between the warp's lanes, so a node's run is
+//   3. The warp sums its node's rows: a lane owns kLaneVecs float4 sums of
+//      the row (all d columns between the warp's lanes, so a node's run is
 //      formed once, not once a column slice; the blocks of a tile each stage
-//      its index, 3 KiB at the lipo batch, from L2), reads kRowBatch rows of
-//      the list at once and adds them in list order, and writes its vectors
-//      once. A list that fills
-//      up (a hub node) is summed and emptied as the scan goes on. In bf16
-//      mode the scan also lists each row's chunk (its slot / tile_e), and
-//      the sum folds its f32 partial into the bf16 total where the chunk
-//      changes and at the end: one scan and one pass over the rows, as in
-//      f32 (a pass per chunk, each its own scan and rows, took 1.55x row
-//      9's time on the card).
+//      its index, 3 KiB at the lipo batch, from L2), filled by two 16-byte
+//      vectors (f32), one 16-byte vector of 8 bf16 values, or two 8-byte
+//      ones of 4, reads a batch of rows of the list at once, adds them in
+//      list order, and writes its vectors once. A list that fills up (a hub
+//      node) is summed and emptied as the scan goes on. On bf16 rows the scan
+//      marks, in the list itself, each row whose slot lies in another chunk
+//      (slot / tile_e, by a multiply with its reciprocal) than the node's
+//      row before it (from the ballot: the marked lane below, or the last
+//      slot of the words before), by writing its edge id as ~e; the sum folds
+//      its f32 partial into the bf16 total before such a row and at the end,
+//      and reads kRowBatchBf16 rows at once: one scan, one list and one pass
+//      over the rows, as in f32 (a pass per chunk took 1.55x row 9's time
+//      on the card; 8-byte vectors, a second list, or a division for each
+//      row's chunk, 1.1-1.3x: PERF.md §6).
 //   Dependent device-memory round trips: the index, then the rows. The order
 //   of every sum is fixed (ascending slot, as the CPU plain version's
 //   index_add_ takes them) with no float atomics, so two calls give the same
@@ -129,7 +135,10 @@ constexpr int kNodeWarps = 4;      // nodes (a warp each) of a packed block
 constexpr int kPackedThreads = kNodeWarps * 32;
 constexpr int kScanWords = 4;      // 32-slot words a warp's scan takes at once
 constexpr int kList = 256;         // edge ids a warp's list holds (at least 32 kScanWords)
-constexpr int kRowBatch = 8;       // rows a lane reads at once
+// Rows a lane reads at once: f32 rows, and bf16 rows (whose batch of
+// unrolled widenings and folds costs more than the loads it keeps in flight)
+constexpr int kRowBatch = 8;
+constexpr int kRowBatchBf16 = 4;
 constexpr int kLaneVecs = 2;       // 16-byte vectors of a row a lane sums at once
 // budgets up to which perm is staged beside the keys (else a marked lane
 // reads its slot's perm from device memory)
@@ -146,10 +155,25 @@ constexpr int kLongSpan = 2 * kGroupRows;  // a block's span past which it holds
 constexpr int kStages = 0;
 
 // The packed kernel's shared memory: the tile's keys (and edge ids), and a
-// list a warp (in bf16 mode a second one, each listed row's chunk).
-__host__ __device__ inline size_t packed_smem_bytes(int budget, bool stage_perm, bool bf16) {
-  return sizeof(int) * ((stage_perm ? 2 : 1) * (size_t)budget + (size_t)kNodeWarps * kList * (bf16 ? 2 : 1));
+// list a warp.
+__host__ __device__ inline size_t packed_smem_bytes(int budget, bool stage_perm) {
+  return sizeof(int) * ((stage_perm ? 2 : 1) * (size_t)budget + (size_t)kNodeWarps * kList);
 }
+
+// How packed_kernel reads a row: f32 in 16-byte vectors of 4 values (row 9);
+// bf16 (row 9b) in 16-byte vectors of 8 values where d is a multiple of 8 and
+// the rows 16-byte aligned, else in 8-byte vectors of 4.
+constexpr int kF32 = 0, kBf16x4 = 1, kBf16x8 = 2;
+
+// Vectors of a row a lane reads at once, each into kLaneVecs / kLoads of its
+// float4 sums (a 16-byte vector of 8 bf16 values fills two), and the values
+// of a vector.
+template <int kType>
+constexpr int kLoads = kType == kBf16x8 ? 1 : kLaneVecs;
+template <int kType>
+constexpr int kVecValues = kType == kBf16x8 ? 8 : 4;
+template <int kType>
+constexpr int kRows = kType == kF32 ? kRowBatch : kRowBatchBf16;
 
 // Stage stamps of a kStages build: lane 0 of warp 0 of block 0 writes
 // %globaltimer (ns) at each phase boundary of the packed kernel (stage_at:
@@ -187,12 +211,32 @@ __device__ inline void stamp(int stage, bool start, bool end) {
   }
 }
 
-// Four values of a row of data from value 4 q: a float4 of f32 data, or
-// four bf16 values (8 bytes) widened to f32, exactly (row 9b).
-template <bool kBf16>
-__device__ inline float4 load_vec(const void* __restrict__ data, size_t q) {
-  if constexpr (kBf16) return load_bf16x4(static_cast<const __nv_bfloat16*>(data), 4 * q);
-  return static_cast<const float4*>(data)[q];
+__device__ inline unsigned pack_bf16x2(float x, float y) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&r);
+}
+
+// A lane's values of row e of data: its kLoads<kType> vectors q0 + 32 j +
+// lane (j < kLoads) of the row's nq, as kLaneVecs float4s, widened exactly
+// from bf16; zero past the row, and for e < 0.
+template <int kType>
+__device__ inline void load_lane(float4 (&x)[kLaneVecs], const void* __restrict__ data, int e, int nq, int q0,
+                                 int lane) {
+#pragma unroll
+  for (int j = 0; j < kLoads<kType>; ++j) {
+    const int q = q0 + j * 32 + lane;
+    const size_t at = (size_t)e * nq + q;
+    const bool in = e >= 0 && q < nq;
+    if constexpr (kType == kBf16x8) {
+      const uint4 raw = in ? static_cast<const uint4*>(data)[at] : make_uint4(0u, 0u, 0u, 0u);
+      x[0] = widen_bf16x4(make_uint2(raw.x, raw.y));
+      x[1] = widen_bf16x4(make_uint2(raw.z, raw.w));
+    } else if constexpr (kType == kBf16x4) {
+      x[j] = in ? load_bf16x4(static_cast<const __nv_bfloat16*>(data), 4 * at) : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      x[j] = in ? static_cast<const float4*>(data)[at] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
 }
 
 // Row 9b's fold: the f32 partial rounded to bf16 and added to the bf16
@@ -205,32 +249,30 @@ __device__ inline void fold(float4 (&acc)[kLaneVecs], float4 (&total)[kLaneVecs]
   }
 }
 
-// acc[j] += the rows list[0..n) of data, vector q0 + 32 j + lane of each, in
-// list order; kRowBatch rows' loads go out before their adds. On bf16 rows
-// each row's chunk (chunk_of) decides where the sum rounds: a row of another
-// chunk than the partial's (cur) folds the partial into total first.
-template <bool kBf16>
-__device__ inline void sum_rows(const void* __restrict__ rows, const int* list, const int* chunk_of, int n, int nq,
-                                int q0, int lane, float4 (&acc)[kLaneVecs], float4 (&total)[kLaneVecs], int& cur) {
-  for (int i0 = 0; i0 < n; i0 += kRowBatch) {
-    float4 x[kRowBatch][kLaneVecs];
+// acc += the rows list[0..n) of data (the lane's values of each, load_lane),
+// in list order; kRows rows' loads go out before their adds. On bf16
+// rows an entry that starts a chunk of slots (stored as ~e, negative: see
+// sum_run) first folds the partial into total.
+template <int kType>
+__device__ inline void sum_rows(const void* __restrict__ rows, const int* list, int n, int nq, int q0, int lane,
+                                float4 (&acc)[kLaneVecs], float4 (&total)[kLaneVecs]) {
+  for (int i0 = 0; i0 < n; i0 += kRows<kType>) {
+    float4 x[kRows<kType>][kLaneVecs];
+    bool starts[kRows<kType>];
 #pragma unroll
-    for (int i = 0; i < kRowBatch; ++i) {
-      const int e = i0 + i < n ? list[i0 + i] : -1;
-#pragma unroll
-      for (int j = 0; j < kLaneVecs; ++j) {
-        const int q = q0 + j * 32 + lane;
-        x[i][j] = e >= 0 && q < nq ? load_vec<kBf16>(rows, (size_t)e * nq + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = 0; i < kRows<kType>; ++i) {
+      int e = i0 + i < n ? list[i0 + i] : -1;
+      if constexpr (kType != kF32) {
+        starts[i] = e < 0;
+        if (e < 0 && i0 + i < n) e = ~e;
       }
+      load_lane<kType>(x[i], rows, e, nq, q0, lane);
     }
 #pragma unroll
-    for (int i = 0; i < kRowBatch; ++i)
+    for (int i = 0; i < kRows<kType>; ++i)
       if (i0 + i < n) {
-        if constexpr (kBf16) {
-          if (chunk_of[i0 + i] != cur) {
-            fold(acc, total);
-            cur = chunk_of[i0 + i];
-          }
+        if constexpr (kType != kF32) {
+          if (starts[i]) fold(acc, total);
         }
 #pragma unroll
         for (int j = 0; j < kLaneVecs; ++j) acc[j] = add4(acc[j], x[i][j]);
@@ -240,18 +282,24 @@ __device__ inline void sum_rows(const void* __restrict__ rows, const int* list, 
 
 // Steps 2-3 of packed_kernel: node v's slots of the tile in ascending order,
 // kScanWords words at once (their key loads, then their ballots), each
-// marked lane writing its edge id at its rank among the marks before it (in
-// bf16 mode also its slot's chunk, slot / chunk, into chunk_of); acc gains
-// their rows in that order (bf16: folded into total where the chunk changes,
-// and at the end). A list that fills up is summed and emptied as the scan
-// goes on.
-template <bool kStagePerm, bool kBf16>
+// marked lane writing its edge id at its rank among the marks before it; acc
+// gains their rows in that order. On bf16 rows a marked lane whose slot lies
+// in another chunk (slot / chunk) than the node's slot marked before it (the
+// lane below it in the ballot, or the last of the words before; a run's
+// first row has none) writes ~e instead: the sum folds its f32 partial into
+// the bf16 total there, and at the end (a slot's chunk from a multiply by a
+// reciprocal, no division). A list that fills up is summed and emptied as
+// the scan goes on.
+template <bool kStagePerm, int kType>
 __device__ inline void sum_run(const void* __restrict__ data, const int* key, const int* perm_s,
                                const int* __restrict__ perm, size_t s0, int v, int budget, int chunk, int* list,
-                               int* chunk_of, int nq, int q0, int lane, float4 (&acc)[kLaneVecs],
-                               float4 (&total)[kLaneVecs]) {
-  int n = 0, cur = -1;
+                               int nq, int q0, int lane, float4 (&acc)[kLaneVecs], float4 (&total)[kLaneVecs]) {
+  // bf16: the slot last marked; s / chunk as __umulhi(s, magic), magic =
+  // ceil(2^32 / chunk): exact for every slot below 2^16 (kMaxBudget)
+  int n = 0, last = -1;
+  const unsigned magic = chunk > 1 ? 0xffffffffu / (unsigned)chunk + 1u : 0u;
   const int words = (budget + 31) / 32;
+  const unsigned below = (1u << lane) - 1u;
   for (int w0 = 0; w0 < words; w0 += kScanWords) {
     bool hit[kScanWords];
     unsigned bits[kScanWords];
@@ -266,27 +314,37 @@ __device__ inline void sum_run(const void* __restrict__ data, const int* key, co
     for (int u = 0; u < kScanWords; ++u) {
       const int s = (w0 + u) * 32 + lane;
       if (hit[u]) {
-        const int at = n + __popc(bits[u] & ((1u << lane) - 1u));
-        list[at] = kStagePerm ? perm_s[s] : perm[s0 + s];
-        if constexpr (kBf16) chunk_of[at] = s / chunk;
+        const int at = n + __popc(bits[u] & below);
+        int e = kStagePerm ? perm_s[s] : perm[s0 + s];
+        if constexpr (kType != kF32) {
+          // a run's first row folds nothing: its partial and total are zero
+          const unsigned before = bits[u] & below;
+          const int prev = before != 0 ? (w0 + u) * 32 + 31 - __clz(before) : last;
+          const int cs = chunk > 1 ? (int)__umulhi((unsigned)s, magic) * chunk : s;
+          if (prev >= 0 && prev < cs) e = ~e;
+        }
+        list[at] = e;
       }
       n += __popc(bits[u]);
+      if constexpr (kType != kF32) {
+        if (bits[u] != 0) last = (w0 + u) * 32 + 31 - __clz(bits[u]);
+      }
     }
     if (n > kList - 32 * kScanWords) {  // room for one more scan's marks no longer certain
       __syncwarp();
-      sum_rows<kBf16>(data, list, chunk_of, n, nq, q0, lane, acc, total, cur);
+      sum_rows<kType>(data, list, n, nq, q0, lane, acc, total);
       n = 0;
       __syncwarp();
     }
   }
   __syncwarp();
   if (q0 == 0) stamp(2, false, false);
-  sum_rows<kBf16>(data, list, chunk_of, n, nq, q0, lane, acc, total, cur);
-  if constexpr (kBf16) fold(acc, total);
+  sum_rows<kType>(data, list, n, nq, q0, lane, acc, total);
+  if constexpr (kType != kF32) fold(acc, total);
   __syncwarp();  // the list is read before the next scan refills it
 }
 
-template <bool kStagePerm, bool kBf16>
+template <bool kStagePerm, int kType>
 __global__ void __launch_bounds__(kPackedThreads)
     packed_kernel(const void* __restrict__ data, const int* __restrict__ perm,
                   const int* __restrict__ packed_dst, void* __restrict__ out, int E, int d,
@@ -296,7 +354,6 @@ __global__ void __launch_bounds__(kPackedThreads)
   int* key = smem;                                    // [budget]
   int* perm_s = key + budget;                         // [budget] (kStagePerm)
   int* lists = perm_s + (kStagePerm ? budget : 0);    // [kNodeWarps][kList]
-  int* chunks = lists + kNodeWarps * kList;           // [kNodeWarps][kList] (kBf16)
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int tile = blockIdx.x / groups;
   const int node = blockIdx.x % groups * kNodeWarps + warp;
@@ -324,30 +381,32 @@ __global__ void __launch_bounds__(kPackedThreads)
   stamp(1, false, false);
   if (node >= tile_v) return;
 
-  // 2-3. node v's run in ascending slot order, then its rows; in bf16 mode
+  // 2-3. node v's run in ascending slot order, then its rows; on bf16 rows
   // each chunk's f32 partial rounded to bf16 and added to the bf16 total,
   // the add rounded
   const int v = tile * tile_v + node;
   int* list = lists + warp * kList;
-  int* chunk_of = chunks + warp * kList;
-  const int nq = d / 4;
-  for (int q0 = 0; q0 < nq; q0 += 32 * kLaneVecs) {
+  const int nq = d / kVecValues<kType>;
+  for (int q0 = 0; q0 < nq; q0 += 32 * kLoads<kType>) {
     float4 acc[kLaneVecs], total[kLaneVecs];
 #pragma unroll
     for (int j = 0; j < kLaneVecs; ++j) acc[j] = total[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-    sum_run<kStagePerm, kBf16>(data, key, perm_s, perm, s0, v, budget, chunk, list, chunk_of, nq, q0, lane, acc,
-                               total);
+    sum_run<kStagePerm, kType>(data, key, perm_s, perm, s0, v, budget, chunk, list, nq, q0, lane, acc, total);
 #pragma unroll
-    for (int j = 0; j < kLaneVecs; ++j) {
+    for (int j = 0; j < kLoads<kType>; ++j) {
       const int q = q0 + j * 32 + lane;
       if (q >= nq) continue;
-      if constexpr (kBf16) {
-        const float4 t = total[j];
-        const __nv_bfloat162 lo = __floats2bfloat162_rn(t.x, t.y), hi = __floats2bfloat162_rn(t.z, t.w);
-        reinterpret_cast<uint2*>(out)[(size_t)v * nq + q] =
-            make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+      const size_t at = (size_t)v * nq + q;
+      if constexpr (kType == kBf16x8) {
+        reinterpret_cast<uint4*>(out)[at] = make_uint4(pack_bf16x2(total[0].x, total[0].y),
+                                                       pack_bf16x2(total[0].z, total[0].w),
+                                                       pack_bf16x2(total[1].x, total[1].y),
+                                                       pack_bf16x2(total[1].z, total[1].w));
+      } else if constexpr (kType == kBf16x4) {
+        reinterpret_cast<uint2*>(out)[at] =
+            make_uint2(pack_bf16x2(total[j].x, total[j].y), pack_bf16x2(total[j].z, total[j].w));
       } else {
-        reinterpret_cast<float4*>(out)[(size_t)v * nq + q] = acc[j];
+        reinterpret_cast<float4*>(out)[at] = acc[j];
       }
     }
   }
@@ -758,10 +817,10 @@ int rowptr_group(int E, int d, int num_nodes) {
   return group;
 }
 
-// Launch the packed kernel (f32, or bf16 with kBf16) once; `chunk` is the
-// slot count at which the bf16 mode rounds its partials (the budget for f32).
-// Each instantiation raises its own shared-memory limit.
-template <bool kBf16>
+// Launch the packed kernel (reading rows as kType) once; `chunk` is the
+// slot count at which the bf16 modes round their partials (the budget for
+// f32). Each instantiation raises its own shared-memory limit.
+template <int kType>
 int launch_packed(const void* data, const int* perm, const int* packed_dst, void* out, int E, int d,
                   int num_nodes, int tile_v, int budget, int chunk, cudaStream_t s) {
   if (tile_v <= 0 || tile_v > kMaxTile || num_nodes <= 0 || num_nodes % tile_v != 0 || budget < 0 ||
@@ -769,13 +828,12 @@ int launch_packed(const void* data, const int* perm, const int* packed_dst, void
     return (int)cudaErrorInvalidValue;
   if (d == 0) return (int)cudaSuccess;
   const bool stage_perm = budget <= kStagePermMax;
-  const void* kernel = stage_perm ? (const void*)packed_kernel<true, kBf16>
-                                  : (const void*)packed_kernel<false, kBf16>;
-  const size_t smem = packed_smem_bytes(budget, stage_perm, kBf16);
+  const void* kernel = stage_perm ? (const void*)packed_kernel<true, kType>
+                                  : (const void*)packed_kernel<false, kType>;
+  const size_t smem = packed_smem_bytes(budget, stage_perm);
   static uint64_t configured[2] = {0, 0};
   if (smem > 48 * 1024) {
-    const int most = (int)(stage_perm ? packed_smem_bytes(kStagePermMax, true, kBf16)
-                                      : packed_smem_bytes(kMaxBudget, false, kBf16));
+    const int most = (int)(stage_perm ? packed_smem_bytes(kStagePermMax, true) : packed_smem_bytes(kMaxBudget, false));
     const cudaError_t err = allow_smem(kernel, most, configured[stage_perm]);
     if (err != cudaSuccess) return (int)err;
   }
@@ -783,10 +841,10 @@ int launch_packed(const void* data, const int* perm, const int* packed_dst, void
   const long long blocks = (long long)(num_nodes / tile_v) * groups;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (stage_perm)
-    packed_kernel<true, kBf16><<<(unsigned)blocks, kPackedThreads, smem, s>>>(
+    packed_kernel<true, kType><<<(unsigned)blocks, kPackedThreads, smem, s>>>(
         data, perm, packed_dst, out, E, d, tile_v, budget, groups, chunk);
   else
-    packed_kernel<false, kBf16><<<(unsigned)blocks, kPackedThreads, smem, s>>>(
+    packed_kernel<false, kType><<<(unsigned)blocks, kPackedThreads, smem, s>>>(
         data, perm, packed_dst, out, E, d, tile_v, budget, groups, chunk);
   return (int)cudaGetLastError();
 }
@@ -808,21 +866,25 @@ int csr_segment_sum_packed_f32(const float* data, const int* perm, const int* pa
                                float* out, int E, int d, int num_nodes, int tile_v, int budget,
                                void* stream) {
   if (bad_rows(data, out, E, d)) return (int)cudaErrorInvalidValue;
-  return launch_packed<false>(data, perm, packed_dst, out, E, d, num_nodes, tile_v, budget, budget,
-                              static_cast<cudaStream_t>(stream));
+  return launch_packed<kF32>(data, perm, packed_dst, out, E, d, num_nodes, tile_v, budget, budget,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // Row 9b, the packed sum on bf16 data: as csr_segment_sum_packed_f32, with
 // data and out bf16 (d a multiple of 4, both 8-byte aligned) and the budget
-// a multiple of tile_e, the chunk at which the TPU kernel's grid rounds.
+// a multiple of tile_e, the chunk at which the TPU kernel's grid rounds. Rows
+// are read and written in 16-byte vectors where d is a multiple of 8 and
+// both start 16-byte aligned, else in 8-byte ones.
 int csr_segment_sum_packed_bf16(const __nv_bfloat16* data, const int* perm, const int* packed_dst,
                                 __nv_bfloat16* out, int E, int d, int num_nodes, int tile_v, int budget,
                                 int tile_e, void* stream) {
-  if (E < 0 || d < 0 || d % 4 != 0 || ((uintptr_t)data | (uintptr_t)out) % 8 != 0 || tile_e <= 0 ||
-      budget % tile_e != 0)
+  const uintptr_t at = (uintptr_t)data | (uintptr_t)out;
+  if (E < 0 || d < 0 || d % 4 != 0 || at % 8 != 0 || tile_e <= 0 || budget % tile_e != 0)
     return (int)cudaErrorInvalidValue;
-  return launch_packed<true>(data, perm, packed_dst, out, E, d, num_nodes, tile_v, budget, tile_e,
-                             static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d % 8 == 0 && at % 16 == 0)
+    return launch_packed<kBf16x8>(data, perm, packed_dst, out, E, d, num_nodes, tile_v, budget, tile_e, s);
+  return launch_packed<kBf16x4>(data, perm, packed_dst, out, E, d, num_nodes, tile_v, budget, tile_e, s);
 }
 
 // The row-pointer sum: data[rows, d] (any d >= 0), row_ptr[num_nodes + 1]

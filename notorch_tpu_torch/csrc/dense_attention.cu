@@ -57,7 +57,12 @@
 // lane) pairs issued together.
 //   Forward (rows 10 and 12): a block per (bin, run of 128 / gsz slots); one
 //   pass over the row's pairs in ascending src, an online softmax (the sum and
-//   the combine rescaled when the running max rises).
+//   the combine rescaled when the running max rises). The bf16 modes (rows
+//   10b, 12b) round alpha before it multiplies v_j, so they walk a row twice:
+//   the first walk fetches k_j and the leader edge's bias alone, for the
+//   row's max and sum, and keeps each pair's score in shared memory; the
+//   second fetches v_j alone (its first batch's reads issued with the first
+//   walk's) and combines the rounded alpha of each kept score.
 //   The query pass of a backward: the same pass also sums, rescaled alike,
 //   exp * g_alpha, exp * g_alpha * k_j and exp * k_j, so that
 //   g_q_i = (sum exp g_alpha k_j - D_i sum exp k_j) / (sum exp) / sqrt(dh)
@@ -156,7 +161,9 @@ struct Args {
 // Stage stamps of a kStages build: thread 0 of block 0 writes %globaltimer
 // (ns) at each phase boundary of a kernel (stage_at[kernel][stage]), and
 // thread 0 of every block takes the earliest start and the latest end over
-// the launch (stage_span[kernel]).
+// the launch (stage_span[kernel]). A forward stamps its start, its gather's
+// first step, its sorted list and its end in slots 0-3, and in the bf16
+// modes the end of its first and of its second walk in slots 4 and 5.
 enum StageKernel { kFwdKernel, kRowsKernel, kColsKernel, kClusterKernel, kStageKernels };
 constexpr int kStageSlots = 10;
 __device__ unsigned long long stage_at[kStageKernels][kStageSlots];
@@ -214,10 +221,12 @@ __device__ inline float4 scale4(float s, float4 x) {
 // the passes round where the TPU kernel rounds, which the online softmax of
 // kExact cannot: alpha = exp(s - max) / sum is formed from the row's final
 // max and sum (a first pass over the row's pairs), rounded, and only then
-// multiplied (a second pass). The backward's query pass fetches each pair
-// once: its first pass keeps each pair's score and g_alpha (which the key
-// pass reads too), D_i = sum_j alpha g_alpha is summed from those alone, and
-// the g_q pass fetches only k_j.
+// multiplied (a second pass). No pass fetches what it does not multiply: the
+// first keeps each pair's score (and in a backward its g_alpha, which the
+// key pass reads too), and what follows reads them back. The forward's first
+// pass fetches k_j, its second v_j; the backward's first fetches k_j and v_j,
+// D_i = sum_j alpha g_alpha is summed from the kept values alone, and the
+// g_q pass fetches only k_j.
 constexpr int kExact = 0, kMm = 1, kHalf = 2;
 
 // Element `at` (a multiple of 4) of an operand, 4 values, as floats.
@@ -332,6 +341,13 @@ struct List {
 __host__ __device__ inline size_t list_words(int E) { return 4 * (size_t)E + kWarps; }
 
 __host__ __device__ inline size_t list_smem_bytes(int E) { return sizeof(int) * (list_words(E) + 2 * (size_t)E); }
+
+// A forward's shared memory: its list and, in the bf16 modes, each pair's
+// score for each head ([E, H] floats at most) where the gather order was.
+__host__ __device__ inline size_t fwd_smem_bytes(int E, int H, int mode) {
+  const size_t kept = mode == kExact ? 0 : (size_t)H * E, gather = 2 * (size_t)E;
+  return sizeof(int) * (list_words(E) + (kept > gather ? kept : gather));
+}
 
 __device__ inline List carve_list(int* w, int E, int* gather) {
   List l;
@@ -559,15 +575,16 @@ __device__ inline void fetch_pair(Pair<kC>& x, const Args& a, const List& l, siz
   x.eb = a.eb != nullptr ? edge_bias<kMode>(a, hb + l.e[p]) : 0.f;
 }
 
-// The score of the pair led by entry p (its run ending at `end`): q_i . k_j /
-// sqrt(dh) plus the bias of its edges, in ascending edge id.
+// The score of the pair led by entry p (its run ending at `end`) from k_j's
+// head slice and its leader edge's bias eb: q_i . k_j / sqrt(dh) plus the
+// bias of its edges, in ascending edge id.
 template <int kC, int kMode>
 __device__ inline float pair_score(const Args& a, const List& l, size_t hb, const float4 (&qi)[kC],
-                                   const Pair<kC>& x, int p, int end, const Group& g) {
-  float bias = x.eb;
+                                   const float4 (&kj)[kC], float eb, int p, int end, const Group& g) {
+  float bias = eb;
   if (a.eb != nullptr)
     for (int t = p + 1; t < end && !l.lead[t]; ++t) bias += edge_bias<kMode>(a, hb + l.e[t]);
-  return group_dot(qi, x.k, g) * a.scale + bias;
+  return group_dot(qi, kj, g) * a.scale + bias;
 }
 
 // The query pass of slot (i, h) over the pairs of a query pass's list l (n
@@ -577,11 +594,14 @@ __device__ inline float pair_score(const Args& a, const List& l, size_t hb, cons
 // in acc the output (forward) or sum_j g_s k_j (backward), each times den.
 // The bf16 modes: a first pass for m and den, then the combine of the
 // rounded alpha (forward), or D_i and then sum_j g_s(bf16) k_j (backward),
-// into acc as it is (not times den). With kBwd, D_i in dsum and each pair's
-// score and g_alpha in score[e] and galpha[e], e its leader edge; the bf16
-// backward's first pass stores them (lane 0 of the group), and D_i and g_q
-// read them back, summed in the same order from the same floats as a
-// recompute would give, so only g_q's pass fetches (k_j alone).
+// into acc as it is (not times den). Each pair is fetched once a pass: the
+// first pass (lane 0 of the group) keeps each pair's score, and what follows
+// reads it back, formed in the same order from the same floats as a
+// recompute would give. The forward keeps it at score[p * H + h], p the
+// pair's leader entry (shared memory), so its first pass fetches k_j and its
+// second v_j alone. With kBwd, D_i in dsum and each pair's score and g_alpha
+// in score[e] and galpha[e], e its leader edge, and only g_q's pass fetches
+// (k_j alone).
 template <bool kBwd, int kC, int kMode>
 __device__ inline void query_walk(const Args& a, const List& l, int n, int b, int i, int h, const Group& g,
                                   const float4 (&qi)[kC], const float4 (&gi)[kC], float* score,
@@ -612,7 +632,7 @@ __device__ inline void query_walk(const Args& a, const List& l, int n, int b, in
 #pragma unroll
       for (int t = 0; t < kB; ++t) {
         if (pos[t] >= end) break;
-        visit(x[t], pos[t], pair_score<kC, kMode>(a, l, hb, qi, x[t], pos[t], end, g));
+        visit(x[t], pos[t], pair_score<kC, kMode>(a, l, hb, qi, x[t].k, x[t].eb, pos[t], end, g));
       }
     }
   };
@@ -646,27 +666,99 @@ __device__ inline void query_walk(const Args& a, const List& l, int n, int b, in
 #pragma unroll
       for (int c = 0; c < kC; ++c) acc[c] = fma4(-dsum, ksum[c], acc[c]);
     }
+  } else if constexpr (!kBwd) {
+    // the first walk: k_j and the leader's bias alone, kB pairs' reads
+    // together; lane 0 keeps each pair's score at score[p * H + h], p its
+    // leader entry
+    auto fetch_keys = [&](int& p, int (&pos)[kB], float4 (&kj)[kB][kC], float (&eb)[kB]) {
+#pragma unroll
+      for (int t = 0; t < kB; ++t) {
+        pos[t] = p;
+        if (p < end) {
+          load_slice<kC, kMode>(kj[t], a.k, head_row(a, b, l.other[p], h), g);
+          eb[t] = a.eb != nullptr ? edge_bias<kMode>(a, hb + l.e[p]) : 0.f;
+          p = next_leader(l, p, end);
+        }
+      }
+    };
+    auto keep_scores = [&](const int (&pos)[kB], const float4 (&kj)[kB][kC], const float (&eb)[kB]) {
+#pragma unroll
+      for (int t = 0; t < kB; ++t) {
+        if (pos[t] >= end) break;
+        const float sc = pair_score<kC, kMode>(a, l, hb, qi, kj[t], eb[t], pos[t], end, g);
+        const float mx = fmaxf(m, sc);
+        den = fmaf(den, expf(m - mx), expf(sc - mx));
+        m = mx;
+        if (g.lane == 0) score[pos[t] * a.H + h] = sc;
+      }
+    };
+    // the first batch's v_j, the second walk's first operands, fetched after
+    // its k_j: they wait on no max or sum, so their reads overlap the walk
+    int p = begin, pos0[kB];
+    float4 v0[kB][kC];
+    {
+      float4 kj[kB][kC];
+      float eb[kB];
+      fetch_keys(p, pos0, kj, eb);
+#pragma unroll
+      for (int t = 0; t < kB; ++t)
+        if (pos0[t] < end) load_slice<kC, kMode>(v0[t], a.v, head_row(a, b, l.other[pos0[t]], h), g);
+      keep_scores(pos0, kj, eb);
+    }
+    const int rest = p;
+    while (p < end) {
+      int pos[kB];
+      float4 kj[kB][kC];
+      float eb[kB];
+      fetch_keys(p, pos, kj, eb);
+      keep_scores(pos, kj, eb);
+    }
+    stamp(kFwdKernel, 4, false, false);
+    den = fmaxf(den, 1e-12f);
+    __syncwarp(g.mask);  // lane 0's stores of the scores, before the group reads them
+    // the second walk: the rounded alpha of each kept score times v_j, v_j
+    // alone fetched, kB pairs' reads together
+    auto combine = [&](const float4 (&vj)[kC], int at) {
+      const float w = operand<true>(mode_alpha<kMode>(score[at * a.H + h], m, den));
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[c] = fma4(w, vj[c], acc[c]);
+    };
+#pragma unroll
+    for (int t = 0; t < kB; ++t) {
+      if (pos0[t] >= end) break;
+      combine(v0[t], pos0[t]);
+    }
+    for (p = rest; p < end;) {
+      int pos[kB];
+      float4 vj[kB][kC];
+#pragma unroll
+      for (int t = 0; t < kB; ++t) {
+        pos[t] = p;
+        if (p < end) {
+          load_slice<kC, kMode>(vj[t], a.v, head_row(a, b, l.other[p], h), g);
+          p = next_leader(l, p, end);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kB; ++t) {
+        if (pos[t] >= end) break;
+        combine(vj[t], pos[t]);
+      }
+    }
+    stamp(kFwdKernel, 5, false, false);
   } else {
     walk([&](const Pair<kC>& x, int pos, float sc) {
       const float mx = fmaxf(m, sc);
       den = fmaf(den, expf(m - mx), expf(sc - mx));
       m = mx;
-      if constexpr (kBwd) {
-        const float ga = group_dot(gi, x.v, g);
-        if (g.lane == 0) {
-          score[l.e[pos]] = sc;
-          galpha[l.e[pos]] = ga;
-        }
+      const float ga = group_dot(gi, x.v, g);
+      if (g.lane == 0) {
+        score[l.e[pos]] = sc;
+        galpha[l.e[pos]] = ga;
       }
     });
     den = fmaxf(den, 1e-12f);
-    if constexpr (!kBwd) {
-      walk([&](const Pair<kC>& x, int, float sc) {
-        const float w = operand<true>(mode_alpha<kMode>(sc, m, den));
-#pragma unroll
-        for (int c = 0; c < kC; ++c) acc[c] = fma4(w, x.v[c], acc[c]);
-      });
-    } else {
+    {
       __syncwarp(g.mask);  // lane 0's stores of score and galpha, before the group reads them
       float d = 0.f;
       for (int p = begin; p < end; p = next_leader(l, p, end)) {
@@ -807,8 +899,10 @@ __global__ void __launch_bounds__(kListThreads, kMin)
   if (slot > last) return;
   Scratch sc{};
   if constexpr (kBwd) sc = carve_scratch(scratch, a);
+  // the bf16 forward's kept scores: the gather order's words, free once sorted
+  float* kept = reinterpret_cast<float*>(list_smem + list_words(a.E));
   float m, den, dsum;
-  query_walk<kBwd, kC, kMode>(a, l, n, b, i, h, g, qi, gi, kBwd ? sc.score + hb : nullptr,
+  query_walk<kBwd, kC, kMode>(a, l, n, b, i, h, g, qi, gi, kBwd ? sc.score + hb : kept,
                               kBwd ? sc.galpha + hb : nullptr, acc, m, den, dsum);
   if constexpr (!kBwd) {  // kExact's sums are times den
     store_slice<kC, kMode>(a.out, row, acc, kMode == kExact ? 1.f / den : 1.f, g);
@@ -962,9 +1056,8 @@ __global__ void __launch_bounds__(kListThreads, kC == 4 ? kClusterMinBlocks4 : k
 
 using ListKernel = void (*)(const Args, float*);
 
-cudaError_t launch_list(ListKernel kernel, uint64_t& configured, const Args& a, float* scratch,
+cudaError_t launch_list(ListKernel kernel, uint64_t& configured, const Args& a, float* scratch, size_t smem,
                         cudaStream_t stream) {
-  const size_t smem = list_smem_bytes(a.E);
   if (smem > 48 * 1024) {
     const cudaError_t err = allow_smem((const void*)kernel, kMaxSmem, configured);
     if (err != cudaSuccess) return err;
@@ -1007,26 +1100,31 @@ template <int kC, int kMode>
 cudaError_t run_at(const Args& a, float* scratch, Launch launch, cudaStream_t st) {
   static uint64_t fwd_configured = 0, fwd2_configured = 0, rows_configured = 0, cols_configured = 0;
   constexpr int kFwd2Min = kC == 4 ? kMinBlocks<kC> : kV2FwdMinBlocks;
+  const size_t fwd = fwd_smem_bytes(a.E, a.H, kMode), list = list_smem_bytes(a.E);
   switch (launch) {
     case Launch::kFwdV1:
-      return launch_list(attn_rows_kernel<false, kC, kMinBlocks<kC>, kMode>, fwd_configured, a, nullptr, st);
+      return launch_list(attn_rows_kernel<false, kC, kMinBlocks<kC>, kMode>, fwd_configured, a, nullptr, fwd, st);
     case Launch::kFwdV2:
-      return launch_list(attn_rows_kernel<false, kC, kFwd2Min, kMode>, fwd2_configured, a, nullptr, st);
+      return launch_list(attn_rows_kernel<false, kC, kFwd2Min, kMode>, fwd2_configured, a, nullptr, fwd, st);
     case Launch::kCluster: return launch_cluster<kC, kMode>(a, st);
     default: break;
   }
   const cudaError_t err =
-      launch_list(attn_rows_kernel<true, kC, kMinBlocks<kC>, kMode>, rows_configured, a, scratch, st);
+      launch_list(attn_rows_kernel<true, kC, kMinBlocks<kC>, kMode>, rows_configured, a, scratch, list, st);
   if (err != cudaSuccess) return err;
-  return launch_list(attn_cols_kernel<kC, kMode>, cols_configured, a, scratch, st);
+  return launch_list(attn_cols_kernel<kC, kMode>, cols_configured, a, scratch, list, st);
 }
 
-size_t smem_bytes(const Args& a, Launch launch) {
-  return launch == Launch::kCluster ? cluster_shape(a).smem : list_smem_bytes(a.E);
+size_t smem_bytes(const Args& a, Launch launch, int mode) {
+  switch (launch) {
+    case Launch::kCluster: return cluster_shape(a).smem;
+    case Launch::kTwoPass: return list_smem_bytes(a.E);
+    default: return fwd_smem_bytes(a.E, a.H, mode);
+  }
 }
 
-bool bad_shape(const Args& a, Launch launch) {
-  return bad_head(a) || misaligned(a) || smem_bytes(a, launch) > (size_t)kMaxSmem || a.V > kMaxV ||
+bool bad_shape(const Args& a, Launch launch, int mode) {
+  return bad_head(a) || misaligned(a) || smem_bytes(a, launch, mode) > (size_t)kMaxSmem || a.V > kMaxV ||
          (long long)a.V * a.H > INT32_MAX || (long long)a.B * chunks_per_bin(a) > INT32_MAX;
 }
 
@@ -1041,7 +1139,7 @@ cudaError_t run_mode(const Args& a, float* scratch, Launch launch, cudaStream_t 
 
 // mode: kExact, kMm or kHalf (see above).
 cudaError_t run(const Args& a, float* scratch, Launch launch, int mode, void* stream) {
-  if (bad_shape(a, launch) || (launch == Launch::kTwoPass && scratch == nullptr) || mode < kExact ||
+  if (bad_shape(a, launch, mode) || (launch == Launch::kTwoPass && scratch == nullptr) || mode < kExact ||
       mode > kHalf)
     return cudaErrorInvalidValue;
   if (a.B == 0) return cudaSuccess;
@@ -1058,10 +1156,11 @@ cudaError_t run(const Args& a, float* scratch, Launch launch, int mode, void* st
 extern "C" {
 
 // Shared-memory bytes a block needs at these shapes: for the forwards (rows
-// 10 and 12) and row 11, its edge list at E lanes; for row 13, its two lists
-// and its rows' values; and the most a block may have. The wrappers raise,
-// naming the shape, above the latter.
-long long dense_attention_list_smem_bytes(int E) { return (long long)list_smem_bytes(E); }
+// 10 and 12) in `mode`, its edge list at E lanes and, in the bf16 modes, each
+// pair's score for H heads (the most a launch of row 10, 11 or 12 takes);
+// for row 13, its two lists and its rows' values; and the most a block may
+// have. The wrappers raise, naming the shape, above the latter.
+long long dense_attention_list_smem_bytes(int E, int H, int mode) { return (long long)fwd_smem_bytes(E, H, mode); }
 
 long long dense_attention_cluster_smem_bytes(int V, int E, int H, int dh) {
   Args a{};

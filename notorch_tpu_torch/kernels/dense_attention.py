@@ -63,7 +63,8 @@ fallback. Each wrapper counts its launches in ``<wrapper>.launches``
 ``launches_bf16`` (bf16 inputs). The
 kernels take float32 or bfloat16, ``dh`` a multiple of 4 up to 512, up to 46,340 node
 slots a bin, and bins whose index fits a block's shared memory: the forwards and row 11 hold the edge
-list of a block's rows, 24 bytes a lane (up to about 9,600 lanes); row 13
+list of a block's rows, 24 bytes a lane (up to about 9,600 lanes), a bf16 forward each pair's score for
+every head beside it (16 + 4 max(2, H) bytes a lane: up to about 7,200 lanes at four heads); row 13
 holds two such lists and each pair's values, 8 bytes a lane and head (E =
 4,096 lanes at one head fit, at four heads not); the wrappers raise, naming
 the shape, on anything else. ``interpret`` is accepted for the JAX
@@ -318,7 +319,7 @@ def _lib():
     lib.dense_attention_v1_fwd_f32.argtypes = [ctypes.c_void_p] * 8 + tail
     lib.dense_attention_bwd_f32.argtypes = [ctypes.c_void_p] * 12 + tail
     lib.dense_attention_v1_bwd_f32.argtypes = [ctypes.c_void_p] * 13 + tail  # and the scratch
-    lib.dense_attention_list_smem_bytes.argtypes = [ctypes.c_int]
+    lib.dense_attention_list_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.dense_attention_cluster_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.dense_attention_list_smem_bytes.restype = ctypes.c_longlong
     lib.dense_attention_cluster_smem_bytes.restype = ctypes.c_longlong
@@ -352,12 +353,13 @@ def _mode(q: torch.Tensor, matmul_dtype) -> int:
 
 
 def _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads: int, cluster: bool, interpret: bool,
-                     cotangent=None):
+                     mode: int, cotangent=None):
     """The checks of a launch and its operands: contiguous 16-byte aligned
     floats, all float32 or all bfloat16, int32 ids and a byte mask on q's
     device. ``cluster``: the launch of row 13, whose blocks hold two edge
     lists and each pair's values for every head in shared memory; else one
-    of the others, whose blocks hold one edge list."""
+    of the others, whose blocks hold one edge list (and, in a bf16 ``mode``,
+    the forward's each pair's score for every head)."""
     if interpret:
         raise ValueError(
             "interpret=True asks for the Pallas interpreter; the port has no interpret mode: "
@@ -376,10 +378,10 @@ def _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads: int, cluster: 
                          f"at most {lib.dense_attention_max_v()}, got V={V} node slots")
     limit = lib.dense_attention_max_smem()
     need = (lib.dense_attention_cluster_smem_bytes(V, E, num_heads, dh) if cluster
-            else lib.dense_attention_list_smem_bytes(E))
+            else lib.dense_attention_list_smem_bytes(E, num_heads, mode))
     if need > limit:
         shape = (f"E={E} edge lanes at H={num_heads} heads (V={V} node slots, dh={dh})" if cluster
-                 else f"E={E} edge lanes")
+                 else f"E={E} edge lanes" + ("" if mode == EXACT else f" at H={num_heads} heads"))
         raise ValueError(f"bins of {shape} need {need} bytes of shared memory per block; the attention "
                          f"kernels have {limit}")
     floats = [x.contiguous() for x in (q, k, v, cotangent, eb) if x is not None]
@@ -403,7 +405,7 @@ def _raise_on(err: int, what: str, lib) -> None:
 def _forward(q, k, v, eb, src, dst, edge_mask, num_heads: int, v1: bool, interpret: bool, what: str,
              mode: int = EXACT):
     """Row 10's launch (``v1``) or row 12's, in ``mode``."""
-    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, False, interpret)
+    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, False, interpret, mode)
     q, k, v = floats[:3]
     eb = floats[3] if eb is not None else None
     B, V, d = q.shape
@@ -424,7 +426,7 @@ def _backward(q, k, v, eb, src, dst, edge_mask, cotangent, num_heads: int, v1: b
               what: str, mode: int = EXACT):
     """Row 11's two launches (``v1``) or row 13's one on clusters, in
     ``mode``."""
-    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, not v1, interpret,
+    lib, floats, mask = _kernel_operands(q, k, v, eb, src, dst, edge_mask, num_heads, not v1, interpret, mode,
                                          cotangent)
     q, k, v, g = floats[:4]
     eb = floats[4] if eb is not None else None

@@ -41,8 +41,8 @@ one); its ``csrc/*.cu`` are built there at first use. ``--define
 NAME=VALUE`` times a variant of that checkout: its package is copied to a
 temporary directory with ``constexpr int NAME = ...`` set to VALUE in
 ``csrc/csr_segment.cu`` (for example ``kNodeWarps=8``). ``--stages``
-builds such a copy with ``kStages = 1``, whose packed kernel stamps
-``%globaltimer`` at its phase boundaries in block 0 (the index staged, the
+builds such a copy with ``kStages = 1``, whose packed kernel (rows 9 and 9b)
+stamps ``%globaltimer`` at its phase boundaries in block 0 (the index staged, the
 first warp's run formed, its rows summed), and prints them in µs from the
 block's start, with the span of all blocks; the row-pointer kernel of such a
 build stamps every block (row pointers in, first window in, end: the median
@@ -359,8 +359,8 @@ def run(args, root: Path, tmp: Path) -> None:
             if args.stages and hasattr(lib, "csr_segment_rowptr_stamps_read"):
                 record["stages_us"] = {"with_sink": rowptr_stamps(lib, lambda: kernel(x, V), 4096),
                                        "without_sink": rowptr_stamps(lib, lambda: kernel(cut, V), 4096)}
-        if args.stages and row == 9:
-            record["stages_us"] = stage_stamps(lib, lambda: kernel(x, V))
+        if args.stages and row in (9, "9b"):
+            record["stages_us"] = stage_stamps(lib, lambda: kernel(x_row, V))
         print(json.dumps(record), flush=True)
     main_G = next(iter(smoke.DataLoader(ds, batch_size=smoke.BATCH)))["inputs.G"]
     for name, (data, ids, n) in smoke.glue_inputs(main_G, d, smoke.SEED + 7).items():

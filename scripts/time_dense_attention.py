@@ -20,8 +20,8 @@ temporary directory with ``constexpr int NAME = ...`` set to VALUE in
 ``csrc/dense_attention.cu`` (for example ``kMaxCluster=8``). ``--stages``
 builds such a copy with ``kStages = 1``, whose kernels stamp
 ``%globaltimer`` at each phase boundary of block 0 (the gather, each pass,
-the cluster barriers) and the earliest start and latest end over all
-blocks, and prints them in microseconds from block 0's start, one call per
+each walk of a bf16 forward, the cluster barriers) and the earliest start
+and latest end over all blocks, and prints them in microseconds from block 0's start, one call per
 row and shape. ``--e2e`` adds a warm epoch of the declarative graph
 transformer under ``torch.profiler``: the card's busy milliseconds a step
 and rows 12-13's share of them. ``--lockstep`` runs that model's training
@@ -49,10 +49,13 @@ SOURCE = Path("notorch_tpu_torch") / "csrc" / "dense_attention.cu"
 # (bin, head) of the design before their redesign for Hopper
 ROW_KERNELS = {12: ("attn_rows_kernel<false", "attn_kernel<false"),
                13: ("attn_cluster_kernel", "attn_kernel<true")}
-# the stamps of each kernel of a --stages build, by stage ("loaded": the
-# gather's first lanes read and counted; "sorted": the block's lists built),
-# and row 13's latest block of bin 0's cluster at its start and each pass's end
-STAGES = {"forward": ("start", "loaded", "sorted", "done"),
+# the stamps of each kernel of a --stages build, by slot ("loaded": the
+# gather's first lanes read and counted; "sorted": the block's lists built;
+# a bf16 forward's "first_walk" and "second_walk": the end of each walk over
+# the row's pairs, stamped in slots after "done" and only by the bf16
+# modes), and row 13's latest block of bin 0's cluster at its start and each
+# pass's end; a slot the kernel does not stamp is left out
+STAGES = {"forward": ("start", "loaded", "sorted", "done", "first_walk", "second_walk"),
           "query_pass": ("start", "loaded", "sorted", "done"),
           "key_pass": ("start", "loaded", "sorted", "done"),
           "cluster": ("start", "loaded", "sorted", "query_pass_done", "cluster_barrier", "key_pass_done", "end",
@@ -130,7 +133,8 @@ def stage_stamps(kernels, lib, call) -> dict:
             continue
         at = [out[k * SLOTS + s] for s in range(len(stages))]
         start, end = out[n * SLOTS + 2 * k], out[n * SLOTS + 2 * k + 1]
-        stamps[name] = {**{s: (t - at[0]) / 1e3 for s, t in zip(stages[1:], at[1:])},
+        written = sorted((t, s) for s, t in zip(stages[1:], at[1:]) if t != 0)
+        stamps[name] = {**{s: (t - at[0]) / 1e3 for t, s in written},
                         "span_all_blocks_us": (end - start) / 1e3,
                         "block0_start_after_first_us": (at[0] - start) / 1e3}
     return stamps

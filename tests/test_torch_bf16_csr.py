@@ -5,7 +5,8 @@ on the CPU (the JAX side runs its Pallas kernel with ``interpret=True``).
 - Row 9b's plain version (``csr_segment_sum_packed_bf16_reference``)
   against JAX's ``csr_segment_sum_packed`` on bf16 messages: the first flat
   lipo batch of 64 molecules (V = 2048), a case whose nodes' runs straddle
-  a 128-slot chunk boundary, and one whose runs span three chunks. The JAX
+  a 128-slot chunk boundary, and one whose runs span three chunks (and the
+  straddling case at d = 12, where the kernel reads 8-byte vectors). The JAX
   kernel rounds each chunk's f32 partial to bf16 and each add of the
   partials to its bf16 output; the plain version rounds at the same
   points. Measured: JAX's bits on every element of every case (the f32
@@ -123,6 +124,21 @@ def test_row_9b_plain_version_gives_the_jax_kernels_bits(datasets, name):  # noq
     ref = jax_sum(data, perm, packed_dst, V)
     got = bits(csr_segment_sum_packed_bf16_reference(torch.from_numpy(data).bfloat16(), torch.from_numpy(perm),
                                                      torch.from_numpy(packed_dst), V))
+    differ = int((got != ref).sum())
+    assert differ == 0, f"{differ} of {got.size} elements differ from the JAX kernel's"
+
+
+def test_row_9b_plain_version_gives_the_jax_kernels_bits_at_an_8_byte_width():
+    """Row 9b at d = 12, a width whose bf16 rows are not 16-byte aligned
+    (d % 8 == 4), where the kernel reads 8-byte vectors of 4 values: the
+    plain version against JAX's kernel in interpret mode on the straddling
+    case, bit for bit."""
+    perm, packed_dst, V, E = built_case(chip_smoke.CHUNK_CASES[0])
+    data = bf16_messages(E, 12, seed=12)
+    ref = jax_sum(data, perm, packed_dst, V)
+    got = bits(csr_segment_sum_packed_bf16_reference(torch.from_numpy(data).bfloat16(), torch.from_numpy(perm),
+                                                     torch.from_numpy(packed_dst), V))
+    assert got.shape == (V, 12)
     differ = int((got != ref).sum())
     assert differ == 0, f"{differ} of {got.size} elements differ from the JAX kernel's"
 

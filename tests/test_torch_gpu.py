@@ -853,6 +853,20 @@ def hub_bins(seed=0):
     return src, dst, mask, V
 
 
+def star_bins(seed=0):
+    """Two bins of V = 160 node slots and E = 128 edge lanes, every lane
+    live (numpy ``src``, ``dst``, ``edge_mask``), whose one query row takes
+    every edge: in bin 0 node 5 is the dst of all 128 lanes, their srcs
+    random over the bin (pairs of several edges among them); in bin 1 node
+    V - 1 is, each lane from another src. A block's list is then the whole
+    bin, as long as any list a bin can give."""
+    rng = np.random.default_rng(seed)
+    V, E = 160, 128
+    src = np.stack([rng.integers(0, V, E), rng.permutation(V)[:E]]).astype(np.int32)
+    dst = np.stack([np.full(E, 5), np.full(E, V - 1)]).astype(np.int32)
+    return src, dst, np.ones((2, E), bool)
+
+
 def odd_bins(V, seed=0):
     """Three bins of V node slots and E = 96 edge lanes (numpy ``src``,
     ``dst``, ``edge_mask``), for row counts that no run of (row, head) slots
@@ -876,7 +890,8 @@ def attention_case(kind, d, H, edge_bias, seed=0):
     node slots and 256 edge lanes; ``dense``: one molecule a block; ``random``:
     V = 256, E = 512, random edges over the first 200 node slots (the rest
     are padding), a fifth of the lanes masked, duplicated pairs; ``hub``:
-    :func:`hub_bins`; ``odd47``, ``odd49``: :func:`odd_bins` at V = 47, 49."""
+    :func:`hub_bins`; ``odd47``, ``odd49``: :func:`odd_bins` at V = 47, 49;
+    ``star``: :func:`star_bins`."""
     rng = np.random.default_rng(seed)
     graphs = [PIPE(s) for s in SMIS + ["[Na+].[Cl-]"]]
     if kind == "packed":
@@ -889,13 +904,15 @@ def attention_case(kind, d, H, edge_bias, seed=0):
         src, dst, mask, _ = hub_bins()
     elif kind.startswith("odd"):
         src, dst, mask = odd_bins(int(kind[3:]))
+    elif kind == "star":
+        src, dst, mask = star_bins()
     else:
         src = rng.integers(0, 200, (3, 512)).astype(np.int32)
         dst = rng.integers(0, 200, (3, 512)).astype(np.int32)
         src[:, 1::7], dst[:, 1::7] = src[:, :-1:7], dst[:, :-1:7]  # lane 7m + 1 repeats lane 7m
         mask = rng.random((3, 512)) < 0.8
     B, E = src.shape
-    V = {"packed": 128, "dense": 48, "random": 256, "hub": 48, "odd47": 47, "odd49": 49}[kind]
+    V = {"packed": 128, "dense": 48, "random": 256, "hub": 48, "odd47": 47, "odd49": 49, "star": 160}[kind]
     f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
     arrays = [f(B, V, d), f(B, V, d), f(B, V, d), f(B, H, E) if edge_bias else None, src, dst, mask, f(B, V, d)]
     return [None if x is None else torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in arrays]

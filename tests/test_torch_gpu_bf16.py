@@ -84,7 +84,7 @@ def held(got: torch.Tensor, ref: torch.Tensor, what: str, element_tol: float = B
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["packed", "dense", "random", "hub", "odd47", "odd49"])
+@pytest.mark.parametrize("kind", ["packed", "dense", "random", "hub", "odd47", "odd49", "star"])
 @pytest.mark.parametrize("edge_bias", [True, False])
 @pytest.mark.parametrize("mode", ["bf16_inputs", "matmul_dtype"])
 @pytest.mark.parametrize("d, H", [(256, 4), (16, 2), (256, 8), (512, 1), (192, 3), (64, 1)])
@@ -94,9 +94,11 @@ def test_cuda_bf16_attention_kernels_match_plain_versions(kind, edge_bias, mode,
     pair are zero in the output and in g_q, key rows with none in g_k and
     g_v; each backward twice bit for bit; each launch counted in its mode's
     count. The kinds include hub rows (more pairs than a warp, a pair of
-    three edges), bins whose rows no run of slots divides and a bin with no
-    live lane; the widths heads of 1-4 vectors a lane (the backward's query
-    pass fetches each pair once, whatever a lane holds)."""
+    three edges), bins whose rows no run of slots divides, a bin with no
+    live lane and bins whose one row takes every edge (``star``: the
+    forward keeps a score for every pair and head of its block's list in
+    shared memory); the widths heads of 1-4 vectors a lane (each pass of the
+    query walk fetches each pair once, whatever a lane holds)."""
     needs_card()
     case = attention_case(kind, d, H, edge_bias)
     q, k, v, eb, src, dst, mask, g = case
@@ -339,12 +341,14 @@ def _chunk_case(kind, d, seed=0):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["molecules", "random", "messy", "tile48", *chip_smoke.CHUNK_CASES])
-@pytest.mark.parametrize("d", [256, 36])
+@pytest.mark.parametrize("d", [256, 36, 40])
 @pytest.mark.parametrize("tile_e", [128, 32])
 def test_cuda_bf16_packed_sum_gives_the_plain_versions_bits(kind, d, tile_e):
     """Row 9b: one launch a call (``launches_bf16``), bf16 out, the bits of
     its plain version on the card and on the CPU, twice the same; ``tile_e``
-    moves the chunk boundaries, and with them the result."""
+    moves the chunk boundaries, and with them the result. The widths: 256
+    and 40 are read in 16-byte vectors of 8 values (40 with lanes past the
+    row), 36 in 8-byte vectors of 4."""
     needs_card()
     data, perm, pdst, _, _, V, tile_v = _chunk_case(kind, d)
     data = data.bfloat16()
