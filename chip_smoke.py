@@ -117,8 +117,8 @@ layer, Adam with the Noam schedule, batch 64; random weights from a seed):
   (``fuse_ends: false``; rows 1-4's bf16 instantiations) for LOCKSTEP_STEPS
   steps in lockstep with each backward and a served batch;
 - bf16 kernels: the depth-fused forward's bf16 mode (row 7b) in a phase of
-  its own against its plain version and row 1b (both at the bf16 holds: row
-  1b sums its products on the tensor cores, row 7b by f32 FMA); row 8b (the
+  its own against its plain version at the bf16 holds and against row 1b bit
+  for bit (both sum their products on the tensor cores in one order); row 8b (the
   glue's ordered bf16 sum) against the CPU's bits, on the glue's cases and on pairs
   of every class of BF16_PAIR_CLASSES (subnormals, signed zeros,
   infinities, ties, exponent gaps); the attention core's
@@ -3000,17 +3000,20 @@ def bf16_attention_phase(packed: list[list], dense: list[list], heads: int) -> t
 
 def dbuf_bf16_phase(inputs: list[tuple[list[torch.Tensor], int]]) -> tuple[int, float, list[dict]]:
     """Row 7b (matmul_dtype="bfloat16"), which no module calls, in a phase of
-    its own on each ``(args, n_nodes)`` for sum and mean; then held against
-    its plain version and against row 1b (held_bf16 both: row 7b sums its
-    products by f32 FMA, row 1b in the tensor cores' order; those launches
-    do not count). Returns its launches, its largest error and the cases."""
+    its own on each ``(args, n_nodes)`` for sum and mean, residual on and
+    off; then held against its plain version at the bf16 holds and against
+    row 1b bit for bit (both multiply on the tensor cores, each output summed
+    k16 by k16 in ascending k, and round at the same points; those launches
+    do not count): the run fails where a bit differs. Returns its launches,
+    its largest error and the cases."""
     depth = MODEL_CFG["depth"]
     reset_launches()
     runs = []
     for args, n_nodes in inputs:
         for reduce in ("sum", "mean"):
-            kw = dict(depth=depth, n_nodes=n_nodes, residual=True, reduce=reduce, matmul_dtype=BF16)
-            runs.append((args, kw, fused_dense_mpnn_block_dbuf(*args, mols_per_tile=8, **kw)))
+            for residual in (True, False):
+                kw = dict(depth=depth, n_nodes=n_nodes, residual=residual, reduce=reduce, matmul_dtype=BF16)
+                runs.append((args, kw, fused_dense_mpnn_block_dbuf(*args, mols_per_tile=8, **kw)))
     torch.cuda.synchronize()
     count = launches()["fused_dense_mpnn_block_dbuf_bf16"]
     if launches() != {**zero_counts(), "fused_dense_mpnn_block_dbuf_bf16": len(runs)}:
@@ -3018,13 +3021,17 @@ def dbuf_bf16_phase(inputs: list[tuple[list[torch.Tensor], int]]) -> tuple[int, 
     cases = []
     for args, kw, out in runs:
         row1b = fused_dense_mpnn_block(*args, **kw)
-        ref = dense_mpnn_block_reference(*args, depth=depth, residual=True, reduce=kw["reduce"], matmul_dtype=BF16)
+        ref = dense_mpnn_block_reference(*args, depth=depth, residual=kw["residual"], reduce=kw["reduce"],
+                                         matmul_dtype=BF16)
         torch.cuda.synchronize()
-        case = f"B={args[0].shape[0]} E={args[0].shape[1]} {kw['reduce']}"
+        case = f"B={args[0].shape[0]} E={args[0].shape[1]} {kw['reduce']} residual={kw['residual']}"
         err = held_bf16(f"dbuf bf16 ({case})", out, ref)
-        row1b_err = held_bf16(f"dbuf bf16 against row 1b ({case})", out, row1b)
-        cases.append({"shape": list(args[0].shape), "reduce": kw["reduce"], **err,
-                      "against_row_1b": row1b_err})
+        equal = bool(torch.equal(out, row1b))
+        if not equal:
+            fail(f"row 7b ({case}) differs from row 1b by {float((out - row1b).abs().max())}; "
+                 "it must give row 1b's bits")
+        cases.append({"shape": list(args[0].shape), "reduce": kw["reduce"], "residual": kw["residual"], **err,
+                      "equal_bits_to_row_1b": equal})
     return count, max(c["max_abs_err"] for c in cases), cases
 
 

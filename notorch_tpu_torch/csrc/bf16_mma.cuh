@@ -1,7 +1,8 @@
 // A tile of C = A B on the tensor cores, with bf16 operands and f32 sums:
 // the products of the D-MPNN kernels with matmul_dtype="bfloat16"
 // (dense_mpnn_bwd.cu's two products of the reverse sweep, and
-// dense_mpnn.cu's forward product relu(h) W with an m-major A).
+// dense_mpnn.cu's forward product relu(h) W with an m-major A, in rows 1b's
+// and 7b's kernels).
 //
 // Shape<kM, kN, kWarpsM, kWarpsN, kK>: a kM x kN tile of 32 * kWarpsM *
 // kWarpsN threads, each warp (kM / kWarpsM) x (kN / kWarpsN) outputs in m16 x
@@ -16,7 +17,7 @@
 // Rows of each slab are padded by 8 halves, so the 8 rows of an ldmatrix
 // lie in 8 distinct groups of 4 banks.
 //
-// An operand (RowsF32, ColsF32, ColsBf16) names its source and where the
+// An operand (RowsF32, RowsBf16, ColsF32, ColsBf16) names its source and where the
 // tile sits in it, and stages a slab in two steps:
 //   fetch(k, slab)  start loading the slab of k-rows [k, k + kK);
 //   store(slab)     finish it into the slab (round to bf16, nearest, ties to
@@ -151,6 +152,33 @@ struct ColsF32 {
       store_bf16x4(slab + i / (kCols / 4) * kLd + i % (kCols / 4) * 4, x[t]);
     }
   }
+};
+
+// An m-major bf16 operand (the depth-fused forward's exchange of relu(h),
+// rounded as it was written): the tile's rows r0 + m (zero from `rows` on)
+// of a [rows, ld] source, its k-columns k.. k + kK - 1, copied as they are
+// by cp.async.
+template <typename S>
+struct RowsBf16 {
+  static constexpr bool kKMajor = false, kRelu = false;
+  static constexpr int kPieces = S::kM * S::kK / 8 / S::kThreads;  // 16-byte pieces a thread
+  static_assert(kPieces * 8 * S::kThreads == S::kM * S::kK, "a slab is whole 16-byte pieces of every thread");
+  const __nv_bfloat16* p;
+  int ld, r0, rows;
+  __device__ void fetch(int k, __nv_bfloat16* slab) {
+#pragma unroll
+    for (int t = 0; t < kPieces; ++t) {
+      const int i = threadIdx.x + t * S::kThreads, m = i / (S::kK / 8), c = i % (S::kK / 8) * 8;
+      __nv_bfloat16* to = slab + m * S::kLdRow + c;
+      if (r0 + m < rows)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(shared_at(to)),
+                     "l"(p + (size_t)(r0 + m) * ld + k + c));
+      else
+        *reinterpret_cast<uint4*>(to) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  }
+  __device__ void store(__nv_bfloat16*) { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
 };
 
 // A k-major bf16 operand (the stash): its rows k.. (zero from k1 on), the

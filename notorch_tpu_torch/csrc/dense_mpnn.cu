@@ -117,12 +117,19 @@
 // owns TM rows x 4 columns (TM = 8 at E <= 128, row 1's tile; 16 at E <= 256),
 // each output one fmaf chain over ascending k as in row 1's product, and the
 // walk is row 1's, so row 7 gives row 1's bits. Row 7b (matmul_dtype=
-// "bfloat16", the kBf16 instantiation) rounds where rows 1b and the TPU
-// kernel's _dbuf_compute round: relu(h) and W as they are staged, mW as it is
-// stored for the operator pass, and the mean's coefficients (mean_row_bf16);
-// h stays f32. Its product is still one fmaf chain an output on the CUDA
-// cores, so it agrees with row 1b (whose product sums in the tensor cores'
-// order) at the bf16 tolerances, not bit for bit.
+// "bfloat16", dense_mpnn_dbuf_mma_kernel) keeps the launch, the groups, the
+// slices and the barrier, and takes row 1b's product and roundings: every
+// thread of the block multiplies on the tensor cores (bf16_mma.cuh, the bin's
+// rows x the block's 64 columns, 16 warps), each output summed k16 by k16 in
+// ascending k from zero as row 1b's tiles sum it (the sum of one k16 step does
+// not depend on where the output sits in a tile), from bf16(relu(h)) and W
+// rounded as staged, mW rounded to bf16 and kept so in shared memory, and the
+// mean's coefficients rounded (walk_pair, in mean_row_bf16's order); so row 7b
+// gives row 1b's bits.
+// Its blocks exchange bf16(relu(h)), the operand the next product takes,
+// instead of f32 h: half the bytes through L2, copied by cp.async straight
+// into the slabs; h stays f32 in shared memory for the residual, and only
+// the last layer writes out.
 // (A cluster a bin, the slices read through distributed shared memory, was
 // the first design: the card holds 30 clusters of 4 blocks at once, so the
 // packed batch's 32 bins ran in two waves, 0.153 ms, PERF.md §6.)
@@ -581,22 +588,60 @@ __host__ __device__ constexpr int dbuf_rows() {
   return TM * (kDbufCompute / (kBN / kTN));
 }
 
+// Row 7b's product: a dbuf_rows<TM>() x 64 tile (the bin's rows, those past
+// E staged as zeros) of the block's 16 warps, each 32 rows x the columns that
+// leaves (32 x 16 at E <= 128, 32 x 32 at E <= 256; 16-row warps timed the
+// same), k-slabs of kDbufMmaK (64 was slower, PERF.md §6); mW kept in bf16,
+// its rows kMwLd halves apart (the 8 rows a warp's accumulators store lie in
+// distinct banks).
+constexpr int kDbufMmaK = 32;
+constexpr int kMwLd = kCols + 8;
+template <int TM>
+using DbufMma = mma::Shape<dbuf_rows<TM>(), kCols, dbuf_rows<TM>() / 32, kDbufThreads / 32 / (dbuf_rows<TM>() / 32),
+                           kDbufMmaK>;
+static_assert(DbufMma<8>::kThreads == kDbufThreads && DbufMma<16>::kThreads == kDbufThreads, "all threads multiply");
+
 // A block's shared memory: its h slice [E][kHLd] and mW slice [E][kCols],
 // two stages of the relu(h) k-slab ([kBK][dbuf_rows + 4]) and of W's
 // ([kBK][kLdB]), then A's bit rows [E][words] and the bin's src, dst and mask
-// over 32 words lanes each.
-template <int TM>
+// over 32 words lanes each. Row 7b (kBf16): the h slice, the product's two
+// stages (DbufMma), mW in bf16 [E][kMwLd], then the same bit rows and arrays.
+template <int TM, bool kBf16>
 __host__ __device__ inline size_t dbuf_smem_bytes(int E) {
   const int words = adj_words(E);
+  const size_t tail = sizeof(uint32_t) * ((size_t)E * words + 3 * 32 * (size_t)words);
+  if constexpr (kBf16)
+    return sizeof(float) * (size_t)E * kHLd +
+           sizeof(__nv_bfloat16) * ((size_t)DbufMma<TM>::kSmemHalfs + (size_t)E * kMwLd) + tail;
   return sizeof(float) * ((size_t)E * kHLd + (size_t)E * kCols +
                           2 * (size_t)kBK * (dbuf_rows<TM>() + 4) + 2 * (size_t)kBK * kLdB) +
-         sizeof(uint32_t) * ((size_t)E * words + 3 * 32 * (size_t)words);
+         tail;
 }
 
 __device__ inline unsigned long long dbuf_clock_ns() {
   unsigned long long t = 0;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
+}
+
+// 1 builds the stage stamps of rows 7 and 7b (the timing script's --define
+// kDbufStages=1): thread 0 of each of the first kStampBlocks blocks writes
+// %globaltimer, in its first bin, at the bin's start (slot 0), with the
+// prologue done (1), and for each layer l < kStampLayers with the product's
+// mW in place (2 + 3 l), the operator pass done (3 + 3 l) and the group's
+// barrier passed (4 + 3 l). The stamps after the prologue and the pass wait
+// for the whole block first (a barrier the default build does not have).
+constexpr int kDbufStages = 0;
+constexpr int kStampBlocks = kDbufStages != 0 ? 1024 : 1, kStampLayers = 8;
+constexpr int kStampSlots = 2 + 3 * kStampLayers;
+__device__ unsigned long long dbuf_at[kStampBlocks][kStampSlots];
+
+__device__ inline void dbuf_stamp(bool first_bin, int slot, bool whole_block = false) {
+  if constexpr (kDbufStages != 0) {
+    if (whole_block) __syncthreads();
+    if (!first_bin || threadIdx.x != 0 || blockIdx.x >= kStampBlocks || slot >= kStampSlots) return;
+    dbuf_at[blockIdx.x][slot] = dbuf_clock_ns();
+  }
 }
 
 // The barrier of the C blocks of bin group g (all of them resident: the
@@ -623,21 +668,61 @@ __device__ inline void group_barrier(int g, int C) {
   __syncthreads();
 }
 
-// Grid G * C blocks, C = d / 64, all resident at once (a cooperative
-// launch): block j is slice r = j % C (columns [64 r, 64 r + 64)) of bin
-// group g = j / C, which takes bins g, g + G, ... in turn. For each bin the
-// block keeps its slice of h and of each layer's mW in shared memory and runs
-// every layer: mW[:, slice] = relu(h) @ W[:, slice] over the bin's E rows
-// (threads below kDbufCompute computing TM x 4 outputs each, one fmaf chain
-// over ascending k an output as in row 1's product, on a 16-deep k-slab of
-// relu(h) and of W, while the other threads load the next slab and store it
-// to the other stage), then the operator pass over its own columns by every
-// thread (h_out = (h +) bias + A @ mW, row 1's walk over the bit rows), which
-// writes h in place and, for the other slices' next product, to device
+// The start of a bin in row 7b's kernel: layer 0's input slice (columns
+// [c0, c0 + 64) of h_in's rows bin_off..) into hs [E][kHLd] and the bin's
+// index arrays, every load in flight first; then A's bit rows into adj (read
+// after the product's barriers). Row 7's kernel keeps the same lines inline:
+// called there, ptxas spilled 120 bytes in its E <= 128 instantiation (32
+// inline), and row 7 took 0.087 ms against 0.069 (PERF.md §6).
+__device__ inline void dbuf_stage_bin(const float* __restrict__ h_in, const int* __restrict__ src,
+                                      const int* __restrict__ dst, const uint8_t* __restrict__ emask,
+                                      float* hs, uint32_t* adj, int* src_s, int* dst_s, int* ok_s,
+                                      size_t bin_off, int E, int d, int c0, int mean) {
+  const int tid = threadIdx.x, words = adj_words(E);
+  {
+    constexpr int kPer = kMaxEdges * kVecs / kDbufThreads;
+    float4 v[kPer];
+#pragma unroll
+    for (int t = 0; t < kPer; ++t) {
+      const int i = tid + t * kDbufThreads;
+      if (i < E * kVecs)
+        v[t] = reinterpret_cast<const float4*>(h_in + (bin_off + i / kVecs) * d + c0)[i % kVecs];
+    }
+    for (int e = tid; e < 32 * words; e += kDbufThreads) {
+      const bool in = e < E;
+      src_s[e] = in ? src[bin_off + e] : -1;
+      dst_s[e] = in ? dst[bin_off + e] : -1;
+      ok_s[e] = in && emask[bin_off + e] != 0;
+    }
+#pragma unroll
+    for (int t = 0; t < kPer; ++t) {
+      const int i = tid + t * kDbufThreads;
+      if (i < E * kVecs)
+        reinterpret_cast<float4*>(hs + (size_t)(i / kVecs) * kHLd)[i % kVecs] = v[t];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < E * words; i += kDbufThreads) {
+    const int e = i / words;
+    adj[i] = match_word(dst_s, ok_s, E, i % words, src_s[e], mean ? -1 : e ^ 1);
+  }
+}
+
+// Row 7, exact f32. Grid G * C blocks, C = d / 64, all resident at once (a
+// cooperative launch): block j is slice r = j % C (columns [64 r, 64 r + 64))
+// of bin group g = j / C, which takes bins g, g + G, ... in turn. For each
+// bin the block keeps its slice of h and of each layer's mW in shared memory
+// and runs every layer: mW[:, slice] = relu(h) @ W[:, slice] over the bin's E
+// rows (threads below kDbufCompute computing TM x 4 outputs each, one fmaf
+// chain over ascending k an output as in row 1's product, on a 16-deep k-slab
+// of relu(h) and of W, while the other threads load the next slab and store
+// it to the other stage), then the operator pass over its own columns by
+// every thread (h_out = (h +) bias + A @ mW, row 1's walk over the bit rows),
+// which writes h in place and, for the other slices' next product, to device
 // memory (out where layers - 1 - l is even, else scratch, so that the last
 // layer writes out); then the group's barrier. Layer 0 reads h_in, later
 // layers the other slices through L2 (ld.global.cg: written in this launch).
-template <int TM, bool kBf16>
+template <int TM>
 __global__ void __launch_bounds__(kDbufThreads, kDbufMinBlocks)
     dense_mpnn_dbuf_kernel(const float* __restrict__ h_in, float* out, float* scratch,
                            const int* __restrict__ src, const int* __restrict__ dst,
@@ -667,6 +752,7 @@ __global__ void __launch_bounds__(kDbufThreads, kDbufMinBlocks)
 
   for (int b = g; b < B; b += G) {
     const size_t bin_off = (size_t)b * E;
+    dbuf_stamp(b == g, 0);
     {  // layer 0's input slice and the bin's index arrays, every load in flight first
       constexpr int kPer = kMaxEdges * kVecs / kDbufThreads;
       float4 v[kPer];
@@ -695,6 +781,7 @@ __global__ void __launch_bounds__(kDbufThreads, kDbufMinBlocks)
       adj[i] = match_word(dst_s, ok_s, E, i % words, src_s[e], mean ? -1 : e ^ 1);
     }
     // (the bit rows are read after the product's barriers)
+    dbuf_stamp(b == g, 1, true);
 
     for (int l = 0; l < layers; ++l) {
       // the layer's input, all columns: what layer l - 1 wrote
@@ -724,13 +811,13 @@ __global__ void __launch_bounds__(kDbufThreads, kDbufMinBlocks)
         for (int t = 0; t < kGroupsA; ++t) {
           const int q = li + t * kLoaders;
           float* s = stage + q % (kBK / 4) * 4 * kLdA + q / (kBK / 4);
-          s[0] = operand<kBf16>(relu(ra[t].x));
-          s[kLdA] = operand<kBf16>(relu(ra[t].y));
-          s[2 * kLdA] = operand<kBf16>(relu(ra[t].z));
-          s[3 * kLdA] = operand<kBf16>(relu(ra[t].w));
+          s[0] = relu(ra[t].x);
+          s[kLdA] = relu(ra[t].y);
+          s[2 * kLdA] = relu(ra[t].z);
+          s[3 * kLdA] = relu(ra[t].w);
         }
         float* bs = stage + kSlabA;
-        *reinterpret_cast<float4*>(bs + li / (kBN / 4) * kLdB + li % (kBN / 4) * 4) = operand4<kBf16>(rb);
+        *reinterpret_cast<float4*>(bs + li / (kBN / 4) * kLdB + li % (kBN / 4) * 4) = rb;
       };
       const bool computes = tid < kDbufCompute;
       if (!computes) {
@@ -756,30 +843,169 @@ __global__ void __launch_bounds__(kDbufThreads, kDbufMinBlocks)
           const int r = ty * TM + i;
           if (r < E)
             *reinterpret_cast<float4*>(mw + (size_t)r * kCols + tx * kTN) =
-                operand4<kBf16>(make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
         }
       __syncthreads();  // this block's mW slice is in place
+      dbuf_stamp(b == g, 2 + 3 * l);
 
       float* y = (layers - 1 - l) % 2 == 0 ? out : scratch;
       const int c = tid % kCols;
       const float bc = bias[(size_t)l * d + c0 + c];
       for (int e = tid / kCols; e < E; e += kDbufThreads / kCols) {
         const uint32_t* row = adj + (size_t)e * words;
-        const auto x = [&](int e2) { return mw[e2 * kCols + c]; };
-        float sum;
-        if (kBf16 && mean) {
-          sum = mean_row_bf16(row, words, e, x);
-        } else {
-          int deg;
-          sum = walk_row(row, words, deg, x);
-          if (mean) sum = sum / fmaxf((float)deg, 1.f) - mw[(e ^ 1) * kCols + c];
-        }
+        int deg;
+        float sum = walk_row(row, words, deg, [&](int e2) { return mw[e2 * kCols + c]; });
+        if (mean) sum = sum / fmaxf((float)deg, 1.f) - mw[(e ^ 1) * kCols + c];
         const float o = bc + sum;
         const float hv = residual ? hs[e * kHLd + c] + o : o;
         hs[e * kHLd + c] = hv;
         y[(bin_off + e) * d + c0 + c] = hv;
       }
+      dbuf_stamp(b == g, 3 + 3 * l, true);
       if (l + 1 < layers) group_barrier(g, C);  // every slice of the new h is in place
+      dbuf_stamp(b == g, 4 + 3 * l);
+    }
+    __syncthreads();  // the pass is done with this bin's shared memory
+  }
+}
+
+// Row e's sums of the operator at a column pair, x(e2) giving lane e2's pair
+// of mW as floats, each column's in its one-column order: sum, walk_row's (the
+// set bits in ascending e2); mean, mean_row_bf16's (its bf16 coefficients, then
+// the unkept rev term). So each column has the bits of those walks, with one
+// walk of the bits for two columns.
+template <typename X>
+__device__ inline float2 walk_pair(const uint32_t* row, int words, int e, int mean, const X& x) {
+  uint32_t wb[kMaxWords];
+#pragma unroll
+  for (int w = 0; w < kMaxWords; ++w) wb[w] = w < words ? row[w] : 0u;
+  float k = 1.f, k_rev = 1.f;
+  const int rev = e ^ 1;
+  if (mean) {
+    int deg = 0;
+#pragma unroll
+    for (int w = 0; w < kMaxWords; ++w) deg += __popc(wb[w]);
+    const float inv = 1.f / fmaxf((float)deg, 1.f);
+    k = operand<true>(inv);
+    k_rev = operand<true>(inv - 1.f);
+  }
+  float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int w = 0; w < kMaxWords; ++w) {
+    uint32_t bits = wb[w];
+    while (bits) {
+      const int e2 = w * 32 + __ffs(bits) - 1;
+      bits &= bits - 1u;
+      const float2 v = x(e2);
+      if (mean) {
+        const float kk = e2 == rev ? k_rev : k;
+        s.x += kk * v.x;
+        s.y += kk * v.y;
+      } else {
+        s.x += v.x;
+        s.y += v.y;
+      }
+    }
+  }
+  if (mean && !(row[rev >> 5] >> (rev & 31) & 1u)) {
+    const float2 v = x(rev);
+    s.x -= v.x;
+    s.y -= v.y;
+  }
+  return s;
+}
+
+// Row 7b (matmul_dtype="bfloat16"): row 7's launch, groups, slices and
+// barrier, with row 1b's product and roundings. Each layer's product
+// mW[:, slice] = relu(h) @ W[:, slice] runs on the tensor cores over all the
+// block's threads (DbufMma, mma::tile_products: the bin's rows, the block's
+// 64 columns, k16 steps in ascending k from a zero accumulator, as row 1b's
+// tiles sum every output), rounded to bf16 into shared memory. Its A operand
+// is bf16(relu(h)): layer 0's staged from h_in (f32, the ReLU taken, then
+// rounded: row 1b's RowsF32), later layers' copied by cp.async from the
+// exchange the group's blocks wrote in the pass before (two bf16 [B, E, d]
+// halves of scratch in turn: layer l's pass writes half l % 2, so a block
+// that runs ahead never overwrites what another still reads); W's slab is
+// rounded as staged (ColsF32). The operator pass has row 1b's sums and
+// roundings (mW in bf16, the mean's bf16 coefficients, in walk_row's and
+// mean_row_bf16's orders), h stays f32 in shared memory for the residual, and only the last layer writes f32 to out; the others write
+// bf16(relu(h)) for the next product (the ReLU taken before the rounding, as
+// row 1b stages it: a tiny negative gives +0, not -0). In the pass a warp
+// takes a row and a lane a column pair (walk_pair: one walk of the bits for
+// two outputs).
+template <int TM>
+__global__ void __launch_bounds__(kDbufThreads, kDbufMinBlocks)
+    dense_mpnn_dbuf_mma_kernel(const float* __restrict__ h_in, float* __restrict__ out,
+                               __nv_bfloat16* xch, const int* __restrict__ src,
+                               const int* __restrict__ dst, const uint8_t* __restrict__ emask,
+                               const float* __restrict__ W, const float* __restrict__ bias, int B,
+                               int E, int d, int layers, int residual, int mean) {
+  using S = DbufMma<TM>;
+  extern __shared__ float4 smem4[];
+  const int words = adj_words(E);
+  float* hs = reinterpret_cast<float*>(smem4);                                        // [E][kHLd]
+  __nv_bfloat16* slabs = reinterpret_cast<__nv_bfloat16*>(hs + (size_t)E * kHLd);   // S::kSmemHalfs
+  __nv_bfloat16* mw = slabs + S::kSmemHalfs;                                          // [E][kMwLd]
+  uint32_t* adj = reinterpret_cast<uint32_t*>(mw + (size_t)E * kMwLd);               // [E][words]
+  int* src_s = reinterpret_cast<int*>(adj + (size_t)E * words);                      // [32 words] x 3
+  int* dst_s = src_s + 32 * words;
+  int* ok_s = dst_s + 32 * words;
+
+  const int tid = threadIdx.x, C = d / kCols;
+  const int g = blockIdx.x / C, G = gridDim.x / C;
+  const int c0 = blockIdx.x % C * kCols;
+  const size_t xch_len = (size_t)B * E * d;  // bf16 values of an exchange half
+
+  for (int b = g; b < B; b += G) {
+    const size_t bin_off = (size_t)b * E;
+    dbuf_stamp(b == g, 0);
+    dbuf_stage_bin(h_in, src, dst, emask, hs, adj, src_s, dst_s, ok_s, bin_off, E, d, c0, mean);
+    dbuf_stamp(b == g, 1, true);
+
+    for (int l = 0; l < layers; ++l) {
+      mma::ColsF32<S, kCols, S::kLdB, false> lw{W + (size_t)l * d * d, d, c0, d};
+      typename S::Tile acc;
+      if (l == 0) {
+        mma::RowsF32<S, true> lx{h_in + bin_off * d, d, 0, E};
+        mma::tile_products<S>(0, d, slabs, lx, lw, acc);
+      } else {
+        mma::RowsBf16<S> lx{xch + (l - 1) % 2 * xch_len + bin_off * d, d, 0, E};
+        mma::tile_products<S>(0, d, slabs, lx, lw, acc);
+      }
+      const int r0 = S::row0(), cc = S::col0();
+#pragma unroll
+      for (int i = 0; i < S::kMT; ++i)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = r0 + i * 16 + 8 * hf;
+          if (r >= E) continue;
+#pragma unroll
+          for (int j = 0; j < S::kNT; ++j)
+            *reinterpret_cast<unsigned*>(mw + (size_t)r * kMwLd + cc + j * 8) =
+                mma::pack_bf16x2(acc[i][j][2 * hf], acc[i][j][2 * hf + 1]);
+        }
+      __syncthreads();  // this block's mW slice is in place
+      dbuf_stamp(b == g, 2 + 3 * l);
+
+      const bool last = l + 1 == layers;
+      __nv_bfloat16* xo = xch + l % 2 * xch_len;
+      const int c = 2 * (tid % (kCols / 2));  // a warp a row, a lane a column pair
+      const float bc0 = bias[(size_t)l * d + c0 + c], bc1 = bias[(size_t)l * d + c0 + c + 1];
+      for (int e = tid / (kCols / 2); e < E; e += kDbufThreads / (kCols / 2)) {
+        const float2 sum = walk_pair(adj + (size_t)e * words, words, e, mean, [&](int e2) {
+          return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(mw + e2 * kMwLd + c));
+        });
+        float2 hv = make_float2(bc0 + sum.x, bc1 + sum.y);
+        float2* h = reinterpret_cast<float2*>(hs + e * kHLd + c);
+        if (residual) hv = make_float2(h->x + hv.x, h->y + hv.y);
+        *h = hv;
+        const size_t at = (bin_off + e) * d + c0 + c;
+        if (last) *reinterpret_cast<float2*>(out + at) = hv;
+        else *reinterpret_cast<unsigned*>(xo + at) = mma::pack_bf16x2(relu(hv.x), relu(hv.y));
+      }
+      dbuf_stamp(b == g, 3 + 3 * l, true);
+      if (!last) group_barrier(g, C);  // every slice of the exchange is in place
+      dbuf_stamp(b == g, 4 + 3 * l);
     }
     __syncthreads();  // the pass is done with this bin's shared memory
   }
@@ -790,13 +1016,13 @@ template <int TM, bool kBf16>
 cudaError_t dbuf_config(const void* kernel, int B, int E, int d, cudaLaunchConfig_t& config,
                         cudaLaunchAttribute& coop) {
   static uint64_t smem_configured = 0;
-  cudaError_t err = allow_smem(kernel, (int)dbuf_smem_bytes<TM>(kMaxEdges), smem_configured);
+  cudaError_t err = allow_smem(kernel, (int)dbuf_smem_bytes<TM, kBf16>(kMaxEdges), smem_configured);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDbufThreads,
-                                                        dbuf_smem_bytes<TM>(E));
+                                                        dbuf_smem_bytes<TM, kBf16>(E));
   if (err != cudaSuccess) return err;
   const int C = d / kCols, resident = sms * per_sm / C;
   int groups = B < resident ? B : resident;
@@ -805,7 +1031,7 @@ cudaError_t dbuf_config(const void* kernel, int B, int E, int d, cudaLaunchConfi
   config = {};
   config.gridDim = dim3(groups * C);
   config.blockDim = dim3(kDbufThreads);
-  config.dynamicSmemBytes = dbuf_smem_bytes<TM>(E);
+  config.dynamicSmemBytes = dbuf_smem_bytes<TM, kBf16>(E);
   coop.id = cudaLaunchAttributeCooperative;
   coop.val.cooperative = 1;
   config.attrs = &coop;
@@ -820,11 +1046,13 @@ cudaError_t dbuf_groups(int B, int E, int d, int* groups) {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute coop;
   const cudaError_t err =
-      dbuf_config<TM, false>((const void*)dense_mpnn_dbuf_kernel<TM, false>, B, E, d, config, coop);
+      dbuf_config<TM, false>((const void*)dense_mpnn_dbuf_kernel<TM>, B, E, d, config, coop);
   *groups = err == cudaSuccess ? (int)config.gridDim.x / (d / kCols) : 0;
   return err;
 }
 
+// Row 7 (kBf16 false) or 7b; scratch is row 7's every other layer's output,
+// or row 7b's two bf16 exchange halves.
 template <int TM, bool kBf16>
 cudaError_t launch_dbuf(const float* h_in, float* out, float* scratch, const int* src,
                         const int* dst, const uint8_t* emask, const float* W, const float* bias,
@@ -832,12 +1060,21 @@ cudaError_t launch_dbuf(const float* h_in, float* out, float* scratch, const int
                         cudaStream_t stream) {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute coop;
-  cudaError_t err =
-      dbuf_config<TM, kBf16>((const void*)dense_mpnn_dbuf_kernel<TM, kBf16>, B, E, d, config, coop);
-  if (err != cudaSuccess) return err;
-  config.stream = stream;
-  err = cudaLaunchKernelEx(&config, dense_mpnn_dbuf_kernel<TM, kBf16>, h_in, out, scratch, src, dst,
-                           emask, W, bias, B, E, d, layers, residual, mean);
+  cudaError_t err;
+  if constexpr (kBf16) {
+    err = dbuf_config<TM, true>((const void*)dense_mpnn_dbuf_mma_kernel<TM>, B, E, d, config, coop);
+    config.stream = stream;
+    if (err == cudaSuccess)
+      err = cudaLaunchKernelEx(&config, dense_mpnn_dbuf_mma_kernel<TM>, h_in, out,
+                               reinterpret_cast<__nv_bfloat16*>(scratch), src, dst, emask, W, bias, B, E,
+                               d, layers, residual, mean);
+  } else {
+    err = dbuf_config<TM, false>((const void*)dense_mpnn_dbuf_kernel<TM>, B, E, d, config, coop);
+    config.stream = stream;
+    if (err == cudaSuccess)
+      err = cudaLaunchKernelEx(&config, dense_mpnn_dbuf_kernel<TM>, h_in, out, scratch, src, dst, emask, W,
+                               bias, B, E, d, layers, residual, mean);
+  }
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -940,8 +1177,9 @@ int dense_mpnn_forward(const float* h_in, float* const* outs, __nv_bfloat16* con
 // every other layer's output (layers >= 2; else unused). d / 64 <= 16; h_in,
 // out, scratch and W start 16-byte aligned. The stream is a cudaStream_t.
 // Calls on one device run one at a time (they share the bin groups'
-// barriers). bf16 nonzero runs row 7b (matmul_dtype="bfloat16"). Returns
-// the cudaError_t of the launch (0 on success).
+// barriers). bf16 nonzero runs row 7b (matmul_dtype="bfloat16"), whose
+// scratch holds two bf16 [B,E,d] halves, each hidden layer's bf16(relu(h))
+// in turn. Returns the cudaError_t of the launch (0 on success).
 int dense_mpnn_dbuf_forward(const float* h_in, float* out, float* scratch, const int* src,
                             const int* dst, const uint8_t* emask, const float* W,
                             const float* bias, int B, int E, int d, int layers, int residual,
@@ -969,6 +1207,30 @@ int dense_mpnn_dbuf_groups(int B, int E, int d) {
   const cudaError_t err = E <= dbuf_rows<8>() ? dbuf_groups<8>(B, E, d, &groups)
                                               : dbuf_groups<16>(B, E, d, &groups);
   return err == cudaSuccess ? groups : -1;
+}
+
+// The stage stamps of rows 7 and 7b in a build with kDbufStages = 1 (see
+// dbuf_stamp): `built` is kDbufStages; `reset` zeroes them; `read` copies
+// kStampSlots values (ns, 0 where a block wrote none) of each of the first
+// `blocks` blocks into out, after the launches so far. Each returns 0 or a
+// cudaError_t.
+int dense_mpnn_dbuf_stages_built() { return kDbufStages; }
+
+int dense_mpnn_dbuf_stamp_slots() { return kStampSlots; }
+
+int dense_mpnn_dbuf_stamps_reset() {
+  void* at = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&at, dbuf_at);
+  if (err == cudaSuccess) err = cudaMemset(at, 0, sizeof(dbuf_at));
+  return (int)err;
+}
+
+int dense_mpnn_dbuf_stamps_read(unsigned long long* out, int blocks) {
+  if (blocks < 0 || blocks > kStampBlocks) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out, dbuf_at, sizeof(unsigned long long) * kStampSlots * blocks);
+  return (int)err;
 }
 
 const char* dense_mpnn_error_string(int err) {

@@ -113,8 +113,8 @@ and the backward's two products (rows 3b, 4b and 6b) multiply those bf16
 operands on the tensor cores (``csrc/bf16_mma.cuh``: ``mma.sync``, f32
 accumulate), so their sums run in another order than the plain versions'
 and agree with them at the bf16 tolerances, not bit for bit; the
-depth-fused forward (row 7b) still adds its products by f32 FMA, so it
-agrees with row 1b at those tolerances too.
+depth-fused forward (row 7b) multiplies on the tensor cores in row 1b's
+order, so it gives row 1b's bits.
 ``None`` (or ``"float32"``) is the exact f32 path, bit for bit as before.
 """
 
@@ -909,10 +909,10 @@ def fused_dense_mpnn_block_dbuf(
     else ``ValueError``; on the card a group of blocks holds one bin at a
     time whatever the tile, and the width may be at most 1,024.
     No module calls it, as in the JAX package.
-    ``matmul_dtype="bfloat16"`` rounds its operands where row 1b does (the
-    kernel's ``bf16`` instantiation, row 7b; its products are f32 FMA
-    chains, row 1b's run on the tensor cores, so the two agree at the bf16
-    tolerances).
+    ``matmul_dtype="bfloat16"`` (row 7b, ``dense_mpnn_dbuf_mma_kernel``)
+    multiplies on the tensor cores in row 1b's order and rounds where row 1b
+    does, so it gives row 1b's bits; its blocks exchange each hidden layer's
+    ``bf16(relu(h))`` through the two bf16 halves of the scratch.
     ``fused_dense_mpnn_block_dbuf.launches`` counts its launches, one a
     call (``launches_bf16`` those of row 7b); CPU tensors take
     :func:`dense_mpnn_block_reference`.
@@ -940,7 +940,8 @@ def fused_dense_mpnn_block_dbuf(
                          f"of {cols} columns a bin); got d={d}")
     check_aligned(edge_hiddens=edge_hiddens, weights=weights)
     out = torch.empty_like(edge_hiddens)
-    scratch = torch.empty_like(edge_hiddens) if depth > 1 else None  # every other layer's output
+    # every other layer's output, or row 7b's two bf16 exchange halves
+    scratch = torch.empty_like(edge_hiddens) if depth > 1 else None
     with torch.cuda.device(edge_hiddens.device):
         err = dbuf_fn(edge_hiddens.data_ptr(), out.data_ptr(), _ptr(scratch), src.data_ptr(),
                       dst.data_ptr(), edge_mask.data_ptr(), weights.data_ptr(), biases.data_ptr(), B, E,

@@ -8,8 +8,8 @@ dense loader's first batch (B = 64, V = 48, E = 128), as ``chip_smoke.py``'s
 time phase does: device ms a call from a CUDA graph of 20 calls, and a
 ``torch.profiler`` breakdown of 5 calls by kernel and by stage (the
 forward's prep, products and operator pass, or the single layer kernel of a
-tree from before them; row 4's sweep; row 7's one kernel, or its layer
-kernel before its redesign). Each row runs twice and says whether the two
+tree from before them; row 4's sweep; row 7's one kernel, or row 7b's, or
+the layer kernel before row 7's redesign). Each row runs twice and says whether the two
 calls gave the same bits; rows 1, 5 and 7 also run with mean, and row 7
 says whether it gave row 1's bits and, where the tree has them, how many of
 its bin groups the launch runs at once. With
@@ -18,8 +18,13 @@ bit: the first run that names FILE writes it, every later run prints
 whether its outputs have the same bits. ``--bf16`` also runs rows 1b, 2b,
 4b, 5b and 7b the same way after the f32 rows (``matmul_dtype="bfloat16"``;
 rows 2b and 5b with the bf16 stash, as the bf16 encoder config runs them;
-row 4b replays in f32 layer inputs), row 7b with its largest difference from
-row 1b. Each line carries a ``sha256`` of the row's outputs. With ``--e2e``,
+row 4b replays in f32 layer inputs), row 7b with whether it gave row 1b's
+bits and its largest difference from them. Each line carries a ``sha256`` of
+the row's outputs. In a build with ``--define kDbufStages=1`` rows 7 and 7b
+also print their stage stamps (``stamps_us``): for block 0, µs after its
+start, and for the span of all blocks, µs after the first block's start
+until the last block's stamp, at the prologue's end and at each layer's
+product, operator pass and group barrier. With ``--e2e``,
 also a warm epoch of the declarative D-MPNN config (rows 5 and 6) under
 ``torch.profiler``: the card's busy milliseconds a step, and row 5's share
 of them.
@@ -32,7 +37,8 @@ one); its ``csrc/*.cu`` are built there at first use. ``--define NAME=VALUE``
 times a variant of that checkout: its package is copied to a temporary
 directory with ``constexpr int NAME = ...`` set to VALUE in
 ``csrc/dense_mpnn.cu`` (for example ``kGemmRows=32``, ``kApplyThreads=512``,
-or the bf16 product's tile, ``kMmaCols=64``).
+the bf16 product's tile, ``kMmaCols=64``, row 7b's k-slab, ``kDbufMmaK=64``,
+or the stamps, ``kDbufStages=1``).
 The inputs and the timing are this checkout's, so two trees, for example a
 parent commit unpacked with ``git archive``, are timed the same way in one
 call on one card. Prints one JSON line a row, then the card's name and
@@ -59,7 +65,7 @@ STAGES = {
     "operator": ("mpnn_fwd_apply_",),
     "layer_kernel": ("dense_mpnn_plain_kernel", "dense_mpnn_ends_kernel"),
     "sweep": ("bwd_prep_", "bwd_adjoint_", "bwd_gemm_", "bwd_node_grad_"),
-    "dbuf": ("dense_mpnn_dbuf_kernel",),
+    "dbuf": ("dense_mpnn_dbuf_",),  # row 7's kernel, and row 7b's (dense_mpnn_dbuf_mma_kernel)
 }
 FWD_KERNELS = (*STAGES["prep"], *STAGES["products"], *STAGES["operator"], *STAGES["layer_kernel"])
 
@@ -78,6 +84,48 @@ def variant(root: Path, defines: list[str], into: Path) -> Path:
             raise SystemExit(f"--define {item}: csrc/dense_mpnn.cu has {n} definitions of {name}")
     cu.write_text(text)
     return into
+
+
+# row 7's stamp slots (csrc/dense_mpnn.cu, dbuf_stamp): the bin's start,
+# the prologue's end, then each layer's product, operator pass and barrier
+def stamp_names(slots: int) -> list[str]:
+    return ["start", "prologue"] + [f"layer{l}_{stage}" for l in range((slots - 2) // 3)
+                                    for stage in ("product", "pass", "barrier")]
+
+
+def dbuf_stamps(call, shape: dict) -> dict | None:
+    """Rows 7 and 7b's stage stamps of one ``call`` in a build with
+    kDbufStages = 1 (None in any other build): block 0's, µs after its start,
+    and the span's, µs after the first block's start to the last block's
+    stamp (the blocks that ran)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+    from notorch_tpu_torch.kernels import dense_mpnn
+
+    lib = dense_mpnn._layer_fns()[0]
+    if not hasattr(lib, "dense_mpnn_dbuf_stages_built") or lib.dense_mpnn_dbuf_stages_built() == 0:
+        return None
+    slots = lib.dense_mpnn_dbuf_stamp_slots()
+    blocks = min(shape["B"] * shape["d"] // lib.dense_mpnn_cols(), 1024)
+    lib.dense_mpnn_dbuf_stamps_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    if lib.dense_mpnn_dbuf_stamps_reset() != 0:
+        raise SystemExit("dense_mpnn_dbuf_stamps_reset failed")
+    call()
+    torch.cuda.synchronize()
+    at = np.zeros((blocks, slots), dtype=np.uint64)
+    if lib.dense_mpnn_dbuf_stamps_read(at.ctypes.data, blocks) != 0:
+        raise SystemExit("dense_mpnn_dbuf_stamps_read failed")
+    at = at[at[:, 0] != 0].astype(np.int64)  # the blocks that ran
+    t0 = at[:, 0].min()
+    block0, span = {}, {}
+    for i, name in enumerate(stamp_names(slots)[1:], start=1):
+        if at[0, i] != 0:
+            block0[name] = float(at[0, i] - at[0, 0]) / 1000.0
+        if (at[:, i] != 0).any():
+            span[name] = float(at[:, i].max() - t0) / 1000.0
+    return {"block0": block0, "span": span, "blocks": int(at.shape[0])}
 
 
 def digest(tensors) -> str:
@@ -173,7 +221,7 @@ def run(args, root: Path, tmp: Path) -> None:
         record = {**tag, "row": row, "reduce": reduce, "shape": enc_shape if row in (5, "5b") else block_shape,
                   "depth": depth, "sha256": digest(first),
                   "repeatable": all(torch.equal(p, q) for p, q in zip(first, second))}
-        if row == "7b" and f"row1b_{reduce}" in outputs:  # row 1b's products sum in the tensor cores' order
+        if row == "7b" and f"row1b_{reduce}" in outputs:  # both sum each output k16 by k16 in ascending k
             ref = outputs[f"row1b_{reduce}"][0]
             record["row1b_bits"] = torch.equal(first[0].cpu(), ref)
             record["row1b_max_abs_err_over_max"] = float((first[0].cpu() - ref).abs().max() / ref.abs().max())
@@ -186,6 +234,10 @@ def run(args, root: Path, tmp: Path) -> None:
         if saved is not None and key in saved:
             record["parent_bits"] = len(saved[key]) == len(first) and all(
                 torch.equal(p.cpu(), q) for p, q in zip(first, saved[key]))
+        if row in (7, "7b"):
+            stamps = dbuf_stamps(call, block_shape)
+            if stamps is not None:
+                record["stamps_us"] = stamps
         if reduce == "sum":
             t = smoke.time_ms(call)
             breakdown = smoke.kernels_of_calls(call)

@@ -17,7 +17,9 @@ elementwise within BF16_ELEMENT_TOL of its largest magnitude and in
 relative L2 within BF16_L2_TOL, as rows 1b-6b are (``chip_smoke.py``). Row
 8b adds each segment's terms in the CPU plain version's order with the same
 roundings: bit for bit; so does row 9b (each chunk's terms in slot order in
-f32, the same roundings at the same chunk boundaries). Every kernel is called twice for the same bits.
+f32, the same roundings at the same chunk boundaries). Row 7b is held to
+row 1b bit for bit besides (both sum each product k16 by k16 in ascending k
+on the tensor cores). Every kernel is called twice for the same bits.
 The bf16 graph-transformer block, card against CPU, adds the dense layers
 (cuBLAS against the CPU's bf16 products) and two layers for a flipped
 rounding to grow through: its output and gradients held at BLOCK_ELEMENT_TOL
@@ -135,16 +137,21 @@ def test_cuda_bf16_attention_kernels_match_plain_versions(kind, edge_bias, mode,
 @pytest.mark.gpu
 @pytest.mark.parametrize("E", [128, 256])
 @pytest.mark.parametrize("reduce", ["sum", "mean"])
-def test_cuda_dbuf_bf16_matches_plain_version_and_row_1b(E, reduce):
-    """Row 7b against its plain version and against row 1b's kernel, both
-    at the bf16 holds (the same roundings; row 7b sums each product as an
-    f32 FMA chain, row 1b on the tensor cores, so an f32 ulp of a sum can
-    flip a bf16 rounding); twice with equal bits; one launch a call,
-    counted in ``launches_bf16``; after row 7's f32 instantiation in the
-    same process (each instantiation opts in to its shared memory)."""
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("d", [256, 192])
+@pytest.mark.parametrize("bins", [32, 16])
+def test_cuda_dbuf_bf16_matches_plain_version_and_row_1b(E, reduce, residual, d, bins):
+    """Row 7b against its plain version at the bf16 holds (the same
+    roundings, sums in other orders) and against row 1b's kernel bit for bit
+    (both sum each product k16 by k16 in ascending k on the tensor cores);
+    twice with equal bits; one launch a call, counted in ``launches_bf16``;
+    after row 7's f32 instantiation in the same process (each instantiation
+    opts in to its shared memory). E = 128 and 256 are the two product tiles
+    (128 and 256 rows), d = 192 row 1b's 64-column tiles and three blocks a
+    bin, 16 bins half the groups."""
     needs_card()
-    args, n_nodes = _dbuf_case(E, 32)
-    kw = dict(depth=3, n_nodes=n_nodes, residual=True, reduce=reduce, matmul_dtype="bfloat16")
+    args, n_nodes = _dbuf_case(E, bins, d)
+    kw = dict(depth=3, n_nodes=n_nodes, residual=residual, reduce=reduce, matmul_dtype="bfloat16")
     fused_dense_mpnn_block_dbuf(*args, mols_per_tile=8, **{**kw, "matmul_dtype": None})
     before = fused_dense_mpnn_block_dbuf.launches_bf16
     out = fused_dense_mpnn_block_dbuf(*args, mols_per_tile=8, **kw)
@@ -152,10 +159,31 @@ def test_cuda_dbuf_bf16_matches_plain_version_and_row_1b(E, reduce):
     row1b = fused_dense_mpnn_block(*args, **kw)
     torch.cuda.synchronize()
     assert fused_dense_mpnn_block_dbuf.launches_bf16 == before + 2
-    held(out, dense_mpnn_block_reference(*args, depth=3, residual=True, reduce=reduce, matmul_dtype="bfloat16"),
-         "row 7b")
-    held(out, row1b, "row 7b against row 1b")
-    assert torch.equal(out, again)
+    held(out, dense_mpnn_block_reference(*args, depth=3, residual=residual, reduce=reduce,
+                                         matmul_dtype="bfloat16"), "row 7b")
+    assert torch.equal(out, row1b), f"row 7b differs from row 1b by {float((out - row1b).abs().max())}"
+    assert torch.equal(out, again), "row 7b is not repeatable"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E", [128, 256])
+@pytest.mark.parametrize("d", [64, 128, 512, 1024])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_cuda_dbuf_bf16_group_sizes_and_depths_match_row_1b(E, d, depth):
+    """Row 7b at group sizes of 1, 2, 8 and 16 blocks a bin (at 16 the card
+    holds fewer groups than the 16 bins at once, so a group takes bins in
+    turn), at depth 1 (no exchange: no scratch) and 2 (one exchange half),
+    bit for bit row 1b's and at the bf16 holds of its plain version."""
+    needs_card()
+    args, n_nodes = _dbuf_case(E, 16, d, seed=1)
+    args = (*args[:4], args[4][:depth], args[5][:depth])
+    kw = dict(depth=depth, n_nodes=n_nodes, residual=True, reduce="mean", matmul_dtype="bfloat16")
+    out = fused_dense_mpnn_block_dbuf(*args, mols_per_tile=8, **kw)
+    row1b = fused_dense_mpnn_block(*args, **kw)
+    torch.cuda.synchronize()
+    held(out, dense_mpnn_block_reference(*args, depth=depth, residual=True, reduce="mean",
+                                         matmul_dtype="bfloat16"), "row 7b")
+    assert torch.equal(out, row1b), f"row 7b differs from row 1b by {float((out - row1b).abs().max())}"
 
 
 @pytest.mark.gpu
