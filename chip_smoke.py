@@ -7,6 +7,18 @@ checkout and drives the port's paths with the D-MPNN regression model of
 ``configs/dmpnn_regression.yaml`` (hidden 256, depth 3, mean readout, 1 FFN
 layer, Adam with the Noam schedule, batch 64; random weights from a seed):
 
+- utilities: the JAX train CLI's default input path. The C++ featurizer
+  (``notorch_tpu_torch.native``, which ``run`` uses wherever a compiler
+  exists) against the Python pipeline on the first 1,024 lipo molecules,
+  array for array, with both host times; ``configs/dmpnn_regression.yaml``
+  as shipped (all of lipo) through ``run(cfg)`` for 2 epochs at three
+  settings, ``prefetch: 0``, the default ``prefetch: 4`` and ``prefetch: 4,
+  steps_per_dispatch: 4``, which must end with the same bits in every
+  parameter and Adam state, launch rows 1-3 and 8 alike and log the same
+  losses, then warm epochs of each timed in turns and profiled; 3 steps of the block
+  with ``backward: jnp`` in lockstep with ``backward: stash`` (row 1, no
+  row 2 or 3); and, in a fresh process, a warm epoch of the grouped
+  setting under ``trace``/``annotate``/``StepTimer``;
 - serve: ``run_predict`` of the first 512 molecules of ``tests/data/lipo.csv``
   from a checkpoint of the seeded model, against the plain CPU path;
 - train: ``run(cfg)`` on the first 1,024 molecules for 2 epochs, against
@@ -173,6 +185,7 @@ from __future__ import annotations
 
 import csv
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -182,18 +195,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from notorch_tpu_torch import native
 from notorch_tpu_torch.chem.smiles import parse_smiles
 from notorch_tpu_torch.cli.predict import run_predict
 from notorch_tpu_torch.cli.train import (
     build_dataset,
     build_model,
     build_optimizer,
+    fit_loaders,
     prepare,
     prepare_pretrain,
     run,
     save_predict_meta,
 )
-from notorch_tpu_torch.data.batching import DataLoader
+from notorch_tpu_torch.data.batching import DataLoader, StackedBatch
 from notorch_tpu_torch.data.databases import SDFDatabase
 from notorch_tpu_torch.data.dataset import DatabaseManager, MolecularDataset, TargetSpec
 from notorch_tpu_torch.data.dense import pack_graphs_dense
@@ -252,6 +267,8 @@ from notorch_tpu_torch.nn.rbf import RBFEmbedding
 from notorch_tpu_torch.nn.spatial.neighbors import radius_neighbors
 from notorch_tpu_torch.training.loop import fit, predict, to_device
 from notorch_tpu_torch.training.optim import OptimizerSpec
+from notorch_tpu_torch.training.profiling import StepTimer, annotate, trace
+from notorch_tpu_torch.transforms import MolToGraph, Pipeline, SmiToMol
 from notorch_tpu_torch.transforms.point_cloud import MolToPointCloud
 from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES
 
@@ -736,6 +753,22 @@ def glue_launches(path: str, steps: int, batches: int) -> int:
     return per_step * steps + per_batch * batches
 
 
+# the utilities phase: the three settings of the input path that must train
+# alike, their loss hold, the jnp backward's gradient hold (over each
+# gradient's largest magnitude), its steps, the host-clock hold of
+# StepTimer and its sync interval
+UTILITY_SETTINGS = {"prefetch_0": {"prefetch": 0}, "prefetch_4": {},
+                    "prefetch_4_steps_per_dispatch_4": {"prefetch": 4, "steps_per_dispatch": 4}}
+UTILITY_LOSS_RTOL = 1e-6
+JNP_GRAD_TOL = 1e-4
+JNP_STEPS = 3
+TIMER_RTOL = 0.1
+TIMER_SYNC_EVERY = 4
+NATIVE_MOLS = 1024
+TRACE_ANNOTATION = "utilities_train_step"
+TRACE_KERNEL = "mpnn_fwd_gemm_kernel"
+
+
 def lipo_csv(directory: Path, n: int) -> Path:
     path = directory / f"lipo_head{n}.csv"
     with open(ROOT / "tests" / "data" / "lipo.csv", newline="") as f:
@@ -1120,6 +1153,246 @@ def train_config(csv_path: Path, checkpoint_dir: Path | None, model: dict | None
         "optimizer": OPTIMIZER_CFG,
         "trainer": trainer,
     }
+
+
+def regression_config(checkpoint_dir: Path | None, **trainer) -> dict:
+    """configs/dmpnn_regression.yaml as shipped (all of tests/data/lipo.csv)
+    for TRAIN_EPOCHS epochs, with ``trainer`` options added."""
+    cfg = train_config(ROOT / "tests" / "data" / "lipo.csv", checkpoint_dir)
+    cfg["trainer"].update(trainer)
+    return cfg
+
+
+def same_bits(a, b) -> bool:
+    """Whether two nested structures of tensors (a state dict, an optimizer
+    state) hold the same bits."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a, key=str) == sorted(b, key=str) and all(
+            same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def native_phase(tmp: Path) -> None:
+    """The C++ featurizer on the first NATIVE_MOLS lipo molecules against the
+    Python pipeline, array for array, and the CLI's default transform: fails
+    unless the native featurizer builds, is the one ``build_dataset`` uses
+    and gives the Python arrays. Prints both host times."""
+    if not native.available():
+        fail("the native featurizer is not available on the card's machine (no C++ compiler)")
+    with open(ROOT / "tests" / "data" / "lipo.csv", newline="") as f:
+        smiles = [row["smiles"] for row in csv.DictReader(f)][:NATIVE_MOLS]
+    pipe = Pipeline(SmiToMol(), MolToGraph())
+    native.featurize_batch(smiles[:8])  # the library is built and loaded
+    t0 = time.perf_counter()
+    graphs, status = native.featurize_batch(smiles)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.featurize_batch(smiles, n_threads=1)
+    native_1_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = [pipe(s) for s in smiles]
+    python_s = time.perf_counter() - t0
+    differ = [smi for smi, g, p, st in zip(smiles, graphs, python, status)
+              if st or not all(np.array_equal(getattr(g, f), getattr(p, f))
+                               for f in ("node_types", "edge_types", "src", "dst", "rev"))]
+    default = build_dataset({"csv": str(lipo_csv(tmp, 8)),
+                             "targets": {"y": {"columns": ["lipo"]}}}).transforms["graph"].transform
+    emit(phase="native_featurizer", molecules=len(smiles), threads=min(os.cpu_count() or 1, 16),
+         native_s=native_s, native_1_thread_s=native_1_s, python_s=python_s, differ=differ[:8],
+         cli_default=type(default).__name__, library=native.library_path().name)
+    if differ:
+        fail(f"the native featurizer's graphs differ from the Python pipeline's for {len(differ)} molecules")
+    if not isinstance(default, native.NativeSmiToGraph):
+        fail(f"the CLI's default SMILES transform is {type(default).__name__}, not the native featurizer")
+
+
+def settings_epochs() -> dict:
+    """Warm epochs of the shipped regression config's training as ``run``
+    feeds it at each of UTILITY_SETTINGS, one model and one loader (its
+    featurization cached) behind each setting's wrapping, timed in turns
+    (each setting, then each again in reverse order) on the host's clock;
+    then one profiled epoch of each for the busy share. Also the host ms of
+    one epoch's collation alone, a batch."""
+    run_ = prepare(regression_config(None))
+    model, base = run_["model"], run_["train_loader"]
+    fit(model, base, epochs=1)  # fills the featurization cache
+    steps = len(base)
+    t0 = time.perf_counter()
+    for _ in base:
+        pass
+    collate_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    def epoch(name: str):
+        loader, _, spd = fit_loaders(run_, UTILITY_SETTINGS[name])
+        return lambda: fit(model, loader, epochs=1, steps_per_dispatch=spd)
+
+    out = {name: {"warm_ms_per_step": []} for name in UTILITY_SETTINGS}
+    for name in (*UTILITY_SETTINGS, *reversed(UTILITY_SETTINGS)):
+        run_epoch = epoch(name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_epoch()
+        torch.cuda.synchronize()
+        out[name]["warm_ms_per_step"].append((time.perf_counter() - t0) * 1e3 / steps)
+    for name in UTILITY_SETTINGS:
+        profiled = profile_busy(epoch(name))
+        out[name].update(profiled_ms_per_step=profiled["wall_ms"] / steps,
+                         device_busy_ms_per_step=profiled["device_busy_ms"] / steps,
+                         device_busy_share=profiled["device_busy_share"])
+    return {"steps": steps, "collate_ms_per_batch": collate_ms, "settings": out}
+
+
+def utilities_runs_phase(tmp: Path) -> dict[str, dict[str, int]]:
+    """``run(cfg)`` of the shipped regression config at each of
+    UTILITY_SETTINGS, counts set to 0 just before each: fails unless each
+    launches what the recipe's run needs (rows 2-3 a step, row 1 an
+    evaluated batch, row 8 as ROW8_LAUNCHES says), all three launch alike,
+    end with the same bits in every parameter and Adam state and log the
+    same losses within UTILITY_LOSS_RTOL. Then warm epochs of each, timed
+    in turns and profiled (:func:`settings_epochs`). Returns each setting's
+    launches."""
+    runs = {}
+    for name, trainer in UTILITY_SETTINGS.items():
+        ckpt = tmp / f"utilities_{name}"
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run(regression_config(ckpt, **trainer))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = launches()
+        saved = Checkpointer(ckpt)
+        steps = saved.latest_step()
+        wrong = recipe_launches("recipe")(counts, steps or 0) if steps else "no checkpoint written"
+        if wrong:
+            fail(f"utilities {name}: {steps} steps launched {counts}; {wrong}")
+        runs[name] = {"out": out, "counts": counts, "steps": steps, "run_s": seconds,
+                      "state": saved.restore(), "train": saved.restore_train()}
+    first, ref = next(iter(runs)), next(iter(runs.values()))
+    diffs = {}
+    for name, r in runs.items():
+        if r["counts"] != ref["counts"] or r["steps"] != ref["steps"]:
+            fail(f"utilities {name}: launched {r['counts']} in {r['steps']} steps; {first} launched "
+                 f"{ref['counts']} in {ref['steps']}")
+        if not (same_bits(r["state"], ref["state"]) and same_bits(r["train"]["optimizer"], ref["train"]["optimizer"])
+                and r["train"]["step"] == ref["train"]["step"]):
+            fail(f"utilities {name}: the parameters or Adam state differ in their bits from {first}'s")
+        diffs[name] = compare_runs(r["out"], ref["out"], f"utilities {name} against {first}",
+                                   rtol=UTILITY_LOSS_RTOL)
+    timed = settings_epochs()
+    emit(phase="utilities_runs", config="configs/dmpnn_regression.yaml", epochs=TRAIN_EPOCHS,
+         steps=ref["steps"], kernel_launches=ref["counts"], same_bits=True, loss_rtol=UTILITY_LOSS_RTOL,
+         max_rel_diff={name: max(d.values()) for name, d in diffs.items()},
+         run_s={name: r["run_s"] for name, r in runs.items()},
+         history={name: r["out"]["history"] for name, r in runs.items()}, warm_epoch=timed)
+    return {name: r["counts"] for name, r in runs.items()}
+
+
+def jnp_backward_phase() -> dict[str, int]:
+    """JNP_STEPS steps of the shipped regression config's block with
+    ``backward: jnp`` in lockstep with ``backward: stash`` (the jnp model
+    takes the stash model's weights and Adam state before each step): fails
+    unless every gradient agrees within JNP_GRAD_TOL of its largest
+    magnitude and the jnp steps launch row 1 in every layer, row 8 as the
+    recipe's step does, and no row 2 or 3."""
+    cfg = regression_config(None)
+    stash, jnp_run = prepare(cfg), prepare(cfg)
+    ref, model = stash["model"], jnp_run["model"]
+    model.network["mp"].backward = "jnp"
+    loader = stash["train_loader"]
+    loader.set_epoch(0)
+    totals, worst, worst_name = zero_counts(), 0.0, None
+    for _, batch in zip(range(JNP_STEPS), loader):
+        model.network.load_state_dict(ref.network.state_dict())
+        model.optimizer.load_state_dict(ref.optimizer.state_dict())
+        x = to_device(batch, ref.device)
+        ref.train_step(x)
+        reset_launches()
+        model.train_step(x)
+        torch.cuda.synchronize()
+        totals = {k: totals[k] + v for k, v in launches().items()}
+        grads = dict(ref.network.named_parameters())
+        for name, p in model.network.named_parameters():
+            want = grads[name].grad
+            err = float((p.grad - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+            if err > worst:
+                worst, worst_name = err, name
+    depth = MODEL_CFG["depth"]
+    expect = {**zero_counts(), "fused_dense_mpnn_block": depth * JNP_STEPS,
+              "csr_segment_sum": glue_launches("recipe", JNP_STEPS, 0)}
+    emit(phase="jnp_backward_lockstep", steps=JNP_STEPS, max_grad_err_over_max=worst, worst_gradient=worst_name,
+         tol=JNP_GRAD_TOL, kernel_launches=totals)
+    if totals != expect:
+        fail(f"the jnp backward's steps launched {totals}; expected {expect}")
+    if not worst <= JNP_GRAD_TOL:
+        fail(f"the jnp backward's gradients differ from the stash backward's by {worst} of their largest "
+             f"magnitude ({worst_name})")
+    return totals
+
+
+def trace_child(out_dir: str) -> None:
+    """Run by :func:`utilities_trace_phase` in a fresh process: a warm epoch
+    of the grouped setting (``prefetch: 4, steps_per_dispatch: 4``) driven
+    item by item under ``trace``, each dispatch under ``annotate`` and every
+    step counted by a ``StepTimer``. Prints one JSON line."""
+    trainer = UTILITY_SETTINGS["prefetch_4_steps_per_dispatch_4"]
+    cfg = regression_config(None, **trainer)
+    run_ = prepare(cfg)
+    model = run_["model"]
+    loader, _, spd = fit_loaders(run_, cfg["trainer"])
+    fit(model, loader, epochs=1, steps_per_dispatch=spd)  # warm: featurization cache, first launches
+    torch.cuda.synchronize()
+    timer = StepTimer(sync_every=TIMER_SYNC_EVERY)
+    steps = dispatches = 0
+    with trace(out_dir):
+        timer.start()
+        t0 = time.perf_counter()
+        for item in loader:
+            with annotate(TRACE_ANNOTATION):
+                stacked = isinstance(item, StackedBatch)
+                logs = model.train_steps(item.tree) if stacked else model.train_step(item)
+            for _ in range(item.n if stacked else 1):
+                timer.step(logs)
+                steps += 1
+            dispatches += 1
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    files = sorted(Path(out_dir).glob("trace.*.json"))
+    text = files[-1].read_text() if files else ""
+    print(json.dumps({"steps": steps, "dispatches": dispatches, "host_steps_per_sec": steps / host_s,
+                      "timer": timer.summary(), "synced_intervals": len(timer._times),
+                      "trace_bytes": len(text), "annotation_in_trace": TRACE_ANNOTATION in text,
+                      "kernel_in_trace": TRACE_KERNEL in text}), flush=True)
+
+
+def utilities_trace_phase(tmp: Path) -> None:
+    """:func:`trace_child` in a fresh process (a profile taken late in this
+    one loses kernel records): fails unless the trace holds the annotation
+    and the forward product's kernel, and StepTimer's steps_per_sec is
+    within TIMER_RTOL of the host clock's."""
+    out = tmp / "utilities_trace"
+    proc = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; chip_smoke.trace_child(sys.argv[1])",
+                           str(out)], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"the trace child exited {proc.returncode}: {proc.stderr[-3000:]}")
+    record = json.loads(proc.stdout.strip().splitlines()[-1])
+    timer_rate, host_rate = record["timer"]["steps_per_sec"], record["host_steps_per_sec"]
+    record["timer_vs_host_rel_diff"] = rel_diff(timer_rate, host_rate)
+    emit(phase="utilities_trace", timer_rtol=TIMER_RTOL, **record)
+    if not (record["annotation_in_trace"] and record["kernel_in_trace"]):
+        fail(f"the trace lacks {TRACE_ANNOTATION!r} or {TRACE_KERNEL!r}")
+    if not record["timer_vs_host_rel_diff"] <= TIMER_RTOL:
+        fail(f"StepTimer's {timer_rate} steps/s and the host clock's {host_rate} differ by more than {TIMER_RTOL}")
+
+
+def utilities_phases(tmp: Path) -> None:
+    native_phase(tmp)
+    utilities_runs_phase(tmp)
+    jnp_backward_phase()
+    utilities_trace_phase(tmp)
 
 
 def rel_diff(a: float, b: float) -> float:
@@ -3482,6 +3755,10 @@ def main() -> None:
             heads)
         emit(phase="bf16_attention_kernels", element_tol_over_max=BF16_ELEMENT_TOL, rel_l2_tol=BF16_L2_TOL,
              launches=bf16_attn_launches, cases=bf16_attn_cases)
+
+        # the JAX train CLI's default input path: the native featurizer, the
+        # prefetcher, grouped steps, the jnp backward and the trace utilities
+        utilities_phases(tmp)
 
         served = serve_phase(tmp, ds, csv_path, len(batches))
         trained = train_phase(tmp)

@@ -15,14 +15,19 @@ kinds' bins of 256 edge lanes and 128 node slots; the per-molecule
 ``dense`` for ``dense*`` layouts, whose train loader sorts by size;
 ``flat`` otherwise, the default of a declarative or multicomponent config,
 with the tile-packed CSR metadata when the model reduces through ``impl:
-csr``), Adam/AdamW/SGD with a rate or the Noam schedule and ``clip_norm``,
-and the trainer's ``epochs``, ``batch_size``, ``seed``, ``checkpoint_dir``,
+csr``), Adam/AdamW/SGD with a rate or the Noam, cosine or warmup-cosine
+schedule and ``clip_norm``, and the trainer's ``epochs``, ``batch_size``,
+``seed``, ``prefetch`` (the input pipeline on a thread, 4 batches ahead by
+default, 0 for none), ``steps_per_dispatch``, ``checkpoint_dir``,
 ``resume``, ``checkpoint_every``, ``max_to_keep``, ``best_by``/
 ``best_mode``, ``early_stopping`` and ``predictions_csv``. The checkpoint
 directory it writes is what ``python -m notorch_tpu_torch predict`` serves.
-``trainer.spmd`` and the ``${csv:...}`` resolvers raise
-``NotImplementedError``. Tables are read with the standard ``csv`` module;
-``yaml`` is imported only to read YAML.
+The default SMILES transform is the C++ featurizer where a compiler exists.
+Tables are CSV (the standard ``csv`` module) or parquet (``pyarrow``,
+imported only for a parquet table), named by ``data.csv``/``data.parquet``
+or inline by the ``${csv:...}``, ``${parquet:...}`` and ``${len:...}``
+resolvers; ``yaml`` is imported only to read YAML. ``trainer.spmd`` raises
+``NotImplementedError``.
 
 Usage::
 
@@ -70,8 +75,28 @@ def apply_overrides(cfg: dict, overrides: list[str]) -> dict:
     return cfg
 
 
-def read_table(path: str | Path) -> dict[str, list[str]]:
-    """A CSV file as a mapping of column name -> list of cell strings."""
+class Table:
+    """A data table's columns by name, each a list of cells: strings from a
+    CSV file, Python values from a parquet file. A mapping of columns, as
+    :class:`~notorch_tpu_torch.data.dataset.MolecularDataset` reads it,
+    whose ``len`` is its row count (so ``${len:data.csv}`` counts rows, as
+    a DataFrame's does in the JAX package)."""
+
+    def __init__(self, columns: dict[str, list]):
+        self.columns = columns
+
+    def __getitem__(self, name: str) -> list:
+        return self.columns[name]
+
+    def __iter__(self):
+        return iter(self.columns)
+
+    def __len__(self) -> int:
+        return len(next(iter(self.columns.values()), []))
+
+
+def read_table(path: str | Path) -> Table:
+    """A CSV file as a :class:`Table` of cell strings."""
     with open(path, newline="") as f:
         reader = csv.DictReader(f)
         if reader.fieldnames is None:
@@ -80,22 +105,95 @@ def read_table(path: str | Path) -> dict[str, list[str]]:
         for row in reader:
             for name in reader.fieldnames:
                 columns[name].append(row[name])
-    return columns
+    return Table(columns)
+
+
+def read_parquet(path: str | Path) -> Table:
+    """A parquet file as a :class:`Table`, read with ``pyarrow`` (imported
+    here, only when a parquet table is asked for)."""
+    try:
+        import pyarrow.parquet as pq
+    except ImportError as e:
+        raise ImportError(f"reading the parquet table {path} needs pyarrow, which is not installed") from e
+    return Table(pq.read_table(str(path)).to_pydict())
+
+
+def data_table(cfg: dict) -> Table:
+    """The table of a ``data`` config, as the JAX ``_read_table`` finds it:
+    a table already loaded by a ``${csv:...}``/``${parquet:...}`` resolver,
+    a ``parquet`` key, or a ``csv`` key (a path ending in ``.parquet`` or
+    ``.pq`` is read as parquet)."""
+    src = cfg.get("parquet") or cfg.get("csv")
+    if src is None:
+        raise KeyError("data config needs a 'csv' or 'parquet' entry")
+    if isinstance(src, Table):
+        return src
+    path = str(src)
+    if "parquet" in cfg or path.endswith((".parquet", ".pq")):
+        return read_parquet(path)
+    return read_table(path)
+
+
+def resolve_config(cfg):
+    """Resolve inline ``${csv:path}``, ``${parquet:path}`` and
+    ``${len:dotted.path}`` string values anywhere in the config tree, as the
+    JAX ``resolve_config`` does: the tables first, then the lengths, so
+    ``${len:data.csv}`` is the row count of an inline-loaded table."""
+
+    def walk(node, fn):
+        if isinstance(node, dict):
+            return {k: walk(v, fn) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, fn) for v in node]
+        return fn(node)
+
+    def load_tables(v):
+        if isinstance(v, str) and v.endswith("}"):
+            if v.startswith("${csv:"):
+                return read_table(v[len("${csv:"):-1])
+            if v.startswith("${parquet:"):
+                return read_parquet(v[len("${parquet:"):-1])
+        return v
+
+    cfg = walk(cfg, load_tables)
+
+    def deref(path: str):
+        node = cfg
+        for part in path.split("."):
+            node = node[part]
+        return node
+
+    def resolve_len(v):
+        if isinstance(v, str) and v.startswith("${len:") and v.endswith("}"):
+            return len(deref(v[len("${len:"):-1]))
+        return v
+
+    return walk(cfg, resolve_len)
+
+
+def smiles_pipeline():
+    """The default SMILES -> Graph transform: the C++ featurizer
+    (:class:`~notorch_tpu_torch.native.NativeSmiToGraph`) where a compiler
+    exists, else ``Pipeline(SmiToMol(), MolToGraph())``; both give the
+    same graphs, as in the JAX package."""
+    from notorch_tpu_torch import native
+
+    if native.available():
+        return native.NativeSmiToGraph()
+    return Pipeline(SmiToMol(), MolToGraph())
 
 
 def build_dataset(cfg: dict) -> MolecularDataset:
-    """The dataset of a ``data`` config: a ``csv`` table, per ``transforms``
-    entry its ``transform`` built through the registry or else the default
-    SMILES -> Graph pipeline (one on ``smiles_col`` without entries), and
-    the ``targets`` groups."""
+    """The dataset of a ``data`` config: its table (:func:`data_table`),
+    per ``transforms`` entry its ``transform`` built through the registry or
+    else the default SMILES -> Graph transform (:func:`smiles_pipeline`; one
+    on ``smiles_col`` without entries), and the ``targets`` groups."""
     from notorch_tpu_torch.cli.registry import build
 
-    if "csv" not in cfg:
-        raise KeyError("data config needs a 'csv' entry (parquet is not ported)")
-    table = read_table(cfg["csv"])
+    table = data_table(cfg)
     transforms = {}
     for name, tcfg in (cfg.get("transforms") or _default_transforms(cfg)).items():
-        transform = build(tcfg["transform"]) if "transform" in tcfg else Pipeline(SmiToMol(), MolToGraph())
+        transform = build(tcfg["transform"]) if "transform" in tcfg else smiles_pipeline()
         transforms[name] = TransformManager(transform, in_key=tcfg.get("in_key"), out_key=tcfg.get("out_key"))
     targets = {
         name: TargetSpec(
@@ -111,22 +209,24 @@ def _default_transforms(cfg: dict) -> dict:
 
 
 def build_optimizer(cfg: dict | None) -> OptimizerSpec:
-    """The optimizer of an ``optimizer`` config: ``name`` (adam or adamw,
-    resolved through the registry), ``lr`` or ``schedule: {noam: {...}}``,
-    and ``clip_norm``."""
+    """The optimizer of an ``optimizer`` config: ``name`` (adam, adamw or
+    sgd, resolved through the registry), ``lr`` or a ``schedule`` (``noam``,
+    else ``cosine``, else ``warmup_cosine``, in the JAX package's order of
+    precedence, each with the JAX schedule's arguments), and
+    ``clip_norm``."""
     from notorch_tpu_torch.cli.registry import resolve
-    from notorch_tpu_torch.training.schedulers import noam_like_schedule
+    from notorch_tpu_torch.training import schedulers
 
     cfg = cfg or {"name": "adam", "lr": 1e-4}
     lr = cfg.get("lr", 1e-4)
     schedule = cfg.get("schedule")
     if isinstance(schedule, dict):
-        if set(schedule) != {"noam"}:
-            raise NotImplementedError(
-                f"optimizer schedule {sorted(schedule)} is not ported yet; the port has noam. The others "
-                "come with the utilities slice (ROADMAP.md queue A item 8)"
-            )
-        lr = noam_like_schedule(**schedule["noam"])
+        if "noam" in schedule:
+            lr = schedulers.noam_like_schedule(**schedule["noam"])
+        elif "cosine" in schedule:
+            lr = schedulers.cosine_decay_schedule(**schedule["cosine"])
+        elif "warmup_cosine" in schedule:
+            lr = schedulers.warmup_cosine_decay_schedule(**schedule["warmup_cosine"])
     spec = resolve(cfg.get("name", "adam"))(lr)
     clip = cfg.get("clip_norm")
     return dataclasses.replace(spec, clip_norm=float(clip)) if clip else spec
@@ -305,22 +405,7 @@ def refuse_point_clouds(model_cfg: dict) -> None:
 def _refuse_unported(cfg: dict) -> None:
     from notorch_tpu_torch.nn.chemprop import PARALLEL_SLICE
 
-    def walk(node, path):
-        if isinstance(node, dict):
-            for k, v in node.items():
-                walk(v, f"{path}.{k}" if path else str(k))
-        elif isinstance(node, list):
-            for i, v in enumerate(node):
-                walk(v, f"{path}[{i}]")
-        elif isinstance(node, str) and node.startswith("${"):
-            raise NotImplementedError(
-                f"{path}: the ${{csv:...}}/${{parquet:...}}/${{len:...}} resolvers are not ported yet: "
-                "they come with the utilities slice (ROADMAP.md queue A item 8)"
-            )
-
-    walk(cfg, "")
-    model_cfg = cfg.get("model", {})
-    refuse_point_clouds(model_cfg)
+    refuse_point_clouds(cfg.get("model", {}))
     if cfg.get("trainer", {}).get("spmd"):
         raise NotImplementedError(f"trainer.spmd (sharded training) is not ported yet: it comes with {PARALLEL_SLICE}")
 
@@ -456,10 +541,8 @@ def prepare_pretrain(cfg: dict, device: str | torch.device | None = None) -> dic
     model_cfg = {k: v for k, v in cfg.get("model", {}).items() if k not in ("kind", "mask_rate", "partition")}
     trainer_cfg = cfg.get("trainer", {})
     seed = trainer_cfg.get("seed", 0)
-    if "csv" not in data_cfg:
-        raise KeyError("data config needs a 'csv' entry (parquet is not ported)")
-    smiles = read_table(data_cfg["csv"])[data_cfg.get("smiles_col", "smiles")][: data_cfg.get("limit") or None]
-    pipe = Pipeline(SmiToMol(), MolToGraph())
+    smiles = data_table(data_cfg)[data_cfg.get("smiles_col", "smiles")][: data_cfg.get("limit") or None]
+    pipe = smiles_pipeline()
     model = build_masked_atom_pretrainer(optimizer=build_optimizer(cfg.get("optimizer")),
                                          generator=torch.Generator().manual_seed(seed), **model_cfg)
     loader = _PretrainLoader([pipe(s) for s in smiles], cfg.get("model", {}).get("mask_rate", 0.15),
@@ -470,25 +553,53 @@ def prepare_pretrain(cfg: dict, device: str | torch.device | None = None) -> dic
 def run_pretrain(cfg: dict, device: str | torch.device | None = None) -> dict:
     """Masked-atom self-supervised pretraining (``model.kind: pretrain``):
     :func:`prepare_pretrain`, then ``fit`` for ``trainer.epochs`` with
-    ``checkpoint_dir``/``max_to_keep``, ``resume`` and ``checkpoint_every``.
-    ``trainer.prefetch`` is ignored, as in :func:`run`. Returns
+    ``checkpoint_dir``/``max_to_keep``, ``resume``, ``checkpoint_every`` and
+    ``steps_per_dispatch``, the loader behind a :class:`~notorch_tpu_torch.
+    data.batching.PrefetchLoader` of ``trainer.prefetch`` batches (default
+    4; 0 for none) that also groups the batches (:func:`fit_loaders`), as
+    :func:`run` trains. Returns
     ``{"history", "stopped_early", "model"}``."""
     from notorch_tpu_torch.training.checkpoint import Checkpointer
     from notorch_tpu_torch.training.loop import fit
 
     run_ = prepare_pretrain(cfg, device)
     trainer_cfg = cfg.get("trainer", {})
+    loader, _, steps_per_dispatch = fit_loaders(run_, trainer_cfg)
     checkpointer = None
     if trainer_cfg.get("checkpoint_dir"):
         checkpointer = Checkpointer(trainer_cfg["checkpoint_dir"], max_to_keep=trainer_cfg.get("max_to_keep", 3))
     result = fit(
-        run_["model"], run_["train_loader"], epochs=trainer_cfg.get("epochs", 1),
+        run_["model"], loader, epochs=trainer_cfg.get("epochs", 1),
         log_fn=lambda r: print(json.dumps({k: _jsonable(v) for k, v in r.items()}), flush=True),
         checkpointer=checkpointer, resume=trainer_cfg.get("resume", False),
         checkpoint_every=trainer_cfg.get("checkpoint_every", 0),
-        steps_per_dispatch=trainer_cfg.get("steps_per_dispatch", 1),
+        steps_per_dispatch=steps_per_dispatch,
     )
     return {"history": result.history, "stopped_early": result.stopped_early, "model": run_["model"]}
+
+
+def fit_loaders(run_: dict, trainer_cfg: dict) -> tuple:
+    """``(train_loader, val_loader, steps_per_dispatch)`` as :func:`run`
+    hands them to ``fit``, from :func:`prepare`'s (or
+    :func:`prepare_pretrain`'s) loaders: with
+    ``trainer.prefetch`` (default 4; 0 for none) each behind a
+    :class:`~notorch_tpu_torch.data.batching.PrefetchLoader` of that many
+    batches, the train loader's grouping ``trainer.steps_per_dispatch``
+    same-shape batches into one transfer (and ``fit`` then told 1, as the
+    JAX ``run`` does); without, ``fit`` groups them itself."""
+    from notorch_tpu_torch.data.batching import PrefetchLoader
+
+    train_loader, val_loader = run_["train_loader"], run_.get("val_loader")
+    prefetch = trainer_cfg.get("prefetch", 4)
+    steps_per_dispatch = trainer_cfg.get("steps_per_dispatch", 1)
+    if prefetch:
+        device = run_["model"].device
+        train_loader = PrefetchLoader(train_loader, buffer_size=int(prefetch), device=device,
+                                      stack=steps_per_dispatch if steps_per_dispatch > 1 else 0)
+        steps_per_dispatch = 1
+        if val_loader is not None:
+            val_loader = PrefetchLoader(val_loader, buffer_size=int(prefetch), device=device)
+    return train_loader, val_loader, steps_per_dispatch
 
 
 def run(cfg: dict, device: str | torch.device | None = None) -> dict:
@@ -496,14 +607,21 @@ def run(cfg: dict, device: str | torch.device | None = None) -> dict:
     where there is none; ``device="cpu"`` runs the plain CPU path. Returns
     ``{"history", "stopped_early"}`` plus ``best_step``, ``test`` and
     ``predictions_csv`` where they apply. ``model.kind: pretrain`` runs
-    :func:`run_pretrain`.
+    :func:`run_pretrain`. Inline ``${csv:...}``, ``${parquet:...}`` and
+    ``${len:...}`` values are resolved first (:func:`resolve_config`).
 
-    ``trainer.prefetch`` (the JAX loader's input pipeline overlap) does not
-    change the math and is not ported: the loop iterates the loader
-    directly. ``trainer.steps_per_dispatch > 1`` raises in ``fit``."""
+    As in the JAX ``run``, the train and validation loaders run behind a
+    :class:`~notorch_tpu_torch.data.batching.PrefetchLoader` of
+    ``trainer.prefetch`` batches (default 4; 0 for none), which featurizes,
+    collates and copies the next batches to the card while it trains; with
+    ``trainer.steps_per_dispatch`` K > 1 the train loader's prefetcher
+    groups K same-shape batches into one copy, and ``fit`` runs each group
+    as :meth:`~notorch_tpu_torch.model.model.Model.train_steps`. Neither
+    changes the math."""
     from notorch_tpu_torch.training.checkpoint import Checkpointer
     from notorch_tpu_torch.training.loop import evaluate, fit, predict
 
+    cfg = resolve_config(cfg)
     if cfg.get("model", {}).get("kind") == "pretrain":
         return run_pretrain(cfg, device)
     run_ = prepare(cfg, device)
@@ -520,17 +638,18 @@ def run(cfg: dict, device: str | torch.device | None = None) -> dict:
         )
         save_predict_meta(trainer_cfg["checkpoint_dir"], cfg, run_["transforms"], run_["ds"], pred_key)
 
+    train_loader, val_loader, steps_per_dispatch = fit_loaders(run_, trainer_cfg)
     result = fit(
         model,
-        run_["train_loader"],
-        run_["val_loader"],
+        train_loader,
+        val_loader,
         epochs=trainer_cfg.get("epochs", 1),
         log_fn=lambda r: print(json.dumps({k: _jsonable(v) for k, v in r.items()}), flush=True),
         host_metrics=run_["host_metrics"],
         checkpointer=checkpointer,
         resume=trainer_cfg.get("resume", False),
         checkpoint_every=trainer_cfg.get("checkpoint_every", 0),
-        steps_per_dispatch=trainer_cfg.get("steps_per_dispatch", 1),
+        steps_per_dispatch=steps_per_dispatch,
         early_stopping=trainer_cfg.get("early_stopping"),
     )
     out = {"history": result.history, "stopped_early": result.stopped_early}

@@ -10,20 +10,27 @@ per-molecule dense layout (``dense``, node and edge counts rounded up
 per-molecule ladders), exactly as the JAX loader does, so both packages
 see the same arrays, in the same order when shuffled (``SeededSampler``)
 and when sorted by size. Batches are numpy; the caller moves them to a
-device. ``random_split`` and ``Subset`` split a dataset as the JAX package
-does. ``PrefetchLoader`` is not ported.
+device (:func:`to_device`, or a :class:`PrefetchLoader` on a thread of its
+own, which also groups same-shape batches for ``Model.train_steps``).
+``random_split`` and ``Subset`` split a dataset as the JAX package does.
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+import contextlib
+import dataclasses
+import queue
+import threading
+from typing import Any, Iterator, Mapping
 
 import numpy as np
+import torch
 
 from notorch_tpu_torch.conf import TARGET_KEY_PREFIX
 from notorch_tpu_torch.data.dataset import MolecularDataset
-from notorch_tpu_torch.data.dense import plan_bins
+from notorch_tpu_torch.data.dense import DenseBatchedGraph, plan_bins
 from notorch_tpu_torch.data.graph import BatchedGraph, Graph, with_csr_packing
+from notorch_tpu_torch.data.point_cloud import BatchedPointCloud
 from notorch_tpu_torch.data.samplers import SeededSampler, SequentialSampler
 from notorch_tpu_torch.tasks import transforms as task_transforms
 
@@ -246,3 +253,352 @@ class Subset:
                 "targets": {"module": cfg["targets"], "key": f"{TARGET_KEY_PREFIX}.{name}"},
             }
         return out
+
+
+# -- moving batches to a device, grouping and prefetching ---------------------
+
+BATCH_TYPES = (BatchedGraph, DenseBatchedGraph, BatchedPointCloud)
+SLOT_ALIGN = 256  # bytes: every array of a staged batch starts on this boundary
+
+
+def to_device(batch: Mapping[str, Any], device) -> dict:
+    """A host batch (numpy arrays, tensors, flat or dense graphs, point
+    clouds) on ``device``."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, BATCH_TYPES):
+            v = v.to(device)
+        elif isinstance(v, np.ndarray):
+            v = torch.from_numpy(v).to(device)
+        elif isinstance(v, torch.Tensor):
+            v = v.to(device)
+        out[k] = v
+    return out
+
+
+def _is_array(x) -> bool:
+    return isinstance(x, (np.ndarray, torch.Tensor))
+
+
+def _array_fields(v) -> list[str]:
+    """The array fields of a batch dataclass that hold an array."""
+    return [f for f in v._ARRAYS if getattr(v, f) is not None]
+
+
+def _leaf_signature(x):
+    if x is None:
+        return None
+    if isinstance(x, np.ndarray):
+        return tuple(x.shape), x.dtype.name
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), str(x.dtype).removeprefix("torch.")
+    return "opaque", type(x).__name__
+
+
+def shape_signature(batch: Mapping[str, Any]) -> tuple:
+    """Hashable (keys, classes, static fields, array shapes and dtypes):
+    batches with equal signatures can be stacked into one group."""
+    sig = []
+    for key, v in batch.items():
+        if isinstance(v, BATCH_TYPES):
+            static = tuple((f.name, getattr(v, f.name)) for f in dataclasses.fields(v) if f.name not in v._ARRAYS)
+            arrays = tuple((f, _leaf_signature(getattr(v, f))) for f in v._ARRAYS)
+            sig.append((key, type(v).__name__, static, arrays))
+        else:
+            sig.append((key, _leaf_signature(v)))
+    return tuple(sig)
+
+
+class StackedBatch:
+    """K same-shape batches stacked along a new leading axis, for
+    ``Model.train_steps``; made by ``PrefetchLoader(stack=K)``. ``tree`` is
+    a batch whose every array has the leading axis K (other values become
+    lists of K); :func:`unstack_tree` takes step ``i``'s batch from it."""
+
+    __slots__ = ("tree", "n")
+
+    def __init__(self, tree, n: int):
+        self.tree = tree
+        self.n = n
+
+
+def group_batches(items, k: int):
+    """Group K consecutive same-signature batches, as the JAX loop and
+    prefetcher group them: yields lists of batches, a full group of ``k``,
+    or a shorter one where a batch of another signature or the end cut it
+    off (a list of one each when ``k <= 1``); a :class:`StackedBatch` among
+    ``items`` ends the pending group and passes through as it is."""
+    pending: list = []
+    pending_sig = None
+    for item in items:
+        stacked = isinstance(item, StackedBatch)
+        sig = None if stacked or k <= 1 else shape_signature(item)
+        if pending and (sig is None or sig != pending_sig):
+            yield pending
+            pending = []
+        if sig is None:
+            yield item if stacked else [item]
+            continue
+        pending.append(item)
+        pending_sig = sig
+        if len(pending) == k:
+            yield pending
+            pending = []
+    if pending:
+        yield pending
+
+
+def _map_batch(batch: Mapping[str, Any], fn) -> dict:
+    """``fn(key, field, value)`` on every value of ``batch`` (``field`` None
+    for a top-level value), rebuilding the batch dataclasses."""
+    out = {}
+    for key, v in batch.items():
+        if isinstance(v, BATCH_TYPES):
+            out[key] = v.update(**{f: fn(key, f, getattr(v, f)) for f in _array_fields(v)})
+        else:
+            out[key] = fn(key, None, v)
+    return out
+
+
+def _get(batch, key: str, field: str | None):
+    return batch[key] if field is None else getattr(batch[key], field)
+
+
+def _arrays(batch: Mapping[str, Any]) -> list[tuple[str, str | None, Any]]:
+    """``(key, field, array)`` of every array of a batch, in order (``field``
+    None for a top-level array)."""
+    out = []
+    for key, v in batch.items():
+        for field in (_array_fields(v) if isinstance(v, BATCH_TYPES) else [None]):
+            x = _get(batch, key, field)
+            if _is_array(x):
+                out.append((key, field, x))
+    return out
+
+
+def stack_trees(batches: list[Mapping[str, Any]]) -> dict:
+    """Stack a list of same-signature batches along a new leading axis on
+    the host (``np.stack``; ``torch.stack`` for tensors)."""
+
+    def stack(key, field, first):
+        xs = [_get(b, key, field) for b in batches]
+        if isinstance(first, np.ndarray):
+            return np.stack(xs)
+        if isinstance(first, torch.Tensor):
+            return torch.stack(xs)
+        return xs
+
+    return _map_batch(batches[0], stack)
+
+
+def unstack_tree(tree: Mapping[str, Any], i: int) -> dict:
+    """Step ``i``'s batch of a stacked tree: each array's ``[i]``, a view."""
+    return _map_batch(tree, lambda key, field, x: x[i])
+
+
+def stack_size(tree: Mapping[str, Any]) -> int:
+    """The leading (steps) axis of a stacked tree."""
+    arrays = _arrays(tree)
+    if not arrays:
+        raise ValueError("a stacked batch needs at least one array")
+    return int(arrays[0][2].shape[0])
+
+
+def _contiguous_strides(shape: tuple) -> tuple:
+    strides, n = [], 1
+    for size in reversed(shape):
+        strides.append(n)
+        n *= size
+    return tuple(reversed(strides))
+
+
+def _tensor(x) -> torch.Tensor:
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x if x.flags.c_contiguous else x.copy(order="C"))
+    return x
+
+
+def stage(batches: list[Mapping[str, Any]], device, stream=None, stacked: bool = True):
+    """``batches`` (same signature) on ``device`` as one stacked batch
+    (``stacked=False``: the one batch of ``batches`` as it is). Returns
+    ``(tree, buffer)``.
+
+    On the card every array of every batch goes into one buffer, each at a
+    ``SLOT_ALIGN``-byte boundary and each batch in a slot of the same size:
+    host arrays are packed into one pinned host buffer and copied in one
+    ``non_blocking`` transfer, arrays already on the card are copied into
+    place there, both on ``stream`` (the current one when None). ``tree``'s
+    arrays are strided views of the device ``buffer``: step ``i``'s ``[i]``
+    is contiguous and starts aligned, so the kernels take it as it is. A
+    pinned allocation that fails raises: there is no fallback to a pageable
+    copy. Elsewhere :func:`stack_trees` and :func:`to_device`, ``buffer``
+    None."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return to_device(stack_trees(batches) if stacked else batches[0], device), None
+    keys = [(key, field) for key, field, _ in _arrays(batches[0])]
+    arrays = [[_tensor(_get(b, key, field)) for b in batches] for key, field in keys]
+    offsets, slot = [], 0
+    for x in (xs[0] for xs in arrays):
+        offsets.append(slot)
+        slot += -(-x.numel() * x.element_size() // SLOT_ALIGN) * SLOT_ALIGN
+    slot, k = max(slot, SLOT_ALIGN), len(batches)
+    from_card = bool(arrays) and arrays[0][0].is_cuda
+
+    def views(raw: torch.Tensor) -> list[torch.Tensor]:
+        out = []
+        for xs, off in zip(arrays, offsets):
+            shape, size = tuple(xs[0].shape), xs[0].element_size()
+            out.append(torch.as_strided(raw.view(xs[0].dtype), (k, *shape),
+                                        (slot // size, *_contiguous_strides(shape)), off // size))
+        return out
+
+    if from_card and stream is not None:  # the arrays' own work first
+        stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+        buffer = torch.empty(k * slot, dtype=torch.uint8, device=device)
+        packed = buffer if from_card else torch.empty(k * slot, dtype=torch.uint8, pin_memory=True)
+        for xs, view in zip(arrays, views(packed)):
+            for i, x in enumerate(xs):
+                view[i].copy_(x)
+        if not from_card:
+            buffer.copy_(packed, non_blocking=True)
+    placed = dict(zip(keys, views(buffer)))
+
+    def place(key, field, x):
+        if (key, field) in placed:
+            return placed[key, field] if stacked else placed[key, field][0]
+        return [_get(b, key, field) for b in batches] if stacked else x
+
+    return _map_batch(batches[0], place), buffer
+
+
+def stacked_on(tree: Mapping[str, Any], device) -> dict:
+    """A stacked tree on ``device``: as it is where its arrays are there
+    already (a ``PrefetchLoader`` group), else restaged from its steps'
+    batches (:func:`stage`), so that every step's arrays start aligned."""
+    device = torch.device(device)
+    first = _arrays(tree)[0][2]
+    if isinstance(first, torch.Tensor) and first.device.type == device.type:
+        return tree
+    return stage([unstack_tree(tree, i) for i in range(stack_size(tree))], device)[0]
+
+
+class PrefetchLoader:
+    """Overlap the host input pipeline with the card's work.
+
+    Port of the JAX ``PrefetchLoader``: wraps any re-iterable batch loader
+    and, each epoch, a producer thread fills a queue of ``buffer_size``
+    items, so featurizing, collating and copying batch ``i + 1 ..
+    i + buffer_size`` runs while the card trains on batch ``i``. An
+    exception in the producer is raised in the consumer; other attributes
+    (``dataset``, ``batch_size``, ``set_epoch``) are the loader's.
+
+    ``to_device=True`` (default) also moves each item to ``device`` (None:
+    the card) on the producer thread. On the card each batch, or each
+    stacked group as ONE transfer, is packed into pinned host memory and
+    copied ``non_blocking`` on a side stream; the consumer's stream waits
+    on an event recorded after the copy, and the device buffer is marked
+    with ``record_stream`` so that the caching allocator does not hand it
+    out again before the consumer's work on it is done. On the CPU the
+    arrays become tensors.
+
+    ``stack=K`` (> 1) groups K consecutive same-signature batches into a
+    :class:`StackedBatch` for ``Model.train_steps``: a batch whose
+    signature breaks a group, or that is left over at the end, comes
+    through alone, as in the JAX loader. With ``to_device=False`` groups
+    are stacked on the host.
+
+    Closing the iterator early (a ``break``, early stopping, an exception)
+    stops the producer: it never blocks on a full queue.
+    """
+
+    def __init__(self, loader, buffer_size: int = 4, to_device: bool = True, stack: int = 0, device=None):
+        if buffer_size < 1:
+            raise ValueError(f"buffer_size must be >= 1, got {buffer_size}")
+        self.loader = loader
+        self.buffer_size = buffer_size
+        self.to_device = to_device
+        self.stack = int(stack)
+        self.device = device
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __getattr__(self, name):
+        # delegate loader attributes (dataset, batch_size, set_epoch, ...)
+        if name == "loader":
+            raise AttributeError(name)
+        return getattr(self.loader, name)
+
+    def __iter__(self):
+        from notorch_tpu_torch.utils import resolve_device
+
+        device = resolve_device(self.device) if self.to_device else None
+        on_card = device is not None and device.type == "cuda"
+        q: queue.Queue = queue.Queue(maxsize=self.buffer_size)
+        stop = threading.Event()
+        done = object()
+        errors: list[BaseException] = []
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            it = iter(self.loader)
+            try:
+                with torch.cuda.device(device) if on_card else contextlib.nullcontext():
+                    side = torch.cuda.Stream(device) if on_card else None
+
+                    def ship(group: list, stacked: bool) -> bool:
+                        event = buffer = None
+                        if device is None:
+                            tree = stack_trees(group) if stacked else group[0]
+                        else:
+                            tree, buffer = stage(group, device, side, stacked)
+                            if on_card:
+                                event = torch.cuda.Event()
+                                event.record(side)
+                        return put((tree, event, buffer, len(group) if stacked else 0))
+
+                    for group in group_batches(it, self.stack):
+                        # a group cut short comes through batch by batch
+                        if len(group) == self.stack > 1:
+                            shipped = ship(group, True)
+                        else:
+                            shipped = all(ship([b], False) for b in group)
+                        if not shipped:
+                            return
+            except BaseException as e:  # noqa: BLE001 -- raised again in the consumer
+                errors.append(e)
+            finally:
+                close = getattr(it, "close", None)
+                if callable(close):
+                    close()
+                put(done)
+
+        thread = threading.Thread(target=produce, daemon=True, name="prefetch")
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    thread.join()
+                    if errors:
+                        raise errors[0]
+                    return
+                tree, event, buffer, n = item
+                if event is not None:
+                    consumer = torch.cuda.current_stream(device)
+                    consumer.wait_event(event)
+                    buffer.record_stream(consumer)
+                yield StackedBatch(tree, n) if n else tree
+        finally:
+            stop.set()
+            thread.join()

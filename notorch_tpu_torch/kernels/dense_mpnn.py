@@ -129,7 +129,7 @@ from notorch_tpu_torch.kernels import build
 from notorch_tpu_torch.kernels.checks import check_aligned, check_tensors, on_card
 
 REDUCES = ("sum", "mean")
-BACKWARDS = ("stash", "recompute")
+BACKWARDS = ("stash", "recompute", "jnp")
 OPERAND_DTYPES = (None, "float32", "bfloat16")
 
 
@@ -980,9 +980,13 @@ class FusedDenseMpnnBlockFn(torch.autograd.Function):
     """The fused block as an autograd node.
 
     Forward: the stash forward (``backward="stash"``, depth > 1) or the
-    plain forward kernel (``"recompute"``, or depth 1). Backward: the stash
-    backward or the recompute backward. ``matmul_dtype`` goes to both,
-    ``stash_dtype`` to the stash forward. The index arrays get no gradient.
+    plain forward kernel (``"recompute"``, ``"jnp"``, or depth 1).
+    Backward: the stash backward, the recompute backward, or for ``"jnp"``
+    (the JAX package's debug path, ``fused_dense_mpnn_block_trainable``)
+    the VJP of :func:`dense_mpnn_block_reference` replayed under autograd
+    in exact f32, on the card too: no kernel. ``matmul_dtype`` goes to the
+    kernels, ``stash_dtype`` to the stash forward. The index arrays get no
+    gradient.
     """
 
     @staticmethod
@@ -1007,7 +1011,14 @@ class FusedDenseMpnnBlockFn(torch.autograd.Function):
     def backward(ctx, cotangent):
         h0, src, dst, edge_mask, weights, biases, *stash = ctx.saved_tensors
         g = _aligned(cotangent)
-        if ctx.backward == "stash":
+        if ctx.backward == "jnp":
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in (h0, weights, biases)]
+                out = dense_mpnn_block_reference(
+                    leaves[0], src, dst, edge_mask, *leaves[1:], depth=ctx.kw["depth"],
+                    residual=ctx.kw["residual"], reduce=ctx.kw["reduce"])
+                g_h0, g_W, g_b = torch.autograd.grad(out, leaves, cotangent)
+        elif ctx.backward == "stash":
             hs = stash[0] if stash else None
             g_h0, g_W, g_b = fused_dense_mpnn_block_bwd_stash(
                 h0, hs, src, dst, edge_mask, weights, g, **ctx.kw

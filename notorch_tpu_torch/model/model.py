@@ -182,6 +182,20 @@ class Model:
         logs["train/loss"] = loss.detach()
         return logs
 
+    def train_steps(self, stacked_batches: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+        """K train steps in sequence on the device: ``stacked_batches`` is a
+        batch whose every array has a leading steps axis K, on the model's
+        device (the tree that :func:`~notorch_tpu_torch.data.batching.stage`
+        returns, or a ``PrefetchLoader(stack=K)`` group's). No host sync
+        between the steps; the parameters, optimizer state and schedule
+        after it are those of K :meth:`train_step` calls, bit for bit.
+        Returns the logs averaged over the K steps (device scalars), as the
+        JAX ``train_steps`` averages its scan's."""
+        from notorch_tpu_torch.data.batching import stack_size, unstack_tree
+
+        logs = [self.train_step(unstack_tree(stacked_batches, i)) for i in range(stack_size(stacked_batches))]
+        return {k: torch.stack([step[k] for step in logs]).mean(dim=0) for k in logs[0]}
+
     def eval_step(self, batch: Mapping[str, Any]) -> tuple[dict, dict]:
         """Losses and metrics of ``batch`` in eval mode, with no autograd
         (the block runs its forward kernel alone): ``(logs, outputs)``."""

@@ -180,7 +180,11 @@ class FusedDenseChempropBlock(_StackedLayers):
 
     - ``backward="stash"`` (the default, as in the JAX block): the forward
       stashes h1..h_{depth-1} and the backward reads them back;
-    - ``backward="recompute"``: the backward replays the forward from h0.
+    - ``backward="recompute"``: the backward replays the forward from h0;
+    - ``backward="jnp"`` (the JAX package's debug path): the forward kernel,
+      and a backward that replays the block's plain forward under autograd
+      (:func:`~notorch_tpu_torch.kernels.dense_mpnn.
+      dense_mpnn_block_reference`), in plain PyTorch on the card too.
 
     With ``fuse_ends=True`` (the JAX package's whole-encoder kernel; only
     with ``backward="stash"``) the gather and the scatter run inside the
@@ -219,13 +223,8 @@ class FusedDenseChempropBlock(_StackedLayers):
                 "the fused block implements reduce='sum' and 'mean' (both fold into "
                 "its linear edge operator); max is non-foldable"
             )
-        if backward == "jnp":
-            raise NotImplementedError(
-                "backward='jnp' (the JAX package's debug path) is not ported; the port's "
-                "plain versions in kernels.dense_mpnn play that part"
-            )
-        if backward not in ("stash", "recompute"):
-            raise ValueError(f"backward must be 'stash' or 'recompute', got {backward!r}")
+        if backward not in ("stash", "recompute", "jnp"):
+            raise ValueError(f"backward must be 'stash', 'recompute' or 'jnp', got {backward!r}")
         operand_dtype(matmul_dtype)
         operand_dtype(stash_dtype, "stash_dtype")
         if fuse_ends and backward != "stash":

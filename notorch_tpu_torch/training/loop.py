@@ -5,26 +5,26 @@ over the loader, with the JAX loop's epoch records, ``checkpoint_every``
 saves with the loop cursor, preemption-safe ``resume``, epoch-end saves
 and early stopping. ``evaluate`` takes count-weighted batch means exactly
 as the JAX version does, so ``val/rmse`` means the same number in both
-packages. Log values stay device scalars until an epoch ends.
+packages. Log values stay device scalars until a ``log_every`` boundary or
+the epoch's end.
 
 ``host_metrics`` (AUROC, AUPRC, F1) are computed on the host over the
 whole evaluation pass and logged as ``val/<name>``, as there.
-``steps_per_dispatch > 1`` (the JAX loop's ``lax.scan`` over stacked
-batches, a TPU dispatch-amortisation device) is not ported.
+``steps_per_dispatch=K`` groups K same-shape batches and runs each group
+through ``Model.train_steps`` (the JAX loop's ``lax.scan`` over stacked
+batches): one transfer a group, the same math as step by step.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Mapping
+from typing import Callable, Mapping
 
 import numpy as np
 import torch
 
-from notorch_tpu_torch.data.dense import DenseBatchedGraph
-from notorch_tpu_torch.data.graph import BatchedGraph
-from notorch_tpu_torch.data.point_cloud import BatchedPointCloud
+from notorch_tpu_torch.data.batching import StackedBatch, group_batches, stacked_on, stage, to_device
 from notorch_tpu_torch.model.model import Model
 
 
@@ -32,21 +32,6 @@ from notorch_tpu_torch.model.model import Model
 class FitResult:
     history: list[dict] = field(default_factory=list)
     stopped_early: bool = False
-
-
-def to_device(batch: Mapping[str, Any], device) -> dict:
-    """A host batch (numpy arrays, tensors, flat or dense graphs, point
-    clouds) on ``device``."""
-    out = {}
-    for k, v in batch.items():
-        if isinstance(v, (BatchedGraph, DenseBatchedGraph, BatchedPointCloud)):
-            v = v.to(device)
-        elif isinstance(v, np.ndarray):
-            v = torch.from_numpy(v).to(device)
-        elif isinstance(v, torch.Tensor):
-            v = v.to(device)
-        out[k] = v
-    return out
 
 
 class _EarlyStopping:
@@ -93,6 +78,7 @@ def fit(
     train_loader,
     val_loader=None,
     epochs: int = 1,
+    log_every: int = 0,
     log_fn: Callable[[dict], None] | None = None,
     host_metrics: Mapping[str, Mapping] | None = None,
     checkpointer=None,
@@ -116,12 +102,18 @@ def fit(
     uninterrupted one on the same device. ``early_stopping={"monitor":
     "val/rmse", "patience": 5, "mode": "min", "min_delta": 0.0}`` stops when
     the monitored epoch value has not improved for ``patience`` epochs.
+
+    ``steps_per_dispatch=K`` (> 1) groups K consecutive same-shape batches
+    and runs each group as :meth:`Model.train_steps` (K train steps in
+    sequence) on one stacked transfer, a group cut short by a change of
+    shape or by the epoch's end at its own length. A group's logs are
+    averaged over its steps and weighted by them in the epoch mean.
+    :class:`~notorch_tpu_torch.data.batching.StackedBatch` items (from
+    ``PrefetchLoader(stack=K)``) are run as they come. A resume cursor that falls inside such a group raises
+    ``RuntimeError``. ``log_every=N`` calls ``log_fn`` with ``{"epoch",
+    "step", **logs}`` (the last step's or group's logs) whenever the count
+    of trained batches crosses a multiple of N.
     """
-    if steps_per_dispatch != 1:
-        raise NotImplementedError(
-            "steps_per_dispatch > 1 (the JAX loop's lax.scan over stacked batches) "
-            "is a TPU dispatch-amortisation device and is not ported"
-        )
     device = model.device
     history = []
     stopper = _EarlyStopping(early_stopping) if early_stopping is not None else None
@@ -155,23 +147,51 @@ def fit(
         # below, but counted in the epoch cursor
         done_offset = skip_batches if epoch == start_epoch else 0
         to_skip = done_offset
-        for batch in train_loader:
-            if to_skip > 0:
-                to_skip -= 1
-                continue
-            logs = model.train_step(to_device(batch, device))
-            n_batches += 1
+
+        def run_group(group: list) -> dict:
+            if len(group) == 1:
+                return model.train_step(to_device(group[0], device))
+            return model.train_steps(stage(group, device)[0])
+
+        def handle_logs(logs: dict, weight: int) -> None:
+            nonlocal n_batches, since_save
+            n_batches += weight
+            if log_every and (n_batches % log_every) < weight and log_fn:
+                log_fn({"epoch": epoch, "step": model.step, **{k: float(v) for k, v in logs.items()}})
             for k, v in logs.items():
-                train_logs[k] = train_logs.get(k, 0.0) + v
-            since_save += 1
+                train_logs[k] = train_logs.get(k, 0.0) + (v if weight == 1 else v * weight)
+            since_save += weight
             if checkpointer is not None and checkpoint_every and since_save >= checkpoint_every:
                 save(epoch=epoch, batches_done=done_offset + n_batches)
                 since_save = 0
+
+        def unskipped():
+            # batches (or groups) the preempted run already trained are
+            # skipped; a group that straddles the cursor cannot be
+            nonlocal to_skip
+            for item in train_loader:
+                if to_skip > 0:
+                    w = item.n if isinstance(item, StackedBatch) else 1
+                    if w > to_skip:
+                        raise RuntimeError(
+                            f"resume cursor ({done_offset} batches) does not align with the loader's "
+                            f"dispatch groups (next group has {w}); resume with the same loader "
+                            "configuration and steps_per_dispatch as the interrupted run"
+                        )
+                    to_skip -= w
+                    continue
+                yield item
+
+        for item in group_batches(unskipped(), steps_per_dispatch):
+            if isinstance(item, StackedBatch):  # a group stacked and moved by PrefetchLoader(stack=K)
+                handle_logs(model.train_steps(stacked_on(item.tree, device)), item.n)
+            else:
+                handle_logs(run_group(item), len(item))
         if to_skip > 0:
             raise RuntimeError(
                 f"resume cursor ({done_offset} batches) exceeds this epoch's batch count "
-                f"by {to_skip}; resume with the same dataset and batch_size as the "
-                "interrupted run"
+                f"by {to_skip}; resume with the same dataset, batch_size and steps_per_dispatch "
+                "as the interrupted run"
             )
         means = {k: float(v) / max(n_batches, 1) for k, v in train_logs.items()}
         record = {"epoch": epoch, "time": time.perf_counter() - t0, **means}
@@ -206,6 +226,10 @@ def evaluate(model: Model, loader, host_metrics: Mapping[str, Mapping] | None = 
         ks = cfg["in_keys"]
         needed.update(ks.values() if isinstance(ks, Mapping) else ks)
     for batch in loader:
+        if isinstance(batch, StackedBatch):
+            raise TypeError(
+                "evaluate() expects single batches; build the eval loader without PrefetchLoader(stack=K)"
+            )
         logs, out = model.eval_step(to_device(batch, device))
         n += 1
         for k, v in logs.items():

@@ -63,7 +63,8 @@ def test_fused_block_matches_plain_block_through_edge_mask(reduce, residual):
 
 def test_fused_block_refuses_unported_options_and_autograd():
     """Unknown options raise (bf16 operands and stash, refused until the
-    plain dense slice, now build, and another dtype raises); autograd
+    plain dense slice, now build, and another dtype raises; the debug
+    backward "jnp", refused until the utilities slice, builds); autograd
     through the block runs the training kernels' plain versions on the CPU
     and gives the plain block's gradients on every parameter."""
     block = FusedDenseChempropBlock(hidden_dim=D, matmul_dtype="bfloat16", stash_dtype="bfloat16")
@@ -74,8 +75,7 @@ def test_fused_block_refuses_unported_options_and_autograd():
         FusedDenseChempropBlock(hidden_dim=D, stash_dtype="float16")
     with pytest.raises(ValueError, match="fuse_ends requires backward='stash'"):
         FusedDenseChempropBlock(hidden_dim=D, fuse_ends=True, backward="recompute")
-    with pytest.raises(NotImplementedError, match="debug path"):
-        FusedDenseChempropBlock(hidden_dim=D, backward="jnp")
+    assert FusedDenseChempropBlock(hidden_dim=D, backward="jnp").backward == "jnp"
     with pytest.raises(ValueError, match="backward"):
         FusedDenseChempropBlock(hidden_dim=D, backward="replay")
     with pytest.raises(NotImplementedError):

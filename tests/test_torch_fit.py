@@ -140,8 +140,8 @@ def test_resume_cursor_overrun_raises(pieces, tmp_path):
               extra={"epoch": 0, "batches_done": 99})
     with pytest.raises(RuntimeError, match="exceeds"):
         fit(model, make_loader(), epochs=1, checkpointer=ckpt, resume=True)
-    with pytest.raises(NotImplementedError, match="steps_per_dispatch"):
-        fit(model, make_loader(), steps_per_dispatch=4)
+    with pytest.raises(RuntimeError, match="steps_per_dispatch"):
+        fit(model, make_loader(), epochs=1, checkpointer=ckpt, resume=True, steps_per_dispatch=4)
 
 
 def _sd(value: float) -> dict:

@@ -21,6 +21,8 @@ in another order grows with its terms, not with the sum (a node of the
 padding sink or an over-full node sums thousands of terms).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1218,3 +1220,96 @@ def test_cuda_gvp_refuses_what_it_does_not_take():
               torch.zeros(N * 2048, 16, device="cuda")] + [torch.zeros(N * 2048, 1, device="cuda")] * 3
     with pytest.raises(ValueError, match="shared memory"):
         fused_gvp_conv_fwd(*args[:4], *wide_k, args[10], window=24)
+
+
+@pytest.mark.gpu
+def test_cuda_prefetch_groups_are_aligned_views():
+    """PrefetchLoader on the card: every item the loader's batches in
+    order, each group one device buffer whose every step's arrays are
+    contiguous views starting 256-byte aligned (the kernels take them
+    without a copy), and ``stage`` the same on the current stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the staging copies to the card")
+    from notorch_tpu_torch.data.batching import (DataLoader, PrefetchLoader, StackedBatch, stage, to_device,
+                                                 unstack_tree)
+    from notorch_tpu_torch.data.dataset import MolecularDataset, TargetSpec, TransformManager
+    from notorch_tpu_torch.transforms import MolToGraph, Pipeline, SmiToMol
+
+    smis = ["CCO", "c1ccccc1C(=O)O", "CC(C)Cc1ccc(cc1)C(C)C(=O)O", "NC(=O)c1ccccc1", "O",
+            "CC(=O)Nc1ccc(O)cc1", "C1CCNCC1", "FC(F)(F)c1ccccc1"] * 8
+    ds = MolecularDataset({"smiles": smis, "y": [float(i) for i in range(len(smis))]},
+                          {"g": TransformManager(Pipeline(SmiToMol(), MolToGraph()), "smiles", "G")},
+                          targets={"y": TargetSpec(["y"])})
+
+    def arrays(batch):
+        out = {}
+        for k, v in batch.items():
+            if hasattr(v, "_ARRAYS"):
+                out.update({f"{k}.{f}": getattr(v, f) for f in v._ARRAYS if getattr(v, f) is not None})
+            else:
+                out[k] = v
+        return out
+
+    plain = list(DataLoader(ds, batch_size=4))
+    at, grouped = 0, 0
+    for item in PrefetchLoader(DataLoader(ds, batch_size=4), buffer_size=2, stack=4):
+        steps = [unstack_tree(item.tree, i) for i in range(item.n)] if isinstance(item, StackedBatch) else [item]
+        grouped += isinstance(item, StackedBatch)
+        for step in steps:
+            for name, t in arrays(step).items():
+                assert t.is_cuda and t.is_contiguous() and t.data_ptr() % 256 == 0, name
+                np.testing.assert_array_equal(t.cpu().numpy(), np.asarray(arrays(plain[at])[name]), err_msg=name)
+            at += 1
+    assert at == len(plain) and grouped > 0
+    on_card = [to_device(b, "cuda") for b in plain[:4]]
+    for batches in (plain[:4], on_card):  # from the host, and copied into place on the card
+        tree, buffer = stage(batches, "cuda")
+        assert buffer.is_cuda
+        for i in range(4):
+            for name, t in arrays(unstack_tree(tree, i)).items():
+                assert t.data_ptr() % 256 == 0
+                np.testing.assert_array_equal(t.cpu().numpy(), np.asarray(arrays(plain[i])[name]), err_msg=name)
+
+
+@pytest.mark.gpu
+def test_cuda_pretraining_groups_batches_already_on_the_card(tmp_path):
+    """Masked-atom pretraining with steps_per_dispatch 4 on the card, the
+    batches grouped by ``fit`` after the prefetcher moved them to the card
+    (the JAX ``run_pretrain``'s route) and by the prefetcher itself
+    (``run_pretrain``): both end with the bits, in every parameter and Adam
+    state, of one step at a time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the pretrainer trains on the card")
+    import csv
+
+    from notorch_tpu_torch.cli.train import prepare_pretrain, run_pretrain
+    from notorch_tpu_torch.data.batching import PrefetchLoader, group_batches
+    from notorch_tpu_torch.training.loop import fit
+
+    with open(Path(__file__).parent / "data" / "lipo.csv", newline="") as f:
+        smiles = [row["smiles"] for row in csv.DictReader(f)][:192]
+    path = tmp_path / "mols.csv"
+    path.write_text("smiles\n" + "\n".join(smiles) + "\n")
+
+    def cfg(**trainer):
+        return {"data": {"csv": str(path), "smiles_col": "smiles"},
+                "model": {"kind": "pretrain", "hidden_dim": 64, "depth": 2, "mask_rate": 0.15},
+                "optimizer": {"name": "adam", "lr": 1e-3},
+                "trainer": {"epochs": 2, "batch_size": 16, "seed": 0, **trainer}}
+
+    def bits(model) -> list:
+        state = model.train_state_dict()
+        return [*model.network.state_dict().values(), *torch.utils._pytree.tree_leaves(state["optimizer"])]
+
+    run_ = prepare_pretrain(cfg())
+    run_["train_loader"].set_epoch(0)
+    assert 4 in [len(g) for g in group_batches(run_["train_loader"], 4)]
+    fit(run_["model"], run_["train_loader"], epochs=2)
+    want = bits(run_["model"])
+    run_ = prepare_pretrain(cfg())
+    fit(run_["model"], PrefetchLoader(run_["train_loader"]), epochs=2, steps_per_dispatch=4)
+    pretrained = run_pretrain(cfg(steps_per_dispatch=4))["model"]
+    for model in (run_["model"], pretrained):
+        got = bits(model)
+        assert len(got) == len(want)
+        assert all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b for a, b in zip(got, want))

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``notorch_tpu_torch``
 (and everything ``chip_smoke.py`` imports) loads neither JAX nor the JAX
 package (nor ``h5py``, which only the HDF5 databases import, nor
-``triton``), and an entry point asked for the card where there is none raises
+``triton``, nor ``pandas`` or ``pyarrow``, which the card's machine lacks
+and only a parquet table imports), and an entry point asked for the card where there is none raises
 instead of running on the CPU."""
 
 import json
@@ -26,7 +27,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 banned = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "notorch_tpu", "h5py", "triton"))
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "notorch_tpu", "h5py", "triton",
+                                       "pandas", "pyarrow"))
 print(json.dumps({"modules": names, "banned": banned}))
 """
 
@@ -48,6 +50,7 @@ def test_port_imports_no_jax():
                  "chem.fingerprint", "transforms.mol", "transforms.reaction",
                  "data.databases", "data.gvp", "exceptions", "transforms.point_cloud", "nn.spatial.schnet",
                  "nn.spatial.painn", "nn.dropout", "nn.init", "nn.mlp", "nn.chemprop_dense", "utils",
+                 "native", "training.profiling", "training.debugging", "training.logging",
                  "__main__"):
         assert f"notorch_tpu_torch.{name}" in report["modules"]
     assert report["banned"] == []

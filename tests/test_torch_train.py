@@ -195,8 +195,8 @@ def test_adam_and_adamw_updates_match_optax():
         w.grad = torch.from_numpy(g)
         opt.step()
     np.testing.assert_allclose(w.detach().numpy(), np.asarray(params), rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="cosine"):
-        build_optimizer({"name": "adam", "schedule": {"cosine": {}}})
+    with pytest.raises(ValueError, match="decay_steps"):
+        build_optimizer({"name": "adam", "schedule": {"cosine": {"init_value": 1e-3, "decay_steps": 0}}})
 
 
 @pytest.mark.parametrize("max_norm", [0.5, 100.0])
