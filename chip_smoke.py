@@ -177,6 +177,24 @@ shapes these paths give it (rows 1b-7b and 10b-13b too, at the BF16
 tolerances, and rows 8b and 9b bit for bit, each twice for the same bits), each path's launch counts
 are read, and the kernels are timed. Each phase prints one JSON line; then come a ``kernels``
 line, the card's name and power limit as ``nvidia-smi`` gives them, and last
+- spatial bf16: the declarative SchNet and GVP models at ``dtype:
+  bfloat16`` (``declarative_spatial_bf16_cfg``, full width; GVP's plain
+  conv, the fused conv being f32 only) on two batches of the GVP clouds, 2
+  epochs of ``fit`` card against CPU at SPATIAL_BF16_RUN_RTOL and every step
+  in lockstep at the bf16 models' hold; SchNet's neighbour gathers launch
+  row 8b;
+- parallel: the parallel package at world size 1, in two fresh processes
+  side by side (``parallel_child``: NCCL on the card, gloo on the CPU,
+  each on a ``file://`` store): ``configs/dmpnn_halo.yaml`` through
+  ``run(cfg)`` at ``trainer.spmd: {data: 1, graph: 1}`` (1,024 lipo
+  molecules, 2 epochs) and the pretraining config's widths at the same
+  mesh (a few steps, the molecule partition), card against CPU epoch by
+  epoch, row 8 counted (ROW8_LAUNCHES); DenseSpmdTrainer on the regression
+  config's packed batches (rows 2-3) and an MoE model sharded over an
+  expert group of one, each 3 steps with the plain step's bits in every
+  parameter and Adam state; the shipped halo config's 2 x 4 mesh raising
+  ``make_mesh``'s ValueError; each sharded path's warm ms a step beside the
+  plain step's;
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero without that
 line; so does a machine with no CUDA device.
 """
@@ -498,12 +516,15 @@ CLOUD_ELEMENTS = ("C", "N", "O", "F", "P", "S", "Cl", "Br", "I")
 # count (CPU rehearsal: nn/ops.py's ordered sums of bf16 data counted); the
 # bf16 impl: csr model all of its glue's sums, as the f32 impl: csr model
 # (CPU rehearsal: the ordered route forced for every dtype, its sums counted
-# by dtype: all bf16)
+# by dtype: all bf16); the halo model of configs/dmpnn_halo.yaml at world
+# size 1 (no boundary, so no exchange) its embeddings', block's and
+# readout's sums (the same rehearsal)
 ROW8_LAUNCHES = {"recipe": (6, 3), "declarative": (2, 0), "impl_csr": (11, 2), "declarative_attention": (2, 0),
                  "flat": (17, 2), "graph_transformer": (4, 2), "gat": (4, 2), "declarative_gvp": (3, 2),
                  "gvp_recipe": (8, 2), "classification": (6, 3), "multicomponent": (30, 4), "reaction": (6, 3),
                  "moe": (15, 2), "pretrain": (19, 0), "schnet": (5, 1), "dropout": (2, 0), "max": (4, 2),
-                 "bf16_transformer": (2, 0), "bf16_dmpnn": (2, 0), "bf16_gat": (4, 2), "bf16_csr": (11, 2)}
+                 "bf16_transformer": (2, 0), "bf16_dmpnn": (2, 0), "bf16_gat": (4, 2), "bf16_csr": (11, 2),
+                 "halo": (15, 0)}
 # the forward's stages in a profile (rows 1, 2 and 5, and row 4's replay):
 # fragments of its kernels' names (csrc/dense_mpnn.cu: the operator's bit
 # rows and the encoder's gathered h0 once a call, then a layer's product
@@ -596,6 +617,14 @@ SLICE_CONFIGS = {
         "optimizer": {"name": "adam", "schedule": {"noam": {
             "warmup_steps": 10000, "cooldown_steps": 500000, "init_lr": 1.0e-4, "max_lr": 1.0e-3, "final_lr": 1.0e-4}}},
         "trainer": {"epochs": 10, "batch_size": 1024, "seed": 0, "checkpoint_dir": "./checkpoints/pcqm4m"},
+    },
+    "dmpnn_halo": {
+        "data": {"csv": "tests/data/lipo.csv", "smiles_col": "smiles",
+                 "targets": {"y": {"columns": ["lipo"], "task": "regression"}}},
+        "model": {"kind": "dmpnn", "hidden_dim": 256, "depth": 3, "aggregation": "mean", "ffn_layers": 1,
+                  "graph_axis": "graph", "partition": "halo"},
+        "optimizer": {"name": "adam", "lr": 1.0e-3},
+        "trainer": {"epochs": 5, "batch_size": 32, "seed": 0, "spmd": {"data": 2, "graph": 4}},
     },
 }
 # the reactions of tests/data/rxns.csv, each with a target from SEED
@@ -693,6 +722,37 @@ def declarative_gvp_model_cfg(d: int = 256, dv: int = 32, depth: int = 3) -> dic
                          "in_keys": ["embed.P"], "out_keys": ["P"]},
             "readout": {"class": "SpatialMean", "in_keys": ["backbone.P"], "out_keys": ["H"]},
             "ffn": {"class": "MLP", "args": {"input_dim": d, "output_size": 1, "hidden_dim": d, "num_layers": 1},
+                    "in_keys": ["readout.H"], "out_keys": ["preds"]},
+        },
+        "losses": {"loss": {"class": "MSE", "in_keys": keys}},
+    }
+
+
+def declarative_spatial_bf16_cfg(backbone: str, d: int = 256, dv: int = 32, depth: int = 3) -> dict:
+    """A declarative spatial model at ``dtype: bfloat16`` (ROADMAP item 5c):
+    PointwiseEmbed -> ``backbone`` (``schnet``: SchnetBlock; ``gvp``:
+    GvpGNNBlock with the plain conv, ``impl: auto``, as the fused kernels are
+    f32 only) -> SpatialGated -> MLP, every module computing in bf16 (f32
+    parameters), the MSE loss. The SchNet gathers' backward is TPU kernel
+    row 8b on the card."""
+    bf16 = {"dtype": "bfloat16"}
+    if backbone == "schnet":
+        block = {"class": "SchnetBlock", "args": {"hidden_dim": d, "depth": depth, "radius": 5.0,
+                                                  "max_neighbors": 16, "neighbor_window": GVP_WINDOW, **bf16}}
+    else:
+        block = {"class": "GvpGNNBlock", "args": {"scalar_dim": d, "vector_dim": dv, "depth": depth, "radius": 5.0,
+                                                  "max_neighbors": 16, "neighbor_window": GVP_WINDOW, "impl": "auto",
+                                                  **bf16}}
+    keys = {"preds": "ffn.preds", "targets": "targets.y", "mask": "targets.y_mask"}
+    return {
+        "modules": {
+            "embed": {"class": "PointwiseEmbed", "args": {"hidden_dim": d, **bf16}, "in_keys": ["inputs.P"],
+                      "out_keys": ["P"]},
+            "backbone": {**block, "in_keys": ["embed.P"], "out_keys": ["P"]},
+            "readout": {"class": "SpatialGated", "args": {"input_dim": d, **bf16}, "in_keys": ["backbone.P"],
+                        "out_keys": ["H"]},
+            "ffn": {"class": "MLP", "args": {"input_dim": d, "output_size": 1, "hidden_dim": d, "num_layers": 1,
+                                             **bf16},
                     "in_keys": ["readout.H"], "out_keys": ["preds"]},
         },
         "losses": {"loss": {"class": "MSE", "in_keys": keys}},
@@ -1393,6 +1453,259 @@ def utilities_phases(tmp: Path) -> None:
     utilities_runs_phase(tmp)
     jnp_backward_phase()
     utilities_trace_phase(tmp)
+
+
+# the sharded paths at world size 1 (parallel_phase): steps of the bits
+# checks, warm steps timed a path (the sharded trainer's and the plain
+# Model.train_step's, on the same batch), the pretraining run's rows and
+# batch (a few steps at the pretraining config's widths), and the CPU
+# child's torch threads (it runs beside the card's child)
+PARALLEL_STEPS, PARALLEL_TIMED_STEPS = 3, 10
+PARALLEL_PRETRAIN_ROWS, PARALLEL_PRETRAIN_BATCH = 192, 64
+PARALLEL_CPU_THREADS = 4
+# the bf16 spatial models (spatial_bf16_phase): training batches of the GVP
+# runs' clouds, Adam at the calm GVP rate (GVP_LR) for both backbones, their
+# whole runs card against CPU at the bf16 run tolerance of the attention
+# recipes, and each step in lockstep at the bf16 models' limits
+# (BF16_MODEL_LOCKSTEP_RTOL, BF16_MODEL_GRAD_REL_L2). Measured at GVP_LR
+# (H100 80GB HBM3, 700.00 W, at full width, 2 epochs of 2 batches): in
+# lockstep the steps' losses differed by up to 9.6e-4 (SchNet) and 2.12e-3
+# (GVP), each gradient by up to 3.48e-1 (SchNet's last output layers) and
+# 2.8e-2 (GVP) in relative L2, the readout's score bias pure noise
+# (ZERO_GRADIENTS); the whole runs drifted 1.56e-3 and 1.46e-3. SchNet at
+# its recipe's 1e-3 is chaotic at bf16 (its whole run drifted 2.8e-1 in the
+# last validation loss), so both run at GVP_LR
+SPATIAL_BF16_BATCHES = 2
+SPATIAL_BF16_RUN_RTOL = 1e-1
+
+
+def timed_steps(step, batch) -> float:
+    """Warm ms a step of ``step(batch)`` on the card: two steps, then
+    PARALLEL_TIMED_STEPS timed by CUDA events."""
+    for _ in range(2):
+        step(batch)
+    return _elapsed_ms(lambda: step(batch), PARALLEL_TIMED_STEPS)
+
+
+def paired_ms(sharded, sharded_batch, plain, plain_batch) -> dict:
+    """Warm ms a step of a sharded step and of the plain one, timed in turns
+    (plain, sharded, sharded, plain)."""
+    a, b, c, d = (timed_steps(*x) for x in ((plain, plain_batch), (sharded, sharded_batch),
+                                           (sharded, sharded_batch), (plain, plain_batch)))
+    return {"warm_ms_per_step": [b, c], "plain_warm_ms_per_step": [a, d]}
+
+
+def parallel_child(device: str, store: str, out_path: str) -> None:
+    """Run by :func:`parallel_phase` in a fresh process, a world of one on
+    ``device`` (NCCL on the card, gloo on the CPU; rendezvous on the
+    ``file://`` store ``store``); writes its results to ``out_path`` as
+    JSON. Both devices: (b) ``configs/dmpnn_halo.yaml`` through ``run(cfg)``
+    at ``trainer.spmd: {data: 1, graph: 1}`` on TRAIN_MOLS lipo molecules for
+    TRAIN_EPOCHS epochs; (c) ``configs/pcqm4m_pretrain.yaml``'s widths through
+    ``run(cfg)`` at the same mesh, the molecule partition, for one epoch of a
+    few steps. The card alone: their row 8 launches; (a) DenseSpmdTrainer on
+    the regression config's packed batches against ``Model.train_step``,
+    every parameter and Adam state bit for bit, rows 2-3 counted; (d) an MoE
+    model with ``shard_expert_params`` over an expert group of one against
+    the unsharded model, bit for bit; (e) the shipped halo config's 2 x 4
+    mesh raising ``make_mesh``'s ValueError; and each path's warm ms a step
+    beside the plain step's."""
+    from notorch_tpu_torch.models.pretrain import MaskAtoms, build_masked_atom_pretrainer
+    from notorch_tpu_torch.parallel import distributed
+    from notorch_tpu_torch.parallel.dense_dp import DenseSpmdTrainer
+    from notorch_tpu_torch.parallel.expert import shard_expert_params
+    from notorch_tpu_torch.parallel.mesh import make_mesh
+    from notorch_tpu_torch.parallel.partition import build_halo_spmd_batch, build_molecule_spmd_batch
+    from notorch_tpu_torch.parallel.spmd import SpmdTrainer
+
+    if device == "cpu":
+        torch.set_num_threads(PARALLEL_CPU_THREADS)
+    distributed.initialize(f"file://{store}", 1, 0, device=device)
+    tmp = Path(out_path).parent
+    csv_path = lipo_csv(tmp, TRAIN_MOLS)
+    out: dict = {}
+
+    halo = slice_config("dmpnn_halo", csv_path, None)
+    halo["trainer"]["spmd"] = {"data": 1, "graph": 1}
+    reset_launches()
+    t0 = time.perf_counter()
+    result = run(halo, device=device)
+    steps = TRAIN_EPOCHS * (TRAIN_MOLS // halo["trainer"]["batch_size"])
+    out["halo"] = {"history": result["history"], "steps": steps, "run_s": time.perf_counter() - t0,
+                   "launches": launches()}
+
+    pretrain = slice_config("pcqm4m_pretrain", ROOT / "tests" / "data" / "lipo.csv", None, epochs=1)
+    pretrain["data"]["limit"] = PARALLEL_PRETRAIN_ROWS
+    pretrain["trainer"].update(batch_size=PARALLEL_PRETRAIN_BATCH, spmd={"data": 1, "graph": 1})
+    reset_launches()
+    t0 = time.perf_counter()
+    result = run(pretrain, device=device)
+    out["pretrain"] = {"history": result["history"], "steps": PARALLEL_PRETRAIN_ROWS // PARALLEL_PRETRAIN_BATCH,
+                       "run_s": time.perf_counter() - t0, "launches": launches()}
+    if device == "cpu":
+        Path(out_path).write_text(json.dumps(out))
+        return
+
+    # (a) DenseSpmdTrainer on the packed batches against the plain step
+    cfg = train_config(csv_path, None)
+    plain, sharded = prepare(cfg, device)["model"], prepare(cfg, device)
+    loader = sharded["train_loader"]
+    batches = [to_device(b, device) for b, _ in zip(loader, range(PARALLEL_STEPS))]
+    trainer = DenseSpmdTrainer(sharded["model"], make_mesh({"data": 1}, device)).init()
+    for b in batches:
+        plain.train_step(b)
+    reset_launches()
+    for b in batches:
+        trainer.train_step(to_device(trainer.local_batch(b), device))
+    dense_counts = launches()
+    out["dense_spmd"] = {
+        "steps": PARALLEL_STEPS, "same_bits": same_bits(plain.network.state_dict(), trainer.network.state_dict())
+        and same_bits(plain.optimizer.state_dict(), trainer.model.optimizer.state_dict()),
+        "launches": {k: v for k, v in dense_counts.items() if v},
+        **paired_ms(trainer.train_step, trainer.local_batch(batches[0]), plain.train_step, batches[0])}
+
+    # (d) expert parallelism over an expert group of one against the unsharded model
+    moe_cfg = slice_config("moe_regression", csv_path, None)
+    plain, sharded = prepare(moe_cfg, device)["model"], prepare(moe_cfg, device)
+    moe_batches = [to_device(b, device) for b, _ in zip(sharded["train_loader"], range(PARALLEL_STEPS))]
+    mesh = make_mesh({"data": 1, "expert": 1}, device)
+    shard_expert_params(sharded["model"], mesh)
+    trainer = SpmdTrainer(sharded["model"], mesh, "data", "expert").init()
+    for b in moe_batches:
+        plain.train_step(b)
+        trainer.train_step(trainer.local_batch(as_stacked(b)))
+    out["expert"] = {
+        "steps": PARALLEL_STEPS, "same_bits": same_bits(plain.network.state_dict(), trainer.network.state_dict())
+        and same_bits(plain.optimizer.state_dict(), trainer.model.optimizer.state_dict()),
+        **paired_ms(trainer.train_step, trainer.local_batch(as_stacked(moe_batches[0])), plain.train_step,
+                    moe_batches[0])}
+
+    # (b), (c): the sharded step against the plain one on the same batch
+    ds = build_dataset({"csv": str(csv_path), "targets": {"y": {"columns": ["lipo"]}}})
+    group = [ds[i]["G"] for i in range(halo["trainer"]["batch_size"])]
+    y = {"y": np.zeros((1, len(group), 1), np.float32)}
+    halo_batch = build_halo_spmd_batch([group], y, 8 * 256, 4096, len(group), n_shards=1)
+    gen = torch.Generator().manual_seed(SEED)
+    halo_model = build_dmpnn(hidden_dim=256, depth=3, graph_axis="graph", partition="halo", generator=gen).to(device)
+    trainer = SpmdTrainer(halo_model, make_mesh({"data": 1, "graph": 1}, device), "data", "graph").init()
+    flat = build_dmpnn(hidden_dim=256, depth=3, layout="flat", generator=torch.Generator().manual_seed(SEED))
+    out["halo"].update(paired_ms(
+        trainer.train_step, to_device(trainer.local_batch(halo_batch), device), flat.to(device).train_step,
+        to_device({"inputs.G": pad_graphs_flat(group), "targets.y": y["y"][0],
+                   "targets.y_mask": np.ones((len(group), 1), bool)}, device)))
+    masked = [MaskAtoms(seed=SEED)(g) for g in group]
+    pre_batch = build_molecule_spmd_batch([masked], None, 8 * 256, 4096, len(masked), node_attrs=("node_labels",))
+    pre_model = build_masked_atom_pretrainer(hidden_dim=512, depth=5, generator=torch.Generator().manual_seed(SEED))
+    trainer = SpmdTrainer(pre_model.to(device), make_mesh({"data": 1}, device)).init()
+    local = to_device(trainer.local_batch(pre_batch), device)
+    out["pretrain"].update(paired_ms(trainer.train_step, local, pre_model.train_step, local))
+
+    # (e) the shipped halo config's 2 x 4 mesh on one card
+    try:
+        run(slice_config("dmpnn_halo", csv_path, None), device=device)
+        out["mesh_refusal"] = None
+    except ValueError as e:
+        out["mesh_refusal"] = str(e)
+    Path(out_path).write_text(json.dumps(out))
+
+
+def as_stacked(batch: dict) -> dict:
+    """A single batch as the stacked batch of a 1 x 1 mesh: a ``[1, 1]``
+    entry axis on every tensor."""
+    def lift(v):
+        if isinstance(v, torch.Tensor):
+            return v[None, None]
+        return v.update(**{f: None if getattr(v, f) is None else getattr(v, f)[None, None] for f in v._ARRAYS})
+
+    return {k: lift(v) for k, v in batch.items()}
+
+
+def pad_graphs_flat(graphs: list) -> "object":
+    from notorch_tpu_torch.data.graph import pad_graphs
+
+    return pad_graphs(graphs, 8 * 256, 4096, graph_cap=len(graphs), np_out=True)
+
+
+def parallel_phase(tmp: Path) -> dict:
+    """The parallel package at world size 1: :func:`parallel_child` on the
+    card and, beside it, on the CPU, each a fresh process. Fails unless the
+    halo and pretraining runs agree card against CPU epoch by epoch at
+    TRAIN_RTOL, the card's halo run launches row 8 as ROW8_LAUNCHES["halo"]
+    a step and the pretraining run as ROW8_LAUNCHES["pretrain"],
+    DenseSpmdTrainer and the expert-sharded MoE model keep the plain step's
+    bits, DenseSpmdTrainer launches rows 2 and 3, and the shipped halo
+    config's mesh raises."""
+    results, procs = {}, {}
+    for device in ("cuda", "cpu"):
+        directory = tmp / f"parallel_{device}"
+        directory.mkdir()
+        results[device] = directory / "out.json"
+        procs[device] = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.parallel_child(*sys.argv[1:])", device,
+             str(directory / "store"), str(results[device])], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    for device, proc in procs.items():
+        try:
+            _, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        if proc.returncode != 0:
+            fail(f"the parallel child on {device} exited {proc.returncode}: {err[-3000:]}")
+    card, cpu = (json.loads(results[d].read_text()) for d in ("cuda", "cpu"))
+    diffs = {f"{path}/epoch{e}": rel_diff(a["train/loss"], b["train/loss"])
+             for path in ("halo", "pretrain")
+             for e, (a, b) in enumerate(zip(card[path]["history"], cpu[path]["history"]))}
+    row8 = {path: card[path]["launches"]["csr_segment_sum"] for path in ("halo", "pretrain")}
+    expect_row8 = {path: glue_launches(path, card[path]["steps"], 0) for path in ("halo", "pretrain")}
+    emit(phase="parallel", world_size=1, card=card, cpu_history={p: cpu[p]["history"] for p in ("halo", "pretrain")},
+         rel_diff_vs_cpu=diffs, rel_tol=TRAIN_RTOL, row8=row8, expect_row8=expect_row8)
+    if len(diffs) != TRAIN_EPOCHS + 1 or not max(diffs.values()) <= TRAIN_RTOL:
+        fail(f"parallel: the sharded runs card against CPU differ: {diffs}")
+    if row8 != expect_row8:
+        fail(f"parallel: row 8 launched {row8} on the sharded runs; expected {expect_row8}")
+    if not (card["dense_spmd"]["same_bits"] and card["expert"]["same_bits"]):
+        fail("parallel: a sharded step at world size 1 lost the plain step's bits")
+    if not all(card["dense_spmd"]["launches"].get(k, 0) > 0
+               for k in ("fused_dense_mpnn_block_stash", "fused_dense_mpnn_block_bwd_stash")):
+        fail(f"parallel: DenseSpmdTrainer did not launch rows 2 and 3: {card['dense_spmd']['launches']}")
+    if not (card["mesh_refusal"] and "does not match 1 devices" in card["mesh_refusal"]):
+        fail(f"parallel: the shipped halo config's mesh did not raise make_mesh's ValueError: {card['mesh_refusal']}")
+    return card
+
+
+def spatial_bf16_phase(gvp_train: list[dict], gvp_val: list[dict]) -> dict[str, int]:
+    """The declarative SchNet and GVP models at dtype: bfloat16
+    (declarative_spatial_bf16_cfg, full width) on SPATIAL_BF16_BATCHES
+    training batches of the GVP clouds, Adam at GVP_LR: TRAIN_EPOCHS epochs
+    of ``fit`` on the card and on the CPU from the same weights, held at
+    SPATIAL_BF16_RUN_RTOL epoch by epoch, then every step in lockstep
+    (BF16_MODEL_LOCKSTEP_RTOL, gradients at BF16_MODEL_GRAD_REL_L2 in
+    relative L2 but ZERO_GRADIENTS). SchNet must launch row 8b. Returns
+    SchNet's launches."""
+    train = gvp_train[:SPATIAL_BF16_BATCHES]
+    counts, lr = {}, GVP_LR
+    for backbone in ("schnet", "gvp"):
+        cfg = declarative_spatial_bf16_cfg(backbone)
+        reset_launches()
+        t0 = time.perf_counter()
+        card_run = fit(gvp_model(cfg, "cuda", lr), train, gvp_val, epochs=TRAIN_EPOCHS)
+        torch.cuda.synchronize()
+        card_s, counts[backbone] = time.perf_counter() - t0, launches()
+        cpu_run = fit(gvp_model(cfg, "cpu", lr), train, gvp_val, epochs=TRAIN_EPOCHS)
+        diffs = {f"epoch{e}/{k}": rel_diff(a[k], b[k])
+                 for e, (a, b) in enumerate(zip(card_run.history, cpu_run.history)) for k in ("train/loss", "val/loss")}
+        emit(phase=f"train_{backbone}_bf16", clouds=len(train) * BATCH, epochs=TRAIN_EPOCHS, run_s_card=card_s,
+             kernel_launches={k: v for k, v in counts[backbone].items() if v},
+             history_card=card_run.history, history_cpu=cpu_run.history, rel_diff_vs_cpu=diffs,
+             rel_tol=SPATIAL_BF16_RUN_RTOL,
+             lockstep=gvp_lockstep(cfg, train, TRAIN_EPOCHS, f"train_{backbone}_bf16", lr,
+                                   rtol=BF16_MODEL_LOCKSTEP_RTOL, grad_rel_l2=BF16_MODEL_GRAD_REL_L2,
+                                   skip=ZERO_GRADIENTS))
+        if not max(diffs.values()) <= SPATIAL_BF16_RUN_RTOL:
+            fail(f"train_{backbone}_bf16: the card's run and the CPU's differ: {diffs}")
+    if counts["schnet"]["csr_segment_sum_bf16"] <= 0:
+        fail(f"train_schnet_bf16: row 8b never launched: {counts['schnet']}")
+    return counts["schnet"]
 
 
 def rel_diff(a: float, b: float) -> float:
@@ -2669,12 +2982,15 @@ def gvp_model(cfg: dict, device: str, lr: float = GVP_LR):
 
 
 def gvp_lockstep(cfg: dict, batches: list[dict], epochs: int, what: str, lr: float = GVP_LR,
-                 elementwise: bool = False, max_steps: int | None = None) -> dict:
+                 elementwise: bool = False, max_steps: int | None = None, rtol: float = LOCKSTEP_RTOL,
+                 grad_rel_l2: float = KINK_GRAD_L2, skip: tuple[str, ...] = ()) -> dict:
     """Every step of the run taken on the card and on the CPU from the card's
     weights and optimizer state: fails unless each step's loss agrees within
-    LOCKSTEP_RTOL relative and each gradient within KINK_GRAD_L2 in
-    relative L2 distance, or with ``elementwise`` (a model without ReLU
-    kinks) within LOCKSTEP_GRAD_RTOL times its largest magnitude."""
+    ``rtol`` (LOCKSTEP_RTOL) relative and each gradient within
+    ``grad_rel_l2`` (KINK_GRAD_L2) in relative L2 distance, or with
+    ``elementwise`` (a model without ReLU kinks) within LOCKSTEP_GRAD_RTOL
+    times its largest magnitude; gradients whose names end with one of
+    ``skip`` (pure noise) are left out."""
     card, cpu = gvp_model(cfg, "cuda", lr), gvp_model(cfg, "cpu", lr)
     loss_diff, l2_diff, max_diff, worst, steps = 0.0, 0.0, 0.0, None, 0
     cpu_generators = cpu.generators()
@@ -2690,7 +3006,7 @@ def gvp_lockstep(cfg: dict, batches: list[dict], epochs: int, what: str, lr: flo
             grads = dict(cpu.network.named_parameters())
             for name, p in card.network.named_parameters():
                 ref = grads[name].grad
-                if p.grad is None and ref is None:  # a path that reaches no output
+                if (p.grad is None and ref is None) or (skip and name.endswith(skip)):  # no output / noise
                     continue
                 got = p.grad.cpu()
                 l2 = float((got - ref).norm() / ref.norm().clamp_min(1e-30))
@@ -2699,13 +3015,13 @@ def gvp_lockstep(cfg: dict, batches: list[dict], epochs: int, what: str, lr: flo
                     worst = name
                 l2_diff, max_diff = max(l2_diff, l2), max(max_diff, over_max)
             steps += 1
-    grads_ok = max_diff <= LOCKSTEP_GRAD_RTOL if elementwise else l2_diff <= KINK_GRAD_L2
-    if not (loss_diff <= LOCKSTEP_RTOL and grads_ok):
+    grads_ok = max_diff <= LOCKSTEP_GRAD_RTOL if elementwise else l2_diff <= grad_rel_l2
+    if not (loss_diff <= rtol and grads_ok):
         fail(f"{what}: in lockstep the card's steps and the CPU's differ: loss {loss_diff} relative, "
              f"gradients {l2_diff} in relative L2 and {max_diff} of their largest magnitude ({worst})")
     return {"steps": steps, "max_loss_rel_diff": loss_diff, "max_grad_rel_l2": l2_diff,
-            "max_grad_err_over_max": max_diff, "worst_gradient": worst, "rtol": LOCKSTEP_RTOL,
-            **({"grad_rtol_over_max": LOCKSTEP_GRAD_RTOL} if elementwise else {"grad_rel_l2_tol": KINK_GRAD_L2})}
+            "max_grad_err_over_max": max_diff, "worst_gradient": worst, "rtol": rtol,
+            **({"grad_rtol_over_max": LOCKSTEP_GRAD_RTOL} if elementwise else {"grad_rel_l2_tol": grad_rel_l2})}
 
 
 def train_gvp_phase(tmp: Path, phase: str, path: str, cfg: dict, train: list[dict], val: list[dict], epochs: int,
@@ -3837,6 +4153,13 @@ def main() -> None:
             schnet_ckpt, dict(SCHNET_RECIPE), gvp_train, "serve_schnet",
             {"csr_segment_sum": glue_launches("schnet", 0, len(gvp_train))})
         schnet_runs["sdf_schnet"] = sdf_schnet_phase(tmp)
+        # the spatial stacks at dtype: bfloat16 (SchNet's gathers: row 8b)
+        schnet_runs["train_schnet_bf16"] = spatial_bf16_phase(gvp_train, gvp_val)
+
+        # the parallel package at world size 1, in fresh processes (NCCL on
+        # the card beside gloo on the CPU): rows 2-3 under DenseSpmdTrainer,
+        # row 8 under the halo and pretraining runs
+        parallel_phase(tmp)
 
         # every path's run twice from the same weights, bit for bit; the calm
         # attention recipe's whole run card against CPU
@@ -4086,7 +4409,8 @@ def main() -> None:
              bound_by=bound_by)
     # row 8 on the SchNet path: each SchNet run's launches beside the recipe's
     row8 = next(r for r in records if r["name"] == "csr_segment_sum")
-    row8["launches_schnet"] = {run: counts["csr_segment_sum"] for run, counts in schnet_runs.items()}
+    row8["launches_schnet"] = {run: counts["csr_segment_sum"] for run, counts in schnet_runs.items()
+                               if run != "train_schnet_bf16"}
     # row 8b on each bf16 path's runs and requests
     row8b = next(r for r in records if r["name"] == "csr_segment_sum_bf16")
     row8b["launches_bf16_paths"] = {run: counts["csr_segment_sum_bf16"] for run, counts in bf16_runs.items()}

@@ -26,8 +26,18 @@ The default SMILES transform is the C++ featurizer where a compiler exists.
 Tables are CSV (the standard ``csv`` module) or parquet (``pyarrow``,
 imported only for a parquet table), named by ``data.csv``/``data.parquet``
 or inline by the ``${csv:...}``, ``${parquet:...}`` and ``${len:...}``
-resolvers; ``yaml`` is imported only to read YAML. ``trainer.spmd`` raises
-``NotImplementedError``.
+resolvers; ``yaml`` is imported only to read YAML.
+
+``trainer.spmd: {data: D, graph: G}`` trains over a D x G mesh of
+processes, as the JAX package does: masked-atom pretraining with the
+``molecule`` or ``replicate`` partition (:func:`run_pretrain_spmd`), and a
+supervised ``model.partition: halo`` config (:func:`run_halo_spmd`,
+``configs/dmpnn_halo.yaml``); any other supervised ``spmd`` raises JAX's
+``ValueError``, and a mesh that does not match the world's processes
+raises ``make_mesh``'s. Under ``torchrun`` (``python -m torch.distributed.run
+--nproc-per-node N -m notorch_tpu_torch train CONFIG ...``) the command
+starts the process group itself (gloo with ``--cpu``, NCCL on the cards);
+rank 0 alone prints. A single process is a world of one.
 
 Usage::
 
@@ -402,12 +412,6 @@ def refuse_point_clouds(model_cfg: dict) -> None:
         )
 
 
-def _refuse_unported(cfg: dict) -> None:
-    from notorch_tpu_torch.nn.chemprop import PARALLEL_SLICE
-
-    refuse_point_clouds(cfg.get("model", {}))
-    if cfg.get("trainer", {}).get("spmd"):
-        raise NotImplementedError(f"trainer.spmd (sharded training) is not ported yet: it comes with {PARALLEL_SLICE}")
 
 
 def classification_host_metrics(ds, pred_key: str) -> dict | None:
@@ -434,7 +438,7 @@ def prepare(cfg: dict, device: str | torch.device | None = None) -> dict:
     train (shuffled by the seed), val and test loaders."""
     from notorch_tpu_torch.data.batching import DataLoader, Subset, random_split
 
-    _refuse_unported(cfg)
+    refuse_point_clouds(cfg.get("model", {}))
     device = resolve_device(device)
     trainer_cfg = cfg.get("trainer", {})
     seed = trainer_cfg.get("seed", 0)
@@ -531,27 +535,194 @@ def prepare_pretrain(cfg: dict, device: str | torch.device | None = None) -> dic
     ``data.csv`` (the first ``data.limit``), featurized once; the
     masked-atom pretrainer (``hidden_dim``, ``depth``) from
     ``torch.Generator().manual_seed(trainer.seed)`` on ``device``; and the
-    loader that masks them anew each epoch (``model.mask_rate``).
-    ``trainer.spmd`` raises ``NotImplementedError``."""
+    loader that masks them anew each epoch (``model.mask_rate``)."""
     from notorch_tpu_torch.models.pretrain import build_masked_atom_pretrainer
 
-    _refuse_unported(cfg)
     device = resolve_device(device)
-    data_cfg = cfg["data"]
     model_cfg = {k: v for k, v in cfg.get("model", {}).items() if k not in ("kind", "mask_rate", "partition")}
     trainer_cfg = cfg.get("trainer", {})
     seed = trainer_cfg.get("seed", 0)
-    smiles = data_table(data_cfg)[data_cfg.get("smiles_col", "smiles")][: data_cfg.get("limit") or None]
-    pipe = smiles_pipeline()
     model = build_masked_atom_pretrainer(optimizer=build_optimizer(cfg.get("optimizer")),
                                          generator=torch.Generator().manual_seed(seed), **model_cfg)
-    loader = _PretrainLoader([pipe(s) for s in smiles], cfg.get("model", {}).get("mask_rate", 0.15),
-                             trainer_cfg.get("batch_size", 64), seed=seed)
+    graphs, mask_rate = pretrain_graphs(cfg)
+    loader = _PretrainLoader(graphs, mask_rate, trainer_cfg.get("batch_size", 64), seed=seed)
     return {"model": model.to(device), "train_loader": loader}
 
 
+def pretrain_graphs(cfg: dict) -> tuple[list, float]:
+    """The pretraining molecules (the first ``data.limit`` of ``data.csv``'s
+    ``data.smiles_col``), featurized once, and ``model.mask_rate``."""
+    data_cfg = cfg["data"]
+    smiles = data_table(data_cfg)[data_cfg.get("smiles_col", "smiles")][: data_cfg.get("limit") or None]
+    pipe = smiles_pipeline()
+    return [pipe(s) for s in smiles], cfg.get("model", {}).get("mask_rate", 0.15)
+
+
+def _print_rank0(record: dict) -> None:
+    """An epoch record as a JSON line, printed by global rank 0 alone."""
+    from notorch_tpu_torch.parallel.distributed import process_info
+
+    if process_info()[0] == 0:
+        print(json.dumps({k: _jsonable(v) for k, v in record.items()}), flush=True)
+
+
+def run_pretrain_spmd(cfg: dict, device: str | torch.device | None = None) -> dict:
+    """Masked-atom pretraining over a ``data`` x ``graph`` mesh
+    (``trainer.spmd: {data: D, graph: G}``), as the JAX ``run_pretrain``:
+    the ``model.partition`` ``molecule`` (the default: each graph shard
+    whole molecules, :func:`~notorch_tpu_torch.parallel.partition.
+    build_molecule_spmd_batch` with the labels per shard) or ``replicate``
+    (edge shards, :func:`~notorch_tpu_torch.parallel.partition.
+    build_spmd_batch`); a graph axis only where G > 1. Every epoch's shuffle
+    is drawn first, so the fixed caps (one shape a run) cover the groups
+    the loop builds; a data shard takes ``batch_size // D`` molecules a
+    step. Returns ``{"history", "model"}``."""
+    from notorch_tpu_torch.data.batching import to_device
+    from notorch_tpu_torch.models.pretrain import MaskAtoms, build_masked_atom_pretrainer
+    from notorch_tpu_torch.parallel.distributed import process_info
+    from notorch_tpu_torch.parallel.mesh import make_mesh
+    from notorch_tpu_torch.parallel.partition import (
+        build_molecule_spmd_batch,
+        build_spmd_batch,
+        partition_molecules,
+    )
+    from notorch_tpu_torch.parallel.spmd import SpmdTrainer
+
+    device = resolve_device(device)
+    trainer_cfg = cfg.get("trainer", {})
+    spmd = trainer_cfg["spmd"]
+    n_graph = spmd.get("graph", 1)
+    n_data = spmd.get("data", process_info()[1] // n_graph)
+    graph_axis = "graph" if n_graph > 1 else None
+    mesh = make_mesh({"data": n_data, **({"graph": n_graph} if graph_axis else {})}, device.type)
+    graphs, mask_rate = pretrain_graphs(cfg)
+    model_cfg = {k: v for k, v in cfg.get("model", {}).items() if k not in ("kind", "mask_rate", "partition")}
+    partition = cfg.get("model", {}).get("partition", "molecule")
+    seed, epochs = trainer_cfg.get("seed", 0), trainer_cfg.get("epochs", 1)
+    model = build_masked_atom_pretrainer(optimizer=build_optimizer(cfg.get("optimizer")),
+                                         generator=torch.Generator().manual_seed(seed), graph_axis=graph_axis,
+                                         partition=partition, **model_cfg).to(device)
+    trainer = SpmdTrainer(model, mesh, data_axis="data", graph_axis=graph_axis).init()
+
+    per = max(1, trainer_cfg.get("batch_size", 64) // n_data)
+    group_size = per * n_data
+    rg = np.random.default_rng(seed)
+    orders = [rg.permutation(len(graphs)) for _ in range(epochs)]
+    max_vs, max_es = [], []
+    for order in orders:
+        for s in range(0, len(order) - group_size + 1, group_size):
+            for gi in range(n_data):
+                grp = [graphs[i] for i in order[s + gi * per : s + (gi + 1) * per]]
+                if partition == "molecule" and n_graph > 1:  # per-shard caps under the LPT assignment
+                    for idx in partition_molecules(grp, n_graph):
+                        max_vs.append(sum(grp[i].num_nodes for i in idx) + 1)
+                        max_es.append(sum(grp[i].num_edges for i in idx))
+                else:
+                    max_vs.append(sum(g.num_nodes for g in grp) + 1)
+                    max_es.append(sum(g.num_edges for g in grp))
+    node_cap = -(-max(max_vs) // 8) * 8
+    unit = 2 * n_graph if partition == "replicate" else 2
+    edge_cap = -(-max(max_es) // unit) * unit
+
+    def labels_of(grp) -> np.ndarray:
+        labels = np.full(node_cap, -1, dtype=np.int32)
+        off = 0
+        for g in grp:
+            labels[off : off + g.num_nodes] = g.node_labels
+            off += g.num_nodes
+        return labels
+
+    history = []
+    for epoch, order in enumerate(orders):
+        masker = MaskAtoms(mask_rate=mask_rate, seed=seed + epoch)
+        losses = []
+        for s in range(0, len(order) - group_size + 1, group_size):
+            groups = [[masker(graphs[i]) for i in order[s + gi * per : s + (gi + 1) * per]] for gi in range(n_data)]
+            if partition == "molecule":
+                batch = build_molecule_spmd_batch(groups, None, node_cap, edge_cap, per, n_graph_shards=n_graph,
+                                                  node_attrs=("node_labels",))
+            else:
+                batch = build_spmd_batch(groups, None, node_cap, edge_cap, per, n_edge_shards=n_graph,
+                                         extra_inputs={"node_labels": [labels_of(g) for g in groups]})
+            logs = trainer.train_step(to_device(trainer.local_batch(batch), device))
+            losses.append(logs["train/loss"])
+        rec = {"epoch": epoch, "train/loss": float(np.mean([float(v) for v in losses]))}
+        history.append(rec)
+        _print_rank0(rec)
+    return {"history": history, "model": model}
+
+
+def run_halo_spmd(cfg: dict, device: str | torch.device | None = None) -> dict:
+    """Supervised training with boundary-HALO graph partitioning
+    (``model.partition: halo`` with ``trainer.spmd``;
+    ``configs/dmpnn_halo.yaml``), as the JAX ``_run_halo_spmd``: every data
+    group padded into ONE flat graph and split into node-block edge shards
+    (:func:`~notorch_tpu_torch.parallel.partition.build_halo_spmd_batch`),
+    whose message passing exchanges only boundary rows; the shuffles of
+    every epoch drawn first for one step shape a run (:func:`~
+    notorch_tpu_torch.parallel.partition.halo_spmd_caps`). The model,
+    dataset, split and task transforms are :func:`prepare`'s. Returns
+    ``{"history", "model"}``."""
+    from notorch_tpu_torch.data.batching import to_device
+    from notorch_tpu_torch.parallel.mesh import make_mesh
+    from notorch_tpu_torch.parallel.partition import build_halo_spmd_batch, halo_spmd_caps
+    from notorch_tpu_torch.parallel.spmd import SpmdTrainer
+
+    device = resolve_device(device)
+    trainer_cfg = cfg.get("trainer", {})
+    spmd = trainer_cfg["spmd"]
+    n_data, n_graph = spmd.get("data", 1), spmd.get("graph", 2)
+    mesh = make_mesh({"data": n_data, "graph": n_graph}, device.type)
+    run_ = prepare(cfg, device)
+    model, train = run_["model"], run_["train"]
+    graph_axis = run_["cfg"]["model"].get("graph_axis", "graph")
+    trainer = SpmdTrainer(model, mesh, data_axis="data", graph_axis=graph_axis).init()
+    seed, epochs = trainer_cfg.get("seed", 0), trainer_cfg.get("epochs", 1)
+    per = max(1, trainer_cfg.get("batch_size", 64) // n_data)
+    group_size = per * n_data
+
+    out_key = next(iter(train.transforms.values())).out_key
+    graphs = [train[i][out_key] for i in range(len(train))]
+    target_arrays = dict(train._target_arrays)
+    rg = np.random.default_rng(seed)
+    orders = [rg.permutation(len(graphs)) for _ in range(epochs)]
+
+    def iter_groups(order):
+        for s0 in range(0, len(order) - group_size + 1, group_size):
+            yield [order[s0 + gi * per : s0 + (gi + 1) * per] for gi in range(n_data)]
+
+    max_v = max_e = 0
+    all_groups = []
+    for order in orders:
+        for idxs in iter_groups(order):
+            all_groups.append([[graphs[i] for i in idx] for idx in idxs])
+            for idx in idxs:
+                max_v = max(max_v, sum(graphs[i].num_nodes for i in idx) + 1)
+                max_e = max(max_e, sum(graphs[i].num_edges for i in idx))
+    unit = 8 * n_graph  # the node cap divides into n_graph node blocks
+    node_cap = -(-max_v // unit) * unit
+    edge_cap = -(-max_e // 2) * 2
+    pair_cap, b_cap, h_cap = halo_spmd_caps(all_groups, node_cap, edge_cap, per, n_graph)
+
+    history = []
+    for epoch, order in enumerate(orders):
+        losses = []
+        for idxs in iter_groups(order):
+            groups = [[graphs[i] for i in idx] for idx in idxs]
+            targets = {name: [arr[np.asarray(idx)] for idx in idxs] for name, arr in target_arrays.items()}
+            batch = build_halo_spmd_batch(groups, targets, node_cap, edge_cap, per, n_shards=n_graph,
+                                          pair_cap=pair_cap, b_cap=b_cap, h_cap=h_cap)
+            logs = trainer.train_step(to_device(trainer.local_batch(batch), device))
+            losses.append(logs["train/loss"])
+        rec = {"epoch": epoch, "train/loss": float(np.mean([float(v) for v in losses]))}
+        history.append(rec)
+        _print_rank0(rec)
+    return {"history": history, "model": model}
+
+
 def run_pretrain(cfg: dict, device: str | torch.device | None = None) -> dict:
-    """Masked-atom self-supervised pretraining (``model.kind: pretrain``):
+    """Masked-atom self-supervised pretraining (``model.kind: pretrain``;
+    with ``trainer.spmd``, :func:`run_pretrain_spmd`):
     :func:`prepare_pretrain`, then ``fit`` for ``trainer.epochs`` with
     ``checkpoint_dir``/``max_to_keep``, ``resume``, ``checkpoint_every`` and
     ``steps_per_dispatch``, the loader behind a :class:`~notorch_tpu_torch.
@@ -562,6 +733,8 @@ def run_pretrain(cfg: dict, device: str | torch.device | None = None) -> dict:
     from notorch_tpu_torch.training.checkpoint import Checkpointer
     from notorch_tpu_torch.training.loop import fit
 
+    if cfg.get("trainer", {}).get("spmd"):
+        return run_pretrain_spmd(cfg, device)
     run_ = prepare_pretrain(cfg, device)
     trainer_cfg = cfg.get("trainer", {})
     loader, _, steps_per_dispatch = fit_loaders(run_, trainer_cfg)
@@ -624,6 +797,14 @@ def run(cfg: dict, device: str | torch.device | None = None) -> dict:
     cfg = resolve_config(cfg)
     if cfg.get("model", {}).get("kind") == "pretrain":
         return run_pretrain(cfg, device)
+    if cfg.get("trainer", {}).get("spmd"):
+        if cfg.get("model", {}).get("partition") == "halo":
+            return run_halo_spmd(cfg, device)
+        raise ValueError(
+            "trainer.spmd on supervised runs supports model.partition: halo (boundary-exchange graph sharding; "
+            "configs/dmpnn_halo.yaml). For molecule-batch scaling use the library SpmdTrainer/DenseSpmdTrainer "
+            "paths; kind: pretrain supports molecule/replicate spmd directly."
+        )
     run_ = prepare(cfg, device)
     cfg, model, pred_key = run_["cfg"], run_["model"], run_["pred_key"]
     trainer_cfg = cfg.get("trainer", {})
@@ -692,7 +873,18 @@ def main(argv=None) -> None:
     parser.add_argument("--cpu", action="store_true", help="run the plain CPU path")
     args = parser.parse_args(argv)
     cfg = apply_overrides(load_config(args.config), args.overrides)
-    run(cfg, device="cpu" if args.cpu else None)
+    device = "cpu" if args.cpu else None
+    from notorch_tpu_torch.parallel import distributed
+
+    if distributed.launched():  # one process of a torchrun world
+        distributed.initialize(device=device)
+    try:
+        run(cfg, device=device)
+    finally:
+        if distributed.launched():
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

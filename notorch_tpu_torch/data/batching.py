@@ -30,6 +30,7 @@ from notorch_tpu_torch.conf import TARGET_KEY_PREFIX
 from notorch_tpu_torch.data.dataset import MolecularDataset
 from notorch_tpu_torch.data.dense import DenseBatchedGraph, plan_bins
 from notorch_tpu_torch.data.graph import BatchedGraph, Graph, with_csr_packing
+from notorch_tpu_torch.data.halo import HaloShard
 from notorch_tpu_torch.data.point_cloud import BatchedPointCloud
 from notorch_tpu_torch.data.samplers import SeededSampler, SequentialSampler
 from notorch_tpu_torch.tasks import transforms as task_transforms
@@ -257,7 +258,7 @@ class Subset:
 
 # -- moving batches to a device, grouping and prefetching ---------------------
 
-BATCH_TYPES = (BatchedGraph, DenseBatchedGraph, BatchedPointCloud)
+BATCH_TYPES = (BatchedGraph, DenseBatchedGraph, BatchedPointCloud, HaloShard)
 SLOT_ALIGN = 256  # bytes: every array of a staged batch starts on this boundary
 
 

@@ -48,6 +48,8 @@ flax's auto-named inner modules, in any path:
 ``DenseRouter_0``, ``SparseRouter_0``                ``dense_router``, ``sparse_router``
 attention readouts (``SDPAttention``, ``DenseSDPAttention``, ``PackedSDPAttention``):
 ``query [1, d]``                                     ``query`` (same)
+the halo block (``HaloChempropBlock``, stacked ``[in, out]`` as there):
+``weights [depth, d, d]``, ``biases [depth, d]``     ``weights``, ``biases`` (same)
 running statistics (the ``batch_stats`` collection, ``BatchNorm``):
 ``<path>/mean``, ``<path>/var``                      ``<path>.running_mean``,
                                                      ``<path>.running_var`` (buffers)
@@ -78,6 +80,7 @@ _KINDS = (
     ("embedding", {"node", "edge"}, {"node.embedding.weight", "edge.embedding.weight"}),
     ("stacked", {"layer_0", "layer"}, {"weight"}),
     ("query", {"query"}, {"query"}),
+    ("halo", {"weights", "biases"}, {"weights", "biases"}),
 )
 
 
@@ -152,6 +155,8 @@ def params_from_jax(tree: dict, batch_stats: dict | None = None) -> dict[str, to
                 sd[f"{name}.bias"] = stack([t(layer["update"]["bias"]) for layer in layers])
         elif kind == "query":
             sd[f"{name}.query"] = t(group["query"])
+        elif kind == "halo":
+            sd.update({f"{name}.{key}": t(group[key]) for key in ("weights", "biases")})
         else:
             _dense_from_jax(sd, name, group, t, name)
     for group, stats in (batch_stats or {}).items():
@@ -193,6 +198,8 @@ def params_to_jax(state_dict: dict[str, torch.Tensor]) -> dict:
             group = {"layer": update(None)} if W.dim() == 2 else {f"layer_{i}": update(i) for i in range(len(W))}
         elif kind == "query":
             group = {"query": a(state_dict[f"{name}.query"])}
+        elif kind == "halo":
+            group = {key: a(state_dict[f"{name}.{key}"]) for key in ("weights", "biases")}
         else:
             group = {}
             for key in keys:

@@ -25,8 +25,10 @@ and dirichlet); the loss is the task's (``_LOSSES``), named after the task
 (``mse`` for regression), and regression alone has the default metrics
 RMSE and MAE, on the same keys as there. Every layout takes the five
 readouts (sum, mean, max, gated, sdp) and keeps its kernels whatever the
-task. Graph-axis partitioning raises ``NotImplementedError`` until its
-slice is ported.
+task. ``graph_axis`` with ``partition`` builds the graph-partitioned models
+of the JAX package on the flat layout (``molecule``, ``replicate``,
+``halo``; see :func:`build_dmpnn`), trained by
+:class:`~notorch_tpu_torch.parallel.spmd.SpmdTrainer`.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.model.model import Model, fill_pred_transform_keys
 from notorch_tpu_torch.nn import agg
-from notorch_tpu_torch.nn.chemprop import PARALLEL_SLICE, ChempropBlock
+from notorch_tpu_torch.nn.chemprop import ChempropBlock
 from notorch_tpu_torch.nn.chemprop_dense import (
     DenseChempropBlock,
     DenseGated,
@@ -105,12 +107,12 @@ def regression_metrics(task: str, keys: dict) -> dict:
     return {"rmse": {"fn": M.RMSE(), "in_keys": keys}, "mae": {"fn": M.MAE(), "in_keys": keys}}
 
 
-def readout(readouts: dict, aggregation: str, hidden_dim: int, dtype=None):
+def readout(readouts: dict, aggregation: str, hidden_dim: int, dtype=None, **kwargs):
     """The ``aggregation`` readout of ``readouts`` at width ``hidden_dim``
     (the gated one's score layer computing in ``dtype``, as the JAX recipes
-    build it)."""
+    build it), with ``kwargs`` (a flat readout's ``psum_axis``)."""
     width = {"gated": {"input_dim": hidden_dim, "dtype": dtype}, "sdp": {"key_dim": hidden_dim}}
-    return readouts[aggregation](**width.get(aggregation, {}))
+    return readouts[aggregation](**width.get(aggregation, {}), **kwargs)
 
 
 def resolve_layout(
@@ -181,8 +183,17 @@ def build_dmpnn(
     ``Packed*`` readout. ``layout="flat"`` is ``GraphEmbedding`` ->
     ``ChempropBlock(impl, reduce, remat)`` -> the ``aggregation`` readout
     -> ``MLP``, on the flat collate (with ``csr_pack`` for ``impl="csr"``).
-    ``graph_axis`` and a ``partition`` other than the default raise
-    ``NotImplementedError``.
+
+    ``graph_axis`` + ``partition`` select the graph-partitioned scheme, on
+    the flat layout (``auto`` resolves to it; another layout raises JAX's
+    ``ValueError``): ``"molecule"`` (default; shards hold whole molecules,
+    :func:`~notorch_tpu_torch.parallel.partition.build_molecule_spmd_batch`;
+    the readout's ``[G, d]`` psum is the only traffic), ``"halo"`` (nodes in
+    contiguous blocks, boundary rows exchanged twice a layer by
+    :class:`~notorch_tpu_torch.parallel.halo.HaloChempropBlock`; reduce sum,
+    no dropout or remat) or ``"replicate"`` (edge shards over replicated
+    nodes, a ``[V, d]`` psum every layer). The readout sums over the graph
+    axis for ``molecule`` and ``halo``, the block for ``replicate``.
 
     ``dtype="bfloat16"`` computes the embeddings, the block, the readout
     and the head in bf16 (f32 parameters), as the JAX modules do; ``auto``
@@ -192,17 +203,27 @@ def build_dmpnn(
     (``dense_packed`` without dropout or max, ``dense_fused``) raises
     ``NotImplementedError``, as the JAX package cannot run one (see
     :func:`~notorch_tpu_torch.nn.chemprop_dense.refuse_bf16_state`)."""
-    if graph_axis is not None or partition != "molecule":
-        raise NotImplementedError(
-            f"graph_axis={graph_axis!r}, partition={partition!r}: graph-partitioned SPMD "
-            f"comes with {PARALLEL_SLICE}"
-        )
     layout = resolve_layout(
         layout, dropout=dropout, dtype=dtype, graph_axis=graph_axis,
         remat=remat, impl=impl, aggregation=aggregation, reduce=reduce,
     )
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}; options: {list(LAYOUTS)}")
+    if graph_axis is not None and layout != "flat":
+        raise ValueError(
+            f"graph-axis partitioning operates on the flat layout; got layout={layout!r} with graph_axis={graph_axis!r}"
+        )
+    if partition not in ("molecule", "replicate", "halo"):
+        raise ValueError(f"unknown partition scheme {partition!r}")
+    halo = partition == "halo" and graph_axis is not None
+    if halo and (dropout or remat):
+        raise ValueError("the halo message-passing block supports neither dropout nor remat; build with "
+                         "dropout=0.0, remat=False")
+    if halo and reduce != "sum":
+        raise ValueError("the halo message-passing block implements reduce='sum' (its boundary exchange "
+                         "accumulates partial sums)")
+    mp_axis = graph_axis if partition == "replicate" else None
+    readout_axis = graph_axis if partition in ("molecule", "halo") else None
     dt = compute_dtype(dtype)
     if layout == "dense_fused":
         if dropout and dropout > 0.0:
@@ -219,9 +240,14 @@ def build_dmpnn(
     num_edge_types = num_edge_types if num_edge_types is not None else DEFAULT_NUM_BOND_TYPES
     if layout == "flat":
         embed = GraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim, dtype=dt)
-        block = ChempropBlock(hidden_dim=hidden_dim, depth=depth, dropout=dropout, reduce=reduce,
-                              remat=remat, impl=impl, dtype=dt)
-        head = readout(FLAT_READOUTS, aggregation, hidden_dim, dt)
+        if halo:
+            from notorch_tpu_torch.parallel.halo import HaloChempropBlock
+
+            block = HaloChempropBlock(axis=graph_axis, hidden_dim=hidden_dim, depth=depth)
+        else:
+            block = ChempropBlock(hidden_dim=hidden_dim, depth=depth, dropout=dropout, reduce=reduce,
+                                  remat=remat, impl=impl, dtype=dt, psum_axis=mp_axis)
+        head = readout(FLAT_READOUTS, aggregation, hidden_dim, dt, psum_axis=readout_axis)
     else:
         embed = DenseGraphEmbedding(num_node_types, num_edge_types, hidden_dim=hidden_dim, dtype=dt)
         plain = layout == "dense" or (dropout and dropout > 0.0) or reduce == "max"

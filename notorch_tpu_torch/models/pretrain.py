@@ -4,9 +4,9 @@ Port of ``notorch_tpu.models.pretrain``: mask a fraction of atoms' type-index
 features (pointing them at each family's <UNK> slot), run message passing
 on the flat layout, and predict each masked atom's element id from its node
 hidden. :class:`MaskAtoms` is the JAX package's numpy code, so one seed
-gives the same masks and labels in both packages. The molecule-partitioned
-loss (``psum_axis``) and graph-axis partitioning raise
-``NotImplementedError``: they come with the parallel slice.
+gives the same masks and labels in both packages. ``graph_axis`` with a
+``partition`` trains on a data x graph mesh, as in the JAX package
+(:func:`build_masked_atom_pretrainer`).
 """
 
 from __future__ import annotations
@@ -21,9 +21,10 @@ from torch import nn
 from notorch_tpu_torch.conf import DEFAULT_HIDDEN_DIM
 from notorch_tpu_torch.data.graph import BatchedGraph, Graph
 from notorch_tpu_torch.model.model import Model
-from notorch_tpu_torch.nn.chemprop import PARALLEL_SLICE, ChempropBlock
+from notorch_tpu_torch.nn.chemprop import ChempropBlock
 from notorch_tpu_torch.nn.embed import GraphEmbedding
 from notorch_tpu_torch.nn.init import dense, reset_dense_
+from notorch_tpu_torch.parallel.collectives import psum
 from notorch_tpu_torch.tasks.losses import masked_reduce
 from notorch_tpu_torch.training.optim import OptimizerSpec
 from notorch_tpu_torch.transforms.atom import MultiTypeAtomTransform
@@ -101,21 +102,26 @@ class NodeHead(nn.Module):
 @dataclass(frozen=True)
 class MaskedNodeCrossEntropy:
     """Cross-entropy over masked node positions only (labels == -1 are
-    ignored), the masked mean."""
+    ignored), the masked mean.
+
+    ``psum_axis``: with molecule-partitioned (node-sharded) batches each
+    shard sees a disjoint node subset, so the global masked mean is the
+    ``psum`` of the local numerators over the ``psum`` of the local counts
+    (floored at 1); the value is then the same on every graph shard, as a
+    sharded trainer's count-once gate needs."""
 
     psum_axis: str | None = None
-
-    def __post_init__(self):
-        if self.psum_axis is not None:
-            raise NotImplementedError(
-                f"psum_axis={self.psum_axis!r} (the molecule-partitioned masked loss) comes with {PARALLEL_SLICE}"
-            )
 
     def __call__(self, logits, labels, **kw):
         mask = labels >= 0
         safe = labels.clamp_min(0).long()
         nll = -torch.log_softmax(logits, dim=-1).gather(-1, safe[:, None]).squeeze(-1)
-        return masked_reduce(nll[:, None], mask[:, None])
+        if self.psum_axis is None:
+            return masked_reduce(nll[:, None], mask[:, None])
+        fmask = mask.to(logits.dtype)
+        num = psum((nll * fmask).sum(), self.psum_axis)
+        den = psum(fmask.sum(), self.psum_axis)
+        return num / den.clamp_min(1.0)
 
 
 def build_masked_atom_pretrainer(
@@ -130,28 +136,28 @@ def build_masked_atom_pretrainer(
 ) -> Model:
     """embed -> chemprop -> per-node head -> masked cross-entropy on the
     element identity, under the JAX package's module names (``embed``,
-    ``mp``, ``head``) and loss name (``masked_ce``). ``graph_axis`` raises
-    ``NotImplementedError`` (the parallel slice); ``partition`` is checked
-    as in the JAX package and, without a graph axis, changes nothing.
+    ``mp``, ``head``) and loss name (``masked_ce``). ``graph_axis`` with
+    ``partition`` selects the graph-partitioned scheme, as in the JAX
+    package: ``"molecule"`` (shards hold whole molecules; only the loss's
+    numerator and count cross shards, ``MaskedNodeCrossEntropy(psum_axis)``)
+    or ``"replicate"`` (edge shards over replicated nodes; a ``psum`` of the
+    E->V sums every layer, ``ChempropBlock(psum_axis)``).
     Parameters are drawn from ``generator``; the model is built on the CPU.
     ``optimizer`` defaults to Adam at ``learning_rate``."""
     if partition not in ("molecule", "replicate"):
         raise ValueError(f"unknown partition scheme {partition!r}")
-    if graph_axis is not None:
-        raise NotImplementedError(
-            f"graph_axis={graph_axis!r}, partition={partition!r}: graph-partitioned pretraining comes with "
-            f"{PARALLEL_SLICE}"
-        )
+    mp_axis = graph_axis if partition == "replicate" else None
+    loss_axis = graph_axis if partition == "molecule" else None
     modules = {
         "embed": {"module": GraphEmbedding(DEFAULT_NUM_ATOM_TYPES, DEFAULT_NUM_BOND_TYPES, hidden_dim=hidden_dim),
                   "in_keys": ["inputs.G"], "out_keys": ["G"]},
-        "mp": {"module": ChempropBlock(hidden_dim=hidden_dim, depth=depth), "in_keys": ["embed.G"],
-               "out_keys": ["G"]},
+        "mp": {"module": ChempropBlock(hidden_dim=hidden_dim, depth=depth, psum_axis=mp_axis),
+               "in_keys": ["embed.G"], "out_keys": ["G"]},
         "head": {"module": NodeHead(num_classes=num_elements, hidden_dim=hidden_dim), "in_keys": ["mp.G"],
                  "out_keys": ["logits"]},
     }
-    losses = {"masked_ce": {"fn": MaskedNodeCrossEntropy(), "in_keys": ["head.logits", "inputs.node_labels"],
-                            "weight": 1.0}}
+    losses = {"masked_ce": {"fn": MaskedNodeCrossEntropy(psum_axis=loss_axis),
+                            "in_keys": ["head.logits", "inputs.node_labels"], "weight": 1.0}}
     model = Model(modules=modules, losses=losses,
                   optimizer=optimizer if optimizer is not None else OptimizerSpec("adam", learning_rate))
     model.reset_parameters(generator)

@@ -36,8 +36,16 @@ The block keeps its per-layer weights stacked, as the dense blocks do:
 residual add, as in the JAX layer; one
 :class:`~notorch_tpu_torch.nn.dropout.Dropout` of the block draws every
 layer's mask (outside the recomputed layer under ``remat``, so the backward
-sees the forward's masks). Edge-partitioned message passing
-(``psum_axis``) raises ``NotImplementedError``.
+sees the forward's masks).
+
+``psum_axis``: when a batch's *edges* are sharded over a mesh axis and its
+nodes replicated (the ``replicate`` partition of
+:mod:`notorch_tpu_torch.parallel.partition`), every E->V reduction is
+combined over the axis's ranks inside the forward (:func:`reduce_and_combine`:
+a ``psum`` of sums, a ``psum`` of sums and of real-edge counts for the mean,
+a ``pmax`` for max, which, as in JAX, does not train), as the JAX layer
+does; the axis name resolves to the group a sharded trainer binds
+(:mod:`notorch_tpu_torch.parallel.collectives`).
 """
 
 from __future__ import annotations
@@ -51,19 +59,15 @@ from notorch_tpu_torch.data.graph import BatchedGraph
 from notorch_tpu_torch.kernels.csr_segment import csr_segment_sum_packed
 from notorch_tpu_torch.nn.dropout import Dropout
 from notorch_tpu_torch.nn.init import lecun_normal_
-from notorch_tpu_torch.nn.ops import segment_reduce, take
+from notorch_tpu_torch.nn.ops import segment_reduce, segment_sum, take
+from notorch_tpu_torch.parallel.collectives import pmax_nondiff, psum
 from notorch_tpu_torch.utils import compute_dtype
 
 IMPLS = ("gather", "segment", "csr")
 REDUCES = ("sum", "mean", "max", "min")
-PARALLEL_SLICE = "the parallel slice of the port (ROADMAP.md queue A, item 7)"
 
 
-def _check_options(reduce: str, psum_axis: str | None, impl: str) -> None:
-    if psum_axis is not None:
-        raise NotImplementedError(
-            f"psum_axis={psum_axis!r} (edge-partitioned message passing) comes with {PARALLEL_SLICE}"
-        )
+def _check_options(reduce: str, impl: str) -> None:
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; options: {list(IMPLS)}")
     if reduce not in REDUCES:
@@ -96,13 +100,34 @@ def node_reduce(messages: torch.Tensor, G: BatchedGraph, reduce: str, impl: str)
     return segment_reduce(messages, G.dst, G.num_nodes, reduce)
 
 
+def reduce_and_combine(values: torch.Tensor, G: BatchedGraph, reduce: str, impl: str,
+                       axis: str | None) -> torch.Tensor:
+    """:func:`node_reduce`, combined over the ranks of ``axis`` when the
+    batch's edges are sharded over it. A sharded mean sums the ranks' sums
+    and their real-edge counts and divides once (the count floored at 1, as
+    ``segment_mean``), as the JAX ``_reduce_and_combine``."""
+    if axis is None:
+        return node_reduce(values, G, reduce, impl)
+    if reduce == "mean":
+        sums = psum(node_reduce(values, G, "sum", impl), axis)
+        ones = values.new_ones(values.shape[0], 1)
+        counts = psum(segment_sum(ones, G.dst, G.num_nodes), axis)
+        return sums / counts.clamp_min(1.0)
+    if reduce == "sum":
+        return psum(node_reduce(values, G, reduce, impl), axis)
+    if reduce == "max":
+        return pmax_nondiff(node_reduce(values, G, reduce, impl), axis)
+    raise NotImplementedError(f"edge-partitioned reduce={reduce!r} (sum, mean and max combine over shards)")
+
+
 def chemprop_layer(edge_hiddens, G: BatchedGraph, weight, bias, reduce: str, impl: str,
-                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   dtype: torch.dtype = torch.float32, axis: str | None = None) -> torch.Tensor:
     """One D-MPNN layer; ``weight`` ``[d_in, d]`` (the JAX ``[in, out]``
     layout), ``bias`` ``[d]`` or ``None``; the update computes in ``dtype``
-    as flax's ``Dense`` (the product rounded, then the bias add)."""
+    as flax's ``Dense`` (the product rounded, then the bias add); ``axis``
+    combines the E->V reduction over an edge-sharded batch's ranks."""
     messages = torch.relu(edge_hiddens)
-    node_messages = node_reduce(messages, G, reduce, impl)
+    node_messages = reduce_and_combine(messages, G, reduce, impl, axis)
     edge_messages = take(node_messages, G.src) - take(messages, G.rev)
     out = edge_messages.to(dtype) @ weight.to(dtype)
     return out if bias is None else out + bias.to(dtype)
@@ -123,9 +148,10 @@ class ChempropLayer(nn.Module):
         impl: str = "gather",
         dtype=None,
     ):
-        _check_options(reduce, psum_axis, impl)
+        _check_options(reduce, impl)
         super().__init__()
         self.dtype = compute_dtype(dtype)
+        self.psum_axis = psum_axis
         # torch.empty: values come from reset_parameters, never the global RNG
         self.update = nn.Linear(hidden_dim, hidden_dim, bias=bias, device="meta").to_empty(device="cpu")
         self.dropout = Dropout(dropout)
@@ -139,7 +165,7 @@ class ChempropLayer(nn.Module):
 
     def forward(self, edge_hiddens: torch.Tensor, G: BatchedGraph) -> torch.Tensor:
         return self.dropout(chemprop_layer(edge_hiddens, G, self.update.weight.T, self.update.bias,
-                                           self.reduce, self.impl, self.dtype))
+                                           self.reduce, self.impl, self.dtype, self.psum_axis))
 
 
 class ChempropBlock(nn.Module):
@@ -164,9 +190,10 @@ class ChempropBlock(nn.Module):
         remat: bool = False,
         dtype=None,
     ):
-        _check_options(reduce, psum_axis, impl)
+        _check_options(reduce, impl)
         super().__init__()
         self.dtype = compute_dtype(dtype)
+        self.psum_axis = psum_axis
         self.hidden_dim, self.depth = hidden_dim, depth
         self.residual, self.shared, self.reduce, self.impl, self.remat = residual, shared, reduce, impl, remat
         stack = () if shared else (depth,)
@@ -189,12 +216,12 @@ class ChempropBlock(nn.Module):
     def forward(self, G: BatchedGraph) -> BatchedGraph:
         edge_hiddens = take(G.node_feats, G.src) + G.edge_feats
         for layer in range(self.depth):
-            args = (edge_hiddens, G, *self._layer_params(layer), self.reduce, self.impl, self.dtype)
+            args = (edge_hiddens, G, *self._layer_params(layer), self.reduce, self.impl, self.dtype, self.psum_axis)
             if self.remat and torch.is_grad_enabled():
                 out = checkpoint(chemprop_layer, *args, use_reentrant=False)
             else:
                 out = chemprop_layer(*args)
             out = self.dropout(out)
             edge_hiddens = edge_hiddens + out if self.residual else out
-        node_hiddens = node_reduce(edge_hiddens, G, self.reduce, self.impl)
+        node_hiddens = reduce_and_combine(edge_hiddens, G, self.reduce, self.impl, self.psum_axis)
         return G.update(node_feats=node_hiddens, edge_feats=edge_hiddens)

@@ -14,7 +14,10 @@ in eval it normalises by the running averages. They are the buffers
 ``running_mean`` and ``running_var`` of its inner module (named
 ``batch_norm`` as the JAX module's inner ``BatchNorm_0``), so the
 ``state_dict``, a checkpoint and a resumed run carry them as the JAX
-package's ``batch_stats`` collection.
+package's ``batch_stats`` collection. Under
+:class:`~notorch_tpu_torch.parallel.dense_dp.DenseDataParallel` the
+training statistics are the global batch's: the ranks' sums and counts are
+summed over the data group inside the forward, as GSPMD computes them.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from itertools import accumulate
 
 import torch
 from torch import nn
+
+from notorch_tpu_torch.parallel.collectives import batch_stats_axis, psum
 
 __all__ = ["Add", "Mul", "Cat", "Split", "MatMul", "Einsum", "Identity", "BatchNorm", "Residual"]
 
@@ -104,8 +109,14 @@ class _FlaxBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             rows = x.reshape(-1, x.shape[-1])
-            mean = rows.mean(dim=0)
-            var = ((rows * rows).mean(dim=0) - mean * mean).clamp_min(0.0)
+            axis = batch_stats_axis()
+            if axis is None:
+                mean = rows.mean(dim=0)
+                var = ((rows * rows).mean(dim=0) - mean * mean).clamp_min(0.0)
+            else:  # the global batch's, over the data group
+                n = psum(rows.new_full((), float(rows.shape[0])), axis)
+                mean = psum(rows.sum(dim=0), axis) / n
+                var = (psum((rows * rows).sum(dim=0), axis) / n - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

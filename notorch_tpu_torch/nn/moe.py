@@ -21,6 +21,12 @@ Port of ``notorch_tpu.nn.moe``:
   training, so that each draws its own masks (a batched call would give
   every expert one mask), and its dropouts sit in the module tree
   (``expert_dropouts``), so that the training state carries their streams.
+  Under expert parallelism (:func:`~notorch_tpu_torch.parallel.expert.
+  shard_expert_params`) a rank keeps a contiguous slice of the experts,
+  computes those alone and sums the router-weighted combine over the
+  ``expert`` group (a ``psum``, whose backward sums the cotangent). Its
+  trainer takes the routers' importance and load over the global batch
+  (:func:`batch_total`), as the JAX package's GSPMD step does.
 
 The routers' widths are given (``input_dim``), where flax infers them.
 """
@@ -36,8 +42,9 @@ from torch.func import functional_call, vmap
 
 from notorch_tpu_torch.nn.dropout import Dropout
 from notorch_tpu_torch.nn.init import dense, reset_dense_
+from notorch_tpu_torch.parallel.collectives import batch_stats_axis, psum
 
-__all__ = ["cv_squared", "kth_excluding", "keep_top_k", "DenseRouter", "SparseRouter", "router",
+__all__ = ["cv_squared", "batch_total", "kth_excluding", "keep_top_k", "DenseRouter", "SparseRouter", "router",
            "MixtureOfExperts", "MoEMLP"]
 
 
@@ -47,6 +54,15 @@ def cv_squared(x: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     if x.shape[-1] <= 1:
         return x.new_zeros(())
     return x.var(correction=0) / (x.mean() ** 2 + eps)
+
+
+def batch_total(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (a router's per-expert sum over its tokens) summed over the data
+    ranks where a trainer takes its statistics over the global batch
+    (:func:`~notorch_tpu_torch.parallel.collectives.batch_stats_axis`), as
+    the JAX package's GSPMD step sums it over the whole batch; else ``x``."""
+    axis = batch_stats_axis()
+    return x if axis is None else psum(x, axis)
 
 
 def kth_excluding(H: torch.Tensor, k: int) -> torch.Tensor:
@@ -79,7 +95,7 @@ class DenseRouter(nn.Module):
 
     def forward(self, x: torch.Tensor):
         weights = torch.softmax(self.W_g(x), dim=-1)
-        return weights, cv_squared(weights.sum(dim=0))
+        return weights, cv_squared(batch_total(weights.sum(dim=0)))
 
 
 class SparseRouter(nn.Module):
@@ -111,7 +127,7 @@ class SparseRouter(nn.Module):
         # load-balancing loss: P(expert e in top k) through the Normal CDF
         kth = kth_excluding(noisy, self.k)
         normal_cdf = 0.5 * (1 + torch.erf((clean - kth) / (noise_scale * math.sqrt(2.0))))
-        aux = cv_squared(weights.sum(dim=0)) + cv_squared(normal_cdf.sum(dim=0))
+        aux = cv_squared(batch_total(weights.sum(dim=0))) + cv_squared(batch_total(normal_cdf.sum(dim=0)))
         return weights, aux
 
 
@@ -152,6 +168,10 @@ class MixtureOfExperts(nn.Module):
                     owner.add_module(part, nn.Module())
                 owner = getattr(owner, part)
             owner.register_parameter(leaf, nn.Parameter(p.detach().new_empty((num_experts, *p.shape))))
+        # expert parallelism: the mesh axis the expert stacks are split over
+        # and this rank's experts [start, stop) (all of them unsharded)
+        self.expert_axis: str | None = None
+        self.expert_range = (0, num_experts)
 
     @property
     def router(self) -> nn.Module:
@@ -171,12 +191,16 @@ class MixtureOfExperts(nn.Module):
         weights, aux = self.router(x)
         expert = self._expert[0].train(self.training)
         params = dict(self.experts.named_parameters())
+        start, stop = self.expert_range
         if self.training and len(self.expert_dropouts):
             outs = torch.stack([functional_call(expert, {k: v[i] for k, v in params.items()}, (x,))
-                                for i in range(self.num_experts)])
+                                for i in range(stop - start)])
         else:
             outs = vmap(lambda p: functional_call(expert, p, (x,)))(params)  # [n, N, d]
-        return torch.einsum("ne,end->nd", weights, outs), aux
+        out = torch.einsum("ne,end->nd", weights[:, start:stop], outs)
+        if self.expert_axis is not None:
+            out = psum(out, self.expert_axis)
+        return out, aux
 
 
 def MoEMLP(

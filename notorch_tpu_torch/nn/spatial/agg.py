@@ -42,11 +42,12 @@ class Max(nn.Module):
 
 
 class Gated(nn.Module):
-    """Learned softmax-attention pooling over each cloud's real points."""
+    """Learned softmax-attention pooling over each cloud's real points, the
+    score layer ``a`` computing in ``dtype``."""
 
-    def __init__(self, input_dim: int = DEFAULT_HIDDEN_DIM):
+    def __init__(self, input_dim: int = DEFAULT_HIDDEN_DIM, dtype=None):
         super().__init__()
-        self.a = dense(input_dim, 1)
+        self.a = dense(input_dim, 1, dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         reset_dense_(self.a, generator)

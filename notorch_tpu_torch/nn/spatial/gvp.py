@@ -22,6 +22,16 @@ them. :class:`GvpGNNBlock` takes ``input_dim`` for ``in_proj`` (default
 Parameters keep the JAX names (``W_h``, ``W_mu``, ``W_m``, ``W_g``,
 ``scalar_ln``, ``message_i``, ``update_i``, ``layer_i``, ``in_proj``); the
 fused and plain impls share one tree.
+
+``dtype`` (float32 or bfloat16) is every dense layer's compute dtype, as
+flax's ``Dense(dtype=...)`` (f32 parameters, the product rounded); the
+RBF and unit-vector edge features stay f32, and the scalars' LayerNorm
+returns f32 (flax promotes a bf16 input against its f32 scale). At bf16 the
+neighbour gather's backward sums in f32 and rounds once, as the JAX
+``_nbr_take``'s one-hot contraction, up to its size limit, past which it
+is XLA's ordered bf16 scatter-add (:func:`nbr_take`). ``impl="fused"``
+(TPU kernel rows 14-15) is float32 only, as in JAX: at bf16 it raises
+``ValueError``.
 """
 
 from __future__ import annotations
@@ -34,22 +44,23 @@ from torch import nn
 from notorch_tpu_torch.data.point_cloud import BatchedPointCloud
 from notorch_tpu_torch.kernels.gvp_conv import fused_gvp_conv, split_gvp_weights
 from notorch_tpu_torch.nn.dropout import Dropout
+from notorch_tpu_torch.nn.functional import sigmoid
 from notorch_tpu_torch.nn.init import dense, reset_module_
 from notorch_tpu_torch.nn.ops import segment_mean, segment_sum, take
 from notorch_tpu_torch.nn.rbf import RBFEmbedding
 from notorch_tpu_torch.nn.spatial.neighbors import radius_neighbors
-from notorch_tpu_torch.utils import SPATIAL_DTYPE_ITEM, require_f32
+from notorch_tpu_torch.utils import compute_dtype
 
 EPS = 1e-8
 IMPLS = ("auto", "fused", "jnp")
+# the JAX _nbr_take's one-hot backward (f32 sums) up to this many gathered rows
+ONEHOT_BWD_MAX_NK = 128 * 1024
 
 
 def _norm(v: torch.Tensor, axis: int = -2, keepdims: bool = False) -> torch.Tensor:
     return torch.sqrt((v**2).sum(dim=axis, keepdim=keepdims) + EPS)
 
 
-def _no_bias_dense(in_features: int, out_features: int) -> nn.Linear:
-    return nn.Linear(in_features, out_features, bias=False, device="meta").to_empty(device="cpu")
 
 
 class GVP(nn.Module):
@@ -59,12 +70,12 @@ class GVP(nn.Module):
     ``max(in_vector, out_vector)``, the JAX default."""
 
     def __init__(self, in_scalar: int, in_vector: int, out_scalar: int, out_vector: int,
-                 vector_act: Callable | None = torch.sigmoid):
+                 vector_act: Callable | None = sigmoid, dtype=None):
         super().__init__()
         h = max(in_vector, out_vector)
-        self.W_h = _no_bias_dense(in_vector, h)
-        self.W_mu = _no_bias_dense(h, out_vector)
-        self.W_m = dense(in_scalar + h, out_scalar)
+        self.W_h = dense(in_vector, h, bias=False, dtype=dtype)
+        self.W_mu = dense(h, out_vector, bias=False, dtype=dtype)
+        self.W_m = dense(in_scalar + h, out_scalar, dtype=dtype)
         self.vector_act = vector_act
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -85,13 +96,13 @@ class GatedGVP(nn.Module):
     pre-activation (``W_g``)."""
 
     def __init__(self, in_scalar: int, in_vector: int, out_scalar: int, out_vector: int,
-                 vector_act: Callable | None = torch.sigmoid):
+                 vector_act: Callable | None = sigmoid, dtype=None):
         super().__init__()
         h = max(in_vector, out_vector)
-        self.W_h = _no_bias_dense(in_vector, h)
-        self.W_mu = _no_bias_dense(h, out_vector)
-        self.W_m = dense(in_scalar + h, out_scalar)
-        self.W_g = dense(out_scalar, out_vector)
+        self.W_h = dense(in_vector, h, bias=False, dtype=dtype)
+        self.W_mu = dense(h, out_vector, bias=False, dtype=dtype)
+        self.W_m = dense(in_scalar + h, out_scalar, dtype=dtype)
+        self.W_g = dense(out_scalar, out_vector, dtype=dtype)
         self.vector_act = vector_act
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -117,8 +128,9 @@ class GatedGVP(nn.Module):
 
 
 class DualRankLayerNorm(nn.Module):
-    """LayerNorm of the scalars (flax's epsilon 1e-6), RMS normalisation of
-    the vectors' norms (rotation-safe)."""
+    """LayerNorm of the scalars (flax's epsilon 1e-6; in f32, whatever the
+    input's dtype, as flax's against its f32 scale), RMS normalisation of the
+    vectors' norms (rotation-safe)."""
 
     def __init__(self, scalar_dim: int):
         super().__init__()
@@ -131,7 +143,7 @@ class DualRankLayerNorm(nn.Module):
         s, v = sv
         norms2 = (v**2).sum(dim=-2, keepdim=True)  # [*, 1, dv]
         rms = torch.sqrt(norms2.mean(dim=-1, keepdim=True) + EPS)
-        return self.scalar_ln(s), v / rms
+        return self.scalar_ln(s.float()), v / rms
 
 
 class DualRankDropout(nn.Module):
@@ -175,7 +187,13 @@ def nbr_take(x: torch.Tensor, nbrs: torch.Tensor) -> torch.Tensor:
     """The neighbour gather ``x[nbrs]`` (``[N, ...]`` x ``[N, K]`` ->
     ``[N, K, ...]``) of the JAX ``_nbr_take``; its backward is the
     scatter-add that the JAX one-hot contraction computes, each node's terms
-    added in ascending order (:func:`~notorch_tpu_torch.nn.ops.take`)."""
+    added in ascending order (:func:`~notorch_tpu_torch.nn.ops.take`). A
+    bf16 ``x`` is gathered through f32 up to ``ONEHOT_BWD_MAX_NK`` rows, so
+    its backward sums in f32 and rounds once, as the one-hot contraction
+    (``preferred_element_type=float32``); past that, as the JAX backward's
+    ``segment_sum``, in bf16 in order."""
+    if x.dtype == torch.bfloat16 and nbrs.numel() <= ONEHOT_BWD_MAX_NK:
+        return take(x.float(), nbrs).to(x.dtype)
     return take(x, nbrs)
 
 
@@ -193,7 +211,7 @@ class GvpConv(nn.Module):
                  num_bases: int = 16, num_message_gvps: int = 3, dropout: float = 0.0, dtype=None,
                  neighbor_window: int | None = None, impl: str = "auto"):
         super().__init__()
-        require_f32(dtype, "GVP stack", SPATIAL_DTYPE_ITEM)
+        self.dtype = compute_dtype(dtype)
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.scalar_dim, self.vector_dim = scalar_dim, vector_dim
@@ -205,7 +223,8 @@ class GvpConv(nn.Module):
         for i in range(num_message_gvps):
             last = i == num_message_gvps - 1
             in_s, in_v = (2 * ds + num_bases, 2 * dv + 1) if i == 0 else (ds, dv)
-            self.add_module(f"message_{i}", GatedGVP(in_s, in_v, ds, dv, vector_act=None if last else torch.sigmoid))
+            self.add_module(f"message_{i}", GatedGVP(in_s, in_v, ds, dv, vector_act=None if last else sigmoid,
+                                                     dtype=dtype))
         self.dropout = DualRankDropout(dropout)
         self.ln = DualRankLayerNorm(ds)
 
@@ -216,7 +235,7 @@ class GvpConv(nn.Module):
         if self.impl != "fused":
             return False
         ok = (self.neighbor_window is not None and self.dropout_rate == 0.0 and self.num_message_gvps == 3
-              and N % 64 == 0)
+              and self.dtype == torch.float32 and N % 64 == 0)
         if not ok:
             raise ValueError(
                 "impl='fused' needs neighbor_window set, dropout=0, num_message_gvps=3, f32, and a node count "
@@ -276,7 +295,7 @@ class GvpGNNLayer(nn.Module):
                             neighbor_window=neighbor_window, impl=impl)
         self.num_update_gvps = num_update_gvps
         for i in range(num_update_gvps):
-            self.add_module(f"update_{i}", GatedGVP(scalar_dim, vector_dim, scalar_dim, vector_dim))
+            self.add_module(f"update_{i}", GatedGVP(scalar_dim, vector_dim, scalar_dim, vector_dim, dtype=dtype))
         self.dropout = DualRankDropout(dropout)
         self.ln = DualRankLayerNorm(scalar_dim)
 
@@ -304,7 +323,7 @@ class GvpGNNBlock(nn.Module):
         super().__init__()
         self.scalar_dim, self.vector_dim, self.depth = scalar_dim, vector_dim, depth
         self.radius, self.max_neighbors, self.neighbor_window = radius, max_neighbors, neighbor_window
-        self.in_proj = dense(input_dim or scalar_dim, scalar_dim)
+        self.in_proj = dense(input_dim or scalar_dim, scalar_dim, dtype=dtype)
         for i in range(depth):
             self.add_module(f"layer_{i}", GvpGNNLayer(scalar_dim, vector_dim, radius, max_neighbors, dropout=dropout,
                                                       dtype=dtype, neighbor_window=neighbor_window, impl=impl))

@@ -8,7 +8,8 @@ a gate that scales the second mixing. Rotation-equivariant in the vectors.
 
 flax infers the input widths at the first call; the port is told them:
 ``in_scalar`` and ``in_vector`` (default ``scalar_dim`` and
-``vector_dim``).
+``vector_dim``). ``dtype`` is every dense layer's compute dtype, as
+flax's ``Dense(dtype=...)``.
 """
 
 from __future__ import annotations
@@ -16,26 +17,24 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from notorch_tpu_torch.nn.functional import silu
 from notorch_tpu_torch.nn.init import dense, reset_module_
-from notorch_tpu_torch.utils import SPATIAL_DTYPE_ITEM, require_f32
 
 EPS = 1e-8
 
 
 class GatedEquivariantBlock(nn.Module):
-    def __init__(self, scalar_dim: int, vector_dim: int, act: Callable = F.silu, dtype=None,
+    def __init__(self, scalar_dim: int, vector_dim: int, act: Callable = silu, dtype=None,
                  in_scalar: int | None = None, in_vector: int | None = None):
         super().__init__()
-        require_f32(dtype, "gated equivariant block", SPATIAL_DTYPE_ITEM)
         self.scalar_dim, self.vector_dim, self.act = scalar_dim, vector_dim, act
         in_v = in_vector or vector_dim
-        self.W_1 = dense(in_v, vector_dim, bias=False)
-        self.W_2 = dense(in_v, vector_dim, bias=False)
-        self.mlp_0 = dense((in_scalar or scalar_dim) + vector_dim, scalar_dim + vector_dim)
-        self.mlp_1 = dense(scalar_dim + vector_dim, scalar_dim + vector_dim)
+        self.W_1 = dense(in_v, vector_dim, bias=False, dtype=dtype)
+        self.W_2 = dense(in_v, vector_dim, bias=False, dtype=dtype)
+        self.mlp_0 = dense((in_scalar or scalar_dim) + vector_dim, scalar_dim + vector_dim, dtype=dtype)
+        self.mlp_1 = dense(scalar_dim + vector_dim, scalar_dim + vector_dim, dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         reset_module_(self, generator)

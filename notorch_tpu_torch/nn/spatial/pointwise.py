@@ -1,8 +1,8 @@
 """Pointwise modules for point clouds.
 
 Port of ``notorch_tpu.nn.spatial.pointwise``: :class:`PointwiseEmbed`
-(the sum of the node type ids' embeddings, its table named ``node`` as
-there) and :class:`Pointwise` (lift a feature module onto
+(the sum of the node type ids' embeddings in ``dtype``, its table named
+``node`` as there) and :class:`Pointwise` (lift a feature module onto
 ``P.node_feats``).
 """
 
@@ -18,9 +18,9 @@ from notorch_tpu_torch.transforms.vocab import DEFAULT_NUM_ATOM_TYPES
 
 
 class PointwiseEmbed(nn.Module):
-    def __init__(self, num_types: int = DEFAULT_NUM_ATOM_TYPES, hidden_dim: int = DEFAULT_HIDDEN_DIM):
+    def __init__(self, num_types: int = DEFAULT_NUM_ATOM_TYPES, hidden_dim: int = DEFAULT_HIDDEN_DIM, dtype=None):
         super().__init__()
-        self.node = EmbeddingBagSum(num_types, hidden_dim)
+        self.node = EmbeddingBagSum(num_types, hidden_dim, dtype)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         self.node.reset_parameters(generator)

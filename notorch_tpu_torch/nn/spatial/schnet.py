@@ -15,6 +15,13 @@ by float atomics).
 
 Parameters keep the JAX names: ``interaction_{i}`` holding ``in_proj``,
 ``cfconv`` (``filter_0``, ``filter_1``), ``out_proj_0`` and ``out_proj_1``.
+
+``dtype`` (float32 or bfloat16) is every dense layer's compute dtype, as
+flax's ``Dense(dtype=...)`` (:class:`~notorch_tpu_torch.nn.init.Dense`:
+f32 parameters, the product rounded); the RBF expansion stays f32 and is
+rounded by the filter's first layer, as in JAX. At bf16 the neighbour
+gather's backward is the ordered bf16 sum (TPU kernel row 8b on the card),
+as XLA's bf16 scatter-add.
 """
 
 from __future__ import annotations
@@ -31,14 +38,19 @@ from notorch_tpu_torch.nn.init import dense, reset_module_
 from notorch_tpu_torch.nn.ops import take
 from notorch_tpu_torch.nn.rbf import RBFEmbedding
 from notorch_tpu_torch.nn.spatial.neighbors import radius_neighbors
-from notorch_tpu_torch.utils import SPATIAL_DTYPE_ITEM, require_f32
 
 
 def shifted_softplus(x: torch.Tensor) -> torch.Tensor:
     """``log(1 + e^x) - log 2`` as JAX's ``logaddexp(x, 0) - log(2)``
     (``F.softplus`` switches to ``x`` above its threshold of 20, which
-    rounds differently)."""
-    return torch.logaddexp(x, x.new_zeros(())) - math.log(2.0)
+    rounds differently). Below f32 it takes ``lax.logaddexp``'s steps,
+    ``max(x, 0) + log1p(exp(-|x|))``, each rounded to the dtype as XLA rounds
+    them (``torch.logaddexp`` rounds once)."""
+    zero = x.new_zeros(())
+    if x.dtype == torch.float32:
+        return torch.logaddexp(x, zero) - math.log(2.0)
+    out = torch.maximum(x, zero) + torch.log1p(torch.exp(-(x - zero).abs()))
+    return torch.where(torch.isnan(x), x, out) - math.log(2.0)
 
 
 class ContinuousFilterConvolution(nn.Module):
@@ -52,12 +64,11 @@ class ContinuousFilterConvolution(nn.Module):
                  num_bases: int = 16, act: Callable = shifted_softplus, dtype=None,
                  neighbor_window: int | None = None):
         super().__init__()
-        require_f32(dtype, "SchNet stack", SPATIAL_DTYPE_ITEM)
         self.radius, self.max_neighbors, self.neighbor_window = radius, max_neighbors, neighbor_window
         self.act = act
         self.rbf = RBFEmbedding(0.0, radius, num_bases)
-        self.filter_0 = dense(num_bases, hidden_dim)
-        self.filter_1 = dense(hidden_dim, hidden_dim)
+        self.filter_0 = dense(num_bases, hidden_dim, dtype=dtype)
+        self.filter_1 = dense(hidden_dim, hidden_dim, dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         reset_module_(self, generator)
@@ -85,11 +96,11 @@ class InteractionLayer(nn.Module):
                  neighbor_window: int | None = None):
         super().__init__()
         self.act = act
-        self.in_proj = dense(hidden_dim, hidden_dim)
+        self.in_proj = dense(hidden_dim, hidden_dim, dtype=dtype)
         self.cfconv = ContinuousFilterConvolution(hidden_dim, radius, max_neighbors, num_bases, act, dtype,
                                                   neighbor_window=neighbor_window)
-        self.out_proj_0 = dense(hidden_dim, hidden_dim)
-        self.out_proj_1 = dense(hidden_dim, hidden_dim)
+        self.out_proj_0 = dense(hidden_dim, hidden_dim, dtype=dtype)
+        self.out_proj_1 = dense(hidden_dim, hidden_dim, dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
         reset_module_(self, generator)

@@ -33,14 +33,3 @@ def compute_dtype(dtype) -> torch.dtype:
         raise ValueError(f"dtype must be one of {sorted(COMPUTE_DTYPES)}, got {dtype!r}")
     return COMPUTE_DTYPES[name]
 
-
-# the ROADMAP item of a spatial stack below float32 (no kernel on that path)
-SPATIAL_DTYPE_ITEM = "ROADMAP.md queue A item 5c (the spatial stacks at dtype)"
-
-
-def require_f32(dtype, what: str, item: str) -> None:
-    """Refuse a dtype other than float32 (``None`` is the default, float32)
-    where the port runs ``what`` in float32 only; ``item`` names the
-    ROADMAP queue item that brings the rest."""
-    if compute_dtype(dtype) != torch.float32:
-        raise NotImplementedError(f"dtype={dtype!r}: the port's {what} runs in float32 until {item}")

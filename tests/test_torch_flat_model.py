@@ -173,12 +173,14 @@ def test_csr_block_refuses_a_batch_without_packing(pair):
     ChempropBlock(hidden_dim=D, impl="csr", reduce="mean")(G)  # mean and max take the segment ops
 
 
-def test_block_refusals():
+def test_block_refusals(pair):
     assert ChempropBlock(hidden_dim=D, dropout=0.1).dropout.rate == 0.1  # edge dropout is ported
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        ChempropBlock(hidden_dim=D, psum_axis="graph")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        registry.build({"class": "Mean", "args": {"psum_axis": "graph"}})
+    # an axis name resolves inside a sharded trainer's step alone, as in JAX
+    G = pair["G"].update(node_feats=t(pair["nf"]), edge_feats=t(pair["ef"]))
+    with pytest.raises(NameError, match="unbound axis name: graph"):
+        ChempropBlock(hidden_dim=D, psum_axis="graph")(G)
+    with pytest.raises(NameError, match="unbound axis name: graph"):
+        registry.build({"class": "Mean", "args": {"psum_axis": "graph"}})(G)
     with pytest.raises(ValueError, match="impl"):
         ChempropBlock(hidden_dim=D, impl="dense")
 
@@ -370,10 +372,22 @@ def test_declarative_example_network_matches_jax(datasets):
 
 
 def test_flat_model_refusals():
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        build_dmpnn(hidden_dim=8, layout="flat", graph_axis="graph")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        build_dmpnn(hidden_dim=8, layout="flat", partition="halo")
+    """Graph-axis partitioning builds as in JAX (molecule: the readout sums
+    over the axis; halo: the halo block and the readout; replicate: the
+    block), on the flat layout only; the halo block refuses dropout and any
+    reduce but sum, as there; a partition without a graph axis changes
+    nothing."""
+    molecule = build_dmpnn(hidden_dim=8, layout="flat", graph_axis="graph").network
+    assert molecule["readout"].psum_axis == "graph" and molecule["mp"].psum_axis is None
+    assert type(build_dmpnn(hidden_dim=8, graph_axis="graph", partition="halo").network["mp"]).__name__ == (
+        "HaloChempropBlock")
+    assert isinstance(build_dmpnn(hidden_dim=8, layout="flat", partition="halo").network["mp"], ChempropBlock)
+    for kwargs, match in (({"layout": "dense"}, "flat layout"), ({"partition": "halo", "dropout": 0.1}, "dropout"),
+                          ({"partition": "halo", "reduce": "mean"}, "reduce"), ({"partition": "edges"}, "partition")):
+        with pytest.raises(ValueError, match=match):
+            build_dmpnn(hidden_dim=8, graph_axis="graph", **kwargs)
+        with pytest.raises(ValueError, match=match):
+            jax_build_dmpnn(hidden_dim=8, graph_axis="graph", **kwargs)
     block = build_dmpnn(hidden_dim=8, layout="flat", impl="csr", dtype="bfloat16").network["mp"]
     assert isinstance(block, ChempropBlock) and block.impl == "csr" and block.dtype == torch.bfloat16  # row 9b
     assert isinstance(build_dmpnn(hidden_dim=8, remat=True).network["mp"], ChempropBlock)  # auto -> flat

@@ -203,8 +203,8 @@ def test_gvp_conv_refusals():
         GvpConv(DS, DV, neighbor_window=24, num_message_gvps=2, impl="fused")((s[:64], v[:64]), P)
     with pytest.raises(ValueError, match="dropout=0"):  # dropout is ported, but not in the kernels
         GvpConv(DS, DV, neighbor_window=24, dropout=0.1, impl="fused")((s[:64], v[:64]), P)
-    with pytest.raises(NotImplementedError, match="float32"):
-        GvpConv(DS, DV, dtype="bfloat16")
+    with pytest.raises(ValueError, match="f32"):  # the fused conv is f32 only, as in JAX; the plain conv takes bf16
+        GvpConv(DS, DV, neighbor_window=24, dtype="bfloat16", impl="fused")((s[:64], v[:64]), P)
     with pytest.raises(ValueError, match="impl"):
         GvpConv(DS, DV, impl="pallas")
 

@@ -51,7 +51,9 @@ def test_port_imports_no_jax():
                  "data.databases", "data.gvp", "exceptions", "transforms.point_cloud", "nn.spatial.schnet",
                  "nn.spatial.painn", "nn.dropout", "nn.init", "nn.mlp", "nn.chemprop_dense", "utils",
                  "native", "training.profiling", "training.debugging", "training.logging",
-                 "__main__"):
+                 "parallel", "parallel.collectives", "parallel.dense_dp", "parallel.distributed", "parallel.expert",
+                 "parallel.halo", "parallel.loader", "parallel.mesh", "parallel.partition", "parallel.spmd",
+                 "data.halo", "__main__"):
         assert f"notorch_tpu_torch.{name}" in report["modules"]
     assert report["banned"] == []
 

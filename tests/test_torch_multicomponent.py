@@ -281,9 +281,10 @@ def test_fingerprint_batch_norm_config_resumes_and_serves(tmp_path):
     np.testing.assert_allclose(served, direct["ffn.preds"][:16, 0], rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["multicomponent", "reaction_regression", "moe_regression", "pcqm4m_pretrain"])
+@pytest.mark.parametrize("name", ["multicomponent", "reaction_regression", "moe_regression", "pcqm4m_pretrain",
+                                  "dmpnn_halo"])
 def test_chip_smoke_slice_configs_are_the_shipped_ones(name, tmp_path):
-    """chip_smoke.py writes the four configs out (the card's machine may
+    """chip_smoke.py writes the five configs out (the card's machine may
     lack a YAML parser): each is the file as shipped, and slice_config
     changes only the data file, the epochs and the checkpoint directory."""
     import chip_smoke

@@ -165,20 +165,28 @@ def test_pretrain_run_gate_catches_a_scaled_weight(jax_pretrain_run, tmp_path, m
 
 
 def test_what_stays_unported_raises_naming_its_slice(tmp_path):
-    """trainer.spmd (pretraining and supervised), the molecule-partitioned
-    loss and graph-axis pretraining name the parallel slice. The spatial
+    """Nothing of pretraining stays unported. trainer.spmd runs (on a mesh of
+    processes, tests/test_torch_parallel_cli.py); here, in a world of one
+    process, the 4 x 2 mesh raises make_mesh's ValueError before anything is
+    written, as the JAX make_mesh does on too few devices. The
+    molecule-partitioned loss and graph-axis pretraining build with JAX's
+    partition rule, and their collectives outside a sharded trainer's step
+    raise NameError, as an unbound axis name does in JAX. The spatial
     names, once refused, build and equal JAX's, and every name of the JAX
     registry resolves."""
     cfg = pretrain_cfg(tmp_path / "spmd", spmd={"data": 4, "graph": 2})
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(ValueError, match="does not match 1 devices"):
         run(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
+    with pytest.raises(ValueError, match="does not match 1 devices"):
         run_pretrain(copy.deepcopy(cfg), device="cpu")
     assert not (tmp_path / "spmd").exists()
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        MaskedNodeCrossEntropy(psum_axis="graph")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        build_masked_atom_pretrainer(hidden_dim=8, depth=1, graph_axis="graph")
+    loss = MaskedNodeCrossEntropy(psum_axis="graph")
+    with pytest.raises(NameError, match="unbound axis name: graph"):
+        loss(torch.zeros(3, 5), torch.tensor([1, -1, 2]))
+    molecule = build_masked_atom_pretrainer(hidden_dim=8, depth=1, graph_axis="graph")
+    assert molecule.losses["masked_ce"]["fn"].psum_axis == "graph" and molecule.network["mp"].psum_axis is None
+    replicate = build_masked_atom_pretrainer(hidden_dim=8, depth=1, graph_axis="graph", partition="replicate")
+    assert replicate.network["mp"].psum_axis == "graph" and replicate.losses["masked_ce"]["fn"].psum_axis is None
     spatial_names_build_and_equal_jax()
     assert not hasattr(registry, "LATER")
     assert set(registry.REGISTRY) == set(jax_registry.REGISTRY)
